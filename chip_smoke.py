@@ -4,13 +4,15 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
 ``dynamo_tpu_torch/csrc`` with nvcc, holds each kernel against its plain
-PyTorch version at the shapes the serving path gives it, runs the
-full-width llama-3.2-1b model on the kernel path against the plain path,
-then serves ``dynamo_tpu_torch.run in=http out=llama-3.2-1b`` and sends it
-concurrent requests, counting the kernel's launches. Every phase prints one
-JSON line; any failure raises and exits non-zero. The last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
-prints no result.
+PyTorch version at the shapes the serving path gives it (and times the
+launch-overhead probe), runs the full-width llama-3.2-1b model on the
+kernel paths against the plain paths, times a decode and a mixed step,
+then serves ``dynamo_tpu_torch.run in=http out=llama-3.2-1b`` twice, on
+the megakernel path and on the per-piece path (``attention_impl="paged",
+prefill_impl="flash"``), sending each concurrent requests and counting
+every kernel's launches. Every phase prints JSON lines; any failure raises
+and exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits 2 and prints no result.
 
 ``--phases`` runs a subset of kernel,model,breakdown,serve (env and build
 always run) for iteration; the full run is the default.
@@ -33,8 +35,15 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 CUDA-core
-TPU_KERNEL = "dynamo_tpu/engine/attention/megakernel.py:123"  # _mega_kernel, launched at :296
+# The Pallas kernel body each CUDA kernel replaces (its pallas_call line).
+TPU_KERNEL = {
+    "ragged_paged_attention": "dynamo_tpu/engine/attention/megakernel.py:123",  # :296
+    "flash_chunk_attention": "dynamo_tpu/engine/attention/prefill.py:46",  # :168
+    "paged_decode_partials": "dynamo_tpu/engine/attention/decode.py:65",  # :173
+    "nop": "bench.py:142",  # :145
+}
 PRESET = "llama-3.2-1b"
+PER_PIECE = dict(attention_impl="paged", prefill_impl="flash")
 
 
 def emit(phase: str, **fields) -> None:
@@ -47,6 +56,35 @@ def gpu_name_and_power() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_modules():
+    """name → module of every kernel wrapper (each has KERNEL_LAUNCHES and
+    REF_CALLS)."""
+    from dynamo_tpu_torch import bench
+    from dynamo_tpu_torch.engine.attention import decode, megakernel, prefill
+
+    return {"ragged_paged_attention": megakernel, "flash_chunk_attention": prefill,
+            "paged_decode_partials": decode, "nop": bench}
+
+
+def reset_counts() -> None:
+    for mod in kernel_modules().values():
+        mod.KERNEL_LAUNCHES = 0
+        mod.REF_CALLS = 0
+
+
+def read_counts() -> dict:
+    return {name: {"launches": mod.KERNEL_LAUNCHES, "plain_calls": mod.REF_CALLS}
+            for name, mod in kernel_modules().items()}
+
+
+def bound(nbytes: int, flops: int, dtype) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
@@ -200,7 +238,7 @@ def check_attention(case, *, time_it: bool):
         live = args[6][4] != 0
         dead_nonzero = int((out[~live] != 0).sum().item())
     ok = err <= tol and dead_nonzero == 0 and bool(torch.isfinite(out).all())
-    res = {"case": case["name"], "dtype": str(dtype).replace("torch.", ""),
+    res = {"kernel": "ragged_paged_attention", "case": case["name"], "dtype": str(dtype).replace("torch.", ""),
            "shape": {"NQ": args[0].shape[0], "H": args[0].shape[1], "KVH": KVH, "HD": args[0].shape[2],
                      "W": args[5].shape[1]},
            "max_abs_err": err, "tol": tol, "dead_nonzero": dead_nonzero, "ok": ok}
@@ -209,20 +247,172 @@ def check_attention(case, *, time_it: bool):
         res["kernel_ms"] = cuda_ms(lambda: mk.ragged_paged_attention(*args, **kw))
         res["ref_ms"] = cuda_ms(lambda: mk.ragged_paged_attention_ref(*args, **kw), iters=20)
         res["library_ms"] = sdpa_yardstick(case)
-        res["bytes"], res["flops"] = nbytes, flops
-        res["bound_ms"] = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
-        res["bound_by"] = "bytes" if nbytes / PEAK_BYTES_PER_S >= flops / PEAK_FLOPS[dtype] else "operations"
+        res.update(bound(nbytes, flops, dtype))
     emit("kernel", **res)
     if not ok:
         raise AssertionError(f"kernel disagrees with its plain version: {res}")
     return res
 
 
+def flash_case(dev, dtype, seed, *, T, valid, H, KVH, HD):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g).to(dev, dtype)
+                 for shape in ((T, H, HD), (T, KVH, HD), (T, KVH, HD))), valid, KVH
+
+
+def check_flash(name, case, *, time_it: bool):
+    """``flash_chunk_attention`` against its plain version on the card."""
+    from dynamo_tpu_torch.engine.attention import prefill as fck
+
+    (q, k, v), valid, KVH = case
+    T, H, HD = q.shape
+    dtype = q.dtype
+    out, m, l = fck.flash_chunk_attention(q, k, v, valid, num_kv_heads=KVH)
+    ro, rm, rl = fck.flash_chunk_attention_ref(q, k, v, valid, num_kv_heads=KVH)
+    torch.cuda.synchronize()
+    err = (out.float() - ro.float()).abs().max().item()
+    m_err = (m - rm).abs().max().item()
+    l_rel = ((l - rl).abs() / rl).max().item()
+    if dtype == torch.float32:
+        tol = 5e-5  # the same math in f32; only the summation order differs
+    else:
+        # Both sides round p to bf16 before the PV product, each against its
+        # own max (the kernel's running one), ≤ 2^-9·p each; each output
+        # rounds once more (2^-9·|o|).
+        tol = 2**-8 * v.float().abs().max().item() + 2**-8 * ro.float().abs().max().item()
+    # m and l come from f32 scores of the same inputs on both sides.
+    ok = (err <= tol and m_err <= 5e-5 and l_rel <= 5e-5 and bool(torch.isfinite(out).all())
+          and bool(torch.all(l > 0)))
+    res = {"kernel": "flash_chunk_attention", "case": name, "dtype": str(dtype).replace("torch.", ""),
+           "shape": {"T": T, "valid_len": valid, "H": H, "KVH": KVH, "HD": HD},
+           "max_abs_err": err, "tol": tol, "m_max_abs_err": m_err, "l_max_rel_err": l_rel, "ok": ok}
+    if time_it:
+        esz = q.element_size()
+        keys = int(torch.clamp(torch.arange(1, T + 1), max=valid).sum())
+        res.update(bound(2 * (q.numel() + k.numel()) * esz + 2 * m.numel() * 4, 4 * H * HD * keys, dtype))
+        res["kernel_ms"] = cuda_ms(lambda: fck.flash_chunk_attention(q, k, v, valid, num_kv_heads=KVH))
+        res["ref_ms"] = cuda_ms(lambda: fck.flash_chunk_attention_ref(q, k, v, valid, num_kv_heads=KVH), iters=10)
+        # Yardstick: SDPA causal over the chunk, K/V expanded over the G heads.
+        G = H // KVH
+        qd = q.transpose(0, 1)[None].contiguous()
+        kd = k.repeat_interleave(G, dim=1).transpose(0, 1)[None].contiguous()
+        vd = v.repeat_interleave(G, dim=1).transpose(0, 1)[None].contiguous()
+        res["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, is_causal=True))
+        res["library"] = "scaled_dot_product_attention(is_causal=True), K/V expanded over G"
+    emit("kernel", **res)
+    if not ok:
+        raise AssertionError(f"flash_chunk_attention disagrees with its plain version: {res}")
+    return res
+
+
+def paged_case(dev, dtype, seed, *, lengths, H, KVH, HD, extra_width=0):
+    """Decode rows of ``lengths`` tokens over pages drawn at random from a
+    pool whose page 0 is scratch with large values; tables ``extra_width``
+    slots wider than the longest row, unused slots on page 0."""
+    BS = 16
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B = len(lengths)
+    n_pages = [(n + BS - 1) // BS for n in lengths]
+    W = max(n_pages) + extra_width
+    NP = sum(n_pages) + 1
+    ids = (torch.randperm(NP - 1, generator=g) + 1).to(torch.int32)
+    tables = torch.zeros((B, W), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(n_pages):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    kp, vp = (torch.randn((NP, BS, KVH, HD), generator=g) for _ in range(2))
+    kp[0] = vp[0] = 1e4
+    q = torch.randn((B, H, HD), generator=g)
+    args = tuple(t.to(dev, dtype) for t in (q, kp, vp)) + (
+        tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev))
+    return args, KVH, BS
+
+
+def check_paged(name, case, *, time_it: bool):
+    """``paged_decode_partials`` against its plain version on the card."""
+    from dynamo_tpu_torch.engine.attention import decode as pdk
+
+    args, KVH, BS = case
+    q, kp, vp, tables, lengths = args
+    B, H, HD = q.shape
+    dtype = q.dtype
+    kw = dict(num_kv_heads=KVH, block_size=BS)
+    m, l, acc = pdk.paged_decode_partials(*args, **kw)
+    rm, rl, racc = pdk.paged_decode_partials_ref(*args, **kw)
+    torch.cuda.synchronize()
+    empty = lengths == 0
+    empty_ok = bool(torch.all(m[empty] == -1e30) and torch.all(l[empty] == 0) and torch.all(acc[empty] == 0))
+    m_err = (m - rm).abs().max().item()
+    l_rel = ((l - rl).abs() / rl.clamp_min(1)).max().item()
+    err = (acc - racc).abs().max().item()
+    # acc is unnormalized: a row's error scales with its l. bf16: both sides
+    # round p before the PV product (≤ 2^-9·p each).
+    base = 5e-5 if dtype == torch.float32 else 2**-8 * vp[1:].float().abs().max().item()
+    tol = base * max(1.0, rl.max().item())
+    acc_scaled = ((acc - racc).abs() / rl.clamp_min(1)[..., None]).max().item()
+    ok = (empty_ok and acc_scaled <= base and m_err <= 5e-5 and l_rel <= 5e-5
+          and bool(torch.isfinite(acc).all()))
+    res = {"kernel": "paged_decode_partials", "case": name, "dtype": str(dtype).replace("torch.", ""),
+           "shape": {"B": B, "H": H, "KVH": KVH, "HD": HD, "W": tables.shape[1], "BS": BS,
+                     "lengths": lengths.tolist()},
+           "max_abs_err": err, "tol": tol, "acc_err_over_l": acc_scaled, "acc_tol_over_l": base,
+           "m_max_abs_err": m_err, "l_max_rel_err": l_rel, "empty_rows_ok": empty_ok, "ok": ok}
+    if time_it:
+        esz = q.element_size()
+        tokens = int(lengths.clamp(max=tables.shape[1] * BS).sum())
+        nbytes = ((2 * tokens * KVH * HD + q.numel()) * esz + (tables.numel() + B) * 4
+                  + (m.numel() + l.numel() + acc.numel()) * 4)
+        res.update(bound(nbytes, 4 * H * HD * tokens, dtype))
+        res["kernel_ms"] = cuda_ms(lambda: pdk.paged_decode_partials(*args, **kw))
+        res["ref_ms"] = cuda_ms(lambda: pdk.paged_decode_partials_ref(*args, **kw), iters=10)
+        # Yardstick: SDPA over each row's pages gathered dense, K/V expanded
+        # over the G heads, keys past the row's length masked.
+        G, W = H // KVH, tables.shape[1]
+        kd = kp[tables.long()].reshape(B, W * BS, KVH, HD).repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        vd = vp[tables.long()].reshape(B, W * BS, KVH, HD).repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        mask = (torch.arange(W * BS, device=q.device)[None, :] < lengths[:, None].long())[:, None, None, :]
+        mask[..., 0] |= ~mask.any(-1)  # keep empty rows finite
+        qd = q[:, :, None, :]
+        res["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
+        res["library"] = "scaled_dot_product_attention over the gathered pages, K/V expanded over G"
+    emit("kernel", **res)
+    if not ok:
+        raise AssertionError(f"paged_decode_partials disagrees with its plain version: {res}")
+    return res
+
+
+def check_nop(dev):
+    """The no-op kernel against its plain version, its time, and the
+    launch-overhead probe (``dynamo_tpu_torch.bench``). The probe's
+    launches are counted from 0 just before it runs."""
+    from dynamo_tpu_torch import bench
+
+    x = torch.randn((8, 128), device=dev)
+    y = torch.empty_like(x)
+    err = (bench.nop(x) - bench.nop_ref(x)).abs().max().item()
+    torch.cuda.synchronize()
+    res = {"kernel": "nop", "case": "[8, 128] f32 copy", "max_abs_err": err, "tol": 0.0, "ok": err == 0.0}
+    res.update(bound(2 * x.numel() * 4, 0, torch.float32))
+    res["kernel_ms"] = cuda_ms(lambda: bench.nop(x))
+    res["ref_ms"] = cuda_ms(lambda: bench.nop_ref(x))
+    res["library_ms"] = cuda_ms(lambda: y.copy_(x))
+    res["library"] = "Tensor.copy_ into a preallocated tensor"
+    reset_counts()
+    res["dispatch_overhead_ms"] = bench.dispatch_overhead_ms(n=32)
+    res["probe_launches"] = bench.KERNEL_LAUNCHES
+    emit("kernel", **res)
+    if not res["ok"] or res["probe_launches"] != 4 * 32:
+        raise AssertionError(f"nop kernel or probe failed: {res}")
+    return res
 
 
 def phase_kernel(dev):
-    """The attention kernel at the shapes the serving path gives it, and at
-    the ragged edges, in bf16 and f32. Returns the timed llama-3.2-1b case."""
+    """Every kernel at the shapes the serving paths give it, and at the
+    ragged edges, in bf16 and f32; the probe. Returns, per kernel, the
+    timed case."""
     ctx_1b = [int(c) for c in np.linspace(1, 4096, 32).round()]
     specs = [
         # A mixed step of llama-3.2-1b: a 512-query chunk over a 1000-token
@@ -237,15 +427,52 @@ def phase_kernel(dev):
         ("ragged edges", dict(H=32, KVH=8, HD=64, chunk=48, chunk_prefix=64, decode_ctx=[1, 16, 17, 32, 33],
                               dead=8, tail_width=10)),
     ]
-    timed = None
+    timed = {}
     for i, (name, spec) in enumerate(specs):
         for dtype in (torch.bfloat16, torch.float32):
             case = attention_case(name, dtype=dtype, dev=dev, seed=100 + i, **spec)
             res = check_attention(case, time_it=(i == 0 and dtype == torch.bfloat16))
             if "kernel_ms" in res:
-                timed = res
+                timed["ragged_paged_attention"] = res
             del case
     torch.cuda.empty_cache()
+
+    # flash_chunk_attention: the prefill buckets the serving path runs
+    # (512 in mixed steps, 2048 for long prompts), a padded chunk, a chunk
+    # length that is no power of two, HD=128 and MQA heads.
+    flash_specs = [
+        ("llama-3.2-1b T=2048", dict(T=2048, valid=2048, H=32, KVH=8, HD=64)),
+        ("llama-3.2-1b T=512", dict(T=512, valid=512, H=32, KVH=8, HD=64)),
+        ("llama-3.2-1b T=2048 valid 1500", dict(T=2048, valid=1500, H=32, KVH=8, HD=64)),
+        ("llama-3.2-1b T=300 valid 271", dict(T=300, valid=271, H=32, KVH=8, HD=64)),
+        ("llama-3-8b heads (HD=128)", dict(T=512, valid=400, H=32, KVH=8, HD=128)),
+        ("mqa", dict(T=256, valid=200, H=8, KVH=1, HD=64)),
+    ]
+    for i, (name, spec) in enumerate(flash_specs):
+        for dtype in (torch.bfloat16, torch.float32):
+            time_it = dtype == torch.bfloat16 and i < 2
+            res = check_flash(name, flash_case(dev, dtype, 200 + i, **spec), time_it=time_it)
+            if time_it:
+                timed["flash_chunk_attention" if i == 0 else "flash_chunk_attention T=512"] = res
+    torch.cuda.empty_cache()
+
+    # paged_decode_partials: 8 decode rows with contexts 1..4096 (one row
+    # empty), as in the breakdown's and the serving path's decode steps.
+    ctx_8 = [0] + [int(c) for c in np.linspace(1, 4096, 7).round()]
+    paged_specs = [
+        ("llama-3.2-1b 8 rows", dict(lengths=ctx_8, H=32, KVH=8, HD=64, extra_width=4)),
+        ("llama-3-8b heads (HD=128)", dict(lengths=[5, 64, 300, 1000], H=32, KVH=8, HD=128)),
+        ("mqa", dict(lengths=[200, 0, 2, 17], H=8, KVH=1, HD=64, extra_width=6)),
+    ]
+    for i, (name, spec) in enumerate(paged_specs):
+        for dtype in (torch.bfloat16, torch.float32):
+            time_it = dtype == torch.bfloat16 and i == 0
+            res = check_paged(name, paged_case(dev, dtype, 300 + i, **spec), time_it=time_it)
+            if time_it:
+                timed["paged_decode_partials"] = res
+    torch.cuda.empty_cache()
+
+    timed["nop"] = check_nop(dev)
     return timed
 
 
@@ -255,39 +482,50 @@ def phase_kernel(dev):
 
 
 def phase_model(dev):
-    """llama-3.2-1b at full width in f32, teacher-forced through one
-    300-token prefill, 16 decode steps (batch 2, one padded lane) and one
-    mixed step, on the card (kernel) and on the CPU (plain version)."""
-    from dynamo_tpu_torch.engine.attention import megakernel as mk
+    """llama-3.2-1b at full width in f32, teacher-forced on the card (kernels)
+    and on the CPU (plain versions), on each attention path. Megakernel: a
+    300-token prefill, 16 decode steps (batch 2, one padded lane) and a
+    mixed step. Per-piece (paged + flash): the same, plus a continuation
+    chunk over the 300 cached tokens before the decodes."""
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.kv_cache import KvCacheArrays
     from dynamo_tpu_torch.engine.models import llama
     from dynamo_tpu_torch.engine.weights import init_params
 
-    cfg = get_config(PRESET)
+    base = get_config(PRESET)
+    passes = [("megakernel", base, 0), ("paged+flash", base.replace(**PER_PIECE), 18)]
     gen = torch.Generator(device=dev).manual_seed(0)
-    params_dev = init_params(cfg, gen, device=dev, dtype=torch.float32)
+    params_dev = init_params(base, gen, device=dev, dtype=torch.float32)
     rng = np.random.default_rng(7)
-    seq_a = rng.integers(1, cfg.vocab_size, size=318).astype(np.int32)
-    seq_b = rng.integers(1, cfg.vocab_size, size=80).astype(np.int32)
+    seq_a = rng.integers(1, base.vocab_size, size=340).astype(np.int32)
+    seq_b = rng.integers(1, base.vocab_size, size=80).astype(np.int32)
     nb = 48
     table_a = np.zeros(24, np.int32)
-    table_a[:20] = np.arange(1, 21)
+    table_a[:22] = np.arange(1, 23)
     table_b = np.zeros(16, np.int32)
-    table_b[:6] = np.arange(21, 27)
+    table_b[:6] = np.arange(23, 29)
 
-    def run(params, device):
+    def run(params, device, cfg, cont):
+        """Logits of every step; ``cont`` continuation tokens after the
+        300-token prefill (0: none)."""
+        flash = dict(use_flash=True) if cfg.prefill_impl == "flash" else {}
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
         cache = KvCacheArrays.create(cfg, nb, dtype=torch.float32, device=device)
         k, v = cache.k, cache.v
         logits = []
         toks = np.zeros(512, np.int32)
         toks[:300] = seq_a[:300]
-        lg, k, v = llama.prefill(params, cfg, k, v, t(toks), 300, 0, t(table_a))
+        lg, k, v = llama.prefill(params, cfg, k, v, t(toks), 300, 0, t(table_a), has_prefix=False, **flash)
         logits.append(lg[None])
+        if cont:
+            toks = np.zeros(32, np.int32)
+            toks[:cont] = seq_a[300:300 + cont]
+            lg, k, v = llama.prefill(params, cfg, k, v, t(toks), cont, 300, t(table_a), has_prefix=True, **flash)
+            logits.append(lg[None])
         d_tables = np.stack([table_a, np.zeros_like(table_a)])
+        p0 = 300 + cont
         for i in range(16):
-            pos = 300 + i
+            pos = p0 + i
             lg, k, v = llama.decode(
                 params, cfg, k, v, t(np.array([seq_a[pos], 0], np.int32)), t(np.array([pos, 0], np.int32)),
                 t(d_tables), t(np.array([True, False])),
@@ -297,39 +535,58 @@ def phase_model(dev):
         p_tok[:80] = seq_b
         lg, k, v = llama.mixed_step(
             params, cfg, k, v, t(p_tok), 80, 0, t(table_b),
-            t(seq_a[316:317]), t(np.array([316], np.int32)), t(table_a[None]), t(np.array([True])),
+            t(seq_a[p0 + 16:p0 + 17]), t(np.array([p0 + 16], np.int32)), t(table_a[None]), t(np.array([True])),
+            has_prefix=False, **flash,
         )
         logits.append(lg)
         return [x.float().cpu() for x in logits]
 
-    l0 = mk.KERNEL_LAUNCHES
-    t0 = time.perf_counter()
-    kern = run(params_dev, dev)
-    torch.cuda.synchronize()
-    kern_s = time.perf_counter() - t0
-    launches = mk.KERNEL_LAUNCHES - l0
+    L = base.num_layers
+    card = {}
+    for label, cfg, cont in passes:
+        reset_counts()
+        t0 = time.perf_counter()
+        card[label] = run(params_dev, dev, cfg, cont)
+        torch.cuda.synchronize()
+        card[label + " s"] = time.perf_counter() - t0
+        card[label + " counts"] = read_counts()
     params_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
                   for k, v in params_dev.items()}
     del params_dev
     torch.cuda.empty_cache()
-    r0 = mk.REF_CALLS
-    t0 = time.perf_counter()
-    plain = run(params_cpu, "cpu")
-    plain_s = time.perf_counter() - t0
-    errs = [(a - b).abs().max().item() for a, b in zip(kern, plain)]
-    scale = max(b.abs().max().item() for b in plain)
-    # f32 on both sides; the card's and the CPU's matmuls sum in different
-    # orders through 16 layers, so allow 1e-3 of the logits' scale.
-    tol = 1e-3 * max(1.0, scale)
-    ok = max(errs) <= tol and all(bool(torch.isfinite(x).all()) for x in kern)
-    steps = 1 + 16 + 1
-    res = {"preset": PRESET, "dtype": "float32", "steps": steps, "max_abs_err": max(errs),
-           "per_step_err": errs, "logit_scale": scale, "tol": tol, "kernel_launches": launches,
-           "expected_launches": cfg.num_layers * steps, "plain_calls": mk.REF_CALLS - r0,
-           "card_s": kern_s, "cpu_s": plain_s, "ok": ok}
-    emit("model", **res)
-    if not ok or launches != cfg.num_layers * steps:
-        raise AssertionError(f"model phase failed: {res}")
+    failed = []
+    for label, cfg, cont in passes:
+        reset_counts()
+        t0 = time.perf_counter()
+        plain = run(params_cpu, "cpu", cfg, cont)
+        plain_s = time.perf_counter() - t0
+        plain_counts = read_counts()
+        kern, counts = card[label], card[label + " counts"]
+        errs = [(a - b).abs().max().item() for a, b in zip(kern, plain)]
+        scale = max(b.abs().max().item() for b in plain)
+        # f32 on both sides; the card's and the CPU's matmuls sum in different
+        # orders through 16 layers, so allow 1e-3 of the logits' scale.
+        tol = 1e-3 * max(1.0, scale)
+        ok = max(errs) <= tol and all(bool(torch.isfinite(x).all()) for x in kern)
+        prefills, decodes, mixed = 1 + (cont > 0), 16, 1
+        if label == "megakernel":
+            expected = {"ragged_paged_attention": L * (prefills + decodes + mixed)}
+        else:
+            expected = {"flash_chunk_attention": L * (prefills + mixed),
+                        "paged_decode_partials": L * (decodes + mixed)}
+        launches = {name: c["launches"] for name, c in counts.items()}
+        want = {name: expected.get(name, 0) for name in launches}
+        card_plain = sum(c["plain_calls"] for c in counts.values())
+        res = {"preset": PRESET, "path": label, "dtype": "float32", "steps": prefills + decodes + mixed,
+               "max_abs_err": max(errs), "per_step_err": errs, "logit_scale": scale, "tol": tol,
+               "kernel_launches": launches, "expected_launches": want, "plain_calls_on_card": card_plain,
+               "plain_calls_on_cpu": {name: c["plain_calls"] for name, c in plain_counts.items()},
+               "card_s": card[label + " s"], "cpu_s": plain_s, "ok": ok}
+        emit("model", **res)
+        if not ok or launches != want or card_plain:
+            failed.append(res)
+    if failed:
+        raise AssertionError(f"model phase failed: {failed}")
     del params_cpu
 
 
@@ -338,52 +595,106 @@ def phase_model(dev):
 # ---------------------------------------------------------------------------
 
 
-class AttentionTimer:
-    """Brackets every attention launch made inside the ``with`` block with
-    CUDA events; ``ms()`` is their summed device time."""
+class LaunchTimer:
+    """Brackets every call of the named functions made inside the ``with``
+    block with CUDA events; ``ms(name)`` is a function's summed device time
+    and ``count(name)`` its calls. Targets are ``(module, attribute)``
+    pairs, looked up by their callers at call time."""
+
+    def __init__(self, targets):
+        self.targets = targets  # name -> (module, attribute)
+        self.pairs = {name: [] for name in targets}
 
     def __enter__(self):
-        from dynamo_tpu_torch.engine.attention import megakernel as mk
+        self.orig = {name: getattr(mod, attr) for name, (mod, attr) in self.targets.items()}
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self._timed(name, self.orig[name]))
+        return self
 
-        self.mk, self.orig, self.pairs = mk, mk.ragged_paged_attention, []
-
+    def _timed(self, name, fn):
         def timed(*args, **kw):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            out = self.orig(*args, **kw)
+            out = fn(*args, **kw)
             b.record()
-            self.pairs.append((a, b))
+            self.pairs[name].append((a, b))
             return out
 
-        mk.ragged_paged_attention = timed
-        return self
+        return timed
 
     def __exit__(self, *exc):
-        self.mk.ragged_paged_attention = self.orig
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.orig[name])
 
-    def ms(self) -> float:
+    def ms(self, name) -> float:
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.pairs)
+        return sum(a.elapsed_time(b) for a, b in self.pairs[name])
+
+    def count(self, name) -> int:
+        return len(self.pairs[name])
+
+
+def host_enqueue_ms(fn, iters: int = 20) -> float:
+    """Median host wall milliseconds to queue ``fn``'s work on the card (no
+    synchronise inside; the card drains between runs). When it is close to
+    the step's event time, the host, not the card, sets the step's pace."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def device_busy_ms(fn, runs: int = 3) -> tuple:
+    """(device-busy milliseconds per run, device operations per run) of
+    ``fn``, from ``torch.profiler``: the summed time of every kernel and
+    copy it ran on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    busy_us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:  # the card's own events; CPU ops only attribute them
+            busy_us += getattr(evt, "self_device_time_total", None) or evt.self_cuda_time_total
+            launches += evt.count
+    return busy_us / 1e3 / runs, launches / runs
 
 
 def phase_breakdown(dev):
-    """Device time of one decode step and one mixed step of llama-3.2-1b in
-    bf16 (CUDA events, median of 20), and the share of it the 16
-    attention launches take."""
+    """Time of one decode step and one mixed step of llama-3.2-1b in bf16
+    (CUDA events, median of 20) on each attention path, the host time to
+    queue it, and the share of it attention takes. On the per-piece path
+    attention is split into the flash kernel, the paged kernel and the
+    PyTorch glue around them (prefix gathers, the prefix partial, the
+    in-register piece, merges). Event times include any wait for the
+    host; ``device_busy_ms`` (torch.profiler) is the card's own work, and
+    the rest of the step is the card waiting for the host."""
+    from dynamo_tpu_torch.engine.attention import decode as pdk
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+    from dynamo_tpu_torch.engine.attention import prefill as fck
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.kv_cache import KvCacheArrays
     from dynamo_tpu_torch.engine.models import llama
     from dynamo_tpu_torch.engine.scheduler import width_bucket
     from dynamo_tpu_torch.engine.weights import init_params
 
-    cfg = get_config(PRESET)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev, dtype=torch.bfloat16)
-    cache = KvCacheArrays.create(cfg, 2048, dtype=torch.bfloat16, device=dev)
+    base = get_config(PRESET)
+    params = init_params(base, torch.Generator(device=dev).manual_seed(1), device=dev, dtype=torch.bfloat16)
+    cache = KvCacheArrays.create(base, 2048, dtype=torch.bfloat16, device=dev)
     cache.k.normal_()
     cache.v.normal_()
     rng = np.random.default_rng(5)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    B, ctx, chunk, BS = 8, 1024, 512, cfg.block_size
+    B, ctx, chunk, BS = 8, 1024, 512, base.block_size
     per_row = ctx // BS + 1
     ids = rng.permutation(np.arange(1, 2048)).astype(np.int32)
     W = width_bucket(per_row, 1 << 20)
@@ -398,23 +709,43 @@ def phase_breakdown(dev):
     p_tok = t(rng.integers(1, 255, size=chunk).astype(np.int32))
     p_tab = t(p_table)
 
-    def decode():
-        llama.decode(params, cfg, cache.k, cache.v, *d_args)
-
-    def mixed():
-        llama.mixed_step(params, cfg, cache.k, cache.v, p_tok, chunk, ctx, p_tab, *d_args)
-
     res = {"preset": PRESET, "dtype": "bfloat16", "decode_rows": B, "context": ctx, "chunk": chunk}
-    for name, fn in (("decode", decode), ("mixed", mixed)):
-        step_ms = cuda_ms(fn, iters=20)
-        attn = []
-        for _ in range(5):
-            with AttentionTimer() as timer:
-                fn()
-            attn.append(timer.ms())
-        attn_ms = statistics.median(attn)
-        res[name] = {"step_ms": step_ms, "attention_ms": attn_ms, "attention_share": attn_ms / step_ms,
-                     "attention_launches": len(timer.pairs)}
+    for path, cfg in (("megakernel", base), ("paged+flash", base.replace(**PER_PIECE))):
+        flash = dict(use_flash=True, has_prefix=True) if path != "megakernel" else {}
+        if path == "megakernel":
+            targets = {"attention": (mk, "ragged_paged_attention")}
+        else:
+            targets = {"chunk": (llama, "_chunk_attention"), "decode_rows": (llama, "_decode_rows_attention"),
+                       "flash": (fck, "flash_chunk_attention"), "paged": (pdk, "paged_decode_partials")}
+
+        def decode():
+            llama.decode(params, cfg, cache.k, cache.v, *d_args)
+
+        def mixed():
+            llama.mixed_step(params, cfg, cache.k, cache.v, p_tok, chunk, ctx, p_tab, *d_args, **flash)
+
+        rows = {}
+        for name, fn in (("decode", decode), ("mixed", mixed)):
+            step_ms = cuda_ms(fn, iters=20)
+            runs = []
+            for _ in range(5):
+                with LaunchTimer(targets) as timer:
+                    fn()
+                runs.append({n: timer.ms(n) for n in targets})
+            med = {n: statistics.median(r[n] for r in runs) for n in targets}
+            busy, n_launch = device_busy_ms(fn)
+            row = {"step_ms": step_ms, "host_enqueue_ms": host_enqueue_ms(fn), "device_busy_ms": busy,
+                   "device_idle_share": 1 - busy / step_ms, "device_launches": n_launch}
+            if path == "megakernel":
+                row.update(attention_ms=med["attention"], attention_launches=timer.count("attention"))
+            else:
+                attn = med["chunk"] + med["decode_rows"]
+                row.update(attention_ms=attn, flash_ms=med["flash"], paged_ms=med["paged"],
+                           glue_ms=attn - med["flash"] - med["paged"],
+                           flash_launches=timer.count("flash"), paged_launches=timer.count("paged"))
+            row["attention_share"] = row["attention_ms"] / step_ms
+            rows[name] = row
+        res[path] = rows
     emit("breakdown", **res)
     del params, cache
     torch.cuda.empty_cache()
@@ -475,10 +806,18 @@ def _summarize(status, data, stream):
     return usage["completion_tokens"], finish, cached
 
 
-def phase_serve(card: str):
+def phase_serve(card: str, path: str):
+    """Serve ``PRESET`` through ``run.build_service`` on one attention path
+    ("megakernel": the preset as it is; "paged+flash": the per-piece path)
+    and send it 8 concurrent requests, then a repeat of the first. Every
+    kernel's counts go to 0 just before the requests and are read just
+    after: the path's kernels must have launched once per layer for each
+    forward step that reaches them, no other kernel and no plain version
+    at all."""
     from dynamo_tpu_torch import run
-    from dynamo_tpu_torch.engine.attention import megakernel as mk
+    from dynamo_tpu_torch.engine.config import get_config
 
+    model_config = None if path == "megakernel" else get_config(PRESET).replace(**PER_PIECE)
     args = run.parse_args(["in=http", f"out={PRESET}", "--http-host", "127.0.0.1", "--http-port", "0"])
     rng = np.random.default_rng(11)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
@@ -501,55 +840,68 @@ def phase_serve(card: str):
         body.update(model=PRESET, max_tokens=64)
 
     async def serve():
-        service, engine = run.build_service(args)
+        service, engine = run.build_service(args, model_config=model_config)
+        sched = engine.scheduler
         await service.start()
         try:
-            # Counts from zero, just before the main path runs.
-            mk.KERNEL_LAUNCHES = 0
-            mk.REF_CALLS = 0
-            steps0 = engine.scheduler.forward_steps_total
+            kinds = ("forward", "prefill", "decode", "mixed")
+            steps0 = {k: getattr(sched, f"{k}_steps_total") for k in kinds}
+            reset_counts()  # counts from zero, just before the main path runs
             t0 = time.perf_counter()
             results = await asyncio.gather(
                 *[asyncio.to_thread(_request, service.port, path, body) for path, body in reqs]
             )
             wall = time.perf_counter() - t0
             repeat = await asyncio.to_thread(_request, service.port, *reqs[0])
-            launches, ref_calls = mk.KERNEL_LAUNCHES, mk.REF_CALLS
-            steps = engine.scheduler.forward_steps_total - steps0
+            counts = read_counts()
+            steps = {k: getattr(sched, f"{k}_steps_total") - steps0[k] for k in kinds}
             metrics = engine.metrics().to_wire()
+            impl = sched.config_snapshot()["model"]["attention_impl"]
         finally:
             await service.stop()
             await engine.stop()
-        return results, wall, repeat, launches, ref_calls, steps, metrics, engine.scheduler.mc
+        return results, wall, repeat, counts, steps, metrics, sched.mc, impl
 
-    results, wall, repeat, launches, ref_calls, steps, metrics, mc = asyncio.run(serve())
+    results, wall, repeat, counts, steps, metrics, mc, impl = asyncio.run(serve())
     answers = []
-    for (path, body), (status, data, first, total) in zip(reqs, results):
+    for (url, body), (status, data, first, total) in zip(reqs, results):
         n, finish, cached = _summarize(status, data, body.get("stream", False))
         if n != 64 and finish != "stop":
-            raise AssertionError(f"{path} gave {n} tokens with finish_reason {finish!r}")
-        answers.append({"path": path, "stream": bool(body.get("stream")), "completion_tokens": n,
+            raise AssertionError(f"{url} gave {n} tokens with finish_reason {finish!r}")
+        answers.append({"path": url, "stream": bool(body.get("stream")), "completion_tokens": n,
                         "finish_reason": finish, "ttft_s": first, "latency_s": total})
     n_rep, finish_rep, cached_rep = _summarize(repeat[0], repeat[1], False)
     ttfts = [a["ttft_s"] for a in answers if a["ttft_s"] is not None]
     completion = sum(a["completion_tokens"] for a in answers)
+    L = mc.num_layers
+    if path == "megakernel":
+        expected = {"ragged_paged_attention": L * steps["forward"]}
+    else:
+        expected = {"flash_chunk_attention": L * (steps["prefill"] + steps["mixed"]),
+                    "paged_decode_partials": L * (steps["decode"] + steps["mixed"])}
+    launches = {name: c["launches"] for name, c in counts.items()}
+    want = {name: expected.get(name, 0) for name in launches}
+    plain = sum(c["plain_calls"] for c in counts.values())
     res = {
-        "card": card, "preset": PRESET, "dtype": args.dtype, "num_blocks": args.num_blocks,
+        "card": card, "preset": PRESET, "path": path, "attention_impl": impl,
+        "prefill_impl": mc.prefill_impl, "dtype": args.dtype, "num_blocks": args.num_blocks,
         "requests": len(answers) + 1, "answers": answers,
         "repeat": {"completion_tokens": n_rep, "finish_reason": finish_rep, "cached_tokens": cached_rep},
         "ttft_p50_s": statistics.median(ttfts), "ttft_n": len(ttfts),
-        "decode_tok_per_s": completion / wall, "wall_s": wall, "wall_ms_per_forward_step": 1e3 * wall / steps,
-        "forward_steps": steps, "kernel_launches": launches, "expected_launches": mc.num_layers * steps,
-        "plain_calls": ref_calls, "mixed_steps_total": metrics["mixed_steps_total"],
-        "cached_tokens_total": metrics["cached_tokens_total"],
+        "decode_tok_per_s": completion / wall, "wall_s": wall,
+        "wall_ms_per_forward_step": 1e3 * wall / steps["forward"], "steps": steps,
+        "kernel_launches": launches, "expected_launches": want, "plain_calls": plain,
+        "mixed_steps_total": metrics["mixed_steps_total"], "cached_tokens_total": metrics["cached_tokens_total"],
     }
     emit("serve", **res)
     if not cached_rep:
         raise AssertionError("the repeated prompt did not hit the prefix cache")
-    if launches != mc.num_layers * steps or steps == 0:
-        raise AssertionError(f"{launches} kernel launches over {steps} forward steps of {mc.num_layers} layers")
-    if ref_calls:
-        raise AssertionError(f"serving called the plain attention {ref_calls} times")
+    if steps["forward"] == 0 or any(expected[name] == 0 for name in expected):
+        raise AssertionError(f"the {path} pass did not reach all of its kernels: {steps}")
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != expected {want} over steps {steps}")
+    if plain:
+        raise AssertionError(f"serving called plain versions {plain} times: {counts}")
     return res
 
 
@@ -588,23 +940,41 @@ def main() -> int:
         phase_model(dev)
     if "breakdown" in phases:
         phase_breakdown(dev)
-    served = phase_serve(card) if "serve" in phases else None
+    served = {path: phase_serve(card, path) for path in ("megakernel", "paged+flash")} if "serve" in phases else None
     if phases != {"env", "build", "kernel", "model", "breakdown", "serve"}:
         return 0  # a partial run reports no result
-    kernels = [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
-        "replaces": TPU_KERNEL,
-        "launches": served["kernel_launches"],
-        "launches_per_step": served["kernel_launches"] / served["forward_steps"],
-        "max_abs_err": timed["max_abs_err"],
-        "ms": timed["kernel_ms"],
-        "plain_ms": timed["ref_ms"],
-        "bound_ms": timed["bound_ms"],
-        "bound_by": timed["bound_by"],
-        "library_ms": timed["library_ms"],
-    }]
+    # Launches: each attention kernel's count over the serving pass of its
+    # path, and per forward step that reaches it; the probe's, over the
+    # probe's run.
+    mega, piece = served["megakernel"], served["paged+flash"]
+    launches = {
+        "ragged_paged_attention": mega["kernel_launches"]["ragged_paged_attention"],
+        "flash_chunk_attention": piece["kernel_launches"]["flash_chunk_attention"],
+        "paged_decode_partials": piece["kernel_launches"]["paged_decode_partials"],
+        "nop": timed["nop"]["probe_launches"],
+    }
+    steps_reached = {
+        "ragged_paged_attention": mega["steps"]["forward"],
+        "flash_chunk_attention": piece["steps"]["prefill"] + piece["steps"]["mixed"],
+        "paged_decode_partials": piece["steps"]["decode"] + piece["steps"]["mixed"],
+    }
+    kernels = []
+    for name in ("ragged_paged_attention", "flash_chunk_attention", "paged_decode_partials", "nop"):
+        t = timed[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"dynamo_tpu_torch/csrc/{name}.cu",
+            "replaces": TPU_KERNEL[name],
+            "launches": launches[name],
+            "launches_per_step": launches[name] / steps_reached[name] if name in steps_reached else None,
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["kernel_ms"],
+            "plain_ms": t["ref_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 The engine-side architecture record: the same fields and presets as the
 JAX package's, so one preset name means one set of widths in both.
-Options this port does not implement yet raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+Options this port does not implement yet (int8 KV, int8 weights, MoE,
+MLA) raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
@@ -40,11 +41,27 @@ class ModelConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
-    # Attention implementation. "auto" and "megakernel" both select the
-    # ragged paged-attention kernel (engine/attention/megakernel.py): one
-    # launch per layer serves every row of a step. The JAX package's
-    # "gather" and "paged" paths are not ported yet.
+    # Attention implementation (models/llama.resolve_attention_impl):
+    # - "megakernel": the ragged paged-attention kernel
+    #   (attention/megakernel.py): one launch per layer serves every row
+    #   of a step — prefill chunks, mixed steps and decode rows.
+    # - "paged": the per-piece path. Decode rows attend their cached
+    #   prefix through the paged flash-decode kernel
+    #   (attention/decode.py), which returns online-softmax partials, and
+    #   merge them with the current token's in-register piece; prefill
+    #   chunks go through attention/ragged.py.
+    # - "gather": as "paged", with the prefix gathered through the block
+    #   table and attended in PyTorch instead of the kernel.
+    # - "auto": "megakernel", on the card and on the CPU alike (the JAX
+    #   package resolves "auto" to "gather" off the TPU).
     attention_impl: str = "auto"
+    # Prefill chunk attention on the non-megakernel paths (phase-separated
+    # prefills and the chunk row of mixed steps): "flash" runs the chunk's
+    # causal self-attention in the flash kernel (attention/prefill.py) and
+    # merges a cached-prefix partial outside it; "xla" takes one masked
+    # softmax over [prefix ; chunk] in PyTorch; "auto" is "flash" on a
+    # CUDA device and "xla" on the CPU (the scheduler resolves it). The
+    # megakernel path ignores it.
     prefill_impl: str = "auto"
     # KV cache storage dtype: "auto" follows the compute dtype.
     kv_cache_dtype: str = "auto"
@@ -57,19 +74,8 @@ class ModelConfig:
                 "attention_impl must be auto|gather|paged|megakernel, "
                 f"got {self.attention_impl!r}"
             )
-        if self.attention_impl in ("gather", "paged"):
-            raise NotImplementedError(
-                f"attention_impl={self.attention_impl!r} is not ported yet "
-                "(ROADMAP Queue 1 item 4: gather path; Queue 2 item 2: paged decode kernel); "
-                "use 'auto' or 'megakernel'"
-            )
         if self.prefill_impl not in ("auto", "flash", "xla"):
             raise ValueError(f"prefill_impl must be auto|flash|xla, got {self.prefill_impl!r}")
-        if self.prefill_impl != "auto":
-            raise NotImplementedError(
-                f"prefill_impl={self.prefill_impl!r} is not ported yet (ROADMAP Queue 2 item 1: "
-                "flash chunk kernel); 'auto' runs prefill through the ragged attention kernel"
-            )
         if self.moe_dispatch not in ("auto", "dense", "ragged", "capacity"):
             raise ValueError(
                 f"moe_dispatch must be auto|dense|ragged|capacity, got {self.moe_dispatch!r}"

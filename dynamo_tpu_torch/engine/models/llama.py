@@ -1,16 +1,24 @@
 """Llama-family transformer: forward passes over a paged KV cache.
 
-The counterpart of the JAX package's ``models/llama.py`` on its megakernel
-path. Every attention call goes through
-``megakernel.ragged_paged_attention`` — one launch per layer per step —
-with the same ``build_meta`` rows as the JAX megakernel branches, so
-``prefill``, ``decode`` and ``mixed_step`` differ only in how they lay out
-the step's ragged rows.
+The counterpart of the JAX package's ``models/llama.py``. Attention takes
+one of three paths (``resolve_attention_impl``):
+
+- **megakernel**: every attention call goes through
+  ``megakernel.ragged_paged_attention``, one launch per layer per step,
+  with the same ``build_meta`` rows as the JAX megakernel branches, so
+  ``prefill``, ``decode`` and ``mixed_step`` differ only in how they lay
+  out the step's ragged rows.
+- **paged** / **gather** (the per-piece paths): a prefill chunk attends
+  through ``ragged.ragged_chunk_attention`` (the flash chunk kernel plus a
+  cached-prefix partial, or one masked softmax), and a decode row merges
+  two online-softmax pieces: its cached prefix (the paged flash-decode
+  kernel, or a gather through the block table) and its current token,
+  in-register. A mixed step runs both.
 
 Write-after-attend: inside the layer loop the cache is read-only. Each
-layer's fresh K/V rows are attended from ``k_extra`` and stacked, and the
-cache is written once per step after the loop; padded rows sink to
-scratch block 0. Norms and rope run in f32; logits are f32.
+layer's fresh K/V rows are attended in-register and stacked, and the cache
+is written once per step after the loop; padded rows sink to scratch
+block 0. Norms and rope run in f32; logits are f32.
 
 Parameters keep the JAX layout (engine/weights.py): stacked ``[L, in, out]``
 weights applied as ``x @ w``.
@@ -18,15 +26,18 @@ weights applied as ``x @ w``.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from dynamo_tpu_torch.engine.attention import megakernel
+from dynamo_tpu_torch.engine.attention import decode as paged_decode
+from dynamo_tpu_torch.engine.attention import megakernel, ragged
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.kv_cache import ragged_scatter_targets
 from dynamo_tpu_torch.engine.weights import Params
+
+NEG_INF = -1e30
 
 # ---------------------------------------------------------------------------
 # Building blocks
@@ -71,6 +82,20 @@ def _logits(params: Params, c: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return (h @ (head if head is not None else params["embed"].T)).float()
 
 
+def resolve_attention_impl(c: ModelConfig) -> str:
+    """``ModelConfig.attention_impl`` → one of ``"gather" | "paged" |
+    "megakernel"``. ``"auto"`` is the megakernel on the card and on the CPU
+    alike (the JAX package keeps the gather off the TPU, where its Pallas
+    kernels only interpret)."""
+    return "megakernel" if c.attention_impl == "auto" else c.attention_impl
+
+
+# attend(layer_offset, q, k, v, k_flat, v_flat) -> [T, H, HD]: one layer's
+# attention for the step's rows; layer l's pages are rows l*N.. of the
+# layer-flat pool, so ``layer_offset`` = l*N shifts the block tables.
+Attend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
 def _layers(
     params: Params,
     c: ModelConfig,
@@ -78,8 +103,7 @@ def _layers(
     v_cache: torch.Tensor,
     h: torch.Tensor,  # [T, D] embedded rows of the step
     positions: torch.Tensor,  # [T]
-    tables: torch.Tensor,  # [R, W] block tables of the step's rows (layer 0)
-    meta: torch.Tensor,  # [5, T] build_meta
+    attend: Attend,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The layer stack. Returns (h, k_rows, v_rows) with the fresh K/V rows
     stacked ``[L, T, KVH, HD]`` for the caller's single cache write."""
@@ -90,8 +114,6 @@ def _layers(
     # tables are offset by l*N and block 0 of every layer stays its scratch.
     k_flat = k_cache.view(L * N, bs, KVH, HD)
     v_flat = v_cache.view(L * N, bs, KVH, HD)
-    tables = tables.to(torch.int32)
-    meta = meta.contiguous()
     k_rows = h.new_empty((L, T, KVH, HD))
     v_rows = h.new_empty((L, T, KVH, HD))
     lay = params["layers"]
@@ -100,16 +122,139 @@ def _layers(
         q = apply_rope((x @ lay["wq"][l]).view(T, H, HD), positions, c.rope_theta)
         k = apply_rope((x @ lay["wk"][l]).view(T, KVH, HD), positions, c.rope_theta)
         v = (x @ lay["wv"][l]).view(T, KVH, HD)
-        attn = megakernel.ragged_paged_attention(
-            q, k, v, k_flat, v_flat, (tables + l * N).contiguous(), meta,
-            num_kv_heads=KVH, block_size=bs,
-        )
+        attn = attend(l * N, q, k, v, k_flat, v_flat).to(h.dtype)
         h = h + attn.reshape(T, c.q_size) @ lay["wo"][l]
         x = rms_norm(h, lay["mlp_norm"][l], c.rms_norm_eps)
         h = h + _mlp(x, lay, l)
         k_rows[l] = k
         v_rows[l] = v
     return h, k_rows, v_rows
+
+
+def _mega_attend(c: ModelConfig, tables: torch.Tensor, meta: torch.Tensor) -> Attend:
+    """One ragged megakernel launch per layer for all of the step's rows."""
+    tables = tables.to(torch.int32)
+    meta = meta.contiguous()
+
+    def attend(off, q, k, v, k_flat, v_flat):
+        return megakernel.ragged_paged_attention(
+            q, k, v, k_flat, v_flat, (tables + off).contiguous(), meta,
+            num_kv_heads=c.num_kv_heads, block_size=c.block_size,
+        )
+
+    return attend
+
+
+def _gather_kv(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Pages through a block-table index: ``[..., W]`` → ``[..., W, BS,
+    KVH, HD]`` (bf16/f32 caches; the int8 dequant waits for the int8 KV
+    port)."""
+    return flat[idx.long()]
+
+
+def _attend_piece(qg, kp, vp, maskp, scale):
+    """Partial attention over one KV piece → (m, l, acc) online-softmax
+    state, unnormalized. qg [B,KVH,G,hd]; kp/vp [B,S,KVH,hd]; maskp [B,S].
+    The paged kernel produces the same partials for the cached prefix, so
+    the pieces merge identically."""
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kp).float() * scale
+    s = s.masked_fill(~maskp[:, None, None, :], NEG_INF)
+    m = s.amax(dim=-1)  # [B, KVH, G]
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgs,bskd->bkgd", p.to(vp.dtype), vp).float()
+    return m, l, acc
+
+
+def _token_piece(qg, k, v, scale):
+    """``_attend_piece`` over a one-key piece (each decode row's current
+    token), in closed form: the softmax of one score is exp(0) = 1, so the
+    state is (s, 1, v) exactly. qg [B,KVH,G,hd]; k/v [B,KVH,hd]."""
+    m = torch.einsum("bkgd,bkd->bkg", qg, k).float() * scale
+    return m, torch.ones_like(m), v.float()[:, :, None, :].expand(qg.shape)
+
+
+def _merge_pieces(m1, l1, acc1, m2, l2, acc2) -> torch.Tensor:
+    """Close the online softmax across two attention pieces → [B,KVH,G,hd]
+    f32 (caller casts). Empty pieces (m = -1e30, l = 0) drop out."""
+    m_t = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m_t)
+    a2 = torch.exp(m2 - m_t)
+    l_t = l1 * a1 + l2 * a2
+    acc = acc1 * a1[..., None] + acc2 * a2[..., None]
+    return acc / l_t.clamp_min(1e-30)[..., None]
+
+
+def _paged_prefix_partials(c: ModelConfig, q, k_flat, v_flat, tables_l, lengths):
+    """Kernel-backed prefix piece in the ``_attend_piece`` partial layout;
+    ``tables_l`` and ``lengths`` are int32."""
+    return paged_decode.paged_decode_partials(
+        q, k_flat, v_flat, tables_l, lengths, num_kv_heads=c.num_kv_heads, block_size=c.block_size,
+    )
+
+
+def _decode_prefix(impl: str, block_tables: torch.Tensor, positions: torch.Tensor, block_size: int):
+    """Per-step operands of ``_decode_rows_attention``: the block tables
+    (int32 for the paged kernel, int64 for the gather) and the prefix each
+    row attends — its length for the kernel, its key mask for the gather."""
+    ctx = block_tables.shape[1] * block_size
+    if impl == "paged":
+        return block_tables.to(torch.int32), positions.clamp(max=ctx).to(torch.int32)
+    return block_tables.long(), torch.arange(ctx, device=positions.device)[None, :] < positions[:, None]
+
+
+def _decode_rows_attention(
+    c: ModelConfig,
+    impl: str,
+    q: torch.Tensor,  # [B, H, HD] decode queries
+    k: torch.Tensor,  # [B, KVH, HD] each row's current key
+    v: torch.Tensor,
+    k_flat: torch.Tensor,
+    v_flat: torch.Tensor,
+    tables_l: torch.Tensor,  # [B, W] layer-offset block tables (_decode_prefix)
+    prefix: torch.Tensor,  # [B] prefix lengths (paged) or [B, ctx] prefix mask (gather)
+) -> torch.Tensor:
+    """Decode rows as two online-softmax pieces, merged: the cached prefix
+    (paged kernel, or the gather) and the current token in-register. Returns
+    ``[B, H, HD]`` f32."""
+    B, H, HD = q.shape
+    KVH = c.num_kv_heads
+    scale = HD**-0.5
+    qg = q.reshape(B, KVH, H // KVH, HD)
+    if impl == "paged":
+        m1, l1, acc1 = _paged_prefix_partials(c, q, k_flat, v_flat, tables_l, prefix)
+    else:
+        ctx = tables_l.shape[1] * c.block_size
+        k_ctx = _gather_kv(k_flat, tables_l).reshape(B, ctx, KVH, HD)
+        v_ctx = _gather_kv(v_flat, tables_l).reshape(B, ctx, KVH, HD)
+        m1, l1, acc1 = _attend_piece(qg, k_ctx, v_ctx, prefix, scale)
+    m2, l2, acc2 = _token_piece(qg, k, v, scale)
+    return _merge_pieces(m1, l1, acc1, m2, l2, acc2).reshape(B, H, HD)
+
+
+def _chunk_attention(
+    c: ModelConfig,
+    q, k, v, k_flat, v_flat,
+    table_l: torch.Tensor,  # [W] the chunk sequence's layer-offset block table
+    valid_len: int,
+    cache_len: int,
+    use_flash: bool,
+    has_prefix: bool,
+) -> torch.Tensor:
+    """A chunk row over [cached prefix ; chunk] (attention/ragged.py); the
+    prefix gather is bounded by the caller's width-bucketed table, and flash
+    fresh chunks skip it."""
+    KVH, HD = c.num_kv_heads, c.head_dim
+    if use_flash and not has_prefix:
+        k_ctx = v_ctx = None
+    else:
+        ctx = table_l.shape[0] * c.block_size
+        k_ctx = _gather_kv(k_flat, table_l).reshape(ctx, KVH, HD)
+        v_ctx = _gather_kv(v_flat, table_l).reshape(ctx, KVH, HD)
+    return ragged.ragged_chunk_attention(
+        q, k, v, k_ctx, v_ctx, valid_len, cache_len,
+        num_kv_heads=KVH, use_flash=use_flash, has_prefix=has_prefix,
+    )
 
 
 def _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs) -> None:
@@ -138,11 +283,14 @@ def prefill(
     valid_len: int,  # actual new tokens
     cache_len: int,  # tokens already in the block table (prefix reuse / chunks)
     block_table: torch.Tensor,  # [W] block ids (0 = scratch)
+    use_flash: bool = False,  # per-piece paths: the flash kernel for the chunk piece
+    has_prefix: bool = True,  # False ⇒ cache_len == 0: flash skips the prefix piece
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One prefill (or prefill chunk): one ragged row of T queries, query i
     attending the ``cache_len`` cached tokens and fresh keys ``[0, i+1)``.
     Returns (last_logits [V] f32, k_cache, v_cache); the caches are
-    updated in place."""
+    updated in place. The megakernel path ignores ``use_flash`` and
+    ``has_prefix``."""
     c = config
     T = tokens.shape[0]
     dev = tokens.device
@@ -151,10 +299,19 @@ def prefill(
     valid_q = iq < valid_len
     h = _embed(params, tokens)
     tgt_blocks, tgt_offs = ragged_scatter_targets(block_table, positions, valid_q, c.block_size)
-    meta = megakernel.build_meta(
-        torch.zeros_like(iq), torch.full_like(iq, cache_len), torch.zeros_like(iq), iq + 1, valid_q
-    )
-    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, block_table[None, :], meta)
+    if resolve_attention_impl(c) == "megakernel":
+        meta = megakernel.build_meta(
+            torch.zeros_like(iq), torch.full_like(iq, cache_len), torch.zeros_like(iq), iq + 1, valid_q
+        )
+        attend = _mega_attend(c, block_table[None, :], meta)
+    else:
+        table = block_table.long()
+
+        def attend(off, q, k, v, k_flat, v_flat):
+            return _chunk_attention(c, q, k, v, k_flat, v_flat, table + off, valid_len, cache_len,
+                                    use_flash, has_prefix)
+
+    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend)
     _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs)
     return _logits(params, c, h[max(valid_len - 1, 0)]), k_cache, v_cache
 
@@ -189,8 +346,9 @@ def decode(
     active: torch.Tensor,  # [B] bool — padded batch slots are False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for a batch: B length-1 rows, row b attending its
-    cached prefix and its own fresh key. Returns (logits [B, V] f32,
-    k_cache, v_cache)."""
+    cached prefix and its own fresh key (one megakernel launch per layer,
+    or the two-piece merge of the per-piece paths). Returns (logits [B, V]
+    f32, k_cache, v_cache)."""
     c = config
     B = tokens.shape[0]
     dev = tokens.device
@@ -198,11 +356,20 @@ def decode(
     positions = positions.to(torch.int32)
     h = _embed(params, tokens)
     tgt_blocks, tgt_offs = decode_targets(positions, block_tables, active, c.block_size)
-    rows = torch.arange(B, dtype=torch.int32, device=dev)
-    meta = megakernel.build_meta(
-        rows, positions.clamp(max=ctx), rows, rows + 1, torch.ones_like(rows)
-    )
-    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, block_tables, meta)
+    impl = resolve_attention_impl(c)
+    if impl == "megakernel":
+        rows = torch.arange(B, dtype=torch.int32, device=dev)
+        meta = megakernel.build_meta(
+            rows, positions.clamp(max=ctx), rows, rows + 1, torch.ones_like(rows)
+        )
+        attend = _mega_attend(c, block_tables, meta)
+    else:
+        tables, prefix = _decode_prefix(impl, block_tables, positions, c.block_size)
+
+        def attend(off, q, k, v, k_flat, v_flat):
+            return _decode_rows_attention(c, impl, q, k, v, k_flat, v_flat, tables + off, prefix)
+
+    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend)
     _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs)
     return _logits(params, c, h), k_cache, v_cache
 
@@ -225,13 +392,18 @@ def mixed_step(
     d_positions: torch.Tensor,  # [B] write slot of each decode token
     d_tables: torch.Tensor,  # [B, Wd] decode block tables
     d_active: torch.Tensor,  # [B] bool — padded decode lanes are False
+    use_flash: bool = False,  # per-piece paths: the flash kernel for the chunk piece
+    has_prefix: bool = True,  # False ⇒ p_cache_len == 0: flash skips the prefix piece
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One mixed step: a prefill chunk row plus the decode batch in one
-    ragged batch, one attention launch per layer. The token axis is
-    ``[chunk (S) ; decode rows (B)]``; chunk query i sees fresh keys
-    ``[0, i+1)``, decode row d sees only ``[S+d, S+d+1)``. Returns
-    ``(logits [1+B, V] f32, k_cache, v_cache)`` — row 0 is the chunk's
-    last valid position, rows 1.. the decode rows."""
+    ragged batch. The token axis is ``[chunk (S) ; decode rows (B)]``;
+    chunk query i sees fresh keys ``[0, i+1)``, decode row d sees only its
+    own. On the megakernel path the whole batch is one attention launch per
+    layer; on the per-piece paths the chunk goes through
+    ``ragged_chunk_attention`` (prefill's exact math) and the decode rows
+    through the two-piece merge (decode's). Returns ``(logits [1+B, V] f32,
+    k_cache, v_cache)`` — row 0 is the chunk's last valid position, rows
+    1.. the decode rows."""
     c = config
     bs = c.block_size
     S, B = p_tokens.shape[0], d_tokens.shape[0]
@@ -245,17 +417,31 @@ def mixed_step(
     h = _embed(params, torch.cat([p_tokens.long(), d_tokens.long()]))
 
     Wp, Wd = p_table.shape[0], d_tables.shape[1]
-    tables = torch.zeros((1 + B, max(Wp, Wd)), dtype=torch.int32, device=dev)
-    tables[0, :Wp] = p_table
-    tables[1:, :Wd] = d_tables
-    meta = megakernel.build_meta(
-        torch.cat([torch.zeros_like(s_iq), 1 + d_iq]),
-        torch.cat([torch.full_like(s_iq, p_cache_len), d_positions.clamp(max=Wd * bs)]),
-        torch.cat([torch.zeros_like(s_iq), S + d_iq]),
-        torch.cat([s_iq + 1, S + d_iq + 1]),
-        torch.cat([p_valid_q, d_active.bool()]),
-    )
-    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions_all, tables, meta)
+    impl = resolve_attention_impl(c)
+    if impl == "megakernel":
+        tables = torch.zeros((1 + B, max(Wp, Wd)), dtype=torch.int32, device=dev)
+        tables[0, :Wp] = p_table
+        tables[1:, :Wd] = d_tables
+        meta = megakernel.build_meta(
+            torch.cat([torch.zeros_like(s_iq), 1 + d_iq]),
+            torch.cat([torch.full_like(s_iq, p_cache_len), d_positions.clamp(max=Wd * bs)]),
+            torch.cat([torch.zeros_like(s_iq), S + d_iq]),
+            torch.cat([s_iq + 1, S + d_iq + 1]),
+            torch.cat([p_valid_q, d_active.bool()]),
+        )
+        attend = _mega_attend(c, tables, meta)
+    else:
+        p_tab = p_table.long()
+        d_tabs, d_prefix = _decode_prefix(impl, d_tables, d_positions, bs)
+
+        def attend(off, q, k, v, k_flat, v_flat):
+            attn_p = _chunk_attention(c, q[:S], k[:S], v[:S], k_flat, v_flat, p_tab + off, p_valid,
+                                      p_cache_len, use_flash, has_prefix)
+            attn_d = _decode_rows_attention(c, impl, q[S:], k[S:], v[S:], k_flat, v_flat, d_tabs + off,
+                                            d_prefix)
+            return torch.cat([attn_p, attn_d.to(attn_p.dtype)])
+
+    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions_all, attend)
 
     p_blocks, p_offs = ragged_scatter_targets(p_table, p_positions, p_valid_q, bs)
     d_blocks, d_offs = decode_targets(d_positions, d_tables, d_active.bool(), bs)

@@ -11,6 +11,10 @@ configuration (one decode step per iteration, no overlapped decode):
 - **Mixed prefill+decode steps**: with sequences decoding AND prefill work
   waiting, each iteration runs ONE ragged batch — the decode batch plus up
   to ``mixed_prefill_budget`` chunk tokens (``llama.mixed_step``).
+- **Attention path**: the model's ``attention_impl`` picks the megakernel
+  or a per-piece path (``llama.resolve_attention_impl``); on the per-piece
+  paths ``prefill_impl`` picks the flash chunk kernel ("auto": on a CUDA
+  device) and every chunk says whether it has a cached prefix.
 - **Preemption**: a decode row that cannot grow its block table evicts the
   newest other running sequence, which later recomputes its KV.
 
@@ -219,9 +223,11 @@ class Scheduler:
         self._has_deadlines = False
         self._eos = eos_token_ids or []
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-        # Model forward passes run (prefill chunks, decode and mixed steps):
-        # each launches the attention kernel once per layer.
+        # Model forward passes run (prefill chunks, decode and mixed steps),
+        # all of them and by kind.
         self.forward_steps_total = 0
+        self.prefill_steps_total = 0
+        self.decode_steps_total = 0
         self.cached_tokens_total = 0
         self.cow_blocks_total = 0
         self.mixed_steps_total = 0
@@ -231,6 +237,13 @@ class Scheduler:
         self.sc.prefill_buckets = [b for b in self.sc.prefill_buckets if b <= model_config.max_seq_len] or [
             model_config.max_seq_len
         ]
+        self._attn_impl = llama.resolve_attention_impl(model_config)
+        # Prefill chunk attention on the per-piece paths: the flash kernel
+        # ("auto" ⇒ on a CUDA device only) or one masked softmax.
+        self._use_flash_prefill = model_config.architecture == "llama" and (
+            model_config.prefill_impl == "flash"
+            or (model_config.prefill_impl == "auto" and self.device.type == "cuda")
+        )
 
     # --- public API (called from event loop) --------------------------------
     def add_request(
@@ -285,6 +298,23 @@ class Scheduler:
             prefix_miss_blocks_total=a.miss_blocks_total,
             prefix_evicted_blocks_total=a.evicted_blocks_total,
         )
+
+    def config_snapshot(self) -> dict:
+        """The scheduler knobs and the model/attention identity that
+        reproduce the serving behaviour (the JAX scheduler's keys, less the
+        parallel layout the port does not have yet)."""
+        return {
+            "scheduler": {k: v for k, v in vars(self.sc).items() if not k.startswith("_")},
+            "model": {
+                "name": self.mc.name,
+                "architecture": self.mc.architecture,
+                "max_seq_len": self.mc.max_seq_len,
+                "block_size": self.mc.block_size,
+                "kv_cache_dtype": self.mc.kv_cache_dtype,
+                "weight_dtype": self.mc.weight_dtype,
+                "attention_impl": self._attn_impl,
+            },
+        }
 
     # --- step loop core (runs in worker thread) -----------------------------
     def step(self) -> List[tuple]:
@@ -361,7 +391,7 @@ class Scheduler:
             self.params, self.mc, self.cache.k, self.cache.v,
             self._dev(p_tok), len(chunk_tokens), seq.num_computed, p_table,
             self._dev(tokens), self._dev(positions), self._decode_tables(batch, d_bucket, width),
-            self._dev(active),
+            self._dev(active), use_flash=self._use_flash_prefill, has_prefix=seq.num_computed > 0,
         )
         self.forward_steps_total += 1
         self.mixed_steps_total += 1
@@ -497,8 +527,10 @@ class Scheduler:
         logits, _, _ = llama.prefill(
             self.params, self.mc, self.cache.k, self.cache.v,
             self._dev(padded), len(tokens), seq.num_computed, self._prefill_table(seq),
+            use_flash=self._use_flash_prefill, has_prefix=seq.num_computed > 0,
         )
         self.forward_steps_total += 1
+        self.prefill_steps_total += 1
         seq.num_computed += len(tokens)
         self._register_full_blocks(seq)  # chunk's completed blocks go live
 
@@ -553,6 +585,7 @@ class Scheduler:
             tpa_d[0], tpa_d[1], self._decode_tables(batch, bucket, width), tpa_d[2].bool(),
         )
         self.forward_steps_total += 1
+        self.decode_steps_total += 1
         self._finish_decode_rows(batch, bucket, logits, outputs)
         return outputs
 

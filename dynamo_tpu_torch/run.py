@@ -18,6 +18,7 @@ import logging
 import signal
 from typing import List, Optional, Tuple
 
+from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
 from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
@@ -44,13 +45,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
-def build_service(args: argparse.Namespace) -> Tuple[HttpService, TorchEngine]:
+def build_service(
+    args: argparse.Namespace, model_config: Optional[ModelConfig] = None
+) -> Tuple[HttpService, TorchEngine]:
     """The engine on ``args.device`` and the HTTP service over its pipeline
-    (not started)."""
+    (not started). ``model_config`` replaces the preset ``args.out`` names,
+    e.g. ``get_config(name).replace(attention_impl="paged",
+    prefill_impl="flash")`` for the per-piece attention path."""
     tokenizer = load_tokenizer()
     engine = TorchEngine.build(
         EngineArgs(
             model=args.out,
+            model_config=model_config,
             dtype=args.dtype,
             seed=args.seed,
             device=args.device,

@@ -2,11 +2,12 @@
 
 1. Scheduler: the port's ``Scheduler`` and the JAX ``Scheduler`` (one
    decode step per iteration, no overlapped decode) replay one request
-   trace with the same converted weights: staggered arrivals, a prompt
-   longer than ``mixed_prefill_budget`` (mixed steps), a shared prefix
-   that hits the prefix cache, and a pool small enough to force a
-   preemption. Greedy token streams, finish reasons and cached tokens
-   must be identical.
+   trace with the same converted weights and the same attention
+   configuration (megakernel; paged + flash; gather + xla): staggered
+   arrivals, a prompt longer than ``mixed_prefill_budget`` (mixed steps),
+   a shared prefix that hits the prefix cache, and a pool small enough to
+   force a preemption. Greedy token streams, finish reasons and cached
+   tokens must be identical.
 2. HTTP: the port's server on port 0 (``tiny``, f32, CPU) answers chat
    (JSON and SSE) and completion requests with the text the JAX
    ``build_local_pipeline(ByteTokenizer(), TpuEngine)`` produces for the
@@ -109,18 +110,29 @@ def _replay(sched, mod, sampling_cls):
     }
 
 
-def test_scheduler_trace_matches_jax(weights):
+# (attention_impl, prefill_impl) of each attention configuration.
+IMPLS = {
+    "megakernel": ("megakernel", "auto"),
+    "paged+flash": ("paged", "flash"),
+    "gather+xla": ("gather", "xla"),
+}
+
+
+@pytest.mark.parametrize("impl", list(IMPLS))
+def test_scheduler_trace_matches_jax(weights, impl):
     jp, tp = weights
+    attn, pre = IMPLS[impl]
     common = dict(num_blocks=16, max_running=4, mixed_prefill_budget=32, **BUCKETS)
     j = jsched.Scheduler(
-        JCFG, jp,
+        JCFG.replace(attention_impl=attn, prefill_impl=pre), jp,
         jsched.SchedulerConfig(num_scheduler_steps=1, enable_overlap_decode=False, **common),
         dtype=jnp.float32, eos_token_ids=[0],
     )
     # The port has no wave admission (several short prompts prefilled in one
     # batched dispatch); hold the JAX scheduler to one prefill per admission.
     j._supports_chunk_admit = False
-    t = tsched.Scheduler(TCFG, tp, tsched.SchedulerConfig(**common), dtype=torch.float32, device="cpu",
+    t = tsched.Scheduler(TCFG.replace(attention_impl=attn, prefill_impl=pre), tp,
+                         tsched.SchedulerConfig(**common), dtype=torch.float32, device="cpu",
                          eos_token_ids=[0])
     want = _replay(j, jsched, JaxSampling)
     got = _replay(t, tsched, SamplingParams)
@@ -129,6 +141,10 @@ def test_scheduler_trace_matches_jax(weights):
     assert t.mixed_steps_total == j.mixed_steps_total > 0
     assert t.cached_tokens_total == j.cached_tokens_total > 0
     assert got["C"]["cached"] == [32]
+    assert t._use_flash_prefill == j._use_flash_prefill == (pre == "flash")
+    assert t.config_snapshot()["model"] == j.config_snapshot()["model"]
+    assert t.prefill_steps_total + t.decode_steps_total + t.mixed_steps_total == t.forward_steps_total
+    assert t.prefill_steps_total > 0 and t.decode_steps_total > 0
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +317,24 @@ def test_chat_template_matches_jax_formatter():
     want = PromptFormatter().render(messages, add_generation_prompt=True)
     assert render_default_chat_template(messages, add_generation_prompt=True) == want
     assert render_default_chat_template(messages[:1], False) == PromptFormatter().render(messages[:1], False)
+
+
+def test_build_service_carries_a_model_config():
+    """``run.build_service`` hands a caller's model configuration (here the
+    per-piece path) through ``EngineArgs`` to the scheduler; the default
+    stays the preset's megakernel path."""
+    from dynamo_tpu_torch import run
+
+    args = run.parse_args(["in=http", "out=tiny", "--device", "cpu", "--dtype", "float32",
+                           "--num-blocks", "8", "--http-port", "0"])
+    per_piece = TCFG.replace(attention_impl="paged", prefill_impl="flash")
+    _, engine = run.build_service(args, model_config=per_piece)
+    assert engine.scheduler.mc is per_piece
+    assert engine.scheduler.config_snapshot()["model"]["attention_impl"] == "paged"
+    assert engine.scheduler._use_flash_prefill
+    _, engine = run.build_service(args)
+    assert engine.scheduler.config_snapshot()["model"]["attention_impl"] == "megakernel"
+    assert not engine.scheduler._use_flash_prefill  # "auto" on the CPU
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it():
