@@ -6,13 +6,17 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 ``dynamo_tpu_torch/csrc`` with nvcc, holds each kernel against its plain
 PyTorch version at the shapes the serving path gives it (and times the
 launch-overhead probe), runs the full-width llama-3.2-1b model on the
-kernel paths against the plain paths, times a decode and a mixed step,
-then serves ``dynamo_tpu_torch.run in=http out=llama-3.2-1b`` twice, on
-the megakernel path and on the per-piece path (``attention_impl="paged",
-prefill_impl="flash"``), sending each concurrent requests and counting
-every kernel's launches. Every phase prints JSON lines; any failure raises
-and exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
-Without a CUDA device it exits 2 and prints no result.
+kernel paths against the plain paths and the fused decode window against
+``decode_multi``, times a decode step, a mixed step and a 32-step decode
+window, then serves ``dynamo_tpu_torch.run in=http out=llama-3.2-1b``
+three times: on the megakernel path and on the per-piece path
+(``attention_impl="paged", prefill_impl="flash"``), both at one decode
+step per iteration, and with the defaults (32-step decode windows, the
+fused window for all-greedy batches), sending each concurrent requests
+and counting every kernel's launches. Every phase prints JSON lines; any
+failure raises and exits non-zero. The last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits 2 and prints no
+result.
 
 ``--phases`` runs a subset of kernel,model,breakdown,serve (env and build
 always run) for iteration; the full run is the default.
@@ -40,6 +44,7 @@ TPU_KERNEL = {
     "ragged_paged_attention": "dynamo_tpu/engine/attention/megakernel.py:123",  # :296
     "flash_chunk_attention": "dynamo_tpu/engine/attention/prefill.py:46",  # :168
     "paged_decode_partials": "dynamo_tpu/engine/attention/decode.py:65",  # :173
+    "fused_decode_window": "dynamo_tpu/engine/attention/megakernel.py:358",  # :619
     "nop": "bench.py:142",  # :145
 }
 PRESET = "llama-3.2-1b"
@@ -58,25 +63,28 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_modules():
-    """name → module of every kernel wrapper (each has KERNEL_LAUNCHES and
-    REF_CALLS)."""
+def kernel_counters():
+    """name → (module, launch-count attribute, plain-call attribute) of every
+    kernel wrapper."""
     from dynamo_tpu_torch import bench
     from dynamo_tpu_torch.engine.attention import decode, megakernel, prefill
 
-    return {"ragged_paged_attention": megakernel, "flash_chunk_attention": prefill,
-            "paged_decode_partials": decode, "nop": bench}
+    return {"ragged_paged_attention": (megakernel, "KERNEL_LAUNCHES", "REF_CALLS"),
+            "flash_chunk_attention": (prefill, "KERNEL_LAUNCHES", "REF_CALLS"),
+            "paged_decode_partials": (decode, "KERNEL_LAUNCHES", "REF_CALLS"),
+            "fused_decode_window": (megakernel, "WINDOW_KERNEL_LAUNCHES", "WINDOW_REF_CALLS"),
+            "nop": (bench, "KERNEL_LAUNCHES", "REF_CALLS")}
 
 
 def reset_counts() -> None:
-    for mod in kernel_modules().values():
-        mod.KERNEL_LAUNCHES = 0
-        mod.REF_CALLS = 0
+    for mod, launches, plain in kernel_counters().values():
+        setattr(mod, launches, 0)
+        setattr(mod, plain, 0)
 
 
 def read_counts() -> dict:
-    return {name: {"launches": mod.KERNEL_LAUNCHES, "plain_calls": mod.REF_CALLS}
-            for name, mod in kernel_modules().items()}
+    return {name: {"launches": getattr(mod, launches), "plain_calls": getattr(mod, plain)}
+            for name, (mod, launches, plain) in kernel_counters().items()}
 
 
 def bound(nbytes: int, flops: int, dtype) -> dict:
@@ -409,6 +417,187 @@ def check_nop(dev):
     return res
 
 
+# The scheduler's window counters: fused windows (one launch each), non-fused
+# windows (decode_multi) and the forward steps inside those.
+WINDOW_COUNTERS = ("fused_windows_total", "multi_windows_total", "window_steps_total")
+WINDOW_WEIGHTS = ("embed", "lm_head", "final_norm", "attn_norm", "mlp_norm", "wq", "wk", "wv", "wo",
+                  "w_gate", "w_up", "w_down")
+
+
+def window_case(name, dev, dtype, seed, *, cfg, positions, dead, steps):
+    """One fused window's inputs: seeded random weights at ``cfg``'s widths,
+    a cache of random K/V whose block 0 is scratch filled with 1e4 (a stray
+    read shows), rows whose current token writes slot ``positions[b]``, over
+    pages drawn at random that cover the window, and ``dead`` padding rows
+    (active 0) at the end."""
+    from dynamo_tpu_torch.engine.weights import init_params
+
+    BS, L, KVH, HD = cfg.block_size, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B = len(positions) + dead
+    need = [(p + steps - 1) // BS + 1 for p in positions]
+    W = max(need) + 2
+    NB = sum(need) + 1
+    ids = (torch.randperm(NB - 1, generator=g) + 1).to(torch.int32)
+    tables = torch.zeros((B, W), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, gd, device=dev, dtype=dtype)
+    k, v = (torch.randn((L, NB, BS, KVH, HD), generator=gd, device=dev).to(dtype) for _ in range(2))
+    k[:, 0] = 1e4
+    v[:, 0] = 1e4
+    lp = params["layers"]
+    weights = [params["embed"], params.get("lm_head"), params["final_norm"]] + [
+        lp[n] for n in WINDOW_WEIGHTS[3:]]
+    ints = (torch.randint(1, cfg.vocab_size, (B,), generator=g, dtype=torch.int32),
+            torch.tensor(list(positions) + [0] * dead, dtype=torch.int32), tables,
+            torch.tensor([True] * len(positions) + [False] * dead))
+    kw = dict(num_steps=steps, num_heads=cfg.num_heads, num_kv_heads=KVH, head_dim=HD, block_size=BS,
+              rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
+    return {"name": name, "cfg": cfg, "params": params, "weights": weights, "k": k, "v": v,
+            "ints": tuple(t.to(dev) for t in ints), "kw": kw, "dtype": dtype, "positions": list(positions)}
+
+
+def window_work(case):
+    """(bytes, streamed bytes, flops) of one window. Bytes: every input
+    read once and every output written once: the weights (the tied
+    embedding once, as the head; an untied head once, plus the embedding
+    rows the steps gather), each live row's cached keys and values before
+    the window, the K/V rows the window writes, tables, tokens and the
+    tokens out. Streamed bytes: the weights read once per step and each
+    live row's K/V up to its position read per step and layer, as a kernel
+    must whose weights do not stay on the card's chip (2.47 GB of bf16
+    weights against a 50 MB L2). Flops: two per weight and live row per
+    step, four per attended key, head and dim."""
+    cfg, steps = case["cfg"], case["kw"]["num_steps"]
+    esz = case["k"].element_size()
+    L, H, KVH, HD = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    embed, head = case["weights"][0], case["weights"][1]
+    rest = case["weights"][2:]  # norms and layer matrices
+    head_elems = (head if head is not None else embed).numel()
+    matmul = sum(w.numel() for w in rest if w.dim() == 3) + head_elems
+    rows = len(case["positions"])
+    keys = sum(p + j + 1 for p in case["positions"] for j in range(steps))
+    B = len(case["ints"][0])
+    row_bytes = 2 * L * KVH * HD * esz  # one token's K and V over every layer
+    small = case["ints"][2].numel() * 4 + 16 * B + steps * B * 4
+    gathered = 0 if head is None else steps * rows * embed.shape[1]
+    nbytes = ((sum(w.numel() for w in rest) + head_elems + gathered) * esz
+              + row_bytes * (sum(case["positions"]) + rows * steps) + small)
+    streamed = (steps * (sum(w.numel() for w in rest) + head_elems + rows * embed.shape[1]) * esz
+                + row_bytes * (keys + rows * steps) + small)
+    flops = 2 * steps * rows * matmul + 4 * H * HD * L * keys
+    return nbytes, streamed, flops
+
+
+def check_window(case, *, time_it: bool, hold_tokens: bool = True):
+    """``fused_decode_window`` against its plain version on the card. Both
+    start from copies of one cache. f32: every live row's tokens equal and
+    the written K/V rows within 1e-3; bf16: the step-0 tokens equal (unless
+    ``hold_tokens`` is false) and the step-0 K/V rows within 2^-5 of their
+    scale (each side rounds every product to bf16, in its own summation
+    order, through 16 layers of a bf16 residual, and the kernel keeps p in
+    f32 where the plain version rounds it), the window's token agreement
+    printed. In both, every other cache slot (block 0 aside) is left as it
+    was."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    w, ints, kw, dtype = case["weights"], case["ints"], case["kw"], case["dtype"]
+    k0, v0 = case["k"], case["v"]
+    kk, vk, kr, vr = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    toks = mk.fused_decode_window(*w, kk, vk, *ints, **kw)
+    ref = mk.fused_decode_window_ref(*w, kr, vr, *ints, **kw)
+    torch.cuda.synchronize()
+    steps, BS = kw["num_steps"], kw["block_size"]
+    live = ints[3].cpu()
+    tables = ints[2].cpu()
+    written = torch.zeros(k0.shape[1:3], dtype=torch.bool)  # [blocks, BS]
+    first = torch.zeros_like(written)
+    for b, p in enumerate(case["positions"]):
+        for j in range(steps):
+            blk, off = int(tables[b, (p + j) // BS]), (p + j) % BS
+            written[blk, off] = True
+            first[blk, off] |= j == 0
+    written, first = written.to(k0.device), first.to(k0.device)
+    keep = ~written
+    keep[0] = False
+    untouched = bool(torch.equal(kk[:, keep], k0[:, keep]) and torch.equal(vk[:, keep], v0[:, keep]))
+    tl, rl = toks[:, live].cpu(), ref[:, live].cpu()
+    agree = (tl == rl).float().mean().item()
+    sel = written if dtype == torch.float32 else first
+    kv_err = max((kk[:, sel].float() - kr[:, sel].float()).abs().max().item(),
+                 (vk[:, sel].float() - vr[:, sel].float()).abs().max().item())
+    scale = max(kr[:, sel].float().abs().max().item(), vr[:, sel].float().abs().max().item())
+    if dtype == torch.float32:
+        tol = 1e-3
+        ok = bool(torch.equal(tl, rl)) and kv_err <= tol
+    else:
+        tol = 2**-5 * scale
+        ok = (bool(torch.equal(tl[0], rl[0])) or not hold_tokens) and kv_err <= tol
+    ok = ok and untouched
+    cfg = case["cfg"]
+    res = {"kernel": "fused_decode_window", "case": case["name"], "dtype": str(dtype).replace("torch.", ""),
+           "shape": {"B": len(live), "live": int(live.sum()), "steps": steps, "L": cfg.num_layers,
+                     "D": cfg.hidden_size, "H": cfg.num_heads, "KVH": cfg.num_kv_heads, "HD": cfg.head_dim,
+                     "F": cfg.intermediate_size, "V": cfg.vocab_size, "tied": w[1] is None,
+                     "positions": case["positions"], "W": tables.shape[1]},
+           "token_agreement": agree, "max_abs_err": kv_err, "kv_scale": scale, "tol": tol,
+           "kv_compared": "written rows" if dtype == torch.float32 else "step-0 rows",
+           "other_slots_unchanged": untouched, "ok": ok}
+    if time_it:
+        nbytes, streamed, flops = window_work(case)
+        res.update(bound(nbytes, flops, dtype))
+        res["streamed_bytes"] = streamed
+        res["streamed_bound_ms_per_step"] = bound(streamed, flops, dtype)["bound_ms"] / steps
+        res["kernel_ms"] = cuda_ms(lambda: mk.fused_decode_window(*w, kk, vk, *ints, **kw), iters=5, warmup=1)
+        res["kernel_ms_per_step"] = res["kernel_ms"] / steps
+        res["ref_ms"] = cuda_ms(lambda: mk.fused_decode_window_ref(*w, kr, vr, *ints, **kw), iters=3, warmup=1)
+        res["library_ms"] = None  # no single PyTorch call computes a decode window
+    emit("kernel", **res)
+    if not ok:
+        raise AssertionError(f"fused_decode_window disagrees with its plain version: {res}")
+    return res
+
+
+def phase_window_kernel(dev):
+    """The fused window at llama-3.2-1b's full width (f32: 8 rows at ragged
+    positions 0-1023, one crossing a block boundary inside the window, one
+    dead row, 8 steps; bf16: the same rows, 32 steps; f32: the timed shape,
+    8 rows at 1024 tokens of context, 8 steps), two small widths at head
+    dim 128 and at G = 1 (untied heads), then the timed case: bf16, 8 rows
+    at 1024 tokens of context, 32 steps. There the 8 rows attend 1024
+    random keys each and the random model's logits lie close together, so
+    one rounding apart flips a bf16 argmax: its tokens are printed, not
+    held (the f32 case above holds them at this shape)."""
+    from dynamo_tpu_torch.engine.config import get_config
+
+    base = get_config(PRESET)
+    ragged = [0, 13, 100, 255, 511, 700, 1023]
+    small = dict(vocab_size=1024, hidden_size=256, intermediate_size=512, num_layers=2, tie_word_embeddings=False)
+    specs = [
+        ("llama-3.2-1b ragged", base, torch.float32, ragged, 1, 8),
+        ("llama-3.2-1b ragged", base, torch.bfloat16, ragged, 1, 32),
+        ("llama-3.2-1b 8 x 1024", base, torch.float32, [1024] * 8, 0, 8),
+        ("small HD=128", base.replace(num_heads=8, num_kv_heads=2, head_dim=128, **small), torch.float32,
+         [3, 40, 77], 1, 8),
+        ("small G=1", base.replace(num_heads=4, num_kv_heads=4, head_dim=64, **small), torch.float32,
+         [0, 15, 200], 1, 8),
+    ]
+    for i, (name, cfg, dtype, positions, dead, steps) in enumerate(specs):
+        check_window(window_case(name, dev, dtype, 400 + i, cfg=cfg, positions=positions, dead=dead, steps=steps),
+                     time_it=False)
+        torch.cuda.empty_cache()
+    case = window_case("llama-3.2-1b 8 x 1024", dev, torch.bfloat16, 410, cfg=base, positions=[1024] * 8, dead=0,
+                       steps=32)
+    res = check_window(case, time_it=True, hold_tokens=False)
+    del case
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_kernel(dev):
     """Every kernel at the shapes the serving paths give it, and at the
     ragged edges, in bf16 and f32; the probe. Returns, per kernel, the
@@ -473,6 +662,7 @@ def phase_kernel(dev):
     torch.cuda.empty_cache()
 
     timed["nop"] = check_nop(dev)
+    timed["fused_decode_window"] = phase_window_kernel(dev)
     return timed
 
 
@@ -588,6 +778,56 @@ def phase_model(dev):
     if failed:
         raise AssertionError(f"model phase failed: {failed}")
     del params_cpu
+    torch.cuda.empty_cache()
+    phase_model_window(dev)
+
+
+def phase_model_window(dev):
+    """llama-3.2-1b at full width in f32 on the card: one 8-step greedy
+    window of 8 rows at ragged positions (one dead) through the fused
+    window (one launch) and through ``decode_multi`` over the ragged kernel
+    (one launch per layer and step), from copies of one cache. The live
+    rows' tokens must be equal and the written K/V within 1e-3."""
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.models import llama
+
+    base = get_config(PRESET)
+    steps = 8
+    case = window_case("llama-3.2-1b window", dev, torch.float32, 420, cfg=base,
+                       positions=[0, 13, 100, 255, 511, 700, 1023], dead=1, steps=steps)
+    params, ints, k0, v0 = case["params"], case["ints"], case["k"], case["v"]
+    B = len(ints[0])
+    greedy = (np.zeros(B, np.float32), np.zeros(B, np.int32), np.ones(B, np.float32))
+    fk, fv, dk, dv = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    reset_counts()
+    fused, _, _ = llama.decode_multi_fused(params, base, fk, fv, *ints, num_steps=steps)
+    fused_counts = read_counts()
+    reset_counts()
+    multi, _, _ = llama.decode_multi(params, base, dk, dv, *ints, *greedy, None, steps)
+    multi_counts = read_counts()
+    torch.cuda.synchronize()
+    live = ints[3].cpu()
+    tables = ints[2].cpu()
+    written = torch.zeros(k0.shape[1:3], dtype=torch.bool)
+    for b, p in enumerate(case["positions"]):
+        for j in range(steps):
+            written[int(tables[b, (p + j) // base.block_size]), (p + j) % base.block_size] = True
+    sel = written.to(dev)
+    kv_err = max((fk[:, sel] - dk[:, sel]).abs().max().item(), (fv[:, sel] - dv[:, sel]).abs().max().item())
+    same = bool(torch.equal(fused[:, live].cpu(), multi[:, live].cpu()))
+    launches = ({n: c["launches"] for n, c in fused_counts.items() if c["launches"]},
+                {n: c["launches"] for n, c in multi_counts.items() if c["launches"]})
+    want = ({"fused_decode_window": 1}, {"ragged_paged_attention": steps * base.num_layers})
+    plain = sum(c["plain_calls"] for counts in (fused_counts, multi_counts) for c in counts.values())
+    ok = same and kv_err <= 1e-3 and launches == want and not plain
+    emit("model", preset=PRESET, path="fused window vs decode_multi", dtype="float32", rows=B,
+         live=int(live.sum()), steps=steps, tokens_equal=same,
+         token_agreement=(fused[:, live] == multi[:, live]).float().mean().item(), kv_max_abs_err=kv_err,
+         tol=1e-3, kernel_launches=launches, expected_launches=want, plain_calls_on_card=plain, ok=ok)
+    if not ok:
+        raise AssertionError("the fused window disagrees with decode_multi over the ragged kernel")
+    del case, params, fk, fv, dk, dv
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -669,6 +909,49 @@ def device_busy_ms(fn, runs: int = 3) -> tuple:
     return busy_us / 1e3 / runs, launches / runs
 
 
+def window_breakdown(params, cfg, cache, d_args, steps):
+    """One greedy decode window of ``steps`` steps over the breakdown's 8
+    rows: the fused window (one launch) and the non-fused ``decode_multi``
+    (one forward per step over the ragged kernel). Per window: event ms,
+    host ms to queue it, profiler device-busy ms and device operations;
+    and the event ms per step. For the fused window, also the ms per step
+    of each of its phases, from the kernel's own timer stamps (each
+    phase's slowest block plus its grid barrier)."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+    from dynamo_tpu_torch.engine.models import llama
+
+    B = len(d_args[0])
+    greedy = (np.zeros(B, np.float32), np.zeros(B, np.int32), np.ones(B, np.float32))
+    fns = {
+        "fused_window": lambda: llama.decode_multi_fused(params, cfg, cache.k, cache.v, *d_args, num_steps=steps),
+        "decode_multi": lambda: llama.decode_multi(params, cfg, cache.k, cache.v, *d_args, *greedy, None, steps),
+    }
+    rows = {}
+    for name, fn in fns.items():
+        window_ms = cuda_ms(fn, iters=5, warmup=1)
+        busy, n_ops = device_busy_ms(fn, runs=1)
+        rows[name] = {"steps": steps, "window_ms": window_ms, "ms_per_step": window_ms / steps,
+                      "host_enqueue_ms": host_enqueue_ms(fn, iters=3), "device_busy_ms": busy,
+                      "device_idle_share": 1 - busy / window_ms, "device_ops": n_ops}
+    L = cfg.num_layers
+    prof = torch.zeros(mk.window_profile_len(steps, L), dtype=torch.int64, device=cache.k.device)
+    lp = params["layers"]
+    mk.fused_decode_window(
+        params["embed"], params.get("lm_head"), params["final_norm"],
+        *(lp[n] for n in WINDOW_WEIGHTS[3:]), cache.k, cache.v, *d_args,
+        num_steps=steps, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        block_size=cfg.block_size, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta, profile=prof)
+    t = prof.cpu().numpy().astype(np.float64)
+    d = np.diff(t).reshape(steps, 5 * L + 2) / 1e6  # ms between successive stamps
+    layer = d[:, :5 * L].reshape(steps, L, 5).sum(axis=1).mean(axis=0)
+    names = ("qkv", "attention", "wo", "gate_up", "down")
+    rows["fused_window"]["phases_ms_per_step"] = {
+        **{n: float(x) for n, x in zip(names, layer)},
+        "head": float(d[:, 5 * L].mean()), "argmax_embed": float(d[:, 5 * L + 1].mean())}
+    rows["fused_window"]["profiled_ms_per_step"] = float((t[-1] - t[0]) / 1e6 / steps)
+    return rows
+
+
 def phase_breakdown(dev):
     """Time of one decode step and one mixed step of llama-3.2-1b in bf16
     (CUDA events, median of 20) on each attention path, the host time to
@@ -677,7 +960,8 @@ def phase_breakdown(dev):
     PyTorch glue around them (prefix gathers, the prefix partial, the
     in-register piece, merges). Event times include any wait for the
     host; ``device_busy_ms`` (torch.profiler) is the card's own work, and
-    the rest of the step is the card waiting for the host."""
+    the rest of the step is the card waiting for the host. Then one
+    32-step greedy window over the same 8 decode rows, fused and not."""
     from dynamo_tpu_torch.engine.attention import decode as pdk
     from dynamo_tpu_torch.engine.attention import megakernel as mk
     from dynamo_tpu_torch.engine.attention import prefill as fck
@@ -694,8 +978,8 @@ def phase_breakdown(dev):
     cache.v.normal_()
     rng = np.random.default_rng(5)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    B, ctx, chunk, BS = 8, 1024, 512, base.block_size
-    per_row = ctx // BS + 1
+    B, ctx, chunk, BS, steps = 8, 1024, 512, base.block_size, 32
+    per_row = (ctx + steps) // BS + 1  # covers a window's writes
     ids = rng.permutation(np.arange(1, 2048)).astype(np.int32)
     W = width_bucket(per_row, 1 << 20)
     tables = np.zeros((B, W), np.int32)
@@ -746,6 +1030,7 @@ def phase_breakdown(dev):
             row["attention_share"] = row["attention_ms"] / step_ms
             rows[name] = row
         res[path] = rows
+    res["windows"] = window_breakdown(params, base, cache, d_args, steps)
     emit("breakdown", **res)
     del params, cache
     torch.cuda.empty_cache()
@@ -806,18 +1091,30 @@ def _summarize(status, data, stream):
     return usage["completion_tokens"], finish, cached
 
 
+SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows")
+
+
 def phase_serve(card: str, path: str):
-    """Serve ``PRESET`` through ``run.build_service`` on one attention path
-    ("megakernel": the preset as it is; "paged+flash": the per-piece path)
-    and send it 8 concurrent requests, then a repeat of the first. Every
-    kernel's counts go to 0 just before the requests and are read just
-    after: the path's kernels must have launched once per layer for each
-    forward step that reaches them, no other kernel and no plain version
-    at all."""
+    """Serve ``PRESET`` through ``run.build_service`` on one path
+    ("megakernel": the preset as it is; "paged+flash": the per-piece path;
+    both pinned to one decode step per iteration; "megakernel+windows": the
+    defaults, 32-step decode windows with the waiting cap at 8) and send it
+    8 concurrent requests, then a repeat of the first. Every kernel's
+    counts go to 0 just before the requests and are read just after: the
+    path's kernels must have launched once per layer for each forward step
+    that reaches them (the windows pass: the ragged kernel also once per
+    layer for each step inside a non-fused window, and the fused window
+    once per fused window), no other kernel and no plain version at all.
+    In the windows pass the greedy repeat runs alone and must reach the
+    fused window, and the batches holding the sampled request must run
+    non-fused windows."""
     from dynamo_tpu_torch import run
     from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
 
-    model_config = None if path == "megakernel" else get_config(PRESET).replace(**PER_PIECE)
+    model_config = get_config(PRESET).replace(**PER_PIECE) if path == "paged+flash" else None
+    windows = path == "megakernel+windows"
+    scheduler_config = None if windows else SchedulerConfig(num_scheduler_steps=1)
     args = run.parse_args(["in=http", f"out={PRESET}", "--http-host", "127.0.0.1", "--http-port", "0"])
     rng = np.random.default_rng(11)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
@@ -840,12 +1137,13 @@ def phase_serve(card: str, path: str):
         body.update(model=PRESET, max_tokens=64)
 
     async def serve():
-        service, engine = run.build_service(args, model_config=model_config)
+        service, engine = run.build_service(args, model_config=model_config, scheduler_config=scheduler_config)
         sched = engine.scheduler
         await service.start()
         try:
             kinds = ("forward", "prefill", "decode", "mixed")
             steps0 = {k: getattr(sched, f"{k}_steps_total") for k in kinds}
+            steps0.update({k: getattr(sched, k) for k in WINDOW_COUNTERS})
             reset_counts()  # counts from zero, just before the main path runs
             t0 = time.perf_counter()
             results = await asyncio.gather(
@@ -855,14 +1153,15 @@ def phase_serve(card: str, path: str):
             repeat = await asyncio.to_thread(_request, service.port, *reqs[0])
             counts = read_counts()
             steps = {k: getattr(sched, f"{k}_steps_total") - steps0[k] for k in kinds}
+            steps.update({k: getattr(sched, k) - steps0[k] for k in WINDOW_COUNTERS})
             metrics = engine.metrics().to_wire()
             impl = sched.config_snapshot()["model"]["attention_impl"]
         finally:
             await service.stop()
             await engine.stop()
-        return results, wall, repeat, counts, steps, metrics, sched.mc, impl
+        return results, wall, repeat, counts, steps, metrics, sched.mc, impl, sched.sc.num_scheduler_steps
 
-    results, wall, repeat, counts, steps, metrics, mc, impl = asyncio.run(serve())
+    results, wall, repeat, counts, steps, metrics, mc, impl, sched_steps = asyncio.run(serve())
     answers = []
     for (url, body), (status, data, first, total) in zip(reqs, results):
         n, finish, cached = _summarize(status, data, body.get("stream", False))
@@ -876,6 +1175,9 @@ def phase_serve(card: str, path: str):
     L = mc.num_layers
     if path == "megakernel":
         expected = {"ragged_paged_attention": L * steps["forward"]}
+    elif windows:
+        expected = {"ragged_paged_attention": L * (steps["forward"] + steps["window_steps_total"]),
+                    "fused_decode_window": steps["fused_windows_total"]}
     else:
         expected = {"flash_chunk_attention": L * (steps["prefill"] + steps["mixed"]),
                     "paged_decode_partials": L * (steps["decode"] + steps["mixed"])}
@@ -888,8 +1190,9 @@ def phase_serve(card: str, path: str):
         "requests": len(answers) + 1, "answers": answers,
         "repeat": {"completion_tokens": n_rep, "finish_reason": finish_rep, "cached_tokens": cached_rep},
         "ttft_p50_s": statistics.median(ttfts), "ttft_n": len(ttfts),
-        "decode_tok_per_s": completion / wall, "wall_s": wall,
+        "decode_tok_per_s": completion / wall, "wall_s": wall, "wall_ms_per_token": 1e3 * wall / completion,
         "wall_ms_per_forward_step": 1e3 * wall / steps["forward"], "steps": steps,
+        "num_scheduler_steps": sched_steps,
         "kernel_launches": launches, "expected_launches": want, "plain_calls": plain,
         "mixed_steps_total": metrics["mixed_steps_total"], "cached_tokens_total": metrics["cached_tokens_total"],
     }
@@ -902,12 +1205,58 @@ def phase_serve(card: str, path: str):
         raise AssertionError(f"kernel launches {launches} != expected {want} over steps {steps}")
     if plain:
         raise AssertionError(f"serving called plain versions {plain} times: {counts}")
+    if windows and not (steps["fused_windows_total"] and steps["multi_windows_total"]):
+        raise AssertionError(f"the windows pass did not run both kinds of window: {steps}")
     return res
 
 
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+
+
+def kernels_line(timed: dict, served: dict) -> list:
+    """The ``kernels`` entries: every kernel's route, source, the TPU kernel
+    it replaces, its launches on the main path, its checked error and its
+    timed, plain, bound and library times."""
+    # Launches: each attention kernel's count over the serving pass of its
+    # path, and per forward step that reaches it; the fused window's over
+    # the windows pass, and per fused window; the probe's, over the probe's
+    # run.
+    mega, piece, win = (served[p] for p in SERVE_PASSES)
+    launches = {
+        "ragged_paged_attention": mega["kernel_launches"]["ragged_paged_attention"],
+        "flash_chunk_attention": piece["kernel_launches"]["flash_chunk_attention"],
+        "paged_decode_partials": piece["kernel_launches"]["paged_decode_partials"],
+        "fused_decode_window": win["kernel_launches"]["fused_decode_window"],
+        "nop": timed["nop"]["probe_launches"],
+    }
+    reached = {
+        "ragged_paged_attention": (mega["steps"]["forward"], "step"),
+        "flash_chunk_attention": (piece["steps"]["prefill"] + piece["steps"]["mixed"], "step"),
+        "paged_decode_partials": (piece["steps"]["decode"] + piece["steps"]["mixed"], "step"),
+        "fused_decode_window": (win["steps"]["fused_windows_total"], "window"),
+    }
+    kernels = []
+    for name in ("ragged_paged_attention", "flash_chunk_attention", "paged_decode_partials", "fused_decode_window",
+                 "nop"):
+        t = timed[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"dynamo_tpu_torch/csrc/{name}.cu",
+            "replaces": TPU_KERNEL[name],
+            "launches": launches[name],
+            "launches_per_step": launches[name] / reached[name][0] if name in reached else None,
+            "unit": reached[name][1] if name in reached else None,
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["kernel_ms"],
+            "plain_ms": t["ref_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    return kernels
 
 
 def main() -> int:
@@ -921,6 +1270,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products of the plain versions accumulate in f32, as the kernels'.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = gpu_name_and_power()
     emit("env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
@@ -940,41 +1291,10 @@ def main() -> int:
         phase_model(dev)
     if "breakdown" in phases:
         phase_breakdown(dev)
-    served = {path: phase_serve(card, path) for path in ("megakernel", "paged+flash")} if "serve" in phases else None
+    served = {path: phase_serve(card, path) for path in SERVE_PASSES} if "serve" in phases else None
     if phases != {"env", "build", "kernel", "model", "breakdown", "serve"}:
         return 0  # a partial run reports no result
-    # Launches: each attention kernel's count over the serving pass of its
-    # path, and per forward step that reaches it; the probe's, over the
-    # probe's run.
-    mega, piece = served["megakernel"], served["paged+flash"]
-    launches = {
-        "ragged_paged_attention": mega["kernel_launches"]["ragged_paged_attention"],
-        "flash_chunk_attention": piece["kernel_launches"]["flash_chunk_attention"],
-        "paged_decode_partials": piece["kernel_launches"]["paged_decode_partials"],
-        "nop": timed["nop"]["probe_launches"],
-    }
-    steps_reached = {
-        "ragged_paged_attention": mega["steps"]["forward"],
-        "flash_chunk_attention": piece["steps"]["prefill"] + piece["steps"]["mixed"],
-        "paged_decode_partials": piece["steps"]["decode"] + piece["steps"]["mixed"],
-    }
-    kernels = []
-    for name in ("ragged_paged_attention", "flash_chunk_attention", "paged_decode_partials", "nop"):
-        t = timed[name]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"dynamo_tpu_torch/csrc/{name}.cu",
-            "replaces": TPU_KERNEL[name],
-            "launches": launches[name],
-            "launches_per_step": launches[name] / steps_reached[name] if name in steps_reached else None,
-            "max_abs_err": t["max_abs_err"],
-            "ms": t["kernel_ms"],
-            "plain_ms": t["ref_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-        })
+    kernels = kernels_line(timed, served)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

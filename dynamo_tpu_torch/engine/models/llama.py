@@ -26,8 +26,9 @@ weights applied as ``x @ w``.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,6 +36,7 @@ from dynamo_tpu_torch.engine.attention import decode as paged_decode
 from dynamo_tpu_torch.engine.attention import megakernel, ragged
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.kv_cache import ragged_scatter_targets
+from dynamo_tpu_torch.engine.sampling import sample_batch_device
 from dynamo_tpu_torch.engine.weights import Params
 
 NEG_INF = -1e30
@@ -372,6 +374,97 @@ def decode(
     h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend)
     _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs)
     return _logits(params, c, h), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-step decode windows
+# ---------------------------------------------------------------------------
+
+
+def decode_multi(
+    params: Params,
+    config: ModelConfig,
+    k_cache: torch.Tensor,  # [L, N, BS, KVH, HD]
+    v_cache: torch.Tensor,
+    tokens: torch.Tensor,  # [B] current token per sequence
+    positions: torch.Tensor,  # [B] write slot of the current token
+    block_tables: torch.Tensor,  # [B, max_blocks] — must cover positions+num_steps
+    active: torch.Tensor,  # [B] bool
+    temps: np.ndarray,  # [B] f32 (0 = greedy)
+    top_ks: np.ndarray,  # [B] i32 (0 = off)
+    top_ps: np.ndarray,  # [B] f32 (1 = off)
+    generator: Optional[torch.Generator],  # the JAX version's rng_key
+    num_steps: int,
+    moe_stats: bool = False,
+    return_logits: bool = False,
+    uniforms: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``num_steps`` autoregressive decode steps with on-device sampling
+    and token feedback: the host syncs once per window, when it reads the
+    result. Returns ``(tokens_out [num_steps, B] int32, k_cache,
+    v_cache)``. Stop conditions are checked by the caller afterwards.
+
+    Each step is the port's ``decode`` on every attention path, which writes
+    its K/V rows in place; the JAX version keeps them in a window-local
+    carry and scatters once at the end. Both give the same tokens and cache
+    contents. ``moe_stats``, ``return_logits`` and ``uniforms`` are not
+    ported yet."""
+    if moe_stats or return_logits or uniforms is not None:
+        raise NotImplementedError(
+            "decode_multi: moe_stats, return_logits and uniforms are not ported yet "
+            "(ROADMAP Queue 1 items 11 and 16)"
+        )
+    positions = positions.to(torch.int32)
+    out = torch.empty((num_steps, tokens.shape[0]), dtype=torch.int32, device=tokens.device)
+    toks = tokens.to(torch.int32)
+    for i in range(num_steps):
+        logits, k_cache, v_cache = decode(
+            params, config, k_cache, v_cache, toks, positions + i, block_tables, active
+        )
+        toks = sample_batch_device(logits, temps, top_ks, top_ps, generator)
+        out[i] = toks
+    return out, k_cache, v_cache
+
+
+def decode_multi_fused(
+    params: Params,
+    config: ModelConfig,
+    k_cache: torch.Tensor,  # [L, N, BS, KVH, HD]
+    v_cache: torch.Tensor,
+    tokens: torch.Tensor,  # [B] current token per sequence
+    positions: torch.Tensor,  # [B] write slot of the current token
+    block_tables: torch.Tensor,  # [B, W] — must cover positions+num_steps
+    active: torch.Tensor,  # [B] bool
+    num_steps: int,
+    sampled: bool = False,
+    guided: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A whole greedy window in ONE launch of the fused decode-window kernel
+    (``megakernel.fused_decode_window``): every layer of every step, the KV
+    writes, the head and the argmax, with the token fed back on the device.
+    Returns ``(tokens_out [num_steps, B] int32, k_cache, v_cache)``, the
+    caches written in place; the same tokens and cache contents as greedy
+    ``decode_multi``. Dense llama only; callers gate with
+    ``megakernel.fused_window_fits``. The sampled and guided epilogues are
+    not ported yet."""
+    if sampled or guided:
+        raise NotImplementedError(
+            "decode_multi_fused: the sampled and guided epilogues are not ported yet "
+            "(ROADMAP Queue 2 items 3b and 3c)"
+        )
+    c = config
+    lp = params["layers"]
+    head = params.get("lm_head")
+    toks = megakernel.fused_decode_window(
+        params["embed"], head, params["final_norm"],
+        lp["attn_norm"], lp["mlp_norm"],
+        lp["wq"], lp["wk"], lp["wv"], lp["wo"],
+        lp["w_gate"], lp["w_up"], lp["w_down"],
+        k_cache, v_cache, tokens, positions, block_tables, active,
+        num_steps=num_steps, num_heads=c.num_heads, num_kv_heads=c.num_kv_heads,
+        head_dim=c.head_dim, block_size=c.block_size, rms_eps=c.rms_norm_eps, theta=c.rope_theta,
+    )
+    return toks, k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

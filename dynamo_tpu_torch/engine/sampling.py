@@ -105,9 +105,23 @@ def sample_batch(
     top_ps: np.ndarray,  # [B] f32 (1 = off)
     generator: Optional[torch.Generator],
 ) -> np.ndarray:
-    """Sample one token per row → host ``[B]`` int32. Greedy rows take the
-    argmax; sampled rows draw a uniform from ``generator`` and pick through
-    ``sample_from_uniforms``. All-greedy batches skip the sort entirely."""
+    """``sample_batch_device`` brought to the host: ``[B]`` int32 numpy."""
+    return sample_batch_device(logits, temps, top_ks, top_ps, generator).cpu().numpy()
+
+
+def sample_batch_device(
+    logits: torch.Tensor,  # [B, V] f32
+    temps: np.ndarray,  # [B] f32 (0 = greedy)
+    top_ks: np.ndarray,  # [B] i32 (0 = off)
+    top_ps: np.ndarray,  # [B] f32 (1 = off)
+    generator: Optional[torch.Generator],
+) -> torch.Tensor:
+    """Sample one token per row → ``[B]`` int32 on the logits' device, with
+    no host sync: a decode window feeds it straight back as the next step's
+    input. Greedy rows take the argmax; sampled rows draw a uniform from
+    ``generator`` and pick through ``sample_from_uniforms``. All-greedy
+    batches skip the sort entirely. The row split reads the host-side
+    ``temps``, never the device."""
     tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     rows = np.nonzero(temps > 0)[0]
     if len(rows):
@@ -122,4 +136,4 @@ def sample_batch(
             torch.from_numpy(top_ps[rows]).to(dev),
             u,
         )
-    return tokens.cpu().numpy()
+    return tokens

@@ -1,7 +1,7 @@
 """Continuous batching scheduler: the engine's step loop.
 
-The core loop of the JAX package's ``Scheduler`` in its single-step
-configuration (one decode step per iteration, no overlapped decode):
+The core loop of the JAX package's ``Scheduler`` without overlapped decode
+or wave admission:
 
 - **Chunked prefill**: prompts longer than a chunk run as several chunks.
 - **Prefix caching**: prompt block hashes are matched against the
@@ -17,6 +17,16 @@ configuration (one decode step per iteration, no overlapped decode):
   device) and every chunk says whether it has a cached prefix.
 - **Preemption**: a decode row that cannot grow its block table evicts the
   newest other running sequence, which later recomputes its KV.
+- **Multi-step decode windows** (``num_scheduler_steps`` > 1, default 32):
+  a decode iteration runs a window of N steps with the token fed back on
+  the device and one host sync, N the smallest rung (8, 16,
+  ``num_scheduler_steps``) covering the batch's remaining budget, capped
+  while requests wait. On the megakernel path an all-greedy batch runs the
+  whole window as ONE launch of the fused decode-window kernel
+  (``llama.decode_multi_fused``); a batch with a sampled row runs
+  ``llama.decode_multi``, one forward per step (the sampled epilogue of
+  the fused kernel is not ported yet). Tokens past a row's stop are
+  trimmed.
 
 Batch sizes and chunk lengths round up to the JAX package's buckets, which
 bound how many tensor shapes the model sees. The step loop runs in a
@@ -36,6 +46,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.engine.attention import megakernel
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.kv_cache import BlockAllocator, KvCacheArrays, KvEvent, OutOfBlocksError
 from dynamo_tpu_torch.engine.models import llama
@@ -161,6 +172,14 @@ class SchedulerConfig:
     # On OutOfBlocks mid-decode, preempt the newest running sequence instead
     # of finishing the starved one with "length".
     enable_preemption: bool = True
+    # Multi-step decode: N decode steps per iteration with on-device token
+    # feedback and one host sync (the JAX package's default, 32). 1 = one
+    # decode step per iteration. Tokens stream in bursts of up to N.
+    num_scheduler_steps: int = 32
+    # While requests wait for admission, cap windows at the first rung at
+    # or above this (None = full windows), so a new request never waits a
+    # whole 32-step window.
+    window_waiting_cap: Optional[int] = 8
 
 
 @dataclass
@@ -233,6 +252,12 @@ class Scheduler:
         self.mixed_steps_total = 0
         self.mixed_prefill_tokens_total = 0
         self.mixed_decode_tokens_total = 0
+        # Decode windows: fused (one kernel launch each), non-fused
+        # (decode_multi), and the forward steps inside non-fused windows.
+        # Windows are not in forward_steps_total.
+        self.fused_windows_total = 0
+        self.multi_windows_total = 0
+        self.window_steps_total = 0
         # Trim buckets to the model's max length.
         self.sc.prefill_buckets = [b for b in self.sc.prefill_buckets if b <= model_config.max_seq_len] or [
             model_config.max_seq_len
@@ -243,6 +268,20 @@ class Scheduler:
         self._use_flash_prefill = model_config.architecture == "llama" and (
             model_config.prefill_impl == "flash"
             or (model_config.prefill_impl == "auto" and self.device.type == "cuda")
+        )
+        # Window rungs: a batch needing few more tokens runs a short window.
+        steps = self.sc.num_scheduler_steps
+        self._window_rungs = sorted({w for w in (8, 16, steps) if w <= steps})
+        # The fused window: multi-step on, the megakernel path, and the
+        # kernel's own gate (dense llama, bf16/f32, head dim, batch ≤ 32,
+        # a cooperative grid covering the card).
+        self._use_fused_window = (
+            steps > 1
+            and self._attn_impl == "megakernel"
+            and megakernel.fused_window_fits(
+                model_config, batch=self.sc.decode_buckets[-1], dtype=params["embed"].dtype,
+                kv_dtype=self.cache.k.dtype, device=self.device,
+            )
         )
 
     # --- public API (called from event loop) --------------------------------
@@ -573,6 +612,23 @@ class Scheduler:
         n = min(len(self.running), self.sc.decode_buckets[-1])
         batch = self.running[:n]
         bucket = next_bucket(n, self.sc.decode_buckets)
+        # Every batch may ride a window: the port's requests carry no per-row
+        # host extras yet (logprobs, penalties, logits processors, guided
+        # decoding), which the HTTP layer refuses.
+        if self.sc.num_scheduler_steps > 1 and self._decode_multi(batch, bucket, outputs):
+            return outputs
+        logits, _, _ = llama.decode(
+            self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket)
+        )
+        self.forward_steps_total += 1
+        self.decode_steps_total += 1
+        self._finish_decode_rows(batch, bucket, logits, outputs)
+        return outputs
+
+    def _decode_inputs(self, batch: List[Sequence], bucket: int) -> tuple:
+        """Device ``(tokens, positions, tables, active)`` of a decode batch
+        padded to ``bucket``: each row's last token at its write slot, the
+        tables at the width bucket of the longest row."""
         width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
         tpa = np.zeros((3, bucket), dtype=np.int32)
         for i, seq in enumerate(batch):
@@ -580,14 +636,49 @@ class Scheduler:
             tpa[1, i] = seq.total_len - 1  # write slot of the current token
             tpa[2, i] = 1
         tpa_d = self._dev(tpa)
-        logits, _, _ = llama.decode(
-            self.params, self.mc, self.cache.k, self.cache.v,
-            tpa_d[0], tpa_d[1], self._decode_tables(batch, bucket, width), tpa_d[2].bool(),
-        )
-        self.forward_steps_total += 1
-        self.decode_steps_total += 1
-        self._finish_decode_rows(batch, bucket, logits, outputs)
-        return outputs
+        return tpa_d[0], tpa_d[1], self._decode_tables(batch, bucket, width), tpa_d[2].bool()
+
+    def _decode_multi(self, batch: List[Sequence], bucket: int, outputs: List[tuple]) -> bool:
+        """One multi-step decode window: N steps, one host sync. Returns
+        False (the caller runs a single step) when the window would pass
+        ``max_seq_len`` or its KV blocks can't be reserved."""
+        rungs = self._window_rungs
+        remaining = [max(1, seq.stop.max_tokens - len(seq.output_ids)) for seq in batch]
+        steps = next((w for w in rungs if w >= max(remaining)), rungs[-1])
+        if self.sc.window_waiting_cap:
+            cap_rung = next((w for w in rungs if w >= self.sc.window_waiting_cap), rungs[-1])
+            # A waiting request, or a batchmate within a rung of its budget,
+            # caps the window: at most cap_rung-1 trimmed steps.
+            if self.waiting or min(remaining) <= cap_rung:
+                steps = min(steps, cap_rung)
+        bs = self.mc.block_size
+        # Reserve the whole window's blocks up front (+1 for the next
+        # iteration's write slot, as _ensure_block_capacity keeps).
+        for seq in batch:
+            if seq.total_len + steps > self.mc.max_seq_len:
+                return False
+            need = (seq.total_len + steps + bs - 1) // bs - len(seq.block_ids)
+            if need > 0:
+                try:
+                    seq.block_ids.extend(self.allocator.allocate(need))
+                except OutOfBlocksError:
+                    return False
+        args = (self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket))
+        if self._use_fused_window and all(seq.sampling.temperature <= 0 for seq in batch):
+            toks, _, _ = llama.decode_multi_fused(*args, num_steps=steps)
+            self.fused_windows_total += 1
+        else:
+            temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
+            toks, _, _ = llama.decode_multi(*args, temps, top_ks, top_ps, self._gen, steps)
+            self.multi_windows_total += 1
+            self.window_steps_total += steps
+        sampled = toks.cpu().numpy()  # the one host sync per window
+        for i, seq in enumerate(batch):
+            for s in range(steps):
+                if seq.state != SeqState.RUNNING:
+                    break  # stopped inside the window: later tokens are trimmed
+                self._append_token(seq, int(sampled[s, i]), outputs)
+        return True
 
     def _finish_decode_rows(
         self, batch: List[Sequence], bucket: int, logits: torch.Tensor, outputs: List[tuple]

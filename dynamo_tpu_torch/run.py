@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import logging
 import signal
 from typing import List, Optional, Tuple
@@ -46,12 +47,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def build_service(
-    args: argparse.Namespace, model_config: Optional[ModelConfig] = None
+    args: argparse.Namespace,
+    model_config: Optional[ModelConfig] = None,
+    scheduler_config: Optional[SchedulerConfig] = None,
 ) -> Tuple[HttpService, TorchEngine]:
     """The engine on ``args.device`` and the HTTP service over its pipeline
     (not started). ``model_config`` replaces the preset ``args.out`` names,
     e.g. ``get_config(name).replace(attention_impl="paged",
-    prefill_impl="flash")`` for the per-piece attention path."""
+    prefill_impl="flash")`` for the per-piece attention path.
+    ``scheduler_config`` replaces the scheduler's defaults, e.g.
+    ``SchedulerConfig(num_scheduler_steps=1)`` for one decode step per
+    iteration; its ``num_blocks`` is set from ``--num-blocks``."""
     tokenizer = load_tokenizer()
     engine = TorchEngine.build(
         EngineArgs(
@@ -61,7 +67,7 @@ def build_service(
             seed=args.seed,
             device=args.device,
             eos_token_ids=tokenizer.eos_token_ids,
-            scheduler=SchedulerConfig(num_blocks=args.num_blocks),
+            scheduler=dataclasses.replace(scheduler_config or SchedulerConfig(), num_blocks=args.num_blocks),
         )
     )
     pipeline = build_local_pipeline(tokenizer, engine)

@@ -214,3 +214,133 @@ def test_model_kernel_path_matches_cpu_path(cuda, attn, pre):
     L = cfg.num_layers
     assert launches == ((4 * L, 0, 0) if attn == "megakernel" else (0, 2 * L, 2 * L))
     torch.testing.assert_close(on_card, run("cpu"), rtol=2e-4, atol=2e-4)
+
+
+# Fused window cases: (num_heads, num_kv_heads, head_dim, tied head, live
+# rows' write positions). Each adds one dead row; a position near a block's
+# end crosses into the next block inside the window.
+WINDOW = {
+    "tiny": (4, 2, 16, False, [0, 14, 37]),
+    "mqa-tied": (4, 1, 32, True, [3, 15, 60]),
+    "hd128": (8, 2, 128, False, [1, 31, 90]),
+    "g1-tied": (4, 4, 64, True, [0, 17, 100]),
+}
+WINDOW_STEPS = 6
+
+
+def _window(name, dtype, dev):
+    """(config, params, k, v, tokens, positions, tables, active) of one
+    window on ``dev``: seeded weights and caches (block 0 scratch, filled
+    with large values) and pages drawn at random that cover the window."""
+    H, KVH, HD, tied, positions = WINDOW[name]
+    cfg = get_config("tiny").replace(num_heads=H, num_kv_heads=KVH, head_dim=HD, tie_word_embeddings=tied)
+    g = torch.Generator().manual_seed(sum(map(ord, name)))
+    params = init_params(cfg, g, device="cpu", dtype=torch.float32)
+    need = [(p + WINDOW_STEPS - 1) // BS + 1 for p in positions]
+    NB = sum(need) + 1
+    ids = (torch.randperm(NB - 1, generator=g) + 1).to(torch.int32)
+    tables = torch.zeros((len(positions) + 1, max(need) + 1), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    k, v = (torch.randn((cfg.num_layers, NB, BS, KVH, HD), generator=g) for _ in range(2))
+    k[:, 0] = v[:, 0] = 1e4
+    tokens = torch.randint(1, cfg.vocab_size, (len(positions) + 1,), generator=g, dtype=torch.int32)
+    ints = [tokens, torch.tensor(positions + [0], dtype=torch.int32), tables,
+            torch.tensor([True] * len(positions) + [False])]
+    params = {n: ({kk: vv.to(dev, dtype) for kk, vv in w.items()} if isinstance(w, dict) else w.to(dev, dtype))
+              for n, w in params.items()}
+    return cfg, params, k.to(dev, dtype), v.to(dev, dtype), *(t.to(dev) for t in ints)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(WINDOW))
+def test_fused_window_kernel_matches_plain_version(cuda, name, dtype):
+    cfg, p, k, v, tokens, positions, tables, active = _window(name, dtype, cuda)
+    lp = p["layers"]
+    weights = [p["embed"], p.get("lm_head"), p["final_norm"]] + [
+        lp[n] for n in ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+    kw = dict(num_steps=WINDOW_STEPS, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+              head_dim=cfg.head_dim, block_size=BS, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
+    kk, vk, kr, vr = k.clone(), v.clone(), k.clone(), v.clone()
+    before = mk.WINDOW_KERNEL_LAUNCHES
+    toks = mk.fused_decode_window(*weights, kk, vk, tokens, positions, tables, active, **kw)
+    ref = mk.fused_decode_window_ref(*weights, kr, vr, tokens, positions, tables, active, **kw)
+    torch.cuda.synchronize()
+    assert mk.WINDOW_KERNEL_LAUNCHES == before + 1
+    live = active.cpu()
+    # The slots the window writes: every step's in f32; step 0's in bf16,
+    # where later steps' rows follow tokens that may differ.
+    steps = WINDOW_STEPS if dtype == torch.float32 else 1
+    written = torch.zeros(k.shape[1:3], dtype=torch.bool)
+    for b, pos in enumerate(positions.cpu().tolist()):
+        if live[b]:
+            for j in range(WINDOW_STEPS):
+                written[int(tables[b, (pos + j) // BS]), (pos + j) % BS] = True
+    first = torch.zeros_like(written)
+    for b, pos in enumerate(positions.cpu().tolist()):
+        if live[b]:
+            first[int(tables[b, pos // BS]), pos % BS] = True
+    sel = (written if steps > 1 else first).to(cuda)
+    keep = ~written.to(cuda)
+    keep[0] = False  # scratch: dead rows write there
+    assert torch.equal(kk[:, keep], k[:, keep]) and torch.equal(vk[:, keep], v[:, keep])
+    # f32: the same math in another summation order. bf16: each side rounds
+    # every product to bf16 in its own order, and the kernel keeps p in f32.
+    scale = max(kr[:, sel].float().abs().max().item(), vr[:, sel].float().abs().max().item())
+    tol = 1e-3 if dtype == torch.float32 else 2**-5 * scale
+    for got, want in ((kk, kr), (vk, vr)):
+        assert (got[:, sel].float() - want[:, sel].float()).abs().max().item() <= tol
+    assert torch.equal(toks[:steps, live].cpu(), ref[:steps, live].cpu())
+    assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+
+
+def test_fused_window_model_path_matches_decode_multi(cuda):
+    """``tiny`` in f32 on the card: the fused window (one launch) and the
+    non-fused ``decode_multi`` (one ragged launch per layer and step) give
+    the same tokens and cache contents."""
+    cfg, p, k, v, *ints = _window("tiny", torch.float32, cuda)
+    greedy = (np.zeros(4, np.float32), np.zeros(4, np.int32), np.ones(4, np.float32))
+    before = (mk.WINDOW_KERNEL_LAUNCHES, mk.KERNEL_LAUNCHES, mk.WINDOW_REF_CALLS, mk.REF_CALLS)
+    fused, fk, fv = llama.decode_multi_fused(p, cfg, k.clone(), v.clone(), *ints, num_steps=WINDOW_STEPS)
+    multi, dk, dv = llama.decode_multi(p, cfg, k.clone(), v.clone(), *ints, *greedy, None, WINDOW_STEPS)
+    torch.cuda.synchronize()
+    after = (mk.WINDOW_KERNEL_LAUNCHES, mk.KERNEL_LAUNCHES, mk.WINDOW_REF_CALLS, mk.REF_CALLS)
+    assert [a - b for a, b in zip(after, before)] == [1, WINDOW_STEPS * cfg.num_layers, 0, 0]
+    live = ints[3].cpu()
+    assert torch.equal(fused[:, live].cpu(), multi[:, live].cpu())
+    torch.testing.assert_close(fk[:, 1:], dk[:, 1:], rtol=0, atol=1e-4)
+    torch.testing.assert_close(fv[:, 1:], dv[:, 1:], rtol=0, atol=1e-4)
+
+
+def test_fused_window_gate_and_refusals(cuda):
+    tiny = get_config("tiny")
+    assert mk.fused_window_fits(tiny, batch=32, dtype=torch.bfloat16, kv_dtype=torch.bfloat16, device=cuda)
+    blocks, sms = mk.fused_window_grid(torch.bfloat16, 32, 2, 16, cuda)
+    assert blocks >= sms == torch.cuda.get_device_properties(cuda).multi_processor_count
+    cfg, p, k, v, tokens, positions, tables, active = _window("tiny", torch.float32, cuda)
+    with pytest.raises(ValueError, match="batch"):
+        llama.decode_multi_fused(p, cfg, k, v, tokens[:3], positions[:3], tables[:3], active[:3], num_steps=2)
+    with pytest.raises(TypeError):
+        llama.decode_multi_fused(p, cfg, k.half(), v.half(), tokens, positions, tables, active, num_steps=2)
+
+
+def test_fused_window_profile_stamps(cuda):
+    cfg, p, k, v, *ints = _window("tiny", torch.float32, cuda)
+    lp = p["layers"]
+    prof = torch.zeros(mk.window_profile_len(WINDOW_STEPS, cfg.num_layers), dtype=torch.int64, device=cuda)
+    mk.fused_decode_window(
+        p["embed"], p.get("lm_head"), p["final_norm"],
+        *(lp[n] for n in ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")),
+        k, v, *ints, num_steps=WINDOW_STEPS, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, block_size=BS, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta, profile=prof)
+    t = prof.cpu()
+    assert bool((t > 0).all()) and bool((t[1:] >= t[:-1]).all())
+    with pytest.raises(ValueError, match="profile"):
+        mk.fused_decode_window(
+            p["embed"], p.get("lm_head"), p["final_norm"],
+            *(lp[n] for n in ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")),
+            k, v, *ints, num_steps=WINDOW_STEPS, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, block_size=BS, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta,
+            profile=prof[:-1])

@@ -1,0 +1,151 @@
+"""Multi-step decode windows and the fused decode window, against the JAX
+package.
+
+The same seeded inputs go through both packages' ``tiny`` model in f32
+(parameters moved across with ``params_from_numpy``, caches filled by the
+JAX prefill and copied): B = 4 rows at ragged contexts, one of them
+crossing a block boundary inside the window, and one dead row.
+
+(a) the port's ``fused_decode_window`` (its plain version on the CPU)
+    against the JAX ``decode_multi_fused`` (Pallas in interpret mode), over
+    1, 2 and 4 KV heads and a tied and an untied head;
+(b) the port's greedy ``decode_multi`` against the JAX ``decode_multi`` on
+    each attention path;
+(c) the port's fused plain version against the port's ``decode_multi``;
+(d) the ``fused_window_fits`` gate.
+
+Tokens of live rows must be equal, and the written K/V (excluding scratch
+block 0, which dead rows write) within the JAX fused-window test's 2e-4.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from dynamo_tpu.engine.config import get_config as jax_config
+from dynamo_tpu.engine.kv_cache import KvCacheArrays as JaxCache
+from dynamo_tpu.engine.models import llama as jllama
+from dynamo_tpu_torch.engine.attention import megakernel as tmk
+from dynamo_tpu_torch.engine.config import get_config
+from dynamo_tpu_torch.engine.models import llama as tllama
+from dynamo_tpu_torch.engine.weights import params_from_numpy
+
+KV_ATOL = 2e-4
+STEPS = 4
+NUM_BLOCKS = 24
+# (prompt length, block table) per row; the last row is dead. Row 1 starts
+# at 14 and crosses into its second block inside the window.
+ROWS = [(21, [1, 2, 3, 4]), (14, [5, 6, 7, 8]), (5, [9, 10, 11, 12]), (0, [0, 0, 0, 0])]
+GREEDY = (np.zeros(4, np.float32), np.zeros(4, np.int32), np.ones(4, np.float32))
+
+
+def _setup(kvh=2, tied=False, impl="megakernel"):
+    """(JAX params, port params, JAX cfg, port cfg, JAX k, v, window inputs as numpy)."""
+    kw = dict(num_kv_heads=kvh, tie_word_embeddings=tied, attention_impl=impl)
+    jcfg = jax_config("tiny").replace(**kw)
+    tcfg = get_config("tiny").replace(**kw)
+    jp = jllama.init_params(jcfg, jax.random.PRNGKey(kvh + 10 * tied), dtype=jnp.float32)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(kvh)
+    c = JaxCache.create(jcfg, NUM_BLOCKS, dtype=jnp.float32)
+    k, v = c.k, c.v
+    for n, table in ROWS:
+        if n:
+            toks = np.zeros(32, np.int32)
+            toks[:n] = rng.integers(1, 255, size=n)
+            _, k, v = jax.jit(lambda p, k, v: jllama.prefill(
+                p, jcfg, k, v, jnp.asarray(toks), jnp.int32(n), jnp.int32(0), jnp.asarray(table, jnp.int32)
+            ))(jp, k, v)
+    window = dict(
+        tokens=rng.integers(1, 255, size=len(ROWS)).astype(np.int32),
+        positions=np.array([n for n, _ in ROWS], np.int32),
+        tables=np.array([t for _, t in ROWS], np.int32),
+        active=np.array([n > 0 for n, _ in ROWS]),
+    )
+    return jp, tp, jcfg, tcfg, k, v, window
+
+
+def _port_cache(k, v):
+    return torch.from_numpy(np.array(k)), torch.from_numpy(np.array(v))
+
+
+def _port_args(window):
+    return [torch.from_numpy(window[n]) for n in ("tokens", "positions", "tables", "active")]
+
+
+def _check(got_toks, got_k, got_v, want_toks, want_k, want_v):
+    live = np.array([n > 0 for n, _ in ROWS])
+    np.testing.assert_array_equal(np.asarray(got_toks)[:, live], np.asarray(want_toks)[:, live])
+    np.testing.assert_allclose(np.asarray(got_k)[:, 1:], np.asarray(want_k)[:, 1:], atol=KV_ATOL)
+    np.testing.assert_allclose(np.asarray(got_v)[:, 1:], np.asarray(want_v)[:, 1:], atol=KV_ATOL)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+@pytest.mark.parametrize("kvh", [1, 2, 4])
+def test_fused_window_matches_jax_fused_window(kvh, tied):
+    jp, tp, jcfg, tcfg, k, v, w = _setup(kvh, tied)
+    want_toks, want_k, want_v = llama_fused_jax(jp, jcfg, k, v, w)
+    tk, tv = _port_cache(k, v)
+    ref0, mk0 = tmk.WINDOW_REF_CALLS, tmk.REF_CALLS
+    toks, tk, tv = tllama.decode_multi_fused(tp, tcfg, tk, tv, *_port_args(w), num_steps=STEPS)
+    assert tmk.WINDOW_REF_CALLS == ref0 + 1 and tmk.REF_CALLS == mk0  # one window, no ragged call
+    assert toks.dtype == torch.int32 and tuple(toks.shape) == (STEPS, len(ROWS))
+    _check(toks, tk, tv, want_toks, want_k, want_v)
+
+
+def llama_fused_jax(jp, jcfg, k, v, w):
+    return jllama.decode_multi_fused(
+        jp, jcfg, k, v, jnp.asarray(w["tokens"]), jnp.asarray(w["positions"]), jnp.asarray(w["tables"]),
+        jnp.asarray(w["active"]), num_steps=STEPS,
+    )
+
+
+@pytest.mark.parametrize("impl", ["megakernel", "paged", "gather"])
+def test_decode_multi_matches_jax(impl):
+    jp, tp, jcfg, tcfg, k, v, w = _setup(impl=impl)
+    want_toks, want_k, want_v = jax.jit(lambda p, k, v: jllama.decode_multi(
+        p, jcfg, k, v, jnp.asarray(w["tokens"]), jnp.asarray(w["positions"]), jnp.asarray(w["tables"]),
+        jnp.asarray(w["active"]), *map(jnp.asarray, GREEDY), jax.random.PRNGKey(0), STEPS,
+    ))(jp, k, v)
+    tk, tv = _port_cache(k, v)
+    toks, tk, tv = tllama.decode_multi(tp, tcfg, tk, tv, *_port_args(w), *GREEDY, None, STEPS)
+    _check(toks, tk, tv, want_toks, want_k, want_v)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_fused_plain_version_matches_decode_multi(tied):
+    _, tp, _, tcfg, k, v, w = _setup(tied=tied)
+    fk, fv = _port_cache(k, v)
+    dk, dv = _port_cache(k, v)
+    toks_f, fk, fv = tllama.decode_multi_fused(tp, tcfg, fk, fv, *_port_args(w), num_steps=STEPS)
+    toks_d, dk, dv = tllama.decode_multi(tp, tcfg, dk, dv, *_port_args(w), *GREEDY, None, STEPS)
+    _check(toks_f, fk, fv, toks_d.numpy(), dk.numpy(), dv.numpy())
+
+
+def test_unported_options_raise():
+    _, tp, _, tcfg, k, v, w = _setup()
+    tk, tv = _port_cache(k, v)
+    with pytest.raises(NotImplementedError, match="sampled"):
+        tllama.decode_multi_fused(tp, tcfg, tk, tv, *_port_args(w), num_steps=2, sampled=True)
+    with pytest.raises(NotImplementedError, match="return_logits"):
+        tllama.decode_multi(tp, tcfg, tk, tv, *_port_args(w), *GREEDY, None, 2, return_logits=True)
+
+
+def test_fused_window_fits():
+    tiny = get_config("tiny")
+    f32 = dict(dtype=torch.float32, kv_dtype=torch.float32, device="cpu")
+    assert tmk.fused_window_fits(tiny, batch=32, **f32)
+    assert tmk.fused_window_fits(get_config("llama-3.2-1b"), batch=8, dtype=torch.bfloat16,
+                                 kv_dtype=torch.bfloat16, device="cpu")
+    # What the port's config cannot hold yet, the JAX package's can: MoE and int8.
+    jtiny = jax_config("tiny")
+    assert not tmk.fused_window_fits(jtiny.replace(num_experts=4, num_experts_per_tok=2), batch=4, **f32)
+    assert not tmk.fused_window_fits(jtiny.replace(kv_cache_dtype="int8"), batch=4, **f32)
+    assert not tmk.fused_window_fits(jtiny.replace(weight_dtype="int8"), batch=4, **f32)
+    assert not tmk.fused_window_fits(tiny, batch=4, dtype=torch.float32, kv_dtype=torch.int8, device="cpu")
+    assert not tmk.fused_window_fits(tiny, batch=4, dtype=torch.float16, kv_dtype=torch.float16, device="cpu")
+    assert not tmk.fused_window_fits(tiny, batch=33, **f32)
+    assert not tmk.fused_window_fits(tiny.replace(head_dim=48), batch=4, **f32)
+    assert not tmk.fused_window_fits(tiny.replace(vocab_size=250), batch=4, **f32)

@@ -7,7 +7,11 @@
    arrivals, a prompt longer than ``mixed_prefill_budget`` (mixed steps),
    a shared prefix that hits the prefix cache, and a pool small enough to
    force a preemption. Greedy token streams, finish reasons and cached
-   tokens must be identical.
+   tokens must be identical. With 8-step decode windows both schedulers
+   replay a greedy trace through their fused windows, token for token; on
+   the port alone, a sampled row sends its batch to ``decode_multi``, a
+   stop inside a window trims the tokens after it, and every block comes
+   back to the allocator.
 2. HTTP: the port's server on port 0 (``tiny``, f32, CPU) answers chat
    (JSON and SSE) and completion requests with the text the JAX
    ``build_local_pipeline(ByteTokenizer(), TpuEngine)`` produces for the
@@ -88,13 +92,18 @@ def _trace():
     ]
 
 
-def _replay(sched, mod, sampling_cls):
-    trace = _trace()
+def _replay(sched, mod, sampling_cls, trace=None, temps=None, stops=None):
+    """Replay ``trace`` (default ``_trace()``), greedy unless ``temps``
+    gives a request its temperature; ``stops`` gives a request stop token
+    ids."""
+    trace = trace or _trace()
+    temps, stops = temps or {}, stops or {}
     outs = {}
     for step in range(400):
         for at, rid, prompt, max_tokens in trace:
             if at == step:
-                sched.add_request(rid, prompt, sampling_cls(temperature=0.0), mod.StopConditions(max_tokens=max_tokens))
+                sched.add_request(rid, prompt, sampling_cls(temperature=temps.get(rid, 0.0)),
+                                  mod.StopConditions(max_tokens=max_tokens, stop_token_ids=stops.get(rid, [])))
         if step > trace[-1][0] and not sched.has_work():
             break
         for seq, out in sched.step():
@@ -132,8 +141,8 @@ def test_scheduler_trace_matches_jax(weights, impl):
     # batched dispatch); hold the JAX scheduler to one prefill per admission.
     j._supports_chunk_admit = False
     t = tsched.Scheduler(TCFG.replace(attention_impl=attn, prefill_impl=pre), tp,
-                         tsched.SchedulerConfig(**common), dtype=torch.float32, device="cpu",
-                         eos_token_ids=[0])
+                         tsched.SchedulerConfig(num_scheduler_steps=1, **common), dtype=torch.float32,
+                         device="cpu", eos_token_ids=[0])
     want = _replay(j, jsched, JaxSampling)
     got = _replay(t, tsched, SamplingParams)
     assert got == want
@@ -145,6 +154,66 @@ def test_scheduler_trace_matches_jax(weights, impl):
     assert t.config_snapshot()["model"] == j.config_snapshot()["model"]
     assert t.prefill_steps_total + t.decode_steps_total + t.mixed_steps_total == t.forward_steps_total
     assert t.prefill_steps_total > 0 and t.decode_steps_total > 0
+
+
+def _window_trace():
+    """Greedy requests for the window cases: (arrival step, request id,
+    prompt, max_tokens). The budgets are not multiples of the 8-step
+    window, so the last window of each request is trimmed; C arrives
+    while A and B decode and rides mixed steps."""
+    rng = np.random.default_rng(1)
+    return [
+        (0, "A", rng.integers(1, 255, size=20).tolist(), 24),
+        (1, "B", rng.integers(1, 255, size=9).tolist(), 13),
+        (4, "C", rng.integers(1, 255, size=40).tolist(), 19),
+    ]
+
+
+WINDOWS = dict(num_blocks=24, max_running=4, mixed_prefill_budget=32, num_scheduler_steps=8, **BUCKETS)
+
+
+def _port_scheduler(tp, **overrides):
+    return tsched.Scheduler(TCFG, tp, tsched.SchedulerConfig(**{**WINDOWS, **overrides}), dtype=torch.float32,
+                            device="cpu", eos_token_ids=[0])
+
+
+def test_window_scheduler_matches_jax(weights):
+    jp, tp = weights
+    j = jsched.Scheduler(JCFG.replace(attention_impl="megakernel"), jp,
+                         jsched.SchedulerConfig(enable_overlap_decode=False, **WINDOWS),
+                         dtype=jnp.float32, eos_token_ids=[0])
+    j._supports_chunk_admit = False
+    t = _port_scheduler(tp)
+    assert j._use_fused_window and t._use_fused_window
+    want = _replay(j, jsched, JaxSampling, _window_trace())
+    got = _replay(t, tsched, SamplingParams, _window_trace())
+    assert got == want
+    assert t.fused_windows_total == j.flight.fused_windows_total > 0
+    assert t.multi_windows_total == t.window_steps_total == 0
+
+
+def test_windows_trim_route_sampled_batches_and_free_blocks(weights):
+    _, tp = weights
+    single = _replay(_port_scheduler(tp, num_scheduler_steps=1), tsched, SamplingParams, _window_trace())
+    # A stop token inside a window: the tokens after it are trimmed.
+    a = single["A"]["tokens"]
+    stop = a[10]
+    cut = a.index(stop) + 1
+    t = _port_scheduler(tp)
+    free0 = t.allocator.num_free
+    got = _replay(t, tsched, SamplingParams, _window_trace(), stops={"A": [stop]})
+    assert got["A"]["tokens"] == a[:cut] and got["A"]["finish"] == ["stop"]
+    assert {rid: got[rid] for rid in "BC"} == {rid: single[rid] for rid in "BC"}
+    assert t.fused_windows_total > 0 and t.multi_windows_total == 0
+    assert t.allocator.num_free == free0
+    # A sampled row sends its whole batch to decode_multi; the greedy rows
+    # beside it keep their tokens.
+    t = _port_scheduler(tp)
+    got = _replay(t, tsched, SamplingParams, _window_trace(), temps={"C": 0.8})
+    assert {rid: got[rid] for rid in "AB"} == {rid: single[rid] for rid in "AB"}
+    assert len(got["C"]["tokens"]) == 19 or got["C"]["finish"] == ["stop"]
+    assert t.multi_windows_total > 0 and t.window_steps_total == 8 * t.multi_windows_total
+    assert t.allocator.num_free == free0
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +283,7 @@ async def _port_answers(tp):
     tok = ByteTokenizer()
     engine = TorchEngine.build(
         EngineArgs(model="tiny", dtype="float32", device="cpu", eos_token_ids=tok.eos_token_ids,
-                   scheduler=tsched.SchedulerConfig(num_blocks=64, **BUCKETS)),
+                   scheduler=tsched.SchedulerConfig(num_blocks=64, num_scheduler_steps=1, **BUCKETS)),
         params=tp,
     )
     service = HttpService({"tiny": build_local_pipeline(tok, engine)}, host="127.0.0.1", port=0)
@@ -321,8 +390,9 @@ def test_chat_template_matches_jax_formatter():
 
 def test_build_service_carries_a_model_config():
     """``run.build_service`` hands a caller's model configuration (here the
-    per-piece path) through ``EngineArgs`` to the scheduler; the default
-    stays the preset's megakernel path."""
+    per-piece path) and scheduler configuration through ``EngineArgs`` to
+    the scheduler; the defaults stay the preset's megakernel path and
+    32-step decode windows."""
     from dynamo_tpu_torch import run
 
     args = run.parse_args(["in=http", "out=tiny", "--device", "cpu", "--dtype", "float32",
@@ -335,6 +405,10 @@ def test_build_service_carries_a_model_config():
     _, engine = run.build_service(args)
     assert engine.scheduler.config_snapshot()["model"]["attention_impl"] == "megakernel"
     assert not engine.scheduler._use_flash_prefill  # "auto" on the CPU
+    assert engine.scheduler.sc.num_scheduler_steps == 32 and engine.scheduler._use_fused_window
+    _, engine = run.build_service(args, scheduler_config=tsched.SchedulerConfig(num_scheduler_steps=1))
+    assert engine.scheduler.sc.num_scheduler_steps == 1 and engine.scheduler.sc.num_blocks == 8
+    assert not engine.scheduler._use_fused_window
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it():
