@@ -5,18 +5,22 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 ``dynamo_tpu_torch/csrc`` with nvcc, holds each kernel against its plain
 PyTorch version at the shapes the serving path gives it (and times the
-launch-overhead probe), runs the full-width llama-3.2-1b model on the
-kernel paths against the plain paths and the fused decode window against
-``decode_multi``, times a decode step, a mixed step and a 32-step decode
-window, then serves ``dynamo_tpu_torch.run in=http out=llama-3.2-1b``
-three times: on the megakernel path and on the per-piece path
-(``attention_impl="paged", prefill_impl="flash"``), both at one decode
-step per iteration, and with the defaults (32-step decode windows, the
-fused window for all-greedy batches), sending each concurrent requests
-and counting every kernel's launches. Every phase prints JSON lines; any
-failure raises and exits non-zero. The last line is ``{"ok": true,
-"device": {...}}``. Without a CUDA device it exits 2 and prints no
-result.
+launch-overhead probe), among them the fused decode window's sampled
+epilogue, alone on given logits and inside the window; runs the
+full-width llama-3.2-1b model on the kernel paths against the plain
+paths and the fused window, greedy and sampled, against
+``decode_multi``; times a decode step, a mixed step, the per-step
+threefry draw and a 32-step decode window, greedy and sampled; then
+serves ``dynamo_tpu_torch.run in=http out=llama-3.2-1b`` three times: on
+the megakernel path and on the per-piece path (``attention_impl="paged",
+prefill_impl="flash"``), both at one decode step per iteration, and with
+the defaults (32-step decode windows, every window fused, sampled rows
+drawn in the kernel), sending each concurrent requests and counting
+every kernel's launches; the last pass also sends one seeded sampled
+request at two batch slots and holds its two answers equal. Every phase
+prints JSON lines; any failure raises and exits non-zero. The last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2
+and prints no result.
 
 ``--phases`` runs a subset of kernel,model,breakdown,serve (env and build
 always run) for iteration; the full run is the default.
@@ -45,6 +49,7 @@ TPU_KERNEL = {
     "flash_chunk_attention": "dynamo_tpu/engine/attention/prefill.py:46",  # :168
     "paged_decode_partials": "dynamo_tpu/engine/attention/decode.py:65",  # :173
     "fused_decode_window": "dynamo_tpu/engine/attention/megakernel.py:358",  # :619
+    "fused_decode_window_sampled": "dynamo_tpu/engine/attention/megakernel.py:509",  # the sampled branch
     "nop": "bench.py:142",  # :145
 }
 PRESET = "llama-3.2-1b"
@@ -73,6 +78,8 @@ def kernel_counters():
             "flash_chunk_attention": (prefill, "KERNEL_LAUNCHES", "REF_CALLS"),
             "paged_decode_partials": (decode, "KERNEL_LAUNCHES", "REF_CALLS"),
             "fused_decode_window": (megakernel, "WINDOW_KERNEL_LAUNCHES", "WINDOW_REF_CALLS"),
+            "fused_decode_window_sampled": (megakernel, "WINDOW_SAMPLED_LAUNCHES", "WINDOW_SAMPLED_REF_CALLS"),
+            "sample_epilogue": (megakernel, "EPILOGUE_KERNEL_LAUNCHES", "EPILOGUE_REF_CALLS"),
             "nop": (bench, "KERNEL_LAUNCHES", "REF_CALLS")}
 
 
@@ -417,19 +424,32 @@ def check_nop(dev):
     return res
 
 
-# The scheduler's window counters: fused windows (one launch each), non-fused
-# windows (decode_multi) and the forward steps inside those.
-WINDOW_COUNTERS = ("fused_windows_total", "multi_windows_total", "window_steps_total")
+# The scheduler's window counters: fused windows (one launch each), those
+# with a sampled row, non-fused windows (decode_multi) and the forward steps
+# inside those.
+WINDOW_COUNTERS = ("fused_windows_total", "fused_sampled_windows_total", "multi_windows_total",
+                   "window_steps_total")
+# (temperature, top_k, top_p) of the sampled checks' rows, in turn: greedy,
+# top_k = 1, top-p off, top_k past the vocab, joint top-k/top-p, top-p
+# alone, top-k alone, a narrow nucleus.
+SAMPLE_MIX = [(0.0, 0, 1.0), (0.9, 1, 1.0), (0.8, 0, 1.0), (0.7, 1 << 20, 0.95), (1.3, 20, 0.9),
+              (0.8, 0, 0.9), (1.0, 50, 1.0), (0.6, 0, 0.5)]
+# The sampled window checks scale the random model's final norm by this:
+# logits spread about 7 (not 0.9) give each row a few dominant tokens, as a
+# trained model's do. At the random init a row draws among 128,256
+# near-equal tokens, where one rounding apart in the logits moves a CDF
+# boundary past u; the epilogue's own check covers such flat rows.
+LOGIT_SPREAD = 8.0
 WINDOW_WEIGHTS = ("embed", "lm_head", "final_norm", "attn_norm", "mlp_norm", "wq", "wk", "wv", "wo",
                   "w_gate", "w_up", "w_down")
 
 
-def window_case(name, dev, dtype, seed, *, cfg, positions, dead, steps):
-    """One fused window's inputs: seeded random weights at ``cfg``'s widths,
-    a cache of random K/V whose block 0 is scratch filled with 1e4 (a stray
-    read shows), rows whose current token writes slot ``positions[b]``, over
-    pages drawn at random that cover the window, and ``dead`` padding rows
-    (active 0) at the end."""
+def window_case(name, dev, dtype, seed, *, cfg, positions, dead, steps, spread=1.0):
+    """One fused window's inputs: seeded random weights at ``cfg``'s widths
+    (the final norm times ``spread``), a cache of random K/V whose block 0
+    is scratch filled with 1e4 (a stray read shows), rows whose current
+    token writes slot ``positions[b]``, over pages drawn at random that
+    cover the window, and ``dead`` padding rows (active 0) at the end."""
     from dynamo_tpu_torch.engine.weights import init_params
 
     BS, L, KVH, HD = cfg.block_size, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
@@ -446,6 +466,7 @@ def window_case(name, dev, dtype, seed, *, cfg, positions, dead, steps):
         o += n
     gd = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(cfg, gd, device=dev, dtype=dtype)
+    params["final_norm"].mul_(spread)
     k, v = (torch.randn((L, NB, BS, KVH, HD), generator=gd, device=dev).to(dtype) for _ in range(2))
     k[:, 0] = 1e4
     v[:, 0] = 1e4
@@ -458,7 +479,20 @@ def window_case(name, dev, dtype, seed, *, cfg, positions, dead, steps):
     kw = dict(num_steps=steps, num_heads=cfg.num_heads, num_kv_heads=KVH, head_dim=HD, block_size=BS,
               rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
     return {"name": name, "cfg": cfg, "params": params, "weights": weights, "k": k, "v": v,
-            "ints": tuple(t.to(dev) for t in ints), "kw": kw, "dtype": dtype, "positions": list(positions)}
+            "ints": tuple(t.to(dev) for t in ints), "kw": kw, "dtype": dtype, "positions": list(positions),
+            "spread": spread}
+
+
+def sample_rows(B, steps, dev, seed):
+    """The sampled epilogue's operands for ``B`` rows: row b takes
+    ``SAMPLE_MIX[b % 8]``; uniforms ``[steps, B]`` from seeded numpy →
+    (temps, top_ks, top_ps, uniforms) on ``dev``."""
+    rows = [SAMPLE_MIX[b % len(SAMPLE_MIX)] for b in range(B)]
+    rng = np.random.default_rng(seed)
+    return (torch.tensor([r[0] for r in rows], dtype=torch.float32, device=dev),
+            torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev),
+            torch.tensor([r[2] for r in rows], dtype=torch.float32, device=dev),
+            torch.from_numpy(rng.random((steps, B), dtype=np.float32)).to(dev))
 
 
 def window_work(case):
@@ -484,6 +518,7 @@ def window_work(case):
     B = len(case["ints"][0])
     row_bytes = 2 * L * KVH * HD * esz  # one token's K and V over every layer
     small = case["ints"][2].numel() * 4 + 16 * B + steps * B * 4
+    small += 12 * B + steps * B * 4 if case.get("samp") else 0  # temps, top_ks, top_ps, uniforms
     gathered = 0 if head is None else steps * rows * embed.shape[1]
     nbytes = ((sum(w.numel() for w in rest) + head_elems + gathered) * esz
               + row_bytes * (sum(case["positions"]) + rows * steps) + small)
@@ -494,7 +529,8 @@ def window_work(case):
 
 
 def check_window(case, *, time_it: bool, hold_tokens: bool = True):
-    """``fused_decode_window`` against its plain version on the card. Both
+    """``fused_decode_window`` against its plain version on the card, greedy
+    or, where the case holds ``samp``, with the sampled epilogue. Both
     start from copies of one cache. f32: every live row's tokens equal and
     the written K/V rows within 1e-3; bf16: the step-0 tokens equal (unless
     ``hold_tokens`` is false) and the step-0 K/V rows within 2^-5 of their
@@ -502,14 +538,16 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
     order, through 16 layers of a bf16 residual, and the kernel keeps p in
     f32 where the plain version rounds it), the window's token agreement
     printed. In both, every other cache slot (block 0 aside) is left as it
-    was."""
+    was. Timed sampled: also the greedy window on the same inputs, and
+    both windows' phases from the kernel's stamps."""
     from dynamo_tpu_torch.engine.attention import megakernel as mk
 
     w, ints, kw, dtype = case["weights"], case["ints"], case["kw"], case["dtype"]
+    samp = case.get("samp") or ()
     k0, v0 = case["k"], case["v"]
     kk, vk, kr, vr = k0.clone(), v0.clone(), k0.clone(), v0.clone()
-    toks = mk.fused_decode_window(*w, kk, vk, *ints, **kw)
-    ref = mk.fused_decode_window_ref(*w, kr, vr, *ints, **kw)
+    toks = mk.fused_decode_window(*w, kk, vk, *ints, *samp, **kw)
+    ref = mk.fused_decode_window_ref(*w, kr, vr, *ints, *samp, **kw)
     torch.cuda.synchronize()
     steps, BS = kw["num_steps"], kw["block_size"]
     live = ints[3].cpu()
@@ -531,35 +569,67 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
     kv_err = max((kk[:, sel].float() - kr[:, sel].float()).abs().max().item(),
                  (vk[:, sel].float() - vr[:, sel].float()).abs().max().item())
     scale = max(kr[:, sel].float().abs().max().item(), vr[:, sel].float().abs().max().item())
+    step0_equal = bool(torch.equal(tl[0], rl[0]))
     if dtype == torch.float32:
         tol = 1e-3
         ok = bool(torch.equal(tl, rl)) and kv_err <= tol
     else:
         tol = 2**-5 * scale
-        ok = (bool(torch.equal(tl[0], rl[0])) or not hold_tokens) and kv_err <= tol
+        ok = (step0_equal or not hold_tokens) and kv_err <= tol
     ok = ok and untouched
     cfg = case["cfg"]
     res = {"kernel": "fused_decode_window", "case": case["name"], "dtype": str(dtype).replace("torch.", ""),
+           "epilogue": "sampled" if samp else "greedy",
            "shape": {"B": len(live), "live": int(live.sum()), "steps": steps, "L": cfg.num_layers,
                      "D": cfg.hidden_size, "H": cfg.num_heads, "KVH": cfg.num_kv_heads, "HD": cfg.head_dim,
                      "F": cfg.intermediate_size, "V": cfg.vocab_size, "tied": w[1] is None,
                      "positions": case["positions"], "W": tables.shape[1]},
-           "token_agreement": agree, "max_abs_err": kv_err, "kv_scale": scale, "tol": tol,
-           "kv_compared": "written rows" if dtype == torch.float32 else "step-0 rows",
+           "token_agreement": agree, "step0_tokens_equal": step0_equal, "max_abs_err": kv_err,
+           "kv_scale": scale, "tol": tol, "kv_compared": "written rows" if dtype == torch.float32 else "step-0 rows",
            "other_slots_unchanged": untouched, "ok": ok}
+    if samp:
+        res["rows"] = [SAMPLE_MIX[b % len(SAMPLE_MIX)] for b in range(len(live))]
+        res["logit_spread"] = case["spread"]
+        if not ok or agree < 1:
+            res["tokens"], res["plain_tokens"] = tl.tolist(), rl.tolist()
     if time_it:
         nbytes, streamed, flops = window_work(case)
         res.update(bound(nbytes, flops, dtype))
         res["streamed_bytes"] = streamed
         res["streamed_bound_ms_per_step"] = bound(streamed, flops, dtype)["bound_ms"] / steps
-        res["kernel_ms"] = cuda_ms(lambda: mk.fused_decode_window(*w, kk, vk, *ints, **kw), iters=5, warmup=1)
+        res["kernel_ms"] = cuda_ms(lambda: mk.fused_decode_window(*w, kk, vk, *ints, *samp, **kw), iters=5, warmup=1)
         res["kernel_ms_per_step"] = res["kernel_ms"] / steps
-        res["ref_ms"] = cuda_ms(lambda: mk.fused_decode_window_ref(*w, kr, vr, *ints, **kw), iters=3, warmup=1)
+        res["ref_ms"] = cuda_ms(lambda: mk.fused_decode_window_ref(*w, kr, vr, *ints, *samp, **kw), iters=3, warmup=1)
         res["library_ms"] = None  # no single PyTorch call computes a decode window
+        if samp:
+            res["greedy_kernel_ms"] = cuda_ms(lambda: mk.fused_decode_window(*w, kk, vk, *ints, **kw), iters=5, warmup=1)
+            res["greedy_kernel_ms_per_step"] = res["greedy_kernel_ms"] / steps
+            res["phases_ms_per_step"] = stamp_phases(w, kk, vk, ints, samp, kw, cfg.num_layers)
+            res["greedy_phases_ms_per_step"] = stamp_phases(w, kk, vk, ints, (), kw, cfg.num_layers)
     emit("kernel", **res)
     if not ok:
         raise AssertionError(f"fused_decode_window disagrees with its plain version: {res}")
     return res
+
+
+def stamp_phases(weights, k, v, ints, samp, kw, L) -> dict:
+    """One fused window with the kernel's timer stamps → ms per step of
+    each phase (summed over layers; each phase's slowest block plus its
+    grid barrier): qkv, attention, wo, gate/up, down, head (with the
+    sampled epilogue, also the logits' store), and the pick with the next
+    embedding (with the sampled epilogue, the draw), and the stamped ms per
+    step."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    steps = kw["num_steps"]
+    prof = torch.zeros(mk.window_profile_len(steps, L), dtype=torch.int64, device=k.device)
+    mk.fused_decode_window(*weights, k, v, *ints, *samp, **kw, profile=prof)
+    t = prof.cpu().numpy().astype(np.float64)
+    d = np.diff(t).reshape(steps, 5 * L + 2) / 1e6  # ms between successive stamps
+    layer = d[:, :5 * L].reshape(steps, L, 5).sum(axis=1).mean(axis=0)
+    names = ("qkv", "attention", "wo", "gate_up", "down")
+    return {**{n: float(x) for n, x in zip(names, layer)}, "head": float(d[:, 5 * L].mean()),
+            "pick_embed": float(d[:, 5 * L + 1].mean()), "stamped_ms_per_step": float((t[-1] - t[0]) / 1e6 / steps)}
 
 
 def phase_window_kernel(dev):
@@ -595,6 +665,148 @@ def phase_window_kernel(dev):
     res = check_window(case, time_it=True, hold_tokens=False)
     del case
     torch.cuda.empty_cache()
+    return res
+
+
+def phase_window_sampled(dev):
+    """The fused window with the sampled epilogue at llama-3.2-1b's full
+    width, rows in ``SAMPLE_MIX``'s turn, final norm times
+    ``LOGIT_SPREAD``: f32, 8 rows at ragged positions 0-1023 (one dead), 8
+    steps, tokens held; then the timed case, bf16, 8 rows at 1024 tokens
+    of context, 32 steps, beside the greedy window on the same inputs, its
+    step-0 tokens printed with the window's agreement."""
+    from dynamo_tpu_torch.engine.config import get_config
+
+    base = get_config(PRESET)
+    case = window_case("llama-3.2-1b ragged", dev, torch.float32, 430, cfg=base,
+                       positions=[0, 13, 100, 255, 511, 700, 1023], dead=1, steps=8, spread=LOGIT_SPREAD)
+    case["samp"] = sample_rows(8, 8, dev, 430)
+    check_window(case, time_it=False)
+    del case
+    torch.cuda.empty_cache()
+    case = window_case("llama-3.2-1b 8 x 1024", dev, torch.bfloat16, 410, cfg=base, positions=[1024] * 8, dead=0,
+                       steps=32, spread=LOGIT_SPREAD)
+    case["samp"] = sample_rows(8, 32, dev, 431)
+    res = check_window(case, time_it=True, hold_tokens=False)
+    del case
+    torch.cuda.empty_cache()
+    return res
+
+
+def epilogue_case(dev, seed, *, B=32, V=128256, draws=64):
+    """The epilogue's inputs at the window's widest shape: f32 logits [B, V]
+    whose rows take ``SAMPLE_MIX`` in turn and, by groups of 8, a spread of
+    0.9 (the random model's flat rows), 2, 4 and 8; each group's top-k rows
+    (k = 20, 50) hold six values tied at the k-th largest, and its greedy
+    row a tied maximum at a lower index. ``draws`` uniforms per row."""
+    rng = np.random.default_rng(seed)
+    spreads = np.repeat([0.9, 2.0, 4.0, 8.0], 8)[:B]
+    logits = (rng.standard_normal((B, V)) * spreads[:, None]).astype(np.float32)
+    for b in range(B):
+        t, k, _ = SAMPLE_MIX[b % len(SAMPLE_MIX)]
+        order = np.argsort(-logits[b], kind="stable")
+        if t > 0 and 1 < k < V:
+            logits[b, order[k - 4:k + 2]] = logits[b, order[k - 1]]
+        elif t == 0:
+            top = order[0]
+            logits[b, 0 if top else 1] = logits[b, top]
+    temps, top_ks, top_ps, _ = sample_rows(B, 1, dev, seed)
+    u = torch.from_numpy(rng.random((draws, B), dtype=np.float32)).to(dev)
+    return torch.from_numpy(logits).to(dev), temps, top_ks, top_ps, u
+
+
+def draw_gaps(logits, temps, top_ks, top_ps, u, got, want) -> list:
+    """Each row where the kernel's token differs from the plain version's:
+    both tokens, the distance of u from the nearest edge of either token's
+    interval of the plain version's CDF, and for a top-p row the distance of
+    top_p from the probability mass above either token (where the nucleus
+    ends). A difference within rounding has one of them at the level of a
+    float32 sum's rounding."""
+    from dynamo_tpu_torch.engine.sampling import filtered_probs_rows
+
+    rows = torch.nonzero(got != want).flatten().tolist()
+    if not rows:
+        return []
+    probs = filtered_probs_rows(logits[rows], temps[rows], top_ks[rows], top_ps[rows]).double()
+    cum = probs.cumsum(-1)
+    scaled = logits[rows].double() / temps[rows].double().clamp_min(1e-30)[:, None]
+    full = torch.softmax(scaled, -1)
+    out = []
+    for j, r in enumerate(rows):
+        toks, uu = (int(got[r]), int(want[r])), float(u[r])
+        edges = [abs(float(cum[j, t]) - uu) for t in toks] + [abs(float(cum[j, t] - probs[j, t]) - uu) for t in toks]
+        p_gap = None
+        if float(top_ps[r]) < 1:
+            p_gap = min(abs(float(full[j][scaled[j] > scaled[j, t]].sum()) - float(top_ps[r])) for t in toks)
+        out.append({"row": r, "kernel": toks[0], "plain": toks[1], "u": uu, "cdf_gap": min(edges),
+                    "top_p_gap": p_gap, "params": list(SAMPLE_MIX[r % len(SAMPLE_MIX)])})
+    return out
+
+
+def draw_passes(temps, top_ks, top_ps, toks, V) -> float:
+    """Passes over a row's logits the epilogue makes, summed over rows,
+    counted from ``sample_row``: a greedy row 1 (its argmax); a sampled row
+    3 (max, log-sum-exp, kept mass), 4 for a top-k threshold (k > 1), 4 for
+    a top-p threshold, and the scan up to the 2048-wide tile of its token."""
+    tiles = -(-V // 2048)
+    total = 0.0
+    for t, k, p, tok in zip(temps.tolist(), top_ks.tolist(), top_ps.tolist(), toks.tolist()):
+        if t <= 0:
+            total += 1
+            continue
+        total += 3 + 4 * (min(k, V) > 1) + 4 * (p < 1) + (tok // 2048 + 1) / tiles
+    return total
+
+
+# A difference between the kernel's draw and the plain version's counts as
+# rounding when u (or top_p) lies this close to the plain version's CDF
+# edge (or nucleus end): far above the float32 rounding of either side's
+# sums of 128,256 probabilities (about 1e-7), far below a kept token's mass.
+DRAW_GAP_TOL = 1e-5
+
+
+def check_epilogue(dev):
+    """The sampled epilogue alone (``megakernel.sample_epilogue``, the
+    window's device code after its head) against ``sample_from_uniforms``
+    on identical logits, 64 draws per row of [32, 128256]; every token that
+    differs printed with its distances; then timed."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+    from dynamo_tpu_torch.engine.sampling import sample_from_uniforms
+
+    logits, temps, top_ks, top_ps, u = epilogue_case(dev, 440)
+    B, V = logits.shape
+    diffs, passes = [], 0.0
+    for j in range(u.shape[0]):
+        got = mk.sample_epilogue(logits, temps, top_ks, top_ps, u[j])
+        want = sample_from_uniforms(logits, temps, top_ks, top_ps, u[j])
+        torch.cuda.synchronize()
+        passes += draw_passes(temps, top_ks, top_ps, got, V)
+        for d in draw_gaps(logits, temps, top_ks, top_ps, u[j], got, want):
+            diffs.append({"draw": j, **d})
+    gaps = [min(d["cdf_gap"], d["top_p_gap"] if d["top_p_gap"] is not None else 1.0) for d in diffs]
+    ok = all(g <= DRAW_GAP_TOL for g in gaps)
+    draws = u.numel()
+    res = {"kernel": "sample_epilogue", "case": f"[{B}, {V}] f32, {u.shape[0]} draws per row", "draws": draws,
+           "rows": [list(SAMPLE_MIX[b % len(SAMPLE_MIX)]) for b in range(B)], "differ": len(diffs),
+           "max_gap": max(gaps) if gaps else None, "gap_tol": DRAW_GAP_TOL, "diffs": diffs,
+           "row_passes_per_draw": passes / draws}
+    nbytes = logits.numel() * 4 + 4 * B * 4 + B * 4  # logits, 4 row operands, tokens: once each
+    res.update(bound(nbytes, 4 * logits.numel(), torch.float32))  # a divide, subtract, exp and add per logit
+    res["passes_bound_ms"] = passes / draws * V * 4 * B / PEAK_BYTES_PER_S * 1e3  # the passes, at HBM's rate
+    res["kernel_ms"] = cuda_ms(lambda: mk.sample_epilogue(logits, temps, top_ks, top_ps, u[0]))
+    res["ref_ms"] = cuda_ms(lambda: sample_from_uniforms(logits, temps, top_ks, top_ps, u[0]), iters=10)
+    res["library_ms"] = None  # no single PyTorch call computes this draw
+    # Where the time goes: every row of one kind (the slowest row sets a call's time).
+    res["ms_by_row_kind"] = {}
+    for kind, (t, k, p) in {"greedy": (0.0, 0, 1.0), "temperature": (0.8, 0, 1.0), "top-k 20": (1.0, 20, 1.0),
+                            "top-p 0.9": (0.8, 0, 0.9), "top-k 20, top-p 0.9": (1.3, 20, 0.9)}.items():
+        rows = (torch.full((B,), t, device=dev), torch.full((B,), k, dtype=torch.int32, device=dev),
+                torch.full((B,), p, device=dev))
+        res["ms_by_row_kind"][kind] = cuda_ms(lambda: mk.sample_epilogue(logits, *rows, u[0]), iters=10)
+    res["ok"] = ok
+    emit("kernel", **res)
+    if not ok:
+        raise AssertionError(f"the sampled epilogue disagrees with sample_from_uniforms beyond rounding: {diffs}")
     return res
 
 
@@ -663,6 +875,8 @@ def phase_kernel(dev):
 
     timed["nop"] = check_nop(dev)
     timed["fused_decode_window"] = phase_window_kernel(dev)
+    timed["sample_epilogue"] = check_epilogue(dev)
+    timed["fused_decode_window_sampled"] = phase_window_sampled(dev)
     return timed
 
 
@@ -783,11 +997,14 @@ def phase_model(dev):
 
 
 def phase_model_window(dev):
-    """llama-3.2-1b at full width in f32 on the card: one 8-step greedy
-    window of 8 rows at ragged positions (one dead) through the fused
-    window (one launch) and through ``decode_multi`` over the ragged kernel
-    (one launch per layer and step), from copies of one cache. The live
-    rows' tokens must be equal and the written K/V within 1e-3."""
+    """llama-3.2-1b at full width in f32 on the card: one 8-step window of 8
+    rows at ragged positions (one dead) through the fused window (one
+    launch) and through ``decode_multi`` over the ragged kernel (one launch
+    per layer and step), from copies of one cache: greedy, then with the
+    rows in ``SAMPLE_MIX``'s turn (final norm times ``LOGIT_SPREAD``),
+    ``decode_multi_fused(sampled=True)`` against ``decode_multi(uniforms=)``
+    on the same uniforms. The live rows' tokens must be equal and the
+    written K/V within 1e-3."""
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.models import llama
 
@@ -797,15 +1014,6 @@ def phase_model_window(dev):
                        positions=[0, 13, 100, 255, 511, 700, 1023], dead=1, steps=steps)
     params, ints, k0, v0 = case["params"], case["ints"], case["k"], case["v"]
     B = len(ints[0])
-    greedy = (np.zeros(B, np.float32), np.zeros(B, np.int32), np.ones(B, np.float32))
-    fk, fv, dk, dv = k0.clone(), v0.clone(), k0.clone(), v0.clone()
-    reset_counts()
-    fused, _, _ = llama.decode_multi_fused(params, base, fk, fv, *ints, num_steps=steps)
-    fused_counts = read_counts()
-    reset_counts()
-    multi, _, _ = llama.decode_multi(params, base, dk, dv, *ints, *greedy, None, steps)
-    multi_counts = read_counts()
-    torch.cuda.synchronize()
     live = ints[3].cpu()
     tables = ints[2].cpu()
     written = torch.zeros(k0.shape[1:3], dtype=torch.bool)
@@ -813,20 +1021,48 @@ def phase_model_window(dev):
         for j in range(steps):
             written[int(tables[b, (p + j) // base.block_size]), (p + j) % base.block_size] = True
     sel = written.to(dev)
-    kv_err = max((fk[:, sel] - dk[:, sel]).abs().max().item(), (fv[:, sel] - dv[:, sel]).abs().max().item())
-    same = bool(torch.equal(fused[:, live].cpu(), multi[:, live].cpu()))
-    launches = ({n: c["launches"] for n, c in fused_counts.items() if c["launches"]},
-                {n: c["launches"] for n, c in multi_counts.items() if c["launches"]})
-    want = ({"fused_decode_window": 1}, {"ragged_paged_attention": steps * base.num_layers})
-    plain = sum(c["plain_calls"] for counts in (fused_counts, multi_counts) for c in counts.values())
-    ok = same and kv_err <= 1e-3 and launches == want and not plain
-    emit("model", preset=PRESET, path="fused window vs decode_multi", dtype="float32", rows=B,
-         live=int(live.sum()), steps=steps, tokens_equal=same,
-         token_agreement=(fused[:, live] == multi[:, live]).float().mean().item(), kv_max_abs_err=kv_err,
-         tol=1e-3, kernel_launches=launches, expected_launches=want, plain_calls_on_card=plain, ok=ok)
-    if not ok:
-        raise AssertionError("the fused window disagrees with decode_multi over the ragged kernel")
-    del case, params, fk, fv, dk, dv
+    greedy = (np.zeros(B, np.float32), np.zeros(B, np.int32), np.ones(B, np.float32))
+    failed = []
+    for mode in ("greedy", "sampled"):
+        if mode == "sampled":
+            params["final_norm"].mul_(LOGIT_SPREAD)
+            temps, top_ks, top_ps, u = sample_rows(B, steps, dev, 421)
+            fused_kw = dict(temps=temps, top_ks=top_ks, top_ps=top_ps, uniforms=u, sampled=True)
+            multi_args = (temps.cpu().numpy(), top_ks.cpu().numpy(), top_ps.cpu().numpy(), None, steps)
+            multi_kw = dict(uniforms=u)
+        else:
+            fused_kw, multi_args, multi_kw = {}, (*greedy, None, steps), {}
+        fk, fv, dk, dv = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+        reset_counts()
+        fused, _, _ = llama.decode_multi_fused(params, base, fk, fv, *ints, num_steps=steps, **fused_kw)
+        fused_counts = read_counts()
+        reset_counts()
+        multi, _, _ = llama.decode_multi(params, base, dk, dv, *ints, *multi_args, **multi_kw)
+        multi_counts = read_counts()
+        torch.cuda.synchronize()
+        kv_err = max((fk[:, sel] - dk[:, sel]).abs().max().item(), (fv[:, sel] - dv[:, sel]).abs().max().item())
+        same = bool(torch.equal(fused[:, live].cpu(), multi[:, live].cpu()))
+        launches = ({n: c["launches"] for n, c in fused_counts.items() if c["launches"]},
+                    {n: c["launches"] for n, c in multi_counts.items() if c["launches"]})
+        want = ({"fused_decode_window": 1} | ({"fused_decode_window_sampled": 1} if mode == "sampled" else {}),
+                {"ragged_paged_attention": steps * base.num_layers})
+        plain = sum(c["plain_calls"] for counts in (fused_counts, multi_counts) for c in counts.values())
+        ok = same and kv_err <= 1e-3 and launches == want and not plain
+        res = dict(preset=PRESET, path=f"fused window vs decode_multi, {mode}", dtype="float32", rows=B,
+                   live=int(live.sum()), steps=steps, tokens_equal=same,
+                   token_agreement=(fused[:, live] == multi[:, live]).float().mean().item(), kv_max_abs_err=kv_err,
+                   tol=1e-3, kernel_launches=launches, expected_launches=want, plain_calls_on_card=plain, ok=ok)
+        if mode == "sampled":
+            res.update(rows_params=[SAMPLE_MIX[b % len(SAMPLE_MIX)] for b in range(B)], logit_spread=LOGIT_SPREAD)
+            if not same:
+                res.update(tokens=fused[:, live].tolist(), decode_multi_tokens=multi[:, live].tolist())
+        emit("model", **res)
+        if not ok:
+            failed.append(mode)
+        del fk, fv, dk, dv
+    if failed:
+        raise AssertionError(f"the fused window disagrees with decode_multi over the ragged kernel: {failed}")
+    del case, params
     torch.cuda.empty_cache()
 
 
@@ -910,20 +1146,23 @@ def device_busy_ms(fn, runs: int = 3) -> tuple:
 
 
 def window_breakdown(params, cfg, cache, d_args, steps):
-    """One greedy decode window of ``steps`` steps over the breakdown's 8
-    rows: the fused window (one launch) and the non-fused ``decode_multi``
-    (one forward per step over the ragged kernel). Per window: event ms,
-    host ms to queue it, profiler device-busy ms and device operations;
-    and the event ms per step. For the fused window, also the ms per step
-    of each of its phases, from the kernel's own timer stamps (each
-    phase's slowest block plus its grid barrier)."""
-    from dynamo_tpu_torch.engine.attention import megakernel as mk
+    """One decode window of ``steps`` steps over the breakdown's 8 rows: the
+    fused window, greedy and with the rows in ``SAMPLE_MIX``'s turn (one
+    launch each), and the non-fused greedy ``decode_multi`` (one forward
+    per step over the ragged kernel). Per window: event ms, host ms to
+    queue it, profiler device-busy ms and device operations; and the event
+    ms per step. For the fused windows, also the ms per step of each of
+    their phases, from the kernel's own timer stamps."""
     from dynamo_tpu_torch.engine.models import llama
 
     B = len(d_args[0])
     greedy = (np.zeros(B, np.float32), np.zeros(B, np.int32), np.ones(B, np.float32))
+    temps, top_ks, top_ps, u = sample_rows(B, steps, cache.k.device, 7)
+    samp = dict(temps=temps, top_ks=top_ks, top_ps=top_ps, uniforms=u, sampled=True)
     fns = {
         "fused_window": lambda: llama.decode_multi_fused(params, cfg, cache.k, cache.v, *d_args, num_steps=steps),
+        "fused_window_sampled": lambda: llama.decode_multi_fused(params, cfg, cache.k, cache.v, *d_args,
+                                                                 num_steps=steps, **samp),
         "decode_multi": lambda: llama.decode_multi(params, cfg, cache.k, cache.v, *d_args, *greedy, None, steps),
     }
     rows = {}
@@ -933,22 +1172,39 @@ def window_breakdown(params, cfg, cache, d_args, steps):
         rows[name] = {"steps": steps, "window_ms": window_ms, "ms_per_step": window_ms / steps,
                       "host_enqueue_ms": host_enqueue_ms(fn, iters=3), "device_busy_ms": busy,
                       "device_idle_share": 1 - busy / window_ms, "device_ops": n_ops}
-    L = cfg.num_layers
-    prof = torch.zeros(mk.window_profile_len(steps, L), dtype=torch.int64, device=cache.k.device)
     lp = params["layers"]
-    mk.fused_decode_window(
-        params["embed"], params.get("lm_head"), params["final_norm"],
-        *(lp[n] for n in WINDOW_WEIGHTS[3:]), cache.k, cache.v, *d_args,
-        num_steps=steps, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        block_size=cfg.block_size, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta, profile=prof)
-    t = prof.cpu().numpy().astype(np.float64)
-    d = np.diff(t).reshape(steps, 5 * L + 2) / 1e6  # ms between successive stamps
-    layer = d[:, :5 * L].reshape(steps, L, 5).sum(axis=1).mean(axis=0)
-    names = ("qkv", "attention", "wo", "gate_up", "down")
-    rows["fused_window"]["phases_ms_per_step"] = {
-        **{n: float(x) for n, x in zip(names, layer)},
-        "head": float(d[:, 5 * L].mean()), "argmax_embed": float(d[:, 5 * L + 1].mean())}
-    rows["fused_window"]["profiled_ms_per_step"] = float((t[-1] - t[0]) / 1e6 / steps)
+    weights = [params["embed"], params.get("lm_head"), params["final_norm"]] + [lp[n] for n in WINDOW_WEIGHTS[3:]]
+    kw = dict(num_steps=steps, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+              block_size=cfg.block_size, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
+    for name, sa in (("fused_window", ()), ("fused_window_sampled", (temps, top_ks, top_ps, u))):
+        phases = stamp_phases(weights, cache.k, cache.v, d_args, sa, kw, cfg.num_layers)
+        rows[name]["profiled_ms_per_step"] = phases.pop("stamped_ms_per_step")
+        rows[name]["phases_ms_per_step"] = phases
+    return rows
+
+
+def draw_breakdown(dev, V):
+    """The per-step paths' draw (``sampling.sample_batch_device``, threefry
+    gumbel noise over [B, V] plus the exact top-k/top-p thresholds): a first
+    token (B = 1, T = 0.8, top-p 0.9) and a mixed step's 8 rows in
+    ``SAMPLE_MIX``'s turn. Event ms, host ms to queue it, device-busy ms
+    and device operations per draw."""
+    from dynamo_tpu_torch.engine import prng
+    from dynamo_tpu_torch.engine.sampling import sample_batch_device
+
+    logits = torch.randn((8, V), generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    temps, top_ks, top_ps = (x.cpu().numpy() for x in sample_rows(8, 1, dev, 9)[:3])
+    key = prng.PRNGKey(9)
+    cases = {"first_token": (logits[:1], np.array([0.8], np.float32), np.zeros(1, np.int32),
+                             np.array([0.9], np.float32)),
+             "8_rows": (logits, temps, top_ks, top_ps)}
+    rows = {}
+    for name, (lg, t, k, p) in cases.items():
+        fn = lambda: sample_batch_device(lg, t, k, p, key)  # noqa: E731
+        ms = cuda_ms(fn, iters=10)
+        busy, n_ops = device_busy_ms(fn, runs=1)
+        rows[name] = {"rows": lg.shape[0], "ms": ms, "host_enqueue_ms": host_enqueue_ms(fn, iters=5),
+                      "device_busy_ms": busy, "device_ops": n_ops}
     return rows
 
 
@@ -961,7 +1217,9 @@ def phase_breakdown(dev):
     in-register piece, merges). Event times include any wait for the
     host; ``device_busy_ms`` (torch.profiler) is the card's own work, and
     the rest of the step is the card waiting for the host. Then one
-    32-step greedy window over the same 8 decode rows, fused and not."""
+    32-step window over the same 8 decode rows: fused greedy, fused
+    sampled, and the non-fused greedy ``decode_multi``; and the per-step
+    paths' threefry draw."""
     from dynamo_tpu_torch.engine.attention import decode as pdk
     from dynamo_tpu_torch.engine.attention import megakernel as mk
     from dynamo_tpu_torch.engine.attention import prefill as fck
@@ -1031,6 +1289,7 @@ def phase_breakdown(dev):
             rows[name] = row
         res[path] = rows
     res["windows"] = window_breakdown(params, base, cache, d_args, steps)
+    res["draw"] = draw_breakdown(dev, base.vocab_size)
     emit("breakdown", **res)
     del params, cache
     torch.cuda.empty_cache()
@@ -1092,6 +1351,8 @@ def _summarize(status, data, stream):
 
 
 SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows")
+# The windows pass's seeded request: its prompt is shorter than one KV block.
+SEEDED = {"prompt": "seeded draw", "max_tokens": 24, "temperature": 0.8, "seed": 4242}
 
 
 def phase_serve(card: str, path: str):
@@ -1104,10 +1365,11 @@ def phase_serve(card: str, path: str):
     path's kernels must have launched once per layer for each forward step
     that reaches them (the windows pass: the ragged kernel also once per
     layer for each step inside a non-fused window, and the fused window
-    once per fused window), no other kernel and no plain version at all.
-    In the windows pass the greedy repeat runs alone and must reach the
-    fused window, and the batches holding the sampled request must run
-    non-fused windows."""
+    once per fused window and the sampled branch once per window with a
+    sampled row), no other kernel and no plain version at all. In the
+    windows pass every window must be fused, the sampled request's among
+    them; then one seeded T = 0.8 request is sent twice, at batch slots 5
+    and 6 behind greedy neighbours, and its two answers must be equal."""
     from dynamo_tpu_torch import run
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
@@ -1151,6 +1413,8 @@ def phase_serve(card: str, path: str):
             )
             wall = time.perf_counter() - t0
             repeat = await asyncio.to_thread(_request, service.port, *reqs[0])
+            burst_forward = sched.forward_steps_total - steps0["forward"]
+            seeded = [await seeded_round(service.port, sched, n) for n in (5, 6)] if windows else []
             counts = read_counts()
             steps = {k: getattr(sched, f"{k}_steps_total") - steps0[k] for k in kinds}
             steps.update({k: getattr(sched, k) - steps0[k] for k in WINDOW_COUNTERS})
@@ -1159,9 +1423,29 @@ def phase_serve(card: str, path: str):
         finally:
             await service.stop()
             await engine.stop()
-        return results, wall, repeat, counts, steps, metrics, sched.mc, impl, sched.sc.num_scheduler_steps
+        return (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, sched.mc, impl,
+                sched.sc.num_scheduler_steps)
 
-    results, wall, repeat, counts, steps, metrics, mc, impl, sched_steps = asyncio.run(serve())
+    async def seeded_round(port, sched, n):
+        """``n`` greedy neighbours decoding (no EOS stop, longer than the
+        seeded request), then ``SEEDED``, which joins at batch slot ``n``:
+        its prefill rides a mixed step beside the neighbours' decode rows
+        and its windows a batch of n + 1 rows; 5 and 6 neighbours give the
+        same buckets (8 rows), so its per-row arithmetic is the same at
+        either slot. Its prompt fills no KV block, so the second send does
+        not hit the prefix cache. → (slot, answer)."""
+        neighbour = {"model": PRESET, "max_tokens": 160, "temperature": 0.0, "nvext": {"ignore_eos": True}}
+        futs = [asyncio.ensure_future(asyncio.to_thread(
+            _request, port, "/v1/completions", {**neighbour, "prompt": text(40)})) for _ in range(n)]
+        while sum(1 for seq in list(sched.running) if seq.output_ids) < n:
+            await asyncio.sleep(0.002)
+        slot = len(sched.running)
+        answer = await asyncio.to_thread(_request, port, "/v1/completions", {**SEEDED, "model": PRESET})
+        for status, data, _, _ in [answer, *await asyncio.gather(*futs)]:
+            _summarize(status, data, False)
+        return slot, answer
+
+    results, wall, repeat, seeded, burst_forward, counts, steps, metrics, mc, impl, sched_steps = asyncio.run(serve())
     answers = []
     for (url, body), (status, data, first, total) in zip(reqs, results):
         n, finish, cached = _summarize(status, data, body.get("stream", False))
@@ -1177,7 +1461,8 @@ def phase_serve(card: str, path: str):
         expected = {"ragged_paged_attention": L * steps["forward"]}
     elif windows:
         expected = {"ragged_paged_attention": L * (steps["forward"] + steps["window_steps_total"]),
-                    "fused_decode_window": steps["fused_windows_total"]}
+                    "fused_decode_window": steps["fused_windows_total"],
+                    "fused_decode_window_sampled": steps["fused_sampled_windows_total"]}
     else:
         expected = {"flash_chunk_attention": L * (steps["prefill"] + steps["mixed"]),
                     "paged_decode_partials": L * (steps["decode"] + steps["mixed"])}
@@ -1191,11 +1476,15 @@ def phase_serve(card: str, path: str):
         "repeat": {"completion_tokens": n_rep, "finish_reason": finish_rep, "cached_tokens": cached_rep},
         "ttft_p50_s": statistics.median(ttfts), "ttft_n": len(ttfts),
         "decode_tok_per_s": completion / wall, "wall_s": wall, "wall_ms_per_token": 1e3 * wall / completion,
-        "wall_ms_per_forward_step": 1e3 * wall / steps["forward"], "steps": steps,
+        "wall_ms_per_forward_step": 1e3 * wall / burst_forward, "steps": steps,
         "num_scheduler_steps": sched_steps,
         "kernel_launches": launches, "expected_launches": want, "plain_calls": plain,
         "mixed_steps_total": metrics["mixed_steps_total"], "cached_tokens_total": metrics["cached_tokens_total"],
     }
+    if windows:
+        texts = [(a[1]["choices"][0]["text"], a[1]["usage"]["completion_tokens"]) for _, a in seeded]
+        res["seeded"] = {"request": SEEDED, "slots": [slot for slot, _ in seeded], "answers": texts,
+                         "identical": texts[0] == texts[1]}
     emit("serve", **res)
     if not cached_rep:
         raise AssertionError("the repeated prompt did not hit the prefix cache")
@@ -1205,8 +1494,10 @@ def phase_serve(card: str, path: str):
         raise AssertionError(f"kernel launches {launches} != expected {want} over steps {steps}")
     if plain:
         raise AssertionError(f"serving called plain versions {plain} times: {counts}")
-    if windows and not (steps["fused_windows_total"] and steps["multi_windows_total"]):
-        raise AssertionError(f"the windows pass did not run both kinds of window: {steps}")
+    if windows and (steps["multi_windows_total"] or not steps["fused_sampled_windows_total"]):
+        raise AssertionError(f"the windows pass ran a non-fused window or no sampled fused one: {steps}")
+    if windows and not (res["seeded"]["identical"] and res["seeded"]["slots"][0] != res["seeded"]["slots"][1]):
+        raise AssertionError(f"the seeded request's answers at two batch slots differ: {res['seeded']}")
     return res
 
 
@@ -1218,17 +1509,21 @@ def phase_serve(card: str, path: str):
 def kernels_line(timed: dict, served: dict) -> list:
     """The ``kernels`` entries: every kernel's route, source, the TPU kernel
     it replaces, its launches on the main path, its checked error and its
-    timed, plain, bound and library times."""
+    timed, plain, bound and library times. The fused window's sampled
+    epilogue is a branch of the window's kernel, listed apart with the
+    launches of windows that took it; its epilogue alone (not on the
+    serving path) is reported inside that entry."""
     # Launches: each attention kernel's count over the serving pass of its
-    # path, and per forward step that reaches it; the fused window's over
-    # the windows pass, and per fused window; the probe's, over the probe's
-    # run.
+    # path, and per forward step that reaches it; the fused window's (and
+    # its sampled branch's) over the windows pass, and per such window; the
+    # probe's, over the probe's run.
     mega, piece, win = (served[p] for p in SERVE_PASSES)
     launches = {
         "ragged_paged_attention": mega["kernel_launches"]["ragged_paged_attention"],
         "flash_chunk_attention": piece["kernel_launches"]["flash_chunk_attention"],
         "paged_decode_partials": piece["kernel_launches"]["paged_decode_partials"],
         "fused_decode_window": win["kernel_launches"]["fused_decode_window"],
+        "fused_decode_window_sampled": win["kernel_launches"]["fused_decode_window_sampled"],
         "nop": timed["nop"]["probe_launches"],
     }
     reached = {
@@ -1236,15 +1531,17 @@ def kernels_line(timed: dict, served: dict) -> list:
         "flash_chunk_attention": (piece["steps"]["prefill"] + piece["steps"]["mixed"], "step"),
         "paged_decode_partials": (piece["steps"]["decode"] + piece["steps"]["mixed"], "step"),
         "fused_decode_window": (win["steps"]["fused_windows_total"], "window"),
+        "fused_decode_window_sampled": (win["steps"]["fused_sampled_windows_total"], "window with a sampled row"),
     }
     kernels = []
     for name in ("ragged_paged_attention", "flash_chunk_attention", "paged_decode_partials", "fused_decode_window",
-                 "nop"):
+                 "fused_decode_window_sampled", "nop"):
         t = timed[name]
-        kernels.append({
+        src = "fused_decode_window" if name == "fused_decode_window_sampled" else name
+        entry = {
             "name": name,
             "route": "cuda",
-            "source": f"dynamo_tpu_torch/csrc/{name}.cu",
+            "source": f"dynamo_tpu_torch/csrc/{src}.cu",
             "replaces": TPU_KERNEL[name],
             "launches": launches[name],
             "launches_per_step": launches[name] / reached[name][0] if name in reached else None,
@@ -1255,7 +1552,14 @@ def kernels_line(timed: dict, served: dict) -> list:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-        })
+        }
+        if name == "fused_decode_window_sampled":
+            e = timed["sample_epilogue"]
+            entry["draw_ms_per_step"] = t["phases_ms_per_step"]["pick_embed"]
+            entry["greedy_ms"] = t["greedy_kernel_ms"]
+            entry["epilogue_alone"] = {k: e[k] for k in ("case", "draws", "differ", "max_gap", "kernel_ms", "ref_ms",
+                                                         "bound_ms", "bound_by", "passes_bound_ms", "library_ms")}
+        kernels.append(entry)
     return kernels
 
 

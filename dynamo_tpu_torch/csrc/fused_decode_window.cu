@@ -1,15 +1,17 @@
-// Fused greedy decode window for Hopper (sm_90a), CUDA C++ with a plain C
-// entry point loaded through ctypes.
+// Fused decode window for Hopper (sm_90a), CUDA C++ with a plain C entry
+// point loaded through ctypes.
 //
 // Replaces the TPU Pallas kernel `_fused_window_kernel`
 // (dynamo_tpu/engine/attention/megakernel.py, launched by
-// `fused_decode_window`), greedy epilogue. One launch runs a whole window:
-// num_steps decode steps of B rows through every layer of a dense llama,
-// the K/V writes, the head and the argmax, with each step's token fed back
-// on the device. Per step i (positions + i):
+// `fused_decode_window`), greedy and sampled epilogues. One launch runs a
+// whole window: num_steps decode steps of B rows through every layer of a
+// dense llama, the K/V writes, the head and each row's pick, with each
+// step's token fed back on the device. Per step i (positions + i):
 //   embed -> per layer [RMS norm, QKV, rope, write K/V, paged attention over
 //   kpos <= pos, wo + residual, RMS norm, gate/up, silu*up, down + residual]
-//   -> final norm, head logits (f32), argmax (first index among equal maxima).
+//   -> final norm, head logits (f32), the pick: argmax (first index among
+//   equal maxima), or, for a sampled row, the draw of JAX
+//   `sample_from_uniforms` against the host's uniforms[i, b].
 // Every product accumulates in f32 and is rounded to the weight dtype T, as
 // in the TPU kernel; the residual h is carried in T; scores are rounded to T
 // before scaling (the TPU kernel's einsum of T operands); p stays in f32
@@ -54,8 +56,32 @@
 //   never through the read-only path, which could serve a value from
 //   before the last barrier.
 // - Argmax is two-level: each block keeps its (max, first index) per row
-//   over its vocab tiles; after a barrier block 0 reduces the partials,
-//   writes the tokens and embeds them for the next step.
+//   over its vocab tiles; after a barrier block b reduces row b's partials,
+//   writes its token and embeds it for the next step (the step's closing
+//   barrier orders that before anyone reads h).
+// - The sampled epilogue (a runtime flag: null temps when off, so the
+//   template instances stay 12): the head phase also stores each tile's f32
+//   logits, divided by the row's temperature (a division, as JAX scales),
+//   in a [B, V] scratch (16.4 MB at B = 32, served from L2), and after the
+//   barrier block b draws row b when its temperature is > 0, as JAX
+//   `filtered_probs_rows` + `pick_from_probs` (dynamo_tpu/engine/
+//   sampling.py) compute it, without a sort: the scaled row's max and lse
+//   by block reductions; the top-k threshold is the k-th largest scaled
+//   value, found exactly by a radix select over the order-preserving
+//   uint32 key of the float (4 passes of 256-bin shared histograms, 32
+//   lane copies); the top-p threshold is the smallest value v with
+//   sum_{s > v} exp(s - lse) < top_p (JAX's "keep while the exclusive mass
+//   of the descending sort is < top_p"), found by the same descent with
+//   bins summing mass (64-bit fixed point, 2^-40, so the sums do not
+//   depend on the order of the atomics); scaled >= max of the two is kept,
+//   and the token is the first kept index, in index order, whose
+//   cumulative probability exp(s - max) / Z exceeds u (a block scan), or
+//   the row's mode when u is past the total. Up to 12 passes over the row,
+//   each thread with four 16-byte loads in flight. Its bound is those
+//   bytes from L2; one block per row (B rows, the grid's other blocks
+//   wait at the step's barrier) stays above it, its 8 warps' instruction
+//   rate setting a pass's time. The same device function, alone on given
+//   logits, is `dtt_sample_from_uniforms`.
 // - With a profile buffer, block 0 stamps the global timer after every
 //   grid barrier (and once at its end), so the host can split a window's
 //   time by phase; without one the kernel stamps nothing.
@@ -173,6 +199,11 @@ struct Args {
   float* part_val;       // [grid, B] per-block argmax partials
   int* part_idx;
   unsigned long long* prof;  // [1 + steps * (5 L + 2)] timer stamps, or null
+  const float* temps;    // [B] (0 = greedy), or null: every row greedy
+  const int* top_ks;     // [B] (0 = off)
+  const float* top_ps;   // [B] (1 = off)
+  const float* unif;     // [steps, B] the draws' uniforms
+  float* logits;         // [B, V] head logits / temps scratch (sampled only)
   int steps, L, N, BS, H, KVH, HD, W, D, F, V, S;
   float eps, theta;
 };
@@ -442,7 +473,17 @@ struct ArgmaxTile {  // fold a tile's logits into the block's (max, first index)
   const float* lgs;
   float* best_v;
   int* best_i;
+  float* out;          // [B, V]: the tile's logits / temps[b] are stored here too, or null
+  const float* temps;  // [B] (a row with temps <= 0 is stored unscaled)
+  int V;
   __device__ void operator()(int t) const {
+    if (out != nullptr) {
+      for (int e = threadIdx.x; e < B * kTile; e += kThreads) {
+        const int b = e / kTile, c = e - b * kTile;
+        const float x = lgs[c * B + b], tb = temps[b];
+        out[(int64_t)b * V + t * kTile + c] = tb > 0.f ? x / tb : x;  // a division, as JAX scales
+      }
+    }
     const int b = threadIdx.x;
     if (b >= B) return;
     float bv = best_v[b];
@@ -677,6 +718,327 @@ __device__ void attention(const Args<T>& a, float* smem, int l, int i, int B) {
 }
 
 // ---------------------------------------------------------------------------
+// The sampled epilogue: one row's draw by one block
+// ---------------------------------------------------------------------------
+
+constexpr int kBins = 256;                // radix digits per pass (8 bits)
+constexpr int kScanItems = 8;             // consecutive logits per thread in the draw's scan (2 float4s)
+constexpr int kRowLoads = 4;              // float4 loads in flight per thread in a pass over a row
+constexpr float kMassScale = 1099511627776.0f;  // 2^40: fixed-point unit of the top-p bins
+
+constexpr int kLaneStride = kBins + 1;  // a bin's 32 lane copies fall in 32 distinct banks
+
+// Shared scratch of the pick (at the start of the kernel's shared memory).
+// A radix pass counts into 32 copies of the bins, one per lane index: the
+// values of a row share few top-byte bins, and one copy for the block made
+// every lane of a warp wait on the same address. The copies are summed
+// after the pass.
+struct PickSmem {
+  unsigned long long lane_mass[32 * kLaneStride];  // per-lane top-p bins: mass, fixed point
+  unsigned lane_cnt[32 * kLaneStride];             // per-lane bins: element counts
+  unsigned long long mass[kBins];                  // the copies summed
+  unsigned cnt[kBins];
+  float red[kWarps];  // block reductions
+  int redi[kWarps];
+  int bint[4];  // broadcasts
+  unsigned long long bull;
+};
+static_assert(sizeof(PickSmem) <= kXFloats * sizeof(float), "the pick's scratch must fit the GEMV staging area");
+
+// Zero the lane copies (counts, and masses when `mass`).
+__device__ void clear_bins(PickSmem* ps, bool mass) {
+  for (int j = threadIdx.x; j < 32 * kLaneStride; j += kThreads) {
+    ps->lane_cnt[j] = 0u;
+    if (mass) ps->lane_mass[j] = 0ull;
+  }
+}
+
+// Sum the lane copies into cnt (and mass). Thread j reads bin j of each
+// copy: one bank per thread at each step.
+__device__ void merge_bins(PickSmem* ps, bool mass) {
+  for (int j = threadIdx.x; j < kBins; j += kThreads) {
+    unsigned c = 0u;
+    unsigned long long m = 0ull;
+    for (int l = 0; l < 32; ++l) {
+      c += ps->lane_cnt[l * kLaneStride + j];
+      if (mass) m += ps->lane_mass[l * kLaneStride + j];
+    }
+    ps->cnt[j] = c;
+    if (mass) ps->mass[j] = m;
+  }
+}
+
+// Order-preserving key of a float: a larger float has a larger key.
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Block sum in a fixed order (the same value in every thread).
+__device__ float block_sum(float v, PickSmem* ps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane == 0) ps->red[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < kWarps; ++w) s += ps->red[w];
+  __syncthreads();
+  return s;
+}
+
+// Block (max, lowest index among equal maxima), in every thread.
+__device__ void block_argmax(float& v, int& ix, PickSmem* ps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, ix, o);
+    if (ov > v || (ov == v && oi < ix)) {
+      v = ov;
+      ix = oi;
+    }
+  }
+  if (lane == 0) {
+    ps->red[warp] = v;
+    ps->redi[warp] = ix;
+  }
+  __syncthreads();
+  v = ps->red[0];
+  ix = ps->redi[0];
+  for (int w = 1; w < kWarps; ++w) {
+    if (ps->red[w] > v || (ps->red[w] == v && ps->redi[w] < ix)) {
+      v = ps->red[w];
+      ix = ps->redi[w];
+    }
+  }
+  __syncthreads();
+}
+
+// f(i, s) for every i of [0, V) with s = row[i] (V % 4 == 0, row 16-byte
+// aligned): each thread takes float4s tid, tid + kThreads, ..., with
+// kRowLoads of them in flight, so a pass over a row is not a chain of L2
+// latencies; a thread's indices ascend. The row was written inside the
+// kernel: read through L2.
+template <class F>
+__device__ __forceinline__ void for_row(const float* row, int V, const F& f) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  const int n4 = V >> 2;
+  for (int j0 = threadIdx.x; j0 < n4; j0 += kThreads * kRowLoads) {
+    float4 v[kRowLoads];
+#pragma unroll
+    for (int q = 0; q < kRowLoads; ++q) {
+      const int j = j0 + q * kThreads;
+      if (j < n4) v[q] = __ldcg(r4 + j);
+    }
+#pragma unroll
+    for (int q = 0; q < kRowLoads; ++q) {
+      const int j = j0 + q * kThreads;
+      if (j < n4) {
+        f(4 * j, v[q].x);
+        f(4 * j + 1, v[q].y);
+        f(4 * j + 2, v[q].z);
+        f(4 * j + 3, v[q].w);
+      }
+    }
+  }
+}
+
+// Max of row[i] and its first index (INT_MAX when no value is > -inf).
+__device__ void row_mode(const float* row, int V, float& m, int& mi, PickSmem* ps) {
+  m = -INFINITY;
+  mi = INT_MAX;
+  for_row(row, V, [&](int i, float s) {  // ascending: strict > keeps the first
+    if (s > m) {
+      m = s;
+      mi = i;
+    }
+  });
+  block_argmax(m, mi, ps);
+}
+
+// The k-th largest of row[i] (1 <= k <= V), exactly: a radix select from the
+// most significant byte of the order-preserving key down.
+__device__ float kth_largest(const float* row, int V, int k, PickSmem* ps) {
+  const int tid = threadIdx.x;
+  unsigned prefix = 0u, mask = 0u;
+  unsigned* cnt = ps->lane_cnt + (tid % 32) * kLaneStride;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    clear_bins(ps, false);
+    __syncthreads();
+    for_row(row, V, [&](int, float s) {
+      const unsigned key = order_key(s);
+      if ((key & mask) == prefix) atomicAdd(cnt + ((key >> shift) & 0xffu), 1u);
+    });
+    __syncthreads();
+    merge_bins(ps, false);
+    __syncthreads();
+    if (tid == 0) {  // the digit holding the k-th largest: count down from the top bin
+      int d = kBins - 1, above = 0;
+      for (; d > 0; --d) {
+        const int c = (int)ps->cnt[d];
+        if (above + c >= k) break;
+        above += c;
+      }
+      ps->bint[0] = d;
+      ps->bint[1] = above;
+    }
+    __syncthreads();
+    k -= ps->bint[1];
+    prefix |= (unsigned)ps->bint[0] << shift;
+    mask |= 0xffu << shift;
+    __syncthreads();
+  }
+  return key_value(prefix);
+}
+
+// The smallest value v of row[i] with sum over values s > v of exp(s - lse)
+// < top_p: the last value the top-p rule keeps. The mass above a bin's
+// largest value is the mass of the bins above it, so the lowest non-empty
+// bin whose mass-above is < top_p holds v; each pass narrows to it.
+__device__ float nucleus_min(const float* row, int V, float lse, float top_p, PickSmem* ps) {
+  const int tid = threadIdx.x;
+  const double target = (double)top_p * (double)kMassScale;
+  unsigned prefix = 0u, mask = 0u;
+  unsigned long long above = 0ull;
+  unsigned* cnt = ps->lane_cnt + (tid % 32) * kLaneStride;
+  unsigned long long* mass = ps->lane_mass + (tid % 32) * kLaneStride;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    clear_bins(ps, true);
+    __syncthreads();
+    for_row(row, V, [&](int, float s) {
+      const unsigned key = order_key(s);
+      if ((key & mask) == prefix) {
+        const unsigned bin = (key >> shift) & 0xffu;
+        atomicAdd(cnt + bin, 1u);
+        atomicAdd(mass + bin, (unsigned long long)__float2ull_rn(expf(s - lse) * kMassScale));
+      }
+    });
+    __syncthreads();
+    merge_bins(ps, true);
+    __syncthreads();
+    if (tid == 0) {
+      unsigned long long acc = above, acc_found = above;
+      int found = -1, top = -1;
+      for (int d = kBins - 1; d >= 0; --d) {
+        if (ps->cnt[d] == 0u) continue;
+        if (top < 0) top = d;
+        if ((double)acc >= target) break;  // the mass above only grows downwards
+        found = d;
+        acc_found = acc;
+        acc += ps->mass[d];
+      }
+      if (found < 0) {  // top_p <= 0: keep the maximum alone
+        found = top;
+        acc_found = above;
+      }
+      ps->bint[0] = found;
+      ps->bull = acc_found;
+    }
+    __syncthreads();
+    prefix |= (unsigned)ps->bint[0] << shift;
+    mask |= 0xffu << shift;
+    above = ps->bull;
+    __syncthreads();
+  }
+  return key_value(prefix);
+}
+
+// One sampled row's token from its temperature-scaled f32 logits row[0, V)
+// (logits / t, divided where they were stored), by the whole block; every
+// thread returns it. JAX `filtered_probs_rows` then `pick_from_probs(probs,
+// u)`: keep scaled >= max(k-th largest (top_k > 0), top-p threshold (top_p
+// < 1)); p = exp(scaled - max) / Z over the kept; the first index whose
+// cumulative p exceeds u, or the mode when u is past the total. Not
+// inlined: one copy serves the window's 12 template instances and the
+// epilogue kernel.
+__device__ __noinline__ int sample_row(const float* row, int V, int top_k, float top_p, float u, PickSmem* ps) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float m;
+  int mode;
+  row_mode(row, V, m, mode, ps);
+  if (mode == INT_MAX) return 0;  // no finite logit
+  float z = 0.f;
+  for_row(row, V, [&](int, float s) { z += expf(s - m); });
+  const float lse = m + logf(block_sum(z, ps));
+
+  float thresh = -INFINITY;
+  if (top_k > 0) {
+    const int k = min(top_k, V);
+    thresh = k == 1 ? m : kth_largest(row, V, k, ps);
+  }
+  if (top_p < 1.f) thresh = fmaxf(thresh, nucleus_min(row, V, lse, top_p, ps));
+
+  float zk = 0.f;
+  for_row(row, V, [&](int, float s) {
+    if (s >= thresh) zk += expf(s - m);
+  });
+  zk = block_sum(zk, ps);
+
+  // Inverse CDF in index order: tiles of kThreads x kScanItems consecutive
+  // logits (float4 loads), a block scan of the threads' sums, the carry
+  // across tiles.
+  if (tid == 0) ps->bint[2] = INT_MAX;
+  __syncthreads();
+  float carry = 0.f;
+  for (int base = 0; base < V; base += kThreads * kScanItems) {
+    const int i0 = base + tid * kScanItems;
+    float sv[kScanItems];
+#pragma unroll
+    for (int q = 0; q < kScanItems / 4; ++q) {
+      const float4 v = i0 + 4 * q < V ? __ldcg(reinterpret_cast<const float4*>(row + i0) + q)
+                                      : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+      sv[4 * q] = v.x, sv[4 * q + 1] = v.y, sv[4 * q + 2] = v.z, sv[4 * q + 3] = v.w;
+    }
+    float cum[kScanItems];
+    bool kept[kScanItems];
+    float local = 0.f;
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      float p = 0.f;
+      kept[j] = false;
+      if (sv[j] >= thresh) {
+        p = expf(sv[j] - m) / zk;
+        kept[j] = p > 0.f;
+      }
+      local += p;
+      cum[j] = local;
+    }
+    float x = local;  // inclusive warp scan of the threads' sums
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, x, 1);
+    if (lane == 0) excl = 0.f;
+    if (lane == 31) ps->red[warp] = x;
+    __syncthreads();
+    float before = carry, total = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) before += ps->red[w];
+      total += ps->red[w];
+    }
+    before += excl;
+    int hit = INT_MAX;
+#pragma unroll
+    for (int j = kScanItems - 1; j >= 0; --j)
+      if (kept[j] && before + cum[j] > u) hit = i0 + j;
+    if (hit != INT_MAX) atomicMin(&ps->bint[2], hit);
+    __syncthreads();
+    const int found = ps->bint[2];
+    carry += total;
+    __syncthreads();
+    if (found != INT_MAX) return found;
+  }
+  return mode;
+}
+
+// ---------------------------------------------------------------------------
 // The window
 // ---------------------------------------------------------------------------
 
@@ -691,7 +1053,7 @@ __device__ __forceinline__ void stamp(unsigned long long* prof, int64_t slot) {
 
 template <typename T, int B>
 __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T> a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int L = a.L, D = a.D, F = a.F, V = a.V;
@@ -785,7 +1147,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T>
     __syncthreads();
     {
       const XNorm<T> xf{a.h, D, inv, a.fnorm};
-      const ArgmaxTile<B> fold{lgs, best_v, best_i};
+      const ArgmaxTile<B> fold{lgs, best_v, best_i, a.temps != nullptr ? a.logits : nullptr, a.temps, V};
       if (a.head != nullptr) {
         const T* hw = a.head;
         auto wsel = [&](int t, const T*& W, int& ldw, int& c0) { W = hw, ldw = V, c0 = t * kTile; };
@@ -801,35 +1163,41 @@ __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T>
     grid.sync();
     stamp(a.prof, s0 + 5 * L);
 
-    // Block 0: reduce the partials (ties to the lowest index), emit the
-    // tokens, embed them for the next step.
-    if (blockIdx.x == 0) {
-      if (tid < B) {
+    // Block b picks row b's token (its argmax partials reduced, ties to the
+    // lowest index, or its draw), emits it and embeds it for the next step.
+    // No block reads another row's token or h before the barrier below.
+    if (blockIdx.x < B) {
+      const int b = blockIdx.x;
+      PickSmem* ps = reinterpret_cast<PickSmem*>(smem);
+      int tok;
+      if (a.temps != nullptr && a.temps[b] > 0.f) {
+        tok = sample_row(a.logits + (int64_t)b * V, V, a.top_ks[b], a.top_ps[b],
+                         a.unif[(int64_t)i * B + b], ps);
+      } else {
         float bv = -INFINITY;
         int bi = INT_MAX;
-        for (int g = 0; g < (int)gridDim.x; ++g) {
-          const float v = __ldcg(a.part_val + (int64_t)g * B + tid);
-          const int ix = __ldcg(a.part_idx + (int64_t)g * B + tid);
+        for (int g = tid; g < (int)gridDim.x; g += kThreads) {
+          const float v = __ldcg(a.part_val + (int64_t)g * B + b);
+          const int ix = __ldcg(a.part_idx + (int64_t)g * B + b);
           if (v > bv || (v == bv && ix < bi)) {
             bv = v;
             bi = ix;
           }
         }
-        if (bi == INT_MAX) bi = 0;  // every logit NaN: no maximum
-        a.tokens_out[(int64_t)i * B + tid] = bi;
-        a.tok[tid] = bi;
-        best_i[tid] = bi;
+        block_argmax(bv, bi, ps);
+        tok = bi == INT_MAX ? 0 : bi;  // every logit NaN: no maximum
       }
-      __syncthreads();
+      if (tid == 0) {
+        a.tokens_out[(int64_t)i * B + b] = tok;
+        a.tok[b] = tok;
+      }
       if (i + 1 < a.steps) {
-        for (int e = tid; e < B * D; e += kThreads) {
-          const int b = e / D, d = e - b * D;
-          a.h[e] = a.embed[(int64_t)best_i[b] * D + d];
-        }
+        for (int d = tid; d < D; d += kThreads) a.h[(int64_t)b * D + d] = a.embed[(int64_t)tok * D + d];
       }
-      __syncthreads();
     }
-    if (i + 1 < a.steps) grid.sync();
+    // With a profile, the last step closes with a barrier too, so its last
+    // stamp covers every row's pick.
+    if (i + 1 < a.steps || a.prof != nullptr) grid.sync();
     stamp(a.prof, s0 + 5 * L + 1);
   }
 }
@@ -915,13 +1283,50 @@ int launch_dtype(int B, int grid, const void* const* p, const int* n, float eps,
   a.part_ml = static_cast<float*>(const_cast<void*>(p[27]));
   a.attn = static_cast<T*>(const_cast<void*>(p[28]));
   a.split_cnt = static_cast<int*>(const_cast<void*>(p[29]));
+  a.temps = static_cast<const float*>(p[30]);
+  a.top_ks = static_cast<const int*>(p[31]);
+  a.top_ps = static_cast<const float*>(p[32]);
+  a.unif = static_cast<const float*>(p[33]);
+  a.logits = static_cast<float*>(const_cast<void*>(p[34]));
   a.steps = n[0], a.L = n[1], a.N = n[2], a.BS = n[3], a.H = n[4], a.KVH = n[5], a.HD = n[6];
   a.W = n[7], a.D = n[8], a.F = n[9], a.V = n[10], a.S = n[11];
   a.eps = eps, a.theta = theta;
   if (a.KVH <= 0 || a.H % a.KVH || a.HD % 16 || a.HD > 128 || a.D % kTile || a.F % kTile || a.V % kTile ||
-      a.W <= 0 || a.BS <= 0 || a.S <= 0)
+      a.W <= 0 || a.BS <= 0 || a.S <= 0 || grid < B)
+    return (int)cudaErrorInvalidValue;
+  if (a.temps != nullptr && (a.top_ks == nullptr || a.top_ps == nullptr || a.unif == nullptr || a.logits == nullptr))
     return (int)cudaErrorInvalidValue;
   return (int)launch_t<T>(a, B, grid, s);
+}
+
+// The sampled epilogue alone: block b picks row b of logits [B, V] (f32),
+// the argmax for a greedy row (t <= 0), else sample_row over the row
+// scaled into `scaled` [B, V] first, as the window's head stores it.
+__global__ void __launch_bounds__(kThreads) sample_rows_kernel(const float* logits, float* scaled,
+                                                               const float* temps, const int* top_ks,
+                                                               const float* top_ps, const float* u, int* out,
+                                                               int V) {
+  extern __shared__ __align__(16) unsigned char pick_smem[];
+  PickSmem* ps = reinterpret_cast<PickSmem*>(pick_smem);
+  const int b = blockIdx.x;
+  const float* row = logits + (int64_t)b * V;
+  const float t = temps[b];
+  int tok;
+  if (t > 0.f) {
+    float4* dst = reinterpret_cast<float4*>(scaled + (int64_t)b * V);
+    const float4* src = reinterpret_cast<const float4*>(row);
+    for (int j = threadIdx.x; j < V / 4; j += kThreads) {
+      const float4 x = src[j];
+      dst[j] = make_float4(x.x / t, x.y / t, x.z / t, x.w / t);
+    }
+    __syncthreads();  // the block's stores reach L2 before its __ldcg reads
+    tok = sample_row(scaled + (int64_t)b * V, V, top_ks[b], top_ps[b], u[b], ps);
+  } else {
+    float m;
+    row_mode(row, V, m, tok, ps);
+    if (tok == INT_MAX) tok = 0;
+  }
+  if (threadIdx.x == 0) out[b] = tok;
 }
 
 }  // namespace
@@ -948,11 +1353,13 @@ int dtt_fused_decode_window_blocks(int dtype, int B, int G, int HD, int* sm_coun
   return per_sm * sms;
 }
 
-// One window: the pointers below (head and prof may be null), then steps,
-// L, N, BS, H, KVH, HD, W, D, F, V and S, the attention's key splits (the
-// partials hold B * KVH * S * G * HD and B * KVH * S * G * 2 floats; the
-// split counters, B * KVH ints, start at zero and end at zero). `grid` must not
-// exceed dtt_fused_decode_window_blocks. Returns 0 or the cudaError of the
+// One window: the pointers below (head and prof may be null; temps null
+// for an all-greedy window, else top_ks, top_ps, unif [steps, B] and the
+// logits scratch [B, V] f32 too), then steps, L, N, BS, H, KVH, HD, W, D, F,
+// V and S, the attention's key splits (the partials hold B * KVH * S * G *
+// HD and B * KVH * S * G * 2 floats; the split counters, B * KVH ints, start
+// at zero and end at zero). `grid` must be at least B and must not exceed
+// dtt_fused_decode_window_blocks. Returns 0 or the cudaError of the
 // cooperative launch (e.g. cudaErrorCooperativeLaunchTooLarge); launches on
 // `stream` and does not synchronise.
 int dtt_fused_decode_window(int dtype, int B, int grid, const void* embed, const void* head,
@@ -961,18 +1368,38 @@ int dtt_fused_decode_window(int dtype, int B, int grid, const void* embed, const
                             const void* wd, void* kc, void* vc, const void* tokens, const void* positions,
                             const void* tables, const void* active, void* tokens_out, void* h, void* qkv,
                             void* part_acc, void* gu, void* tok, void* part_val, void* part_idx, void* prof,
-                            void* part_ml, void* attn, void* split_cnt, int steps, int L, int N, int BS, int H,
-                            int KVH, int HD, int W,
-                            int D, int F, int V, int S, float eps, float theta, void* stream) {
+                            void* part_ml, void* attn, void* split_cnt, const void* temps,
+                            const void* top_ks, const void* top_ps, const void* unif, void* logits, int steps,
+                            int L, int N, int BS, int H, int KVH, int HD, int W, int D, int F, int V, int S,
+                            float eps, float theta, void* stream) {
   if (steps <= 0) return 0;
-  const void* p[30] = {embed, head, fnorm, anorm, mnorm, wq, wk, wv, wo, wg, wu, wd, kc, vc,
+  const void* p[35] = {embed, head, fnorm, anorm, mnorm, wq, wk, wv, wo, wg, wu, wd, kc, vc,
                        tokens, positions, tables, active, tokens_out, h, qkv, part_acc, gu, tok,
-                       part_val, part_idx, prof, part_ml, attn, split_cnt};
+                       part_val, part_idx, prof, part_ml, attn, split_cnt, temps, top_ks, top_ps, unif,
+                       logits};
   const int n[12] = {steps, L, N, BS, H, KVH, HD, W, D, F, V, S};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dtype<float>(B, grid, p, n, eps, theta, s);
   if (dtype == 1) return launch_dtype<__nv_bfloat16>(B, grid, p, n, eps, theta, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The sampled epilogue alone on logits [B, V] f32 (V % 4 == 0, 16-byte
+// aligned) with temps, top_ks, top_ps and u [B] (the window's pick at one
+// step), a scratch `scaled` [B, V] f32: out [B] int tokens. Launches on
+// `stream` and does not synchronise; returns 0 or the launch's cudaError.
+int dtt_sample_from_uniforms(const void* logits, void* scaled, const void* temps, const void* top_ks,
+                             const void* top_ps, const void* u, void* out, int B, int V, void* stream) {
+  if (B <= 0) return 0;
+  if (V <= 0 || V % 4) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(sample_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)sizeof(PickSmem));
+  if (e != cudaSuccess) return (int)e;
+  sample_rows_kernel<<<B, kThreads, sizeof(PickSmem), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(logits), static_cast<float*>(scaled), static_cast<const float*>(temps),
+      static_cast<const int*>(top_ks),
+      static_cast<const float*>(top_ps), static_cast<const float*>(u), static_cast<int*>(out), V);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

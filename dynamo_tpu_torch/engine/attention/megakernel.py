@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch import _build
+from dynamo_tpu_torch.engine.sampling import sample_from_uniforms
 
 NEG_INF = -1e30
 
@@ -195,9 +196,12 @@ def ragged_paged_attention(
 # Fused multi-step decode window (one launch per window)
 # ---------------------------------------------------------------------------
 
-# The fused window's own counters, kept apart from the ragged kernel's.
+# The fused window's own counters, kept apart from the ragged kernel's; the
+# windows with the sampled epilogue are also counted apart.
 WINDOW_KERNEL_LAUNCHES = 0
 WINDOW_REF_CALLS = 0
+WINDOW_SAMPLED_LAUNCHES = 0
+WINDOW_SAMPLED_REF_CALLS = 0
 
 # The kernel is instantiated for these batch sizes (the decode buckets) and
 # these head dims; GEMV tiles are 16 columns wide, so the model's widths must
@@ -231,23 +235,25 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 
 def fused_decode_window_ref(
     embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down,
-    k_cache, v_cache, tokens, positions, tables, active,
+    k_cache, v_cache, tokens, positions, tables, active, temps=None, top_ks=None, top_ps=None, uniforms=None,
     *, num_steps: int, num_heads: int, num_kv_heads: int, head_dim: int, block_size: int,
     rms_eps: float, theta: float,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the fused window: ``num_steps`` greedy
-    decode steps over every layer, the JAX ``_fused_window_kernel``'s math
-    and cast points. Per step: embed (step 0 from ``tokens``, later steps
-    from the previous argmax); per layer RMS norm, QKV, rope at
-    ``positions + i``, the row's K/V written into the cache first (dead
-    rows to block 0, offset 0), attention over the row's pages masked to
-    ``kpos <= pos``, ``wo`` and the residual, RMS norm, SwiGLU and the
-    residual; then final norm, head and argmax (first index among equal
-    maxima). Every product accumulates in f32 and is cast to the weight
-    dtype, the residual stays in that dtype, and p is cast to it before PV.
-    Dead rows attend nothing (zeros), as in the kernel; their tokens are
-    unspecified. ``head`` is ``[D, V]``, or None for tied embeddings.
-    Writes the caches in place; returns ``tokens [num_steps, B]`` int32."""
+    """Plain PyTorch version of the fused window: ``num_steps`` decode
+    steps over every layer, the JAX ``_fused_window_kernel``'s math and cast
+    points. Per step: embed (step 0 from ``tokens``, later steps from the
+    previous pick); per layer RMS norm, QKV, rope at ``positions + i``, the
+    row's K/V written into the cache first (dead rows to block 0, offset
+    0), attention over the row's pages masked to ``kpos <= pos``, ``wo``
+    and the residual, RMS norm, SwiGLU and the residual; then final norm,
+    head and the pick: argmax (first index among equal maxima) or, with
+    ``uniforms [num_steps, B]``, ``sampling.sample_from_uniforms(logits,
+    temps, top_ks, top_ps, uniforms[i])``. Every product accumulates in f32
+    and is cast to the weight dtype, the residual stays in that dtype, and
+    p is cast to it before PV. Dead rows attend nothing (zeros), as in the
+    kernel; their tokens are unspecified. ``head`` is ``[D, V]``, or None
+    for tied embeddings. Writes the caches in place; returns ``tokens
+    [num_steps, B]`` int32."""
     L, N, BS, KVH, HD = k_cache.shape
     B, W = tokens.shape[0], tables.shape[1]
     H, G = num_heads, num_heads // num_kv_heads
@@ -285,7 +291,10 @@ def fused_decode_window_ref(
             x = _rms(h, mlp_norm[l], rms_eps)
             h = h + (F.silu(x @ w_gate[l]) * (x @ w_up[l])) @ w_down[l]
         logits = (_rms(h, final_norm, rms_eps) @ head_w).float()
-        toks = torch.argmax(logits, dim=-1)
+        if uniforms is None:
+            toks = torch.argmax(logits, dim=-1)
+        else:
+            toks = sample_from_uniforms(logits, temps, top_ks, top_ps, uniforms[i]).long()
         out[i] = toks.to(torch.int32)
     return out
 
@@ -298,7 +307,7 @@ def _window_kernel():
         blocks.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         blocks.restype = ctypes.c_int
         launch.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 30 + [ctypes.c_int] * 12
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 35 + [ctypes.c_int] * 12
             + [ctypes.c_float] * 2 + [ctypes.c_void_p]
         )
         launch.restype = ctypes.c_int
@@ -374,6 +383,10 @@ def fused_decode_window(
     positions: torch.Tensor,  # [B] write slot of the step-0 token
     tables: torch.Tensor,  # [B, W] block ids — must cover positions + num_steps
     active: torch.Tensor,  # [B] bool
+    temps: Optional[torch.Tensor] = None,  # [B] f32 (0 = greedy), with uniforms
+    top_ks: Optional[torch.Tensor] = None,  # [B] i32 (0 = off)
+    top_ps: Optional[torch.Tensor] = None,  # [B] f32 (1 = off)
+    uniforms: Optional[torch.Tensor] = None,  # [num_steps, B] f32: the sampled epilogue's draws
     *,
     num_steps: int,
     num_heads: int,
@@ -384,25 +397,32 @@ def fused_decode_window(
     theta: float,
     profile: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``num_steps`` greedy decode steps × every layer in ONE launch.
-    Returns ``tokens [num_steps, B]`` int32; the window's K/V rows land in
-    the caches in place. CUDA tensors launch the persistent cooperative
-    kernel (``csrc/fused_decode_window.cu``) or raise; CPU tensors run
-    ``fused_decode_window_ref``. ``profile``, an int64 CUDA tensor of
-    ``window_profile_len(num_steps, L)``, gets the kernel's global-timer
-    stamps (ns): one after the step-0 embedding, then per step one after
-    each of the 5 phases of each layer, one after the head and one after
-    the argmax (the plain version stamps nothing)."""
-    global WINDOW_KERNEL_LAUNCHES, WINDOW_REF_CALLS
+    """``num_steps`` decode steps × every layer in ONE launch. Returns
+    ``tokens [num_steps, B]`` int32; the window's K/V rows land in the
+    caches in place. Greedy, or with ``uniforms`` the sampled epilogue:
+    each row with a temperature > 0 draws its token from ``uniforms[i]`` as
+    ``sampling.sample_from_uniforms`` does. CUDA tensors launch the
+    persistent cooperative kernel (``csrc/fused_decode_window.cu``) or
+    raise; CPU tensors run ``fused_decode_window_ref``. ``profile``, an
+    int64 CUDA tensor of ``window_profile_len(num_steps, L)``, gets the
+    kernel's global-timer stamps (ns): one after the step-0 embedding, then
+    per step one after each of the 5 phases of each layer, one after the
+    head and one after the pick and next embedding (the plain version
+    stamps nothing)."""
+    global WINDOW_KERNEL_LAUNCHES, WINDOW_REF_CALLS, WINDOW_SAMPLED_LAUNCHES, WINDOW_SAMPLED_REF_CALLS
     weights = [embed, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down]
     weights += [head] if head is not None else []
     kw = dict(num_steps=num_steps, num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
               block_size=block_size, rms_eps=rms_eps, theta=theta)
+    sampled = uniforms is not None
+    if sampled and (temps is None or top_ks is None or top_ps is None):
+        raise ValueError("the sampled epilogue needs temps, top_ks and top_ps with uniforms")
     if tokens.device.type == "cpu":
         WINDOW_REF_CALLS += 1
+        WINDOW_SAMPLED_REF_CALLS += sampled
         return fused_decode_window_ref(
             embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down,
-            k_cache, v_cache, tokens, positions, tables, active, **kw,
+            k_cache, v_cache, tokens, positions, tables, active, temps, top_ks, top_ps, uniforms, **kw,
         )
     if tokens.device.type != "cuda":
         raise ValueError(f"fused_decode_window runs on cuda or cpu tensors, got {tokens.device}")
@@ -441,6 +461,16 @@ def fused_decode_window(
     if tables.dim() != 2 or tables.shape[0] != B:
         raise ValueError(f"tables must be [B, W], got {tuple(tables.shape)}")
     ints = [x.to(device=dev, dtype=torch.int32).contiguous() for x in (tokens, positions, tables, active)]
+    samp = [None] * 5
+    if sampled:
+        samp = [temps.to(device=dev, dtype=torch.float32).contiguous(),
+                top_ks.to(device=dev, dtype=torch.int32).contiguous(),
+                top_ps.to(device=dev, dtype=torch.float32).contiguous(),
+                uniforms.to(device=dev, dtype=torch.float32).contiguous(),
+                torch.empty((B, V), dtype=torch.float32, device=dev)]
+        for name, t, shape in zip(("temps", "top_ks", "top_ps", "uniforms"), samp, ((B,), (B,), (B,), (num_steps, B))):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name} must be {list(shape)}, got {tuple(t.shape)}")
     blocks, sms = fused_window_grid(dtype, B, H // KVH, HD, dev)
     if blocks < sms:
         raise RuntimeError(f"fused_decode_window: {blocks} co-resident blocks on {sms} SMs; "
@@ -472,10 +502,64 @@ def fused_decode_window(
             _DTYPE_CODE[dtype], B, grid,
             *(ptr(t) for t in (embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up,
                                w_down, k_cache, v_cache, *ints, out, h, qkv, part_acc, gu, tok, part_val,
-                               part_idx, profile, part_ml, attn, split_cnt)),
+                               part_idx, profile, part_ml, attn, split_cnt, *samp)),
             num_steps, L, N, BS, H, KVH, HD, W, D, F_, V, S, rms_eps, theta, stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_decode_window kernel launch failed: cudaError {rc}")
     WINDOW_KERNEL_LAUNCHES += 1
+    WINDOW_SAMPLED_LAUNCHES += sampled
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The fused window's sampled epilogue alone (a check, not on the serving path)
+# ---------------------------------------------------------------------------
+
+EPILOGUE_KERNEL_LAUNCHES = 0
+EPILOGUE_REF_CALLS = 0
+
+
+def sample_epilogue(
+    logits: torch.Tensor,  # [B, V] f32
+    temps: torch.Tensor,  # [B] f32 (0 = greedy)
+    top_ks: torch.Tensor,  # [B] i32 (0 = off)
+    top_ps: torch.Tensor,  # [B] f32 (1 = off)
+    u: torch.Tensor,  # [B] f32 uniforms in [0, 1)
+) -> torch.Tensor:
+    """One pick per row of ``logits``, by the device code the fused window
+    runs after its head (``sample_row``, one block per row): the argmax for
+    a greedy row, the draw from ``u`` for a sampled one → ``[B]`` int32.
+    CUDA tensors launch ``dtt_sample_from_uniforms`` or raise; CPU tensors
+    run its plain version, ``sampling.sample_from_uniforms``. It lets the
+    draw be held against the plain version on identical logits."""
+    global EPILOGUE_KERNEL_LAUNCHES, EPILOGUE_REF_CALLS
+    if logits.device.type == "cpu":
+        EPILOGUE_REF_CALLS += 1
+        return sample_from_uniforms(logits, temps, top_ks, top_ps, u)
+    if logits.device.type != "cuda":
+        raise ValueError(f"sample_epilogue runs on cuda or cpu tensors, got {logits.device}")
+    if logits.dtype != torch.float32 or logits.dim() != 2 or not logits.is_contiguous():
+        raise ValueError("logits must be a contiguous [B, V] float32 tensor")
+    B, V = logits.shape
+    if V % 4 or logits.data_ptr() % 16:
+        raise ValueError(f"the epilogue reads 16 bytes at a time: V = {V} must be a multiple of 4, logits aligned")
+    dev = logits.device
+    rows = [temps.to(dev, torch.float32).contiguous(), top_ks.to(dev, torch.int32).contiguous(),
+            top_ps.to(dev, torch.float32).contiguous(), u.to(dev, torch.float32).contiguous()]
+    if any(tuple(t.shape) != (B,) for t in rows):
+        raise ValueError(f"temps, top_ks, top_ps and u must be [{B}]")
+    out = torch.empty((B,), dtype=torch.int32, device=dev)
+    scaled = torch.empty_like(logits)  # the sampled rows / their temperature, as the window's head stores them
+    lib = _build.load("fused_decode_window")
+    fn = lib.dtt_sample_from_uniforms
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(logits.data_ptr(), scaled.data_ptr(), *(t.data_ptr() for t in rows), out.data_ptr(), B, V,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sample_epilogue kernel launch failed: cudaError {rc}")
+    EPILOGUE_KERNEL_LAUNCHES += 1
     return out

@@ -164,10 +164,12 @@ class TorchEngine:
         rid = context.id
         sampling_d = request.get("sampling_options") or {}
         temp = sampling_d.get("temperature")
+        seed = sampling_d.get("seed")
         sampling = SamplingParams(
             temperature=1.0 if temp is None else float(temp),  # null ≡ unset ≡ default
             top_k=int(sampling_d.get("top_k") or 0),
             top_p=float(sampling_d.get("top_p") or 1.0),
+            seed=int(seed) if seed is not None else None,
         )
         stop = StopConditions.from_dict(request.get("stop_conditions"))
         queue: "asyncio.Queue[StepOutput]" = asyncio.Queue()

@@ -36,7 +36,8 @@ from dynamo_tpu_torch.engine.attention import decode as paged_decode
 from dynamo_tpu_torch.engine.attention import megakernel, ragged
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.kv_cache import ragged_scatter_targets
-from dynamo_tpu_torch.engine.sampling import sample_batch_device
+from dynamo_tpu_torch.engine import prng
+from dynamo_tpu_torch.engine.sampling import sample_batch_device, sample_from_uniforms
 from dynamo_tpu_torch.engine.weights import Params
 
 NEG_INF = -1e30
@@ -393,11 +394,11 @@ def decode_multi(
     temps: np.ndarray,  # [B] f32 (0 = greedy)
     top_ks: np.ndarray,  # [B] i32 (0 = off)
     top_ps: np.ndarray,  # [B] f32 (1 = off)
-    generator: Optional[torch.Generator],  # the JAX version's rng_key
+    rng_key: Optional[np.ndarray],  # [2] uint32 threefry key (None: an all-greedy window)
     num_steps: int,
     moe_stats: bool = False,
     return_logits: bool = False,
-    uniforms: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,  # [num_steps, B] f32 — inverse-CDF draws
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``num_steps`` autoregressive decode steps with on-device sampling
     and token feedback: the host syncs once per window, when it reads the
@@ -407,21 +408,33 @@ def decode_multi(
     Each step is the port's ``decode`` on every attention path, which writes
     its K/V rows in place; the JAX version keeps them in a window-local
     carry and scatters once at the end. Both give the same tokens and cache
-    contents. ``moe_stats``, ``return_logits`` and ``uniforms`` are not
+    contents. Each step splits ``rng_key`` and draws with the subkey
+    (``sample_batch``), as the JAX version does; with ``uniforms`` it picks
+    through ``sample_from_uniforms(..., uniforms[i])`` instead, the fused
+    window's sampled contract. ``moe_stats`` and ``return_logits`` are not
     ported yet."""
-    if moe_stats or return_logits or uniforms is not None:
+    if moe_stats or return_logits:
         raise NotImplementedError(
-            "decode_multi: moe_stats, return_logits and uniforms are not ported yet "
-            "(ROADMAP Queue 1 items 11 and 16)"
+            "decode_multi: moe_stats and return_logits are not ported yet (ROADMAP Queue 1 item 16)"
         )
     positions = positions.to(torch.int32)
-    out = torch.empty((num_steps, tokens.shape[0]), dtype=torch.int32, device=tokens.device)
+    dev = tokens.device
+    out = torch.empty((num_steps, tokens.shape[0]), dtype=torch.int32, device=dev)
+    if uniforms is not None:
+        rows = [torch.as_tensor(x).to(dev) for x in (temps, top_ks, top_ps)]
+        uniforms = uniforms.to(dev)
     toks = tokens.to(torch.int32)
     for i in range(num_steps):
         logits, k_cache, v_cache = decode(
             params, config, k_cache, v_cache, toks, positions + i, block_tables, active
         )
-        toks = sample_batch_device(logits, temps, top_ks, top_ps, generator)
+        if uniforms is not None:
+            toks = sample_from_uniforms(logits, *rows, uniforms[i])
+        else:
+            sub = None
+            if rng_key is not None:
+                rng_key, sub = prng.split(rng_key)
+            toks = sample_batch_device(logits, temps, top_ks, top_ps, sub)
         out[i] = toks
     return out, k_cache, v_cache
 
@@ -436,31 +449,40 @@ def decode_multi_fused(
     block_tables: torch.Tensor,  # [B, W] — must cover positions+num_steps
     active: torch.Tensor,  # [B] bool
     num_steps: int,
+    temps=None,  # [B] f32 (with sampled=True), tensor or numpy
+    top_ks=None,  # [B] i32
+    top_ps=None,  # [B] f32
+    uniforms: Optional[torch.Tensor] = None,  # [num_steps, B] f32 (make_window_uniforms)
     sampled: bool = False,
     guided: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """A whole greedy window in ONE launch of the fused decode-window kernel
+    """A whole window in ONE launch of the fused decode-window kernel
     (``megakernel.fused_decode_window``): every layer of every step, the KV
-    writes, the head and the argmax, with the token fed back on the device.
-    Returns ``(tokens_out [num_steps, B] int32, k_cache, v_cache)``, the
-    caches written in place; the same tokens and cache contents as greedy
-    ``decode_multi``. Dense llama only; callers gate with
-    ``megakernel.fused_window_fits``. The sampled and guided epilogues are
-    not ported yet."""
-    if sampled or guided:
+    writes, the head and each row's pick, with the token fed back on the
+    device. Returns ``(tokens_out [num_steps, B] int32, k_cache, v_cache)``,
+    the caches written in place; the same tokens and cache contents as
+    ``decode_multi`` (greedy, or with ``uniforms=`` when ``sampled``: rows
+    with a temperature > 0 draw from the host's uniforms through the
+    kernel's sampled epilogue). Dense llama only; callers gate with
+    ``megakernel.fused_window_fits``. The guided epilogue is not ported
+    yet."""
+    if guided:
         raise NotImplementedError(
-            "decode_multi_fused: the sampled and guided epilogues are not ported yet "
-            "(ROADMAP Queue 2 items 3b and 3c)"
+            "decode_multi_fused: the guided epilogue is not ported yet (ROADMAP Queue 2 item 3c)"
         )
     c = config
     lp = params["layers"]
     head = params.get("lm_head")
+    samp = ()
+    if sampled:
+        dev = tokens.device
+        samp = tuple(torch.as_tensor(x).to(dev) for x in (temps, top_ks, top_ps, uniforms))
     toks = megakernel.fused_decode_window(
         params["embed"], head, params["final_norm"],
         lp["attn_norm"], lp["mlp_norm"],
         lp["wq"], lp["wk"], lp["wv"], lp["wo"],
         lp["w_gate"], lp["w_up"], lp["w_down"],
-        k_cache, v_cache, tokens, positions, block_tables, active,
+        k_cache, v_cache, tokens, positions, block_tables, active, *samp,
         num_steps=num_steps, num_heads=c.num_heads, num_kv_heads=c.num_kv_heads,
         head_dim=c.head_dim, block_size=c.block_size, rms_eps=c.rms_norm_eps, theta=c.rope_theta,
     )

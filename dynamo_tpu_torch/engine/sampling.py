@@ -1,10 +1,14 @@
-"""Token sampling: greedy / temperature / top-k / top-p.
+"""Token sampling: greedy / temperature / top-k / top-p, and seeded draws.
 
 Sampling parameters arrive per request; the scheduler packs them into
 per-row arrays so one call serves a mixed-parameter batch. The sampling
 distribution (``filtered_probs_rows``) and the inverse-CDF pick from
 precomputed uniforms (``sample_from_uniforms``) are the JAX package's,
 so both packages pick the same token from the same logits and uniforms.
+Keys are the JAX package's threefry keys (``engine/prng.py``): the
+per-step draw (``sample_batch``), the per-row keys of seeded requests
+(``make_row_keys``) and a fused window's uniforms (``make_window_uniforms``)
+give the JAX package's values for the same scheduler key and seeds.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.engine import prng
+
 
 @dataclass
 class SamplingParams:
@@ -23,6 +29,10 @@ class SamplingParams:
     temperature: float = 1.0
     top_k: int = 0  # 0 = disabled
     top_p: float = 1.0  # 1 = disabled; temperature 0 = greedy
+    # Per-request PRNG: the same seed and prompt draw from the same keys
+    # whatever the batch around them (the key folds in the request's token
+    # position, not the scheduler's step counter).
+    seed: Optional[int] = None
 
 
 def pack_param_rows(samplings: List[SamplingParams], bucket: int):
@@ -98,15 +108,51 @@ def sample_from_uniforms(
     return pick_from_probs(filtered_probs_rows(logits, temps, top_ks, top_ps), u)
 
 
+def make_row_keys(
+    base_key: np.ndarray,  # [2] uint32
+    seeds: np.ndarray,  # [B] i32 (0 where unseeded)
+    positions: np.ndarray,  # [B] i32 per-request token position
+    has_seed: np.ndarray,  # [B] bool
+) -> np.ndarray:
+    """Per-row keys ``[B, 2]``: seeded rows fold their request position into
+    ``PRNGKey(seed)`` (independent of the batch), unseeded rows fold their
+    row index into the step's base key."""
+    seeds = np.asarray(seeds, dtype=np.int64)
+    seeded = prng.fold_in(np.stack([np.zeros_like(seeds), seeds & 0xFFFFFFFF], axis=-1), positions)
+    unseeded = prng.fold_in(np.broadcast_to(np.asarray(base_key), (len(seeds), 2)), np.arange(len(seeds)))
+    return np.where(np.asarray(has_seed, dtype=bool)[:, None], seeded, unseeded)
+
+
+def make_window_uniforms(
+    base_key: np.ndarray,  # [2] uint32
+    seeds: np.ndarray,  # [B] i32 (0 where unseeded)
+    positions: np.ndarray,  # [B] i32 per-request token position at window start
+    has_seed: np.ndarray,  # [B] bool
+    num_steps: int,
+    device="cpu",
+) -> torch.Tensor:
+    """A fused sampled window's uniforms → float32 ``[num_steps, B]`` on
+    ``device``: ``u[s, b]`` is the draw row b consumes at window step s,
+    ``uniform(make_row_keys(fold_in(base_key, s), seeds, positions + s,
+    has_seed)[b], ())``, so a seeded row replays the same tokens at any
+    batch slot."""
+    positions = np.asarray(positions, dtype=np.int64)
+    keys = np.stack([
+        make_row_keys(prng.fold_in(base_key, s), seeds, positions + s, has_seed) for s in range(num_steps)
+    ]).reshape(num_steps, len(positions), 2)
+    return prng.uniform(keys, (), device=device)
+
+
 def sample_batch(
     logits: torch.Tensor,  # [B, V] f32
     temps: np.ndarray,  # [B] f32 (0 = greedy)
     top_ks: np.ndarray,  # [B] i32 (0 = off)
     top_ps: np.ndarray,  # [B] f32 (1 = off)
-    generator: Optional[torch.Generator],
+    key: np.ndarray,  # [2] uint32
+    row_keys: Optional[np.ndarray] = None,  # [B, 2] per-row keys (seeded requests)
 ) -> np.ndarray:
     """``sample_batch_device`` brought to the host: ``[B]`` int32 numpy."""
-    return sample_batch_device(logits, temps, top_ks, top_ps, generator).cpu().numpy()
+    return sample_batch_device(logits, temps, top_ks, top_ps, key, row_keys).cpu().numpy()
 
 
 def sample_batch_device(
@@ -114,26 +160,34 @@ def sample_batch_device(
     temps: np.ndarray,  # [B] f32 (0 = greedy)
     top_ks: np.ndarray,  # [B] i32 (0 = off)
     top_ps: np.ndarray,  # [B] f32 (1 = off)
-    generator: Optional[torch.Generator],
+    key: np.ndarray,  # [2] uint32
+    row_keys: Optional[np.ndarray] = None,  # [B, 2] per-row keys (seeded requests)
 ) -> torch.Tensor:
-    """Sample one token per row → ``[B]`` int32 on the logits' device, with
-    no host sync: a decode window feeds it straight back as the next step's
-    input. Greedy rows take the argmax; sampled rows draw a uniform from
-    ``generator`` and pick through ``sample_from_uniforms``. All-greedy
-    batches skip the sort entirely. The row split reads the host-side
-    ``temps``, never the device."""
+    """One token per row → ``[B]`` int32 on the logits' device, with no host
+    sync: a decode window feeds it straight back as the next step's input.
+    The JAX ``sample_batch``: greedy rows take the argmax; sampled rows draw
+    ``categorical`` over their temperature-scaled logits masked below the
+    exact top-k/top-p threshold, from ``key`` over the whole ``[B, V]``
+    draw or, with ``row_keys``, each row from its own key. JAX takes its
+    thresholds from the 64 largest logits only where that window is exact,
+    so the full sort here gives the same threshold. All-greedy batches draw
+    nothing. The row split reads the host-side ``temps``, never the
+    device."""
     tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     rows = np.nonzero(temps > 0)[0]
-    if len(rows):
-        dev = logits.device
-        gen_dev = generator.device if generator is not None else torch.device("cpu")
-        idx = torch.from_numpy(rows).to(dev)
-        u = torch.rand((len(rows),), generator=generator, device=gen_dev).to(dev)
-        tokens[idx] = sample_from_uniforms(
-            logits[idx],
-            torch.from_numpy(temps[rows]).to(dev),
-            torch.from_numpy(top_ks[rows]).to(dev),
-            torch.from_numpy(top_ps[rows]).to(dev),
-            u,
-        )
+    if not len(rows):
+        return tokens
+    dev = logits.device
+    B, V = logits.shape
+    idx = torch.from_numpy(rows).to(dev)
+    scaled = logits[idx] / torch.from_numpy(temps[rows]).to(dev)[:, None]
+    lse = torch.logsumexp(scaled, dim=-1, keepdim=True)
+    thresh = _exact_thresholds(
+        scaled, lse, torch.from_numpy(top_ks[rows]).to(dev), torch.from_numpy(top_ps[rows]).to(dev))
+    masked = torch.where(scaled >= thresh[:, None], scaled, torch.full_like(scaled, -float("inf")))
+    if row_keys is not None:
+        noise = prng.gumbel(np.asarray(row_keys)[rows], (V,), dev)
+    else:
+        noise = prng.gumbel(key, (B, V), dev)[idx]
+    tokens[idx] = torch.argmax(masked + noise, dim=-1).to(torch.int32)
     return tokens

@@ -21,12 +21,19 @@ or wave admission:
   a decode iteration runs a window of N steps with the token fed back on
   the device and one host sync, N the smallest rung (8, 16,
   ``num_scheduler_steps``) covering the batch's remaining budget, capped
-  while requests wait. On the megakernel path an all-greedy batch runs the
-  whole window as ONE launch of the fused decode-window kernel
-  (``llama.decode_multi_fused``); a batch with a sampled row runs
-  ``llama.decode_multi``, one forward per step (the sampled epilogue of
-  the fused kernel is not ported yet). Tokens past a row's stop are
-  trimmed.
+  while requests wait. On the megakernel path every batch runs the whole
+  window as ONE launch of the fused decode-window kernel
+  (``llama.decode_multi_fused``): greedy rows take the argmax, sampled rows
+  draw in the kernel from uniforms the host derives once per window
+  (``sampling.make_window_uniforms``). Off it, a batch runs
+  ``llama.decode_multi``, one forward per step, unless a row is seeded
+  and sampled: that batch decodes one step at a time, as in the JAX
+  package. Tokens past a row's stop are trimmed.
+- **Keys**: the JAX package's threefry discipline (``engine/prng.py``):
+  a step counter folded into ``PRNGKey(rng_seed)`` wherever the JAX
+  scheduler folds it, and seeded requests keyed by their own seed and
+  token position, so a seeded request draws from the same keys at any
+  batch slot and in both packages.
 
 Batch sizes and chunk lengths round up to the JAX package's buckets, which
 bound how many tensor shapes the model sees. The step loop runs in a
@@ -50,7 +57,10 @@ from dynamo_tpu_torch.engine.attention import megakernel
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.kv_cache import BlockAllocator, KvCacheArrays, KvEvent, OutOfBlocksError
 from dynamo_tpu_torch.engine.models import llama
-from dynamo_tpu_torch.engine.sampling import SamplingParams, pack_param_rows, sample_batch
+from dynamo_tpu_torch.engine import prng
+from dynamo_tpu_torch.engine.sampling import (
+    SamplingParams, make_row_keys, make_window_uniforms, pack_param_rows, sample_batch,
+)
 from dynamo_tpu_torch.llm.tokens import extend_block_hashes
 
 logger = logging.getLogger(__name__)
@@ -241,7 +251,9 @@ class Scheduler:
         self.timeouts_total = 0
         self._has_deadlines = False
         self._eos = eos_token_ids or []
-        self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
+        # Sampling keys: the step counter folded into this key (JAX's).
+        self._rng = prng.PRNGKey(rng_seed)
+        self._step_counter = 0
         # Model forward passes run (prefill chunks, decode and mixed steps),
         # all of them and by kind.
         self.forward_steps_total = 0
@@ -252,10 +264,12 @@ class Scheduler:
         self.mixed_steps_total = 0
         self.mixed_prefill_tokens_total = 0
         self.mixed_decode_tokens_total = 0
-        # Decode windows: fused (one kernel launch each), non-fused
-        # (decode_multi), and the forward steps inside non-fused windows.
-        # Windows are not in forward_steps_total.
+        # Decode windows: fused (one kernel launch each; those with a sampled
+        # row also counted apart), non-fused (decode_multi), and the forward
+        # steps inside non-fused windows. Windows are not in
+        # forward_steps_total.
         self.fused_windows_total = 0
+        self.fused_sampled_windows_total = 0
         self.multi_windows_total = 0
         self.window_steps_total = 0
         # Trim buckets to the model's max length.
@@ -612,10 +626,15 @@ class Scheduler:
         n = min(len(self.running), self.sc.decode_buckets[-1])
         batch = self.running[:n]
         bucket = next_bucket(n, self.sc.decode_buckets)
-        # Every batch may ride a window: the port's requests carry no per-row
-        # host extras yet (logprobs, penalties, logits processors, guided
-        # decoding), which the HTTP layer refuses.
-        if self.sc.num_scheduler_steps > 1 and self._decode_multi(batch, bucket, outputs):
+        # A batch rides a window unless a row needs the host between tokens.
+        # The port's requests carry no such extras yet (logprobs, penalties,
+        # logits processors, guided decoding: the HTTP layer refuses them);
+        # a seeded sampled row rides only the fused window, whose uniforms
+        # honour its seed (decode_multi threads one key for the batch).
+        window_ok = self._use_fused_window or not any(
+            s.sampling.seed is not None and s.sampling.temperature > 0 for s in batch
+        )
+        if self.sc.num_scheduler_steps > 1 and window_ok and self._decode_multi(batch, bucket, outputs):
             return outputs
         logits, _, _ = llama.decode(
             self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket)
@@ -664,12 +683,19 @@ class Scheduler:
                 except OutOfBlocksError:
                     return False
         args = (self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket))
-        if self._use_fused_window and all(seq.sampling.temperature <= 0 for seq in batch):
-            toks, _, _ = llama.decode_multi_fused(*args, num_steps=steps)
+        temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
+        if self._use_fused_window:
+            samp = {}
+            if any(s.sampling.temperature > 0 for s in batch):
+                # One [steps, bucket] uniforms upload per window.
+                uniforms = make_window_uniforms(self._next_key(), *self._seed_rows(batch, bucket), steps,
+                                                device=self.device)
+                samp = dict(temps=temps, top_ks=top_ks, top_ps=top_ps, uniforms=uniforms, sampled=True)
+                self.fused_sampled_windows_total += 1
+            toks, _, _ = llama.decode_multi_fused(*args, num_steps=steps, **samp)
             self.fused_windows_total += 1
         else:
-            temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
-            toks, _, _ = llama.decode_multi(*args, temps, top_ks, top_ps, self._gen, steps)
+            toks, _, _ = llama.decode_multi(*args, temps, top_ks, top_ps, self._next_key(), steps)
             self.multi_windows_total += 1
             self.window_steps_total += steps
         sampled = toks.cpu().numpy()  # the one host sync per window
@@ -686,8 +712,12 @@ class Scheduler:
         """Post-forward half of a decode step: sampling, then token
         append/stop handling, growing each row's block table. Shared by
         _decode_step and _mixed_step."""
+        key = self._next_key()
+        row_keys = None
+        if any(seq.sampling.seed is not None for seq in batch):
+            row_keys = make_row_keys(key, *self._seed_rows(batch, bucket))
         temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
-        sampled = sample_batch(logits, temps, top_ks, top_ps, self._gen)
+        sampled = sample_batch(logits, temps, top_ks, top_ps, key, row_keys)
         for i, seq in enumerate(batch):
             if seq.state != SeqState.RUNNING:
                 continue  # preempted while growing an earlier row this step
@@ -742,9 +772,33 @@ class Scheduler:
         logger.info("preempted %s (len %d) to free blocks", victim.request_id, victim.total_len)
         return True
 
+    def _next_key(self) -> np.ndarray:
+        """The next sampling call's key: the step counter, advanced, folded
+        into the scheduler's key."""
+        self._step_counter += 1
+        return prng.fold_in(self._rng, self._step_counter)
+
+    def _seed_rows(self, batch: List[Sequence], bucket: int) -> tuple:
+        """(seeds, token positions, has_seed) rows of a batch padded to
+        ``bucket``, for ``make_row_keys`` and ``make_window_uniforms``."""
+        seeds = np.zeros((bucket,), dtype=np.int32)
+        positions = np.zeros((bucket,), dtype=np.int32)
+        has_seed = np.zeros((bucket,), dtype=bool)
+        for i, seq in enumerate(batch):
+            if seq.sampling.seed is not None:
+                seeds[i] = seq.sampling.seed
+                positions[i] = len(seq.output_ids)
+                has_seed[i] = True
+        return seeds, positions, has_seed
+
     def _sample_one(self, seq: Sequence, logits: torch.Tensor) -> int:
+        """A first token: a seeded request draws from its seed folded with
+        its token position, others from the step's key."""
+        key = self._next_key()
+        if seq.sampling.seed is not None:
+            key = prng.fold_in(prng.PRNGKey(seq.sampling.seed), len(seq.output_ids))
         temps, top_ks, top_ps = pack_param_rows([seq.sampling], 1)
-        return int(sample_batch(logits[None, :], temps, top_ks, top_ps, self._gen)[0])
+        return int(sample_batch(logits[None, :], temps, top_ks, top_ps, key)[0])
 
     def _append_token(self, seq: Sequence, token: int, outputs: List[tuple]) -> None:
         seq.output_ids.append(token)

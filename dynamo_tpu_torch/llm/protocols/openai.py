@@ -31,8 +31,10 @@ _TENANT_RE = re.compile(r"^[A-Za-z0-9._:-]+$")
 # 400 instead of an answer that quietly ignores it.
 _UNSUPPORTED = (
     "logprobs", "top_logprobs", "tools", "tool_choice", "logit_bias",
-    "frequency_penalty", "presence_penalty", "seed", "response_format",
+    "frequency_penalty", "presence_penalty", "response_format",
 )
+# Seeds go into a 32-bit signed row of the scheduler's key table.
+SEED_MIN, SEED_MAX = -(2**31), 2**31 - 1
 
 
 def validate_tenant(value: Any, source: str = "user") -> str:
@@ -66,6 +68,11 @@ def _validate_common(body: dict) -> None:
     _require(tp is None or 0.0 < tp <= 1.0, "top_p must be in (0, 1]")
     tk = body.get("top_k")
     _require(tk is None or (isinstance(tk, int) and tk >= 0), "top_k must be a non-negative integer")
+    seed = body.get("seed")
+    _require(
+        seed is None or (isinstance(seed, int) and not isinstance(seed, bool) and SEED_MIN <= seed <= SEED_MAX),
+        f"seed must be an integer in [{SEED_MIN}, {SEED_MAX}]",
+    )
     mt = body.get("max_tokens") or body.get("max_completion_tokens")
     _require(mt is None or (isinstance(mt, int) and mt > 0), "max_tokens must be a positive integer")
     to = body.get("timeout")
@@ -113,7 +120,7 @@ def validate_completion_request(body: dict) -> dict:
 
 
 def sampling_from_request(body: dict) -> Dict[str, Any]:
-    return {k: body.get(k) for k in ("temperature", "top_p", "top_k") if body.get(k) is not None}
+    return {k: body.get(k) for k in ("temperature", "top_p", "top_k", "seed") if body.get(k) is not None}
 
 
 def stop_conditions_from_request(body: dict) -> Dict[str, Any]:

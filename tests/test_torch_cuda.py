@@ -344,3 +344,81 @@ def test_fused_window_profile_stamps(cuda):
             k, v, *ints, num_steps=WINDOW_STEPS, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, block_size=BS, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta,
             profile=prof[:-1])
+
+
+# (temperature, top_k, top_p) rows of the sampled checks, in turn: greedy,
+# k = 1, top-p off, k past the vocab, joint top-k/top-p, top-p alone, top-k
+# alone, a narrow nucleus.
+SAMPLE_MIX = [(0.0, 0, 1.0), (0.9, 1, 1.0), (0.8, 0, 1.0), (0.7, 1 << 20, 0.95), (1.3, 20, 0.9),
+              (0.8, 0, 0.9), (1.0, 50, 1.0), (0.6, 0, 0.5)]
+
+
+def _sample_rows(B, steps, dev, seed):
+    """(temps, top_ks, top_ps, uniforms [steps, B]) on ``dev``, row b from
+    ``SAMPLE_MIX[b % 8]``."""
+    rows = [SAMPLE_MIX[b % len(SAMPLE_MIX)] for b in range(B)]
+    u = np.random.default_rng(seed).random((steps, B), dtype=np.float32)
+    temps = torch.tensor([r[0] for r in rows], device=dev)
+    top_ks = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    top_ps = torch.tensor([r[2] for r in rows], device=dev)
+    return temps, top_ks, top_ps, torch.from_numpy(u).to(dev)
+
+
+def test_sample_epilogue_matches_plain_version(cuda):
+    """The window's sampled epilogue alone (``megakernel.sample_epilogue``)
+    against ``sampling.sample_from_uniforms`` on the same f32 logits [16,
+    4096], rows in ``SAMPLE_MIX``'s turn, the top-k rows with six values
+    tied at the k-th largest, 32 draws per row. Tokens are equal except
+    where u lies within 1e-5 of an edge of the plain version's CDF (the
+    two sum the probabilities in different orders, float32 rounding about
+    1e-7 here)."""
+    from dynamo_tpu_torch.engine.sampling import filtered_probs_rows, sample_from_uniforms
+
+    B, V = 16, 4096
+    rng = np.random.default_rng(5)
+    logits = (rng.standard_normal((B, V)) * np.repeat([1.0, 4.0], 8)[:, None]).astype(np.float32)
+    for b in range(B):
+        k = SAMPLE_MIX[b % 8][1]
+        if 1 < k < V:
+            order = np.argsort(-logits[b], kind="stable")
+            logits[b, order[k - 4:k + 2]] = logits[b, order[k - 1]]
+    logits = torch.from_numpy(logits).to(cuda)
+    temps, top_ks, top_ps, u = _sample_rows(B, 32, cuda, 6)
+    before = mk.EPILOGUE_KERNEL_LAUNCHES
+    for j in range(u.shape[0]):
+        got = mk.sample_epilogue(logits, temps, top_ks, top_ps, u[j])
+        want = sample_from_uniforms(logits, temps, top_ks, top_ps, u[j])
+        torch.cuda.synchronize()
+        assert bool(((got >= 0) & (got < V)).all())
+        rows = torch.nonzero(got != want).flatten().tolist()
+        if rows:
+            cum = filtered_probs_rows(logits[rows], temps[rows], top_ks[rows], top_ps[rows]).double().cumsum(-1)
+            for i, r in enumerate(rows):
+                edge = cum[i, min(int(got[r]), int(want[r]))].item()
+                assert abs(edge - u[j, r].item()) <= 1e-5, (j, r, int(got[r]), int(want[r]))
+    assert mk.EPILOGUE_KERNEL_LAUNCHES == before + u.shape[0]
+
+
+@pytest.mark.parametrize("name", list(WINDOW))
+def test_sampled_fused_window_matches_plain_version(cuda, name):
+    """The fused window with the sampled epilogue against its plain version
+    in f32, rows in ``SAMPLE_MIX``'s turn and one dead row: tokens equal,
+    written K/V within 1e-3 (another summation order), one launch counted
+    as sampled."""
+    cfg, p, k, v, tokens, positions, tables, active = _window(name, torch.float32, cuda)
+    lp = p["layers"]
+    weights = [p["embed"], p.get("lm_head"), p["final_norm"]] + [
+        lp[n] for n in ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+    kw = dict(num_steps=WINDOW_STEPS, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+              head_dim=cfg.head_dim, block_size=BS, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
+    samp = _sample_rows(len(tokens), WINDOW_STEPS, cuda, 7)
+    kk, vk, kr, vr = k.clone(), v.clone(), k.clone(), v.clone()
+    before = (mk.WINDOW_KERNEL_LAUNCHES, mk.WINDOW_SAMPLED_LAUNCHES)
+    toks = mk.fused_decode_window(*weights, kk, vk, tokens, positions, tables, active, *samp, **kw)
+    ref = mk.fused_decode_window_ref(*weights, kr, vr, tokens, positions, tables, active, *samp, **kw)
+    torch.cuda.synchronize()
+    assert (mk.WINDOW_KERNEL_LAUNCHES, mk.WINDOW_SAMPLED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    live = active.cpu()
+    assert torch.equal(toks[:, live].cpu(), ref[:, live].cpu())
+    torch.testing.assert_close(kk[:, 1:], kr[:, 1:], rtol=0, atol=1e-3)
+    torch.testing.assert_close(vk[:, 1:], vr[:, 1:], rtol=0, atol=1e-3)

@@ -12,7 +12,13 @@ crossing a block boundary inside the window, and one dead row.
 (b) the port's greedy ``decode_multi`` against the JAX ``decode_multi`` on
     each attention path;
 (c) the port's fused plain version against the port's ``decode_multi``;
-(d) the ``fused_window_fits`` gate.
+(d) the ``fused_window_fits`` gate;
+(e) the sampled epilogue: the port's ``decode_multi_fused(sampled=True)``
+    against the JAX one, and the port's ``decode_multi`` with a threefry
+    key and with ``uniforms=`` against the JAX ``decode_multi``, with rows
+    on the filter edges of the JAX fused-window sampling test (greedy,
+    k = 1, p = 1, k > vocab, joint top-k/top-p) and the same uniforms
+    (``make_window_uniforms``, bit-equal across the packages).
 
 Tokens of live rows must be equal, and the written K/V (excluding scratch
 block 0, which dead rows write) within the JAX fused-window test's 2e-4.
@@ -27,6 +33,9 @@ import torch
 from dynamo_tpu.engine.config import get_config as jax_config
 from dynamo_tpu.engine.kv_cache import KvCacheArrays as JaxCache
 from dynamo_tpu.engine.models import llama as jllama
+from dynamo_tpu.engine.sampling import make_window_uniforms as jax_window_uniforms
+from dynamo_tpu_torch.engine import prng
+from dynamo_tpu_torch.engine import sampling as tsampling
 from dynamo_tpu_torch.engine.attention import megakernel as tmk
 from dynamo_tpu_torch.engine.config import get_config
 from dynamo_tpu_torch.engine.models import llama as tllama
@@ -127,10 +136,91 @@ def test_fused_plain_version_matches_decode_multi(tied):
 def test_unported_options_raise():
     _, tp, _, tcfg, k, v, w = _setup()
     tk, tv = _port_cache(k, v)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        tllama.decode_multi_fused(tp, tcfg, tk, tv, *_port_args(w), num_steps=2, sampled=True)
+    with pytest.raises(NotImplementedError, match="guided"):
+        tllama.decode_multi_fused(tp, tcfg, tk, tv, *_port_args(w), num_steps=2, guided=True)
     with pytest.raises(NotImplementedError, match="return_logits"):
         tllama.decode_multi(tp, tcfg, tk, tv, *_port_args(w), *GREEDY, None, 2, return_logits=True)
+    with pytest.raises(ValueError, match="temps"):
+        tmk.fused_decode_window(*_window_weights(tp), tk, tv, *_port_args(w), uniforms=torch.zeros(2, len(ROWS)),
+                                **_window_kw(tcfg, 2))
+
+
+def _window_weights(tp):
+    lp = tp["layers"]
+    return [tp["embed"], tp.get("lm_head"), tp["final_norm"]] + [
+        lp[n] for n in ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+
+
+def _window_kw(tcfg, steps):
+    return dict(num_steps=steps, num_heads=tcfg.num_heads, num_kv_heads=tcfg.num_kv_heads,
+                head_dim=tcfg.head_dim, block_size=tcfg.block_size, rms_eps=tcfg.rms_norm_eps,
+                theta=tcfg.rope_theta)
+
+
+# (temperature, top_k, top_p) filter edges, as in the JAX fused-window
+# sampling test: greedy, k = 1, p = 1 (top-p off), k > vocab, joint k/p.
+EDGES = [(0.0, 0, 1.0), (0.9, 1, 1.0), (0.8, 0, 1.0), (0.7, 999, 0.95), (1.3, 20, 0.9)]
+
+
+def _sampled_rows(shift, seed=11):
+    """(temps, top_ks, top_ps) over the rows from edge ``shift`` on, and
+    the window's uniforms from ``make_window_uniforms`` (row 0 seeded)."""
+    rows = [EDGES[(shift + i) % len(EDGES)] for i in range(len(ROWS))]
+    params = tuple(np.array([r[j] for r in rows], dt) for j, dt in enumerate((np.float32, np.int32, np.float32)))
+    B = len(ROWS)
+    seed_rows = (np.array([77] + [0] * (B - 1), np.int32), np.full(B, 5, np.int32), np.arange(B) == 0)
+    base = prng.fold_in(prng.PRNGKey(seed), shift)
+    uniforms = tsampling.make_window_uniforms(base, *seed_rows, STEPS)
+    np.testing.assert_array_equal(
+        uniforms.numpy(), np.asarray(jax_window_uniforms(jnp.asarray(base), *map(jnp.asarray, seed_rows), STEPS)))
+    return params, uniforms
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_sampled_fused_window_matches_jax(tied, shift):
+    """Tokens of live rows equal, written K/V within 2e-4, one window and
+    no ragged call on the port's side."""
+    jp, tp, jcfg, tcfg, k, v, w = _setup(tied=tied)
+    (temps, top_ks, top_ps), uniforms = _sampled_rows(shift)
+    want = jllama.decode_multi_fused(
+        jp, jcfg, k, v, *(jnp.asarray(w[n]) for n in ("tokens", "positions", "tables", "active")),
+        num_steps=STEPS, temps=jnp.asarray(temps), top_ks=jnp.asarray(top_ks), top_ps=jnp.asarray(top_ps),
+        uniforms=jnp.asarray(uniforms.numpy()), sampled=True,
+    )
+    tk, tv = _port_cache(k, v)
+    ref0, mk0 = tmk.WINDOW_REF_CALLS, tmk.REF_CALLS
+    got = tllama.decode_multi_fused(tp, tcfg, tk, tv, *_port_args(w), num_steps=STEPS, temps=temps,
+                                    top_ks=top_ks, top_ps=top_ps, uniforms=uniforms, sampled=True)
+    assert tmk.WINDOW_REF_CALLS == ref0 + 1 and tmk.REF_CALLS == mk0
+    _check(*got, *want)
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+def test_sampled_decode_multi_matches_jax(shift):
+    """``decode_multi`` with a threefry key (each step splits it and draws
+    ``categorical``) and with ``uniforms=`` (each step picks through
+    ``sample_from_uniforms``): tokens equal to the JAX ``decode_multi``'s,
+    K/V within 2e-4; with the uniforms, equal to the port's fused plain
+    version too."""
+    jp, tp, jcfg, tcfg, k, v, w = _setup()
+    (temps, top_ks, top_ps), uniforms = _sampled_rows(shift)
+    key = prng.fold_in(prng.PRNGKey(5), shift)
+    jw = [jnp.asarray(w[n]) for n in ("tokens", "positions", "tables", "active")]
+    jrows = [jnp.asarray(x) for x in (temps, top_ks, top_ps)]
+    for unif in (None, uniforms):
+        want = jax.jit(lambda p, k, v: jllama.decode_multi(
+            p, jcfg, k, v, *jw, *jrows, jnp.asarray(key), STEPS,
+            uniforms=None if unif is None else jnp.asarray(unif.numpy()),
+        ))(jp, k, v)
+        tk, tv = _port_cache(k, v)
+        got = tllama.decode_multi(tp, tcfg, tk, tv, *_port_args(w), temps, top_ks, top_ps, key, STEPS,
+                                  uniforms=unif)
+        _check(*got, *want)
+    fk, fv = _port_cache(k, v)
+    fused = tllama.decode_multi_fused(tp, tcfg, fk, fv, *_port_args(w), num_steps=STEPS, temps=temps,
+                                      top_ks=top_ks, top_ps=top_ps, uniforms=uniforms, sampled=True)
+    _check(*fused, got[0].numpy(), got[1].numpy(), got[2].numpy())
 
 
 def test_fused_window_fits():

@@ -1,6 +1,8 @@
 """The port's sampling against the JAX package's: the same logits and
 uniforms give the same filtered distribution (within 1e-6) and the same
-tokens (bit-equal), and greedy rows take the argmax."""
+tokens (bit-equal); the same logits and threefry key give the same drawn
+tokens as JAX ``sample_batch`` (bit-equal), with one key for the batch or
+per-row keys; greedy rows take the argmax."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -8,6 +10,7 @@ import pytest
 import torch
 
 from dynamo_tpu.engine import sampling as jsampling
+from dynamo_tpu_torch.engine import prng
 from dynamo_tpu_torch.engine import sampling as tsampling
 
 
@@ -55,24 +58,42 @@ def test_pack_param_rows_matches_jax():
         np.testing.assert_array_equal(a, b)
 
 
+def _jax_sample(logits, temps, top_ks, top_ps, key, row_keys=None):
+    rk = None if row_keys is None else jnp.asarray(row_keys)
+    return np.asarray(jsampling.sample_batch(*_j(logits, temps, top_ks, top_ps), jnp.asarray(key), rk))
+
+
 def test_sample_batch_greedy_rows_take_argmax():
+    """Greedy rows take the argmax in a batch that also draws, and an
+    all-greedy batch draws nothing; both as JAX ``sample_batch`` does."""
     logits, temps, top_ks, top_ps, _ = _rows(7)
-    gen = torch.Generator().manual_seed(0)
-    out = tsampling.sample_batch(torch.from_numpy(logits), temps, top_ks, top_ps, gen)
+    key = prng.PRNGKey(0)
+    out = tsampling.sample_batch(torch.from_numpy(logits), temps, top_ks, top_ps, key)
     greedy = temps == 0
     np.testing.assert_array_equal(out[greedy], logits[greedy].argmax(-1))
     assert out[0] == 17  # ties break to the first index, as jnp.argmax does
     assert out.dtype == np.int32 and out.shape == (len(temps),)
+    np.testing.assert_array_equal(out, _jax_sample(logits, temps, top_ks, top_ps, key))
+    zeros = np.zeros_like(temps)
+    out = tsampling.sample_batch(torch.from_numpy(logits), zeros, top_ks, top_ps, None)  # no key needed
+    np.testing.assert_array_equal(out, logits.argmax(-1))
 
 
-def test_sample_batch_draws_from_the_generator():
-    """Sampled rows replay under the same generator seed, and their tokens
-    lie inside each row's top-k/top-p support."""
-    logits, temps, top_ks, top_ps, _ = _rows(8)
-    draws = [
-        tsampling.sample_batch(torch.from_numpy(logits), temps, top_ks, top_ps, torch.Generator().manual_seed(3))
-        for _ in range(2)
-    ]
+@pytest.mark.parametrize("seed", range(6))
+def test_sample_batch_draws_from_the_generator(seed):
+    """The draw is JAX ``sample_batch``'s, token for token, from the same
+    threefry key (one key for the [B, V] draw) and from per-row keys (each
+    row its own draw), and replays under the same key; every drawn token
+    lies inside its row's top-k/top-p support."""
+    logits, temps, top_ks, top_ps, _ = _rows(8 + seed)
+    key = prng.fold_in(prng.PRNGKey(seed), 3)
+    t = torch.from_numpy(logits)
+    draws = [tsampling.sample_batch(t, temps, top_ks, top_ps, key) for _ in range(2)]
     np.testing.assert_array_equal(draws[0], draws[1])
+    np.testing.assert_array_equal(draws[0], _jax_sample(logits, temps, top_ks, top_ps, key))
+    row_keys = tsampling.make_row_keys(key, np.arange(len(temps), dtype=np.int32) * 7,
+                                       np.arange(len(temps), dtype=np.int32), np.arange(len(temps)) % 2 == 0)
+    got = tsampling.sample_batch(t, temps, top_ks, top_ps, key, row_keys)
+    np.testing.assert_array_equal(got, _jax_sample(logits, temps, top_ks, top_ps, key, row_keys))
     probs = tsampling.filtered_probs_rows(*_t(logits, temps, top_ks, top_ps)).numpy()
-    assert all(probs[i, t] > 0 for i, t in enumerate(draws[0]))
+    assert all(probs[i, tok] > 0 for d in (draws[0], got) for i, tok in enumerate(d))

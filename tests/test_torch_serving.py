@@ -8,14 +8,18 @@
    a shared prefix that hits the prefix cache, and a pool small enough to
    force a preemption. Greedy token streams, finish reasons and cached
    tokens must be identical. With 8-step decode windows both schedulers
-   replay a greedy trace through their fused windows, token for token; on
-   the port alone, a sampled row sends its batch to ``decode_multi``, a
-   stop inside a window trims the tokens after it, and every block comes
-   back to the allocator.
+   replay a greedy trace through their fused windows, token for token, and
+   a trace with a greedy, an unseeded sampled and a seeded top-k/top-p
+   request through their fused sampled windows (threefry keys in both);
+   on the port alone, a sampled row rides the fused window beside greedy
+   rows, off the fused path it sends its batch to ``decode_multi`` (a
+   seeded one to single steps), a stop inside a window trims the tokens
+   after it, and every block comes back to the allocator.
 2. HTTP: the port's server on port 0 (``tiny``, f32, CPU) answers chat
    (JSON and SSE) and completion requests with the text the JAX
    ``build_local_pipeline(ByteTokenizer(), TpuEngine)`` produces for the
-   same body and weights.
+   same body and weights; a sampled request with a ``seed`` gets the same
+   answer twice, and the fields not ported yet are still refused.
 3. Isolation: every module of ``dynamo_tpu_torch`` imports with ``jax``
    blocked and loads nothing of the JAX package, and no port file or
    ``chip_smoke.py`` names either in an import.
@@ -92,17 +96,18 @@ def _trace():
     ]
 
 
-def _replay(sched, mod, sampling_cls, trace=None, temps=None, stops=None):
+def _replay(sched, mod, sampling_cls, trace=None, temps=None, stops=None, samplings=None):
     """Replay ``trace`` (default ``_trace()``), greedy unless ``temps``
-    gives a request its temperature; ``stops`` gives a request stop token
-    ids."""
+    gives a request its temperature or ``samplings`` its sampling options;
+    ``stops`` gives a request stop token ids."""
     trace = trace or _trace()
-    temps, stops = temps or {}, stops or {}
+    temps, stops, samplings = temps or {}, stops or {}, samplings or {}
     outs = {}
     for step in range(400):
         for at, rid, prompt, max_tokens in trace:
             if at == step:
-                sched.add_request(rid, prompt, sampling_cls(temperature=temps.get(rid, 0.0)),
+                opts = samplings.get(rid, {"temperature": temps.get(rid, 0.0)})
+                sched.add_request(rid, prompt, sampling_cls(**opts),
                                   mod.StopConditions(max_tokens=max_tokens, stop_token_ids=stops.get(rid, [])))
         if step > trace[-1][0] and not sched.has_work():
             break
@@ -190,6 +195,45 @@ def test_window_scheduler_matches_jax(weights):
     assert got == want
     assert t.fused_windows_total == j.flight.fused_windows_total > 0
     assert t.multi_windows_total == t.window_steps_total == 0
+    assert t.fused_sampled_windows_total == j.flight.fused_sampled_windows_total == 0
+
+
+# (request id → sampling options) of the sampled window trace: A greedy, B
+# unseeded at T = 0.8, C seeded with top-k and top-p.
+SAMPLED = {"A": {"temperature": 0.0}, "B": {"temperature": 0.8},
+           "C": {"temperature": 1.1, "top_k": 20, "top_p": 0.9, "seed": 1234}}
+
+
+def _sampled_trace():
+    """(arrival step, request id, prompt, max_tokens), at most 20 tokens
+    each; C arrives while A and B decode, rides mixed steps and draws its
+    first token from its seed."""
+    rng = np.random.default_rng(2)
+    return [
+        (0, "A", rng.integers(1, 255, size=20).tolist(), 20),
+        (1, "B", rng.integers(1, 255, size=9).tolist(), 14),
+        (4, "C", rng.integers(1, 255, size=40).tolist(), 18),
+    ]
+
+
+def test_sampled_window_scheduler_matches_jax(weights):
+    """Greedy, unseeded-sampled and seeded-sampled requests through both
+    schedulers' fused windows (megakernel, 8-step windows): the same token
+    streams, the same count of fused and fused sampled windows. Both draw
+    first tokens and mixed steps from threefry keys off one step counter,
+    and each sampled window from ``make_window_uniforms``."""
+    jp, tp = weights
+    j = jsched.Scheduler(JCFG.replace(attention_impl="megakernel"), jp,
+                         jsched.SchedulerConfig(enable_overlap_decode=False, **WINDOWS),
+                         dtype=jnp.float32, eos_token_ids=[0])
+    j._supports_chunk_admit = False
+    t = _port_scheduler(tp)
+    want = _replay(j, jsched, JaxSampling, _sampled_trace(), samplings=SAMPLED)
+    got = _replay(t, tsched, SamplingParams, _sampled_trace(), samplings=SAMPLED)
+    assert got == want
+    assert t.fused_sampled_windows_total == j.flight.fused_sampled_windows_total > 0
+    assert t.fused_windows_total == j.flight.fused_windows_total
+    assert t.multi_windows_total == 0 and t._step_counter == j._step_counter
 
 
 def test_windows_trim_route_sampled_batches_and_free_blocks(weights):
@@ -206,14 +250,32 @@ def test_windows_trim_route_sampled_batches_and_free_blocks(weights):
     assert {rid: got[rid] for rid in "BC"} == {rid: single[rid] for rid in "BC"}
     assert t.fused_windows_total > 0 and t.multi_windows_total == 0
     assert t.allocator.num_free == free0
-    # A sampled row sends its whole batch to decode_multi; the greedy rows
-    # beside it keep their tokens.
+    # A sampled row rides the fused window with the greedy rows beside it,
+    # which keep their tokens.
     t = _port_scheduler(tp)
     got = _replay(t, tsched, SamplingParams, _window_trace(), temps={"C": 0.8})
     assert {rid: got[rid] for rid in "AB"} == {rid: single[rid] for rid in "AB"}
     assert len(got["C"]["tokens"]) == 19 or got["C"]["finish"] == ["stop"]
-    assert t.multi_windows_total > 0 and t.window_steps_total == 8 * t.multi_windows_total
+    assert 0 < t.fused_sampled_windows_total < t.fused_windows_total
+    assert t.multi_windows_total == t.window_steps_total == 0
     assert t.allocator.num_free == free0
+    # Off the fused path (per-piece attention) a sampled row sends its batch
+    # to decode_multi; a seeded sampled row sends it to single steps, whose
+    # per-row keys honour the seed.
+    paged = TCFG.replace(attention_impl="paged")
+    t = tsched.Scheduler(paged, tp, tsched.SchedulerConfig(**WINDOWS), dtype=torch.float32, device="cpu",
+                         eos_token_ids=[0])
+    assert not t._use_fused_window
+    _replay(t, tsched, SamplingParams, _window_trace(), temps={"C": 0.8})
+    assert t.multi_windows_total > 0 and t.window_steps_total == 8 * t.multi_windows_total
+    seeded = {"C": {"temperature": 0.8, "seed": 7}}
+    t = tsched.Scheduler(paged, tp, tsched.SchedulerConfig(**WINDOWS), dtype=torch.float32, device="cpu",
+                         eos_token_ids=[0])
+    got = _replay(t, tsched, SamplingParams, _window_trace(), samplings=seeded)
+    t1 = tsched.Scheduler(paged, tp, tsched.SchedulerConfig(**{**WINDOWS, "num_scheduler_steps": 1}),
+                          dtype=torch.float32, device="cpu", eos_token_ids=[0])
+    assert got["C"] == _replay(t1, tsched, SamplingParams, _window_trace(), samplings=seeded)["C"]
+    assert t.multi_windows_total > 0 and t.decode_steps_total > 0 and t.allocator.num_free == free0
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +419,56 @@ def test_http_server_matches_jax_pipeline(weights):
     assert status == 504 and json.loads(raw)["usage"]["completion_tokens"] < 50
     assert (misc["wrong_method"], misc["no_route"], misc["invalid_json"], misc["chunked"], misc["malformed"]) == (
         405, 404, 400, 411, 400)
+
+
+async def _seeded_answers(tp):
+    """A seeded sampled request answered twice by the port's server on its
+    defaults (decode windows, the fused window's plain version on the
+    CPU): alone, then in the second batch slot, beside a request that was
+    already decoding when it arrived; then fields that must be refused."""
+    tok = ByteTokenizer()
+    engine = TorchEngine.build(
+        EngineArgs(model="tiny", dtype="float32", device="cpu", eos_token_ids=tok.eos_token_ids,
+                   scheduler=tsched.SchedulerConfig(num_blocks=64, **BUCKETS)),
+        params=tp,
+    )
+    service = HttpService({"tiny": build_local_pipeline(tok, engine)}, host="127.0.0.1", port=0)
+    body = {"model": "tiny", "prompt": "a seeded draw", "max_tokens": 12, "temperature": 0.9, "top_p": 0.95,
+            "seed": 31337}
+    other = {"model": "tiny", "prompt": "a neighbour", "max_tokens": 150, "temperature": 0.0,
+             "nvext": {"ignore_eos": True}}
+    sched = engine.scheduler
+    await service.start()
+    try:
+        first = await asyncio.to_thread(_post, service.port, "/v1/completions", body)
+        neighbour = asyncio.ensure_future(asyncio.to_thread(_post, service.port, "/v1/completions", other))
+        while not any(s.output_ids for s in sched.running):
+            await asyncio.sleep(0.001)
+        second = await asyncio.to_thread(_post, service.port, "/v1/completions", body)
+        slots = sched.fused_sampled_windows_total
+        neighbour = await neighbour
+        refused = {
+            name: await asyncio.to_thread(_post, service.port, "/v1/completions", {**body, **extra})
+            for name, extra in (("frequency_penalty", {"frequency_penalty": 0.5}), ("big_seed", {"seed": 2**31}),
+                                ("bool_seed", {"seed": True}), ("float_seed", {"seed": 1.5}))
+        }
+    finally:
+        await service.stop()
+        await engine.stop()
+    return first, second, neighbour, refused, slots
+
+
+def test_http_seed_is_honoured_and_unported_fields_refused(weights):
+    _, tp = weights
+    first, second, neighbour, refused, sampled_windows = asyncio.run(_seeded_answers(tp))
+    assert first[0] == second[0] == neighbour[0] == 200
+    body = {"stream": False}
+    assert _text_of("/v1/completions", body, first[1]) == _text_of("/v1/completions", body, second[1])
+    assert json.loads(neighbour[1])["usage"]["completion_tokens"] == 150  # still decoding beside it
+    assert sampled_windows > 0  # the seeded rows rode fused sampled windows
+    for name, (status, raw) in refused.items():
+        assert status == 400, name
+    assert b"frequency_penalty" in refused["frequency_penalty"][1] and b"seed" in refused["big_seed"][1]
 
 
 def test_stop_string_jail_matches_jax():
