@@ -6,21 +6,26 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 ``dynamo_tpu_torch/csrc`` with nvcc, holds each kernel against its plain
 PyTorch version at the shapes the serving path gives it (and times the
 launch-overhead probe), among them the fused decode window's sampled
-epilogue, alone on given logits and inside the window; runs the
+epilogue, alone on given logits and inside the window, and the fused spec
+window (llama-3.2-1b over a perturbed copy of itself and llama-3.2-3b over
+a llama-3.2-1b draft in f32, both pairs timed in bf16); runs the
 full-width llama-3.2-1b model on the kernel paths against the plain
-paths and the fused window, greedy and sampled, against
-``decode_multi``; times a decode step, a mixed step, the per-step
-threefry draw and a 32-step decode window, greedy and sampled; then
-serves ``dynamo_tpu_torch.run in=http out=llama-3.2-1b`` three times: on
-the megakernel path and on the per-piece path (``attention_impl="paged",
-prefill_impl="flash"``), both at one decode step per iteration, and with
-the defaults (32-step decode windows, every window fused, sampled rows
-drawn in the kernel), sending each concurrent requests and counting
-every kernel's launches; the last pass also sends one seeded sampled
-request at two batch slots and holds its two answers equal. Every phase
-prints JSON lines; any failure raises and exits non-zero. The last line
-is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2
-and prints no result.
+paths, the fused window, greedy and sampled, against ``decode_multi``,
+and the spec window speculating with the target's own weights against
+the fused window's greedy stream; times a decode step, a mixed step, the
+per-step threefry draw and a 32-step decode window, greedy and sampled,
+and a spec window; then serves ``dynamo_tpu_torch.run in=http
+out=llama-3.2-1b`` four times: on the megakernel path and on the
+per-piece path (``attention_impl="paged", prefill_impl="flash"``), both
+at one decode step per iteration, with the defaults (32-step decode
+windows, every window fused, sampled rows drawn in the kernel), and with
+a llama-3.2-1b draft of the target's weights (``--draft-model``: every
+batch speculates in fused spec windows), sending each concurrent
+requests and counting every kernel's launches; the last two passes also
+send one seeded sampled request at two batch slots and hold its two
+answers equal. Every phase prints JSON lines; any failure raises and
+exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits 2 and prints no result.
 
 ``--phases`` runs a subset of kernel,model,breakdown,serve (env and build
 always run) for iteration; the full run is the default.
@@ -50,6 +55,7 @@ TPU_KERNEL = {
     "paged_decode_partials": "dynamo_tpu/engine/attention/decode.py:65",  # :173
     "fused_decode_window": "dynamo_tpu/engine/attention/megakernel.py:358",  # :619
     "fused_decode_window_sampled": "dynamo_tpu/engine/attention/megakernel.py:509",  # the sampled branch
+    "fused_spec_window": "dynamo_tpu/engine/attention/megakernel.py:807",  # :1034
     "nop": "bench.py:142",  # :145
 }
 PRESET = "llama-3.2-1b"
@@ -80,6 +86,7 @@ def kernel_counters():
             "fused_decode_window": (megakernel, "WINDOW_KERNEL_LAUNCHES", "WINDOW_REF_CALLS"),
             "fused_decode_window_sampled": (megakernel, "WINDOW_SAMPLED_LAUNCHES", "WINDOW_SAMPLED_REF_CALLS"),
             "sample_epilogue": (megakernel, "EPILOGUE_KERNEL_LAUNCHES", "EPILOGUE_REF_CALLS"),
+            "fused_spec_window": (megakernel, "SPEC_KERNEL_LAUNCHES", "SPEC_REF_CALLS"),
             "nop": (bench, "KERNEL_LAUNCHES", "REF_CALLS")}
 
 
@@ -570,12 +577,15 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
                  (vk[:, sel].float() - vr[:, sel].float()).abs().max().item())
     scale = max(kr[:, sel].float().abs().max().item(), vr[:, sel].float().abs().max().item())
     step0_equal = bool(torch.equal(tl[0], rl[0]))
+    step0_gaps = step0_gap_check(case, k0, v0) if dtype != torch.float32 and not samp else None
     if dtype == torch.float32:
         tol = 1e-3
         ok = bool(torch.equal(tl, rl)) and kv_err <= tol
     else:
         tol = 2**-5 * scale
         ok = (step0_equal or not hold_tokens) and kv_err <= tol
+        if step0_gaps is not None:  # step 0 held wherever the plain top-2 gap exceeds rounding
+            ok = ok and step0_gaps["ok"]
     ok = ok and untouched
     cfg = case["cfg"]
     res = {"kernel": "fused_decode_window", "case": case["name"], "dtype": str(dtype).replace("torch.", ""),
@@ -587,6 +597,8 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
            "token_agreement": agree, "step0_tokens_equal": step0_equal, "max_abs_err": kv_err,
            "kv_scale": scale, "tol": tol, "kv_compared": "written rows" if dtype == torch.float32 else "step-0 rows",
            "other_slots_unchanged": untouched, "ok": ok}
+    if step0_gaps is not None:
+        res["step0_gaps"] = step0_gaps
     if samp:
         res["rows"] = [SAMPLE_MIX[b % len(SAMPLE_MIX)] for b in range(len(live))]
         res["logit_spread"] = case["spread"]
@@ -610,6 +622,49 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
     if not ok:
         raise AssertionError(f"fused_decode_window disagrees with its plain version: {res}")
     return res
+
+
+# A bf16 greedy window's step-0 argmax may differ from the plain version's
+# only where the plain version's top-2 logits lie within this many times the
+# row's bf16 logit noise: the largest distance of the plain bf16 logits from
+# the f32 truth (the same forward over f32 copies of the weights and cache).
+# Each side moves each of the two logits by at most its noise, the kernel's
+# taken as no larger than the plain version's (the spec check measures that
+# for the shared device code), so a flip needs a gap of at most 4 noises.
+STEP0_GAP_NOISES = 4
+
+
+def step0_gap_check(case, k0, v0) -> dict:
+    """Where the kernel's step-0 tokens may differ: the plain version's
+    step-0 logits (``megakernel._cache_forward`` on a copy of the cache
+    before the window) in bf16 and over f32 copies of the same weights and
+    cache, each live row's top-2 gap, its bf16 noise (the largest |bf16 −
+    f32| logit) and its bound, ``STEP0_GAP_NOISES`` noises. Every row whose
+    gap exceeds its bound must pick the same token on both sides."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    w, ints, kw = case["weights"], case["ints"], case["kw"]
+    tokens, positions, tables, active = ints
+    k_, v_ = k0.clone(), v0.clone()
+    toks = mk.fused_decode_window(*w, k_, v_, *ints, **{**kw, "num_steps": 1})
+    args = (tokens.long(), positions.long(), tables.long(), active.bool())
+    fkw = dict(num_heads=kw["num_heads"], rms_eps=kw["rms_eps"], theta=kw["theta"])
+    logits = mk._cache_forward(tuple(w), k0.clone(), v0.clone(), *args, **fkw)
+    w32 = tuple(x.float() if x is not None else None for x in w)
+    truth = mk._cache_forward(w32, k0.float(), v0.float(), *args, **fkw)
+    noise = (logits - truth).abs().amax(dim=-1).cpu()
+    del w32, truth
+    top = logits.topk(2, dim=-1)
+    gap = (top.values[:, 0] - top.values[:, 1]).cpu()
+    bound_ = STEP0_GAP_NOISES * noise
+    plain, kern = top.indices[:, 0].cpu(), toks[0].long().cpu()
+    rows = torch.nonzero(active.cpu()).flatten().tolist()
+    held = [b for b in rows if gap[b] > bound_[b]]
+    differ = [{"row": b, "kernel": int(kern[b]), "plain": int(plain[b]), "top2_gap": float(gap[b]),
+               "bound": float(bound_[b]), "within_rounding": bool(gap[b] <= bound_[b])}
+              for b in rows if kern[b] != plain[b]]
+    return {"noises": STEP0_GAP_NOISES, "bf16_logit_noise": [float(noise[b]) for b in rows], "rows_held": held,
+            "differ": differ, "gaps": [float(gap[b]) for b in rows], "ok": all(d["within_rounding"] for d in differ)}
 
 
 def stamp_phases(weights, k, v, ints, samp, kw, L) -> dict:
@@ -810,6 +865,361 @@ def check_epilogue(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The fused spec window against its plain version
+# ---------------------------------------------------------------------------
+
+SPEC_ROUNDS, SPEC_GAMMA = 6, 4
+TARGET_3B = "llama-3.2-3b"
+# Positions of the spec checks' live rows (the last confirmed token; the
+# draft's catch-up re-feeds the one before, so each is at least 1).
+SPEC_RAGGED = [1, 13, 100, 255, 511, 700, 1023]
+# A kernel decision that differs from the plain version's counts as rounding
+# when the plain version's own margin is this small: a uniform within
+# DRAW_GAP_TOL of a CDF edge or of min(1, p_t/p_d), or a greedy pick whose
+# top-2 logits lie within this (f32 logits of the full-width model at
+# LOGIT_SPREAD agree to ~1e-4 between the card's and the plain version's
+# summation orders).
+SPEC_ARGMAX_GAP_TOL = 2e-3
+# A bf16 spec window's K/V check: the kernel's first verify rows may lie at
+# most this many times as far from the f32 truth (one target forward over
+# f32 copies of the same weights and caches) as the plain bf16 version's
+# do; a fault must read beyond it. Readings in PERF.md §6.
+SPEC_BF16_NOISE_RATIO = 2.0
+
+
+def spec_case(name, dev, dtype, seed, *, tcfg, dcfg, positions, dead, draft, sampled, spread=LOGIT_SPREAD):
+    """One spec window's inputs: seeded random target weights (final norm
+    times ``spread``) and a draft that is the target itself (``draft`` =
+    "same": self-speculation), the target plus 0.002 × seeded noise
+    ("perturbed"; some proposals accepted, some not) or its own seeded
+    weights at ``dcfg``'s widths ("own"). The draft's cache is a copy of the
+    target's when the widths agree (the draft sees the same history), else
+    random K/V of its own; block 0 of each is scratch filled with 1e4.
+    Rows at ``positions`` over pages drawn at random that cover the
+    window, ``dead`` padding rows, greedy or in ``SAMPLE_MIX``'s turn."""
+    from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.engine.weights import init_params
+
+    R, G = SPEC_ROUNDS, SPEC_GAMMA
+    BS = tcfg.block_size
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    B = len(positions) + dead
+    need = [(p + R * (G + 1) + 1) // BS + 1 for p in positions]
+    W = max(need) + 2
+    NB = sum(need) + 1
+    ids = (torch.randperm(NB - 1, generator=g) + 1).to(torch.int32)
+    tables = torch.zeros((B, W), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    tp = init_params(tcfg, gd, device=dev, dtype=dtype)
+    tp["final_norm"].mul_(spread)
+    if draft == "same":
+        dp = tp
+    elif draft == "perturbed":
+        dp = {n: ({k: v + (0.002 * torch.randn(v.shape, generator=gd, device=dev)).to(dtype) for k, v in w.items()}
+                  if isinstance(w, dict) else w + (0.002 * torch.randn(w.shape, generator=gd, device=dev)).to(dtype))
+              for n, w in tp.items()}
+    else:
+        dp = init_params(dcfg, gd, device=dev, dtype=dtype)
+        dp["final_norm"].mul_(spread)
+
+    def cache(cfg):
+        c = [torch.randn((cfg.num_layers, NB, BS, cfg.num_kv_heads, cfg.head_dim), generator=gd,
+                         device=dev).to(dtype) for _ in range(2)]
+        for x in c:
+            x[:, 0] = 1e4
+        return c
+
+    caches = cache(tcfg)
+    ints = [torch.randint(1, tcfg.vocab_size, (B,), generator=g, dtype=torch.int32),
+            torch.randint(1, tcfg.vocab_size, (B,), generator=g, dtype=torch.int32),
+            torch.tensor(list(positions) + [1] * dead, dtype=torch.int32), tables, tables,
+            torch.tensor([True] * len(positions) + [False] * dead)]
+    ints = [t.to(dev) for t in ints]
+    if draft != "own":
+        # The draft shares the target's history: the slot at pos - 1 holds
+        # xprev's K/V (as serving leaves it), so the catch-up rewrites it
+        # with the same values, and the draft's cache is a copy.
+        from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+        mk._cache_forward(llama._window_weights(tp), *caches, ints[1].long(), ints[2].long() - 1, ints[3].long(),
+                          ints[5].bool(), num_heads=tcfg.num_heads, rms_eps=tcfg.rms_norm_eps, theta=tcfg.rope_theta,
+                          head=False)
+        caches += [c.clone() for c in caches]
+    else:
+        caches += cache(dcfg)
+    samp = sample_rows(B, 1, dev, seed)[:3] if sampled else (
+        torch.zeros(B, device=dev), torch.zeros(B, dtype=torch.int32, device=dev), torch.ones(B, device=dev))
+    u = torch.from_numpy(np.random.default_rng(seed).random((R, B, 2 * G + 1), dtype=np.float32)).to(dev)
+    inputs = ints + [*samp, u]
+    kw = dict(rounds=R, gamma=G, block_size=BS, t_num_heads=tcfg.num_heads, t_num_kv_heads=tcfg.num_kv_heads,
+              t_head_dim=tcfg.head_dim, t_rms_eps=tcfg.rms_norm_eps, t_theta=tcfg.rope_theta,
+              d_num_heads=dcfg.num_heads, d_num_kv_heads=dcfg.num_kv_heads, d_head_dim=dcfg.head_dim,
+              d_rms_eps=dcfg.rms_norm_eps, d_theta=dcfg.rope_theta)
+    return {"name": name, "tcfg": tcfg, "dcfg": dcfg, "weights": [*llama._window_weights(tp), *llama._window_weights(dp)],
+            "caches": caches, "inputs": inputs, "kw": kw, "dtype": dtype, "positions": list(positions),
+            "draft": draft, "sampled": sampled, "spread": spread, "tparams": tp}
+
+
+def spec_written(case, acc):
+    """[blocks, BS] masks of the slots the window wrote in the target cache
+    and in the draft's, from the kernel's accept counts [R, B]: round r
+    writes the target at pos_r .. pos_r + γ and the draft at pos_r - 1 ..
+    pos_r + γ - 1; pos advances by k + 1."""
+    G, BS = SPEC_GAMMA, case["tcfg"].block_size
+    tables = case["inputs"][3].cpu()
+    shape = case["caches"][0].shape[1:3]
+    t_w, d_w = torch.zeros(shape, dtype=torch.bool), torch.zeros(shape, dtype=torch.bool)
+    for b, p in enumerate(case["positions"]):
+        for r in range(acc.shape[0]):
+            for j in range(G + 1):
+                t_w[int(tables[b, (p + j) // BS]), (p + j) % BS] = True
+                d_w[int(tables[b, (p + j - 1) // BS]), (p + j - 1) % BS] = True
+            p += int(acc[r, b]) + 1
+    return t_w, d_w
+
+
+def spec_work(case, confirmed_per_row):
+    """(bytes, streamed bytes, flops) of one spec window. Bytes: every input
+    read once and every output written once (both models' weights, a tensor
+    the two share counted once, each live row's K/V before the window in
+    both caches, the rows the window writes, tables, rows, uniforms, tokens
+    out). Streamed: per round the
+    draft's weights γ+1 times less its head once (the catch-up skips it),
+    the target's once, and the pages each forward reads (the draft's γ+1
+    forwards, the target's chunk once). Flops: two per weight and live row
+    of each forward (the verify's B·(γ+1) rows), four per attended key, head
+    and dim."""
+    R, G = SPEC_ROUNDS, SPEC_GAMMA
+    tc, dc = case["tcfg"], case["dcfg"]
+    esz = case["caches"][0].element_size()
+    w_t, w_d = case["weights"][:12], case["weights"][12:]
+
+    def sizes(w):
+        head = (w[1] if w[1] is not None else w[0]).numel()
+        body = sum(x.numel() for x in w[2:])
+        return body + head, head, sum(x.numel() for x in w[2:] if x.dim() == 3) + head
+
+    t_all, _, t_mm = sizes(w_t)
+    d_all, d_head, d_mm = sizes(w_d)
+    distinct = {x.data_ptr(): x.numel() for x in w_t + w_d if x is not None}  # self-speculation shares them
+    rows = len(case["positions"])
+    row_t = 2 * tc.num_layers * tc.num_kv_heads * tc.head_dim * esz
+    row_d = 2 * dc.num_layers * dc.num_kv_heads * dc.head_dim * esz
+    ctx = sum(case["positions"])
+    written = rows * R * (G + 1)
+    B = len(case["inputs"][0])
+    small = case["inputs"][3].numel() * 4 * 2 + B * 4 * 9 + case["inputs"][9].numel() * 4 + R * B * (G + 2) * 4
+    nbytes = sum(distinct.values()) * esz + (row_t + row_d) * (ctx + written) + small
+    per_round_ctx = ctx + rows * (R * (G + 1)) / 2  # the rows' mean context over the window
+    streamed = R * (((G + 1) * d_all - d_head + t_all) * esz + (G + 1) * per_round_ctx * (row_d + row_t)) + small
+    keys_t = R * (G + 1) * per_round_ctx
+    keys_d = R * (G + 1) * per_round_ctx
+    flops = (2 * R * rows * ((G + 1) * d_mm - d_head + (G + 1) * t_mm)
+             + 4 * (tc.num_heads * tc.head_dim * tc.num_layers * keys_t + dc.num_heads * dc.head_dim * dc.num_layers * keys_d))
+    return nbytes, streamed, flops
+
+
+def spec_bf16_noise(case, sel, kern, plain) -> dict:
+    """How far the target K/V of round 0's first verify rows (``sel``) lie
+    from the f32 truth, one target forward of each row's last token over
+    f32 copies of the bf16 weights and caches (``megakernel._cache_forward``):
+    for the kernel, for the plain bf16 version, and for a faulty bf16
+    forward whose target weights carry 0.002 × seeded noise (about a tenth
+    of each weight: what a kernel that misreads its weights would give)."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    tc, w = case["tcfg"], case["weights"][:12]
+    tokens, _, positions, tables, _, active = case["inputs"][:6]
+    args = (tokens.long(), positions.long(), tables.long(), active.bool())
+    fkw = dict(num_heads=tc.num_heads, rms_eps=tc.rms_norm_eps, theta=tc.rope_theta, head=False)
+
+    def first_rows(weights, dtype):
+        k, v = (c.to(dtype=dtype, copy=True) for c in case["caches"][:2])
+        mk._cache_forward(tuple(weights), k, v, *args, **fkw)
+        return k[:, sel].float(), v[:, sel].float()
+
+    truth = first_rows([x.float() if x is not None else None for x in w], torch.float32)
+
+    def dist(kv):
+        return max((a - b).abs().max().item() for a, b in zip(kv, truth))
+
+    g = torch.Generator(device=w[0].device).manual_seed(470)
+    faulty = [x + (0.002 * torch.randn(x.shape, generator=g, device=x.device)).to(x.dtype) if x is not None else None
+              for x in w]
+    return {"kernel_vs_f32": dist((kern[0][:, sel].float(), kern[1][:, sel].float())),
+            "plain_vs_f32": dist((plain[0][:, sel].float(), plain[1][:, sel].float())),
+            "fault_vs_f32": dist(first_rows(faulty, case["dtype"]))}
+
+
+def check_spec(case, *, time_it: bool, hold_tokens: bool = True, bonus: bool = False):
+    """``fused_spec_window`` against its plain version on the card from
+    copies of the same caches. Each live row's rounds are compared until
+    the first round that differs; a difference is rounding when the plain
+    version's margin at that round is within tolerance (``margins``:
+    a draw or accept test within DRAW_GAP_TOL of its edge, a greedy pick's
+    top-2 logits within SPEC_ARGMAX_GAP_TOL), each printed. f32: the
+    target's confirmed K/V rows (through the last round that agrees) within
+    1e-3; bf16: round 0's first verify row (the row's own last token, the
+    same input on both sides) no further from the f32 truth than
+    ``SPEC_BF16_NOISE_RATIO`` times the plain bf16 version's distance, and
+    a faulty forward beyond that (``spec_bf16_noise``), tokens printed, not
+    held. In both, every slot outside the window's writes (block 0 aside)
+    is left as it was in both caches. With ``bonus``, some live sampled
+    row accepted all γ proposals in a round that agrees with the plain
+    version (its token drawn from the target's last distribution).
+    Timed: ms per window and round, the
+    phases per round from the kernel's stamps, tokens confirmed per row,
+    ms per confirmed token beside the fused decode window's ms per step at
+    the same target and rows, the bound read once and streamed."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    w, caches, inputs, kw, dtype = case["weights"], case["caches"], case["inputs"], case["kw"], case["dtype"]
+    R, G = SPEC_ROUNDS, SPEC_GAMMA
+    kern = [c.clone() for c in caches]
+    plain = [c.clone() for c in caches]
+    toks, acc = mk.fused_spec_window(*w, *kern, *inputs, **kw)
+    margins = {}
+    rtoks, racc = mk.fused_spec_window_ref(*w, *plain, *inputs, **kw, margins=margins)
+    torch.cuda.synchronize()
+    toks, acc, rtoks, racc = (x.cpu() for x in (toks, acc, rtoks, racc))
+    m = {k: v.cpu() for k, v in margins.items()}
+    live = inputs[5].cpu()
+    diffs, agree, n_cmp = [], 0, 0
+    upto, bonus_rounds = {}, []
+    temps = inputs[6].cpu()
+    for b in range(len(case["positions"])):
+        r_div = R
+        for r in range(R):
+            same = int(acc[r, b]) == int(racc[r, b]) and torch.equal(toks[r, b], rtoks[r, b])
+            n_cmp += 1
+            agree += same
+            if not same:
+                r_div = r
+                edge = {k: float(m[k][r, b]) for k in m}
+                within = (min(edge["draw"], edge["accept"]) <= DRAW_GAP_TOL or edge["argmax"] <= SPEC_ARGMAX_GAP_TOL)
+                diffs.append({"row": b, "round": r, "kernel": [int(acc[r, b])] + toks[r, b].tolist(),
+                              "plain": [int(racc[r, b])] + rtoks[r, b].tolist(), "margins": edge,
+                              "within_rounding": within})
+                break
+        upto[b] = sum(int(acc[r, b]) + 1 for r in range(r_div))
+        if temps[b] > 0:
+            bonus_rounds += [[b, r] for r in range(r_div) if int(acc[r, b]) == G]
+    tokens_ok = all(d["within_rounding"] for d in diffs)
+    # Confirmed target K/V (f32) or round 0's first verify row (bf16).
+    BS = case["tcfg"].block_size
+    tables = inputs[3].cpu()
+    sel = torch.zeros(caches[0].shape[1:3], dtype=torch.bool)
+    for b, p in enumerate(case["positions"]):
+        for j in range(upto[b] if dtype == torch.float32 else 1):
+            sel[int(tables[b, (p + j) // BS]), (p + j) % BS] = True
+    sel = sel.to(caches[0].device)
+    kv_err = max((kern[i][:, sel].float() - plain[i][:, sel].float()).abs().max().item() for i in (0, 1))
+    scale = max(plain[i][:, sel].float().abs().max().item() for i in (0, 1))
+    noise = None
+    if dtype == torch.float32:
+        tol, noise_ok = 1e-3, True
+    else:
+        noise = spec_bf16_noise(case, sel, kern, plain)
+        limit = SPEC_BF16_NOISE_RATIO * noise["plain_vs_f32"]
+        noise_ok = noise["kernel_vs_f32"] <= limit < noise["fault_vs_f32"]
+        tol = (1 + SPEC_BF16_NOISE_RATIO) * noise["plain_vs_f32"]  # what that allows kernel vs plain
+    t_w, d_w = spec_written(case, acc)
+    untouched = True
+    for i, written in ((0, t_w), (1, t_w), (2, d_w), (3, d_w)):
+        keep = ~written.to(caches[i].device)
+        keep[0] = False
+        untouched &= bool(torch.equal(kern[i][:, keep], caches[i][:, keep]))
+    ok = kv_err <= tol and noise_ok and untouched and (tokens_ok or not hold_tokens) and (bool(bonus_rounds) or not bonus)
+    confirmed = (acc[:, live] + 1).sum(0).float()  # tokens confirmed per live row in the window
+    tc, dc = case["tcfg"], case["dcfg"]
+    res = {"kernel": "fused_spec_window", "case": case["name"], "dtype": str(dtype).replace("torch.", ""),
+           "target": tc.name, "draft": f"{dc.name} ({case['draft']})",
+           "rows": "SAMPLE_MIX" if case["sampled"] else "greedy", "logit_spread": case["spread"],
+           "shape": {"B": len(live), "live": int(live.sum()), "rounds": R, "gamma": G, "positions": case["positions"],
+                     "W": tables.shape[1], "target": [tc.num_layers, tc.hidden_size, tc.num_heads, tc.num_kv_heads,
+                                                       tc.head_dim, tc.intermediate_size],
+                     "draft": [dc.num_layers, dc.hidden_size, dc.num_heads, dc.num_kv_heads, dc.head_dim,
+                               dc.intermediate_size], "V": tc.vocab_size},
+           "accepted_per_round": float(confirmed.mean() / R), "accepted_kernel": acc[:, live].tolist(),
+           "round_agreement": agree / max(n_cmp, 1), "differ": diffs, "tokens_ok": tokens_ok,
+           "max_abs_err": kv_err, "kv_scale": scale, "tol": tol,
+           "kv_compared": "confirmed target rows" if dtype == torch.float32 else "round 0's first verify row",
+           "other_slots_unchanged": untouched, "ok": ok}
+    if noise is not None:
+        res["bf16_noise"] = {**noise, "ratio": SPEC_BF16_NOISE_RATIO}
+    if bonus:
+        res["bonus_rounds"] = bonus_rounds
+    if time_it:
+        nbytes, streamed, flops = spec_work(case, confirmed)
+        res.update(bound(nbytes, flops, dtype))
+        res["streamed_bytes"] = streamed
+        res["streamed_bound_ms"] = bound(streamed, flops, dtype)["bound_ms"]
+        res["bound_ms_at_0.79_TB_s"] = streamed / 0.79e12 * 1e3
+        res["kernel_ms"] = cuda_ms(lambda: mk.fused_spec_window(*w, *kern, *inputs, **kw), iters=5, warmup=1)
+        res["kernel_ms_per_round"] = res["kernel_ms"] / R
+        res["ref_ms"] = cuda_ms(lambda: mk.fused_spec_window_ref(*w, *plain, *inputs, **kw), iters=2, warmup=1)
+        res["library_ms"] = None  # no PyTorch call computes a speculative round
+        res["confirmed_tokens_per_row"] = float(confirmed.mean())
+        res["ms_per_confirmed_token"] = res["kernel_ms"] / float(confirmed.mean())
+        prof = torch.zeros(mk.spec_profile_len(R, G), dtype=torch.int64, device=caches[0].device)
+        mk.fused_spec_window(*w, *kern, *inputs, **kw, profile=prof)
+        d = np.diff(prof.cpu().numpy().astype(np.float64)).reshape(R, G + 3).mean(axis=0) / 1e6
+        res["phases_ms_per_round"] = {"catchup": float(d[0]), "proposals": [float(x) for x in d[1:1 + G]],
+                                      "verify": float(d[1 + G]), "rejection": float(d[2 + G])}
+        # The fused decode window at the same target and rows: one target
+        # one-token forward per step, the verify's yardstick.
+        wkw = dict(num_steps=32, num_heads=tc.num_heads, num_kv_heads=tc.num_kv_heads, head_dim=tc.head_dim,
+                   block_size=BS, rms_eps=tc.rms_norm_eps, theta=tc.rope_theta)
+        win = (inputs[0], inputs[2], inputs[3], inputs[5])
+        res["window_ms_per_step"] = cuda_ms(lambda: mk.fused_decode_window(*w[:12], kern[0], kern[1], *win, **wkw),
+                                            iters=3, warmup=1) / 32
+        res["verify_over_window_step"] = res["phases_ms_per_round"]["verify"] / res["window_ms_per_step"]
+    emit("kernel", **res)
+    if not ok:
+        raise AssertionError(f"fused_spec_window disagrees with its plain version: {res}")
+    return res
+
+
+def phase_spec_kernel(dev):
+    """The fused spec window, R = 6 rounds of γ = 4: f32 at full widths,
+    llama-3.2-1b over a perturbed copy of itself, over itself (every
+    proposal accepted: sampled rows draw the bonus) and llama-3.2-3b over a
+    llama-3.2-1b draft, 8 rows at ragged positions (one dead) in
+    ``SAMPLE_MIX``'s turn at ``LOGIT_SPREAD``; then timed in bf16, 8 greedy
+    rows at 1024 tokens of context: llama-3.2-1b speculating with its own
+    weights, and llama-3.2-3b over a llama-3.2-1b draft."""
+    from dynamo_tpu_torch.engine.config import get_config
+
+    one, three = get_config(PRESET), get_config(TARGET_3B)
+    specs = [("1b/1b perturbed", one, one, "perturbed"), ("3b/1b", three, one, "own"),
+             ("1b/1b self", one, one, "same")]
+    for i, (name, tcfg, dcfg, draft) in enumerate(specs):
+        res = check_spec(spec_case(name, dev, torch.float32, 450 + i, tcfg=tcfg, dcfg=dcfg, positions=SPEC_RAGGED,
+                                   dead=1, draft=draft, sampled=True), time_it=False, bonus=draft == "same")
+        if i == 0:
+            f32 = res
+        torch.cuda.empty_cache()
+    timed = {}
+    for i, (name, tcfg, draft) in enumerate((("1b/1b self", one, "same"), ("3b/1b", three, "own"))):
+        case = spec_case(name, dev, torch.bfloat16, 460 + i, tcfg=tcfg, dcfg=one, positions=[1024] * 8, dead=0,
+                         draft=draft, sampled=False, spread=1.0)
+        timed[name] = check_spec(case, time_it=True, hold_tokens=False)
+        del case
+        torch.cuda.empty_cache()
+    res = dict(timed["1b/1b self"])
+    res["max_abs_err"] = f32["max_abs_err"]  # the f32 check's; bf16's is against its own scale
+    res["f32_check"] = {k: f32[k] for k in ("case", "max_abs_err", "tol", "differ", "accepted_per_round")}
+    res["3b_1b"] = {k: timed["3b/1b"][k] for k in (
+        "kernel_ms", "kernel_ms_per_round", "ref_ms", "bound_ms", "streamed_bound_ms", "confirmed_tokens_per_row",
+        "ms_per_confirmed_token", "window_ms_per_step", "phases_ms_per_round", "verify_over_window_step")}
+    return res
+
+
 def phase_kernel(dev):
     """Every kernel at the shapes the serving paths give it, and at the
     ragged edges, in bf16 and f32; the probe. Returns, per kernel, the
@@ -877,6 +1287,7 @@ def phase_kernel(dev):
     timed["fused_decode_window"] = phase_window_kernel(dev)
     timed["sample_epilogue"] = check_epilogue(dev)
     timed["fused_decode_window_sampled"] = phase_window_sampled(dev)
+    timed["fused_spec_window"] = phase_spec_kernel(dev)
     return timed
 
 
@@ -1064,6 +1475,67 @@ def phase_model_window(dev):
         raise AssertionError(f"the fused window disagrees with decode_multi over the ragged kernel: {failed}")
     del case, params
     torch.cuda.empty_cache()
+    phase_model_spec(dev)
+
+
+def phase_model_spec(dev):
+    """llama-3.2-1b at full width in f32 on the card, speculating with its
+    own weights (``llama.decode_spec_fused``, R = 6 rounds of γ = 4, one
+    launch) from copies of one cache (the draft's a copy of the target's):
+    every live row's confirmed stream must equal the greedy stream of
+    ``decode_multi_fused`` from the same cache over the same span; at a
+    position where they differ the plain version's top-2 logit gap of that
+    round is printed."""
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    base = get_config(PRESET)
+    R, G = SPEC_ROUNDS, SPEC_GAMMA
+    case = spec_case("llama-3.2-1b self", dev, torch.float32, 470, tcfg=base, dcfg=base, positions=SPEC_RAGGED,
+                     dead=1, draft="same", sampled=False, spread=1.0)
+    params, caches, inputs = case["tparams"], case["caches"], case["inputs"]
+    tokens, xprev, positions, tables, _, active, temps, top_ks, top_ps, u = inputs
+    live = active.cpu()
+    sc = [c.clone() for c in caches]
+    reset_counts()
+    toks, acc, *_ = llama.decode_spec_fused(params, base, params, base, *sc, tokens, xprev, positions, tables, tables,
+                                            active, temps, top_ks, top_ps, u, rounds=R, gamma=G)
+    spec_counts = read_counts()
+    fk, fv = caches[0].clone(), caches[1].clone()
+    window, _, _ = llama.decode_multi_fused(params, base, fk, fv, tokens, positions, tables, active,
+                                            num_steps=R * (G + 1))
+    margins = {}
+    mk.fused_spec_window_ref(*case["weights"], *[c.clone() for c in caches], *inputs, **case["kw"], margins=margins)
+    torch.cuda.synchronize()
+    toks, acc, window = toks.cpu(), acc.cpu(), window.cpu()
+    differ, equal = [], True
+    for b in range(len(case["positions"])):
+        stream, rounds_of = [], []
+        for r in range(R):
+            k = int(acc[r, b])
+            stream += toks[r, b, :k].tolist() + [int(toks[r, b, G])]
+            rounds_of += [r] * (k + 1)
+        want = window[:len(stream), b].tolist()
+        for j, (x, y) in enumerate(zip(stream, want)):
+            if x != y:
+                equal = False
+                differ.append({"row": b, "position": j, "spec": x, "window": y, "round": rounds_of[j],
+                               "plain_top2_gap": float(margins["argmax"][rounds_of[j], b])})
+                break
+    launches = {n: c["launches"] for n, c in spec_counts.items() if c["launches"]}
+    plain = sum(c["plain_calls"] for c in spec_counts.values())
+    accepted = acc[:, live]
+    ok = equal and launches == {"fused_spec_window": 1} and not plain
+    res = dict(preset=PRESET, path="decode_spec_fused (self-speculation) vs decode_multi_fused", dtype="float32",
+               rows=len(live), live=int(live.sum()), rounds=R, gamma=G, streams_equal=equal, differ=differ,
+               accepted_per_round=float((accepted + 1).float().mean()), accepted=accepted.tolist(),
+               kernel_launches=launches, plain_calls_on_card=plain, ok=ok)
+    emit("model", **res)
+    if not ok:
+        raise AssertionError(f"the fused spec window's stream differs from the fused window's: {res}")
+    del case, params, caches, sc
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1180,6 +1652,29 @@ def window_breakdown(params, cfg, cache, d_args, steps):
         phases = stamp_phases(weights, cache.k, cache.v, d_args, sa, kw, cfg.num_layers)
         rows[name]["profiled_ms_per_step"] = phases.pop("stamped_ms_per_step")
         rows[name]["phases_ms_per_step"] = phases
+    # The spec window over the same rows: the model speculating with its own
+    # weights (greedy), the draft's cache a copy of the target's after the
+    # slot at pos - 1 holds xprev's K/V, as serving leaves it.
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    R, G = SPEC_ROUNDS, SPEC_GAMMA
+    tokens, positions, tables, active = d_args
+    mk._cache_forward(tuple(weights), cache.k, cache.v, tokens.long(), positions.long() - 1, tables.long(),
+                      active.bool(), num_heads=cfg.num_heads, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta,
+                      head=False)
+    dk, dv = cache.k.clone(), cache.v.clone()
+    unif = torch.full((R, B, 2 * G + 1), 0.5, device=cache.k.device)
+    fn = lambda: llama.decode_spec_fused(params, cfg, params, cfg, cache.k, cache.v, dk, dv, tokens, tokens,  # noqa: E731
+                                         positions, tables, tables, active, *greedy, unif, rounds=R, gamma=G)
+    window_ms = cuda_ms(fn, iters=5, warmup=1)
+    busy, n_ops = device_busy_ms(fn, runs=1)
+    toks, acc, *_ = fn()
+    confirmed = float((acc + 1).sum(0).float().mean())
+    rows["spec_window"] = {"rounds": R, "gamma": G, "window_ms": window_ms, "ms_per_round": window_ms / R,
+                           "confirmed_tokens_per_row": confirmed, "ms_per_confirmed_token": window_ms / confirmed,
+                           "host_enqueue_ms": host_enqueue_ms(fn, iters=3), "device_busy_ms": busy,
+                           "device_idle_share": 1 - busy / window_ms, "device_ops": n_ops}
+    del dk, dv
     return rows
 
 
@@ -1350,7 +1845,10 @@ def _summarize(status, data, stream):
     return usage["completion_tokens"], finish, cached
 
 
-SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows")
+SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows", "spec")
+# The spec pass's scheduler counters: fused spec windows, the tokens they
+# emitted, and the draft's prefill chunks.
+SPEC_COUNTERS = ("spec_fused_windows_total", "spec_fused_accepted_tokens_total", "draft_prefill_steps_total")
 # The windows pass's seeded request: its prompt is shorter than one KV block.
 SEEDED = {"prompt": "seeded draw", "max_tokens": 24, "temperature": 0.8, "seed": 4242}
 
@@ -1369,15 +1867,28 @@ def phase_serve(card: str, path: str):
     sampled row), no other kernel and no plain version at all. In the
     windows pass every window must be fused, the sampled request's among
     them; then one seeded T = 0.8 request is sent twice, at batch slots 5
-    and 6 behind greedy neighbours, and its two answers must be equal."""
+    and 6 behind greedy neighbours, and its two answers must be equal.
+    "spec" is the windows pass with a llama-3.2-1b draft of the target's
+    own weights (``--draft-model``, γ = 4, ``build_service(draft_params=)``):
+    every batch speculates through the fused spec window (one launch per
+    spec window; the draft's prefill chunks launch the ragged kernel too),
+    except the seeded request's, which fall back to fused windows."""
     from dynamo_tpu_torch import run
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+    from dynamo_tpu_torch.engine.spec_decode import SpecDecodeStats
+    from dynamo_tpu_torch.engine.weights import init_params
 
     model_config = get_config(PRESET).replace(**PER_PIECE) if path == "paged+flash" else None
-    windows = path == "megakernel+windows"
+    spec = path == "spec"
+    windows = path in ("megakernel+windows", "spec")
     scheduler_config = None if windows else SchedulerConfig(num_scheduler_steps=1)
-    args = run.parse_args(["in=http", f"out={PRESET}", "--http-host", "127.0.0.1", "--http-port", "0"])
+    draft = ["--draft-model", PRESET, "--spec-gamma", str(SPEC_GAMMA)] if spec else []
+    args = run.parse_args(["in=http", f"out={PRESET}", "--http-host", "127.0.0.1", "--http-port", "0", *draft])
+    # Self-speculation: the draft gets the weights the engine makes for the
+    # target from the same seed.
+    draft_params = init_params(get_config(PRESET), torch.Generator(device=args.device).manual_seed(args.seed),
+                               device=torch.device(args.device), dtype=getattr(torch, args.dtype)) if spec else None
     rng = np.random.default_rng(11)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
     text = lambda n: "".join(rng.choice(letters, size=n))  # noqa: E731
@@ -1399,13 +1910,16 @@ def phase_serve(card: str, path: str):
         body.update(model=PRESET, max_tokens=64)
 
     async def serve():
-        service, engine = run.build_service(args, model_config=model_config, scheduler_config=scheduler_config)
+        service, engine = run.build_service(args, model_config=model_config, scheduler_config=scheduler_config,
+                                            draft_params=draft_params)
         sched = engine.scheduler
+        if spec and not torch.equal(sched.draft_params["embed"], sched.params["embed"]):
+            raise AssertionError("the spec pass's draft does not hold the target's weights")
         await service.start()
         try:
             kinds = ("forward", "prefill", "decode", "mixed")
             steps0 = {k: getattr(sched, f"{k}_steps_total") for k in kinds}
-            steps0.update({k: getattr(sched, k) for k in WINDOW_COUNTERS})
+            steps0.update({k: getattr(sched, k) for k in WINDOW_COUNTERS + SPEC_COUNTERS})
             reset_counts()  # counts from zero, just before the main path runs
             t0 = time.perf_counter()
             results = await asyncio.gather(
@@ -1414,17 +1928,19 @@ def phase_serve(card: str, path: str):
             wall = time.perf_counter() - t0
             repeat = await asyncio.to_thread(_request, service.port, *reqs[0])
             burst_forward = sched.forward_steps_total - steps0["forward"]
+            fused0 = sched.fused_windows_total
             seeded = [await seeded_round(service.port, sched, n) for n in (5, 6)] if windows else []
+            seeded_windows = sched.fused_windows_total - fused0
             counts = read_counts()
             steps = {k: getattr(sched, f"{k}_steps_total") - steps0[k] for k in kinds}
-            steps.update({k: getattr(sched, k) - steps0[k] for k in WINDOW_COUNTERS})
+            steps.update({k: getattr(sched, k) - steps0[k] for k in WINDOW_COUNTERS + SPEC_COUNTERS})
             metrics = engine.metrics().to_wire()
             impl = sched.config_snapshot()["model"]["attention_impl"]
         finally:
             await service.stop()
             await engine.stop()
         return (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, sched.mc, impl,
-                sched.sc.num_scheduler_steps)
+                sched.sc.num_scheduler_steps, seeded_windows)
 
     async def seeded_round(port, sched, n):
         """``n`` greedy neighbours decoding (no EOS stop, longer than the
@@ -1445,7 +1961,8 @@ def phase_serve(card: str, path: str):
             _summarize(status, data, False)
         return slot, answer
 
-    results, wall, repeat, seeded, burst_forward, counts, steps, metrics, mc, impl, sched_steps = asyncio.run(serve())
+    (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, mc, impl, sched_steps,
+     seeded_windows) = asyncio.run(serve())
     answers = []
     for (url, body), (status, data, first, total) in zip(reqs, results):
         n, finish, cached = _summarize(status, data, body.get("stream", False))
@@ -1460,9 +1977,13 @@ def phase_serve(card: str, path: str):
     if path == "megakernel":
         expected = {"ragged_paged_attention": L * steps["forward"]}
     elif windows:
-        expected = {"ragged_paged_attention": L * (steps["forward"] + steps["window_steps_total"]),
+        # The draft (llama-3.2-1b: the same layer count) prefills through the ragged kernel too.
+        expected = {"ragged_paged_attention": L * (steps["forward"] + steps["window_steps_total"]
+                                                   + steps["draft_prefill_steps_total"]),
                     "fused_decode_window": steps["fused_windows_total"],
                     "fused_decode_window_sampled": steps["fused_sampled_windows_total"]}
+        if spec:
+            expected["fused_spec_window"] = steps["spec_fused_windows_total"]
     else:
         expected = {"flash_chunk_attention": L * (steps["prefill"] + steps["mixed"]),
                     "paged_decode_partials": L * (steps["decode"] + steps["mixed"])}
@@ -1484,8 +2005,15 @@ def phase_serve(card: str, path: str):
     if windows:
         texts = [(a[1]["choices"][0]["text"], a[1]["usage"]["completion_tokens"]) for _, a in seeded]
         res["seeded"] = {"request": SEEDED, "slots": [slot for slot, _ in seeded], "answers": texts,
-                         "identical": texts[0] == texts[1]}
+                         "identical": texts[0] == texts[1], "non_spec_windows": seeded_windows}
+    if spec:
+        res["spec_decode"] = metrics["spec_decode"]
+        res["accepted_per_round"] = metrics["spec_decode"]["accepted_per_round"]
     emit("serve", **res)
+    if spec and (not steps["spec_fused_windows_total"] or not seeded_windows
+                 or set(metrics["spec_decode"]) != set(SpecDecodeStats().to_dict())):
+        raise AssertionError(f"the spec pass ran no spec window, or the seeded request did not fall back, or "
+                             f"its stats lack keys: {steps}, {seeded_windows}, {metrics['spec_decode']}")
     if not cached_rep:
         raise AssertionError("the repeated prompt did not hit the prefix cache")
     if steps["forward"] == 0 or any(expected[name] == 0 for name in expected):
@@ -1517,13 +2045,14 @@ def kernels_line(timed: dict, served: dict) -> list:
     # path, and per forward step that reaches it; the fused window's (and
     # its sampled branch's) over the windows pass, and per such window; the
     # probe's, over the probe's run.
-    mega, piece, win = (served[p] for p in SERVE_PASSES)
+    mega, piece, win, spec = (served[p] for p in SERVE_PASSES)
     launches = {
         "ragged_paged_attention": mega["kernel_launches"]["ragged_paged_attention"],
         "flash_chunk_attention": piece["kernel_launches"]["flash_chunk_attention"],
         "paged_decode_partials": piece["kernel_launches"]["paged_decode_partials"],
         "fused_decode_window": win["kernel_launches"]["fused_decode_window"],
         "fused_decode_window_sampled": win["kernel_launches"]["fused_decode_window_sampled"],
+        "fused_spec_window": spec["kernel_launches"]["fused_spec_window"],
         "nop": timed["nop"]["probe_launches"],
     }
     reached = {
@@ -1532,10 +2061,11 @@ def kernels_line(timed: dict, served: dict) -> list:
         "paged_decode_partials": (piece["steps"]["decode"] + piece["steps"]["mixed"], "step"),
         "fused_decode_window": (win["steps"]["fused_windows_total"], "window"),
         "fused_decode_window_sampled": (win["steps"]["fused_sampled_windows_total"], "window with a sampled row"),
+        "fused_spec_window": (spec["steps"]["spec_fused_windows_total"], "spec window"),
     }
     kernels = []
     for name in ("ragged_paged_attention", "flash_chunk_attention", "paged_decode_partials", "fused_decode_window",
-                 "fused_decode_window_sampled", "nop"):
+                 "fused_decode_window_sampled", "fused_spec_window", "nop"):
         t = timed[name]
         src = "fused_decode_window" if name == "fused_decode_window_sampled" else name
         entry = {
@@ -1559,6 +2089,10 @@ def kernels_line(timed: dict, served: dict) -> list:
             entry["greedy_ms"] = t["greedy_kernel_ms"]
             entry["epilogue_alone"] = {k: e[k] for k in ("case", "draws", "differ", "max_gap", "kernel_ms", "ref_ms",
                                                          "bound_ms", "bound_by", "passes_bound_ms", "library_ms")}
+        if name == "fused_spec_window":
+            entry.update({k: t[k] for k in ("case", "kernel_ms_per_round", "streamed_bound_ms", "confirmed_tokens_per_row",
+                                             "ms_per_confirmed_token", "window_ms_per_step", "phases_ms_per_round")})
+            entry["3b_1b"] = t["3b_1b"]
         kernels.append(entry)
     return kernels
 

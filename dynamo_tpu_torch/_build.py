@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into ``build/dynamo_tpu_torch/lib<name>-<digest>.so`` beside the package
 (``build/`` is git-ignored), loaded with ``ctypes``. The digest covers the
-source and the flags, so an edited source rebuilds and a built one is
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and a built one is
 reused. Nothing here runs at import time: a kernel's wrapper calls
 ``load`` when it first launches on a CUDA tensor, and ``build`` compiles
 all sources at once, one ``nvcc`` process each, started together.
@@ -18,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -48,7 +50,8 @@ def sources() -> list:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # what the sources include
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -70,14 +73,22 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in running.items():
+
+    def finish(name):  # one thread per process, so each build's seconds are its own
+        proc, _, _, t0 = running[name]
         log, _ = proc.communicate()
+        return log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(running))) as pool:
+        finished = dict(zip(running, pool.map(finish, running)))
+    failed = []
+    for name, (proc, tmp, out, _) in running.items():
+        log, seconds = finished[name]
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-        results[name] = {"path": str(out), "seconds": time.perf_counter() - t0, "log": log}
+        results[name] = {"path": str(out), "seconds": seconds, "log": log}
     if failed:
         raise RuntimeError("\n".join(failed))
     return results

@@ -88,976 +88,17 @@
 // wgmma, TMA weight streaming, split-K for the narrow GEMVs and split-KV for
 // long contexts are later work.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "fused_window_device.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 16;        // output columns (vocab rows, tied head) per GEMV tile
-constexpr int kXFloats = 32768;  // staged GEMV input per chunk: B * KC floats (128 KB)
-constexpr int kKeys = 64;        // keys per staged attention tile
-constexpr int kMaxNV = 8;        // 16-byte K (and V) vectors per thread per tile: HD 128 in f32
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// Loads of data written inside this kernel: through L2, coherent across SMs.
-__device__ __forceinline__ float ld_scratch(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ld_scratch(const __nv_bfloat16* p) {
-  const unsigned short raw = __ldcg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(((unsigned)raw) << 16);
-}
-
-// N 32-bit words of T -> floats (bf16: the low half is the first element).
-template <typename T, int N>
-__device__ __forceinline__ void unpack(const unsigned* w, float* out) {
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = __uint_as_float(w[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      out[2 * i] = __uint_as_float(w[i] << 16);
-      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-}
-
-// VEC consecutive weights (4, 8 or 16 bytes, aligned) -> floats, read-only path.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_w(const T* p, float* out) {
-  constexpr int kBytes = VEC * (int)sizeof(T);
-  if constexpr (kBytes == 16) {
-    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-    const unsigned w[4] = {r.x, r.y, r.z, r.w};
-    unpack<T, 4>(w, out);
-  } else if constexpr (kBytes == 8) {
-    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-    const unsigned w[2] = {r.x, r.y};
-    unpack<T, 2>(w, out);
-  } else {
-    static_assert(kBytes == 4, "weight vectors are 4, 8 or 16 bytes");
-    const unsigned w[1] = {__ldg(reinterpret_cast<const unsigned*>(p))};
-    unpack<T, 1>(w, out);
-  }
-}
-
-template <typename T>
-struct Args {
-  const T* embed;  // [V, D]
-  const T* head;   // [D, V], or null: tied, embed read row by row
-  const T* fnorm;  // [D]
-  const T* anorm;  // [L, D]
-  const T* mnorm;  // [L, D]
-  const T* wq;     // [L, D, HQ]
-  const T* wk;     // [L, D, HKV]
-  const T* wv;     // [L, D, HKV]
-  const T* wo;     // [L, HQ, D]
-  const T* wg;     // [L, D, F]
-  const T* wu;     // [L, D, F]
-  const T* wd;     // [L, F, D]
-  T* kc;           // [L, N, BS, KVH, HD]
-  T* vc;
-  const int* tokens;     // [B]
-  const int* positions;  // [B]
-  const int* tables;     // [B, W]
-  const int* active;     // [B]
-  int* tokens_out;       // [steps, B]
-  T* h;                  // [B, D] residual carry
-  T* qkv;                // [B, HQ + 2 HKV], before rope
-  T* attn;               // [B, HQ]
-  float* part_acc;       // [B, KVH, S, G, HD] attention partials per key split
-  float* part_ml;        // [B, KVH, S, G, 2]: their (max, sum)
-  int* split_cnt;        // [B, KVH] splits done, zero between layers
-  T* gu;                 // [B, 2F]: gate | up
-  int* tok;              // [B] token carry
-  float* part_val;       // [grid, B] per-block argmax partials
-  int* part_idx;
-  unsigned long long* prof;  // [1 + steps * (5 L + 2)] timer stamps, or null
-  const float* temps;    // [B] (0 = greedy), or null: every row greedy
-  const int* top_ks;     // [B] (0 = off)
-  const float* top_ps;   // [B] (1 = off)
-  const float* unif;     // [steps, B] the draws' uniforms
-  float* logits;         // [B, V] head logits / temps scratch (sampled only)
-  int steps, L, N, BS, H, KVH, HD, W, D, F, V, S;
-  float eps, theta;
-};
-
-// ---------------------------------------------------------------------------
-// GEMV building blocks
-// ---------------------------------------------------------------------------
-
-template <typename T, int B>
-struct Gemv {
-  static constexpr int kVecMax = 16 / (int)sizeof(T);
-  static constexpr int VEC = kVecMax < 64 / B ? kVecMax : 64 / B;  // columns per thread
-  static constexpr int CT = kTile / VEC;                           // threads across a tile
-  static constexpr int KG = kThreads / CT;                         // k-rows per pass
-  static constexpr int KC = kXFloats / B;                          // staged columns of x
-  static_assert(CT >= 1 && CT <= 16 && kTile % VEC == 0, "bad GEMV tiling");
-};
-
-__host__ __device__ constexpr size_t gemv_floats(int B) {
-  // xs, warp partials, inv, tile logits, best value, best index
-  return (size_t)kXFloats + (size_t)kWarps * B * kTile + B + (size_t)kTile * B + 2 * (size_t)B;
-}
-
-__host__ __device__ inline size_t attn_floats(int G, int HD) {
-  return (size_t)G * HD + (size_t)kKeys * (HD + 1) + (size_t)kKeys * HD + (size_t)G * kKeys +
-         (size_t)G * HD + 3 * (size_t)G;
-}
-
-__host__ __device__ inline size_t smem_floats(int B, int G, int HD) {
-  const size_t a = gemv_floats(B), b = attn_floats(G, HD);
-  return a > b ? a : b;
-}
-
-// Stage x[:, k0 : k0 + kn] as floats: xs[b * KC + k]. Each thread takes
-// 16 bytes of an input row at a time (kn and k0 are multiples of 16), so
-// its loads are in flight together.
-template <typename T, int B, int KC, class X>
-__device__ __forceinline__ void stage(float* xs, int k0, int kn, const X& x) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  const int nv = kn / VEC;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < B * nv; i += kThreads) {
-    const int b = i / nv, k = (i - b * nv) * VEC;
-    float v[VEC];
-    x.vec(b, k0 + k, v);
-    float4* dst = reinterpret_cast<float4*>(xs + b * KC + k);
-#pragma unroll
-    for (int j = 0; j < VEC / 4; ++j) dst[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-  }
-}
-
-// 16 bytes of T written inside the kernel -> floats, through L2.
-template <typename T>
-__device__ __forceinline__ void ld_scratch_vec(const T* p, float* out) {
-  const uint4 r = __ldcg(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {r.x, r.y, r.z, r.w};
-  unpack<T, 4>(w, out);
-}
-
-// y[b, c] = sum_k x(b, k) * W[k, c] over the column tiles t = blockIdx.x,
-// + gridDim.x, ... of a phase. wsel(t, W, ldw, c0) gives the tile's weight
-// ([K, ldw] row-major) and first column in it; out(b, col, y) takes each
-// result (col over the phase's columns); after(t) runs once the tile is out.
-template <typename T, int B, class X, class WSel, class Out, class After>
-__device__ void gemv_cols(float* smem, int K, int ntiles, const X& x, const WSel& wsel, const Out& out,
-                          const After& after) {
-  using G = Gemv<T, B>;
-  float* xs = smem;
-  float* red = smem + kXFloats;  // [kWarps][B][kTile]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int cx = tid % G::CT, ky = tid / G::CT;
-  const bool one_chunk = K <= G::KC;
-  bool staged = false;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const T* W;
-    int ldw, c0;
-    wsel(t, W, ldw, c0);
-    float acc[B][G::VEC];
-#pragma unroll
-    for (int b = 0; b < B; ++b)
-#pragma unroll
-      for (int v = 0; v < G::VEC; ++v) acc[b][v] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += G::KC) {
-      const int kn = min(G::KC, K - k0);
-      if (!(one_chunk && staged)) {
-        __syncthreads();  // earlier readers of xs are done
-        stage<T, B, G::KC>(xs, k0, kn, x);
-        __syncthreads();
-        staged = true;
-      }
-      const T* wp = W + (int64_t)k0 * ldw + c0 + cx * G::VEC;
-#pragma unroll 4
-      for (int k = ky; k < kn; k += G::KG) {
-        float w[G::VEC];
-        load_w<T, G::VEC>(wp + (int64_t)k * ldw, w);
-#pragma unroll
-        for (int b = 0; b < B; ++b) {
-          const float xv = xs[b * G::KC + k];
-#pragma unroll
-          for (int v = 0; v < G::VEC; ++v) acc[b][v] = fmaf(xv, w[v], acc[b][v]);
-        }
-      }
-    }
-    // Reduce over the k-groups: the lanes of a warp with the same cx, then the warps.
-#pragma unroll
-    for (int b = 0; b < B; ++b)
-#pragma unroll
-      for (int v = 0; v < G::VEC; ++v) {
-        float s = acc[b][v];
-#pragma unroll
-        for (int o = G::CT; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        acc[b][v] = s;
-      }
-    if (lane < G::CT) {
-#pragma unroll
-      for (int b = 0; b < B; ++b)
-#pragma unroll
-        for (int v = 0; v < G::VEC; ++v) red[(warp * B + b) * kTile + lane * G::VEC + v] = acc[b][v];
-    }
-    __syncthreads();
-    for (int i = tid; i < B * kTile; i += kThreads) {
-      const int b = i / kTile, c = i - b * kTile;
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += red[(w * B + b) * kTile + c];
-      out(b, t * kTile + c, s);
-    }
-    __syncthreads();
-    after(t);
-  }
-}
-
-// y[b, r] = sum_k x(b, k) * Wr[r, k] over row tiles of Wr [ntiles * 16, K]
-// (the tied head: embed rows). out(b, row, y); after(t) once the tile is out.
-template <typename T, int B, class X, class Out, class After>
-__device__ void gemv_rows(float* smem, const T* Wr, int K, int ntiles, const X& x, const Out& out,
-                          const After& after) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int KC = kXFloats / B;
-  float* xs = smem;
-  const int tid = threadIdx.x, r = tid / 16, kl = tid % 16;
-  const bool one_chunk = K <= KC;
-  bool staged = false;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    float acc[B];
-#pragma unroll
-    for (int b = 0; b < B; ++b) acc[b] = 0.f;
-    const T* wr = Wr + ((int64_t)t * kTile + r) * K;
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      const int kn = min(KC, K - k0);
-      if (!(one_chunk && staged)) {
-        __syncthreads();
-        stage<T, B, KC>(xs, k0, kn, x);
-        __syncthreads();
-        staged = true;
-      }
-#pragma unroll 2
-      for (int k = kl * VEC; k < kn; k += 16 * VEC) {
-        float w[VEC];
-        load_w<T, VEC>(wr + k0 + k, w);
-#pragma unroll
-        for (int b = 0; b < B; ++b)
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[b] = fmaf(xs[b * KC + k + v], w[v], acc[b]);
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < B; ++b)
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], o);
-    if (kl == 0) {
-#pragma unroll
-      for (int b = 0; b < B; ++b) out(b, t * kTile + r, acc[b]);
-    }
-    __syncthreads();
-    after(t);
-    __syncthreads();
-  }
-}
-
-// inv[b] = rsqrt(mean(h[b]^2) + eps), one warp per row, 16 bytes per load.
-template <typename T, int B>
-__device__ void row_inv(const T* h, int D, float eps, float* inv) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // the previous phase is done with inv
-  for (int b = warp; b < B; b += kWarps) {
-    float s = 0.f;
-#pragma unroll 4
-    for (int d = lane * VEC; d < D; d += 32 * VEC) {
-      float x[VEC];
-      ld_scratch_vec<T>(h + (int64_t)b * D + d, x);
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) s = fmaf(x[v], x[v], s);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) inv[b] = rsqrtf(s / (float)D + eps);
-  }
-  __syncthreads();
-}
-
-// GEMV inputs: vec(b, k, out) gives the 16 bytes' worth of elements
-// x[b, k : k + 16 / sizeof(T)] as floats.
-template <typename T>
-struct XNorm {  // RMS-normed residual rows, rounded to T
-  static constexpr int VEC = 16 / (int)sizeof(T);
-  const T* h;
-  int D;
-  const float* inv;
-  const T* w;
-  __device__ void vec(int b, int k, float* out) const {
-    float x[VEC], g[VEC];
-    ld_scratch_vec<T>(h + (int64_t)b * D + k, x);
-    load_w<T, VEC>(w + k, g);
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) out[v] = round_to<T>(x[v] * inv[b] * g[v]);
-  }
-};
-
-template <typename T>
-struct XRows {  // rows of a scratch matrix [B, K]
-  const T* x;
-  int K;
-  __device__ void vec(int b, int k, float* out) const { ld_scratch_vec<T>(x + (int64_t)b * K + k, out); }
-};
-
-template <typename T>
-struct XSiluUp {  // silu(gate) * up from gate | up rows [B, 2F], each rounded to T
-  static constexpr int VEC = 16 / (int)sizeof(T);
-  const T* gu;
-  int F;
-  __device__ void vec(int b, int k, float* out) const {
-    float g[VEC], u[VEC];
-    ld_scratch_vec<T>(gu + (int64_t)b * 2 * F + k, g);
-    ld_scratch_vec<T>(gu + (int64_t)b * 2 * F + F + k, u);
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) out[v] = round_to<T>(round_to<T>(g[v] / (1.f + expf(-g[v]))) * u[v]);
-  }
-};
-
-// GEMV outputs.
-template <typename T>
-struct OutRows {  // y rounded to T into rows [B, ld]
-  T* y;
-  int ld;
-  __device__ void operator()(int b, int c, float v) const { y[(int64_t)b * ld + c] = from_f<T>(v); }
-};
-
-template <typename T>
-struct OutResidual {  // h += T(y), in T
-  T* h;
-  int D;
-  __device__ void operator()(int b, int c, float v) const {
-    T* p = h + (int64_t)b * D + c;
-    *p = from_f<T>(ld_scratch(p) + round_to<T>(v));
-  }
-};
-
-template <int B>
-struct OutLogits {  // this tile's f32 logits: lgs[(c % 16) * B + b]
-  float* lgs;
-  __device__ void operator()(int b, int c, float v) const { lgs[(c % kTile) * B + b] = v; }
-};
-
-template <int B>
-struct ArgmaxTile {  // fold a tile's logits into the block's (max, first index) per row
-  const float* lgs;
-  float* best_v;
-  int* best_i;
-  float* out;          // [B, V]: the tile's logits / temps[b] are stored here too, or null
-  const float* temps;  // [B] (a row with temps <= 0 is stored unscaled)
-  int V;
-  __device__ void operator()(int t) const {
-    if (out != nullptr) {
-      for (int e = threadIdx.x; e < B * kTile; e += kThreads) {
-        const int b = e / kTile, c = e - b * kTile;
-        const float x = lgs[c * B + b], tb = temps[b];
-        out[(int64_t)b * V + t * kTile + c] = tb > 0.f ? x / tb : x;  // a division, as JAX scales
-      }
-    }
-    const int b = threadIdx.x;
-    if (b >= B) return;
-    float bv = best_v[b];
-    int bi = best_i[b];
-    for (int c = 0; c < kTile; ++c) {  // ascending index: strict > keeps the first maximum
-      const float v = lgs[c * B + b];
-      if (v > bv) {
-        bv = v;
-        bi = t * kTile + c;
-      }
-    }
-    best_v[b] = bv;
-    best_i[b] = bi;
-  }
-};
-
-struct NoAfter {
-  __device__ void operator()(int) const {}
-};
-
-// ---------------------------------------------------------------------------
-// Attention: rope, write K/V, attend the row's pages
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ void attention(const Args<T>& a, float* smem, int l, int i, int B) {
-  const int H = a.H, KVH = a.KVH, HD = a.HD, G = H / KVH, BS = a.BS, W = a.W;
-  const int HQ = H * HD, HKV = KVH * HD, NQKV = HQ + 2 * HKV, half = HD / 2;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int VEC = 16 / (int)sizeof(T);
-  const int RV = HD / VEC;                            // vectors per key row of one head
-  const int NV = (kKeys * RV + kThreads - 1) / kThreads;  // <= kMaxNV
-  const int KS = HD + 1;
-  const float scale = (float)(1.0 / sqrt((double)HD));  // HD**-0.5 rounded once, as the host's
-  float* sq = smem;
-  float* sk = sq + G * HD;
-  float* sv = sk + kKeys * KS;
-  float* ss = sv + kKeys * HD;
-  float* sacc = ss + G * kKeys;
-  float* sm = sacc + G * HD;
-  float* sl = sm + G;
-  float* sa = sl + G;
-  const int64_t tok_stride = (int64_t)KVH * HD;
-  const int64_t page_stride = (int64_t)BS * tok_stride;
-  const int64_t layer_off = (int64_t)l * a.N * page_stride;
-  T* kc = a.kc + layer_off;
-  T* vc = a.vc + layer_off;
-
-  const int S = a.S;
-  for (int item = blockIdx.x; item < B * KVH * S; item += gridDim.x) {
-    const int b = item / (KVH * S), kvh = (item / S) % KVH, sp = item % S;
-    const bool live = a.active[b] != 0;
-    const int pos = a.positions[b] + i;
-    const int slot = live ? pos : 0;
-    const int* row_table = a.tables + (int64_t)b * W;
-    const int64_t blk = (live && slot / BS < W) ? row_table[slot / BS] : 0;
-    const int64_t dst = blk * page_stride + (int64_t)(slot % BS) * tok_stride + (int64_t)kvh * HD;
-    const T* row = a.qkv + (int64_t)b * NQKV;
-    // This split's keys [n_lo, n_hi): the row's len keys cut into S runs of
-    // whole tiles. The split holding the row's last key (a dead row: split
-    // 0) writes the step's K/V row, so it alone reads it.
-    const int len = live ? min(pos + 1, W * BS) : 0;
-    const int chunk = ((len + S - 1) / S + kKeys - 1) / kKeys * kKeys;
-    const int n_lo = sp * chunk, n_hi = min(len, n_lo + chunk);
-    const bool writer = live ? (len - 1) / chunk == sp : sp == 0;
-
-    // Rope the G query heads (into shared memory) and the key (into the
-    // cache), each rounded to T; the value goes to the cache as it is.
-    for (int e = tid; e < (G + writer) * half; e += kThreads) {
-      const int hh = e / half, j = e - hh * half;
-      const float freq = 1.f / powf(a.theta, (float)(2 * j) / (float)HD);
-      float sn, cs;
-      sincosf((float)pos * freq, &sn, &cs);
-      const T* src = hh < G ? row + (int64_t)(kvh * G + hh) * HD : row + HQ + (int64_t)kvh * HD;
-      const float x1 = ld_scratch(src + j), x2 = ld_scratch(src + j + half);
-      const float o1 = round_to<T>(x1 * cs - x2 * sn), o2 = round_to<T>(x2 * cs + x1 * sn);
-      if (hh < G) {
-        sq[hh * HD + j] = o1;
-        sq[hh * HD + j + half] = o2;
-      } else {
-        kc[dst + j] = from_f<T>(o1);
-        kc[dst + j + half] = from_f<T>(o2);
-      }
-    }
-    for (int d = tid; d < HD * writer; d += kThreads)
-      vc[dst + d] = from_f<T>(ld_scratch(row + HQ + HKV + (int64_t)kvh * HD + d));
-    for (int e = tid; e < G * HD; e += kThreads) sacc[e] = 0.f;
-    for (int g = tid; g < G; g += kThreads) {
-      sm[g] = kNegInf;
-      sl[g] = 0.f;
-    }
-    __threadfence();
-    __syncthreads();  // the step's K/V row is in the cache before any key is read
-
-    uint4 rk[kMaxNV], rv[kMaxNV];
-    auto load_tile = [&](int n0) {
-#pragma unroll
-      for (int x = 0; x < kMaxNV; ++x) {
-        rk[x] = rv[x] = make_uint4(0u, 0u, 0u, 0u);
-        const int e = tid + x * kThreads;
-        if (x < NV && e < kKeys * RV) {
-          const int j = e / RV, c = e - j * RV;
-          const int n = n0 + j;
-          if (n < n_hi) {
-            const int64_t off = (int64_t)row_table[n / BS] * page_stride + (int64_t)(n % BS) * tok_stride +
-                                (int64_t)kvh * HD + c * VEC;
-            rk[x] = __ldcg(reinterpret_cast<const uint4*>(kc + off));
-            rv[x] = __ldcg(reinterpret_cast<const uint4*>(vc + off));
-          }
-        }
-      }
-    };
-    if (n_lo < n_hi) load_tile(n_lo);
-    for (int n0 = n_lo; n0 < n_hi; n0 += kKeys) {
-      const int nk = min(kKeys, n_hi - n0);
-      __syncthreads();  // the previous tile's products are done with sk, sv, ss
-#pragma unroll
-      for (int x = 0; x < kMaxNV; ++x) {
-        const int e = tid + x * kThreads;
-        if (x < NV && e < kKeys * RV) {
-          const int j = e / RV, c = e - j * RV;
-          float fk[VEC], fv[VEC];
-          const unsigned wk[4] = {rk[x].x, rk[x].y, rk[x].z, rk[x].w};
-          const unsigned wv[4] = {rv[x].x, rv[x].y, rv[x].z, rv[x].w};
-          unpack<T, 4>(wk, fk);
-          unpack<T, 4>(wv, fv);
-#pragma unroll
-          for (int y = 0; y < VEC; ++y) {
-            sk[j * KS + c * VEC + y] = fk[y];
-            sv[j * HD + c * VEC + y] = fv[y];
-          }
-        }
-      }
-      __syncthreads();
-      if (n0 + kKeys < n_hi) load_tile(n0 + kKeys);  // in flight during this tile's products
-
-      for (int e = tid; e < G * kKeys; e += kThreads) {
-        const int g = e / kKeys, j = e - g * kKeys;
-        float s = kNegInf;
-        if (j < nk) {
-          const float* qr = sq + g * HD;
-          const float* kr = sk + j * KS;
-          float dot = 0.f;
-          for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-          s = round_to<T>(dot) * scale;
-        }
-        ss[e] = s;
-      }
-      __syncthreads();
-      for (int g = warp; g < G; g += kWarps) {  // online softmax, one warp per head
-        float* sr = ss + g * kKeys;
-        const float x0 = sr[lane], x1 = sr[lane + 32];
-        float mx = fmaxf(x0, x1);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_prev = sm[g];
-        const float m_new = fmaxf(m_prev, mx);
-        const float p0 = lane < nk ? expf(x0 - m_new) : 0.f;
-        const float p1 = lane + 32 < nk ? expf(x1 - m_new) : 0.f;
-        float sum = p0 + p1;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        sr[lane] = p0;
-        sr[lane + 32] = p1;
-        if (lane == 0) {
-          const float al = expf(m_prev - m_new);
-          sa[g] = al;
-          sm[g] = m_new;
-          sl[g] = sl[g] * al + sum;
-        }
-      }
-      __syncthreads();
-      for (int e = tid; e < G * HD; e += kThreads) {
-        const int g = e / HD, d = e - g * HD;
-        const float* pr = ss + g * kKeys;
-        float acc = sacc[e] * sa[g];
-        for (int j = 0; j < nk; ++j) acc = fmaf(pr[j], sv[j * HD + d], acc);
-        sacc[e] = acc;
-      }
-    }
-    __syncthreads();
-    T* out = a.attn + (int64_t)b * HQ + (int64_t)kvh * G * HD;
-    if (S == 1) {
-      for (int e = tid; e < G * HD; e += kThreads) out[e] = from_f<T>(sacc[e] / fmaxf(sl[e / HD], 1e-30f));
-      __syncthreads();  // shared memory is reused by the next item
-      continue;
-    }
-    // This split's partial: unnormalized acc and (m, l) per query head (an
-    // empty split or a dead row: acc 0, m -1e30, l 0). The last split of
-    // the (row, KV head) to finish merges the S partials into the row:
-    // out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, rounded to T.
-    float* pacc = a.part_acc + (int64_t)item * G * HD;
-    float* pml = a.part_ml + (int64_t)item * G * 2;
-    for (int e = tid; e < G * HD; e += kThreads) pacc[e] = sacc[e];
-    for (int g = tid; g < G; g += kThreads) {
-      pml[2 * g] = sm[g];
-      pml[2 * g + 1] = sl[g];
-    }
-    __threadfence();
-    __syncthreads();
-    int* cnt = a.split_cnt + (int64_t)b * KVH + kvh;
-    __shared__ int done_before;
-    if (tid == 0) done_before = atomicAdd(cnt, 1);
-    __syncthreads();
-    if (done_before == S - 1) {
-      __threadfence();
-      const int64_t item0 = item - sp;
-      for (int g = tid; g < G; g += kThreads) {  // merged (max, sum) of head g
-        float m = kNegInf, l = 0.f;
-        for (int s2 = 0; s2 < S; ++s2) m = fmaxf(m, __ldcg(a.part_ml + ((item0 + s2) * G + g) * 2));
-        for (int s2 = 0; s2 < S; ++s2) {
-          const float* ml = a.part_ml + ((item0 + s2) * G + g) * 2;
-          l = fmaf(expf(__ldcg(ml) - m), __ldcg(ml + 1), l);
-        }
-        sm[g] = m;
-        sl[g] = l;
-      }
-      __syncthreads();
-      for (int e = tid; e < G * HD; e += kThreads) {
-        const int g = e / HD;
-        float acc = 0.f;
-        for (int s2 = 0; s2 < S; ++s2) {
-          const float w = expf(__ldcg(a.part_ml + ((item0 + s2) * G + g) * 2) - sm[g]);
-          acc = fmaf(w, __ldcg(a.part_acc + (item0 + s2) * G * HD + e), acc);
-        }
-        out[e] = from_f<T>(acc / fmaxf(sl[g], 1e-30f));
-      }
-      if (tid == 0) *cnt = 0;  // ready for the next layer's splits
-    }
-    __syncthreads();  // shared memory is reused by the next item
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The sampled epilogue: one row's draw by one block
-// ---------------------------------------------------------------------------
-
-constexpr int kBins = 256;                // radix digits per pass (8 bits)
-constexpr int kScanItems = 8;             // consecutive logits per thread in the draw's scan (2 float4s)
-constexpr int kRowLoads = 4;              // float4 loads in flight per thread in a pass over a row
-constexpr float kMassScale = 1099511627776.0f;  // 2^40: fixed-point unit of the top-p bins
-
-constexpr int kLaneStride = kBins + 1;  // a bin's 32 lane copies fall in 32 distinct banks
-
-// Shared scratch of the pick (at the start of the kernel's shared memory).
-// A radix pass counts into 32 copies of the bins, one per lane index: the
-// values of a row share few top-byte bins, and one copy for the block made
-// every lane of a warp wait on the same address. The copies are summed
-// after the pass.
-struct PickSmem {
-  unsigned long long lane_mass[32 * kLaneStride];  // per-lane top-p bins: mass, fixed point
-  unsigned lane_cnt[32 * kLaneStride];             // per-lane bins: element counts
-  unsigned long long mass[kBins];                  // the copies summed
-  unsigned cnt[kBins];
-  float red[kWarps];  // block reductions
-  int redi[kWarps];
-  int bint[4];  // broadcasts
-  unsigned long long bull;
-};
-static_assert(sizeof(PickSmem) <= kXFloats * sizeof(float), "the pick's scratch must fit the GEMV staging area");
-
-// Zero the lane copies (counts, and masses when `mass`).
-__device__ void clear_bins(PickSmem* ps, bool mass) {
-  for (int j = threadIdx.x; j < 32 * kLaneStride; j += kThreads) {
-    ps->lane_cnt[j] = 0u;
-    if (mass) ps->lane_mass[j] = 0ull;
-  }
-}
-
-// Sum the lane copies into cnt (and mass). Thread j reads bin j of each
-// copy: one bank per thread at each step.
-__device__ void merge_bins(PickSmem* ps, bool mass) {
-  for (int j = threadIdx.x; j < kBins; j += kThreads) {
-    unsigned c = 0u;
-    unsigned long long m = 0ull;
-    for (int l = 0; l < 32; ++l) {
-      c += ps->lane_cnt[l * kLaneStride + j];
-      if (mass) m += ps->lane_mass[l * kLaneStride + j];
-    }
-    ps->cnt[j] = c;
-    if (mass) ps->mass[j] = m;
-  }
-}
-
-// Order-preserving key of a float: a larger float has a larger key.
-__device__ __forceinline__ unsigned order_key(float f) {
-  const unsigned u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_value(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-// Block sum in a fixed order (the same value in every thread).
-__device__ float block_sum(float v, PickSmem* ps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if (lane == 0) ps->red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < kWarps; ++w) s += ps->red[w];
-  __syncthreads();
-  return s;
-}
-
-// Block (max, lowest index among equal maxima), in every thread.
-__device__ void block_argmax(float& v, int& ix, PickSmem* ps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, ix, o);
-    if (ov > v || (ov == v && oi < ix)) {
-      v = ov;
-      ix = oi;
-    }
-  }
-  if (lane == 0) {
-    ps->red[warp] = v;
-    ps->redi[warp] = ix;
-  }
-  __syncthreads();
-  v = ps->red[0];
-  ix = ps->redi[0];
-  for (int w = 1; w < kWarps; ++w) {
-    if (ps->red[w] > v || (ps->red[w] == v && ps->redi[w] < ix)) {
-      v = ps->red[w];
-      ix = ps->redi[w];
-    }
-  }
-  __syncthreads();
-}
-
-// f(i, s) for every i of [0, V) with s = row[i] (V % 4 == 0, row 16-byte
-// aligned): each thread takes float4s tid, tid + kThreads, ..., with
-// kRowLoads of them in flight, so a pass over a row is not a chain of L2
-// latencies; a thread's indices ascend. The row was written inside the
-// kernel: read through L2.
-template <class F>
-__device__ __forceinline__ void for_row(const float* row, int V, const F& f) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  const int n4 = V >> 2;
-  for (int j0 = threadIdx.x; j0 < n4; j0 += kThreads * kRowLoads) {
-    float4 v[kRowLoads];
-#pragma unroll
-    for (int q = 0; q < kRowLoads; ++q) {
-      const int j = j0 + q * kThreads;
-      if (j < n4) v[q] = __ldcg(r4 + j);
-    }
-#pragma unroll
-    for (int q = 0; q < kRowLoads; ++q) {
-      const int j = j0 + q * kThreads;
-      if (j < n4) {
-        f(4 * j, v[q].x);
-        f(4 * j + 1, v[q].y);
-        f(4 * j + 2, v[q].z);
-        f(4 * j + 3, v[q].w);
-      }
-    }
-  }
-}
-
-// Max of row[i] and its first index (INT_MAX when no value is > -inf).
-__device__ void row_mode(const float* row, int V, float& m, int& mi, PickSmem* ps) {
-  m = -INFINITY;
-  mi = INT_MAX;
-  for_row(row, V, [&](int i, float s) {  // ascending: strict > keeps the first
-    if (s > m) {
-      m = s;
-      mi = i;
-    }
-  });
-  block_argmax(m, mi, ps);
-}
-
-// The k-th largest of row[i] (1 <= k <= V), exactly: a radix select from the
-// most significant byte of the order-preserving key down.
-__device__ float kth_largest(const float* row, int V, int k, PickSmem* ps) {
-  const int tid = threadIdx.x;
-  unsigned prefix = 0u, mask = 0u;
-  unsigned* cnt = ps->lane_cnt + (tid % 32) * kLaneStride;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    clear_bins(ps, false);
-    __syncthreads();
-    for_row(row, V, [&](int, float s) {
-      const unsigned key = order_key(s);
-      if ((key & mask) == prefix) atomicAdd(cnt + ((key >> shift) & 0xffu), 1u);
-    });
-    __syncthreads();
-    merge_bins(ps, false);
-    __syncthreads();
-    if (tid == 0) {  // the digit holding the k-th largest: count down from the top bin
-      int d = kBins - 1, above = 0;
-      for (; d > 0; --d) {
-        const int c = (int)ps->cnt[d];
-        if (above + c >= k) break;
-        above += c;
-      }
-      ps->bint[0] = d;
-      ps->bint[1] = above;
-    }
-    __syncthreads();
-    k -= ps->bint[1];
-    prefix |= (unsigned)ps->bint[0] << shift;
-    mask |= 0xffu << shift;
-    __syncthreads();
-  }
-  return key_value(prefix);
-}
-
-// The smallest value v of row[i] with sum over values s > v of exp(s - lse)
-// < top_p: the last value the top-p rule keeps. The mass above a bin's
-// largest value is the mass of the bins above it, so the lowest non-empty
-// bin whose mass-above is < top_p holds v; each pass narrows to it.
-__device__ float nucleus_min(const float* row, int V, float lse, float top_p, PickSmem* ps) {
-  const int tid = threadIdx.x;
-  const double target = (double)top_p * (double)kMassScale;
-  unsigned prefix = 0u, mask = 0u;
-  unsigned long long above = 0ull;
-  unsigned* cnt = ps->lane_cnt + (tid % 32) * kLaneStride;
-  unsigned long long* mass = ps->lane_mass + (tid % 32) * kLaneStride;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    clear_bins(ps, true);
-    __syncthreads();
-    for_row(row, V, [&](int, float s) {
-      const unsigned key = order_key(s);
-      if ((key & mask) == prefix) {
-        const unsigned bin = (key >> shift) & 0xffu;
-        atomicAdd(cnt + bin, 1u);
-        atomicAdd(mass + bin, (unsigned long long)__float2ull_rn(expf(s - lse) * kMassScale));
-      }
-    });
-    __syncthreads();
-    merge_bins(ps, true);
-    __syncthreads();
-    if (tid == 0) {
-      unsigned long long acc = above, acc_found = above;
-      int found = -1, top = -1;
-      for (int d = kBins - 1; d >= 0; --d) {
-        if (ps->cnt[d] == 0u) continue;
-        if (top < 0) top = d;
-        if ((double)acc >= target) break;  // the mass above only grows downwards
-        found = d;
-        acc_found = acc;
-        acc += ps->mass[d];
-      }
-      if (found < 0) {  // top_p <= 0: keep the maximum alone
-        found = top;
-        acc_found = above;
-      }
-      ps->bint[0] = found;
-      ps->bull = acc_found;
-    }
-    __syncthreads();
-    prefix |= (unsigned)ps->bint[0] << shift;
-    mask |= 0xffu << shift;
-    above = ps->bull;
-    __syncthreads();
-  }
-  return key_value(prefix);
-}
-
-// One sampled row's token from its temperature-scaled f32 logits row[0, V)
-// (logits / t, divided where they were stored), by the whole block; every
-// thread returns it. JAX `filtered_probs_rows` then `pick_from_probs(probs,
-// u)`: keep scaled >= max(k-th largest (top_k > 0), top-p threshold (top_p
-// < 1)); p = exp(scaled - max) / Z over the kept; the first index whose
-// cumulative p exceeds u, or the mode when u is past the total. Not
-// inlined: one copy serves the window's 12 template instances and the
-// epilogue kernel.
-__device__ __noinline__ int sample_row(const float* row, int V, int top_k, float top_p, float u, PickSmem* ps) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float m;
-  int mode;
-  row_mode(row, V, m, mode, ps);
-  if (mode == INT_MAX) return 0;  // no finite logit
-  float z = 0.f;
-  for_row(row, V, [&](int, float s) { z += expf(s - m); });
-  const float lse = m + logf(block_sum(z, ps));
-
-  float thresh = -INFINITY;
-  if (top_k > 0) {
-    const int k = min(top_k, V);
-    thresh = k == 1 ? m : kth_largest(row, V, k, ps);
-  }
-  if (top_p < 1.f) thresh = fmaxf(thresh, nucleus_min(row, V, lse, top_p, ps));
-
-  float zk = 0.f;
-  for_row(row, V, [&](int, float s) {
-    if (s >= thresh) zk += expf(s - m);
-  });
-  zk = block_sum(zk, ps);
-
-  // Inverse CDF in index order: tiles of kThreads x kScanItems consecutive
-  // logits (float4 loads), a block scan of the threads' sums, the carry
-  // across tiles.
-  if (tid == 0) ps->bint[2] = INT_MAX;
-  __syncthreads();
-  float carry = 0.f;
-  for (int base = 0; base < V; base += kThreads * kScanItems) {
-    const int i0 = base + tid * kScanItems;
-    float sv[kScanItems];
-#pragma unroll
-    for (int q = 0; q < kScanItems / 4; ++q) {
-      const float4 v = i0 + 4 * q < V ? __ldcg(reinterpret_cast<const float4*>(row + i0) + q)
-                                      : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
-      sv[4 * q] = v.x, sv[4 * q + 1] = v.y, sv[4 * q + 2] = v.z, sv[4 * q + 3] = v.w;
-    }
-    float cum[kScanItems];
-    bool kept[kScanItems];
-    float local = 0.f;
-#pragma unroll
-    for (int j = 0; j < kScanItems; ++j) {
-      float p = 0.f;
-      kept[j] = false;
-      if (sv[j] >= thresh) {
-        p = expf(sv[j] - m) / zk;
-        kept[j] = p > 0.f;
-      }
-      local += p;
-      cum[j] = local;
-    }
-    float x = local;  // inclusive warp scan of the threads' sums
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    float excl = __shfl_up_sync(0xffffffffu, x, 1);
-    if (lane == 0) excl = 0.f;
-    if (lane == 31) ps->red[warp] = x;
-    __syncthreads();
-    float before = carry, total = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) before += ps->red[w];
-      total += ps->red[w];
-    }
-    before += excl;
-    int hit = INT_MAX;
-#pragma unroll
-    for (int j = kScanItems - 1; j >= 0; --j)
-      if (kept[j] && before + cum[j] > u) hit = i0 + j;
-    if (hit != INT_MAX) atomicMin(&ps->bint[2], hit);
-    __syncthreads();
-    const int found = ps->bint[2];
-    carry += total;
-    __syncthreads();
-    if (found != INT_MAX) return found;
-  }
-  return mode;
-}
-
-// ---------------------------------------------------------------------------
-// The window
-// ---------------------------------------------------------------------------
-
-// Block 0 stamps the global timer (ns) into prof[slot] when profiling.
-__device__ __forceinline__ void stamp(unsigned long long* prof, int64_t slot) {
-  if (prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    prof[slot] = t;
-  }
-}
 
 template <typename T, int B>
 __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T> a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
-  const int L = a.L, D = a.D, F = a.F, V = a.V;
-  const int HQ = a.H * a.HD, HKV = a.KVH * a.HD, NQKV = HQ + 2 * HKV;
+  const int L = a.L, D = a.D, V = a.V;
   float* inv = smem + kXFloats + kWarps * B * kTile;
   float* lgs = inv + B;
   float* best_v = lgs + kTile * B;
@@ -1076,91 +117,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T>
     // Stamps of step i: after each of the 5 phases of each layer, after the
     // head, and after the argmax (1 + i * (5 L + 2) onwards).
     const int64_t s0 = 1 + (int64_t)i * (5 * L + 2);
-    for (int l = 0; l < L; ++l) {
-      // 1. RMS norm and QKV (rope and the K/V write happen in phase 2).
-      row_inv<T, B>(a.h, D, a.eps, inv);
-      {
-        const T* wq = a.wq + (int64_t)l * D * HQ;
-        const T* wk = a.wk + (int64_t)l * D * HKV;
-        const T* wv = a.wv + (int64_t)l * D * HKV;
-        const int tq = HQ / kTile, tk = HKV / kTile;
-        auto wsel = [&](int t, const T*& W, int& ldw, int& c0) {
-          if (t < tq) {
-            W = wq, ldw = HQ, c0 = t * kTile;
-          } else if (t < tq + tk) {
-            W = wk, ldw = HKV, c0 = (t - tq) * kTile;
-          } else {
-            W = wv, ldw = HKV, c0 = (t - tq - tk) * kTile;
-          }
-        };
-        gemv_cols<T, B>(smem, D, NQKV / kTile, XNorm<T>{a.h, D, inv, a.anorm + (int64_t)l * D}, wsel,
-                        OutRows<T>{a.qkv, NQKV}, NoAfter{});
-      }
-      grid.sync();
-      stamp(a.prof, s0 + 5 * l);
-      // 2. Rope, write the step's K/V, paged attention.
-      attention<T>(a, smem, l, i, B);
-      grid.sync();
-      stamp(a.prof, s0 + 5 * l + 1);
-      // 3. wo and the residual.
-      {
-        const T* wo = a.wo + (int64_t)l * HQ * D;
-        auto wsel = [&](int t, const T*& W, int& ldw, int& c0) { W = wo, ldw = D, c0 = t * kTile; };
-        gemv_cols<T, B>(smem, HQ, D / kTile, XRows<T>{a.attn, HQ}, wsel, OutResidual<T>{a.h, D}, NoAfter{});
-      }
-      grid.sync();
-      stamp(a.prof, s0 + 5 * l + 2);
-      // 4. RMS norm, gate | up (silu * up is formed when phase 5 stages it).
-      row_inv<T, B>(a.h, D, a.eps, inv);
-      {
-        const T* wg = a.wg + (int64_t)l * D * F;
-        const T* wu = a.wu + (int64_t)l * D * F;
-        const int tg = F / kTile;
-        auto wsel = [&](int t, const T*& W, int& ldw, int& c0) {
-          if (t < tg) {
-            W = wg, ldw = F, c0 = t * kTile;
-          } else {
-            W = wu, ldw = F, c0 = (t - tg) * kTile;
-          }
-        };
-        gemv_cols<T, B>(smem, D, 2 * F / kTile, XNorm<T>{a.h, D, inv, a.mnorm + (int64_t)l * D}, wsel,
-                        OutRows<T>{a.gu, 2 * F}, NoAfter{});
-      }
-      grid.sync();
-      stamp(a.prof, s0 + 5 * l + 3);
-      // 5. down and the residual.
-      {
-        const T* wd = a.wd + (int64_t)l * F * D;
-        auto wsel = [&](int t, const T*& W, int& ldw, int& c0) { W = wd, ldw = D, c0 = t * kTile; };
-        gemv_cols<T, B>(smem, F, D / kTile, XSiluUp<T>{a.gu, F}, wsel, OutResidual<T>{a.h, D}, NoAfter{});
-      }
-      grid.sync();
-      stamp(a.prof, s0 + 5 * l + 4);
-    }
+    for (int l = 0; l < L; ++l) decode_layer<T, B>(a, smem, inv, l, i, grid, s0 + 5 * l);
 
     // Final norm, head logits and this block's argmax partials.
-    row_inv<T, B>(a.h, D, a.eps, inv);
-    if (tid < B) {
-      best_v[tid] = -INFINITY;
-      best_i[tid] = INT_MAX;
-    }
-    __syncthreads();
-    {
-      const XNorm<T> xf{a.h, D, inv, a.fnorm};
-      const ArgmaxTile<B> fold{lgs, best_v, best_i, a.temps != nullptr ? a.logits : nullptr, a.temps, V};
-      if (a.head != nullptr) {
-        const T* hw = a.head;
-        auto wsel = [&](int t, const T*& W, int& ldw, int& c0) { W = hw, ldw = V, c0 = t * kTile; };
-        gemv_cols<T, B>(smem, D, V / kTile, xf, wsel, OutLogits<B>{lgs}, fold);
-      } else {
-        gemv_rows<T, B>(smem, a.embed, D, V / kTile, xf, OutLogits<B>{lgs}, fold);
-      }
-    }
-    if (tid < B) {
-      a.part_val[(int64_t)blockIdx.x * B + tid] = best_v[tid];
-      a.part_idx[(int64_t)blockIdx.x * B + tid] = best_i[tid];
-    }
-    grid.sync();
+    decode_head<T, B>(a, smem, inv, lgs, best_v, best_i, a.temps != nullptr ? a.logits : nullptr, a.temps, grid);
     stamp(a.prof, s0 + 5 * L);
 
     // Block b picks row b's token (its argmax partials reduced, ties to the
@@ -1169,24 +129,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T>
     if (blockIdx.x < B) {
       const int b = blockIdx.x;
       PickSmem* ps = reinterpret_cast<PickSmem*>(smem);
-      int tok;
-      if (a.temps != nullptr && a.temps[b] > 0.f) {
-        tok = sample_row(a.logits + (int64_t)b * V, V, a.top_ks[b], a.top_ps[b],
-                         a.unif[(int64_t)i * B + b], ps);
-      } else {
-        float bv = -INFINITY;
-        int bi = INT_MAX;
-        for (int g = tid; g < (int)gridDim.x; g += kThreads) {
-          const float v = __ldcg(a.part_val + (int64_t)g * B + b);
-          const int ix = __ldcg(a.part_idx + (int64_t)g * B + b);
-          if (v > bv || (v == bv && ix < bi)) {
-            bv = v;
-            bi = ix;
-          }
-        }
-        block_argmax(bv, bi, ps);
-        tok = bi == INT_MAX ? 0 : bi;  // every logit NaN: no maximum
-      }
+      const int tok = a.temps != nullptr && a.temps[b] > 0.f
+                          ? sample_row(a.logits + (int64_t)b * V, V, a.top_ks[b], a.top_ps[b],
+                                       a.unif[(int64_t)i * B + b], ps)
+                          : row_argmax<B>(a.part_val, a.part_idx, b, ps);
       if (tid == 0) {
         a.tokens_out[(int64_t)i * B + b] = tok;
         a.tok[b] = tok;

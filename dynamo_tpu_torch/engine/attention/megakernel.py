@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch import _build
-from dynamo_tpu_torch.engine.sampling import sample_from_uniforms
+from dynamo_tpu_torch.engine.sampling import filtered_probs_rows, pick_from_probs, sample_from_uniforms
 
 NEG_INF = -1e30
 
@@ -233,6 +233,58 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _cache_forward(
+    weights, k_cache, v_cache, toks, pos, tabs, live, *, num_heads: int, rms_eps: float, theta: float,
+    head: bool = True,
+) -> Optional[torch.Tensor]:
+    """N rows, each one token at its own position over its own block-table
+    row, through every layer of one model over its paged cache: per layer
+    RMS norm, QKV, rope, every row's K/V written into the cache first (dead
+    rows to block 0, offset 0), then each row attends its pages masked to
+    ``kpos <= pos`` (dead rows attend nothing), ``wo`` and the residual, RMS
+    norm, SwiGLU and the residual; then the final norm and the head →
+    f32 logits ``[N, V]`` (None without ``head``). The JAX fused kernels'
+    math and cast points: every product accumulates in f32 and is cast to
+    the weight dtype (the head's f32 logits are not), the residual stays in
+    that dtype, p is cast to it before PV. ``weights`` is the kernels' 12
+    in their order, the head ``[D, V]`` or None when tied; ``pos``,
+    ``tabs`` long, ``live`` bool."""
+    embed, head_w, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down = weights
+    L, _, BS, KVH, HD = k_cache.shape
+    N, W = toks.shape[0], tabs.shape[1]
+    H, G = num_heads, num_heads // KVH
+    rows = torch.arange(N, device=toks.device)
+    kpos = torch.arange(W * BS, device=toks.device)
+    slot = torch.where(live, pos.clamp(min=0), torch.zeros_like(pos))
+    blk = torch.where(live, tabs[rows, (slot // BS).clamp(max=W - 1)], torch.zeros_like(slot))
+    off = slot % BS
+    mask = (kpos[None, :] <= pos[:, None])[:, None, None, :]  # [N, 1, 1, W*BS]
+    h = embed[toks.long().clamp(0, embed.shape[0] - 1)]
+    for l in range(L):
+        x = _rms(h, attn_norm[l], rms_eps)
+        q = _rope((x @ wq[l]).view(N, H, HD), pos, theta)
+        k = _rope((x @ wk[l]).view(N, KVH, HD), pos, theta)
+        v = (x @ wv[l]).view(N, KVH, HD)
+        k_cache[l, blk, off] = k.to(k_cache.dtype)
+        v_cache[l, blk, off] = v.to(v_cache.dtype)
+        kb = k_cache[l][tabs].reshape(N, W * BS, KVH, HD).to(x.dtype)
+        vb = v_cache[l][tabs].reshape(N, W * BS, KVH, HD).to(x.dtype)
+        s = torch.einsum("bkgd,bskd->bkgs", q.view(N, KVH, G, HD), kb).float() * HD**-0.5
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(x.dtype)
+        attn = torch.einsum("bkgs,bskd->bkgd", p, vb).reshape(N, H * HD)
+        attn = torch.where(live[:, None], attn, torch.zeros_like(attn))
+        h = h + attn @ wo[l]
+        x = _rms(h, mlp_norm[l], rms_eps)
+        h = h + (F.silu(x @ w_gate[l]) * (x @ w_up[l])) @ w_down[l]
+    if not head:
+        return None
+    # The head's products accumulate into f32 logits, unrounded (the JAX
+    # kernels' preferred_element_type=f32): in bf16, logits rounded to the
+    # weight dtype would tie tokens the kernels tell apart.
+    return _rms(h, final_norm, rms_eps).float() @ (head_w if head_w is not None else embed.T).float()
+
+
 def fused_decode_window_ref(
     embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down,
     k_cache, v_cache, tokens, positions, tables, active, temps=None, top_ks=None, top_ps=None, uniforms=None,
@@ -240,57 +292,22 @@ def fused_decode_window_ref(
     rms_eps: float, theta: float,
 ) -> torch.Tensor:
     """Plain PyTorch version of the fused window: ``num_steps`` decode
-    steps over every layer, the JAX ``_fused_window_kernel``'s math and cast
-    points. Per step: embed (step 0 from ``tokens``, later steps from the
-    previous pick); per layer RMS norm, QKV, rope at ``positions + i``, the
-    row's K/V written into the cache first (dead rows to block 0, offset
-    0), attention over the row's pages masked to ``kpos <= pos``, ``wo``
-    and the residual, RMS norm, SwiGLU and the residual; then final norm,
-    head and the pick: argmax (first index among equal maxima) or, with
-    ``uniforms [num_steps, B]``, ``sampling.sample_from_uniforms(logits,
-    temps, top_ks, top_ps, uniforms[i])``. Every product accumulates in f32
-    and is cast to the weight dtype, the residual stays in that dtype, and
-    p is cast to it before PV. Dead rows attend nothing (zeros), as in the
-    kernel; their tokens are unspecified. ``head`` is ``[D, V]``, or None
-    for tied embeddings. Writes the caches in place; returns ``tokens
-    [num_steps, B]`` int32."""
-    L, N, BS, KVH, HD = k_cache.shape
-    B, W = tokens.shape[0], tables.shape[1]
-    H, G = num_heads, num_heads // num_kv_heads
-    V = embed.shape[0]
-    dev = tokens.device
-    out = torch.empty((num_steps, B), dtype=torch.int32, device=dev)
-    toks = tokens.long().clamp(0, V - 1)
-    live = active.bool()
-    tabs = tables.long()
-    rows = torch.arange(B, device=dev)
-    kpos = torch.arange(W * BS, device=dev)
-    head_w = head if head is not None else embed.T
+    steps, the JAX ``_fused_window_kernel``'s math and cast points. Step i
+    embeds its tokens (step 0 ``tokens``, later steps the previous pick),
+    runs every layer at ``positions + i`` (``_cache_forward``), then picks:
+    argmax (first index among equal maxima) or, with ``uniforms
+    [num_steps, B]``, ``sampling.sample_from_uniforms(logits, temps,
+    top_ks, top_ps, uniforms[i])``. Dead rows' tokens are unspecified.
+    ``head`` is ``[D, V]``, or None for tied embeddings. Writes the caches
+    in place; returns ``tokens [num_steps, B]`` int32."""
+    weights = (embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down)
+    B = tokens.shape[0]
+    out = torch.empty((num_steps, B), dtype=torch.int32, device=tokens.device)
+    toks = tokens.long()
+    live, tabs = active.bool(), tables.long()
     for i in range(num_steps):
-        pos = positions.long() + i
-        slot = torch.where(live, pos, torch.zeros_like(pos))
-        blk = torch.where(live, tabs[rows, (slot // BS).clamp(max=W - 1)], torch.zeros_like(slot))
-        off = slot % BS
-        mask = (kpos[None, :] <= pos[:, None])[:, None, None, :]  # [B, 1, 1, W*BS]
-        h = embed[toks]
-        for l in range(L):
-            x = _rms(h, attn_norm[l], rms_eps)
-            q = _rope((x @ wq[l]).view(B, H, HD), pos, theta)
-            k = _rope((x @ wk[l]).view(B, KVH, HD), pos, theta)
-            v = (x @ wv[l]).view(B, KVH, HD)
-            k_cache[l, blk, off] = k.to(k_cache.dtype)
-            v_cache[l, blk, off] = v.to(v_cache.dtype)
-            kb = k_cache[l][tabs].reshape(B, W * BS, KVH, HD).to(x.dtype)
-            vb = v_cache[l][tabs].reshape(B, W * BS, KVH, HD).to(x.dtype)
-            s = torch.einsum("bkgd,bskd->bkgs", q.view(B, KVH, G, HD), kb).float() * HD**-0.5
-            s = s.masked_fill(~mask, NEG_INF)
-            p = torch.softmax(s, dim=-1).to(x.dtype)
-            attn = torch.einsum("bkgs,bskd->bkgd", p, vb).reshape(B, H * HD)
-            attn = torch.where(live[:, None], attn, torch.zeros_like(attn))
-            h = h + attn @ wo[l]
-            x = _rms(h, mlp_norm[l], rms_eps)
-            h = h + (F.silu(x @ w_gate[l]) * (x @ w_up[l])) @ w_down[l]
-        logits = (_rms(h, final_norm, rms_eps) @ head_w).float()
+        logits = _cache_forward(weights, k_cache, v_cache, toks, positions.long() + i, tabs, live,
+                                num_heads=num_heads, rms_eps=rms_eps, theta=theta)
         if uniforms is None:
             toks = torch.argmax(logits, dim=-1)
         else:
@@ -364,6 +381,38 @@ def fused_window_fits(config, *, batch: int, dtype: torch.dtype, kv_dtype: torch
     return blocks >= sms
 
 
+def _check_model(name, weights, k_cache, v_cache, num_heads, num_kv_heads, head_dim, block_size, dtype, dev):
+    """Shape checks of one model's weights and cache for the fused kernels;
+    returns (L, N, W-independent dims) as a dict."""
+    embed, head, fnorm, anorm, mnorm, wq, wk, wv, wo, wg, wu, wd = weights
+    for t in [w for w in weights if w is not None] + [k_cache, v_cache]:
+        if t.device != dev:
+            raise ValueError(f"a {name} weight or cache is on {t.device}, tokens on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"weights and caches must share one dtype, got {t.dtype} and {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} weights and caches must be contiguous")
+    L, N, BS, KVH, HD = k_cache.shape
+    V, D = embed.shape
+    F_ = wg.shape[2]
+    H = num_heads
+    if v_cache.shape != k_cache.shape or (BS, KVH, HD) != (block_size, num_kv_heads, head_dim):
+        raise ValueError(f"{name} cache shape {tuple(k_cache.shape)} does not match the model's")
+    if HD not in WINDOW_HEAD_DIMS or H % KVH:
+        raise ValueError(f"{name}: head dim {HD} or {H} heads over {KVH} KV heads not supported")
+    if any(n % _WINDOW_TILE for n in (D, F_, V)):
+        raise ValueError(f"{name}: widths D={D}, F={F_}, V={V} must be multiples of {_WINDOW_TILE}")
+    expect = {"wq": (L, D, H * HD), "wk": (L, D, KVH * HD), "wv": (L, D, KVH * HD), "wo": (L, H * HD, D),
+              "w_gate": (L, D, F_), "w_up": (L, D, F_), "w_down": (L, F_, D), "attn_norm": (L, D),
+              "mlp_norm": (L, D), "final_norm": (D,)}
+    for key, t in zip(expect, (wq, wk, wv, wo, wg, wu, wd, anorm, mnorm, fnorm)):
+        if tuple(t.shape) != expect[key]:
+            raise ValueError(f"{name} {key} must be {expect[key]}, got {tuple(t.shape)}")
+    if head is not None and tuple(head.shape) != (D, V):
+        raise ValueError(f"{name} head must be [D, V] = {(D, V)}, got {tuple(head.shape)}")
+    return dict(L=L, N=N, H=H, KVH=KVH, HD=HD, D=D, F=F_, V=V)
+
+
 def fused_decode_window(
     embed: torch.Tensor,  # [V, D]
     head: Optional[torch.Tensor],  # [D, V], or None: tied, embed read row by row
@@ -410,8 +459,7 @@ def fused_decode_window(
     head and one after the pick and next embedding (the plain version
     stamps nothing)."""
     global WINDOW_KERNEL_LAUNCHES, WINDOW_REF_CALLS, WINDOW_SAMPLED_LAUNCHES, WINDOW_SAMPLED_REF_CALLS
-    weights = [embed, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down]
-    weights += [head] if head is not None else []
+    weights = [embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down]
     kw = dict(num_steps=num_steps, num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
               block_size=block_size, rms_eps=rms_eps, theta=theta)
     sampled = uniforms is not None
@@ -430,34 +478,12 @@ def fused_decode_window(
     dtype = embed.dtype
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"weight dtype {dtype} not supported (bfloat16 or float32)")
-    for t in weights + [k_cache, v_cache]:
-        if t.device != dev:
-            raise ValueError(f"a weight or cache is on {t.device}, tokens on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"weights and caches must share one dtype, got {t.dtype} and {dtype}")
-        if not t.is_contiguous():
-            raise ValueError("weights and caches must be contiguous")
-    L, N, BS, KVH, HD = k_cache.shape
-    V, D = embed.shape
-    F_ = w_gate.shape[2]
+    m = _check_model("window", weights, k_cache, v_cache, num_heads, num_kv_heads, head_dim, block_size, dtype, dev)
+    L, N, H, KVH, HD, D, F_, V = (m[k] for k in ("L", "N", "H", "KVH", "HD", "D", "F", "V"))
+    BS = block_size
     B, W = tokens.shape[0], tables.shape[1]
-    H = num_heads
-    if v_cache.shape != k_cache.shape or (BS, KVH, HD) != (block_size, num_kv_heads, head_dim):
-        raise ValueError(f"cache shape {tuple(k_cache.shape)} does not match the model's")
-    if HD not in WINDOW_HEAD_DIMS or H % KVH:
-        raise ValueError(f"head dim {HD} or {H} heads over {KVH} KV heads not supported")
     if B not in WINDOW_BATCHES:
         raise ValueError(f"batch {B} is not one of {WINDOW_BATCHES}")
-    if any(n % _WINDOW_TILE for n in (D, F_, V)):
-        raise ValueError(f"widths D={D}, F={F_}, V={V} must be multiples of {_WINDOW_TILE}")
-    expect = {"wq": (L, D, H * HD), "wk": (L, D, KVH * HD), "wv": (L, D, KVH * HD), "wo": (L, H * HD, D),
-              "w_gate": (L, D, F_), "w_up": (L, D, F_), "w_down": (L, F_, D), "attn_norm": (L, D),
-              "mlp_norm": (L, D), "final_norm": (D,)}
-    for name, t in zip(expect, (wq, wk, wv, wo, w_gate, w_up, w_down, attn_norm, mlp_norm, final_norm)):
-        if tuple(t.shape) != expect[name]:
-            raise ValueError(f"{name} must be {expect[name]}, got {tuple(t.shape)}")
-    if head is not None and tuple(head.shape) != (D, V):
-        raise ValueError(f"head must be [D, V] = {(D, V)}, got {tuple(head.shape)}")
     if tables.dim() != 2 or tables.shape[0] != B:
         raise ValueError(f"tables must be [B, W], got {tuple(tables.shape)}")
     ints = [x.to(device=dev, dtype=torch.int32).contiguous() for x in (tokens, positions, tables, active)]
@@ -563,3 +589,341 @@ def sample_epilogue(
         raise RuntimeError(f"sample_epilogue kernel launch failed: cudaError {rc}")
     EPILOGUE_KERNEL_LAUNCHES += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Fused speculative window: draft bursts, target verify and rejection
+# sampling for R rounds in one launch
+# ---------------------------------------------------------------------------
+
+SPEC_KERNEL_LAUNCHES = 0
+SPEC_REF_CALLS = 0
+# The kernel keeps one inverse RMS norm per verify row in shared memory and
+# picks draft proposals with γ up to this.
+SPEC_MAX_GAMMA = 8
+SPEC_MAX_VERIFY_ROWS = WINDOW_BATCHES[-1] * (SPEC_MAX_GAMMA + 1)
+_spec_grid_cache: dict = {}
+
+
+def _spec_rows_ok(batch: int, gamma: int) -> bool:
+    """1 ≤ γ ≤ ``SPEC_MAX_GAMMA`` and the verify's batch·(γ+1) rows at
+    most ``SPEC_MAX_VERIFY_ROWS``."""
+    return 1 <= gamma <= SPEC_MAX_GAMMA and batch * (gamma + 1) <= SPEC_MAX_VERIFY_ROWS
+
+
+def fused_spec_window_ref(
+    t_embed, t_head, t_fnorm, t_anorm, t_mnorm, t_wq, t_wk, t_wv, t_wo, t_wg, t_wu, t_wd,
+    d_embed, d_head, d_fnorm, d_anorm, d_mnorm, d_wq, d_wk, d_wv, d_wo, d_wg, d_wu, d_wd,
+    k_t, v_t, k_d, v_d, tokens, xprev, positions, tables_t, tables_d, active, temps, top_ks, top_ps, uniforms,
+    *, rounds: int, gamma: int, block_size: int,
+    t_num_heads: int, t_num_kv_heads: int, t_head_dim: int, t_rms_eps: float, t_theta: float,
+    d_num_heads: int, d_num_kv_heads: int, d_head_dim: int, d_rms_eps: float, d_theta: float,
+    margins: Optional[dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused spec window, the JAX
+    ``_fused_spec_kernel`` step for step. Per round, with the cursors
+    (pos, tok, xprev) starting at (positions, tokens, xprev):
+    1. the draft re-feeds xprev at pos − 1 (its logits unused);
+    2. γ draft forwards from tok at pos, each drawing x_g from its
+       ``filtered_probs_rows`` distribution by ``pick_from_probs`` on
+       ``uniforms[r, :, g]``;
+    3. the target runs the chunk [tok, x_1..x_γ] at pos..pos+γ, every chunk
+       row's K/V written before any is attended;
+    4. x_g is accepted while ``uniforms[r, :, γ+g] < min(1, p_t/p_d)``
+       (p_d clamped at 1e-20); at the first rejection k the correction is
+       drawn from max(p_t − p_d, 0) renormalized (p_t where that sums to
+       ≤ 1e-20), with all γ accepted the bonus from the target's γ+1-th
+       distribution, both on ``uniforms[r, :, 2γ]``;
+    5. pos += k + 1, tok = y, xprev = x_k (tok when k = 0).
+    Greedy rows' one-hot distributions reduce this to argmax agreement.
+    Writes both caches in place (rejected rows are not rewound: the next
+    round overwrites them before attending). Returns ``(tokens_out [R, B,
+    γ+1] int32, accepted [R, B] int32)``: row b proposed ``tokens_out[r, b,
+    :γ]``, accepted ``accepted[r, b]`` of them and appended ``tokens_out[r,
+    b, γ]``. Dead rows' outputs are unspecified. With ``margins`` (a
+    dict), it also fills, per round and row, how far each decision lay from
+    flipping, so a kernel that decides otherwise can be told apart from a
+    fault: "draw" [R, B], the least distance of a sampled row's uniform from
+    an edge of the picked token's CDF interval over its draws; "accept",
+    the least |u − min(1, p_t/p_d)| over its accept tests; "argmax", the
+    least top-2 logit gap of a greedy row's draft and verify picks (inf
+    where a kind does not apply)."""
+    G = gamma
+    w_t = (t_embed, t_head, t_fnorm, t_anorm, t_mnorm, t_wq, t_wk, t_wv, t_wo, t_wg, t_wu, t_wd)
+    w_d = (d_embed, d_head, d_fnorm, d_anorm, d_mnorm, d_wq, d_wk, d_wv, d_wo, d_wg, d_wu, d_wd)
+    t_kw = dict(num_heads=t_num_heads, rms_eps=t_rms_eps, theta=t_theta)
+    d_kw = dict(num_heads=d_num_heads, rms_eps=d_rms_eps, theta=d_theta)
+    B = tokens.shape[0]
+    dev = tokens.device
+    live = active.bool()
+    tabs_t, tabs_d = tables_t.long(), tables_d.long()
+    # The verify's B·(γ+1) rows: row s·B + b is row b's chunk position s.
+    v_tabs, v_live = tabs_t.repeat(G + 1, 1), live.repeat(G + 1)
+    steps = torch.arange(G + 1, device=dev).repeat_interleave(B)
+    pos, tok, xp = positions.long(), tokens.long(), xprev.long()
+    toks_out = torch.empty((rounds, B, G + 1), dtype=torch.int32, device=dev)
+    accepted = torch.empty((rounds, B), dtype=torch.int32, device=dev)
+    rows = torch.arange(B, device=dev)
+    greedy = temps <= 0
+    inf = torch.full((B,), float("inf"), device=dev)
+    if margins is not None:
+        for name in ("draw", "accept", "argmax"):
+            margins[name] = torch.full((rounds, B), float("inf"), device=dev)
+
+    def note(name, r, gap, where):
+        if margins is not None:
+            margins[name][r] = torch.minimum(margins[name][r], torch.where(where, gap.float(), inf))
+
+    def pick_gap(probs, uu, x):  # distance of u from the picked token's CDF interval edges
+        hi = probs.double().cumsum(-1)[rows, x]
+        return torch.minimum((hi - uu).abs(), (hi - probs[rows, x].double() - uu).abs())
+
+    def top2_gap(logits):
+        t = logits.topk(2, dim=-1).values
+        return t[:, 0] - t[:, 1]
+
+    for r in range(rounds):
+        u = uniforms[r]
+        _cache_forward(w_d, k_d, v_d, xp, pos - 1, tabs_d, live, head=False, **d_kw)
+        props, pds = [], []
+        cur = tok
+        for g in range(G):
+            logits = _cache_forward(w_d, k_d, v_d, cur, pos + g, tabs_d, live, **d_kw)
+            dist = filtered_probs_rows(logits, temps, top_ks, top_ps)
+            cur = pick_from_probs(dist, u[:, g]).long()
+            note("draw", r, pick_gap(dist, u[:, g], cur), ~greedy)
+            note("argmax", r, top2_gap(logits), greedy)
+            props.append(cur)
+            pds.append(dist)
+        chunk = torch.cat([tok] + props)  # [(γ+1)·B], position-major
+        logits = _cache_forward(w_t, k_t, v_t, chunk, pos.repeat(G + 1) + steps, v_tabs, v_live, **t_kw)
+        pts = [filtered_probs_rows(logits[s * B:(s + 1) * B], temps, top_ks, top_ps) for s in range(G + 1)]
+        prop = torch.stack(props, dim=1)  # [B, γ]
+        accept = torch.stack([
+            u[:, G + g] < torch.clamp(pts[g][rows, props[g]] / pds[g][rows, props[g]].clamp_min(1e-20), max=1.0)
+            for g in range(G)], dim=1)
+        rejected = ~accept
+        k = torch.where(rejected.any(dim=1), torch.argmax(rejected.to(torch.int32), dim=1),
+                        torch.full((B,), G, device=dev))
+        kc = k.clamp(max=G - 1)
+        pt_k = torch.stack(pts[:G], dim=1)[rows, kc]
+        pd_k = torch.stack(pds, dim=1)[rows, kc]
+        resid = (pt_k - pd_k).clamp_min(0.0)
+        rs = resid.sum(dim=-1, keepdim=True)
+        resid = torch.where(rs > 1e-20, resid / rs.clamp_min(1e-20), pt_k)
+        corr = pick_from_probs(resid, u[:, 2 * G])
+        bonus = pick_from_probs(pts[G], u[:, 2 * G])
+        y = torch.where(k == G, bonus, corr).long()
+        if margins is not None:
+            for g in range(G):
+                tested = g <= k
+                ratio = pts[g][rows, props[g]] / pds[g][rows, props[g]].clamp_min(1e-20)
+                note("accept", r, (u[:, G + g] - ratio.clamp(max=1.0)).abs(), ~greedy & tested)
+            for s_ in range(G + 1):
+                note("argmax", r, top2_gap(logits[s_ * B:(s_ + 1) * B]), greedy & (s_ <= k))
+            note("draw", r, torch.where(k == G, pick_gap(pts[G], u[:, 2 * G], y), pick_gap(resid, u[:, 2 * G], y)),
+                 ~greedy)
+        toks_out[r] = torch.cat([prop, y[:, None]], dim=1).to(torch.int32)
+        accepted[r] = k.to(torch.int32)
+        xp = torch.where(k >= 1, prop[rows, (k - 1).clamp(min=0)], tok)
+        pos = pos + k + 1
+        tok = y
+    return toks_out, accepted
+
+
+def _spec_kernel():
+    """(blocks query, launch) C functions of the spec window's library, typed once."""
+    lib = _build.load("fused_spec_window")
+    blocks, launch = lib.dtt_fused_spec_window_blocks, lib.dtt_fused_spec_window
+    if launch.argtypes is None:
+        blocks.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        blocks.restype = ctypes.c_int
+        launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+        launch.restype = ctypes.c_int
+    return blocks, launch
+
+
+def spec_profile_len(rounds: int, gamma: int) -> int:
+    """Timer stamps of one profiled spec window: 1 + rounds × (γ + 3)."""
+    return 1 + rounds * (gamma + 3)
+
+
+def fused_spec_grid(dtype: torch.dtype, batch: int, t_group: int, t_head_dim: int, d_group: int, d_head_dim: int,
+                    device) -> Tuple[int, int]:
+    """(co-resident blocks = occupancy × SMs, SM count) of the fused spec
+    kernel on ``device``, from the kernel's own occupancy query."""
+    device = torch.device(device)
+    key = (dtype, batch, t_group, t_head_dim, d_group, d_head_dim, device.index)
+    if key not in _spec_grid_cache:
+        blocks_fn, _ = _spec_kernel()
+        sms = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            n = blocks_fn(_DTYPE_CODE[dtype], batch, t_group, t_head_dim, d_group, d_head_dim, ctypes.byref(sms))
+        if n < 0:
+            raise RuntimeError(f"fused_spec_window occupancy query failed: cudaError {-n}")
+        _spec_grid_cache[key] = (n, sms.value)
+    return _spec_grid_cache[key]
+
+
+def fused_spec_fits(target_cfg, draft_cfg, *, batch: int, gamma: int, dtype: torch.dtype, kv_dtype: torch.dtype,
+                    device) -> bool:
+    """The port's gate for the fused spec window (the JAX gate is one VMEM
+    budget over both models; the Hopper kernel streams both from HBM):
+    each model passes ``fused_window_fits``; the two share ``block_size``
+    and the vocabulary; 1 ≤ γ ≤ ``SPEC_MAX_GAMMA`` and the verify's
+    ``batch``·(γ+1) rows at most ``SPEC_MAX_VERIFY_ROWS``; and on the card
+    the spec kernel's occupancy gives a cooperative grid of at least one
+    block per SM."""
+    kw = dict(batch=batch, dtype=dtype, kv_dtype=kv_dtype, device=device)
+    if not (fused_window_fits(target_cfg, **kw) and fused_window_fits(draft_cfg, **kw)):
+        return False
+    if target_cfg.block_size != draft_cfg.block_size or target_cfg.vocab_size != draft_cfg.vocab_size:
+        return False
+    if not _spec_rows_ok(batch, gamma):
+        return False
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    bucket = next(b for b in WINDOW_BATCHES if b >= batch)
+    t, d = target_cfg, draft_cfg
+    blocks, sms = fused_spec_grid(dtype, bucket, t.num_heads // t.num_kv_heads, t.head_dim,
+                                  d.num_heads // d.num_kv_heads, d.head_dim, device)
+    return blocks >= sms
+
+
+def fused_spec_window(
+    t_embed, t_head, t_fnorm, t_anorm, t_mnorm, t_wq, t_wk, t_wv, t_wo, t_wg, t_wu, t_wd,  # target, kernel order
+    d_embed, d_head, d_fnorm, d_anorm, d_mnorm, d_wq, d_wk, d_wv, d_wo, d_wg, d_wu, d_wd,  # draft
+    k_t: torch.Tensor,  # [Lt, N, BS, KVHt, HDt] target cache, written in place
+    v_t: torch.Tensor,
+    k_d: torch.Tensor,  # [Ld, N, BS, KVHd, HDd] draft cache, written in place
+    v_d: torch.Tensor,
+    tokens: torch.Tensor,  # [B] last confirmed token
+    xprev: torch.Tensor,  # [B] token at positions - 1 (the draft's catch-up)
+    positions: torch.Tensor,  # [B] position of the last confirmed token (≥ 1 for live rows)
+    tables_t: torch.Tensor,  # [B, Wt] target block ids, covering positions + rounds·(γ+1)
+    tables_d: torch.Tensor,  # [B, Wd] draft block ids
+    active: torch.Tensor,  # [B] bool
+    temps: torch.Tensor,  # [B] f32 (0 = greedy)
+    top_ks: torch.Tensor,  # [B] i32 (0 = off)
+    top_ps: torch.Tensor,  # [B] f32 (1 = off)
+    uniforms: torch.Tensor,  # [rounds, B, 2γ+1] f32
+    *,
+    rounds: int,
+    gamma: int,
+    block_size: int,
+    t_num_heads: int,
+    t_num_kv_heads: int,
+    t_head_dim: int,
+    t_rms_eps: float,
+    t_theta: float,
+    d_num_heads: int,
+    d_num_kv_heads: int,
+    d_head_dim: int,
+    d_rms_eps: float,
+    d_theta: float,
+    profile: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rounds`` speculative rounds in ONE launch: per round the draft's
+    catch-up and γ proposals, the target's γ+1-token verify and rejection
+    sampling, the cursors advancing on the device. Returns ``(tokens_out
+    [rounds, B, γ+1] int32, accepted [rounds, B] int32)`` as
+    ``fused_spec_window_ref`` defines them; both caches are written in
+    place. CUDA tensors launch the persistent cooperative kernel
+    (``csrc/fused_spec_window.cu``) or raise; CPU tensors run
+    ``fused_spec_window_ref``. ``profile``, an int64 CUDA tensor of
+    ``spec_profile_len(rounds, gamma)``, gets the kernel's global-timer
+    stamps (ns): one at the start, then per round one after the catch-up,
+    one after each proposal, one after the verify and one after the
+    rejection sampling (the plain version stamps nothing)."""
+    global SPEC_KERNEL_LAUNCHES, SPEC_REF_CALLS
+    w_t = [t_embed, t_head, t_fnorm, t_anorm, t_mnorm, t_wq, t_wk, t_wv, t_wo, t_wg, t_wu, t_wd]
+    w_d = [d_embed, d_head, d_fnorm, d_anorm, d_mnorm, d_wq, d_wk, d_wv, d_wo, d_wg, d_wu, d_wd]
+    kw = dict(rounds=rounds, gamma=gamma, block_size=block_size,
+              t_num_heads=t_num_heads, t_num_kv_heads=t_num_kv_heads, t_head_dim=t_head_dim,
+              t_rms_eps=t_rms_eps, t_theta=t_theta, d_num_heads=d_num_heads, d_num_kv_heads=d_num_kv_heads,
+              d_head_dim=d_head_dim, d_rms_eps=d_rms_eps, d_theta=d_theta)
+    if tokens.device.type == "cpu":
+        SPEC_REF_CALLS += 1
+        return fused_spec_window_ref(*w_t, *w_d, k_t, v_t, k_d, v_d, tokens, xprev, positions, tables_t, tables_d,
+                                     active, temps, top_ks, top_ps, uniforms, **kw)
+    if tokens.device.type != "cuda":
+        raise ValueError(f"fused_spec_window runs on cuda or cpu tensors, got {tokens.device}")
+    dev = tokens.device
+    dtype = t_embed.dtype
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"weight dtype {dtype} not supported (bfloat16 or float32)")
+    t = _check_model("target", w_t, k_t, v_t, t_num_heads, t_num_kv_heads, t_head_dim, block_size, dtype, dev)
+    d = _check_model("draft", w_d, k_d, v_d, d_num_heads, d_num_kv_heads, d_head_dim, block_size, dtype, dev)
+    B, G, V = tokens.shape[0], gamma, t["V"]
+    Bv = B * (G + 1)
+    if d["V"] != V:
+        raise ValueError(f"target and draft vocabularies differ: {V} and {d['V']}")
+    if B not in WINDOW_BATCHES:
+        raise ValueError(f"batch {B} is not one of {WINDOW_BATCHES}")
+    if not _spec_rows_ok(B, G):
+        raise ValueError(f"gamma {G} must be in [1, {SPEC_MAX_GAMMA}] with B·(γ+1) ≤ {SPEC_MAX_VERIFY_ROWS}")
+    for name, tab in (("tables_t", tables_t), ("tables_d", tables_d)):
+        if tab.dim() != 2 or tab.shape[0] != B:
+            raise ValueError(f"{name} must be [B, W], got {tuple(tab.shape)}")
+    ints = [x.to(device=dev, dtype=torch.int32).contiguous()
+            for x in (tokens, xprev, positions, tables_t, tables_d, active, top_ks)]
+    floats = [x.to(device=dev, dtype=torch.float32).contiguous() for x in (temps, top_ps, uniforms)]
+    for name, x, shape in (("temps", floats[0], (B,)), ("top_ks", ints[6], (B,)), ("top_ps", floats[1], (B,)),
+                           ("uniforms", floats[2], (rounds, B, 2 * G + 1)), ("xprev", ints[1], (B,)),
+                           ("positions", ints[2], (B,)), ("active", ints[5], (B,))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {tuple(x.shape)}")
+    if profile is not None and (profile.device != dev or profile.dtype != torch.int64
+                                or profile.numel() != spec_profile_len(rounds, G)):
+        raise ValueError(f"profile must be int64 [{spec_profile_len(rounds, G)}] on {dev}")
+    blocks, sms = fused_spec_grid(dtype, B, t["H"] // t["KVH"], t["HD"], d["H"] // d["KVH"], d["HD"], dev)
+    if blocks < sms:
+        raise RuntimeError(f"fused_spec_window: {blocks} co-resident blocks on {sms} SMs; "
+                           "the scheduler's fused_spec_fits gate refuses this shape")
+    grid = min(blocks, _WINDOW_BLOCKS_PER_SM * sms)
+    toks_out = torch.empty((rounds, B, G + 1), dtype=torch.int32, device=dev)
+    accepted = torch.empty((rounds, B), dtype=torch.int32, device=dev)
+    if rounds == 0:
+        return toks_out, accepted
+    # Attention key splits of each model: enough (row, KV head, split) items to cover the grid.
+    S_d = max(1, min(_WINDOW_MAX_SPLITS, grid // (B * d["KVH"])))
+    S_t = max(1, min(_WINDOW_MAX_SPLITS, grid // (Bv * t["KVH"])))
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+    tw = dict(dtype=dtype, device=dev)
+
+    def scratch(m, n, S):
+        """One model's forward scratch over n rows: h, qkv, attention
+        partials (acc, (m, l)), attention rows, split counters (zero), gate|up."""
+        g = m["H"] // m["KVH"]
+        return [torch.empty((n, m["D"]), **tw), torch.empty((n, (m["H"] + 2 * m["KVH"]) * m["HD"]), **tw),
+                torch.empty((n * m["KVH"] * S, g, m["HD"]), **f32), torch.empty((n * m["KVH"] * S, g, 2), **f32),
+                torch.empty((n, m["H"] * m["HD"]), **tw), torch.zeros((n * m["KVH"],), **i32),
+                torch.empty((n, 2 * m["F"]), **tw)]
+
+    bufs = [
+        k_t, v_t, k_d, v_d, *ints[:6], ints[6], *floats, toks_out, accepted,
+        torch.empty((3, B), **i32),  # cursors: pos, tok, xprev
+        torch.empty((G, B), **i32),  # proposals
+        *scratch(d, B, S_d), *scratch(t, Bv, S_t),
+        torch.empty((grid, B), **f32), torch.empty((grid, B), **i32),  # draft argmax partials
+        ints[3].repeat(G + 1, 1), ints[5].repeat(G + 1), torch.empty((Bv,), **i32),  # verify tables, active, positions
+        torch.empty((G, B, V), **f32), torch.empty((Bv, V), **f32),  # scaled draft and target logits
+        torch.empty((G, B, 3), **f32), torch.empty((Bv, 3), **f32), torch.empty((Bv,), **i32),  # filters, modes
+        profile,
+    ]
+    ptrs = (ctypes.c_void_p * len(bufs))(*(b.data_ptr() if b is not None else None for b in bufs))
+    wptrs = (ctypes.c_void_p * 24)(*(w.data_ptr() if w is not None else None for w in w_t + w_d))
+    dims = (ctypes.c_int * 24)(
+        B, grid, G, rounds, V, block_size,
+        t["L"], t["N"], t["H"], t["KVH"], t["HD"], tables_t.shape[1], t["D"], t["F"], S_t,
+        d["L"], d["N"], d["H"], d["KVH"], d["HD"], tables_d.shape[1], d["D"], d["F"], S_d)
+    fdims = (ctypes.c_float * 4)(t_rms_eps, t_theta, d_rms_eps, d_theta)
+    _, launch = _spec_kernel()
+    with torch.cuda.device(dev):
+        rc = launch(_DTYPE_CODE[dtype], len(bufs), wptrs, ptrs, dims, fdims,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_spec_window kernel launch failed: cudaError {rc}")
+    SPEC_KERNEL_LAUNCHES += 1
+    return toks_out, accepted

@@ -64,6 +64,15 @@ class EngineArgs:
     seed: int = 0
     eos_token_ids: List[int] = field(default_factory=list)
     device: str = "cuda"
+    # Speculative decoding: a draft model preset proposing spec_gamma tokens
+    # per round (seeded random weights, or TorchEngine.build's draft_params).
+    draft_model: Optional[str] = None
+    draft_checkpoint_path: Optional[str] = None
+    spec_gamma: int = 4
+
+    def __post_init__(self):
+        if self.draft_checkpoint_path:
+            raise NotImplementedError("checkpoint loading is not ported yet (ROADMAP Queue 1 item 3)")
 
 
 class TorchEngine:
@@ -88,6 +97,7 @@ class TorchEngine:
         args: EngineArgs,
         *,
         params=None,
+        draft_params=None,
         kv_event_sink: Optional[Callable[[KvEvent], None]] = None,
     ) -> "TorchEngine":
         mc = args.model_config or get_config(args.model)
@@ -112,6 +122,13 @@ class TorchEngine:
             ),
             kv_event_sink=kv_event_sink,
         )
+        if args.draft_model:
+            dc = get_config(args.draft_model)
+            if draft_params is None:
+                logger.warning("no draft checkpoint: random weights for %s", dc.name)
+                gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+                draft_params = init_params(dc, gen, device=device, dtype=dtype)
+            engine.scheduler.attach_draft(dc, draft_params, gamma=args.spec_gamma)
         return engine
 
     def _on_kv_event(self, ev: KvEvent) -> None:

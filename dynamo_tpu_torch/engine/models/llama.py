@@ -288,12 +288,13 @@ def prefill(
     block_table: torch.Tensor,  # [W] block ids (0 = scratch)
     use_flash: bool = False,  # per-piece paths: the flash kernel for the chunk piece
     has_prefix: bool = True,  # False ⇒ cache_len == 0: flash skips the prefix piece
+    all_logits: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One prefill (or prefill chunk): one ragged row of T queries, query i
     attending the ``cache_len`` cached tokens and fresh keys ``[0, i+1)``.
-    Returns (last_logits [V] f32, k_cache, v_cache); the caches are
-    updated in place. The megakernel path ignores ``use_flash`` and
-    ``has_prefix``."""
+    Returns (last_logits [V] f32, or with ``all_logits`` every row's [T,
+    V], k_cache, v_cache); the caches are updated in place. The megakernel
+    path ignores ``use_flash`` and ``has_prefix``."""
     c = config
     T = tokens.shape[0]
     dev = tokens.device
@@ -316,7 +317,7 @@ def prefill(
 
     h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend)
     _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs)
-    return _logits(params, c, h[max(valid_len - 1, 0)]), k_cache, v_cache
+    return _logits(params, c, h if all_logits else h[max(valid_len - 1, 0)]), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -471,22 +472,66 @@ def decode_multi_fused(
             "decode_multi_fused: the guided epilogue is not ported yet (ROADMAP Queue 2 item 3c)"
         )
     c = config
-    lp = params["layers"]
-    head = params.get("lm_head")
     samp = ()
     if sampled:
         dev = tokens.device
         samp = tuple(torch.as_tensor(x).to(dev) for x in (temps, top_ks, top_ps, uniforms))
     toks = megakernel.fused_decode_window(
-        params["embed"], head, params["final_norm"],
-        lp["attn_norm"], lp["mlp_norm"],
-        lp["wq"], lp["wk"], lp["wv"], lp["wo"],
-        lp["w_gate"], lp["w_up"], lp["w_down"],
-        k_cache, v_cache, tokens, positions, block_tables, active, *samp,
+        *_window_weights(params), k_cache, v_cache, tokens, positions, block_tables, active, *samp,
         num_steps=num_steps, num_heads=c.num_heads, num_kv_heads=c.num_kv_heads,
         head_dim=c.head_dim, block_size=c.block_size, rms_eps=c.rms_norm_eps, theta=c.rope_theta,
     )
     return toks, k_cache, v_cache
+
+
+def _window_weights(params: Params) -> tuple:
+    """A model's weights in the fused kernels' order: embed, head (None when
+    tied), final norm, the layers' norms and matrices."""
+    lp = params["layers"]
+    return (params["embed"], params.get("lm_head"), params["final_norm"], lp["attn_norm"], lp["mlp_norm"],
+            lp["wq"], lp["wk"], lp["wv"], lp["wo"], lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def decode_spec_fused(
+    target_params: Params,
+    target_config: ModelConfig,
+    draft_params: Params,
+    draft_config: ModelConfig,
+    k_t: torch.Tensor,  # [Lt, N, BS, KVHt, HDt] target cache
+    v_t: torch.Tensor,
+    k_d: torch.Tensor,  # [Ld, N, BS, KVHd, HDd] draft cache
+    v_d: torch.Tensor,
+    tokens: torch.Tensor,  # [B] i32 last confirmed token
+    xprev: torch.Tensor,  # [B] i32 token at positions - 1
+    positions: torch.Tensor,  # [B] i32 position of the last confirmed token
+    tables_t: torch.Tensor,  # [B, W] i32
+    tables_d: torch.Tensor,  # [B, W] i32
+    active: torch.Tensor,  # [B] bool
+    temps,  # [B] f32, tensor or numpy
+    top_ks,  # [B] i32
+    top_ps,  # [B] f32
+    uniforms: torch.Tensor,  # [rounds, B, 2*gamma+1] f32
+    rounds: int,
+    gamma: int,
+) -> Tuple[torch.Tensor, ...]:
+    """``rounds`` speculative rounds (draft γ-burst, target verify,
+    rejection sampling) in ONE launch of the fused spec-window kernel
+    (``megakernel.fused_spec_window``), both llama models' weights in the
+    kernel's order. Returns ``(tokens_out [rounds, B, γ+1], accepted
+    [rounds, B], k_t, v_t, k_d, v_d)``, the caches written in place."""
+    tc, dc = target_config, draft_config
+    dev = tokens.device
+    samp = [torch.as_tensor(x).to(dev) for x in (temps, top_ks, top_ps)]
+    toks, acc = megakernel.fused_spec_window(
+        *_window_weights(target_params), *_window_weights(draft_params),
+        k_t, v_t, k_d, v_d, tokens, xprev, positions, tables_t, tables_d, active, *samp, uniforms.to(dev),
+        rounds=rounds, gamma=gamma, block_size=tc.block_size,
+        t_num_heads=tc.num_heads, t_num_kv_heads=tc.num_kv_heads, t_head_dim=tc.head_dim,
+        t_rms_eps=tc.rms_norm_eps, t_theta=tc.rope_theta,
+        d_num_heads=dc.num_heads, d_num_kv_heads=dc.num_kv_heads, d_head_dim=dc.head_dim,
+        d_rms_eps=dc.rms_norm_eps, d_theta=dc.rope_theta,
+    )
+    return toks, acc, k_t, v_t, k_d, v_d
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,14 @@ or wave admission:
   ``llama.decode_multi``, one forward per step, unless a row is seeded
   and sampled: that batch decodes one step at a time, as in the JAX
   package. Tokens past a row's stop are trimmed.
+- **Speculative decoding** (``attach_draft``): a draft model over its own
+  paged cache, mirroring the target's block tables. Every decode batch on
+  the fused path runs R = ``num_scheduler_steps // (γ+1)`` rounds of draft
+  proposals, target verify and rejection sampling in ONE launch of the
+  fused spec-window kernel (``llama.decode_spec_fused``), then replays the
+  accepted bursts on the host. A batch with a seeded sampled row, or one
+  whose blocks cannot be reserved, takes the non-spec path above; the
+  draft catches up on the tokens it missed before its next window.
 - **Keys**: the JAX package's threefry discipline (``engine/prng.py``):
   a step counter folded into ``PRNGKey(rng_seed)`` wherever the JAX
   scheduler folds it, and seeded requests keyed by their own seed and
@@ -61,6 +69,7 @@ from dynamo_tpu_torch.engine import prng
 from dynamo_tpu_torch.engine.sampling import (
     SamplingParams, make_row_keys, make_window_uniforms, pack_param_rows, sample_batch,
 )
+from dynamo_tpu_torch.engine.spec_decode import SpecDecodeStats
 from dynamo_tpu_torch.llm.tokens import extend_block_hashes
 
 logger = logging.getLogger(__name__)
@@ -157,6 +166,9 @@ class Sequence:
     # generated tokens but the last, which re-enters through decode).
     resume_tokens: Optional[List[int]] = None
     preemptions: int = 0
+    # Tokens whose KV is in the draft cache (speculative decoding); it lags
+    # the target's after non-spec steps and catches up before a spec window.
+    d_n: int = 0
 
     @property
     def all_ids(self) -> List[int]:
@@ -210,6 +222,8 @@ class ForwardPassMetrics:
     prefix_hit_blocks_total: int = 0
     prefix_miss_blocks_total: int = 0
     prefix_evicted_blocks_total: int = 0
+    # SpecDecodeStats.to_dict() with a draft attached, else None.
+    spec_decode: Optional[dict] = None
 
     def to_wire(self) -> dict:
         return self.__dict__.copy()
@@ -272,6 +286,19 @@ class Scheduler:
         self.fused_sampled_windows_total = 0
         self.multi_windows_total = 0
         self.window_steps_total = 0
+        # Speculative decoding (attach_draft): the draft and its cache, γ,
+        # the acceptance stats, rounds per fused spec window, the spec
+        # windows run and the tokens they emitted, and the draft's prefill
+        # chunks (its catch-up; not in forward_steps_total).
+        self.draft_params = None
+        self.draft_cfg: Optional[ModelConfig] = None
+        self.draft_cache: Optional[KvCacheArrays] = None
+        self.spec_gamma = 0
+        self.spec_stats = None
+        self._spec_rounds = 0
+        self.spec_fused_windows_total = 0
+        self.spec_fused_accepted_tokens_total = 0
+        self.draft_prefill_steps_total = 0
         # Trim buckets to the model's max length.
         self.sc.prefill_buckets = [b for b in self.sc.prefill_buckets if b <= model_config.max_seq_len] or [
             model_config.max_seq_len
@@ -350,6 +377,7 @@ class Scheduler:
             prefix_hit_blocks_total=a.hit_blocks_total,
             prefix_miss_blocks_total=a.miss_blocks_total,
             prefix_evicted_blocks_total=a.evicted_blocks_total,
+            spec_decode=self.spec_stats.to_dict() if self.spec_stats else None,
         )
 
     def config_snapshot(self) -> dict:
@@ -368,6 +396,45 @@ class Scheduler:
                 "attention_impl": self._attn_impl,
             },
         }
+
+    def attach_draft(self, draft_config: ModelConfig, draft_params, *, gamma: int = 4) -> None:
+        """Enable speculative decoding: the draft proposes γ tokens per round
+        and the target verifies them, R = ``num_scheduler_steps // (γ+1)``
+        rounds per fused spec window. The draft's paged cache mirrors the
+        target's block tables, so allocation, preemption and the prefix
+        cache are shared. Only the fused window is ported: where its gate
+        refuses (no fused decode window, or ``megakernel.fused_spec_fits``
+        says no), this raises rather than attach a draft it would not use."""
+        if draft_config.block_size != self.mc.block_size:
+            raise ValueError("draft and target must share block_size")
+        if draft_config.vocab_size != self.mc.vocab_size:
+            raise ValueError("draft and target must share the vocabulary")
+        if draft_config.architecture != "llama" or self.mc.architecture != "llama":
+            raise ValueError("spec decode needs llama-family draft AND target for now")
+        dtype = self.params["embed"].dtype
+        fits = (
+            self._use_fused_window
+            and draft_params["embed"].dtype == dtype
+            and megakernel.fused_spec_fits(
+                self.mc, draft_config, batch=self.sc.decode_buckets[-1], gamma=gamma, dtype=dtype,
+                kv_dtype=self.cache.k.dtype, device=self.device,
+            )
+        )
+        if not fits:
+            raise NotImplementedError(
+                "speculative decoding runs only as the fused spec window (multi-step windows on the "
+                "megakernel path, a draft the kernel takes); the per-round spec path is not ported yet "
+                "(ROADMAP Queue 1 item 13b)"
+            )
+        self.draft_cache = KvCacheArrays.create(draft_config, self.sc.num_blocks, dtype=self.cache.k.dtype,
+                                                device=self.device)
+        self.draft_cfg = draft_config
+        self.draft_params = draft_params
+        self.spec_gamma = gamma
+        self.spec_stats = SpecDecodeStats()
+        # Each round nets 1..γ+1 tokens, so the window's worst-case span
+        # stays that of a plain fused window.
+        self._spec_rounds = max(1, self.sc.num_scheduler_steps // (gamma + 1))
 
     # --- step loop core (runs in worker thread) -----------------------------
     def step(self) -> List[tuple]:
@@ -391,7 +458,7 @@ class Scheduler:
         """Head-of-queue sequence eligible to ride a mixed step, or None.
         Only the head is considered (FIFO); a full decode set keeps a
         not-yet-admitted head out."""
-        if not (self.sc.enable_mixed_batching and self.running and self.waiting):
+        if not (self.sc.enable_mixed_batching and self.draft_params is None and self.running and self.waiting):
             return None
         head = self.waiting[0]
         if head.aborted:
@@ -586,6 +653,7 @@ class Scheduler:
         self.prefill_steps_total += 1
         seq.num_computed += len(tokens)
         self._register_full_blocks(seq)  # chunk's completed blocks go live
+        self._draft_catchup(seq, pf_tokens, seq.num_computed)
 
         if seq.num_computed < len(pf_tokens):
             return False  # more chunks to go
@@ -598,6 +666,25 @@ class Scheduler:
         token = self._sample_one(seq, logits)
         self._append_token(seq, token, outputs)
         return True
+
+    def _draft_catchup(self, seq: Sequence, tokens: List[int], upto: int) -> None:
+        """Draft KV for positions ``seq.d_n .. upto-1`` of ``tokens``, in
+        prefill chunks: it mirrors each prompt chunk (the draft computes the
+        whole prompt, whatever the target's prefix-cache hit) and absorbs the
+        lag left by non-spec decode steps."""
+        if self.draft_params is None:
+            return
+        while seq.d_n < upto:
+            start = seq.d_n
+            chunk = min(upto - start, self.sc.max_prefill_chunk)
+            bucket = next_bucket(chunk, self.sc.prefill_buckets)
+            chunk = min(chunk, bucket)
+            padded = np.zeros((bucket,), dtype=np.int32)
+            padded[:chunk] = tokens[start:start + chunk]
+            llama.prefill(self.draft_params, self.draft_cfg, self.draft_cache.k, self.draft_cache.v,
+                          self._dev(padded), chunk, start, self._prefill_table(seq), has_prefix=start > 0)
+            seq.d_n += chunk
+            self.draft_prefill_steps_total += 1
 
     def _width_bucket(self, max_used: int) -> int:
         """Block-table width buckets at pow2 AND 1.5·pow2 rungs."""
@@ -626,6 +713,15 @@ class Scheduler:
         n = min(len(self.running), self.sc.decode_buckets[-1])
         batch = self.running[:n]
         bucket = next_bucket(n, self.sc.decode_buckets)
+        # With a draft attached the batch speculates, unless a row is seeded
+        # and sampled (the spec window keys its draws per batch, not per
+        # request) or the window's blocks cannot be reserved: then it takes
+        # the non-spec path below (the JAX package tries its per-round spec
+        # path first, which is not ported).
+        if self.draft_params is not None and not any(
+            s.sampling.seed is not None and s.sampling.temperature > 0 for s in batch
+        ) and self._decode_spec_fused(batch, bucket, outputs):
+            return outputs
         # A batch rides a window unless a row needs the host between tokens.
         # The port's requests carry no such extras yet (logprobs, penalties,
         # logits processors, guided decoding: the HTTP layer refuses them);
@@ -706,6 +802,68 @@ class Scheduler:
                 self._append_token(seq, int(sampled[s, i]), outputs)
         return True
 
+    def _decode_spec_fused(self, batch: List[Sequence], bucket: int, outputs: List[tuple]) -> bool:
+        """R speculative rounds in ONE launch (``llama.decode_spec_fused``):
+        per round the draft proposes γ tokens, the target verifies the γ+1
+        chunk and rejection sampling keeps a prefix plus a correction or
+        bonus token, the cursors advancing on the device. The host syncs
+        once and replays each round's burst, trimming at stops. Returns False
+        (the caller decodes without the draft) when the window would pass
+        ``max_seq_len`` or its blocks can't be reserved."""
+        gamma, R = self.spec_gamma, self._spec_rounds
+        span = R * (gamma + 1)  # worst-case tokens appended per window
+        bs = self.mc.block_size
+        for seq in batch:
+            if seq.total_len + span + 1 > self.mc.max_seq_len:
+                return False
+            need = (seq.total_len + span + 1 + bs - 1) // bs - len(seq.block_ids)
+            if need > 0:
+                try:
+                    seq.block_ids.extend(self.allocator.allocate(need))
+                except OutOfBlocksError:
+                    return False
+            if seq.total_len - seq.d_n > 2:
+                # The kernel's catch-up re-feeds only the token at pos-1, so
+                # the draft cache must cover pos-2 already.
+                self._draft_catchup(seq, seq.all_ids, seq.total_len - 1)
+        n0 = len(outputs)
+        width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
+        tables = np.zeros((bucket, width), dtype=np.int32)
+        tpa = np.zeros((4, bucket), dtype=np.int32)  # tokens, xprev, positions, active
+        for i, seq in enumerate(batch):
+            tables[i, : len(seq.block_ids)] = seq.block_ids
+            tpa[:, i] = (seq.all_ids[-1], seq.all_ids[-2], seq.total_len - 1, 1)
+        temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
+        # Every draw of the window (γ proposals, γ accept tests and the
+        # correction or bonus per round and row) in one upload.
+        uniforms = prng.uniform(self._next_key(), (R, bucket, 2 * gamma + 1), device=self.device)
+        tpa_d, tables_d = self._dev(tpa), self._dev(tables)
+        toks, acc, _, _, _, _ = llama.decode_spec_fused(
+            self.params, self.mc, self.draft_params, self.draft_cfg, self.cache.k, self.cache.v,
+            self.draft_cache.k, self.draft_cache.v, tpa_d[0], tpa_d[1], tpa_d[2], tables_d, tables_d,
+            tpa_d[3].bool(), temps, top_ks, top_ps, uniforms, rounds=R, gamma=gamma,
+        )
+        toks_h, acc_h = toks.cpu().numpy(), acc.cpu().numpy()  # the one host sync
+        st = self.spec_stats
+        for r in range(R):
+            st.num_rounds += 1
+            for i, seq in enumerate(batch):
+                if seq.state != SeqState.RUNNING:
+                    continue  # stopped in an earlier round
+                k = int(acc_h[r, i])
+                st.record_round(k, gamma)
+                old_total = seq.total_len
+                for t in list(toks_h[r, i, :k]) + [toks_h[r, i, gamma]]:
+                    if seq.state != SeqState.RUNNING:
+                        break  # a stop inside the burst: the rest is trimmed
+                    self._append_token(seq, int(t), outputs)
+                # The draft holds the catch-up row and the first min(k, γ-1)
+                # proposal feeds of this round.
+                seq.d_n = old_total + min(k, gamma - 1)
+        self.spec_fused_windows_total += 1
+        self.spec_fused_accepted_tokens_total += len(outputs) - n0
+        return True
+
     def _finish_decode_rows(
         self, batch: List[Sequence], bucket: int, logits: torch.Tensor, outputs: List[tuple]
     ) -> None:
@@ -762,6 +920,7 @@ class Scheduler:
         victim.block_hashes = []
         victim.num_cached_blocks = 0
         victim.num_computed = 0
+        victim.d_n = 0  # the draft's rows went with the blocks
         # Recompute everything up to (not including) the last token; the
         # last token re-enters through the decode step on resume.
         victim.resume_tokens = list(victim.all_ids[:-1])

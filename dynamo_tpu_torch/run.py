@@ -8,6 +8,7 @@ tokenizer.
 
 Example:
   python -m dynamo_tpu_torch.run in=http out=llama-3.2-1b --http-port 8080
+  python -m dynamo_tpu_torch.run in=http out=llama-3.2-3b --draft-model llama-3.2-1b
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--http-host", default="0.0.0.0")
     p.add_argument("--http-port", type=int, default=8080)
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights and of sampling")
+    p.add_argument("--draft-model", default=None,
+                   help="draft model preset for speculative decoding (seeded random weights)")
+    p.add_argument("--spec-gamma", type=int, default=4, help="speculative tokens proposed per round")
     args = p.parse_args(argv)
     spec = dict(part.partition("=")[::2] for part in args.io)
     if spec.get("in") != "http" or not spec.get("out"):
@@ -50,6 +54,7 @@ def build_service(
     args: argparse.Namespace,
     model_config: Optional[ModelConfig] = None,
     scheduler_config: Optional[SchedulerConfig] = None,
+    draft_params=None,
 ) -> Tuple[HttpService, TorchEngine]:
     """The engine on ``args.device`` and the HTTP service over its pipeline
     (not started). ``model_config`` replaces the preset ``args.out`` names,
@@ -57,7 +62,9 @@ def build_service(
     prefill_impl="flash")`` for the per-piece attention path.
     ``scheduler_config`` replaces the scheduler's defaults, e.g.
     ``SchedulerConfig(num_scheduler_steps=1)`` for one decode step per
-    iteration; its ``num_blocks`` is set from ``--num-blocks``."""
+    iteration; its ``num_blocks`` is set from ``--num-blocks``. With
+    ``--draft-model`` the engine speculates; ``draft_params`` gives the
+    draft its weights (e.g. the target's own, for self-speculation)."""
     tokenizer = load_tokenizer()
     engine = TorchEngine.build(
         EngineArgs(
@@ -68,7 +75,10 @@ def build_service(
             device=args.device,
             eos_token_ids=tokenizer.eos_token_ids,
             scheduler=dataclasses.replace(scheduler_config or SchedulerConfig(), num_blocks=args.num_blocks),
-        )
+            draft_model=args.draft_model,
+            spec_gamma=args.spec_gamma,
+        ),
+        draft_params=draft_params,
     )
     pipeline = build_local_pipeline(tokenizer, engine)
     return HttpService({args.out: pipeline}, host=args.http_host, port=args.http_port), engine

@@ -422,3 +422,124 @@ def test_sampled_fused_window_matches_plain_version(cuda, name):
     assert torch.equal(toks[:, live].cpu(), ref[:, live].cpu())
     torch.testing.assert_close(kk[:, 1:], kr[:, 1:], rtol=0, atol=1e-3)
     torch.testing.assert_close(vk[:, 1:], vr[:, 1:], rtol=0, atol=1e-3)
+
+
+# The fused spec window: R rounds of γ = 2 over 4 rows at ragged positions,
+# the last row dead.
+SPEC_R, SPEC_G = 3, 2
+SPEC_POS = [1, 15, 40]
+NARROW = dict(hidden_size=32, num_layers=1, num_heads=2, num_kv_heads=1, head_dim=16, intermediate_size=64)
+
+
+def _spec(kind, dev):
+    """(target cfg, draft cfg, target weights, draft weights, caches, inputs)
+    of one spec window on ``dev`` in f32: "perturbed" (the draft is the
+    target plus 0.002 × seeded noise over a copy of the target's cache,
+    greedy rows), "sampled" (the same draft, rows in ``SAMPLE_MIX``'s turn),
+    "self sampled" (the draft is the target, rows in ``SAMPLE_MIX``'s
+    turn: every proposal accepted, the bonus drawn) or "narrow" (a draft of
+    other widths, greedy). Caches of random K/V,
+    block 0 scratch filled with large values, pages drawn at random
+    covering the window."""
+    g = torch.Generator().manual_seed(sum(map(ord, kind)))
+    tcfg = get_config("tiny")
+    dcfg = tcfg.replace(**NARROW) if kind == "narrow" else tcfg
+    tp = init_params(tcfg, g, device="cpu", dtype=torch.float32)
+    if kind == "narrow":
+        dp = init_params(dcfg, g, device="cpu", dtype=torch.float32)
+    elif kind == "self sampled":
+        dp = tp
+    else:
+        dp = {n: ({kk: vv + 0.002 * torch.randn(vv.shape, generator=g) for kk, vv in w.items()}
+                  if isinstance(w, dict) else w + 0.002 * torch.randn(w.shape, generator=g)) for n, w in tp.items()}
+    span = SPEC_R * (SPEC_G + 1)
+    need = [(p + span) // BS + 1 for p in SPEC_POS]
+    NB = sum(need) + 1
+    ids = (torch.randperm(NB - 1, generator=g) + 1).to(torch.int32)
+    B = len(SPEC_POS) + 1
+    tables = torch.zeros((B, max(need) + 1), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    caches = []
+    for cfg in (tcfg, dcfg):
+        for _ in range(2):
+            c = torch.randn((cfg.num_layers, NB, BS, cfg.num_kv_heads, cfg.head_dim), generator=g)
+            c[:, 0] = 1e4
+            caches.append(c.to(dev))
+    if kind != "narrow":  # the draft's history is the target's: it mostly agrees
+        caches[2:] = [c.clone() for c in caches[:2]]
+    samp = _sample_rows(B, 1, dev, 9)[:3] if kind.endswith("sampled") else (
+        torch.zeros(B, device=dev), torch.zeros(B, dtype=torch.int32, device=dev), torch.ones(B, device=dev))
+    u = torch.from_numpy(np.random.default_rng(3).random((SPEC_R, B, 2 * SPEC_G + 1), dtype=np.float32)).to(dev)
+    ints = [torch.randint(1, tcfg.vocab_size, (B,), generator=g, dtype=torch.int32),
+            torch.randint(1, tcfg.vocab_size, (B,), generator=g, dtype=torch.int32),
+            torch.tensor(SPEC_POS + [0], dtype=torch.int32), tables, tables, torch.tensor([True] * (B - 1) + [False])]
+    to = lambda p: {n: ({kk: vv.to(dev) for kk, vv in w.items()} if isinstance(w, dict) else w.to(dev))  # noqa: E731
+                    for n, w in p.items()}
+    return tcfg, dcfg, to(tp), to(dp), caches, [t.to(dev) for t in ints] + [*samp, u]
+
+
+def _spec_kw(tcfg, dcfg):
+    return dict(rounds=SPEC_R, gamma=SPEC_G, block_size=BS,
+                t_num_heads=tcfg.num_heads, t_num_kv_heads=tcfg.num_kv_heads, t_head_dim=tcfg.head_dim,
+                t_rms_eps=tcfg.rms_norm_eps, t_theta=tcfg.rope_theta, d_num_heads=dcfg.num_heads,
+                d_num_kv_heads=dcfg.num_kv_heads, d_head_dim=dcfg.head_dim, d_rms_eps=dcfg.rms_norm_eps,
+                d_theta=dcfg.rope_theta)
+
+
+@pytest.mark.parametrize("kind", ["perturbed", "sampled", "self sampled", "narrow"])
+def test_fused_spec_kernel_matches_plain_version(cuda, kind):
+    """One launch of the spec kernel against its plain version from copies
+    of the same caches: live rows' tokens and accept counts equal, both
+    caches within 1e-3 everywhere but block 0 (the dead row's sink), and no
+    plain call on CUDA tensors."""
+    tcfg, dcfg, tp, dp, caches, inputs = _spec(kind, cuda)
+    w = [*llama._window_weights(tp), *llama._window_weights(dp)]
+    kern = [c.clone() for c in caches]
+    before = (mk.SPEC_KERNEL_LAUNCHES, mk.SPEC_REF_CALLS)
+    toks, acc = mk.fused_spec_window(*w, *kern, *inputs, **_spec_kw(tcfg, dcfg))
+    assert (mk.SPEC_KERNEL_LAUNCHES, mk.SPEC_REF_CALLS) == (before[0] + 1, before[1])
+    ref_toks, ref_acc = mk.fused_spec_window_ref(*w, *caches, *inputs, **_spec_kw(tcfg, dcfg))
+    torch.cuda.synchronize()
+    live = inputs[5].cpu()
+    assert torch.equal(acc[:, live].cpu(), ref_acc[:, live].cpu())
+    assert torch.equal(toks[:, live].cpu(), ref_toks[:, live].cpu())
+    assert bool(((acc >= 0) & (acc <= SPEC_G)).all())
+    for got, want in zip(kern, caches):
+        torch.testing.assert_close(got[:, 1:], want[:, 1:], rtol=0, atol=1e-3)
+    if kind == "perturbed":
+        assert 0 < int(acc[:, live].sum()) < SPEC_G * SPEC_R * int(live.sum())  # accepts and rejections
+    if kind == "self sampled":  # a sampled row accepted all γ: the kernel drew the bonus
+        sampled = live & (inputs[6].cpu() > 0)
+        assert bool((acc[:, sampled].cpu() == SPEC_G).any())
+
+
+def test_fused_spec_profile_gate_and_refusals(cuda):
+    tcfg, dcfg, tp, dp, caches, inputs = _spec("perturbed", cuda)
+    w = [*llama._window_weights(tp), *llama._window_weights(dp)]
+    kw = _spec_kw(tcfg, dcfg)
+    prof = torch.zeros(mk.spec_profile_len(SPEC_R, SPEC_G), dtype=torch.int64, device=cuda)
+    mk.fused_spec_window(*w, *[c.clone() for c in caches], *inputs, **kw, profile=prof)
+    t = prof.cpu()
+    assert bool((t > 0).all()) and bool((t[1:] >= t[:-1]).all())
+    with pytest.raises(ValueError, match="profile"):
+        mk.fused_spec_window(*w, *caches, *inputs, **kw, profile=prof[:-1])
+    with pytest.raises(ValueError, match="batch"):
+        mk.fused_spec_window(*w, *caches, *(x[:3] for x in inputs[:9]), inputs[9][:, :3], **kw)
+    with pytest.raises(ValueError, match="gamma"):
+        mk.fused_spec_window(*w, *caches, *inputs[:9], torch.zeros((SPEC_R, 4, 19), device=cuda),
+                             **{**kw, "gamma": mk.SPEC_MAX_GAMMA + 1})
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        mk.fused_spec_window(*w, *caches, inputs[0].to("meta"), *inputs[1:], **kw)
+    # CPU tensors run the plain version.
+    cpu = lambda x: x.cpu() if x is not None else None  # noqa: E731
+    before = (mk.SPEC_KERNEL_LAUNCHES, mk.SPEC_REF_CALLS)
+    mk.fused_spec_window(*map(cpu, w), *map(cpu, caches), *map(cpu, inputs), **kw)
+    assert (mk.SPEC_KERNEL_LAUNCHES, mk.SPEC_REF_CALLS) == (before[0], before[1] + 1)
+    one = get_config("llama-3.2-1b")
+    assert mk.fused_spec_fits(get_config("llama-3.2-3b"), one, batch=32, gamma=4, dtype=torch.bfloat16,
+                              kv_dtype=torch.bfloat16, device=cuda)
+    blocks, sms = mk.fused_spec_grid(torch.bfloat16, 8, 3, 128, 4, 64, cuda)
+    assert blocks >= sms == torch.cuda.get_device_properties(cuda).multi_processor_count

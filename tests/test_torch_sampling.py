@@ -97,3 +97,35 @@ def test_sample_batch_draws_from_the_generator(seed):
     np.testing.assert_array_equal(got, _jax_sample(logits, temps, top_ks, top_ps, key, row_keys))
     probs = tsampling.filtered_probs_rows(*_t(logits, temps, top_ks, top_ps)).numpy()
     assert all(probs[i, tok] > 0 for d in (draws[0], got) for i, tok in enumerate(d))
+
+
+def _window_rows(seed, B=8, V=4096):
+    """A batch whose every sampled row has 1 ≤ top_k ≤ 64, so JAX
+    ``sample_batch`` takes its thresholds from the 64 largest logits
+    (its windowed path) instead of the full sort."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((B, V)) * 4).astype(np.float32)
+    temps = np.array([0.0, 1.0, 0.7, 1.3, 0.5, 1.0, 2.0, 0.9], np.float32)[:B]
+    top_ks = np.array([0, 64, 5, 20, 40, 1, 64, 33], np.int32)[:B]
+    top_ps = np.array([1.0, 1.0, 0.9, 1.0, 0.95, 1.0, 1.0, 0.9], np.float32)[:B]
+    return logits, temps, top_ks, top_ps
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_sample_batch_matches_jax_windowed_path(seed):
+    logits, temps, top_ks, top_ps = _window_rows(20 + seed)
+    # JAX's own test for its window: every sampled row's k fits in 64, and
+    # a row with top_p < 1 has at least top_p of its mass among the 64.
+    scaled = logits / np.where(temps > 0, temps, 1)[:, None]
+    p = np.exp(scaled - scaled.max(-1, keepdims=True))
+    top64 = np.sort(p / p.sum(-1, keepdims=True), axis=-1)[:, ::-1][:, :64].sum(-1)
+    sampled = temps > 0
+    assert np.all(~sampled | ((top_ks >= 1) & (top_ks <= 64) & ((top_ps >= 1) | (top64 >= top_ps))))
+    key = prng.fold_in(prng.PRNGKey(seed), 9)
+    t = torch.from_numpy(logits)
+    got = tsampling.sample_batch(t, temps, top_ks, top_ps, key)
+    np.testing.assert_array_equal(got, _jax_sample(logits, temps, top_ks, top_ps, key))
+    row_keys = tsampling.make_row_keys(key, np.arange(8, dtype=np.int32) * 3, np.arange(8, dtype=np.int32),
+                                       np.arange(8) % 3 == 0)
+    got = tsampling.sample_batch(t, temps, top_ks, top_ps, key, row_keys)
+    np.testing.assert_array_equal(got, _jax_sample(logits, temps, top_ks, top_ps, key, row_keys))
