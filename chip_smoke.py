@@ -6,15 +6,18 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 ``dynamo_tpu_torch/csrc`` with nvcc, holds each kernel against its plain
 PyTorch version at the shapes the serving path gives it (and times the
 launch-overhead probe), among them the fused decode window's sampled
-epilogue, alone on given logits and inside the window, and the fused spec
-window (llama-3.2-1b over a perturbed copy of itself and llama-3.2-3b over
+epilogue, alone on given logits (also on rows masked to -inf, as guided
+rows reach it) and inside the window, its guided epilogue (greedy and
+sampled rows constrained by a regex, a JSON schema and a choice over the
+port's grammar pools at the full vocabulary: no token outside a grammar,
+the FSM rows the host's replay), and the fused spec window (llama-3.2-1b over a perturbed copy of itself and llama-3.2-3b over
 a llama-3.2-1b draft in f32, both pairs timed in bf16); runs the
 full-width llama-3.2-1b model on the kernel paths against the plain
 paths, the fused window, greedy and sampled, against ``decode_multi``,
 and the spec window speculating with the target's own weights against
 the fused window's greedy stream; times a decode step, a mixed step, the
-per-step threefry draw and a 32-step decode window, greedy and sampled,
-and a spec window; then serves ``dynamo_tpu_torch.run in=http
+per-step threefry draw and a 32-step decode window, greedy, sampled and
+guided, and a spec window; then serves ``dynamo_tpu_torch.run in=http
 out=llama-3.2-1b`` four times: on the megakernel path and on the
 per-piece path (``attention_impl="paged", prefill_impl="flash"``), both
 at one decode step per iteration, with the defaults (32-step decode
@@ -23,7 +26,12 @@ a llama-3.2-1b draft of the target's weights (``--draft-model``: every
 batch speculates in fused spec windows), sending each concurrent
 requests and counting every kernel's launches; the last two passes also
 send one seeded sampled request at two batch slots and hold its two
-answers equal. Every phase prints JSON lines; any failure raises and
+answers equal; the last two passes also send structured-output requests
+(``response_format: json_schema`` and ``json_object``, ``nvext.
+guided_choice``) whose answers must hold their grammars, reporting each
+grammar's compile and pool-write seconds, the pools' bytes and the
+unguided requests' TTFT, and whose windows must take the guided
+epilogue. Every phase prints JSON lines; any failure raises and
 exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result.
 
@@ -55,6 +63,7 @@ TPU_KERNEL = {
     "paged_decode_partials": "dynamo_tpu/engine/attention/decode.py:65",  # :173
     "fused_decode_window": "dynamo_tpu/engine/attention/megakernel.py:358",  # :619
     "fused_decode_window_sampled": "dynamo_tpu/engine/attention/megakernel.py:509",  # the sampled branch
+    "fused_decode_window_guided": "dynamo_tpu/engine/attention/megakernel.py:503",  # the guided branch, :518
     "fused_spec_window": "dynamo_tpu/engine/attention/megakernel.py:807",  # :1034
     "nop": "bench.py:142",  # :145
 }
@@ -85,6 +94,7 @@ def kernel_counters():
             "paged_decode_partials": (decode, "KERNEL_LAUNCHES", "REF_CALLS"),
             "fused_decode_window": (megakernel, "WINDOW_KERNEL_LAUNCHES", "WINDOW_REF_CALLS"),
             "fused_decode_window_sampled": (megakernel, "WINDOW_SAMPLED_LAUNCHES", "WINDOW_SAMPLED_REF_CALLS"),
+            "fused_decode_window_guided": (megakernel, "WINDOW_GUIDED_LAUNCHES", "WINDOW_GUIDED_REF_CALLS"),
             "sample_epilogue": (megakernel, "EPILOGUE_KERNEL_LAUNCHES", "EPILOGUE_REF_CALLS"),
             "fused_spec_window": (megakernel, "SPEC_KERNEL_LAUNCHES", "SPEC_REF_CALLS"),
             "nop": (bench, "KERNEL_LAUNCHES", "REF_CALLS")}
@@ -432,10 +442,10 @@ def check_nop(dev):
 
 
 # The scheduler's window counters: fused windows (one launch each), those
-# with a sampled row, non-fused windows (decode_multi) and the forward steps
-# inside those.
-WINDOW_COUNTERS = ("fused_windows_total", "fused_sampled_windows_total", "multi_windows_total",
-                   "window_steps_total")
+# with a sampled row, those with a guided row, non-fused windows
+# (decode_multi) and the forward steps inside those.
+WINDOW_COUNTERS = ("fused_windows_total", "fused_sampled_windows_total", "fused_guided_windows_total",
+                   "multi_windows_total", "window_steps_total")
 # (temperature, top_k, top_p) of the sampled checks' rows, in turn: greedy,
 # top_k = 1, top-p off, top_k past the vocab, joint top-k/top-p, top-p
 # alone, top-k alone, a narrow nucleus.
@@ -502,6 +512,81 @@ def sample_rows(B, steps, dev, seed):
             torch.from_numpy(rng.random((steps, B), dtype=np.float32)).to(dev))
 
 
+# The guided checks' grammars (llm/guided specs, over the byte tokenizer at
+# the model's vocabulary): a regex, a small JSON schema and a choice.
+GUIDED_SCHEMA = {"type": "object", "properties": {"city": {"enum": ["SF", "NY", "LA"]},
+                                                  "temp": {"type": "integer"}, "ok": {"type": "boolean"}}}
+# The guided window's 8 rows: (grammar, (temperature, top_k, top_p))), a
+# grammar of None being an unguided row: three greedy guided rows, three
+# sampled guided rows from SAMPLE_MIX, one unguided greedy and one unguided
+# sampled row.
+GUIDED_ROWS = [(0, SAMPLE_MIX[0]), (1, SAMPLE_MIX[0]), (2, SAMPLE_MIX[0]), (0, SAMPLE_MIX[3]), (1, SAMPLE_MIX[4]),
+               (2, SAMPLE_MIX[5]), (None, SAMPLE_MIX[0]), (None, SAMPLE_MIX[7])]
+_GUIDED_DECODERS: dict = {}
+
+
+def guided_specs() -> list:
+    from dynamo_tpu_torch.llm.guided.grammar import schema_to_regex
+
+    return [{"kind": "regex", "pattern": r"[a-c]{2}-\d{2,12}"},
+            {"kind": "regex", "pattern": schema_to_regex(GUIDED_SCHEMA)},
+            {"kind": "choice", "choices": ["red", "green", "blue"]}]
+
+
+def guided_decoder(dev, V: int):
+    """The port's ``GuidedDecoder`` over the byte tokenizer at vocabulary
+    ``V``, its pools on ``dev`` at the scheduler's default capacity (1024
+    rows), one per (device, V)."""
+    from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    key = (str(dev), V)
+    if key not in _GUIDED_DECODERS:
+        _GUIDED_DECODERS[key] = GuidedDecoder(ByteTokenizer(), eos_ids=[0], vocab_size=V, pool_rows=1024, device=dev)
+    return _GUIDED_DECODERS[key]
+
+
+def guided_rows(dev, V: int, steps: int, seed: int) -> tuple:
+    """The guided window's operands for ``GUIDED_ROWS``: (each row's token
+    FSM or None, (temps, top_ks, top_ps, uniforms [steps, 8]), (rows0,
+    mask_pool, next_pool))."""
+    dec, specs = guided_decoder(dev, V), guided_specs()
+    states = [None if g is None else dec.open(specs[g]) for g, _ in GUIDED_ROWS]
+    rng = np.random.default_rng(seed)
+    samp = (torch.tensor([r[0] for _, r in GUIDED_ROWS], dtype=torch.float32, device=dev),
+            torch.tensor([r[1] for _, r in GUIDED_ROWS], dtype=torch.int32, device=dev),
+            torch.tensor([r[2] for _, r in GUIDED_ROWS], dtype=torch.float32, device=dev),
+            torch.from_numpy(rng.random((steps, len(GUIDED_ROWS)), dtype=np.float32)).to(dev))
+    rows0 = torch.tensor([0 if st is None else st.row_id for st in states], dtype=torch.int32, device=dev)
+    return [None if st is None else st.fsm for st in states], samp, (rows0, dec.pool.device(), dec.pool.next_device())
+
+
+def guided_replay(fsms, rows0, next_pool, toks) -> dict:
+    """The host's replay of a guided window's tokens ``[steps, B]``: per
+    guided row the tokens its FSM does not allow where they fall (the walk
+    follows ``next_state``; EOS in an accepting state stays there), and its
+    mask-pool row after the window through ``next_pool``; the distinct mask
+    rows and (row, token) transitions the window read."""
+    nxt = next_pool.cpu()
+    toks = toks.cpu()
+    outside, final, rows_read, moves = {}, {}, set(), set()
+    for b, fsm in enumerate(fsms):
+        if fsm is None:
+            continue
+        state, row, bad = 0, int(rows0[b]), []
+        for i, tok in enumerate(toks[:, b].tolist()):
+            rows_read.add(row)
+            moves.add((row, tok))
+            if not bad:  # the first token outside the grammar ends the walk
+                if fsm.allows(state, tok):
+                    state = int(fsm.next_state[state, tok])
+                else:
+                    bad.append((i, tok))
+            row = int(nxt[row, tok])
+        outside[b], final[b] = bad, row
+    return {"outside": outside, "final_rows": final, "rows_read": len(rows_read), "moves": len(moves)}
+
+
 def window_work(case):
     """(bytes, streamed bytes, flops) of one window. Bytes: every input
     read once and every output written once: the weights (the tied
@@ -526,6 +611,9 @@ def window_work(case):
     row_bytes = 2 * L * KVH * HD * esz  # one token's K and V over every layer
     small = case["ints"][2].numel() * 4 + 16 * B + steps * B * 4
     small += 12 * B + steps * B * 4 if case.get("samp") else 0  # temps, top_ks, top_ps, uniforms
+    if case.get("guide"):  # rows0, the mask rows and next-row entries the window read, the rows out
+        small += 8 * B + case["guided_reads"]["rows_read"] * case["guide"][1].shape[1] * 4 \
+            + case["guided_reads"]["moves"] * 4
     gathered = 0 if head is None else steps * rows * embed.shape[1]
     nbytes = ((sum(w.numel() for w in rest) + head_elems + gathered) * esz
               + row_bytes * (sum(case["positions"]) + rows * steps) + small)
@@ -537,24 +625,35 @@ def window_work(case):
 
 def check_window(case, *, time_it: bool, hold_tokens: bool = True):
     """``fused_decode_window`` against its plain version on the card, greedy
-    or, where the case holds ``samp``, with the sampled epilogue. Both
-    start from copies of one cache. f32: every live row's tokens equal and
-    the written K/V rows within 1e-3; bf16: the step-0 tokens equal (unless
+    or, where the case holds ``samp``, with the sampled epilogue, and where
+    it holds ``guide`` (rows0, mask_pool, next_pool) and ``fsms`` (each
+    row's token FSM or None), with the guided epilogue. Both start from
+    copies of one cache. f32: every live row's tokens equal and the written
+    K/V rows within 1e-3; bf16: the step-0 tokens equal (unless
     ``hold_tokens`` is false) and the step-0 K/V rows within 2^-5 of their
     scale (each side rounds every product to bf16, in its own summation
     order, through 16 layers of a bf16 residual, and the kernel keeps p in
     f32 where the plain version rounds it), the window's token agreement
     printed. In both, every other cache slot (block 0 aside) is left as it
-    was. Timed sampled: also the greedy window on the same inputs, and
-    both windows' phases from the kernel's stamps."""
+    was; guided, in both dtypes, no token of either side outside its row's
+    grammar (the host FSM's replay) and each row's FSM row after the
+    window the host's replay of the kernel's tokens. Timed sampled: also
+    the greedy window on the same inputs, and both windows' phases from
+    the kernel's stamps; timed guided: also the sampled window on the same
+    inputs, and the guided window's phases."""
     from dynamo_tpu_torch.engine.attention import megakernel as mk
 
     w, ints, kw, dtype = case["weights"], case["ints"], case["kw"], case["dtype"]
     samp = case.get("samp") or ()
+    guide = case.get("guide") or ()
+    extra = (*(samp or (None,) * 4), *guide) if guide else samp
     k0, v0 = case["k"], case["v"]
     kk, vk, kr, vr = k0.clone(), v0.clone(), k0.clone(), v0.clone()
-    toks = mk.fused_decode_window(*w, kk, vk, *ints, *samp, **kw)
-    ref = mk.fused_decode_window_ref(*w, kr, vr, *ints, *samp, **kw)
+    B = len(ints[0])
+    rows_k, rows_r = (torch.empty(B, dtype=torch.int32, device=k0.device) for _ in range(2))
+    out = dict(rows_out=rows_k) if guide else {}
+    toks = mk.fused_decode_window(*w, kk, vk, *ints, *extra, **kw, **out)
+    ref = mk.fused_decode_window_ref(*w, kr, vr, *ints, *extra, **kw, **(dict(rows_out=rows_r) if guide else {}))
     torch.cuda.synchronize()
     steps, BS = kw["num_steps"], kw["block_size"]
     live = ints[3].cpu()
@@ -587,9 +686,22 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
         if step0_gaps is not None:  # step 0 held wherever the plain top-2 gap exceeds rounding
             ok = ok and step0_gaps["ok"]
     ok = ok and untouched
+    guided = None
+    if guide:
+        live_fsms = [f if live[b] else None for b, f in enumerate(case["fsms"])]
+        kern, plain = (guided_replay(live_fsms, guide[0].cpu(), guide[2], t) for t in (toks, ref))
+        case["guided_reads"] = kern
+        outside = sum(len(v) for v in kern["outside"].values()) + sum(len(v) for v in plain["outside"].values())
+        rows_match = all(int(rows_k[b]) == r for b, r in kern["final_rows"].items())
+        guided = {"rows": [[g, list(r)] for g, r in GUIDED_ROWS], "tokens_outside_grammar": outside,
+                  "outside": {"kernel": kern["outside"], "plain": plain["outside"]},
+                  "final_rows": [int(r) for r in rows_k.cpu()], "final_rows_plain": [int(r) for r in rows_r.cpu()],
+                  "final_rows_host": kern["final_rows"], "final_rows_match_host": rows_match,
+                  "texts": {b: mk_text(toks[:, b]) for b in kern["final_rows"]}}
+        ok = ok and outside == 0 and rows_match
     cfg = case["cfg"]
     res = {"kernel": "fused_decode_window", "case": case["name"], "dtype": str(dtype).replace("torch.", ""),
-           "epilogue": "sampled" if samp else "greedy",
+           "epilogue": "guided" if guide else "sampled" if samp else "greedy",
            "shape": {"B": len(live), "live": int(live.sum()), "steps": steps, "L": cfg.num_layers,
                      "D": cfg.hidden_size, "H": cfg.num_heads, "KVH": cfg.num_kv_heads, "HD": cfg.head_dim,
                      "F": cfg.intermediate_size, "V": cfg.vocab_size, "tied": w[1] is None,
@@ -599,8 +711,10 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
            "other_slots_unchanged": untouched, "ok": ok}
     if step0_gaps is not None:
         res["step0_gaps"] = step0_gaps
+    if guided is not None:
+        res["guided"] = guided
     if samp:
-        res["rows"] = [SAMPLE_MIX[b % len(SAMPLE_MIX)] for b in range(len(live))]
+        res["rows"] = [r for _, r in GUIDED_ROWS] if guide else [SAMPLE_MIX[b % len(SAMPLE_MIX)] for b in range(len(live))]
         res["logit_spread"] = case["spread"]
         if not ok or agree < 1:
             res["tokens"], res["plain_tokens"] = tl.tolist(), rl.tolist()
@@ -609,11 +723,16 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
         res.update(bound(nbytes, flops, dtype))
         res["streamed_bytes"] = streamed
         res["streamed_bound_ms_per_step"] = bound(streamed, flops, dtype)["bound_ms"] / steps
-        res["kernel_ms"] = cuda_ms(lambda: mk.fused_decode_window(*w, kk, vk, *ints, *samp, **kw), iters=5, warmup=1)
+        res["kernel_ms"] = cuda_ms(lambda: mk.fused_decode_window(*w, kk, vk, *ints, *extra, **kw), iters=5, warmup=1)
         res["kernel_ms_per_step"] = res["kernel_ms"] / steps
-        res["ref_ms"] = cuda_ms(lambda: mk.fused_decode_window_ref(*w, kr, vr, *ints, *samp, **kw), iters=3, warmup=1)
+        res["ref_ms"] = cuda_ms(lambda: mk.fused_decode_window_ref(*w, kr, vr, *ints, *extra, **kw), iters=3, warmup=1)
         res["library_ms"] = None  # no single PyTorch call computes a decode window
-        if samp:
+        if guide:
+            res["sampled_kernel_ms"] = cuda_ms(lambda: mk.fused_decode_window(*w, kk, vk, *ints, *samp, **kw),
+                                               iters=5, warmup=1)
+            res["sampled_kernel_ms_per_step"] = res["sampled_kernel_ms"] / steps
+            res["phases_ms_per_step"] = stamp_phases(w, kk, vk, ints, extra, kw, cfg.num_layers)
+        elif samp:
             res["greedy_kernel_ms"] = cuda_ms(lambda: mk.fused_decode_window(*w, kk, vk, *ints, **kw), iters=5, warmup=1)
             res["greedy_kernel_ms_per_step"] = res["greedy_kernel_ms"] / steps
             res["phases_ms_per_step"] = stamp_phases(w, kk, vk, ints, samp, kw, cfg.num_layers)
@@ -632,6 +751,13 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
 # taken as no larger than the plain version's (the spec check measures that
 # for the shared device code), so a flip needs a gap of at most 4 noises.
 STEP0_GAP_NOISES = 4
+
+
+def mk_text(tokens) -> str:
+    """A row's tokens as the byte tokenizer's text."""
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    return ByteTokenizer().decode(tokens.cpu().tolist())
 
 
 def step0_gap_check(case, k0, v0) -> dict:
@@ -748,6 +874,30 @@ def phase_window_sampled(dev):
     return res
 
 
+def phase_window_guided(dev):
+    """The fused window with the guided epilogue at llama-3.2-1b's full
+    width: ``GUIDED_ROWS`` (greedy and sampled rows guided by a regex, a
+    JSON schema and a choice, an unguided greedy and an unguided sampled
+    row) over the port's ``GuidedDecoder`` pools at V = 128256 (1024 rows,
+    the scheduler's default), final norm times ``LOGIT_SPREAD``, 8 rows at
+    1024 tokens of context, 32 steps: f32 with its tokens held, then the
+    timed case in bf16 beside the sampled window on the same inputs. A
+    state that allows one character keeps its ~500 byte-tokenizer ids, one
+    in every 16 vocab tiles, so whole blocks' tiles are masked for it."""
+    from dynamo_tpu_torch.engine.config import get_config
+
+    base = get_config(PRESET)
+    res = None
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        case = window_case("llama-3.2-1b 8 x 1024 guided", dev, dtype, 450 + i, cfg=base, positions=[1024] * 8,
+                           dead=0, steps=32, spread=LOGIT_SPREAD)
+        case["fsms"], case["samp"], case["guide"] = guided_rows(dev, base.vocab_size, 32, 450 + i)
+        res = check_window(case, time_it=dtype == torch.bfloat16, hold_tokens=dtype == torch.float32)
+        del case
+        torch.cuda.empty_cache()
+    return res
+
+
 def epilogue_case(dev, seed, *, B=32, V=128256, draws=64):
     """The epilogue's inputs at the window's widest shape: f32 logits [B, V]
     whose rows take ``SAMPLE_MIX`` in turn and, by groups of 8, a spread of
@@ -858,11 +1008,60 @@ def check_epilogue(dev):
         rows = (torch.full((B,), t, device=dev), torch.full((B,), k, dtype=torch.int32, device=dev),
                 torch.full((B,), p, device=dev))
         res["ms_by_row_kind"][kind] = cuda_ms(lambda: mk.sample_epilogue(logits, *rows, u[0]), iters=10)
+    res["masked"] = masked = check_epilogue_masked(logits, temps, top_ks, top_ps, u)
+    ok = ok and masked["ok"]
     res["ok"] = ok
     emit("kernel", **res)
     if not ok:
-        raise AssertionError(f"the sampled epilogue disagrees with sample_from_uniforms beyond rounding: {diffs}")
+        raise AssertionError(f"the sampled epilogue disagrees with sample_from_uniforms beyond rounding: {diffs}, "
+                             f"masked rows: {masked}")
     return res
+
+
+def check_epilogue_masked(logits, temps, top_ks, top_ps, u) -> dict:
+    """The epilogue on rows masked to -inf, as guided rows reach it: row b
+    of ``logits`` keeps, by b % 4, the tokens one FSM row of the guided
+    grammars allows (``sampling.apply_token_masks`` over the decoder's
+    pool: a one-character state keeps its ~500 byte-tokenizer ids, 256
+    apart), 1 token, 2 tokens, or 40 tokens within 512 ids (fewer than
+    top_k = 50, and whole 2048-wide scan tiles -inf); the greedy rows must
+    take the argmax of the allowed logits. Every token allowed, and equal
+    to the plain version's except within ``DRAW_GAP_TOL`` of a CDF edge."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+    from dynamo_tpu_torch.engine.sampling import apply_token_masks, sample_from_uniforms
+
+    B, V = logits.shape
+    dev = logits.device
+    dec = guided_decoder(dev, V)
+    states = [dec.open(spec) for spec in guided_specs()]
+    rng = np.random.default_rng(441)
+    pool_rows = torch.zeros(B, dtype=torch.int64)
+    keep = torch.zeros((B, V), dtype=torch.bool)
+    for b in range(B):
+        kind = b % 4
+        if kind == 0:
+            st = states[(b // 4) % len(states)]
+            pool_rows[b] = st.pool_base + int(rng.integers(0, st.fsm.num_states))
+        else:
+            n, span = (1, 2, 40)[kind - 1], min(512, V // 2)
+            lo = int(rng.integers(0, V - span))
+            keep[b, torch.from_numpy(rng.choice(np.arange(lo, lo + span), size=n, replace=False))] = True
+    masked = apply_token_masks(logits, dec.pool.device(), pool_rows.to(dev))
+    fsm_rows = (torch.arange(B) % 4 == 0).to(dev)
+    masked = torch.where(fsm_rows[:, None] | keep.to(dev), masked, torch.full_like(masked, -float("inf")))
+    allowed = torch.isfinite(masked)
+    diffs, outside = [], 0
+    for j in range(u.shape[0]):
+        got = mk.sample_epilogue(masked, temps, top_ks, top_ps, u[j])
+        want = sample_from_uniforms(masked, temps, top_ks, top_ps, u[j])
+        torch.cuda.synchronize()
+        outside += int((~allowed.gather(1, got.long()[:, None])).sum())
+        for d in draw_gaps(masked, temps, top_ks, top_ps, u[j], got, want):
+            diffs.append({"draw": j, **d})
+    gaps = [min(d["cdf_gap"], d["top_p_gap"] if d["top_p_gap"] is not None else 1.0) for d in diffs]
+    return {"allowed_per_row": allowed.sum(1).tolist(), "draws": u.numel(), "tokens_outside_mask": outside,
+            "differ": len(diffs), "max_gap": max(gaps) if gaps else None, "diffs": diffs,
+            "ok": outside == 0 and all(g <= DRAW_GAP_TOL for g in gaps)}
 
 
 # ---------------------------------------------------------------------------
@@ -1287,7 +1486,17 @@ def phase_kernel(dev):
     timed["fused_decode_window"] = phase_window_kernel(dev)
     timed["sample_epilogue"] = check_epilogue(dev)
     timed["fused_decode_window_sampled"] = phase_window_sampled(dev)
+    timed["fused_decode_window_guided"] = phase_window_guided(dev)
     timed["fused_spec_window"] = phase_spec_kernel(dev)
+    # The fused windows beside the last accepted readings on this card
+    # (PERF.md: the greedy and sampled windows' ms per step, the spec
+    # window's ms): printed, for the record of the shared device code.
+    emit("kernel", kernel="windows vs PERF.md", ratios={
+        "fused_decode_window": timed["fused_decode_window"]["kernel_ms_per_step"] / 4.007,
+        "fused_decode_window_sampled": timed["fused_decode_window_sampled"]["kernel_ms_per_step"] / 4.478,
+        "fused_decode_window_guided_vs_sampled": timed["fused_decode_window_guided"]["kernel_ms_per_step"]
+        / timed["fused_decode_window_guided"]["sampled_kernel_ms_per_step"],
+        "fused_spec_window": timed["fused_spec_window"]["kernel_ms"] / 252.55})
     return timed
 
 
@@ -1619,9 +1828,9 @@ def device_busy_ms(fn, runs: int = 3) -> tuple:
 
 def window_breakdown(params, cfg, cache, d_args, steps):
     """One decode window of ``steps`` steps over the breakdown's 8 rows: the
-    fused window, greedy and with the rows in ``SAMPLE_MIX``'s turn (one
-    launch each), and the non-fused greedy ``decode_multi`` (one forward
-    per step over the ragged kernel). Per window: event ms, host ms to
+    fused window, greedy, with the rows in ``SAMPLE_MIX``'s turn, and with
+    ``GUIDED_ROWS`` (one launch each), and the non-fused greedy
+    ``decode_multi`` (one forward per step over the ragged kernel). Per window: event ms, host ms to
     queue it, profiler device-busy ms and device operations; and the event
     ms per step. For the fused windows, also the ms per step of each of
     their phases, from the kernel's own timer stamps."""
@@ -1631,10 +1840,15 @@ def window_breakdown(params, cfg, cache, d_args, steps):
     greedy = (np.zeros(B, np.float32), np.zeros(B, np.int32), np.ones(B, np.float32))
     temps, top_ks, top_ps, u = sample_rows(B, steps, cache.k.device, 7)
     samp = dict(temps=temps, top_ks=top_ks, top_ps=top_ps, uniforms=u, sampled=True)
+    _, g_samp, guide = guided_rows(cache.k.device, cfg.vocab_size, steps, 7)
+    guided = dict(zip(("temps", "top_ks", "top_ps", "uniforms"), g_samp), sampled=True, guided=True,
+                  **dict(zip(("guided_rows", "mask_pool", "next_pool"), guide)))
     fns = {
         "fused_window": lambda: llama.decode_multi_fused(params, cfg, cache.k, cache.v, *d_args, num_steps=steps),
         "fused_window_sampled": lambda: llama.decode_multi_fused(params, cfg, cache.k, cache.v, *d_args,
                                                                  num_steps=steps, **samp),
+        "fused_window_guided": lambda: llama.decode_multi_fused(params, cfg, cache.k, cache.v, *d_args,
+                                                                num_steps=steps, **guided),
         "decode_multi": lambda: llama.decode_multi(params, cfg, cache.k, cache.v, *d_args, *greedy, None, steps),
     }
     rows = {}
@@ -1648,7 +1862,8 @@ def window_breakdown(params, cfg, cache, d_args, steps):
     weights = [params["embed"], params.get("lm_head"), params["final_norm"]] + [lp[n] for n in WINDOW_WEIGHTS[3:]]
     kw = dict(num_steps=steps, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
               block_size=cfg.block_size, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
-    for name, sa in (("fused_window", ()), ("fused_window_sampled", (temps, top_ks, top_ps, u))):
+    for name, sa in (("fused_window", ()), ("fused_window_sampled", (temps, top_ks, top_ps, u)),
+                     ("fused_window_guided", (*g_samp, *guide))):
         phases = stamp_phases(weights, cache.k, cache.v, d_args, sa, kw, cfg.num_layers)
         rows[name]["profiled_ms_per_step"] = phases.pop("stamped_ms_per_step")
         rows[name]["phases_ms_per_step"] = phases
@@ -1713,8 +1928,8 @@ def phase_breakdown(dev):
     host; ``device_busy_ms`` (torch.profiler) is the card's own work, and
     the rest of the step is the card waiting for the host. Then one
     32-step window over the same 8 decode rows: fused greedy, fused
-    sampled, and the non-fused greedy ``decode_multi``; and the per-step
-    paths' threefry draw."""
+    sampled, fused guided, and the non-fused greedy ``decode_multi``; and
+    the per-step paths' threefry draw."""
     from dynamo_tpu_torch.engine.attention import decode as pdk
     from dynamo_tpu_torch.engine.attention import megakernel as mk
     from dynamo_tpu_torch.engine.attention import prefill as fck
@@ -1828,6 +2043,34 @@ def _request(port: int, path: str, body: dict):
     return resp.status, chunks, first, time.perf_counter() - t0
 
 
+def _answer_text(data, stream: bool, chat: bool) -> str:
+    """The text of one answer (its SSE deltas joined when streamed)."""
+    if not stream:
+        choice = data["choices"][0]
+        return choice["message"]["content"] if chat else choice["text"]
+    parts = []
+    for chunk in data[:-1]:
+        choice = chunk["choices"][0]
+        parts.append((choice.get("delta") or {}).get("content") or "" if chat else choice.get("text") or "")
+    return "".join(parts)
+
+
+def grammar_holds(body: dict, text: str, finish: str) -> bool:
+    """A guided answer is in its grammar: the whole text matches it when
+    the answer stopped, and is a prefix some match continues when it ran
+    out of tokens (the port's own grammar compiler, as the server built
+    the constraint)."""
+    from dynamo_tpu_torch.llm.guided.grammar import build_guided_spec, compile_regex
+
+    dfa = compile_regex(build_guided_spec(body)["pattern"])
+    if finish == "stop":
+        return dfa.match(text)
+    state = dfa.start
+    for c in text:
+        state = dfa.step(state, c)
+    return finish == "length" and state >= 0
+
+
 def _summarize(status, data, stream):
     """(completion_tokens, finish_reason, cached_tokens) of one answer."""
     if status != 200:
@@ -1851,6 +2094,15 @@ SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows", "spec")
 SPEC_COUNTERS = ("spec_fused_windows_total", "spec_fused_accepted_tokens_total", "draft_prefill_steps_total")
 # The windows pass's seeded request: its prompt is shorter than one KV block.
 SEEDED = {"prompt": "seeded draw", "max_tokens": 24, "temperature": 0.8, "seed": 4242}
+# Structured outputs: a streamed greedy JSON-schema chat request and a
+# greedy json_object one (the windows pass; json_object is the largest
+# grammar served, 1734 FSM states, so its compile and its rows' upload are
+# measured beside its neighbours' TTFT) and a sampled guided_choice
+# completion (the windows and spec passes).
+GUIDED_JSON = {"stream": True, "temperature": 0.0,
+               "response_format": {"type": "json_schema", "json_schema": {"name": "weather", "schema": GUIDED_SCHEMA}}}
+GUIDED_OBJECT = {"stream": True, "temperature": 0.0, "response_format": {"type": "json_object"}}
+GUIDED_CHOICE = {"temperature": 0.9, "nvext": {"guided_choice": ["red", "green", "blue"]}}
 
 
 def phase_serve(card: str, path: str):
@@ -1858,21 +2110,28 @@ def phase_serve(card: str, path: str):
     ("megakernel": the preset as it is; "paged+flash": the per-piece path;
     both pinned to one decode step per iteration; "megakernel+windows": the
     defaults, 32-step decode windows with the waiting cap at 8) and send it
-    8 concurrent requests, then a repeat of the first. Every kernel's
+    8 concurrent requests (the windows pass also a streamed greedy
+    ``response_format: json_schema`` request, a greedy ``json_object`` one
+    and a sampled ``nvext.guided_choice`` one, the spec pass the latter;
+    the grammars compile while the others are served; each answer must
+    hold its grammar: a full match when it stopped, a prefix of one when it
+    ran out of tokens), then a repeat of the first. Every kernel's
     counts go to 0 just before the requests and are read just after: the
     path's kernels must have launched once per layer for each forward step
     that reaches them (the windows pass: the ragged kernel also once per
     layer for each step inside a non-fused window, and the fused window
-    once per fused window and the sampled branch once per window with a
-    sampled row), no other kernel and no plain version at all. In the
-    windows pass every window must be fused, the sampled request's among
-    them; then one seeded T = 0.8 request is sent twice, at batch slots 5
+    once per fused window, the sampled branch once per window with a
+    sampled or guided row and the guided branch once per window with a
+    guided row), no other kernel and no plain version at all. In the
+    windows pass every window must be fused, the sampled and the guided
+    requests' among them; then one seeded T = 0.8 request is sent twice, at batch slots 5
     and 6 behind greedy neighbours, and its two answers must be equal.
     "spec" is the windows pass with a llama-3.2-1b draft of the target's
     own weights (``--draft-model``, γ = 4, ``build_service(draft_params=)``):
     every batch speculates through the fused spec window (one launch per
     spec window; the draft's prefill chunks launch the ragged kernel too),
-    except the seeded request's, which fall back to fused windows."""
+    except the seeded request's and the guided one's, which fall back to
+    fused windows."""
     from dynamo_tpu_torch import run
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
@@ -1905,6 +2164,14 @@ def phase_serve(card: str, path: str):
                                                {"role": "user", "content": text(90)}]}),
         ("/v1/completions", {"prompt": text(150)}),
     ]
+    guided = []
+    if windows:
+        guided = [("/v1/completions", {"prompt": text(50), **GUIDED_CHOICE})]
+        if not spec:
+            guided[:0] = [("/v1/chat/completions", {"messages": [{"role": "user", "content": text(70)}], **GUIDED_JSON}),
+                          ("/v1/chat/completions", {"messages": [{"role": "user", "content": text(30)}],
+                                                    **GUIDED_OBJECT})]
+    reqs += guided
     for _, body in reqs:
         body.setdefault("temperature", 0.0)
         body.update(model=PRESET, max_tokens=64)
@@ -1934,13 +2201,36 @@ def phase_serve(card: str, path: str):
             counts = read_counts()
             steps = {k: getattr(sched, f"{k}_steps_total") - steps0[k] for k in kinds}
             steps.update({k: getattr(sched, k) - steps0[k] for k in WINDOW_COUNTERS + SPEC_COUNTERS})
-            metrics = engine.metrics().to_wire()
+            metrics = engine.stats()
             impl = sched.config_snapshot()["model"]["attention_impl"]
+            if sched.guided is not None and sched.guided.requests_total:
+                pool = sched.guided.pool
+                metrics["guided_pool"] = {
+                    "capacity_rows": pool.capacity, "rows_in_use": pool.rows_in_use(),
+                    "bytes": pool.device().numel() * 4 + pool.next_device().numel() * 4,
+                    # Each grammar the server compiled: its FSM states and compile seconds.
+                    "grammars": [{"pattern": fsm.pattern[:48], "states": fsm.num_states,
+                                  "compile_s": fsm.compile_s, "register_s": register_seconds(fsm, pool)}
+                                 for fsm in sched.guided.cache._d.values()]}
         finally:
             await service.stop()
             await engine.stop()
         return (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, sched.mc, impl,
                 sched.sc.num_scheduler_steps, seeded_windows)
+
+    def register_seconds(fsm, pool):
+        """Seconds the step loop spends writing ``fsm``'s rows into a fresh
+        pool like the server's (the part of a new grammar's admission left
+        on the step loop)."""
+        from dynamo_tpu_torch.llm.guided.processor import GuidedMaskPool
+
+        fresh = GuidedMaskPool(pool.vocab_size, min_rows=pool.capacity, device=pool.dev)
+        fresh.device()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.register(fsm)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
 
     async def seeded_round(port, sched, n):
         """``n`` greedy neighbours decoding (no EOS stop, longer than the
@@ -1963,13 +2253,17 @@ def phase_serve(card: str, path: str):
 
     (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, mc, impl, sched_steps,
      seeded_windows) = asyncio.run(serve())
-    answers = []
+    answers, guided_answers = [], []
     for (url, body), (status, data, first, total) in zip(reqs, results):
         n, finish, cached = _summarize(status, data, body.get("stream", False))
         if n != 64 and finish != "stop":
             raise AssertionError(f"{url} gave {n} tokens with finish_reason {finish!r}")
         answers.append({"path": url, "stream": bool(body.get("stream")), "completion_tokens": n,
                         "finish_reason": finish, "ttft_s": first, "latency_s": total})
+        if "response_format" in body or "nvext" in body:
+            said = _answer_text(data, bool(body.get("stream")), "chat" in url)
+            guided_answers.append({"path": url, "stream": bool(body.get("stream")), "text": said,
+                                   "finish_reason": finish, "in_grammar": grammar_holds(body, said, finish)})
     n_rep, finish_rep, cached_rep = _summarize(repeat[0], repeat[1], False)
     ttfts = [a["ttft_s"] for a in answers if a["ttft_s"] is not None]
     completion = sum(a["completion_tokens"] for a in answers)
@@ -1981,7 +2275,8 @@ def phase_serve(card: str, path: str):
         expected = {"ragged_paged_attention": L * (steps["forward"] + steps["window_steps_total"]
                                                    + steps["draft_prefill_steps_total"]),
                     "fused_decode_window": steps["fused_windows_total"],
-                    "fused_decode_window_sampled": steps["fused_sampled_windows_total"]}
+                    "fused_decode_window_sampled": steps["fused_sampled_windows_total"],
+                    "fused_decode_window_guided": steps["fused_guided_windows_total"]}
         if spec:
             expected["fused_spec_window"] = steps["spec_fused_windows_total"]
     else:
@@ -2002,6 +2297,16 @@ def phase_serve(card: str, path: str):
         "kernel_launches": launches, "expected_launches": want, "plain_calls": plain,
         "mixed_steps_total": metrics["mixed_steps_total"], "cached_tokens_total": metrics["cached_tokens_total"],
     }
+    if guided_answers:
+        res["guided"] = guided_answers
+        # Host seconds the server spent compiling the requests' grammars
+        # (character DFA and token FSM over the 128,256-id vocabulary, in a
+        # worker thread beside the step loop), the pools' size after them,
+        # and the TTFT of the unguided requests served meanwhile.
+        res["guided_stats"] = {k: metrics[k] for k in metrics if k.startswith("guided_")}
+        unguided = [a["ttft_s"] for (_, body), a in zip(reqs, answers)
+                    if a["ttft_s"] is not None and "response_format" not in body and "nvext" not in body]
+        res["ttft_unguided_p50_s"] = statistics.median(unguided) if unguided else None
     if windows:
         texts = [(a[1]["choices"][0]["text"], a[1]["usage"]["completion_tokens"]) for _, a in seeded]
         res["seeded"] = {"request": SEEDED, "slots": [slot for slot, _ in seeded], "answers": texts,
@@ -2022,8 +2327,11 @@ def phase_serve(card: str, path: str):
         raise AssertionError(f"kernel launches {launches} != expected {want} over steps {steps}")
     if plain:
         raise AssertionError(f"serving called plain versions {plain} times: {counts}")
-    if windows and (steps["multi_windows_total"] or not steps["fused_sampled_windows_total"]):
-        raise AssertionError(f"the windows pass ran a non-fused window or no sampled fused one: {steps}")
+    if windows and (steps["multi_windows_total"] or not steps["fused_sampled_windows_total"]
+                    or not steps["fused_guided_windows_total"]):
+        raise AssertionError(f"the windows pass ran a non-fused window, or no sampled or guided fused one: {steps}")
+    if not all(a["in_grammar"] for a in guided_answers):
+        raise AssertionError(f"a guided answer left its grammar: {guided_answers}")
     if windows and not (res["seeded"]["identical"] and res["seeded"]["slots"][0] != res["seeded"]["slots"][1]):
         raise AssertionError(f"the seeded request's answers at two batch slots differ: {res['seeded']}")
     return res
@@ -2037,16 +2345,17 @@ def phase_serve(card: str, path: str):
 def kernels_line(timed: dict, served: dict) -> list:
     """The ``kernels`` entries: every kernel's route, source, the TPU kernel
     it replaces, its launches on the main path, its checked error and its
-    timed, plain, bound and library times. The fused window's sampled
-    epilogue is a branch of the window's kernel, listed apart with the
-    launches of windows that took it; its epilogue alone (not on the
-    serving path) is reported inside that entry."""
+    timed, plain, bound and library times. The fused window's sampled and
+    guided epilogues are branches of the window's kernel, each listed apart
+    with the launches of windows that took it; the sampled epilogue alone
+    (not on the serving path) is reported inside its entry."""
     # Launches: each attention kernel's count over the serving pass of its
     # path, and per forward step that reaches it; the fused window's (and
     # its sampled branch's) over the windows pass, and per such window; the
     # probe's, over the probe's run.
     mega, piece, win, spec = (served[p] for p in SERVE_PASSES)
     launches = {
+        "fused_decode_window_guided": win["kernel_launches"]["fused_decode_window_guided"],
         "ragged_paged_attention": mega["kernel_launches"]["ragged_paged_attention"],
         "flash_chunk_attention": piece["kernel_launches"]["flash_chunk_attention"],
         "paged_decode_partials": piece["kernel_launches"]["paged_decode_partials"],
@@ -2060,14 +2369,16 @@ def kernels_line(timed: dict, served: dict) -> list:
         "flash_chunk_attention": (piece["steps"]["prefill"] + piece["steps"]["mixed"], "step"),
         "paged_decode_partials": (piece["steps"]["decode"] + piece["steps"]["mixed"], "step"),
         "fused_decode_window": (win["steps"]["fused_windows_total"], "window"),
-        "fused_decode_window_sampled": (win["steps"]["fused_sampled_windows_total"], "window with a sampled row"),
+        "fused_decode_window_sampled": (win["steps"]["fused_sampled_windows_total"],
+                                        "window with a sampled or guided row"),
+        "fused_decode_window_guided": (win["steps"]["fused_guided_windows_total"], "window with a guided row"),
         "fused_spec_window": (spec["steps"]["spec_fused_windows_total"], "spec window"),
     }
     kernels = []
     for name in ("ragged_paged_attention", "flash_chunk_attention", "paged_decode_partials", "fused_decode_window",
-                 "fused_decode_window_sampled", "fused_spec_window", "nop"):
+                 "fused_decode_window_sampled", "fused_decode_window_guided", "fused_spec_window", "nop"):
         t = timed[name]
-        src = "fused_decode_window" if name == "fused_decode_window_sampled" else name
+        src = "fused_decode_window" if name.startswith("fused_decode_window") else name
         entry = {
             "name": name,
             "route": "cuda",
@@ -2089,6 +2400,9 @@ def kernels_line(timed: dict, served: dict) -> list:
             entry["greedy_ms"] = t["greedy_kernel_ms"]
             entry["epilogue_alone"] = {k: e[k] for k in ("case", "draws", "differ", "max_gap", "kernel_ms", "ref_ms",
                                                          "bound_ms", "bound_by", "passes_bound_ms", "library_ms")}
+        if name == "fused_decode_window_guided":
+            entry["sampled_ms"] = t["sampled_kernel_ms"]
+            entry["tokens_outside_grammar"] = t["guided"]["tokens_outside_grammar"]
         if name == "fused_spec_window":
             entry.update({k: t[k] for k in ("case", "kernel_ms_per_round", "streamed_bound_ms", "confirmed_tokens_per_row",
                                              "ms_per_confirmed_token", "window_ms_per_step", "phases_ms_per_round")})

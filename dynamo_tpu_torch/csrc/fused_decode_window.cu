@@ -104,12 +104,14 @@ __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T>
   float* best_v = lgs + kTile * B;
   int* best_i = reinterpret_cast<int*>(best_v + B);
 
-  // Step 0's embedding, from the host's tokens.
+  // Step 0's embedding, from the host's tokens; the guided rows' carry
+  // from the host's rows.
   for (int64_t e = (int64_t)blockIdx.x * kThreads + tid; e < (int64_t)B * D; e += (int64_t)gridDim.x * kThreads) {
     const int b = (int)(e / D), d = (int)(e - (int64_t)b * D);
     const int t = min(max(a.tokens[b], 0), V - 1);
     a.h[e] = a.embed[(int64_t)t * D + d];
   }
+  if (a.mask != nullptr && blockIdx.x == 0 && tid < B) a.grow[tid] = a.rows0[tid];
   grid.sync();
   stamp(a.prof, 0);
 
@@ -124,8 +126,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T>
     stamp(a.prof, s0 + 5 * L);
 
     // Block b picks row b's token (its argmax partials reduced, ties to the
-    // lowest index, or its draw), emits it and embeds it for the next step.
-    // No block reads another row's token or h before the barrier below.
+    // lowest index, or its draw), emits it, moves a guided row to its FSM's
+    // next row and embeds the token for the next step. No block reads
+    // another row's token, FSM row or h before the barrier below.
     if (blockIdx.x < B) {
       const int b = blockIdx.x;
       PickSmem* ps = reinterpret_cast<PickSmem*>(smem);
@@ -136,6 +139,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T>
       if (tid == 0) {
         a.tokens_out[(int64_t)i * B + b] = tok;
         a.tok[b] = tok;
+        if (a.mask != nullptr) a.grow[b] = __ldg(a.next_pool + (int64_t)__ldcg(a.grow + b) * V + tok);
       }
       if (i + 1 < a.steps) {
         for (int d = tid; d < D; d += kThreads) a.h[(int64_t)b * D + d] = a.embed[(int64_t)tok * D + d];
@@ -234,13 +238,22 @@ int launch_dtype(int B, int grid, const void* const* p, const int* n, float eps,
   a.top_ps = static_cast<const float*>(p[32]);
   a.unif = static_cast<const float*>(p[33]);
   a.logits = static_cast<float*>(const_cast<void*>(p[34]));
+  a.rows0 = static_cast<const int*>(p[35]);
+  a.grow = static_cast<int*>(const_cast<void*>(p[36]));
+  a.mask = static_cast<const unsigned*>(p[37]);
+  a.next_pool = static_cast<const int*>(p[38]);
   a.steps = n[0], a.L = n[1], a.N = n[2], a.BS = n[3], a.H = n[4], a.KVH = n[5], a.HD = n[6];
   a.W = n[7], a.D = n[8], a.F = n[9], a.V = n[10], a.S = n[11];
+  a.W32 = (a.V + 31) / 32;
+  const int P = n[12];
   a.eps = eps, a.theta = theta;
   if (a.KVH <= 0 || a.H % a.KVH || a.HD % 16 || a.HD > 128 || a.D % kTile || a.F % kTile || a.V % kTile ||
       a.W <= 0 || a.BS <= 0 || a.S <= 0 || grid < B)
     return (int)cudaErrorInvalidValue;
   if (a.temps != nullptr && (a.top_ks == nullptr || a.top_ps == nullptr || a.unif == nullptr || a.logits == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool any_guided = a.rows0 != nullptr || a.grow != nullptr || a.mask != nullptr || a.next_pool != nullptr;
+  if (any_guided && (a.rows0 == nullptr || a.grow == nullptr || a.mask == nullptr || a.next_pool == nullptr || P <= 0))
     return (int)cudaErrorInvalidValue;
   return (int)launch_t<T>(a, B, grid, s);
 }
@@ -301,10 +314,13 @@ int dtt_fused_decode_window_blocks(int dtype, int B, int G, int HD, int* sm_coun
 
 // One window: the pointers below (head and prof may be null; temps null
 // for an all-greedy window, else top_ks, top_ps, unif [steps, B] and the
-// logits scratch [B, V] f32 too), then steps, L, N, BS, H, KVH, HD, W, D, F,
+// logits scratch [B, V] f32 too; rows0 null for a window without guided
+// rows, else rows_out [B], the mask pool [P, ceil(V / 32)] u32 and the
+// next-row pool [P, V] i32 too), then steps, L, N, BS, H, KVH, HD, W, D, F,
 // V and S, the attention's key splits (the partials hold B * KVH * S * G *
 // HD and B * KVH * S * G * 2 floats; the split counters, B * KVH ints, start
-// at zero and end at zero). `grid` must be at least B and must not exceed
+// at zero and end at zero), and P, the pools' rows (0 without guided rows).
+// `grid` must be at least B and must not exceed
 // dtt_fused_decode_window_blocks. Returns 0 or the cudaError of the
 // cooperative launch (e.g. cudaErrorCooperativeLaunchTooLarge); launches on
 // `stream` and does not synchronise.
@@ -315,15 +331,16 @@ int dtt_fused_decode_window(int dtype, int B, int grid, const void* embed, const
                             const void* tables, const void* active, void* tokens_out, void* h, void* qkv,
                             void* part_acc, void* gu, void* tok, void* part_val, void* part_idx, void* prof,
                             void* part_ml, void* attn, void* split_cnt, const void* temps,
-                            const void* top_ks, const void* top_ps, const void* unif, void* logits, int steps,
-                            int L, int N, int BS, int H, int KVH, int HD, int W, int D, int F, int V, int S,
-                            float eps, float theta, void* stream) {
+                            const void* top_ks, const void* top_ps, const void* unif, void* logits,
+                            const void* rows0, void* rows_out, const void* mask_pool, const void* next_pool,
+                            int steps, int L, int N, int BS, int H, int KVH, int HD, int W, int D, int F, int V,
+                            int S, int P, float eps, float theta, void* stream) {
   if (steps <= 0) return 0;
-  const void* p[35] = {embed, head, fnorm, anorm, mnorm, wq, wk, wv, wo, wg, wu, wd, kc, vc,
+  const void* p[39] = {embed, head, fnorm, anorm, mnorm, wq, wk, wv, wo, wg, wu, wd, kc, vc,
                        tokens, positions, tables, active, tokens_out, h, qkv, part_acc, gu, tok,
                        part_val, part_idx, prof, part_ml, attn, split_cnt, temps, top_ks, top_ps, unif,
-                       logits};
-  const int n[12] = {steps, L, N, BS, H, KVH, HD, W, D, F, V, S};
+                       logits, rows0, rows_out, mask_pool, next_pool};
+  const int n[13] = {steps, L, N, BS, H, KVH, HD, W, D, F, V, S, P};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dtype<float>(B, grid, p, n, eps, theta, s);
   if (dtype == 1) return launch_dtype<__nv_bfloat16>(B, grid, p, n, eps, theta, s);

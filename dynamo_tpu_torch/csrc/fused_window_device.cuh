@@ -125,7 +125,11 @@ struct Args {
   const float* top_ps;   // [B] (1 = off)
   const float* unif;     // [steps, B] the draws' uniforms
   float* logits;         // [B, V] head logits / temps scratch (sampled only)
-  int steps, L, N, BS, H, KVH, HD, W, D, F, V, S;
+  const int* rows0;       // [B] guided FSM rows at window start (0 = allow-all)
+  int* grow;              // [B] the rows' carry, and the rows after the window
+  const unsigned* mask;   // [P, W32] packed allow bits, or null: no row is guided
+  const int* next_pool;   // [P, V] the row after each token
+  int steps, L, N, BS, H, KVH, HD, W, D, F, V, S, W32;
   float eps, theta;
 };
 
@@ -144,8 +148,8 @@ struct Gemv {
 };
 
 __host__ __device__ constexpr size_t gemv_floats(int B) {
-  // xs, warp partials, inv, tile logits, best value, best index
-  return (size_t)kXFloats + (size_t)kWarps * B * kTile + B + (size_t)kTile * B + 2 * (size_t)B;
+  // xs, warp partials, inv, tile logits, best value, best index, guided rows
+  return (size_t)kXFloats + (size_t)kWarps * B * kTile + B + (size_t)kTile * B + 3 * (size_t)B;
 }
 
 __host__ __device__ inline size_t attn_floats(int G, int HD) {
@@ -426,10 +430,20 @@ struct OutResidual {  // h += T(y), in T
   }
 };
 
+// The head's logits of this tile, lgs[(c % 16) * B + b], -inf where a
+// guided row's FSM row disallows token c (JAX `apply_token_masks`): one
+// 32-bit word of the row's allow bits covers the whole 16-column tile, and
+// the mask pool is never written in the kernel (read-only path).
 template <int B>
-struct OutLogits {  // this tile's f32 logits: lgs[(c % 16) * B + b]
+struct OutLogits {
   float* lgs;
-  __device__ void operator()(int b, int c, float v) const { lgs[(c % kTile) * B + b] = v; }
+  const unsigned* mask;  // [P, W32], or null: no row is guided
+  const int* rows;       // [B] in shared memory: each row's mask-pool row this step
+  int W32;
+  __device__ void operator()(int b, int c, float v) const {
+    if (mask != nullptr && !((__ldg(mask + (int64_t)rows[b] * W32 + (c >> 5)) >> (c & 31)) & 1u)) v = -INFINITY;
+    lgs[(c % kTile) * B + b] = v;
+  }
 };
 
 template <int B>
@@ -1142,29 +1156,36 @@ __device__ void decode_layer(const Args<T>& a, float* smem, float* inv, int l, i
   stamp(a.prof, s0 + 4);
 }
 
-// Final norm and head of B rows: each tile's f32 logits folded into this
-// block's (max, first index) per row, which go to part_val / part_idx
-// [grid, B]; with `logits` [B, V] each row's logits are stored there too,
-// divided by temps[b] where that is > 0. Ends at a grid barrier.
+// Final norm and head of B rows: each tile's f32 logits (masked where a
+// guided row's FSM row disallows a token) folded into this block's (max,
+// first index) per row, which go to part_val / part_idx [grid, B]; with
+// `logits` [B, V] each row's logits are stored there too, divided by
+// temps[b] where that is > 0. A block whose tiles a row's mask covers
+// keeps (-inf, INT_MAX) for it, which row_argmax's reduction passes over.
+// Ends at a grid barrier.
 template <typename T, int B>
 __device__ void decode_head(const Args<T>& a, float* smem, float* inv, float* lgs, float* best_v, int* best_i,
                             float* logits, const float* temps, cg::grid_group& grid) {
   const int tid = threadIdx.x, D = a.D, V = a.V;
+  int* rows = best_i + B;  // [B], the last of gemv_floats
   row_inv<T, B>(a.h, D, a.eps, inv);
   if (tid < B) {
     best_v[tid] = -INFINITY;
     best_i[tid] = INT_MAX;
+    // The carry was written by block `tid` before a grid barrier: read through L2.
+    if (a.mask != nullptr) rows[tid] = __ldcg(a.grow + tid);
   }
   __syncthreads();
   {
     const XNorm<T> xf{a.h, D, inv, a.fnorm};
     const ArgmaxTile<B> fold{lgs, best_v, best_i, logits, temps, V};
+    const OutLogits<B> out{lgs, a.mask, rows, a.W32};
     if (a.head != nullptr) {
       const T* hw = a.head;
       auto wsel = [&](int t, const T*& W, int& ldw, int& c0) { W = hw, ldw = V, c0 = t * kTile; };
-      gemv_cols<T, B>(smem, D, V / kTile, B, xf, wsel, OutLogits<B>{lgs}, fold);
+      gemv_cols<T, B>(smem, D, V / kTile, B, xf, wsel, out, fold);
     } else {
-      gemv_rows<T, B>(smem, a.embed, D, V / kTile, B, xf, OutLogits<B>{lgs}, fold);
+      gemv_rows<T, B>(smem, a.embed, D, V / kTile, B, xf, out, fold);
     }
   }
   if (tid < B) {

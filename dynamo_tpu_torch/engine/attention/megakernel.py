@@ -19,7 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch import _build
-from dynamo_tpu_torch.engine.sampling import filtered_probs_rows, pick_from_probs, sample_from_uniforms
+from dynamo_tpu_torch.engine.sampling import (
+    apply_token_masks, filtered_probs_rows, pick_from_probs, sample_from_uniforms,
+)
 
 NEG_INF = -1e30
 
@@ -197,11 +199,14 @@ def ragged_paged_attention(
 # ---------------------------------------------------------------------------
 
 # The fused window's own counters, kept apart from the ragged kernel's; the
-# windows with the sampled epilogue are also counted apart.
+# windows with the sampled epilogue, and those with the guided epilogue,
+# are also counted apart.
 WINDOW_KERNEL_LAUNCHES = 0
 WINDOW_REF_CALLS = 0
 WINDOW_SAMPLED_LAUNCHES = 0
 WINDOW_SAMPLED_REF_CALLS = 0
+WINDOW_GUIDED_LAUNCHES = 0
+WINDOW_GUIDED_REF_CALLS = 0
 
 # The kernel is instantiated for these batch sizes (the decode buckets) and
 # these head dims; GEMV tiles are 16 columns wide, so the model's widths must
@@ -288,31 +293,43 @@ def _cache_forward(
 def fused_decode_window_ref(
     embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down,
     k_cache, v_cache, tokens, positions, tables, active, temps=None, top_ks=None, top_ps=None, uniforms=None,
+    guided_rows=None, mask_pool=None, next_pool=None,
     *, num_steps: int, num_heads: int, num_kv_heads: int, head_dim: int, block_size: int,
-    rms_eps: float, theta: float,
+    rms_eps: float, theta: float, rows_out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the fused window: ``num_steps`` decode
     steps, the JAX ``_fused_window_kernel``'s math and cast points. Step i
     embeds its tokens (step 0 ``tokens``, later steps the previous pick),
-    runs every layer at ``positions + i`` (``_cache_forward``), then picks:
+    runs every layer at ``positions + i`` (``_cache_forward``), masks each
+    row's logits by its FSM row with ``mask_pool`` (``sampling.
+    apply_token_masks``, the rows starting at ``guided_rows``), then picks:
     argmax (first index among equal maxima) or, with ``uniforms
     [num_steps, B]``, ``sampling.sample_from_uniforms(logits, temps,
-    top_ks, top_ps, uniforms[i])``. Dead rows' tokens are unspecified.
-    ``head`` is ``[D, V]``, or None for tied embeddings. Writes the caches
-    in place; returns ``tokens [num_steps, B]`` int32."""
+    top_ks, top_ps, uniforms[i])``; a guided row then moves to
+    ``next_pool[row, token]``. Dead rows' tokens are unspecified. ``head``
+    is ``[D, V]``, or None for tied embeddings. Writes the caches in place
+    (and the rows after the window into ``rows_out``); returns ``tokens
+    [num_steps, B]`` int32."""
     weights = (embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down)
     B = tokens.shape[0]
     out = torch.empty((num_steps, B), dtype=torch.int32, device=tokens.device)
     toks = tokens.long()
     live, tabs = active.bool(), tables.long()
+    rows = guided_rows.long() if mask_pool is not None else None
     for i in range(num_steps):
         logits = _cache_forward(weights, k_cache, v_cache, toks, positions.long() + i, tabs, live,
                                 num_heads=num_heads, rms_eps=rms_eps, theta=theta)
+        if rows is not None:
+            logits = apply_token_masks(logits, mask_pool, rows)
         if uniforms is None:
             toks = torch.argmax(logits, dim=-1)
         else:
             toks = sample_from_uniforms(logits, temps, top_ks, top_ps, uniforms[i]).long()
+        if rows is not None:
+            rows = next_pool[rows, toks].long()
         out[i] = toks.to(torch.int32)
+    if rows_out is not None and rows is not None:
+        rows_out.copy_(rows)
     return out
 
 
@@ -324,7 +341,7 @@ def _window_kernel():
         blocks.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         blocks.restype = ctypes.c_int
         launch.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 35 + [ctypes.c_int] * 12
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 39 + [ctypes.c_int] * 13
             + [ctypes.c_float] * 2 + [ctypes.c_void_p]
         )
         launch.restype = ctypes.c_int
@@ -436,6 +453,9 @@ def fused_decode_window(
     top_ks: Optional[torch.Tensor] = None,  # [B] i32 (0 = off)
     top_ps: Optional[torch.Tensor] = None,  # [B] f32 (1 = off)
     uniforms: Optional[torch.Tensor] = None,  # [num_steps, B] f32: the sampled epilogue's draws
+    guided_rows: Optional[torch.Tensor] = None,  # [B] i32 mask-pool rows at window start (0 = allow-all)
+    mask_pool: Optional[torch.Tensor] = None,  # [P, ceil(V/32)] int32: packed allow bits (uint32)
+    next_pool: Optional[torch.Tensor] = None,  # [P, V] i32: the row after each token
     *,
     num_steps: int,
     num_heads: int,
@@ -445,13 +465,18 @@ def fused_decode_window(
     rms_eps: float,
     theta: float,
     profile: Optional[torch.Tensor] = None,
+    rows_out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``num_steps`` decode steps × every layer in ONE launch. Returns
     ``tokens [num_steps, B]`` int32; the window's K/V rows land in the
     caches in place. Greedy, or with ``uniforms`` the sampled epilogue:
     each row with a temperature > 0 draws its token from ``uniforms[i]`` as
-    ``sampling.sample_from_uniforms`` does. CUDA tensors launch the
-    persistent cooperative kernel (``csrc/fused_decode_window.cu``) or
+    ``sampling.sample_from_uniforms`` does. With ``guided_rows``,
+    ``mask_pool`` and ``next_pool`` (llm/guided's pools) the guided
+    epilogue: each row picks among the tokens its FSM row allows, then
+    moves to ``next_pool[row, token]`` on the device; ``rows_out`` ([B]
+    int32, optional) gets the rows after the window. CUDA tensors launch
+    the persistent cooperative kernel (``csrc/fused_decode_window.cu``) or
     raise; CPU tensors run ``fused_decode_window_ref``. ``profile``, an
     int64 CUDA tensor of ``window_profile_len(num_steps, L)``, gets the
     kernel's global-timer stamps (ns): one after the step-0 embedding, then
@@ -459,18 +484,25 @@ def fused_decode_window(
     head and one after the pick and next embedding (the plain version
     stamps nothing)."""
     global WINDOW_KERNEL_LAUNCHES, WINDOW_REF_CALLS, WINDOW_SAMPLED_LAUNCHES, WINDOW_SAMPLED_REF_CALLS
+    global WINDOW_GUIDED_LAUNCHES, WINDOW_GUIDED_REF_CALLS
     weights = [embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down]
     kw = dict(num_steps=num_steps, num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
               block_size=block_size, rms_eps=rms_eps, theta=theta)
     sampled = uniforms is not None
     if sampled and (temps is None or top_ks is None or top_ps is None):
         raise ValueError("the sampled epilogue needs temps, top_ks and top_ps with uniforms")
+    guided_ops = (guided_rows, mask_pool, next_pool)
+    guided = mask_pool is not None
+    if any(t is not None for t in guided_ops) and not all(t is not None for t in guided_ops):
+        raise ValueError("the guided epilogue needs guided_rows, mask_pool and next_pool together")
     if tokens.device.type == "cpu":
         WINDOW_REF_CALLS += 1
         WINDOW_SAMPLED_REF_CALLS += sampled
+        WINDOW_GUIDED_REF_CALLS += guided
         return fused_decode_window_ref(
             embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down,
-            k_cache, v_cache, tokens, positions, tables, active, temps, top_ks, top_ps, uniforms, **kw,
+            k_cache, v_cache, tokens, positions, tables, active, temps, top_ks, top_ps, uniforms,
+            guided_rows, mask_pool, next_pool, rows_out=rows_out, **kw,
         )
     if tokens.device.type != "cuda":
         raise ValueError(f"fused_decode_window runs on cuda or cpu tensors, got {tokens.device}")
@@ -497,6 +529,17 @@ def fused_decode_window(
         for name, t, shape in zip(("temps", "top_ks", "top_ps", "uniforms"), samp, ((B,), (B,), (B,), (num_steps, B))):
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name} must be {list(shape)}, got {tuple(t.shape)}")
+    guide = [None] * 4
+    P = 0
+    if guided:
+        P = mask_pool.shape[0]
+        if rows_out is None:
+            rows_out = torch.empty((B,), dtype=torch.int32, device=dev)
+        guide = [guided_rows.to(device=dev, dtype=torch.int32).contiguous(), rows_out, mask_pool, next_pool]
+        for name, t, shape in zip(("guided_rows", "rows_out", "mask_pool", "next_pool"), guide,
+                                  ((B,), (B,), (P, (V + 31) // 32), (P, V))):
+            if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != shape:
+                raise ValueError(f"{name} must be a contiguous int32 {list(shape)} tensor on {dev}")
     blocks, sms = fused_window_grid(dtype, B, H // KVH, HD, dev)
     if blocks < sms:
         raise RuntimeError(f"fused_decode_window: {blocks} co-resident blocks on {sms} SMs; "
@@ -528,13 +571,14 @@ def fused_decode_window(
             _DTYPE_CODE[dtype], B, grid,
             *(ptr(t) for t in (embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up,
                                w_down, k_cache, v_cache, *ints, out, h, qkv, part_acc, gu, tok, part_val,
-                               part_idx, profile, part_ml, attn, split_cnt, *samp)),
-            num_steps, L, N, BS, H, KVH, HD, W, D, F_, V, S, rms_eps, theta, stream,
+                               part_idx, profile, part_ml, attn, split_cnt, *samp, *guide)),
+            num_steps, L, N, BS, H, KVH, HD, W, D, F_, V, S, P, rms_eps, theta, stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_decode_window kernel launch failed: cudaError {rc}")
     WINDOW_KERNEL_LAUNCHES += 1
     WINDOW_SAMPLED_LAUNCHES += sampled
+    WINDOW_GUIDED_LAUNCHES += guided
     return out
 
 

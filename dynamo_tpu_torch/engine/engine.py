@@ -2,23 +2,27 @@
 
 The counterpart of the JAX package's ``TpuEngine``, with the part of its
 surface the port serves: ``build``, ``start``, ``stop``, ``generate``,
-``abort`` and ``metrics``.
+``abort``, ``metrics``, ``stats`` and ``attach_guided_tokenizer``.
 
 Request wire shape (PreprocessedRequest):
-``{"token_ids": [...], "sampling_options": {...}, "stop_conditions": {...}}``
+``{"token_ids": [...], "sampling_options": {...}, "stop_conditions": {...}}``,
+plus ``"guided_decoding"`` (llm/guided's spec) for a structured output.
 Response frames (LLMEngineOutput): ``{"token_ids": [t], "finish_reason": ...,
 "index": 0}`` — detokenization happens upstream in the Backend operator.
 
 Single-task ownership: only the engine's step-loop task mutates the
 scheduler; ``generate``/``abort`` stage work through event-loop-local lists,
-and the blocking device step runs via ``asyncio.to_thread`` so serving IO
-never stalls.
+and the blocking device step runs on a thread of the engine's own so
+serving IO never stalls. A request's grammar compiles on a second one:
+neither waits for a thread of the event loop's default pool, which the
+serving IO around the engine may hold.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Callable, List, Optional
 
@@ -89,6 +93,8 @@ class TorchEngine:
         self._loop_task: Optional[asyncio.Task] = None
         self._closed = False
         self._kv_event_sink = kv_event_sink
+        self._step_thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="engine-step")
+        self._compile_thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="grammar-compile")
 
     # --- construction -------------------------------------------------------
     @classmethod
@@ -146,6 +152,8 @@ class TorchEngine:
         if self._loop_task is not None:
             await self._loop_task
             self._loop_task = None
+        self._step_thread.shutdown(wait=False)
+        self._compile_thread.shutdown(wait=False, cancel_futures=True)
 
     async def _loop(self) -> None:
         try:
@@ -154,9 +162,9 @@ class TorchEngine:
                     self._wake.clear()
                     await self._wake.wait()
                     continue
-                for rid, tokens, sampling, stop, queue in self._staged_adds:
+                for rid, tokens, sampling, stop, guided, queue in self._staged_adds:
                     try:
-                        seq = self.scheduler.add_request(rid, tokens, sampling, stop)
+                        seq = self.scheduler.add_request(rid, tokens, sampling, stop, guided=guided)
                         seq.out_queue = queue
                     except ValueError as e:
                         queue.put_nowait(StepOutput(token_id=-1, finished=True, finish_reason=f"error:{e}"))
@@ -165,7 +173,7 @@ class TorchEngine:
                     self.scheduler.abort(rid)
                 self._staged_aborts.clear()
 
-                outputs = await asyncio.to_thread(self.scheduler.step)
+                outputs = await asyncio.get_running_loop().run_in_executor(self._step_thread, self.scheduler.step)
                 for seq, out in outputs:
                     seq.out_queue.put_nowait(out)
         except Exception:
@@ -190,7 +198,17 @@ class TorchEngine:
         )
         stop = StopConditions.from_dict(request.get("stop_conditions"))
         queue: "asyncio.Queue[StepOutput]" = asyncio.Queue()
-        self._staged_adds.append((rid, list(request["token_ids"]), sampling, stop, queue))
+        guided = request.get("guided_decoding")  # a grammar spec (llm/guided), or None
+        if guided is not None and self.scheduler.guided is not None:
+            # The grammar compiles to its token FSM here, off the event loop
+            # and the step loop (up to seconds for a large grammar at a 128k
+            # vocabulary); the step loop only writes its rows into the pool.
+            try:
+                guided = await asyncio.get_running_loop().run_in_executor(
+                    self._compile_thread, self.scheduler.guided.prepare, guided)
+            except ValueError as e:
+                raise RuntimeError(str(e)) from e
+        self._staged_adds.append((rid, list(request["token_ids"]), sampling, stop, guided, queue))
         self._wake.set()
 
         finished = False
@@ -254,3 +272,16 @@ class TorchEngine:
     # --- introspection ------------------------------------------------------
     def metrics(self) -> ForwardPassMetrics:
         return self.scheduler.metrics()
+
+    def stats(self) -> dict:
+        """The worker's stats: the load snapshot's keys, and with a
+        tokenizer attached the guided-decoding counters."""
+        stats = self.metrics().to_wire()
+        if self.scheduler.guided is not None:
+            stats.update(self.scheduler.guided.stats())
+        return stats
+
+    def attach_guided_tokenizer(self, tokenizer) -> None:
+        """Enable guided decoding: grammars lift to token FSMs against
+        ``tokenizer`` (``build_local_pipeline`` attaches the served one)."""
+        self.scheduler.attach_guided(tokenizer)

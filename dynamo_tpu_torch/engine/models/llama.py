@@ -454,6 +454,9 @@ def decode_multi_fused(
     top_ks=None,  # [B] i32
     top_ps=None,  # [B] f32
     uniforms: Optional[torch.Tensor] = None,  # [num_steps, B] f32 (make_window_uniforms)
+    guided_rows=None,  # [B] i32 mask-pool rows (with guided=True), tensor or numpy
+    mask_pool: Optional[torch.Tensor] = None,  # [P, ceil(V/32)] int32 packed allow bits
+    next_pool: Optional[torch.Tensor] = None,  # [P, V] i32 FSM next-row pool
     sampled: bool = False,
     guided: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -464,20 +467,22 @@ def decode_multi_fused(
     the caches written in place; the same tokens and cache contents as
     ``decode_multi`` (greedy, or with ``uniforms=`` when ``sampled``: rows
     with a temperature > 0 draw from the host's uniforms through the
-    kernel's sampled epilogue). Dense llama only; callers gate with
-    ``megakernel.fused_window_fits``. The guided epilogue is not ported
-    yet."""
-    if guided:
-        raise NotImplementedError(
-            "decode_multi_fused: the guided epilogue is not ported yet (ROADMAP Queue 2 item 3c)"
-        )
+    kernel's sampled epilogue). ``guided=True`` masks each row by its FSM
+    row of ``mask_pool`` and advances the rows through ``next_pool`` inside
+    the launch (llm/guided's pools; unguided rows at row 0). Dense llama
+    only; callers gate with ``megakernel.fused_window_fits``."""
     c = config
-    samp = ()
+    dev = tokens.device
+    samp = (None,) * 4
     if sampled:
-        dev = tokens.device
         samp = tuple(torch.as_tensor(x).to(dev) for x in (temps, top_ks, top_ps, uniforms))
+    guide = ()
+    if guided:
+        if guided_rows is None or mask_pool is None or next_pool is None:
+            raise ValueError("decode_multi_fused: guided=True needs guided_rows, mask_pool and next_pool")
+        guide = (torch.as_tensor(guided_rows).to(dev), mask_pool, next_pool)
     toks = megakernel.fused_decode_window(
-        *_window_weights(params), k_cache, v_cache, tokens, positions, block_tables, active, *samp,
+        *_window_weights(params), k_cache, v_cache, tokens, positions, block_tables, active, *samp, *guide,
         num_steps=num_steps, num_heads=c.num_heads, num_kv_heads=c.num_kv_heads,
         head_dim=c.head_dim, block_size=c.block_size, rms_eps=c.rms_norm_eps, theta=c.rope_theta,
     )

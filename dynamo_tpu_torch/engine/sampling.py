@@ -191,3 +191,21 @@ def sample_batch_device(
         noise = prng.gumbel(key, (B, V), dev)[idx]
     tokens[idx] = torch.argmax(masked + noise, dim=-1).to(torch.int32)
     return tokens
+
+
+def apply_token_masks(
+    logits: torch.Tensor,  # [B, V] f32
+    pool: torch.Tensor,  # [P, ceil(V/32)] int32: the guided mask pool's packed allow bits
+    row_ids: torch.Tensor,  # [B] pool row per batch row (0 = allow-all)
+) -> torch.Tensor:
+    """Grammar-constrained decoding's hook (the JAX ``apply_token_masks``):
+    gather each row's allowed-token bits from the mask pool by its FSM row
+    and put ``-inf`` on the disallowed logits. Row 0 of the pool allows
+    everything, so unguided rows pass through unchanged
+    (llm/guided/processor.py owns the pool)."""
+    V = logits.shape[-1]
+    idx = torch.arange(V, device=logits.device)
+    words = pool[row_ids.to(logits.device).long()][:, idx >> 5]  # [B, V]
+    bit = (words >> (idx & 31).to(words.dtype)) & 1  # an arithmetic shift keeps bit 31 in bit 0
+    return torch.where(bit.bool(), logits, torch.full_like(logits, -float("inf")))
+

@@ -27,8 +27,13 @@ or wave admission:
   draw in the kernel from uniforms the host derives once per window
   (``sampling.make_window_uniforms``). Off it, a batch runs
   ``llama.decode_multi``, one forward per step, unless a row is seeded
-  and sampled: that batch decodes one step at a time, as in the JAX
-  package. Tokens past a row's stop are trimmed.
+  and sampled, or guided: that batch decodes one step at a time, as in
+  the JAX package. Tokens past a row's stop are trimmed.
+- **Guided decoding** (``attach_guided``): a request's grammar lifts to a
+  token FSM against the served tokenizer (llm/guided). Per-step rows draw
+  through the masked sampler; on the fused window guided rows ride the
+  window, masked and advanced on the device through the mask and next-row
+  pools, and never speculate.
 - **Speculative decoding** (``attach_draft``): a draft model over its own
   paged cache, mirroring the target's block tables. Every decode batch on
   the fused path runs R = ``num_scheduler_steps // (γ+1)`` rounds of draft
@@ -44,9 +49,9 @@ or wave admission:
   batch slot and in both packages.
 
 Batch sizes and chunk lengths round up to the JAX package's buckets, which
-bound how many tensor shapes the model sees. The step loop runs in a
-worker thread (``asyncio.to_thread``) so device-blocked steps never stall
-the serving plane's event loop.
+bound how many tensor shapes the model sees. The engine runs each step on
+a worker thread so device-blocked steps never stall the serving plane's
+event loop.
 """
 
 from __future__ import annotations
@@ -67,9 +72,10 @@ from dynamo_tpu_torch.engine.kv_cache import BlockAllocator, KvCacheArrays, KvEv
 from dynamo_tpu_torch.engine.models import llama
 from dynamo_tpu_torch.engine import prng
 from dynamo_tpu_torch.engine.sampling import (
-    SamplingParams, make_row_keys, make_window_uniforms, pack_param_rows, sample_batch,
+    SamplingParams, apply_token_masks, make_row_keys, make_window_uniforms, pack_param_rows, sample_batch,
 )
 from dynamo_tpu_torch.engine.spec_decode import SpecDecodeStats
+from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder, GuidedState
 from dynamo_tpu_torch.llm.tokens import extend_block_hashes
 
 logger = logging.getLogger(__name__)
@@ -169,6 +175,8 @@ class Sequence:
     # Tokens whose KV is in the draft cache (speculative decoding); it lags
     # the target's after non-spec steps and catches up before a spec window.
     d_n: int = 0
+    # Guided decoding: the request's token-FSM cursor (llm/guided).
+    guided: Optional[GuidedState] = None
 
     @property
     def all_ids(self) -> List[int]:
@@ -279,11 +287,12 @@ class Scheduler:
         self.mixed_prefill_tokens_total = 0
         self.mixed_decode_tokens_total = 0
         # Decode windows: fused (one kernel launch each; those with a sampled
-        # row also counted apart), non-fused (decode_multi), and the forward
-        # steps inside non-fused windows. Windows are not in
-        # forward_steps_total.
+        # row and those with a guided row also counted apart), non-fused
+        # (decode_multi), and the forward steps inside non-fused windows.
+        # Windows are not in forward_steps_total.
         self.fused_windows_total = 0
         self.fused_sampled_windows_total = 0
+        self.fused_guided_windows_total = 0
         self.multi_windows_total = 0
         self.window_steps_total = 0
         # Speculative decoding (attach_draft): the draft and its cache, γ,
@@ -299,6 +308,9 @@ class Scheduler:
         self.spec_fused_windows_total = 0
         self.spec_fused_accepted_tokens_total = 0
         self.draft_prefill_steps_total = 0
+        # Guided decoding (attach_guided): the grammar compiler and the
+        # device mask pools.
+        self.guided: Optional[GuidedDecoder] = None
         # Trim buckets to the model's max length.
         self.sc.prefill_buckets = [b for b in self.sc.prefill_buckets if b <= model_config.max_seq_len] or [
             model_config.max_seq_len
@@ -332,9 +344,18 @@ class Scheduler:
         token_ids: List[int],
         sampling: SamplingParams,
         stop: StopConditions,
+        *,
+        guided=None,
     ) -> Sequence:
+        """``guided``: a grammar spec (llm/guided), or the cursor
+        ``self.guided.prepare`` made of one off the step thread."""
         if not token_ids:
             raise ValueError("empty prompt")
+        if guided is not None and self.guided is None:
+            raise ValueError(
+                "guided decoding requested but no tokenizer is attached "
+                "(Scheduler.attach_guided / TorchEngine.attach_guided_tokenizer)"
+            )
         if len(token_ids) >= self.mc.max_seq_len:
             raise ValueError(f"prompt length {len(token_ids)} >= max_seq_len {self.mc.max_seq_len}")
         seq = Sequence(
@@ -344,6 +365,8 @@ class Scheduler:
             stop=stop,
             eos_token_ids=self._eos,
         )
+        if guided is not None:
+            seq.guided = self.guided.open(guided)  # ValueError on a bad spec or a full device
         if stop.deadline_ms is not None:
             seq.deadline_ts = seq.arrival_ts + stop.deadline_ms / 1000.0
             self._has_deadlines = True
@@ -396,6 +419,24 @@ class Scheduler:
                 "attention_impl": self._attn_impl,
             },
         }
+
+    def attach_guided(self, tokenizer) -> None:
+        """Enable grammar-constrained decoding: grammars lift to token FSMs
+        against this tokenizer's vocabulary (llm/guided), their masks and
+        next rows in pools on the scheduler's device."""
+        self.guided = GuidedDecoder(
+            tokenizer,
+            eos_ids=self._eos,
+            vocab_size=self.mc.vocab_size,
+            device=self.device,
+        )
+
+    def _fused_guided_ok(self) -> bool:
+        """Guided rows may ride the fused window. The JAX gate also charges
+        both pools against the TPU kernel's VMEM budget; the Hopper kernel
+        reads them from HBM, so the fused window and an attached tokenizer
+        are all it needs."""
+        return self._use_fused_window and self.guided is not None
 
     def attach_draft(self, draft_config: ModelConfig, draft_params, *, gamma: int = 4) -> None:
         """Enable speculative decoding: the draft proposes γ tokens per round
@@ -549,6 +590,7 @@ class Scheduler:
                 # Mid-prefill cancellations already hold blocks — release them.
                 self.allocator.release(seq.block_ids)
                 seq.block_ids = []
+                self._close_guided(seq)
                 self.by_id.pop(seq.request_id, None)
                 outputs.append((seq, StepOutput(token_id=-1, finished=True, finish_reason=seq.abort_reason)))
 
@@ -713,22 +755,28 @@ class Scheduler:
         n = min(len(self.running), self.sc.decode_buckets[-1])
         batch = self.running[:n]
         bucket = next_bucket(n, self.sc.decode_buckets)
-        # With a draft attached the batch speculates, unless a row is seeded
-        # and sampled (the spec window keys its draws per batch, not per
-        # request) or the window's blocks cannot be reserved: then it takes
-        # the non-spec path below (the JAX package tries its per-round spec
-        # path first, which is not ported).
+        # With a draft attached the batch speculates, unless a row is guided
+        # (the draft's proposals ignore the FSM mask) or seeded and sampled
+        # (the spec window keys its draws per batch, not per request), or
+        # the window's blocks cannot be reserved: then it takes the non-spec
+        # path below (the JAX package tries its per-round spec path first,
+        # which is not ported).
         if self.draft_params is not None and not any(
-            s.sampling.seed is not None and s.sampling.temperature > 0 for s in batch
+            s.guided is not None or (s.sampling.seed is not None and s.sampling.temperature > 0) for s in batch
         ) and self._decode_spec_fused(batch, bucket, outputs):
             return outputs
         # A batch rides a window unless a row needs the host between tokens.
         # The port's requests carry no such extras yet (logprobs, penalties,
-        # logits processors, guided decoding: the HTTP layer refuses them);
-        # a seeded sampled row rides only the fused window, whose uniforms
-        # honour its seed (decode_multi threads one key for the batch).
-        window_ok = self._use_fused_window or not any(
-            s.sampling.seed is not None and s.sampling.temperature > 0 for s in batch
+        # logits processors: the HTTP layer refuses them); a guided row
+        # rides only the fused window, which masks and advances it on the
+        # device, and a seeded sampled row only the fused window too, whose
+        # uniforms honour its seed (decode_multi threads one key for the
+        # batch and no FSM).
+        guided_ok = self._fused_guided_ok()
+        window_ok = all(
+            guided_ok if s.guided is not None
+            else self._use_fused_window or s.sampling.seed is None or s.sampling.temperature <= 0
+            for s in batch
         )
         if self.sc.num_scheduler_steps > 1 and window_ok and self._decode_multi(batch, bucket, outputs):
             return outputs
@@ -782,12 +830,22 @@ class Scheduler:
         temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
         if self._use_fused_window:
             samp = {}
-            if any(s.sampling.temperature > 0 for s in batch):
+            any_guided = any(s.guided is not None for s in batch)
+            # A guided window takes the sampled epilogue, as in the JAX
+            # package, so it draws its uniforms off the step counter even
+            # when every row is greedy and the keys stay the JAX package's.
+            if any_guided or any(s.sampling.temperature > 0 for s in batch):
                 # One [steps, bucket] uniforms upload per window.
                 uniforms = make_window_uniforms(self._next_key(), *self._seed_rows(batch, bucket), steps,
                                                 device=self.device)
                 samp = dict(temps=temps, top_ks=top_ks, top_ps=top_ps, uniforms=uniforms, sampled=True)
                 self.fused_sampled_windows_total += 1
+            if any_guided:
+                # The rows' FSM rows at the window's start; the kernel advances them.
+                pool = self.guided.pool
+                samp.update(guided_rows=self._guided_rows(batch, bucket), mask_pool=pool.device(),
+                            next_pool=pool.next_device(), guided=True)
+                self.fused_guided_windows_total += 1
             toks, _, _ = llama.decode_multi_fused(*args, num_steps=steps, **samp)
             self.fused_windows_total += 1
         else:
@@ -874,8 +932,7 @@ class Scheduler:
         row_keys = None
         if any(seq.sampling.seed is not None for seq in batch):
             row_keys = make_row_keys(key, *self._seed_rows(batch, bucket))
-        temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
-        sampled = sample_batch(logits, temps, top_ks, top_ps, key, row_keys)
+        sampled = self._draw(logits, batch, bucket, key, row_keys)
         for i, seq in enumerate(batch):
             if seq.state != SeqState.RUNNING:
                 continue  # preempted while growing an earlier row this step
@@ -950,17 +1007,38 @@ class Scheduler:
                 has_seed[i] = True
         return seeds, positions, has_seed
 
+    def _draw(self, logits: torch.Tensor, batch: List[Sequence], bucket: int, key: np.ndarray,
+              row_keys: Optional[np.ndarray] = None) -> np.ndarray:
+        """One token per row of ``logits`` (the batch padded to ``bucket``)
+        as the rows' sampling options ask, guided rows over their FSM row's
+        allowed tokens → ``[bucket]`` int32 numpy."""
+        temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
+        if any(s.guided is not None for s in batch):
+            rows = torch.from_numpy(self._guided_rows(batch, bucket))
+            logits = apply_token_masks(logits, self.guided.pool.device(), rows)
+        return sample_batch(logits, temps, top_ks, top_ps, key, row_keys)
+
+    def _guided_rows(self, batch: List[Sequence], bucket: int) -> np.ndarray:
+        """Each row's mask-pool row, padded to ``bucket``: a guided row's
+        current FSM row, 0 (allow-all) for the others."""
+        rows = np.zeros((bucket,), dtype=np.int32)
+        for i, seq in enumerate(batch):
+            if seq.guided is not None:
+                rows[i] = seq.guided.row_id
+        return rows
+
     def _sample_one(self, seq: Sequence, logits: torch.Tensor) -> int:
         """A first token: a seeded request draws from its seed folded with
         its token position, others from the step's key."""
         key = self._next_key()
         if seq.sampling.seed is not None:
             key = prng.fold_in(prng.PRNGKey(seq.sampling.seed), len(seq.output_ids))
-        temps, top_ks, top_ps = pack_param_rows([seq.sampling], 1)
-        return int(sample_batch(logits[None, :], temps, top_ks, top_ps, key)[0])
+        return int(self._draw(logits[None, :], [seq], 1, key)[0])
 
     def _append_token(self, seq: Sequence, token: int, outputs: List[tuple]) -> None:
         seq.output_ids.append(token)
+        if seq.guided is not None:
+            seq.guided.advance(token)  # the host's FSM replay of the token
         # First token carries the request's queue time and its prefix-cache
         # reuse (skipped prompt tokens).
         queue_s = None
@@ -981,6 +1059,10 @@ class Scheduler:
             outputs.append((seq, StepOutput(token_id=token, queue_s=queue_s, cached_tokens=cached)))
 
     def _check_stop(self, seq: Sequence, token: int) -> Optional[str]:
+        if seq.guided is not None and seq.guided.exhausted:
+            # The FSM accepts and only EOS remains (or the cursor is done):
+            # finish instead of spending a step on the EOS.
+            return "stop"
         n_out = len(seq.output_ids)
         if n_out >= seq.stop.min_tokens:
             if not seq.stop.ignore_eos and token in seq.eos_token_ids:
@@ -1017,6 +1099,13 @@ class Scheduler:
             self.allocator.register_hashes(seq.block_ids[:n_full], seq.block_hashes[:n_full])
         self.allocator.release(seq.block_ids)
         seq.block_ids = []
+        self._close_guided(seq)
         if emit:
             outputs.append((seq, StepOutput(token_id=-1, finished=True, finish_reason=reason)))
         self.by_id.pop(seq.request_id, None)
+
+    def _close_guided(self, seq: Sequence) -> None:
+        """A finished request's grammar rows lose their user (the pool may
+        reuse them)."""
+        if seq.guided is not None:
+            self.guided.close(seq.guided)

@@ -11,5 +11,9 @@ from dynamo_tpu_torch.runtime.pipeline import link
 
 def build_local_pipeline(tokenizer: Tokenizer, engine: AsyncEngine) -> AsyncEngine:
     """Aggregated in-process pipeline: OpenAI body → token ids → engine →
-    detokenized text frames."""
+    detokenized text frames. Guided decoding needs the served tokenizer on
+    the engine's side (token-FSM lifting): it is attached unless the engine
+    has one."""
+    if hasattr(engine, "attach_guided_tokenizer") and getattr(engine.scheduler, "guided", None) is None:
+        engine.attach_guided_tokenizer(tokenizer)
     return link([OpenAIPreprocessor(tokenizer), Backend(tokenizer)], engine)

@@ -18,7 +18,7 @@ import hashlib
 import json
 import logging
 import time
-from typing import Dict, Optional, Tuple
+from typing import AsyncIterator, Dict, Optional, Tuple
 
 from dynamo_tpu_torch.llm.protocols import openai as oai
 from dynamo_tpu_torch.llm.protocols.common import as_engine_output
@@ -178,6 +178,21 @@ class HttpService:
         await _respond_json(writer, 200, resp)
 
     async def _serve_stream(self, engine, body, ctx, rid, kind, model, writer) -> None:
+        # The pipeline's request stages (the preprocessor's grammar build
+        # among them) run before its first item: a rejection there is still
+        # a 400, sent before the stream's 200.
+        stream = engine.generate(body, ctx).__aiter__()
+        try:
+            first = [await stream.__anext__()]
+        except StopAsyncIteration:
+            first = []
+        except oai.RequestError as e:
+            await _respond_json(writer, 400, oai.error_body(str(e)))
+            return
+        except Exception as e:
+            logger.exception("stream %s failed", ctx.id)
+            await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
+            return
         writer.write(
             b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
             b"Cache-Control: no-cache\r\nConnection: close\r\n\r\n"
@@ -188,7 +203,7 @@ class HttpService:
         try:
             if kind == "chat":
                 await _sse(writer, oai.chat_chunk(rid, model, {"role": "assistant", "content": ""}))
-            async for item in engine.generate(body, ctx):
+            async for item in _chain(first, stream):
                 if isinstance(item, Annotated) and item.is_annotation():
                     if item.event.startswith("_"):
                         if item.event == "_metrics":
@@ -225,6 +240,14 @@ class HttpService:
             await _sse(writer, oai.error_body(str(e), "internal_error", 500))
         writer.write(b"data: [DONE]\n\n")
         await writer.drain()
+
+
+async def _chain(head: list, rest: AsyncIterator):
+    """The items of ``head``, then those of ``rest``."""
+    for item in head:
+        yield item
+    async for item in rest:
+        yield item
 
 
 async def _read_request(reader: asyncio.StreamReader) -> Tuple[str, str, Dict[str, str], bytes]:

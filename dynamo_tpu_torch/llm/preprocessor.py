@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import AsyncIterator, List, Optional, Tuple
 
+from dynamo_tpu_torch.llm.guided.grammar import build_guided_spec
 from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
 from dynamo_tpu_torch.llm.protocols.openai import sampling_from_request, stop_conditions_from_request
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
@@ -104,4 +105,8 @@ class OpenAIPreprocessor(Operator):
             annotations=list(nvext.get("annotations") or []),
             model=body.get("model", ""),
             tenant=body.get("_tenant") or body.get("user") or "anon",
+            # response_format / nvext guided_* → a grammar spec; a malformed
+            # or unsupported constraint raises RequestError here (a 400),
+            # so the engine only sees compilable patterns.
+            guided_decoding=build_guided_spec(body),
         ), prompt

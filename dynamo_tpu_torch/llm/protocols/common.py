@@ -4,7 +4,7 @@
 consumes) and ``LLMEngineOutput`` (per-step engine emission). Kept as plain
 dicts on the wire; these dataclasses are the typed construction layer. The
 JAX package's wire keys, minus the fields of features this port does not
-have yet (disaggregation, multimodal, guided decoding, logprobs, tools).
+have yet (disaggregation, multimodal, logprobs, tools).
 """
 
 from __future__ import annotations
@@ -26,9 +26,12 @@ class PreprocessedRequest:
     annotations: List[str] = field(default_factory=list)
     model: str = ""
     tenant: str = "anon"
+    # Guided decoding: the normalized grammar spec (llm/guided) the
+    # preprocessor builds from response_format / nvext guided_*.
+    guided_decoding: Optional[Dict[str, Any]] = None
 
     def to_wire(self) -> dict:
-        return {
+        d = {
             "token_ids": self.token_ids,
             "sampling_options": self.sampling_options,
             "stop_conditions": self.stop_conditions,
@@ -36,6 +39,9 @@ class PreprocessedRequest:
             "model": self.model,
             "tenant": self.tenant,
         }
+        if self.guided_decoding:
+            d["guided_decoding"] = self.guided_decoding
+        return d
 
 
 @dataclass

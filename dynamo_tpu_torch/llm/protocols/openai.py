@@ -4,7 +4,9 @@ The chat-completions and completions part of the JAX package's
 ``llm/protocols/openai.py``: the same validation rules and the same
 response and chunk shapes. Request fields of features this port does not
 implement yet are refused with a 400 naming the field, never silently
-ignored (ROADMAP Queue 1 item 10).
+ignored (ROADMAP Queue 1 item 10). Structured outputs (``response_format``
+and ``nvext.guided_*``) are validated as the JAX package validates them;
+``tools`` and ``tool_choice`` stay refused until the tool-call parsers.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ _TENANT_RE = re.compile(r"^[A-Za-z0-9._:-]+$")
 # 400 instead of an answer that quietly ignores it.
 _UNSUPPORTED = (
     "logprobs", "top_logprobs", "tools", "tool_choice", "logit_bias",
-    "frequency_penalty", "presence_penalty", "response_format",
+    "frequency_penalty", "presence_penalty",
 )
 # Seeds go into a 32-bit signed row of the scheduler's key table.
 SEED_MIN, SEED_MAX = -(2**31), 2**31 - 1
@@ -52,11 +54,8 @@ def _validate_common(body: dict) -> None:
             v is None or v is False or v == 0,
             f"{key} is not supported by the PyTorch/CUDA port yet",
         )
-    nv = body.get("nvext") or {}
-    _require(
-        not any(nv.get(k) is not None for k in ("guided_regex", "guided_choice", "guided_json")),
-        "guided decoding is not supported by the PyTorch/CUDA port yet",
-    )
+    _validate_guided_ext(body)
+    _validate_response_format(body)
     n = body.get("n")
     _require(n is None or n == 1, "n > 1 is not supported by the PyTorch/CUDA port yet")
     for key in ("temperature", "top_p"):
@@ -88,6 +87,55 @@ def _validate_common(body: dict) -> None:
     user = body.get("user")
     if user is not None:
         validate_tenant(user, "user")
+
+
+RESPONSE_FORMAT_TYPES = ("text", "json_object", "json_schema")
+
+
+def _validate_response_format(body: dict) -> None:
+    """Structural response_format checks. Schema *compilability* is checked
+    by the preprocessor's grammar build; both raise RequestError, so a
+    malformed constraint is always a structured 400, never a 500."""
+    rf = body.get("response_format")
+    if rf is None:
+        return
+    _require(
+        isinstance(rf, dict) and isinstance(rf.get("type"), str),
+        "response_format must be an object with a string 'type'",
+    )
+    _require(
+        rf["type"] in RESPONSE_FORMAT_TYPES,
+        f"response_format.type must be one of {list(RESPONSE_FORMAT_TYPES)}",
+    )
+    if rf["type"] == "json_schema":
+        js = rf.get("json_schema")
+        _require(isinstance(js, dict), "response_format.json_schema must be an object")
+        _require(
+            isinstance(js.get("schema"), dict),
+            "response_format.json_schema.schema is required and must be an object",
+        )
+        name = js.get("name")
+        _require(name is None or isinstance(name, str), "json_schema.name must be a string")
+
+
+def _validate_guided_ext(body: dict) -> None:
+    """nvext guided-decoding extensions (guided_regex / guided_choice /
+    guided_json) — structural checks; at most one constraint per request."""
+    nv = body.get("nvext") or {}
+    gr = nv.get("guided_regex")
+    _require(gr is None or (isinstance(gr, str) and bool(gr)), "nvext.guided_regex must be a non-empty string")
+    gc = nv.get("guided_choice")
+    _require(
+        gc is None
+        or (isinstance(gc, list) and len(gc) > 0 and all(isinstance(c, str) and c for c in gc)),
+        "nvext.guided_choice must be a non-empty array of strings",
+    )
+    gj = nv.get("guided_json")
+    _require(gj is None or isinstance(gj, dict), "nvext.guided_json must be a schema object")
+    _require(
+        sum(x is not None for x in (gr, gc, gj)) <= 1,
+        "at most one nvext guided_* constraint per request",
+    )
 
 
 def validate_chat_request(body: dict) -> dict:

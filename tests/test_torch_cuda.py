@@ -424,6 +424,99 @@ def test_sampled_fused_window_matches_plain_version(cuda, name):
     torch.testing.assert_close(vk[:, 1:], vr[:, 1:], rtol=0, atol=1e-3)
 
 
+# Guided rows of the guided window checks: a JSON schema, a choice, none
+# (an unguided row at pool row 0) and a regex (the dead row).
+GUIDED_SPECS = [{"kind": "regex", "pattern": r'\{"ok":(?:true|false),"n":[0-9]{1,3}\}'},
+                {"kind": "choice", "choices": ["red", "green", "blue"]}, None,
+                {"kind": "regex", "pattern": r"[a-c]{2}-\d+"}]
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("name", list(WINDOW))
+def test_guided_fused_window_matches_plain_version(cuda, name, sampled):
+    """The fused window with the guided epilogue against its plain version
+    in f32 over ``GuidedDecoder`` pools on the card (ByteTokenizer, V =
+    256): tokens equal, every guided token allowed by the host FSM, the
+    rows after the window equal and the host's replay, written K/V within
+    1e-3, one launch counted as guided (and as sampled with uniforms)."""
+    from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    cfg, p, k, v, tokens, positions, tables, active = _window(name, torch.float32, cuda)
+    lp = p["layers"]
+    weights = [p["embed"], p.get("lm_head"), p["final_norm"]] + [
+        lp[n] for n in ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+    kw = dict(num_steps=WINDOW_STEPS, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+              head_dim=cfg.head_dim, block_size=BS, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
+    dec = GuidedDecoder(ByteTokenizer(), eos_ids=[0], vocab_size=cfg.vocab_size, pool_rows=16, device=cuda)
+    states = [None if s is None else dec.open(s) for s in GUIDED_SPECS]
+    rows0 = torch.tensor([0 if st is None else st.row_id for st in states], dtype=torch.int32, device=cuda)
+    guide = (rows0, dec.pool.device(), dec.pool.next_device())
+    samp = _sample_rows(len(tokens), WINDOW_STEPS, cuda, 8) if sampled else (None,) * 4
+    kk, vk, kr, vr = k.clone(), v.clone(), k.clone(), v.clone()
+    rows_k, rows_r = (torch.empty(len(tokens), dtype=torch.int32, device=cuda) for _ in range(2))
+    before = (mk.WINDOW_KERNEL_LAUNCHES, mk.WINDOW_SAMPLED_LAUNCHES, mk.WINDOW_GUIDED_LAUNCHES)
+    toks = mk.fused_decode_window(*weights, kk, vk, tokens, positions, tables, active, *samp, *guide,
+                                  rows_out=rows_k, **kw)
+    ref = mk.fused_decode_window_ref(*weights, kr, vr, tokens, positions, tables, active, *samp, *guide,
+                                     rows_out=rows_r, **kw)
+    torch.cuda.synchronize()
+    after = (mk.WINDOW_KERNEL_LAUNCHES, mk.WINDOW_SAMPLED_LAUNCHES, mk.WINDOW_GUIDED_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [1, int(sampled), 1]
+    live = active.cpu()
+    assert torch.equal(toks[:, live].cpu(), ref[:, live].cpu())
+    assert torch.equal(rows_k[live].cpu(), rows_r[live].cpu())
+    nxt = dec.pool.next_device().cpu()
+    for b, st in enumerate(states):
+        if st is None or not live[b]:
+            continue
+        row = int(rows0[b])
+        for tok in toks[:, b].tolist():
+            assert st.fsm.allows(st.state, tok), (b, tok)
+            st.advance(tok)
+            row = int(nxt[row, tok])
+        assert int(rows_k[b]) == row
+    torch.testing.assert_close(kk[:, 1:], kr[:, 1:], rtol=0, atol=1e-3)
+    torch.testing.assert_close(vk[:, 1:], vr[:, 1:], rtol=0, atol=1e-3)
+    with pytest.raises(ValueError, match="guided"):
+        mk.fused_decode_window(*weights, kk, vk, tokens, positions, tables, active, *samp, rows0, None, guide[2],
+                               **kw)
+
+
+def test_sample_epilogue_on_masked_rows_matches_plain_version(cuda):
+    """The sampled epilogue alone on rows masked to -inf (guided rows): 1,
+    2, 3, 5, 17, 40 or 63 allowed tokens (fewer than top_k in some rows),
+    clustered in one part of the row so whole 16-column tiles and 2048-wide
+    scan tiles are -inf; greedy and sampled rows. Every token allowed, and
+    equal to the plain version's except within 1e-5 of a CDF edge."""
+    from dynamo_tpu_torch.engine.sampling import filtered_probs_rows, sample_from_uniforms
+
+    B, V = 16, 4096
+    rng = np.random.default_rng(9)
+    logits = (rng.standard_normal((B, V)) * 3).astype(np.float32)
+    allowed = [1, 2, 3, 5, 17, 40, 63, 1, 2, 5, 40, 63, 3, 17, 2, 1]
+    masked = np.full_like(logits, -np.inf)
+    sets = []
+    for b, n in enumerate(allowed):
+        lo = int(rng.integers(0, V - 512))
+        ids = np.sort(rng.choice(np.arange(lo, lo + 512), size=n, replace=False))
+        masked[b, ids] = logits[b, ids]
+        sets.append(set(ids.tolist()))
+    masked = torch.from_numpy(masked).to(cuda)
+    temps, top_ks, top_ps, u = _sample_rows(B, 32, cuda, 10)
+    for j in range(u.shape[0]):
+        got = mk.sample_epilogue(masked, temps, top_ks, top_ps, u[j])
+        want = sample_from_uniforms(masked, temps, top_ks, top_ps, u[j])
+        torch.cuda.synchronize()
+        assert all(int(t) in sets[b] for b, t in enumerate(got.cpu()))
+        rows = torch.nonzero(got != want).flatten().tolist()
+        if rows:
+            cum = filtered_probs_rows(masked[rows], temps[rows], top_ks[rows], top_ps[rows]).double().cumsum(-1)
+            for i, r in enumerate(rows):
+                edge = cum[i, min(int(got[r]), int(want[r]))].item()
+                assert abs(edge - u[j, r].item()) <= 1e-5, (j, r, int(got[r]), int(want[r]))
+
+
 # The fused spec window: R rounds of γ = 2 over 4 rows at ragged positions,
 # the last row dead.
 SPEC_R, SPEC_G = 3, 2

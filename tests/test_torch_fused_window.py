@@ -13,6 +13,11 @@ crossing a block boundary inside the window, and one dead row.
     each attention path;
 (c) the port's fused plain version against the port's ``decode_multi``;
 (d) the ``fused_window_fits`` gate;
+(f) the guided epilogue: the port's ``decode_multi_fused(guided=True)``
+    against the JAX one (``sampled=True, guided=True``), over pools both
+    packages' ``GuidedDecoder`` compile from the same grammars, guided and
+    unguided rows, greedy and sampled; every guided token allowed by the
+    host FSM and the rows after the window the host's replay;
 (e) the sampled epilogue: the port's ``decode_multi_fused(sampled=True)``
     against the JAX one, and the port's ``decode_multi`` with a threefry
     key and with ``uniforms=`` against the JAX ``decode_multi``, with rows
@@ -34,12 +39,16 @@ from dynamo_tpu.engine.config import get_config as jax_config
 from dynamo_tpu.engine.kv_cache import KvCacheArrays as JaxCache
 from dynamo_tpu.engine.models import llama as jllama
 from dynamo_tpu.engine.sampling import make_window_uniforms as jax_window_uniforms
+from dynamo_tpu.llm.guided.processor import GuidedDecoder as JaxGuidedDecoder
+from dynamo_tpu.llm.tokenizer import ByteTokenizer as JaxByteTokenizer
 from dynamo_tpu_torch.engine import prng
 from dynamo_tpu_torch.engine import sampling as tsampling
 from dynamo_tpu_torch.engine.attention import megakernel as tmk
 from dynamo_tpu_torch.engine.config import get_config
 from dynamo_tpu_torch.engine.models import llama as tllama
 from dynamo_tpu_torch.engine.weights import params_from_numpy
+from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder
+from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
 
 KV_ATOL = 2e-4
 STEPS = 4
@@ -136,7 +145,7 @@ def test_fused_plain_version_matches_decode_multi(tied):
 def test_unported_options_raise():
     _, tp, _, tcfg, k, v, w = _setup()
     tk, tv = _port_cache(k, v)
-    with pytest.raises(NotImplementedError, match="guided"):
+    with pytest.raises(ValueError, match="guided"):  # the guided epilogue needs its pools
         tllama.decode_multi_fused(tp, tcfg, tk, tv, *_port_args(w), num_steps=2, guided=True)
     with pytest.raises(NotImplementedError, match="return_logits"):
         tllama.decode_multi(tp, tcfg, tk, tv, *_port_args(w), *GREEDY, None, 2, return_logits=True)
@@ -239,3 +248,70 @@ def test_fused_window_fits():
     assert not tmk.fused_window_fits(tiny, batch=33, **f32)
     assert not tmk.fused_window_fits(tiny.replace(head_dim=48), batch=4, **f32)
     assert not tmk.fused_window_fits(tiny.replace(vocab_size=250), batch=4, **f32)
+
+
+# Guided rows' grammars: a small JSON schema, a choice and a regex; None is
+# an unguided row (pool row 0).
+GRAMMARS = [
+    {"kind": "regex", "pattern": r'\{"ok":(?:true|false),"n":[0-9]{1,3}\}'},
+    {"kind": "choice", "choices": ["red", "green", "blue"]},
+    {"kind": "regex", "pattern": r"[a-c]{2}-\d+"},
+]
+
+
+def _guided_rows(order):
+    """Both packages' decoders over ByteTokenizer (V = 256) and each row's
+    cursor (None: unguided) for the grammars in ``order``."""
+    tdec = GuidedDecoder(ByteTokenizer(), eos_ids=[0], vocab_size=256, pool_rows=16)
+    jdec = JaxGuidedDecoder(JaxByteTokenizer(), eos_ids=[0], vocab_size=256, pool_rows=16)
+    states = [None if g is None else (tdec.open(GRAMMARS[g]), jdec.open(GRAMMARS[g])) for g in order]
+    rows = np.array([0 if st is None else st[0].row_id for st in states], np.int32)
+    assert list(rows) == [0 if st is None else st[1].row_id for st in states]
+    return tdec, jdec, states, rows
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+@pytest.mark.parametrize("order,shift", [((0, 1, None, None), 0), ((None, 2, 0, None), 3), ((1, 0, 2, 1), 1)],
+                         ids=["guided-first", "unguided-first", "all-guided"])
+def test_guided_fused_window_matches_jax(tied, order, shift):
+    """Guided and unguided rows, greedy and sampled (``EDGES`` from
+    ``shift``): tokens of live rows equal to the JAX kernel's in interpret
+    mode and written K/V within 2e-4; each guided row's tokens allowed by
+    its FSM step by step and its row after the window the host's replay
+    through the next-row pool."""
+    jp, tp, jcfg, tcfg, k, v, w = _setup(tied=tied)
+    (temps, top_ks, top_ps), uniforms = _sampled_rows(shift)
+    tdec, jdec, states, rows = _guided_rows(order)
+    want = jllama.decode_multi_fused(
+        jp, jcfg, k, v, *(jnp.asarray(w[n]) for n in ("tokens", "positions", "tables", "active")),
+        num_steps=STEPS, temps=jnp.asarray(temps), top_ks=jnp.asarray(top_ks), top_ps=jnp.asarray(top_ps),
+        uniforms=jnp.asarray(uniforms.numpy()), guided_rows=jnp.asarray(rows), mask_pool=jdec.pool.device(),
+        next_pool=jdec.pool.next_device(), sampled=True, guided=True,
+    )
+    tk, tv = _port_cache(k, v)
+    ref0, g0 = tmk.WINDOW_REF_CALLS, tmk.WINDOW_GUIDED_REF_CALLS
+    got = tllama.decode_multi_fused(tp, tcfg, tk, tv, *_port_args(w), num_steps=STEPS, temps=temps,
+                                    top_ks=top_ks, top_ps=top_ps, uniforms=uniforms, guided_rows=rows,
+                                    mask_pool=tdec.pool.device(), next_pool=tdec.pool.next_device(),
+                                    sampled=True, guided=True)
+    assert tmk.WINDOW_REF_CALLS == ref0 + 1 and tmk.WINDOW_GUIDED_REF_CALLS == g0 + 1
+    _check(*got, *want)
+    # The host FSM allows every guided token; the device's rows after the
+    # window are the host's replay.
+    rows_out = torch.empty(len(ROWS), dtype=torch.int32)
+    tk, tv = _port_cache(k, v)
+    toks = tmk.fused_decode_window(*_window_weights(tp), tk, tv, *_port_args(w), torch.from_numpy(temps),
+                                   torch.from_numpy(top_ks), torch.from_numpy(top_ps), uniforms,
+                                   torch.from_numpy(rows), tdec.pool.device(), tdec.pool.next_device(),
+                                   rows_out=rows_out, **_window_kw(tcfg, STEPS))
+    np.testing.assert_array_equal(toks.numpy(), got[0].numpy())
+    nxt = tdec.pool.next_device().numpy()
+    for b, st in enumerate(states):
+        if st is None or not w["active"][b]:
+            continue
+        cursor, row = st[0], int(rows[b])
+        for tok in toks[:, b].tolist():
+            assert cursor.fsm.allows(cursor.state, tok), (b, tok)
+            cursor.advance(tok)
+            row = int(nxt[row, tok])
+        assert int(rows_out[b]) == row

@@ -129,3 +129,105 @@ def test_sample_batch_matches_jax_windowed_path(seed):
                                        np.arange(8) % 3 == 0)
     got = tsampling.sample_batch(t, temps, top_ks, top_ps, key, row_keys)
     np.testing.assert_array_equal(got, _jax_sample(logits, temps, top_ks, top_ps, key, row_keys))
+
+
+# ---------------------------------------------------------------------------
+# Guided decoding: logits masked by a packed allow-bit pool
+# ---------------------------------------------------------------------------
+
+# Allowed tokens per batch row: row 0 of the pool allows everything; the
+# others allow 1, 2, 3, 5, 17, 40 or 63 tokens (fewer than the 64 of JAX's
+# windowed thresholds) or 100 (more).
+ALLOWED = [None, 1, 2, 3, 5, 17, 40, 63, 100]
+
+
+def _mask_pool(rng, V):
+    """(pool [P, ceil(V/32)] uint32, allowed sets): pool row r + 1 allows a
+    random set of ``ALLOWED[r + 1]`` tokens, row 0 everything."""
+    W = (V + 31) // 32
+    pool = np.zeros((len(ALLOWED), W), np.uint32)
+    bits = np.zeros((len(ALLOWED), W * 32), bool)
+    bits[0, :V] = True
+    sets = [np.arange(V)]
+    for r, n in enumerate(ALLOWED[1:], start=1):
+        ids = np.sort(rng.choice(V, size=n, replace=False))
+        bits[r, ids] = True
+        sets.append(ids)
+    pool[:] = (bits.reshape(len(ALLOWED), W, 32).astype(np.uint32) << np.arange(32, dtype=np.uint32)).sum(
+        axis=2, dtype=np.uint32)
+    return pool, sets
+
+
+def _guided_batch(seed, V=300, exact=False):
+    """A batch of 9 rows, one per pool row, greedy and sampled with top-k
+    (also past the row's allowed count) and top-p. Without ``exact`` every
+    sampled row keeps JAX ``sample_batch`` on its windowed thresholds (k ≤
+    64, and top-p only where the row allows fewer than 64 tokens); with it
+    a row asks for top_k = 200, which sends the batch to the full sort."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((len(ALLOWED), V)) * 3).astype(np.float32)
+    pool, sets = _mask_pool(rng, V)
+    rows = np.arange(len(ALLOWED), dtype=np.int32)
+    temps = np.array([0.0, 0.8, 1.0, 0.0, 1.2, 0.7, 1.0, 0.9, 1.0], np.float32)
+    top_ks = np.array([0, 0, 5, 0, 4, 64, 0, 50, 10 if not exact else 200], np.int32)
+    top_ps = np.array([1.0, 0.9, 1.0, 1.0, 0.8, 0.95, 0.9, 0.99, 1.0], np.float32)
+    return logits, pool, sets, rows, temps, top_ks, top_ps
+
+
+def test_apply_token_masks_matches_jax():
+    logits, pool, sets, rows, *_ = _guided_batch(0)
+    want = np.asarray(jsampling.apply_token_masks(*_j(logits, pool, rows)))
+    got = tsampling.apply_token_masks(torch.from_numpy(logits), torch.from_numpy(pool.view(np.int32)),
+                                      torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(got, want)
+    for r, ids in enumerate(sets):
+        assert np.isfinite(got[r]).sum() == len(ids) and np.isfinite(got[r, ids]).all()
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["windowed", "exact"])
+@pytest.mark.parametrize("seed", range(3))
+def test_guided_sample_batch_matches_jax(seed, exact):
+    """Masked rows through the threefry draw, with one key and with per-row
+    keys: ``sample_batch`` over ``apply_token_masks`` (the scheduler's
+    guided draw) gives JAX ``guided_sample_batch``'s tokens, every one
+    allowed, greedy rows the argmax of their allowed logits."""
+    logits, pool, sets, rows, temps, top_ks, top_ps = _guided_batch(30 + seed, exact=exact)
+    key = prng.fold_in(prng.PRNGKey(seed), 11)
+    k_rows = np.stack([top_ks, rows])
+    t, tpool = torch.from_numpy(logits), torch.from_numpy(pool.view(np.int32))
+    row_keys = tsampling.make_row_keys(key, np.arange(9, dtype=np.int32) * 5, np.arange(9, dtype=np.int32),
+                                       np.arange(9) % 2 == 1)
+    for rk in (None, row_keys):
+        want = np.asarray(jsampling.guided_sample_batch(
+            *_j(logits, pool, k_rows, temps, top_ps), jnp.asarray(key), None if rk is None else jnp.asarray(rk)))
+        got = tsampling.sample_batch(tsampling.apply_token_masks(t, tpool, torch.from_numpy(rows)), temps, top_ks,
+                                     top_ps, key, rk)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == np.int32 and all(tok in sets[r] for r, tok in enumerate(got))
+        for r in np.nonzero(temps == 0)[0]:
+            assert got[r] == sets[r][np.argmax(logits[r, sets[r]])]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_masked_filter_thresholds_and_draws_match_jax(seed):
+    """On masked rows (fewer allowed tokens than top_k, nuclei that end in
+    the allowed set): ``_exact_thresholds`` equal, ``filtered_probs_rows``
+    within 1e-6 and zero off the allowed set, and ``sample_from_uniforms``
+    (the fused window's pick) bit-equal."""
+    logits, pool, sets, rows, temps, top_ks, top_ps = _guided_batch(40 + seed)
+    masked = np.array(jsampling.apply_token_masks(*_j(logits, pool, rows)))
+    scaled = masked / np.where(temps > 0, temps, 1.0).astype(np.float32)[:, None]
+    lse = torch.logsumexp(torch.from_numpy(scaled), dim=-1, keepdim=True).numpy()
+    want = np.asarray(jsampling._exact_thresholds(*_j(scaled, lse, top_ks, top_ps)))
+    got = tsampling._exact_thresholds(*_t(scaled, lse, top_ks, top_ps)).numpy()
+    np.testing.assert_array_equal(got, want)
+    want_p = np.asarray(jsampling.filtered_probs_rows(*_j(masked, temps, top_ks, top_ps)))
+    got_p = tsampling.filtered_probs_rows(*_t(masked, temps, top_ks, top_ps)).numpy()
+    np.testing.assert_allclose(got_p, want_p, atol=1e-6, rtol=0)
+    assert np.isfinite(masked[got_p > 0]).all()  # mass only on allowed tokens
+    for trial in range(5):
+        u = np.random.default_rng(100 * seed + trial).random(len(temps)).astype(np.float32)
+        want_t = np.asarray(jsampling.sample_from_uniforms(*_j(masked, temps, top_ks, top_ps, u)))
+        got_t = tsampling.sample_from_uniforms(*_t(masked, temps, top_ks, top_ps, u)).numpy()
+        np.testing.assert_array_equal(got_t, want_t)
+        assert all(tok in sets[r] for r, tok in enumerate(got_t))
