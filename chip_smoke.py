@@ -5,7 +5,8 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 ``dynamo_tpu_torch/csrc`` with nvcc, holds each kernel against its plain
 PyTorch version at the shapes the serving path gives it (and times the
-launch-overhead probe), among them the fused decode window's sampled
+launch-overhead probe), among them the ragged kernel's int8 branch over
+int8 pages (llama-3.2-1b's and llama-3-8b's widths), the fused decode window's sampled
 epilogue, alone on given logits (also on rows masked to -inf, as guided
 rows reach it) and inside the window, its guided epilogue (greedy and
 sampled rows constrained by a regex, a JSON schema and a choice over the
@@ -15,18 +16,23 @@ a llama-3.2-1b draft in f32, both pairs timed in bf16); runs the
 full-width llama-3.2-1b model on the kernel paths against the plain
 paths, the fused window, greedy and sampled, against ``decode_multi``,
 and the spec window speculating with the target's own weights against
-the fused window's greedy stream; times a decode step, a mixed step, the
+the fused window's greedy stream, and llama-3.2-1b with int8 KV and int8
+weights (resident bytes; bf16 steps against the plain path and f32; an
+f32 ``decode_multi`` window's tokens and written codes); times a decode
+step and a mixed step (bf16, and int8), the
 per-step threefry draw and a 32-step decode window, greedy, sampled and
 guided, and a spec window; then serves ``dynamo_tpu_torch.run in=http
-out=llama-3.2-1b`` four times: on the megakernel path and on the
+out=llama-3.2-1b`` five times: on the megakernel path and on the
 per-piece path (``attention_impl="paged", prefill_impl="flash"``), both
 at one decode step per iteration, with the defaults (32-step decode
 windows, every window fused, sampled rows drawn in the kernel), and with
 a llama-3.2-1b draft of the target's weights (``--draft-model``: every
-batch speculates in fused spec windows), sending each concurrent
-requests and counting every kernel's launches; the last two passes also
-send one seeded sampled request at two batch slots and hold its two
-answers equal; the last two passes also send structured-output requests
+batch speculates in fused spec windows), and with ``--kv-cache-dtype
+int8 --weight-dtype int8`` (every step through the ragged kernel's int8
+branch, a copy-on-write prefix hit on the int8 cache), sending each concurrent
+requests and counting every kernel's launches; the windows and spec
+passes also send one seeded sampled request at two batch slots and hold
+its two answers equal, and structured-output requests
 (``response_format: json_schema`` and ``json_object``, ``nvext.
 guided_choice``) whose answers must hold their grammars, reporting each
 grammar's compile and pool-write seconds, the pools' bytes and the
@@ -43,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import http.client
 import json
 import shutil
@@ -59,6 +66,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor
 # The Pallas kernel body each CUDA kernel replaces (its pallas_call line).
 TPU_KERNEL = {
     "ragged_paged_attention": "dynamo_tpu/engine/attention/megakernel.py:123",  # :296
+    "ragged_paged_attention_int8": "dynamo_tpu/engine/attention/megakernel.py:160",  # quant=True, :137-175
     "flash_chunk_attention": "dynamo_tpu/engine/attention/prefill.py:46",  # :168
     "paged_decode_partials": "dynamo_tpu/engine/attention/decode.py:65",  # :173
     "fused_decode_window": "dynamo_tpu/engine/attention/megakernel.py:358",  # :619
@@ -90,6 +98,7 @@ def kernel_counters():
     from dynamo_tpu_torch.engine.attention import decode, megakernel, prefill
 
     return {"ragged_paged_attention": (megakernel, "KERNEL_LAUNCHES", "REF_CALLS"),
+            "ragged_paged_attention_int8": (megakernel, "KERNEL_LAUNCHES_INT8", "REF_CALLS_INT8"),
             "flash_chunk_attention": (prefill, "KERNEL_LAUNCHES", "REF_CALLS"),
             "paged_decode_partials": (decode, "KERNEL_LAUNCHES", "REF_CALLS"),
             "fused_decode_window": (megakernel, "WINDOW_KERNEL_LAUNCHES", "WINDOW_REF_CALLS"),
@@ -192,6 +201,8 @@ def attention_work(case):
     """(bytes, flops) the step needs: each input read once (only the pages
     live rows reach, within their prefix), the output written once; QK and
     PV products over every key a live query sees."""
+    from dynamo_tpu_torch.engine.kv_cache import QuantKv
+
     q, k_extra, v_extra, k_pages, v_pages, tables, meta = case["args"]
     BS = case["BS"]
     NQ, H, HD = q.shape
@@ -202,7 +213,10 @@ def attention_work(case):
     for r in torch.unique(row_of[live]).tolist():
         n = (int(prefix[row_of == r].max()) + BS - 1) // BS
         pages.update(tables[r, :n].tolist())
-    page_bytes = k_pages[0].numel() * esz
+    if isinstance(k_pages, QuantKv):  # a page's int8 codes and its f32 scales
+        page_bytes = k_pages.q[0].numel() + k_pages.scale[0].numel() * 4
+    else:
+        page_bytes = k_pages[0].numel() * esz
     nbytes = (
         2 * len(pages) * page_bytes
         + (q.numel() + k_extra.numel() + v_extra.numel() + q.numel()) * esz
@@ -216,7 +230,13 @@ def attention_work(case):
 def sdpa_yardstick(case):
     """``scaled_dot_product_attention`` on the same step with the K/V
     gathered dense per row (GQA heads expanded) and a boolean mask: one
-    PyTorch call computing the same function, timed as a yardstick only."""
+    PyTorch call computing the same function, timed as a yardstick only.
+    An int8 case returns ``(dequant + SDPA ms, SDPA alone ms)``: the pages'
+    codes and scales gathered per row beforehand, then, timed, one PyTorch
+    expression dequantizing them to dense K/V in q's dtype before the same
+    call."""
+    from dynamo_tpu_torch.engine.kv_cache import QuantKv
+
     q, k_extra, v_extra, k_pages, v_pages, tables, meta = case["args"]
     BS, KVH = case["BS"], case["KVH"]
     NQ, H, HD = q.shape
@@ -225,10 +245,17 @@ def sdpa_yardstick(case):
     counts = torch.bincount(row_of, minlength=R).tolist()
     QM = max(counts)
     S = W * BS + k_extra.shape[0]
-    kd = torch.cat([k_pages[tables.long()].reshape(R, W * BS, KVH, HD), k_extra[None].expand(R, -1, -1, -1)], 1)
-    vd = torch.cat([v_pages[tables.long()].reshape(R, W * BS, KVH, HD), v_extra[None].expand(R, -1, -1, -1)], 1)
-    kd = kd.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()  # [R, H, S, HD]
-    vd = vd.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+    quant = isinstance(k_pages, QuantKv)
+
+    def dense(pages, extra):
+        if quant:  # pages: (codes, scales) gathered per row
+            pages = pages[0].to(q.dtype) * pages[1].to(q.dtype)
+        d = torch.cat([pages.reshape(R, W * BS, KVH, HD), extra[None].expand(R, -1, -1, -1)], 1)
+        return d.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()  # [R, H, S, HD]
+
+    gathered = [(p.q[tables.long()], p.scale[tables.long()]) if quant else p[tables.long()]
+                for p in (k_pages, v_pages)]
+    kd, vd = dense(gathered[0], k_extra), dense(gathered[1], v_extra)
     qd = torch.zeros((R, QM, H, HD), dtype=q.dtype, device=q.device)
     mask = torch.zeros((R, 1, QM, S), dtype=torch.bool, device=q.device)
     pos = torch.arange(S, device=q.device)
@@ -243,13 +270,37 @@ def sdpa_yardstick(case):
     mask[..., 0] |= ~mask.any(-1)  # keep fully-masked padding rows finite
     qd = qd.transpose(1, 2).contiguous()
     fn = lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)  # noqa: E731
-    return cuda_ms(fn)
+    if not quant:
+        return cuda_ms(fn)
+    with_dequant = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qd, dense(gathered[0], k_extra), dense(gathered[1], v_extra), attn_mask=mask)
+    return cuda_ms(with_dequant), cuda_ms(fn)
+
+
+def int8_attention_case(name, *, dtype, dev, seed, **spec):
+    """``attention_case``'s step over an int8 page pool: the pages quantized
+    per (token, KV head) (``kv_cache.quantize_kv_rows``, as the cache holds
+    them), with the first 5 tokens of the chunk row's first page all zero
+    (scale 1, codes 0); q and the fresh keys in ``dtype``."""
+    from dynamo_tpu_torch.engine.kv_cache import QuantKv, quantize_kv_rows
+
+    case = attention_case(name, dtype=torch.float32, dev="cpu", seed=seed, **spec)
+    q, k_extra, v_extra, k_pages, v_pages, tables, meta = case["args"]
+    pools = []
+    for p in (k_pages, v_pages):
+        p[int(tables[0, 0]), :5] = 0.0
+        pools.append(QuantKv(*(t.to(dev) for t in quantize_kv_rows(p))))
+    case["args"] = (*(t.to(dev, dtype) for t in (q, k_extra, v_extra)), *pools, tables.to(dev), meta.to(dev))
+    case["dtype"] = dtype
+    return case
 
 
 def check_attention(case, *, time_it: bool):
     from dynamo_tpu_torch.engine.attention import megakernel as mk
+    from dynamo_tpu_torch.engine.kv_cache import QuantKv, dequantize_kv
 
     args, KVH, BS, dtype = case["args"], case["KVH"], case["BS"], case["dtype"]
+    quant = isinstance(args[3], QuantKv)
     kw = dict(num_kv_heads=KVH, block_size=BS)
     out = mk.ragged_paged_attention(*args, **kw)
     ref = mk.ragged_paged_attention_ref(*args, **kw)
@@ -262,15 +313,18 @@ def check_attention(case, *, time_it: bool):
         # The plain version rounds p to bf16 before the PV product (as the
         # TPU kernel does); the kernel keeps p in f32. With normalized p,
         # that differs by at most 2^-9·max|v|, plus each output's own bf16
-        # rounding (2^-9·|o| each).
-        v_max = max(args[2].abs().max().item(), args[4][1:].abs().max().item())
+        # rounding (2^-9·|o| each). An int8 pool's v is its dequantized
+        # values, which kernel and plain version round alike.
+        v_pool = dequantize_kv(args[4], torch.float32) if quant else args[4]
+        v_max = max(args[2].abs().max().item(), v_pool[1:].abs().max().item())
         tol = 2**-9 * v_max + 2 * 2**-9 * ref.float().abs().max().item() + 1e-6
     dead_nonzero = 0
     if case["dead"]:
         live = args[6][4] != 0
         dead_nonzero = int((out[~live] != 0).sum().item())
     ok = err <= tol and dead_nonzero == 0 and bool(torch.isfinite(out).all())
-    res = {"kernel": "ragged_paged_attention", "case": case["name"], "dtype": str(dtype).replace("torch.", ""),
+    res = {"kernel": "ragged_paged_attention_int8" if quant else "ragged_paged_attention", "case": case["name"],
+           "dtype": str(dtype).replace("torch.", ""),
            "shape": {"NQ": args[0].shape[0], "H": args[0].shape[1], "KVH": KVH, "HD": args[0].shape[2],
                      "W": args[5].shape[1]},
            "max_abs_err": err, "tol": tol, "dead_nonzero": dead_nonzero, "ok": ok}
@@ -278,7 +332,10 @@ def check_attention(case, *, time_it: bool):
         nbytes, flops = attention_work(case)
         res["kernel_ms"] = cuda_ms(lambda: mk.ragged_paged_attention(*args, **kw))
         res["ref_ms"] = cuda_ms(lambda: mk.ragged_paged_attention_ref(*args, **kw), iters=20)
-        res["library_ms"] = sdpa_yardstick(case)
+        if quant:
+            res["library_ms"], res["sdpa_alone_ms"] = sdpa_yardstick(case)
+        else:
+            res["library_ms"] = sdpa_yardstick(case)
         res.update(bound(nbytes, flops, dtype))
     emit("kernel", **res)
     if not ok:
@@ -1447,6 +1504,21 @@ def phase_kernel(dev):
             del case
     torch.cuda.empty_cache()
 
+    # The int8 branch over int8 pages: the same mixed step at llama-3.2-1b's
+    # widths and at llama-3-8b's (HD = 128), each with 4 dead chunk queries
+    # and zero-amax tokens, in bf16 and f32; both bf16 cases timed.
+    int8_specs = [("llama-3.2-1b mixed, int8 KV", dict(H=32, KVH=8, HD=64)),
+                  ("llama-3-8b widths mixed, int8 KV", dict(H=32, KVH=8, HD=128))]
+    for i, (name, heads) in enumerate(int8_specs):
+        for dtype in (torch.bfloat16, torch.float32):
+            case = int8_attention_case(name, dtype=dtype, dev=dev, seed=150 + i, chunk=512, chunk_prefix=1000,
+                                       decode_ctx=ctx_1b, dead=4, **heads)
+            res = check_attention(case, time_it=dtype == torch.bfloat16)
+            if "kernel_ms" in res:
+                timed["ragged_paged_attention_int8" + ("" if i == 0 else " 8b")] = res
+            del case
+    torch.cuda.empty_cache()
+
     # flash_chunk_attention: the prefill buckets the serving path runs
     # (512 in mixed steps, 2048 for long prompts), a padded chunk, a chunk
     # length that is no power of two, HD=128 and MQA heads.
@@ -1614,6 +1686,7 @@ def phase_model(dev):
     del params_cpu
     torch.cuda.empty_cache()
     phase_model_window(dev)
+    phase_model_int8(dev)
 
 
 def phase_model_window(dev):
@@ -1744,6 +1817,201 @@ def phase_model_spec(dev):
     if not ok:
         raise AssertionError(f"the fused spec window's stream differs from the fused window's: {res}")
     del case, params, caches, sc
+    torch.cuda.empty_cache()
+
+
+class PlainAttention:
+    """Inside the ``with`` block the model's ragged attention calls run the
+    plain version on the card (the wrapper's module attribute, which
+    ``llama`` looks up at call time, points at ``ragged_paged_attention_ref``);
+    ``calls`` counts them."""
+
+    def __enter__(self):
+        from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+        self.mk, self.orig, self.calls = mk, mk.ragged_paged_attention, 0
+
+        def plain(*args, **kw):
+            self.calls += 1
+            return mk.ragged_paged_attention_ref(*args, **kw)
+
+        mk.ragged_paged_attention = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mk.ragged_paged_attention = self.orig
+
+
+def tree_bytes(params) -> int:
+    """Bytes a param tree holds on the card, from its tensors (an int8
+    weight's codes and scales)."""
+    leaves = []
+    for v in params.values():
+        for w in (v.values() if isinstance(v, dict) else [v]):
+            leaves += list(w) if isinstance(w, tuple) else [w]
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+# The int8 model check's window rows (one dead row beside them) and steps.
+INT8_WINDOW_POSITIONS = [0, 13, 100, 255, 511, 700, 1023]
+INT8_WINDOW_STEPS = 32
+
+
+def phase_model_int8(dev):
+    """llama-3.2-1b at full width with int8 KV and int8 weights, on the card:
+    1. resident bytes of the weights and of one 16-token KV block (all
+       layers, K and V), int8 against bf16, from the tensors, and the blocks
+       that fit beside the weights in the memory free at the phase's start;
+    2. bf16, teacher-forced: a 300-token prefill (every position's logits),
+       a decode step (batch 2, one padded lane) and a mixed step (an
+       80-token chunk beside the decode row) on the kernel path and on the
+       plain path (the ragged kernel's
+       plain version on the card), and on the plain path over f32 copies of
+       the weights (the same int8 codes, embedding and norms in f32). Each
+       step's bf16 noise is the plain bf16 logits' largest distance from the
+       f32 ones; the kernel's distance from the f32 logits must stay within
+       ``SPEC_BF16_NOISE_RATIO`` of the plain version's, and the greedy
+       tokens must be equal where the plain top-2 gap exceeds
+       ``STEP0_GAP_NOISES`` of the row's noise;
+    3. f32: a 32-step ``decode_multi`` window of 8 rows (one dead) over a
+       random int8 cache on both paths from copies of one cache: the same
+       tokens, and the same codes and scales written at the window's end
+       (but for a code step at a rounding tie)."""
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.kv_cache import KvCacheArrays, QuantKv, quantize_kv_rows
+    from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.engine.quant import QuantW, quantize_params
+    from dynamo_tpu_torch.engine.weights import init_params
+
+    base = get_config(PRESET)
+    cfg = base.replace(kv_cache_dtype="int8", weight_dtype="int8")
+    L, BS = base.num_layers, base.block_size
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    params = init_params(base, torch.Generator(device=dev).manual_seed(3), device=dev, dtype=torch.bfloat16)
+    weights_bf16 = tree_bytes(params)
+    params = quantize_params(params)
+    weights_int8 = tree_bytes(params)
+    block = {name: sum(t.numel() * t.element_size() for c in (kv.k, kv.v) for t in (c if isinstance(c, QuantKv) else [c]))
+             for name, kv in (("bf16", KvCacheArrays.create(base, 1, dtype=torch.bfloat16, device=dev)),
+                              ("int8", KvCacheArrays.create(cfg, 1, dtype=torch.bfloat16, device=dev)))}
+    resident = {"free_at_start_bytes": free0, "weights_bf16_bytes": weights_bf16, "weights_int8_bytes": weights_int8,
+                "kv_block_bf16_bytes": block["bf16"], "kv_block_int8_bytes": block["int8"],
+                "blocks_fit_bf16": (free0 - weights_bf16) // block["bf16"],
+                "blocks_fit_int8": (free0 - weights_int8) // block["int8"]}
+    emit("model", preset=PRESET, path="int8 resident bytes", **resident)
+
+    # 2. bf16 teacher-forced steps, kernel vs plain, each against f32.
+    rng = np.random.default_rng(8)
+    seq_a = rng.integers(1, base.vocab_size, size=320).astype(np.int32)
+    seq_b = rng.integers(1, base.vocab_size, size=80).astype(np.int32)
+    table_a = np.zeros(24, np.int32)
+    table_a[:22] = np.arange(1, 23)
+    table_b = np.zeros(16, np.int32)
+    table_b[:6] = np.arange(23, 29)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    params32 = {k: ({kk: vv if isinstance(vv, QuantW) else vv.float() for kk, vv in v.items()}
+                    if isinstance(v, dict) else v.float()) for k, v in params.items()}
+
+    def steps(p):
+        cache = KvCacheArrays.create(cfg, 48, device=dev)
+        k, v = cache.k, cache.v
+        toks = np.zeros(512, np.int32)
+        toks[:300] = seq_a[:300]
+        out = [llama.prefill(p, cfg, k, v, t(toks), 300, 0, t(table_a), all_logits=True)[0][:300]]
+        out.append(llama.decode(p, cfg, k, v, t(np.array([seq_a[300], 0], np.int32)), t(np.array([300, 0], np.int32)),
+                                t(np.stack([table_a, np.zeros_like(table_a)])), t(np.array([True, False])))[0][:1])
+        p_tok = np.zeros(128, np.int32)
+        p_tok[:80] = seq_b
+        out.append(llama.mixed_step(p, cfg, k, v, t(p_tok), 80, 0, t(table_b), t(seq_a[301:302]),
+                                    t(np.array([301], np.int32)), t(table_a[None]), t(np.array([True])))[0])
+        return [x.float() for x in out]
+
+    reset_counts()
+    kern = steps(params)
+    kern_counts = read_counts()
+    with PlainAttention() as pa:
+        plain = steps(params)
+        truth = steps(params32)
+    launches = {n: c["launches"] for n, c in kern_counts.items() if c["launches"]}
+    rows = []
+    ok = launches == {"ragged_paged_attention_int8": 3 * L} and pa.calls == 6 * L
+    for name, kl, pl_, tl in zip(("prefill", "decode", "mixed"), kern, plain, truth):
+        noise = (pl_ - tl).abs().amax(dim=-1)
+        kern_dist = (kl - tl).abs().max().item()
+        top = pl_.topk(2, dim=-1)
+        gap = top.values[:, 0] - top.values[:, 1]
+        held = gap > STEP0_GAP_NOISES * noise
+        same = bool(torch.equal(kl.argmax(-1)[held], top.indices[held, 0]))
+        row = {"step": name, "kernel_vs_plain": (kl - pl_).abs().max().item(), "plain_vs_f32": noise.max().item(),
+               "kernel_vs_f32": kern_dist, "limit": SPEC_BF16_NOISE_RATIO * noise.max().item(),
+               "rows_held": int(held.sum()), "rows": len(held), "tokens_equal_where_held": same,
+               "finite": bool(torch.isfinite(kl).all())}
+        row["ok"] = row["finite"] and same and kern_dist <= row["limit"]
+        ok = ok and row["ok"]
+        rows.append(row)
+    res = {"preset": PRESET, "path": "int8 KV + int8 weights, kernel vs plain (bf16, f32 truth)",
+           "steps": rows, "kernel_launches": launches, "plain_calls": pa.calls,
+           "noise_ratio": SPEC_BF16_NOISE_RATIO, "gap_noises": STEP0_GAP_NOISES, "ok": ok}
+    emit("model", **res)
+    if not ok:
+        raise AssertionError(f"the int8 model's kernel path disagrees with its plain path: {res}")
+    del params, kern, plain, truth
+
+    # 3. f32 decode_multi window, kernel vs plain, from copies of one cache.
+    B, W = len(INT8_WINDOW_POSITIONS) + 1, INT8_WINDOW_STEPS
+    need = [(p + W) // BS + 1 for p in INT8_WINDOW_POSITIONS]
+    NB = sum(need) + 1
+    g = torch.Generator(device="cpu").manual_seed(9)
+    ids = (torch.randperm(NB - 1, generator=g) + 1).to(torch.int32)
+    tables = torch.zeros((B, max(need)), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    shape = (L, NB, BS, base.num_kv_heads, base.head_dim)
+    k0, v0 = (quantize_kv_rows(torch.randn(shape, generator=g)) for _ in range(2))
+    k0, v0 = (QuantKv(c.q.to(dev), c.scale.to(dev)) for c in (k0, v0))
+    positions = torch.tensor(INT8_WINDOW_POSITIONS + [0], dtype=torch.int32)
+    ints = [t(rng.integers(1, base.vocab_size, size=B).astype(np.int32)), positions.to(dev), tables.to(dev),
+            torch.tensor([True] * (B - 1) + [False], device=dev)]
+    greedy = (np.zeros(B, np.float32), np.zeros(B, np.int32), np.ones(B, np.float32))
+    written = torch.zeros((NB, BS), dtype=torch.bool)
+    for b, p in enumerate(INT8_WINDOW_POSITIONS):
+        for j in range(W):
+            written[int(tables[b, (p + j) // BS]), (p + j) % BS] = True
+    copy = lambda c: QuantKv(c.q.clone(), c.scale.clone())  # noqa: E731
+    out = {}
+    for name in ("kernel", "plain"):
+        k, v = copy(k0), copy(v0)
+        reset_counts()
+        with PlainAttention() if name == "plain" else contextlib.nullcontext() as pa:
+            toks, _, _ = llama.decode_multi(params32, cfg, k, v, *ints, *greedy, None, W)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        out[name] = (toks[:, :B - 1].cpu(), k, v, {n: c["launches"] for n, c in counts.items() if c["launches"]},
+                     getattr(pa, "calls", 0))
+    (kt, kk, kv, k_launch, _), (pt, pk, pv, p_launch, p_calls) = out["kernel"], out["plain"]
+    # Rows within f32 rounding: a code may differ by one step at a tie, and a
+    # scale in its last bits (as tests/test_torch_int8.py allows).
+    sel = written.to(dev)
+    code_diff, codes_apart, scale_err = 0, 0, 0.0
+    for a, b in ((kk, pk), (kv, pv)):
+        d = (a.q[:, sel].int() - b.q[:, sel].int()).abs()
+        code_diff, codes_apart = max(code_diff, int(d.max())), codes_apart + int((d > 0).sum())
+        scale_err = max(scale_err, ((a.scale[:, sel] - b.scale[:, sel]).abs() / b.scale[:, sel]).max().item())
+    codes_ok = code_diff <= 1 and codes_apart <= 1e-3 * 2 * kk.q[:, sel].numel()
+    same = bool(torch.equal(kt, pt))
+    ok = (same and codes_ok and scale_err <= 2e-5 and k_launch == {"ragged_paged_attention_int8": W * L}
+          and not p_launch and p_calls == W * L)
+    res = {"preset": PRESET, "path": "int8 decode_multi window, kernel vs plain", "dtype": "float32", "rows": B,
+           "live": B - 1, "steps": W, "tokens_equal": same, "token_agreement": (kt == pt).float().mean().item(),
+           "codes_apart": codes_apart, "code_max_diff": code_diff, "scale_max_rel_err": scale_err, "kernel_launches": k_launch,
+           "plain_launches": p_launch, "plain_calls": p_calls, "ok": ok}
+    emit("model", **res)
+    if not ok:
+        raise AssertionError(f"the int8 decode_multi window's kernel path disagrees with its plain path: {res}")
+    del params32, out, k0, v0
     torch.cuda.empty_cache()
 
 
@@ -1926,7 +2194,9 @@ def phase_breakdown(dev):
     PyTorch glue around them (prefix gathers, the prefix partial, the
     in-register piece, merges). Event times include any wait for the
     host; ``device_busy_ms`` (torch.profiler) is the card's own work, and
-    the rest of the step is the card waiting for the host. Then one
+    the rest of the step is the card waiting for the host. The same two
+    steps of the int8 deployment (int8 KV and int8 weights, the megakernel
+    path: its int8 branch, and each layer's weights dequantized). Then one
     32-step window over the same 8 decode rows: fused greedy, fused
     sampled, fused guided, and the non-fused greedy ``decode_multi``; and
     the per-step paths' threefry draw."""
@@ -1936,6 +2206,7 @@ def phase_breakdown(dev):
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.kv_cache import KvCacheArrays
     from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.engine.quant import quantize_params
     from dynamo_tpu_torch.engine.scheduler import width_bucket
     from dynamo_tpu_torch.engine.weights import init_params
 
@@ -1961,20 +2232,29 @@ def phase_breakdown(dev):
     p_tok = t(rng.integers(1, 255, size=chunk).astype(np.int32))
     p_tab = t(p_table)
 
+    # The int8 deployment: the same weights quantized (a copy of the layer
+    # dict, so ``params`` stays bf16), a random int8 cache of as many blocks.
+    cfg8 = base.replace(kv_cache_dtype="int8", weight_dtype="int8")
+    params8 = quantize_params(dict(params, layers=dict(params["layers"])))
+    cache8 = KvCacheArrays.create(cfg8, 2048, device=dev)
+    for c in (cache8.k, cache8.v):
+        c.q.random_(-127, 128)
+        c.scale.uniform_(0.005, 0.03)
     res = {"preset": PRESET, "dtype": "bfloat16", "decode_rows": B, "context": ctx, "chunk": chunk}
-    for path, cfg in (("megakernel", base), ("paged+flash", base.replace(**PER_PIECE))):
-        flash = dict(use_flash=True, has_prefix=True) if path != "megakernel" else {}
-        if path == "megakernel":
+    for path, cfg, p_, c_ in (("megakernel", base, params, cache), ("paged+flash", base.replace(**PER_PIECE), params, cache),
+                              ("int8 megakernel", cfg8, params8, cache8)):
+        flash = dict(use_flash=True, has_prefix=True) if path == "paged+flash" else {}
+        if path != "paged+flash":
             targets = {"attention": (mk, "ragged_paged_attention")}
         else:
             targets = {"chunk": (llama, "_chunk_attention"), "decode_rows": (llama, "_decode_rows_attention"),
                        "flash": (fck, "flash_chunk_attention"), "paged": (pdk, "paged_decode_partials")}
 
         def decode():
-            llama.decode(params, cfg, cache.k, cache.v, *d_args)
+            llama.decode(p_, cfg, c_.k, c_.v, *d_args)
 
         def mixed():
-            llama.mixed_step(params, cfg, cache.k, cache.v, p_tok, chunk, ctx, p_tab, *d_args, **flash)
+            llama.mixed_step(p_, cfg, c_.k, c_.v, p_tok, chunk, ctx, p_tab, *d_args, **flash)
 
         rows = {}
         for name, fn in (("decode", decode), ("mixed", mixed)):
@@ -1988,7 +2268,7 @@ def phase_breakdown(dev):
             busy, n_launch = device_busy_ms(fn)
             row = {"step_ms": step_ms, "host_enqueue_ms": host_enqueue_ms(fn), "device_busy_ms": busy,
                    "device_idle_share": 1 - busy / step_ms, "device_launches": n_launch}
-            if path == "megakernel":
+            if path != "paged+flash":
                 row.update(attention_ms=med["attention"], attention_launches=timer.count("attention"))
             else:
                 attn = med["chunk"] + med["decode_rows"]
@@ -1998,6 +2278,9 @@ def phase_breakdown(dev):
             row["attention_share"] = row["attention_ms"] / step_ms
             rows[name] = row
         res[path] = rows
+    res["int8 resident"] = {"weights_bytes": tree_bytes(params8), "kv_cache_bytes": sum(
+        t.numel() * t.element_size() for c in (cache8.k, cache8.v) for t in c)}
+    del params8, cache8
     res["windows"] = window_breakdown(params, base, cache, d_args, steps)
     res["draw"] = draw_breakdown(dev, base.vocab_size)
     emit("breakdown", **res)
@@ -2088,7 +2371,7 @@ def _summarize(status, data, stream):
     return usage["completion_tokens"], finish, cached
 
 
-SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows", "spec")
+SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows", "spec", "int8")
 # The spec pass's scheduler counters: fused spec windows, the tokens they
 # emitted, and the draft's prefill chunks.
 SPEC_COUNTERS = ("spec_fused_windows_total", "spec_fused_accepted_tokens_total", "draft_prefill_steps_total")
@@ -2131,7 +2414,13 @@ def phase_serve(card: str, path: str):
     every batch speculates through the fused spec window (one launch per
     spec window; the draft's prefill chunks launch the ragged kernel too),
     except the seeded request's and the guided one's, which fall back to
-    fused windows."""
+    fused windows. "int8" serves with ``--kv-cache-dtype int8
+    --weight-dtype int8`` on the defaults: no fused window, so every step,
+    the 32-step windows' too (``decode_multi``), launches the ragged
+    kernel's int8 branch once per layer and nothing else; after the burst
+    and the repeat, a 64-token prompt is sent while a request with the same
+    prompt decodes, a full-cover prefix hit whose last block is copied on
+    write (``_copy_block`` over the int8 codes and scales)."""
     from dynamo_tpu_torch import run
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
@@ -2139,11 +2428,13 @@ def phase_serve(card: str, path: str):
     from dynamo_tpu_torch.engine.weights import init_params
 
     model_config = get_config(PRESET).replace(**PER_PIECE) if path == "paged+flash" else None
-    spec = path == "spec"
+    spec, int8 = path == "spec", path == "int8"
     windows = path in ("megakernel+windows", "spec")
-    scheduler_config = None if windows else SchedulerConfig(num_scheduler_steps=1)
-    draft = ["--draft-model", PRESET, "--spec-gamma", str(SPEC_GAMMA)] if spec else []
-    args = run.parse_args(["in=http", f"out={PRESET}", "--http-host", "127.0.0.1", "--http-port", "0", *draft])
+    scheduler_config = None if windows or int8 else SchedulerConfig(num_scheduler_steps=1)
+    extra = ["--draft-model", PRESET, "--spec-gamma", str(SPEC_GAMMA)] if spec else []
+    if int8:
+        extra = ["--kv-cache-dtype", "int8", "--weight-dtype", "int8"]
+    args = run.parse_args(["in=http", f"out={PRESET}", "--http-host", "127.0.0.1", "--http-port", "0", *extra])
     # Self-speculation: the draft gets the weights the engine makes for the
     # target from the same seed.
     draft_params = init_params(get_config(PRESET), torch.Generator(device=args.device).manual_seed(args.seed),
@@ -2185,8 +2476,9 @@ def phase_serve(card: str, path: str):
         await service.start()
         try:
             kinds = ("forward", "prefill", "decode", "mixed")
+            counters = WINDOW_COUNTERS + SPEC_COUNTERS + ("cow_blocks_total",)
             steps0 = {k: getattr(sched, f"{k}_steps_total") for k in kinds}
-            steps0.update({k: getattr(sched, k) for k in WINDOW_COUNTERS + SPEC_COUNTERS})
+            steps0.update({k: getattr(sched, k) for k in counters})
             reset_counts()  # counts from zero, just before the main path runs
             t0 = time.perf_counter()
             results = await asyncio.gather(
@@ -2198,9 +2490,10 @@ def phase_serve(card: str, path: str):
             fused0 = sched.fused_windows_total
             seeded = [await seeded_round(service.port, sched, n) for n in (5, 6)] if windows else []
             seeded_windows = sched.fused_windows_total - fused0
+            cow = await cow_round(service.port, sched) if int8 else None
             counts = read_counts()
             steps = {k: getattr(sched, f"{k}_steps_total") - steps0[k] for k in kinds}
-            steps.update({k: getattr(sched, k) - steps0[k] for k in WINDOW_COUNTERS + SPEC_COUNTERS})
+            steps.update({k: getattr(sched, k) - steps0[k] for k in counters})
             metrics = engine.stats()
             impl = sched.config_snapshot()["model"]["attention_impl"]
             if sched.guided is not None and sched.guided.requests_total:
@@ -2216,7 +2509,7 @@ def phase_serve(card: str, path: str):
             await service.stop()
             await engine.stop()
         return (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, sched.mc, impl,
-                sched.sc.num_scheduler_steps, seeded_windows)
+                sched.sc.num_scheduler_steps, seeded_windows, cow)
 
     def register_seconds(fsm, pool):
         """Seconds the step loop spends writing ``fsm``'s rows into a fresh
@@ -2251,8 +2544,27 @@ def phase_serve(card: str, path: str):
             _summarize(status, data, False)
         return slot, answer
 
+    async def cow_round(port, sched):
+        """A request with a 64-token prompt (4 full blocks) decoding, then
+        the same prompt again: every block matches, the last one is held
+        by the first request, so the scheduler copies it before the second
+        recomputes the last token. → (cached tokens of the second answer,
+        blocks copied)."""
+        cow0 = sched.cow_blocks_total
+        prompt = text(64)
+        first = asyncio.ensure_future(asyncio.to_thread(
+            _request, port, "/v1/completions",
+            {"model": PRESET, "prompt": prompt, "max_tokens": 96, "temperature": 0.0, "nvext": {"ignore_eos": True}}))
+        while not any(seq.output_ids for seq in list(sched.running)):
+            await asyncio.sleep(0.002)
+        second = await asyncio.to_thread(_request, port, "/v1/completions",
+                                         {"model": PRESET, "prompt": prompt, "max_tokens": 8, "temperature": 0.0})
+        for status, data, _, _ in (second, await first):
+            _summarize(status, data, False)
+        return _summarize(*second[:2], False)[2], sched.cow_blocks_total - cow0
+
     (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, mc, impl, sched_steps,
-     seeded_windows) = asyncio.run(serve())
+     seeded_windows, cow) = asyncio.run(serve())
     answers, guided_answers = [], []
     for (url, body), (status, data, first, total) in zip(reqs, results):
         n, finish, cached = _summarize(status, data, body.get("stream", False))
@@ -2270,6 +2582,10 @@ def phase_serve(card: str, path: str):
     L = mc.num_layers
     if path == "megakernel":
         expected = {"ragged_paged_attention": L * steps["forward"]}
+    elif int8:
+        # No fused window: the 32-step windows run decode_multi, one launch
+        # per layer and step, all on the int8 branch.
+        expected = {"ragged_paged_attention_int8": L * (steps["forward"] + steps["window_steps_total"])}
     elif windows:
         # The draft (llama-3.2-1b: the same layer count) prefills through the ragged kernel too.
         expected = {"ragged_paged_attention": L * (steps["forward"] + steps["window_steps_total"]
@@ -2314,6 +2630,9 @@ def phase_serve(card: str, path: str):
     if spec:
         res["spec_decode"] = metrics["spec_decode"]
         res["accepted_per_round"] = metrics["spec_decode"]["accepted_per_round"]
+    if int8:
+        res["kv_cache_dtype"], res["weight_dtype"] = mc.kv_cache_dtype, mc.weight_dtype
+        res["copy_on_write"] = {"cached_tokens": cow[0], "blocks_copied": cow[1]}
     emit("serve", **res)
     if spec and (not steps["spec_fused_windows_total"] or not seeded_windows
                  or set(metrics["spec_decode"]) != set(SpecDecodeStats().to_dict())):
@@ -2330,6 +2649,9 @@ def phase_serve(card: str, path: str):
     if windows and (steps["multi_windows_total"] or not steps["fused_sampled_windows_total"]
                     or not steps["fused_guided_windows_total"]):
         raise AssertionError(f"the windows pass ran a non-fused window, or no sampled or guided fused one: {steps}")
+    if int8 and (steps["fused_windows_total"] or not steps["multi_windows_total"] or cow != (63, 1)):
+        raise AssertionError(f"the int8 pass ran a fused window, no decode_multi window, or its repeat did not "
+                             f"copy the shared block: {steps}, copy-on-write {cow}")
     if not all(a["in_grammar"] for a in guided_answers):
         raise AssertionError(f"a guided answer left its grammar: {guided_answers}")
     if windows and not (res["seeded"]["identical"] and res["seeded"]["slots"][0] != res["seeded"]["slots"][1]):
@@ -2353,8 +2675,9 @@ def kernels_line(timed: dict, served: dict) -> list:
     # path, and per forward step that reaches it; the fused window's (and
     # its sampled branch's) over the windows pass, and per such window; the
     # probe's, over the probe's run.
-    mega, piece, win, spec = (served[p] for p in SERVE_PASSES)
+    mega, piece, win, spec, int8 = (served[p] for p in SERVE_PASSES)
     launches = {
+        "ragged_paged_attention_int8": int8["kernel_launches"]["ragged_paged_attention_int8"],
         "fused_decode_window_guided": win["kernel_launches"]["fused_decode_window_guided"],
         "ragged_paged_attention": mega["kernel_launches"]["ragged_paged_attention"],
         "flash_chunk_attention": piece["kernel_launches"]["flash_chunk_attention"],
@@ -2366,6 +2689,7 @@ def kernels_line(timed: dict, served: dict) -> list:
     }
     reached = {
         "ragged_paged_attention": (mega["steps"]["forward"], "step"),
+        "ragged_paged_attention_int8": (int8["steps"]["forward"] + int8["steps"]["window_steps_total"], "step"),
         "flash_chunk_attention": (piece["steps"]["prefill"] + piece["steps"]["mixed"], "step"),
         "paged_decode_partials": (piece["steps"]["decode"] + piece["steps"]["mixed"], "step"),
         "fused_decode_window": (win["steps"]["fused_windows_total"], "window"),
@@ -2375,10 +2699,12 @@ def kernels_line(timed: dict, served: dict) -> list:
         "fused_spec_window": (spec["steps"]["spec_fused_windows_total"], "spec window"),
     }
     kernels = []
-    for name in ("ragged_paged_attention", "flash_chunk_attention", "paged_decode_partials", "fused_decode_window",
-                 "fused_decode_window_sampled", "fused_decode_window_guided", "fused_spec_window", "nop"):
+    for name in ("ragged_paged_attention", "ragged_paged_attention_int8", "flash_chunk_attention",
+                 "paged_decode_partials", "fused_decode_window", "fused_decode_window_sampled",
+                 "fused_decode_window_guided", "fused_spec_window", "nop"):
         t = timed[name]
-        src = "fused_decode_window" if name.startswith("fused_decode_window") else name
+        # The branches' source is their kernel's.
+        src = "fused_decode_window" if name.startswith("fused_decode_window") else name.removesuffix("_int8")
         entry = {
             "name": name,
             "route": "cuda",
@@ -2400,6 +2726,11 @@ def kernels_line(timed: dict, served: dict) -> list:
             entry["greedy_ms"] = t["greedy_kernel_ms"]
             entry["epilogue_alone"] = {k: e[k] for k in ("case", "draws", "differ", "max_gap", "kernel_ms", "ref_ms",
                                                          "bound_ms", "bound_by", "passes_bound_ms", "library_ms")}
+        if name == "ragged_paged_attention_int8":
+            # library_ms: the gathered codes dequantized to dense K/V, then SDPA.
+            entry["sdpa_alone_ms"] = t["sdpa_alone_ms"]
+            entry["8b"] = {k: timed[name + " 8b"][k] for k in ("case", "shape", "max_abs_err", "kernel_ms", "ref_ms",
+                                                                "bound_ms", "bound_by", "library_ms", "sdpa_alone_ms")}
         if name == "fused_decode_window_guided":
             entry["sampled_ms"] = t["sampled_kernel_ms"]
             entry["tokens_outside_grammar"] = t["guided"]["tokens_outside_grammar"]
@@ -2438,12 +2769,25 @@ def main() -> int:
          libraries={n: {"seconds": r["seconds"], "ptxas": [ln for ln in r["log"].splitlines() if "ptxas" in ln]}
                     for n, r in built.items()})
 
-    timed = phase_kernel(dev) if "kernel" in phases else None
+    # Wall seconds of each phase, printed at the end (a run may have a time
+    # limit; the build's seconds vary with nvcc's).
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed_phase(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t1
+        return out
+
+    timed = timed_phase("kernel", lambda: phase_kernel(dev)) if "kernel" in phases else None
     if "model" in phases:
-        phase_model(dev)
+        timed_phase("model", lambda: phase_model(dev))
     if "breakdown" in phases:
-        phase_breakdown(dev)
-    served = {path: phase_serve(card, path) for path in SERVE_PASSES} if "serve" in phases else None
+        timed_phase("breakdown", lambda: phase_breakdown(dev))
+    served = None
+    if "serve" in phases:
+        served = timed_phase("serve", lambda: {path: phase_serve(card, path) for path in SERVE_PASSES})
+    emit("seconds", **seconds, total=sum(seconds.values()))
     if phases != {"env", "build", "kernel", "model", "breakdown", "serve"}:
         return 0  # a partial run reports no result
     kernels = kernels_line(timed, served)

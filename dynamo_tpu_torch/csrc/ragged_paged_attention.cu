@@ -32,6 +32,16 @@
 //   first), so in bf16 the two differ by at most p's bf16 rounding.
 // Each block re-reads its row's pages from L2/HBM, and the products run on
 // CUDA cores; wgmma, TMA, query tiling and split-KV are later work.
+//
+// The int8 branch (the TPU kernel's `quant=True`: an int8 KV cache) reads
+// int8 codes [NP, BS, KVH, HD] and f32 scales [NP, BS, KVH, 1], one scale
+// per (token, KV head), in place: 16 codes per 16-byte load, the page's
+// scale per token beside them. It dequantizes in registers while staging
+// the tile, exactly as the TPU kernel rounds: k = bf16(code * bf16(scale))
+// for bf16 queries, the exact f32 product for f32 ones, so the staged tile
+// holds the same values the plain version dequantizes; the fresh keys stay
+// in q's dtype. Shared memory is the bf16 branch's (tiles staged in f32).
+// Scale offsets are 64-bit too: the scale pool has L*N*BS*KVH entries.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +61,18 @@ __device__ __forceinline__ float load_f<float>(const float* p) {
 template <>
 __device__ __forceinline__ float load_f<__nv_bfloat16>(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+
+// x rounded to T and back: the dequantized value the plain version holds.
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
 template <typename T>
@@ -124,16 +146,50 @@ __device__ void fold_tile(const Smem& sm, int G, int HD, int BS, int n_valid, fl
   __syncthreads();
 }
 
+// Stage tokens [0, n_valid) of one int8 page for KV head kvh: each thread
+// takes 16 codes of a token's row (one 16-byte load each of K and V) and
+// writes code * scale, rounded as in the plain version, into the f32 tiles.
 template <typename T>
+__device__ __forceinline__ void stage_int8_page(
+    const Smem& sm, const int8_t* __restrict__ k_codes, const int8_t* __restrict__ v_codes,
+    const float* __restrict__ k_scales, const float* __restrict__ v_scales, int64_t page,
+    int kvh, int KVH, int HD, int BS, int n_valid) {
+  const int chunks = HD / 16;
+  const int64_t tok_stride = (int64_t)KVH * HD;
+  for (int i = threadIdx.x; i < n_valid * chunks; i += blockDim.x) {
+    const int t = i / chunks, c = i - t * chunks;
+    const int64_t tok = page * BS + t;  // row of the [NP*BS, KVH] scale pool
+    const int64_t off = tok * tok_stride + (int64_t)kvh * HD + c * 16;
+    const int4 kq = __ldg(reinterpret_cast<const int4*>(k_codes + off));
+    const int4 vq = __ldg(reinterpret_cast<const int4*>(v_codes + off));
+    const float ks = round_to<T>(__ldg(k_scales + tok * KVH + kvh));
+    const float vs = round_to<T>(__ldg(v_scales + tok * KVH + kvh));
+    const int8_t* kb = reinterpret_cast<const int8_t*>(&kq);
+    const int8_t* vb = reinterpret_cast<const int8_t*>(&vq);
+    float* kd = sm.k + t * (HD + 1) + c * 16;
+    float* vd = sm.v + t * HD + c * 16;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      kd[j] = round_to<T>((float)kb[j] * ks);
+      vd[j] = round_to<T>((float)vb[j] * vs);
+    }
+  }
+}
+
+// kQuant: the pages are int8 codes (PageT = int8_t) with f32 scales;
+// otherwise PageT = T and the scale pointers are unused.
+template <typename T, bool kQuant>
 __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
-    const T* __restrict__ q,        // [NQ, H, HD]
-    const T* __restrict__ k_extra,  // [CK, KVH, HD]
-    const T* __restrict__ v_extra,  // [CK, KVH, HD]
-    const T* __restrict__ k_pages,  // [NP, BS, KVH, HD]
-    const T* __restrict__ v_pages,  // [NP, BS, KVH, HD]
-    const int* __restrict__ tables, // [R, W]
-    const int* __restrict__ meta,   // [5, NQ]
-    T* __restrict__ out,            // [NQ, H, HD]
+    const T* __restrict__ q,          // [NQ, H, HD]
+    const T* __restrict__ k_extra,    // [CK, KVH, HD]
+    const T* __restrict__ v_extra,    // [CK, KVH, HD]
+    const void* __restrict__ k_pages, // [NP, BS, KVH, HD] T, or int8 codes
+    const void* __restrict__ v_pages, // [NP, BS, KVH, HD]
+    const float* __restrict__ k_scales, // [NP, BS, KVH, 1] (kQuant)
+    const float* __restrict__ v_scales, // [NP, BS, KVH, 1] (kQuant)
+    const int* __restrict__ tables,   // [R, W]
+    const int* __restrict__ meta,     // [5, NQ]
+    T* __restrict__ out,              // [NQ, H, HD]
     int NQ, int H, int KVH, int HD, int CK, int W, int BS, float scale) {
   extern __shared__ float smem[];
   const int nq = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
@@ -178,13 +234,20 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
   const int n_pages = prefix_len > 0 ? (prefix_len + BS - 1) / BS : 0;
   for (int w = 0; w < n_pages; ++w) {
     const int64_t page = tables[(int64_t)row * W + w];
-    const int64_t base = page * page_stride + head_off;
     const int n_valid = min(BS, prefix_len - w * BS);
-    for (int i = tid; i < n_valid * HD; i += blockDim.x) {
-      const int t = i / HD, d = i - t * HD;
-      const int64_t off = base + t * tok_stride + d;
-      sm.k[t * (HD + 1) + d] = load_f(k_pages + off);
-      sm.v[t * HD + d] = load_f(v_pages + off);
+    if constexpr (kQuant) {
+      stage_int8_page<T>(sm, static_cast<const int8_t*>(k_pages), static_cast<const int8_t*>(v_pages),
+                         k_scales, v_scales, page, kvh, KVH, HD, BS, n_valid);
+    } else {
+      const T* kp = static_cast<const T*>(k_pages);
+      const T* vp = static_cast<const T*>(v_pages);
+      const int64_t base = page * page_stride + head_off;
+      for (int i = tid; i < n_valid * HD; i += blockDim.x) {
+        const int t = i / HD, d = i - t * HD;
+        const int64_t off = base + t * tok_stride + d;
+        sm.k[t * (HD + 1) + d] = load_f(kp + off);
+        sm.v[t * HD + d] = load_f(vp + off);
+      }
     }
     __syncthreads();
     fold_tile(sm, G, HD, BS, n_valid, scale);
@@ -209,24 +272,25 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool kQuant>
 cudaError_t launch(const void* q, const void* k_extra, const void* v_extra,
-                   const void* k_pages, const void* v_pages, const int* tables,
-                   const int* meta, void* out, int NQ, int H, int KVH, int HD,
-                   int CK, int W, int BS, cudaStream_t stream) {
+                   const void* k_pages, const void* v_pages, const float* k_scales,
+                   const float* v_scales, const int* tables, const int* meta, void* out,
+                   int NQ, int H, int KVH, int HD, int CK, int W, int BS,
+                   cudaStream_t stream) {
+  if (kQuant && HD % 16) return cudaErrorInvalidValue;  // 16-byte code loads
   const size_t smem = smem_floats(H / KVH, HD, BS) * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ragged_paged_attention_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(ragged_paged_attention_kernel<T, kQuant>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(NQ, KVH);
-  ragged_paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+  ragged_paged_attention_kernel<T, kQuant><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_extra),
-      static_cast<const T*>(v_extra), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), tables, meta, static_cast<T*>(out), NQ, H,
-      KVH, HD, CK, W, BS, rsqrtf((float)HD));
+      static_cast<const T*>(v_extra), k_pages, v_pages, k_scales, v_scales, tables, meta,
+      static_cast<T*>(out), NQ, H, KVH, HD, CK, W, BS, rsqrtf((float)HD));
   return cudaGetLastError();
 }
 
@@ -252,11 +316,35 @@ int dtt_ragged_paged_attention(int dtype, const void* q, const void* k_extra,
   const int* m = static_cast<const int*>(meta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k_extra, v_extra, k_pages, v_pages, t, m, out, NQ, H, KVH, HD,
-                         CK, W, BS, s);
+    return launch<float, false>(q, k_extra, v_extra, k_pages, v_pages, nullptr, nullptr, t, m,
+                                out, NQ, H, KVH, HD, CK, W, BS, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_extra, v_extra, k_pages, v_pages, t, m, out, NQ, H,
-                                 KVH, HD, CK, W, BS, s);
+    return launch<__nv_bfloat16, false>(q, k_extra, v_extra, k_pages, v_pages, nullptr, nullptr,
+                                        t, m, out, NQ, H, KVH, HD, CK, W, BS, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 branch: k_codes / v_codes int8 [NP, BS, KVH, HD] (HD a multiple
+// of 16, 16-byte aligned), k_scales / v_scales f32 [NP, BS, KVH, 1]; q, the
+// fresh keys and out in `dtype` as above.
+int dtt_ragged_paged_attention_int8(int dtype, const void* q, const void* k_extra,
+                                    const void* v_extra, const void* k_codes,
+                                    const void* v_codes, const void* k_scales,
+                                    const void* v_scales, const void* tables, const void* meta,
+                                    void* out, int NQ, int H, int KVH, int HD, int CK, int W,
+                                    int BS, void* stream) {
+  if (NQ == 0) return 0;
+  const int* t = static_cast<const int*>(tables);
+  const int* m = static_cast<const int*>(meta);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, true>(q, k_extra, v_extra, k_codes, v_codes, ks, vs, t, m, out, NQ, H,
+                               KVH, HD, CK, W, BS, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true>(q, k_extra, v_extra, k_codes, v_codes, ks, vs, t, m, out,
+                                       NQ, H, KVH, HD, CK, W, BS, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,11 +3,13 @@ step — prefill chunks as wide rows, decode entries as length-1 rows — over
 ``[paged prefix ; fresh keys]`` under one online softmax.
 
 Same arguments and layouts as the JAX package's
-``megakernel.ragged_paged_attention``. On a CUDA tensor it launches the
-hand-written Hopper kernel (``csrc/ragged_paged_attention.cu``) or raises;
-on a CPU tensor it runs the plain PyTorch version,
-``ragged_paged_attention_ref``, which the tests hold against the JAX
-function and ``chip_smoke.py`` holds the kernel against on the card.
+``megakernel.ragged_paged_attention``, the pages a bf16/f32 pool or an
+int8 ``QuantKv`` one (codes and a scale per token and KV head, dequantized
+per page inside the kernel). On a CUDA tensor it launches the hand-written
+Hopper kernel (``csrc/ragged_paged_attention.cu``, its int8 branch for a
+``QuantKv`` pool) or raises; on a CPU tensor it runs the plain PyTorch
+version, ``ragged_paged_attention_ref``, which the tests hold against the
+JAX function and ``chip_smoke.py`` holds the kernel against on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch import _build
+from dynamo_tpu_torch.engine.kv_cache import QuantKv
 from dynamo_tpu_torch.engine.sampling import (
     apply_token_masks, filtered_probs_rows, pick_from_probs, sample_from_uniforms,
 )
@@ -26,10 +29,13 @@ from dynamo_tpu_torch.engine.sampling import (
 NEG_INF = -1e30
 
 # Launch counters: the kernel's (incremented once per successful launch on
-# a CUDA tensor) and the plain version's (once per CPU call). A run that
-# resets both and drives the main path shows which one it went through.
+# a CUDA tensor) and the plain version's (once per CPU call), the int8
+# branch's (a QuantKv pool) apart. A run that resets them and drives the
+# main path shows which one it went through.
 KERNEL_LAUNCHES = 0
 REF_CALLS = 0
+KERNEL_LAUNCHES_INT8 = 0
+REF_CALLS_INT8 = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Shared memory one block may use on Hopper (227 KB opt-in).
@@ -57,7 +63,9 @@ def ragged_paged_attention_ref(
     prefix length and fresh range, and take one softmax in f32. As in the
     TPU kernel, probabilities are cast to v's dtype before the PV product
     and accumulated in f32; queries that see no key, and dead queries,
-    return zeros."""
+    return zeros. A ``QuantKv`` pool's gathered pages are dequantized as
+    the TPU kernel does: code and scale each cast to q's dtype, their
+    product in q's dtype."""
     NQ, H, HD = q.shape
     KVH = num_kv_heads
     G = H // KVH
@@ -71,8 +79,9 @@ def ragged_paged_attention_ref(
     for r in torch.unique(row_of[live != 0]).tolist():
         idx = torch.nonzero((row_of == r) & (live != 0)).squeeze(1)
         pages = tables[r].long()
-        k = torch.cat([k_pages[pages].reshape(W * block_size, KVH, HD), k_extra]).float()
-        v = torch.cat([v_pages[pages].reshape(W * block_size, KVH, HD), v_extra])
+        kp, vp = (_dequant_pages(p, pages, q.dtype).reshape(W * block_size, KVH, HD) for p in (k_pages, v_pages))
+        k = torch.cat([kp, k_extra]).float()
+        v = torch.cat([vp, v_extra])
         mask = torch.cat(
             [
                 kpos[None, :] < prefix_len[idx, None],
@@ -90,35 +99,71 @@ def ragged_paged_attention_ref(
     return out
 
 
+def _dequant_pages(pool, pages: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``pool[pages]``; a ``QuantKv`` pool's codes times its scales, each
+    cast to ``dtype`` and multiplied in ``dtype`` (the TPU kernel's
+    ``k_ref.astype(q.dtype) * scale.astype(q.dtype)``)."""
+    if isinstance(pool, QuantKv):
+        return pool.q[pages].to(dtype) * pool.scale[pages].to(dtype)
+    return pool[pages]
+
+
 def _kernel():
-    """(launch, smem-bytes) C functions of the built library, typed once."""
+    """(launch, int8 launch, smem-bytes) C functions of the built library,
+    typed once."""
     lib = _build.load("ragged_paged_attention")
-    launch, smem = lib.dtt_ragged_paged_attention, lib.dtt_ragged_paged_attention_smem
+    launch, launch8 = lib.dtt_ragged_paged_attention, lib.dtt_ragged_paged_attention_int8
+    smem = lib.dtt_ragged_paged_attention_smem
     if launch.argtypes is None:
         launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
         launch.restype = ctypes.c_int
+        launch8.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        )
+        launch8.restype = ctypes.c_int
         smem.argtypes = [ctypes.c_int] * 3
         smem.restype = ctypes.c_size_t
-    return launch, smem
+    return launch, launch8, smem
 
 
 def _check_args(q, k_extra, v_extra, k_pages, v_pages, tables, meta, num_kv_heads, block_size):
-    tensors = {
-        "q": q, "k_extra": k_extra, "v_extra": v_extra, "k_pages": k_pages,
-        "v_pages": v_pages, "tables": tables, "meta": meta,
-    }
+    quant = isinstance(k_pages, QuantKv)
+    if quant != isinstance(v_pages, QuantKv):
+        raise TypeError("k_pages and v_pages must both be QuantKv or both be tensors")
+    tensors = {"q": q, "k_extra": k_extra, "v_extra": v_extra, "tables": tables, "meta": meta}
+    if quant:
+        tensors.update({"k_pages.q": k_pages.q, "v_pages.q": v_pages.q,
+                        "k_pages.scale": k_pages.scale, "v_pages.scale": v_pages.scale})
+    else:
+        tensors.update({"k_pages": k_pages, "v_pages": v_pages})
     for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q dtype {q.dtype} not supported (bfloat16 or float32)")
-    for name in ("k_extra", "v_extra", "k_pages", "v_pages"):
+    for name in ("k_extra", "v_extra") if quant else ("k_extra", "v_extra", "k_pages", "v_pages"):
         if tensors[name].dtype != q.dtype:
             raise TypeError(f"{name} dtype {tensors[name].dtype} != q dtype {q.dtype}")
+    if quant:
+        for name in ("k_pages", "v_pages"):
+            codes, scale = tensors[f"{name}.q"], tensors[f"{name}.scale"]
+            if codes.dtype != torch.int8:
+                raise TypeError(f"{name}.q must be int8, got {codes.dtype}")
+            if scale.dtype != torch.float32:
+                raise TypeError(f"{name}.scale must be float32, got {scale.dtype}")
+            if tuple(scale.shape) != (*codes.shape[:-1], 1):
+                raise ValueError(f"{name}.scale must be {(*codes.shape[:-1], 1)} for codes {tuple(codes.shape)}, "
+                                 f"got {tuple(scale.shape)}")
+            # The kernel reads a token's codes with 16-byte loads.
+            if codes.shape[-1] % 16 or codes.data_ptr() % 16:
+                raise ValueError(f"{name}.q: head dim {codes.shape[-1]} must be a multiple of 16 and its "
+                                 "storage 16-byte aligned")
     for name in ("tables", "meta"):
         if tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {tensors[name].dtype}")
@@ -131,7 +176,7 @@ def _check_args(q, k_extra, v_extra, k_pages, v_pages, tables, meta, num_kv_head
     for name in ("k_extra", "v_extra"):
         if tuple(tensors[name].shape) != (CK, num_kv_heads, HD):
             raise ValueError(f"{name} must be [CK, KVH, HD] = {(CK, num_kv_heads, HD)}, got {tuple(tensors[name].shape)}")
-    if k_pages.dim() != 4 or tuple(k_pages.shape[1:]) != (block_size, num_kv_heads, HD):
+    if len(k_pages.shape) != 4 or tuple(k_pages.shape[1:]) != (block_size, num_kv_heads, HD):
         raise ValueError(f"k_pages must be [NP, {block_size}, {num_kv_heads}, {HD}], got {tuple(k_pages.shape)}")
     if v_pages.shape != k_pages.shape:
         raise ValueError("v_pages and k_pages shapes differ")
@@ -145,8 +190,8 @@ def ragged_paged_attention(
     q: torch.Tensor,  # [NQ, H, HD] post-rope queries
     k_extra: torch.Tensor,  # [CK, KVH, HD] in-flight (not yet cached) keys
     v_extra: torch.Tensor,
-    k_pages: torch.Tensor,  # [NP, BS, KVH, HD] layer-flat page pool
-    v_pages: torch.Tensor,
+    k_pages,  # [NP, BS, KVH, HD] layer-flat page pool (tensor, or QuantKv: int8 codes, f32 scales [.., 1])
+    v_pages,
     tables: torch.Tensor,  # [R, W] i32 — per-row page ids (layer-offset)
     meta: torch.Tensor,  # [5, NQ] i32 — build_meta
     *,
@@ -155,11 +200,16 @@ def ragged_paged_attention(
 ) -> torch.Tensor:
     """Attention for a whole ragged batch over [paged prefix ; fresh keys].
     Returns normalized ``[NQ, H, HD]`` in q's dtype; dead queries return
-    zeros. CUDA tensors launch the Hopper kernel (or raise); CPU tensors
-    run ``ragged_paged_attention_ref``."""
-    global KERNEL_LAUNCHES, REF_CALLS
+    zeros. CUDA tensors launch the Hopper kernel (a ``QuantKv`` pool its
+    int8 branch, which reads the codes and scales in place) or raise; CPU
+    tensors run ``ragged_paged_attention_ref``."""
+    global KERNEL_LAUNCHES, KERNEL_LAUNCHES_INT8, REF_CALLS, REF_CALLS_INT8
+    quant = isinstance(k_pages, QuantKv)
     if q.device.type == "cpu":
-        REF_CALLS += 1
+        if quant:
+            REF_CALLS_INT8 += 1
+        else:
+            REF_CALLS += 1
         return ragged_paged_attention_ref(
             q, k_extra, v_extra, k_pages, v_pages, tables, meta,
             num_kv_heads=num_kv_heads, block_size=block_size,
@@ -168,7 +218,7 @@ def ragged_paged_attention(
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu tensors, got {q.device}")
     _check_args(q, k_extra, v_extra, k_pages, v_pages, tables, meta, num_kv_heads, block_size)
     NQ, H, HD = q.shape
-    launch, smem_fn = _kernel()
+    launch, launch8, smem_fn = _kernel()
     smem = smem_fn(H // num_kv_heads, HD, block_size)
     if smem > _MAX_SMEM:
         raise ValueError(
@@ -178,19 +228,29 @@ def ragged_paged_attention(
     out = torch.empty_like(q)
     if NQ == 0:
         return out
+    dims = (NQ, H, num_kv_heads, HD, k_extra.shape[0], tables.shape[1], block_size)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = launch(
-            _DTYPE_CODE[q.dtype],
-            q.data_ptr(), k_extra.data_ptr(), v_extra.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(), meta.data_ptr(),
-            out.data_ptr(),
-            NQ, H, num_kv_heads, HD, k_extra.shape[0], tables.shape[1], block_size,
-            stream,
-        )
+        if quant:
+            rc = launch8(
+                _DTYPE_CODE[q.dtype],
+                q.data_ptr(), k_extra.data_ptr(), v_extra.data_ptr(),
+                k_pages.q.data_ptr(), v_pages.q.data_ptr(), k_pages.scale.data_ptr(), v_pages.scale.data_ptr(),
+                tables.data_ptr(), meta.data_ptr(), out.data_ptr(), *dims, stream,
+            )
+        else:
+            rc = launch(
+                _DTYPE_CODE[q.dtype],
+                q.data_ptr(), k_extra.data_ptr(), v_extra.data_ptr(),
+                k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(), meta.data_ptr(),
+                out.data_ptr(), *dims, stream,
+            )
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES += 1
+    if quant:
+        KERNEL_LAUNCHES_INT8 += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return out
 
 

@@ -2,9 +2,10 @@
 
 The engine-side architecture record: the same fields and presets as the
 JAX package's, so one preset name means one set of widths in both.
-Options this port does not implement yet (int8 KV, int8 weights, MoE,
-MLA) raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+``kv_cache_dtype="int8"`` and ``weight_dtype="int8"`` are served (int8
+codes with f32 scales, engine/kv_cache.py and engine/quant.py); the
+families this port does not implement yet (MoE, MLA) raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -63,9 +64,13 @@ class ModelConfig:
     # CUDA device and "xla" on the CPU (the scheduler resolves it). The
     # megakernel path ignores it.
     prefill_impl: str = "auto"
-    # KV cache storage dtype: "auto" follows the compute dtype.
+    # KV cache storage dtype: "auto" follows the compute dtype; "int8"
+    # stores int8 codes with one f32 scale per (token, KV head)
+    # (kv_cache.QuantKv), twice the blocks per byte of bf16.
     kv_cache_dtype: str = "auto"
-    # Weight storage dtype: "auto" follows the compute dtype.
+    # Weight storage dtype: "auto" follows the compute dtype; "int8" stores
+    # the layer matmul weights as int8 codes with per-output-channel f32
+    # scales (engine/quant.py), dequantized one layer at a time.
     weight_dtype: str = "auto"
 
     def __post_init__(self):
@@ -84,15 +89,6 @@ class ModelConfig:
             raise ValueError(f"kv_cache_dtype must be auto|int8, got {self.kv_cache_dtype!r}")
         if self.weight_dtype not in ("auto", "int8"):
             raise ValueError(f"weight_dtype must be auto|int8, got {self.weight_dtype!r}")
-        if self.kv_cache_dtype == "int8":
-            raise NotImplementedError(
-                "kv_cache_dtype='int8' is not ported yet (ROADMAP Queue 1 item 14, Queue 2 item 6: int8 "
-                "variant of the ragged paged-attention kernel)"
-            )
-        if self.weight_dtype == "int8":
-            raise NotImplementedError(
-                "weight_dtype='int8' is not ported yet (ROADMAP Queue 1 item 14: int8 weights)"
-            )
         if self.num_experts > 0:
             raise NotImplementedError(
                 "MoE (num_experts > 0) is not ported yet (ROADMAP Queue 1 item 16: other model families)"

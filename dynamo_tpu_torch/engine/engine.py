@@ -30,6 +30,7 @@ import torch
 
 from dynamo_tpu_torch.engine.config import ModelConfig, get_config
 from dynamo_tpu_torch.engine.kv_cache import KvEvent
+from dynamo_tpu_torch.engine.quant import params_quantized, quantize_params
 from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.scheduler import (
     ForwardPassMetrics,
@@ -73,6 +74,10 @@ class EngineArgs:
     draft_model: Optional[str] = None
     draft_checkpoint_path: Optional[str] = None
     spec_gamma: int = 4
+    # KV cache storage dtype override ("auto" | "int8") — config.py.
+    kv_cache_dtype: str = "auto"
+    # Weight storage dtype override ("auto" | "int8") — config.py weight_dtype.
+    weight_dtype: str = "auto"
 
     def __post_init__(self):
         if self.draft_checkpoint_path:
@@ -107,6 +112,10 @@ class TorchEngine:
         kv_event_sink: Optional[Callable[[KvEvent], None]] = None,
     ) -> "TorchEngine":
         mc = args.model_config or get_config(args.model)
+        if args.kv_cache_dtype != "auto":
+            mc = mc.replace(kv_cache_dtype=args.kv_cache_dtype)
+        if args.weight_dtype != "auto":
+            mc = mc.replace(weight_dtype=args.weight_dtype)
         if args.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {args.dtype!r}")
         dtype = _DTYPES[args.dtype]
@@ -115,6 +124,9 @@ class TorchEngine:
             logger.warning("no checkpoint: initializing random weights for %s", mc.name)
             gen = torch.Generator(device=device).manual_seed(args.seed)
             params = init_params(mc, gen, device=device, dtype=dtype)
+        if mc.weight_dtype == "int8" and not params_quantized(params):
+            params = quantize_params(params)
+            logger.info("int8 weight-only quantization applied (layer matmul weights)")
         engine = cls(
             Scheduler(
                 mc,

@@ -2,9 +2,11 @@
 caching and KV event emission.
 
 The device cache is a global block pool: ``k``/``v`` tensors of shape
-``[layers, num_blocks, block_size, kv_heads, head_dim]``. Sequences own
-*block tables* (lists of block indices); attention reads pages through
-them. Block 0 is reserved as a scratch sink: padded rows write there.
+``[layers, num_blocks, block_size, kv_heads, head_dim]``, or with
+``kv_cache_dtype="int8"`` a :class:`QuantKv` pair of int8 codes and one
+f32 scale per (token, KV head). Sequences own *block tables* (lists of
+block indices); attention reads pages through them. Block 0 is reserved
+as a scratch sink: padded rows write there.
 
 Prefix caching: completed full blocks are registered under their chained
 block hash (``dynamo_tpu_torch.llm.tokens``). New sequences match their
@@ -19,12 +21,54 @@ from __future__ import annotations
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.llm.tokens import BlockHash
+
+
+class QuantKv(NamedTuple):
+    """int8-quantized KV tensor: codes and a symmetric scale per (token,
+    head), the JAX package's layout. Model code dispatches on the type where
+    it gathers and writes pages (``dequantize_kv`` / ``quantize_kv_rows``);
+    the ragged kernel reads the codes and scales as they are."""
+
+    q: torch.Tensor  # int8, [L, N, BS, KVH, HD]
+    scale: torch.Tensor  # f32, [L, N, BS, KVH, 1]
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def dtype(self):
+        return self.q.dtype
+
+    def reshape(self, *shape) -> "QuantKv":
+        # Layer-flat views ([L*N, ...]) of both members. ``view``, never a
+        # copy: the kernel and the cache write must see the same storage.
+        return QuantKv(self.q.view(*shape), self.scale.view(*shape[:-1], 1))
+
+
+def quantize_kv_rows(rows: torch.Tensor) -> QuantKv:
+    """Symmetric int8 quantization over the trailing (head_dim) axis: scale
+    ``amax / 127`` (1 where a row is all zeros), codes rounded half to even
+    and clipped to ±127."""
+    x = rows.float()
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return QuantKv(q, scale)
+
+
+def dequantize_kv(x, dtype: torch.dtype = torch.bfloat16):
+    """QuantKv → real-valued rows (code × scale in f32, cast to ``dtype``);
+    plain tensors pass through."""
+    if isinstance(x, QuantKv):
+        return (x.q.float() * x.scale).to(dtype)
+    return x
 
 
 def ragged_scatter_targets(
@@ -44,10 +88,12 @@ def ragged_scatter_targets(
 
 @dataclass
 class KvCacheArrays:
-    """Device-side block pool (one tensor pair covering all layers)."""
+    """Device-side block pool (one tensor pair covering all layers). With
+    ``config.kv_cache_dtype == "int8"`` the members are :class:`QuantKv`
+    pairs in the JAX package's shapes, so caches carry across unchanged."""
 
-    k: torch.Tensor  # [L, N, BS, KVH, HD]
-    v: torch.Tensor
+    k: Any  # torch.Tensor | QuantKv — [L, N, BS, KVH, HD]
+    v: Any
 
     @classmethod
     def create(
@@ -58,10 +104,14 @@ class KvCacheArrays:
         device: str = "cuda",
     ) -> "KvCacheArrays":
         shape = (config.num_layers, num_blocks, config.block_size, config.num_kv_heads, config.head_dim)
-        return cls(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
-        )
+
+        def mk():
+            if config.kv_cache_dtype == "int8":
+                return QuantKv(torch.zeros(shape, dtype=torch.int8, device=device),
+                               torch.zeros((*shape[:-1], 1), dtype=torch.float32, device=device))
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return cls(k=mk(), v=mk())
 
 
 class OutOfBlocksError(Exception):

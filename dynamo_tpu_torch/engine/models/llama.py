@@ -20,6 +20,13 @@ layer's fresh K/V rows are attended in-register and stacked, and the cache
 is written once per step after the loop; padded rows sink to scratch
 block 0. Norms and rope run in f32; logits are f32.
 
+int8 storage, as in the JAX package: an int8 KV cache (``QuantKv``)
+quantizes rows where they are written and is read as codes and scales by
+the ragged kernel, or dequantized where the per-piece paths gather pages
+(the paged kernel has no int8 branch: ``"paged"`` resolves to the gather);
+int8 layer weights (``quant.QuantW``) are dequantized one layer at a time
+at the top of the layer loop.
+
 Parameters keep the JAX layout (engine/weights.py): stacked ``[L, in, out]``
 weights applied as ``x @ w``.
 """
@@ -28,6 +35,8 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import logging
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -35,12 +44,14 @@ import torch.nn.functional as F
 from dynamo_tpu_torch.engine.attention import decode as paged_decode
 from dynamo_tpu_torch.engine.attention import megakernel, ragged
 from dynamo_tpu_torch.engine.config import ModelConfig
-from dynamo_tpu_torch.engine.kv_cache import ragged_scatter_targets
+from dynamo_tpu_torch.engine.kv_cache import QuantKv, quantize_kv_rows, ragged_scatter_targets
 from dynamo_tpu_torch.engine import prng
+from dynamo_tpu_torch.engine.quant import QuantW, dequant_layer
 from dynamo_tpu_torch.engine.sampling import sample_batch_device, sample_from_uniforms
 from dynamo_tpu_torch.engine.weights import Params
 
 NEG_INF = -1e30
+logger = logging.getLogger(__name__)
 
 # ---------------------------------------------------------------------------
 # Building blocks
@@ -68,9 +79,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _mlp(x: torch.Tensor, layers: Dict[str, torch.Tensor], l: int) -> torch.Tensor:
-    """Dense SwiGLU feed-forward."""
-    return (F.silu(x @ layers["w_gate"][l]) * (x @ layers["w_up"][l])) @ layers["w_down"][l]
+def _mlp(x: torch.Tensor, lp: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Dense SwiGLU feed-forward of one layer's weights."""
+    return (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+
+
+def _layer_weights(layers: Dict, l: int, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Layer ``l``'s slice of the stacked weights in the compute dtype: int8
+    weights are dequantized here, once per layer (``quant.dequant_layer``)."""
+    lp = {k: QuantW(w.q[l], w.scale[l]) if isinstance(w, QuantW) else w[l] for k, w in layers.items()}
+    return dequant_layer(lp, dtype)
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -85,74 +103,100 @@ def _logits(params: Params, c: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return (h @ (head if head is not None else params["embed"].T)).float()
 
 
-def resolve_attention_impl(c: ModelConfig) -> str:
-    """``ModelConfig.attention_impl`` → one of ``"gather" | "paged" |
-    "megakernel"``. ``"auto"`` is the megakernel on the card and on the CPU
-    alike (the JAX package keeps the gather off the TPU, where its Pallas
-    kernels only interpret)."""
-    return "megakernel" if c.attention_impl == "auto" else c.attention_impl
+def resolve_attention_impl(c: ModelConfig, k_cache=None) -> str:
+    """``ModelConfig.attention_impl`` and the cache → one of ``"gather" |
+    "paged" | "megakernel"``. ``"auto"`` is the megakernel on the card and on
+    the CPU alike (the JAX package keeps the gather off the TPU, where its
+    Pallas kernels only interpret). The paged kernel has no int8 branch, so
+    ``"paged"`` over an int8 cache degrades to the gather, as in the JAX
+    package (``warn_attention_impl_degrade`` says so once)."""
+    impl = "megakernel" if c.attention_impl == "auto" else c.attention_impl
+    if impl == "paged" and isinstance(k_cache, QuantKv):
+        impl = "gather"
+    return impl
 
 
-# attend(layer_offset, q, k, v, k_flat, v_flat) -> [T, H, HD]: one layer's
-# attention for the step's rows; layer l's pages are rows l*N.. of the
-# layer-flat pool, so ``layer_offset`` = l*N shifts the block tables.
-Attend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+_warned_paged_int8 = False
+
+
+def warn_attention_impl_degrade(c: ModelConfig, k_cache) -> None:
+    """Log the paged + int8 degrade once, from setup code (the scheduler's
+    init), as the JAX package does."""
+    global _warned_paged_int8
+    if c.attention_impl == "paged" and isinstance(k_cache, QuantKv) and not _warned_paged_int8:
+        _warned_paged_int8 = True
+        logger.warning(
+            "attention_impl='paged' has no int8-KV path — degrading to the gather for this deployment. "
+            "Use attention_impl='megakernel' for the ragged kernel's int8 branch."
+        )
+
+
+# attend(l, q, k, v, k_flat, v_flat) -> [T, H, HD]: layer l's attention for
+# the step's rows; layer l's pages are rows l*N.. of the layer-flat pool, so
+# its block tables are offset by l*N.
+Attend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor, object, object], torch.Tensor]
 
 
 def _layers(
     params: Params,
     c: ModelConfig,
-    k_cache: torch.Tensor,  # [L, N, BS, KVH, HD] — read-only here
-    v_cache: torch.Tensor,
+    k_cache,  # [L, N, BS, KVH, HD] tensor or QuantKv — read-only here
+    v_cache,
     h: torch.Tensor,  # [T, D] embedded rows of the step
     positions: torch.Tensor,  # [T]
     attend: Attend,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The layer stack. Returns (h, k_rows, v_rows) with the fresh K/V rows
-    stacked ``[L, T, KVH, HD]`` for the caller's single cache write."""
+    stacked ``[L, T, KVH, HD]`` in the compute dtype for the caller's single
+    cache write."""
     L, N, bs = c.num_layers, k_cache.shape[1], c.block_size
     T = h.shape[0]
     H, KVH, HD = c.num_heads, c.num_kv_heads, c.head_dim
     # Layer-flat page pool: layer l's pages are rows l*N .. l*N+N-1, so the
     # tables are offset by l*N and block 0 of every layer stays its scratch.
-    k_flat = k_cache.view(L * N, bs, KVH, HD)
-    v_flat = v_cache.view(L * N, bs, KVH, HD)
+    k_flat = k_cache.reshape(L * N, bs, KVH, HD)
+    v_flat = v_cache.reshape(L * N, bs, KVH, HD)
     k_rows = h.new_empty((L, T, KVH, HD))
     v_rows = h.new_empty((L, T, KVH, HD))
-    lay = params["layers"]
     for l in range(L):
-        x = rms_norm(h, lay["attn_norm"][l], c.rms_norm_eps)
-        q = apply_rope((x @ lay["wq"][l]).view(T, H, HD), positions, c.rope_theta)
-        k = apply_rope((x @ lay["wk"][l]).view(T, KVH, HD), positions, c.rope_theta)
-        v = (x @ lay["wv"][l]).view(T, KVH, HD)
-        attn = attend(l * N, q, k, v, k_flat, v_flat).to(h.dtype)
-        h = h + attn.reshape(T, c.q_size) @ lay["wo"][l]
-        x = rms_norm(h, lay["mlp_norm"][l], c.rms_norm_eps)
-        h = h + _mlp(x, lay, l)
+        lp = _layer_weights(params["layers"], l, h.dtype)
+        x = rms_norm(h, lp["attn_norm"], c.rms_norm_eps)
+        q = apply_rope((x @ lp["wq"]).view(T, H, HD), positions, c.rope_theta)
+        k = apply_rope((x @ lp["wk"]).view(T, KVH, HD), positions, c.rope_theta)
+        v = (x @ lp["wv"]).view(T, KVH, HD)
+        attn = attend(l, q, k, v, k_flat, v_flat).to(h.dtype)
+        h = h + attn.reshape(T, c.q_size) @ lp["wo"]
+        x = rms_norm(h, lp["mlp_norm"], c.rms_norm_eps)
+        h = h + _mlp(x, lp)
         k_rows[l] = k
         v_rows[l] = v
     return h, k_rows, v_rows
 
 
-def _mega_attend(c: ModelConfig, tables: torch.Tensor, meta: torch.Tensor) -> Attend:
-    """One ragged megakernel launch per layer for all of the step's rows."""
+def _mega_attend(c: ModelConfig, tables: torch.Tensor, meta: torch.Tensor, num_blocks: int) -> Attend:
+    """One ragged megakernel launch per layer for all of the step's rows
+    (an int8 cache's codes and scales go to the kernel as they are)."""
     tables = tables.to(torch.int32)
     meta = meta.contiguous()
 
-    def attend(off, q, k, v, k_flat, v_flat):
+    def attend(l, q, k, v, k_flat, v_flat):
         return megakernel.ragged_paged_attention(
-            q, k, v, k_flat, v_flat, (tables + off).contiguous(), meta,
+            q, k, v, k_flat, v_flat, (tables + l * num_blocks).contiguous(), meta,
             num_kv_heads=c.num_kv_heads, block_size=c.block_size,
         )
 
     return attend
 
 
-def _gather_kv(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _gather_kv(flat, idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Pages through a block-table index: ``[..., W]`` → ``[..., W, BS,
-    KVH, HD]`` (bf16/f32 caches; the int8 dequant waits for the int8 KV
-    port)."""
-    return flat[idx.long()]
+    KVH, HD]``. An int8 cache dequantizes on the way out, directly in the
+    compute dtype (code and scale each cast to ``dtype``, their product in
+    ``dtype``), as the JAX package's gather does."""
+    idx = idx.long()
+    if isinstance(flat, QuantKv):
+        return flat.q[idx].to(dtype) * flat.scale[idx].to(dtype)
+    return flat[idx]
 
 
 def _attend_piece(qg, kp, vp, maskp, scale):
@@ -212,14 +256,16 @@ def _decode_rows_attention(
     q: torch.Tensor,  # [B, H, HD] decode queries
     k: torch.Tensor,  # [B, KVH, HD] each row's current key
     v: torch.Tensor,
-    k_flat: torch.Tensor,
-    v_flat: torch.Tensor,
+    k_flat,
+    v_flat,
     tables_l: torch.Tensor,  # [B, W] layer-offset block tables (_decode_prefix)
     prefix: torch.Tensor,  # [B] prefix lengths (paged) or [B, ctx] prefix mask (gather)
+    window: Optional[tuple] = None,  # (k_win [B, w, KVH, HD], v_win, live [B, w]) of a decode window
 ) -> torch.Tensor:
     """Decode rows as two online-softmax pieces, merged: the cached prefix
-    (paged kernel, or the gather) and the current token in-register. Returns
-    ``[B, H, HD]`` f32."""
+    (paged kernel, or the gather) and the in-register rows — the current
+    token alone, or inside a decode window ``[window rows ; current]``.
+    Returns ``[B, H, HD]`` f32."""
     B, H, HD = q.shape
     KVH = c.num_kv_heads
     scale = HD**-0.5
@@ -228,10 +274,16 @@ def _decode_rows_attention(
         m1, l1, acc1 = _paged_prefix_partials(c, q, k_flat, v_flat, tables_l, prefix)
     else:
         ctx = tables_l.shape[1] * c.block_size
-        k_ctx = _gather_kv(k_flat, tables_l).reshape(B, ctx, KVH, HD)
-        v_ctx = _gather_kv(v_flat, tables_l).reshape(B, ctx, KVH, HD)
+        k_ctx = _gather_kv(k_flat, tables_l, q.dtype).reshape(B, ctx, KVH, HD)
+        v_ctx = _gather_kv(v_flat, tables_l, q.dtype).reshape(B, ctx, KVH, HD)
         m1, l1, acc1 = _attend_piece(qg, k_ctx, v_ctx, prefix, scale)
-    m2, l2, acc2 = _token_piece(qg, k, v, scale)
+    if window is None:
+        m2, l2, acc2 = _token_piece(qg, k, v, scale)
+    else:
+        kw, vw, live = window
+        ones = torch.ones((B, 1), dtype=torch.bool, device=q.device)
+        m2, l2, acc2 = _attend_piece(qg, torch.cat([kw, k[:, None]], 1), torch.cat([vw, v[:, None]], 1),
+                                     torch.cat([live, ones], 1), scale)
     return _merge_pieces(m1, l1, acc1, m2, l2, acc2).reshape(B, H, HD)
 
 
@@ -252,8 +304,8 @@ def _chunk_attention(
         k_ctx = v_ctx = None
     else:
         ctx = table_l.shape[0] * c.block_size
-        k_ctx = _gather_kv(k_flat, table_l).reshape(ctx, KVH, HD)
-        v_ctx = _gather_kv(v_flat, table_l).reshape(ctx, KVH, HD)
+        k_ctx = _gather_kv(k_flat, table_l, q.dtype).reshape(ctx, KVH, HD)
+        v_ctx = _gather_kv(v_flat, table_l, q.dtype).reshape(ctx, KVH, HD)
     return ragged.ragged_chunk_attention(
         q, k, v, k_ctx, v_ctx, valid_len, cache_len,
         num_kv_heads=KVH, use_flash=use_flash, has_prefix=has_prefix,
@@ -261,15 +313,22 @@ def _chunk_attention(
 
 
 def _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs) -> None:
-    """One all-layer cache write of the step's fresh rows. In place: the
-    JAX package donates the cache buffers to its jitted step and gets the
-    updated arrays back; here ``index_put_`` updates the same storage."""
+    """One all-layer cache write of the step's fresh rows ``[L, T, KVH,
+    HD]`` at ``tgt_blocks``/``tgt_offs`` ``[T]``. In place: the JAX package
+    donates the cache buffers to its jitted step and gets the updated arrays
+    back; here ``index_put_`` updates the same storage. An int8 cache
+    quantizes the rows on the way in and writes codes and scales (JAX's
+    ``_scatter_kv``)."""
     L, T = k_rows.shape[0], k_rows.shape[1]
     layer_idx = torch.arange(L, device=k_rows.device)[:, None].expand(L, T)
-    blocks = tgt_blocks.long()[None, :].expand(L, T)
-    offs = tgt_offs.long()[None, :].expand(L, T)
-    k_cache.index_put_((layer_idx, blocks, offs), k_rows)
-    v_cache.index_put_((layer_idx, blocks, offs), v_rows)
+    idx = (layer_idx, tgt_blocks.long()[None, :].expand(L, T), tgt_offs.long()[None, :].expand(L, T))
+    for cache, rows in ((k_cache, k_rows), (v_cache, v_rows)):
+        if isinstance(cache, QuantKv):
+            qr = quantize_kv_rows(rows)
+            cache.q.index_put_(idx, qr.q)
+            cache.scale.index_put_(idx, qr.scale)
+        else:
+            cache.index_put_(idx, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -303,16 +362,17 @@ def prefill(
     valid_q = iq < valid_len
     h = _embed(params, tokens)
     tgt_blocks, tgt_offs = ragged_scatter_targets(block_table, positions, valid_q, c.block_size)
-    if resolve_attention_impl(c) == "megakernel":
+    N = k_cache.shape[1]
+    if resolve_attention_impl(c, k_cache) == "megakernel":
         meta = megakernel.build_meta(
             torch.zeros_like(iq), torch.full_like(iq, cache_len), torch.zeros_like(iq), iq + 1, valid_q
         )
-        attend = _mega_attend(c, block_table[None, :], meta)
+        attend = _mega_attend(c, block_table[None, :], meta, N)
     else:
         table = block_table.long()
 
-        def attend(off, q, k, v, k_flat, v_flat):
-            return _chunk_attention(c, q, k, v, k_flat, v_flat, table + off, valid_len, cache_len,
+        def attend(l, q, k, v, k_flat, v_flat):
+            return _chunk_attention(c, q, k, v, k_flat, v_flat, table + l * N, valid_len, cache_len,
                                     use_flash, has_prefix)
 
     h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend)
@@ -360,18 +420,19 @@ def decode(
     positions = positions.to(torch.int32)
     h = _embed(params, tokens)
     tgt_blocks, tgt_offs = decode_targets(positions, block_tables, active, c.block_size)
-    impl = resolve_attention_impl(c)
+    impl = resolve_attention_impl(c, k_cache)
+    N = k_cache.shape[1]
     if impl == "megakernel":
         rows = torch.arange(B, dtype=torch.int32, device=dev)
         meta = megakernel.build_meta(
             rows, positions.clamp(max=ctx), rows, rows + 1, torch.ones_like(rows)
         )
-        attend = _mega_attend(c, block_tables, meta)
+        attend = _mega_attend(c, block_tables, meta, N)
     else:
         tables, prefix = _decode_prefix(impl, block_tables, positions, c.block_size)
 
-        def attend(off, q, k, v, k_flat, v_flat):
-            return _decode_rows_attention(c, impl, q, k, v, k_flat, v_flat, tables + off, prefix)
+        def attend(l, q, k, v, k_flat, v_flat):
+            return _decode_rows_attention(c, impl, q, k, v, k_flat, v_flat, tables + l * N, prefix)
 
     h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend)
     _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs)
@@ -406,37 +467,78 @@ def decode_multi(
     result. Returns ``(tokens_out [num_steps, B] int32, k_cache,
     v_cache)``. Stop conditions are checked by the caller afterwards.
 
-    Each step is the port's ``decode`` on every attention path, which writes
-    its K/V rows in place; the JAX version keeps them in a window-local
-    carry and scatters once at the end. Both give the same tokens and cache
-    contents. Each step splits ``rng_key`` and draws with the subkey
-    (``sample_batch``), as the JAX version does; with ``uniforms`` it picks
-    through ``sample_from_uniforms(..., uniforms[i])`` instead, the fused
-    window's sampled contract. ``moe_stats`` and ``return_logits`` are not
-    ported yet."""
+    Window-local KV, as in the JAX version: the cache is read-only for the
+    whole window. Each step's fresh K/V rows go into a carry ``[L,
+    num_steps, B, KVH, HD]`` in the compute dtype, which later steps attend
+    beside the cached prefix (on the megakernel path as the ragged kernel's
+    fresh keys, ``[current ; window rows]`` per row; on the per-piece paths
+    as the in-register piece), and ONE write at the end puts the window's
+    rows in the cache. With an int8 cache that write is the only
+    quantization: a later step attends the window's earlier rows at full
+    precision, as JAX's does. Each step splits ``rng_key`` and draws with
+    the subkey (``sample_batch``), as the JAX version does; with
+    ``uniforms`` it picks through ``sample_from_uniforms(..., uniforms[i])``
+    instead, the fused window's sampled contract. ``moe_stats`` and
+    ``return_logits`` are not ported yet."""
     if moe_stats or return_logits:
         raise NotImplementedError(
             "decode_multi: moe_stats and return_logits are not ported yet (ROADMAP Queue 1 item 16)"
         )
-    positions = positions.to(torch.int32)
+    c = config
+    L, KVH, HD, bs = c.num_layers, c.num_kv_heads, c.head_dim, c.block_size
+    B, w = tokens.shape[0], num_steps
+    N = k_cache.shape[1]
     dev = tokens.device
-    out = torch.empty((num_steps, tokens.shape[0]), dtype=torch.int32, device=dev)
+    positions = positions.to(torch.int32)
+    ctx = block_tables.shape[1] * bs
+    dtype = params["embed"].dtype
+    k_win = torch.zeros((L, w, B, KVH, HD), dtype=dtype, device=dev)
+    v_win = torch.zeros_like(k_win)
+    impl = resolve_attention_impl(c, k_cache)
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    if impl != "megakernel":
+        # The cached prefix is the window start's for every step.
+        tables, prefix = _decode_prefix(impl, block_tables, positions, bs)
+    out = torch.empty((w, B), dtype=torch.int32, device=dev)
     if uniforms is not None:
-        rows = [torch.as_tensor(x).to(dev) for x in (temps, top_ks, top_ps)]
+        samp_rows = [torch.as_tensor(x).to(dev) for x in (temps, top_ks, top_ps)]
         uniforms = uniforms.to(dev)
     toks = tokens.to(torch.int32)
-    for i in range(num_steps):
-        logits, k_cache, v_cache = decode(
-            params, config, k_cache, v_cache, toks, positions + i, block_tables, active
-        )
+    for i in range(w):
+        if impl == "megakernel":
+            # Row b's fresh keys are its slice [current ; window rows] of the
+            # carry; rows past step i are masked by the causal frontier.
+            meta = megakernel.build_meta(rows, positions.clamp(max=ctx), rows * (w + 1), rows * (w + 1) + 1 + i,
+                                         torch.ones_like(rows))
+            mega = _mega_attend(c, block_tables, meta, N)
+
+            def attend(l, q, k, v, k_flat, v_flat):
+                k_extra = torch.cat([k[:, None], k_win[l].transpose(0, 1)], 1).reshape(B * (w + 1), KVH, HD)
+                v_extra = torch.cat([v[:, None], v_win[l].transpose(0, 1)], 1).reshape(B * (w + 1), KVH, HD)
+                return mega(l, q, k_extra, v_extra, k_flat, v_flat)
+        else:
+            live = (torch.arange(w, device=dev) < i)[None, :].expand(B, w)
+
+            def attend(l, q, k, v, k_flat, v_flat):
+                window = (k_win[l].transpose(0, 1), v_win[l].transpose(0, 1), live)
+                return _decode_rows_attention(c, impl, q, k, v, k_flat, v_flat, tables + l * N, prefix, window)
+
+        h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, _embed(params, toks), positions + i, attend)
+        k_win[:, i] = k_rows
+        v_win[:, i] = v_rows
+        logits = _logits(params, c, h)
         if uniforms is not None:
-            toks = sample_from_uniforms(logits, *rows, uniforms[i])
+            toks = sample_from_uniforms(logits, *samp_rows, uniforms[i])
         else:
             sub = None
             if rng_key is not None:
                 rng_key, sub = prng.split(rng_key)
             toks = sample_batch_device(logits, temps, top_ks, top_ps, sub)
         out[i] = toks
+    # One write for the whole window: row (l, j, b) → slot positions[b] + j.
+    tgt = [decode_targets(positions + j, block_tables, active, bs) for j in range(w)]
+    _write_kv(k_cache, v_cache, k_win.reshape(L, w * B, KVH, HD), v_win.reshape(L, w * B, KVH, HD),
+              torch.cat([t[0] for t in tgt]), torch.cat([t[1] for t in tgt]))
     return out, k_cache, v_cache
 
 
@@ -582,7 +684,8 @@ def mixed_step(
     h = _embed(params, torch.cat([p_tokens.long(), d_tokens.long()]))
 
     Wp, Wd = p_table.shape[0], d_tables.shape[1]
-    impl = resolve_attention_impl(c)
+    impl = resolve_attention_impl(c, k_cache)
+    N = k_cache.shape[1]
     if impl == "megakernel":
         tables = torch.zeros((1 + B, max(Wp, Wd)), dtype=torch.int32, device=dev)
         tables[0, :Wp] = p_table
@@ -594,15 +697,15 @@ def mixed_step(
             torch.cat([s_iq + 1, S + d_iq + 1]),
             torch.cat([p_valid_q, d_active.bool()]),
         )
-        attend = _mega_attend(c, tables, meta)
+        attend = _mega_attend(c, tables, meta, N)
     else:
         p_tab = p_table.long()
         d_tabs, d_prefix = _decode_prefix(impl, d_tables, d_positions, bs)
 
-        def attend(off, q, k, v, k_flat, v_flat):
-            attn_p = _chunk_attention(c, q[:S], k[:S], v[:S], k_flat, v_flat, p_tab + off, p_valid,
+        def attend(l, q, k, v, k_flat, v_flat):
+            attn_p = _chunk_attention(c, q[:S], k[:S], v[:S], k_flat, v_flat, p_tab + l * N, p_valid,
                                       p_cache_len, use_flash, has_prefix)
-            attn_d = _decode_rows_attention(c, impl, q[S:], k[S:], v[S:], k_flat, v_flat, d_tabs + off,
+            attn_d = _decode_rows_attention(c, impl, q[S:], k[S:], v[S:], k_flat, v_flat, d_tabs + l * N,
                                             d_prefix)
             return torch.cat([attn_p, attn_d.to(attn_p.dtype)])
 

@@ -15,6 +15,11 @@ or wave admission:
   or a per-piece path (``llama.resolve_attention_impl``); on the per-piece
   paths ``prefill_impl`` picks the flash chunk kernel ("auto": on a CUDA
   device) and every chunk says whether it has a cached prefix.
+- **int8 storage** (``kv_cache_dtype`` / ``weight_dtype`` "int8"): as in
+  the JAX package, the fused window and the fused spec window are off, so
+  every forward goes through the per-step ragged kernel (its int8 branch
+  over an int8 cache), windows through ``llama.decode_multi``; ``"paged"``
+  over an int8 cache degrades to the gather.
 - **Preemption**: a decode row that cannot grow its block table evicts the
   newest other running sequence, which later recomputes its KV.
 - **Multi-step decode windows** (``num_scheduler_steps`` > 1, default 32):
@@ -68,7 +73,7 @@ import torch
 
 from dynamo_tpu_torch.engine.attention import megakernel
 from dynamo_tpu_torch.engine.config import ModelConfig
-from dynamo_tpu_torch.engine.kv_cache import BlockAllocator, KvCacheArrays, KvEvent, OutOfBlocksError
+from dynamo_tpu_torch.engine.kv_cache import BlockAllocator, KvCacheArrays, KvEvent, OutOfBlocksError, QuantKv
 from dynamo_tpu_torch.engine.models import llama
 from dynamo_tpu_torch.engine import prng
 from dynamo_tpu_torch.engine.sampling import (
@@ -315,7 +320,8 @@ class Scheduler:
         self.sc.prefill_buckets = [b for b in self.sc.prefill_buckets if b <= model_config.max_seq_len] or [
             model_config.max_seq_len
         ]
-        self._attn_impl = llama.resolve_attention_impl(model_config)
+        llama.warn_attention_impl_degrade(model_config, self.cache.k)
+        self._attn_impl = llama.resolve_attention_impl(model_config, self.cache.k)
         # Prefill chunk attention on the per-piece paths: the flash kernel
         # ("auto" ⇒ on a CUDA device only) or one masked softmax.
         self._use_flash_prefill = model_config.architecture == "llama" and (
@@ -452,6 +458,14 @@ class Scheduler:
             raise ValueError("draft and target must share the vocabulary")
         if draft_config.architecture != "llama" or self.mc.architecture != "llama":
             raise ValueError("spec decode needs llama-family draft AND target for now")
+        if "int8" in (self.mc.kv_cache_dtype, self.mc.weight_dtype, draft_config.kv_cache_dtype,
+                      draft_config.weight_dtype):
+            # The fused spec window takes no int8 model (nor does JAX's): JAX
+            # speculates per round there, through _decode_spec.
+            raise NotImplementedError(
+                "speculative decoding with int8 KV or int8 weights runs through the per-round spec path, "
+                "which is not ported yet (ROADMAP Queue 1 item 13b)"
+            )
         dtype = self.params["embed"].dtype
         fits = (
             self._use_fused_window
@@ -942,9 +956,11 @@ class Scheduler:
             self._append_token(seq, int(sampled[i]), outputs)
 
     def _copy_block(self, src: int, dst: int) -> None:
-        """Block duplication across all layers (the copy-on-write copy)."""
-        self.cache.k[:, dst] = self.cache.k[:, src]
-        self.cache.v[:, dst] = self.cache.v[:, src]
+        """Block duplication across all layers (the copy-on-write copy); an
+        int8 cache copies its codes and its scales."""
+        for c in (self.cache.k, self.cache.v):
+            for t in ((c.q, c.scale) if isinstance(c, QuantKv) else (c,)):
+                t[:, dst] = t[:, src]
 
     def _ensure_block_capacity(self, seq: Sequence) -> None:
         """Grow the block table if the *next* token would overflow it. On

@@ -3,7 +3,8 @@ seeded random initialization.
 
 The port keeps the JAX layout: stacked per-layer weights ``[L, in, out]``
 used as ``x @ w`` (not ``F.linear``'s ``[out, in]``), so converting a JAX
-pytree is a plain copy and both packages compute the same products.
+pytree is a plain copy and both packages compute the same products. int8
+layer weights (engine/quant.py) carry across as their codes and scales.
 Loading a checkpoint from disk is not ported yet (ROADMAP Queue 1 item 3).
 """
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.engine.config import ModelConfig
+from dynamo_tpu_torch.engine.quant import QuantW
 
 Params = Dict[str, object]
 
@@ -49,10 +51,21 @@ def params_from_numpy(
 ) -> Params:
     """The JAX parameter pytree as numpy arrays
     (``jax.tree_util.tree_map(np.asarray, params)``) → the port's params,
-    checked against the config's shapes."""
+    checked against the config's shapes. A layer weight the JAX package
+    quantized (its ``QuantW``, a pair of int8 codes ``[L, in, out]`` and
+    f32 scales ``[L, 1, out]``) becomes the port's ``QuantW``."""
     shapes = param_shapes(config)
 
     def conv(name, arr, shape):
+        if isinstance(arr, tuple) and len(arr) == 2:
+            codes, scale = (np.asarray(a) for a in arr)
+            want = (*shape[:-2], 1, shape[-1])
+            if codes.dtype != np.int8 or tuple(codes.shape) != tuple(shape):
+                raise ValueError(f"{name}: expected int8 codes of shape {shape}, got {codes.dtype} {codes.shape}")
+            if tuple(scale.shape) != want:
+                raise ValueError(f"{name}: expected scales of shape {want}, got {tuple(scale.shape)}")
+            return QuantW(torch.from_numpy(codes.copy()).to(device),
+                          torch.from_numpy(np.array(scale, dtype=np.float32)).to(device))
         arr = np.asarray(arr)
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(arr.shape)}")

@@ -9,6 +9,7 @@ tokenizer.
 Example:
   python -m dynamo_tpu_torch.run in=http out=llama-3.2-1b --http-port 8080
   python -m dynamo_tpu_torch.run in=http out=llama-3.2-3b --draft-model llama-3.2-1b
+  python -m dynamo_tpu_torch.run in=http out=llama-3.2-1b --kv-cache-dtype int8 --weight-dtype int8
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--draft-model", default=None,
                    help="draft model preset for speculative decoding (seeded random weights)")
     p.add_argument("--spec-gamma", type=int, default=4, help="speculative tokens proposed per round")
+    p.add_argument("--kv-cache-dtype", choices=["auto", "int8"], default="auto",
+                   help="int8 stores the KV cache as codes and per-(token, head) scales: twice the blocks per byte")
+    p.add_argument("--weight-dtype", choices=["auto", "int8"], default="auto",
+                   help="int8 stores the layer matmul weights quantized (about half the resident weights)")
     args = p.parse_args(argv)
     spec = dict(part.partition("=")[::2] for part in args.io)
     if spec.get("in") != "http" or not spec.get("out"):
@@ -77,6 +82,8 @@ def build_service(
             scheduler=dataclasses.replace(scheduler_config or SchedulerConfig(), num_blocks=args.num_blocks),
             draft_model=args.draft_model,
             spec_gamma=args.spec_gamma,
+            kv_cache_dtype=args.kv_cache_dtype,
+            weight_dtype=args.weight_dtype,
         ),
         draft_params=draft_params,
     )

@@ -18,8 +18,9 @@ from dynamo_tpu_torch.engine.attention import decode as pdk
 from dynamo_tpu_torch.engine.attention import megakernel as mk
 from dynamo_tpu_torch.engine.attention import prefill as fck
 from dynamo_tpu_torch.engine.config import get_config
-from dynamo_tpu_torch.engine.kv_cache import KvCacheArrays
+from dynamo_tpu_torch.engine.kv_cache import KvCacheArrays, QuantKv, dequantize_kv, quantize_kv_rows
 from dynamo_tpu_torch.engine.models import llama
+from dynamo_tpu_torch.engine.quant import quantize_params
 from dynamo_tpu_torch.engine.weights import init_params
 
 pytestmark = pytest.mark.cuda
@@ -102,6 +103,110 @@ def test_wrapper_refuses_unsupported_inputs(cuda):
                                   num_kv_heads=kvh, block_size=BS)
     with pytest.raises(ValueError):
         mk.ragged_paged_attention(args[0], *args[1:3], args[3].cpu(), *args[4:], num_kv_heads=kvh, block_size=BS)
+
+
+# chip_smoke's int8 cases: a 512-query chunk over a 1000-token prefix and 32
+# decode rows at contexts 1..4096, 4 chunk queries dead, at llama-3.2-1b's
+# and llama-3-8b's widths; and the ragged edges above.
+_CTX_32 = [int(c) for c in np.linspace(1, 4096, 32).round()]
+INT8_STEPS = {
+    "chip_smoke 1b": dict(H=32, KVH=8, HD=64, chunk=512, prefix=1000, decode_ctx=_CTX_32, dead=4),
+    "chip_smoke 8b": dict(H=32, KVH=8, HD=128, chunk=512, prefix=1000, decode_ctx=_CTX_32, dead=4),
+    "mha_edges": STEPS["mha_edges"],
+    "mqa": STEPS["mqa"],
+}
+
+
+def _int8_step(name, dtype, dev):
+    """``_step``'s inputs with the page pools quantized to int8 (a live
+    page's first 5 tokens all zero: scale 1), q and the fresh keys in
+    ``dtype``, all on ``dev``."""
+    host, kvh = _step(sum(map(ord, name)) + 8, **INT8_STEPS[name])
+    q, ke, ve, kp, vp, tables, meta = host
+    for p in (kp, vp):
+        p[int(tables[0, 0]), :5] = 0.0
+    pools = [QuantKv(*(t.to(dev) for t in quantize_kv_rows(p))) for p in (kp, vp)]
+    return (*(t.to(dev, dtype) for t in (q, ke, ve)), *pools, tables.to(dev), meta.to(dev)), kvh
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["chip_smoke 1b", "chip_smoke 8b", "mha_edges"])
+def test_int8_kernel_matches_plain_version(cuda, name, dtype):
+    """The int8 branch over QuantKv pages against the plain version, which
+    dequantizes the same pages as the TPU kernel does; the tolerance of the
+    bf16/f32 case above (the dequantized values are the same in both)."""
+    args, kvh = _int8_step(name, dtype, cuda)
+    before = (mk.KERNEL_LAUNCHES_INT8, mk.KERNEL_LAUNCHES)
+    out = mk.ragged_paged_attention(*args, num_kv_heads=kvh, block_size=BS)
+    ref = mk.ragged_paged_attention_ref(*args, num_kv_heads=kvh, block_size=BS)
+    torch.cuda.synchronize()
+    assert (mk.KERNEL_LAUNCHES_INT8, mk.KERNEL_LAUNCHES) == (before[0] + 1, before[1])
+    live = args[6][4] != 0
+    assert torch.all(out[~live] == 0)
+    v_max = max(args[2].abs().max().item(), dequantize_kv(args[4], torch.float32)[1:].abs().max().item())
+    tol = 5e-5 if dtype == torch.float32 else 2**-9 * v_max + 2**-8 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_int8_wrapper_refuses_unsupported_inputs(cuda):
+    args, kvh = _int8_step("mqa", torch.bfloat16, cuda)
+    q, ke, ve, k8, v8, tables, meta = args
+    call = lambda kp, vp: mk.ragged_paged_attention(q, ke, ve, kp, vp, tables, meta,  # noqa: E731
+                                                    num_kv_heads=kvh, block_size=BS)
+    with pytest.raises(TypeError, match="float32"):  # scales in another dtype
+        call(QuantKv(k8.q, k8.scale.bfloat16()), v8)
+    with pytest.raises(ValueError, match="scale"):  # scales that do not match the codes
+        call(QuantKv(k8.q, k8.scale[..., 0].contiguous()), v8)
+    with pytest.raises(TypeError, match="int8"):  # codes not int8
+        call(QuantKv(k8.q.to(torch.int16), k8.scale), v8)
+    with pytest.raises(ValueError, match="cpu"):  # scales on another device
+        call(QuantKv(k8.q, k8.scale.cpu()), v8)
+    with pytest.raises(TypeError, match="both"):  # one pool int8, the other not
+        call(k8, dequantize_kv(v8, torch.bfloat16))
+    launches = mk.KERNEL_LAUNCHES_INT8
+    call(k8, v8)
+    assert mk.KERNEL_LAUNCHES_INT8 == launches + 1
+
+
+def test_int8_layer_flat_view_and_model_path(cuda):
+    """The layer-flat pool the kernel reads is a view of the int8 cache the
+    model writes (same storage), and ``tiny`` with int8 KV and weights gives
+    the CPU path's logits and codes through prefill, decode and an 8-step
+    ``decode_multi`` window, every attention call on the int8 branch."""
+    cfg = get_config("tiny").replace(kv_cache_dtype="int8", weight_dtype="int8")
+    cache = KvCacheArrays.create(cfg, 8, dtype=torch.float32, device=cuda)
+    flat = cache.k.reshape(cfg.num_layers * 8, BS, cfg.num_kv_heads, cfg.head_dim)
+    assert flat.q.data_ptr() == cache.k.q.data_ptr() and flat.scale.data_ptr() == cache.k.scale.data_ptr()
+    params = quantize_params(init_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, 255, size=40).astype(np.int32)
+    table = np.arange(1, 5, dtype=np.int32)
+    greedy = (np.zeros(1, np.float32), np.zeros(1, np.int32), np.ones(1, np.float32))
+
+    def run(dev):
+        p = {k: ({kk: vv.to(dev) if isinstance(vv, torch.Tensor) else type(vv)(*(x.to(dev) for x in vv))
+                  for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev)) for k, v in params.items()}
+        c = KvCacheArrays.create(cfg, 8, dtype=torch.float32, device=dev)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        padded = np.zeros(32, np.int32)
+        padded[:30] = toks[:30]
+        out = [llama.prefill(p, cfg, c.k, c.v, t(padded), 30, 0, t(table))[0][None]]
+        out.append(llama.decode(p, cfg, c.k, c.v, t(toks[30:31]), t(np.array([30], np.int32)), t(table[None]),
+                                t(np.array([True])))[0])
+        win, _, _ = llama.decode_multi(p, cfg, c.k, c.v, t(toks[31:32]), t(np.array([31], np.int32)), t(table[None]),
+                                       t(np.array([True])), *greedy, None, 8)
+        return torch.cat(out).cpu(), win.cpu(), c.k.q.cpu(), c.k.scale.cpu()
+
+    before = (mk.KERNEL_LAUNCHES_INT8, mk.KERNEL_LAUNCHES)
+    on_card = run(cuda)
+    assert (mk.KERNEL_LAUNCHES_INT8 - before[0], mk.KERNEL_LAUNCHES - before[1]) == (10 * cfg.num_layers, 0)
+    on_cpu = run("cpu")
+    torch.testing.assert_close(on_card[0], on_cpu[0], rtol=2e-4, atol=2e-4)
+    assert torch.equal(on_card[1], on_cpu[1])
+    # Block 0 is the scratch sink the prefill's padded rows write to
+    # (several rows at one slot, in no fixed order); excluded.
+    assert (on_card[2][:, 1:].int() - on_cpu[2][:, 1:].int()).abs().max() <= 1
+    torch.testing.assert_close(on_card[3][:, 1:], on_cpu[3][:, 1:], rtol=2e-5, atol=0)
 
 
 # Flash chunk cases: (T, valid_len, H, KVH, HD). T need not be a power of two.
