@@ -120,6 +120,18 @@ def read_counts() -> dict:
             for name, (mod, launches, plain) in kernel_counters().items()}
 
 
+def tensor_core_ops(library: str) -> dict:
+    """Tensor-core instructions in a built library's machine code
+    (``cuobjdump --dump-sass``): HGMMA (wgmma) and HMMA (mma.sync)."""
+    from pathlib import Path
+
+    from dynamo_tpu_torch import _build
+
+    sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "--dump-sass", library],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    return {op: sass.count(op + ".") for op in ("HGMMA", "HMMA")}
+
+
 def bound(nbytes: int, flops: int, dtype) -> dict:
     """The least time the card could take: bytes over the memory rate or
     operations over the peak rate of their type, whichever is larger."""
@@ -343,6 +355,35 @@ def check_attention(case, *, time_it: bool):
     return res
 
 
+def graph_ms(fn, calls: int = 20) -> float:
+    """The card's own milliseconds per call of ``fn``: ``calls`` calls
+    captured in one CUDA graph, replayed between CUDA events, so the host's
+    time to queue each call is not in the reading."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, iters=10, warmup=1) / calls
+
+
+def per_piece_device_times(res: dict, kernel, library) -> None:
+    """Beside a per-piece kernel's event times (which hold the wrapper's
+    host time when the card waits on it): the card's own
+    time per call of the kernel and of the library call, and the rate
+    each achieves on the case's operations and bytes."""
+    res["device_ms"] = graph_ms(kernel)
+    res["library_device_ms"] = graph_ms(library)
+    for key in ("kernel_ms", "device_ms"):
+        res["achieved_" + key.removesuffix("_ms")] = {"tflop_s": res["flops"] / res[key] / 1e9,
+                                                      "tb_s": res["bytes"] / res[key] / 1e9}
+
+
 def flash_case(dev, dtype, seed, *, T, valid, H, KVH, HD):
     g = torch.Generator(device="cpu").manual_seed(seed)
     return tuple(torch.randn(shape, generator=g).to(dev, dtype)
@@ -386,19 +427,21 @@ def check_flash(name, case, *, time_it: bool):
         qd = q.transpose(0, 1)[None].contiguous()
         kd = k.repeat_interleave(G, dim=1).transpose(0, 1)[None].contiguous()
         vd = v.repeat_interleave(G, dim=1).transpose(0, 1)[None].contiguous()
-        res["library_ms"] = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, is_causal=True))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, is_causal=True)  # noqa: E731
+        res["library_ms"] = cuda_ms(sdpa)
         res["library"] = "scaled_dot_product_attention(is_causal=True), K/V expanded over G"
+        per_piece_device_times(res, lambda: fck.flash_chunk_attention(q, k, v, valid, num_kv_heads=KVH), sdpa)
     emit("kernel", **res)
     if not ok:
         raise AssertionError(f"flash_chunk_attention disagrees with its plain version: {res}")
     return res
 
 
-def paged_case(dev, dtype, seed, *, lengths, H, KVH, HD, extra_width=0):
+def paged_case(dev, dtype, seed, *, lengths, H, KVH, HD, extra_width=0, over=0):
     """Decode rows of ``lengths`` tokens over pages drawn at random from a
     pool whose page 0 is scratch with large values; tables ``extra_width``
-    slots wider than the longest row, unused slots on page 0."""
+    slots wider than the longest row, unused slots on page 0; each length
+    passed ``over`` tokens past its table."""
     BS = 16
     g = torch.Generator(device="cpu").manual_seed(seed)
     B = len(lengths)
@@ -415,7 +458,7 @@ def paged_case(dev, dtype, seed, *, lengths, H, KVH, HD, extra_width=0):
     kp[0] = vp[0] = 1e4
     q = torch.randn((B, H, HD), generator=g)
     args = tuple(t.to(dev, dtype) for t in (q, kp, vp)) + (
-        tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev))
+        tables.to(dev), torch.tensor([n + over for n in lengths], dtype=torch.int32, device=dev))
     return args, KVH, BS
 
 
@@ -438,7 +481,9 @@ def check_paged(name, case, *, time_it: bool):
     err = (acc - racc).abs().max().item()
     # acc is unnormalized: a row's error scales with its l. bf16: both sides
     # round p before the PV product (≤ 2^-9·p each).
-    base = 5e-5 if dtype == torch.float32 else 2**-8 * vp[1:].float().abs().max().item()
+    # (A batch of empty rows only has no page past the scratch page.)
+    vmax = vp[1:].float().abs().max().item() if len(vp) > 1 else 0.0
+    base = 5e-5 if dtype == torch.float32 else 2**-8 * vmax
     tol = base * max(1.0, rl.max().item())
     acc_scaled = ((acc - racc).abs() / rl.clamp_min(1)[..., None]).max().item()
     ok = (empty_ok and acc_scaled <= base and m_err <= 5e-5 and l_rel <= 5e-5
@@ -464,9 +509,10 @@ def check_paged(name, case, *, time_it: bool):
         mask = (torch.arange(W * BS, device=q.device)[None, :] < lengths[:, None].long())[:, None, None, :]
         mask[..., 0] |= ~mask.any(-1)  # keep empty rows finite
         qd = q[:, :, None, :]
-        res["library_ms"] = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)  # noqa: E731
+        res["library_ms"] = cuda_ms(sdpa)
         res["library"] = "scaled_dot_product_attention over the gathered pages, K/V expanded over G"
+        per_piece_device_times(res, lambda: pdk.paged_decode_partials(*args, **kw), sdpa)
     emit("kernel", **res)
     if not ok:
         raise AssertionError(f"paged_decode_partials disagrees with its plain version: {res}")
@@ -1529,13 +1575,22 @@ def phase_kernel(dev):
         ("llama-3.2-1b T=300 valid 271", dict(T=300, valid=271, H=32, KVH=8, HD=64)),
         ("llama-3-8b heads (HD=128)", dict(T=512, valid=400, H=32, KVH=8, HD=128)),
         ("mqa", dict(T=256, valid=200, H=8, KVH=1, HD=64)),
+        # The tensor-core tiles' edges: a query past a 128-row tile, one
+        # valid key, 64 heads per KV head, the narrowest head dim.
+        ("T=129", dict(T=129, valid=129, H=32, KVH=8, HD=64)),
+        ("valid_len 1", dict(T=70, valid=1, H=32, KVH=8, HD=64)),
+        ("G=64", dict(T=100, valid=90, H=64, KVH=1, HD=64)),
+        ("HD=16", dict(T=77, valid=77, H=8, KVH=2, HD=16)),
+        ("llama-3-8b widths T=2048 (HD=128)", dict(T=2048, valid=2048, H=32, KVH=8, HD=128)),
     ]
+    flash_timed = {0: "flash_chunk_attention", 1: "flash_chunk_attention T=512",
+                   len(flash_specs) - 1: "flash_chunk_attention 8b"}
     for i, (name, spec) in enumerate(flash_specs):
         for dtype in (torch.bfloat16, torch.float32):
-            time_it = dtype == torch.bfloat16 and i < 2
+            time_it = dtype == torch.bfloat16 and i in flash_timed
             res = check_flash(name, flash_case(dev, dtype, 200 + i, **spec), time_it=time_it)
             if time_it:
-                timed["flash_chunk_attention" if i == 0 else "flash_chunk_attention T=512"] = res
+                timed[flash_timed[i]] = res
     torch.cuda.empty_cache()
 
     # paged_decode_partials: 8 decode rows with contexts 1..4096 (one row
@@ -1545,13 +1600,39 @@ def phase_kernel(dev):
         ("llama-3.2-1b 8 rows", dict(lengths=ctx_8, H=32, KVH=8, HD=64, extra_width=4)),
         ("llama-3-8b heads (HD=128)", dict(lengths=[5, 64, 300, 1000], H=32, KVH=8, HD=128)),
         ("mqa", dict(lengths=[200, 0, 2, 17], H=8, KVH=1, HD=64, extra_width=6)),
+        # Split-KV edges (256 keys a split): lengths at a split's edge, past
+        # the table (clamped to W*BS), and a batch of empty rows only.
+        ("split edges", dict(lengths=[255, 256, 257, 511, 512, 513], H=32, KVH=8, HD=64, extra_width=1)),
+        ("past the table", dict(lengths=[300, 290], H=32, KVH=8, HD=64, over=40)),
+        ("empty rows only", dict(lengths=[0, 0, 0], H=32, KVH=8, HD=64, extra_width=2)),
+        ("llama-3-8b widths 8 rows (HD=128)", dict(lengths=ctx_8, H=32, KVH=8, HD=128, extra_width=4)),
     ]
+    paged_timed = {0: "paged_decode_partials", len(paged_specs) - 1: "paged_decode_partials 8b"}
     for i, (name, spec) in enumerate(paged_specs):
         for dtype in (torch.bfloat16, torch.float32):
-            time_it = dtype == torch.bfloat16 and i == 0
+            time_it = dtype == torch.bfloat16 and i in paged_timed
             res = check_paged(name, paged_case(dev, dtype, 300 + i, **spec), time_it=time_it)
             if time_it:
-                timed["paged_decode_partials"] = res
+                timed[paged_timed[i]] = res
+    # Each call twice more on the first case's inputs: bit-equal (the split
+    # counters reset themselves, the merge order is fixed).
+    from dynamo_tpu_torch.engine.attention import decode as pdk
+
+    args, KVH, BS = paged_case(dev, torch.bfloat16, 300, **paged_specs[0][1])
+    runs = [pdk.paged_decode_partials(*args, num_kv_heads=KVH, block_size=BS) for _ in range(3)]
+    repeat_equal = all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+    emit("kernel", kernel="paged_decode_partials", case="repeat calls", bit_equal=repeat_equal)
+    if not repeat_equal:
+        raise AssertionError("paged_decode_partials differs between calls on the same inputs")
+    # The two per-piece kernels beside their last accepted readings on this
+    # card (PERF.md: the first versions' 1.074, 0.178 and 0.364 ms).
+    emit("kernel", kernel="per-piece kernels vs PERF.md", ratios={
+        "flash_chunk_attention T=2048": timed["flash_chunk_attention"]["kernel_ms"] / 1.074,
+        "flash_chunk_attention T=512": timed["flash_chunk_attention T=512"]["kernel_ms"] / 0.178,
+        "paged_decode_partials": timed["paged_decode_partials"]["kernel_ms"] / 0.364},
+        vs_sdpa={name: timed[name]["kernel_ms"] / timed[name]["library_ms"]
+                 for name in ("flash_chunk_attention", "flash_chunk_attention T=512", "flash_chunk_attention 8b",
+                              "paged_decode_partials", "paged_decode_partials 8b")})
     torch.cuda.empty_cache()
 
     timed["nop"] = check_nop(dev)
@@ -2726,6 +2807,13 @@ def kernels_line(timed: dict, served: dict) -> list:
             entry["greedy_ms"] = t["greedy_kernel_ms"]
             entry["epilogue_alone"] = {k: e[k] for k in ("case", "draws", "differ", "max_gap", "kernel_ms", "ref_ms",
                                                          "bound_ms", "bound_by", "passes_bound_ms", "library_ms")}
+        if name in ("flash_chunk_attention", "paged_decode_partials"):
+            # The card's own time (profiler) beside the event times, and the
+            # same at llama-3-8b's widths (HD = 128).
+            keys = ("device_ms", "library_device_ms", "achieved_kernel", "achieved_device")
+            entry.update({k: t[k] for k in keys})
+            entry["8b"] = {k: timed[name + " 8b"][k] for k in ("case", "shape", "max_abs_err", "kernel_ms", "ref_ms",
+                                                                "bound_ms", "bound_by", "library_ms", *keys)}
         if name == "ragged_paged_attention_int8":
             # library_ms: the gathered codes dequantized to dense K/V, then SDPA.
             entry["sdpa_alone_ms"] = t["sdpa_alone_ms"]
@@ -2766,7 +2854,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     emit("build", seconds=time.perf_counter() - t0,
-         libraries={n: {"seconds": r["seconds"], "ptxas": [ln for ln in r["log"].splitlines() if "ptxas" in ln]}
+         libraries={n: {"seconds": r["seconds"], "ptxas": [ln for ln in r["log"].splitlines() if "ptxas" in ln],
+                        "sass": tensor_core_ops(r["path"])}
                     for n, r in built.items()})
 
     # Wall seconds of each phase, printed at the end (a run may have a time

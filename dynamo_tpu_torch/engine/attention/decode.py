@@ -10,13 +10,17 @@ step merges them with the current token's in-register piece through
 
 On a CUDA tensor it launches the hand-written Hopper kernel
 (``csrc/paged_decode_partials.cu``) or raises; on a CPU tensor it runs the
-plain PyTorch version, ``paged_decode_partials_ref``.
+plain PyTorch version, ``paged_decode_partials_ref``. The kernel splits
+each row's keys over ``num_splits(W, block_size)`` blocks of
+``split_keys(W, block_size)`` keys and merges them inside the same
+launch; the split count comes from the table's width, so the wrapper
+never reads ``lengths`` back to the host.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -30,6 +34,28 @@ REF_CALLS = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_SMEM = 232448
+# Keys one block of the kernel takes from a row (rounded to whole pages),
+# and the most blocks a row is split over (the kernel's merge keeps one
+# weight per split and head in its [G, 64] score tile).
+_SPLIT_KEYS = 256
+_MAX_SPLITS = 64
+# Per device: the kernel's per-(row, KV head) arrival counters. Zero
+# between launches (the last block of each row resets its own), so they
+# are zeroed once, when allocated or grown.
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def split_keys(width: int, block_size: int) -> int:
+    """Keys per split of a table ``width`` pages wide: ``_SPLIT_KEYS``
+    rounded down to whole pages (at least one), or more pages where the
+    table would take more than ``_MAX_SPLITS`` splits."""
+    return block_size * max(1, _SPLIT_KEYS // block_size, -(-width // _MAX_SPLITS))
+
+
+def num_splits(width: int, block_size: int) -> int:
+    """Blocks per (row, KV head): enough splits for a row as long as the
+    table, at least one."""
+    return max(1, -(-width * block_size // split_keys(width, block_size)))
 
 
 def paged_decode_partials_ref(
@@ -60,9 +86,9 @@ def _kernel():
     lib = _build.load("paged_decode_partials")
     launch, smem = lib.dtt_paged_decode_partials, lib.dtt_paged_decode_partials_smem
     if launch.argtypes is None:
-        launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
-        smem.argtypes = [ctypes.c_int] * 2
+        smem.argtypes = [ctypes.c_int] * 3
         smem.restype = ctypes.c_size_t
     return launch, smem
 
@@ -128,7 +154,7 @@ def paged_decode_partials(
     B, H, HD = q.shape
     G = H // num_kv_heads
     launch, smem_fn = _kernel()
-    smem = smem_fn(G, HD)
+    smem = smem_fn(_DTYPE_CODE[q.dtype], G, HD)
     if smem > _MAX_SMEM:
         raise ValueError(f"G={G}, HD={HD} needs {smem} bytes of shared memory per block, over {_MAX_SMEM}")
     m = torch.empty((B, num_kv_heads, G), dtype=torch.float32, device=q.device)
@@ -136,12 +162,21 @@ def paged_decode_partials(
     acc = torch.empty((B, num_kv_heads, G, HD), dtype=torch.float32, device=q.device)
     if B == 0:
         return m, l, acc
+    W = tables.shape[1]
+    splits = num_splits(W, block_size)
+    # Each split's (m, l, acc) when a row has more than one; never zeroed.
+    scratch = torch.empty(B * num_kv_heads * G * (HD + 2) * splits if splits > 1 else 0,
+                          dtype=torch.float32, device=q.device)
+    counters = _COUNTERS.get(q.device)
+    if counters is None or counters.numel() < B * num_kv_heads:
+        counters = _COUNTERS[q.device] = torch.zeros(B * num_kv_heads, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = launch(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             tables.data_ptr(), lengths.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-            B, H, num_kv_heads, HD, tables.shape[1], block_size, stream,
+            scratch.data_ptr(), counters.data_ptr(),
+            B, H, num_kv_heads, HD, W, block_size, split_keys(W, block_size), splits, stream,
         )
     if rc != 0:
         raise RuntimeError(f"paged_decode_partials kernel launch failed: cudaError {rc}")

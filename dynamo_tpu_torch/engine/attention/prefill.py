@@ -5,10 +5,11 @@ Same arguments, layouts and results as the JAX package's
 output and the online-softmax state ``(m, l)`` of every query row, so a
 cached-prefix piece computed outside the kernel merges with it through
 ``merge_attention_pieces``. On a CUDA tensor it launches the hand-written
-Hopper kernel (``csrc/flash_chunk_attention.cu``) or raises; on a CPU
-tensor it runs the plain PyTorch version, ``flash_chunk_attention_ref``,
-which the tests hold against the JAX function and ``chip_smoke.py`` holds
-the kernel against on the card.
+Hopper kernel (``csrc/flash_chunk_attention.cu``: bf16 on the tensor cores
+through wgmma, its K/V tiles brought in by TMA; f32 on CUDA cores) or
+raises; on a CPU tensor it runs the plain PyTorch version,
+``flash_chunk_attention_ref``, which the tests hold against the JAX
+function and ``chip_smoke.py`` holds the kernel against on the card.
 
 Masking: query ``t`` sees key ``j`` iff ``j <= t`` and ``j < valid_len``.
 Padded queries (``t >= valid_len``) therefore attend all ``valid_len``
@@ -90,7 +91,7 @@ def _kernel():
     if launch.argtypes is None:
         launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
-        smem.argtypes = [ctypes.c_int]
+        smem.argtypes = [ctypes.c_int] * 2
         smem.restype = ctypes.c_size_t
     return launch, smem
 
@@ -114,9 +115,10 @@ def _check_args(q, k_new, v_new, valid_len, num_kv_heads):
         raise ValueError(f"G={H // num_kv_heads} query heads per KV head; the kernel tiles at most {_ROWS}")
     if HD not in _HEAD_DIMS:
         raise ValueError(f"head_dim {HD} not supported by the kernel (one of {_HEAD_DIMS})")
-    for name, t in (("k_new", k_new), ("v_new", v_new)):
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel loads 16-byte vectors)")
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel loads 16-byte vectors or TMA boxes)")
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
         if tuple(t.shape) != (T, num_kv_heads, HD):
             raise ValueError(f"{name} must be [T, KVH, HD] = {(T, num_kv_heads, HD)}, got {tuple(t.shape)}")
 
@@ -146,8 +148,9 @@ def flash_chunk_attention(
     T, H, HD = q.shape
     G = H // num_kv_heads
     launch, smem_fn = _kernel()
-    if smem_fn(HD) > _MAX_SMEM:
-        raise ValueError(f"HD={HD} needs {smem_fn(HD)} bytes of shared memory per block, over {_MAX_SMEM}")
+    smem = smem_fn(_DTYPE_CODE[q.dtype], HD)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"HD={HD} needs {smem} bytes of shared memory per block, over {_MAX_SMEM}")
     out = torch.empty_like(q)
     m = torch.empty((T, num_kv_heads, G), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)

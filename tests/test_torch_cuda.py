@@ -216,6 +216,14 @@ FLASH = {
     "hd128": (200, 200, 32, 8, 128),
     "mqa": (130, 97, 8, 1, 64),
     "mha": (64, 64, 4, 4, 32),
+    # The tensor-core tiles' edges: many diagonal tiles, one query row past a
+    # 128-row tile, a single valid key, the widest grouping (two queries per
+    # block), the narrowest head dim (32-byte swizzle).
+    "T2048": (2048, 2048, 32, 8, 64),
+    "T129": (129, 129, 32, 8, 64),
+    "valid1": (70, 1, 32, 8, 64),
+    "g64": (100, 90, 64, 1, 64),
+    "hd16": (77, 77, 8, 2, 16),
 }
 
 
@@ -240,13 +248,11 @@ def test_flash_chunk_kernel_matches_plain_version(cuda, name, dtype):
     assert ((l - rl).abs() / rl).max().item() <= 5e-5
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("lengths,H,KVH,HD,extra", [
-    ([0, 1, 16, 17, 700, 33], 32, 8, 64, 3),
-    ([5, 64, 300], 32, 8, 128, 0),
-    ([200, 0, 2], 8, 1, 64, 6),
-], ids=["llama-3.2-1b", "hd128", "mqa"])
-def test_paged_decode_kernel_matches_plain_version(cuda, lengths, H, KVH, HD, extra, dtype):
+def _paged_args(dev, dtype, lengths, H, KVH, HD, extra, over=0):
+    """Rows of ``lengths`` tokens over pages drawn at random from a pool
+    whose page 0 is scratch (1e4); tables ``extra`` slots wider than the
+    longest row; each length passed ``over`` tokens past its table.
+    Returns the arguments on ``dev`` and the f32 value pages."""
     g = torch.Generator().manual_seed(len(lengths) + HD)
     B = len(lengths)
     n_pages = [(n + BS - 1) // BS for n in lengths]
@@ -261,7 +267,25 @@ def test_paged_decode_kernel_matches_plain_version(cuda, lengths, H, KVH, HD, ex
     kp, vp = (torch.randn((NP, BS, KVH, HD), generator=g) for _ in range(2))
     kp[0] = vp[0] = 1e4  # scratch page: a stray read shows
     q = torch.randn((B, H, HD), generator=g)
-    args = [t.to(cuda, dtype) for t in (q, kp, vp)] + [tables.to(cuda), torch.tensor(lengths, dtype=torch.int32).to(cuda)]
+    return [t.to(dev, dtype) for t in (q, kp, vp)] + [
+        tables.to(dev), torch.tensor([n + over for n in lengths], dtype=torch.int32).to(dev)], vp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("lengths,H,KVH,HD,extra,over", [
+    ([0, 1, 16, 17, 700, 33], 32, 8, 64, 3, 0),
+    ([5, 64, 300], 32, 8, 128, 0, 0),
+    ([200, 0, 2], 8, 1, 64, 6, 0),
+    # Split-KV edges (256 keys a split at BS = 16): a row over 16 splits,
+    # lengths at a split's edge, lengths past the table (clamped to W*BS),
+    # a batch of empty rows only.
+    ([4096, 5], 32, 8, 64, 0, 0),
+    ([255, 256, 257, 511, 512, 513], 32, 8, 64, 1, 0),
+    ([300, 290], 32, 8, 64, 0, 40),
+    ([0, 0, 0], 32, 8, 64, 2, 0),
+], ids=["llama-3.2-1b", "hd128", "mqa", "4096", "split-edges", "past-table", "all-empty"])
+def test_paged_decode_kernel_matches_plain_version(cuda, lengths, H, KVH, HD, extra, over, dtype):
+    args, vp = _paged_args(cuda, dtype, lengths, H, KVH, HD, extra, over)
     before = pdk.KERNEL_LAUNCHES
     m, l, acc = pdk.paged_decode_partials(*args, num_kv_heads=KVH, block_size=BS)
     rm, rl, racc = pdk.paged_decode_partials_ref(*args, num_kv_heads=KVH, block_size=BS)
@@ -272,8 +296,19 @@ def test_paged_decode_kernel_matches_plain_version(cuda, lengths, H, KVH, HD, ex
     assert (m - rm).abs().max().item() <= 5e-5
     assert ((l - rl).abs() / rl.clamp_min(1)).max().item() <= 5e-5
     # acc is unnormalized: a row's error scales with its l.
-    base = 5e-5 if dtype == torch.float32 else 2**-8 * vp[1:].abs().max().item()
+    # (A batch of empty rows only has no page past the scratch page.)
+    base = 5e-5 if dtype == torch.float32 else 2**-8 * vp[1:].abs().max().item() if len(vp) > 1 else 0.0
     assert ((acc - racc).abs() / rl.clamp_min(1)[..., None]).max().item() <= base
+
+
+def test_paged_decode_kernel_is_bit_equal_on_repeat(cuda):
+    """Back-to-back calls on the same inputs agree bit for bit: the split
+    counters reset themselves and the merge order is fixed."""
+    args, _ = _paged_args(cuda, torch.bfloat16, [4096, 1000, 0, 300, 257], 32, 8, 64, 2)
+    first = pdk.paged_decode_partials(*args, num_kv_heads=8, block_size=BS)
+    for _ in range(2):
+        again = pdk.paged_decode_partials(*args, num_kv_heads=8, block_size=BS)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_nop_and_dispatch_probe(cuda):

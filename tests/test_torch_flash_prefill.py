@@ -43,6 +43,11 @@ CASES = [
     (64, 64, 1, 4, 64),
     (1024, 1000, 2, 4, 32),
     (1024, 1024, 1, 2, 16),
+    # The edges of the card kernel's 128-row tiles: one query past a tile,
+    # a single valid key, 64 query heads per KV head.
+    (129, 129, 2, 4, 16),
+    (64, 1, 1, 4, 32),
+    (40, 33, 1, 64, 16),
 ]
 
 

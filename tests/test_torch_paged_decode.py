@@ -75,6 +75,68 @@ def test_paged_decode_partials_match_jax(name):
     assert torch.all(tm[empty] == -1e30) and torch.all(tl[empty] == 0) and torch.all(tacc[empty] == 0)
 
 
+# Rows split at the kernel's KS keys (256 here): rows ending one key before,
+# at and after a split's edge, rows shorter than the table (empty trailing
+# splits) and an empty row (every split empty).
+SPLITS = {
+    "bs16-edges": dict(BS=16, KVH=2, G=4, HD=32, lengths=[255, 256, 257, 512, 600, 0], extra_width=3),
+    "bs8-mqa": dict(BS=8, KVH=1, G=4, HD=16, lengths=[300, 8, 513], extra_width=2),
+}
+
+
+@pytest.mark.parametrize("name", list(SPLITS))
+def test_split_merge_matches_jax(name):
+    """The card kernel's algorithm on the CPU: each split's partials from
+    the plain version over its own slice of the table, merged as the
+    kernel's last block merges them, against the JAX kernel over the whole
+    row. f32: m within 1e-5; l and acc within 1e-5 relative (to the
+    largest value, as summation orders differ)."""
+    spec = SPLITS[name]
+    q, kp, vp, tables, lengths = _case(len(name) + 3, **spec)
+    BS, KVH = spec["BS"], spec["KVH"]
+    kw = dict(num_kv_heads=KVH, block_size=BS)
+    jm, jl, jacc = (np.asarray(a) for a in jdecode.paged_decode_partials(
+        *(jnp.asarray(a) for a in (q, kp, vp, tables, lengths)), interpret=True, **kw))
+    KS = tdecode.split_keys(tables.shape[1], BS)
+    S = tdecode.num_splits(tables.shape[1], BS)
+    assert KS == 256 and S == -(-tables.shape[1] * BS // KS)
+    per = KS // BS  # table slots per split
+    parts = []
+    for s_ in range(S):
+        tab = torch.from_numpy(np.ascontiguousarray(tables[:, s_ * per:(s_ + 1) * per]))
+        n = torch.from_numpy(np.clip(lengths - s_ * KS, 0, KS).astype(np.int32))
+        parts.append(tdecode.paged_decode_partials_ref(torch.from_numpy(q), torch.from_numpy(kp),
+                                                       torch.from_numpy(vp), tab, n, **kw))
+    m_s, l_s, acc_s = (torch.stack(x) for x in zip(*parts))
+    m = m_s.amax(dim=0)
+    a = torch.exp(m_s - m)
+    l = (l_s * a).sum(dim=0)
+    acc = (acc_s * a[..., None]).sum(dim=0)
+    np.testing.assert_allclose(m.numpy(), jm, atol=M_ATOL, rtol=0)
+    np.testing.assert_allclose(l.numpy(), jl, rtol=1e-5, atol=1e-5 * np.abs(jl).max())
+    np.testing.assert_allclose(acc.numpy(), jacc, rtol=1e-5, atol=1e-5 * np.abs(jacc).max())
+    empty = lengths == 0
+    assert torch.all(m[empty] == -1e30) and torch.all(l[empty] == 0) and torch.all(acc[empty] == 0)
+
+
+def test_split_count_comes_from_the_table_width():
+    """The kernel's grid: ``num_splits`` blocks of ``split_keys`` keys (whole
+    pages) per (row, KV head), from the table's width and the page size
+    alone, never from the lengths."""
+    assert [tdecode.split_keys(4, bs) for bs in (1, 8, 16, 48, 256, 512)] == [256, 256, 256, 240, 256, 512]
+    assert tdecode.num_splits(0, 16) == 1  # an empty table still takes one block per row
+    assert tdecode.num_splits(1, 16) == 1
+    assert tdecode.num_splits(16, 16) == 1  # 256 keys: one split
+    assert tdecode.num_splits(17, 16) == 2
+    assert tdecode.num_splits(260, 16) == 17  # chip_smoke's 8-row case: 4096 keys + 4 slots
+    assert tdecode.num_splits(6, 48) == 2  # 288 keys over splits of 240
+    # Past 64 splits of 256 keys the splits grow instead: 128K tokens at
+    # BS = 16 take 64 splits of 2048 keys.
+    assert tdecode.num_splits(1024, 16) == 64 and tdecode.split_keys(1024, 16) == 256
+    assert tdecode.split_keys(8192, 16) == 2048 and tdecode.num_splits(8192, 16) == 64
+    assert tdecode.num_splits(8193, 16) == 64 and tdecode.split_keys(8193, 16) == 2064
+
+
 def test_empty_piece_drops_out_of_merge():
     """Merging an empty prefix piece with a one-token piece gives that token
     alone, as in the JAX package (``test_paged_decode_kernel.py``)."""
