@@ -5,7 +5,10 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 ``dynamo_tpu_torch/csrc`` with nvcc, holds each kernel against its plain
 PyTorch version at the shapes the serving path gives it (and times the
-launch-overhead probe), among them the ragged kernel's int8 branch over
+launch-overhead probe), among them the ragged kernel on each of its two
+paths alone (a fresh-only prefill beside SDPA and the flash kernel, a
+decode step beside SDPA), its grid's fixed cost and repeat calls, which
+must be bit-equal, and its int8 branch over
 int8 pages (llama-3.2-1b's and llama-3-8b's widths), the fused decode window's sampled
 epilogue, alone on given logits (also on rows masked to -inf, as guided
 rows reach it) and inside the window, its guided epilogue (greedy and
@@ -242,9 +245,9 @@ def attention_work(case):
 def sdpa_yardstick(case):
     """``scaled_dot_product_attention`` on the same step with the K/V
     gathered dense per row (GQA heads expanded) and a boolean mask: one
-    PyTorch call computing the same function, timed as a yardstick only.
-    An int8 case returns ``(dequant + SDPA ms, SDPA alone ms)``: the pages'
-    codes and scales gathered per row beforehand, then, timed, one PyTorch
+    PyTorch call computing the same function, a yardstick only. Returns the
+    call; an int8 case returns ``(dequant + SDPA, SDPA alone)``: the pages'
+    codes and scales gathered per row beforehand, then one PyTorch
     expression dequantizing them to dense K/V in q's dtype before the same
     call."""
     from dynamo_tpu_torch.engine.kv_cache import QuantKv
@@ -283,10 +286,21 @@ def sdpa_yardstick(case):
     qd = qd.transpose(1, 2).contiguous()
     fn = lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)  # noqa: E731
     if not quant:
-        return cuda_ms(fn)
+        return fn
     with_dequant = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qd, dense(gathered[0], k_extra), dense(gathered[1], v_extra), attn_mask=mask)
-    return cuda_ms(with_dequant), cuda_ms(fn)
+    return with_dequant, fn
+
+
+def sdpa_causal(q, k, v):
+    """``scaled_dot_product_attention(is_causal=True)`` over one chunk of
+    ``q [T, H, HD]``, K/V ``[T, KVH, HD]`` expanded over the G heads: the
+    yardstick call of a fresh-only prefill."""
+    G = q.shape[1] // k.shape[1]
+    qd = q.transpose(0, 1)[None].contiguous()
+    kd = k.repeat_interleave(G, dim=1).transpose(0, 1)[None].contiguous()
+    vd = v.repeat_interleave(G, dim=1).transpose(0, 1)[None].contiguous()
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, is_causal=True)
 
 
 def int8_attention_case(name, *, dtype, dev, seed, **spec):
@@ -327,8 +341,8 @@ def check_attention(case, *, time_it: bool):
         # that differs by at most 2^-9·max|v|, plus each output's own bf16
         # rounding (2^-9·|o| each). An int8 pool's v is its dequantized
         # values, which kernel and plain version round alike.
-        v_pool = dequantize_kv(args[4], torch.float32) if quant else args[4]
-        v_max = max(args[2].abs().max().item(), v_pool[1:].abs().max().item())
+        v_pool = (dequantize_kv(args[4], torch.float32) if quant else args[4])[1:]  # page 0 is scratch
+        v_max = max(args[2].abs().max().item(), v_pool.abs().max().item() if v_pool.numel() else 0.0)
         tol = 2**-9 * v_max + 2 * 2**-9 * ref.float().abs().max().item() + 1e-6
     dead_nonzero = 0
     if case["dead"]:
@@ -342,13 +356,24 @@ def check_attention(case, *, time_it: bool):
            "max_abs_err": err, "tol": tol, "dead_nonzero": dead_nonzero, "ok": ok}
     if time_it:
         nbytes, flops = attention_work(case)
-        res["kernel_ms"] = cuda_ms(lambda: mk.ragged_paged_attention(*args, **kw))
+        kernel = lambda: mk.ragged_paged_attention(*args, **kw)  # noqa: E731
+        res["kernel_ms"] = cuda_ms(kernel)
         res["ref_ms"] = cuda_ms(lambda: mk.ragged_paged_attention_ref(*args, **kw), iters=20)
-        if quant:
-            res["library_ms"], res["sdpa_alone_ms"] = sdpa_yardstick(case)
-        else:
-            res["library_ms"] = sdpa_yardstick(case)
         res.update(bound(nbytes, flops, dtype))
+        if case.get("causal"):  # a fresh-only prefill: SDPA causal over the chunk
+            library = sdpa_causal(args[0], args[1], args[2])
+            res["library"] = "scaled_dot_product_attention(is_causal=True), K/V expanded over G"
+        elif quant:
+            library, alone = sdpa_yardstick(case)
+            res["sdpa_alone_ms"] = cuda_ms(alone)
+            res["sdpa_alone_device_ms"] = graph_ms(alone)
+            res["library"] = "gathered codes dequantized to dense K/V, then scaled_dot_product_attention"
+        else:
+            library = sdpa_yardstick(case)
+            res["library"] = "scaled_dot_product_attention over K/V gathered dense per row, boolean mask"
+        res["library_ms"] = cuda_ms(library)
+        if dtype == torch.bfloat16:
+            per_piece_device_times(res, kernel, library)
     emit("kernel", **res)
     if not ok:
         raise AssertionError(f"kernel disagrees with its plain version: {res}")
@@ -373,7 +398,7 @@ def graph_ms(fn, calls: int = 20) -> float:
 
 
 def per_piece_device_times(res: dict, kernel, library) -> None:
-    """Beside a per-piece kernel's event times (which hold the wrapper's
+    """Beside an attention kernel's event times (which hold the wrapper's
     host time when the card waits on it): the card's own
     time per call of the kernel and of the library call, and the rate
     each achieves on the case's operations and bytes."""
@@ -1522,6 +1547,55 @@ def phase_spec_kernel(dev):
     return res
 
 
+def ragged_paths(dev, timed: dict, mixed_spec: dict, int8_spec: dict, *, prefill_len: int, decode_ctx: list) -> None:
+    """The bf16 ragged kernel's two paths alone, timed: a fresh-only
+    prefill of ``prefill_len`` tokens (every query a chunk query;
+    yardsticks SDPA causal and the flash kernel's card time at that shape)
+    and a decode step at ``decode_ctx`` (every query split; SDPA over
+    gathered pages). Then the grid's fixed cost (the mixed step with every
+    query dead: each block only reads meta, classifies and exits), the
+    mixed step's partition into the two paths, and three calls each on the
+    mixed step's bf16 and int8 inputs, which must be bit-equal (the split
+    counters reset themselves, the merge order is fixed)."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+    from dynamo_tpu_torch.engine.attention import prefill as fck
+
+    H, KVH, HD = mixed_spec["H"], mixed_spec["KVH"], mixed_spec["HD"]
+    pre = attention_case(f"prefill T={prefill_len}, no prefix", dtype=torch.bfloat16, dev=dev, seed=110, H=H, KVH=KVH,
+                         HD=HD, chunk=prefill_len, chunk_prefix=0, decode_ctx=[])
+    pre["causal"] = True
+    res = check_attention(pre, time_it=True)
+    q, k, v = pre["args"][:3]
+    res["flash_device_ms"] = graph_ms(lambda: fck.flash_chunk_attention(q, k, v, prefill_len, num_kv_heads=KVH))
+    timed["ragged_paged_attention prefill"] = res
+    dec = attention_case(f"decode {len(decode_ctx)} rows at {decode_ctx[0]}", dtype=torch.bfloat16, dev=dev, seed=111,
+                         H=H, KVH=KVH, HD=HD, chunk=0, chunk_prefix=0, decode_ctx=decode_ctx)
+    timed["ragged_paged_attention decode"] = check_attention(dec, time_it=True)
+    del pre, dec
+    mixed = attention_case("mixed, every query dead", dtype=torch.bfloat16, dev=dev, seed=100, **mixed_spec)
+    args = list(mixed["args"])
+    meta = args[6]
+    kw = dict(num_kv_heads=KVH, block_size=mixed["BS"])
+    dead = args[:6] + [meta.clone()]
+    dead[6][4] = 0
+    empty_ms = graph_ms(lambda: mk.ragged_paged_attention(*dead, **kw))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = mk.launch_plan(meta.shape[1], H, KVH, args[5].shape[0], args[5].shape[1], mixed["BS"], sms)
+    chunk_q = mk.chunk_queries(meta, width=args[5].shape[1], block_size=mixed["BS"],
+                               queries_per_tile=plan["queries_per_tile"])
+    int8_mixed = int8_attention_case("mixed, int8 KV", dtype=torch.bfloat16, dev=dev, seed=150, **int8_spec)
+    repeat = {}
+    for label, c in (("bf16", mixed), ("int8", int8_mixed)):
+        runs = [mk.ragged_paged_attention(*c["args"], **kw) for _ in range(3)]
+        repeat[label] = all(torch.equal(runs[0], r) for r in runs[1:])
+    emit("kernel", kernel="ragged_paged_attention", case="repeat calls, empty grid, paths", bit_equal=repeat,
+         empty_grid_device_ms=empty_ms, plan=plan, chunk_queries=int(chunk_q.sum()),
+         split_queries=int(((meta[4] != 0).cpu() & ~chunk_q).sum()))
+    timed["ragged_paged_attention"]["empty_grid_device_ms"] = empty_ms
+    if not all(repeat.values()):
+        raise AssertionError(f"ragged_paged_attention differs between calls on the same inputs: {repeat}")
+
+
 def phase_kernel(dev):
     """Every kernel at the shapes the serving paths give it, and at the
     ragged edges, in bf16 and f32; the probe. Returns, per kernel, the
@@ -1548,6 +1622,8 @@ def phase_kernel(dev):
             if "kernel_ms" in res:
                 timed["ragged_paged_attention"] = res
             del case
+    ragged_paths(dev, timed, specs[0][1], dict(H=32, KVH=8, HD=64, chunk=512, chunk_prefix=1000,
+                                               decode_ctx=ctx_1b, dead=4), prefill_len=2048, decode_ctx=[1024] * 8)
     torch.cuda.empty_cache()
 
     # The int8 branch over int8 pages: the same mixed step at llama-3.2-1b's
@@ -1624,15 +1700,28 @@ def phase_kernel(dev):
     emit("kernel", kernel="paged_decode_partials", case="repeat calls", bit_equal=repeat_equal)
     if not repeat_equal:
         raise AssertionError("paged_decode_partials differs between calls on the same inputs")
-    # The two per-piece kernels beside their last accepted readings on this
-    # card (PERF.md: the first versions' 1.074, 0.178 and 0.364 ms).
-    emit("kernel", kernel="per-piece kernels vs PERF.md", ratios={
-        "flash_chunk_attention T=2048": timed["flash_chunk_attention"]["kernel_ms"] / 1.074,
-        "flash_chunk_attention T=512": timed["flash_chunk_attention T=512"]["kernel_ms"] / 0.178,
-        "paged_decode_partials": timed["paged_decode_partials"]["kernel_ms"] / 0.364},
+    # The attention kernels beside their last accepted readings on this card
+    # (PERF.md: the ragged kernel's first design 3.432 ms, its int8 branch
+    # 2.687 and 4.715 at the 8B widths; the per-piece kernels' 0.1319,
+    # 0.0778 and 0.0701 ms).
+    emit("kernel", kernel="attention kernels vs PERF.md", ratios={
+        "ragged_paged_attention": timed["ragged_paged_attention"]["kernel_ms"] / 3.432,
+        "ragged_paged_attention_int8": timed["ragged_paged_attention_int8"]["kernel_ms"] / 2.687,
+        "ragged_paged_attention_int8 8b": timed["ragged_paged_attention_int8 8b"]["kernel_ms"] / 4.715,
+        "flash_chunk_attention T=2048": timed["flash_chunk_attention"]["kernel_ms"] / 0.1319,
+        "flash_chunk_attention T=512": timed["flash_chunk_attention T=512"]["kernel_ms"] / 0.0778,
+        "paged_decode_partials": timed["paged_decode_partials"]["kernel_ms"] / 0.0701},
         vs_sdpa={name: timed[name]["kernel_ms"] / timed[name]["library_ms"]
-                 for name in ("flash_chunk_attention", "flash_chunk_attention T=512", "flash_chunk_attention 8b",
-                              "paged_decode_partials", "paged_decode_partials 8b")})
+                 for name in ("ragged_paged_attention", "ragged_paged_attention prefill",
+                              "ragged_paged_attention decode", "ragged_paged_attention_int8",
+                              "ragged_paged_attention_int8 8b", "flash_chunk_attention",
+                              "flash_chunk_attention T=512", "flash_chunk_attention 8b",
+                              "paged_decode_partials", "paged_decode_partials 8b")},
+        device_vs_sdpa_device={name: timed[name]["device_ms"] / timed[name]["library_device_ms"]
+                               for name in ("ragged_paged_attention", "ragged_paged_attention prefill",
+                                            "ragged_paged_attention decode", "ragged_paged_attention_int8")},
+        ragged_prefill_device_vs_flash_device=timed["ragged_paged_attention prefill"]["device_ms"]
+        / timed["ragged_paged_attention prefill"]["flash_device_ms"])
     torch.cuda.empty_cache()
 
     timed["nop"] = check_nop(dev)
@@ -2814,11 +2903,21 @@ def kernels_line(timed: dict, served: dict) -> list:
             entry.update({k: t[k] for k in keys})
             entry["8b"] = {k: timed[name + " 8b"][k] for k in ("case", "shape", "max_abs_err", "kernel_ms", "ref_ms",
                                                                 "bound_ms", "bound_by", "library_ms", *keys)}
+        if name.startswith("ragged_paged_attention"):
+            # The card's own time beside the event times (a CUDA graph of
+            # 20 calls), and the rates it achieves.
+            keys = ("device_ms", "library_device_ms", "achieved_kernel", "achieved_device")
+            entry.update({k: t[k] for k in keys})
+            cases = ("case", "shape", "max_abs_err", "kernel_ms", "ref_ms", "bound_ms", "bound_by", "library_ms", *keys)
+        if name == "ragged_paged_attention":
+            entry["empty_grid_device_ms"] = t["empty_grid_device_ms"]
+            entry["prefill"] = {k: timed[name + " prefill"][k] for k in (*cases, "flash_device_ms")}
+            entry["decode"] = {k: timed[name + " decode"][k] for k in cases}
         if name == "ragged_paged_attention_int8":
             # library_ms: the gathered codes dequantized to dense K/V, then SDPA.
             entry["sdpa_alone_ms"] = t["sdpa_alone_ms"]
-            entry["8b"] = {k: timed[name + " 8b"][k] for k in ("case", "shape", "max_abs_err", "kernel_ms", "ref_ms",
-                                                                "bound_ms", "bound_by", "library_ms", "sdpa_alone_ms")}
+            entry["sdpa_alone_device_ms"] = t["sdpa_alone_device_ms"]
+            entry["8b"] = {k: timed[name + " 8b"][k] for k in (*cases, "sdpa_alone_ms", "sdpa_alone_device_ms")}
         if name == "fused_decode_window_guided":
             entry["sampled_ms"] = t["sampled_kernel_ms"]
             entry["tokens_outside_grammar"] = t["guided"]["tokens_outside_grammar"]

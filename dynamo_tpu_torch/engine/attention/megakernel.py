@@ -10,17 +10,25 @@ Hopper kernel (``csrc/ragged_paged_attention.cu``, its int8 branch for a
 ``QuantKv`` pool) or raises; on a CPU tensor it runs the plain PyTorch
 version, ``ragged_paged_attention_ref``, which the tests hold against the
 JAX function and ``chip_smoke.py`` holds the kernel against on the card.
+
+With bf16 queries one launch takes two paths, chosen on the device from
+``meta`` (the host never reads it; ``chunk_queries`` is the rule in plain
+PyTorch): tiles of a chunk's queries on tensor cores, every other live
+query split over its keys and merged in the same launch. ``launch_plan``
+sizes that grid from the shapes alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch import _build
+from dynamo_tpu_torch.engine.attention.decode import num_splits, split_keys
 from dynamo_tpu_torch.engine.kv_cache import QuantKv
 from dynamo_tpu_torch.engine.sampling import (
     apply_token_masks, filtered_probs_rows, pick_from_probs, sample_from_uniforms,
@@ -40,6 +48,61 @@ REF_CALLS_INT8 = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Shared memory one block may use on Hopper (227 KB opt-in).
 _MAX_SMEM = 232448
+# The bf16 kernel: head dims it is built for, the (query, head) rows of one
+# chunk tile (two wgmma warpgroups of 64), and the most query heads a KV
+# head may have (a split query's heads are the rows of one 64-row tile).
+_HEAD_DIMS = (16, 32, 64, 128)
+_TILE_ROWS = 128
+_MAX_GROUP = 64
+# Per device: the split path's per-(query slot, KV head) arrival counters,
+# apart from paged_decode_partials'. Zero between launches (the merging
+# block resets its own), so they are zeroed once, when allocated or grown.
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_SMS: Dict[torch.device, int] = {}
+# The wrapper's per-shape host work, done once: shared-memory bytes by
+# (dtype, int8, G, HD, BS), and the bf16 grid by launch_plan's arguments.
+_SMEM: Dict[tuple, int] = {}
+_GRIDS: Dict[tuple, tuple] = {}
+
+
+def launch_plan(num_queries: int, num_heads: int, num_kv_heads: int, rows: int, width: int, block_size: int,
+                num_sms: int) -> Dict[str, int]:
+    """The bf16 kernel's grid, from shapes the host has: ``queries_per_tile``
+    (BQ = 128 / G), ``tiles`` chunk tiles of BQ queries
+    (``num_kv_heads`` blocks each), the split path's ``splits`` of
+    ``split_keys`` keys a (query, KV head) (``decode.num_splits`` /
+    ``split_keys`` of the table width) and its ``split_blocks`` persistent
+    blocks (one per SM, fewer when ``rows``·KVH·splits work items are
+    fewer), ``blocks`` in all."""
+    G = num_heads // num_kv_heads
+    bq = max(1, _TILE_ROWS // G)
+    tiles = -(-num_queries // bq)
+    splits = num_splits(width, block_size)
+    nb = max(1, min(num_sms, rows * num_kv_heads * splits))
+    return {"queries_per_tile": bq, "tiles": tiles, "splits": splits, "split_keys": split_keys(width, block_size),
+            "split_blocks": nb, "blocks": tiles * num_kv_heads + nb}
+
+
+def chunk_queries(meta: torch.Tensor, *, width: int, block_size: int, queries_per_tile: int) -> torch.Tensor:
+    """[NQ] bool: the queries the bf16 kernel takes on its chunk path (the
+    other live ones take the split path), by the rule the device applies:
+    in each tile of ``queries_per_tile`` consecutive queries, the live
+    queries sharing the row and the prefix length (capped at W·BS) of the
+    tile's first live query, when there are at least two."""
+    row, plen, _, _, live = meta.long().cpu()
+    plen = plen.clamp(0, width * block_size)
+    live = live != 0
+    out = torch.zeros(meta.shape[1], dtype=torch.bool)
+    for q0 in range(0, meta.shape[1], queries_per_tile):
+        t = slice(q0, q0 + queries_per_tile)
+        idx = torch.nonzero(live[t])
+        if len(idx) == 0:
+            continue
+        f = q0 + int(idx[0])
+        mine = live[t] & (row[t] == row[f]) & (plen[t] == plen[f])
+        if int(mine.sum()) >= 2:
+            out[t] = mine
+    return out
 
 
 def build_meta(
@@ -115,15 +178,11 @@ def _kernel():
     launch, launch8 = lib.dtt_ragged_paged_attention, lib.dtt_ragged_paged_attention_int8
     smem = lib.dtt_ragged_paged_attention_smem
     if launch.argtypes is None:
-        launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        )
+        launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
-        launch8.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        )
+        launch8.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         launch8.restype = ctypes.c_int
-        smem.argtypes = [ctypes.c_int] * 3
+        smem.argtypes = [ctypes.c_int] * 5
         smem.restype = ctypes.c_size_t
     return launch, launch8, smem
 
@@ -138,10 +197,11 @@ def _check_args(q, k_extra, v_extra, k_pages, v_pages, tables, meta, num_kv_head
                         "k_pages.scale": k_pages.scale, "v_pages.scale": v_pages.scale})
     else:
         tensors.update({"k_pages": k_pages, "v_pages": v_pages})
+    dev = q.get_device()  # an int: cheaper to compare than torch.device objects
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-        if t.device != q.device:
+        if t.get_device() != dev or t.is_cuda != q.is_cuda:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -184,6 +244,15 @@ def _check_args(q, k_extra, v_extra, k_pages, v_pages, tables, meta, num_kv_head
         raise ValueError(f"tables must be [R, W], got {tuple(tables.shape)}")
     if tuple(meta.shape) != (5, NQ):
         raise ValueError(f"meta must be [5, {NQ}], got {tuple(meta.shape)}")
+    if q.dtype == torch.bfloat16:
+        if HD not in _HEAD_DIMS:
+            raise ValueError(f"head_dim {HD} not supported by the bf16 kernel (one of {_HEAD_DIMS})")
+        if H // num_kv_heads > _MAX_GROUP:
+            raise ValueError(f"{H // num_kv_heads} query heads per KV head, over the bf16 kernel's {_MAX_GROUP}")
+        # The bf16 kernel copies 16-byte units (cp.async).
+        for name in ("q", "k_extra", "v_extra") + (("k_pages.q", "v_pages.q") if quant else ("k_pages", "v_pages")):
+            if tensors[name].data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def ragged_paged_attention(
@@ -218,32 +287,62 @@ def ragged_paged_attention(
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu tensors, got {q.device}")
     _check_args(q, k_extra, v_extra, k_pages, v_pages, tables, meta, num_kv_heads, block_size)
     NQ, H, HD = q.shape
+    KVH, G = num_kv_heads, H // num_kv_heads
     launch, launch8, smem_fn = _kernel()
-    smem = smem_fn(H // num_kv_heads, HD, block_size)
+    key = (_DTYPE_CODE[q.dtype], int(quant), G, HD, block_size)
+    smem = _SMEM.get(key)
+    if smem is None:
+        smem = _SMEM[key] = smem_fn(*key)
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"G={H // num_kv_heads}, HD={HD}, BS={block_size} needs {smem} bytes of shared "
+            f"G={G}, HD={HD}, BS={block_size} needs {smem} bytes of shared "
             f"memory per block, over the card's {_MAX_SMEM}"
         )
     out = torch.empty_like(q)
     if NQ == 0:
         return out
-    dims = (NQ, H, num_kv_heads, HD, k_extra.shape[0], tables.shape[1], block_size)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    R, W = tables.shape
+    scratch = counters = None
+    grid = (0, 0, 0, 0, 0)
+    dev = q.device
+    if q.dtype == torch.bfloat16:
+        sms = _SMS.get(dev)
+        if sms is None:
+            sms = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        gkey = (NQ, H, KVH, R, W, block_size, sms)
+        grid = _GRIDS.get(gkey)
+        if grid is None:
+            plan = launch_plan(*gkey)
+            grid = _GRIDS[gkey] = (plan["queries_per_tile"], plan["tiles"], plan["split_blocks"], plan["splits"],
+                                   plan["split_keys"])
+        # Each split's (m, l, acc) for the split path's first R queries; never zeroed.
+        splits = grid[3]
+        scratch = torch.empty(R * KVH * splits * G * (HD + 2) if splits > 1 else 0,
+                              dtype=torch.float32, device=q.device)
+        counters = _COUNTERS.get(q.device)
+        if counters is None or counters.numel() < R * KVH:
+            counters = _COUNTERS[q.device] = torch.zeros(max(R * KVH, 1), dtype=torch.int32, device=q.device)
+    extra = (
+        scratch.data_ptr() if scratch is not None else None, counters.data_ptr() if counters is not None else None,
+        NQ, H, KVH, HD, k_extra.shape[0], W, block_size, R, *grid,
+    )
+    # The launch goes to q's device (switched to only when it is not current).
+    on_dev = contextlib.nullcontext() if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
+    with on_dev:
+        stream = torch.cuda.current_stream(dev).cuda_stream
         if quant:
             rc = launch8(
                 _DTYPE_CODE[q.dtype],
                 q.data_ptr(), k_extra.data_ptr(), v_extra.data_ptr(),
                 k_pages.q.data_ptr(), v_pages.q.data_ptr(), k_pages.scale.data_ptr(), v_pages.scale.data_ptr(),
-                tables.data_ptr(), meta.data_ptr(), out.data_ptr(), *dims, stream,
+                tables.data_ptr(), meta.data_ptr(), out.data_ptr(), *extra, stream,
             )
         else:
             rc = launch(
                 _DTYPE_CODE[q.dtype],
                 q.data_ptr(), k_extra.data_ptr(), v_extra.data_ptr(),
                 k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(), meta.data_ptr(),
-                out.data_ptr(), *dims, stream,
+                out.data_ptr(), *extra, stream,
             )
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: cudaError {rc}")

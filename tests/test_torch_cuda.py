@@ -36,17 +36,23 @@ def cuda():
     return torch.device("cuda")
 
 
-def _step(seed, *, H, KVH, HD, chunk, prefix, decode_ctx, dead=0, tail=0):
+def _step(seed, *, H, KVH, HD, chunk, prefix, decode_ctx, dead=0, tail=0, chunk2=None, fresh=None, over=0):
     """A ragged step in ``mixed_step``'s layout: a chunk row over a paged
-    prefix, then decode rows; page 0 is scratch with large values."""
+    prefix, then decode rows; page 0 is scratch with large values.
+    ``chunk2 = (T, prefix)`` adds a second chunk row after the first;
+    ``fresh[d]`` gives decode row d that many fresh keys of its own
+    (``decode_multi``'s layout; default 1, 0 = none); ``over`` tokens are
+    added to the chunk's prefix length past its table (capped at W·BS)."""
     g = torch.Generator().manual_seed(seed)
     B = len(decode_ctx)
-    prefixes = [prefix] + [c - 1 for c in decode_ctx]
+    fresh = [1] * B if fresh is None else fresh
+    T2, prefix2 = chunk2 or (0, 0)
+    prefixes = [prefix] + ([prefix2] if chunk2 else []) + [c - 1 for c in decode_ctx]
     n_pages = [(p + BS - 1) // BS for p in prefixes]
     W = max(max(n_pages), 1) + tail
     NP = sum(n_pages) + 1
     ids = (torch.randperm(NP - 1, generator=g) + 1).to(torch.int32)
-    tables = torch.zeros((1 + B, W), dtype=torch.int32)
+    tables = torch.zeros((len(prefixes), W), dtype=torch.int32)
     o = 0
     for r, n in enumerate(n_pages):
         tables[r, :n] = ids[o:o + n]
@@ -54,17 +60,21 @@ def _step(seed, *, H, KVH, HD, chunk, prefix, decode_ctx, dead=0, tail=0):
     pages = [torch.randn((NP, BS, KVH, HD), generator=g) for _ in range(2)]
     for p in pages:
         p[0] = 1e4
-    NQ = chunk + B
-    s, d = torch.arange(chunk, dtype=torch.int32), torch.arange(B, dtype=torch.int32)
+    NQ = chunk + T2 + B
+    CK = chunk + T2 + sum(fresh)
+    c1 = 1 if chunk2 else 0  # rows of chunks after the first
+    s, s2 = torch.arange(chunk, dtype=torch.int32), torch.arange(T2, dtype=torch.int32)
+    d = torch.arange(B, dtype=torch.int32)
+    f_start = chunk + T2 + torch.tensor([0] + fresh[:-1], dtype=torch.int32).cumsum(0)[:B]
     meta = mk.build_meta(
-        torch.cat([torch.zeros_like(s), 1 + d]),
-        torch.tensor([prefix] * chunk + prefixes[1:], dtype=torch.int32),
-        torch.cat([torch.zeros_like(s), chunk + d]),
-        torch.cat([s + 1, chunk + d + 1]),
-        torch.cat([s < chunk - dead, torch.ones(B, dtype=torch.bool)]),
+        torch.cat([torch.zeros_like(s), torch.ones_like(s2), 1 + c1 + d]),
+        torch.tensor([prefix + over] * chunk + [prefix2] * T2 + prefixes[1 + c1:], dtype=torch.int32),
+        torch.cat([torch.zeros_like(s), torch.full_like(s2, chunk), f_start]),
+        torch.cat([s + 1, chunk + s2 + 1, f_start + torch.tensor(fresh, dtype=torch.int32)]),
+        torch.cat([s < chunk - dead, torch.ones(T2 + B, dtype=torch.bool)]),
     )
     q = torch.randn((NQ, H, HD), generator=g)
-    ke, ve = torch.randn((NQ, KVH, HD), generator=g), torch.randn((NQ, KVH, HD), generator=g)
+    ke, ve = torch.randn((CK, KVH, HD), generator=g), torch.randn((CK, KVH, HD), generator=g)
     return (q, ke, ve, pages[0], pages[1], tables, meta), KVH
 
 
@@ -73,6 +83,22 @@ STEPS = {
     "hd128": dict(H=32, KVH=8, HD=128, chunk=64, prefix=100, decode_ctx=[5, 64, 300]),
     "mqa": dict(H=8, KVH=1, HD=64, chunk=32, prefix=48, decode_ctx=[1, 2, 200]),
     "mha_edges": dict(H=4, KVH=4, HD=64, chunk=40, prefix=64, decode_ctx=[16, 17, 32], dead=9, tail=7),
+    # The bf16 kernel's two paths and their edges (32 queries a chunk tile at
+    # G = 4): a chunk's tail in one tile with decode rows; a fresh-only
+    # prefill; two chunk rows, the second starting inside a tile; a
+    # decode_multi step (1-33 fresh keys a row); a prefix length past the
+    # table (capped at W·BS); a live query with no key; the widest grouping
+    # and the narrow head dims.
+    "tail_with_decode_rows": dict(H=32, KVH=8, HD=64, chunk=40, prefix=100, decode_ctx=[5, 300, 17]),
+    "fresh_only_prefill": dict(H=32, KVH=8, HD=64, chunk=300, prefix=0, decode_ctx=[]),
+    "two_chunk_rows": dict(H=32, KVH=8, HD=64, chunk=40, prefix=50, chunk2=(30, 70), decode_ctx=[20, 3]),
+    "decode_multi": dict(H=32, KVH=8, HD=64, chunk=0, prefix=0, decode_ctx=[100, 1, 33, 700, 17],
+                         fresh=[1, 33, 5, 17, 2]),
+    "prefix_past_table": dict(H=32, KVH=8, HD=64, chunk=64, prefix=96, over=50, decode_ctx=[10]),
+    "query_without_keys": dict(H=32, KVH=8, HD=64, chunk=16, prefix=20, decode_ctx=[1, 50, 1], fresh=[1, 1, 0]),
+    "g64": dict(H=64, KVH=1, HD=64, chunk=20, prefix=40, decode_ctx=[3, 100]),
+    "hd16": dict(H=8, KVH=2, HD=16, chunk=50, prefix=30, decode_ctx=[2, 40]),
+    "hd32": dict(H=8, KVH=2, HD=32, chunk=33, prefix=17, decode_ctx=[9]),
 }
 
 
@@ -114,6 +140,8 @@ INT8_STEPS = {
     "chip_smoke 8b": dict(H=32, KVH=8, HD=128, chunk=512, prefix=1000, decode_ctx=_CTX_32, dead=4),
     "mha_edges": STEPS["mha_edges"],
     "mqa": STEPS["mqa"],
+    **{name: STEPS[name] for name in ("tail_with_decode_rows", "fresh_only_prefill", "two_chunk_rows", "decode_multi",
+                                      "prefix_past_table", "query_without_keys", "g64", "hd16", "hd32")},
 }
 
 
@@ -130,7 +158,7 @@ def _int8_step(name, dtype, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["chip_smoke 1b", "chip_smoke 8b", "mha_edges"])
+@pytest.mark.parametrize("name", [n for n in INT8_STEPS if n != "mqa"])
 def test_int8_kernel_matches_plain_version(cuda, name, dtype):
     """The int8 branch over QuantKv pages against the plain version, which
     dequantizes the same pages as the TPU kernel does; the tolerance of the
@@ -143,9 +171,26 @@ def test_int8_kernel_matches_plain_version(cuda, name, dtype):
     assert (mk.KERNEL_LAUNCHES_INT8, mk.KERNEL_LAUNCHES) == (before[0] + 1, before[1])
     live = args[6][4] != 0
     assert torch.all(out[~live] == 0)
-    v_max = max(args[2].abs().max().item(), dequantize_kv(args[4], torch.float32)[1:].abs().max().item())
+    pool = dequantize_kv(args[4], torch.float32)[1:]  # page 0 is scratch; a fresh-only prefill has no other
+    v_max = max(args[2].abs().max().item(), pool.abs().max().item() if pool.numel() else 0.0)
     tol = 5e-5 if dtype == torch.float32 else 2**-9 * v_max + 2**-8 * ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_kernel_is_bit_equal_on_repeat(cuda, int8):
+    """Back-to-back bf16 calls on chip_smoke's mixed step (chunk tiles and
+    rows split up to 16 ways) agree bit for bit: the split counters reset
+    themselves and the merge order is fixed."""
+    if int8:
+        args, kvh = _int8_step("chip_smoke 1b", torch.bfloat16, cuda)
+    else:
+        host, kvh = _step(7, **INT8_STEPS["chip_smoke 1b"])
+        args = tuple(t.to(cuda, torch.bfloat16 if t.is_floating_point() else t.dtype) for t in host)
+    first = mk.ragged_paged_attention(*args, num_kv_heads=kvh, block_size=BS)
+    for _ in range(2):
+        again = mk.ragged_paged_attention(*args, num_kv_heads=kvh, block_size=BS)
+        assert torch.equal(first, again)
 
 
 def test_int8_wrapper_refuses_unsupported_inputs(cuda):
