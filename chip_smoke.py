@@ -751,7 +751,27 @@ def window_work(case):
     return nbytes, streamed, flops
 
 
-def check_window(case, *, time_it: bool, hold_tokens: bool = True):
+def window_bf16_noise(case, sel, k_kern, v_kern, k_plain, v_plain) -> dict:
+    """How far the step-0 K/V rows (``sel``) lie from the f32 truth (one
+    forward of the rows' step-0 tokens over f32 copies of the weights and
+    cache, ``megakernel._cache_forward``), for the kernel and for the plain
+    bf16 version."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    tokens, positions, tables, active = case["ints"]
+    k, v = case["k"].float(), case["v"].float()
+    w32 = tuple(x.float() if x is not None else None for x in case["weights"])
+    kw = case["kw"]
+    mk._cache_forward(w32, k, v, tokens.long(), positions.long(), tables.long(), active.bool(),
+                      num_heads=kw["num_heads"], rms_eps=kw["rms_eps"], theta=kw["theta"], head=False)
+
+    def dist(a, b):
+        return max((a[:, sel].float() - k[:, sel]).abs().max().item(), (b[:, sel].float() - v[:, sel]).abs().max().item())
+
+    return {"kernel_vs_f32": dist(k_kern, v_kern), "plain_vs_f32": dist(k_plain, v_plain)}
+
+
+def check_window(case, *, time_it: bool, hold_tokens: bool = True, kv_gate: str = "plain"):
     """``fused_decode_window`` against its plain version on the card, greedy
     or, where the case holds ``samp``, with the sampled epilogue, and where
     it holds ``guide`` (rows0, mask_pool, next_pool) and ``fsms`` (each
@@ -768,7 +788,11 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
     window the host's replay of the kernel's tokens. Timed sampled: also
     the greedy window on the same inputs, and both windows' phases from
     the kernel's stamps; timed guided: also the sampled window on the same
-    inputs, and the guided window's phases."""
+    inputs, and the guided window's phases. With ``kv_gate="noise"`` (a
+    deeper model, whose plain bf16 rows drift further than 2^-5 of their
+    scale from any other rounding of the same math) the bf16 step-0 K/V
+    are held as the spec check holds its rows: no further from the f32
+    truth than ``SPEC_BF16_NOISE_RATIO`` times the plain bf16 version."""
     from dynamo_tpu_torch.engine.attention import megakernel as mk
 
     w, ints, kw, dtype = case["weights"], case["ints"], case["kw"], case["dtype"]
@@ -808,6 +832,10 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
     if dtype == torch.float32:
         tol = 1e-3
         ok = bool(torch.equal(tl, rl)) and kv_err <= tol
+    elif kv_gate == "noise":
+        noise = window_bf16_noise(case, sel, kk, vk, kr, vr)
+        tol = (1 + SPEC_BF16_NOISE_RATIO) * noise["plain_vs_f32"]  # what that allows kernel vs plain
+        ok = (step0_equal or not hold_tokens) and noise["kernel_vs_f32"] <= SPEC_BF16_NOISE_RATIO * noise["plain_vs_f32"]
     else:
         tol = 2**-5 * scale
         ok = (step0_equal or not hold_tokens) and kv_err <= tol
@@ -839,6 +867,8 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
            "other_slots_unchanged": untouched, "ok": ok}
     if step0_gaps is not None:
         res["step0_gaps"] = step0_gaps
+    if kv_gate == "noise" and dtype != torch.float32:
+        res["bf16_noise"] = {**noise, "ratio": SPEC_BF16_NOISE_RATIO}
     if guided is not None:
         res["guided"] = guided
     if samp:
@@ -846,6 +876,10 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
         res["logit_spread"] = case["spread"]
         if not ok or agree < 1:
             res["tokens"], res["plain_tokens"] = tl.tolist(), rl.tolist()
+    if dtype == torch.bfloat16:
+        res["repeats"] = window_repeats(case)
+        ok = ok and res["repeats"]["bit_equal"]
+        res["ok"] = ok
     if time_it:
         nbytes, streamed, flops = window_work(case)
         res.update(bound(nbytes, flops, dtype))
@@ -865,10 +899,40 @@ def check_window(case, *, time_it: bool, hold_tokens: bool = True):
             res["greedy_kernel_ms_per_step"] = res["greedy_kernel_ms"] / steps
             res["phases_ms_per_step"] = stamp_phases(w, kk, vk, ints, samp, kw, cfg.num_layers)
             res["greedy_phases_ms_per_step"] = stamp_phases(w, kk, vk, ints, (), kw, cfg.num_layers)
+        else:
+            res["phases_ms_per_step"] = stamp_phases(w, kk, vk, ints, (), kw, cfg.num_layers)
+        if dtype == torch.bfloat16:  # the product phases beside one cuBLAS forward of the same rows
+            res["products_per_step"] = products_summary(res["phases_ms_per_step"], matrix_bytes(w),
+                                                        cublas_products(w, B))
     emit("kernel", **res)
     if not ok:
         raise AssertionError(f"fused_decode_window disagrees with its plain version: {res}")
     return res
+
+
+def window_repeats(case) -> dict:
+    """Two calls of the window from copies of one cache, the sampled
+    epilogue's [B, V] logits scratch kept (``scratch=``): tokens, every
+    cache slot (block 0, the dead rows' sink, aside), the last step's
+    scaled logits and, guided, the rows after
+    the window must be bit-equal (split phases merge in split order behind
+    self-resetting counters)."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    w, ints, kw = case["weights"], case["ints"], case["kw"]
+    samp = case.get("samp") or ()
+    guide = case.get("guide") or ()
+    extra = (*(samp or (None,) * 4), *guide) if guide else samp
+    runs = []
+    for _ in range(2):
+        k, v, scratch = case["k"].clone(), case["v"].clone(), {}
+        rows = dict(rows_out=torch.empty(len(ints[0]), dtype=torch.int32, device=k.device)) if guide else {}
+        toks = mk.fused_decode_window(*w, k, v, *ints, *extra, **kw, **rows, scratch=scratch)
+        runs.append([toks, k[:, 1:], v[:, 1:], *scratch.values(), *rows.values()])
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(*runs))
+    return {"compared": ["tokens", "k", "v"] + (["logits"] if samp else []) + (["rows_out"] if guide else []),
+            "bit_equal": equal}
 
 
 # A bf16 greedy window's step-0 argmax may differ from the plain version's
@@ -919,6 +983,60 @@ def step0_gap_check(case, k0, v0) -> dict:
               for b in rows if kern[b] != plain[b]]
     return {"noises": STEP0_GAP_NOISES, "bf16_logit_noise": [float(noise[b]) for b in rows], "rows_held": held,
             "differ": differ, "gaps": [float(gap[b]) for b in rows], "ok": all(d["within_rounding"] for d in differ)}
+
+
+# The fused kernels' product phases among the stamps' phases.
+PRODUCT_PHASES = ("qkv", "wo", "gate_up", "down", "head")
+
+
+def cublas_products(weights, rows: int) -> dict:
+    """The library yardstick of the fused kernels' bf16 product phases:
+    ``torch.matmul`` (cuBLAS) of [rows, in] × [in, out] at each phase's
+    shapes over every layer (QKV as wq, wk and wv; gate/up as two), plus
+    the head (``embed.T`` when tied), each phase one CUDA graph of its
+    calls replayed between events: ms per forward of each phase, and the
+    sum. Inputs are seeded random rows; nothing of the port runs it."""
+    embed, head, _, _, _, wq, wk, wv, wo, wg, wu, wd = weights
+    L, D = wq.shape[:2]
+    dev, dt = wq.device, wq.dtype
+    g = torch.Generator(device=dev).manual_seed(0)
+    xd, xq, xf = (torch.randn((rows, n), generator=g, device=dev).to(dt) for n in (D, wo.shape[1], wd.shape[1]))
+    hw = head if head is not None else embed.t()
+    phases = {"qkv": [(xd, w[l]) for l in range(L) for w in (wq, wk, wv)], "wo": [(xq, wo[l]) for l in range(L)],
+              "gate_up": [(xd, w[l]) for l in range(L) for w in (wg, wu)], "down": [(xf, wd[l]) for l in range(L)],
+              "head": [(xd, hw)]}
+    out = {}
+    for name, pairs in phases.items():
+        ys = [torch.empty((rows, w.shape[1]), device=dev, dtype=dt) for _, w in pairs]
+
+        def run():
+            for (a, w), y in zip(pairs, ys):
+                torch.matmul(a, w, out=y)
+
+        run()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run()
+        out[name] = cuda_ms(graph.replay, iters=10, warmup=2)
+        del graph, ys
+    out["total"] = sum(out[n] for n in PRODUCT_PHASES)
+    return out
+
+
+def products_summary(phases: dict, weight_bytes: int, cublas: dict) -> dict:
+    """The stamps' product phases of one step beside the cuBLAS yardstick:
+    their ms, the weights' rate over them and each phase's ratio."""
+    ms = sum(phases[n] for n in PRODUCT_PHASES)
+    return {"products_ms": ms, "products_TB_s": weight_bytes / ms / 1e9, "cublas_products_ms": cublas["total"],
+            "cublas": cublas, "over_cublas": {n: phases[n] / cublas[n] for n in PRODUCT_PHASES}}
+
+
+def matrix_bytes(weights) -> int:
+    """Bytes of a model's product weights: the layers' matrices and the
+    head (the embedding when tied)."""
+    head = weights[1] if weights[1] is not None else weights[0]
+    return sum(w.numel() * w.element_size() for w in weights[5:]) + head.numel() * head.element_size()
 
 
 def stamp_phases(weights, k, v, ints, samp, kw, L) -> dict:
@@ -972,6 +1090,16 @@ def phase_window_kernel(dev):
     case = window_case("llama-3.2-1b 8 x 1024", dev, torch.bfloat16, 410, cfg=base, positions=[1024] * 8, dead=0,
                        steps=32)
     res = check_window(case, time_it=True, hold_tokens=False)
+    del case
+    torch.cuda.empty_cache()
+    # llama-3.2-3b's greedy window at the same rows: the yardstick of 3B/1B
+    # speculation's ms per confirmed token.
+    case = window_case("llama-3.2-3b 8 x 1024", dev, torch.bfloat16, 412, cfg=get_config(TARGET_3B),
+                       positions=[1024] * 8, dead=0, steps=32)
+    r3 = check_window(case, time_it=True, hold_tokens=False, kv_gate="noise")
+    res["3b"] = {k: r3[k] for k in ("case", "kernel_ms", "kernel_ms_per_step", "ref_ms", "bound_ms",
+                                    "streamed_bound_ms_per_step", "phases_ms_per_step", "products_per_step",
+                                    "step0_gaps", "max_abs_err", "tol", "bf16_noise", "repeats")}
     del case
     torch.cuda.empty_cache()
     return res
@@ -1462,6 +1590,8 @@ def check_spec(case, *, time_it: bool, hold_tokens: bool = True, bonus: bool = F
         keep[0] = False
         untouched &= bool(torch.equal(kern[i][:, keep], caches[i][:, keep]))
     ok = kv_err <= tol and noise_ok and untouched and (tokens_ok or not hold_tokens) and (bool(bonus_rounds) or not bonus)
+    repeats = spec_repeats(case) if dtype == torch.bfloat16 else None
+    ok = ok and (repeats is None or repeats["bit_equal"])
     confirmed = (acc[:, live] + 1).sum(0).float()  # tokens confirmed per live row in the window
     tc, dc = case["tcfg"], case["dcfg"]
     res = {"kernel": "fused_spec_window", "case": case["name"], "dtype": str(dtype).replace("torch.", ""),
@@ -1479,6 +1609,8 @@ def check_spec(case, *, time_it: bool, hold_tokens: bool = True, bonus: bool = F
            "other_slots_unchanged": untouched, "ok": ok}
     if noise is not None:
         res["bf16_noise"] = {**noise, "ratio": SPEC_BF16_NOISE_RATIO}
+    if repeats is not None:
+        res["repeats"] = repeats
     if bonus:
         res["bonus_rounds"] = bonus_rounds
     if time_it:
@@ -1506,10 +1638,34 @@ def check_spec(case, *, time_it: bool, hold_tokens: bool = True, bonus: bool = F
         res["window_ms_per_step"] = cuda_ms(lambda: mk.fused_decode_window(*w[:12], kern[0], kern[1], *win, **wkw),
                                             iters=3, warmup=1) / 32
         res["verify_over_window_step"] = res["phases_ms_per_round"]["verify"] / res["window_ms_per_step"]
+        # The verify's products beside one cuBLAS forward of its B (γ + 1)
+        # rows through the target (the verify also writes the chunk's K/V
+        # and attends: its stamp covers more than the products).
+        cub = cublas_products(w[:12], len(live) * (G + 1))
+        res["verify_products"] = {"rows": len(live) * (G + 1), "verify_ms": res["phases_ms_per_round"]["verify"],
+                                  "cublas_products_ms": cub["total"], "cublas": cub,
+                                  "target_weight_bytes": matrix_bytes(w[:12])}
     emit("kernel", **res)
     if not ok:
         raise AssertionError(f"fused_spec_window disagrees with its plain version: {res}")
     return res
+
+
+def spec_repeats(case) -> dict:
+    """Two calls of the spec window from copies of the same caches, its
+    scaled logits scratch kept (``scratch=``): tokens, accept counts, all
+    four caches (block 0, the dead rows' sink, aside) and both models'
+    logits must be bit-equal."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    runs = []
+    for _ in range(2):
+        caches, scratch = [c.clone() for c in case["caches"]], {}
+        toks, acc = mk.fused_spec_window(*case["weights"], *caches, *case["inputs"], **case["kw"], scratch=scratch)
+        runs.append([toks, acc, *(c[:, 1:] for c in caches), *scratch.values()])
+    torch.cuda.synchronize()
+    return {"compared": ["tokens", "accepted", "k_t", "v_t", "k_d", "v_d", "draft_logits", "target_logits"],
+            "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))}
 
 
 def phase_spec_kernel(dev):
@@ -1543,7 +1699,8 @@ def phase_spec_kernel(dev):
     res["f32_check"] = {k: f32[k] for k in ("case", "max_abs_err", "tol", "differ", "accepted_per_round")}
     res["3b_1b"] = {k: timed["3b/1b"][k] for k in (
         "kernel_ms", "kernel_ms_per_round", "ref_ms", "bound_ms", "streamed_bound_ms", "confirmed_tokens_per_row",
-        "ms_per_confirmed_token", "window_ms_per_step", "phases_ms_per_round", "verify_over_window_step")}
+        "ms_per_confirmed_token", "window_ms_per_step", "phases_ms_per_round", "verify_over_window_step",
+        "verify_products", "repeats")}
     return res
 
 
@@ -2918,6 +3075,10 @@ def kernels_line(timed: dict, served: dict) -> list:
             entry["sdpa_alone_ms"] = t["sdpa_alone_ms"]
             entry["sdpa_alone_device_ms"] = t["sdpa_alone_device_ms"]
             entry["8b"] = {k: timed[name + " 8b"][k] for k in (*cases, "sdpa_alone_ms", "sdpa_alone_device_ms")}
+        if name == "fused_decode_window":
+            # The stamps' product phases beside one cuBLAS forward of the
+            # same rows, and llama-3.2-3b's greedy window.
+            entry.update({k: t[k] for k in ("kernel_ms_per_step", "phases_ms_per_step", "products_per_step", "3b")})
         if name == "fused_decode_window_guided":
             entry["sampled_ms"] = t["sampled_kernel_ms"]
             entry["tokens_outside_grammar"] = t["guided"]["tokens_outside_grammar"]
@@ -2929,14 +3090,65 @@ def kernels_line(timed: dict, served: dict) -> list:
     return kernels
 
 
+def windows_from(root: str) -> None:
+    """The bf16 greedy windows of llama-3.2-1b and llama-3.2-3b (8 rows at
+    1024 tokens, 32 steps, ``window_case``'s seeded inputs) through the
+    port's package under ``root`` (another tree's, e.g. the parent
+    commit's, unpacked by ``git archive``): ms per step by events and the
+    phases from the kernel's stamps. Prints one ``windows_from`` line."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(root))
+    import dynamo_tpu_torch
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+    from dynamo_tpu_torch.engine.config import get_config
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name in (PRESET, TARGET_3B):
+        case = window_case(f"{name} 8 x 1024", dev, torch.bfloat16, 410, cfg=get_config(name), positions=[1024] * 8,
+                           dead=0, steps=32)
+        w, k, v, ints, kw = case["weights"], case["k"], case["v"], case["ints"], case["kw"]
+        ms = cuda_ms(lambda: mk.fused_decode_window(*w, k, v, *ints, **kw), iters=5, warmup=1)
+        out[name] = {"ms_per_step": ms / 32, "phases_ms_per_step": stamp_phases(w, k, v, ints, (), kw, case["cfg"].num_layers)}
+        del case, w, k, v
+        torch.cuda.empty_cache()
+    emit("windows_from", root=root, package=dynamo_tpu_torch.__file__, card=gpu_name_and_power(), windows=out)
+
+
+def parent_windows(parent: str) -> list:
+    """``windows_from`` over the parent tree and this one in separate
+    processes, in the order parent, this, this, parent (one card, one
+    call): each run's line."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for root in (parent, here, here, parent):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--windows-from", root],
+                              capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"phase": "windows_from"')]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"windows_from {root} failed: {proc.stderr[-2000:]}")
+        runs.append(json.loads(lines[-1]))
+    return runs
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases", default="env,build,kernel,model,breakdown,serve")
-    phases = set(p.parse_args().phases.split(","))
+    p.add_argument("--parent", default=None,
+                   help="another tree of the port (the parent commit's): its greedy windows timed beside this one's")
+    p.add_argument("--windows-from", default=None, help=argparse.SUPPRESS)
+    args = p.parse_args()
+    phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if args.windows_from:
+        windows_from(args.windows_from)
+        return 0
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2952,10 +3164,15 @@ def main() -> int:
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     built = _build.build()
+    sass = {n: tensor_core_ops(r["path"]) for n, r in built.items()}
     emit("build", seconds=time.perf_counter() - t0,
          libraries={n: {"seconds": r["seconds"], "ptxas": [ln for ln in r["log"].splitlines() if "ptxas" in ln],
-                        "sass": tensor_core_ops(r["path"])}
+                        "sass": sass[n]}
                     for n, r in built.items()})
+    # The fused kernels' bf16 products run on wgmma: their libraries hold HGMMA.
+    for name in ("fused_decode_window", "fused_spec_window"):
+        if sass[name]["HGMMA"] == 0:
+            raise AssertionError(f"{name}: no HGMMA in the built library ({sass[name]})")
 
     # Wall seconds of each phase, printed at the end (a run may have a time
     # limit; the build's seconds vary with nvcc's).
@@ -2975,6 +3192,8 @@ def main() -> int:
     served = None
     if "serve" in phases:
         served = timed_phase("serve", lambda: {path: phase_serve(card, path) for path in SERVE_PASSES})
+    if args.parent:
+        emit("parent_windows", runs=timed_phase("parent", lambda: parent_windows(args.parent)))
     emit("seconds", **seconds, total=sum(seconds.values()))
     if phases != {"env", "build", "kernel", "model", "breakdown", "serve"}:
         return 0  # a partial run reports no result

@@ -32,16 +32,34 @@
 //   Every block reaches every barrier; blocks without work in a phase skip
 //   its loop, never return.
 // - Weights stay in the JAX layout [L, in, out] and stream from HBM once
-//   per step. A GEMV phase splits its output columns into tiles of 16; a
-//   block takes tiles grid-stride, its 256 threads split the reduction
-//   dimension, each thread loads up to 16 bytes of a weight row at a time
-//   and keeps B x VEC accumulators in registers (B is a template parameter,
-//   VEC = min(16 bytes, 64 / B) elements). The input rows (RMS-normed, or
-//   silu(gate)*up) are staged in shared memory in f32, in chunks of
-//   32768 / B columns, 16 bytes per load; a whole hidden row fits for
-//   B <= 16, so a block stages it once per phase for all its tiles.
-// - The tied head (embed [V, D]) is read row by row: a tile is 16 vocab rows,
-//   16 threads share each row's reduction.
+//   per step.
+// - bf16 products run on the tensor cores (`tc_product` in
+//   fused_window_device.cuh, whose note has the details): 64-column tiles;
+//   each warpgroup of a block is an independent lane with its own 3-slot
+//   ring of weight boxes (128 rows x 64, 16 KB: with one thread issuing,
+//   smaller boxes cap the stream below the memory rate) that its first
+//   thread streams by TMA, the next phase's first boxes issued before the
+//   grid barrier between them; the B rows are the A operand of m64n64k16
+//   wgmma from swizzled shared memory (rows past B are not read out: at
+//   llama-3.2-1b's widths the padded 64-row products take ~0.16 ms of
+//   tensor-core time a step, its 2.47 GB of weights ~0.74 ms at the memory
+//   rate); the narrow phases (QKV, wo, down: 32-48 tiles against 264
+//   lanes) split K into runs so their items cover the lanes, the last
+//   split of a tile summing the f32 partials in split order. The shape
+//   follows the bound: the rate comes from bytes in flight (96 KB a block,
+//   one block an SM), from every lane having work in every phase, and from
+//   two independent chains an SM (each step's copy issue, input staging,
+//   products and epilogue are latency-bound).
+// - f32 keeps CUDA-core GEMVs: a phase splits its output columns into
+//   tiles of 16; a block takes tiles grid-stride, its 256 threads split
+//   the reduction dimension, each thread loads up to 16 bytes of a weight
+//   row at a time and keeps B x VEC accumulators in registers (B is a
+//   template parameter, VEC = min(16 bytes, 64 / B) elements). The input
+//   rows (RMS-normed, or silu(gate)*up) are staged in shared memory in
+//   f32, in chunks of 32768 / B columns; a whole hidden row fits for B <=
+//   16, so a block stages it once per phase for all its tiles. The tied
+//   head (embed [V, D]) is read row by row: a tile is 16 vocab rows, 16
+//   threads share each row's reduction.
 // - Attention: one work item per (row, KV head, key split): a row's
 //   pos + 1 keys are cut into S runs of whole 64-key tiles, S = the grid
 //   over B x KVH (at most 16), so small batches still fill the card. The
@@ -85,24 +103,42 @@
 // - With a profile buffer, block 0 stamps the global timer after every
 //   grid barrier (and once at its end), so the host can split a window's
 //   time by phase; without one the kernel stamps nothing.
-// wgmma, TMA weight streaming, split-K for the narrow GEMVs and split-KV for
-// long contexts are later work.
+// The attention phase (CUDA cores), the sampled draw (one block a row) and
+// the grid barriers' count are later work.
 
 
 #include "fused_window_device.cuh"
 
 namespace {
 
+// Dynamic shared memory of the window at batch B, G query heads per KV
+// head and head dim HD: f32, the GEMV staging area and its tail or the
+// attention's; bf16, tc_layout's.
+template <typename T>
+size_t window_smem(int B, int G, int HD) {
+  if (kTensorCores<T>) return tc_layout(attn_floats(G, HD), B, B).bytes;
+  return smem_floats(B, G, HD) * sizeof(float);
+}
+
 template <typename T, int B>
-__global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T> a) {
+__global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const __grid_constant__ Args<T> a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int L = a.L, D = a.D, V = a.V;
   float* inv = smem + kXFloats + kWarps * B * kTile;
+  TcCtx tc;
+  TcCtx* tcp = nullptr;
+  if constexpr (kTensorCores<T>) {
+    const TcLayout lay = tc_layout(attn_floats(a.H / a.KVH, a.HD), B, B);
+    inv = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) + lay.tail);
+    tc = tc_init(reinterpret_cast<unsigned char*>(smem), lay, a.tc_part, a.tc_cnt);
+    tcp = &tc;
+    tc_prefetch(tc, make_phase(a, kPhQkv, 0, B));  // step 0's first boxes fly during the embedding
+  }
   float* lgs = inv + B;
-  float* best_v = lgs + kTile * B;
-  int* best_i = reinterpret_cast<int*>(best_v + B);
+  float* best_v = lgs + (kTensorCores<T> ? 2 * kTcN : kTile) * B;  // bf16: per lane
+  int* best_i = reinterpret_cast<int*>(best_v + (kTensorCores<T> ? 2 : 1) * B);
 
   // Step 0's embedding, from the host's tokens; the guided rows' carry
   // from the host's rows.
@@ -115,14 +151,17 @@ __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T>
   grid.sync();
   stamp(a.prof, 0);
 
+  Phase head = {}, qkv0 = {};
+  if constexpr (kTensorCores<T>) head = make_phase(a, kPhHead, 0, B), qkv0 = make_phase(a, kPhQkv, 0, B);
   for (int i = 0; i < a.steps; ++i) {
     // Stamps of step i: after each of the 5 phases of each layer, after the
     // head, and after the argmax (1 + i * (5 L + 2) onwards).
     const int64_t s0 = 1 + (int64_t)i * (5 * L + 2);
-    for (int l = 0; l < L; ++l) decode_layer<T, B>(a, smem, inv, l, i, grid, s0 + 5 * l);
+    for (int l = 0; l < L; ++l) decode_layer<T, B>(a, smem, inv, l, i, grid, s0 + 5 * l, tcp, &head);
 
     // Final norm, head logits and this block's argmax partials.
-    decode_head<T, B>(a, smem, inv, lgs, best_v, best_i, a.temps != nullptr ? a.logits : nullptr, a.temps, grid);
+    decode_head<T, B>(a, smem, inv, lgs, best_v, best_i, a.temps != nullptr ? a.logits : nullptr, a.temps, grid, tcp,
+                      i + 1 < a.steps ? &qkv0 : nullptr);
     stamp(a.prof, s0 + 5 * L);
 
     // Block b picks row b's token (its argmax partials reduced, ties to the
@@ -154,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_window_kernel(const Args<T>
 
 template <typename T, int B>
 cudaError_t blocks_b(int G, int HD, int* per_sm) {
-  const size_t smem = smem_floats(B, G, HD) * sizeof(float);
+  const size_t smem = window_smem<T>(B, G, HD);
   cudaError_t e = cudaFuncSetAttribute(fused_window_kernel<T, B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -163,7 +202,7 @@ cudaError_t blocks_b(int G, int HD, int* per_sm) {
 
 template <typename T, int B>
 cudaError_t launch_b(const Args<T>& a, int grid, cudaStream_t stream) {
-  const size_t smem = smem_floats(B, a.H / a.KVH, a.HD) * sizeof(float);
+  const size_t smem = window_smem<T>(B, a.H / a.KVH, a.HD);
   cudaError_t e = cudaFuncSetAttribute(fused_window_kernel<T, B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -201,8 +240,9 @@ cudaError_t launch_t(const Args<T>& a, int B, int grid, cudaStream_t s) {
 }
 
 template <typename T>
-int launch_dtype(int B, int grid, const void* const* p, const int* n, float eps, float theta, cudaStream_t s) {
-  Args<T> a;
+int launch_dtype(int B, int grid, const void* const* p, const int* n, const int* plan, float eps, float theta,
+                 cudaStream_t s) {
+  Args<T> a = {};
   a.embed = static_cast<const T*>(p[0]);
   a.head = static_cast<const T*>(p[1]);
   a.fnorm = static_cast<const T*>(p[2]);
@@ -245,6 +285,8 @@ int launch_dtype(int B, int grid, const void* const* p, const int* n, float eps,
   a.steps = n[0], a.L = n[1], a.N = n[2], a.BS = n[3], a.H = n[4], a.KVH = n[5], a.HD = n[6];
   a.W = n[7], a.D = n[8], a.F = n[9], a.V = n[10], a.S = n[11];
   a.W32 = (a.V + 31) / 32;
+  a.tc_part = static_cast<float*>(const_cast<void*>(p[39]));
+  a.tc_cnt = static_cast<int*>(const_cast<void*>(p[40]));
   const int P = n[12];
   a.eps = eps, a.theta = theta;
   if (a.KVH <= 0 || a.H % a.KVH || a.HD % 16 || a.HD > 128 || a.D % kTile || a.F % kTile || a.V % kTile ||
@@ -255,6 +297,10 @@ int launch_dtype(int B, int grid, const void* const* p, const int* n, float eps,
   const bool any_guided = a.rows0 != nullptr || a.grow != nullptr || a.mask != nullptr || a.next_pool != nullptr;
   if (any_guided && (a.rows0 == nullptr || a.grow == nullptr || a.mask == nullptr || a.next_pool == nullptr || P <= 0))
     return (int)cudaErrorInvalidValue;
+  if constexpr (kTensorCores<T>) {
+    const cudaError_t e = tc_prepare<T>(a, plan);
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)launch_t<T>(a, B, grid, s);
 }
 
@@ -316,10 +362,13 @@ int dtt_fused_decode_window_blocks(int dtype, int B, int G, int HD, int* sm_coun
 // for an all-greedy window, else top_ks, top_ps, unif [steps, B] and the
 // logits scratch [B, V] f32 too; rows0 null for a window without guided
 // rows, else rows_out [B], the mask pool [P, ceil(V / 32)] u32 and the
-// next-row pool [P, V] i32 too), then steps, L, N, BS, H, KVH, HD, W, D, F,
-// V and S, the attention's key splits (the partials hold B * KVH * S * G *
-// HD and B * KVH * S * G * 2 floats; the split counters, B * KVH ints, start
-// at zero and end at zero), and P, the pools' rows (0 without guided rows).
+// next-row pool [P, V] i32 too), the bf16 products' split partials and
+// per-tile counters (zero; null where no phase splits) and plan (5 x
+// (splits, boxes per split), host memory; read in bf16 only), then steps,
+// L, N, BS, H, KVH, HD, W, D, F, V and S, the attention's key splits (the
+// partials hold B * KVH * S * G * HD and B * KVH * S * G * 2 floats; the
+// split counters, B * KVH ints, start at zero and end at zero), and P, the
+// pools' rows (0 without guided rows).
 // `grid` must be at least B and must not exceed
 // dtt_fused_decode_window_blocks. Returns 0 or the cudaError of the
 // cooperative launch (e.g. cudaErrorCooperativeLaunchTooLarge); launches on
@@ -333,17 +382,18 @@ int dtt_fused_decode_window(int dtype, int B, int grid, const void* embed, const
                             void* part_ml, void* attn, void* split_cnt, const void* temps,
                             const void* top_ks, const void* top_ps, const void* unif, void* logits,
                             const void* rows0, void* rows_out, const void* mask_pool, const void* next_pool,
-                            int steps, int L, int N, int BS, int H, int KVH, int HD, int W, int D, int F, int V,
-                            int S, int P, float eps, float theta, void* stream) {
+                            void* tc_part, void* tc_cnt, const int* plan, int steps, int L, int N, int BS, int H,
+                            int KVH, int HD, int W, int D, int F, int V, int S, int P, float eps, float theta,
+                            void* stream) {
   if (steps <= 0) return 0;
-  const void* p[39] = {embed, head, fnorm, anorm, mnorm, wq, wk, wv, wo, wg, wu, wd, kc, vc,
+  const void* p[41] = {embed, head, fnorm, anorm, mnorm, wq, wk, wv, wo, wg, wu, wd, kc, vc,
                        tokens, positions, tables, active, tokens_out, h, qkv, part_acc, gu, tok,
                        part_val, part_idx, prof, part_ml, attn, split_cnt, temps, top_ks, top_ps, unif,
-                       logits, rows0, rows_out, mask_pool, next_pool};
+                       logits, rows0, rows_out, mask_pool, next_pool, tc_part, tc_cnt};
   const int n[13] = {steps, L, N, BS, H, KVH, HD, W, D, F, V, S, P};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dtype<float>(B, grid, p, n, eps, theta, s);
-  if (dtype == 1) return launch_dtype<__nv_bfloat16>(B, grid, p, n, eps, theta, s);
+  if (dtype == 0) return launch_dtype<float>(B, grid, p, n, plan, eps, theta, s);
+  if (dtype == 1) return launch_dtype<__nv_bfloat16>(B, grid, p, n, plan, eps, theta, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -37,15 +37,17 @@
 // far below the tensor cores' rate: the bound is the memory rate. The design
 // is the decode window's (fused_window_device.cuh): one persistent
 // cooperative launch, grid = occupancy x SMs, phases split by grid barriers,
-// CUDA-core GEMVs over 16-column tiles, split paged attention. What is new:
-// - The verify's B (gamma + 1) rows exceed the GEMV's B x VEC register
-//   accumulators, so the header's GEMVs apply each weight tile in passes of
-//   B rows (kPasses), with the draft's thread mapping: the tile comes from
-//   HBM once per round and from L1/L2 for the later passes; the input rows
-//   are staged in shared memory per tile and pass. At 2 (gamma + 1)
-//   operations per weight and batch row the verify's CUDA-core FMAs, not
-//   the memory, set its time (see PERF.md): tensor-core products are its
-//   next step.
+// split paged attention, and in bf16 the tensor-core products (`tc_product`:
+// TMA weight boxes into a ring, wgmma, split-K for the narrow phases); f32
+// keeps CUDA-core GEMVs over 16-column tiles. What is new:
+// - The verify's B (gamma + 1) rows (up to 288) go through the same
+//   product in ONE pass over the weights: each staged box is applied to
+//   every row, 64 rows a pass (each pass its own f32 accumulator kept
+//   across the item's boxes; five passes at most), so the target's
+//   weights leave HBM once per round whatever gamma, and the verify costs
+//   one target step's products plus its attention over B (gamma + 1)
+//   rows. In f32 the GEMVs apply each tile in passes of B rows (kPasses),
+//   the later passes reading the tile from L1/L2.
 // - Both models' logits stay in f32 scratch (draft [gamma, B, V], target
 //   [B (gamma + 1), V]), scaled by the row's temperature, with each sampled
 //   row's filter, so p_d and p_t of any token are one load each; the
@@ -53,8 +55,10 @@
 // - Timer stamps (with a profile buffer, block 0): one at the start, then per
 //   round one after the catch-up, one after each proposal, one after the
 //   verify and one after the rejection sampling.
-// wgmma, TMA weight streaming and a verify that reads each weight tile once
-// for all its rows are later work.
+// The product sequence is fixed (per round: the draft's layers for the
+// catch-up and each proposal, a draft head after each proposal, the
+// verify's layers, the target head), so each product names the next and
+// the ring streams across phases, models and rounds.
 
 #include "fused_window_device.cuh"
 
@@ -104,35 +108,6 @@ struct OutScaled {  // row rv's logit into logits [n, V], divided by its batch r
     logits[(int64_t)rv * V + c] = t > 0.f ? v / t : v;  // a division, as JAX scales
   }
 };
-
-// The verify's K/V: every row's key roped at its position and written with
-// its value (a dead row's to block 0, offset 0), one (row, KV head) per item.
-template <typename T>
-__device__ void write_chunk_kv(const Args<T>& a, int n, int l) {
-  const int KVH = a.KVH, HD = a.HD, BS = a.BS, W = a.W, half = HD / 2;
-  const int HQ = a.H * HD, HKV = KVH * HD, NQKV = HQ + 2 * HKV;
-  const int64_t tok_stride = (int64_t)KVH * HD, page_stride = (int64_t)BS * tok_stride;
-  T* kc = a.kc + (int64_t)l * a.N * page_stride;
-  T* vc = a.vc + (int64_t)l * a.N * page_stride;
-  for (int item = blockIdx.x; item < n * KVH; item += gridDim.x) {
-    const int rv = item / KVH, kvh = item % KVH;
-    const bool live = a.active[rv] != 0;
-    const int pos = __ldcg(a.positions + rv);
-    const int slot = live ? pos : 0;
-    const int64_t blk = (live && slot / BS < W) ? a.tables[(int64_t)rv * W + slot / BS] : 0;
-    const int64_t dst = blk * page_stride + (int64_t)(slot % BS) * tok_stride + (int64_t)kvh * HD;
-    const T* kr = a.qkv + (int64_t)rv * NQKV + HQ + (int64_t)kvh * HD;
-    for (int j = threadIdx.x; j < half; j += kThreads) {
-      const float freq = 1.f / powf(a.theta, (float)(2 * j) / (float)HD);
-      float sn, cs;
-      sincosf((float)pos * freq, &sn, &cs);
-      const float x1 = ld_scratch(kr + j), x2 = ld_scratch(kr + j + half);
-      kc[dst + j] = from_f<T>(x1 * cs - x2 * sn);
-      kc[dst + j + half] = from_f<T>(x2 * cs + x1 * sn);
-    }
-    for (int e = threadIdx.x; e < HD; e += kThreads) vc[dst + e] = from_f<T>(ld_scratch(kr + HKV + e));
-  }
-}
 
 // One target layer over the verify's n rows: decode_layer's phases with
 // the chunk's K/V written in a phase of its own before the attention.
@@ -241,17 +216,48 @@ __device__ int residual_draw(const float* trow, const RowFilter& tf, const float
   return mi == INT_MAX ? 0 : mi;
 }
 
+// Dynamic shared memory of the spec kernel at batch B and each model's
+// query heads per KV head and head dim: f32, the GEMV staging area, its
+// tail and kInvMax inverse norms, or the larger attention's; bf16,
+// tc_layout's.
+template <typename T>
+size_t spec_smem_bytes(int B, int Gt, int HDt, int Gd, int HDd) {
+  if (kTensorCores<T>) {
+    const size_t at = attn_floats(Gt, HDt), ad = attn_floats(Gd, HDd);
+    return tc_layout(at > ad ? at : ad, kInvMax, B).bytes;
+  }
+  size_t n = gemv_floats(B) + kInvMax;
+  n = n > attn_floats(Gt, HDt) ? n : attn_floats(Gt, HDt);
+  return (n > attn_floats(Gd, HDd) ? n : attn_floats(Gd, HDd)) * sizeof(float);
+}
+
 template <typename T, int B>
-__global__ void __launch_bounds__(kThreads, 1) fused_spec_kernel(const SpecArgs<T> s) {
+__global__ void __launch_bounds__(kThreads, 1) fused_spec_kernel(const __grid_constant__ SpecArgs<T> s) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const Args<T>& d = s.d;
   const Args<T>& t = s.t;
   const int tid = threadIdx.x, G = s.G, V = s.V, Bv = s.Bv, U = 2 * s.G + 1;
   float* inv = smem + kXFloats + kWarps * B * kTile;  // kInvMax floats
+  TcCtx tc;
+  TcCtx* tcp = nullptr;
+  // The products in launch order: per round the draft's layers (QKV, wo,
+  // gate/up, down each) for the catch-up and each proposal, a draft head
+  // after each proposal, the verify's layers, the target's head.
+  Phase d_qkv0 = {}, d_head = {}, t_qkv0 = {}, t_head = {};
+  if constexpr (kTensorCores<T>) {
+    const size_t at = attn_floats(t.H / t.KVH, t.HD), ad = attn_floats(d.H / d.KVH, d.HD);
+    const TcLayout lay = tc_layout(at > ad ? at : ad, kInvMax, B);
+    inv = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) + lay.tail);
+    tc = tc_init(reinterpret_cast<unsigned char*>(smem), lay, t.tc_part, t.tc_cnt);
+    tcp = &tc;
+    d_qkv0 = make_phase(d, kPhQkv, 0, B), d_head = make_phase(d, kPhHead, 0, B);
+    t_qkv0 = make_phase(t, kPhQkv, 0, Bv), t_head = make_phase(t, kPhHead, 0, Bv);
+    tc_prefetch(tc, d_qkv0);  // the first catch-up's first boxes fly during the set-up
+  }
   float* lgs = inv + kInvMax;
-  float* best_v = lgs + kTile * B;
-  int* best_i = reinterpret_cast<int*>(best_v + B);
+  float* best_v = lgs + (kTensorCores<T> ? 2 * kTcN : kTile) * B;  // bf16: per lane
+  int* best_i = reinterpret_cast<int*>(best_v + (kTensorCores<T> ? 2 : 1) * B);
   PickSmem* ps = reinterpret_cast<PickSmem*>(smem);
   int* cur_pos = s.cur;
   int* cur_tok = s.cur + B;
@@ -277,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_spec_kernel(const SpecArgs<
     // 2. gamma proposals from tok at pos. One loop, so the draft's layer is
     // one copy in the kernel's code.
     for (int g = -1; g < G; ++g) {
-      for (int l = 0; l < d.L; ++l) decode_layer<T, B>(d, smem, inv, l, g, grid, 0);
+      for (int l = 0; l < d.L; ++l) decode_layer<T, B>(d, smem, inv, l, g, grid, 0, tcp, g < 0 ? &d_qkv0 : &d_head);
       if (g < 0) {
         // The proposals start from tok; the verify's row s B + b is batch
         // row b's chunk position s, at pos + s.
@@ -293,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_spec_kernel(const SpecArgs<
         continue;
       }
       float* dl = s.dlog + (int64_t)g * B * V;
-      decode_head<T, B>(d, smem, inv, lgs, best_v, best_i, dl, s.temps, grid);
+      decode_head<T, B>(d, smem, inv, lgs, best_v, best_i, dl, s.temps, grid, tcp, g + 1 < G ? &d_qkv0 : &t_qkv0);
       if (blockIdx.x < B) {
         const int b = blockIdx.x;
         int x;
@@ -317,9 +323,15 @@ __global__ void __launch_bounds__(kThreads, 1) fused_spec_kernel(const SpecArgs<
     }
 
     // 3. The target's verify over the chunk's Bv rows, then its head.
-    for (int l = 0; l < t.L; ++l) verify_layer<T, B>(t, Bv, smem, inv, l, grid);
-    row_inv_rows<T>(t.h, Bv, t.D, t.eps, inv);
-    {
+    if constexpr (kTensorCores<T>) {
+      for (int l = 0; l < t.L; ++l) tc_layer<T>(t, tc, smem, inv, l, 0, Bv, true, &t_head, grid, 0);
+      row_inv_rows<T>(t.h, Bv, t.D, t.eps, inv);
+      OutDst out = {};
+      out.kind = kOutScaled, out.logits = s.tlog, out.temps = s.temps, out.B = B, out.V = V;
+      tc_product_rows(tc, t_head, r + 1 < s.R ? &d_qkv0 : nullptr, XSrc{kXNorm, t.h, t.D, inv, t.fnorm, 0}, out);
+    } else {
+      for (int l = 0; l < t.L; ++l) verify_layer<T, B>(t, Bv, smem, inv, l, grid);
+      row_inv_rows<T>(t.h, Bv, t.D, t.eps, inv);
       const XNorm<T> xf{t.h, t.D, inv, t.fnorm};
       const OutScaled out{s.tlog, s.temps, B, V};
       if (t.head != nullptr) {
@@ -407,12 +419,6 @@ __global__ void __launch_bounds__(kThreads, 1) fused_spec_kernel(const SpecArgs<
     grid.sync();
     stamp(s.prof, s0 + 2 + G);
   }
-}
-
-__host__ __device__ inline size_t spec_smem_floats(int B, int Gt, int HDt, int Gd, int HDd) {
-  size_t n = gemv_floats(B) + kInvMax;
-  n = n > attn_floats(Gt, HDt) ? n : attn_floats(Gt, HDt);
-  return n > attn_floats(Gd, HDd) ? n : attn_floats(Gd, HDd);
 }
 
 template <typename T, int B>
@@ -529,7 +535,16 @@ int launch_dtype(const void* const* w, void* const* p, const int* n, const float
   s.tmode = static_cast<int*>(p[41]);
   s.prof = static_cast<unsigned long long*>(p[42]);
   s.B = B, s.Bv = Bv, s.G = G, s.R = R, s.V = V;
-  const size_t smem = spec_smem_floats(B, tn[2] / tn[3], tn[4], dn[2] / dn[3], dn[4]) * sizeof(float);
+  if constexpr (kTensorCores<T>) {
+    // One set of split partials and counters serves both models: their
+    // products never overlap.
+    s.t.tc_part = s.d.tc_part = static_cast<float*>(p[43]);
+    s.t.tc_cnt = s.d.tc_cnt = static_cast<int*>(p[44]);
+    cudaError_t e = tc_prepare<T>(s.t, n + 24);
+    if (e == cudaSuccess) e = tc_prepare<T>(s.d, n + 34);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const size_t smem = spec_smem_bytes<T>(B, tn[2] / tn[3], tn[4], dn[2] / dn[3], dn[4]);
   return (int)launch_t<T>(s, grid, smem, stream);
 }
 
@@ -543,14 +558,13 @@ extern "C" {
 // negative return is -cudaError.
 int dtt_fused_spec_window_blocks(int dtype, int B, int Gt, int HDt, int Gd, int HDd, int* sm_count) {
   int dev = 0, sms = 0, per_sm = 0;
-  const size_t smem = spec_smem_floats(B, Gt, HDt, Gd, HDd) * sizeof(float);
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) {
     if (dtype == 0)
-      e = blocks_t<float>(B, smem, &per_sm);
+      e = blocks_t<float>(B, spec_smem_bytes<float>(B, Gt, HDt, Gd, HDd), &per_sm);
     else if (dtype == 1)
-      e = blocks_t<__nv_bfloat16>(B, smem, &per_sm);
+      e = blocks_t<__nv_bfloat16>(B, spec_smem_bytes<__nv_bfloat16>(B, Gt, HDt, Gd, HDd), &per_sm);
     else
       e = cudaErrorInvalidValue;
   }
@@ -560,18 +574,22 @@ int dtt_fused_spec_window_blocks(int dtype, int B, int Gt, int HDt, int Gd, int 
 }
 
 // One spec window. w: the target's 12 weight pointers, then the draft's
-// (see model_args; a null head is a tied one). p: the 43 buffers in the
+// (see model_args; a null head is a tied one). p: the 45 buffers in the
 // order of `megakernel.fused_spec_window` (caches, the rows' inputs,
 // outputs, cursors, proposals, each model's scratch, the draft's argmax
 // partials, the verify's tables, active flags and positions, both models'
-// scaled logits, filters and modes, the profile or null). n: B, grid, gamma,
-// R, V, BS, then the target's and the draft's (L, N, H, KVH, HD, W, D, F,
-// S). f: the target's rms eps and rope theta, then the draft's. The split
-// counters start at zero and end at zero. Returns 0 or the cudaError of the
-// cooperative launch; launches on `stream` and does not synchronise.
+// scaled logits, filters and modes, the profile or null, the bf16
+// products' split partials and per-tile counters, zero, or null where no
+// phase splits). n: B, grid, gamma, R, V, BS, then the target's and the
+// draft's (L, N, H, KVH, HD, W, D, F, S), then the target's plan at B
+// (gamma + 1) rows and the draft's at B rows (5 x (splits, boxes per
+// split) each, read in bf16 only). f: the target's rms eps and rope theta,
+// then the draft's. The split counters start at zero and end at zero.
+// Returns 0 or the cudaError of the cooperative launch; launches on
+// `stream` and does not synchronise.
 int dtt_fused_spec_window(int dtype, int nbufs, const void* const* w, void* const* p, const int* n, const float* f,
                           void* stream) {
-  if (nbufs != 43) return (int)cudaErrorInvalidValue;
+  if (nbufs != 45) return (int)cudaErrorInvalidValue;
   if (n[3] <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dtype<float>(w, p, n, f, s);

@@ -16,6 +16,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tc.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -88,6 +90,14 @@ __device__ __forceinline__ void load_w(const T* p, float* out) {
   }
 }
 
+// The tensor maps of one model's weights: [L, in, out] as 3-D boxes of 128
+// rows x 64 columns (128-byte swizzle), the untied head [D, V] likewise
+// (L = 1), or the tied head's embedding [V, D] as boxes of 64 vocab rows x
+// 64 of D (K-major, two to a ring slot).
+struct TcMaps {
+  CUtensorMap wq, wk, wv, wo, wg, wu, wd, head;
+};
+
 template <typename T>
 struct Args {
   const T* embed;  // [V, D]
@@ -131,6 +141,14 @@ struct Args {
   const int* next_pool;   // [P, V] the row after each token
   int steps, L, N, BS, H, KVH, HD, W, D, F, V, S, W32;
   float eps, theta;
+  // bf16 products on the tensor cores (unused in f32): one tensor map per
+  // weight, each phase's split plan (splits, 64-row boxes per split; see
+  // megakernel.product_plan), the splits' f32 partials and the per-tile
+  // arrival counters (zero between phases).
+  TcMaps maps;
+  int plan[5][2];
+  float* tc_part;
+  int* tc_cnt;
 };
 
 // ---------------------------------------------------------------------------
@@ -1056,6 +1074,654 @@ __device__ __noinline__ int sample_row(const float* row, int V, int top_k, float
 }
 
 // ---------------------------------------------------------------------------
+// bf16 products on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// y[b, c] = sum_k x(b, k) W[k, c] for the n rows of a phase, weights
+// streamed once. The phase's output columns are cut into tiles of 64 and
+// its depth K into boxes of 128 rows; a work item is one column tile over a
+// run of kbs boxes (split-K: a phase with few tiles cuts K into nsplit
+// runs, so that the items cover the grid; the host's plan,
+// megakernel.product_plan, picks nsplit and kbs).
+//
+// The two warpgroups of a block are two independent streams ("lanes" of
+// the grid: lane 2 blockIdx.x + wg of 2 gridDim.x, each walking its items
+// lane-stride), each with its own half of the ring, staging buffers,
+// output tile and producer, synchronising on a named barrier of its own:
+// a step's chain (issue copies, stage inputs, products, epilogue) is
+// latency-bound, and two chains an SM overlap. In each lane its first
+// thread keeps up to kLaneSlots weight boxes in flight by TMA (16 KB each,
+// 128 rows x 64 columns, 128-byte swizzle), each on its own mbarrier; when
+// a phase's boxes run out it goes on with the next phase's (the caller
+// names it), before the grid barrier between them: the weights are
+// read-only for the whole launch. There is no producer warp: the lane's
+// first thread tops its ring up while the lane's products run, the slots
+// it refills freed by the lane barrier before, so no thread ever waits at
+// a grid barrier on an mbarrier. A step is one box: the lane stages the
+// rows' inputs x(b, k) (the RMS-normed residual, the attention rows or
+// silu(gate)·up, already rounded to bf16 as the CUDA-core path rounds
+// them) in the 128-byte swizzle of a wgmma operand, double-buffered (the
+// next step's inputs are staged while this step's products run): the rows
+// are the A operand of m64n64k16 wgmma, the box the B operand, N-major
+// (the [in, out] layout, the descriptor's transpose bit) or K-major (the
+// tied head's embedding rows); rows past n hold stale values whose
+// accumulator rows are never read. Rows go in passes of 64, each with its
+// own f32 sums, all of them over the same staged box: every weight byte
+// leaves HBM once per forward, whatever n. A box's products run on fresh
+// tensor-core accumulators (one pass: four chains of two k-steps), added
+// to the sums on the CUDA cores once they land. An
+// item's accumulator goes to the lane's f32 tile; with one split the
+// phase's out(b, col, y) takes it there, else it goes to the split
+// partials and the item's last split to arrive (a counter per tile, reset
+// by it) sums the partials in split order and applies out, so repeats are
+// bit-equal. after(tile, lane) (the head's argmax fold, per lane) follows
+// out for each tile, in the lane that finished it. (Why not simpler: one
+// block-wide chain of these steps left the memory idle between them;
+// smaller copies, issued by one thread, cap the stream; A fragments held
+// in registers spilled.)
+
+constexpr int kTcN = 64;                     // output columns per tile: wgmma's N
+constexpr int kBoxK = 128;                   // weight rows per ring slot
+constexpr int kBoxBytes = kBoxK * kTcN * 2;  // 16 KB
+constexpr int kLaneSlots = 3;                // slots in flight per lane (48 KB; 96 KB a block)
+constexpr int kRingBoxes = 2 * kLaneSlots;
+constexpr int kLaneThreads = 128;            // a warpgroup
+constexpr int kPassRows = 64;                // rows per pass: one m64 tile
+constexpr int kMaxPasses = 5;                // rows per phase <= 320
+constexpr int kXsBytes = kPassRows * kBoxK * 2;  // a staging buffer: 64 rows x 128 bf16 (two a lane)
+constexpr int kCtStride = 72;                // f32 output tile: rows of 64 + 8 (no bank conflicts)
+constexpr int kCtBytes = kPassRows * kCtStride * 4;
+enum { kPhQkv = 0, kPhWo, kPhGu, kPhDown, kPhHead, kPhases };
+
+// One product phase: up to three column groups (the QKV phase's wq, wk,
+// wv; gate | up), each a weight tensor of `width` columns in ceil(width /
+// 64) tiles; the group's columns follow the previous groups' in out's
+// column numbering.
+struct Phase {
+  const CUtensorMap* map[3];
+  int tiles[3], width[3];
+  int layer, K, n, nsplit, kbs;
+  int kmajor;
+};
+
+__device__ __forceinline__ int ph_tiles(const Phase& p) { return p.tiles[0] + p.tiles[1] + p.tiles[2]; }
+__device__ __forceinline__ int ph_boxes(const Phase& p) { return (p.K + kBoxK - 1) / kBoxK; }
+
+// Item `item`'s column tile and box range [lo, hi).
+__device__ __forceinline__ void ph_item(const Phase& p, int item, int& ct, int& lo, int& hi) {
+  ct = item / p.nsplit;
+  lo = (item - ct * p.nsplit) * p.kbs;
+  hi = min(ph_boxes(p), lo + p.kbs);
+}
+
+// Tile ct's group, first column in the group's tensor and first column in
+// out's numbering.
+__device__ __forceinline__ void ph_tile(const Phase& p, int ct, int& g, int& c0, int& off) {
+  // Selects, not a loop over the arrays: a Phase held in registers stays there.
+  const int t01 = p.tiles[0] + p.tiles[1];
+  g = ct < p.tiles[0] ? 0 : ct < t01 ? 1 : 2;
+  off = g == 0 ? 0 : g == 1 ? p.width[0] : p.width[0] + p.width[1];
+  c0 = (ct - (g == 0 ? 0 : g == 1 ? p.tiles[0] : t01)) * kTcN;
+}
+
+__device__ __forceinline__ int ph_width(const Phase& p, int g) { return g == 0 ? p.width[0] : g == 1 ? p.width[1] : p.width[2]; }
+__device__ __forceinline__ const CUtensorMap* ph_map(const Phase& p, int g) {
+  return g == 0 ? p.map[0] : g == 1 ? p.map[1] : p.map[2];
+}
+
+template <typename T>
+__device__ Phase make_phase(const Args<T>& a, int kind, int l, int n) {
+  Phase p = {};
+  const int HQ = a.H * a.HD, HKV = a.KVH * a.HD;
+  const CUtensorMap* m[3] = {nullptr, nullptr, nullptr};
+  int w[3] = {0, 0, 0};
+  p.layer = l, p.n = n, p.nsplit = a.plan[kind][0], p.kbs = a.plan[kind][1];
+  switch (kind) {
+    case kPhQkv: m[0] = &a.maps.wq, m[1] = &a.maps.wk, m[2] = &a.maps.wv, w[0] = HQ, w[1] = w[2] = HKV, p.K = a.D; break;
+    case kPhWo: m[0] = &a.maps.wo, w[0] = a.D, p.K = HQ; break;
+    case kPhGu: m[0] = &a.maps.wg, m[1] = &a.maps.wu, w[0] = w[1] = a.F, p.K = a.D; break;
+    case kPhDown: m[0] = &a.maps.wd, w[0] = a.D, p.K = a.F; break;
+    default: m[0] = &a.maps.head, w[0] = a.V, p.K = a.D, p.layer = 0, p.kmajor = a.head == nullptr; break;
+  }
+  for (int g = 0; g < 3; ++g) p.map[g] = m[g], p.width[g] = w[g], p.tiles[g] = (w[g] + kTcN - 1) / kTcN;
+  return p;
+}
+
+// A lane's first thread's side of its ring, in shared memory: the phase
+// whose boxes it issues (its product's number, -1 none) and where it is in
+// it (the lane's item and box), the phase queued after it, and the boxes
+// issued in the whole launch.
+struct Producer {
+  Phase cur, nxt;
+  int cur_id, nxt_id, item, kb;
+  uint32_t issued;
+};
+
+// Every thread's side, for its lane: the lane's ring (kLaneSlots boxes,
+// 1024-byte aligned), barriers, producer, staging buffers and output
+// tile; boxes consumed in the whole launch (the slot and parity follow
+// from it) and products begun.
+struct TcCtx {
+  uint8_t* ring;
+  uint64_t* full;
+  Producer* pr;
+  uint8_t* xs;  // two staging buffers
+  float* ct;
+  float* part;  // split partials (the grid's)
+  int* cnt;     // per-tile arrival counters
+  int lane, lanes, wg;
+  uint32_t consumed;
+  int calls;
+};
+
+// The lane's barrier (named barrier 1 + wg over its 128 threads).
+__device__ __forceinline__ void lane_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "r"(kLaneThreads) : "memory");
+}
+
+__device__ void pr_start(Producer* pr, const Phase& p, int id, int lane) {
+  for (int g = 0; g < 3; ++g)
+    if (p.map[g] != nullptr) attn_tc::prefetch_tensormap(p.map[g]);
+  pr->cur = p;
+  pr->cur_id = id;
+  pr->item = lane;
+  int ct, lo, hi;
+  ph_item(p, pr->item, ct, lo, hi);
+  pr->kb = lo;
+}
+
+// Issue boxes (the lane's first thread) until `limit` are issued in all or
+// both queued phases are out of boxes. The phase is read in place and the
+// position kept in registers while it issues (a Phase copied out would
+// live in local memory; the barrier and copy instructions clobber memory).
+__device__ void pr_top_up(TcCtx& c, uint32_t limit) {
+  Producer* pr = c.pr;
+  uint32_t issued = pr->issued;
+  if (issued >= limit) return;
+  uint8_t* const ring = c.ring;
+  uint64_t* const full = c.full;
+  const int lanes = c.lanes;
+  while (issued < limit) {
+    const Phase& p = pr->cur;
+    const int nitems = ph_tiles(p) * p.nsplit, kmajor = p.kmajor, layer = p.layer;
+    int item = pr->item, kb = pr->kb;
+    if (pr->cur_id < 0 || item >= nitems) {  // nothing (left) to issue: on to the queued phase
+      if (pr->nxt_id < 0) break;
+      pr_start(pr, pr->nxt, pr->nxt_id, c.lane);
+      pr->nxt_id = -1;
+      continue;
+    }
+    while (issued < limit && item < nitems) {
+      int ct, lo, hi, g, c0, off;
+      ph_item(p, item, ct, lo, hi);
+      ph_tile(p, ct, g, c0, off);
+      const CUtensorMap* map = ph_map(p, g);
+      for (; kb < hi && issued < limit; ++kb, ++issued) {
+        const int slot = (int)(issued % kLaneSlots);
+        uint8_t* dst = ring + slot * kBoxBytes;
+        attn_tc::mbar_arrive_expect_tx(&full[slot], kBoxBytes);
+        if (kmajor) {  // two 64-wide planes of the embedding rows' depth
+          attn_tc::tma_load_3d(dst, map, &full[slot], kb * kBoxK, c0, 0);
+          attn_tc::tma_load_3d(dst + kBoxBytes / 2, map, &full[slot], kb * kBoxK + 64, c0, 0);
+        } else {
+          attn_tc::tma_load_3d(dst, map, &full[slot], c0, kb * kBoxK, layer);
+        }
+      }
+      if (kb >= hi) {
+        item += lanes;
+        ph_item(p, item, ct, lo, hi);
+        kb = lo;
+      }
+    }
+    pr->item = item, pr->kb = kb;
+  }
+  pr->issued = issued;
+}
+
+// Queue `next` behind the phase being issued and top the ring up (each
+// lane's first thread): the next product's first boxes fly during whatever
+// runs before it.
+__device__ void tc_prefetch(TcCtx& c, const Phase& next) {
+  if (threadIdx.x % kLaneThreads == 0) {
+    c.pr->nxt = next;
+    c.pr->nxt_id = c.calls;
+    pr_top_up(c, c.consumed + kLaneSlots);
+  }
+}
+
+// The staged inputs: 8 consecutive elements of a row as bf16, packed.
+enum { kXNorm = 0, kXRows, kXSiluUp };
+struct XSrc {
+  int kind;
+  const __nv_bfloat16* p;  // h [n, D], attention rows [n, K] or gate | up [n, 2F]
+  int ld;                  // its row stride
+  const float* inv;        // kXNorm: the rows' inverse RMS (shared memory)
+  const __nv_bfloat16* g;  // kXNorm: the norm's weight
+  int F;                   // kXSiluUp
+  __device__ uint4 vec8(int b, int k) const {
+    if (kind == kXRows) return __ldcg(reinterpret_cast<const uint4*>(p + (int64_t)b * ld + k));
+    float x[8], y[8];
+    uint32_t o[4];
+    if (kind == kXNorm) {
+      ld_scratch_vec<__nv_bfloat16>(p + (int64_t)b * ld + k, x);
+      load_w<__nv_bfloat16, 8>(g + k, y);
+      const float r = inv[b];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) o[v] = attn_tc::pack_bf16(x[2 * v] * r * y[2 * v], x[2 * v + 1] * r * y[2 * v + 1]);
+    } else {
+      ld_scratch_vec<__nv_bfloat16>(p + (int64_t)b * ld + k, x);
+      ld_scratch_vec<__nv_bfloat16>(p + (int64_t)b * ld + F + k, y);
+      float s[8];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) s[v] = round_to<__nv_bfloat16>(round_to<__nv_bfloat16>(x[v] / (1.f + expf(-x[v]))) * y[v]);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) o[v] = attn_tc::pack_bf16(s[2 * v], s[2 * v + 1]);
+    }
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  }
+};
+
+// The phase's out(b, col, y), and after(tile) for the head's fold.
+enum { kOutRows = 0, kOutResidual, kOutLogits, kOutScaled };
+struct OutDst {
+  int kind;
+  __nv_bfloat16* y;  // kOutRows: rows [n, ld]; kOutResidual: h [n, ld]
+  int ld;
+  float* lgs;             // kOutLogits: each lane's tile logits, lgs[(wg * 64 + c % 64) * B + b]
+  const unsigned* mask;   // kOutLogits: the guided rows' allow bits [P, W32], or null
+  const int* rows;        // kOutLogits: each row's mask-pool row (shared memory)
+  int W32, B, V;
+  float* logits;          // kOutLogits: [B, V] scaled store, or null; kOutScaled: [n, V]
+  const float* temps;     // [B]
+  float* best_v;          // kOutLogits: each lane's (max, first index) per row, [wg * B + b]
+  int* best_i;
+  __device__ void operator()(int b, int c, float v, int wg) const {
+    switch (kind) {
+      case kOutRows: y[(int64_t)b * ld + c] = __float2bfloat16(v); break;
+      case kOutResidual: {
+        __nv_bfloat16* p = y + (int64_t)b * ld + c;
+        *p = __float2bfloat16(ld_scratch(p) + round_to<__nv_bfloat16>(v));
+        break;
+      }
+      case kOutLogits:
+        if (mask != nullptr && !((__ldg(mask + (int64_t)rows[b] * W32 + (c >> 5)) >> (c & 31)) & 1u)) v = -INFINITY;
+        lgs[(wg * kTcN + c % kTcN) * B + b] = v;
+        break;
+      default: {
+        const float t = temps[b % B];
+        logits[(int64_t)b * V + c] = t > 0.f ? v / t : v;  // a division, as JAX scales
+      }
+    }
+  }
+  // ArgmaxTile's fold over a 64-column tile (columns past V skipped), by
+  // the lane that finished it, into the lane's (max, first index).
+  __device__ void after(int ct, int wg) const {
+    if (kind != kOutLogits) return;
+    const int c0 = ct * kTcN, nc = min(kTcN, V - c0), t = threadIdx.x % kLaneThreads;
+    const float* tl = lgs + wg * kTcN * B;
+    if (logits != nullptr) {
+      for (int e = t; e < B * kTcN; e += kLaneThreads) {
+        const int b = e / kTcN, c = e - b * kTcN;
+        if (c >= nc) continue;
+        const float x = tl[c * B + b], tb = temps[b];
+        logits[(int64_t)b * V + c0 + c] = tb > 0.f ? x / tb : x;
+      }
+    }
+    if (t >= B) return;
+    float bv = best_v[wg * B + t];
+    int bi = best_i[wg * B + t];
+    for (int c = 0; c < nc; ++c) {  // ascending index: strict > keeps the first maximum
+      const float v = tl[c * B + t];
+      if (v > bv) bv = v, bi = c0 + c;
+    }
+    best_v[wg * B + t] = bv;
+    best_i[wg * B + t] = bi;
+  }
+};
+
+// A staging buffer: per 64 of a box's depth a plane of 64 rows x 128 bytes,
+// in the 128-byte swizzle the wgmma descriptor reads (16-byte unit u of row
+// r at u ^ (r % 8)), so the rows are the A operand straight from shared
+// memory. Rows past the pass's are stale: their accumulator rows are never
+// read.
+__device__ __forceinline__ int xs_offset(int b, int kv) {  // bytes; kv: 8-element unit
+  return (kv >> 3) * kPassRows * 128 + b * 128 + (((kv & 7) ^ (b & 7)) << 4);
+}
+
+// A lane's products of one box, issued (the caller waits): of its nks
+// k-steps (16 of the depth each) of the staged rows (xs at shared address
+// xs) times ring box `box`, those with s % C in [C0, C0 + (kTwo ? 2 : 1)),
+// k-step s into a (s % C == C0) or b, both zeroed first: the caller adds
+// these fresh per-box sums to its own f32 sums, so the tensor core's own
+// accumulation, which truncates, spans two k-steps at most (C = 4).
+template <int C, int C0, bool kTwo>
+__device__ __forceinline__ void tc_mma(float (&a)[32], float (&b)[32], uint32_t xs, uint32_t box, int nks,
+                                       int kmajor) {
+  using namespace attn_tc;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) a[i] = 0.f, b[i] = 0.f;
+  fence_regs(a);
+  fence_regs(b);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < kBoxK / 16; ++s) {
+    if (s < nks && (s % C == C0 || (kTwo && s % C == C0 + 1))) {
+      float(&d)[32] = s % C == C0 ? a : b;
+      const uint64_t da = smem_desc(xs + (s / 4) * (kPassRows * 128) + (s % 4) * 32, 16, 1024, 1);
+      if (kmajor)  // [64 vocab rows x 64 of D] planes
+        wgmma_ss_n64(d, da, smem_desc(box + (s / 4) * (kBoxBytes / 2) + (s % 4) * 32, 16, 1024, 1), 1);
+      else  // [128 weight rows x 64 columns]
+        wgmma_ss_n64_bt(d, da, smem_desc(box + s * 16 * 128, kBoxBytes, 1024, 1), 1);
+    }
+  }
+  wgmma_commit();
+}
+
+// The lane's accumulator rows (fragment rows) < rows into its output tile.
+__device__ __forceinline__ void acc_to_tile(float* ct, const float (&acc)[32], int rows) {
+  const int t = threadIdx.x % kLaneThreads, lane = t % 32, r = 16 * (t / 32) + lane / 4, cq = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r + 8 * h < rows)
+        *reinterpret_cast<float2*>(ct + (r + 8 * h) * kCtStride + 8 * j + cq) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+}
+
+// One product phase (every thread of the block, each in its lane; see the
+// section's note), MTW passes of 64 rows at most. `next`, when given, is
+// the product the caller runs next: its first boxes are issued before this
+// one returns.
+template <int MTW>
+__device__ __noinline__ void tc_product(TcCtx& c, const Phase& ph, const Phase* next, const XSrc& x, const OutDst& out) {
+  __shared__ int last_split[2];
+  const int t = threadIdx.x % kLaneThreads, wg = c.wg, lanes = c.lanes;
+  const int n = ph.n, npass = (n + kPassRows - 1) / kPassRows;
+  // The hot loop's context in registers (the barrier and wgmma
+  // instructions clobber memory, so fields behind `c` would be reloaded).
+  const uint32_t xs_addr = attn_tc::smem_u32(c.xs), ring = attn_tc::smem_u32(c.ring);
+  uint8_t* const xs = c.xs;
+  float* const ctile = c.ct;
+  uint64_t* const full = c.full;
+  uint32_t consumed = c.consumed;
+  const int nitems = ph_tiles(ph) * ph.nsplit;
+  const int id = c.calls++;
+  const Phase P = ph;  // a copy in registers: `ph` lives in the caller's memory
+  if (t == 0) {
+    if (npass > MTW) asm volatile("trap;");  // the caller's MTW is too small for n
+    Producer* pr = c.pr;
+    if (pr->cur_id != id) {
+      pr_start(pr, ph, id, c.lane);  // nothing of it issued yet
+    } else if (pr->cur.map[0] != ph.map[0] || pr->cur.layer != ph.layer || pr->cur.n != ph.n ||
+               pr->cur.nsplit != ph.nsplit) {
+      asm volatile("trap;");  // the caller queued another product than the one it runs
+    }
+    pr->nxt_id = -1;
+    if (next != nullptr) pr->nxt = *next, pr->nxt_id = id + 1;
+  }
+  // The lane's steps (item, box, pass of up to 64 rows) in order. Step
+  // s's inputs are staged (buffer s % 2) while step s - 1's products run;
+  // one lane barrier a step.
+  struct Step {
+    int item, kb, p;
+  };
+  auto item_lo = [&](int item) {
+    int ct, lo, hi;
+    ph_item(P, item, ct, lo, hi);
+    return lo;
+  };
+  auto next_step = [&](Step st, int hi) {
+    if (st.p + 1 < npass) return Step{st.item, st.kb, st.p + 1};
+    if (st.kb + 1 < hi) return Step{st.item, st.kb + 1, 0};
+    const int item = st.item + lanes;
+    return Step{item, item < nitems ? item_lo(item) : 0, 0};
+  };
+  auto stage_in = [&](Step st, int buf) {
+    const int k0 = st.kb * kBoxK, nv = min(kBoxK, P.K - k0) / 8;
+    const int rows = min(kPassRows, n - st.p * kPassRows);
+    uint8_t* dst = xs + buf * kXsBytes;
+    for (int i = t; i < rows * nv; i += kLaneThreads) {
+      const int b = i / nv, kv = i - b * nv;
+      *reinterpret_cast<uint4*>(dst + xs_offset(b, kv)) = x.vec8(st.p * kPassRows + b, k0 + kv * 8);
+    }
+    attn_tc::fence_proxy_async();  // the staged rows are read by wgmma (the async proxy)
+  };
+
+  float acc[MTW][32];  // each pass's f32 sums over the item's boxes
+#pragma unroll
+  for (int p = 0; p < MTW; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+  Step st{c.lane, c.lane < nitems ? item_lo(c.lane) : 0, 0};
+  if (st.item < nitems) stage_in(st, 0);
+  lane_sync(wg);
+  if (t == 0) pr_top_up(c, consumed + kLaneSlots);
+  int buf = 0;
+  while (st.item < nitems) {
+    int ct, lo, hi, g, c0, off;
+    ph_item(P, st.item, ct, lo, hi);
+    ph_tile(P, ct, g, c0, off);
+    const int nks = min(kBoxK, P.K - st.kb * kBoxK) / 16;
+    if (st.p == 0) attn_tc::mbar_wait(&full[consumed % kLaneSlots], (consumed / kLaneSlots) & 1);
+    const uint32_t xa = xs_addr + buf * kXsBytes, box = ring + (consumed % kLaneSlots) * kBoxBytes;
+    // The box's products on fresh accumulators, added to the pass's f32
+    // sums on the CUDA cores once they land: one pass, four chains of two
+    // k-steps, in two halves of two chains (registers), summed
+    // (c0 + c1) + (c2 + c3); past one pass, one chain (the registers hold
+    // MTW passes' sums).
+    float t0[32], t1[32], half[32];
+    if constexpr (MTW == 1)
+      tc_mma<4, 0, true>(t0, t1, xa, box, nks, P.kmajor);
+    else
+      tc_mma<1, 0, false>(t0, t1, xa, box, nks, P.kmajor);
+    // While the products run: the first thread refills the slots the steps
+    // before freed (a copy's issue blocks its thread for a while), and
+    // every thread stages the next step's inputs.
+    if (t == 0) pr_top_up(c, consumed + kLaneSlots);
+    const Step nx = next_step(st, hi);
+    if (nx.item < nitems) stage_in(nx, buf ^ 1);
+    attn_tc::wgmma_wait<0>();
+    attn_tc::fence_regs(t0);
+    if constexpr (MTW == 1) {
+      attn_tc::fence_regs(t1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) half[i] = t0[i] + t1[i];
+      tc_mma<4, 2, true>(t0, t1, xa, box, nks, P.kmajor);
+      attn_tc::wgmma_wait<0>();
+      attn_tc::fence_regs(t0);
+      attn_tc::fence_regs(t1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[0][i] += half[i] + (t0[i] + t1[i]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < MTW; ++q)
+        if (q == st.p)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[q][i] += t0[i];
+    }
+    const bool box_done = st.p + 1 == npass;
+    if (box_done) ++consumed;
+    if (box_done && st.kb + 1 >= hi) {
+      // The item's rows: to out (one split) or to its partial.
+      const int item = st.item;
+#pragma unroll
+      for (int p = 0; p < MTW; ++p) {
+        if (p >= npass) break;
+        const int prow = min(kPassRows, n - p * kPassRows);
+        lane_sync(wg);  // the tile's earlier readers are done
+        acc_to_tile(ctile, acc[p], prow);
+        lane_sync(wg);
+        if (P.nsplit == 1) {
+          for (int e = t; e < prow * kTcN; e += kLaneThreads) {
+            const int b = e / kTcN, cc = e - b * kTcN;
+            if (c0 + cc < ph_width(P, g)) out(p * kPassRows + b, off + c0 + cc, ctile[b * kCtStride + cc], wg);
+          }
+        } else {
+          float* dst = c.part + ((int64_t)item * n + p * kPassRows) * kTcN;
+          for (int e = t; e < prow * (kTcN / 4); e += kLaneThreads) {
+            const int b = e / (kTcN / 4), c4 = (e - b * (kTcN / 4)) * 4;
+            *reinterpret_cast<float4*>(dst + b * kTcN + c4) = *reinterpret_cast<const float4*>(ctile + b * kCtStride + c4);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+      }
+      bool done = P.nsplit == 1;
+      if (!done) {
+        __threadfence();
+        lane_sync(wg);
+        if (t == 0) last_split[wg] = atomicAdd(c.cnt + ct, 1) == P.nsplit - 1;
+        lane_sync(wg);
+        if (last_split[wg]) {
+          __threadfence();
+          // Sum the partials in split order, 4 columns a thread, 4 splits' loads in flight.
+          const float4* src = reinterpret_cast<const float4*>(c.part + (int64_t)ct * P.nsplit * n * kTcN);
+          const int stride = n * (kTcN / 4), ns = P.nsplit;
+          for (int e = t; e < stride; e += kLaneThreads) {
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            for (int s0 = 0; s0 < ns; s0 += 4) {
+              float4 q[4];
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                q[u] = s0 + u < ns ? __ldcg(src + (int64_t)(s0 + u) * stride + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                if (s0 + u < ns) v = make_float4(v.x + q[u].x, v.y + q[u].y, v.z + q[u].z, v.w + q[u].w);
+            }
+            const int b = e / (kTcN / 4), cc = (e - b * (kTcN / 4)) * 4;
+            const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (c0 + cc + u < ph_width(P, g)) out(b, off + c0 + cc + u, vs[u], wg);
+          }
+          if (t == 0) c.cnt[ct] = 0;  // ready for the next phase
+          done = true;
+        }
+      }
+      if (done && out.kind == kOutLogits) {
+        lane_sync(wg);
+        out.after(ct, wg);
+      }
+    }
+    lane_sync(wg);  // this step's slot and staged inputs are free; the next step's are staged
+    st = nx;
+    buf ^= 1;
+  }
+  c.consumed = consumed;  // every box of this phase is consumed
+  if (t == 0) pr_top_up(c, consumed + kLaneSlots);
+}
+
+// tc_product with as many passes as n rows need (the spec kernel's
+// verify: n = B (gamma + 1) <= 288).
+__device__ void tc_product_rows(TcCtx& c, const Phase& ph, const Phase* next, const XSrc& x, const OutDst& out) {
+  switch ((ph.n + kPassRows - 1) / kPassRows) {
+    case 1: tc_product<1>(c, ph, next, x, out); break;
+    case 2: tc_product<2>(c, ph, next, x, out); break;
+    case 3: tc_product<3>(c, ph, next, x, out); break;
+    case 4: tc_product<4>(c, ph, next, x, out); break;
+    default: tc_product<kMaxPasses>(c, ph, next, x, out); break;
+  }
+}
+
+// Shared memory of a bf16 window (bytes from the dynamic base): the region
+// the lanes' staging buffers (1024-byte aligned: 1024 bytes of slack) and
+// output tiles, the attention and the pick share; the tail (inverse RMS of
+// up to inv_rows rows, each lane's tile logits of B rows, each lane's best
+// value / index, the guided rows); the producers; the ring (1024 bytes of
+// slack to align it) and its barriers.
+struct TcLayout {
+  size_t tail, prod, ring, bars, bytes;
+};
+
+__host__ __device__ inline TcLayout tc_layout(size_t attn_floats_max, int inv_rows, int B) {
+  const size_t tc = 1024 + 2 * (2 * (size_t)kXsBytes + kCtBytes);
+  size_t u = sizeof(PickSmem);
+  u = u > attn_floats_max * 4 ? u : attn_floats_max * 4;
+  u = u > tc ? u : tc;
+  TcLayout l;
+  l.tail = (u + 15) / 16 * 16;
+  l.prod = (l.tail + ((size_t)inv_rows + 2 * (size_t)kTcN * B + 5 * (size_t)B) * 4 + 15) / 16 * 16;
+  l.ring = (l.prod + 2 * sizeof(Producer) + 15) / 16 * 16;
+  l.bars = l.ring + 1024 + (size_t)kRingBoxes * kBoxBytes;
+  l.bytes = l.bars + (size_t)kRingBoxes * sizeof(uint64_t);
+  return l;
+}
+
+// Host: the tensor map of weight [L, K, N] (boxes of 128 rows x 64
+// columns: a ring slot) or, K-major, of the embedding [V, D] read as the
+// tied head (boxes of 64 vocab rows x 64 of D: half a slot).
+inline cudaError_t encode_weight(CUtensorMap* map, const void* p, int L, int K, int N) {
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)L};
+  const cuuint64_t strides[2] = {(cuuint64_t)N * 2, (cuuint64_t)K * N * 2};
+  const cuuint32_t box[3] = {kTcN, kBoxK, 1};
+  return attn_tc::encode_tiled(map, 3, p, dims, strides, box, kTcN * 2);
+}
+
+inline cudaError_t encode_embed_rows(CUtensorMap* map, const void* p, int V, int D) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)V, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)V * D * 2};
+  const cuuint32_t box[3] = {64, kTcN, 1};  // half a slot: a 128-byte swizzled row is 64 of D
+  return attn_tc::encode_tiled(map, 3, p, dims, strides, box, 128);
+}
+
+// Host: a bf16 model's tensor maps, and its plan checked against its
+// widths: each phase's splits of kbs boxes cover its ceil(K / 64) boxes,
+// none empty; split partials and counters given where a phase splits.
+template <typename T>
+cudaError_t tc_prepare(Args<T>& a, const int* plan) {
+  const int HQ = a.H * a.HD, HKV = a.KVH * a.HD;
+  const int K[kPhases] = {a.D, HQ, a.D, a.F, a.D};
+  bool split = false;
+  for (int k = 0; k < kPhases; ++k) {
+    const int ns = plan[2 * k], kbs = plan[2 * k + 1], kb = (K[k] + kBoxK - 1) / kBoxK;
+    if (ns < 1 || kbs < 1 || (ns - 1) * kbs >= kb || ns * kbs < kb) return cudaErrorInvalidValue;
+    a.plan[k][0] = ns, a.plan[k][1] = kbs;
+    split |= ns > 1;
+  }
+  if (split && (a.tc_part == nullptr || a.tc_cnt == nullptr)) return cudaErrorInvalidValue;
+  cudaError_t e = encode_weight(&a.maps.wq, a.wq, a.L, a.D, HQ);
+  if (e == cudaSuccess) e = encode_weight(&a.maps.wk, a.wk, a.L, a.D, HKV);
+  if (e == cudaSuccess) e = encode_weight(&a.maps.wv, a.wv, a.L, a.D, HKV);
+  if (e == cudaSuccess) e = encode_weight(&a.maps.wo, a.wo, a.L, HQ, a.D);
+  if (e == cudaSuccess) e = encode_weight(&a.maps.wg, a.wg, a.L, a.D, a.F);
+  if (e == cudaSuccess) e = encode_weight(&a.maps.wu, a.wu, a.L, a.D, a.F);
+  if (e == cudaSuccess) e = encode_weight(&a.maps.wd, a.wd, a.L, a.F, a.D);
+  if (e == cudaSuccess)
+    e = a.head != nullptr ? encode_weight(&a.maps.head, a.head, 1, a.D, a.V) : encode_embed_rows(&a.maps.head, a.embed, a.V, a.D);
+  return e;
+}
+
+// The context of a thread's lane from the block's shared memory (every
+// thread); each lane's first thread initialises its barriers and producer.
+// Ends at a block barrier.
+__device__ TcCtx tc_init(unsigned char* smem, const TcLayout& l, float* part, int* cnt) {
+  TcCtx c;
+  c.wg = threadIdx.x / kLaneThreads;
+  c.lane = 2 * blockIdx.x + c.wg;
+  c.lanes = 2 * gridDim.x;
+  uint8_t* ring = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem + l.ring) + 1023) & ~uintptr_t(1023));
+  c.ring = ring + c.wg * kLaneSlots * kBoxBytes;
+  c.full = reinterpret_cast<uint64_t*>(smem + l.bars) + c.wg * kLaneSlots;
+  c.pr = reinterpret_cast<Producer*>(smem + l.prod) + c.wg;
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
+  c.xs = base + c.wg * 2 * kXsBytes;
+  c.ct = reinterpret_cast<float*>(base + 4 * kXsBytes + c.wg * kCtBytes);
+  c.part = part;
+  c.cnt = cnt;
+  c.consumed = 0;
+  c.calls = 0;
+  if (threadIdx.x % kLaneThreads == 0) {
+    for (int i = 0; i < kLaneSlots; ++i) attn_tc::mbar_init(&c.full[i], 1);
+    attn_tc::mbar_fence_init();
+    c.pr->cur_id = c.pr->nxt_id = -1;
+    c.pr->issued = 0;
+  }
+  __syncthreads();
+  return c;
+}
+
+// ---------------------------------------------------------------------------
 // The window
 // ---------------------------------------------------------------------------
 
@@ -1090,9 +1756,24 @@ __device__ int row_argmax(const float* part_val, const int* part_idx, int b, Pic
 // QKV; rope, the K/V write and paged attention; wo and the residual; RMS
 // norm and gate | up; down and the residual. Each phase ends at a grid
 // barrier, after which block 0 stamps slot s0 + phase when profiling.
+template <typename T>
+constexpr bool kTensorCores = sizeof(T) == 2;  // bf16 products on wgmma; f32 on the CUDA-core GEMVs
+
+// A bf16 layer of n rows on the tensor cores: decode_layer's phases, the
+// chunk's K/V written in a phase of its own first (the spec verify) when
+// `chunk_kv`. `after` is the product that follows the layer's down (null:
+// none; the next layer's QKV when l + 1 < L).
+template <typename T>
+__device__ void tc_layer(const Args<T>& a, TcCtx& tc, float* smem, float* inv, int l, int i, int n, bool chunk_kv,
+                         const Phase* after, cg::grid_group& grid, int64_t s0);
+
 template <typename T, int B>
 __device__ void decode_layer(const Args<T>& a, float* smem, float* inv, int l, int i, cg::grid_group& grid,
-                             int64_t s0) {
+                             int64_t s0, TcCtx* tc = nullptr, const Phase* after = nullptr) {
+  if constexpr (kTensorCores<T>) {
+    tc_layer<T>(a, *tc, smem, inv, l, i, B, false, after, grid, s0);
+    return;
+  }
   const int D = a.D, F = a.F;
   const int HQ = a.H * a.HD, HKV = a.KVH * a.HD, NQKV = HQ + 2 * HKV;
   // 1. RMS norm and QKV (rope and the K/V write happen in phase 2).
@@ -1165,18 +1846,32 @@ __device__ void decode_layer(const Args<T>& a, float* smem, float* inv, int l, i
 // Ends at a grid barrier.
 template <typename T, int B>
 __device__ void decode_head(const Args<T>& a, float* smem, float* inv, float* lgs, float* best_v, int* best_i,
-                            float* logits, const float* temps, cg::grid_group& grid) {
+                            float* logits, const float* temps, cg::grid_group& grid, TcCtx* tc = nullptr,
+                            const Phase* next = nullptr) {
   const int tid = threadIdx.x, D = a.D, V = a.V;
-  int* rows = best_i + B;  // [B], the last of gemv_floats
+  constexpr int kBest = kTensorCores<T> ? 2 : 1;  // the tensor-core products keep one (max, index) per lane
+  int* rows = best_i + kBest * B;  // [B], the last of the tail
   row_inv<T, B>(a.h, D, a.eps, inv);
-  if (tid < B) {
+  if (tid < kBest * B) {
     best_v[tid] = -INFINITY;
     best_i[tid] = INT_MAX;
-    // The carry was written by block `tid` before a grid barrier: read through L2.
-    if (a.mask != nullptr) rows[tid] = __ldcg(a.grow + tid);
   }
+  // The carry was written by block `tid` before a grid barrier: read through L2.
+  if (tid < B && a.mask != nullptr) rows[tid] = __ldcg(a.grow + tid);
   __syncthreads();
-  {
+  if constexpr (kTensorCores<T>) {
+    const XSrc x{kXNorm, a.h, D, inv, a.fnorm, 0};
+    OutDst out = {};
+    out.kind = kOutLogits, out.lgs = lgs, out.mask = a.mask, out.rows = rows, out.W32 = a.W32, out.B = B, out.V = V;
+    out.logits = logits, out.temps = temps, out.best_v = best_v, out.best_i = best_i;
+    tc_product<1>(*tc, make_phase(a, kPhHead, 0, B), next, x, out);
+    __syncthreads();
+    if (tid < B) {  // the two lanes' (max, first index): the larger, the lower index on a tie
+      const float v1 = best_v[B + tid];
+      const int i1 = best_i[B + tid];
+      if (v1 > best_v[tid] || (v1 == best_v[tid] && i1 < best_i[tid])) best_v[tid] = v1, best_i[tid] = i1;
+    }
+  } else {
     const XNorm<T> xf{a.h, D, inv, a.fnorm};
     const ArgmaxTile<B> fold{lgs, best_v, best_i, logits, temps, V};
     const OutLogits<B> out{lgs, a.mask, rows, a.W32};
@@ -1195,5 +1890,77 @@ __device__ void decode_head(const Args<T>& a, float* smem, float* inv, float* lg
   grid.sync();
 }
 
-}  // namespace
+// The spec kernel's verify writes its chunk's K/V before any row attends.
+// The verify's K/V: every row's key roped at its position and written with
+// its value (a dead row's to block 0, offset 0), one (row, KV head) per item.
+template <typename T>
+__device__ void write_chunk_kv(const Args<T>& a, int n, int l) {
+  const int KVH = a.KVH, HD = a.HD, BS = a.BS, W = a.W, half = HD / 2;
+  const int HQ = a.H * HD, HKV = KVH * HD, NQKV = HQ + 2 * HKV;
+  const int64_t tok_stride = (int64_t)KVH * HD, page_stride = (int64_t)BS * tok_stride;
+  T* kc = a.kc + (int64_t)l * a.N * page_stride;
+  T* vc = a.vc + (int64_t)l * a.N * page_stride;
+  for (int item = blockIdx.x; item < n * KVH; item += gridDim.x) {
+    const int rv = item / KVH, kvh = item % KVH;
+    const bool live = a.active[rv] != 0;
+    const int pos = __ldcg(a.positions + rv);
+    const int slot = live ? pos : 0;
+    const int64_t blk = (live && slot / BS < W) ? a.tables[(int64_t)rv * W + slot / BS] : 0;
+    const int64_t dst = blk * page_stride + (int64_t)(slot % BS) * tok_stride + (int64_t)kvh * HD;
+    const T* kr = a.qkv + (int64_t)rv * NQKV + HQ + (int64_t)kvh * HD;
+    for (int j = threadIdx.x; j < half; j += kThreads) {
+      const float freq = 1.f / powf(a.theta, (float)(2 * j) / (float)HD);
+      float sn, cs;
+      sincosf((float)pos * freq, &sn, &cs);
+      const float x1 = ld_scratch(kr + j), x2 = ld_scratch(kr + j + half);
+      kc[dst + j] = from_f<T>(x1 * cs - x2 * sn);
+      kc[dst + j + half] = from_f<T>(x2 * cs + x1 * sn);
+    }
+    for (int e = threadIdx.x; e < HD; e += kThreads) vc[dst + e] = from_f<T>(ld_scratch(kr + HKV + e));
+  }
+}
 
+template <typename T>
+__device__ void tc_layer(const Args<T>& a, TcCtx& tc, float* smem, float* inv, int l, int i, int n, bool chunk_kv,
+                         const Phase* after, cg::grid_group& grid, int64_t s0) {
+  const int D = a.D, F = a.F;
+  const int HQ = a.H * a.HD, HKV = a.KVH * a.HD, NQKV = HQ + 2 * HKV;
+  const Phase qkv = make_phase(a, kPhQkv, l, n), wo = make_phase(a, kPhWo, l, n);
+  const Phase gu = make_phase(a, kPhGu, l, n), down = make_phase(a, kPhDown, l, n);
+  const Phase next_qkv = make_phase(a, kPhQkv, l + 1, n);
+  OutDst rows = {}, resid = {};
+  rows.kind = kOutRows;
+  resid.kind = kOutResidual, resid.y = a.h, resid.ld = D;
+  // 1. RMS norm and QKV.
+  row_inv_rows<T>(a.h, n, D, a.eps, inv);
+  rows.y = a.qkv, rows.ld = NQKV;
+  tc_product_rows(tc, qkv, &wo, XSrc{kXNorm, a.h, D, inv, a.anorm + (int64_t)l * D, 0}, rows);
+  grid.sync();
+  stamp(a.prof, s0);
+  // 2. Rope, the K/V write, paged attention.
+  if (chunk_kv) {
+    write_chunk_kv<T>(a, n, l);
+    grid.sync();
+    attention<T>(a, smem, l, 0, n, /*write_kv=*/false);
+  } else {
+    attention<T>(a, smem, l, i, n);
+  }
+  grid.sync();
+  stamp(a.prof, s0 + 1);
+  // 3. wo and the residual.
+  tc_product_rows(tc, wo, &gu, XSrc{kXRows, a.attn, HQ, nullptr, nullptr, 0}, resid);
+  grid.sync();
+  stamp(a.prof, s0 + 2);
+  // 4. RMS norm, gate | up.
+  row_inv_rows<T>(a.h, n, D, a.eps, inv);
+  rows.y = a.gu, rows.ld = 2 * F;
+  tc_product_rows(tc, gu, &down, XSrc{kXNorm, a.h, D, inv, a.mnorm + (int64_t)l * D, 0}, rows);
+  grid.sync();
+  stamp(a.prof, s0 + 3);
+  // 5. down (silu(gate) * up staged) and the residual.
+  tc_product_rows(tc, down, l + 1 < a.L ? &next_qkv : after, XSrc{kXSiluUp, a.gu, 2 * F, nullptr, nullptr, F}, resid);
+  grid.sync();
+  stamp(a.prof, s0 + 4);
+}
+
+}  // namespace

@@ -379,6 +379,76 @@ _WINDOW_BLOCKS_PER_SM = 2
 _WINDOW_MAX_SPLITS = 16
 _window_grid_cache: dict = {}
 
+# The bf16 products of both fused kernels (csrc/fused_window_device.cuh,
+# `tc_product`): column tiles of 64, weight boxes of 128 rows, rows in
+# passes of 64, two lanes (warpgroups) a block walking the items.
+TC_TILE = 64
+TC_BOX_ROWS = 128
+TC_LANES_PER_BLOCK = 2
+
+
+def window_phases(hidden: int, q_width: int, kv_width: int, ffn: int, vocab: int) -> list:
+    """(K, column groups' widths) of the five bf16 product phases in the
+    kernel's order: QKV (wq | wk | wv), wo, gate | up, down, head."""
+    return [(hidden, (q_width, kv_width, kv_width)), (q_width, (hidden,)), (hidden, (ffn, ffn)), (ffn, (hidden,)),
+            (hidden, (vocab,))]
+
+
+def product_plan(K: int, widths, rows: int, lanes: int) -> Tuple[int, int]:
+    """(splits, boxes per split) of one bf16 product phase. Its work items
+    are (column tile, run of boxes): ceil(w / 64) tiles per column group,
+    ceil(K / 128) boxes of depth cut into `splits` runs of `boxes per split`
+    (the last may be shorter). Each of the grid's ``lanes`` (two a block)
+    walks items lane-stride, so the phase takes about ceil(items / lanes)
+    items' boxes, plus a quarter of a box's time per item for its
+    epilogue; a split item
+    also writes its f32 partial (rows × 64 floats, rows / 64 boxes' worth,
+    to L2, taken at a third of a box's cost) and the last split of a tile
+    reads them all back. The plan minimises that cost; more splits must
+    win by 3 %: few-tile phases (QKV, wo, down) split K, wide ones
+    (gate/up, the head) do not."""
+    tiles = sum(-(-w // TC_TILE) for w in widths)
+    boxes = -(-K // TC_BOX_ROWS)
+    part = rows / 192
+    best = None
+    for splits in range(1, boxes + 1):
+        kbs = -(-boxes // splits)
+        if -(-boxes // kbs) != splits:
+            continue  # the same runs as a smaller split count
+        items = tiles * splits
+        extra = part if splits > 1 else 0.0
+        cost = -(-items // lanes) * (kbs + extra + 0.25) + splits * extra
+        if best is None or cost < 0.97 * best[0]:
+            best = (cost, splits, kbs)
+    return best[1], best[2]
+
+
+def plan_items(K: int, widths, splits: int, kbs: int) -> list:
+    """The work items of a planned phase as the kernel numbers them (item =
+    tile · splits + split): (column group, first column in the group,
+    first box, end box) each."""
+    boxes = -(-K // TC_BOX_ROWS)
+    items = []
+    for g, w in enumerate(widths):
+        for t in range(-(-w // TC_TILE)):
+            for s in range(splits):
+                items.append((g, t * TC_TILE, s * kbs, min(boxes, s * kbs + kbs)))
+    return items
+
+
+def window_plan(phases, rows: int, lanes: int) -> Tuple[list, int, int]:
+    """The five phases' (splits, boxes per split) at ``rows`` rows on
+    ``lanes`` lanes (two a block), with the split partials' floats and the
+    per-tile counters they need (0 when no phase splits)."""
+    plan = [product_plan(K, widths, rows, lanes) for K, widths in phases]
+    part = cnt = 0
+    for (K, widths), (splits, _) in zip(phases, plan):
+        if splits > 1:
+            tiles = sum(-(-w // TC_TILE) for w in widths)
+            part = max(part, tiles * splits * rows * TC_TILE)
+            cnt = max(cnt, tiles)
+    return plan, part, cnt
+
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
@@ -500,7 +570,7 @@ def _window_kernel():
         blocks.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         blocks.restype = ctypes.c_int
         launch.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 39 + [ctypes.c_int] * 13
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 42 + [ctypes.c_int] * 13
             + [ctypes.c_float] * 2 + [ctypes.c_void_p]
         )
         launch.restype = ctypes.c_int
@@ -510,6 +580,23 @@ def _window_kernel():
 def window_profile_len(num_steps: int, num_layers: int) -> int:
     """Timer stamps of one profiled window: 1 + steps × (5 per layer + 2)."""
     return 1 + num_steps * (5 * num_layers + 2)
+
+
+def _tc_plan(models, rows, grid: int, dtype: torch.dtype, dev) -> Tuple[ctypes.Array, list]:
+    """The kernel's plan array (each model's five (splits, boxes per split)
+    at its rows, in order) and, in bf16, the split partials and the
+    zeroed per-tile counters the models share (None where no phase
+    splits; f32 runs no bf16 product)."""
+    part = cnt = 0
+    flat = []
+    for phases, n in zip(models, rows):
+        plan, p, c = window_plan(phases, n, TC_LANES_PER_BLOCK * grid)
+        flat += [x for pc in plan for x in pc]
+        part, cnt = max(part, p), max(cnt, c)
+    arr = (ctypes.c_int * len(flat))(*flat)
+    if dtype != torch.bfloat16 or part == 0:
+        return arr, [None, None]
+    return arr, [torch.empty((part,), dtype=torch.float32, device=dev), torch.zeros((cnt,), dtype=torch.int32, device=dev)]
 
 
 def fused_window_grid(dtype: torch.dtype, batch: int, group: int, head_dim: int, device) -> Tuple[int, int]:
@@ -625,6 +712,7 @@ def fused_decode_window(
     theta: float,
     profile: Optional[torch.Tensor] = None,
     rows_out: Optional[torch.Tensor] = None,
+    scratch: Optional[dict] = None,
 ) -> torch.Tensor:
     """``num_steps`` decode steps × every layer in ONE launch. Returns
     ``tokens [num_steps, B]`` int32; the window's K/V rows land in the
@@ -641,7 +729,9 @@ def fused_decode_window(
     kernel's global-timer stamps (ns): one after the step-0 embedding, then
     per step one after each of the 5 phases of each layer, one after the
     head and one after the pick and next embedding (the plain version
-    stamps nothing)."""
+    stamps nothing). ``scratch``, a dict, gets the kernel's sampled
+    epilogue's [B, V] f32 logits scratch as "logits" (the last step's
+    scaled logits; a check of repeat calls reads it)."""
     global WINDOW_KERNEL_LAUNCHES, WINDOW_REF_CALLS, WINDOW_SAMPLED_LAUNCHES, WINDOW_SAMPLED_REF_CALLS
     global WINDOW_GUIDED_LAUNCHES, WINDOW_GUIDED_REF_CALLS
     weights = [embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down]
@@ -722,6 +812,8 @@ def fused_decode_window(
     if profile is not None and (profile.device != dev or profile.dtype != torch.int64
                                 or profile.numel() != window_profile_len(num_steps, L)):
         raise ValueError(f"profile must be int64 [{window_profile_len(num_steps, L)}] on {dev}")
+    # bf16 products: each phase's split plan, its partials and counters.
+    plan, tc_bufs = _tc_plan([window_phases(D, H * HD, KVH * HD, F_, V)], [B], grid, dtype, dev)
     _, launch = _window_kernel()
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(dev):
@@ -730,11 +822,14 @@ def fused_decode_window(
             _DTYPE_CODE[dtype], B, grid,
             *(ptr(t) for t in (embed, head, final_norm, attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up,
                                w_down, k_cache, v_cache, *ints, out, h, qkv, part_acc, gu, tok, part_val,
-                               part_idx, profile, part_ml, attn, split_cnt, *samp, *guide)),
+                               part_idx, profile, part_ml, attn, split_cnt, *samp, *guide, *tc_bufs)),
+            ctypes.cast(plan, ctypes.c_void_p),
             num_steps, L, N, BS, H, KVH, HD, W, D, F_, V, S, P, rms_eps, theta, stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_decode_window kernel launch failed: cudaError {rc}")
+    if scratch is not None and sampled:
+        scratch["logits"] = samp[4]
     WINDOW_KERNEL_LAUNCHES += 1
     WINDOW_SAMPLED_LAUNCHES += sampled
     WINDOW_GUIDED_LAUNCHES += guided
@@ -1026,6 +1121,7 @@ def fused_spec_window(
     d_rms_eps: float,
     d_theta: float,
     profile: Optional[torch.Tensor] = None,
+    scratch: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``rounds`` speculative rounds in ONE launch: per round the draft's
     catch-up and γ proposals, the target's γ+1-token verify and rejection
@@ -1038,7 +1134,9 @@ def fused_spec_window(
     ``spec_profile_len(rounds, gamma)``, gets the kernel's global-timer
     stamps (ns): one at the start, then per round one after the catch-up,
     one after each proposal, one after the verify and one after the
-    rejection sampling (the plain version stamps nothing)."""
+    rejection sampling (the plain version stamps nothing). ``scratch``, a
+    dict, gets the kernel's scaled logits scratch, "draft_logits" [γ, B, V]
+    and "target_logits" [B·(γ+1), V] f32 (the last round's)."""
     global SPEC_KERNEL_LAUNCHES, SPEC_REF_CALLS
     w_t = [t_embed, t_head, t_fnorm, t_anorm, t_mnorm, t_wq, t_wk, t_wv, t_wo, t_wg, t_wu, t_wd]
     w_d = [d_embed, d_head, d_fnorm, d_anorm, d_mnorm, d_wq, d_wk, d_wv, d_wo, d_wg, d_wu, d_wd]
@@ -1095,7 +1193,7 @@ def fused_spec_window(
     f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
     tw = dict(dtype=dtype, device=dev)
 
-    def scratch(m, n, S):
+    def model_scratch(m, n, S):
         """One model's forward scratch over n rows: h, qkv, attention
         partials (acc, (m, l)), attention rows, split counters (zero), gate|up."""
         g = m["H"] // m["KVH"]
@@ -1104,23 +1202,26 @@ def fused_spec_window(
                 torch.empty((n, m["H"] * m["HD"]), **tw), torch.zeros((n * m["KVH"],), **i32),
                 torch.empty((n, 2 * m["F"]), **tw)]
 
+    plan, tc_bufs = _tc_plan([window_phases(m["D"], m["H"] * m["HD"], m["KVH"] * m["HD"], m["F"], V) for m in (t, d)],
+                             [Bv, B], grid, dtype, dev)
+    dlog, tlog = torch.empty((G, B, V), **f32), torch.empty((Bv, V), **f32)  # scaled draft and target logits
     bufs = [
         k_t, v_t, k_d, v_d, *ints[:6], ints[6], *floats, toks_out, accepted,
         torch.empty((3, B), **i32),  # cursors: pos, tok, xprev
         torch.empty((G, B), **i32),  # proposals
-        *scratch(d, B, S_d), *scratch(t, Bv, S_t),
+        *model_scratch(d, B, S_d), *model_scratch(t, Bv, S_t),
         torch.empty((grid, B), **f32), torch.empty((grid, B), **i32),  # draft argmax partials
         ints[3].repeat(G + 1, 1), ints[5].repeat(G + 1), torch.empty((Bv,), **i32),  # verify tables, active, positions
-        torch.empty((G, B, V), **f32), torch.empty((Bv, V), **f32),  # scaled draft and target logits
+        dlog, tlog,
         torch.empty((G, B, 3), **f32), torch.empty((Bv, 3), **f32), torch.empty((Bv,), **i32),  # filters, modes
-        profile,
+        profile, *tc_bufs,
     ]
     ptrs = (ctypes.c_void_p * len(bufs))(*(b.data_ptr() if b is not None else None for b in bufs))
     wptrs = (ctypes.c_void_p * 24)(*(w.data_ptr() if w is not None else None for w in w_t + w_d))
-    dims = (ctypes.c_int * 24)(
+    dims = (ctypes.c_int * 44)(
         B, grid, G, rounds, V, block_size,
         t["L"], t["N"], t["H"], t["KVH"], t["HD"], tables_t.shape[1], t["D"], t["F"], S_t,
-        d["L"], d["N"], d["H"], d["KVH"], d["HD"], tables_d.shape[1], d["D"], d["F"], S_d)
+        d["L"], d["N"], d["H"], d["KVH"], d["HD"], tables_d.shape[1], d["D"], d["F"], S_d, *plan)
     fdims = (ctypes.c_float * 4)(t_rms_eps, t_theta, d_rms_eps, d_theta)
     _, launch = _spec_kernel()
     with torch.cuda.device(dev):
@@ -1128,5 +1229,7 @@ def fused_spec_window(
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_spec_window kernel launch failed: cudaError {rc}")
+    if scratch is not None:
+        scratch.update(draft_logits=dlog, target_logits=tlog)
     SPEC_KERNEL_LAUNCHES += 1
     return toks_out, accepted

@@ -821,3 +821,229 @@ def test_fused_spec_profile_gate_and_refusals(cuda):
                               kv_dtype=torch.bfloat16, device=cuda)
     blocks, sms = mk.fused_spec_grid(torch.bfloat16, 8, 3, 128, 4, 64, cuda)
     assert blocks >= sms == torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+# The bf16 products on the tensor cores (``tc_product`` in
+# csrc/fused_window_device.cuh): models whose widths reach the product's
+# edges. "tiny": wk/wv 32 columns wide (half a 64-column tile); "narrow":
+# D = 32 (a quarter of a 128-row box of depth), wk/wv 16 wide; "uneven":
+# D = 768, F = 3200, where the plan on an H100's 264 lanes splits QKV and
+# the head (V = 256: 4 tiles) 6 ways and cuts down's 25 boxes of depth into
+# runs of 2 (a shorter last run).
+TC_MODELS = {
+    "tiny": {},
+    "narrow": dict(NARROW, num_layers=2),
+    "uneven": dict(hidden_size=768, intermediate_size=3200, num_layers=1),
+}
+
+
+def _tc_case(kind, B, dev, seed, *, steps=WINDOW_STEPS, dtype=torch.bfloat16):
+    """(config, weights, k, v, ints) of a window of B rows (the last dead)
+    at ragged positions over model ``kind`` of ``TC_MODELS``: seeded weights
+    and caches, block 0 scratch with large values, pages at random."""
+    cfg = get_config("tiny").replace(**TC_MODELS[kind])
+    g = torch.Generator().manual_seed(seed)
+    params = init_params(cfg, g, device="cpu", dtype=torch.float32)
+    positions = [int(p) for p in torch.randint(0, 120, (B,), generator=g)]
+    need = [(p + steps - 1) // BS + 1 for p in positions]
+    NB = sum(need) + 1
+    ids = (torch.randperm(NB - 1, generator=g) + 1).to(torch.int32)
+    tables = torch.zeros((B, max(need) + 1), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    k, v = (torch.randn((cfg.num_layers, NB, BS, cfg.num_kv_heads, cfg.head_dim), generator=g) for _ in range(2))
+    k[:, 0] = v[:, 0] = 1e4
+    tokens = torch.randint(1, cfg.vocab_size, (B,), generator=g, dtype=torch.int32)
+    active = torch.tensor([True] * (B - 1) + [B == 1])
+    ints = [tokens, torch.tensor(positions, dtype=torch.int32), tables, active]
+    params = {n: ({kk: vv.to(dev, dtype) for kk, vv in w.items()} if isinstance(w, dict) else w.to(dev, dtype))
+              for n, w in params.items()}
+    return cfg, list(llama._window_weights(params)), k.to(dev, dtype), v.to(dev, dtype), [t.to(dev) for t in ints]
+
+
+def _step0_held(cfg, weights, k, v, ints):
+    """(live rows whose plain bf16 step-0 top-2 logit gap exceeds 4 × the
+    row's bf16 logit noise, the plain argmax): the noise is the row's
+    largest distance from the f32 forward of the same weights and cache.
+    Where the gap exceeds it, rounding cannot flip the kernel's pick."""
+    tokens, positions, tables, active = ints
+    args = (tokens.long(), positions.long(), tables.long(), active.bool())
+    fkw = dict(num_heads=cfg.num_heads, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
+    lg = mk._cache_forward(tuple(weights), k.clone(), v.clone(), *args, **fkw)
+    w32 = tuple(w.float() if w is not None else None for w in weights)
+    truth = mk._cache_forward(w32, k.float(), v.float(), *args, **fkw)
+    noise = (lg - truth).abs().amax(dim=-1)
+    top = lg.topk(2, dim=-1)
+    return (top.values[:, 0] - top.values[:, 1] > 4 * noise) & active.bool(), top.indices[:, 0]
+
+
+def _window_kw(cfg, steps=WINDOW_STEPS):
+    return dict(num_steps=steps, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                block_size=BS, rms_eps=cfg.rms_norm_eps, theta=cfg.rope_theta)
+
+
+@pytest.mark.parametrize("kind", list(TC_MODELS))
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_bf16_window_products_match_plain_version(cuda, B, kind):
+    """The bf16 window on the tensor-core products at 1, 8 and 32 rows
+    against its plain version from copies of one cache: step-0 K/V within
+    2^-5 of their scale (each side rounds every product to bf16 in its own
+    summation order), step-0 tokens equal wherever the plain top-2 gap
+    exceeds the row's bf16 noise, every other slot (block 0 aside) as it
+    was, one launch. "uneven"'s plan has a shorter last split."""
+    cfg, w, k, v, ints = _tc_case(kind, B, cuda, 600 + B)
+    kw = _window_kw(cfg)
+    if kind == "uneven":
+        blocks, sms = mk.fused_window_grid(torch.bfloat16, B, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, cuda)
+        phases = mk.window_phases(cfg.hidden_size, cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim,
+                                  cfg.intermediate_size, cfg.vocab_size)
+        plan, _, _ = mk.window_plan(phases, B, mk.TC_LANES_PER_BLOCK * min(blocks, 2 * sms))
+        assert any(s > 1 and -(-K // mk.TC_BOX_ROWS) % kbs for (K, _), (s, kbs) in zip(phases, plan))
+    held, plain0 = _step0_held(cfg, w, k, v, ints)
+    kk, vk, kr, vr = k.clone(), v.clone(), k.clone(), v.clone()
+    before = mk.WINDOW_KERNEL_LAUNCHES
+    toks = mk.fused_decode_window(*w, kk, vk, *ints, **kw)
+    ref = mk.fused_decode_window_ref(*w, kr, vr, *ints, **kw)
+    torch.cuda.synchronize()
+    assert mk.WINDOW_KERNEL_LAUNCHES == before + 1
+    tables, live = ints[2].cpu(), ints[3].cpu()
+    first = torch.zeros(k.shape[1:3], dtype=torch.bool)
+    written = torch.zeros_like(first)
+    for b, pos in enumerate(ints[1].cpu().tolist()):
+        if live[b]:
+            first[int(tables[b, pos // BS]), pos % BS] = True
+            for j in range(WINDOW_STEPS):
+                written[int(tables[b, (pos + j) // BS]), (pos + j) % BS] = True
+    first, keep = first.to(cuda), ~written.to(cuda)
+    keep[0] = False
+    assert torch.equal(kk[:, keep], k[:, keep]) and torch.equal(vk[:, keep], v[:, keep])
+    scale = max(kr[:, first].float().abs().max().item(), vr[:, first].float().abs().max().item())
+    for got, want in ((kk, kr), (vk, vr)):
+        assert (got[:, first].float() - want[:, first].float()).abs().max().item() <= 2**-5 * scale
+    assert torch.equal(toks[0][held].cpu(), ref[0][held].cpu())
+    assert torch.equal(ref[0][held].cpu(), plain0[held].to(torch.int32).cpu())
+    assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+
+
+@pytest.mark.parametrize("epilogue", ["greedy", "sampled", "guided"])
+def test_bf16_fused_window_is_bit_equal_on_repeat(cuda, epilogue):
+    """Two calls of the bf16 window on the tensor-core products from copies
+    of one cache ("uneven": split phases merged by their last split) give
+    equal tokens, caches and, guided, FSM rows."""
+    from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    cfg, w, k, v, ints = _tc_case("uneven", 4, cuda, 650)
+    kw = _window_kw(cfg)
+    extra, out = (), [{}, {}]
+    if epilogue != "greedy":
+        extra = _sample_rows(4, WINDOW_STEPS, cuda, 651)
+    if epilogue == "guided":
+        dec = GuidedDecoder(ByteTokenizer(), eos_ids=[0], vocab_size=cfg.vocab_size, pool_rows=16, device=cuda)
+        states = [None if s is None else dec.open(s) for s in GUIDED_SPECS]
+        rows0 = torch.tensor([0 if st is None else st.row_id for st in states], dtype=torch.int32, device=cuda)
+        extra = (*extra, rows0, dec.pool.device(), dec.pool.next_device())
+        out = [dict(rows_out=torch.empty(4, dtype=torch.int32, device=cuda)) for _ in range(2)]
+    runs = []
+    for i in range(2):
+        kk, vk = k.clone(), v.clone()
+        runs.append((mk.fused_decode_window(*w, kk, vk, *ints, *extra, **kw, **out[i]), kk, vk))
+    torch.cuda.synchronize()
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    if epilogue == "guided":
+        assert torch.equal(out[0]["rows_out"], out[1]["rows_out"])
+
+
+def _tc_spec(B, gamma, draft, dev, seed, target="tiny"):
+    """(target cfg, draft cfg, weights, caches, inputs) of a bf16 spec
+    window over B rows (the last dead) at ragged positions: target
+    ``TC_MODELS[target]``, draft the target itself ("self", copies of its
+    cache) or "narrow" (``NARROW``'s widths, its own cache); greedy rows."""
+    tcfg = get_config("tiny").replace(**TC_MODELS[target])
+    dcfg = get_config("tiny").replace(**NARROW) if draft == "narrow" else tcfg
+    g = torch.Generator().manual_seed(seed)
+    tp = init_params(tcfg, g, device="cpu", dtype=torch.float32)
+    dp = init_params(dcfg, g, device="cpu", dtype=torch.float32) if draft == "narrow" else tp
+    positions = [int(p) for p in torch.randint(1, 100, (B,), generator=g)]
+    span = SPEC_R * (gamma + 1)
+    need = [(p + span) // BS + 1 for p in positions]
+    NB = sum(need) + 1
+    ids = (torch.randperm(NB - 1, generator=g) + 1).to(torch.int32)
+    tables = torch.zeros((B, max(need) + 1), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    caches = []
+    for cfg in (tcfg, dcfg):
+        for _ in range(2):
+            c = torch.randn((cfg.num_layers, NB, BS, cfg.num_kv_heads, cfg.head_dim), generator=g)
+            c[:, 0] = 1e4
+            caches.append(c.to(dev, torch.bfloat16))
+    if draft == "self":
+        caches[2:] = [c.clone() for c in caches[:2]]
+    u = torch.from_numpy(np.random.default_rng(seed).random((SPEC_R, B, 2 * gamma + 1), dtype=np.float32)).to(dev)
+    inputs = [torch.randint(1, tcfg.vocab_size, (B,), generator=g, dtype=torch.int32).to(dev),
+              torch.randint(1, tcfg.vocab_size, (B,), generator=g, dtype=torch.int32).to(dev),
+              torch.tensor(positions, dtype=torch.int32, device=dev), tables.to(dev), tables.to(dev),
+              torch.tensor([True] * (B - 1) + [False], device=dev), torch.zeros(B, device=dev),
+              torch.zeros(B, dtype=torch.int32, device=dev), torch.ones(B, device=dev), u]
+    to = lambda p: {n: ({kk: vv.to(dev, torch.bfloat16) for kk, vv in w.items()} if isinstance(w, dict)  # noqa: E731
+                        else w.to(dev, torch.bfloat16)) for n, w in p.items()}
+    w = [*llama._window_weights(to(tp)), *llama._window_weights(to(dp))]
+    return tcfg, dcfg, w, caches, inputs
+
+
+@pytest.mark.parametrize("B,gamma,draft,target", [(4, 2, "self", "tiny"), (4, 2, "narrow", "tiny"),
+                                                  (16, 4, "self", "uneven"), (32, 8, "self", "uneven")],
+                         ids=["12 rows", "12 rows narrow", "80 rows", "288 rows"])
+def test_bf16_spec_window_verify_matches_plain_version(cuda, B, gamma, draft, target):
+    """The bf16 spec window on the tensor-core products, its verify over B
+    (γ + 1) rows: 12 (not a multiple of 8), 80 (past one 64-row tile: two
+    passes) and 288 (five passes of 64 over each staged box), the last
+    two over "uneven"'s split phases. Against
+    the plain version from copies of the same caches: the draft's catch-up
+    K/V and, for each live row whose round 0 agrees, its confirmed verify
+    rows' target K/V within 2^-5 of their scale; tokens in range,
+    accept counts in [0, γ], one launch; a repeat call bit-equal (block 0
+    aside). Only
+    round 0's confirmed slots (pos .. pos + k) are compared: later rounds
+    rewrite the rejected ones, after the two sides' tokens may part."""
+    tcfg, dcfg, w, caches, inputs = _tc_spec(B, gamma, draft, cuda, 700 + B + gamma, target)
+    kw = {**_spec_kw(tcfg, dcfg), "gamma": gamma}
+    runs = []
+    before = mk.SPEC_KERNEL_LAUNCHES
+    for _ in range(2):
+        kern = [c.clone() for c in caches]
+        runs.append((*mk.fused_spec_window(*w, *kern, *inputs, **kw), kern))
+    plain = [c.clone() for c in caches]
+    ref_toks, ref_acc = mk.fused_spec_window_ref(*w, *plain, *inputs, **kw)
+    torch.cuda.synchronize()
+    assert mk.SPEC_KERNEL_LAUNCHES == before + 2
+    toks, acc, kern = runs[0]
+    assert torch.equal(toks, runs[1][0]) and torch.equal(acc, runs[1][1])
+    # Block 0 is the dead rows' sink: the dead row's γ + 1 verify rows race there.
+    assert all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(kern, runs[1][2]))
+    live = inputs[5].cpu()
+    assert bool(((toks >= 0) & (toks < tcfg.vocab_size)).all()) and bool(((acc >= 0) & (acc <= gamma)).all())
+    tables, positions = inputs[3].cpu(), inputs[2].cpu().tolist()
+    catch = torch.zeros(caches[2].shape[1:3], dtype=torch.bool)
+    verify = torch.zeros(caches[0].shape[1:3], dtype=torch.bool)
+    same = 0
+    for b, p in enumerate(positions):
+        if not live[b]:
+            continue
+        catch[int(tables[b, (p - 1) // BS]), (p - 1) % BS] = True
+        if torch.equal(toks[0, b].cpu(), ref_toks[0, b].cpu()) and int(acc[0, b]) == int(ref_acc[0, b]):
+            same += 1
+            for j in range(int(acc[0, b]) + 1):
+                verify[int(tables[b, (p + j) // BS]), (p + j) % BS] = True
+    assert same >= 1
+    for sel, pair in ((catch, (2, 3)), (verify, (0, 1))):
+        sel = sel.to(cuda)
+        scale = max(plain[i][:, sel].float().abs().max().item() for i in pair)
+        err = max((kern[i][:, sel].float() - plain[i][:, sel].float()).abs().max().item() for i in pair)
+        assert err <= 2**-5 * scale, (err, scale)

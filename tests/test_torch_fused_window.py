@@ -315,3 +315,65 @@ def test_guided_fused_window_matches_jax(tied, order, shift):
             cursor.advance(tok)
             row = int(nxt[row, tok])
         assert int(rows_out[b]) == row
+
+
+# (g) The bf16 products' work plan (``megakernel.product_plan``; the kernel
+# walks the items ``plan_items`` lists): at published widths and at
+# ``tiny``, for a decode window's rows and the spec verify's B·(γ+1), on an
+# H100's 264 lanes (132 blocks of two). Expected scratch: (partials'
+# floats, counters) at 8 and 40 rows.
+PLAN_SCRATCH = {
+    "llama-3.2-1b": {8: (131072, 48), 40: (655360, 48)},
+    "llama-3.2-3b": {8: (270336, 80), 40: (614400, 80)},
+    "llama-3-8b": {8: (917504, 448), 40: (4587520, 448)},
+    "tiny": {8: (0, 0), 40: (0, 0)},
+}
+
+
+def _plan_phases(name):
+    c = get_config(name)
+    return tmk.window_phases(c.hidden_size, c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim,
+                            c.intermediate_size, c.vocab_size)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32, 40, 80, 288])
+@pytest.mark.parametrize("name", list(PLAN_SCRATCH))
+def test_product_plan_covers_each_column_and_box_once(name, rows):
+    """Every phase's items cover each (column, 128-row box of K) exactly
+    once: per column group its tiles start at 0, 64, ... up to the width,
+    and each tile's box runs are disjoint and together [0, ceil(K / 128));
+    a split plan's runs are all non-empty and at most ``kbs`` boxes."""
+    phases = _plan_phases(name)
+    plan, part, cnt = tmk.window_plan(phases, rows, 264)
+    assert len(plan) == 5
+    for (K, widths), (splits, kbs) in zip(phases, plan):
+        boxes = -(-K // tmk.TC_BOX_ROWS)
+        assert splits >= 1 and kbs >= 1 and (splits - 1) * kbs < boxes <= splits * kbs
+        runs = {}
+        for g, c0, lo, hi in tmk.plan_items(K, widths, splits, kbs):
+            assert 0 <= lo < hi <= boxes and hi - lo <= kbs
+            runs.setdefault((g, c0), []).append((lo, hi))
+        for g, w in enumerate(widths):
+            starts = sorted(c0 for gg, c0 in runs if gg == g)
+            assert starts == list(range(0, w, tmk.TC_TILE))
+            for c0 in starts:
+                edges = sorted(runs[(g, c0)])
+                assert edges[0][0] == 0 and edges[-1][1] == boxes
+                assert all(a[1] == b[0] for a, b in zip(edges, edges[1:]))
+        assert len(tmk.plan_items(K, widths, splits, kbs)) == sum(-(-w // tmk.TC_TILE) for w in widths) * splits
+    if rows in PLAN_SCRATCH[name]:
+        assert (part, cnt) == PLAN_SCRATCH[name][rows]
+    # The partials stay a few MB (L2-sized), whatever the rows.
+    assert part * 4 <= 40 * 2**20
+
+
+def test_product_plan_splits_the_narrow_phases():
+    """At llama-3.2-1b's widths and 8 rows the few-tile phases (QKV's 48
+    tiles, wo's and down's 32) split K so their items cover the 264 lanes,
+    and gate/up (256 tiles) and the head (2004) do not; a phase whose boxes
+    the runs do not divide leaves a shorter last run (down at D = 768, F =
+    3200: 25 boxes in runs of 2)."""
+    plan, _, _ = tmk.window_plan(_plan_phases("llama-3.2-1b"), 8, 264)
+    assert plan == [(4, 4), (8, 2), (1, 16), (8, 8), (1, 16)]
+    plan, _, _ = tmk.window_plan(tmk.window_phases(768, 64, 32, 3200, 256), 8, 264)
+    assert plan[3] == (13, 2)
