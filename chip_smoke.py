@@ -21,8 +21,13 @@ paths, the fused window, greedy and sampled, against ``decode_multi``,
 and the spec window speculating with the target's own weights against
 the fused window's greedy stream, and llama-3.2-1b with int8 KV and int8
 weights (resident bytes; bf16 steps against the plain path and f32; an
-f32 ``decode_multi`` window's tokens and written codes); times a decode
-step and a mixed step (bf16, and int8), the
+f32 ``decode_multi`` window's tokens and written codes); replays each
+CUDA graph the scheduler captures (``engine/graphs.py``: prefill, mixed,
+decode, ``decode_sample``, the draw at B = 1 and 8, a ``decode_multi``
+window; bf16 and int8) on the inputs of an eager call and holds logits,
+tokens and KV blocks bit-equal, then again after refilling its static
+buffers; times a decode
+step and a mixed step (bf16, and int8; eager and as graphs), the
 per-step threefry draw and a 32-step decode window, greedy, sampled and
 guided, and a spec window; then serves ``dynamo_tpu_torch.run in=http
 out=llama-3.2-1b`` five times: on the megakernel path and on the
@@ -32,7 +37,10 @@ windows, every window fused, sampled rows drawn in the kernel), and with
 a llama-3.2-1b draft of the target's weights (``--draft-model``: every
 batch speculates in fused spec windows), and with ``--kv-cache-dtype
 int8 --weight-dtype int8`` (every step through the ragged kernel's int8
-branch, a copy-on-write prefix hit on the int8 cache), sending each concurrent
+branch, a copy-on-write prefix hit on the int8 cache); the megakernel
+passes start with ``--warmup-ctx 2048`` (the step graphs captured before
+traffic: its seconds, graphs and pool bytes, and no capture after it) and
+the 1-step pass must run the overlapped decode pipeline; sending each concurrent
 requests and counting every kernel's launches; the windows and spec
 passes also send one seeded sampled request at two batch slots and hold
 its two answers equal, and structured-output requests
@@ -53,6 +61,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import gc
 import http.client
 import json
 import shutil
@@ -60,6 +69,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -2014,6 +2024,175 @@ def phase_model(dev):
     torch.cuda.empty_cache()
     phase_model_window(dev)
     phase_model_int8(dev)
+    phase_model_graphs(dev)
+
+
+def graph_diff(what: str, want: torch.Tensor, got: torch.Tensor, dims: tuple) -> Optional[dict]:
+    """None when ``got`` (a graph replay's) is bit-equal to ``want`` (the
+    eager call's), else the largest difference, how many elements differ
+    and the first of them by ``dims``, and what that points at."""
+    if want.shape != got.shape or want.dtype != got.dtype:
+        return {"what": what, "cause": f"shape or dtype {tuple(want.shape)} {want.dtype} != "
+                                       f"{tuple(got.shape)} {got.dtype}"}
+    if torch.equal(want, got):
+        return None
+    bad = want != got
+    first = [int(i) for i in torch.nonzero(bad)[0].tolist()]
+    at = dict(zip(dims, first))
+    if what.startswith("kv"):
+        cause = (f"the replay's KV rows first differ in layer {at.get('layer')}: that layer's forward ran "
+                 f"differently under the graph (a kernel's launch, or a cuBLAS algorithm chosen on the capture "
+                 f"stream)")
+    elif what == "tokens":
+        cause = "the draw differs: its logits, its keys or its static inputs were not the eager call's"
+    else:
+        cause = "the logits differ while the inputs were the same: a step op ran differently under capture"
+    return {"what": what, "max_abs_diff": (want.float() - got.float()).abs().max().item(),
+            "differing": int(bad.sum()), "first_at": at, "cause": cause}
+
+
+def phase_model_graphs(dev):
+    """Each graphed step of ``engine/graphs.py`` against the eager call on
+    the same inputs, llama-3.2-1b at full width in bf16 and in int8 (KV and
+    weights): a 512-bucket prefill chunk, a mixed step (128-token chunk,
+    8 decode rows), a decode step, ``decode_sample`` (sampled rows among
+    greedy ones), the draw at B = 1 and 8 (one key) and at B = 8 (per-row
+    keys), and an 8-step ``decode_multi`` window, all at table width 32;
+    ``decode_sample``, the draw at B = 8 and the window also all-greedy (no
+    key: the greedy graphs).
+    The cache is restored between the eager call and the replay; logits,
+    tokens and every KV block but the scratch must be bit-equal. Each kind
+    runs twice, on two sets of inputs: the first call captures, the second
+    replays after its static buffers were refilled, so a capture that froze
+    an input cannot pass."""
+    from dynamo_tpu_torch.engine import prng
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+    from dynamo_tpu_torch.engine.kv_cache import KvCacheArrays, QuantKv
+    from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.engine.quant import quantize_params
+    from dynamo_tpu_torch.engine.sampling import sample_batch_device
+    from dynamo_tpu_torch.engine.weights import init_params
+
+    base = get_config(PRESET)
+    V, NB, W, B, steps = base.vocab_size, 320, 32, 8, 8
+    params = init_params(base, torch.Generator(device=dev).manual_seed(4), device=dev, dtype=torch.bfloat16)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    failed, rows = [], []
+    for label in ("bf16", "int8"):
+        cfg = base if label == "bf16" else base.replace(kv_cache_dtype="int8", weight_dtype="int8")
+        p = params if label == "bf16" else quantize_params(dict(params, layers=dict(params["layers"])))
+        cache = KvCacheArrays.create(cfg, NB, dtype=torch.bfloat16, device=dev)
+        parts = [x for c in (cache.k, cache.v) for x in ((c.q, c.scale) if isinstance(c, QuantKv) else (c,))]
+        for c in (cache.k, cache.v):
+            if isinstance(c, QuantKv):
+                c.q.random_(-127, 128)
+                c.scale.uniform_(0.005, 0.03)
+            else:
+                c.normal_()
+        g = StepGraphs(dev)
+
+        def inputs(seed):
+            rng = np.random.default_rng(seed)
+            ids = rng.permutation(np.arange(1, NB)).astype(np.int32)
+            tables = ids[:B * W].reshape(B, W).copy()
+            chunk_table = ids[B * W:(B + 1) * W].copy()  # the mixed step's chunk: blocks of its own
+            n = B - seed % 3  # some dead lanes
+            tpa = np.stack([rng.integers(1, V, size=B), rng.integers(100, W * base.block_size - steps - 1, size=B),
+                            (np.arange(B) < n)]).astype(np.int32)
+            temps = np.where(rng.random(B) < 0.4, rng.uniform(0.6, 1.2, size=B), 0.0).astype(np.float32)
+            top_ks = np.where(rng.random(B) < 0.5, rng.integers(1, 60, size=B), 0).astype(np.int32)
+            top_ps = np.where(rng.random(B) < 0.5, rng.uniform(0.5, 1.0, size=B), 1.0).astype(np.float32)
+            return dict(rng=rng, tables=tables, chunk_table=chunk_table, tpa=tpa, samp=(temps, top_ks, top_ps),
+                        key=prng.fold_in(prng.PRNGKey(seed), 7),
+                        row_keys=prng.split(prng.PRNGKey(seed + 100), B),
+                        logits=torch.randn((B, V), generator=torch.Generator(device=dev).manual_seed(seed),
+                                           device=dev) * 3,
+                        tokens=rng.integers(1, V, size=512).astype(np.int32), valid=int(rng.integers(150, 400)),
+                        cache_len=int(rng.integers(0, 100)), p_valid=int(rng.integers(40, 128)))
+
+        def dev_tpa(x):
+            d = t(x["tpa"])
+            return d[0], d[1], t(x["tables"]), d[2].bool()
+
+        kinds = {
+            "prefill": (
+                lambda x: {"logits": llama.prefill(p, cfg, cache.k, cache.v, t(x["tokens"]), x["valid"], x["cache_len"],
+                                                   t(x["tables"][0]))[0]},
+                lambda x: {"logits": g.prefill("target", p, cfg, cache, x["tokens"], x["valid"], x["cache_len"],
+                                               x["tables"][0])[0]}),
+            "mixed": (
+                lambda x: {"logits": llama.mixed_step(p, cfg, cache.k, cache.v, t(x["tokens"][:128]), x["p_valid"],
+                                                      x["cache_len"], t(x["chunk_table"]), *dev_tpa(x))[0]},
+                lambda x: {"logits": torch.cat(g.mixed(p, cfg, cache, x["tokens"][:128], x["p_valid"], x["cache_len"],
+                                                       x["chunk_table"], x["tpa"], x["tables"]))}),
+            "decode": (
+                lambda x: {"logits": llama.decode(p, cfg, cache.k, cache.v, *dev_tpa(x))[0]},
+                lambda x: {"logits": g.decode(p, cfg, cache, x["tpa"], x["tables"])}),
+            "decode_sample": (
+                lambda x: dict(zip(("tokens", "next_tpa"), llama.decode_sample(
+                    p, cfg, cache.k, cache.v, t(x["tpa"]), t(x["tables"]), *map(t, x["samp"]), x["key"])[:2])),
+                lambda x: dict(zip(("tokens", "next_tpa"), g.decode_sample(
+                    p, cfg, cache, x["tpa"], x["tables"], *x["samp"], x["key"])))),
+            "draw B=1": (
+                lambda x: {"tokens": sample_batch_device(x["logits"][:1], *(t(a[:1]) for a in x["samp"]), x["key"])},
+                lambda x: {"tokens": g.draw(x["logits"][:1], *(a[:1] for a in x["samp"]), x["key"])}),
+            "draw B=8": (
+                lambda x: {"tokens": sample_batch_device(x["logits"], *map(t, x["samp"]), x["key"])},
+                lambda x: {"tokens": g.draw(x["logits"], *x["samp"], x["key"])}),
+            "draw B=8 seeded": (
+                lambda x: {"tokens": sample_batch_device(x["logits"], *map(t, x["samp"]), None, x["row_keys"])},
+                lambda x: {"tokens": g.draw(x["logits"], *x["samp"], x["key"], x["row_keys"])}),
+            "decode_multi": (
+                lambda x: {"tokens": llama.decode_multi(p, cfg, cache.k, cache.v, *dev_tpa(x), *x["samp"], x["key"],
+                                                        steps)[0]},
+                lambda x: {"tokens": g.decode_multi(p, cfg, cache, x["tpa"], x["tables"], *x["samp"],
+                                                    prng.split_many(x["key"], steps), steps)}),
+            # An all-greedy batch: no key, the greedy graphs (the argmax, no draw).
+            "decode_sample greedy": (
+                lambda x: dict(zip(("tokens", "next_tpa"), llama.decode_sample(
+                    p, cfg, cache.k, cache.v, t(x["tpa"]), t(x["tables"]), None, None, None, None)[:2])),
+                lambda x: dict(zip(("tokens", "next_tpa"), g.decode_sample(
+                    p, cfg, cache, x["tpa"], x["tables"], *x["samp"], None)))),
+            "draw B=8 greedy": (
+                lambda x: {"tokens": sample_batch_device(x["logits"], None, None, None, None)},
+                lambda x: {"tokens": g.draw(x["logits"], *x["samp"], None)}),
+            "decode_multi greedy": (
+                lambda x: {"tokens": llama.decode_multi(p, cfg, cache.k, cache.v, *dev_tpa(x), *x["samp"], None,
+                                                        steps)[0]},
+                lambda x: {"tokens": g.decode_multi(p, cfg, cache, x["tpa"], x["tables"], *x["samp"], None, steps)}),
+        }
+        for kind, (eager, graphed) in kinds.items():
+            for turn, seed in enumerate((11, 12)):
+                x = inputs(seed)
+                saved = [c.clone() for c in parts]
+                want = {k: v.clone() for k, v in eager(x).items()}
+                kv_want = [c[:, 1:].clone() for c in parts]
+                for c, s0 in zip(parts, saved):
+                    c.copy_(s0)
+                t0 = time.perf_counter()
+                got = {k: v.clone() for k, v in graphed(x).items()}
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                diffs = [graph_diff(k, want[k], got[k], ("row", "col")) for k in want]
+                diffs += [graph_diff(f"kv part {i}", a, b[:, 1:], ("layer", "block", "slot", "head", "dim"))
+                          for i, (a, b) in enumerate(zip(kv_want, parts))]
+                diffs = [d for d in diffs if d]
+                row = {"model": label, "kind": kind, "inputs": "captured" if turn == 0 else "refilled",
+                       "bit_equal": not diffs, "graph_call_s": secs, "diffs": diffs}
+                rows.append(row)
+                if diffs:
+                    failed.append(row)
+                    print(f"chip_smoke: graph replay of {kind} ({label}, {row['inputs']}) is not bit-equal to the "
+                          f"eager call: {json.dumps(diffs)}", file=sys.stderr, flush=True)
+        res = {"graphs": len(g), "captures": g.captures_total, "capture_s": g.capture_s_total}
+        emit("model", preset=PRESET, path=f"graphs {label}", **res,
+             checks=[{k: r[k] for k in ("kind", "inputs", "bit_equal", "graph_call_s")} for r in rows
+                     if r["model"] == label])
+        del g, cache, parts
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"graph replays differ from the eager calls: {failed}")
 
 
 def phase_model_window(dev):
@@ -2488,13 +2667,47 @@ def window_breakdown(params, cfg, cache, d_args, steps):
     return rows
 
 
+def graphed_rows(params, cfg, cache, d_args, p_tok, chunk, ctx, p_table) -> dict:
+    """The breakdown's decode and mixed steps replayed as CUDA graphs
+    (``engine/graphs.py``, as the scheduler runs them): step ms (events),
+    host ms to stage and replay, device-busy ms and device operations
+    (profiler), idle share, and the step's ratio to its device-busy ms;
+    the host ms of the graph's launch alone beside the staging and launch."""
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+
+    g = StepGraphs(d_args[0].device)
+    tokens, positions, tables, _ = (x.cpu().numpy() for x in d_args)
+    tpa = np.stack([tokens, positions, np.ones_like(tokens)]).astype(np.int32)
+    W = max(tables.shape[1], len(p_table))
+    tables_m = np.pad(tables, ((0, 0), (0, W - tables.shape[1])))
+    p_table_m = np.pad(p_table, (0, W - len(p_table)))
+    p_tok_h = p_tok.cpu().numpy()
+    fns = {"graphed decode": lambda: g.decode(params, cfg, cache, tpa, tables),
+           "graphed mixed": lambda: g.mixed(params, cfg, cache, p_tok_h, chunk, ctx, p_table_m, tpa, tables_m)}
+    rows = {}
+    for name, fn in fns.items():
+        fn()  # the capture
+        graph = list(g._graphs.values())[-1].graph
+        step_ms = cuda_ms(fn, iters=20)
+        busy, n_ops = device_busy_ms(fn)
+        rows[name] = {"step_ms": step_ms, "host_replay_ms": host_enqueue_ms(fn),
+                      # The CUDA graph's launch alone, without the staging.
+                      "host_graph_launch_ms": host_enqueue_ms(graph.replay), "device_busy_ms": busy,
+                      "device_idle_share": 1 - busy / step_ms if busy else None, "device_ops": n_ops,
+                      "step_over_busy": step_ms / busy if busy else None}
+    return rows
+
+
 def draw_breakdown(dev, V):
     """The per-step paths' draw (``sampling.sample_batch_device``, threefry
     gumbel noise over [B, V] plus the exact top-k/top-p thresholds): a first
     token (B = 1, T = 0.8, top-p 0.9) and a mixed step's 8 rows in
-    ``SAMPLE_MIX``'s turn. Event ms, host ms to queue it, device-busy ms
-    and device operations per draw."""
+    ``SAMPLE_MIX``'s turn, eager and as the scheduler's draw graph (the 8
+    rows also all-greedy, through the greedy graph). Event
+    ms, host ms to queue it, device-busy ms, idle share and device
+    operations per draw."""
     from dynamo_tpu_torch.engine import prng
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
     from dynamo_tpu_torch.engine.sampling import sample_batch_device
 
     logits = torch.randn((8, V), generator=torch.Generator(device=dev).manual_seed(9), device=dev)
@@ -2504,12 +2717,18 @@ def draw_breakdown(dev, V):
                              np.array([0.9], np.float32)),
              "8_rows": (logits, temps, top_ks, top_ps)}
     rows = {}
+    g = StepGraphs(dev)
     for name, (lg, t, k, p) in cases.items():
-        fn = lambda: sample_batch_device(lg, t, k, p, key)  # noqa: E731
-        ms = cuda_ms(fn, iters=10)
-        busy, n_ops = device_busy_ms(fn, runs=1)
-        rows[name] = {"rows": lg.shape[0], "ms": ms, "host_enqueue_ms": host_enqueue_ms(fn, iters=5),
-                      "device_busy_ms": busy, "device_ops": n_ops}
+        runs = [("", lambda: sample_batch_device(lg, t, k, p, key)), ("graphed ", lambda: g.draw(lg, t, k, p, key))]
+        if name == "8_rows":
+            # An all-greedy batch: the greedy graph (no key), the argmax alone.
+            runs.append(("graphed greedy ", lambda: g.draw(lg, t * 0, k, p, None)))
+        for kind, fn in runs:
+            ms = cuda_ms(fn, iters=10)
+            busy, n_ops = device_busy_ms(fn, runs=1)
+            rows[kind + name] = {"rows": lg.shape[0], "ms": ms, "host_enqueue_ms": host_enqueue_ms(fn, iters=5),
+                                 "device_busy_ms": busy, "device_idle_share": 1 - busy / ms if busy else None,
+                                 "device_ops": n_ops}
     return rows
 
 
@@ -2523,7 +2742,10 @@ def phase_breakdown(dev):
     host; ``device_busy_ms`` (torch.profiler) is the card's own work, and
     the rest of the step is the card waiting for the host. The same two
     steps of the int8 deployment (int8 KV and int8 weights, the megakernel
-    path: its int8 branch, and each layer's weights dequantized). Then one
+    path: its int8 branch, and each layer's weights dequantized), and on
+    the megakernel paths both steps again as the scheduler's CUDA graphs
+    (``graphed decode``/``graphed mixed``: host ms to stage and replay, and
+    the step over its device-busy ms). Then one
     32-step window over the same 8 decode rows: fused greedy, fused
     sampled, fused guided, and the non-fused greedy ``decode_multi``; and
     the per-step paths' threefry draw."""
@@ -2604,6 +2826,8 @@ def phase_breakdown(dev):
                            flash_launches=timer.count("flash"), paged_launches=timer.count("paged"))
             row["attention_share"] = row["attention_ms"] / step_ms
             rows[name] = row
+        if path != "paged+flash":
+            rows.update(graphed_rows(p_, cfg, c_, d_args, p_tok, chunk, ctx, p_table))
         res[path] = rows
     res["int8 resident"] = {"weights_bytes": tree_bytes(params8), "kv_cache_bytes": sum(
         t.numel() * t.element_size() for c in (cache8.k, cache8.v) for t in c)}
@@ -2702,6 +2926,10 @@ SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows", "spec", "int8
 # The spec pass's scheduler counters: fused spec windows, the tokens they
 # emitted, and the draft's prefill chunks.
 SPEC_COUNTERS = ("spec_fused_windows_total", "spec_fused_accepted_tokens_total", "draft_prefill_steps_total")
+OVERLAP_COUNTERS = ("overlap_steps_total", "overlap_flushes_total")
+# The context the megakernel passes' warmup captures the step graphs for
+# (every prompt of the serve phase fits).
+WARMUP_CTX = 2048
 # The windows pass's seeded request: its prompt is shorter than one KV block.
 SEEDED = {"prompt": "seeded draw", "max_tokens": 24, "temperature": 0.8, "seed": 4242}
 # Structured outputs: a streamed greedy JSON-schema chat request and a
@@ -2747,7 +2975,14 @@ def phase_serve(card: str, path: str):
     kernel's int8 branch once per layer and nothing else; after the burst
     and the repeat, a 64-token prompt is sent while a request with the same
     prompt decodes, a full-cover prefix hit whose last block is copied on
-    write (``_copy_block`` over the int8 codes and scales)."""
+    write (``_copy_block`` over the int8 codes and scales). Every pass but
+    the per-piece one starts with ``--warmup-ctx 2048``: its step graphs
+    are captured before traffic (the warmup's seconds, graphs and the
+    bytes the allocator reserved for them are reported) and none may be
+    captured after; replays credit their launches to the kernels' counts.
+    Overlapped decode is on (the default): the 1-step megakernel pass must
+    run the pipeline (``overlap_steps_total`` > 0); its steps count as
+    decode forward steps."""
     from dynamo_tpu_torch import run
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
@@ -2761,6 +2996,9 @@ def phase_serve(card: str, path: str):
     extra = ["--draft-model", PRESET, "--spec-gamma", str(SPEC_GAMMA)] if spec else []
     if int8:
         extra = ["--kv-cache-dtype", "int8", "--weight-dtype", "int8"]
+    if path != "paged+flash":
+        # The megakernel path's steps are CUDA graphs: capture them before traffic.
+        extra += ["--warmup-ctx", str(WARMUP_CTX)]
     args = run.parse_args(["in=http", f"out={PRESET}", "--http-host", "127.0.0.1", "--http-port", "0", *extra])
     # Self-speculation: the draft gets the weights the engine makes for the
     # target from the same seed.
@@ -2803,7 +3041,7 @@ def phase_serve(card: str, path: str):
         await service.start()
         try:
             kinds = ("forward", "prefill", "decode", "mixed")
-            counters = WINDOW_COUNTERS + SPEC_COUNTERS + ("cow_blocks_total",)
+            counters = WINDOW_COUNTERS + SPEC_COUNTERS + OVERLAP_COUNTERS + ("cow_blocks_total",)
             steps0 = {k: getattr(sched, f"{k}_steps_total") for k in kinds}
             steps0.update({k: getattr(sched, k) for k in counters})
             reset_counts()  # counts from zero, just before the main path runs
@@ -2835,8 +3073,11 @@ def phase_serve(card: str, path: str):
         finally:
             await service.stop()
             await engine.stop()
+        graphs = {"warmup": sched.warmup_stats, "captures_total": sched.graph_captures_total,
+                  "captures_after_warmup": sched.graph_captures_after_warmup,
+                  "replays_total": sched._graphs.replays_total if sched._graphs is not None else 0}
         return (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, sched.mc, impl,
-                sched.sc.num_scheduler_steps, seeded_windows, cow)
+                sched.sc.num_scheduler_steps, seeded_windows, cow, graphs)
 
     def register_seconds(fsm, pool):
         """Seconds the step loop spends writing ``fsm``'s rows into a fresh
@@ -2891,7 +3132,7 @@ def phase_serve(card: str, path: str):
         return _summarize(*second[:2], False)[2], sched.cow_blocks_total - cow0
 
     (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, mc, impl, sched_steps,
-     seeded_windows, cow) = asyncio.run(serve())
+     seeded_windows, cow, graphs) = asyncio.run(serve())
     answers, guided_answers = [], []
     for (url, body), (status, data, first, total) in zip(reqs, results):
         n, finish, cached = _summarize(status, data, body.get("stream", False))
@@ -2939,6 +3180,7 @@ def phase_serve(card: str, path: str):
         "num_scheduler_steps": sched_steps,
         "kernel_launches": launches, "expected_launches": want, "plain_calls": plain,
         "mixed_steps_total": metrics["mixed_steps_total"], "cached_tokens_total": metrics["cached_tokens_total"],
+        "overlap": {k: steps[k] for k in OVERLAP_COUNTERS}, "graphs": graphs,
     }
     if guided_answers:
         res["guided"] = guided_answers
@@ -2976,6 +3218,10 @@ def phase_serve(card: str, path: str):
     if windows and (steps["multi_windows_total"] or not steps["fused_sampled_windows_total"]
                     or not steps["fused_guided_windows_total"]):
         raise AssertionError(f"the windows pass ran a non-fused window, or no sampled or guided fused one: {steps}")
+    if path != "paged+flash" and graphs["captures_after_warmup"] != 0:
+        raise AssertionError(f"the {path} pass captured graphs after its warmup: {graphs}")
+    if path == "megakernel" and not steps["overlap_steps_total"]:
+        raise AssertionError(f"the 1-step megakernel pass ran no overlapped decode step: {steps}")
     if int8 and (steps["fused_windows_total"] or not steps["multi_windows_total"] or cow != (63, 1)):
         raise AssertionError(f"the int8 pass ran a fused window, no decode_multi window, or its repeat did not "
                              f"copy the shared block: {steps}, copy-on-write {cow}")
@@ -3116,44 +3362,118 @@ def windows_from(root: str) -> None:
     emit("windows_from", root=root, package=dynamo_tpu_torch.__file__, card=gpu_name_and_power(), windows=out)
 
 
-def parent_windows(parent: str) -> list:
-    """``windows_from`` over the parent tree and this one in separate
-    processes, in the order parent, this, this, parent (one card, one
-    call): each run's line."""
+# The serve passes ``--parent`` times on both trees.
+PARENT_SERVE_PASSES = ("megakernel+windows",)
+SERVE_FROM_KEYS = ("decode_tok_per_s", "wall_s", "ttft_p50_s", "ttft_unguided_p50_s", "steps", "graphs")
+
+
+def serve_from(root: str, path: str) -> None:
+    """The serve pass ``path`` of the tree under ``root`` (another tree's,
+    e.g. the parent commit's, unpacked by ``git archive``): that tree's own
+    ``phase_serve`` over its own package, three times in this process. The
+    first run warms the process (libraries loaded, allocator, handles and
+    the runtime's lazy state), as the earlier phases do before the serve
+    phase of a full run; the later two are the readings. Prints one
+    ``serve_from`` line with every run's tokens/s, wall, TTFTs, steps,
+    graphs, garbage-collection seconds, grammar compile seconds and each
+    answer's latency."""
+    import importlib.util
+    import os
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke", os.path.join(root, "chip_smoke.py"))
+    tree = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tree)
+    import dynamo_tpu_torch
+
+    card = gpu_name_and_power()
+    # Seconds the garbage collector held the interpreter during each run
+    # (an earlier run's engine freed in a later one's steps shows here).
+    gc_s, started = [0.0], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - started[0]
+
+    gc.callbacks.append(on_gc)
+    runs = []
+    for _ in range(3):
+        gc_s[0] = 0.0
+        r = tree.phase_serve(card, path)
+        grammars = ((r.get("guided_stats") or {}).get("guided_pool") or {}).get("grammars", [])
+        runs.append({**{k: r.get(k) for k in SERVE_FROM_KEYS}, "gc_s": gc_s[0],
+                     "latency_s": [a.get("latency_s") for a in r["answers"]],
+                     # Each grammar's compile seconds (the windows pass's wall follows json_object's).
+                     "grammar_compile_s": {g["pattern"][:24]: g["compile_s"] for g in grammars}})
+    gc.callbacks.remove(on_gc)
+    emit("serve_from", root=root, package=dynamo_tpu_torch.__file__, card=card, path=path, runs=runs)
+
+
+def alternate(parent: str, phase: str, argv) -> list:
+    """``argv(root)`` of this script over the parent tree and this one in
+    separate processes, in the order parent, this, this, parent (one card,
+    one call): each run's ``phase`` line."""
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for root in (parent, here, here, parent):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--windows-from", root],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), *argv(root)],
                               capture_output=True, text=True, timeout=900)
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"phase": "windows_from"')]
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(f'{{"phase": "{phase}"')]
         if proc.returncode != 0 or not lines:
-            raise RuntimeError(f"windows_from {root} failed: {proc.stderr[-2000:]}")
+            raise RuntimeError(f"{phase} {root} failed: {proc.stderr[-2000:]}")
         runs.append(json.loads(lines[-1]))
     return runs
+
+
+def build_tree(root: str) -> subprocess.Popen:
+    """Start building another tree's kernels from its own sources, into its
+    own ``build/`` (its ``_build.build()``, one ``nvcc`` per source)."""
+    return subprocess.Popen([sys.executable, "-c", "from dynamo_tpu_torch import _build; _build.build()"],
+                            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def parent_runs(parent: str) -> dict:
+    """The parent tree beside this one, in turns: its greedy windows
+    (``windows_from``) and each of ``PARENT_SERVE_PASSES`` (``serve_from``)."""
+    out = {"windows": alternate(parent, "windows_from", lambda root: ["--windows-from", root])}
+    for path in PARENT_SERVE_PASSES:
+        out[path] = alternate(parent, "serve_from", lambda root: ["--serve-from", root, "--serve-pass", path])
+    return out
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases", default="env,build,kernel,model,breakdown,serve")
     p.add_argument("--parent", default=None,
-                   help="another tree of the port (the parent commit's): its greedy windows timed beside this one's")
+                   help="another tree of the port (the parent commit's): its greedy windows and its "
+                        "PARENT_SERVE_PASSES timed beside this one's, each tree with the kernels built from its "
+                        "own sources")
     p.add_argument("--windows-from", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--serve-from", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--serve-pass", default=PARENT_SERVE_PASSES[0], help=argparse.SUPPRESS)
     args = p.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    if args.windows_from:
-        windows_from(args.windows_from)
-        return 0
-    dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # bf16 products of the plain versions accumulate in f32, as the kernels'.
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if args.windows_from:
+        windows_from(args.windows_from)
+        return 0
+    if args.serve_from:
+        serve_from(args.serve_from, args.serve_pass)
+        return 0
+    parent_build = build_tree(args.parent) if args.parent else None
+    dev = torch.device("cuda", 0)
     card = gpu_name_and_power()
     emit("env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
@@ -3169,6 +3489,11 @@ def main() -> int:
          libraries={n: {"seconds": r["seconds"], "ptxas": [ln for ln in r["log"].splitlines() if "ptxas" in ln],
                         "sass": sass[n]}
                     for n, r in built.items()})
+    if parent_build is not None:
+        # The other tree's build ends before anything is timed.
+        log, _ = parent_build.communicate()
+        if parent_build.returncode != 0:
+            raise RuntimeError(f"building {args.parent}'s kernels failed: {log[-2000:]}")
     # The fused kernels' bf16 products run on wgmma: their libraries hold HGMMA.
     for name in ("fused_decode_window", "fused_spec_window"):
         if sass[name]["HGMMA"] == 0:
@@ -3193,7 +3518,7 @@ def main() -> int:
     if "serve" in phases:
         served = timed_phase("serve", lambda: {path: phase_serve(card, path) for path in SERVE_PASSES})
     if args.parent:
-        emit("parent_windows", runs=timed_phase("parent", lambda: parent_windows(args.parent)))
+        emit("parent", **timed_phase("parent", lambda: parent_runs(args.parent)))
     emit("seconds", **seconds, total=sum(seconds.values()))
     if phases != {"env", "build", "kernel", "model", "breakdown", "serve"}:
         return 0  # a partial run reports no result

@@ -20,7 +20,7 @@ never reads ``lengths`` back to the host.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -41,8 +41,12 @@ _SPLIT_KEYS = 256
 _MAX_SPLITS = 64
 # Per device: the kernel's per-(row, KV head) arrival counters. Zero
 # between launches (the last block of each row resets its own), so they
-# are zeroed once, when allocated or grown.
+# are zeroed once, when allocated; the scheduler sizes them up front
+# (``reserve_counters``), so they never move once a step has run.
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
+# Counters that a growth replaced (either table's): a CUDA graph captured
+# before the growth holds their address and goes on using them.
+_SUPERSEDED: List[torch.Tensor] = []
 
 
 def split_keys(width: int, block_size: int) -> int:
@@ -56,6 +60,30 @@ def num_splits(width: int, block_size: int) -> int:
     """Blocks per (row, KV head): enough splits for a row as long as the
     table, at least one."""
     return max(1, -(-width * block_size // split_keys(width, block_size)))
+
+
+def grow_counters(device: torch.device, n: int, table: Dict[torch.device, torch.Tensor]) -> torch.Tensor:
+    """``table``'s counters on ``device`` with room for ``n``, allocated or
+    grown (zeroed) outside a stream capture only. The tensor a growth
+    replaces is kept alive (``_SUPERSEDED``): a graph captured earlier holds
+    its address and goes on writing it on every replay."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    counters = table.get(device)
+    if counters is None or counters.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"split counters for {n} (query, KV head) slots grow under a CUDA graph capture; "
+                               "reserve_counters must size them before the first capture")
+        if counters is not None:
+            _SUPERSEDED.append(counters)
+        counters = table[device] = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+    return counters
+
+
+def reserve_counters(device, n: int) -> None:
+    """Size the arrival counters on ``device`` for ``n`` = the largest
+    rows · KV heads a launch will have, before any capture."""
+    grow_counters(torch.device(device), n, _COUNTERS)
 
 
 def paged_decode_partials_ref(
@@ -167,9 +195,7 @@ def paged_decode_partials(
     # Each split's (m, l, acc) when a row has more than one; never zeroed.
     scratch = torch.empty(B * num_kv_heads * G * (HD + 2) * splits if splits > 1 else 0,
                           dtype=torch.float32, device=q.device)
-    counters = _COUNTERS.get(q.device)
-    if counters is None or counters.numel() < B * num_kv_heads:
-        counters = _COUNTERS[q.device] = torch.zeros(B * num_kv_heads, dtype=torch.int32, device=q.device)
+    counters = grow_counters(q.device, B * num_kv_heads, _COUNTERS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = launch(

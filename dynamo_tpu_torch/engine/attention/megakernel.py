@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch import _build
-from dynamo_tpu_torch.engine.attention.decode import num_splits, split_keys
+from dynamo_tpu_torch.engine.attention.decode import grow_counters, num_splits, split_keys
 from dynamo_tpu_torch.engine.kv_cache import QuantKv
 from dynamo_tpu_torch.engine.sampling import (
     apply_token_masks, filtered_probs_rows, pick_from_probs, sample_from_uniforms,
@@ -56,13 +56,21 @@ _TILE_ROWS = 128
 _MAX_GROUP = 64
 # Per device: the split path's per-(query slot, KV head) arrival counters,
 # apart from paged_decode_partials'. Zero between launches (the merging
-# block resets its own), so they are zeroed once, when allocated or grown.
+# block resets its own), so they are zeroed once, when allocated. A CUDA
+# graph keeps the address it captured, so the scheduler sizes them up front
+# (``reserve_counters``) and they never move under a capture.
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 _SMS: Dict[torch.device, int] = {}
 # The wrapper's per-shape host work, done once: shared-memory bytes by
 # (dtype, int8, G, HD, BS), and the bf16 grid by launch_plan's arguments.
 _SMEM: Dict[tuple, int] = {}
 _GRIDS: Dict[tuple, tuple] = {}
+
+
+def reserve_counters(device, n: int) -> None:
+    """Size the split path's arrival counters on ``device`` for ``n`` =
+    the largest rows · KV heads a launch will have, before any capture."""
+    grow_counters(torch.device(device), n, _COUNTERS)
 
 
 def launch_plan(num_queries: int, num_heads: int, num_kv_heads: int, rows: int, width: int, block_size: int,
@@ -319,9 +327,7 @@ def ragged_paged_attention(
         splits = grid[3]
         scratch = torch.empty(R * KVH * splits * G * (HD + 2) if splits > 1 else 0,
                               dtype=torch.float32, device=q.device)
-        counters = _COUNTERS.get(q.device)
-        if counters is None or counters.numel() < R * KVH:
-            counters = _COUNTERS[q.device] = torch.zeros(max(R * KVH, 1), dtype=torch.int32, device=q.device)
+        counters = grow_counters(q.device, R * KVH, _COUNTERS)
     extra = (
         scratch.data_ptr() if scratch is not None else None, counters.data_ptr() if counters is not None else None,
         NQ, H, KVH, HD, k_extra.shape[0], W, block_size, R, *grid,

@@ -78,6 +78,9 @@ class EngineArgs:
     kv_cache_dtype: str = "auto"
     # Weight storage dtype override ("auto" | "int8") — config.py weight_dtype.
     weight_dtype: str = "auto"
+    # Capture the step graphs for contexts up to this many tokens before
+    # taking traffic (Scheduler.warmup; 0 = capture each on first use).
+    warmup_ctx: int = 0
 
     def __post_init__(self):
         if self.draft_checkpoint_path:
@@ -147,6 +150,9 @@ class TorchEngine:
                 gen = torch.Generator(device=device).manual_seed(args.seed + 1)
                 draft_params = init_params(dc, gen, device=device, dtype=dtype)
             engine.scheduler.attach_draft(dc, draft_params, gamma=args.spec_gamma)
+        if args.warmup_ctx > 0:
+            n = engine.scheduler.warmup(args.warmup_ctx)
+            logger.info("captured %d step graphs (ctx %d)", n, args.warmup_ctx)
         return engine
 
     def _on_kv_event(self, ev: KvEvent) -> None:
@@ -166,6 +172,7 @@ class TorchEngine:
             self._loop_task = None
         self._step_thread.shutdown(wait=False)
         self._compile_thread.shutdown(wait=False, cancel_futures=True)
+        self.scheduler.close()
 
     async def _loop(self) -> None:
         try:
@@ -286,9 +293,13 @@ class TorchEngine:
         return self.scheduler.metrics()
 
     def stats(self) -> dict:
-        """The worker's stats: the load snapshot's keys, and with a
-        tokenizer attached the guided-decoding counters."""
+        """The worker's stats: the load snapshot's keys, the step graphs'
+        counters, and with a tokenizer attached the guided-decoding
+        counters."""
         stats = self.metrics().to_wire()
+        sched = self.scheduler
+        stats["graph_captures_total"] = sched.graph_captures_total
+        stats["graph_captures_after_warmup"] = sched.graph_captures_after_warmup
         if self.scheduler.guided is not None:
             stats.update(self.scheduler.guided.stats())
         return stats

@@ -33,6 +33,7 @@ weights applied as ``x @ w``.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import logging
@@ -69,14 +70,23 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta**exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Split-halves rotary embedding. x: [T, heads, head_dim]; positions: [T]."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # [hd/2]
-    angles = positions[:, None].float() * freqs  # [T, hd/2]
-    cos = torch.cos(angles)[:, None, :]
-    sin = torch.sin(angles)[:, None, :]
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) ``[T, 1, hd/2]`` of the rotary angles at ``positions [T]``:
+    made once a step and shared by every layer's queries and keys."""
+    angles = positions[:, None].float() * rope_frequencies(head_dim, theta, positions.device)  # [T, hd/2]
+    return torch.cos(angles)[:, None, :], torch.sin(angles)[:, None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Split-halves rotary embedding of x ``[T, heads, head_dim]`` by
+    ``rope_angles``."""
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Split-halves rotary embedding. x: [T, heads, head_dim]; positions: [T]."""
+    return rotate(x, *rope_angles(positions, x.shape[-1], theta))
 
 
 def _mlp(x: torch.Tensor, lp: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -158,11 +168,12 @@ def _layers(
     v_flat = v_cache.reshape(L * N, bs, KVH, HD)
     k_rows = h.new_empty((L, T, KVH, HD))
     v_rows = h.new_empty((L, T, KVH, HD))
+    rope = rope_angles(positions, HD, c.rope_theta)
     for l in range(L):
         lp = _layer_weights(params["layers"], l, h.dtype)
         x = rms_norm(h, lp["attn_norm"], c.rms_norm_eps)
-        q = apply_rope((x @ lp["wq"]).view(T, H, HD), positions, c.rope_theta)
-        k = apply_rope((x @ lp["wk"]).view(T, KVH, HD), positions, c.rope_theta)
+        q = rotate((x @ lp["wq"]).view(T, H, HD), *rope)
+        k = rotate((x @ lp["wk"]).view(T, KVH, HD), *rope)
         v = (x @ lp["wv"]).view(T, KVH, HD)
         attn = attend(l, q, k, v, k_flat, v_flat).to(h.dtype)
         h = h + attn.reshape(T, c.q_size) @ lp["wo"]
@@ -336,14 +347,28 @@ def _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _scalar(x, dev) -> torch.Tensor:
+    """A step's scalar (a Python int, or already a 0-d device tensor) as a
+    0-d int32 tensor on ``dev``, as the JAX package traces it."""
+    return x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=torch.int32, device=dev)
+
+
+def _row(h: torch.Tensor, last) -> torch.Tensor:
+    """Row ``max(last, 0)`` of ``h`` → ``[1, D]``; a device scalar index is
+    never read back to the host."""
+    if not isinstance(last, torch.Tensor):
+        return h[max(last, 0)][None]
+    return h.index_select(0, last.clamp(min=0).reshape(1).long())
+
+
 def prefill(
     params: Params,
     config: ModelConfig,
     k_cache: torch.Tensor,  # [L, N, BS, KVH, HD]
     v_cache: torch.Tensor,
     tokens: torch.Tensor,  # [T] bucket-padded token ids
-    valid_len: int,  # actual new tokens
-    cache_len: int,  # tokens already in the block table (prefix reuse / chunks)
+    valid_len,  # actual new tokens: a 0-d int device tensor (or a Python int)
+    cache_len,  # tokens already in the block table (prefix reuse / chunks), as valid_len
     block_table: torch.Tensor,  # [W] block ids (0 = scratch)
     use_flash: bool = False,  # per-piece paths: the flash kernel for the chunk piece
     has_prefix: bool = True,  # False ⇒ cache_len == 0: flash skips the prefix piece
@@ -352,32 +377,41 @@ def prefill(
     """One prefill (or prefill chunk): one ragged row of T queries, query i
     attending the ``cache_len`` cached tokens and fresh keys ``[0, i+1)``.
     Returns (last_logits [V] f32, or with ``all_logits`` every row's [T,
-    V], k_cache, v_cache); the caches are updated in place. The megakernel
-    path ignores ``use_flash`` and ``has_prefix``."""
+    V], k_cache, v_cache); the caches are updated in place. On the
+    megakernel path ``valid_len`` and ``cache_len`` stay on the device, so
+    a CUDA graph replays the step for any of their values; it ignores
+    ``use_flash`` and ``has_prefix``. The per-piece paths read them as
+    Python ints."""
     c = config
     T = tokens.shape[0]
     dev = tokens.device
     iq = torch.arange(T, dtype=torch.int32, device=dev)
-    positions = cache_len + iq
-    valid_q = iq < valid_len
     h = _embed(params, tokens)
-    tgt_blocks, tgt_offs = ragged_scatter_targets(block_table, positions, valid_q, c.block_size)
     N = k_cache.shape[1]
     if resolve_attention_impl(c, k_cache) == "megakernel":
+        valid_len, cache_len = _scalar(valid_len, dev), _scalar(cache_len, dev)
+        positions = cache_len + iq
+        valid_q = iq < valid_len
         meta = megakernel.build_meta(
-            torch.zeros_like(iq), torch.full_like(iq, cache_len), torch.zeros_like(iq), iq + 1, valid_q
+            torch.zeros_like(iq), cache_len.expand_as(iq), torch.zeros_like(iq), iq + 1, valid_q
         )
         attend = _mega_attend(c, block_table[None, :], meta, N)
     else:
+        valid_len, cache_len = int(valid_len), int(cache_len)
+        positions = cache_len + iq
+        valid_q = iq < valid_len
         table = block_table.long()
 
         def attend(l, q, k, v, k_flat, v_flat):
             return _chunk_attention(c, q, k, v, k_flat, v_flat, table + l * N, valid_len, cache_len,
                                     use_flash, has_prefix)
 
+    tgt_blocks, tgt_offs = ragged_scatter_targets(block_table, positions, valid_q, c.block_size)
     h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend)
     _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs)
-    return _logits(params, c, h if all_logits else h[max(valid_len - 1, 0)]), k_cache, v_cache
+    if all_logits:
+        return _logits(params, c, h), k_cache, v_cache
+    return _logits(params, c, _row(h, valid_len - 1))[0], k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +478,49 @@ def decode(
 # ---------------------------------------------------------------------------
 
 
+def decode_sample(
+    params: Params,
+    config: ModelConfig,
+    k_cache: torch.Tensor,  # [L, N, BS, KVH, HD]
+    v_cache: torch.Tensor,
+    tpa: torch.Tensor,  # [3, B] i32 — rows: (tokens, positions, active)
+    block_tables: torch.Tensor,  # [B, W]
+    temps: torch.Tensor,  # [B] f32 (0 = greedy)
+    top_ks: torch.Tensor,  # [B] i32 (0 = off)
+    top_ps: torch.Tensor,  # [B] f32 (1 = off)
+    rng_key,  # [2] threefry key, numpy or a device tensor
+) -> Tuple[torch.Tensor, ...]:
+    """One decode step and its draw for the overlapped pipeline, all on the
+    device: ``decode``, then ``sample_batch_device``, then the next step's
+    inputs ``next_tpa = [sampled; positions + 1; active]``. Returns
+    ``(sampled [B] i32, next_tpa [3, B] i32, k_cache, v_cache)``: the
+    scheduler hands ``next_tpa`` straight back to launch step N+1 before it
+    reads step N's tokens (the JAX ``decode_sample``)."""
+    positions = tpa[1].to(torch.int32)
+    logits, _, _ = decode(params, config, k_cache, v_cache, tpa[0], positions, block_tables, tpa[2].bool())
+    sampled = sample_batch_device(logits, temps, top_ks, top_ps, rng_key)
+    return sampled, torch.stack([sampled, positions + 1, tpa[2].to(torch.int32)]), k_cache, v_cache
+
+
+@dataclass
+class WindowCarry:
+    """A decode window's device state across its steps: the fresh K/V rows
+    of the steps so far ``[L, w, B, KVH, HD]`` in the compute dtype, the
+    token each row feeds the next step, and the tokens out ``[w, B]``."""
+
+    k_win: torch.Tensor
+    v_win: torch.Tensor
+    toks: torch.Tensor
+    out: torch.Tensor
+
+    @classmethod
+    def create(cls, params: Params, c: ModelConfig, steps: int, batch: int, device) -> "WindowCarry":
+        k_win = torch.zeros((c.num_layers, steps, batch, c.num_kv_heads, c.head_dim), dtype=params["embed"].dtype,
+                            device=device)
+        return cls(k_win, torch.zeros_like(k_win), torch.zeros((batch,), dtype=torch.int32, device=device),
+                   torch.zeros((steps, batch), dtype=torch.int32, device=device))
+
+
 def decode_multi(
     params: Params,
     config: ModelConfig,
@@ -453,9 +530,9 @@ def decode_multi(
     positions: torch.Tensor,  # [B] write slot of the current token
     block_tables: torch.Tensor,  # [B, max_blocks] — must cover positions+num_steps
     active: torch.Tensor,  # [B] bool
-    temps: np.ndarray,  # [B] f32 (0 = greedy)
-    top_ks: np.ndarray,  # [B] i32 (0 = off)
-    top_ps: np.ndarray,  # [B] f32 (1 = off)
+    temps,  # [B] f32 (0 = greedy), numpy or tensor
+    top_ks,  # [B] i32 (0 = off)
+    top_ps,  # [B] f32 (1 = off)
     rng_key: Optional[np.ndarray],  # [2] uint32 threefry key (None: an all-greedy window)
     num_steps: int,
     moe_stats: bool = False,
@@ -467,79 +544,100 @@ def decode_multi(
     result. Returns ``(tokens_out [num_steps, B] int32, k_cache,
     v_cache)``. Stop conditions are checked by the caller afterwards.
 
-    Window-local KV, as in the JAX version: the cache is read-only for the
-    whole window. Each step's fresh K/V rows go into a carry ``[L,
-    num_steps, B, KVH, HD]`` in the compute dtype, which later steps attend
-    beside the cached prefix (on the megakernel path as the ragged kernel's
-    fresh keys, ``[current ; window rows]`` per row; on the per-piece paths
-    as the in-register piece), and ONE write at the end puts the window's
-    rows in the cache. With an int8 cache that write is the only
-    quantization: a later step attends the window's earlier rows at full
-    precision, as JAX's does. Each step splits ``rng_key`` and draws with
-    the subkey (``sample_batch``), as the JAX version does; with
-    ``uniforms`` it picks through ``sample_from_uniforms(..., uniforms[i])``
-    instead, the fused window's sampled contract. ``moe_stats`` and
+    The inputs go to the device once, before the loop; each step is
+    ``decode_multi_step`` (what a CUDA graph of the window replays). Each
+    step splits ``rng_key`` and draws with the subkey, as the JAX version
+    does (``prng.split_many`` makes the subkeys at once); with ``uniforms``
+    it picks through ``sample_from_uniforms(..., uniforms[i])`` instead,
+    the fused window's sampled contract. ``moe_stats`` and
     ``return_logits`` are not ported yet."""
     if moe_stats or return_logits:
         raise NotImplementedError(
             "decode_multi: moe_stats and return_logits are not ported yet (ROADMAP Queue 1 item 16)"
         )
+    dev = tokens.device
+    carry = WindowCarry.create(params, config, num_steps, tokens.shape[0], dev)
+    keys = None if rng_key is None else torch.from_numpy(prng.split_many(rng_key, num_steps).view(np.int32)).to(dev)
+    samp = [torch.as_tensor(x).to(dev) for x in (temps, top_ks, top_ps)]
+    if uniforms is not None:
+        uniforms = uniforms.to(dev)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(num_steps):
+        decode_multi_step(params, config, k_cache, v_cache, tokens, positions, block_tables, active, *samp, keys,
+                          step, carry, uniforms=uniforms)
+    return carry.out, k_cache, v_cache
+
+
+def decode_multi_step(
+    params: Params,
+    config: ModelConfig,
+    k_cache: torch.Tensor,  # [L, N, BS, KVH, HD]
+    v_cache: torch.Tensor,
+    tokens: torch.Tensor,  # [B] the window's first tokens
+    positions: torch.Tensor,  # [B] the window's first write slots
+    block_tables: torch.Tensor,  # [B, W] — must cover positions + w
+    active: torch.Tensor,  # [B] bool
+    temps: torch.Tensor,  # [B] f32 (0 = greedy)
+    top_ks: torch.Tensor,  # [B] i32 (0 = off)
+    top_ps: torch.Tensor,  # [B] f32 (1 = off)
+    keys: Optional[torch.Tensor],  # [w, 2] the steps' threefry keys (None: an all-greedy window)
+    step: torch.Tensor,  # 0-d int32: this step's index in the window, advanced in place
+    carry: WindowCarry,
+    uniforms: Optional[torch.Tensor] = None,  # [w, B] f32 — inverse-CDF draws instead of keys
+) -> None:
+    """Step ``step`` of a decode window, all on the device: step 0 feeds
+    ``tokens``, a later step the carry's tokens. Window-local KV, as in the
+    JAX version: the cached prefix each step attends is the window start's,
+    and the window's earlier rows come from the carry, in the compute dtype
+    (on the megakernel path as the ragged kernel's fresh keys, ``[current ;
+    window rows]`` per row; on the per-piece paths as the in-register
+    piece). The step writes its own rows to the cache at ``positions +
+    step``, past the prefix every step reads, so the cache ends as the JAX
+    version's single write leaves it (with an int8 cache each row is
+    quantized once, from the compute dtype, as there)."""
     c = config
     L, KVH, HD, bs = c.num_layers, c.num_kv_heads, c.head_dim, c.block_size
-    B, w = tokens.shape[0], num_steps
+    k_win, v_win = carry.k_win, carry.v_win
+    w, B = k_win.shape[1], tokens.shape[0]
     N = k_cache.shape[1]
     dev = tokens.device
     positions = positions.to(torch.int32)
     ctx = block_tables.shape[1] * bs
-    dtype = params["embed"].dtype
-    k_win = torch.zeros((L, w, B, KVH, HD), dtype=dtype, device=dev)
-    v_win = torch.zeros_like(k_win)
     impl = resolve_attention_impl(c, k_cache)
     rows = torch.arange(B, dtype=torch.int32, device=dev)
-    if impl != "megakernel":
-        # The cached prefix is the window start's for every step.
+    cur = torch.where(step == 0, tokens.to(torch.int32), carry.toks)
+    if impl == "megakernel":
+        # Row b's fresh keys are its slice [current ; window rows] of the
+        # carry; rows past this step are masked by the causal frontier.
+        meta = megakernel.build_meta(rows, positions.clamp(max=ctx), rows * (w + 1), rows * (w + 1) + 1 + step,
+                                     torch.ones_like(rows))
+        mega = _mega_attend(c, block_tables, meta, N)
+
+        def attend(l, q, k, v, k_flat, v_flat):
+            k_extra = torch.cat([k[:, None], k_win[l].transpose(0, 1)], 1).reshape(B * (w + 1), KVH, HD)
+            v_extra = torch.cat([v[:, None], v_win[l].transpose(0, 1)], 1).reshape(B * (w + 1), KVH, HD)
+            return mega(l, q, k_extra, v_extra, k_flat, v_flat)
+    else:
         tables, prefix = _decode_prefix(impl, block_tables, positions, bs)
-    out = torch.empty((w, B), dtype=torch.int32, device=dev)
+        live = (torch.arange(w, device=dev) < step)[None, :].expand(B, w)
+
+        def attend(l, q, k, v, k_flat, v_flat):
+            window = (k_win[l].transpose(0, 1), v_win[l].transpose(0, 1), live)
+            return _decode_rows_attention(c, impl, q, k, v, k_flat, v_flat, tables + l * N, prefix, window)
+
+    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, _embed(params, cur), positions + step, attend)
+    idx = step.reshape(1).long()
+    k_win.index_copy_(1, idx, k_rows[:, None])
+    v_win.index_copy_(1, idx, v_rows[:, None])
+    _write_kv(k_cache, v_cache, k_rows, v_rows, *decode_targets(positions + step, block_tables, active, bs))
+    logits = _logits(params, c, h)
     if uniforms is not None:
-        samp_rows = [torch.as_tensor(x).to(dev) for x in (temps, top_ks, top_ps)]
-        uniforms = uniforms.to(dev)
-    toks = tokens.to(torch.int32)
-    for i in range(w):
-        if impl == "megakernel":
-            # Row b's fresh keys are its slice [current ; window rows] of the
-            # carry; rows past step i are masked by the causal frontier.
-            meta = megakernel.build_meta(rows, positions.clamp(max=ctx), rows * (w + 1), rows * (w + 1) + 1 + i,
-                                         torch.ones_like(rows))
-            mega = _mega_attend(c, block_tables, meta, N)
-
-            def attend(l, q, k, v, k_flat, v_flat):
-                k_extra = torch.cat([k[:, None], k_win[l].transpose(0, 1)], 1).reshape(B * (w + 1), KVH, HD)
-                v_extra = torch.cat([v[:, None], v_win[l].transpose(0, 1)], 1).reshape(B * (w + 1), KVH, HD)
-                return mega(l, q, k_extra, v_extra, k_flat, v_flat)
-        else:
-            live = (torch.arange(w, device=dev) < i)[None, :].expand(B, w)
-
-            def attend(l, q, k, v, k_flat, v_flat):
-                window = (k_win[l].transpose(0, 1), v_win[l].transpose(0, 1), live)
-                return _decode_rows_attention(c, impl, q, k, v, k_flat, v_flat, tables + l * N, prefix, window)
-
-        h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, _embed(params, toks), positions + i, attend)
-        k_win[:, i] = k_rows
-        v_win[:, i] = v_rows
-        logits = _logits(params, c, h)
-        if uniforms is not None:
-            toks = sample_from_uniforms(logits, *samp_rows, uniforms[i])
-        else:
-            sub = None
-            if rng_key is not None:
-                rng_key, sub = prng.split(rng_key)
-            toks = sample_batch_device(logits, temps, top_ks, top_ps, sub)
-        out[i] = toks
-    # One write for the whole window: row (l, j, b) → slot positions[b] + j.
-    tgt = [decode_targets(positions + j, block_tables, active, bs) for j in range(w)]
-    _write_kv(k_cache, v_cache, k_win.reshape(L, w * B, KVH, HD), v_win.reshape(L, w * B, KVH, HD),
-              torch.cat([t[0] for t in tgt]), torch.cat([t[1] for t in tgt]))
-    return out, k_cache, v_cache
+        toks = sample_from_uniforms(logits, temps, top_ks, top_ps, uniforms.index_select(0, idx)[0])
+    else:
+        toks = sample_batch_device(logits, temps, top_ks, top_ps, None if keys is None else keys[idx][0])
+    carry.toks.copy_(toks)
+    carry.out.index_copy_(0, idx, toks[None])
+    step.add_(1)
 
 
 def decode_multi_fused(
@@ -652,8 +750,8 @@ def mixed_step(
     k_cache: torch.Tensor,  # [L, N, BS, KVH, HD]
     v_cache: torch.Tensor,
     p_tokens: torch.Tensor,  # [S] prefill-chunk token ids (bucket-padded)
-    p_valid: int,  # actual chunk tokens
-    p_cache_len: int,  # tokens already materialized for the chunk's sequence
+    p_valid,  # actual chunk tokens: a 0-d int device tensor (or a Python int)
+    p_cache_len,  # tokens already materialized for the chunk's sequence, as p_valid
     p_table: torch.Tensor,  # [Wp] the chunk sequence's block table
     d_tokens: torch.Tensor,  # [B] current token per decode row
     d_positions: torch.Tensor,  # [B] write slot of each decode token
@@ -666,17 +764,25 @@ def mixed_step(
     ragged batch. The token axis is ``[chunk (S) ; decode rows (B)]``;
     chunk query i sees fresh keys ``[0, i+1)``, decode row d sees only its
     own. On the megakernel path the whole batch is one attention launch per
-    layer; on the per-piece paths the chunk goes through
-    ``ragged_chunk_attention`` (prefill's exact math) and the decode rows
-    through the two-piece merge (decode's). Returns ``(logits [1+B, V] f32,
-    k_cache, v_cache)`` — row 0 is the chunk's last valid position, rows
-    1.. the decode rows."""
+    layer, ``p_valid`` and ``p_cache_len`` stay on the device and the
+    chunk's table and the decode tables share one width (the wider; the
+    scheduler sends both at one width, so a CUDA graph keys on one); on the
+    per-piece paths the chunk goes through ``ragged_chunk_attention``
+    (prefill's exact math, its scalars as Python ints) and the decode rows
+    through the two-piece merge (decode's). Returns ``(logits [1+B, V]
+    f32, k_cache, v_cache)`` — row 0 is the chunk's last valid position,
+    rows 1.. the decode rows."""
     c = config
     bs = c.block_size
     S, B = p_tokens.shape[0], d_tokens.shape[0]
     dev = p_tokens.device
     s_iq = torch.arange(S, dtype=torch.int32, device=dev)
     d_iq = torch.arange(B, dtype=torch.int32, device=dev)
+    impl = resolve_attention_impl(c, k_cache)
+    if impl == "megakernel":
+        p_valid, p_cache_len = _scalar(p_valid, dev), _scalar(p_cache_len, dev)
+    else:
+        p_valid, p_cache_len = int(p_valid), int(p_cache_len)
     p_positions = p_cache_len + s_iq
     p_valid_q = s_iq < p_valid
     d_positions = d_positions.to(torch.int32)
@@ -684,15 +790,14 @@ def mixed_step(
     h = _embed(params, torch.cat([p_tokens.long(), d_tokens.long()]))
 
     Wp, Wd = p_table.shape[0], d_tables.shape[1]
-    impl = resolve_attention_impl(c, k_cache)
     N = k_cache.shape[1]
     if impl == "megakernel":
-        tables = torch.zeros((1 + B, max(Wp, Wd)), dtype=torch.int32, device=dev)
-        tables[0, :Wp] = p_table
-        tables[1:, :Wd] = d_tables
+        W = max(Wp, Wd)
+        tables = torch.cat([F.pad(p_table.to(torch.int32), (0, W - Wp))[None],
+                            F.pad(d_tables.to(torch.int32), (0, W - Wd))])
         meta = megakernel.build_meta(
             torch.cat([torch.zeros_like(s_iq), 1 + d_iq]),
-            torch.cat([torch.full_like(s_iq, p_cache_len), d_positions.clamp(max=Wd * bs)]),
+            torch.cat([p_cache_len.expand_as(s_iq), d_positions.clamp(max=Wd * bs)]),
             torch.cat([torch.zeros_like(s_iq), S + d_iq]),
             torch.cat([s_iq + 1, S + d_iq + 1]),
             torch.cat([p_valid_q, d_active.bool()]),
@@ -718,5 +823,5 @@ def mixed_step(
         torch.cat([p_blocks.long(), d_blocks]), torch.cat([p_offs.long(), d_offs]),
     )
     # Logits only at each sequence's last row: [1+B, D], never [S+B, V].
-    h_rows = torch.cat([h[max(p_valid - 1, 0)][None], h[S:]], dim=0)
+    h_rows = torch.cat([_row(h, p_valid - 1), h[S:]], dim=0)
     return _logits(params, c, h_rows), k_cache, v_cache

@@ -6,8 +6,9 @@ distribution (``filtered_probs_rows``) and the inverse-CDF pick from
 precomputed uniforms (``sample_from_uniforms``) are the JAX package's,
 so both packages pick the same token from the same logits and uniforms.
 Keys are the JAX package's threefry keys (``engine/prng.py``): the
-per-step draw (``sample_batch``), the per-row keys of seeded requests
-(``make_row_keys``) and a fused window's uniforms (``make_window_uniforms``)
+per-step draw (``sample_batch_device``, no host read, and
+``sample_batch``, its tokens on the host), the per-row keys of seeded
+requests (``make_row_keys``) and a fused window's uniforms (``make_window_uniforms``)
 give the JAX package's values for the same scheduler key and seeds.
 """
 
@@ -148,7 +149,7 @@ def sample_batch(
     temps: np.ndarray,  # [B] f32 (0 = greedy)
     top_ks: np.ndarray,  # [B] i32 (0 = off)
     top_ps: np.ndarray,  # [B] f32 (1 = off)
-    key: np.ndarray,  # [2] uint32
+    key: Optional[np.ndarray],  # [2] uint32 (None: an all-greedy batch)
     row_keys: Optional[np.ndarray] = None,  # [B, 2] per-row keys (seeded requests)
 ) -> np.ndarray:
     """``sample_batch_device`` brought to the host: ``[B]`` int32 numpy."""
@@ -157,40 +158,39 @@ def sample_batch(
 
 def sample_batch_device(
     logits: torch.Tensor,  # [B, V] f32
-    temps: np.ndarray,  # [B] f32 (0 = greedy)
-    top_ks: np.ndarray,  # [B] i32 (0 = off)
-    top_ps: np.ndarray,  # [B] f32 (1 = off)
-    key: np.ndarray,  # [2] uint32
-    row_keys: Optional[np.ndarray] = None,  # [B, 2] per-row keys (seeded requests)
+    temps,  # [B] f32 (0 = greedy), numpy or a tensor
+    top_ks,  # [B] i32 (0 = off)
+    top_ps,  # [B] f32 (1 = off)
+    key,  # [2] threefry key: numpy, or a tensor on the logits' device (None: an all-greedy batch)
+    row_keys=None,  # [B, 2] per-row keys (seeded requests), numpy or a device tensor
 ) -> torch.Tensor:
     """One token per row → ``[B]`` int32 on the logits' device, with no host
-    sync: a decode window feeds it straight back as the next step's input.
-    The JAX ``sample_batch``: greedy rows take the argmax; sampled rows draw
-    ``categorical`` over their temperature-scaled logits masked below the
-    exact top-k/top-p threshold, from ``key`` over the whole ``[B, V]``
-    draw or, with ``row_keys``, each row from its own key. JAX takes its
-    thresholds from the 64 largest logits only where that window is exact,
-    so the full sort here gives the same threshold. All-greedy batches draw
-    nothing. The row split reads the host-side ``temps``, never the
-    device."""
+    read, so a decode window feeds it straight back and a CUDA graph
+    replays it whatever the rows ask. The JAX ``sample_batch``: greedy rows
+    take the argmax; sampled rows draw ``categorical`` over their
+    temperature-scaled logits masked below the exact top-k/top-p
+    threshold, from ``key`` over the whole ``[B, V]`` draw or, with
+    ``row_keys``, each row from its own key. JAX takes its thresholds from
+    the 64 largest logits only where that window is exact, so the full
+    sort here gives the same threshold. Every row draws and greedy rows
+    are selected by ``torch.where``; the caller, which knows ``temps`` on
+    the host, passes no key for an all-greedy batch, which then draws
+    nothing (JAX skips the draw there too)."""
     tokens = torch.argmax(logits, dim=-1).to(torch.int32)
-    rows = np.nonzero(temps > 0)[0]
-    if not len(rows):
+    if key is None and row_keys is None:
         return tokens
     dev = logits.device
-    B, V = logits.shape
-    idx = torch.from_numpy(rows).to(dev)
-    scaled = logits[idx] / torch.from_numpy(temps[rows]).to(dev)[:, None]
+    temps, top_ks, top_ps = (torch.as_tensor(x, device=dev) for x in (temps, top_ks, top_ps))
+    safe_t = torch.where(temps > 0, temps, 1.0)
+    V = logits.shape[-1]
+    scaled = logits / safe_t[:, None]
     lse = torch.logsumexp(scaled, dim=-1, keepdim=True)
-    thresh = _exact_thresholds(
-        scaled, lse, torch.from_numpy(top_ks[rows]).to(dev), torch.from_numpy(top_ps[rows]).to(dev))
-    masked = torch.where(scaled >= thresh[:, None], scaled, torch.full_like(scaled, -float("inf")))
-    if row_keys is not None:
-        noise = prng.gumbel(np.asarray(row_keys)[rows], (V,), dev)
-    else:
-        noise = prng.gumbel(key, (B, V), dev)[idx]
-    tokens[idx] = torch.argmax(masked + noise, dim=-1).to(torch.int32)
-    return tokens
+    thresh = _exact_thresholds(scaled, lse, top_ks, top_ps)
+    masked = torch.where(scaled >= thresh[:, None], scaled, -float("inf"))
+    shape = (V,) if row_keys is not None else tuple(logits.shape)
+    noise = prng.gumbel(row_keys if row_keys is not None else key, shape, dev)
+    drawn = torch.argmax(masked + noise, dim=-1).to(torch.int32)
+    return torch.where(temps > 0, drawn, tokens)
 
 
 def apply_token_masks(

@@ -1,7 +1,6 @@
 """Continuous batching scheduler: the engine's step loop.
 
-The core loop of the JAX package's ``Scheduler`` without overlapped decode
-or wave admission:
+The core loop of the JAX package's ``Scheduler``, without wave admission:
 
 - **Chunked prefill**: prompts longer than a chunk run as several chunks.
 - **Prefix caching**: prompt block hashes are matched against the
@@ -47,6 +46,22 @@ or wave admission:
   accepted bursts on the host. A batch with a seeded sampled row, or one
   whose blocks cannot be reserved, takes the non-spec path above; the
   draft catches up on the tokens it missed before its next window.
+- **Overlapped decode** (``enable_overlap_decode``, on by default, as in
+  the JAX package): a single-step batch with no guided or seeded sampled
+  row, no draft and nobody waiting enters the zero-bubble pipeline: step
+  N+1 (``llama.decode_sample``: forward, draw and next inputs on the
+  device) is launched from step N's device outputs before the host reads
+  step N's tokens, through a non-blocking copy into pinned memory. Tokens
+  stream one step behind; a composition change flushes the pipeline, and
+  a row that finished while its next step ran has that step's KV slot
+  zeroed (``_kv_zero``).
+- **CUDA graphs** (``engine/graphs.py``): on the megakernel path every
+  prefill chunk, mixed step, decode step, overlapped step, per-step draw
+  and ``decode_multi`` step replays a graph captured once per shape key
+  (``warmup`` captures the key space up to a context length before
+  traffic); on the CPU the same code runs eagerly. The per-piece paths,
+  guided draws and the fused windows (one launch each already) stay
+  eager.
 - **Keys**: the JAX package's threefry discipline (``engine/prng.py``):
   a step counter folded into ``PRNGKey(rng_seed)`` wherever the JAX
   scheduler folds it, and seeded requests keyed by their own seed and
@@ -71,8 +86,10 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.engine.attention import decode as paged_decode
 from dynamo_tpu_torch.engine.attention import megakernel
 from dynamo_tpu_torch.engine.config import ModelConfig
+from dynamo_tpu_torch.engine.graphs import HostReads, StepGraphs
 from dynamo_tpu_torch.engine.kv_cache import BlockAllocator, KvCacheArrays, KvEvent, OutOfBlocksError, QuantKv
 from dynamo_tpu_torch.engine.models import llama
 from dynamo_tpu_torch.engine import prng
@@ -215,6 +232,12 @@ class SchedulerConfig:
     # or above this (None = full windows), so a new request never waits a
     # whole 32-step window.
     window_waiting_cap: Optional[int] = 8
+    # Zero-bubble decode (the JAX package's default): a single-step batch
+    # with no per-row host work launches step N+1 from step N's on-device
+    # tokens before the host reads them; the host's bookkeeping runs one
+    # step behind, beside the device. Composition changes flush back to
+    # the sync path.
+    enable_overlap_decode: bool = True
 
 
 @dataclass
@@ -235,6 +258,8 @@ class ForwardPassMetrics:
     prefix_hit_blocks_total: int = 0
     prefix_miss_blocks_total: int = 0
     prefix_evicted_blocks_total: int = 0
+    overlap_steps_total: int = 0
+    overlap_flushes_total: int = 0
     # SpecDecodeStats.to_dict() with a draft attached, else None.
     spec_decode: Optional[dict] = None
 
@@ -342,6 +367,23 @@ class Scheduler:
                 kv_dtype=self.cache.k.dtype, device=self.device,
             )
         )
+        # The megakernel path's steps as CUDA graphs (eager on the CPU). The
+        # split kernels' arrival counters are sized for the largest step
+        # first: a graph keeps the address it captured.
+        self._graphs = StepGraphs(self.device) if self._attn_impl == "megakernel" else None
+        if self.device.type == "cuda":
+            rows = self.sc.decode_buckets[-1]
+            megakernel.reserve_counters(self.device, (1 + rows) * model_config.num_kv_heads)
+            paged_decode.reserve_counters(self.device, rows * model_config.num_kv_heads)
+        self._warm_captures: Optional[int] = None
+        self.warmup_stats: Optional[dict] = None
+        # The overlapped pipeline: the in-flight step (_pipe), the counters
+        # under the JAX package's keys, and the last decode tables upload.
+        self._pipe: Optional[dict] = None
+        self._reads = HostReads(self.device)
+        self._tables_cache: Optional[tuple] = None
+        self.overlap_steps_total = 0
+        self.overlap_flushes_total = 0
 
     # --- public API (called from event loop) --------------------------------
     def add_request(
@@ -406,6 +448,8 @@ class Scheduler:
             prefix_hit_blocks_total=a.hit_blocks_total,
             prefix_miss_blocks_total=a.miss_blocks_total,
             prefix_evicted_blocks_total=a.evicted_blocks_total,
+            overlap_steps_total=self.overlap_steps_total,
+            overlap_flushes_total=self.overlap_flushes_total,
             spec_decode=self.spec_stats.to_dict() if self.spec_stats else None,
         )
 
@@ -481,6 +525,10 @@ class Scheduler:
                 "megakernel path, a draft the kernel takes); the per-round spec path is not ported yet "
                 "(ROADMAP Queue 1 item 13b)"
             )
+        if self.device.type == "cuda":
+            if self._graphs is not None and len(self._graphs):
+                raise RuntimeError("attach_draft after graphs were captured: attach the draft before warmup")
+            megakernel.reserve_counters(self.device, (1 + self.sc.decode_buckets[-1]) * draft_config.num_kv_heads)
         self.draft_cache = KvCacheArrays.create(draft_config, self.sc.num_blocks, dtype=self.cache.k.dtype,
                                                 device=self.device)
         self.draft_cfg = draft_config
@@ -491,15 +539,133 @@ class Scheduler:
         # stays that of a plain fused window.
         self._spec_rounds = max(1, self.sc.num_scheduler_steps // (gamma + 1))
 
+    # --- CUDA graphs --------------------------------------------------------
+    @property
+    def graph_captures_total(self) -> int:
+        return self._graphs.captures_total if self._graphs is not None else 0
+
+    @property
+    def graph_captures_after_warmup(self) -> Optional[int]:
+        """Graphs captured since ``warmup`` returned (None before a warmup)."""
+        return None if self._warm_captures is None else self.graph_captures_total - self._warm_captures
+
+    def close(self) -> None:
+        """Destroy the step graphs now, once no step runs (``TorchEngine.stop``).
+        Left to the garbage collector, a stopped scheduler's hundreds of
+        graph executables and their pool are freed whenever it reaches the
+        scheduler's reference cycles: in another engine's steps, if the
+        process builds one, stalling them while the device syncs. The
+        counters stay readable."""
+        if self._graphs is not None:
+            self._graphs.close()
+
+    def _mixed_warm_buckets(self) -> List[int]:
+        """Prefill-chunk buckets a mixed step can ride: from the bucket of
+        one block to the bucket of the mixed budget (the JAX package's rule,
+        whose capacity dial may double the budget; the port has no dial)."""
+        eligible = [b for b in self.sc.prefill_buckets if b <= self.sc.max_prefill_chunk]
+        if not eligible:
+            eligible = [self.sc.prefill_buckets[0]]
+        lo = next_bucket(max(self.mc.block_size, 1), eligible)
+        budget = min(self.sc.mixed_prefill_budget or self.sc.max_prefill_chunk, self.sc.max_prefill_chunk)
+        hi = next_bucket(budget, eligible)
+        return [b for b in eligible if lo <= b <= hi] or [eligible[0]]
+
+    def warmup(self, ctx_tokens: int = 2048) -> int:
+        """Capture the serving-hot graphs before traffic, so a request never
+        waits for a capture: the key space the JAX package's warmup
+        compiles. Decode and overlapped decode (every batch bucket × table
+        width up to ``ctx_tokens``), ``decode_multi`` steps when the fused
+        window is off (int8), the draw per bucket (the overlapped steps,
+        the windows and the draws each greedy and sampled), prefill chunks per bucket
+        at every table width they can pair with, and mixed steps
+        (``_mixed_warm_buckets`` × batch buckets × widths). Captures run
+        with every row inactive and zero inputs, so writes land in the
+        scratch block 0 and the cache is untouched. Returns the number of
+        graphs captured; 0 on the per-piece paths, which run eagerly.
+        ``warmup_stats`` keeps its wall seconds, the graphs and the bytes
+        the card's allocator reserved meanwhile (the graphs' pool)."""
+        g = self._graphs
+        if g is None:
+            self._warm_captures = 0
+            return 0
+        n0 = len(g)
+        t0 = time.perf_counter()
+        reserved0 = torch.cuda.memory_reserved(self.device) if g.on_card else 0
+        bs, maxb, V = self.mc.block_size, self.max_blocks_per_seq, self.mc.vocab_size
+        max_w = self._width_bucket((ctx_tokens + bs - 1) // bs)
+        widths = sorted(set(min(r, maxb) for r in width_rungs(max_w)))
+        model = (self.params, self.mc, self.cache)
+
+        def z(*shape, dtype=np.int32):
+            return np.zeros(shape, dtype=dtype)
+
+        for B in sorted(set(self.sc.decode_buckets) | {1}):
+            samp = (z(B, dtype=np.float32), z(B), np.ones((B,), np.float32))
+            # Each draw in its greedy form (no key) and its sampled one.
+            for key in (None, z(2, dtype=np.uint32)):
+                if B in self.sc.decode_buckets:
+                    for W in widths:
+                        if key is None:
+                            g.decode(*model, z(3, B), z(B, W), capture_only=True)
+                        if self.sc.enable_overlap_decode:
+                            g.decode_sample(*model, z(3, B), z(B, W), *samp, key, capture_only=True)
+                        if self.sc.num_scheduler_steps > 1 and not self._use_fused_window:
+                            for steps in self._window_rungs:
+                                keys = None if key is None else z(steps, 2, dtype=np.uint32)
+                                g.decode_multi(*model, z(3, B), z(B, W), *samp, keys, steps, capture_only=True)
+                g.draw(g.rows_logits(B, V), *samp, key, capture_only=True)
+            g.draw(g.rows_logits(B, V), *samp, None, z(B, 2, dtype=np.uint32), capture_only=True)
+        prev = 0
+        for S in self.sc.prefill_buckets:
+            if S > self.sc.max_prefill_chunk:
+                continue
+            # From the narrowest table a chunk of this bucket comes with (the
+            # shortest prompt that maps here) to the widest within ctx_tokens.
+            min_w = max(16, width_bucket((prev + 1 + bs - 1) // bs, maxb))
+            prev = S
+            for W in sorted(set(min(r, maxb) for r in width_rungs(max(max_w, min_w)) if r >= min_w)):
+                g.prefill("target", *model, z(S), 0, 0, z(W), capture_only=True)
+                if self.draft_params is not None:
+                    g.prefill("draft", self.draft_params, self.draft_cfg, self.draft_cache, z(S), 0, 0, z(W),
+                              capture_only=True)
+        if self.sc.enable_mixed_batching and self.draft_params is None:
+            m_widths = sorted(set(min(max(16, W), maxb) for W in widths))
+            for S in self._mixed_warm_buckets():
+                for B in self.sc.decode_buckets:
+                    for W in m_widths:
+                        g.mixed(*model, z(S), 0, 0, z(W), z(3, B), z(B, W), capture_only=True)
+        if g.on_card:
+            torch.cuda.synchronize(self.device)
+        self._warm_captures = g.captures_total
+        self.warmup_stats = {
+            "ctx_tokens": ctx_tokens, "graphs": len(g) - n0, "seconds": time.perf_counter() - t0,
+            "reserved_bytes": torch.cuda.memory_reserved(self.device) - reserved0 if g.on_card else None,
+        }
+        return len(g) - n0
+
     # --- step loop core (runs in worker thread) -----------------------------
     def step(self) -> List[tuple]:
         """One scheduler iteration. Returns [(seq, StepOutput), ...].
 
         With sequences decoding AND prefill work at the head of the queue,
         the iteration is a MIXED step. Otherwise the phase-separated order
-        runs: decode first (ITL), then admit one prefill chunk (TTFT)."""
+        runs: decode first (ITL), then admit one prefill chunk (TTFT).
+
+        With an overlapped decode step in flight (``_pipe``), the iteration
+        instead launches step N+1 from step N's on-device tokens and retires
+        step N while the device runs, unless a composition change (waiting
+        work, an abort, block growth, a finish) flushes it back to this
+        sync path."""
         outputs: List[tuple] = []
+        # The deadline sweep runs before the overlap path too: an expired row
+        # marks itself aborted, which flushes the pipeline below.
         self._sweep_deadlines()
+        if self._pipe is not None:
+            if self._overlap_should_continue():
+                self._overlap_step(outputs)
+                return outputs
+            self._overlap_flush(outputs)
         self._reap_aborted(outputs)
         cand = self._mixed_candidate()
         if cand is not None and self._mixed_step(cand, outputs):
@@ -555,19 +721,26 @@ class Scheduler:
         batch = self.running[:n]
         d_bucket = next_bucket(n, self.sc.decode_buckets)
         width = self._width_bucket(max(len(s.block_ids) for s in batch))
-        tokens = np.zeros((d_bucket,), dtype=np.int32)
-        positions = np.zeros((d_bucket,), dtype=np.int32)
-        active = np.zeros((d_bucket,), dtype=bool)
-        for i, s in enumerate(batch):
-            tokens[i] = s.all_ids[-1]
-            positions[i] = s.total_len - 1
-            active[i] = True
-        logits, _, _ = llama.mixed_step(
-            self.params, self.mc, self.cache.k, self.cache.v,
-            self._dev(p_tok), len(chunk_tokens), seq.num_computed, p_table,
-            self._dev(tokens), self._dev(positions), self._decode_tables(batch, d_bucket, width),
-            self._dev(active), use_flash=self._use_flash_prefill, has_prefix=seq.num_computed > 0,
-        )
+        if self._graphs is not None:
+            # One width for the chunk's table and the decode tables: the
+            # graph keys on (S, B, W).
+            width = max(width, len(p_table))
+            tpa, tables = self._decode_host(batch, d_bucket, width)
+            chunk_logits, d_logits = self._graphs.mixed(
+                self.params, self.mc, self.cache, p_tok, len(chunk_tokens), seq.num_computed,
+                np.pad(p_table, (0, width - len(p_table))), tpa, tables,
+            )
+            chunk_logits = chunk_logits[0]
+        else:
+            tpa, _ = self._decode_host(batch, d_bucket, width)
+            tpa_d = self._dev(tpa)
+            logits, _, _ = llama.mixed_step(
+                self.params, self.mc, self.cache.k, self.cache.v,
+                self._dev(p_tok), len(chunk_tokens), seq.num_computed, self._dev(p_table),
+                tpa_d[0], tpa_d[1], self._decode_tables(batch, d_bucket, width),
+                tpa_d[2].bool(), use_flash=self._use_flash_prefill, has_prefix=seq.num_computed > 0,
+            )
+            chunk_logits, d_logits = logits[0], logits[1:]
         self.forward_steps_total += 1
         self.mixed_steps_total += 1
         self.mixed_prefill_tokens_total += len(chunk_tokens)
@@ -575,7 +748,7 @@ class Scheduler:
 
         # Decode rows first (output-order parity with the phase-separated
         # decode-then-admit iteration), then the chunk's progress.
-        self._finish_decode_rows(batch, d_bucket, logits[1:], outputs)
+        self._finish_decode_rows(batch, d_bucket, d_logits, outputs)
         seq.num_computed += len(chunk_tokens)
         self._register_full_blocks(seq)  # chunk's completed blocks go live
         if seq.num_computed < len(pf_tokens):
@@ -589,7 +762,7 @@ class Scheduler:
             # re-enters via decode — nothing to sample or emit.
             seq.resume_tokens = None
         else:
-            token = self._sample_one(seq, logits[0])
+            token = self._sample_one(seq, chunk_logits)
             self._append_token(seq, token, outputs)
         return True
 
@@ -700,11 +873,7 @@ class Scheduler:
         tokens = pf_tokens[seq.num_computed : seq.num_computed + chunk]
         padded = np.zeros((bucket,), dtype=np.int32)
         padded[: len(tokens)] = tokens
-        logits, _, _ = llama.prefill(
-            self.params, self.mc, self.cache.k, self.cache.v,
-            self._dev(padded), len(tokens), seq.num_computed, self._prefill_table(seq),
-            use_flash=self._use_flash_prefill, has_prefix=seq.num_computed > 0,
-        )
+        logits = self._prefill(seq, "target", padded, len(tokens), seq.num_computed)
         self.forward_steps_total += 1
         self.prefill_steps_total += 1
         seq.num_computed += len(tokens)
@@ -737,8 +906,7 @@ class Scheduler:
             chunk = min(chunk, bucket)
             padded = np.zeros((bucket,), dtype=np.int32)
             padded[:chunk] = tokens[start:start + chunk]
-            llama.prefill(self.draft_params, self.draft_cfg, self.draft_cache.k, self.draft_cache.v,
-                          self._dev(padded), chunk, start, self._prefill_table(seq), has_prefix=start > 0)
+            self._prefill(seq, "draft", padded, chunk, start)
             seq.d_n += chunk
             self.draft_prefill_steps_total += 1
 
@@ -749,19 +917,53 @@ class Scheduler:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _decode_tables(self, batch: List[Sequence], bucket: int, width: int) -> torch.Tensor:
-        tables = np.zeros((bucket, width), dtype=np.int32)
-        for i, s in enumerate(batch):
-            tables[i, : len(s.block_ids)] = s.block_ids
-        return self._dev(tables)
+    def _prefill(self, seq: Sequence, model: str, padded: np.ndarray, valid: int, start: int) -> torch.Tensor:
+        """One prefill chunk of ``seq`` through the target (or the draft)
+        model → its last row's logits ``[V]``: a graph replay on the
+        megakernel path, else ``llama.prefill``."""
+        params, cfg, cache = ((self.params, self.mc, self.cache) if model == "target"
+                              else (self.draft_params, self.draft_cfg, self.draft_cache))
+        table = self._prefill_table(seq)
+        if self._graphs is not None:
+            return self._graphs.prefill(model, params, cfg, cache, padded, valid, start, table)[0]
+        logits, _, _ = llama.prefill(
+            params, cfg, cache.k, cache.v, self._dev(padded), valid, start, self._dev(table),
+            use_flash=self._use_flash_prefill and model == "target", has_prefix=start > 0,
+        )
+        return logits
 
-    def _prefill_table(self, seq: Sequence) -> torch.Tensor:
+    def _decode_host(self, batch: List[Sequence], bucket: int, width: int) -> tuple:
+        """``(tpa [3, bucket], tables [bucket, width])`` int32 numpy of a
+        decode batch: each row's last token and its write slot, the active
+        lanes, and the block tables."""
+        tpa = np.zeros((3, bucket), dtype=np.int32)
+        tables = np.zeros((bucket, width), dtype=np.int32)
+        for i, seq in enumerate(batch):
+            tpa[:, i] = (seq.all_ids[-1], seq.total_len - 1, 1)
+            tables[i, : len(seq.block_ids)] = seq.block_ids
+        return tpa, tables
+
+    def _decode_tables(self, batch: List[Sequence], bucket: int, width: int) -> torch.Tensor:
+        """Decode block tables as a device tensor, uploaded again only when
+        a table changed (the JAX package's cache: tables are append-only
+        between composition changes)."""
+        key = (bucket, width, tuple(s.request_id for s in batch))
+        blocks = tuple(tuple(s.block_ids) for s in batch)
+        if self._tables_cache is not None:
+            ckey, cblocks, dev = self._tables_cache
+            if ckey == key and cblocks == blocks:
+                return dev
+        dev = self._dev(self._decode_host(batch, bucket, width)[1])
+        self._tables_cache = (key, blocks, dev)
+        return dev
+
+    def _prefill_table(self, seq: Sequence) -> np.ndarray:
         """Prefill block table bucketed to a rung width covering the
         sequence's blocks — not padded to max_blocks_per_seq."""
         w = max(16, width_bucket(len(seq.block_ids), self.max_blocks_per_seq))
         table = np.zeros((w,), dtype=np.int32)
         table[: len(seq.block_ids)] = seq.block_ids
-        return self._dev(table)
+        return table
 
     def _decode_step(self) -> List[tuple]:
         outputs: List[tuple] = []
@@ -794,9 +996,19 @@ class Scheduler:
         )
         if self.sc.num_scheduler_steps > 1 and window_ok and self._decode_multi(batch, bucket, outputs):
             return outputs
-        logits, _, _ = llama.decode(
-            self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket)
-        )
+        width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
+        # The zero-bubble pipeline: a batch with no per-row host work and
+        # nothing waiting hands off to the overlapped loop (tokens stream one
+        # step behind; this iteration emits nothing).
+        if self._overlap_start_ok(batch) and self._overlap_start(batch, bucket, width):
+            return outputs
+        tpa, tables = self._decode_host(batch, bucket, width)
+        if self._graphs is not None:
+            logits = self._graphs.decode(self.params, self.mc, self.cache, tpa, tables)
+        else:
+            tpa_d = self._dev(tpa)
+            logits, _, _ = llama.decode(self.params, self.mc, self.cache.k, self.cache.v, tpa_d[0], tpa_d[1],
+                                        self._decode_tables(batch, bucket, width), tpa_d[2].bool())
         self.forward_steps_total += 1
         self.decode_steps_total += 1
         self._finish_decode_rows(batch, bucket, logits, outputs)
@@ -807,13 +1019,149 @@ class Scheduler:
         padded to ``bucket``: each row's last token at its write slot, the
         tables at the width bucket of the longest row."""
         width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
-        tpa = np.zeros((3, bucket), dtype=np.int32)
-        for i, seq in enumerate(batch):
-            tpa[0, i] = seq.all_ids[-1]
-            tpa[1, i] = seq.total_len - 1  # write slot of the current token
-            tpa[2, i] = 1
-        tpa_d = self._dev(tpa)
+        tpa_d = self._dev(self._decode_host(batch, bucket, width)[0])
         return tpa_d[0], tpa_d[1], self._decode_tables(batch, bucket, width), tpa_d[2].bool()
+
+    # --- zero-bubble overlapped decode --------------------------------------
+    def _overlap_row_ok(self, seq: Sequence) -> bool:
+        """Rows that need the host between steps cannot ride the pipeline:
+        guided (the FSM advances before the next mask) and seeded sampled
+        rows (per-row keys), as in the JAX package (the port's requests
+        carry none of its other per-row extras)."""
+        s = seq.sampling
+        return not (seq.aborted or seq.guided is not None or (s.seed is not None and s.temperature > 0))
+
+    def _overlap_start_ok(self, batch: List[Sequence]) -> bool:
+        return (
+            self.sc.enable_overlap_decode
+            and self.draft_params is None
+            and not self.waiting
+            and all(self._overlap_row_ok(s) for s in batch)
+        )
+
+    def _overlap_can_dispatch(self, batch: List[Sequence], positions: List[int]) -> bool:
+        """The next step writes KV at each row's input position: every slot
+        must already exist (block-table growth flushes to the sync path,
+        which allocates or preempts there) and stay inside max_seq_len."""
+        bs = self.mc.block_size
+        for seq, p in zip(batch, positions):
+            if p + 1 > len(seq.block_ids) * bs or p >= self.mc.max_seq_len:
+                return False
+        return True
+
+    def _overlap_should_continue(self) -> bool:
+        pipe = self._pipe
+        return (
+            not self.waiting
+            and not any(s.aborted for s in pipe["batch"])
+            and self._overlap_can_dispatch(pipe["batch"], pipe["positions"])
+        )
+
+    def _dispatch_overlap(self, pipe: dict, tpa) -> None:
+        """Launch one decode + draw step (``llama.decode_sample``) without
+        waiting for it: ``tpa`` is the host's ``[3, B]`` inputs, or the
+        previous step's ``next_tpa`` on the device. Its tokens start on
+        their way to pinned host memory at once; the step's ``next_tpa``
+        feeds the next launch."""
+        key = self._next_key()
+        if pipe["greedy"]:
+            key = None  # an all-greedy batch draws nothing
+        if self._graphs is not None:
+            sampled, next_tpa = self._graphs.decode_sample(
+                self.params, self.mc, self.cache, tpa, pipe["tables"], pipe["temps"], pipe["tks"], pipe["tps"], key)
+        else:
+            if not isinstance(tpa, torch.Tensor):
+                tpa = self._dev(tpa)
+            if "samp_d" not in pipe:
+                pipe["samp_d"] = tuple(self._dev(x) for x in (pipe["temps"], pipe["tks"], pipe["tps"]))
+            sampled, next_tpa, _, _ = llama.decode_sample(
+                self.params, self.mc, self.cache.k, self.cache.v, tpa,
+                self._decode_tables(pipe["batch"], pipe["bucket"], pipe["width"]), *pipe["samp_d"], key)
+        pipe["sampled"] = self._reads.read_async(sampled)
+        pipe["next_tpa"] = next_tpa
+        self.overlap_steps_total += 1
+        self.forward_steps_total += 1
+        self.decode_steps_total += 1
+
+    def _overlap_start(self, batch: List[Sequence], bucket: int, width: int) -> bool:
+        """Launch pipeline step 0. No token is retired this iteration:
+        streams run one step behind on the overlap path."""
+        positions = [s.total_len - 1 for s in batch]
+        if not self._overlap_can_dispatch(batch, positions):
+            return False
+        temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
+        tpa, tables = self._decode_host(batch, bucket, width)
+        pipe = {"batch": batch, "bucket": bucket, "width": width, "tables": tables,
+                "temps": temps, "tks": top_ks, "tps": top_ps, "greedy": not (temps > 0).any()}
+        self._dispatch_overlap(pipe, tpa)
+        pipe["positions"] = [p + 1 for p in positions]
+        self._pipe = pipe
+        return True
+
+    def _overlap_step(self, outputs: List[tuple]) -> None:
+        """Steady state: launch step N+1 from step N's on-device tokens,
+        THEN read and retire step N while N+1 runs: one wait per step. A row
+        that turns out finished at step N makes step N+1's token for it
+        garbage; the flush discards it and rolls back its KV slot."""
+        pipe = self._pipe
+        prev = pipe["sampled"]
+        # The N+1 launch writes each row's last appended token's KV at the
+        # row's total_len before this retire: take the targets first.
+        rollback = self._rollback_targets(pipe["batch"])
+        self._dispatch_overlap(pipe, pipe["next_tpa"])
+        pipe["positions"] = [p + 1 for p in pipe["positions"]]
+        sampled_h = prev.wait()  # the step's one wait
+        finished = False
+        for i, seq in enumerate(pipe["batch"]):
+            self._append_token(seq, int(sampled_h[i]), outputs)
+            if seq.state != SeqState.RUNNING:
+                finished = True
+        if finished:
+            self._overlap_flush(outputs, rollback=rollback)
+
+    def _rollback_targets(self, batch: List[Sequence]) -> List[Optional[tuple]]:
+        """(block, offset) each row's in-flight step writes to: the slot to
+        zero if the row turns out finished while that step runs."""
+        bs = self.mc.block_size
+        out: List[Optional[tuple]] = []
+        for seq in batch:
+            p = seq.total_len
+            out.append((seq.block_ids[p // bs], p % bs) if p < len(seq.block_ids) * bs else None)
+        return out
+
+    def _overlap_flush(self, outputs: List[tuple], rollback: Optional[List] = None) -> None:
+        """Absorb the in-flight step and return to the sync path. Rows still
+        running keep its token (it computed what the sync path would have);
+        rows that finished at the previous retire discard theirs and get
+        the KV slot it wrote zeroed, so the device state never runs ahead
+        of the host's account. ``rollback`` comes only from
+        _overlap_step's finish path: on a composition flush every row still
+        runs and nothing rolls back."""
+        pipe, self._pipe = self._pipe, None
+        self.overlap_flushes_total += 1
+        sampled_h = pipe["sampled"].wait()
+        for i, seq in enumerate(pipe["batch"]):
+            if seq.state != SeqState.RUNNING:
+                # Only rows that finished at the previous retire roll back (a
+                # row preempted by a batchmate's growth below is WAITING, its
+                # blocks released and maybe owned again: nothing to zero).
+                if (rollback is not None and rollback[i] is not None
+                        and seq.state == SeqState.FINISHED and not seq.aborted):
+                    self._kv_zero(*rollback[i])
+                continue
+            if seq.aborted:
+                continue  # _reap_aborted finishes it without the extra token
+            self._ensure_block_capacity(seq)
+            if seq.state != SeqState.RUNNING:
+                continue
+            self._append_token(seq, int(sampled_h[i]), outputs)
+
+    def _kv_zero(self, block: int, offset: int) -> None:
+        """Zero one KV slot in every layer: a rolled-back write (an int8
+        cache's codes and scales)."""
+        for c in (self.cache.k, self.cache.v):
+            for t in ((c.q, c.scale) if isinstance(c, QuantKv) else (c,)):
+                t[:, block, offset] = 0
 
     def _decode_multi(self, batch: List[Sequence], bucket: int, outputs: List[tuple]) -> bool:
         """One multi-step decode window: N steps, one host sync. Returns
@@ -840,9 +1188,9 @@ class Scheduler:
                     seq.block_ids.extend(self.allocator.allocate(need))
                 except OutOfBlocksError:
                     return False
-        args = (self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket))
         temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
         if self._use_fused_window:
+            args = (self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket))
             samp = {}
             any_guided = any(s.guided is not None for s in batch)
             # A guided window takes the sampled epilogue, as in the JAX
@@ -863,7 +1211,17 @@ class Scheduler:
             toks, _, _ = llama.decode_multi_fused(*args, num_steps=steps, **samp)
             self.fused_windows_total += 1
         else:
-            toks, _, _ = llama.decode_multi(*args, temps, top_ks, top_ps, self._next_key(), steps)
+            key = self._next_key()
+            if not (temps > 0).any():
+                key = None  # an all-greedy window draws nothing
+            if self._graphs is not None:
+                width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
+                tpa, tables = self._decode_host(batch, bucket, width)
+                toks = self._graphs.decode_multi(self.params, self.mc, self.cache, tpa, tables, temps, top_ks,
+                                                 top_ps, None if key is None else prng.split_many(key, steps), steps)
+            else:
+                args = (self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket))
+                toks, _, _ = llama.decode_multi(*args, temps, top_ks, top_ps, key, steps)
             self.multi_windows_total += 1
             self.window_steps_total += steps
         sampled = toks.cpu().numpy()  # the one host sync per window
@@ -1029,9 +1387,14 @@ class Scheduler:
         as the rows' sampling options ask, guided rows over their FSM row's
         allowed tokens → ``[bucket]`` int32 numpy."""
         temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
+        if not (temps > 0).any():
+            key = row_keys = None  # an all-greedy batch draws nothing
         if any(s.guided is not None for s in batch):
+            # Guided draws stay eager: the mask pool may grow and move.
             rows = torch.from_numpy(self._guided_rows(batch, bucket))
             logits = apply_token_masks(logits, self.guided.pool.device(), rows)
+        elif self._graphs is not None:
+            return self._graphs.draw(logits, temps, top_ks, top_ps, key, row_keys).cpu().numpy()
         return sample_batch(logits, temps, top_ks, top_ps, key, row_keys)
 
     def _guided_rows(self, batch: List[Sequence], bucket: int) -> np.ndarray:

@@ -47,6 +47,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="int8 stores the KV cache as codes and per-(token, head) scales: twice the blocks per byte")
     p.add_argument("--weight-dtype", choices=["auto", "int8"], default="auto",
                    help="int8 stores the layer matmul weights quantized (about half the resident weights)")
+    p.add_argument("--warmup-ctx", type=int, default=0,
+                   help="capture the step graphs for contexts up to this many tokens before serving "
+                        "(0 = capture each on first use)")
     args = p.parse_args(argv)
     spec = dict(part.partition("=")[::2] for part in args.io)
     if spec.get("in") != "http" or not spec.get("out"):
@@ -84,6 +87,7 @@ def build_service(
             spec_gamma=args.spec_gamma,
             kv_cache_dtype=args.kv_cache_dtype,
             weight_dtype=args.weight_dtype,
+            warmup_ctx=args.warmup_ctx,
         ),
         draft_params=draft_params,
     )

@@ -1047,3 +1047,171 @@ def test_bf16_spec_window_verify_matches_plain_version(cuda, B, gamma, draft, ta
         scale = max(plain[i][:, sel].float().abs().max().item() for i in pair)
         err = max((kern[i][:, sel].float() - plain[i][:, sel].float()).abs().max().item() for i in pair)
         assert err <= 2**-5 * scale, (err, scale)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the scheduler's steps (engine/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def _graph_cases(cfg, params, cache, g, seed):
+    """(kind → (eager call, graph call)) over one set of inputs: tables of
+    width 8, four decode rows (one dead), sampled rows beside greedy ones;
+    the draws also in their all-greedy form (no key: the greedy graphs)."""
+    from dynamo_tpu_torch.engine import prng
+    from dynamo_tpu_torch.engine.sampling import sample_batch_device
+
+    rng = np.random.default_rng(seed)
+    B, W, V = 4, 8, cfg.vocab_size
+    ids = rng.permutation(np.arange(1, cache_blocks(cache))).astype(np.int32)
+    tables, chunk_table = ids[:B * W].reshape(B, W).copy(), ids[B * W:(B + 1) * W].copy()
+    tpa = np.stack([rng.integers(1, V, size=B), rng.integers(20, W * BS - 9, size=B), np.arange(B) < 3]).astype(np.int32)
+    samp = (np.array([0.0, 0.9, 0.0, 1.1], np.float32), np.array([0, 5, 0, 0], np.int32),
+            np.array([1.0, 1.0, 0.8, 1.0], np.float32))
+    key, toks = prng.fold_in(prng.PRNGKey(seed), 3), rng.integers(1, V, size=32).astype(np.int32)
+    logits = torch.randn((B, V), generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    d = t(tpa)
+    dec = (d[0], d[1], t(tables), d[2].bool())
+    k, v = cache.k, cache.v
+    return {
+        "prefill": (lambda: llama.prefill(params, cfg, k, v, t(toks), 21, 5, t(tables[0]))[0],
+                    lambda: g.prefill("target", params, cfg, cache, toks, 21, 5, tables[0])[0]),
+        "mixed": (lambda: llama.mixed_step(params, cfg, k, v, t(toks), 17, 3, t(chunk_table), *dec)[0],
+                  lambda: torch.cat(g.mixed(params, cfg, cache, toks, 17, 3, chunk_table, tpa, tables))),
+        "decode": (lambda: llama.decode(params, cfg, k, v, *dec)[0],
+                   lambda: g.decode(params, cfg, cache, tpa, tables)),
+        "decode_sample": (lambda: _rows(*llama.decode_sample(params, cfg, k, v, d, t(tables), *map(t, samp), key)[:2]),
+                          lambda: _rows(*g.decode_sample(params, cfg, cache, tpa, tables, *samp, key))),
+        "draw": (lambda: sample_batch_device(logits, *map(t, samp), key),
+                 lambda: g.draw(logits, *samp, key)),
+        "decode_multi": (lambda: llama.decode_multi(params, cfg, k, v, *dec, *samp, key, 8)[0],
+                         lambda: g.decode_multi(params, cfg, cache, tpa, tables, *samp, prng.split_many(key, 8), 8)),
+        "decode_sample greedy": (
+            lambda: _rows(*llama.decode_sample(params, cfg, k, v, d, t(tables), None, None, None, None)[:2]),
+            lambda: _rows(*g.decode_sample(params, cfg, cache, tpa, tables, *samp, None))),
+        "draw greedy": (lambda: sample_batch_device(logits, None, None, None, None),
+                        lambda: g.draw(logits, *samp, None)),
+        "decode_multi greedy": (lambda: llama.decode_multi(params, cfg, k, v, *dec, *samp, None, 8)[0],
+                                lambda: g.decode_multi(params, cfg, cache, tpa, tables, *samp, None, 8)),
+    }
+
+
+def _rows(sampled, next_tpa):
+    """``decode_sample``'s two outputs as one ``[4, B]`` tensor."""
+    return torch.cat([sampled[None], next_tpa])
+
+
+def cache_blocks(cache) -> int:
+    return (cache.k.q if isinstance(cache.k, QuantKv) else cache.k).shape[1]
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_graph_replays_are_bit_equal_to_eager_calls(cuda, kv):
+    """Each graphed kind on ``tiny`` in bf16 (and int8 KV and weights): the
+    replay's outputs and every KV block but the scratch equal the eager
+    call's on the same inputs, on the inputs it was captured with and on
+    another set staged into the same static buffers; replays credit the
+    ragged kernel's launches, the capture none."""
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+
+    cfg = get_config("tiny")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device=cuda, dtype=torch.bfloat16)
+    if kv == "int8":
+        cfg = cfg.replace(kv_cache_dtype="int8", weight_dtype="int8")
+        params = quantize_params(params)
+    cache = KvCacheArrays.create(cfg, 48, dtype=torch.bfloat16, device=cuda)
+    parts = [x for c in (cache.k, cache.v) for x in ((c.q, c.scale) if isinstance(c, QuantKv) else (c,))]
+    for c in (cache.k, cache.v):
+        if isinstance(c, QuantKv):
+            c.q.random_(-127, 128)
+            c.scale.uniform_(0.005, 0.03)
+        else:
+            c.normal_()
+    g = StepGraphs(cuda)
+    counter = "KERNEL_LAUNCHES_INT8" if kv == "int8" else "KERNEL_LAUNCHES"
+    for seed in (1, 2):
+        for kind, (eager, graphed) in _graph_cases(cfg, params, cache, g, seed).items():
+            saved = [x.clone() for x in parts]
+            want = eager().clone()
+            kv_want = [x[:, 1:].clone() for x in parts]
+            for x, s0 in zip(parts, saved):
+                x.copy_(s0)
+            if seed == 2:
+                before = getattr(mk, counter)
+            got = graphed().clone()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kind, seed)
+            assert all(torch.equal(a, b[:, 1:]) for a, b in zip(kv_want, parts)), (kind, seed)
+            if seed == 2:
+                steps = {"decode_multi": 8, "draw": 0}.get(kind.split()[0], 1)
+                assert getattr(mk, counter) - before == steps * cfg.num_layers, kind
+    assert g.captures_total == len(g) == 9
+
+
+def test_split_counters_outlive_their_growth_after_a_capture(cuda):
+    """The ragged kernel's split counters grow after a decode graph was
+    captured (an eager launch or a new scheduler asking for more rows):
+    the tensor the graph captured stays alive, and its replays still equal
+    the eager call. Growing them under a capture raises."""
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+
+    cfg = get_config("tiny")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device=cuda, dtype=torch.bfloat16)
+    cache = KvCacheArrays.create(cfg, 48, dtype=torch.bfloat16, device=cuda)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for c in (cache.k, cache.v):
+        c.normal_(generator=gen)
+    g = StepGraphs(cuda)
+    eager, graphed = _graph_cases(cfg, params, cache, g, 3)["decode"]
+    want = eager().clone()
+    graphed()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    old = mk._COUNTERS[dev]
+    mk.reserve_counters(cuda, old.numel() * 4)
+    assert mk._COUNTERS[dev].data_ptr() != old.data_ptr()
+    assert any(t is old for t in pdk._SUPERSEDED)
+    old_ptr = old.data_ptr()
+    del old
+    torch.cuda.empty_cache()
+    # Allocations that would take the old counters' memory were it freed.
+    filler = [torch.full((1 << 16,), 7, dtype=torch.int32, device=cuda) for _ in range(64)]
+    assert all(not (f.data_ptr() <= old_ptr < f.data_ptr() + f.numel() * 4) for f in filler)
+    for _ in range(3):
+        assert torch.equal(graphed().clone(), want)
+    grow = lambda x: (mk.reserve_counters(cuda, mk._COUNTERS[dev].numel() + 1), x["a"] + 1)[1:]  # noqa: E731
+    with pytest.raises(RuntimeError, match="grow under a CUDA graph capture"):
+        g.graph(("grow",), [("a", (1,), np.int32)], grow)
+
+# Last in the module: a capture that a host read invalidated ends without
+# PyTorch's epilogue, which leaves the default CUDA generator in capture
+# mode for the rest of the process (its next draw raises).
+def test_no_capture_after_warmup_and_a_failed_capture_raises(cuda):
+    """``Scheduler.warmup`` captures every key the traffic inside its
+    context reaches: serving requests afterwards captures nothing, and the
+    overlapped pipeline runs. A step body that reads the device back under
+    capture raises; it never falls back to eager."""
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import Scheduler, SchedulerConfig, StopConditions
+
+    cfg = get_config("tiny")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device=cuda, dtype=torch.bfloat16)
+    sc = SchedulerConfig(num_blocks=128, max_running=4, prefill_buckets=[32, 64, 128], decode_buckets=[1, 2, 4],
+                         num_scheduler_steps=1, mixed_prefill_budget=32)
+    s = Scheduler(cfg, params, sc, dtype=torch.bfloat16, device="cuda")
+    assert s.warmup(cfg.max_seq_len) > 0 and s.graph_captures_after_warmup == 0
+    rng = np.random.default_rng(0)
+    for i in range(5):
+        s.add_request(f"r{i}", rng.integers(1, 255, size=int(rng.integers(5, 120))).tolist(),
+                      SamplingParams(temperature=0.7 if i == 2 else 0.0), StopConditions(max_tokens=40))
+    while s.has_work():
+        s.step()
+    assert s.graph_captures_after_warmup == 0
+    assert s.overlap_steps_total > 0
+    g = StepGraphs(cuda)
+    x = torch.zeros(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        g.graph(("bad",), [("a", (4,), np.int32)], lambda inp: (x + inp["a"].sum().item(),))
+    assert ("bad",) not in g and g.captures_total == 0
+

@@ -67,7 +67,7 @@ def weights():
 
 def _jax_scheduler(jp, impl="gather", **kw):
     j = jsched.Scheduler(JCFG.replace(attention_impl=impl), jp,
-                         jsched.SchedulerConfig(**{**SCHED, "enable_overlap_decode": False, "guided_pool_rows": 256,
+                         jsched.SchedulerConfig(**{**SCHED, "guided_pool_rows": 256,
                                                    **kw}),
                          dtype=jnp.float32, eos_token_ids=[EOS])
     j._supports_chunk_admit = False

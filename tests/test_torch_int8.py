@@ -544,7 +544,7 @@ def test_scheduler_matches_jax_int8(weights, steps):
     jev, tev = [], []
     jq, tq = weights["int8"]
     j = jsched.Scheduler(JCFG.replace(attention_impl="megakernel", kv_cache_dtype="int8", weight_dtype="int8"), jq,
-                         jsched.SchedulerConfig(enable_overlap_decode=False, **common), dtype=jnp.float32,
+                         jsched.SchedulerConfig(**common), dtype=jnp.float32,
                          eos_token_ids=[0], on_kv_event=jev.append)
     j._supports_chunk_admit = False
     t = tsched.Scheduler(TCFG.replace(kv_cache_dtype="int8", weight_dtype="int8"), tq, tsched.SchedulerConfig(**common),
@@ -584,8 +584,7 @@ async def _jax_text(jp):
     engine = TpuEngine.build(
         JaxEngineArgs(model="tiny", dtype="float32", continuous_profiling=False, eos_token_ids=[0],
                       kv_cache_dtype="int8", weight_dtype="int8",
-                      scheduler=jsched.SchedulerConfig(num_blocks=64, num_scheduler_steps=1,
-                                                       enable_overlap_decode=False, **BUCKETS)),
+                      scheduler=jsched.SchedulerConfig(num_blocks=64, num_scheduler_steps=1, **BUCKETS)),
         params={**jp, "layers": dict(jp["layers"])},  # the engine quantizes the layers in place
     )
     pipeline = jax_pipeline(JaxByteTokenizer(), engine)

@@ -1,7 +1,7 @@
 """The port's serving path as a whole, against the JAX package.
 
 1. Scheduler: the port's ``Scheduler`` and the JAX ``Scheduler`` (one
-   decode step per iteration, no overlapped decode) replay one request
+   decode step per iteration, overlapped decode on in both) replay one request
    trace with the same converted weights and the same attention
    configuration (megakernel; paged + flash; gather + xla): staggered
    arrivals, a prompt longer than ``mixed_prefill_budget`` (mixed steps),
@@ -139,7 +139,7 @@ def test_scheduler_trace_matches_jax(weights, impl):
     common = dict(num_blocks=16, max_running=4, mixed_prefill_budget=32, **BUCKETS)
     j = jsched.Scheduler(
         JCFG.replace(attention_impl=attn, prefill_impl=pre), jp,
-        jsched.SchedulerConfig(num_scheduler_steps=1, enable_overlap_decode=False, **common),
+        jsched.SchedulerConfig(num_scheduler_steps=1, **common),
         dtype=jnp.float32, eos_token_ids=[0],
     )
     # The port has no wave admission (several short prompts prefilled in one
@@ -185,7 +185,7 @@ def _port_scheduler(tp, **overrides):
 def test_window_scheduler_matches_jax(weights):
     jp, tp = weights
     j = jsched.Scheduler(JCFG.replace(attention_impl="megakernel"), jp,
-                         jsched.SchedulerConfig(enable_overlap_decode=False, **WINDOWS),
+                         jsched.SchedulerConfig(**WINDOWS),
                          dtype=jnp.float32, eos_token_ids=[0])
     j._supports_chunk_admit = False
     t = _port_scheduler(tp)
@@ -224,7 +224,7 @@ def test_sampled_window_scheduler_matches_jax(weights):
     and each sampled window from ``make_window_uniforms``."""
     jp, tp = weights
     j = jsched.Scheduler(JCFG.replace(attention_impl="megakernel"), jp,
-                         jsched.SchedulerConfig(enable_overlap_decode=False, **WINDOWS),
+                         jsched.SchedulerConfig(**WINDOWS),
                          dtype=jnp.float32, eos_token_ids=[0])
     j._supports_chunk_admit = False
     t = _port_scheduler(tp)
@@ -321,8 +321,7 @@ def _text_of(path, body, raw):
 async def _jax_texts(jp):
     engine = TpuEngine.build(
         JaxEngineArgs(model="tiny", dtype="float32", continuous_profiling=False, eos_token_ids=[0],
-                      scheduler=jsched.SchedulerConfig(num_blocks=64, num_scheduler_steps=1,
-                                                       enable_overlap_decode=False, **BUCKETS)),
+                      scheduler=jsched.SchedulerConfig(num_blocks=64, num_scheduler_steps=1, **BUCKETS)),
         params=jp,
     )
     pipeline = jax_pipeline(JaxByteTokenizer(), engine)

@@ -61,7 +61,7 @@ def _schedulers(models, draft_seed):
     jt, tt = models[0]
     jd, td = models[draft_seed]
     j = jsched.Scheduler(JCFG.replace(attention_impl="megakernel"), jt,
-                         jsched.SchedulerConfig(enable_overlap_decode=False, **SCHED), dtype=jnp.float32,
+                         jsched.SchedulerConfig(**SCHED), dtype=jnp.float32,
                          eos_token_ids=[0])
     j.attach_draft(JCFG, jd, gamma=GAMMA)
     t = tsched.Scheduler(TCFG, tt, tsched.SchedulerConfig(**SCHED), dtype=torch.float32, device="cpu",
