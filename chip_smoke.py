@@ -8,7 +8,9 @@ PyTorch version at the shapes the serving path gives it (and times the
 launch-overhead probe), among them the ragged kernel on each of its two
 paths alone (a fresh-only prefill beside SDPA and the flash kernel, a
 decode step beside SDPA), its grid's fixed cost and repeat calls, which
-must be bit-equal, and its int8 branch over
+must be bit-equal, ``chunk_decode``'s wave and spec verify (each row
+padded to whole chunk tiles; the verify also packed), and its int8
+branch over
 int8 pages (llama-3.2-1b's and llama-3-8b's widths), the fused decode window's sampled
 epilogue, alone on given logits (also on rows masked to -inf, as guided
 rows reach it) and inside the window, its guided epilogue (greedy and
@@ -21,7 +23,10 @@ paths, the fused window, greedy and sampled, against ``decode_multi``,
 and the spec window speculating with the target's own weights against
 the fused window's greedy stream, and llama-3.2-1b with int8 KV and int8
 weights (resident bytes; bf16 steps against the plain path and f32; an
-f32 ``decode_multi`` window's tokens and written codes); replays each
+f32 ``decode_multi`` window's tokens and written codes), ``chunk_decode``
+(a wave and a spec verify, bf16 and int8, against the plain path and f32)
+and an int8-weight scheduler speculating one round an iteration against
+the same scheduler without the draft; replays each
 CUDA graph the scheduler captures (``engine/graphs.py``: prefill, mixed,
 decode, ``decode_sample``, the draw at B = 1 and 8, a ``decode_multi``
 window; bf16 and int8) on the inputs of an eager call and holds logits,
@@ -29,18 +34,21 @@ tokens and KV blocks bit-equal, then again after refilling its static
 buffers; times a decode
 step and a mixed step (bf16, and int8; eager and as graphs), the
 per-step threefry draw and a 32-step decode window, greedy, sampled and
-guided, and a spec window; then serves ``dynamo_tpu_torch.run in=http
-out=llama-3.2-1b`` five times: on the megakernel path and on the
+guided, a spec window, a wave's forward (eager and graphed) and a
+per-round spec round; then serves ``dynamo_tpu_torch.run in=http
+out=llama-3.2-1b`` six times: on the megakernel path and on the
 per-piece path (``attention_impl="paged", prefill_impl="flash"``), both
 at one decode step per iteration, with the defaults (32-step decode
 windows, every window fused, sampled rows drawn in the kernel), and with
 a llama-3.2-1b draft of the target's weights (``--draft-model``: every
-batch speculates in fused spec windows), and with ``--kv-cache-dtype
-int8 --weight-dtype int8`` (every step through the ragged kernel's int8
+batch speculates in fused spec windows), the same draft at one decode
+step per iteration (``spec-rounds``: one spec round an iteration through
+``chunk_decode``), and with ``--kv-cache-dtype int8 --weight-dtype int8`` (every step through the ragged kernel's int8
 branch, a copy-on-write prefix hit on the int8 cache); the megakernel
 passes start with ``--warmup-ctx 2048`` (the step graphs captured before
 traffic: its seconds, graphs and pool bytes, and no capture after it) and
-the 1-step pass must run the overlapped decode pipeline; sending each concurrent
+the 1-step pass must run the overlapped decode pipeline and admit a
+wave; sending each concurrent
 requests and counting every kernel's launches; the windows and spec
 passes also send one seeded sampled request at two batch slots and hold
 its two answers equal, and structured-output requests
@@ -1763,6 +1771,108 @@ def ragged_paths(dev, timed: dict, mixed_spec: dict, int8_spec: dict, *, prefill
         raise AssertionError(f"ragged_paged_attention differs between calls on the same inputs: {repeat}")
 
 
+# chunk_decode's batches (waves and spec verifies) at llama-3.2-1b's heads:
+# (cached prefix, valid queries) a row. The wave: 8 prompts of 32-200 tokens
+# in S = 256 rows, two of them over a 1024-token prefix; the verify: 8 rows
+# of γ + 1 = 5 queries over about 1024 cached tokens.
+WAVE_ROWS = [(1024, 200), (1024, 37), (0, 32), (0, 64), (0, 120), (0, 150), (0, 180), (0, 96)]
+WAVE_S = 256
+VERIFY_ROWS = [(1024 + 3 * i, 5) for i in range(8)]
+VERIFY_S = 5
+
+
+def chunk_rows_case(name, *, rows, S, dtype, dev, seed, H=32, KVH=8, HD=64, stride=0, int8=False):
+    """``llama.chunk_decode``'s ragged batch: row b's S query slots at
+    b·stride (stride S by default; a larger stride pads each row to a
+    tile of the chunk path, the slots past S dead), its first ``valid``
+    live, each over the row's ``prefix`` paged tokens and its own chunk
+    causally (fresh keys [b·stride, b·stride + s + 1)). Pages as in
+    ``attention_case`` (scratch page 0 large); with ``int8`` the pages are
+    quantized as the cache holds them."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+    from dynamo_tpu_torch.engine.kv_cache import QuantKv, quantize_kv_rows
+
+    BS = 16
+    stride = stride or S
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B = len(rows)
+    pages_per_row = [(p + BS - 1) // BS for p, _ in rows]
+    W = max(max(pages_per_row), 1)
+    total = sum(pages_per_row)
+    perm = (torch.randperm(total, generator=g) + 1).to(torch.int32)
+    tables = torch.zeros((B, W), dtype=torch.int32)
+    o = 0
+    for r, n in enumerate(pages_per_row):
+        tables[r, :n] = perm[o:o + n]
+        o += n
+    NQ = B * stride
+    k_pages = torch.randn((total + 1, BS, KVH, HD), generator=g)
+    v_pages = torch.randn((total + 1, BS, KVH, HD), generator=g)
+    k_pages[0] = 1e4
+    v_pages[0] = 1e4
+    q = torch.randn((NQ, H, HD), generator=g)
+    k_extra = torch.randn((NQ, KVH, HD), generator=g)
+    v_extra = torch.randn((NQ, KVH, HD), generator=g)
+    b = torch.arange(B, dtype=torch.int32)[:, None].expand(B, stride)
+    s = torch.arange(stride, dtype=torch.int32)[None, :].expand(B, stride)
+    prefix = torch.tensor([p for p, _ in rows], dtype=torch.int32)[:, None].expand(B, stride)
+    valid = torch.tensor([v for _, v in rows], dtype=torch.int32)[:, None]
+    meta = mk.build_meta(b, prefix, b * stride, b * stride + s + 1, (s < valid) & (s < S)).reshape(5, NQ)
+    if int8:
+        k_pages, v_pages = (QuantKv(*(t.to(dev) for t in quantize_kv_rows(p))) for p in (k_pages, v_pages))
+    to = lambda t: t.to(device=dev, dtype=dtype if t.is_floating_point() else t.dtype).contiguous()  # noqa: E731
+    pools = (k_pages, v_pages) if int8 else (to(k_pages), to(v_pages))
+    args = (to(q), to(k_extra), to(v_extra), *pools, to(tables), to(meta))
+    return {"name": name, "args": args, "KVH": KVH, "BS": BS, "dtype": dtype, "dead": 1, "rows": rows, "S": S,
+            "stride": stride}
+
+
+def chunk_row_paths(dev, timed: dict) -> None:
+    """The ragged kernel at ``chunk_decode``'s shapes, each against its
+    plain version and timed (events, the card's own time, bound, SDPA over
+    the rows' gathered pages): the wave (beside a batched causal SDPA over
+    the chunks alone) and the verify, bf16 and over int8 pages, in the
+    layout ``chunk_decode`` gives them (each row padded to whole chunk
+    tiles of ``queries_per_tile`` queries: the verify's 5-query rows to
+    32), and the verify packed (rows back to back, tiles straddling rows:
+    the layout it replaced), with how many queries each sends down each
+    path."""
+    from dynamo_tpu_torch.engine.attention import megakernel as mk
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bq = mk.queries_per_tile(32, 8)
+    cases = [("wave", WAVE_ROWS, WAVE_S, 0), ("verify", VERIFY_ROWS, VERIFY_S, bq),
+             ("verify packed", VERIFY_ROWS, VERIFY_S, VERIFY_S)]
+    for label, rows, S, stride in cases:
+        for int8 in (False, True):
+            if int8 and label == "verify packed":
+                continue
+            name = f"{label}: {len(rows)} rows x {S}" + (f" in {stride}-query tiles" if stride > S else "")
+            case = chunk_rows_case(name, rows=rows, S=S, dtype=torch.bfloat16, dev=dev, seed=120 + len(label),
+                                   stride=stride, int8=int8)
+            res = check_attention(case, time_it=True)
+            meta, tables = case["args"][6], case["args"][5]
+            plan = mk.launch_plan(meta.shape[1], 32, 8, tables.shape[0], tables.shape[1], case["BS"], sms)
+            chunk_q = mk.chunk_queries(meta, width=tables.shape[1], block_size=case["BS"],
+                                       queries_per_tile=plan["queries_per_tile"])
+            res["chunk_queries"] = int(chunk_q.sum())
+            res["split_queries"] = int(((meta[4] != 0).cpu() & ~chunk_q).sum())
+            if label == "wave" and not int8:
+                q, k, v = (case["args"][i].reshape(len(rows), S, -1, 64) for i in range(3))
+                G = q.shape[2] // k.shape[2]
+                qd, kd, vd = (x.repeat_interleave(G if x is not q else 1, dim=2).transpose(1, 2).contiguous()
+                              for x in (q, k, v))
+                causal = lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, is_causal=True)  # noqa: E731
+                res["sdpa_causal_chunks_ms"] = cuda_ms(causal)
+                res["sdpa_causal_chunks_device_ms"] = graph_ms(causal)
+            kernel = "ragged_paged_attention" + ("_int8" if int8 else "")
+            timed[f"{kernel} {label}"] = res
+            emit("kernel", kernel=kernel, case=name, chunk_queries=res["chunk_queries"],
+                 split_queries=res["split_queries"], device_ms=res.get("device_ms"))
+            del case
+    torch.cuda.empty_cache()
+
+
 def phase_kernel(dev):
     """Every kernel at the shapes the serving paths give it, and at the
     ragged edges, in bf16 and f32; the probe. Returns, per kernel, the
@@ -1792,6 +1902,7 @@ def phase_kernel(dev):
     ragged_paths(dev, timed, specs[0][1], dict(H=32, KVH=8, HD=64, chunk=512, chunk_prefix=1000,
                                                decode_ctx=ctx_1b, dead=4), prefill_len=2048, decode_ctx=[1024] * 8)
     torch.cuda.empty_cache()
+    chunk_row_paths(dev, timed)
 
     # The int8 branch over int8 pages: the same mixed step at llama-3.2-1b's
     # widths and at llama-3-8b's (HD = 128), each with 4 dead chunk queries
@@ -2024,7 +2135,215 @@ def phase_model(dev):
     torch.cuda.empty_cache()
     phase_model_window(dev)
     phase_model_int8(dev)
+    phase_model_chunk(dev)
+    phase_model_spec_rounds(dev)
     phase_model_graphs(dev)
+
+
+def phase_model_chunk(dev):
+    """``llama.chunk_decode`` of llama-3.2-1b at full width on the card, bf16
+    and int8 (KV and weights), on the kernel path, the plain path (the
+    ragged kernel's plain version on the card) and the plain path over f32
+    copies of the weights (the truth): over 8 cached 1024-token prefixes,
+    a wave of ``WAVE_ROWS`` (S = 256, each row's last logits, every
+    position's, the argmax), then a verify of 8 rows of 5 queries over
+    the prefixes (every position's logits, the argmax). As the int8 model
+    check holds them: at each call the kernel's distance from the truth
+    stays within ``SPEC_BF16_NOISE_RATIO`` of the plain version's (its
+    bf16 noise), over the valid positions, and its tokens equal the plain
+    version's where the plain top-2 gap exceeds ``STEP0_GAP_NOISES`` of
+    the row's noise; the argmax mode's tokens are the all-logits call's
+    argmax. One ragged launch a layer a call."""
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.kv_cache import KvCacheArrays
+    from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.engine.quant import QuantW, quantize_params
+    from dynamo_tpu_torch.engine.weights import init_params
+
+    base = get_config(PRESET)
+    L, BS, V = base.num_layers, base.block_size, base.vocab_size
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    B = len(WAVE_ROWS)
+    # Block ids: 8 prefixes of 1024 tokens with room for the wave and the
+    # verify behind them, then the wave's fresh rows.
+    per_prefix = (1024 + WAVE_S + VERIFY_S) // BS + 2
+    per_fresh = WAVE_S // BS + 1
+    NB = 1 + B * per_prefix + B * per_fresh
+    ids = (rng.permutation(NB - 1) + 1).astype(np.int32)
+    prefix_tables = ids[:B * per_prefix].reshape(B, per_prefix)
+    fresh_tables = ids[B * per_prefix:].reshape(B, per_fresh)
+    prefix_toks = rng.integers(1, V, size=(B, 1024)).astype(np.int32)
+    W = per_prefix
+    wave_tables = np.zeros((B, W), np.int32)
+    wave_pos0 = np.zeros(B, np.int32)
+    wave_valid = np.array([v for _, v in WAVE_ROWS], np.int32)
+    for i, (p, _) in enumerate(WAVE_ROWS):
+        if p:
+            wave_tables[i], wave_pos0[i] = prefix_tables[i], p
+        else:
+            wave_tables[i, :per_fresh] = fresh_tables[i]
+    wave_toks = rng.integers(1, V, size=(B, WAVE_S)).astype(np.int32)
+    ver_pos0 = np.array([1024 + (wave_valid[i] if WAVE_ROWS[i][0] else 0) for i in range(B)], np.int32)
+    ver_toks = rng.integers(1, V, size=(B, VERIFY_S)).astype(np.int32)
+    ver_valid = np.full(B, VERIFY_S, np.int32)
+    calls = [("wave last", wave_toks, wave_pos0, wave_valid, wave_tables, "last"),
+             ("wave all", wave_toks, wave_pos0, wave_valid, wave_tables, "all"),
+             ("wave argmax", wave_toks, wave_pos0, wave_valid, wave_tables, "argmax"),
+             ("verify all", ver_toks, ver_pos0, ver_valid, prefix_tables, "all"),
+             ("verify argmax", ver_toks, ver_pos0, ver_valid, prefix_tables, "argmax")]
+
+    failed = []
+    for mode in ("bf16", "int8"):
+        cfg = base if mode == "bf16" else base.replace(kv_cache_dtype="int8", weight_dtype="int8")
+        params = init_params(base, torch.Generator(device=dev).manual_seed(13), device=dev, dtype=torch.bfloat16)
+        if mode == "int8":
+            params = quantize_params(params)
+        params32 = {k: ({kk: vv if isinstance(vv, QuantW) else vv.float() for kk, vv in v.items()}
+                        if isinstance(v, dict) else v.float()) for k, v in params.items()}
+        variants = {"kernel": (params, torch.bfloat16), "plain": (params, torch.bfloat16),
+                    "truth": (params32, torch.float32)}
+        caches = {n: KvCacheArrays.create(cfg, NB, dtype=dt, device=dev) for n, (_, dt) in variants.items()}
+
+        def run(name, fn):
+            with PlainAttention() if name != "kernel" else contextlib.nullcontext() as pa:
+                out = fn(*variants[name], caches[name])
+            return out, getattr(pa, "calls", 0)
+
+        pad = np.zeros(1024, np.int32)
+        for name in variants:
+            for i in range(B):
+                pad[:] = prefix_toks[i]
+                run(name, lambda p, dt, c: llama.prefill(p, cfg, c.k, c.v, t(pad), 1024, 0, t(prefix_tables[i])))
+        reset_counts()
+        plain_calls, rows, all_logits = 0, [], None
+        for label, toks, pos0, valid, tables, ret in calls:
+            kw = {"last": dict(last_logits=True), "all": dict(all_logits=True), "argmax": {}}[ret]
+            outs = {}
+            for name in variants:
+                outs[name], n = run(name, lambda p, dt, c: llama.chunk_decode(
+                    p, cfg, c.k, c.v, t(toks), t(pos0), t(valid), t(tables), **kw)[0])
+                plain_calls += n
+            live = t(np.arange(toks.shape[1])[None, :] < valid[:, None])
+            if ret == "argmax":
+                # The argmax mode is the all-logits call's argmax.
+                same = bool(torch.equal(outs["kernel"][live], all_logits.argmax(-1).to(torch.int32)[live]))
+                rows.append({"call": label, "tokens_equal_all_logits_argmax": same, "ok": same})
+                continue
+            kl, pl_, tl = (outs[n].float() for n in ("kernel", "plain", "truth"))
+            if ret == "all":
+                kl, pl_, tl = kl[live], pl_[live], tl[live]
+                all_logits = outs["kernel"]
+            noise = (pl_ - tl).abs().amax(dim=-1)
+            top = pl_.topk(2, dim=-1)
+            held = (top.values[:, 0] - top.values[:, 1]) > STEP0_GAP_NOISES * noise
+            same = bool(torch.equal(kl.argmax(-1)[held], top.indices[held, 0]))
+            row = {"call": label, "positions": len(kl), "kernel_vs_plain": (kl - pl_).abs().max().item(),
+                   "plain_vs_f32": noise.max().item(), "kernel_vs_f32": (kl - tl).abs().max().item(),
+                   "limit": SPEC_BF16_NOISE_RATIO * noise.max().item(), "rows_held": int(held.sum()),
+                   "tokens_equal_where_held": same, "finite": bool(torch.isfinite(kl).all())}
+            row["ok"] = row["finite"] and same and row["kernel_vs_f32"] <= row["limit"]
+            rows.append(row)
+            del kl, pl_, tl
+        counts = {n: c["launches"] for n, c in read_counts().items() if c["launches"]}
+        kernel = "ragged_paged_attention" + ("_int8" if mode == "int8" else "")
+        ok = all(r["ok"] for r in rows) and counts == {kernel: L * len(calls)} \
+            and plain_calls == 2 * L * len(calls)
+        res = {"preset": PRESET, "path": f"chunk_decode {mode}, kernel vs plain (bf16, f32 truth)",
+               "wave_rows": WAVE_ROWS, "wave_S": WAVE_S, "verify_rows": VERIFY_ROWS, "calls": rows,
+               "kernel_launches": counts, "plain_calls": plain_calls, "noise_ratio": SPEC_BF16_NOISE_RATIO,
+               "gap_noises": STEP0_GAP_NOISES, "ok": ok}
+        emit("model", **res)
+        if not ok:
+            failed.append(res)
+        del params, params32, caches, all_logits
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"chunk_decode's kernel path disagrees with its plain path: {failed}")
+
+
+def phase_model_spec_rounds(dev):
+    """An in-process scheduler of llama-3.2-1b in f32 with int8 weights, its
+    KV cache f32 and then int8 (no fused window under int8, so no fused
+    spec window), with a self-draft of the same weights and cache dtype (γ =
+    ``SPEC_GAMMA``, one decode step an iteration). 4 greedy requests must
+    speculate per round (``spec_rounds_total`` > 0, no fused spec window),
+    every draft and target pass launching the ragged kernel once a layer
+    (its int8 branch over the int8 cache) and no plain version. Over the
+    f32 cache their tokens must be those of the same scheduler without the
+    draft; over the int8 cache a verify attends its own chunk's K/V at full
+    precision where single steps read them back quantized (as in the JAX
+    package), so there the first tokens must be equal and the agreement is
+    reported."""
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.quant import quantize_params
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import Scheduler, SchedulerConfig, StopConditions
+    from dynamo_tpu_torch.engine.weights import init_params
+
+    base = get_config(PRESET)
+    params = quantize_params(init_params(base, torch.Generator(device=dev).manual_seed(14), device=dev,
+                                         dtype=torch.float32))
+    rng = np.random.default_rng(14)
+    # A first set warms the graphs (a kind's first capture runs its body
+    # eagerly too); the second is counted.
+    warm, prompts = ([rng.integers(1, base.vocab_size, size=n).tolist() for n in (40, 300, 17, 120)]
+                     for _ in range(2))
+    keys = ("forward_steps_total", "draft_prefill_steps_total", "spec_rounds_total", "spec_fused_windows_total")
+    L = base.num_layers
+    failed = []
+    for kv in ("auto", "int8"):
+        cfg = base.replace(kv_cache_dtype=kv, weight_dtype="int8")
+
+        def serve(draft: bool, sets):
+            s = Scheduler(cfg, params, SchedulerConfig(num_blocks=256, num_scheduler_steps=1), dtype=torch.float32,
+                          device=str(dev))
+            if draft:
+                s.attach_draft(cfg, params, gamma=SPEC_GAMMA)
+            for n, batch in enumerate(sets):
+                out = {}
+                before = {k: getattr(s, k) for k in keys}
+                reset_counts()
+                t0 = time.perf_counter()
+                for i, p in enumerate(batch):
+                    s.add_request(f"{n}.{i}", p, SamplingParams(temperature=0.0),
+                                  StopConditions(max_tokens=24, ignore_eos=True))
+                while s.has_work():
+                    for seq, o in s.step():
+                        if o.token_id >= 0:
+                            out.setdefault(seq.request_id.split(".")[1], []).append(o.token_id)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+            delta = {k: getattr(s, k) - before[k] for k in keys}
+            s.close()
+            return s, out, wall, counts, delta
+
+        spec, got, spec_s, counts, d = serve(True, (warm, prompts))
+        _, want, plain_s, _, _ = serve(False, (prompts,))
+        launches = {n: c["launches"] for n, c in counts.items() if c["launches"]}
+        passes = d["forward_steps_total"] + d["draft_prefill_steps_total"] + d["spec_rounds_total"] * (SPEC_GAMMA + 1)
+        kernel = "ragged_paged_attention" + ("_int8" if kv == "int8" else "")
+        agree = [sum(a == b for a, b in zip(got[r], want[r])) / len(want[r]) for r in sorted(want)]
+        first_apart = [next((i for i, (a, b) in enumerate(zip(got[r], want[r])) if a != b), None) for r in sorted(want)]
+        tokens_ok = got == want if kv == "auto" else all(got[r][0] == want[r][0] for r in want)
+        ok = (tokens_ok and d["spec_rounds_total"] > 0 and d["spec_fused_windows_total"] == 0
+              and not spec._use_fused_spec and launches == {kernel: L * passes}
+              and sum(c["plain_calls"] for c in counts.values()) == 0)
+        res = {"preset": PRESET, "path": f"scheduler f32, int8 weights, {'int8' if kv == 'int8' else 'f32'} KV: "
+                                         "self-draft per round vs no draft",
+               "gamma": SPEC_GAMMA, "tokens_equal": got == want, "token_agreement": agree,
+               "first_token_apart": first_apart, "counted": d, "spec_decode": spec.spec_stats.to_dict(),
+               "kernel_launches": launches, "expected": {kernel: L * passes}, "spec_wall_s": spec_s,
+               "plain_wall_s": plain_s, "ok": ok}
+        emit("model", **res)
+        if not ok:
+            failed.append(res)
+        del spec
+    del params
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"the int8 scheduler's per-round spec path failed: {failed}")
 
 
 def graph_diff(what: str, want: torch.Tensor, got: torch.Tensor, dims: tuple) -> Optional[dict]:
@@ -2698,6 +3017,86 @@ def graphed_rows(params, cfg, cache, d_args, p_tok, chunk, ctx, p_table) -> dict
     return rows
 
 
+def wave_breakdown(params, cfg, cache, rng) -> dict:
+    """A wave admission's forward (``chunk_decode`` with each row's last
+    logits) over ``WAVE_ROWS`` in S = 256 rows (two over a 1024-token cached
+    prefix of the breakdown's random cache), eager and as the scheduler's
+    wave graph: step ms (events), host ms to queue (or stage and replay)
+    it, device-busy ms and operations (profiler), idle share."""
+    from dynamo_tpu_torch.engine.graphs import StepGraphs
+    from dynamo_tpu_torch.engine.models import llama
+
+    dev = cache.k.device
+    B, BS = len(WAVE_ROWS), cfg.block_size
+    per_row = (1024 + WAVE_S) // BS + 1
+    ids = (rng.permutation(cache.k.shape[1] - 1)[:B * per_row] + 1).astype(np.int32).reshape(B, per_row)
+    tables = np.zeros((B, 96), np.int32)
+    tables[:, :per_row] = ids
+    toks = rng.integers(1, 255, size=(B, WAVE_S)).astype(np.int32)
+    pos0 = np.array([p for p, _ in WAVE_ROWS], np.int32)
+    valid = np.array([v for _, v in WAVE_ROWS], np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = tuple(t(a) for a in (toks, pos0, valid, tables))
+    g = StepGraphs(dev)
+    fns = {"wave eager": lambda: llama.chunk_decode(params, cfg, cache.k, cache.v, *args, last_logits=True),
+           "wave graphed": lambda: g.wave(params, cfg, cache, toks, pos0, valid, tables)}
+    rows = {}
+    for name, fn in fns.items():
+        fn()
+        step_ms = cuda_ms(fn, iters=10)
+        busy, n_ops = device_busy_ms(fn)
+        rows[name] = {"rows": B, "S": WAVE_S, "tokens": int(valid.sum()), "step_ms": step_ms,
+                      "host_enqueue_ms": host_enqueue_ms(fn, iters=5), "device_busy_ms": busy,
+                      "device_idle_share": 1 - busy / step_ms if busy else None, "device_ops": n_ops}
+    g.close()
+    return rows
+
+
+def spec_round_breakdown(params, cfg, dev) -> dict:
+    """One per-round spec round of the serving scheduler (``_decode_spec``):
+    llama-3.2-1b speculating with its own weights (γ = ``SPEC_GAMMA``, one
+    decode step an iteration, so no fused spec window), 8 greedy rows at
+    about 1024 tokens. After the rows are admitted and two rounds have
+    captured the round's graphs, each of 5 ``step()`` calls is one round:
+    ms (host clock around the step and a sync), tokens confirmed per row,
+    ms per confirmed token (the fused spec window's: 6.10 at PR 12 F), and
+    the device-busy ms of one more round."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.scheduler import Scheduler, SchedulerConfig, StopConditions
+
+    s = Scheduler(cfg, params, SchedulerConfig(num_blocks=1024, num_scheduler_steps=1), dtype=torch.bfloat16,
+                  device=str(dev))
+    s.attach_draft(cfg, params, gamma=SPEC_GAMMA)
+    rng = np.random.default_rng(15)
+    for i in range(8):
+        s.add_request(str(i), rng.integers(1, cfg.vocab_size, size=1000 + 3 * i).tolist(),
+                      SamplingParams(temperature=0.0), StopConditions(max_tokens=200, ignore_eos=True))
+    while s.waiting or s.spec_rounds_total < 2:
+        s.step()
+    times, confirmed = [], []
+    for _ in range(5):
+        n0 = sum(len(q.output_ids) for q in s.running)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r0 = s.spec_rounds_total
+        s.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if s.spec_rounds_total != r0 + 1:
+            raise AssertionError("a timed breakdown step was not one spec round")
+        confirmed.append((sum(len(q.output_ids) for q in s.running) - n0) / len(s.running))
+    busy, n_ops = device_busy_ms(s.step, runs=1)
+    ms = statistics.median(times)
+    per_row = statistics.mean(confirmed)
+    res = {"rows": len(s.running), "gamma": SPEC_GAMMA, "round_ms": ms, "round_ms_runs": times,
+           "confirmed_tokens_per_row": per_row, "ms_per_confirmed_token": ms / per_row,
+           "fused_spec_ms_per_confirmed_token_pr12": 6.10, "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / ms, "device_ops": n_ops,
+           "acceptance_rate": s.spec_stats.acceptance_rate}
+    s.close()
+    return res
+
+
 def draw_breakdown(dev, V):
     """The per-step paths' draw (``sampling.sample_batch_device``, threefry
     gumbel noise over [B, V] plus the exact top-k/top-p thresholds): a first
@@ -2834,6 +3233,8 @@ def phase_breakdown(dev):
     del params8, cache8
     res["windows"] = window_breakdown(params, base, cache, d_args, steps)
     res["draw"] = draw_breakdown(dev, base.vocab_size)
+    res["wave"] = wave_breakdown(params, base, cache, rng)
+    res["spec_round"] = spec_round_breakdown(params, base, dev)
     emit("breakdown", **res)
     del params, cache
     torch.cuda.empty_cache()
@@ -2922,10 +3323,12 @@ def _summarize(status, data, stream):
     return usage["completion_tokens"], finish, cached
 
 
-SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows", "spec", "int8")
-# The spec pass's scheduler counters: fused spec windows, the tokens they
-# emitted, and the draft's prefill chunks.
-SPEC_COUNTERS = ("spec_fused_windows_total", "spec_fused_accepted_tokens_total", "draft_prefill_steps_total")
+SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows", "spec", "int8", "spec-rounds")
+# The spec passes' scheduler counters: fused spec windows, the tokens they
+# emitted, per-round spec rounds, and the draft's prefill chunks; and the
+# waves admitted (in forward and prefill steps too).
+SPEC_COUNTERS = ("spec_fused_windows_total", "spec_fused_accepted_tokens_total", "spec_rounds_total",
+                 "draft_prefill_steps_total", "wave_steps_total")
 OVERLAP_COUNTERS = ("overlap_steps_total", "overlap_flushes_total")
 # The context the megakernel passes' warmup captures the step graphs for
 # (every prompt of the serve phase fits).
@@ -2941,6 +3344,40 @@ GUIDED_JSON = {"stream": True, "temperature": 0.0,
                "response_format": {"type": "json_schema", "json_schema": {"name": "weather", "schema": GUIDED_SCHEMA}}}
 GUIDED_OBJECT = {"stream": True, "temperature": 0.0, "response_format": {"type": "json_object"}}
 GUIDED_CHOICE = {"temperature": 0.9, "nvext": {"guided_choice": ["red", "green", "blue"]}}
+
+
+class PoolGrowth:
+    """Inside the ``with`` block (the engine's build and warmup), the bytes
+    the card's allocator reserved while each step graph was captured:
+    ``summary()`` gives them summed by graph kind and the keys that grew
+    the pool most."""
+
+    def __enter__(self):
+        from dynamo_tpu_torch.engine.graphs import StepGraphs
+
+        self.cls, self.orig, self.growth = StepGraphs, StepGraphs.graph, {}
+        growth, orig = self.growth, self.orig
+
+        def graph(g, key, fields, body):
+            if key in g or not g.on_card:
+                return orig(g, key, fields, body)
+            r0 = torch.cuda.memory_reserved(g.device)
+            out = orig(g, key, fields, body)
+            growth[key] = torch.cuda.memory_reserved(g.device) - r0
+            return out
+
+        StepGraphs.graph = graph
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.graph = self.orig
+
+    def summary(self) -> dict:
+        by_kind = {}
+        for key, n in self.growth.items():
+            by_kind[key[0]] = by_kind.get(key[0], 0) + n
+        top = sorted(self.growth.items(), key=lambda kv: -kv[1])[:6]
+        return {"by_kind_bytes": by_kind, "largest": [[list(map(str, k)), n] for k, n in top if n > 0]}
 
 
 def phase_serve(card: str, path: str):
@@ -2969,8 +3406,14 @@ def phase_serve(card: str, path: str):
     every batch speculates through the fused spec window (one launch per
     spec window; the draft's prefill chunks launch the ragged kernel too),
     except the seeded request's and the guided one's, which fall back to
-    fused windows. "int8" serves with ``--kv-cache-dtype int8
-    --weight-dtype int8`` on the defaults: no fused window, so every step,
+    fused windows. "spec-rounds" is the spec pass at one decode step per
+    iteration (no fused window, so no fused spec window): every batch
+    without a seeded sampled or guided row speculates one round an
+    iteration (``_decode_spec``: a draft ``chunk_decode`` pass, γ-1 draft
+    ``decode_multi`` steps, a target ``chunk_decode`` verify, each
+    launching the ragged kernel once a layer), the seeded request's and
+    the guided one's batches single-step without the draft. "int8" serves
+    with ``--kv-cache-dtype int8 --weight-dtype int8`` on the defaults: no fused window, so every step,
     the 32-step windows' too (``decode_multi``), launches the ragged
     kernel's int8 branch once per layer and nothing else; after the burst
     and the repeat, a 64-token prompt is sent while a request with the same
@@ -2982,7 +3425,11 @@ def phase_serve(card: str, path: str):
     captured after; replays credit their launches to the kernels' counts.
     Overlapped decode is on (the default): the 1-step megakernel pass must
     run the pipeline (``overlap_steps_total`` > 0); its steps count as
-    decode forward steps."""
+    decode forward steps. Without a draft, a burst of short prompts is
+    admitted in waves (one ``chunk_decode`` pass, counted as a forward and
+    prefill step; on the per-piece path it attends through the gather, as
+    in JAX, and launches no kernel): the 1-step megakernel pass must admit
+    at least one."""
     from dynamo_tpu_torch import run
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
@@ -2990,7 +3437,8 @@ def phase_serve(card: str, path: str):
     from dynamo_tpu_torch.engine.weights import init_params
 
     model_config = get_config(PRESET).replace(**PER_PIECE) if path == "paged+flash" else None
-    spec, int8 = path == "spec", path == "int8"
+    rounds = path == "spec-rounds"
+    spec, int8 = path in ("spec", "spec-rounds"), path == "int8"
     windows = path in ("megakernel+windows", "spec")
     scheduler_config = None if windows or int8 else SchedulerConfig(num_scheduler_steps=1)
     extra = ["--draft-model", PRESET, "--spec-gamma", str(SPEC_GAMMA)] if spec else []
@@ -3021,7 +3469,7 @@ def phase_serve(card: str, path: str):
         ("/v1/completions", {"prompt": text(150)}),
     ]
     guided = []
-    if windows:
+    if windows or rounds:
         guided = [("/v1/completions", {"prompt": text(50), **GUIDED_CHOICE})]
         if not spec:
             guided[:0] = [("/v1/chat/completions", {"messages": [{"role": "user", "content": text(70)}], **GUIDED_JSON}),
@@ -3033,8 +3481,13 @@ def phase_serve(card: str, path: str):
         body.update(model=PRESET, max_tokens=64)
 
     async def serve():
-        service, engine = run.build_service(args, model_config=model_config, scheduler_config=scheduler_config,
-                                            draft_params=draft_params)
+        # An earlier pass's freed graph pool leaves the allocator's cache, so
+        # this pass's warmup reads its own reserved bytes.
+        gc.collect()
+        torch.cuda.empty_cache()
+        with PoolGrowth() as pool_growth:
+            service, engine = run.build_service(args, model_config=model_config, scheduler_config=scheduler_config,
+                                                draft_params=draft_params)
         sched = engine.scheduler
         if spec and not torch.equal(sched.draft_params["embed"], sched.params["embed"]):
             raise AssertionError("the spec pass's draft does not hold the target's weights")
@@ -3053,7 +3506,7 @@ def phase_serve(card: str, path: str):
             repeat = await asyncio.to_thread(_request, service.port, *reqs[0])
             burst_forward = sched.forward_steps_total - steps0["forward"]
             fused0 = sched.fused_windows_total
-            seeded = [await seeded_round(service.port, sched, n) for n in (5, 6)] if windows else []
+            seeded = [await seeded_round(service.port, sched, n) for n in (5, 6)] if windows or rounds else []
             seeded_windows = sched.fused_windows_total - fused0
             cow = await cow_round(service.port, sched) if int8 else None
             counts = read_counts()
@@ -3073,7 +3526,8 @@ def phase_serve(card: str, path: str):
         finally:
             await service.stop()
             await engine.stop()
-        graphs = {"warmup": sched.warmup_stats, "captures_total": sched.graph_captures_total,
+        graphs = {"warmup": sched.warmup_stats, "pool_growth": pool_growth.summary(),
+                  "captures_total": sched.graph_captures_total,
                   "captures_after_warmup": sched.graph_captures_after_warmup,
                   "replays_total": sched._graphs.replays_total if sched._graphs is not None else 0}
         return (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, sched.mc, impl,
@@ -3154,6 +3608,11 @@ def phase_serve(card: str, path: str):
         # No fused window: the 32-step windows run decode_multi, one launch
         # per layer and step, all on the int8 branch.
         expected = {"ragged_paged_attention_int8": L * (steps["forward"] + steps["window_steps_total"])}
+    elif rounds:
+        # Each round: the draft's chunk pass, its γ-1 window steps and the
+        # target's verify; the draft (the same layer count) also prefills.
+        expected = {"ragged_paged_attention": L * (steps["forward"] + steps["draft_prefill_steps_total"]
+                                                   + (SPEC_GAMMA + 1) * steps["spec_rounds_total"])}
     elif windows:
         # The draft (llama-3.2-1b: the same layer count) prefills through the ragged kernel too.
         expected = {"ragged_paged_attention": L * (steps["forward"] + steps["window_steps_total"]
@@ -3164,7 +3623,9 @@ def phase_serve(card: str, path: str):
         if spec:
             expected["fused_spec_window"] = steps["spec_fused_windows_total"]
     else:
-        expected = {"flash_chunk_attention": L * (steps["prefill"] + steps["mixed"]),
+        # A wave is a prefill step that, as in JAX, attends through the
+        # gather on the per-piece path: no kernel.
+        expected = {"flash_chunk_attention": L * (steps["prefill"] - steps["wave_steps_total"] + steps["mixed"]),
                     "paged_decode_partials": L * (steps["decode"] + steps["mixed"])}
     launches = {name: c["launches"] for name, c in counts.items()}
     want = {name: expected.get(name, 0) for name in launches}
@@ -3192,7 +3653,7 @@ def phase_serve(card: str, path: str):
         unguided = [a["ttft_s"] for (_, body), a in zip(reqs, answers)
                     if a["ttft_s"] is not None and "response_format" not in body and "nvext" not in body]
         res["ttft_unguided_p50_s"] = statistics.median(unguided) if unguided else None
-    if windows:
+    if windows or rounds:
         texts = [(a[1]["choices"][0]["text"], a[1]["usage"]["completion_tokens"]) for _, a in seeded]
         res["seeded"] = {"request": SEEDED, "slots": [slot for slot, _ in seeded], "answers": texts,
                          "identical": texts[0] == texts[1], "non_spec_windows": seeded_windows}
@@ -3203,10 +3664,16 @@ def phase_serve(card: str, path: str):
         res["kv_cache_dtype"], res["weight_dtype"] = mc.kv_cache_dtype, mc.weight_dtype
         res["copy_on_write"] = {"cached_tokens": cow[0], "blocks_copied": cow[1]}
     emit("serve", **res)
-    if spec and (not steps["spec_fused_windows_total"] or not seeded_windows
-                 or set(metrics["spec_decode"]) != set(SpecDecodeStats().to_dict())):
+    if path == "spec" and (not steps["spec_fused_windows_total"] or not seeded_windows
+                           or set(metrics["spec_decode"]) != set(SpecDecodeStats().to_dict())):
         raise AssertionError(f"the spec pass ran no spec window, or the seeded request did not fall back, or "
                              f"its stats lack keys: {steps}, {seeded_windows}, {metrics['spec_decode']}")
+    if rounds and (not steps["spec_rounds_total"] or steps["spec_fused_windows_total"] or not steps["decode"]
+                   or set(metrics["spec_decode"]) != set(SpecDecodeStats().to_dict())):
+        raise AssertionError(f"the spec-rounds pass ran no per-round spec round, or a fused spec window, or the "
+                             f"seeded and guided rows did not single-step: {steps}, {metrics['spec_decode']}")
+    if path == "megakernel" and not steps["wave_steps_total"]:
+        raise AssertionError(f"the 1-step megakernel pass admitted no wave: {steps}")
     if not cached_rep:
         raise AssertionError("the repeated prompt did not hit the prefix cache")
     if steps["forward"] == 0 or any(expected[name] == 0 for name in expected):
@@ -3227,7 +3694,8 @@ def phase_serve(card: str, path: str):
                              f"copy the shared block: {steps}, copy-on-write {cow}")
     if not all(a["in_grammar"] for a in guided_answers):
         raise AssertionError(f"a guided answer left its grammar: {guided_answers}")
-    if windows and not (res["seeded"]["identical"] and res["seeded"]["slots"][0] != res["seeded"]["slots"][1]):
+    if (windows or rounds) and not (res["seeded"]["identical"]
+                                    and res["seeded"]["slots"][0] != res["seeded"]["slots"][1]):
         raise AssertionError(f"the seeded request's answers at two batch slots differ: {res['seeded']}")
     return res
 
@@ -3248,7 +3716,7 @@ def kernels_line(timed: dict, served: dict) -> list:
     # path, and per forward step that reaches it; the fused window's (and
     # its sampled branch's) over the windows pass, and per such window; the
     # probe's, over the probe's run.
-    mega, piece, win, spec, int8 = (served[p] for p in SERVE_PASSES)
+    mega, piece, win, spec, int8, rounds = (served[p] for p in SERVE_PASSES)
     launches = {
         "ragged_paged_attention_int8": int8["kernel_launches"]["ragged_paged_attention_int8"],
         "fused_decode_window_guided": win["kernel_launches"]["fused_decode_window_guided"],
@@ -3263,7 +3731,8 @@ def kernels_line(timed: dict, served: dict) -> list:
     reached = {
         "ragged_paged_attention": (mega["steps"]["forward"], "step"),
         "ragged_paged_attention_int8": (int8["steps"]["forward"] + int8["steps"]["window_steps_total"], "step"),
-        "flash_chunk_attention": (piece["steps"]["prefill"] + piece["steps"]["mixed"], "step"),
+        "flash_chunk_attention": (piece["steps"]["prefill"] - piece["steps"]["wave_steps_total"]
+                                  + piece["steps"]["mixed"], "step"),
         "paged_decode_partials": (piece["steps"]["decode"] + piece["steps"]["mixed"], "step"),
         "fused_decode_window": (win["steps"]["fused_windows_total"], "window"),
         "fused_decode_window_sampled": (win["steps"]["fused_sampled_windows_total"],
@@ -3312,10 +3781,23 @@ def kernels_line(timed: dict, served: dict) -> list:
             keys = ("device_ms", "library_device_ms", "achieved_kernel", "achieved_device")
             entry.update({k: t[k] for k in keys})
             cases = ("case", "shape", "max_abs_err", "kernel_ms", "ref_ms", "bound_ms", "bound_by", "library_ms", *keys)
+        if name.startswith("ragged_paged_attention"):
+            # chunk_decode's shapes (PR 13): a wave and a spec verify, with
+            # the queries each sends down the chunk and the split path.
+            paths = ("chunk_queries", "split_queries")
+            entry["wave"] = {k: timed[name + " wave"][k] for k in (*cases, *paths)}
+            entry["verify"] = {k: timed[name + " verify"][k] for k in (*cases, *paths)}
         if name == "ragged_paged_attention":
             entry["empty_grid_device_ms"] = t["empty_grid_device_ms"]
             entry["prefill"] = {k: timed[name + " prefill"][k] for k in (*cases, "flash_device_ms")}
             entry["decode"] = {k: timed[name + " decode"][k] for k in cases}
+            entry["wave"].update({k: timed[name + " wave"][k] for k in ("sdpa_causal_chunks_ms",
+                                                                         "sdpa_causal_chunks_device_ms")})
+            entry["verify_packed"] = {k: timed[name + " verify packed"][k] for k in (*cases, *paths)}
+            # The spec-rounds pass: 16 a forward step, draft prefill chunk
+            # and each of a round's γ + 1 passes.
+            entry["launches_spec_rounds"] = rounds["kernel_launches"][name]
+            entry["launches_spec_rounds_expected"] = rounds["expected_launches"][name]
         if name == "ragged_paged_attention_int8":
             # library_ms: the gathered codes dequantized to dense K/V, then SDPA.
             entry["sdpa_alone_ms"] = t["sdpa_alone_ms"]

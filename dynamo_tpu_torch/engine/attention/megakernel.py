@@ -73,6 +73,12 @@ def reserve_counters(device, n: int) -> None:
     grow_counters(torch.device(device), n, _COUNTERS)
 
 
+def queries_per_tile(num_heads: int, num_kv_heads: int) -> int:
+    """BQ: the consecutive queries of one bf16 chunk tile (128 (query,
+    head) rows over the G = H / KVH heads of a KV head)."""
+    return max(1, _TILE_ROWS // (num_heads // num_kv_heads))
+
+
 def launch_plan(num_queries: int, num_heads: int, num_kv_heads: int, rows: int, width: int, block_size: int,
                 num_sms: int) -> Dict[str, int]:
     """The bf16 kernel's grid, from shapes the host has: ``queries_per_tile``
@@ -82,8 +88,7 @@ def launch_plan(num_queries: int, num_heads: int, num_kv_heads: int, rows: int, 
     ``split_keys`` of the table width) and its ``split_blocks`` persistent
     blocks (one per SM, fewer when ``rows``·KVH·splits work items are
     fewer), ``blocks`` in all."""
-    G = num_heads // num_kv_heads
-    bq = max(1, _TILE_ROWS // G)
+    bq = queries_per_tile(num_heads, num_kv_heads)
     tiles = -(-num_queries // bq)
     splits = num_splits(width, block_size)
     nb = max(1, min(num_sms, rows * num_kv_heads * splits))

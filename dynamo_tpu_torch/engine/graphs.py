@@ -18,9 +18,17 @@ Keys (the shapes a graph is captured at):
 - ``("draw", B, mode)``: the draw over B rows of logits, ``mode`` one of
   "greedy" (the argmax alone), "key" (one key) and "row_keys" (per-row
   keys);
-- ``("decode_multi_step", steps, B, W, greedy)``: one step of a
-  ``steps``-step decode window, replayed ``steps`` times, its step index a
-  device input the graph advances.
+- ``("decode_multi_step", model, steps, B, W, greedy, logits)``: one step
+  of a ``steps``-step decode window of the target (or ``"draft"``) model,
+  replayed ``steps`` times, its step index a device input the graph
+  advances; ``logits`` keeps each step's logits (the per-round spec path's
+  draft window);
+- ``("wave", B, S, W)``: a wave admission, ``llama.chunk_decode`` of B
+  prompts in S-token rows with each row's last logits;
+- ``("spec_draft", γ, B, W, greedy)`` and ``("spec_target", γ, B, W)``: a
+  per-round spec round's chunk passes, the draft's over each row's
+  unconsumed tokens with the first proposal drawn, and the target's verify
+  of ``[last ; proposals]`` with every position's logits.
 
 A greedy graph (an all-greedy batch, which the host knows from its
 sampling rows) draws nothing: it takes the argmax, as the JAX sampler
@@ -431,17 +439,23 @@ class StepGraphs:
 
     def decode_multi(self, params, cfg, cache, tpa: np.ndarray, tables: np.ndarray, temps: np.ndarray,
                      top_ks: np.ndarray, top_ps: np.ndarray, keys: Optional[np.ndarray], steps: int, *,
-                     capture_only: bool = False) -> torch.Tensor:
+                     model: str = "target", return_logits: bool = False,
+                     first_tokens: Optional[torch.Tensor] = None, capture_only: bool = False):
         """A ``steps``-step decode window: one staging, then the step's
         graph (``llama.decode_multi_step``) replayed ``steps`` times →
         tokens ``[steps, B]`` int32 on the device (the window's carry,
-        shared by the windows of one (steps, B)). ``keys`` None: an
-        all-greedy window (its greedy graph)."""
+        shared by the windows of one (model, steps, B)), with
+        ``return_logits`` also each step's logits ``[steps, B, V]`` f32.
+        ``keys`` None: an all-greedy window (its greedy graph).
+        ``first_tokens`` (a device tensor) replaces ``tpa[0]`` after the
+        staging."""
         B, W = tables.shape
         greedy = keys is None
-        carry = self._carries.get((steps, B))
+        ckey = (model, steps, B, return_logits)
+        carry = self._carries.get(ckey)
         if carry is None:
-            carry = self._carries[(steps, B)] = llama.WindowCarry.create(params, cfg, steps, B, self.device)
+            carry = self._carries[ckey] = llama.WindowCarry.create(params, cfg, steps, B, self.device,
+                                                                   return_logits=return_logits)
 
         def body(x):
             tpa_d = x["tpa"]
@@ -452,13 +466,89 @@ class StepGraphs:
         fields = [("tpa", (3, B), np.int32), ("tables", (B, W), np.int32), ("step", (), np.int32)]
         if not greedy:
             fields += _samp_fields(B, False) + [("keys", (steps, 2), np.uint32)]
-        g = self.graph(("decode_multi_step", steps, B, W, greedy), fields, body)
+        g = self.graph(("decode_multi_step", model, steps, B, W, greedy, return_logits), fields, body)
+        out = (carry.out, carry.logits) if return_logits else carry.out
         if capture_only:
-            return carry.out
+            return out
         values = dict(tpa=tpa, tables=tables, step=0)
         if not greedy:
             values.update(temps=temps, top_ks=top_ks, top_ps=top_ps, keys=keys)
         self.stage(g, values)
+        if first_tokens is not None:
+            g.inputs["tpa"][0].copy_(first_tokens)
         for _ in range(steps):
             self.launch(g)
-        return carry.out
+        return out
+
+    def wave(self, params, cfg, cache, tokens: np.ndarray, pos0: np.ndarray, valid: np.ndarray, tables: np.ndarray,
+             *, capture_only: bool = False) -> torch.Tensor:
+        """``llama.chunk_decode(last_logits=True)`` of a wave → each row's
+        last valid logits ``[B, V]``, in the batch's logits buffer (which
+        the draw graph reads)."""
+        (B, S), W = tokens.shape, tables.shape[1]
+        out = self.rows_logits(B, cfg.vocab_size)
+
+        def body(x):
+            logits, _, _ = llama.chunk_decode(params, cfg, cache.k, cache.v, x["tokens"], x["pos0"], x["valid"],
+                                              x["tables"], last_logits=True)
+            out.copy_(logits)
+            return ()
+
+        key = ("wave", B, S, W)
+        fields = _chunk_fields(B, S, W)
+        if capture_only:
+            self.graph(key, fields, body)
+        else:
+            self.run(key, fields, body, dict(tokens=tokens, pos0=pos0, valid=valid, tables=tables))
+        return out
+
+    def spec_draft(self, params, cfg, cache, tokens: np.ndarray, pos0: np.ndarray, valid: np.ndarray,
+                   tables: np.ndarray, temps: np.ndarray, top_ks: np.ndarray, top_ps: np.ndarray,
+                   key: Optional[np.ndarray], gamma: int, *, capture_only: bool = False) -> tuple:
+        """A spec round's draft chunk pass: ``llama.chunk_decode`` over each
+        row's unconsumed tokens, its last valid position's logits and the
+        first proposal drawn from them (``key`` None: argmax) → (proposal
+        ``[B]`` int32, logits ``[B, V]`` f32), the graph's own."""
+        (B, S), W = tokens.shape, tables.shape[1]
+        greedy = key is None
+
+        def body(x):
+            last, _, _ = llama.chunk_decode(params, cfg, cache.k, cache.v, x["tokens"], x["pos0"], x["valid"],
+                                            x["tables"], last_logits=True)
+            return sample_batch_device(last, x.get("temps"), x.get("top_ks"), x.get("top_ps"), x.get("key")), last
+
+        gkey = ("spec_draft", gamma, B, W, greedy)
+        fields = _chunk_fields(B, S, W) + ([] if greedy else _samp_fields(B, True))
+        if capture_only:
+            self.graph(gkey, fields, body)
+            return ()
+        values = dict(tokens=tokens, pos0=pos0, valid=valid, tables=tables)
+        if not greedy:
+            values.update(temps=temps, top_ks=top_ks, top_ps=top_ps, key=key)
+        return self.run(gkey, fields, body, values)
+
+    def spec_target(self, params, cfg, cache, tokens: np.ndarray, pos0: np.ndarray, valid: np.ndarray,
+                    tables: np.ndarray, gamma: int, *, capture_only: bool = False) -> Optional[torch.Tensor]:
+        """A spec round's target verify: ``llama.chunk_decode(all_logits=
+        True)`` of ``[last ; proposals]`` → logits ``[B, γ+1, V]`` f32, the
+        graph's own."""
+        (B, S), W = tokens.shape, tables.shape[1]
+
+        def body(x):
+            logits, _, _ = llama.chunk_decode(params, cfg, cache.k, cache.v, x["tokens"], x["pos0"], x["valid"],
+                                              x["tables"], all_logits=True)
+            return (logits,)
+
+        gkey = ("spec_target", gamma, B, W)
+        fields = _chunk_fields(B, S, W)
+        if capture_only:
+            self.graph(gkey, fields, body)
+            return None
+        return self.run(gkey, fields, body, dict(tokens=tokens, pos0=pos0, valid=valid, tables=tables))[0]
+
+
+def _chunk_fields(B: int, S: int, W: int) -> List[Field]:
+    """A ``chunk_decode`` batch's inputs: tokens, first positions, valid
+    counts and block tables."""
+    return [("tokens", (B, S), np.int32), ("pos0", (B,), np.int32), ("valid", (B,), np.int32),
+            ("tables", (B, W), np.int32)]

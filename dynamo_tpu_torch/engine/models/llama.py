@@ -506,19 +506,25 @@ def decode_sample(
 class WindowCarry:
     """A decode window's device state across its steps: the fresh K/V rows
     of the steps so far ``[L, w, B, KVH, HD]`` in the compute dtype, the
-    token each row feeds the next step, and the tokens out ``[w, B]``."""
+    token each row feeds the next step, the tokens out ``[w, B]`` and, for
+    a window that returns them, each step's logits ``[w, B, V]`` f32."""
 
     k_win: torch.Tensor
     v_win: torch.Tensor
     toks: torch.Tensor
     out: torch.Tensor
+    logits: Optional[torch.Tensor] = None
 
     @classmethod
-    def create(cls, params: Params, c: ModelConfig, steps: int, batch: int, device) -> "WindowCarry":
+    def create(cls, params: Params, c: ModelConfig, steps: int, batch: int, device,
+               return_logits: bool = False) -> "WindowCarry":
         k_win = torch.zeros((c.num_layers, steps, batch, c.num_kv_heads, c.head_dim), dtype=params["embed"].dtype,
                             device=device)
+        logits = None
+        if return_logits:
+            logits = torch.zeros((steps, batch, params["embed"].shape[0]), dtype=torch.float32, device=device)
         return cls(k_win, torch.zeros_like(k_win), torch.zeros((batch,), dtype=torch.int32, device=device),
-                   torch.zeros((steps, batch), dtype=torch.int32, device=device))
+                   torch.zeros((steps, batch), dtype=torch.int32, device=device), logits)
 
 
 def decode_multi(
@@ -538,25 +544,25 @@ def decode_multi(
     moe_stats: bool = False,
     return_logits: bool = False,
     uniforms: Optional[torch.Tensor] = None,  # [num_steps, B] f32 — inverse-CDF draws
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """``num_steps`` autoregressive decode steps with on-device sampling
     and token feedback: the host syncs once per window, when it reads the
     result. Returns ``(tokens_out [num_steps, B] int32, k_cache,
-    v_cache)``. Stop conditions are checked by the caller afterwards.
+    v_cache)``, with ``return_logits`` ``(tokens_out, logits [num_steps,
+    B, V] f32, k_cache, v_cache)`` (the per-round spec path's draft window
+    needs each step's distribution). Stop conditions are checked by the
+    caller afterwards.
 
     The inputs go to the device once, before the loop; each step is
     ``decode_multi_step`` (what a CUDA graph of the window replays). Each
     step splits ``rng_key`` and draws with the subkey, as the JAX version
     does (``prng.split_many`` makes the subkeys at once); with ``uniforms``
     it picks through ``sample_from_uniforms(..., uniforms[i])`` instead,
-    the fused window's sampled contract. ``moe_stats`` and
-    ``return_logits`` are not ported yet."""
-    if moe_stats or return_logits:
-        raise NotImplementedError(
-            "decode_multi: moe_stats and return_logits are not ported yet (ROADMAP Queue 1 item 16)"
-        )
+    the fused window's sampled contract. ``moe_stats`` is not ported yet."""
+    if moe_stats:
+        raise NotImplementedError("decode_multi: moe_stats is not ported yet (ROADMAP Queue 1 item 16)")
     dev = tokens.device
-    carry = WindowCarry.create(params, config, num_steps, tokens.shape[0], dev)
+    carry = WindowCarry.create(params, config, num_steps, tokens.shape[0], dev, return_logits=return_logits)
     keys = None if rng_key is None else torch.from_numpy(prng.split_many(rng_key, num_steps).view(np.int32)).to(dev)
     samp = [torch.as_tensor(x).to(dev) for x in (temps, top_ks, top_ps)]
     if uniforms is not None:
@@ -565,6 +571,8 @@ def decode_multi(
     for _ in range(num_steps):
         decode_multi_step(params, config, k_cache, v_cache, tokens, positions, block_tables, active, *samp, keys,
                           step, carry, uniforms=uniforms)
+    if return_logits:
+        return carry.out, carry.logits, k_cache, v_cache
     return carry.out, k_cache, v_cache
 
 
@@ -631,6 +639,8 @@ def decode_multi_step(
     v_win.index_copy_(1, idx, v_rows[:, None])
     _write_kv(k_cache, v_cache, k_rows, v_rows, *decode_targets(positions + step, block_tables, active, bs))
     logits = _logits(params, c, h)
+    if carry.logits is not None:
+        carry.logits.index_copy_(0, idx, logits[None])
     if uniforms is not None:
         toks = sample_from_uniforms(logits, temps, top_ks, top_ps, uniforms.index_select(0, idx)[0])
     else:
@@ -737,6 +747,121 @@ def decode_spec_fused(
         d_rms_eps=dc.rms_norm_eps, d_theta=dc.rope_theta,
     )
     return toks, acc, k_t, v_t, k_d, v_d
+
+
+# ---------------------------------------------------------------------------
+# Batched chunks: wave admission and the per-round spec path
+# ---------------------------------------------------------------------------
+
+
+def _chunk_piece(qg, kp, vp, mask, scale):
+    """``_attend_piece`` with S query positions a row: qg [B,S,KVH,G,hd];
+    kp/vp [B,S_k,KVH,hd]; mask [B,S_k] (one for every query) or [B,S,S_k]
+    → (m, l, acc) with a query axis, [B,KVH,G,S(,hd)]."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kp).float() * scale
+    m_b = mask[:, None, None, None, :] if mask.dim() == 2 else mask[:, None, None, :, :]
+    s = s.masked_fill(~m_b, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p.to(vp.dtype), vp).float()
+    return m, p.sum(dim=-1), acc
+
+
+def chunk_decode(
+    params: Params,
+    config: ModelConfig,
+    k_cache: torch.Tensor,  # [L, N, BS, KVH, HD]
+    v_cache: torch.Tensor,
+    tokens: torch.Tensor,  # [B, S] per-row token chunks (padded)
+    positions0: torch.Tensor,  # [B] position of tokens[:, 0]
+    valid: torch.Tensor,  # [B] valid tokens per row (0 = inactive row)
+    block_tables: torch.Tensor,  # [B, W]
+    all_logits: bool = False,
+    moe_stats: bool = False,
+    last_logits: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched multi-token decode: row b consumes its first ``valid[b]``
+    tokens at positions ``positions0[b]..`` in ONE pass, each attending the
+    row's cached prefix (keys before ``positions0[b]``) and its own chunk
+    causally. Returns ``(argmax [B, S] i32, k_cache, v_cache)``; with
+    ``all_logits`` every position's logits ``[B, S, V]`` f32 (the spec
+    verify), with ``last_logits`` only each row's last valid position's
+    ``[B, V]`` f32, the head run on ``[B, D]`` rows (a wave's first
+    tokens). The caches are written in place: slot (b, s) at
+    ``positions0[b] + s`` for ``s < valid[b]``, the rest to scratch block 0.
+
+    On the megakernel path the B·S queries are one ragged batch, ONE
+    ``megakernel.ragged_paged_attention`` launch per layer: row b's queries
+    read only its prefix pages, its fresh keys its own chunk, each row
+    padded to a whole number of the kernel's chunk tiles; queries past
+    ``valid[b]`` are dead (their logits are not the JAX function's, whose
+    padding positions attend anyway; the valid ones are). On the per-piece
+    paths attention is the JAX function's own: the whole table gathered
+    into a dense prefix and the chunk, two online-softmax pieces merged.
+    All inputs stay on the device, so a CUDA graph replays it for any
+    values."""
+    if moe_stats:
+        raise NotImplementedError("chunk_decode: moe_stats is not ported yet (ROADMAP Queue 1 item 16)")
+    c = config
+    bs, H, KVH, HD = c.block_size, c.num_heads, c.num_kv_heads, c.head_dim
+    B, S = tokens.shape
+    T = B * S
+    dev = tokens.device
+    ctx = block_tables.shape[1] * bs
+    N = k_cache.shape[1]
+    positions0 = positions0.to(torch.int32)
+    valid = valid.to(torch.int32)
+    s_i = torch.arange(S, dtype=torch.int32, device=dev)
+    positions = positions0[:, None] + s_i[None, :]  # [B, S]
+    live = s_i[None, :] < valid[:, None]  # [B, S]
+    if resolve_attention_impl(c, k_cache) == "megakernel":
+        # Each row's queries start a tile of the kernel's chunk path: a row
+        # shorter than a tile (a spec verify's γ+1) is padded to one with
+        # dead queries, so no tile straddles two rows (whose queries would
+        # all but the first row's take the split path, 2.8× slower at the
+        # 1B verify's 8 × 5, PERF.md §6).
+        bq = megakernel.queries_per_tile(H, KVH)
+        P = S if S % bq == 0 else -(-S // bq) * bq
+        p_i = torch.arange(P, dtype=torch.int32, device=dev)
+        rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None].expand(B, P)
+        meta = megakernel.build_meta(rows, positions0.clamp(max=ctx)[:, None].expand(B, P), rows * P,
+                                     rows * P + p_i[None, :] + 1, p_i[None, :] < valid[:, None]).reshape(5, B * P)
+        mega = _mega_attend(c, block_tables, meta, N)
+
+        def pad(x):
+            return x if P == S else F.pad(x.view(B, S, -1), (0, 0, 0, P - S)).view(B * P, *x.shape[1:])
+
+        def attend(l, q, k, v, k_flat, v_flat):
+            out = mega(l, pad(q), pad(k), pad(v), k_flat, v_flat)
+            return out if P == S else out.view(B, P, H, HD)[:, :S].reshape(T, H, HD)
+    else:
+        tables = block_tables.long()
+        scale = HD**-0.5
+        prefix_mask = torch.arange(ctx, device=dev)[None, :] < positions0[:, None]  # [B, ctx]
+        chunk_mask = (s_i[None, None, :] <= s_i[None, :, None]) & (s_i[None, None, :] < valid[:, None, None])
+
+        def attend(l, q, k, v, k_flat, v_flat):
+            qg = q.view(B, S, KVH, H // KVH, HD)
+            k_ctx = _gather_kv(k_flat, tables + l * N, q.dtype).reshape(B, ctx, KVH, HD)
+            v_ctx = _gather_kv(v_flat, tables + l * N, q.dtype).reshape(B, ctx, KVH, HD)
+            m1, l1, acc1 = _chunk_piece(qg, k_ctx, v_ctx, prefix_mask, scale)
+            m2, l2, acc2 = _chunk_piece(qg, k.view(B, S, KVH, HD), v.view(B, S, KVH, HD), chunk_mask, scale)
+            attn = _merge_pieces(m1, l1, acc1, m2, l2, acc2).to(q.dtype)  # [B, KVH, G, S, HD]
+            return attn.permute(0, 3, 1, 2, 4).reshape(T, H, HD)
+
+    slots = torch.where(live, positions, torch.zeros_like(positions))
+    tgt_blocks = torch.where(live, torch.gather(block_tables.long(), 1, (slots // bs).long()), 0)
+    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, _embed(params, tokens.reshape(T)),
+                                positions.reshape(T), attend)
+    _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks.reshape(T), (slots % bs).reshape(T))
+    if last_logits:
+        last = (valid - 1).clamp(min=0).long()
+        h_last = h.view(B, S, -1)[torch.arange(B, device=dev), last]
+        return _logits(params, c, h_last), k_cache, v_cache
+    logits = _logits(params, c, h).view(B, S, -1)
+    if all_logits:
+        return logits, k_cache, v_cache
+    return logits.argmax(dim=-1).to(torch.int32), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

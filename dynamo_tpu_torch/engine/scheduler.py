@@ -1,8 +1,13 @@
 """Continuous batching scheduler: the engine's step loop.
 
-The core loop of the JAX package's ``Scheduler``, without wave admission:
+The core loop of the JAX package's ``Scheduler``:
 
 - **Chunked prefill**: prompts longer than a chunk run as several chunks.
+- **Wave admission**: when at least two short prompts wait, the head among
+  them, up to a decode bucket of them are prefilled in ONE
+  ``llama.chunk_decode`` pass (each row's last logits, one draw, one host
+  read), unless a draft is attached; a wave is preferred to a mixed step
+  while its prompts fit the mixed budget.
 - **Prefix caching**: prompt block hashes are matched against the
   allocator's registry at first touch; matched blocks skip prefill, a full
   cover recomputes only the last token, and a shared last block is copied
@@ -39,13 +44,18 @@ The core loop of the JAX package's ``Scheduler``, without wave admission:
   window, masked and advanced on the device through the mask and next-row
   pools, and never speculate.
 - **Speculative decoding** (``attach_draft``): a draft model over its own
-  paged cache, mirroring the target's block tables. Every decode batch on
-  the fused path runs R = ``num_scheduler_steps // (γ+1)`` rounds of draft
-  proposals, target verify and rejection sampling in ONE launch of the
-  fused spec-window kernel (``llama.decode_spec_fused``), then replays the
-  accepted bursts on the host. A batch with a seeded sampled row, or one
-  whose blocks cannot be reserved, takes the non-spec path above; the
-  draft catches up on the tokens it missed before its next window.
+  paged cache, mirroring the target's block tables. Where the fused spec
+  window's gate passes, every decode batch runs R = ``num_scheduler_steps
+  // (γ+1)`` rounds of draft proposals, target verify and rejection
+  sampling in ONE launch of the fused spec-window kernel
+  (``llama.decode_spec_fused``), then replays the accepted bursts on the
+  host. Elsewhere (one step an iteration, the per-piece paths, int8, a γ
+  or batch the kernel refuses) a batch runs one round an iteration
+  (``_decode_spec``): a draft ``chunk_decode`` pass and a γ-1-step
+  ``decode_multi`` window propose, one target ``chunk_decode`` pass
+  verifies, ``spec_verify`` accepts. A batch with a guided or seeded
+  sampled row, or one whose blocks cannot be reserved, takes the non-spec
+  path above; the draft catches up on the tokens it missed.
 - **Overlapped decode** (``enable_overlap_decode``, on by default, as in
   the JAX package): a single-step batch with no guided or seeded sampled
   row, no draft and nobody waiting enters the zero-bubble pipeline: step
@@ -56,8 +66,9 @@ The core loop of the JAX package's ``Scheduler``, without wave admission:
   a row that finished while its next step ran has that step's KV slot
   zeroed (``_kv_zero``).
 - **CUDA graphs** (``engine/graphs.py``): on the megakernel path every
-  prefill chunk, mixed step, decode step, overlapped step, per-step draw
-  and ``decode_multi`` step replays a graph captured once per shape key
+  prefill chunk, wave, mixed step, decode step, overlapped step, per-step
+  draw, ``decode_multi`` step and per-round spec pass (``spec_verify``
+  aside) replays a graph captured once per shape key
   (``warmup`` captures the key space up to a context length before
   traffic); on the CPU the same code runs eagerly. The per-piece paths,
   guided draws and the fused windows (one launch each already) stay
@@ -95,8 +106,9 @@ from dynamo_tpu_torch.engine.models import llama
 from dynamo_tpu_torch.engine import prng
 from dynamo_tpu_torch.engine.sampling import (
     SamplingParams, apply_token_masks, make_row_keys, make_window_uniforms, pack_param_rows, sample_batch,
+    sample_batch_device,
 )
-from dynamo_tpu_torch.engine.spec_decode import SpecDecodeStats
+from dynamo_tpu_torch.engine.spec_decode import SpecDecodeStats, spec_verify
 from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder, GuidedState
 from dynamo_tpu_torch.llm.tokens import extend_block_hashes
 
@@ -289,6 +301,7 @@ class Scheduler:
         self.mc = model_config
         self.sc = scheduler_config or SchedulerConfig()
         self.device = torch.device(device)
+        self.dtype = dtype
         self.allocator = BlockAllocator(self.sc.num_blocks, on_event=on_kv_event)
         # Reserve block 0 as the scratch sink for padded scatter positions.
         self.allocator._free.remove(0)
@@ -316,6 +329,11 @@ class Scheduler:
         self.mixed_steps_total = 0
         self.mixed_prefill_tokens_total = 0
         self.mixed_decode_tokens_total = 0
+        # Wave admission: several short waiting prompts prefilled in ONE
+        # chunk_decode pass (llama-family models); a wave is also a forward
+        # and a prefill step.
+        self._supports_chunk_admit = model_config.architecture == "llama"
+        self.wave_steps_total = 0
         # Decode windows: fused (one kernel launch each; those with a sampled
         # row and those with a guided row also counted apart), non-fused
         # (decode_multi), and the forward steps inside non-fused windows.
@@ -326,15 +344,18 @@ class Scheduler:
         self.multi_windows_total = 0
         self.window_steps_total = 0
         # Speculative decoding (attach_draft): the draft and its cache, γ,
-        # the acceptance stats, rounds per fused spec window, the spec
-        # windows run and the tokens they emitted, and the draft's prefill
-        # chunks (its catch-up; not in forward_steps_total).
+        # the acceptance stats, whether batches take the fused spec window
+        # and its rounds, the spec windows run and the tokens they emitted,
+        # the per-round spec rounds run, and the draft's prefill chunks (its
+        # catch-up; not in forward_steps_total, nor are spec rounds).
         self.draft_params = None
         self.draft_cfg: Optional[ModelConfig] = None
         self.draft_cache: Optional[KvCacheArrays] = None
         self.spec_gamma = 0
         self.spec_stats = None
+        self._use_fused_spec = False
         self._spec_rounds = 0
+        self.spec_rounds_total = 0
         self.spec_fused_windows_total = 0
         self.spec_fused_accepted_tokens_total = 0
         self.draft_prefill_steps_total = 0
@@ -489,55 +510,51 @@ class Scheduler:
         return self._use_fused_window and self.guided is not None
 
     def attach_draft(self, draft_config: ModelConfig, draft_params, *, gamma: int = 4) -> None:
-        """Enable speculative decoding: the draft proposes γ tokens per round
-        and the target verifies them, R = ``num_scheduler_steps // (γ+1)``
-        rounds per fused spec window. The draft's paged cache mirrors the
+        """Enable speculative decoding: the draft proposes γ tokens a round
+        and the target verifies them. The draft's paged cache mirrors the
         target's block tables, so allocation, preemption and the prefix
-        cache are shared. Only the fused window is ported: where its gate
-        refuses (no fused decode window, or ``megakernel.fused_spec_fits``
-        says no), this raises rather than attach a draft it would not use."""
+        cache are shared; it is made in the scheduler's compute dtype, int8
+        where ``draft_config.kv_cache_dtype`` says so. Where the fused spec
+        window's gate passes (the fused decode window, a bf16/f32 draft of
+        the target's dtype that ``megakernel.fused_spec_fits`` takes), a
+        batch runs R = ``num_scheduler_steps // (γ+1)`` rounds in one
+        launch; elsewhere (one decode step an iteration, the per-piece
+        paths, int8 KV or weights, a γ or batch the kernel refuses) it runs
+        one round an iteration through ``chunk_decode`` (``_decode_spec``).
+        Attach before ``warmup``."""
         if draft_config.block_size != self.mc.block_size:
             raise ValueError("draft and target must share block_size")
         if draft_config.vocab_size != self.mc.vocab_size:
             raise ValueError("draft and target must share the vocabulary")
         if draft_config.architecture != "llama" or self.mc.architecture != "llama":
             raise ValueError("spec decode needs llama-family draft AND target for now")
-        if "int8" in (self.mc.kv_cache_dtype, self.mc.weight_dtype, draft_config.kv_cache_dtype,
-                      draft_config.weight_dtype):
-            # The fused spec window takes no int8 model (nor does JAX's): JAX
-            # speculates per round there, through _decode_spec.
-            raise NotImplementedError(
-                "speculative decoding with int8 KV or int8 weights runs through the per-round spec path, "
-                "which is not ported yet (ROADMAP Queue 1 item 13b)"
-            )
+        if gamma < 1:
+            raise ValueError(f"spec_gamma must be at least 1, got {gamma}")
+        if self.device.type == "cuda":
+            if self._graphs is not None and len(self._graphs):
+                raise RuntimeError("attach_draft after graphs were captured: attach the draft before warmup")
+            megakernel.reserve_counters(self.device, (1 + self.sc.decode_buckets[-1]) * draft_config.num_kv_heads)
+        self.draft_cache = KvCacheArrays.create(draft_config, self.sc.num_blocks, dtype=self.dtype,
+                                                device=self.device)
+        self.draft_cfg = draft_config
+        self.draft_params = draft_params
+        self.spec_gamma = gamma
+        self.spec_stats = SpecDecodeStats()
         dtype = self.params["embed"].dtype
-        fits = (
+        # The fused spec window takes no int8 model (an int8 target has no
+        # fused window already), as in the JAX package.
+        self._use_fused_spec = (
             self._use_fused_window
+            and "int8" not in (draft_config.kv_cache_dtype, draft_config.weight_dtype)
             and draft_params["embed"].dtype == dtype
             and megakernel.fused_spec_fits(
                 self.mc, draft_config, batch=self.sc.decode_buckets[-1], gamma=gamma, dtype=dtype,
                 kv_dtype=self.cache.k.dtype, device=self.device,
             )
         )
-        if not fits:
-            raise NotImplementedError(
-                "speculative decoding runs only as the fused spec window (multi-step windows on the "
-                "megakernel path, a draft the kernel takes); the per-round spec path is not ported yet "
-                "(ROADMAP Queue 1 item 13b)"
-            )
-        if self.device.type == "cuda":
-            if self._graphs is not None and len(self._graphs):
-                raise RuntimeError("attach_draft after graphs were captured: attach the draft before warmup")
-            megakernel.reserve_counters(self.device, (1 + self.sc.decode_buckets[-1]) * draft_config.num_kv_heads)
-        self.draft_cache = KvCacheArrays.create(draft_config, self.sc.num_blocks, dtype=self.cache.k.dtype,
-                                                device=self.device)
-        self.draft_cfg = draft_config
-        self.draft_params = draft_params
-        self.spec_gamma = gamma
-        self.spec_stats = SpecDecodeStats()
-        # Each round nets 1..γ+1 tokens, so the window's worst-case span
-        # stays that of a plain fused window.
-        self._spec_rounds = max(1, self.sc.num_scheduler_steps // (gamma + 1))
+        # Each round nets 1..γ+1 tokens, so the fused window's worst-case
+        # span stays that of a plain fused window.
+        self._spec_rounds = max(1, self.sc.num_scheduler_steps // (gamma + 1)) if self._use_fused_spec else 0
 
     # --- CUDA graphs --------------------------------------------------------
     @property
@@ -578,8 +595,12 @@ class Scheduler:
         width up to ``ctx_tokens``), ``decode_multi`` steps when the fused
         window is off (int8), the draw per bucket (the overlapped steps,
         the windows and the draws each greedy and sampled), prefill chunks per bucket
-        at every table width they can pair with, and mixed steps
-        (``_mixed_warm_buckets`` × batch buckets × widths). Captures run
+        at every table width they can pair with, waves (every batch bucket
+        ≥ 2 × every chunk bucket × the widths a wave of that bucket can
+        have, up to ``ctx_tokens``), mixed steps (``_mixed_warm_buckets`` ×
+        batch buckets × widths) and, with a draft that speculates per
+        round, the round's draft chunk, draft window and target verify at
+        every batch bucket × width. Captures run
         with every row inactive and zero inputs, so writes land in the
         scratch block 0 and the cache is untouched. Returns the number of
         graphs captured; 0 on the per-piece paths, which run eagerly.
@@ -617,24 +638,57 @@ class Scheduler:
                 g.draw(g.rows_logits(B, V), *samp, key, capture_only=True)
             g.draw(g.rows_logits(B, V), *samp, None, z(B, 2, dtype=np.uint32), capture_only=True)
         prev = 0
+        waves = self._supports_chunk_admit and self.draft_params is None
+        wave_hi_w = width_bucket((self._wave_s_cap() + 1 + bs - 1) // bs, maxb)
+        wave_keys = []
         for S in self.sc.prefill_buckets:
             if S > self.sc.max_prefill_chunk:
                 continue
             # From the narrowest table a chunk of this bucket comes with (the
             # shortest prompt that maps here) to the widest within ctx_tokens.
             min_w = max(16, width_bucket((prev + 1 + bs - 1) // bs, maxb))
+            # A wave's tables: from the shortest fresh prompt chunking here
+            # (and its next token's slot; rung floor 4) to the longest
+            # wave-eligible prompt's, within ctx_tokens.
+            wave_lo = width_bucket((prev + 2 + bs - 1) // bs, maxb)
             prev = S
             for W in sorted(set(min(r, maxb) for r in width_rungs(max(max_w, min_w)) if r >= min_w)):
                 g.prefill("target", *model, z(S), 0, 0, z(W), capture_only=True)
                 if self.draft_params is not None:
                     g.prefill("draft", self.draft_params, self.draft_cfg, self.draft_cache, z(S), 0, 0, z(W),
                               capture_only=True)
+            if waves:
+                wave_hi = min(max(max_w, wave_lo), wave_hi_w)
+                wave_keys += [(B, S, W) for B in self.sc.decode_buckets if B >= 2
+                              for W in set(min(r, maxb) for r in width_rungs(wave_hi)) if wave_lo <= W <= wave_hi]
+        # Smallest first: each larger wave's capture reuses the pool's
+        # segments the smaller ones left (largest first, the one 32 × 2048
+        # capture alone reserved 17.8 GB on an H100, against 11.0 GB for
+        # all of them in this order).
+        for B, S, W in sorted(wave_keys, key=lambda k: (k[0] * k[1], k[2])):
+            g.wave(*model, z(B, S), z(B), z(B), z(B, W), capture_only=True)
         if self.sc.enable_mixed_batching and self.draft_params is None:
             m_widths = sorted(set(min(max(16, W), maxb) for W in widths))
             for S in self._mixed_warm_buckets():
                 for B in self.sc.decode_buckets:
                     for W in m_widths:
                         g.mixed(*model, z(S), 0, 0, z(W), z(3, B), z(B, W), capture_only=True)
+        if self.draft_params is not None and not self._use_fused_spec:
+            # The per-round spec round's passes at every batch bucket and
+            # width, each draw greedy and sampled.
+            gamma, S = self.spec_gamma, self.spec_gamma + 1
+            draft = (self.draft_params, self.draft_cfg, self.draft_cache)
+            for B in self.sc.decode_buckets:
+                samp = (z(B, dtype=np.float32), z(B), np.ones((B,), np.float32))
+                for W in widths:
+                    chunk = (z(B, S), z(B), z(B), z(B, W))
+                    for key in (None, z(2, dtype=np.uint32)):
+                        g.spec_draft(*draft, *chunk, *samp, key, gamma, capture_only=True)
+                        if gamma > 1:
+                            keys = None if key is None else z(gamma - 1, 2, dtype=np.uint32)
+                            g.decode_multi(*draft, z(3, B), z(B, W), *samp, keys, gamma - 1, model="draft",
+                                           return_logits=True, capture_only=True)
+                    g.spec_target(*model, *chunk, gamma, capture_only=True)
         if g.on_card:
             torch.cuda.synchronize(self.device)
         self._warm_captures = g.captures_total
@@ -668,7 +722,7 @@ class Scheduler:
             self._overlap_flush(outputs)
         self._reap_aborted(outputs)
         cand = self._mixed_candidate()
-        if cand is not None and self._mixed_step(cand, outputs):
+        if cand is not None and not self._wave_preferred() and self._mixed_step(cand, outputs):
             return outputs
         if self.running:
             outputs.extend(self._decode_step())
@@ -687,6 +741,23 @@ class Scheduler:
         if head.state == SeqState.WAITING and len(self.running) >= self.sc.max_running:
             return None
         return head
+
+    def _wave_preferred(self) -> bool:
+        """A wave admission rather than a mixed step: at least two short
+        wave-eligible prompts wait, the head among them, each within the
+        mixed budget, so the wave's stall is no worse than the chunk a
+        mixed step would carry. A long-prompt head takes the mixed path."""
+        if not self._supports_chunk_admit or self.draft_params is not None:
+            return False
+        cap = min(self._wave_s_cap(), self.sc.mixed_prefill_budget or self._wave_s_cap())
+        if self.sc.max_running - len(self.running) < 2:
+            return False
+        head = self.waiting[0]
+        if not (self._wave_eligible(head) and len(head.prompt) <= cap):
+            return False
+        n = sum(1 for seq in self.waiting[: self.sc.decode_buckets[-1]]
+                if self._wave_eligible(seq) and len(seq.prompt) <= cap)
+        return n >= 2
 
     def _mixed_step(self, seq: Sequence, outputs: List[tuple]) -> bool:
         """One mixed iteration: the decode batch plus ``seq``'s next prefill
@@ -794,8 +865,13 @@ class Scheduler:
                 self.timeouts_total += 1
 
     def _admit(self, outputs: List[tuple]) -> None:
-        """Admit the head of the queue: one chunked prefill."""
+        """Admit waiting sequences: a wave when several short prompts wait
+        and the head is one of them (FIFO: an ineligible or long head never
+        starves behind waves), else one chunked prefill of the head."""
         if not self.waiting or len(self.running) >= self.sc.max_running:
+            return
+        head = self.waiting[0]
+        if self._wave_eligible(head) and len(head.prompt) <= self._wave_s_cap() and self._admit_wave(outputs):
             return
         seq = self.waiting[0]
         try:
@@ -806,6 +882,87 @@ class Scheduler:
             return
         if done:
             self.waiting.pop(0)
+
+    def _wave_s_cap(self) -> int:
+        """Longest prompt a wave admission takes in its one chunk."""
+        return min(self.sc.max_prefill_chunk, self.sc.prefill_buckets[-1])
+
+    def _wave_eligible(self, seq: Sequence) -> bool:
+        """Rows a wave can admit: new requests (no preemption resume) whose
+        first token the wave's one draw can take (no grammar mask, no
+        per-request key)."""
+        s = seq.sampling
+        return (seq.state == SeqState.WAITING and seq.resume_tokens is None and seq.guided is None
+                and not (s.seed is not None and s.temperature > 0))
+
+    def _admit_wave(self, outputs: List[tuple]) -> bool:
+        """Prefill a wave of short waiting prompts in ONE ``chunk_decode``
+        pass (each row's whole uncached prompt, its KV written, each row's
+        last logits drawn from in one draw) and read back one ``[B]`` token
+        array. Returns False (the caller prefills the head alone) when
+        fewer than two rows are eligible or can allocate, or a draft is
+        attached (its catch-up is per sequence)."""
+        if not self._supports_chunk_admit or self.draft_params is not None:
+            return False
+        s_cap = self._wave_s_cap()
+        cap = min(self.sc.max_running - len(self.running), self.sc.decode_buckets[-1])
+        wave: List[Sequence] = []
+        for seq in self.waiting:
+            if len(wave) >= cap:
+                break
+            if self._wave_eligible(seq) and len(seq.prompt) <= s_cap:
+                wave.append(seq)
+        if len(wave) < 2:
+            return False
+        # First touch per row, all-or-nothing each; a row that cannot
+        # allocate ends the wave.
+        admitted: List[Sequence] = []
+        for seq in wave:
+            try:
+                self._first_touch(seq, seq.prompt, len(seq.prompt) + 1)
+            except OutOfBlocksError:
+                break
+            admitted.append(seq)
+        if len(admitted) < 2:
+            # Hand the blocks back: the single-sequence path touches again.
+            for seq in admitted:
+                self.allocator.release(seq.block_ids)
+                self.cached_tokens_total -= seq.cached_tokens
+                seq.block_ids = []
+                seq.num_cached_blocks = seq.num_computed = seq.cached_tokens = 0
+                seq.admitted_ts = None
+                seq.state = SeqState.WAITING
+            return False
+        s_bucket = next_bucket(max(len(seq.prompt) - seq.num_computed for seq in admitted), self.sc.prefill_buckets)
+        b_bucket = next_bucket(len(admitted), self.sc.decode_buckets)
+        width = self._width_bucket(max(len(seq.block_ids) for seq in admitted))
+        tokens = np.zeros((b_bucket, s_bucket), dtype=np.int32)
+        pos0 = np.zeros((b_bucket,), dtype=np.int32)
+        valid = np.zeros((b_bucket,), dtype=np.int32)
+        tables = np.zeros((b_bucket, width), dtype=np.int32)
+        for i, seq in enumerate(admitted):
+            chunk = seq.prompt[seq.num_computed:]
+            tokens[i, : len(chunk)] = chunk
+            pos0[i] = seq.num_computed
+            valid[i] = len(chunk)
+            tables[i, : len(seq.block_ids)] = seq.block_ids
+        if self._graphs is not None:
+            logits = self._graphs.wave(self.params, self.mc, self.cache, tokens, pos0, valid, tables)
+        else:
+            logits, _, _ = llama.chunk_decode(self.params, self.mc, self.cache.k, self.cache.v,
+                                              *map(self._dev, (tokens, pos0, valid, tables)), last_logits=True)
+        sampled = self._draw(logits, admitted, b_bucket, self._next_key())  # the wave's one host sync
+        self.wave_steps_total += 1
+        self.forward_steps_total += 1
+        self.prefill_steps_total += 1
+        for i, seq in enumerate(admitted):
+            self.waiting.remove(seq)
+            seq.num_computed = len(seq.prompt)
+            seq.state = SeqState.RUNNING
+            self.running.append(seq)
+            self._register_full_blocks(seq)
+            self._append_token(seq, int(sampled[i]), outputs)
+        return True
 
     def _first_touch(self, seq: Sequence, pf_tokens: List[int], total_tokens: int) -> None:
         """First admission: prefix-cache match + full block allocation,
@@ -973,14 +1130,16 @@ class Scheduler:
         bucket = next_bucket(n, self.sc.decode_buckets)
         # With a draft attached the batch speculates, unless a row is guided
         # (the draft's proposals ignore the FSM mask) or seeded and sampled
-        # (the spec window keys its draws per batch, not per request), or
-        # the window's blocks cannot be reserved: then it takes the non-spec
-        # path below (the JAX package tries its per-round spec path first,
-        # which is not ported).
+        # (a spec round keys its draws per batch, not per request): the
+        # fused spec window first, then one per-round spec round; where the
+        # blocks cannot be reserved, the non-spec path below.
         if self.draft_params is not None and not any(
             s.guided is not None or (s.sampling.seed is not None and s.sampling.temperature > 0) for s in batch
-        ) and self._decode_spec_fused(batch, bucket, outputs):
-            return outputs
+        ):
+            if self._use_fused_spec and self._decode_spec_fused(batch, bucket, outputs):
+                return outputs
+            if self._decode_spec(batch, bucket, outputs):
+                return outputs
         # A batch rides a window unless a row needs the host between tokens.
         # The port's requests carry no such extras yet (logprobs, penalties,
         # logits processors: the HTTP layer refuses them); a guided row
@@ -1292,6 +1451,110 @@ class Scheduler:
                 seq.d_n = old_total + min(k, gamma - 1)
         self.spec_fused_windows_total += 1
         self.spec_fused_accepted_tokens_total += len(outputs) - n0
+        return True
+
+    def _decode_spec(self, batch: List[Sequence], bucket: int, outputs: List[tuple]) -> bool:
+        """One speculative round for the batch: the draft catches up on its
+        unconsumed confirmed tokens and draws the first proposal (one
+        ``chunk_decode`` pass), then γ-1 more in a ``decode_multi`` window
+        with each step's logits; the target scores ``[last ; proposals]``
+        in one ``chunk_decode(all_logits=True)`` pass, and rejection
+        sampling (``spec_verify``) keeps a prefix and a correction or bonus
+        token a row, so the output follows the target's distribution
+        (greedy rows: argmax agreement). Returns False (the caller decodes
+        without the draft) when the round would pass ``max_seq_len`` or its
+        blocks cannot be reserved."""
+        gamma = self.spec_gamma
+        S = gamma + 1
+        bs = self.mc.block_size
+        for seq in batch:
+            if seq.total_len + S + 1 > self.mc.max_seq_len:
+                return False
+            need = (seq.total_len + S + 1 + bs - 1) // bs - len(seq.block_ids)
+            if need > 0:
+                try:
+                    seq.block_ids.extend(self.allocator.allocate(need))
+                except OutOfBlocksError:
+                    return False
+            if seq.total_len - seq.d_n > S:
+                # A lag longer than the round's chunk (non-spec stretches):
+                # absorb it in prefill chunks so the row rejoins the round.
+                self._draft_catchup(seq, seq.all_ids, seq.total_len - 1)
+        B = bucket
+        width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
+        tables = np.zeros((B, width), dtype=np.int32)
+        d_toks = np.zeros((B, S), dtype=np.int32)
+        d_pos0 = np.zeros((B,), dtype=np.int32)
+        d_valid = np.zeros((B,), dtype=np.int32)
+        # The draft window's [3, B] inputs (its first tokens come from the
+        # device) and the target's chunk: [last confirmed ; proposals].
+        tpa = np.zeros((3, B), dtype=np.int32)
+        t_pos0 = np.zeros((B,), dtype=np.int32)
+        t_valid = np.zeros((B,), dtype=np.int32)
+        for i, seq in enumerate(batch):
+            lag = seq.total_len - seq.d_n  # ≥ 1: the last token is never in the draft cache
+            d_toks[i, :lag] = seq.all_ids[seq.d_n:]
+            d_pos0[i], d_valid[i] = seq.d_n, lag
+            tables[i, : len(seq.block_ids)] = seq.block_ids
+            tpa[1:, i] = (seq.total_len, 1)
+            t_pos0[i], t_valid[i] = seq.total_len - 1, S
+        temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], B)
+        greedy = not (temps > 0).any()
+        dp, dc, dcache = self.draft_params, self.draft_cfg, self.draft_cache
+        g = self._graphs
+        samp_d = tuple(self._dev(x) for x in (temps, top_ks, top_ps))
+        tables_d = self._dev(tables) if g is None else None
+        key = self._next_key()
+        if g is not None:
+            tok1, lg1 = g.spec_draft(dp, dc, dcache, d_toks, d_pos0, d_valid, tables, temps, top_ks, top_ps,
+                                     None if greedy else key, gamma)
+        else:
+            lg1, _, _ = llama.chunk_decode(dp, dc, dcache.k, dcache.v, *map(self._dev, (d_toks, d_pos0, d_valid)),
+                                           tables_d, last_logits=True)
+            tok1 = sample_batch_device(lg1, *samp_d, None if greedy else key)
+        proposals = tok1[:, None]
+        draft_logits = lg1[:, None]
+        if gamma > 1:
+            key2 = self._next_key()
+            keys = None if greedy else prng.split_many(key2, gamma - 1)
+            if g is not None:
+                toks_out, lg_steps = g.decode_multi(dp, dc, dcache, tpa, tables, temps, top_ks, top_ps, keys,
+                                                    gamma - 1, model="draft", return_logits=True, first_tokens=tok1)
+            else:
+                tpa_d = self._dev(tpa)
+                toks_out, lg_steps, _, _ = llama.decode_multi(
+                    dp, dc, dcache.k, dcache.v, tok1, tpa_d[1], tables_d, tpa_d[2].bool(), *samp_d,
+                    None if greedy else key2, gamma - 1, return_logits=True)
+            proposals = torch.cat([proposals, toks_out.t()], 1)  # [B, γ]
+            draft_logits = torch.cat([draft_logits, lg_steps.transpose(0, 1)], 1)  # [B, γ, V]
+        proposals_h = proposals.cpu().numpy()  # the round's first host sync
+        t_toks = np.zeros((B, S), dtype=np.int32)
+        for i, seq in enumerate(batch):
+            t_toks[i, 0] = seq.all_ids[-1]
+            t_toks[i, 1:] = proposals_h[i]
+        if g is not None:
+            t_logits = g.spec_target(self.params, self.mc, self.cache, t_toks, t_pos0, t_valid, tables, gamma)
+        else:
+            t_logits, _, _ = llama.chunk_decode(self.params, self.mc, self.cache.k, self.cache.v,
+                                                *map(self._dev, (t_toks, t_pos0, t_valid)), tables_d, all_logits=True)
+        accepted, next_tok = spec_verify(draft_logits, t_logits, proposals, *samp_d, self._next_key())
+        accepted_h, next_h = accepted.cpu().numpy(), next_tok.cpu().numpy()  # the second
+        st = self.spec_stats
+        st.num_rounds += 1
+        self.spec_rounds_total += 1
+        for i, seq in enumerate(batch):
+            if seq.state != SeqState.RUNNING:
+                continue
+            k = int(accepted_h[i])
+            st.record_round(k, gamma)
+            old_total = seq.total_len
+            for t in list(proposals_h[i, :k]) + [int(next_h[i])]:
+                if seq.state != SeqState.RUNNING:
+                    break  # a stop inside the burst: stale KV rows stay masked by position
+                self._append_token(seq, int(t), outputs)
+            # The draft holds the catch-up through old_total-1 and the
+            # proposal feeds at old_total.., the first min(k, γ-1) confirmed.
+            seq.d_n = old_total + min(k, gamma - 1)
         return True
 
     def _finish_decode_rows(

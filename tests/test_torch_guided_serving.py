@@ -70,7 +70,6 @@ def _jax_scheduler(jp, impl="gather", **kw):
                          jsched.SchedulerConfig(**{**SCHED, "guided_pool_rows": 256,
                                                    **kw}),
                          dtype=jnp.float32, eos_token_ids=[EOS])
-    j._supports_chunk_admit = False
     j.attach_guided(JaxByteTokenizer())
     return j
 

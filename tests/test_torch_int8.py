@@ -478,21 +478,52 @@ def test_paged_degrades_to_gather_and_warns_once(weights, caplog):
 
 
 def test_fused_gates_refuse_int8_and_attach_draft_raises(weights):
+    """No fused window under int8 (as in the JAX package); a draft still
+    attaches, with no fused spec window, and speculates one round an
+    iteration (its cache int8 where its config says so); a greedy request
+    gets the answer of the same scheduler without the draft (over an int8
+    KV cache, up to the KV quantization)."""
+
+    def run(s):
+        s.add_request("r", list(range(1, 21)), SamplingParams(temperature=0.0),
+                      tsched.StopConditions(max_tokens=11, ignore_eos=True))
+        out = []
+        while s.has_work():
+            out += [o.token_id for _, o in s.step() if o.token_id >= 0]
+        return out
+
+    cfg_params = []
     for kv, wd in MODES.values():
         cfg = TCFG.replace(kv_cache_dtype=kv, weight_dtype=wd)
         params = tquant.quantize_params(dict(weights["auto"][1], layers=dict(weights["auto"][1]["layers"]))) \
             if wd == "int8" else weights["auto"][1]
-        s = tsched.Scheduler(cfg, params, tsched.SchedulerConfig(num_blocks=NUM_BLOCKS, num_scheduler_steps=8),
-                             dtype=torch.float32, device="cpu")
-        assert not s._use_fused_window and not s._fused_guided_ok()
-        assert s.config_snapshot()["model"]["kv_cache_dtype"] == kv
-        assert s.config_snapshot()["model"]["weight_dtype"] == wd
-        with pytest.raises(NotImplementedError, match="13b"):
-            s.attach_draft(TCFG, weights["auto"][1])
-    s = tsched.Scheduler(TCFG, weights["auto"][1], tsched.SchedulerConfig(num_blocks=NUM_BLOCKS, num_scheduler_steps=8),
-                         dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="13b"):
-        s.attach_draft(TCFG.replace(kv_cache_dtype="int8"), weights["auto"][1])
+        cfg_params.append((cfg, params))
+    sc = dict(num_blocks=NUM_BLOCKS, num_scheduler_steps=8)
+    for cfg, params in cfg_params + [(TCFG, weights["auto"][1])]:
+        s = tsched.Scheduler(cfg, params, tsched.SchedulerConfig(**sc), dtype=torch.float32, device="cpu")
+        if cfg is TCFG:
+            # An int8 draft beside a full-precision target: the target keeps
+            # its fused window, the draft takes no fused spec window.
+            assert s._use_fused_window
+            draft_cfg = TCFG.replace(kv_cache_dtype="int8")
+        else:
+            assert not s._use_fused_window and not s._fused_guided_ok()
+            assert s.config_snapshot()["model"]["kv_cache_dtype"] == cfg.kv_cache_dtype
+            assert s.config_snapshot()["model"]["weight_dtype"] == cfg.weight_dtype
+            draft_cfg = TCFG
+        s.attach_draft(draft_cfg, weights["auto"][1])
+        assert not s._use_fused_spec and isinstance(s.draft_cache.k, QuantKv) == (draft_cfg is not TCFG)
+        got = run(s)
+        assert s.spec_rounds_total > 0 and s.spec_fused_windows_total == 0
+        want = run(tsched.Scheduler(cfg, params, tsched.SchedulerConfig(**sc), dtype=torch.float32, device="cpu"))
+        if cfg.kv_cache_dtype == "int8":
+            # A verify attends its own chunk's K/V at full precision where
+            # single steps read them back from the int8 cache (as in the JAX
+            # package), so greedy tokens agree only up to the KV
+            # quantization: the prefill's token, and the length.
+            assert got[0] == want[0] and len(got) == len(want)
+        else:
+            assert got == want
 
 
 BUCKETS = dict(prefill_buckets=[32, 64], decode_buckets=[1, 2, 4])
@@ -546,7 +577,6 @@ def test_scheduler_matches_jax_int8(weights, steps):
     j = jsched.Scheduler(JCFG.replace(attention_impl="megakernel", kv_cache_dtype="int8", weight_dtype="int8"), jq,
                          jsched.SchedulerConfig(**common), dtype=jnp.float32,
                          eos_token_ids=[0], on_kv_event=jev.append)
-    j._supports_chunk_admit = False
     t = tsched.Scheduler(TCFG.replace(kv_cache_dtype="int8", weight_dtype="int8"), tq, tsched.SchedulerConfig(**common),
                          dtype=torch.float32, device="cpu", eos_token_ids=[0], on_kv_event=tev.append)
     assert not j._use_fused_window and not t._use_fused_window

@@ -67,8 +67,6 @@ def _pair(weights, impl="megakernel", **kw):
     jp, tp = weights
     j = jsched.Scheduler(JCFG.replace(attention_impl=impl), jp, jsched.SchedulerConfig(**SCHED, **kw),
                          dtype=jnp.float32)
-    # The port has no wave admission: one prefill per admission on both sides.
-    j._supports_chunk_admit = False
     t = tsched.Scheduler(TCFG.replace(attention_impl=impl), tp, tsched.SchedulerConfig(**SCHED, **kw),
                          dtype=torch.float32, device="cpu")
     assert t.sc.enable_overlap_decode == j.sc.enable_overlap_decode == kw.get("enable_overlap_decode", True)

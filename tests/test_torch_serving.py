@@ -6,8 +6,10 @@
    configuration (megakernel; paged + flash; gather + xla): staggered
    arrivals, a prompt longer than ``mixed_prefill_budget`` (mixed steps),
    a shared prefix that hits the prefix cache, and a pool small enough to
-   force a preemption. Greedy token streams, finish reasons and cached
-   tokens must be identical. With 8-step decode windows both schedulers
+   force a preemption, with wave admission on in both. Greedy token
+   streams, finish reasons and cached tokens must be identical. A burst
+   of short prompts is admitted in waves by both (``chunk_decode``), with
+   a sampled row among them. With 8-step decode windows both schedulers
    replay a greedy trace through their fused windows, token for token, and
    a trace with a greedy, an unseeded sampled and a seeded top-k/top-p
    request through their fused sampled windows (threefry keys in both);
@@ -142,9 +144,6 @@ def test_scheduler_trace_matches_jax(weights, impl):
         jsched.SchedulerConfig(num_scheduler_steps=1, **common),
         dtype=jnp.float32, eos_token_ids=[0],
     )
-    # The port has no wave admission (several short prompts prefilled in one
-    # batched dispatch); hold the JAX scheduler to one prefill per admission.
-    j._supports_chunk_admit = False
     t = tsched.Scheduler(TCFG.replace(attention_impl=attn, prefill_impl=pre), tp,
                          tsched.SchedulerConfig(num_scheduler_steps=1, **common), dtype=torch.float32,
                          device="cpu", eos_token_ids=[0])
@@ -159,6 +158,47 @@ def test_scheduler_trace_matches_jax(weights, impl):
     assert t.config_snapshot()["model"] == j.config_snapshot()["model"]
     assert t.prefill_steps_total + t.decode_steps_total + t.mixed_steps_total == t.forward_steps_total
     assert t.prefill_steps_total > 0 and t.decode_steps_total > 0
+
+
+def _wave_trace():
+    """A burst of four short prompts at step 0 (one wave), one sharing a
+    block with the first so a later arrival hits the prefix cache, a
+    sampled row among them, and a long prompt behind them that is not
+    wave-eligible (longer than the wave's chunk cap), so it prefills alone."""
+    rng = np.random.default_rng(4)
+    a = rng.integers(1, 255, size=20).tolist()
+    return [
+        (0, "A", a, 12),
+        (0, "B", rng.integers(1, 255, size=9).tolist(), 10),
+        (0, "C", rng.integers(1, 255, size=30).tolist(), 14),
+        (0, "D", rng.integers(1, 255, size=5).tolist(), 9),
+        (1, "E", rng.integers(1, 255, size=100).tolist(), 6),
+        (30, "F", a[:16] + rng.integers(1, 255, size=7).tolist(), 8),
+        (30, "G", rng.integers(1, 255, size=12).tolist(), 8),
+    ]
+
+
+@pytest.mark.parametrize("impl", ["megakernel", "paged+flash"])
+def test_wave_admission_matches_jax(weights, impl):
+    """Both schedulers admit the burst as one wave (``chunk_decode`` with
+    each row's last logits and one draw) and the later pair as another,
+    and give the same tokens (B sampled), finish reasons and cached
+    tokens; the waves count as forward and prefill steps."""
+    jp, tp = weights
+    attn, pre = IMPLS[impl]
+    common = dict(num_blocks=64, max_running=8, mixed_prefill_budget=64, max_prefill_chunk=64, **BUCKETS)
+    j = jsched.Scheduler(JCFG.replace(attention_impl=attn, prefill_impl=pre), jp,
+                         jsched.SchedulerConfig(num_scheduler_steps=1, **common), dtype=jnp.float32, eos_token_ids=[0])
+    t = tsched.Scheduler(TCFG.replace(attention_impl=attn, prefill_impl=pre), tp,
+                         tsched.SchedulerConfig(num_scheduler_steps=1, **common), dtype=torch.float32,
+                         device="cpu", eos_token_ids=[0])
+    samplings = {"B": {"temperature": 0.9, "top_k": 30}}
+    want = _replay(j, jsched, JaxSampling, _wave_trace(), samplings=samplings)
+    got = _replay(t, tsched, SamplingParams, _wave_trace(), samplings=samplings)
+    assert got == want
+    assert t.wave_steps_total == j.flight._hists["wave"].total == 2
+    assert got["F"]["cached"] == [16] and t._step_counter == j._step_counter
+    assert t.prefill_steps_total + t.decode_steps_total + t.mixed_steps_total == t.forward_steps_total
 
 
 def _window_trace():
@@ -187,7 +227,6 @@ def test_window_scheduler_matches_jax(weights):
     j = jsched.Scheduler(JCFG.replace(attention_impl="megakernel"), jp,
                          jsched.SchedulerConfig(**WINDOWS),
                          dtype=jnp.float32, eos_token_ids=[0])
-    j._supports_chunk_admit = False
     t = _port_scheduler(tp)
     assert j._use_fused_window and t._use_fused_window
     want = _replay(j, jsched, JaxSampling, _window_trace())
@@ -226,7 +265,6 @@ def test_sampled_window_scheduler_matches_jax(weights):
     j = jsched.Scheduler(JCFG.replace(attention_impl="megakernel"), jp,
                          jsched.SchedulerConfig(**WINDOWS),
                          dtype=jnp.float32, eos_token_ids=[0])
-    j._supports_chunk_admit = False
     t = _port_scheduler(tp)
     want = _replay(j, jsched, JaxSampling, _sampled_trace(), samplings=SAMPLED)
     got = _replay(t, tsched, SamplingParams, _sampled_trace(), samplings=SAMPLED)

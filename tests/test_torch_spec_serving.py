@@ -8,11 +8,21 @@
    sampled requests (the seeded row sends its batches down the non-spec
    path, after which speculation resumes). Token streams, finish reasons,
    the ``spec_decode`` stats and the spec-window counters must be equal.
-2. The port's spec greedy output equals its non-spec greedy output.
-3. Refusals: mismatched drafts, a gate that refuses the fused window (the
-   per-round path is not ported), and a draft checkpoint.
-4. ``TorchEngine`` with ``draft_model`` serves a request through the HTTP
-   service with the answer of an engine without a draft.
+2. The per-round spec path: at one decode step an iteration (no fused
+   window, so no fused spec window) both schedulers speculate one round an
+   iteration through ``chunk_decode``, on the megakernel path, the
+   ``"paged"`` path and with int8 KV and int8 weights (the draft's cache
+   int8 too): the same tokens (greedy, unseeded sampled, and a seeded
+   sampled row that sends its batches down the non-spec path), the same
+   ``spec_decode`` stats and step counter; greedy output equals the
+   non-spec scheduler's.
+3. The port's spec greedy output equals its non-spec greedy output.
+4. Refusals: mismatched drafts, γ < 1 and a draft checkpoint; where the
+   fused spec gate refuses (one step an iteration, the per-piece path, γ
+   past the kernel's 8) the draft attaches and speculates per round.
+5. ``TorchEngine`` with ``draft_model`` serves a request through the HTTP
+   service with the answer of an engine without a draft, on the fused
+   spec window and, with int8 KV, per round.
 """
 
 import asyncio
@@ -25,6 +35,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from dynamo_tpu.engine import quant as jquant
 from dynamo_tpu.engine import scheduler as jsched
 from dynamo_tpu.engine.config import get_config as jax_config
 from dynamo_tpu.engine.models import llama as jllama
@@ -32,6 +43,7 @@ from dynamo_tpu.engine.sampling import SamplingParams as JaxSampling
 from dynamo_tpu_torch.engine import scheduler as tsched
 from dynamo_tpu_torch.engine.config import get_config
 from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
+from dynamo_tpu_torch.engine.kv_cache import QuantKv
 from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.spec_decode import SpecDecodeStats
 from dynamo_tpu_torch.engine.weights import params_from_numpy
@@ -128,6 +140,63 @@ def test_spec_scheduler_matches_jax(models, case):
     assert set(t.metrics().to_wire()["spec_decode"]) == set(SpecDecodeStats().to_dict())
 
 
+# Per-round cases: (attention_impl, int8 target and draft, trace, draft seed).
+ROUND_CASES = {
+    "megakernel-sampling": ("megakernel", False, "sampling"),
+    "megakernel-self": ("megakernel", False, "self"),
+    "paged-disagreeing": ("paged", False, "disagreeing"),
+    "int8-sampling": ("megakernel", True, "sampling"),
+}
+
+
+def _quant(models, seed):
+    """(JAX int8 tree, port params from it) of ``models[seed]``."""
+    jq = jquant.quantize_params({**models[seed][0], "layers": dict(models[seed][0]["layers"])})
+    return jq, params_from_numpy(jax.tree_util.tree_map(np.asarray, jq), TCFG, device="cpu", dtype=torch.float32)
+
+
+@pytest.mark.parametrize("case", list(ROUND_CASES))
+def test_spec_rounds_match_jax(models, case):
+    impl, int8, trace_name = ROUND_CASES[case]
+    draft_seed, trace, samplings = _traces()[trace_name]
+    q = dict(kv_cache_dtype="int8", weight_dtype="int8") if int8 else {}
+    (jt, tt), (jd, td) = ((_quant(models, 0), _quant(models, draft_seed)) if int8
+                          else (models[0], models[draft_seed]))
+    sched = dict(SCHED, num_scheduler_steps=1)
+    j = jsched.Scheduler(JCFG.replace(attention_impl=impl, **q), jt, jsched.SchedulerConfig(**sched),
+                         dtype=jnp.float32, eos_token_ids=[0])
+    j.attach_draft(JCFG.replace(**q), jd, gamma=GAMMA)
+    t = tsched.Scheduler(TCFG.replace(attention_impl=impl, **q), tt, tsched.SchedulerConfig(**sched),
+                         dtype=torch.float32, device="cpu", eos_token_ids=[0])
+    t.attach_draft(TCFG.replace(**q), td, gamma=GAMMA)
+    assert not j._use_fused_spec and not t._use_fused_spec
+    assert isinstance(t.draft_cache.k, QuantKv) == int8
+    want = _replay(j, jsched, JaxSampling, trace, samplings)
+    got = _replay(t, tsched, SamplingParams, trace, samplings)
+    assert got == want
+    assert t.metrics().spec_decode == j.metrics().spec_decode
+    assert t.spec_rounds_total == t.spec_stats.num_rounds > 0 and t.spec_fused_windows_total == 0
+    assert t._step_counter == j._step_counter
+    if trace_name == "self":
+        assert t.spec_stats.acceptance_rate == 1.0
+    if trace_name == "sampling":
+        assert t.decode_steps_total > 0  # C's batches, without the draft
+
+
+def test_spec_rounds_greedy_output_matches_non_spec(models):
+    _, tt = models[0]
+    _, td = models[42]
+    trace = _traces()["disagreeing"][1]
+    sched = tsched.SchedulerConfig(**dict(SCHED, num_scheduler_steps=1))
+    plain = tsched.Scheduler(TCFG, tt, sched, dtype=torch.float32, device="cpu")
+    spec = tsched.Scheduler(TCFG, tt, sched, dtype=torch.float32, device="cpu")
+    spec.attach_draft(TCFG, td, gamma=3)
+    free0 = spec.allocator.num_free
+    assert _replay(spec, tsched, SamplingParams, trace, {}) == _replay(plain, tsched, SamplingParams, trace, {})
+    assert spec.spec_rounds_total > 0 and spec.wave_steps_total == 0
+    assert spec.allocator.num_free == free0
+
+
 def test_spec_greedy_output_matches_non_spec(models):
     _, tt = models[0]
     _, td = models[42]
@@ -152,16 +221,22 @@ def test_attach_draft_refusals(models):
         sched().attach_draft(TCFG.replace(block_size=32), tt)
     with pytest.raises(ValueError, match="vocabulary"):
         sched().attach_draft(TCFG.replace(vocab_size=512), tt)
-    # Where the fused spec window cannot run, the per-round path would: not
-    # ported, so attaching refuses instead of leaving the draft unused.
-    for s in (sched(num_scheduler_steps=1), sched(cfg=TCFG.replace(attention_impl="paged"))):
-        with pytest.raises(NotImplementedError, match="13b"):
-            s.attach_draft(TCFG, tt, gamma=GAMMA)
-        assert s.draft_params is None
-    with pytest.raises(NotImplementedError, match="13b"):
+    with pytest.raises(ValueError, match="gamma"):
         sched().attach_draft(TCFG, tt, gamma=0)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         EngineArgs(model="tiny", draft_model="tiny", draft_checkpoint_path="/nonexistent")
+    # Where the fused spec window cannot run (one step an iteration, the
+    # per-piece path, γ past the kernel's 8), the draft attaches and
+    # speculates one round an iteration.
+    for s, gamma in ((sched(num_scheduler_steps=1), GAMMA), (sched(cfg=TCFG.replace(attention_impl="paged")), GAMMA),
+                     (sched(), 9)):
+        s.attach_draft(TCFG, tt, gamma=gamma)
+        assert s.draft_params is not None and not s._use_fused_spec and s._spec_rounds == 0
+        s.add_request("r", list(range(1, 20)), SamplingParams(temperature=0.0),
+                      tsched.StopConditions(max_tokens=2 * gamma + 3, ignore_eos=True))
+        while s.has_work():
+            s.step()
+        assert s.spec_rounds_total > 0 and s.spec_stats.acceptance_rate == 1.0 and s.spec_fused_windows_total == 0
 
 
 def _post(port, body):
@@ -173,11 +248,11 @@ def _post(port, body):
     return resp.status, json.loads(raw)
 
 
-async def _answer(tt, draft):
+async def _answer(tt, draft, **kw):
     tok = ByteTokenizer()
     args = EngineArgs(model="tiny", dtype="float32", device="cpu", eos_token_ids=tok.eos_token_ids,
                       scheduler=tsched.SchedulerConfig(**SCHED), draft_model="tiny" if draft else None,
-                      spec_gamma=4)
+                      spec_gamma=4, **kw)
     engine = TorchEngine.build(args, params=tt, draft_params=tt if draft else None)
     service = HttpService({"tiny": build_local_pipeline(tok, engine)}, host="127.0.0.1", port=0)
     await service.start()
@@ -213,3 +288,34 @@ def test_run_flags_attach_a_draft(models):
     _, engine = run.build_service(args)
     assert engine.scheduler.draft_params["embed"].shape == tt["embed"].shape
     assert not torch.equal(engine.scheduler.draft_params["embed"], engine.scheduler.params["embed"])
+
+
+async def _serve_once(service, engine, body):
+    await service.start()
+    try:
+        return await asyncio.to_thread(_post, service.port, body)
+    finally:
+        await service.stop()
+        await engine.stop()
+
+
+def test_run_int8_kv_with_draft_serves_over_http(models):
+    """``run --kv-cache-dtype int8 --draft-model tiny --spec-gamma 3``: no
+    fused window under int8, so the draft speculates per round, and the
+    greedy answer is the one of the same flags without the draft."""
+    from dynamo_tpu_torch import run
+
+    _, tt = models[0]
+    flags = ["in=http", "out=tiny", "--device", "cpu", "--dtype", "float32", "--num-blocks", "32", "--http-port", "0",
+             "--kv-cache-dtype", "int8"]
+    body = {"model": "tiny", "prompt": "speculate in int8", "max_tokens": 16, "temperature": 0.0}
+    answers = []
+    for extra in (["--draft-model", "tiny", "--spec-gamma", "3"], []):
+        service, engine = run.build_service(run.parse_args(flags + extra), draft_params=tt if extra else None)
+        sched = engine.scheduler
+        answers.append(asyncio.run(_serve_once(service, engine, body)))
+        if extra:
+            assert not sched._use_fused_spec and sched.spec_rounds_total > 0
+            assert sched.spec_stats.num_rounds == sched.spec_rounds_total
+    (status, got), (status0, want) = answers
+    assert status == status0 == 200 and got["choices"][0]["text"] == want["choices"][0]["text"]
