@@ -26,7 +26,9 @@ weights (resident bytes; bf16 steps against the plain path and f32; an
 f32 ``decode_multi`` window's tokens and written codes), ``chunk_decode``
 (a wave and a spec verify, bf16 and int8, against the plain path and f32)
 and an int8-weight scheduler speculating one round an iteration against
-the same scheduler without the draft; replays each
+the same scheduler without the draft, and the per-request extras' device
+ops (penalties, top-logprobs with their tie order, ``logit_bias``)
+against the CPU at [8, 128256]; replays each
 CUDA graph the scheduler captures (``engine/graphs.py``: prefill, mixed,
 decode, ``decode_sample``, the draw at B = 1 and 8, a ``decode_multi``
 window; bf16 and int8) on the inputs of an eager call and holds logits,
@@ -34,9 +36,10 @@ tokens and KV blocks bit-equal, then again after refilling its static
 buffers; times a decode
 step and a mixed step (bf16, and int8; eager and as graphs), the
 per-step threefry draw and a 32-step decode window, greedy, sampled and
-guided, a spec window, a wave's forward (eager and graphed) and a
-per-round spec round; then serves ``dynamo_tpu_torch.run in=http
-out=llama-3.2-1b`` six times: on the megakernel path and on the
+guided, a spec window, a wave's forward (eager and graphed), a
+per-round spec round and an extras draw (penalties, then the draw with
+top logprobs); then serves ``dynamo_tpu_torch.run in=http
+out=llama-3.2-1b`` seven times: on the megakernel path and on the
 per-piece path (``attention_impl="paged", prefill_impl="flash"``), both
 at one decode step per iteration, with the defaults (32-step decode
 windows, every window fused, sampled rows drawn in the kernel), and with
@@ -44,7 +47,12 @@ a llama-3.2-1b draft of the target's weights (``--draft-model``: every
 batch speculates in fused spec windows), the same draft at one decode
 step per iteration (``spec-rounds``: one spec round an iteration through
 ``chunk_decode``), and with ``--kv-cache-dtype int8 --weight-dtype int8`` (every step through the ragged kernel's int8
-branch, a copy-on-write prefix hit on the int8 cache); the megakernel
+branch, a copy-on-write prefix hit on the int8 cache), and ``extras``:
+the defaults with a burst that mixes plain requests with logprobs and
+``top_logprobs``, penalties, a ``logit_bias``, ``n = 3`` and a forced
+``tool_choice`` (the plain rows ride fused windows through the row-wise
+fallback while the extras rows single-step; every logprob, the biased
+answer, the three choices and the tool call are checked); the megakernel
 passes start with ``--warmup-ctx 2048`` (the step graphs captured before
 traffic: its seconds, graphs and pool bytes, and no capture after it) and
 the 1-step pass must run the overlapped decode pipeline and admit a
@@ -2138,6 +2146,69 @@ def phase_model(dev):
     phase_model_chunk(dev)
     phase_model_spec_rounds(dev)
     phase_model_graphs(dev)
+    phase_model_extras(dev)
+
+
+EXTRAS_ROWS = 8
+EXTRAS_LP_TOL = 1e-5  # f32 log-softmax over 128,256 logits, card against CPU
+
+
+def extras_inputs(dev, V: int, seed: int) -> tuple:
+    """An extras draw's inputs at ``EXTRAS_ROWS`` rows of the full vocabulary:
+    logits (a few rows with tied values at the top, as the processors and
+    penalties leave them), a generated-token history of 64 per row with
+    repeats, and per-row frequency/presence penalties (row 0 none)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = EXTRAS_ROWS
+    logits = torch.randn((B, V), generator=g, device=dev) * 2
+    logits[1, :30] = logits[1].max() + 1  # ties across the 20 alternatives
+    logits[2, 5::1000] = 3.5
+    hist = torch.randint(0, V, (B, 64), generator=g, device=dev, dtype=torch.int32)
+    hist[:, 32:] = hist[:, :32]
+    hist_len = torch.arange(B, device=dev, dtype=torch.int32) * 9
+    freq = torch.linspace(0.0, 2.0, B, device=dev)
+    pres = torch.linspace(0.0, -1.0, B, device=dev)
+    return logits, hist, hist_len, freq, pres
+
+
+def phase_model_extras(dev):
+    """The per-request extras' device ops (``sampling.apply_penalties``,
+    ``sampling.compute_topk_logprobs`` and ``LogitBiasProcessor``) on the
+    card against the same functions on the CPU at [8, 128256]: equal
+    penalised and biased logits, equal top ids (ties broken toward the
+    lower id), logprobs within ``EXTRAS_LP_TOL``."""
+    from dynamo_tpu_torch.engine import sampling
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.logits_processing import LogitBiasProcessor
+
+    V = get_config(PRESET).vocab_size
+    args = extras_inputs(dev, V, 21)
+    cpu = [a.cpu() for a in args]
+    pen_card, pen_cpu = sampling.apply_penalties(*args), sampling.apply_penalties(*cpu)
+    tokens = torch.argmax(pen_card, dim=-1)
+    chosen, ids, lps = sampling.compute_topk_logprobs(pen_card, tokens)
+    chosen_c, ids_c, lps_c = sampling.compute_topk_logprobs(pen_card.cpu(), tokens.cpu())
+    bias = {7: 100.0, 128255: -50.0, 200000: 3.0, 42: 2.5}
+    biased = torch.stack([LogitBiasProcessor(bias)([], row) for row in args[0]])
+    biased_c = torch.stack([LogitBiasProcessor(bias)([], row) for row in cpu[0]])
+    res = {
+        "shape": list(args[0].shape),
+        "penalties_max_abs_err": (pen_card.cpu() - pen_cpu).abs().max().item(),
+        "penalised_rows_changed": int((pen_card != args[0]).any(dim=-1).sum().item()),
+        "top_ids_equal": bool(torch.equal(ids.cpu(), ids_c)),
+        "top_ids_row1": ids[1, :6].tolist(),
+        "chosen_is_top1": bool(torch.equal(ids[:, 0].long(), tokens)),
+        "logprobs_max_abs_err": max((chosen.cpu() - chosen_c).abs().max().item(),
+                                    (lps.cpu() - lps_c).abs().max().item()),
+        "logit_bias_max_abs_err": (biased.cpu() - biased_c).abs().max().item(),
+        "tol": EXTRAS_LP_TOL,
+    }
+    res["ok"] = (res["penalties_max_abs_err"] == 0 and res["logit_bias_max_abs_err"] == 0 and res["top_ids_equal"]
+                 and res["chosen_is_top1"] and res["logprobs_max_abs_err"] <= EXTRAS_LP_TOL
+                 and res["penalised_rows_changed"] == EXTRAS_ROWS - 1 and res["top_ids_row1"] == list(range(6)))
+    emit("model_extras", **res)
+    if not res["ok"]:
+        raise AssertionError(f"the extras' device ops disagree with the CPU: {res}")
 
 
 def phase_model_chunk(dev):
@@ -3131,6 +3202,34 @@ def draw_breakdown(dev, V):
     return rows
 
 
+def extras_draw_breakdown(dev, V):
+    """An extras batch's post-forward work at ``EXTRAS_ROWS`` rows: the
+    frequency/presence penalties over a 64-token history, then the draw with
+    the chosen logprobs and the top alternatives
+    (``sample_batch_top_logprobs``), eager as the scheduler runs it; the
+    plain draw of the same rows beside it. Event ms, host ms to queue it,
+    device-busy ms and device operations."""
+    from dynamo_tpu_torch.engine import prng
+    from dynamo_tpu_torch.engine.sampling import apply_penalties, sample_batch_device, sample_batch_top_logprobs
+
+    logits, hist, hist_len, freq, pres = extras_inputs(dev, V, 23)
+    temps, top_ks, top_ps = (x.cpu().numpy() for x in sample_rows(EXTRAS_ROWS, 1, dev, 23)[:3])
+    key = prng.PRNGKey(23)
+    runs = {
+        "penalties+top_logprobs": lambda: sample_batch_top_logprobs(
+            apply_penalties(logits, hist, hist_len, freq, pres), temps, top_ks, top_ps, key),
+        "plain draw": lambda: sample_batch_device(logits, temps, top_ks, top_ps, key),
+    }
+    rows = {}
+    for name, fn in runs.items():
+        ms = cuda_ms(fn, iters=10)
+        busy, n_ops = device_busy_ms(fn, runs=1)
+        rows[name] = {"rows": EXTRAS_ROWS, "ms": ms, "host_enqueue_ms": host_enqueue_ms(fn, iters=5),
+                      "device_busy_ms": busy, "device_idle_share": 1 - busy / ms if busy else None,
+                      "device_ops": n_ops}
+    return rows
+
+
 def phase_breakdown(dev):
     """Time of one decode step and one mixed step of llama-3.2-1b in bf16
     (CUDA events, median of 20) on each attention path, the host time to
@@ -3147,7 +3246,8 @@ def phase_breakdown(dev):
     the step over its device-busy ms). Then one
     32-step window over the same 8 decode rows: fused greedy, fused
     sampled, fused guided, and the non-fused greedy ``decode_multi``; and
-    the per-step paths' threefry draw."""
+    the per-step paths' threefry draw, and an extras batch's penalties and
+    top-logprobs draw."""
     from dynamo_tpu_torch.engine.attention import decode as pdk
     from dynamo_tpu_torch.engine.attention import megakernel as mk
     from dynamo_tpu_torch.engine.attention import prefill as fck
@@ -3233,6 +3333,7 @@ def phase_breakdown(dev):
     del params8, cache8
     res["windows"] = window_breakdown(params, base, cache, d_args, steps)
     res["draw"] = draw_breakdown(dev, base.vocab_size)
+    res["extras_draw"] = extras_draw_breakdown(dev, base.vocab_size)
     res["wave"] = wave_breakdown(params, base, cache, rng)
     res["spec_round"] = spec_round_breakdown(params, base, dev)
     emit("breakdown", **res)
@@ -3306,6 +3407,12 @@ def grammar_holds(body: dict, text: str, finish: str) -> bool:
     return finish == "length" and state >= 0
 
 
+def structured(body: dict) -> bool:
+    """A request whose text a grammar constrains (``response_format`` or an
+    ``nvext.guided_*`` constraint)."""
+    return "response_format" in body or any(k.startswith("guided_") for k in body.get("nvext") or {})
+
+
 def _summarize(status, data, stream):
     """(completion_tokens, finish_reason, cached_tokens) of one answer."""
     if status != 200:
@@ -3323,7 +3430,7 @@ def _summarize(status, data, stream):
     return usage["completion_tokens"], finish, cached
 
 
-SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows", "spec", "int8", "spec-rounds")
+SERVE_PASSES = ("megakernel", "paged+flash", "megakernel+windows", "spec", "int8", "spec-rounds", "extras")
 # The spec passes' scheduler counters: fused spec windows, the tokens they
 # emitted, per-round spec rounds, and the draft's prefill chunks; and the
 # waves admitted (in forward and prefill steps too).
@@ -3344,6 +3451,138 @@ GUIDED_JSON = {"stream": True, "temperature": 0.0,
                "response_format": {"type": "json_schema", "json_schema": {"name": "weather", "schema": GUIDED_SCHEMA}}}
 GUIDED_OBJECT = {"stream": True, "temperature": 0.0, "response_format": {"type": "json_object"}}
 GUIDED_CHOICE = {"temperature": 0.9, "nvext": {"guided_choice": ["red", "green", "blue"]}}
+# The extras pass: the byte its logit_bias forces, and the one tool its
+# forced tool_choice calls (a finite grammar: the call always completes).
+BIASED_BYTE = ord("q")
+EXTRAS_TOOL = {"type": "function", "function": {"name": "get_city", "parameters": {
+    "type": "object", "properties": {"city": {"enum": ["SF", "NY", "LA"]}, "ok": {"type": "boolean"}},
+    "required": ["city", "ok"]}}}
+
+
+def extras_requests(text) -> list:
+    """The extras pass's burst, (kind, url, body): 2 greedy and 2 sampled
+    plain requests (the first greedy one shares the penalised request's
+    prompt), one greedy with ``logprobs`` and ``top_logprobs: 5``, one with
+    frequency and presence penalties, one with a +100 ``logit_bias`` on one
+    byte, one seeded sampled ``n: 3`` and one forced ``tool_choice``."""
+    shared = text(90)
+    return [
+        ("plain", "/v1/completions", {"prompt": text(200)}),
+        ("twin", "/v1/chat/completions", {"messages": [{"role": "user", "content": shared}], "stream": True}),
+        ("plain", "/v1/chat/completions", {"messages": [{"role": "user", "content": text(60)}], "stream": True,
+                                           "temperature": 0.8, "top_p": 0.9}),
+        ("plain", "/v1/completions", {"prompt": text(120), "temperature": 1.0, "top_k": 50}),
+        ("logprobs", "/v1/chat/completions", {"messages": [{"role": "user", "content": text(70)}], "logprobs": True,
+                                              "top_logprobs": 5}),
+        ("penalties", "/v1/chat/completions", {"messages": [{"role": "user", "content": shared}],
+                                               "frequency_penalty": 1.0, "presence_penalty": 0.5}),
+        ("bias", "/v1/completions", {"prompt": text(40), "logit_bias": {str(BIASED_BYTE): 100}}),
+        ("n", "/v1/completions", {"prompt": text(50), "n": 3, "seed": 99, "temperature": 0.9,
+                                  "nvext": {"ignore_eos": True}}),
+        ("tool", "/v1/chat/completions", {"messages": [{"role": "user", "content": text(30)}],
+                                          "tools": [EXTRAS_TOOL], "tool_choice": {
+                                              "type": "function", "function": {"name": "get_city"}}}),
+    ]
+
+
+class RowRecorder:
+    """Inside the ``with`` block, every token the scheduler appends for a row
+    that asks for logprobs or penalties, or shares a penalised row's prompt:
+    request id → {"prompt", "penalties", "tokens", "logprobs", "top"}."""
+
+    def __init__(self, sched):
+        self.sched, self.rows = sched, {}
+
+    def __enter__(self):
+        orig, rows = self.sched._append_token, self.rows
+        self.orig = orig
+
+        def append(seq, token, outputs, logprob=None, top_logprobs=None):
+            if logprob is None:
+                logprob, top = seq._pending_logprob, seq._pending_top_logprobs
+            else:
+                top = top_logprobs
+            s = seq.sampling
+            if s.logprobs or s.has_penalties or (s.temperature == 0 and not s.logits_processors and not seq.guided):
+                r = rows.setdefault(seq.request_id, {"prompt": tuple(seq.prompt), "penalties": s.has_penalties,
+                                                     "logprobs_row": bool(s.top_logprobs),
+                                                     "tokens": [], "logprobs": [], "top": []})
+                r["tokens"].append(token)
+                r["logprobs"].append(logprob)
+                r["top"].append(top)
+            return orig(seq, token, outputs, logprob, top_logprobs)
+
+        self.sched._append_token = append
+        return self
+
+    def __exit__(self, *exc):
+        self.sched._append_token = self.orig
+
+
+def extras_checks(reqs, results, rows) -> dict:
+    """The extras pass's answers against its gates: every logprob finite and
+    ≤ 0, each ``top_logprobs`` list 5 long and sorted, the greedy logprobs
+    row's token its top-1 id and its logprob the top-1 logprob; the biased
+    answer the biased byte repeated; three ``n`` choices of the requested
+    length, not all equal; the tool call parsed into an OpenAI
+    ``tool_calls`` entry whose arguments hold the tool's schema, finish
+    reason ``tool_calls``. Also (no gate) the penalised row's distinct
+    tokens beside its greedy twin's. Raises on a failed gate."""
+    out, bad = {}, []
+    for (kind, url, body), (status, data, _, _) in zip(reqs, results):
+        if status != 200:
+            raise AssertionError(f"extras {kind}: HTTP {status}: {data}")
+        if kind == "bias":
+            text, finish = data["choices"][0]["text"], data["choices"][0]["finish_reason"]
+            out["bias"] = {"text": text[:16], "completion_tokens": data["usage"]["completion_tokens"]}
+            if text != chr(BIASED_BYTE) * data["usage"]["completion_tokens"] or finish != "length":
+                bad.append(("bias", text[:80], finish))
+        elif kind == "n":
+            texts = [c["text"] for c in data["choices"]]
+            finishes = [c["finish_reason"] for c in data["choices"]]
+            out["n"] = {"choices": len(texts), "finish": finishes, "completion_tokens": data["usage"]["completion_tokens"],
+                        "distinct_texts": len(set(texts))}
+            if (len(texts) != 3 or finishes != ["length"] * 3 or data["usage"]["completion_tokens"] != 3 * 64
+                    or len(set(texts)) < 2 or [c["index"] for c in data["choices"]] != [0, 1, 2]):
+                bad.append(("n", out["n"]))
+        elif kind == "tool":
+            choice = data["choices"][0]
+            calls = choice["message"].get("tool_calls") or []
+            out["tool"] = {"finish_reason": choice["finish_reason"], "tool_calls": calls}
+            try:
+                args = json.loads(calls[0]["function"]["arguments"])
+                ok = (choice["finish_reason"] == "tool_calls" and calls[0]["type"] == "function"
+                      and calls[0]["function"]["name"] == "get_city" and args["city"] in ("SF", "NY", "LA")
+                      and isinstance(args["ok"], bool) and set(args) == {"city", "ok"})
+            except (IndexError, KeyError, TypeError, ValueError):
+                ok = False
+            if not ok:
+                bad.append(("tool", out["tool"]))
+        elif kind == "logprobs":
+            content = data["choices"][0]["logprobs"]["content"]
+            if len(content) != data["usage"]["completion_tokens"]:
+                bad.append(("logprobs entries", len(content), data["usage"]["completion_tokens"]))
+    lp_rows = [r for r in rows.values() if r["logprobs_row"]]
+    if len(lp_rows) != 1:
+        raise AssertionError(f"expected one logprobs row among {len(rows)} recorded")
+    r = lp_rows[0]
+    lps = r["logprobs"]
+    sorted_ok = all(len(t) == 5 and all(a[1] >= b[1] for a, b in zip(t, t[1:])) for t in r["top"])
+    top1 = all(tok == t[0][0] and abs(lp - t[0][1]) <= 1e-6 for tok, lp, t in zip(r["tokens"], lps, r["top"]))
+    out["logprobs"] = {"tokens": len(lps), "min": min(lps), "max": max(lps), "top_sorted_5": sorted_ok,
+                       "chosen_is_top1": top1}
+    if not (all(np.isfinite(x) and x <= 0 for x in lps) and sorted_ok and top1 and len(lps) > 0):
+        bad.append(("logprobs", out["logprobs"]))
+    pen = [r for r in rows.values() if r["penalties"]]
+    twin = [r for r in rows.values() if not r["penalties"] and not r["logprobs_row"] and pen
+            and r["prompt"] == pen[0]["prompt"]]
+    out["penalties"] = {"distinct_tokens": len(set(pen[0]["tokens"])) if pen else None,
+                        "twin_distinct_tokens": len(set(twin[0]["tokens"])) if twin else None,
+                        "tokens": len(pen[0]["tokens"]) if pen else None,
+                        "twin_tokens": len(twin[0]["tokens"]) if twin else None}
+    if bad:
+        raise AssertionError(f"the extras pass failed its gates: {bad}")
+    return out
 
 
 class PoolGrowth:
@@ -3429,7 +3668,15 @@ def phase_serve(card: str, path: str):
     admitted in waves (one ``chunk_decode`` pass, counted as a forward and
     prefill step; on the per-piece path it attends through the gather, as
     in JAX, and launches no kernel): the 1-step megakernel pass must admit
-    at least one."""
+    at least one. "extras" serves the defaults (32-step windows, warmed up)
+    with ``extras_requests``'s burst in place of the 8 requests: 2 greedy
+    and 2 sampled plain ones, one with ``logprobs`` and ``top_logprobs``,
+    one with penalties, one with a ``logit_bias``, one ``n = 3`` and one
+    forced ``tool_choice``. Its window-eligible rows run fused windows
+    while the extras rows single-step in the same iterations
+    (``rowwise_windows_total`` ≥ 1, at most one per fused window), with
+    the windows pass's launch gates, and ``extras_checks`` holds its
+    answers."""
     from dynamo_tpu_torch import run
     from dynamo_tpu_torch.engine.config import get_config
     from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
@@ -3438,9 +3685,9 @@ def phase_serve(card: str, path: str):
 
     model_config = get_config(PRESET).replace(**PER_PIECE) if path == "paged+flash" else None
     rounds = path == "spec-rounds"
-    spec, int8 = path in ("spec", "spec-rounds"), path == "int8"
+    spec, int8, extras = path in ("spec", "spec-rounds"), path == "int8", path == "extras"
     windows = path in ("megakernel+windows", "spec")
-    scheduler_config = None if windows or int8 else SchedulerConfig(num_scheduler_steps=1)
+    scheduler_config = None if windows or int8 or extras else SchedulerConfig(num_scheduler_steps=1)
     extra = ["--draft-model", PRESET, "--spec-gamma", str(SPEC_GAMMA)] if spec else []
     if int8:
         extra = ["--kv-cache-dtype", "int8", "--weight-dtype", "int8"]
@@ -3476,6 +3723,9 @@ def phase_serve(card: str, path: str):
                           ("/v1/chat/completions", {"messages": [{"role": "user", "content": text(30)}],
                                                     **GUIDED_OBJECT})]
     reqs += guided
+    if extras:
+        extras_kinds = extras_requests(text)
+        reqs = [(url, body) for _, url, body in extras_kinds]
     for _, body in reqs:
         body.setdefault("temperature", 0.0)
         body.update(model=PRESET, max_tokens=64)
@@ -3494,14 +3744,19 @@ def phase_serve(card: str, path: str):
         await service.start()
         try:
             kinds = ("forward", "prefill", "decode", "mixed")
-            counters = WINDOW_COUNTERS + SPEC_COUNTERS + OVERLAP_COUNTERS + ("cow_blocks_total",)
+            counters = WINDOW_COUNTERS + SPEC_COUNTERS + OVERLAP_COUNTERS + ("cow_blocks_total",
+                                                                             "rowwise_windows_total")
             steps0 = {k: getattr(sched, f"{k}_steps_total") for k in kinds}
             steps0.update({k: getattr(sched, k) for k in counters})
             reset_counts()  # counts from zero, just before the main path runs
             t0 = time.perf_counter()
-            results = await asyncio.gather(
-                *[asyncio.to_thread(_request, service.port, path, body) for path, body in reqs]
-            )
+            # Only the extras pass records its rows: the other passes time
+            # the path they timed before it, with no hook on each token.
+            recorder = RowRecorder(sched) if extras else None
+            with recorder if extras else contextlib.nullcontext():
+                results = await asyncio.gather(
+                    *[asyncio.to_thread(_request, service.port, path, body) for path, body in reqs]
+                )
             wall = time.perf_counter() - t0
             repeat = await asyncio.to_thread(_request, service.port, *reqs[0])
             burst_forward = sched.forward_steps_total - steps0["forward"]
@@ -3531,7 +3786,7 @@ def phase_serve(card: str, path: str):
                   "captures_after_warmup": sched.graph_captures_after_warmup,
                   "replays_total": sched._graphs.replays_total if sched._graphs is not None else 0}
         return (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, sched.mc, impl,
-                sched.sc.num_scheduler_steps, seeded_windows, cow, graphs)
+                sched.sc.num_scheduler_steps, seeded_windows, cow, graphs, recorder.rows if extras else {})
 
     def register_seconds(fsm, pool):
         """Seconds the step loop spends writing ``fsm``'s rows into a fresh
@@ -3586,15 +3841,17 @@ def phase_serve(card: str, path: str):
         return _summarize(*second[:2], False)[2], sched.cow_blocks_total - cow0
 
     (results, wall, repeat, seeded, burst_forward, counts, steps, metrics, mc, impl, sched_steps,
-     seeded_windows, cow, graphs) = asyncio.run(serve())
+     seeded_windows, cow, graphs, rows) = asyncio.run(serve())
     answers, guided_answers = [], []
-    for (url, body), (status, data, first, total) in zip(reqs, results):
+    for i, ((url, body), (status, data, first, total)) in enumerate(zip(reqs, results)):
         n, finish, cached = _summarize(status, data, body.get("stream", False))
-        if n != 64 and finish != "stop":
+        # The extras pass checks its own n, biased and tool answers.
+        plain = not extras or extras_kinds[i][0] in ("plain", "twin", "logprobs", "penalties")
+        if plain and n != 64 and finish != "stop":
             raise AssertionError(f"{url} gave {n} tokens with finish_reason {finish!r}")
         answers.append({"path": url, "stream": bool(body.get("stream")), "completion_tokens": n,
                         "finish_reason": finish, "ttft_s": first, "latency_s": total})
-        if "response_format" in body or "nvext" in body:
+        if structured(body):
             said = _answer_text(data, bool(body.get("stream")), "chat" in url)
             guided_answers.append({"path": url, "stream": bool(body.get("stream")), "text": said,
                                    "finish_reason": finish, "in_grammar": grammar_holds(body, said, finish)})
@@ -3613,7 +3870,7 @@ def phase_serve(card: str, path: str):
         # target's verify; the draft (the same layer count) also prefills.
         expected = {"ragged_paged_attention": L * (steps["forward"] + steps["draft_prefill_steps_total"]
                                                    + (SPEC_GAMMA + 1) * steps["spec_rounds_total"])}
-    elif windows:
+    elif windows or extras:
         # The draft (llama-3.2-1b: the same layer count) prefills through the ragged kernel too.
         expected = {"ragged_paged_attention": L * (steps["forward"] + steps["window_steps_total"]
                                                    + steps["draft_prefill_steps_total"]),
@@ -3651,7 +3908,7 @@ def phase_serve(card: str, path: str):
         # and the TTFT of the unguided requests served meanwhile.
         res["guided_stats"] = {k: metrics[k] for k in metrics if k.startswith("guided_")}
         unguided = [a["ttft_s"] for (_, body), a in zip(reqs, answers)
-                    if a["ttft_s"] is not None and "response_format" not in body and "nvext" not in body]
+                    if a["ttft_s"] is not None and not structured(body)]
         res["ttft_unguided_p50_s"] = statistics.median(unguided) if unguided else None
     if windows or rounds:
         texts = [(a[1]["choices"][0]["text"], a[1]["usage"]["completion_tokens"]) for _, a in seeded]
@@ -3663,6 +3920,9 @@ def phase_serve(card: str, path: str):
     if int8:
         res["kv_cache_dtype"], res["weight_dtype"] = mc.kv_cache_dtype, mc.weight_dtype
         res["copy_on_write"] = {"cached_tokens": cow[0], "blocks_copied": cow[1]}
+    if extras:
+        res["rowwise_windows_total"] = steps["rowwise_windows_total"]
+        res["extras"] = extras_checks(extras_kinds, results, rows)
     emit("serve", **res)
     if path == "spec" and (not steps["spec_fused_windows_total"] or not seeded_windows
                            or set(metrics["spec_decode"]) != set(SpecDecodeStats().to_dict())):
@@ -3682,9 +3942,14 @@ def phase_serve(card: str, path: str):
         raise AssertionError(f"kernel launches {launches} != expected {want} over steps {steps}")
     if plain:
         raise AssertionError(f"serving called plain versions {plain} times: {counts}")
-    if windows and (steps["multi_windows_total"] or not steps["fused_sampled_windows_total"]
-                    or not steps["fused_guided_windows_total"]):
-        raise AssertionError(f"the windows pass ran a non-fused window, or no sampled or guided fused one: {steps}")
+    if (windows or extras) and (steps["multi_windows_total"] or not steps["fused_sampled_windows_total"]
+                                or not steps["fused_guided_windows_total"]):
+        raise AssertionError(f"the {path} pass ran a non-fused window, or no sampled or guided fused one: {steps}")
+    if extras and not 1 <= steps["rowwise_windows_total"] <= launches["fused_decode_window"]:
+        raise AssertionError(f"the extras pass ran no fused window beside its extras rows (row-wise "
+                             f"fallback): {steps}, fused window launches {launches['fused_decode_window']}")
+    if not extras and steps["rowwise_windows_total"]:
+        raise AssertionError(f"the {path} pass, with no extras rows, ran a row-wise window: {steps}")
     if path != "paged+flash" and graphs["captures_after_warmup"] != 0:
         raise AssertionError(f"the {path} pass captured graphs after its warmup: {graphs}")
     if path == "megakernel" and not steps["overlap_steps_total"]:
@@ -3716,7 +3981,7 @@ def kernels_line(timed: dict, served: dict) -> list:
     # path, and per forward step that reaches it; the fused window's (and
     # its sampled branch's) over the windows pass, and per such window; the
     # probe's, over the probe's run.
-    mega, piece, win, spec, int8, rounds = (served[p] for p in SERVE_PASSES)
+    mega, piece, win, spec, int8, rounds, extras = (served[p] for p in SERVE_PASSES)
     launches = {
         "ragged_paged_attention_int8": int8["kernel_launches"]["ragged_paged_attention_int8"],
         "fused_decode_window_guided": win["kernel_launches"]["fused_decode_window_guided"],
@@ -3798,6 +4063,10 @@ def kernels_line(timed: dict, served: dict) -> list:
             # and each of a round's γ + 1 passes.
             entry["launches_spec_rounds"] = rounds["kernel_launches"][name]
             entry["launches_spec_rounds_expected"] = rounds["expected_launches"][name]
+            # The extras pass: its extras rows' single steps beside the
+            # row-wise fallback's fused windows.
+            entry["launches_extras"] = extras["kernel_launches"][name]
+            entry["launches_extras_expected"] = extras["expected_launches"][name]
         if name == "ragged_paged_attention_int8":
             # library_ms: the gathered codes dequantized to dense K/V, then SDPA.
             entry["sdpa_alone_ms"] = t["sdpa_alone_ms"]

@@ -7,8 +7,13 @@ surface the port serves: ``build``, ``start``, ``stop``, ``generate``,
 Request wire shape (PreprocessedRequest):
 ``{"token_ids": [...], "sampling_options": {...}, "stop_conditions": {...}}``,
 plus ``"guided_decoding"`` (llm/guided's spec) for a structured output.
+``sampling_options`` takes the JAX package's keys: temperature, top_k,
+top_p, seed, logprobs, top_logprobs, frequency_penalty, presence_penalty
+and logit_bias (a ``LogitBiasProcessor`` on the request's row).
 Response frames (LLMEngineOutput): ``{"token_ids": [t], "finish_reason": ...,
-"index": 0}`` — detokenization happens upstream in the Backend operator.
+"index": 0}``, with ``"logprobs"`` (one per token) and ``"top_logprobs"``
+(``[[id, logprob], ...]`` per token) when asked — detokenization happens
+upstream in the Backend operator.
 
 Single-task ownership: only the engine's step-loop task mutates the
 scheduler; ``generate``/``abort`` stage work through event-loop-local lists,
@@ -40,6 +45,7 @@ from dynamo_tpu_torch.engine.scheduler import (
     StopConditions,
 )
 from dynamo_tpu_torch.engine.weights import init_params
+from dynamo_tpu_torch.logits_processing import LogitBiasProcessor
 from dynamo_tpu_torch.runtime.engine import Context
 
 logger = logging.getLogger(__name__)
@@ -85,6 +91,13 @@ class EngineArgs:
     def __post_init__(self):
         if self.draft_checkpoint_path:
             raise NotImplementedError("checkpoint loading is not ported yet (ROADMAP Queue 1 item 3)")
+
+
+def _attach_logprobs(frame: dict, logprobs: list, top_logprobs: list) -> None:
+    if logprobs:
+        frame["logprobs"] = logprobs
+    if top_logprobs:
+        frame["top_logprobs"] = top_logprobs
 
 
 class TorchEngine:
@@ -209,12 +222,21 @@ class TorchEngine:
         sampling_d = request.get("sampling_options") or {}
         temp = sampling_d.get("temperature")
         seed = sampling_d.get("seed")
+        tlp = int(sampling_d.get("top_logprobs") or 0)
         sampling = SamplingParams(
             temperature=1.0 if temp is None else float(temp),  # null ≡ unset ≡ default
             top_k=int(sampling_d.get("top_k") or 0),
             top_p=float(sampling_d.get("top_p") or 1.0),
             seed=int(seed) if seed is not None else None,
+            logprobs=bool(sampling_d.get("logprobs")) or tlp > 0,
+            top_logprobs=tlp,
+            frequency_penalty=float(sampling_d.get("frequency_penalty") or 0.0),
+            presence_penalty=float(sampling_d.get("presence_penalty") or 0.0),
         )
+        logit_bias = sampling_d.get("logit_bias")
+        if logit_bias:
+            # Applied before the draw through the row's processor chain.
+            sampling.logits_processors = [LogitBiasProcessor(logit_bias)]
         stop = StopConditions.from_dict(request.get("stop_conditions"))
         queue: "asyncio.Queue[StepOutput]" = asyncio.Queue()
         guided = request.get("guided_decoding")  # a grammar spec (llm/guided), or None
@@ -257,14 +279,22 @@ class TorchEngine:
                     outs.append(get_task.result())
 
                 frame = {"token_ids": [], "finish_reason": None, "index": 0}
+                logprobs, top_logprobs = [], []
                 for out in outs:
                     if out.finish_reason and out.finish_reason.startswith("error:"):
                         if frame["token_ids"]:
+                            _attach_logprobs(frame, logprobs, top_logprobs)
                             yield frame  # tokens decoded before the error
                         finished = True
                         raise RuntimeError(out.finish_reason[6:])
                     if out.token_id >= 0:
                         frame["token_ids"].append(out.token_id)
+                    if out.logprob is not None:
+                        logprobs.append(out.logprob)
+                    if out.top_logprobs is not None:
+                        # [[alt_id, logprob], ...] per token, aligned with
+                        # "logprobs" (top_logprobs implies logprobs).
+                        top_logprobs.append([[t, lp] for t, lp in out.top_logprobs])
                     if out.queue_s is not None and "queue_s" not in frame:
                         frame["queue_s"] = out.queue_s
                     if out.cached_tokens is not None and "cached_tokens" not in frame:
@@ -273,6 +303,7 @@ class TorchEngine:
                         frame["cached_tokens"] = out.cached_tokens
                     if out.finished:
                         frame["finish_reason"] = out.finish_reason
+                _attach_logprobs(frame, logprobs, top_logprobs)
                 yield frame
                 if frame["finish_reason"]:
                     finished = True

@@ -6,15 +6,26 @@ distribution (``filtered_probs_rows``) and the inverse-CDF pick from
 precomputed uniforms (``sample_from_uniforms``) are the JAX package's,
 so both packages pick the same token from the same logits and uniforms.
 Keys are the JAX package's threefry keys (``engine/prng.py``): the
-per-step draw (``sample_batch_device``, no host read, and
-``sample_batch``, its tokens on the host), the per-row keys of seeded
-requests (``make_row_keys``) and a fused window's uniforms (``make_window_uniforms``)
+per-step draw (``sample_batch_device``, no host read), the per-row keys
+of seeded requests (``make_row_keys``) and a fused window's uniforms
+(``make_window_uniforms``)
 give the JAX package's values for the same scheduler key and seeds.
+
+The per-request extras are the JAX package's functions too: OpenAI
+frequency/presence penalties over the generated tokens
+(``apply_penalties``), the chosen token's log-probability
+(``compute_logprobs``) and the ``TOP_LOGPROBS_CAP`` most likely tokens
+(``compute_topk_logprobs``, ties broken toward the lower id as
+``jax.lax.top_k`` breaks them), and the draws that return them
+(``sample_batch_logprobs`` / ``sample_batch_top_logprobs`` and their
+guided forms, whose logprobs are of the masked distribution). They are
+plain PyTorch on the logits' device: the JAX package computes them in XLA,
+outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
@@ -34,6 +45,20 @@ class SamplingParams:
     # whatever the batch around them (the key folds in the request's token
     # position, not the scheduler's step counter).
     seed: Optional[int] = None
+    # OpenAI penalties over the generated tokens (not the prompt), applied
+    # to the logits before temperature, top-k and top-p.
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
+    # The chosen token's log-probability with each token, and the number of
+    # most likely alternatives beside it (implies ``logprobs``).
+    logprobs: bool = False
+    top_logprobs: int = 0
+    # Per-request processors (logits_processing), applied on the device.
+    logits_processors: List = field(default_factory=list)
+
+    @property
+    def has_penalties(self) -> bool:
+        return self.frequency_penalty != 0.0 or self.presence_penalty != 0.0
 
 
 def pack_param_rows(samplings: List[SamplingParams], bucket: int):
@@ -144,18 +169,6 @@ def make_window_uniforms(
     return prng.uniform(keys, (), device=device)
 
 
-def sample_batch(
-    logits: torch.Tensor,  # [B, V] f32
-    temps: np.ndarray,  # [B] f32 (0 = greedy)
-    top_ks: np.ndarray,  # [B] i32 (0 = off)
-    top_ps: np.ndarray,  # [B] f32 (1 = off)
-    key: Optional[np.ndarray],  # [2] uint32 (None: an all-greedy batch)
-    row_keys: Optional[np.ndarray] = None,  # [B, 2] per-row keys (seeded requests)
-) -> np.ndarray:
-    """``sample_batch_device`` brought to the host: ``[B]`` int32 numpy."""
-    return sample_batch_device(logits, temps, top_ks, top_ps, key, row_keys).cpu().numpy()
-
-
 def sample_batch_device(
     logits: torch.Tensor,  # [B, V] f32
     temps,  # [B] f32 (0 = greedy), numpy or a tensor
@@ -209,3 +222,91 @@ def apply_token_masks(
     bit = (words >> (idx & 31).to(words.dtype)) & 1  # an arithmetic shift keeps bit 31 in bit 0
     return torch.where(bit.bool(), logits, torch.full_like(logits, -float("inf")))
 
+
+
+def apply_penalties(
+    logits: torch.Tensor,  # [B, V] f32
+    hist,  # [B, H] i32: generated-token history, padded
+    hist_len,  # [B] i32: valid history per row
+    frequency_penalty,  # [B] f32
+    presence_penalty,  # [B] f32
+) -> torch.Tensor:
+    """OpenAI frequency/presence penalties for the whole batch: per-row
+    counts of the generated tokens, scattered from the padded history,
+    then ``logits - freq·count - pres·(count > 0)``. The ``[B, V]`` counts
+    exist only on the logits' device; padded history adds 0 to token 0."""
+    dev = logits.device
+    hist, hist_len, freq, pres = (torch.as_tensor(x, device=dev) for x in
+                                  (hist, hist_len, frequency_penalty, presence_penalty))
+    valid = torch.arange(hist.shape[1], device=dev)[None, :] < hist_len[:, None]
+    tok = torch.where(valid, hist, 0).long()
+    counts = torch.zeros_like(logits).scatter_add_(1, tok, valid.to(logits.dtype))
+    return logits - freq[:, None] * counts - pres[:, None] * (counts > 0).to(logits.dtype)
+
+
+def compute_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Log-probability of the chosen tokens: logits [B, V], tokens [B] → [B]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(logp, 1, tokens.long()[:, None])[:, 0]
+
+
+# Alternatives computed per row whatever a row asks (the OpenAI bound is 20);
+# rows trim to their own count on the host.
+TOP_LOGPROBS_CAP = 20
+
+
+def _topk_lower_id_first(x: torch.Tensor, k: int) -> tuple:
+    """``torch.topk`` with ties broken as ``jax.lax.top_k`` breaks them, the
+    lower id first: each value's order-preserving int32 image (-0.0 folded
+    into +0.0) in the high half of an int64 key, the reversed id in the low
+    half, so no two keys tie."""
+    V = x.shape[-1]
+    bits = (x + 0.0).view(torch.int32)
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    ids = torch.arange(V - 1, -1, -1, device=x.device, dtype=torch.int64)
+    idx = torch.topk(ordered.to(torch.int64) * (1 << 32) + ids, k, dim=-1).indices
+    return torch.gather(x, -1, idx), idx
+
+
+def compute_topk_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> tuple:
+    """Chosen-token logprob and the ``TOP_LOGPROBS_CAP`` most likely tokens'
+    ids and logprobs: logits [B, V], tokens [B] → (chosen [B] f32,
+    top_ids [B, CAP] i32, top_lps [B, CAP] f32), best first."""
+    logp = torch.log_softmax(logits, dim=-1)
+    chosen = torch.gather(logp, 1, tokens.long()[:, None])[:, 0]
+    top_lps, top_ids = _topk_lower_id_first(logp, min(TOP_LOGPROBS_CAP, logits.shape[-1]))
+    return chosen, top_ids.to(torch.int32), top_lps
+
+
+def sample_batch_logprobs(logits, temps, top_ks, top_ps, key, row_keys=None) -> tuple:
+    """``sample_batch_device`` and the chosen tokens' logprobs → (tokens
+    [B] i32, logprobs [B] f32) on the logits' device."""
+    tok = sample_batch_device(logits, temps, top_ks, top_ps, key, row_keys)
+    return tok, compute_logprobs(logits, tok)
+
+
+def guided_sample_batch_logprobs(logits, pool, k_rows, temps, top_ps, key, row_keys=None) -> tuple:
+    """``sample_batch_logprobs`` over the FSM-allowed tokens (``k_rows``
+    [2, B]: the rows' top-k, then their mask-pool rows, as in JAX), the
+    logprobs of the masked distribution (the model's probability
+    renormalised over the allowed tokens, the one the row drew from)."""
+    k_rows = torch.as_tensor(k_rows, device=logits.device)
+    masked = apply_token_masks(logits, pool, k_rows[1])
+    tok = sample_batch_device(masked, temps, k_rows[0], top_ps, key, row_keys)
+    return tok, compute_logprobs(masked, tok)
+
+
+def sample_batch_top_logprobs(logits, temps, top_ks, top_ps, key, row_keys=None) -> tuple:
+    """``sample_batch_logprobs`` with the top alternatives → (tokens [B]
+    i32, logprobs [B] f32, top_ids [B, CAP] i32, top_lps [B, CAP] f32)."""
+    tok = sample_batch_device(logits, temps, top_ks, top_ps, key, row_keys)
+    return (tok, *compute_topk_logprobs(logits, tok))
+
+
+def guided_sample_batch_top_logprobs(logits, pool, k_rows, temps, top_ps, key, row_keys=None) -> tuple:
+    """``guided_sample_batch_logprobs`` with the top alternatives, all of the
+    masked distribution."""
+    k_rows = torch.as_tensor(k_rows, device=logits.device)
+    masked = apply_token_masks(logits, pool, k_rows[1])
+    tok = sample_batch_device(masked, temps, k_rows[0], top_ps, key, row_keys)
+    return (tok, *compute_topk_logprobs(masked, tok))

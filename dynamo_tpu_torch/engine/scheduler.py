@@ -38,6 +38,16 @@ The core loop of the JAX package's ``Scheduler``:
   ``llama.decode_multi``, one forward per step, unless a row is seeded
   and sampled, or guided: that batch decodes one step at a time, as in
   the JAX package. Tokens past a row's stop are trimmed.
+- **Per-request extras** (logprobs, ``top_logprobs``, frequency/presence
+  penalties, logits processors such as ``logit_bias``): such a row needs
+  the host between tokens, so it rides no window, no overlapped step, no
+  spec round, and (processors and logprobs) no wave. Its single steps
+  apply the penalties (``sampling.apply_penalties``) and its processor
+  chain on the device, then draw eagerly with the logprobs it asks for.
+  **Row-wise fallback**, as in the JAX package: when the fused window is
+  on, the batch's window-eligible rows still run one fused window and
+  only the extras rows take a single step in the same iteration
+  (``rowwise_windows_total``).
 - **Guided decoding** (``attach_guided``): a request's grammar lifts to a
   token FSM against the served tokenizer (llm/guided). Per-step rows draw
   through the masked sampler; on the fused window guided rows ride the
@@ -105,14 +115,22 @@ from dynamo_tpu_torch.engine.kv_cache import BlockAllocator, KvCacheArrays, KvEv
 from dynamo_tpu_torch.engine.models import llama
 from dynamo_tpu_torch.engine import prng
 from dynamo_tpu_torch.engine.sampling import (
-    SamplingParams, apply_token_masks, make_row_keys, make_window_uniforms, pack_param_rows, sample_batch,
-    sample_batch_device,
+    SamplingParams, apply_penalties, apply_token_masks, compute_logprobs, compute_topk_logprobs,
+    guided_sample_batch_logprobs, guided_sample_batch_top_logprobs, make_row_keys, make_window_uniforms,
+    pack_param_rows, sample_batch_device, sample_batch_logprobs, sample_batch_top_logprobs,
 )
 from dynamo_tpu_torch.engine.spec_decode import SpecDecodeStats, spec_verify
 from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder, GuidedState
 from dynamo_tpu_torch.llm.tokens import extend_block_hashes
+from dynamo_tpu_torch.logits_processing import apply_chain
 
 logger = logging.getLogger(__name__)
+
+
+def _has_extras(s: SamplingParams) -> bool:
+    """A row whose logits the host edits or reads between tokens: logits
+    processors, logprobs, top_logprobs or penalties."""
+    return bool(s.logits_processors or s.logprobs or s.top_logprobs or s.has_penalties)
 
 
 def next_bucket(n: int, buckets: List[int]) -> int:
@@ -175,10 +193,14 @@ class StepOutput:
     token_id: int
     finished: bool = False
     finish_reason: Optional[str] = None
+    logprob: Optional[float] = None
     # First token only: seconds between arrival and engine admission.
     queue_s: Optional[float] = None
     # First token only: prompt tokens whose KV came from the prefix cache.
     cached_tokens: Optional[int] = None
+    # OpenAI ``top_logprobs``: [(token_id, logprob), ...], the k most likely
+    # tokens at this position (k = sampling.top_logprobs).
+    top_logprobs: Optional[list] = None
 
 
 @dataclass
@@ -211,6 +233,10 @@ class Sequence:
     d_n: int = 0
     # Guided decoding: the request's token-FSM cursor (llm/guided).
     guided: Optional[GuidedState] = None
+    # A first token's logprob and alternatives, computed where it is drawn
+    # (_sample_one) and handed out when it is appended.
+    _pending_logprob: Optional[float] = None
+    _pending_top_logprobs: Optional[list] = None
 
     @property
     def all_ids(self) -> List[int]:
@@ -343,6 +369,9 @@ class Scheduler:
         self.fused_guided_windows_total = 0
         self.multi_windows_total = 0
         self.window_steps_total = 0
+        # Fused windows the row-wise fallback ran: a batch's window-eligible
+        # rows, while its extras rows took a single step.
+        self.rowwise_windows_total = 0
         # Speculative decoding (attach_draft): the draft and its cache, γ,
         # the acceptance stats, whether batches take the fused spec window
         # and its rounds, the spec windows run and the tokens they emitted,
@@ -890,9 +919,11 @@ class Scheduler:
     def _wave_eligible(self, seq: Sequence) -> bool:
         """Rows a wave can admit: new requests (no preemption resume) whose
         first token the wave's one draw can take (no grammar mask, no
-        per-request key)."""
+        logprobs, no processors, no per-request key). Penalties do not
+        matter: a first token has no history."""
         s = seq.sampling
         return (seq.state == SeqState.WAITING and seq.resume_tokens is None and seq.guided is None
+                and not s.logprobs and not s.top_logprobs and not s.logits_processors
                 and not (s.seed is not None and s.temperature > 0))
 
     def _admit_wave(self, outputs: List[tuple]) -> bool:
@@ -951,7 +982,7 @@ class Scheduler:
         else:
             logits, _, _ = llama.chunk_decode(self.params, self.mc, self.cache.k, self.cache.v,
                                               *map(self._dev, (tokens, pos0, valid, tables)), last_logits=True)
-        sampled = self._draw(logits, admitted, b_bucket, self._next_key())  # the wave's one host sync
+        sampled = self._draw(logits, admitted, b_bucket, self._next_key())[0]  # the wave's one host sync
         self.wave_steps_total += 1
         self.forward_steps_total += 1
         self.prefill_steps_total += 1
@@ -1128,33 +1159,52 @@ class Scheduler:
         n = min(len(self.running), self.sc.decode_buckets[-1])
         batch = self.running[:n]
         bucket = next_bucket(n, self.sc.decode_buckets)
-        # With a draft attached the batch speculates, unless a row is guided
-        # (the draft's proposals ignore the FSM mask) or seeded and sampled
-        # (a spec round keys its draws per batch, not per request): the
-        # fused spec window first, then one per-round spec round; where the
-        # blocks cannot be reserved, the non-spec path below.
+        # With a draft attached the batch speculates, unless a row carries
+        # extras (processors, logprobs, penalties), is guided (the draft's
+        # proposals ignore the FSM mask) or seeded and sampled (a spec round
+        # keys its draws per batch, not per request): the fused spec window
+        # first, then one per-round spec round; where the blocks cannot be
+        # reserved, the non-spec path below.
         if self.draft_params is not None and not any(
-            s.guided is not None or (s.sampling.seed is not None and s.sampling.temperature > 0) for s in batch
+            _has_extras(s.sampling) or s.guided is not None
+            or (s.sampling.seed is not None and s.sampling.temperature > 0) for s in batch
         ):
             if self._use_fused_spec and self._decode_spec_fused(batch, bucket, outputs):
                 return outputs
             if self._decode_spec(batch, bucket, outputs):
                 return outputs
-        # A batch rides a window unless a row needs the host between tokens.
-        # The port's requests carry no such extras yet (logprobs, penalties,
-        # logits processors: the HTTP layer refuses them); a guided row
-        # rides only the fused window, which masks and advances it on the
-        # device, and a seeded sampled row only the fused window too, whose
-        # uniforms honour its seed (decode_multi threads one key for the
-        # batch and no FSM).
-        guided_ok = self._fused_guided_ok()
-        window_ok = all(
-            guided_ok if s.guided is not None
-            else self._use_fused_window or s.sampling.seed is None or s.sampling.temperature <= 0
-            for s in batch
-        )
-        if self.sc.num_scheduler_steps > 1 and window_ok and self._decode_multi(batch, bucket, outputs):
-            return outputs
+        if self.sc.num_scheduler_steps > 1:
+            # A row rides a window unless it needs the host between tokens:
+            # extras rows never; a guided row only the fused window, which
+            # masks and advances it on the device, and a seeded sampled row
+            # only the fused window too, whose uniforms honour its seed
+            # (decode_multi threads one key for the batch and no FSM).
+            fused_w = self._use_fused_window
+            guided_ok = self._fused_guided_ok()
+
+            def window_ok(s: Sequence) -> bool:
+                if _has_extras(s.sampling):
+                    return False
+                if s.guided is not None:
+                    return guided_ok
+                if s.sampling.seed is not None and s.sampling.temperature > 0:
+                    return fused_w
+                return True
+
+            win = [s for s in batch if window_ok(s)]
+            if len(win) == len(batch):
+                if self._decode_multi(batch, bucket, outputs):
+                    return outputs
+            elif win and fused_w:
+                # Row-wise fallback: the eligible rows run one fused window
+                # and only the others single-step below, in this order (the
+                # window's uniforms, then the step's key, off one counter).
+                # Where the window cannot reserve its blocks, the whole
+                # batch single-steps.
+                if self._decode_multi(win, next_bucket(len(win), self.sc.decode_buckets), outputs):
+                    self.rowwise_windows_total += 1
+                    batch = [s for s in batch if not window_ok(s)]
+                    bucket = next_bucket(len(batch), self.sc.decode_buckets)
         width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
         # The zero-bubble pipeline: a batch with no per-row host work and
         # nothing waiting hands off to the overlapped loop (tokens stream one
@@ -1184,11 +1234,13 @@ class Scheduler:
     # --- zero-bubble overlapped decode --------------------------------------
     def _overlap_row_ok(self, seq: Sequence) -> bool:
         """Rows that need the host between steps cannot ride the pipeline:
-        guided (the FSM advances before the next mask) and seeded sampled
-        rows (per-row keys), as in the JAX package (the port's requests
-        carry none of its other per-row extras)."""
+        guided (the FSM advances before the next mask), logprobs and
+        processors and penalties (the logits change or are read between
+        steps) and seeded sampled rows (per-row keys), as in the JAX
+        package."""
         s = seq.sampling
-        return not (seq.aborted or seq.guided is not None or (s.seed is not None and s.temperature > 0))
+        return not (seq.aborted or seq.guided is not None or _has_extras(s)
+                    or (s.seed is not None and s.temperature > 0))
 
     def _overlap_start_ok(self, batch: List[Sequence]) -> bool:
         return (
@@ -1348,10 +1400,14 @@ class Scheduler:
                 except OutOfBlocksError:
                     return False
         temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
-        if self._use_fused_window:
+        # The fused window takes any batch with no per-row host extras: guided
+        # rows only where the guided epilogue is on.
+        any_guided = any(s.guided is not None for s in batch)
+        fused_ok = (self._use_fused_window and not any(_has_extras(s.sampling) for s in batch)
+                    and (not any_guided or self._fused_guided_ok()))
+        if fused_ok:
             args = (self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket))
             samp = {}
-            any_guided = any(s.guided is not None for s in batch)
             # A guided window takes the sampled epilogue, as in the JAX
             # package, so it draws its uniforms off the step counter even
             # when every row is greedy and the keys stay the JAX package's.
@@ -1560,21 +1616,64 @@ class Scheduler:
     def _finish_decode_rows(
         self, batch: List[Sequence], bucket: int, logits: torch.Tensor, outputs: List[tuple]
     ) -> None:
-        """Post-forward half of a decode step: sampling, then token
-        append/stop handling, growing each row's block table. Shared by
-        _decode_step and _mixed_step."""
+        """Post-forward half of a decode step: penalties, logits processors,
+        sampling (with the logprobs a row asks for), then token append/stop
+        handling, growing each row's block table. Shared by _decode_step and
+        _mixed_step."""
+        edited = False
+        if any(seq.sampling.has_penalties for seq in batch):
+            logits = self._apply_penalties(batch, bucket, logits)
+            edited = True
+        if any(seq.sampling.logits_processors for seq in batch):
+            # The rows that carry processors, on the device (JAX crosses to
+            # the host for them and computes the same function).
+            logits = logits.clone()
+            for i, seq in enumerate(batch):
+                if seq.sampling.logits_processors:
+                    logits[i] = apply_chain(seq.sampling.logits_processors, seq.output_ids, logits[i])
+            edited = True
         key = self._next_key()
         row_keys = None
         if any(seq.sampling.seed is not None for seq in batch):
             row_keys = make_row_keys(key, *self._seed_rows(batch, bucket))
-        sampled = self._draw(logits, batch, bucket, key, row_keys)
+        top = any(seq.sampling.top_logprobs for seq in batch)
+        want = "top" if top else "chosen" if any(seq.sampling.logprobs for seq in batch) else None
+        sampled, lps, top_ids, top_lps = self._draw(logits, batch, bucket, key, row_keys, edited=edited,
+                                                    logprobs=want)
         for i, seq in enumerate(batch):
             if seq.state != SeqState.RUNNING:
                 continue  # preempted while growing an earlier row this step
             self._ensure_block_capacity(seq)
             if seq.state != SeqState.RUNNING:
                 continue
-            self._append_token(seq, int(sampled[i]), outputs)
+            s = seq.sampling
+            lp = float(lps[i]) if lps is not None and (s.logprobs or s.top_logprobs) else None
+            tlp = None
+            if top_ids is not None and s.top_logprobs:
+                tlp = [(int(t), float(lp)) for t, lp in zip(top_ids[i, :s.top_logprobs], top_lps[i, :s.top_logprobs])]
+            self._append_token(seq, int(sampled[i]), outputs, logprob=lp, top_logprobs=tlp)
+
+    def _apply_penalties(self, batch: List[Sequence], bucket: int, logits: torch.Tensor) -> torch.Tensor:
+        """Frequency/presence penalties for the rows that ask for them
+        (``sampling.apply_penalties``), the history padded to a power of two
+        from 16 as in the JAX package."""
+        H = 16
+        longest = max((len(s.output_ids) for s in batch if s.sampling.has_penalties), default=0)
+        while H < longest:
+            H *= 2
+        hist = np.zeros((bucket, H), dtype=np.int32)
+        hist_len = np.zeros((bucket,), dtype=np.int32)
+        freq = np.zeros((bucket,), dtype=np.float32)
+        pres = np.zeros((bucket,), dtype=np.float32)
+        for i, seq in enumerate(batch):
+            if not seq.sampling.has_penalties or not seq.output_ids:
+                continue
+            n = len(seq.output_ids)
+            hist[i, :n] = seq.output_ids
+            hist_len[i] = n
+            freq[i] = seq.sampling.frequency_penalty
+            pres[i] = seq.sampling.presence_penalty
+        return apply_penalties(logits, *map(self._dev, (hist, hist_len, freq, pres)))
 
     def _copy_block(self, src: int, dst: int) -> None:
         """Block duplication across all layers (the copy-on-write copy); an
@@ -1645,20 +1744,41 @@ class Scheduler:
         return seeds, positions, has_seed
 
     def _draw(self, logits: torch.Tensor, batch: List[Sequence], bucket: int, key: np.ndarray,
-              row_keys: Optional[np.ndarray] = None) -> np.ndarray:
+              row_keys: Optional[np.ndarray] = None, *, edited: bool = False,
+              logprobs: Optional[str] = None) -> tuple:
         """One token per row of ``logits`` (the batch padded to ``bucket``)
         as the rows' sampling options ask, guided rows over their FSM row's
-        allowed tokens → ``[bucket]`` int32 numpy."""
+        allowed tokens → ``(tokens, logprobs, top_ids, top_lps)`` numpy:
+        ``[bucket]`` int32 tokens, then with ``logprobs="chosen"`` the
+        chosen tokens' logprobs and with ``"top"`` also the
+        ``TOP_LOGPROBS_CAP`` alternatives (None where not asked), all of
+        the distribution drawn from (a guided row's masked one). The draw
+        graph replays only a plain draw; guided draws (the mask pool may
+        grow and move), draws over ``edited`` logits (penalties or
+        processors applied outside the graph's buffer) and draws with
+        logprobs run eagerly, on the logits' device."""
         temps, top_ks, top_ps = pack_param_rows([s.sampling for s in batch], bucket)
         if not (temps > 0).any():
             key = row_keys = None  # an all-greedy batch draws nothing
         if any(s.guided is not None for s in batch):
-            # Guided draws stay eager: the mask pool may grow and move.
-            rows = torch.from_numpy(self._guided_rows(batch, bucket))
-            logits = apply_token_masks(logits, self.guided.pool.device(), rows)
-        elif self._graphs is not None:
-            return self._graphs.draw(logits, temps, top_ks, top_ps, key, row_keys).cpu().numpy()
-        return sample_batch(logits, temps, top_ks, top_ps, key, row_keys)
+            pool, rows = self.guided.pool.device(), self._guided_rows(batch, bucket)
+            k_rows = np.stack([top_ks, rows])
+            if logprobs == "top":
+                out = guided_sample_batch_top_logprobs(logits, pool, k_rows, temps, top_ps, key, row_keys)
+            elif logprobs == "chosen":
+                out = (*guided_sample_batch_logprobs(logits, pool, k_rows, temps, top_ps, key, row_keys), None, None)
+            else:
+                masked = apply_token_masks(logits, pool, torch.from_numpy(rows))
+                out = (sample_batch_device(masked, temps, top_ks, top_ps, key, row_keys), None, None, None)
+        elif self._graphs is not None and not edited and logprobs is None:
+            return self._graphs.draw(logits, temps, top_ks, top_ps, key, row_keys).cpu().numpy(), None, None, None
+        elif logprobs == "top":
+            out = sample_batch_top_logprobs(logits, temps, top_ks, top_ps, key, row_keys)
+        elif logprobs == "chosen":
+            out = (*sample_batch_logprobs(logits, temps, top_ks, top_ps, key, row_keys), None, None)
+        else:
+            out = (sample_batch_device(logits, temps, top_ks, top_ps, key, row_keys), None, None, None)
+        return tuple(None if x is None else x.cpu().numpy() for x in out)
 
     def _guided_rows(self, batch: List[Sequence], bucket: int) -> np.ndarray:
         """Each row's mask-pool row, padded to ``bucket``: a guided row's
@@ -1670,14 +1790,36 @@ class Scheduler:
         return rows
 
     def _sample_one(self, seq: Sequence, logits: torch.Tensor) -> int:
-        """A first token: a seeded request draws from its seed folded with
-        its token position, others from the step's key."""
+        """A first token: the row's processors applied first; a seeded
+        request draws from its seed folded with its token position, others
+        from the step's key. A row that asks for logprobs gets them of the
+        logits before any grammar mask (as in the JAX package, whose first
+        draw is the masked sampler's and whose logprobs are not), kept for
+        ``_append_token``."""
         key = self._next_key()
-        if seq.sampling.seed is not None:
-            key = prng.fold_in(prng.PRNGKey(seq.sampling.seed), len(seq.output_ids))
-        return int(self._draw(logits[None, :], [seq], 1, key)[0])
+        s = seq.sampling
+        edited = bool(s.logits_processors)
+        if edited:
+            logits = apply_chain(s.logits_processors, seq.output_ids, logits)
+        if s.seed is not None:
+            key = prng.fold_in(prng.PRNGKey(s.seed), len(seq.output_ids))
+        token = int(self._draw(logits[None, :], [seq], 1, key, edited=edited)[0][0])
+        tok = torch.tensor([token], device=logits.device)
+        if s.top_logprobs:
+            chosen, ids, lps = (x.cpu().numpy() for x in compute_topk_logprobs(logits[None, :], tok))
+            seq._pending_logprob = float(chosen[0])
+            seq._pending_top_logprobs = [(int(t), float(lp)) for t, lp in zip(ids[0, :s.top_logprobs],
+                                                                              lps[0, :s.top_logprobs])]
+        elif s.logprobs:
+            seq._pending_logprob = float(compute_logprobs(logits[None, :], tok).cpu()[0])
+        return token
 
-    def _append_token(self, seq: Sequence, token: int, outputs: List[tuple]) -> None:
+    def _append_token(self, seq: Sequence, token: int, outputs: List[tuple], logprob: Optional[float] = None,
+                      top_logprobs: Optional[list] = None) -> None:
+        if logprob is None:
+            logprob, seq._pending_logprob = seq._pending_logprob, None
+        if top_logprobs is None:
+            top_logprobs, seq._pending_top_logprobs = seq._pending_top_logprobs, None
         seq.output_ids.append(token)
         if seq.guided is not None:
             seq.guided.advance(token)  # the host's FSM replay of the token
@@ -1693,12 +1835,13 @@ class Scheduler:
         if reason is not None:
             # Token that triggered 'stop' is still emitted (backend strips).
             outputs.append(
-                (seq, StepOutput(token_id=token, finished=True, finish_reason=reason,
-                                 queue_s=queue_s, cached_tokens=cached))
+                (seq, StepOutput(token_id=token, finished=True, finish_reason=reason, logprob=logprob,
+                                 queue_s=queue_s, cached_tokens=cached, top_logprobs=top_logprobs))
             )
             self._finish(seq, reason, outputs, emit=False)
         else:
-            outputs.append((seq, StepOutput(token_id=token, queue_s=queue_s, cached_tokens=cached)))
+            outputs.append((seq, StepOutput(token_id=token, logprob=logprob, queue_s=queue_s, cached_tokens=cached,
+                                            top_logprobs=top_logprobs)))
 
     def _check_stop(self, seq: Sequence, token: int) -> Optional[str]:
         if seq.guided is not None and seq.guided.exhausted:

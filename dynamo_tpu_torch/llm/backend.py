@@ -4,14 +4,20 @@ Sits between the engine stream (token ids) and the frontend (text deltas).
 
 Stop-string jail: generated text that could be the beginning of a stop
 string is withheld until it either completes the stop string (sequence
-ends, jailed text dropped) or diverges (jailed text released). Tool-call
-and reasoning parsers are not ported yet (ROADMAP Queue 1 item 10).
+ends, jailed text dropped) or diverges (jailed text released). With
+``parser_options`` on the request (the preprocessor sets them), a
+tool-call jail (llm/parsers) withholds text that may open a tool call and
+turns it into OpenAI ``tool_calls`` on the final frame (finish reason
+``tool_calls``), and a reasoning parser splits ``reasoning`` deltas off
+the text. Logprobs pass through on each frame.
 """
 
 from __future__ import annotations
 
 from typing import AsyncIterator, List, Optional, Sequence
 
+from dynamo_tpu_torch.llm.parsers import StreamingToolCallJail, get_reasoning_parser, get_tool_parser
+from dynamo_tpu_torch.llm.parsers.tool_calling import ToolCallConfig
 from dynamo_tpu_torch.llm.protocols.common import LLMEngineOutput
 from dynamo_tpu_torch.llm.tokenizer import DecodeStream, Tokenizer
 from dynamo_tpu_torch.runtime.engine import Annotated, Context
@@ -67,15 +73,29 @@ class Backend(Operator):
         skip_ids = set(self.tokenizer.eos_token_ids) | set(stop_conditions.get("stop_token_ids") or [])
         decoder = DecodeStream(self.tokenizer, skip_token_ids=skip_ids)
         jail = StopStringJail(stop_strings)
+        parser_jail = _build_parser_jail(request.get("parser_options"))
 
         def finalize(
             out: LLMEngineOutput, emit_text: Optional[str], finish: str, *, include_tail: bool = True
         ) -> LLMEngineOutput:
-            """The final frame. On a stop-string hit the detokenizer/jail
-            tails are at/after the stop string and are dropped."""
+            """The final frame, with the parsers' results folded in. On a
+            stop-string hit the detokenizer/jail tails are at/after the stop
+            string and are dropped."""
             tail = (decoder.flush() + jail.flush()) if include_tail else ""
             text = (emit_text or "") + tail
-            return LLMEngineOutput(token_ids=out.token_ids, text=text or None, finish_reason=finish, index=out.index)
+            tool_calls = None
+            reasoning = None
+            if parser_jail is not None:
+                r0, c0 = parser_jail.feed(text) if text else ("", text)
+                r1, c1, calls = parser_jail.finish()
+                reasoning = (r0 + r1) or None
+                text = c0 + c1
+                if calls:
+                    tool_calls = [c.to_openai() for c in calls]
+                    finish = "tool_calls"
+            return LLMEngineOutput(token_ids=out.token_ids, text=text or None, finish_reason=finish,
+                                   logprobs=out.logprobs, top_logprobs=out.top_logprobs, index=out.index,
+                                   tool_calls=tool_calls, reasoning=reasoning)
 
         async def gen():
             async for item in stream:
@@ -100,9 +120,28 @@ class Backend(Operator):
                 if out.finish_reason:
                     yield Annotated(data=finalize(out, emit_text, out.finish_reason).to_wire())
                     return
-                if emit_text or out.token_ids:
+                reasoning_delta = None
+                if parser_jail is not None and emit_text:
+                    r, c = parser_jail.feed(emit_text)
+                    reasoning_delta, emit_text = (r or None), (c or None)
+                if emit_text or reasoning_delta or out.token_ids:
                     yield Annotated(
-                        data=LLMEngineOutput(token_ids=out.token_ids, text=emit_text, index=out.index).to_wire()
+                        data=LLMEngineOutput(token_ids=out.token_ids, text=emit_text, logprobs=out.logprobs,
+                                             top_logprobs=out.top_logprobs, index=out.index,
+                                             reasoning=reasoning_delta).to_wire()
                     )
 
         return gen()
+
+
+def _build_parser_jail(parser_options: Optional[dict]) -> Optional[StreamingToolCallJail]:
+    """The request's tool-call jail and reasoning parser (None without
+    ``parser_options``). With no named tool parser, bare JSON calls are
+    not taken for tool calls."""
+    if not parser_options:
+        return None
+    tool_name = parser_options.get("tool_call_parser")
+    reasoning_name = parser_options.get("reasoning_parser")
+    config = get_tool_parser(tool_name) if tool_name else ToolCallConfig(format="json", allow_bare_json=False)
+    reasoning = get_reasoning_parser(reasoning_name) if reasoning_name else None
+    return StreamingToolCallJail(config=config, reasoning=reasoning)

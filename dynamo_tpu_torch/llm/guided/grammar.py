@@ -576,12 +576,36 @@ def spec_to_dfa(spec: dict) -> CharDFA:
     return compile_regex(spec_to_pattern(spec))
 
 
+def _tool_call_pattern(tools: list, names: List[str]) -> str:
+    """Forced tool call grammar: the model must emit
+    ``{"name":"<tool>","arguments":{...}}`` with arguments matching the
+    chosen tool's parameter schema, which the JSON tool-call parser turns
+    into an OpenAI tool_call."""
+    alts = []
+    for tool in tools:
+        fn = (tool or {}).get("function") or {}
+        name = fn.get("name")
+        if name not in names:
+            continue
+        params = fn.get("parameters")
+        if params is None:
+            params = {"type": "object"}
+        args_rx = schema_to_regex(params)
+        alts.append(
+            r"\{" + _json_literal_rx("name") + ":" + _json_literal_rx(name)
+            + "," + _json_literal_rx("arguments") + ":" + args_rx + r"\}"
+        )
+    if not alts:
+        raise GrammarError("tool_choice names no known tool")
+    return "(?:" + "|".join(alts) + ")"
+
+
 def build_guided_spec(body: dict) -> Optional[dict]:
     """Validated request body → wire guided-decoding spec (or None).
 
-    Precedence: ``response_format`` (json_schema / json_object) > nvext
-    extensions (``guided_regex`` / ``guided_choice`` / ``guided_json``).
-    Every produced
+    Precedence: forced ``tool_choice`` (named or ``required``) >
+    ``response_format`` (json_schema / json_object) > nvext extensions
+    (``guided_regex`` / ``guided_choice`` / ``guided_json``). Every produced
     pattern is compiled once here so malformed/unsupported constraints
     surface as a structured 400 at the frontend, never a worker-side 500."""
     from dynamo_tpu_torch.llm.protocols.openai import RequestError
@@ -596,9 +620,25 @@ def build_guided_spec(body: dict) -> Optional[dict]:
 
 
 def _build_spec(body: dict) -> Optional[dict]:
-    # Forced ``tool_choice`` grammars, which the JAX package puts first,
-    # wait for the tool-call parsers; the protocol layer refuses ``tools``
-    # and ``tool_choice`` until then.
+    tools = body.get("tools") or []
+    tc = body.get("tool_choice")
+    if isinstance(tc, dict):
+        name = ((tc.get("function") or {}).get("name")) or ""
+        return {
+            "kind": "regex",
+            "pattern": _tool_call_pattern(tools, [name]),
+            "source": "tool_choice",
+            "forced_tools": [name],
+        }
+    if tc == "required":
+        names = [((t or {}).get("function") or {}).get("name") for t in tools]
+        names = [n for n in names if n]
+        return {
+            "kind": "regex",
+            "pattern": _tool_call_pattern(tools, names),
+            "source": "tool_choice",
+            "forced_tools": names,
+        }
     rf = body.get("response_format") or {}
     if rf.get("type") == "json_schema":
         schema = (rf.get("json_schema") or {}).get("schema")

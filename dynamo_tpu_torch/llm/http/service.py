@@ -6,9 +6,13 @@ and ``GET /health``, with the same response bodies as the JAX package's
 aiohttp service. aiohttp is not assumed to be installed, so this is a small
 HTTP/1.1 server on ``asyncio.start_server``: one request per connection
 (every response says ``Connection: close``), bodies sized by
-``Content-Length``. Metrics, TLS, gRPC, embeddings, responses and
-multi-choice (``n > 1``) requests are not ported yet (ROADMAP Queue 1
-items 10, 18 and 19).
+``Content-Length``. A request with ``n > 1`` runs its choices as
+separate generations (a seeded request's choice i with ``seed + i``), all
+sent to the engine at once so they share its batches; a stream
+interleaves their chunks by ``index``. Logprobs, tool calls and reasoning
+content are rendered as the JAX service renders them. Metrics, TLS, gRPC,
+embeddings and responses are not ported yet (ROADMAP Queue 1 items 18 and
+19).
 """
 
 from __future__ import annotations
@@ -135,49 +139,112 @@ class HttpService:
         else:
             await self._serve_unary(engine, body, ctx, rid, kind, model, writer)
 
+    @staticmethod
+    def _choice_bodies(body: dict) -> list:
+        """Per-choice request bodies for n > 1: each choice is a generation
+        of its own; a seeded request's choice i gets ``seed + i``, so the
+        choices differ as OpenAI's do."""
+        n = int(body.get("n") or 1)
+        if n == 1:
+            return [body]
+        out = []
+        for i in range(n):
+            b = dict(body)
+            b["n"] = 1
+            if body.get("seed") is not None:
+                b["seed"] = int(body["seed"]) + i
+            out.append(b)
+        return out
+
     async def _serve_unary(self, engine, body, ctx, rid, kind, model, writer) -> None:
-        text_parts = []
-        n_tokens = 0
-        prompt_tokens = 0
-        cached_tokens = None
-        finish_reason = "stop"
-        try:
-            async for item in engine.generate(body, ctx):
+        bodies = self._choice_bodies(body)
+        prompt_tokens = [0]
+        cached_tokens = [None]
+
+        async def run_choice(i: int, b: dict, c: Context) -> dict:
+            text_parts, reasoning_parts = [], []
+            tool_calls = None
+            n_tokens = 0
+            finish_reason = "stop"
+            logprobs: list = []
+            top_logprobs: list = []
+            async for item in engine.generate(b, c):
                 if isinstance(item, Annotated) and item.is_annotation():
-                    if item.event == "_metrics":
-                        prompt_tokens = int(item.comment or 0)
-                    elif item.event == "_cached":
-                        cached_tokens = int(item.comment or 0)
+                    if item.event == "_metrics" and i == 0:
+                        prompt_tokens[0] = int(item.comment or 0)
+                    elif item.event == "_cached" and i == 0:
+                        cached_tokens[0] = int(item.comment or 0)
                     continue
                 out = as_engine_output(item)
                 if out is None:
                     continue
                 if out.text:
                     text_parts.append(out.text)
+                if out.reasoning:
+                    reasoning_parts.append(out.reasoning)
+                if out.tool_calls:
+                    tool_calls = out.tool_calls
+                if out.logprobs:
+                    logprobs.extend(out.logprobs)
+                    # Alternatives stay index-aligned with the chosen tokens.
+                    top_logprobs.extend((out.top_logprobs or [])[: len(out.logprobs)])
+                    while len(top_logprobs) < len(logprobs):
+                        top_logprobs.append(None)
                 n_tokens += len(out.token_ids)
                 if out.finish_reason:
                     finish_reason = out.finish_reason
-        except oai.RequestError as e:
-            await _respond_json(writer, 400, oai.error_body(str(e)))
-            return
+            return {"index": i, "text": "".join(text_parts), "reasoning": "".join(reasoning_parts) or None,
+                    "tool_calls": tool_calls, "finish_reason": finish_reason, "n_tokens": n_tokens,
+                    "logprobs": logprobs, "top_logprobs": top_logprobs if any(top_logprobs) else None}
+
+        # Each choice has a context (and so a request id) of its own: the
+        # engine keys its sequences by the id.
+        ctxs = [ctx] + [ctx.child(id=f"{ctx.id}-c{i}") for i in range(1, len(bodies))]
+        tasks = [asyncio.create_task(run_choice(i, b, c)) for i, (b, c) in enumerate(zip(bodies, ctxs))]
+        try:
+            results = await asyncio.gather(*tasks)
         except Exception as e:
+            # Stop and reap the sibling choices.
+            ctx.stop_generating()
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            if isinstance(e, oai.RequestError):
+                await _respond_json(writer, 400, oai.error_body(str(e)))
+                return
             logger.exception("request %s failed", ctx.id)
             await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
             return
-        usage = oai.usage_dict(prompt_tokens, n_tokens, cached_tokens, tenant=body.get("_tenant"))
-        if finish_reason == "timeout":
+        usage = oai.usage_dict(prompt_tokens[0], sum(r["n_tokens"] for r in results), cached_tokens[0],
+                               tenant=body.get("_tenant"))
+        if any(r["finish_reason"] == "timeout" for r in results):
             err = oai.error_body("request deadline exceeded", "timeout_error", 504)
             err["usage"] = usage
             await _respond_json(writer, 504, err)
             return
-        text = "".join(text_parts)
         if kind == "chat":
-            resp = oai.chat_response(rid, model, text, finish_reason, usage)
+            choices = [
+                oai.chat_choice(r["index"], r["text"], r["finish_reason"], r["tool_calls"], r["reasoning"],
+                                logprobs=oai.chat_logprobs_content(None, r["logprobs"], r["top_logprobs"])
+                                if r["logprobs"] else None)
+                for r in results
+            ]
+            resp = oai.chat_response_multi(rid, model, choices, usage)
         else:
-            resp = oai.completion_response(rid, model, text, finish_reason, usage)
+            choices = [
+                oai.completion_choice(r["index"], r["text"], r["finish_reason"],
+                                      logprobs=oai.completion_logprobs_block(
+                                          [""] * len(r["logprobs"]), r["logprobs"], r["top_logprobs"])
+                                      if r["logprobs"] else None)
+                for r in results
+            ]
+            resp = oai.completion_response_multi(rid, model, choices, usage)
         await _respond_json(writer, 200, resp)
 
     async def _serve_stream(self, engine, body, ctx, rid, kind, model, writer) -> None:
+        if int(body.get("n") or 1) > 1:
+            await self._serve_stream_multi(engine, body, ctx, rid, kind, model, writer)
+            return
         # The pipeline's request stages (the preprocessor's grammar build
         # among them) run before its first item: a rejection there is still
         # a 400, sent before the stream's 200.
@@ -193,10 +260,7 @@ class HttpService:
             logger.exception("stream %s failed", ctx.id)
             await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
             return
-        writer.write(
-            b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
-            b"Cache-Control: no-cache\r\nConnection: close\r\n\r\n"
-        )
+        writer.write(_SSE_HEAD)
         n_tokens = 0
         prompt_tokens = 0
         cached_tokens = None
@@ -217,11 +281,7 @@ class HttpService:
                 if out is None:
                     continue
                 n_tokens += len(out.token_ids)
-                if out.text:
-                    if kind == "chat":
-                        await _sse(writer, oai.chat_chunk(rid, model, {"content": out.text}))
-                    else:
-                        await _sse(writer, oai.completion_chunk(rid, model, out.text))
+                await _sse_deltas(writer, rid, model, kind, out, 0)
                 if out.finish_reason:
                     # The final chunk carries the usage block.
                     usage = oai.usage_dict(prompt_tokens, n_tokens, cached_tokens, tenant=body.get("_tenant"))
@@ -240,6 +300,93 @@ class HttpService:
             await _sse(writer, oai.error_body(str(e), "internal_error", 500))
         writer.write(b"data: [DONE]\n\n")
         await writer.drain()
+
+    async def _serve_stream_multi(self, engine, body, ctx, rid, kind, model, writer) -> None:
+        """n > 1 streamed: one generation per choice, their chunks on one SSE
+        stream with their choice's index, each choice with its own finish.
+        A rejection in the pipeline's request stages (before any choice's
+        first item) is still a 400."""
+        bodies = self._choice_bodies(body)
+        ctxs = [ctx] + [ctx.child(id=f"{ctx.id}-c{i}") for i in range(1, len(bodies))]
+        queue: "asyncio.Queue" = asyncio.Queue()
+
+        async def pump(i: int, b: dict, c: Context):
+            try:
+                async for item in engine.generate(b, c):
+                    out = as_engine_output(item)
+                    if out is not None:
+                        await queue.put((i, out, None))
+            except Exception as e:  # surfaced on the stream
+                await queue.put((i, None, e))
+            finally:
+                await queue.put((i, None, None))  # the choice is done
+
+        tasks = [asyncio.create_task(pump(i, b, c)) for i, (b, c) in enumerate(zip(bodies, ctxs))]
+        live = len(tasks)
+        head = await queue.get()
+        try:
+            if isinstance(head[2], oai.RequestError):
+                await _respond_json(writer, 400, oai.error_body(str(head[2])))
+                return
+            writer.write(_SSE_HEAD)
+            if kind == "chat":
+                for i in range(len(bodies)):
+                    await _sse(writer, oai.chat_chunk(rid, model, {"role": "assistant", "content": ""}, index=i))
+            item = head
+            while True:
+                i, out, err = item
+                if err is not None:
+                    raise err
+                if out is None:
+                    live -= 1
+                else:
+                    await _sse_deltas(writer, rid, model, kind, out, i)
+                    if out.finish_reason:
+                        chunk = (oai.chat_chunk(rid, model, {}, finish_reason=out.finish_reason, index=i)
+                                 if kind == "chat"
+                                 else oai.completion_chunk(rid, model, "", finish_reason=out.finish_reason, index=i))
+                        await _sse(writer, chunk)
+                if not live:
+                    break
+                item = await queue.get()
+        except (ConnectionError, asyncio.CancelledError):
+            raise
+        except Exception as e:
+            logger.exception("stream %s failed", ctx.id)
+            await _sse(writer, oai.error_body(str(e), "internal_error", 500))
+        finally:
+            ctx.stop_generating()  # and its children: stop what still runs
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+        writer.write(b"data: [DONE]\n\n")
+        await writer.drain()
+
+
+_SSE_HEAD = (b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
+             b"Cache-Control: no-cache\r\nConnection: close\r\n\r\n")
+
+
+async def _sse_deltas(writer, rid: str, model: str, kind: str, out, index: int) -> None:
+    """The content chunks of one engine frame of choice ``index``: its
+    reasoning delta (chat), its text with its tokens' logprobs (tokens whose
+    text is held back still send their logprobs, on an empty delta), and
+    its tool calls (chat)."""
+    if out.reasoning and kind == "chat":
+        await _sse(writer, oai.chat_chunk(rid, model, {"reasoning_content": out.reasoning}, index=index))
+    if out.text or out.logprobs:
+        text = out.text or ""
+        lp = None
+        if out.logprobs:
+            lp = (oai.chat_logprobs_content(text, out.logprobs, out.top_logprobs) if kind == "chat"
+                  else oai.completion_logprobs_block([text], out.logprobs, out.top_logprobs))
+        if kind == "chat":
+            await _sse(writer, oai.chat_chunk(rid, model, {"content": text}, index=index, logprobs=lp))
+        else:
+            await _sse(writer, oai.completion_chunk(rid, model, text, index=index, logprobs=lp))
+    if out.tool_calls and kind == "chat":
+        delta_calls = [{**tc, "index": j, "function": tc["function"]} for j, tc in enumerate(out.tool_calls)]
+        await _sse(writer, oai.chat_chunk(rid, model, {"tool_calls": delta_calls}, index=index))
 
 
 async def _chain(head: list, rest: AsyncIterator):

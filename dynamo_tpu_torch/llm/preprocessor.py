@@ -8,6 +8,12 @@ default template is rendered in plain Python, byte-identical to the JAX
 ``PromptFormatter`` for messages whose content is a string. Model-specific
 templates (from a tokenizer's config) wait for tokenizer loading
 (ROADMAP Queue 1 item 12).
+
+Output parsing: a request that declares ``tools`` arms the tool-call
+parser named at construction, and a forced ``tool_choice`` (whose grammar
+emits bare ``{"name": .., "arguments": {..}}`` JSON) the ``"default"``
+one; a reasoning parser is a property of the model. Either travels to the
+Backend as ``parser_options`` on the wire.
 """
 
 from __future__ import annotations
@@ -47,9 +53,18 @@ def render_default_chat_template(messages: List[dict], add_generation_prompt: bo
 class OpenAIPreprocessor(Operator):
     """Chat/completion request → PreprocessedRequest (wire dict)."""
 
-    def __init__(self, tokenizer: Tokenizer, *, default_max_tokens: int = 512):
+    def __init__(
+        self,
+        tokenizer: Tokenizer,
+        *,
+        default_max_tokens: int = 512,
+        tool_call_parser: Optional[str] = None,
+        reasoning_parser: Optional[str] = None,
+    ):
         self.tokenizer = tokenizer
         self.default_max_tokens = default_max_tokens
+        self.tool_call_parser = tool_call_parser
+        self.reasoning_parser = reasoning_parser
 
     # --- Operator interface -------------------------------------------------
     async def transform_request(self, request: dict, context: Context) -> dict:
@@ -57,6 +72,11 @@ class OpenAIPreprocessor(Operator):
         wire = req.to_wire()
         # Side-band for the response annotation path; engines ignore it.
         wire["_formatted_prompt"] = prompt
+        tool_parser = self.tool_call_parser if request.get("tools") else None
+        if tool_parser is None and (req.guided_decoding or {}).get("forced_tools"):
+            tool_parser = "default"
+        if tool_parser or self.reasoning_parser:
+            wire["parser_options"] = {"tool_call_parser": tool_parser, "reasoning_parser": self.reasoning_parser}
         return wire
 
     def transform_response(self, stream: AsyncIterator, request: dict, context: Context) -> AsyncIterator:

@@ -4,7 +4,7 @@
 consumes) and ``LLMEngineOutput`` (per-step engine emission). Kept as plain
 dicts on the wire; these dataclasses are the typed construction layer. The
 JAX package's wire keys, minus the fields of features this port does not
-have yet (disaggregation, multimodal, logprobs, tools).
+have yet (disaggregation, multimodal, routing overrides).
 """
 
 from __future__ import annotations
@@ -51,7 +51,14 @@ class LLMEngineOutput:
     token_ids: List[int] = field(default_factory=list)
     text: Optional[str] = None  # set by the Backend detokenizer
     finish_reason: Optional[str] = None
+    logprobs: Optional[List[float]] = None  # per-token chosen logprobs (aligned with token_ids)
+    # Per-token top alternatives (OpenAI ``top_logprobs``): one
+    # [[alt_token_id, logprob], ...] list per token_ids entry.
+    top_logprobs: Optional[List[list]] = None
     index: int = 0
+    # Set by the Backend's parser stage on the final frame (OpenAI wire shape).
+    tool_calls: Optional[List[dict]] = None
+    reasoning: Optional[str] = None  # reasoning_content delta
 
     def to_wire(self) -> dict:
         d: Dict[str, Any] = {"token_ids": self.token_ids, "index": self.index}
@@ -59,6 +66,14 @@ class LLMEngineOutput:
             d["text"] = self.text
         if self.finish_reason is not None:
             d["finish_reason"] = self.finish_reason
+        if self.logprobs is not None:
+            d["logprobs"] = self.logprobs
+        if self.top_logprobs is not None:
+            d["top_logprobs"] = self.top_logprobs
+        if self.tool_calls is not None:
+            d["tool_calls"] = self.tool_calls
+        if self.reasoning is not None:
+            d["reasoning"] = self.reasoning
         return d
 
     @classmethod
@@ -67,7 +82,11 @@ class LLMEngineOutput:
             token_ids=list(d.get("token_ids") or []),
             text=d.get("text"),
             finish_reason=d.get("finish_reason"),
+            logprobs=d.get("logprobs"),
+            top_logprobs=d.get("top_logprobs"),
             index=d.get("index", 0),
+            tool_calls=d.get("tool_calls"),
+            reasoning=d.get("reasoning"),
         )
 
 

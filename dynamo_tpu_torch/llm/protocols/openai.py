@@ -1,12 +1,14 @@
 """OpenAI API protocol: request validation + response/chunk builders.
 
 The chat-completions and completions part of the JAX package's
-``llm/protocols/openai.py``: the same validation rules and the same
-response and chunk shapes. Request fields of features this port does not
-implement yet are refused with a 400 naming the field, never silently
-ignored (ROADMAP Queue 1 item 10). Structured outputs (``response_format``
-and ``nvext.guided_*``) are validated as the JAX package validates them;
-``tools`` and ``tool_choice`` stay refused until the tool-call parsers.
+``llm/protocols/openai.py``: the same validation rules and messages and
+the same response and chunk shapes, the per-request extras among them
+(``logprobs`` / ``top_logprobs``, penalties, ``logit_bias``, ``n`` up to
+``MAX_N``, ``tools`` / ``tool_choice``, structured outputs through
+``response_format`` and ``nvext.guided_*``). Beyond the JAX checks the
+port validates ``top_k``, bounds ``seed`` to the scheduler's 32-bit key
+rows and takes message content as a string (content parts wait for the
+multimodal path).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import re
 import time
 import uuid
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 
 class RequestError(ValueError):
@@ -29,12 +31,7 @@ def _require(cond: bool, msg: str) -> None:
 TENANT_MAX_LEN = 64
 _TENANT_RE = re.compile(r"^[A-Za-z0-9._:-]+$")
 
-# Fields whose features are not ported yet: a request that sets one gets a
-# 400 instead of an answer that quietly ignores it.
-_UNSUPPORTED = (
-    "logprobs", "top_logprobs", "tools", "tool_choice", "logit_bias",
-    "frequency_penalty", "presence_penalty",
-)
+MAX_N = 8  # per-request choice fan-out cap (each choice is a full generation)
 # Seeds go into a 32-bit signed row of the scheduler's key table.
 SEED_MIN, SEED_MAX = -(2**31), 2**31 - 1
 
@@ -48,17 +45,14 @@ def validate_tenant(value: Any, source: str = "user") -> str:
 
 
 def _validate_common(body: dict) -> None:
-    for key in _UNSUPPORTED:
-        v = body.get(key)
-        _require(
-            v is None or v is False or v == 0,
-            f"{key} is not supported by the PyTorch/CUDA port yet",
-        )
     _validate_guided_ext(body)
     _validate_response_format(body)
     n = body.get("n")
-    _require(n is None or n == 1, "n > 1 is not supported by the PyTorch/CUDA port yet")
-    for key in ("temperature", "top_p"):
+    _require(
+        n is None or (isinstance(n, int) and 1 <= n <= MAX_N),
+        f"n must be an integer in [1, {MAX_N}]",
+    )
+    for key in ("temperature", "top_p", "frequency_penalty", "presence_penalty"):
         v = body.get(key)
         _require(v is None or isinstance(v, (int, float)), f"{key} must be a number")
     t = body.get("temperature")
@@ -68,10 +62,10 @@ def _validate_common(body: dict) -> None:
     tk = body.get("top_k")
     _require(tk is None or (isinstance(tk, int) and tk >= 0), "top_k must be a non-negative integer")
     seed = body.get("seed")
-    _require(
-        seed is None or (isinstance(seed, int) and not isinstance(seed, bool) and SEED_MIN <= seed <= SEED_MAX),
-        f"seed must be an integer in [{SEED_MIN}, {SEED_MAX}]",
-    )
+    _require(seed is None or (isinstance(seed, int) and not isinstance(seed, bool)), "seed must be an integer")
+    _require(seed is None or SEED_MIN <= seed <= SEED_MAX, f"seed must be an integer in [{SEED_MIN}, {SEED_MAX}]")
+    # Choice i of an n > 1 request draws with seed + i (llm/http/service.py).
+    _require(seed is None or seed + (n or 1) - 1 <= SEED_MAX, f"seed + n - 1 must be at most {SEED_MAX}")
     mt = body.get("max_tokens") or body.get("max_completion_tokens")
     _require(mt is None or (isinstance(mt, int) and mt > 0), "max_tokens must be a positive integer")
     to = body.get("timeout")
@@ -87,6 +81,18 @@ def _validate_common(body: dict) -> None:
     user = body.get("user")
     if user is not None:
         validate_tenant(user, "user")
+    lb = body.get("logit_bias")
+    if lb is not None:
+        _require(isinstance(lb, dict), "logit_bias must be an object mapping token ids to bias")
+        for k, v in lb.items():
+            _require(
+                isinstance(k, (str, int)) and str(k).lstrip("-").isdigit(),
+                "logit_bias keys must be token ids",
+            )
+            _require(
+                isinstance(v, (int, float)) and not isinstance(v, bool) and -100.0 <= v <= 100.0,
+                "logit_bias values must be numbers in [-100, 100]",
+            )
 
 
 RESPONSE_FORMAT_TYPES = ("text", "json_object", "json_schema")
@@ -118,6 +124,51 @@ def _validate_response_format(body: dict) -> None:
         _require(name is None or isinstance(name, str), "json_schema.name must be a string")
 
 
+def _validate_tools(body: dict) -> None:
+    tools = body.get("tools")
+    if tools is None:
+        return
+    _require(isinstance(tools, list), "tools must be an array")
+    for t in tools:
+        _require(
+            isinstance(t, dict) and t.get("type") == "function" and isinstance(t.get("function"), dict),
+            "each tool must be {type: 'function', function: {...}}",
+        )
+        fn = t["function"]
+        _require(isinstance(fn.get("name"), str) and bool(fn["name"]), "tool function.name is required")
+        params = fn.get("parameters")
+        _require(params is None or isinstance(params, dict), "tool function.parameters must be an object")
+
+
+def _tool_names(body: dict) -> List[str]:
+    return [(t.get("function") or {}).get("name") for t in (body.get("tools") or []) if isinstance(t, dict)]
+
+
+def _validate_tool_choice(body: dict) -> None:
+    tc = body.get("tool_choice")
+    if tc is None:
+        return
+    if isinstance(tc, str):
+        _require(
+            tc in ("none", "auto", "required"),
+            "tool_choice must be 'none', 'auto', 'required', or {type:'function',function:{name}}",
+        )
+        _require(
+            tc != "required" or bool(body.get("tools")),
+            "tool_choice 'required' needs a non-empty tools array",
+        )
+        return
+    _require(
+        isinstance(tc, dict)
+        and tc.get("type") == "function"
+        and isinstance(tc.get("function"), dict)
+        and isinstance(tc["function"].get("name"), str),
+        "named tool_choice must be {type: 'function', function: {name: ...}}",
+    )
+    name = tc["function"]["name"]
+    _require(name in _tool_names(body), f"tool_choice names unknown tool {name!r}")
+
+
 def _validate_guided_ext(body: dict) -> None:
     """nvext guided-decoding extensions (guided_regex / guided_choice /
     guided_json) — structural checks; at most one constraint per request."""
@@ -146,11 +197,22 @@ def validate_chat_request(body: dict) -> dict:
     for m in messages:
         _require(isinstance(m, dict) and "role" in m, "each message needs a role")
         _require(m["role"] in ("system", "user", "assistant", "tool", "developer"), f"invalid role {m['role']!r}")
+        # None: an assistant message that only calls tools.
         _require(
-            isinstance(m.get("content", ""), str),
+            m.get("content") is None or isinstance(m["content"], str),
             "message content must be a string (content parts are not supported by the port yet)",
         )
     _validate_common(body)
+    lp = body.get("logprobs")
+    _require(lp is None or isinstance(lp, bool), "logprobs must be a boolean")
+    tlp = body.get("top_logprobs")
+    _require(
+        tlp is None or (isinstance(tlp, int) and 0 <= tlp <= 20),
+        "top_logprobs must be an integer in [0, 20]",
+    )
+    _require(tlp is None or bool(lp), "top_logprobs requires logprobs: true")
+    _validate_tools(body)
+    _validate_tool_choice(body)
     return body
 
 
@@ -164,11 +226,37 @@ def validate_completion_request(body: dict) -> dict:
         "prompt must be a string, array of strings, or array of token ids",
     )
     _validate_common(body)
+    lp = body.get("logprobs")
+    _require(
+        lp is None or (isinstance(lp, int) and 0 <= lp <= 5),
+        "logprobs must be an integer in [0, 5]",
+    )
     return body
 
 
 def sampling_from_request(body: dict) -> Dict[str, Any]:
-    return {k: body.get(k) for k in ("temperature", "top_p", "top_k", "seed") if body.get(k) is not None}
+    out = {
+        k: body.get(k)
+        for k in ("temperature", "top_p", "top_k", "seed", "frequency_penalty", "presence_penalty")
+        if body.get(k) is not None
+    }
+    # Chat sends a boolean, completions a count; either turns on the chosen
+    # tokens' logprobs (completions ``logprobs: 0`` too: only absent or
+    # false is off).
+    lp = body.get("logprobs")
+    if lp is not None and lp is not False:
+        out["logprobs"] = True
+    tlp = body.get("top_logprobs")
+    if tlp:
+        out["top_logprobs"] = int(tlp)
+    elif isinstance(lp, int) and not isinstance(lp, bool) and lp > 0:
+        # Completions: the logprobs count is also the alternatives' count.
+        out["top_logprobs"] = int(lp)
+    lb = body.get("logit_bias")
+    if lb:
+        # Keys as ints on the wire (OpenAI clients send strings).
+        out["logit_bias"] = {int(k): float(v) for k, v in lb.items()}
+    return out
 
 
 def stop_conditions_from_request(body: dict) -> Dict[str, Any]:
@@ -191,6 +279,54 @@ def make_id(prefix: str = "chatcmpl") -> str:
     return f"{prefix}-{uuid.uuid4().hex[:24]}"
 
 
+def _top_entries(alts: Optional[list]) -> List[dict]:
+    """Alternative-token entries of one position from the wire shape
+    [[alt_token_id, logprob], ...]. Alternatives are named by id
+    (``token_id:<n>``): a token never generated into the stream has no
+    meaningful detokenization of its own, and the id is lossless."""
+    if not alts:
+        return []
+    return [{"token": f"token_id:{int(tid)}", "logprob": float(lp), "bytes": None} for tid, lp in alts]
+
+
+def chat_logprobs_content(
+    text: Optional[str], logprobs: List[float], top_logprobs: Optional[List[list]] = None
+) -> dict:
+    """Chat logprobs block of one delta or message: one entry per generated
+    token, with its alternatives where the engine computed them
+    (``top_logprobs``: [[alt_token_id, logprob], ...] per token, aligned
+    with ``logprobs``)."""
+    toks = [text] if (text and len(logprobs) == 1) else [""] * len(logprobs)
+    tops = top_logprobs or []
+    return {
+        "content": [
+            {
+                "token": t,
+                "logprob": lp,
+                "bytes": list(t.encode()) if t else None,
+                "top_logprobs": _top_entries(tops[i] if i < len(tops) else None),
+            }
+            for i, (t, lp) in enumerate(zip(toks, logprobs))
+        ]
+    }
+
+
+def completion_logprobs_block(
+    texts: List[str], logprobs: List[float], top_logprobs: Optional[List[list]] = None
+) -> dict:
+    """Completions-style logprobs arrays (tokens / token_logprobs), without
+    ``text_offset`` (character offsets are not tracked through streaming
+    detokenization). ``top_logprobs`` is the legacy per-position dict of
+    alternatives where the engine computed them, else None."""
+    tops = None
+    if top_logprobs:
+        tops = [{e["token"]: e["logprob"] for e in _top_entries(alts)} for alts in top_logprobs]
+        # Padded into line with tokens if the engine gave fewer positions.
+        while len(tops) < len(logprobs):
+            tops.append({})
+    return {"tokens": texts, "token_logprobs": logprobs, "top_logprobs": tops}
+
+
 def chat_chunk(
     rid: str,
     model: str,
@@ -198,63 +334,110 @@ def chat_chunk(
     finish_reason: Optional[str] = None,
     usage: Optional[dict] = None,
     index: int = 0,
+    logprobs: Optional[dict] = None,
 ) -> dict:
+    choice = {"index": index, "delta": delta, "finish_reason": finish_reason}
+    if logprobs is not None:
+        choice["logprobs"] = logprobs
     out = {
         "id": rid,
         "object": "chat.completion.chunk",
         "created": int(time.time()),
         "model": model,
-        "choices": [{"index": index, "delta": delta, "finish_reason": finish_reason}],
+        "choices": [choice],
     }
     if usage is not None:
         out["usage"] = usage
     return out
 
 
-def chat_choice(index: int, text: str, finish_reason: str) -> dict:
-    return {
-        "index": index,
-        "message": {"role": "assistant", "content": text},
-        "finish_reason": finish_reason,
-    }
+def chat_choice(
+    index: int,
+    text: str,
+    finish_reason: str,
+    tool_calls: Optional[list] = None,
+    reasoning: Optional[str] = None,
+    logprobs: Optional[dict] = None,
+) -> dict:
+    message: dict = {"role": "assistant", "content": text}
+    if tool_calls:
+        message["tool_calls"] = tool_calls
+        message["content"] = text or None
+    if reasoning:
+        message["reasoning_content"] = reasoning
+    choice = {"index": index, "message": message, "finish_reason": finish_reason}
+    if logprobs is not None:
+        choice["logprobs"] = logprobs
+    return choice
 
 
-def chat_response(rid: str, model: str, text: str, finish_reason: str, usage: dict) -> dict:
+def chat_response_multi(rid: str, model: str, choices: List[dict], usage: dict) -> dict:
     return {
         "id": rid,
         "object": "chat.completion",
         "created": int(time.time()),
         "model": model,
-        "choices": [chat_choice(0, text, finish_reason)],
+        "choices": choices,
         "usage": usage,
     }
+
+
+def chat_response(
+    rid: str,
+    model: str,
+    text: str,
+    finish_reason: str,
+    usage: dict,
+    tool_calls: Optional[list] = None,
+    reasoning: Optional[str] = None,
+    logprobs: Optional[dict] = None,
+) -> dict:
+    return chat_response_multi(rid, model, [chat_choice(0, text, finish_reason, tool_calls, reasoning, logprobs)],
+                               usage)
 
 
 def completion_chunk(
-    rid: str, model: str, text: str, finish_reason: Optional[str] = None, index: int = 0
+    rid: str,
+    model: str,
+    text: str,
+    finish_reason: Optional[str] = None,
+    index: int = 0,
+    logprobs: Optional[dict] = None,
 ) -> dict:
+    choice = {"index": index, "text": text, "finish_reason": finish_reason}
+    if logprobs is not None:
+        choice["logprobs"] = logprobs
     return {
         "id": rid,
         "object": "text_completion",
         "created": int(time.time()),
         "model": model,
-        "choices": [{"index": index, "text": text, "finish_reason": finish_reason}],
+        "choices": [choice],
     }
 
 
-def completion_choice(index: int, text: str, finish_reason: str) -> dict:
-    return {"index": index, "text": text, "finish_reason": finish_reason}
+def completion_choice(index: int, text: str, finish_reason: str, logprobs: Optional[dict] = None) -> dict:
+    choice = {"index": index, "text": text, "finish_reason": finish_reason}
+    if logprobs is not None:
+        choice["logprobs"] = logprobs
+    return choice
 
 
-def completion_response(rid: str, model: str, text: str, finish_reason: str, usage: dict) -> dict:
+def completion_response_multi(rid: str, model: str, choices: List[dict], usage: dict) -> dict:
     return {
         "id": rid,
         "object": "text_completion",
         "created": int(time.time()),
         "model": model,
-        "choices": [completion_choice(0, text, finish_reason)],
+        "choices": choices,
         "usage": usage,
     }
+
+
+def completion_response(
+    rid: str, model: str, text: str, finish_reason: str, usage: dict, logprobs: Optional[dict] = None
+) -> dict:
+    return completion_response_multi(rid, model, [completion_choice(0, text, finish_reason, logprobs)], usage)
 
 
 def usage_dict(

@@ -14,9 +14,10 @@ the JAX package.
    window, and a guided request without an attached tokenizer is refused.
 2. HTTP: the port's server refuses the same malformed structured-output
    bodies as the JAX validators and grammar build, with the same messages
-   (a 400, streaming or not), still refuses ``tools`` / ``tool_choice``,
-   and answers a ``response_format`` request, JSON and SSE, with text that
-   parses as JSON and satisfies the schema.
+   (a 400, streaming or not), answers ``tools`` without a forced choice as
+   text and refuses ``tool_choice: "required"`` without tools with the JAX
+   message, and answers a ``response_format`` request, JSON and SSE, with
+   text that parses as JSON and satisfies the schema.
 """
 
 import asyncio
@@ -331,8 +332,8 @@ def _chat(**extra):
     return {"model": "tiny", "messages": [{"role": "user", "content": "x"}], "max_tokens": 8, **extra}
 
 
-# Malformed constraints the JAX validators refuse (test_guided.py's, less
-# the tool-choice cases).
+# Malformed constraints the JAX validators refuse (test_guided.py's; its
+# tool-choice ones are test_torch_extras_serving.py's).
 BAD_SHAPES = [
     _chat(response_format="json"),
     _chat(response_format={"type": "nope"}),
@@ -351,6 +352,8 @@ BAD_GRAMMARS = [
     _chat(nvext={"guided_regex": "(?=a)b"}),
     _chat(nvext={"guided_json": {"type": "object", "properties": {"a": {"allOf": [{}]}}}}),
 ]
+# A tools request without a forced choice (answered as text) and a forced
+# choice without tools (refused).
 TOOL_BODIES = [
     _chat(tools=[{"type": "function", "function": {"name": "a", "parameters": SCHEMA}}]),
     _chat(tool_choice="required"),
@@ -414,8 +417,10 @@ def test_http_refuses_what_jax_refuses_with_its_messages(weights):
     for body, (status, raw) in zip(bad + BAD_GRAMMARS, answers):
         assert status == 400, (body, raw)
         assert json.loads(raw)["error"]["message"] == _jax_message({k: v for k, v in body.items() if k != "stream"})
-    for (status, raw), key in zip(answers[-len(TOOL_BODIES):], ("tools", "tool_choice")):
-        assert status == 400 and key.encode() in raw
+    (tools_status, tools_raw), (choice_status, choice_raw) = answers[-len(TOOL_BODIES):]
+    assert tools_status == 200 and "tool_calls" not in json.loads(tools_raw)["choices"][0]["message"]
+    assert choice_status == 400
+    assert json.loads(choice_raw)["error"]["message"] == _jax_message(TOOL_BODIES[1])
 
 
 def test_http_response_format_round_trip(weights):

@@ -408,7 +408,8 @@ def test_sample_batch_device_matches_the_host_split(seeded):
         jnp.asarray(logits.numpy()), jnp.asarray(temps), jnp.asarray(top_ks), jnp.asarray(top_ps), jnp.asarray(key),
         None if row_keys is None else jnp.asarray(row_keys)))
     np.testing.assert_array_equal(want, jax_want)
-    np.testing.assert_array_equal(tsampling.sample_batch(logits, temps, top_ks, top_ps, key, row_keys), want)
+    np.testing.assert_array_equal(
+        tsampling.sample_batch_device(logits, temps, top_ks, top_ps, key, row_keys).cpu().numpy(), want)
     for k, rk in ((key, row_keys), (torch.from_numpy(key.view(np.int32)),
                                     None if row_keys is None else torch.from_numpy(row_keys.view(np.int32)))):
         got = tsampling.sample_batch_device(logits, torch.from_numpy(temps), torch.from_numpy(top_ks),

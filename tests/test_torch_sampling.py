@@ -63,19 +63,24 @@ def _jax_sample(logits, temps, top_ks, top_ps, key, row_keys=None):
     return np.asarray(jsampling.sample_batch(*_j(logits, temps, top_ks, top_ps), jnp.asarray(key), rk))
 
 
+def _sample(logits, temps, top_ks, top_ps, key, row_keys=None):
+    """The port's per-step draw brought to the host."""
+    return tsampling.sample_batch_device(logits, temps, top_ks, top_ps, key, row_keys).cpu().numpy()
+
+
 def test_sample_batch_greedy_rows_take_argmax():
     """Greedy rows take the argmax in a batch that also draws, and an
     all-greedy batch draws nothing; both as JAX ``sample_batch`` does."""
     logits, temps, top_ks, top_ps, _ = _rows(7)
     key = prng.PRNGKey(0)
-    out = tsampling.sample_batch(torch.from_numpy(logits), temps, top_ks, top_ps, key)
+    out = _sample(torch.from_numpy(logits), temps, top_ks, top_ps, key)
     greedy = temps == 0
     np.testing.assert_array_equal(out[greedy], logits[greedy].argmax(-1))
     assert out[0] == 17  # ties break to the first index, as jnp.argmax does
     assert out.dtype == np.int32 and out.shape == (len(temps),)
     np.testing.assert_array_equal(out, _jax_sample(logits, temps, top_ks, top_ps, key))
     zeros = np.zeros_like(temps)
-    out = tsampling.sample_batch(torch.from_numpy(logits), zeros, top_ks, top_ps, None)  # no key needed
+    out = _sample(torch.from_numpy(logits), zeros, top_ks, top_ps, None)  # no key needed
     np.testing.assert_array_equal(out, logits.argmax(-1))
 
 
@@ -88,12 +93,12 @@ def test_sample_batch_draws_from_the_generator(seed):
     logits, temps, top_ks, top_ps, _ = _rows(8 + seed)
     key = prng.fold_in(prng.PRNGKey(seed), 3)
     t = torch.from_numpy(logits)
-    draws = [tsampling.sample_batch(t, temps, top_ks, top_ps, key) for _ in range(2)]
+    draws = [_sample(t, temps, top_ks, top_ps, key) for _ in range(2)]
     np.testing.assert_array_equal(draws[0], draws[1])
     np.testing.assert_array_equal(draws[0], _jax_sample(logits, temps, top_ks, top_ps, key))
     row_keys = tsampling.make_row_keys(key, np.arange(len(temps), dtype=np.int32) * 7,
                                        np.arange(len(temps), dtype=np.int32), np.arange(len(temps)) % 2 == 0)
-    got = tsampling.sample_batch(t, temps, top_ks, top_ps, key, row_keys)
+    got = _sample(t, temps, top_ks, top_ps, key, row_keys)
     np.testing.assert_array_equal(got, _jax_sample(logits, temps, top_ks, top_ps, key, row_keys))
     probs = tsampling.filtered_probs_rows(*_t(logits, temps, top_ks, top_ps)).numpy()
     assert all(probs[i, tok] > 0 for d in (draws[0], got) for i, tok in enumerate(d))
@@ -123,11 +128,11 @@ def test_sample_batch_matches_jax_windowed_path(seed):
     assert np.all(~sampled | ((top_ks >= 1) & (top_ks <= 64) & ((top_ps >= 1) | (top64 >= top_ps))))
     key = prng.fold_in(prng.PRNGKey(seed), 9)
     t = torch.from_numpy(logits)
-    got = tsampling.sample_batch(t, temps, top_ks, top_ps, key)
+    got = _sample(t, temps, top_ks, top_ps, key)
     np.testing.assert_array_equal(got, _jax_sample(logits, temps, top_ks, top_ps, key))
     row_keys = tsampling.make_row_keys(key, np.arange(8, dtype=np.int32) * 3, np.arange(8, dtype=np.int32),
                                        np.arange(8) % 3 == 0)
-    got = tsampling.sample_batch(t, temps, top_ks, top_ps, key, row_keys)
+    got = _sample(t, temps, top_ks, top_ps, key, row_keys)
     np.testing.assert_array_equal(got, _jax_sample(logits, temps, top_ks, top_ps, key, row_keys))
 
 
@@ -188,7 +193,7 @@ def test_apply_token_masks_matches_jax():
 @pytest.mark.parametrize("seed", range(3))
 def test_guided_sample_batch_matches_jax(seed, exact):
     """Masked rows through the threefry draw, with one key and with per-row
-    keys: ``sample_batch`` over ``apply_token_masks`` (the scheduler's
+    keys: ``sample_batch_device`` over ``apply_token_masks`` (the scheduler's
     guided draw) gives JAX ``guided_sample_batch``'s tokens, every one
     allowed, greedy rows the argmax of their allowed logits."""
     logits, pool, sets, rows, temps, top_ks, top_ps = _guided_batch(30 + seed, exact=exact)
@@ -200,8 +205,7 @@ def test_guided_sample_batch_matches_jax(seed, exact):
     for rk in (None, row_keys):
         want = np.asarray(jsampling.guided_sample_batch(
             *_j(logits, pool, k_rows, temps, top_ps), jnp.asarray(key), None if rk is None else jnp.asarray(rk)))
-        got = tsampling.sample_batch(tsampling.apply_token_masks(t, tpool, torch.from_numpy(rows)), temps, top_ks,
-                                     top_ps, key, rk)
+        got = _sample(tsampling.apply_token_masks(t, tpool, torch.from_numpy(rows)), temps, top_ks, top_ps, key, rk)
         np.testing.assert_array_equal(got, want)
         assert got.dtype == np.int32 and all(tok in sets[r] for r, tok in enumerate(got))
         for r in np.nonzero(temps == 0)[0]:

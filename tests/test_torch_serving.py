@@ -21,7 +21,9 @@
    (JSON and SSE) and completion requests with the text the JAX
    ``build_local_pipeline(ByteTokenizer(), TpuEngine)`` produces for the
    same body and weights; a sampled request with a ``seed`` gets the same
-   answer twice, and the fields not ported yet are still refused.
+   answer twice; ``logprobs`` and ``frequency_penalty`` are served (the
+   extras against JAX: test_torch_extras_serving.py) and malformed seeds
+   refused.
 3. Isolation: every module of ``dynamo_tpu_torch`` imports with ``jax``
    blocked and loads nothing of the JAX package, and no port file or
    ``chip_smoke.py`` names either in an import.
@@ -396,9 +398,9 @@ async def _port_answers(tp):
                                                      {"model": "nope", "prompt": "x"}),
             "bad_request": await asyncio.to_thread(_post, service.port, "/v1/chat/completions",
                                                    {"model": "tiny", "messages": []}),
-            "unsupported_field": await asyncio.to_thread(_post, service.port, "/v1/chat/completions",
-                                                         {"model": "tiny", "messages": [{"role": "user", "content": "x"}],
-                                                          "logprobs": True}),
+            "logprobs_field": await asyncio.to_thread(_post, service.port, "/v1/chat/completions",
+                                                      {"model": "tiny", "messages": [{"role": "user", "content": "x"}],
+                                                       "logprobs": True, "max_tokens": 5}),
             "deadline": await asyncio.to_thread(_post, service.port, "/v1/completions",
                                                 {"model": "tiny", "prompt": "late", "max_tokens": 50, "timeout": 0.001}),
             "wrong_method": await asyncio.to_thread(_raw, service.port, b"GET /v1/completions HTTP/1.1\r\n\r\n"),
@@ -450,7 +452,11 @@ def test_http_server_matches_jax_pipeline(weights):
     assert misc["health"][1]["status"] == "healthy"
     assert misc["unknown_model"][0] == 404
     assert misc["bad_request"][0] == 400
-    assert misc["unsupported_field"][0] == 400 and b"logprobs" in misc["unsupported_field"][1]
+    # logprobs are served: one entry per generated token.
+    status, raw = misc["logprobs_field"]
+    answer = json.loads(raw)
+    assert status == 200 and len(answer["choices"][0]["logprobs"]["content"]) == answer["usage"]["completion_tokens"]
+    assert all(e["logprob"] <= 0 for e in answer["choices"][0]["logprobs"]["content"])
     # A past-deadline request is evicted by the scheduler: 504 with partial usage.
     status, raw = misc["deadline"]
     assert status == 504 and json.loads(raw)["usage"]["completion_tokens"] < 50
@@ -462,7 +468,8 @@ async def _seeded_answers(tp):
     """A seeded sampled request answered twice by the port's server on its
     defaults (decode windows, the fused window's plain version on the
     CPU): alone, then in the second batch slot, beside a request that was
-    already decoding when it arrived; then fields that must be refused."""
+    already decoding when it arrived; then a penalised request, which is
+    served, and malformed seeds, which are refused."""
     tok = ByteTokenizer()
     engine = TorchEngine.build(
         EngineArgs(model="tiny", dtype="float32", device="cpu", eos_token_ids=tok.eos_token_ids,
@@ -503,9 +510,12 @@ def test_http_seed_is_honoured_and_unported_fields_refused(weights):
     assert _text_of("/v1/completions", body, first[1]) == _text_of("/v1/completions", body, second[1])
     assert json.loads(neighbour[1])["usage"]["completion_tokens"] == 150  # still decoding beside it
     assert sampled_windows > 0  # the seeded rows rode fused sampled windows
+    # A penalised request is served (single steps: penalties ride no window).
+    status, raw = refused.pop("frequency_penalty")
+    assert status == 200 and 0 < json.loads(raw)["usage"]["completion_tokens"] <= 12
     for name, (status, raw) in refused.items():
         assert status == 400, name
-    assert b"frequency_penalty" in refused["frequency_penalty"][1] and b"seed" in refused["big_seed"][1]
+    assert b"seed" in refused["big_seed"][1]
 
 
 def test_stop_string_jail_matches_jax():
