@@ -64,11 +64,17 @@ its two answers equal, and structured-output requests
 guided_choice``) whose answers must hold their grammars, reporting each
 grammar's compile and pool-write seconds, the pools' bytes and the
 unguided requests' TTFT, and whose windows must take the guided
-epilogue. Every phase prints JSON lines; any failure raises and
+epilogue; then runs the distributed main path as an operator does
+(``distributed``): the control plane, two workers and the frontend with
+the KV router as separate processes, two families of long shared prefixes
+sent through the frontend, each repeat served from the prefix cache of
+the worker that holds it, each worker's kernel launches read from its
+shutdown line, and the probes' text held against the in-process path.
+Every phase prints JSON lines; any failure raises and
 exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result.
 
-``--phases`` runs a subset of kernel,model,breakdown,serve (env and build
+``--phases`` runs a subset of kernel,model,breakdown,serve,distributed (env and build
 always run) for iteration; the full run is the default.
 """
 
@@ -81,9 +87,11 @@ import gc
 import http.client
 import json
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -3347,9 +3355,10 @@ def phase_breakdown(dev):
 # ---------------------------------------------------------------------------
 
 
-def _request(port: int, path: str, body: dict):
+def _request(port: int, path: str, body: dict, on_first=None):
     """POST one request; returns (status, parsed body or SSE chunk list,
-    seconds to the first content chunk or None, total seconds)."""
+    seconds to the first content chunk or None, total seconds). A streamed
+    request calls ``on_first()`` when its first content chunk arrives."""
     t0 = time.perf_counter()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
@@ -3374,6 +3383,8 @@ def _request(port: int, path: str, body: dict):
         choice = (chunk.get("choices") or [{}])[0]
         if first is None and (choice.get("text") or (choice.get("delta") or {}).get("content")):
             first = time.perf_counter() - t0
+            if on_first is not None:
+                on_first()
         chunks.append(chunk)
     conn.close()
     return resp.status, chunks, first, time.perf_counter() - t0
@@ -3767,7 +3778,7 @@ def phase_serve(card: str, path: str):
             counts = read_counts()
             steps = {k: getattr(sched, f"{k}_steps_total") - steps0[k] for k in kinds}
             steps.update({k: getattr(sched, k) - steps0[k] for k in counters})
-            metrics = engine.stats()
+            metrics = {**engine.stats(), "spec_decode": engine.metrics().spec_decode}
             impl = sched.config_snapshot()["model"]["attention_impl"]
             if sched.guided is not None and sched.guided.requests_total:
                 pool = sched.guided.pool
@@ -3966,11 +3977,371 @@ def phase_serve(card: str, path: str):
 
 
 # ---------------------------------------------------------------------------
+# distributed: control plane, two workers and the frontend as processes
+# ---------------------------------------------------------------------------
+
+DIST_WARMUP_CTX = 2048  # the serve passes' warmup: every step graph of the traffic captured first
+DIST_PER_FAMILY = 4
+DIST_COUNTERS_MARK = "worker launch counters: "
+
+
+def dist_traffic() -> list:
+    """Two families of chat requests, each behind a system prompt of about
+    1000 tokens (distinct from the first byte, so the families share no
+    block): per family a probe, a burst of ``DIST_PER_FAMILY`` requests
+    with their own user messages, and a repeat of the burst's first
+    request. Greedy, 64 tokens, streamed."""
+    rng = np.random.default_rng(23)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    text = lambda n: "".join(rng.choice(letters, size=n))  # noqa: E731
+    systems = ["Alpha. " + text(993), "Bravo. " + text(993)]
+
+    def chat(family: int, user: str) -> dict:
+        return {"model": PRESET, "max_tokens": 64, "temperature": 0.0, "stream": True,
+                "messages": [{"role": "system", "content": systems[family]}, {"role": "user", "content": user}]}
+
+    families = []
+    for f in range(2):
+        burst = [chat(f, text(48)) for _ in range(DIST_PER_FAMILY)]
+        families.append({"probe": chat(f, text(40)), "burst": burst, "repeat": dict(burst[0])})
+    return families
+
+
+def _answer_of(result) -> dict:
+    status, data, first, total = result
+    n, finish, cached = _summarize(status, data, True)
+    if n != 64 and finish != "stop":
+        raise AssertionError(f"an answer gave {n} tokens with finish_reason {finish!r}")
+    return {"text": _answer_text(data, True, True), "completion_tokens": n, "finish_reason": finish,
+            "cached_tokens": cached, "ttft_s": first, "latency_s": total}
+
+
+async def _send(port: int, bodies: list) -> list:
+    return await asyncio.gather(*[asyncio.to_thread(_request, port, "/v1/chat/completions", b) for b in bodies])
+
+
+async def _first_token(first: threading.Event, task) -> None:
+    """Until a request's first token is back (or it ended without one)."""
+    while not first.is_set() and not task.done():
+        await asyncio.sleep(0.001)
+
+
+async def _family_burst(port: int, bodies: list) -> tuple:
+    """A family's burst: its first request, then, once that one's first
+    token is back, the others at once. They mostly reach the engine while
+    the first one's decode window runs, and the engine then admits them in
+    one wave at its end, on either path: the same steps of the same rows,
+    so the same bf16 roundings and the same greedy text. (Sent all at once,
+    the first would start alone or not by a race, and bf16 products round
+    by the step's shape.) → (results, each other request's ms from the
+    first one's first token to its own)."""
+    firsts = [threading.Event() for _ in bodies]
+
+    def send(i: int):
+        return asyncio.ensure_future(asyncio.to_thread(_request, port, "/v1/chat/completions", bodies[i],
+                                                       firsts[i].set))
+
+    tasks = [send(0)]
+    await _first_token(firsts[0], tasks[0])
+    t0 = time.perf_counter()
+    tasks += [send(i) for i in range(1, len(bodies))]
+    seen = []
+    for first, task in zip(firsts[1:], tasks[1:]):
+        await _first_token(first, task)
+        seen.append((time.perf_counter() - t0) * 1e3)
+    return list(await asyncio.gather(*tasks)), seen
+
+
+async def _bursts(port: int, families: list) -> tuple:
+    """Every family's burst at once (8 requests, 4 a family) → (answers in
+    family order, wall s, each family's follow-ups' first-token ms)."""
+    t0 = time.perf_counter()
+    done = await asyncio.gather(*[_family_burst(port, fam["burst"]) for fam in families])
+    answers = [_answer_of(r) for results, _ in done for r in results]
+    return answers, time.perf_counter() - t0, [seen for _, seen in done]
+
+
+def _burst_summary(answers: list, wall: float) -> dict:
+    ttfts = [a["ttft_s"] for a in answers if a["ttft_s"] is not None]
+    tokens = sum(a["completion_tokens"] for a in answers)
+    return {"requests": len(answers), "completion_tokens": tokens, "wall_s": wall, "decode_tok_per_s": tokens / wall,
+            "ttft_p50_s": statistics.median(ttfts), "ttft_max_s": max(ttfts)}
+
+
+class _Children:
+    """The phase's processes, each writing its output to a log file under
+    ``build/chip_smoke/distributed`` (git-ignored). ``stop`` sends SIGTERM
+    and waits; ``kill`` (in a ``finally``) ends whatever still runs."""
+
+    def __init__(self, root, env):
+        self.root, self.env, self.procs = root, env, {}
+        self.logs = root / "build" / "chip_smoke" / "distributed"
+        self.logs.mkdir(parents=True, exist_ok=True)
+
+    def start(self, name: str, module: str, *args: str) -> None:
+        log = open(self.logs / f"{name}.log", "w")
+        self.procs[name] = (subprocess.Popen([sys.executable, "-m", module, *args], cwd=str(self.root), env=self.env,
+                                             stdout=log, stderr=subprocess.STDOUT, text=True), log)
+
+    def text(self, name: str) -> str:
+        return (self.logs / f"{name}.log").read_text()
+
+    def alive(self) -> None:
+        for name, (proc, _) in self.procs.items():
+            if proc.poll() is not None:
+                raise AssertionError(f"{name} exited with {proc.returncode}: {self.text(name)[-3000:]}")
+
+    def wait_for(self, name: str, needle: str, timeout_s: float) -> str:
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            self.alive()
+            for line in self.text(name).splitlines():
+                if needle in line:
+                    return line
+            time.sleep(0.2)
+        raise AssertionError(f"{name}: {needle!r} not seen in {timeout_s} s: {self.text(name)[-3000:]}")
+
+    def stop(self, name: str) -> int:
+        proc, log = self.procs[name]
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        log.close()
+        return code
+
+    def kill(self) -> None:
+        for proc, log in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def phase_distributed(card: str) -> dict:
+    """The port's deployment as an operator runs it: ``python -m
+    dynamo_tpu_torch.control_plane``, two ``python -m
+    dynamo_tpu_torch.worker --model PRESET --warmup-ctx 2048`` (seeded
+    random weights from the same default ``--seed``, each its own process
+    and CUDA context on the card, started after the build so they load the
+    built libraries) and ``python -m dynamo_tpu_torch.frontend --router-mode
+    kv``, every role with ``DYN_CONTROL_PLANE=tcp``. The model must appear
+    in ``/v1/models`` through discovery. ``dist_traffic``'s two probes go
+    at once (the KV router sends the second to the other worker: the first
+    loads the one it took), then both families' bursts at once
+    (``_bursts``: 8 requests, 4 a worker, each family's as
+    ``_family_burst`` sends it), then the two
+    repeats one at a time, each beside a stats scrape of both workers:
+    each repeat must report ``cached_tokens > 0``, exactly one worker's
+    ``cached_tokens_total`` must rise by it, and the two families' repeats
+    must land on different workers. Every answer is a 200 with 64 tokens
+    or ``stop``. At SIGTERM each worker logs its launch counters since it
+    registered: it must have served requests, launched the ragged kernel
+    16 × its forward steps (and its non-fused window steps), the fused
+    window once per fused window (at least one), nothing else and no plain
+    version. Then, in this process, on one ``run.build_service`` engine
+    (the same seed and warmup, the workers' bf16 GEMM reductions, PyTorch's
+    default): the deployment's traffic, for the printed comparison (tok/s
+    and TTFT p50 of the bursts on both paths; the hop's host cost per
+    token, a repeat's latency through the frontend less the in-process
+    one, over its tokens); then, its prefix cache emptied, the reference,
+    which replays each family's sequence as the worker holding the family
+    saw it (its probe, its burst, its repeat; the families one after the
+    other, as they share no block): each of the 12 answers' text must
+    equal the reference's, and each worker's steps and windows are printed
+    beside the reference's for its family. A worker that dies fails the
+    phase; every child is killed in a ``finally``."""
+    import os
+    import socket
+    from pathlib import Path
+
+    from dynamo_tpu_torch import run
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.runtime.config import Config, ControlPlaneConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.runtime import Runtime
+
+    root = Path(__file__).resolve().parent
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        cp_port = s.getsockname()[1]
+    env = dict(os.environ, DYN_CONTROL_PLANE="tcp", DYN_CONTROL_PLANE_ADDRESS=f"127.0.0.1:{cp_port}", DYN_LOG="INFO",
+               PYTHONPATH=str(root))
+    families = dist_traffic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kids = _Children(root, env)
+    t0 = time.perf_counter()
+    try:
+        kids.start("control_plane", "dynamo_tpu_torch.control_plane", "--host", "127.0.0.1", "--port", str(cp_port))
+        kids.wait_for("control_plane", "control plane ready", 60)
+        workers = ("worker_0", "worker_1")
+        for name in workers:
+            kids.start(name, "dynamo_tpu_torch.worker", "--model", PRESET, "--warmup-ctx", str(DIST_WARMUP_CTX))
+        kids.start("frontend", "dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1", "--http-port", "0",
+                   "--router-mode", "kv")
+        port = int(kids.wait_for("frontend", "frontend ready on", 120).split(" (")[0].rsplit(":", 1)[1])
+        ready = {name: kids.wait_for(name, "worker ready", 300) for name in workers}
+        up_s = time.perf_counter() - t0
+        instance_of = {name: int(line.rsplit("instance=", 1)[1], 16) for name, line in ready.items()}
+
+        async def drive():
+            deadline = time.monotonic() + 60
+            while True:
+                kids.alive()
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+                conn.request("GET", "/v1/models")
+                models = [m["id"] for m in json.loads(conn.getresponse().read())["data"]]
+                conn.close()
+                if PRESET in models:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{PRESET} never appeared in /v1/models: {models}")
+                await asyncio.sleep(0.2)
+            plane = ControlPlaneConfig(backend="tcp", address=f"127.0.0.1:{cp_port}")
+            drt = await DistributedRuntime.from_settings(Runtime(Config(control_plane=plane)))
+            try:
+                client = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
+                await client.wait_for_instances(2, timeout=60)
+                probes = [_answer_of(r) for r in await _send(port, [fam["probe"] for fam in families])]
+                burst, wall, timing = await _bursts(port, families)
+                repeats = []
+                for fam in families:
+                    before = await client.scrape_stats()
+                    (ans,) = [_answer_of(r) for r in await _send(port, [fam["repeat"]])]
+                    after = await client.scrape_stats()
+                    rose = {wid: after[wid]["cached_tokens_total"] - before[wid]["cached_tokens_total"]
+                            for wid in after}
+                    repeats.append({**ans, "cached_tokens_rose": {f"{w:x}": d for w, d in rose.items()}})
+                    served = [w for w, d in rose.items() if d]
+                    if not ans["cached_tokens"] or len(served) != 1 or rose[served[0]] != ans["cached_tokens"]:
+                        raise AssertionError(f"a repeat did not hit the prefix cache of the worker holding its "
+                                             f"prefix: cached_tokens {ans['cached_tokens']}, rose {rose}")
+                    repeats[-1]["worker"] = served[0]
+                stats = await client.scrape_stats()
+                await client.close()
+            finally:
+                await drt.shutdown()
+            return models, probes, burst, wall, timing, repeats, stats
+
+        models, probes, burst, wall, timing, repeats, stats = asyncio.run(drive())
+        kids.alive()
+        codes = {name: kids.stop(name) for name in (*workers, "frontend", "control_plane")}
+    finally:
+        kids.kill()
+    if any(codes.values()):
+        raise AssertionError(f"a process exited with an error: {codes}")
+    worker_runs = {}
+    for name in workers:
+        (line,) = [ln for ln in kids.text(name).splitlines() if DIST_COUNTERS_MARK in ln]
+        worker_runs[name] = json.loads(line.split(DIST_COUNTERS_MARK, 1)[1])
+    phase_s = time.perf_counter() - t0
+
+    # In-process, with the workers' bf16 GEMM reductions (PyTorch's
+    # default; main() turns them off for the plain versions' checks).
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    step_keys = ("forward_steps_total", "prefill_steps_total", "mixed_steps_total", "wave_steps_total",
+                 "fused_windows_total")
+    try:
+        args = run.parse_args(["in=http", f"out={PRESET}", "--http-host", "127.0.0.1", "--http-port", "0",
+                               "--warmup-ctx", str(DIST_WARMUP_CTX)])
+
+        async def in_process():
+            service, engine = run.build_service(args)
+            await service.start()
+            sched = engine.scheduler
+            ref, ref_steps, ref_timing = [], [], []
+            try:
+                lprobes = [_answer_of(r) for r in await _send(service.port, [fam["probe"] for fam in families])]
+                lburst, lwall, _ = await _bursts(service.port, families)
+                lrepeats = [_answer_of(r) for fam in families for r in await _send(service.port, [fam["repeat"]])]
+                # The reference on the same engine, its prefix cache emptied.
+                sched.allocator.clear_cached()
+                for fam in families:
+                    before = {k: getattr(sched, k) for k in step_keys}
+                    (probe,) = await _send(service.port, [fam["probe"]])
+                    fburst, seen = await _family_burst(service.port, fam["burst"])
+                    (rep,) = await _send(service.port, [fam["repeat"]])
+                    ref.append([_answer_of(r) for r in (probe, *fburst, rep)])
+                    ref_steps.append({k: getattr(sched, k) - before[k] for k in step_keys})
+                    ref_timing.append(seen)
+            finally:
+                await service.stop()
+                await engine.stop()
+            return lprobes, lburst, lwall, lrepeats, ref, ref_steps, ref_timing
+
+        lprobes, lburst, lwall, lrepeats, ref, ref_steps, ref_timing = asyncio.run(in_process())
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+
+    L = get_config(PRESET).num_layers
+    checks, per_worker = [], {}
+    for name, runs in worker_runs.items():
+        steps, k = runs["steps"], runs["kernels"]
+        launches = {n: c["launches"] for n, c in k.items()}
+        want = {n: 0 for n in launches}
+        want["ragged_paged_attention"] = L * (steps["forward_steps_total"] + steps["window_steps_total"]
+                                              + steps["draft_prefill_steps_total"])
+        want["fused_decode_window"] = steps["fused_windows_total"]
+        want["fused_decode_window_sampled"] = steps["fused_sampled_windows_total"]
+        want["fused_decode_window_guided"] = steps["fused_guided_windows_total"]
+        plain = sum(c["plain_calls"] for c in k.values())
+        per_worker[name] = {"instance": f"{instance_of[name]:x}", "steps": steps, "launches": launches,
+                            "expected_launches": want, "plain_calls": plain}
+        if not steps["request_total"]:
+            checks.append(f"{name} served no request")
+        if launches != want or not steps["fused_windows_total"] or plain:
+            checks.append(f"{name}: launches {launches} != {want}, or no fused window, or {plain} plain calls")
+    if repeats[0]["worker"] == repeats[1]["worker"]:
+        checks.append("both families' repeats landed on one worker")
+    # Every answer against the reference's for its family, in its order:
+    # probe, burst, repeat.
+    n = DIST_PER_FAMILY
+    got = [[probes[f], *burst[f * n:(f + 1) * n], repeats[f]] for f in range(2)]
+    texts_equal = [[a["text"] == b["text"] for a, b in zip(got[f], ref[f])] for f in range(2)]
+    if not all(all(row) for row in texts_equal):
+        differ = [{"family": f, "answer": i, "frontend": got[f][i]["text"][:80], "reference": ref[f][i]["text"][:80]}
+                  for f in range(2) for i, ok in enumerate(texts_equal[f]) if not ok]
+        checks.append(f"answers differ from the in-process reference's (per family: probe, burst, repeat): "
+                      f"{texts_equal}, {differ}")
+    # Each family's steps on the reference and on the worker that held it
+    # (that worker's whole run: the family's three rounds).
+    name_of = {i: name for name, i in instance_of.items()}
+    family_steps = [{"worker": name_of[repeats[f]["worker"]], "reference": ref_steps[f],
+                     "worker_steps": {k: worker_runs[name_of[repeats[f]["worker"]]]["steps"][k] for k in step_keys}}
+                    for f in range(2)]
+    # The deployment's traffic on one in-process engine (both families in
+    # its steps) against the reference (the families apart), in the
+    # in-process run's order: how often the steps' shapes alone move a text.
+    ref_order = ([ref[f][0] for f in range(2)] + [a for f in range(2) for a in ref[f][1:n + 1]]
+                 + [ref[f][n + 1] for f in range(2)])
+    together_equal = sum(a["text"] == b["text"] for a, b in zip([*lprobes, *lburst, *lrepeats], ref_order))
+    hop = [(a["latency_s"] - b["latency_s"]) * 1e3 / a["completion_tokens"] for a, b in zip(repeats, lrepeats)]
+    res = {
+        "card": card, "preset": PRESET, "warmup_ctx": DIST_WARMUP_CTX, "models": models,
+        "processes_up_s": up_s, "phase_s": phase_s,
+        "burst": _burst_summary(burst, wall), "in_process_burst": _burst_summary(lburst, lwall),
+        "probes": [{k: a[k] for k in ("completion_tokens", "finish_reason", "ttft_s", "latency_s")} for a in probes],
+        "repeats": [{k: a[k] for k in ("cached_tokens", "cached_tokens_rose", "ttft_s", "latency_s")}
+                    for a in repeats],
+        "in_process_repeats": [{k: a[k] for k in ("cached_tokens", "ttft_s", "latency_s")} for a in lrepeats],
+        "texts_equal_reference": texts_equal, "family_steps": family_steps,
+        "follow_up_first_token_ms": {"frontend": timing, "reference": ref_timing},
+        "in_process_together_texts_equal_reference": together_equal,
+        "hop_ms_per_token": hop, "workers": per_worker,
+        "stats_keys": sorted(next(iter(stats.values()))),
+    }
+    emit("distributed", **res)
+    if checks:
+        raise AssertionError("; ".join(checks))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(timed: dict, served: dict) -> list:
+def kernels_line(timed: dict, served: dict, dist: dict) -> list:
     """The ``kernels`` entries: every kernel's route, source, the TPU kernel
     it replaces, its launches on the main path, its checked error and its
     timed, plain, bound and library times. The fused window's sampled and
@@ -4067,6 +4438,12 @@ def kernels_line(timed: dict, served: dict) -> list:
             # row-wise fallback's fused windows.
             entry["launches_extras"] = extras["kernel_launches"][name]
             entry["launches_extras_expected"] = extras["expected_launches"][name]
+        if name in ("ragged_paged_attention", "fused_decode_window"):
+            # The distributed phase: both workers' launches since they
+            # registered, beside what their steps and windows expect.
+            entry["launches_distributed"] = sum(w["launches"][name] for w in dist["workers"].values())
+            entry["launches_distributed_expected"] = sum(w["expected_launches"][name]
+                                                         for w in dist["workers"].values())
         if name == "ragged_paged_attention_int8":
             # library_ms: the gathered codes dequantized to dense K/V, then SDPA.
             entry["sdpa_alone_ms"] = t["sdpa_alone_ms"]
@@ -4199,7 +4576,7 @@ def parent_runs(parent: str) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="env,build,kernel,model,breakdown,serve")
+    p.add_argument("--phases", default="env,build,kernel,model,breakdown,serve,distributed")
     p.add_argument("--parent", default=None,
                    help="another tree of the port (the parent commit's): its greedy windows and its "
                         "PARENT_SERVE_PASSES timed beside this one's, each tree with the kernels built from its "
@@ -4268,12 +4645,13 @@ def main() -> int:
     served = None
     if "serve" in phases:
         served = timed_phase("serve", lambda: {path: phase_serve(card, path) for path in SERVE_PASSES})
+    dist = timed_phase("distributed", lambda: phase_distributed(card)) if "distributed" in phases else None
     if args.parent:
         emit("parent", **timed_phase("parent", lambda: parent_runs(args.parent)))
     emit("seconds", **seconds, total=sum(seconds.values()))
-    if phases != {"env", "build", "kernel", "model", "breakdown", "serve"}:
+    if phases != {"env", "build", "kernel", "model", "breakdown", "serve", "distributed"}:
         return 0  # a partial run reports no result
-    kernels = kernels_line(timed, served)
+    kernels = kernels_line(timed, served, dist)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 The counterpart of the JAX package's ``TpuEngine``, with the part of its
 surface the port serves: ``build``, ``start``, ``stop``, ``generate``,
-``abort``, ``metrics``, ``stats`` and ``attach_guided_tokenizer``.
+``abort``, ``metrics``, ``stats``, ``stats_handler``,
+``set_kv_event_sink`` and ``attach_guided_tokenizer``.
 
 Request wire shape (PreprocessedRequest):
 ``{"token_ids": [...], "sampling_options": {...}, "stop_conditions": {...}}``,
@@ -168,6 +169,12 @@ class TorchEngine:
             logger.info("captured %d step graphs (ctx %d)", n, args.warmup_ctx)
         return engine
 
+    def set_kv_event_sink(self, sink: Optional[Callable[[KvEvent], None]]) -> None:
+        """Where the allocator's KV events go. They are raised on the step
+        thread (and on the event loop for an abort): a sink that feeds the
+        loop must hop, e.g. ``KvEventPublisher.publish_threadsafe``."""
+        self._kv_event_sink = sink
+
     def _on_kv_event(self, ev: KvEvent) -> None:
         if self._kv_event_sink is not None:
             self._kv_event_sink(ev)
@@ -324,13 +331,39 @@ class TorchEngine:
         return self.scheduler.metrics()
 
     def stats(self) -> dict:
-        """The worker's stats: the load snapshot's keys, the step graphs'
-        counters, and with a tokenizer attached the guided-decoding
-        counters."""
-        stats = self.metrics().to_wire()
+        """``stats_handler``'s keys and the step graphs' counters."""
         sched = self.scheduler
-        stats["graph_captures_total"] = sched.graph_captures_total
-        stats["graph_captures_after_warmup"] = sched.graph_captures_after_warmup
+        return {**self.stats_handler(), "graph_captures_total": sched.graph_captures_total,
+                "graph_captures_after_warmup": sched.graph_captures_after_warmup}
+
+    def stats_handler(self) -> dict:
+        """The worker's stats scrape: the keys of the JAX engine's
+        ``stats_handler`` that this scheduler computes, with their names and
+        meanings, and no other. Not here yet: the prefix onboard count and
+        the elastic capacity dial (KVBM and ``set_capacity_dial``, ROADMAP
+        Queue 1 items 15 and 7), the queue and prefill wait sums and the
+        first-token count, the flight recorder, profiler, SLO, watchdog,
+        digest, tenant-ledger, fault and incident keys (item 18)."""
+        m = self.scheduler.metrics()
+        stats = {
+            "kv_usage": m.kv_usage,
+            "kv_total_blocks": m.kv_total_blocks,
+            "kv_active_blocks": m.kv_active_blocks,
+            "num_running": m.num_running,
+            "num_waiting": m.num_waiting,
+            "preemptions_total": self.scheduler.preempt_total,
+            "request_timeouts_total": self.scheduler.timeouts_total,
+            "mixed_steps_total": m.mixed_steps_total,
+            "mixed_prefill_tokens_total": m.mixed_prefill_tokens_total,
+            "mixed_decode_tokens_total": m.mixed_decode_tokens_total,
+            "overlap_steps_total": m.overlap_steps_total,
+            "overlap_flushes_total": m.overlap_flushes_total,
+            "cached_tokens_total": m.cached_tokens_total,
+            "prefix_hit_blocks_total": m.prefix_hit_blocks_total,
+            "prefix_miss_blocks_total": m.prefix_miss_blocks_total,
+            "prefix_evicted_blocks_total": m.prefix_evicted_blocks_total,
+        }
+        stats.update(self.scheduler.kv_gauges())
         if self.scheduler.guided is not None:
             stats.update(self.scheduler.guided.stats())
         return stats

@@ -503,6 +503,29 @@ class Scheduler:
             spec_decode=self.spec_stats.to_dict() if self.spec_stats else None,
         )
 
+    def kv_gauges(self) -> dict:
+        """Block-pool utilization for the stats scrape, the JAX scheduler's
+        keys: free and cached depth, internal fragmentation (allocated but
+        unwritten slots across live sequences) and the prefix-cache hit
+        rate."""
+        a = self.allocator
+        bs = self.mc.block_size
+        allocated = 0
+        used = 0
+        for s in list(self.running) + list(self.waiting):
+            nb = len(s.block_ids)
+            if not nb:
+                continue
+            allocated += nb * bs
+            used += min(s.total_len, nb * bs)
+        hits, misses = a.hit_blocks_total, a.miss_blocks_total
+        return {
+            "kv_free_blocks": len(a._free),
+            "kv_cached_blocks": a.num_cached,
+            "kv_fragmentation": round(1.0 - used / allocated, 6) if allocated else 0.0,
+            "prefix_hit_rate": round(hits / (hits + misses), 6) if (hits + misses) else 0.0,
+        }
+
     def config_snapshot(self) -> dict:
         """The scheduler knobs and the model/attention identity that
         reproduce the serving behaviour (the JAX scheduler's keys, less the

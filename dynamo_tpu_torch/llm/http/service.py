@@ -10,9 +10,14 @@ HTTP/1.1 server on ``asyncio.start_server``: one request per connection
 separate generations (a seeded request's choice i with ``seed + i``), all
 sent to the engine at once so they share its batches; a stream
 interleaves their chunks by ``index``. Logprobs, tool calls and reasoning
-content are rendered as the JAX service renders them. Metrics, TLS, gRPC,
-embeddings and responses are not ported yet (ROADMAP Queue 1 items 18 and
-19).
+content are rendered as the JAX service renders them. The service serves a
+``ModelManager`` (``llm/discovery.py``): a frontend's watcher adds and
+removes models as workers come and go; a fixed dict of pipelines (the
+in-process ``run``) is served as chat models. A routed model with no live
+worker is a retryable 503; a stream whose migration budget ran out is a
+502 with the partial token count; a ``traceparent`` header rides on to the
+workers. Metrics, TLS, gRPC, embeddings and responses are not ported yet
+(ROADMAP Queue 1 items 18 and 19).
 """
 
 from __future__ import annotations
@@ -24,9 +29,12 @@ import logging
 import time
 from typing import AsyncIterator, Dict, Optional, Tuple
 
+from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.protocols import openai as oai
 from dynamo_tpu_torch.llm.protocols.common import as_engine_output
-from dynamo_tpu_torch.runtime.engine import Annotated, AsyncEngine, Context
+from dynamo_tpu_torch.runtime.engine import Annotated, AsyncEngine, Context, StreamDisconnect
+from dynamo_tpu_torch.runtime.logging import TraceParent
+from dynamo_tpu_torch.runtime.push_router import NoInstancesError
 
 logger = logging.getLogger(__name__)
 
@@ -40,7 +48,7 @@ MAX_HEADER_BYTES = 64 << 10
 _REASONS = {
     200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
     411: "Length Required", 413: "Payload Too Large", 500: "Internal Server Error",
-    504: "Gateway Timeout",
+    502: "Bad Gateway", 503: "Service Unavailable", 504: "Gateway Timeout",
 }
 
 
@@ -50,13 +58,29 @@ class HttpError(Exception):
         self.status = status
 
 
-class HttpService:
-    """Serves the pipelines in ``models`` (model name → AsyncEngine taking
-    OpenAI request bodies) on ``host:port``; port 0 binds a free port,
-    readable from ``self.port`` after ``start``."""
+_NO_WORKERS = "no workers are live for this model; retry shortly"
 
-    def __init__(self, models: Dict[str, AsyncEngine], *, host: str = "0.0.0.0", port: int = 8000):
-        self.models = dict(models)
+
+def _no_workers_body() -> dict:
+    return oai.error_body(_NO_WORKERS, "service_unavailable", 503)
+
+
+def _migration_exhausted_body(ctx: Context, n_tokens: int) -> dict:
+    mig = ctx.metadata.get("migration") or {}
+    body = oai.error_body("upstream worker stream disconnected and the migration budget is exhausted",
+                          "bad_gateway", 502)
+    body["error"]["partial_tokens"] = int(mig.get("tokens_emitted", n_tokens))
+    body["error"]["migrations"] = int(mig.get("attempts", 0))
+    return body
+
+
+class HttpService:
+    """Serves the pipelines of ``manager`` (AsyncEngines taking OpenAI
+    request bodies, by model type and name) on ``host:port``; port 0 binds
+    a free port, readable from ``self.port`` after ``start``."""
+
+    def __init__(self, manager: ModelManager, *, host: str = "0.0.0.0", port: int = 8000):
+        self.manager = manager
         self.host = host
         self.port = port
         self._server: Optional[asyncio.AbstractServer] = None
@@ -106,10 +130,11 @@ class HttpService:
             await _respond_json(writer, 405, oai.error_body(f"{path} takes {want}", "method_not_allowed", 405))
             return
         if kind == "health":
-            await _respond_json(writer, 200, {"status": "healthy", "models": sorted(self.models)})
+            await _respond_json(writer, 200, {"status": "healthy", "models": self.manager.list_models()})
         elif kind == "models":
             now = int(time.time())
-            data = [{"id": n, "object": "model", "created": now, "owned_by": "dynamo-tpu"} for n in sorted(self.models)]
+            data = [{"id": n, "object": "model", "created": now, "owned_by": "dynamo-tpu"}
+                    for n in self.manager.list_models()]
             await _respond_json(writer, 200, {"object": "list", "data": data})
         else:
             await self._serve(kind, headers, body, writer)
@@ -128,12 +153,21 @@ class HttpService:
             await _respond_json(writer, 400, oai.error_body(str(e)))
             return
         model = body["model"]
-        engine = self.models.get(model)
+        engine = self.manager.get(kind, model) or self.manager.get("chat" if kind == "completions" else "completions",
+                                                                    model)
         if engine is None:
             await _respond_json(writer, 404, oai.error_body(f"model {model!r} not found", "model_not_found", 404))
             return
+        # Pre-flight availability (a routed pipeline counts its router's
+        # live instances): with no worker, an immediate retryable 503.
+        probe = getattr(engine, "availability_probe", None)
+        if probe is not None and probe() == 0:
+            await asyncio.sleep(0.05)  # one watch delivery: absorb races
+            if probe() == 0:
+                await _respond_json(writer, 503, _no_workers_body(), {"Retry-After": "1"})
+                return
         rid = oai.make_id("chatcmpl" if kind == "chat" else "cmpl")
-        ctx = Context()
+        ctx = Context(traceparent=TraceParent.from_headers(headers))
         if body.get("stream"):
             await self._serve_stream(engine, body, ctx, rid, kind, model, writer)
         else:
@@ -160,6 +194,7 @@ class HttpService:
         bodies = self._choice_bodies(body)
         prompt_tokens = [0]
         cached_tokens = [None]
+        emitted = [0] * len(bodies)  # tokens each choice streamed so far
 
         async def run_choice(i: int, b: dict, c: Context) -> dict:
             text_parts, reasoning_parts = [], []
@@ -191,6 +226,7 @@ class HttpService:
                     while len(top_logprobs) < len(logprobs):
                         top_logprobs.append(None)
                 n_tokens += len(out.token_ids)
+                emitted[i] = n_tokens
                 if out.finish_reason:
                     finish_reason = out.finish_reason
             return {"index": i, "text": "".join(text_parts), "reasoning": "".join(reasoning_parts) or None,
@@ -211,6 +247,14 @@ class HttpService:
             await asyncio.gather(*tasks, return_exceptions=True)
             if isinstance(e, oai.RequestError):
                 await _respond_json(writer, 400, oai.error_body(str(e)))
+                return
+            if isinstance(e, NoInstancesError):
+                await _respond_json(writer, 503, _no_workers_body(), {"Retry-After": "1"})
+                return
+            if isinstance(e, StreamDisconnect):
+                err = _migration_exhausted_body(ctx, sum(emitted))
+                err["usage"] = oai.usage_dict(prompt_tokens[0], sum(emitted))
+                await _respond_json(writer, 502, err)
                 return
             logger.exception("request %s failed", ctx.id)
             await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
@@ -256,6 +300,9 @@ class HttpService:
         except oai.RequestError as e:
             await _respond_json(writer, 400, oai.error_body(str(e)))
             return
+        except NoInstancesError:
+            await _respond_json(writer, 503, _no_workers_body(), {"Retry-After": "1"})
+            return
         except Exception as e:
             logger.exception("stream %s failed", ctx.id)
             await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
@@ -295,6 +342,10 @@ class HttpService:
             # Client went away: cancel into the pipeline.
             ctx.stop_generating()
             raise
+        except NoInstancesError:
+            await _sse(writer, _no_workers_body())
+        except StreamDisconnect:
+            await _sse(writer, _migration_exhausted_body(ctx, n_tokens))
         except Exception as e:
             logger.exception("stream %s failed", ctx.id)
             await _sse(writer, oai.error_body(str(e), "internal_error", 500))
@@ -429,12 +480,14 @@ async def _read_request(reader: asyncio.StreamReader) -> Tuple[str, str, Dict[st
     return method, path, headers, body
 
 
-async def _respond_json(writer: asyncio.StreamWriter, status: int, obj: dict) -> None:
+async def _respond_json(writer: asyncio.StreamWriter, status: int, obj: dict,
+                        headers: Optional[Dict[str, str]] = None) -> None:
     payload = json.dumps(obj, ensure_ascii=False).encode()
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
     writer.write(
         f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}\r\n"
         f"Content-Type: application/json; charset=utf-8\r\nContent-Length: {len(payload)}\r\n"
-        "Connection: close\r\n\r\n".encode()
+        f"{extra}Connection: close\r\n\r\n".encode()
         + payload
     )
     await writer.drain()

@@ -25,6 +25,7 @@ from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
 from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
+from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.http.service import HttpService
 from dynamo_tpu_torch.llm.tokenizer import load_tokenizer
 
@@ -91,8 +92,9 @@ def build_service(
         ),
         draft_params=draft_params,
     )
-    pipeline = build_local_pipeline(tokenizer, engine)
-    return HttpService({args.out: pipeline}, host=args.http_host, port=args.http_port), engine
+    manager = ModelManager()
+    manager.add_model("chat", args.out, build_local_pipeline(tokenizer, engine))
+    return HttpService(manager, host=args.http_host, port=args.http_port), engine
 
 
 async def amain(args: argparse.Namespace) -> None:

@@ -2,9 +2,10 @@
 
 An engine is anything with ``generate(request, context) -> AsyncIterator``:
 model engines and pipeline operators share the shape, which is what lets
-them compose into pipelines (preprocessor → backend → engine). A copy of
-the JAX package's ``runtime/engine.py`` without its tracing and migration
-parts, which this port does not have yet.
+them compose into pipelines (frontend → preprocessor → backend → migration
+→ router → engine). A copy of the JAX package's ``runtime/engine.py``: a
+context crosses the wire as ``{"id", "traceparent"}``, and a dropped
+response stream surfaces as ``StreamDisconnect``.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ import uuid
 from dataclasses import dataclass
 from typing import Any, AsyncIterator, Dict, Optional, Protocol, runtime_checkable
 
+from dynamo_tpu_torch.runtime.logging import TraceParent
+
 
 class Context:
-    """Per-request context: identity and cancellation.
+    """Per-request context: identity, cancellation, trace context.
 
     Cancellation is two-level:
     - ``stop_generating()`` — graceful: the engine should finish the current
@@ -26,17 +29,23 @@ class Context:
     Contexts form a tree: child contexts are stopped/killed when the parent is.
     """
 
-    __slots__ = ("id", "metadata", "_stopped", "_killed", "_children")
+    __slots__ = ("id", "traceparent", "metadata", "_stopped", "_killed", "_children")
 
-    def __init__(self, id: Optional[str] = None, metadata: Optional[Dict[str, Any]] = None):
+    def __init__(
+        self,
+        id: Optional[str] = None,
+        traceparent: Optional[TraceParent] = None,
+        metadata: Optional[Dict[str, Any]] = None,
+    ):
         self.id = id or uuid.uuid4().hex
+        self.traceparent = traceparent or TraceParent.new_root()
         self.metadata: Dict[str, Any] = metadata or {}
         self._stopped = asyncio.Event()
         self._killed = asyncio.Event()
         self._children: list["Context"] = []
 
     def child(self, id: Optional[str] = None) -> "Context":
-        c = Context(id=id or self.id, metadata=dict(self.metadata))
+        c = Context(id=id or self.id, traceparent=self.traceparent.child(), metadata=dict(self.metadata))
         self._children.append(c)
         if self.is_stopped():
             c.stop_generating()
@@ -64,6 +73,14 @@ class Context:
     async def stopped(self) -> None:
         await self._stopped.wait()
 
+    def to_wire(self) -> dict:
+        return {"id": self.id, "traceparent": self.traceparent.to_header()}
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "Context":
+        tp = TraceParent.from_header(d.get("traceparent", "")) or TraceParent.new_root()
+        return cls(id=d.get("id"), traceparent=tp)
+
 
 @runtime_checkable
 class AsyncEngine(Protocol):
@@ -86,3 +103,32 @@ class Annotated:
 
     def is_annotation(self) -> bool:
         return self.event is not None and self.data is None
+
+    def to_wire(self) -> dict:
+        d: Dict[str, Any] = {}
+        if self.data is not None:
+            d["data"] = self.data
+        if self.event is not None:
+            d["event"] = self.event
+        if self.comment is not None:
+            d["comment"] = self.comment
+        if self.id is not None:
+            d["id"] = self.id
+        return d
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "Annotated":
+        return cls(data=d.get("data"), event=d.get("event"), comment=d.get("comment"), id=d.get("id"))
+
+
+class EngineError(Exception):
+    """Base error for engine failures."""
+
+
+class StreamDisconnect(EngineError):
+    """The response stream dropped mid-flight (worker died, network reset).
+    The Migration operator catches it and replays the request on another
+    instance."""
+
+    def __init__(self, message: str = "stream disconnected"):
+        super().__init__(message)

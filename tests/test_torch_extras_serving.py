@@ -45,6 +45,7 @@ from dynamo_tpu_torch.engine import scheduler as tsched
 from dynamo_tpu_torch.engine.config import get_config
 from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
 from dynamo_tpu_torch.engine.weights import params_from_numpy
+from dynamo_tpu_torch.llm.discovery import ModelManager as TorchModelManager
 from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
 from dynamo_tpu_torch.llm.http.service import HttpService
 from dynamo_tpu_torch.llm.protocols import openai as toai
@@ -105,9 +106,10 @@ def servers():
     async def port_side():
         engine = TorchEngine.build(EngineArgs(model="tiny", dtype="float32", device="cpu", eos_token_ids=[0],
                                               scheduler=tsched.SchedulerConfig(**SCHED)), params=tp)
-        service = HttpService({MODEL: build_local_pipeline(ByteTokenizer(), engine),
-                               PARSED: build_local_pipeline(ByteTokenizer(), engine, **PARSERS)},
-                              host="127.0.0.1", port=0)
+        manager = TorchModelManager()
+        manager.add_model("chat", MODEL, build_local_pipeline(ByteTokenizer(), engine))
+        manager.add_model("chat", PARSED, build_local_pipeline(ByteTokenizer(), engine, **PARSERS))
+        service = HttpService(manager, host="127.0.0.1", port=0)
         await service.start()
         return service, engine
 

@@ -48,6 +48,7 @@ from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
 from dynamo_tpu_torch.llm.guided import processor as tproc
 from dynamo_tpu_torch.llm.guided.grammar import build_guided_spec, compile_regex, schema_to_regex
+from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.http.service import HttpService
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
 from dynamo_tpu_torch.runtime.engine import Context
@@ -399,7 +400,9 @@ async def _serve(tp, bodies):
                                                     decode_buckets=[1, 2, 4])),
         params=tp,
     )
-    service = HttpService({"tiny": build_local_pipeline(tok, engine)}, host="127.0.0.1", port=0)
+    manager = ModelManager()
+    manager.add_model("chat", "tiny", build_local_pipeline(tok, engine))
+    service = HttpService(manager, host="127.0.0.1", port=0)
     await service.start()
     try:
         answers = [await asyncio.to_thread(_post, service.port, "/v1/chat/completions", b) for b in bodies]

@@ -58,6 +58,7 @@ from dynamo_tpu_torch.engine.models import llama as tllama
 from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
+from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.http.service import HttpService
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
 from dynamo_tpu_torch.runtime.engine import Context
@@ -645,7 +646,9 @@ def test_engine_serves_int8_over_http_with_guided_and_seeded_requests(weights):
                        scheduler=tsched.SchedulerConfig(num_blocks=64, num_scheduler_steps=8, **BUCKETS)),
             params=dict(tp, layers=dict(tp["layers"])),
         )
-        service = HttpService({"tiny": build_local_pipeline(tok, engine)}, host="127.0.0.1", port=0)
+        manager = ModelManager()
+        manager.add_model("chat", "tiny", build_local_pipeline(tok, engine))
+        service = HttpService(manager, host="127.0.0.1", port=0)
         await service.start()
         try:
             sched = engine.scheduler

@@ -24,9 +24,10 @@
    answer twice; ``logprobs`` and ``frequency_penalty`` are served (the
    extras against JAX: test_torch_extras_serving.py) and malformed seeds
    refused.
-3. Isolation: every module of ``dynamo_tpu_torch`` imports with ``jax``
-   blocked and loads nothing of the JAX package, and no port file or
-   ``chip_smoke.py`` names either in an import.
+3. Isolation: every module of ``dynamo_tpu_torch`` imports with ``jax``,
+   ``msgpack``, ``aiohttp`` and ``prometheus_client`` blocked (the card's
+   machine has none of them) and loads nothing of the JAX package, and no
+   port file or ``chip_smoke.py`` names any of them in an import.
 """
 
 import asyncio
@@ -62,6 +63,7 @@ from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
 from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
+from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.http.service import HttpService
 from dynamo_tpu_torch.llm.preprocessor import DEFAULT_CHAT_TEMPLATE, render_default_chat_template
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
@@ -387,7 +389,9 @@ async def _port_answers(tp):
                    scheduler=tsched.SchedulerConfig(num_blocks=64, num_scheduler_steps=1, **BUCKETS)),
         params=tp,
     )
-    service = HttpService({"tiny": build_local_pipeline(tok, engine)}, host="127.0.0.1", port=0)
+    manager = ModelManager()
+    manager.add_model("chat", "tiny", build_local_pipeline(tok, engine))
+    service = HttpService(manager, host="127.0.0.1", port=0)
     await service.start()
     try:
         answers = [await asyncio.to_thread(_post, service.port, path, body) for path, body in BODIES]
@@ -476,7 +480,9 @@ async def _seeded_answers(tp):
                    scheduler=tsched.SchedulerConfig(num_blocks=64, **BUCKETS)),
         params=tp,
     )
-    service = HttpService({"tiny": build_local_pipeline(tok, engine)}, host="127.0.0.1", port=0)
+    manager = ModelManager()
+    manager.add_model("chat", "tiny", build_local_pipeline(tok, engine))
+    service = HttpService(manager, host="127.0.0.1", port=0)
     body = {"model": "tiny", "prompt": "a seeded draw", "max_tokens": 12, "temperature": 0.9, "top_p": 0.95,
             "seed": 31337}
     other = {"model": "tiny", "prompt": "a neighbour", "max_tokens": 150, "temperature": 0.0,
@@ -599,7 +605,10 @@ def _port_modules():
 def test_port_imports_without_jax_or_the_jax_package():
     code = (
         "import sys, importlib\n"
-        "sys.modules['jax'] = None\n"
+        # jax, and the wheels the card's machine lacks (the JAX package's
+        # wire, metrics and HTTP server use them).
+        "for name in ('jax', 'msgpack', 'aiohttp', 'prometheus_client'):\n"
+        "    sys.modules[name] = None\n"
         f"mods = {_port_modules()!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
@@ -616,7 +625,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert int(res.stdout.strip()) == len(_port_modules()) > 15
 
 
-_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|dynamo_tpu)(?:[.\s,]|$)", re.MULTILINE)
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|dynamo_tpu|msgpack|aiohttp|prometheus_client)(?:[.\s,]|$)",
+                        re.MULTILINE)
 
 
 def test_no_port_file_names_jax_or_the_jax_package():
@@ -625,4 +635,6 @@ def test_no_port_file_names_jax_or_the_jax_package():
     assert not hits
     # The pattern matches the JAX package exactly, not the port's prefix.
     assert _FORBIDDEN.search("from dynamo_tpu.engine import x") and _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("import msgpack") and _FORBIDDEN.search("from aiohttp import web")
+    assert _FORBIDDEN.search("import prometheus_client")
     assert not _FORBIDDEN.search("from dynamo_tpu_torch.engine import x")

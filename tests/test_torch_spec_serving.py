@@ -48,6 +48,7 @@ from dynamo_tpu_torch.engine.sampling import SamplingParams
 from dynamo_tpu_torch.engine.spec_decode import SpecDecodeStats
 from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
+from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.http.service import HttpService
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
 
@@ -254,7 +255,9 @@ async def _answer(tt, draft, **kw):
                       scheduler=tsched.SchedulerConfig(**SCHED), draft_model="tiny" if draft else None,
                       spec_gamma=4, **kw)
     engine = TorchEngine.build(args, params=tt, draft_params=tt if draft else None)
-    service = HttpService({"tiny": build_local_pipeline(tok, engine)}, host="127.0.0.1", port=0)
+    manager = ModelManager()
+    manager.add_model("chat", "tiny", build_local_pipeline(tok, engine))
+    service = HttpService(manager, host="127.0.0.1", port=0)
     await service.start()
     try:
         answer = await asyncio.to_thread(_post, service.port, {"model": "tiny", "prompt": "speculate on this",
