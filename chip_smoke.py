@@ -70,12 +70,21 @@ the KV router as separate processes, two families of long shared prefixes
 sent through the frontend, each repeat served from the prefix cache of
 the worker that holds it, each worker's kernel launches read from its
 shutdown line, and the probes' text held against the in-process path.
+Before that, ``checkpoint`` serves the model from files it writes (HF
+safetensors shards, a q8_0 GGUF, a Llama-3-layout ``tokenizer.json`` with
+a chat template) through ``--checkpoint``/``--tokenizer``: the loaded
+weights bit-equal to the written ones, the token ids those of the same
+service given the weights as ``params=``, the self-speculating draft's and
+the GGUF's likewise, int8 codes equal to ``quantize_weight``'s, and the
+loads' and the tokenizer's host costs.
 Every phase prints JSON lines; any failure raises and
 exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result.
 
-``--phases`` runs a subset of kernel,model,breakdown,serve,distributed (env and build
-always run) for iteration; the full run is the default.
+``--phases`` runs a subset of kernel,model,breakdown,serve,checkpoint,distributed (env
+and build always run) for iteration; the full run is the default. ``grammar``,
+outside the default, times a ``json_object`` grammar's token FSM over the
+checkpoint phase's 128,256-id vocabulary (minutes of host time).
 """
 
 from __future__ import annotations
@@ -4341,7 +4350,883 @@ def phase_distributed(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(timed: dict, served: dict, dist: dict) -> list:
+# ---------------------------------------------------------------------------
+# checkpoint: the model served from its own files
+# ---------------------------------------------------------------------------
+# The phase writes every file it loads: seeded weights in Hugging Face
+# safetensors shards and as a q8_0 GGUF, and a tokenizer in Llama-3's
+# layout (ByteLevel BPE with ignore_merges, its Split pattern, 256 special
+# tokens, a Llama-3.x chat template). The writers are plain functions, so
+# the CPU tests hold the port's readers against the wheels on their files.
+
+LLAMA3_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*"
+                  r"|\s*[\r\n]+|\s+(?!\S)|\s+")
+# The chat template in the shape of Llama-3.1/3.2 Instruct's (the
+# ``chat_template`` of meta-llama/Llama-3.2-1B-Instruct's
+# tokenizer_config.json on the Hugging Face Hub): headers, ``<|eot_id|>``,
+# the default system block with its date, tools in the first user turn.
+LLAMA3_CHAT_TEMPLATE = """{{- bos_token }}
+{%- if custom_tools is defined %}
+    {%- set tools = custom_tools %}
+{%- endif %}
+{%- if not tools_in_user_message is defined %}
+    {%- set tools_in_user_message = true %}
+{%- endif %}
+{%- if not date_string is defined %}
+    {%- if strftime_now is defined %}
+        {%- set date_string = strftime_now("%d %b %Y") %}
+    {%- else %}
+        {%- set date_string = "26 Jul 2024" %}
+    {%- endif %}
+{%- endif %}
+{%- if not tools is defined %}
+    {%- set tools = none %}
+{%- endif %}
+
+{#- This block extracts the system message, so we can slot it into the right place. #}
+{%- if messages[0]['role'] == 'system' %}
+    {%- set system_message = messages[0]['content']|trim %}
+    {%- set messages = messages[1:] %}
+{%- else %}
+    {%- set system_message = "" %}
+{%- endif %}
+
+{#- System message #}
+{{- "<|start_header_id|>system<|end_header_id|>\\n\\n" }}
+{%- if tools is not none %}
+    {{- "Environment: ipython\\n" }}
+{%- endif %}
+{{- "Cutting Knowledge Date: December 2023\\n" }}
+{{- "Today Date: " + date_string + "\\n\\n" }}
+{%- if tools is not none and not tools_in_user_message %}
+    {{- "You have access to the following functions. To call a function, please respond with JSON for a function call." }}
+    {{- 'Respond in the format {"name": function name, "parameters": dictionary of argument name and its value}.' }}
+    {{- "Do not use variables.\\n\\n" }}
+    {%- for t in tools %}
+        {{- t | tojson(indent=4) }}
+        {{- "\\n\\n" }}
+    {%- endfor %}
+{%- endif %}
+{{- system_message }}
+{{- "<|eot_id|>" }}
+
+{#- Custom tools are passed in a user message with some extra guidance #}
+{%- if tools_in_user_message and not tools is none %}
+    {#- Extract the first user message so we can plug it in here #}
+    {%- if messages | length != 0 %}
+        {%- set first_user_message = messages[0]['content']|trim %}
+        {%- set messages = messages[1:] %}
+    {%- else %}
+        {{- raise_exception("Cannot put tools in the first user message when there's no first user message!") }}
+{%- endif %}
+    {{- '<|start_header_id|>user<|end_header_id|>\\n\\n' -}}
+    {{- "Given the following functions, please respond with a JSON for a function call " }}
+    {{- "with its proper arguments that best answers the given prompt.\\n\\n" }}
+    {{- 'Respond in the format {"name": function name, "parameters": dictionary of argument name and its value}.' }}
+    {{- "Do not use variables.\\n\\n" }}
+    {%- for t in tools %}
+        {{- t | tojson(indent=4) }}
+        {{- "\\n\\n" }}
+    {%- endfor %}
+    {{- first_user_message + "<|eot_id|>"}}
+{%- endif %}
+
+{%- for message in messages %}
+    {%- if not (message.role == 'ipython' or message.role == 'tool' or 'tool_calls' in message) %}
+        {{- '<|start_header_id|>' + message['role'] + '<|end_header_id|>\\n\\n'+ message['content'] | trim + '<|eot_id|>' }}
+    {%- elif 'tool_calls' in message %}
+        {%- if not message.tool_calls|length == 1 %}
+            {{- raise_exception("This model only supports single tool-calls at once!") }}
+        {%- endif %}
+        {%- set tool_call = message.tool_calls[0].function %}
+        {{- '<|start_header_id|>assistant<|end_header_id|>\\n\\n' -}}
+        {{- '{"name": "' + tool_call.name + '", ' }}
+        {{- '"parameters": ' }}
+        {{- tool_call.arguments | tojson }}
+        {{- "}" }}
+        {{- "<|eot_id|>" }}
+    {%- elif message.role == "tool" or message.role == "ipython" %}
+        {{- "<|start_header_id|>ipython<|end_header_id|>\\n\\n" }}
+        {%- if message.content is mapping or message.content is iterable %}
+            {{- message.content | tojson }}
+        {%- else %}
+            {{- message.content }}
+        {%- endif %}
+        {{- "<|eot_id|>" }}
+    {%- endif %}
+{%- endfor %}
+{%- if add_generation_prompt %}
+    {{- '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}
+{%- endif %}
+"""
+def llama3_special_tokens(n: int = 256) -> list:
+    """Llama-3.1's added tokens, in id order from 128000."""
+    named = ["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+             "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>", "<|reserved_special_token_2|>",
+             "<|start_header_id|>", "<|end_header_id|>", "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
+    return (named + [f"<|reserved_special_token_{k}|>" for k in range(3, 3 + n)])[:n]
+
+
+def corpus_words(root: str = ".") -> list:
+    """Pieces of the checkout's own Markdown text (a word with its leading
+    space, a digit, a run of punctuation, a run of newlines), the most
+    frequent first, ties by text."""
+    import collections
+    import glob
+    import os
+    import re
+
+    counts = collections.Counter()
+    for path in sorted(glob.glob(os.path.join(root, "*.md"))):
+        with open(path, encoding="utf-8", errors="replace") as f:
+            counts.update(re.findall(r" ?[A-Za-z]+| ?[0-9]| ?[^\sA-Za-z0-9]+|\n+", f.read()))
+    return [w for w, _ in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))]
+
+
+def bpe_vocab(alphabet: list, words: list, size: int, seed: int, max_len: int = 16) -> tuple:
+    """A BPE vocabulary of ``size`` tokens and its merges: ``alphabet``
+    first, then each of ``words`` (spelled in the alphabet's symbols)
+    built as a chain of merges, left to right, then seeded pairs of
+    existing tokens up to ``max_len`` characters (many of which no merge
+    order reaches: the case ``ignore_merges`` changes)."""
+    vocab = {t: i for i, t in enumerate(alphabet)}
+    merges = []
+    for w in words:
+        if len(vocab) >= size:
+            break
+        cur = w[0]
+        for ch in w[1:]:
+            if cur + ch not in vocab:
+                if len(vocab) >= size:
+                    break
+                vocab[cur + ch] = len(vocab)
+                merges.append([cur, ch])
+            cur += ch
+    rng = np.random.default_rng(seed)
+    toks = list(vocab)
+    while len(vocab) < size:
+        # Pairs drawn in batches from the tokens there are when the batch starts.
+        for i, j in rng.integers(len(toks), size=(4096, 2)).tolist():
+            a, b = toks[i], toks[j]
+            if len(a) + len(b) <= max_len and a + b not in vocab and len(vocab) < size:
+                vocab[a + b] = len(vocab)
+                merges.append([a, b])
+                toks.append(a + b)
+    return vocab, merges
+
+
+def llama3_tokenizer_spec(size: int = 128000, n_special: int = 256, seed: int = 0, root: str = ".") -> dict:
+    """A ``tokenizer.json`` in Llama-3's layout: ``size`` ByteLevel BPE
+    tokens (the 256 byte symbols, ``corpus_words`` as merge chains, then
+    seeded pairs) with ``ignore_merges``, Llama-3's Split pattern, and
+    ``n_special`` special tokens from id ``size``."""
+    from dynamo_tpu_torch.llm.tokenizer_json import BYTE_TO_CHAR, bytelevel
+
+    alphabet = [BYTE_TO_CHAR[b] for b in range(256)]
+    vocab, merges = bpe_vocab(alphabet, [bytelevel(w) for w in corpus_words(root)], size, seed)
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": True}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": size + i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True} for i, t in enumerate(llama3_special_tokens(n_special))],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN}, "behavior": "Isolated", "invert": False},
+            {**byte_level, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {**byte_level, "trim_offsets": False},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": "<|begin_of_text|>", "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": "<|begin_of_text|>", "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": "<|begin_of_text|>", "type_id": 1}}, {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {"<|begin_of_text|>": {"id": "<|begin_of_text|>", "ids": [size],
+                                                      "tokens": ["<|begin_of_text|>"]}}}]},
+        "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+def write_tokenizer(directory: str, spec: dict, chat_template: Optional[str] = LLAMA3_CHAT_TEMPLATE,
+                    bos_token: str = "<|begin_of_text|>", eos_token: str = "<|eot_id|>") -> None:
+    """``tokenizer.json`` and a ``tokenizer_config.json`` (BOS and EOS
+    tokens, the chat template; Llama-3's by default)."""
+    import os
+
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    cfg = {"bos_token": bos_token, "eos_token": eos_token, "chat_template": chat_template,
+           "model_max_length": 131072, "tokenizer_class": "PreTrainedTokenizerFast"}
+    with open(os.path.join(directory, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(cfg, f, ensure_ascii=False, indent=2)
+
+
+_ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32", torch.int8: "I8"}
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A ``.safetensors`` file (name → tensor, written in order, each
+    tensor's bytes as they lie in memory), with no wheel: the 8-byte header
+    length, the JSON header padded with spaces to 8 bytes, the data."""
+    import struct
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+
+
+def hf_layer_tensor(params, key: str, layer: int) -> torch.Tensor:
+    """One layer's weight in HF's layout (``[out, in]`` for a matrix)."""
+    w = params["layers"][key][layer]
+    return w if w.dim() == 1 else w.T
+
+
+def write_hf_checkpoint(directory: str, params, config, shards: int = 2) -> list:
+    """``config.json`` and the weights as ``shards`` safetensors files
+    (``model-0000k-of-0000n.safetensors``: the embedding with the first
+    layers, the final norm and head with the last), in the params' dtype.
+    → the files' paths."""
+    import os
+
+    from dynamo_tpu_torch.engine.weights import HF_NAMES
+
+    os.makedirs(directory, exist_ok=True)
+    L = config.num_layers
+    hf = {"architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": config.vocab_size,
+          "hidden_size": config.hidden_size, "num_hidden_layers": L, "num_attention_heads": config.num_heads,
+          "num_key_value_heads": config.num_kv_heads, "head_dim": config.head_dim,
+          "intermediate_size": config.intermediate_size, "rope_theta": config.rope_theta,
+          "rms_norm_eps": config.rms_norm_eps, "max_position_embeddings": config.max_seq_len,
+          "tie_word_embeddings": config.tie_word_embeddings, "torch_dtype": "bfloat16"}
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(hf, f, indent=2)
+    bounds = [round(L * k / shards) for k in range(shards + 1)]
+    paths = []
+    for k in range(shards):
+        tensors = {HF_NAMES["embed"]: params["embed"]} if k == 0 else {}
+        for l in range(bounds[k], bounds[k + 1]):
+            tensors.update({fmt.format(l): hf_layer_tensor(params, key, l)
+                            for key, fmt in HF_NAMES.items() if "{}" in fmt})
+        if k == shards - 1:
+            tensors[HF_NAMES["final_norm"]] = params["final_norm"]
+            if "lm_head" in params:
+                tensors[HF_NAMES["lm_head"]] = params["lm_head"].T
+        path = os.path.join(directory, f"model-{k + 1:05d}-of-{shards:05d}.safetensors")
+        write_safetensors(path, tensors)
+        paths.append(path)
+    return paths
+
+
+def q8_0_blocks(x: torch.Tensor) -> tuple:
+    """ggml's q8_0 of a flat f32 tensor (32 elements a block: an f16 scale
+    amax / 127 and 32 int8 codes), on its device → (the blocks' bytes, their
+    dequantized f32 values, scale × code)."""
+    b = x.reshape(-1, 32)
+    d = b.abs().amax(dim=1, keepdim=True) / 127.0
+    inv = torch.where(d != 0, 1.0 / d, torch.zeros_like(d))
+    q = torch.clamp(torch.round(b * inv), -127, 127).to(torch.int8)
+    d16 = d.to(torch.float16)
+    raw = torch.cat([d16.view(torch.uint8), q.view(torch.uint8)], dim=1)
+    return raw.cpu().numpy().tobytes(), (q.float() * d16.float()).reshape(-1)
+
+
+def write_gguf_q8_0(path: str, params, config) -> dict:
+    """The params as a GGUF v3 file: matrices in q8_0 (quantized on the
+    params' device), norms in f32, llama metadata (no RoPE scaling). → the
+    dequantized values each tensor reads back as, name → f32 tensor in HF
+    layout on the params' device."""
+    import struct
+
+    from dynamo_tpu_torch.engine.weights import GGUF_NAMES
+
+    def s(text: str) -> bytes:
+        b = text.encode()
+        return struct.pack("<Q", len(b)) + b
+
+    c = config
+    meta = [("general.architecture", 8, s("llama")), ("general.name", 8, s(c.name)),
+            ("general.alignment", 4, struct.pack("<I", 32)),
+            ("llama.context_length", 4, struct.pack("<I", c.max_seq_len)),
+            ("llama.block_count", 4, struct.pack("<I", c.num_layers)),
+            ("llama.embedding_length", 4, struct.pack("<I", c.hidden_size)),
+            ("llama.feed_forward_length", 4, struct.pack("<I", c.intermediate_size)),
+            ("llama.attention.head_count", 4, struct.pack("<I", c.num_heads)),
+            ("llama.attention.head_count_kv", 4, struct.pack("<I", c.num_kv_heads)),
+            ("llama.attention.key_length", 4, struct.pack("<I", c.head_dim)),
+            ("llama.rope.freq_base", 6, struct.pack("<f", c.rope_theta)),
+            ("llama.attention.layer_norm_rms_epsilon", 6, struct.pack("<f", c.rms_norm_eps))]
+    named = [(GGUF_NAMES["embed"], params["embed"]), (GGUF_NAMES["final_norm"], params["final_norm"])]
+    if "lm_head" in params:
+        named.append((GGUF_NAMES["lm_head"], params["lm_head"].T))
+    for l in range(c.num_layers):
+        named += [(fmt.format(l), hf_layer_tensor(params, key, l)) for key, fmt in GGUF_NAMES.items() if "{}" in fmt]
+    infos, offset = [], 0
+    for name, t in named:
+        gtype = 8 if t.dim() == 2 and t.numel() % 32 == 0 else 0
+        n = t.numel() * 34 // 32 if gtype == 8 else t.numel() * 4
+        infos.append((name, list(reversed(t.shape)), gtype, offset))
+        offset += n + (-n % 32)
+    head = b"GGUF" + struct.pack("<IQQ", 3, len(named), len(meta))
+    for key, vtype, raw in meta:
+        head += s(key) + struct.pack("<I", vtype) + raw
+    for name, dims, gtype, off in infos:
+        head += s(name) + struct.pack("<I", len(dims)) + b"".join(struct.pack("<Q", d) for d in dims)
+        head += struct.pack("<IQ", gtype, off)
+    head += b"\0" * (-len(head) % 32)
+    values = {}
+    with open(path, "wb") as f:
+        f.write(head)
+        for (name, t), (_, _, gtype, _) in zip(named, infos):
+            x = t.detach().float().contiguous()
+            if gtype == 8:
+                raw, deq = q8_0_blocks(x.reshape(-1))
+                values[name] = deq.reshape(x.shape)
+            else:
+                raw, values[name] = x.cpu().numpy().tobytes(), x
+            f.write(raw + b"\0" * (-len(raw) % 32))
+    return values
+
+
+def params_from_hf(values: dict, config, device, dtype, names: dict) -> dict:
+    """Port params from HF-layout f32 tensors (``names``: a layer key → its
+    name format, with "embed", "final_norm" and "lm_head" too)."""
+    L = config.num_layers
+
+    def dev(a, transpose=False):
+        t = a.to(device)
+        return (t.T if transpose else t).to(dtype).contiguous()
+
+    out = {"embed": dev(values[names["embed"]]), "final_norm": dev(values[names["final_norm"]]),
+           "layers": {k: torch.stack([dev(values[fmt.format(l)], transpose=not k.endswith("_norm"))
+                                      for l in range(L)]) for k, fmt in names.items() if "{}" in fmt}}
+    if names["lm_head"] in values:
+        out["lm_head"] = dev(values[names["lm_head"]], transpose=True)
+    return out
+
+
+class RssPeak:
+    """The process's resident set, sampled every 2 ms inside the ``with``
+    block (``VmRSS``), and ``ru_maxrss``: → {"before", "peak", "maxrss"}
+    bytes."""
+
+    def __enter__(self):
+        self.before = self._rss()
+        self.peak = self.before
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(timeout=5)
+        import resource
+
+        self.summary = {"rss_before_bytes": self.before, "rss_peak_bytes": max(self.peak, self._rss()),
+                        "ru_maxrss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+
+
+class TokenRecorder:
+    """Inside the ``with`` block: the request ids in the order the scheduler
+    takes them, and every token it appends for each."""
+
+    def __init__(self, sched):
+        self.sched, self.order, self.tokens = sched, [], {}
+
+    def __enter__(self):
+        add, append = self.sched.add_request, self.sched._append_token
+        self.orig = add, append
+
+        def add_request(rid, *args, **kwargs):
+            self.order.append(rid)
+            return add(rid, *args, **kwargs)
+
+        def append_token(seq, token, *args, **kwargs):
+            self.tokens.setdefault(seq.request_id, []).append(int(token))
+            return append(seq, token, *args, **kwargs)
+
+        self.sched.add_request, self.sched._append_token = add_request, append_token
+        return self
+
+    def __exit__(self, *exc):
+        self.sched.add_request, self.sched._append_token = self.orig
+
+    def in_order(self) -> list:
+        return [self.tokens.get(rid, []) for rid in self.order]
+
+
+async def held_burst(service, engine, model: str, reqs: list) -> dict:
+    """Send ``reqs`` while the engine's step thread is held, each once the
+    one before it is staged, then release: every service admits the burst
+    in the same order and runs the same steps (bf16 products round by the
+    step's shape, so equal weights give equal tokens only under equal
+    batching). → answers (status, data, first-token seconds after the
+    release, seconds), each request's token ids, wall seconds."""
+    sched = engine.scheduler
+    gate = threading.Event()
+    blocker = engine._step_thread.submit(gate.wait)
+    firsts = [None] * len(reqs)
+    futs = []
+    with TokenRecorder(sched) as rec:
+        try:
+            for i, (url, body) in enumerate(reqs):
+                def first(i=i):
+                    firsts[i] = time.perf_counter()
+                futs.append(asyncio.ensure_future(asyncio.to_thread(
+                    _request, service.port, url, {**body, "model": model}, first)))
+                while len(engine._staged_adds) + len(sched.by_id) < i + 1:
+                    if futs[-1].done():
+                        futs[-1].result()
+                        raise AssertionError(f"request {i} ended before it was staged: {futs[-1].result()}")
+                    await asyncio.sleep(0.001)
+        finally:
+            t0 = time.perf_counter()
+            gate.set()
+        results = await asyncio.gather(*futs)
+        wall = time.perf_counter() - t0
+        blocker.result()
+    return {"results": results, "ttft_s": [None if f is None else f - t0 for f in firsts],
+            "ids": rec.in_order(), "wall_s": wall}
+
+
+def chat_requests(tokenizer, sizes: list, start: int = 0, root: str = ".") -> list:
+    """Greedy chat requests of the checkout's README text, one of about
+    each of ``sizes`` tokens (consecutive words from word ``start``, a new
+    stretch for each), 64 tokens each, every other one streamed."""
+    import os
+
+    with open(os.path.join(root, "README.md"), encoding="utf-8") as f:
+        words = f.read().split()
+    reqs = []
+    for k, tokens in enumerate(sizes):
+        at = (start + 400 * k) % max(1, len(words) - 2000)
+        n = 8
+        while len(tokenizer.encode(" ".join(words[at:at + n]))) < tokens and at + n < len(words):
+            n += max(1, (tokens - len(tokenizer.encode(" ".join(words[at:at + n])))) // 4)
+        reqs.append(("/v1/chat/completions", {"messages": [{"role": "user", "content": " ".join(words[at:at + n])}],
+                                              "max_tokens": 64, "temperature": 0.0, "stream": k % 2 == 0}))
+    return reqs
+
+
+# The checkpoint phase's structured request: a finite grammar (an enum and
+# a boolean, both required), so its answer always completes and parses.
+CKPT_SCHEMA = {"type": "object", "properties": {"city": {"enum": ["SF", "NY", "LA"]}, "ok": {"type": "boolean"}},
+               "required": ["city", "ok"]}
+
+
+def checkpoint_traffic(tokenizer) -> list:
+    """The burst: 8 greedy chat requests (2 of about 1500 tokens, 6 of
+    30–200; one behind a system prompt) and a ``json_schema`` one
+    (``CKPT_SCHEMA``, streamed)."""
+    reqs = chat_requests(tokenizer, [1500, 1480, 30, 60, 90, 120, 150, 200])
+    reqs[6][1]["messages"].insert(0, {"role": "system", "content": "You answer in English."})
+    guided = chat_requests(tokenizer, [40], start=50)[0]
+    guided[1].update(stream=True, response_format={"type": "json_schema",
+                                                   "json_schema": {"name": "city", "schema": CKPT_SCHEMA}})
+    return reqs + [guided]
+
+
+def answer_texts(reqs: list, burst: dict) -> list:
+    out = []
+    for (url, body), (status, data, _, _) in zip(reqs, burst["results"]):
+        n, finish, _ = _summarize(status, data, body.get("stream", False))
+        out.append({"text": _answer_text(data, bool(body.get("stream")), "chat" in url), "tokens": n,
+                    "finish_reason": finish})
+    return out
+
+
+def serve_launches(counts: dict, steps: dict, L: int) -> tuple:
+    """(launches, the launches the steps and windows expect on the
+    megakernel path with fused windows, plain calls)."""
+    expected = {"ragged_paged_attention": L * (steps["forward"] + steps["window_steps_total"]
+                                               + steps["draft_prefill_steps_total"]),
+                "fused_decode_window": steps["fused_windows_total"],
+                "fused_decode_window_sampled": steps["fused_sampled_windows_total"],
+                "fused_decode_window_guided": steps["fused_guided_windows_total"],
+                "fused_spec_window": steps["spec_fused_windows_total"]}
+    launches = {name: c["launches"] for name, c in counts.items()}
+    return launches, {name: expected.get(name, 0) for name in launches}, sum(c["plain_calls"] for c in counts.values())
+
+
+STEP_KINDS = ("forward", "prefill", "decode", "mixed")
+SCHED_COUNTERS = WINDOW_COUNTERS + ("draft_prefill_steps_total", "spec_fused_windows_total", "spec_rounds_total")
+
+
+def sched_steps(sched) -> dict:
+    out = {k: getattr(sched, f"{k}_steps_total") for k in STEP_KINDS}
+    out.update({k: getattr(sched, k) for k in SCHED_COUNTERS})
+    return out
+
+
+async def serve_files(argv: list, bursts: list, *, params=None, draft_params=None, check=None) -> dict:
+    """``run.build_service`` over ``argv`` (and ``params`` /
+    ``draft_params``) with a second model, ``"llama3-chat"``, whose
+    pipeline (``build_local_pipeline``) carries a card with the Llama-3.x
+    chat template; each of ``bursts`` sent to it as a held burst, the
+    kernel counts zeroed just before each. ``check(engine)`` runs before
+    the first. → each burst with its counts and steps, the loads' seconds
+    and host RSS, the build's seconds, ``check``'s result and the warmup."""
+    from dynamo_tpu_torch import run
+    from dynamo_tpu_torch.engine import engine as engine_mod
+    from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    args = run.parse_args(["in=http", f"out={PRESET}", "--http-host", "127.0.0.1", "--http-port", "0", *argv])
+    gc.collect()
+    torch.cuda.empty_cache()
+    loads = []
+    load = engine_mod.load_checkpoint
+
+    def timed_load(*a, **kw):
+        torch.cuda.synchronize()
+        with RssPeak() as rss:
+            t = time.perf_counter()
+            out = load(*a, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        loads.append({"seconds": seconds, **rss.summary})
+        return out
+
+    engine_mod.load_checkpoint = timed_load
+    try:
+        t0 = time.perf_counter()
+        service, engine = run.build_service(args, params=params, draft_params=draft_params)
+        build_s = time.perf_counter() - t0
+    finally:
+        engine_mod.load_checkpoint = load
+    sched = engine.scheduler
+    card = ModelDeploymentCard(name="llama3-chat", model_type="chat", chat_template=LLAMA3_CHAT_TEMPLATE,
+                               kv_cache_block_size=sched.mc.block_size)
+    # The tokenizer build_service loaded and attached for guided decoding.
+    service.manager.add_model("chat", "llama3-chat", build_local_pipeline(sched.guided.tokenizer, engine, card))
+    await service.start()
+    out = {"build_s": build_s, "loads": loads, "warmup": sched.warmup_stats, "L": sched.mc.num_layers,
+           "bursts": []}
+    try:
+        out["check"] = check(engine) if check is not None else None
+        for reqs in bursts:
+            steps0 = sched_steps(sched)
+            reset_counts()  # counts from zero, just before the main path runs
+            burst = await held_burst(service, engine, "llama3-chat", reqs)
+            burst["counts"] = read_counts()
+            burst["steps"] = {k: v - steps0[k] for k, v in sched_steps(sched).items()}
+            out["bursts"].append(burst)
+        out["captures_after_warmup"] = sched.graph_captures_after_warmup
+        out["grammar_compile_s"] = sched.guided.compile_seconds_total
+    finally:
+        await service.stop()
+        await engine.stop()
+    return out
+
+
+def tensors_equal(a: dict, b: dict) -> list:
+    """Names of the params that differ (any bit) between two trees."""
+    from dynamo_tpu_torch.engine.quant import QuantW
+
+    bad = []
+    for k in ("embed", "final_norm", "lm_head"):
+        if (k in a) != (k in b) or (k in a and not torch.equal(a[k], b[k])):
+            bad.append(k)
+    for k, v in a["layers"].items():
+        w = b["layers"][k]
+        if isinstance(v, QuantW) != isinstance(w, QuantW):
+            bad.append(k)
+        elif isinstance(v, QuantW):
+            if not (torch.equal(v.q, w.q) and torch.equal(v.scale, w.scale)):
+                bad.append(k)
+        elif not torch.equal(v, w):
+            bad.append(k)
+    return bad
+
+
+def tokenizer_costs(tok_dir: str, prompt: str) -> dict:
+    """Host costs of the real-vocabulary tokenizer: its load, a ~1500-token
+    encode (cold, then with its word cache warm), ``DecodeStream.step`` at
+    output positions 64 and 1024, and guided decoding's per-id strings."""
+    from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder
+    from dynamo_tpu_torch.llm.tokenizer import DecodeStream, load_tokenizer
+
+    t0 = time.perf_counter()
+    tok = load_tokenizer(tok_dir)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids = tok.encode(prompt)
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tok.encode(prompt)
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    stream_ids = (ids * 2)[:1024]
+    detok = {}
+    for pos in (64, 1024):
+        stream = DecodeStream(tok)
+        stream.step(stream_ids[:pos - 8])
+        t0 = time.perf_counter()
+        for t in stream_ids[pos - 8:pos]:
+            stream.step([t])
+        detok[f"us_per_token_at_{pos}"] = 1e6 * (time.perf_counter() - t0) / 8
+    t0 = time.perf_counter()
+    GuidedDecoder(tok, pool_rows=1, device="cpu")._token_strings()
+    return {"tokenizer_load_s": load_s, "vocab_size": tok.vocab_size, "encode_tokens": len(ids),
+            "encode_ms_cold": cold_ms, "encode_ms_warm": warm_ms, **detok,
+            "token_strings_s": time.perf_counter() - t0}
+
+
+def first_divergence(a: list, b: list) -> list:
+    """Per request, the index of the first token where two id lists part
+    (their length when they agree)."""
+    out = []
+    for x, y in zip(a, b):
+        n = next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
+        out.append(n)
+    return out
+
+
+def phase_checkpoint(card: str, dev) -> dict:
+    """Serve ``PRESET`` from files the phase writes: seeded bf16 weights
+    (``init_params``) as two HF safetensors shards, a Llama-3-layout
+    ``tokenizer.json`` of 128,000 BPE tokens and 256 special tokens with a
+    Llama-3.x chat template, and a q8_0 GGUF of the same weights. Through
+    ``run.build_service`` (``--checkpoint``/``--tokenizer``) with the
+    defaults (32-step windows, ``--warmup-ctx 2048``) and a second model
+    whose pipeline carries a card with the template, a held burst of 8
+    greedy chat requests of README text and one ``json_schema``: the loaded
+    weights must be bit-equal to the written ones, the token ids equal to
+    those of the same service built with ``params=`` the written weights
+    (no warmup), each answer's text the tokenizer's decode of its ids, the
+    structured answer complete JSON in its grammar, the ragged kernel 16
+    launches a forward step, each fused window one launch, no plain call
+    and no graph captured after the warmup. Then: self-speculation
+    (``--draft-model``/``--draft-checkpoint`` on the same files, 2
+    requests) through the fused spec window, its ids equal to the same
+    service given the weights as ``params=``/``draft_params=`` (the first
+    divergence from the non-speculative stream is reported: bf16 verify
+    and decode round apart); ``--weight-dtype int8 --kv-cache-dtype int8``
+    (2 requests of 200 tokens: only the ragged kernel's int8 branch
+    launches, and the loaded codes and scales equal
+    ``quant.quantize_weight`` of the written weights); and the GGUF (2
+    requests: ids equal to a service given ``params=`` its dequantized
+    values). Prints each load's seconds, GB/s and host RSS around it, and
+    the tokenizer's host costs."""
+    import os
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.quant import QUANT_KEYS, quantize_weight
+    from dynamo_tpu_torch.engine.weights import GGUF_NAMES, init_params
+    from dynamo_tpu_torch.llm.tokenizer import load_tokenizer
+
+    cfg = get_config(PRESET)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    res: dict = {"card": card, "preset": PRESET}
+    parts = {}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    try:
+        ckpt, tok_dir, gguf = (os.path.join(root, d) for d in ("hf", "tokenizer", "model-q8_0.gguf"))
+        written = init_params(cfg, torch.Generator(device=dev).manual_seed(1234), device=dev, dtype=torch.bfloat16)
+        hf_bytes = sum(os.path.getsize(p) for p in write_hf_checkpoint(ckpt, written, cfg))
+        part("write_hf")
+        write_tokenizer(tok_dir, llama3_tokenizer_spec(size=cfg.vocab_size - 256, n_special=256))
+        tok = load_tokenizer(tok_dir)
+        reqs = checkpoint_traffic(tok)
+        res["prompt_tokens"] = [len(tok.encode(b["messages"][-1]["content"])) for _, b in reqs]
+        part("write_tokenizer")
+        res["tokenizer"] = tokenizer_costs(tok_dir, reqs[0][1]["messages"][-1]["content"])
+        emit("checkpoint_tokenizer", card=card, **res["tokenizer"])
+        part("tokenizer_costs")
+        files = ["--checkpoint", ckpt, "--tokenizer", tok_dir]
+        two = [reqs[2], reqs[7]]
+
+        # bf16 from the shards, warmed up; then the 2 requests the spec
+        # services send, on the same engine.
+        main = asyncio.run(serve_files([*files, "--warmup-ctx", str(WARMUP_CTX)], [reqs, two],
+                                       check=lambda e: tensors_equal(e.scheduler.params, written)))
+        part("bf16")
+        ref = asyncio.run(serve_files(["--tokenizer", tok_dir], [reqs], params=written))
+        part("bf16_params")
+        burst = main["bursts"][0]
+        eos = set(tok.eos_token_ids)
+        answers = answer_texts(reqs, burst)
+        for a, ids in zip(answers, burst["ids"]):
+            a["decode_equal"] = a["text"] == tok.decode([t for t in ids if t not in eos])
+        guided = answers[-1]
+        try:
+            json.loads(guided["text"])
+            guided["parsed"] = True
+        except json.JSONDecodeError:
+            guided["parsed"] = False
+        guided["in_grammar"] = grammar_holds(reqs[-1][1], guided["text"], guided["finish_reason"])
+        launches, want, plain = serve_launches(burst["counts"], burst["steps"], main["L"])
+        completion = sum(a["tokens"] for a in answers)
+        ttfts = [t for t in burst["ttft_s"] if t is not None]
+        load = main["loads"][0]
+        res["bf16"] = {
+            "load_s": load["seconds"], "load_gb_per_s": hf_bytes / load["seconds"] / 1e9, "file_bytes": hf_bytes,
+            "rss": {k: v for k, v in load.items() if k != "seconds"}, "build_s": main["build_s"],
+            "warmup": main["warmup"], "weights_differ": main["check"],
+            "ids_equal_params": burst["ids"] == ref["bursts"][0]["ids"],
+            "answers": [{k: a[k] for k in ("tokens", "finish_reason", "decode_equal")} for a in answers],
+            "guided": guided, "grammar_compile_s": main["grammar_compile_s"], "steps": burst["steps"],
+            "kernel_launches": launches, "expected_launches": want, "plain_calls": plain,
+            "captures_after_warmup": main["captures_after_warmup"],
+            "decode_tok_per_s": completion / burst["wall_s"], "wall_s": burst["wall_s"],
+            "ttft_p50_s": statistics.median(ttfts), "ttft_n": len(ttfts)}
+        emit("checkpoint_bf16", card=card, **res["bf16"])
+        b = res["bf16"]
+        if b["weights_differ"]:
+            raise AssertionError(f"the loaded bf16 weights differ from the written ones: {b['weights_differ']}")
+        if not b["ids_equal_params"]:
+            raise AssertionError("the checkpoint's token ids differ from the params= service's")
+        if not all(a["decode_equal"] for a in answers):
+            raise AssertionError(f"an answer's text is not the decode of its ids: {answers}")
+        if not (guided["parsed"] and guided["in_grammar"] and guided["finish_reason"] == "stop"):
+            raise AssertionError(f"the json_schema answer is not complete JSON in its grammar: {guided}")
+        steps = burst["steps"]
+        if launches != want or plain or b["captures_after_warmup"] or steps["multi_windows_total"] \
+                or not steps["fused_windows_total"] or not steps["fused_guided_windows_total"]:
+            raise AssertionError(f"checkpoint launches {launches} != {want}, plain {plain}, steps {steps}, "
+                                 f"captures after warmup {b['captures_after_warmup']}")
+        non_spec_ids = main["bursts"][1]["ids"]
+        del main, ref
+
+        # Self-speculation from the same files, against the same service
+        # given the weights.
+        spec_argv = ["--draft-model", PRESET, "--spec-gamma", str(SPEC_GAMMA)]
+        spec = asyncio.run(serve_files([*files, *spec_argv, "--draft-checkpoint", ckpt], [two]))
+        # A copy of the weights for the draft, as the checkpoint's draft is one.
+        copy = {k: ({n: w.clone() for n, w in v.items()} if k == "layers" else v.clone()) for k, v in written.items()}
+        spec_ref = asyncio.run(serve_files(["--tokenizer", tok_dir, *spec_argv], [two], params=written,
+                                           draft_params=copy))
+        del copy
+        part("spec")
+        s_burst = spec["bursts"][0]
+        s_launch, s_want, s_plain = serve_launches(s_burst["counts"], s_burst["steps"], spec["L"])
+        res["spec"] = {"ids_equal_params": s_burst["ids"] == spec_ref["bursts"][0]["ids"],
+                       "load_s": [ld["seconds"] for ld in spec["loads"]], "steps": s_burst["steps"],
+                       "kernel_launches": s_launch, "plain_calls": s_plain,
+                       "tokens_before_non_spec_divergence": first_divergence(s_burst["ids"], non_spec_ids),
+                       "tokens": [len(i) for i in s_burst["ids"]]}
+        emit("checkpoint_spec", card=card, **res["spec"])
+        if not res["spec"]["ids_equal_params"] or not s_burst["steps"]["spec_fused_windows_total"] or s_plain \
+                or s_launch["fused_spec_window"] != s_want["fused_spec_window"]:
+            raise AssertionError(f"self-speculation from the checkpoint: {res['spec']}")
+        del spec, spec_ref
+
+        # int8 weights and KV from the same files.
+        def codes_differ(engine):
+            p = engine.scheduler.params
+            bad = set()
+            for k in QUANT_KEYS:
+                for l in range(cfg.num_layers):
+                    want_q = quantize_weight(written["layers"][k][l])
+                    if not (torch.equal(p["layers"][k].q[l], want_q.q)
+                            and torch.equal(p["layers"][k].scale[l], want_q.scale)):
+                        bad.add(k)
+            return sorted(bad)
+
+        q8 = asyncio.run(serve_files([*files, "--weight-dtype", "int8", "--kv-cache-dtype", "int8"],
+                                     [chat_requests(tok, [200, 200], start=2000)], check=codes_differ))
+        part("int8")
+        q_burst = q8["bursts"][0]
+        q_launch = {n: c["launches"] for n, c in q_burst["counts"].items()}
+        q_plain = sum(c["plain_calls"] for c in q_burst["counts"].values())
+        load = q8["loads"][0]
+        res["int8"] = {"load_s": load["seconds"], "load_gb_per_s": hf_bytes / load["seconds"] / 1e9,
+                       "rss": {k: v for k, v in load.items() if k != "seconds"}, "codes_differ": q8["check"],
+                       "steps": q_burst["steps"], "kernel_launches": q_launch, "plain_calls": q_plain,
+                       "tokens": [len(i) for i in q_burst["ids"]]}
+        emit("checkpoint_int8", card=card, **res["int8"])
+        others = {n: v for n, v in q_launch.items() if n != "ragged_paged_attention_int8" and v}
+        reached = q8["L"] * (q_burst["steps"]["forward"] + q_burst["steps"]["window_steps_total"])
+        if q8["check"] or others or q_plain or q_launch["ragged_paged_attention_int8"] < reached \
+                or q_launch["ragged_paged_attention_int8"] % q8["L"]:
+            raise AssertionError(f"int8 from the checkpoint: {res['int8']}")
+        del q8
+
+        # The q8_0 GGUF, against params= its dequantized values.
+        values = write_gguf_q8_0(gguf, written, cfg)
+        deq = params_from_hf(values, cfg, dev, torch.bfloat16, GGUF_NAMES)
+        del values
+        part("write_gguf")
+        g = asyncio.run(serve_files(["--checkpoint", gguf, "--tokenizer", tok_dir], [two],
+                                    check=lambda e: tensors_equal(e.scheduler.params, deq)))
+        g_ref = asyncio.run(serve_files(["--tokenizer", tok_dir], [two], params=deq))
+        part("gguf")
+        g_plain = sum(c["plain_calls"] for c in g["bursts"][0]["counts"].values())
+        load = g["loads"][0]
+        res["gguf"] = {"load_s": load["seconds"], "file_bytes": os.path.getsize(gguf),
+                       "load_gb_per_s": os.path.getsize(gguf) / load["seconds"] / 1e9,
+                       "rss": {k: v for k, v in load.items() if k != "seconds"}, "params_differ": g["check"],
+                       "ids_equal_params": g["bursts"][0]["ids"] == g_ref["bursts"][0]["ids"], "plain_calls": g_plain}
+        emit("checkpoint_gguf", card=card, **res["gguf"])
+        if g["check"] or not res["gguf"]["ids_equal_params"] or g_plain:
+            raise AssertionError(f"GGUF: {res['gguf']}")
+        del g, g_ref, deq, written
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = parts
+    emit("checkpoint_seconds", card=card, **parts)
+    return res
+
+
+def phase_grammar(card: str) -> dict:
+    """Not in the default run: the host seconds to compile a
+    ``json_object`` grammar's token FSM over a Llama-3-layout vocabulary
+    of 128,256 ids (what the first ``json_object`` request to a served
+    model waits for), beside the same over the byte tokenizer's 256."""
+    import tempfile
+
+    from dynamo_tpu_torch.llm.guided.fsm import compile_token_fsm
+    from dynamo_tpu_torch.llm.guided.grammar import build_guided_spec, compile_regex
+    from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer
+
+    pattern = build_guided_spec({"response_format": {"type": "json_object"}})["pattern"]
+    res = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grammar_") as root:
+        write_tokenizer(root, llama3_tokenizer_spec())
+        for name, tok in (("bytes", ByteTokenizer()), ("llama3_vocab", load_tokenizer(root))):
+            strs = GuidedDecoder(tok, pool_rows=1, device="cpu")._token_strings()
+            t0 = time.perf_counter()
+            fsm = compile_token_fsm(compile_regex(pattern), strs, tok.eos_token_ids)
+            res[name] = {"vocab_size": tok.vocab_size, "json_object_compile_s": time.perf_counter() - t0,
+                         "states": fsm.num_states}
+    emit("grammar", **res)
+    return res
+
+
+def kernels_line(timed: dict, served: dict, dist: dict, ckpt: dict) -> list:
     """The ``kernels`` entries: every kernel's route, source, the TPU kernel
     it replaces, its launches on the main path, its checked error and its
     timed, plain, bound and library times. The fused window's sampled and
@@ -4438,6 +5323,11 @@ def kernels_line(timed: dict, served: dict, dist: dict) -> list:
             # row-wise fallback's fused windows.
             entry["launches_extras"] = extras["kernel_launches"][name]
             entry["launches_extras_expected"] = extras["expected_launches"][name]
+        if name in ("ragged_paged_attention", "fused_decode_window", "fused_decode_window_sampled",
+                    "fused_decode_window_guided"):
+            # The checkpoint phase: the model served from its files.
+            entry["launches_checkpoint"] = ckpt["bf16"]["kernel_launches"][name]
+            entry["launches_checkpoint_expected"] = ckpt["bf16"]["expected_launches"][name]
         if name in ("ragged_paged_attention", "fused_decode_window"):
             # The distributed phase: both workers' launches since they
             # registered, beside what their steps and windows expect.
@@ -4576,7 +5466,7 @@ def parent_runs(parent: str) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="env,build,kernel,model,breakdown,serve,distributed")
+    p.add_argument("--phases", default="env,build,kernel,model,breakdown,serve,checkpoint,distributed")
     p.add_argument("--parent", default=None,
                    help="another tree of the port (the parent commit's): its greedy windows and its "
                         "PARENT_SERVE_PASSES timed beside this one's, each tree with the kernels built from its "
@@ -4645,13 +5535,16 @@ def main() -> int:
     served = None
     if "serve" in phases:
         served = timed_phase("serve", lambda: {path: phase_serve(card, path) for path in SERVE_PASSES})
+    ckpt = timed_phase("checkpoint", lambda: phase_checkpoint(card, dev)) if "checkpoint" in phases else None
+    if "grammar" in phases:
+        timed_phase("grammar", lambda: phase_grammar(card))
     dist = timed_phase("distributed", lambda: phase_distributed(card)) if "distributed" in phases else None
     if args.parent:
         emit("parent", **timed_phase("parent", lambda: parent_runs(args.parent)))
     emit("seconds", **seconds, total=sum(seconds.values()))
-    if phases != {"env", "build", "kernel", "model", "breakdown", "serve", "distributed"}:
+    if phases != {"env", "build", "kernel", "model", "breakdown", "serve", "checkpoint", "distributed"}:
         return 0  # a partial run reports no result
-    kernels = kernels_line(timed, served, dist)
+    kernels = kernels_line(timed, served, dist, ckpt)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,7 +45,7 @@ from dynamo_tpu_torch.engine.scheduler import (
     StepOutput,
     StopConditions,
 )
-from dynamo_tpu_torch.engine.weights import init_params
+from dynamo_tpu_torch.engine.weights import init_params, load_checkpoint
 from dynamo_tpu_torch.logits_processing import LogitBiasProcessor
 from dynamo_tpu_torch.runtime.engine import Context
 
@@ -76,8 +76,12 @@ class EngineArgs:
     seed: int = 0
     eos_token_ids: List[int] = field(default_factory=list)
     device: str = "cuda"
+    # A checkpoint (engine/weights.load_checkpoint: a safetensors directory
+    # or a GGUF file); None serves seeded random weights.
+    checkpoint_path: Optional[str] = None
     # Speculative decoding: a draft model preset proposing spec_gamma tokens
-    # per round (seeded random weights, or TorchEngine.build's draft_params).
+    # per round (its checkpoint, TorchEngine.build's draft_params, or seeded
+    # random weights).
     draft_model: Optional[str] = None
     draft_checkpoint_path: Optional[str] = None
     spec_gamma: int = 4
@@ -88,10 +92,6 @@ class EngineArgs:
     # Capture the step graphs for contexts up to this many tokens before
     # taking traffic (Scheduler.warmup; 0 = capture each on first use).
     warmup_ctx: int = 0
-
-    def __post_init__(self):
-        if self.draft_checkpoint_path:
-            raise NotImplementedError("checkpoint loading is not ported yet (ROADMAP Queue 1 item 3)")
 
 
 def _attach_logprobs(frame: dict, logprobs: list, top_logprobs: list) -> None:
@@ -137,7 +137,9 @@ class TorchEngine:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {args.dtype!r}")
         dtype = _DTYPES[args.dtype]
         device = resolve_device(args.device)
-        if params is None:
+        if params is None and args.checkpoint_path:
+            params = load_checkpoint(args.checkpoint_path, mc, dtype=dtype, device=device)
+        elif params is None:
             logger.warning("no checkpoint: initializing random weights for %s", mc.name)
             gen = torch.Generator(device=device).manual_seed(args.seed)
             params = init_params(mc, gen, device=device, dtype=dtype)
@@ -159,7 +161,9 @@ class TorchEngine:
         )
         if args.draft_model:
             dc = get_config(args.draft_model)
-            if draft_params is None:
+            if draft_params is None and args.draft_checkpoint_path:
+                draft_params = load_checkpoint(args.draft_checkpoint_path, dc, dtype=dtype, device=device)
+            elif draft_params is None:
                 logger.warning("no draft checkpoint: random weights for %s", dc.name)
                 gen = torch.Generator(device=device).manual_seed(args.seed + 1)
                 draft_params = init_params(dc, gen, device=device, dtype=dtype)

@@ -14,6 +14,7 @@ default (item 19), SLO targets and the metrics registry (item 18).
 
 from __future__ import annotations
 
+import asyncio
 from dataclasses import dataclass
 from typing import Any, AsyncIterator, Optional
 
@@ -23,7 +24,7 @@ from dynamo_tpu_torch.llm.http.service import HttpService
 from dynamo_tpu_torch.llm.kv_router import KvPushRouter, KvRouterConfig, kv_metrics_subject
 from dynamo_tpu_torch.llm.migration import Migration
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard, ModelEntry
-from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor, PromptFormatter
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer, load_tokenizer
 from dynamo_tpu_torch.runtime.component import Endpoint
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
@@ -45,16 +46,25 @@ class RouterEngine:
         return self.router.generate(request, context)
 
 
-def build_local_pipeline(tokenizer: Tokenizer, engine: AsyncEngine, *, tool_call_parser: Optional[str] = None,
+def build_local_pipeline(tokenizer: Tokenizer, engine: AsyncEngine, card: Optional[ModelDeploymentCard] = None, *,
+                         tool_call_parser: Optional[str] = None,
                          reasoning_parser: Optional[str] = None) -> AsyncEngine:
     """Aggregated in-process pipeline: OpenAI body → token ids → engine →
-    detokenized text frames. Guided decoding needs the served tokenizer on
-    the engine's side (token-FSM lifting): it is attached unless the engine
-    has one. ``tool_call_parser`` / ``reasoning_parser`` name the model's
-    output parsers (llm/parsers); ``run`` passes neither."""
+    detokenized text frames. Chat prompts render the card's chat template
+    (the default one without a card or template, as in the JAX package,
+    whatever the tokenizer's config carries). Guided decoding needs the
+    served tokenizer on the engine's side (token-FSM lifting): it is
+    attached unless the engine has one. ``tool_call_parser`` /
+    ``reasoning_parser`` name the model's output parsers (llm/parsers),
+    the card's where not given; ``run`` passes neither."""
     if hasattr(engine, "attach_guided_tokenizer") and getattr(engine.scheduler, "guided", None) is None:
         engine.attach_guided_tokenizer(tokenizer)
-    pre = OpenAIPreprocessor(tokenizer, tool_call_parser=tool_call_parser, reasoning_parser=reasoning_parser)
+    pre = OpenAIPreprocessor(
+        tokenizer,
+        PromptFormatter(card.chat_template if card else None),
+        tool_call_parser=tool_call_parser or (card.tool_call_parser if card else None),
+        reasoning_parser=reasoning_parser or (card.reasoning_parser if card else None),
+    )
     return link([pre, Backend(tokenizer)], engine)
 
 
@@ -67,14 +77,11 @@ def build_routed_pipeline(
     on_migrate=None,
 ) -> AsyncEngine:
     """Frontend-side routed pipeline: preprocessor → backend → migration →
-    router. The card's output parsers are armed; a card with its own chat
-    template is refused, as template rendering waits for ROADMAP Queue 1
-    item 12."""
-    if card is not None and card.chat_template:
-        raise NotImplementedError(
-            f"model {card.name!r} carries a chat template; rendering one is not ported yet (ROADMAP Queue 1 item 12)")
+    router. Chat prompts render the card's chat template (the default one
+    without), and the card's output parsers are armed."""
     pre = OpenAIPreprocessor(
         tokenizer,
+        PromptFormatter(card.chat_template if card else None),
         tool_call_parser=card.tool_call_parser if card else None,
         reasoning_parser=card.reasoning_parser if card else None,
     )
@@ -182,7 +189,8 @@ async def start_frontend(drt: DistributedRuntime, config: FrontendConfig) -> Htt
         if old is not None:
             await old.close()
         routers[entry.name] = router
-        tokenizer = load_tokenizer(entry.card.tokenizer_path)
+        # A real vocabulary takes seconds to read: off the event loop.
+        tokenizer = await asyncio.to_thread(load_tokenizer, entry.card.tokenizer_path)
         return build_routed_pipeline(tokenizer, router, entry.card, migration_limit=config.migration_limit)
 
     watcher = ModelWatcher(drt, manager, engine_factory)

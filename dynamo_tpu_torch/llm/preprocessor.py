@@ -2,12 +2,10 @@
 sampling/stop extraction.
 
 Runs as a pipeline Operator in front of the engine so the engine only ever
-sees token ids (PreprocessedRequest). The JAX package renders chat
-templates with jinja2, which is not assumed to be installed here: the
-default template is rendered in plain Python, byte-identical to the JAX
-``PromptFormatter`` for messages whose content is a string. Model-specific
-templates (from a tokenizer's config) wait for tokenizer loading
-(ROADMAP Queue 1 item 12).
+sees token ids (PreprocessedRequest). ``PromptFormatter`` renders a chat
+template (a model card's, else ``DEFAULT_CHAT_TEMPLATE``) through the
+port's own Jinja interpreter (``llm/chat_template.py``), byte-equal to the
+JAX package's jinja2 rendering.
 
 Output parsing: a request that declares ``tools`` arms the tool-call
 parser named at construction, and a forced ``tool_choice`` (whose grammar
@@ -18,8 +16,9 @@ Backend as ``parser_options`` on the wire.
 
 from __future__ import annotations
 
-from typing import AsyncIterator, List, Optional, Tuple
+from typing import Any, AsyncIterator, List, Optional, Tuple
 
+from dynamo_tpu_torch.llm.chat_template import Template
 from dynamo_tpu_torch.llm.guided.grammar import build_guided_spec
 from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
 from dynamo_tpu_torch.llm.protocols.openai import sampling_from_request, stop_conditions_from_request
@@ -27,8 +26,7 @@ from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 from dynamo_tpu_torch.runtime.engine import Annotated, Context
 from dynamo_tpu_torch.runtime.pipeline import Operator
 
-# The JAX package's generic fallback template, kept as its source text for
-# reference; ``render_default_chat_template`` is its plain-Python rendering.
+# Generic fallback template (a model's own comes from its card).
 DEFAULT_CHAT_TEMPLATE = (
     "{% for message in messages %}"
     "<|{{ message.role }}|>\n{{ message.content }}\n"
@@ -40,14 +38,29 @@ ANNOTATION_FORMATTED_PROMPT = "formatted_prompt"
 ANNOTATION_TOKEN_IDS = "token_ids"
 
 
-def render_default_chat_template(messages: List[dict], add_generation_prompt: bool = True) -> str:
-    """``DEFAULT_CHAT_TEMPLATE`` rendered without jinja2: one
-    ``<|role|>\\ncontent\\n`` block per message, then the assistant header.
-    A message without content renders it empty, as jinja2's undefined does."""
-    parts = [f"<|{m['role']}|>\n{m.get('content', '')}\n" for m in messages]
-    if add_generation_prompt:
-        parts.append("<|assistant|>\n")
-    return "".join(parts)
+class PromptFormatter:
+    """A chat template renderer: ``template`` (``DEFAULT_CHAT_TEMPLATE``
+    when None or empty) with ``raise_exception`` raising ``ValueError``,
+    rendered with ``messages``, ``add_generation_prompt``, ``bos_token``,
+    ``eos_token`` and any extra variables."""
+
+    def __init__(self, template: Optional[str] = None, bos_token: str = "", eos_token: str = ""):
+        self.template = Template(template or DEFAULT_CHAT_TEMPLATE, globals={"raise_exception": self._raise})
+        self.bos_token = bos_token
+        self.eos_token = eos_token
+
+    @staticmethod
+    def _raise(msg: str):
+        raise ValueError(msg)
+
+    def render(self, messages: List[dict], add_generation_prompt: bool = True, **extra: Any) -> str:
+        return self.template.render(
+            messages=messages,
+            add_generation_prompt=add_generation_prompt,
+            bos_token=self.bos_token,
+            eos_token=self.eos_token,
+            **extra,
+        )
 
 
 class OpenAIPreprocessor(Operator):
@@ -56,12 +69,14 @@ class OpenAIPreprocessor(Operator):
     def __init__(
         self,
         tokenizer: Tokenizer,
+        formatter: Optional[PromptFormatter] = None,
         *,
         default_max_tokens: int = 512,
         tool_call_parser: Optional[str] = None,
         reasoning_parser: Optional[str] = None,
     ):
         self.tokenizer = tokenizer
+        self.formatter = formatter or PromptFormatter(getattr(tokenizer, "chat_template", None))
         self.default_max_tokens = default_max_tokens
         self.tool_call_parser = tool_call_parser
         self.reasoning_parser = reasoning_parser
@@ -99,7 +114,7 @@ class OpenAIPreprocessor(Operator):
     # --- core ---------------------------------------------------------------
     def preprocess(self, body: dict) -> Tuple[PreprocessedRequest, Optional[str]]:
         if "messages" in body:
-            prompt = render_default_chat_template(body["messages"], add_generation_prompt=True)
+            prompt = self.formatter.render(body["messages"], add_generation_prompt=True)
             token_ids = self.tokenizer.encode(prompt)
         else:
             raw = body.get("prompt", "")

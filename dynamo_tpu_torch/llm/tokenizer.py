@@ -1,20 +1,24 @@
 """Tokenizer abstraction + incremental detokenization.
 
+- :class:`HFTokenizer` — a local ``tokenizer.json`` (and the
+  ``tokenizer_config.json`` beside it) through the port's own reader,
+  ``llm/tokenizer_json.py``: the JAX package's ``HFTokenizer`` API and
+  semantics with no ``tokenizers`` wheel.
 - :class:`ByteTokenizer` — UTF-8 byte-level tokens (vocab 256), the JAX
   package's hermetic tokenizer, so the serving stack runs with no
   tokenizer files.
 - :class:`DecodeStream` — incremental detokenization with the prefix-diff
   technique: hold back output while the decoded tail ends in an incomplete
   UTF-8 sequence (U+FFFD).
-
-The JAX package also wraps a local ``tokenizer.json`` through the
-``tokenizers`` wheel; that wheel is not assumed here, so loading a real
-tokenizer waits for a ``tokenizer.json`` reader (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import List, Optional, Protocol, Sequence
+
+from dynamo_tpu_torch.llm.tokenizer_json import TokenizerJson
 
 
 class Tokenizer(Protocol):
@@ -49,6 +53,52 @@ class ByteTokenizer:
         return 256
 
 
+class HFTokenizer:
+    """A ``tokenizer.json`` file, or a directory holding one. ``encode``
+    adds no special tokens; ``decode`` skips the special added tokens. The
+    chat template, the BOS and EOS tokens and the EOS id come from the
+    ``tokenizer_config.json`` beside it, where there is one."""
+
+    def __init__(self, path: str):
+        tokenizer_file = path if path.endswith(".json") else os.path.join(path, "tokenizer.json")
+        self._tok = TokenizerJson.from_file(tokenizer_file)
+        self._eos_ids: List[int] = []
+        self.chat_template: Optional[str] = None
+        self.bos_token: Optional[str] = None
+        self.eos_token: Optional[str] = None
+        cfg_path = os.path.join(os.path.dirname(tokenizer_file), "tokenizer_config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path, encoding="utf-8") as f:
+                cfg = json.load(f)
+            self.chat_template = cfg.get("chat_template")
+            for key in ("eos_token", "bos_token"):
+                tok = cfg.get(key)
+                if isinstance(tok, dict):
+                    tok = tok.get("content")
+                setattr(self, key, tok)
+                if key == "eos_token" and tok:
+                    tid = self._tok.token_to_id(tok)
+                    if tid is not None:
+                        self._eos_ids.append(tid)
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(ids, skip_special_tokens=True)
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self._tok.token_to_id(token)
+
+    @property
+    def eos_token_ids(self) -> List[int]:
+        return self._eos_ids
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.vocab_size
+
+
 class DecodeStream:
     """Incremental detokenizer: feed token ids, get text deltas."""
 
@@ -76,11 +126,13 @@ class DecodeStream:
 
 
 def load_tokenizer(path_or_name: Optional[str] = None) -> Tokenizer:
-    """The serving tokenizer. Only the byte-level tokenizer is ported;
-    a path raises rather than being silently ignored."""
+    """A ``tokenizer.json`` file or a directory holding one → HFTokenizer;
+    no path → ByteTokenizer. A path with no ``tokenizer.json`` raises
+    ``FileNotFoundError`` (the JAX package serves bytes there, which hides
+    a wrong path)."""
     if path_or_name:
-        raise NotImplementedError(
-            f"loading tokenizer {path_or_name!r} is not ported yet (ROADMAP Queue 1 item 12: "
-            "checkpoint and tokenizer loading); omit it to serve with ByteTokenizer"
-        )
+        candidate = path_or_name if path_or_name.endswith(".json") else os.path.join(path_or_name, "tokenizer.json")
+        if not os.path.exists(candidate):
+            raise FileNotFoundError(f"tokenizer {path_or_name!r}: no {candidate}")
+        return HFTokenizer(path_or_name)
     return ByteTokenizer()

@@ -2,11 +2,13 @@
 
 Builds the engine on the card, wraps it in preprocessor → backend
 (detokenizer) → engine, and serves the OpenAI HTTP surface until SIGINT or
-SIGTERM. The model runs on seeded random weights at the preset's published
-widths (checkpoint loading is not ported yet), with the byte-level
-tokenizer.
+SIGTERM. The model runs on the weights of ``--checkpoint`` (a safetensors
+directory or a GGUF file) at the preset's widths, or on seeded random
+weights without one; ``--tokenizer`` names a ``tokenizer.json`` (or its
+directory), else the byte-level tokenizer serves.
 
 Example:
+  python -m dynamo_tpu_torch.run in=http out=llama-3.2-1b --checkpoint DIR --tokenizer DIR
   python -m dynamo_tpu_torch.run in=http out=llama-3.2-1b --http-port 8080
   python -m dynamo_tpu_torch.run in=http out=llama-3.2-3b --draft-model llama-3.2-1b
   python -m dynamo_tpu_torch.run in=http out=llama-3.2-1b --kv-cache-dtype int8 --weight-dtype int8
@@ -41,8 +43,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--http-host", default="0.0.0.0")
     p.add_argument("--http-port", type=int, default=8080)
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights and of sampling")
+    p.add_argument("--checkpoint", default=None,
+                   help="weights: a safetensors directory or a GGUF file (default: seeded random weights)")
+    p.add_argument("--tokenizer", default=None,
+                   help="a tokenizer.json or its directory (default: the byte-level tokenizer)")
     p.add_argument("--draft-model", default=None,
-                   help="draft model preset for speculative decoding (seeded random weights)")
+                   help="draft model preset for speculative decoding")
+    p.add_argument("--draft-checkpoint", default=None,
+                   help="the draft's weights (default: seeded random weights)")
     p.add_argument("--spec-gamma", type=int, default=4, help="speculative tokens proposed per round")
     p.add_argument("--kv-cache-dtype", choices=["auto", "int8"], default="auto",
                    help="int8 stores the KV cache as codes and per-(token, head) scales: twice the blocks per byte")
@@ -64,6 +72,7 @@ def build_service(
     model_config: Optional[ModelConfig] = None,
     scheduler_config: Optional[SchedulerConfig] = None,
     draft_params=None,
+    params=None,
 ) -> Tuple[HttpService, TorchEngine]:
     """The engine on ``args.device`` and the HTTP service over its pipeline
     (not started). ``model_config`` replaces the preset ``args.out`` names,
@@ -71,10 +80,12 @@ def build_service(
     prefill_impl="flash")`` for the per-piece attention path.
     ``scheduler_config`` replaces the scheduler's defaults, e.g.
     ``SchedulerConfig(num_scheduler_steps=1)`` for one decode step per
-    iteration; its ``num_blocks`` is set from ``--num-blocks``. With
+    iteration; its ``num_blocks`` is set from ``--num-blocks``. ``params``
+    gives the model its weights in place of ``--checkpoint``'s. With
     ``--draft-model`` the engine speculates; ``draft_params`` gives the
-    draft its weights (e.g. the target's own, for self-speculation)."""
-    tokenizer = load_tokenizer()
+    draft its weights in place of ``--draft-checkpoint``'s (e.g. the
+    target's own, for self-speculation)."""
+    tokenizer = load_tokenizer(args.tokenizer)
     engine = TorchEngine.build(
         EngineArgs(
             model=args.out,
@@ -82,14 +93,17 @@ def build_service(
             dtype=args.dtype,
             seed=args.seed,
             device=args.device,
+            checkpoint_path=args.checkpoint,
             eos_token_ids=tokenizer.eos_token_ids,
             scheduler=dataclasses.replace(scheduler_config or SchedulerConfig(), num_blocks=args.num_blocks),
             draft_model=args.draft_model,
+            draft_checkpoint_path=args.draft_checkpoint,
             spec_gamma=args.spec_gamma,
             kv_cache_dtype=args.kv_cache_dtype,
             weight_dtype=args.weight_dtype,
             warmup_ctx=args.warmup_ctx,
         ),
+        params=params,
         draft_params=draft_params,
     )
     manager = ModelManager()

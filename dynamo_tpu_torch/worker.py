@@ -1,6 +1,6 @@
 """Worker CLI: serve a ``TorchEngine`` as a discoverable endpoint.
 
-    python -m dynamo_tpu_torch.worker --model llama-3.2-1b
+    python -m dynamo_tpu_torch.worker --model llama-3.2-1b --checkpoint DIR --tokenizer DIR
 
 The counterpart of ``python -m dynamo_tpu.worker`` in its ``aggregated``
 role, with the JAX CLI's flag names for what is ported. The worker builds
@@ -11,9 +11,12 @@ publishes its KV events (hopped from the engine's step thread to the event
 loop) and its load metrics, answers stats scrapes with
 ``TorchEngine.stats_handler``, and on SIGINT or SIGTERM deregisters,
 drains and exits. It reaches the control plane named by
-``DYN_CONTROL_PLANE`` / ``DYN_CONTROL_PLANE_ADDRESS``. The weights are
-seeded random at the preset's published widths (``--seed``; checkpoint
-loading is not ported yet) and the tokenizer is the byte-level one.
+``DYN_CONTROL_PLANE`` / ``DYN_CONTROL_PLANE_ADDRESS``. The weights come
+from ``--checkpoint`` (a safetensors directory or a GGUF file; the draft's
+from ``--draft-checkpoint``), else seeded random at the preset's widths
+(``--seed``). ``--tokenizer`` goes on the model card, so the frontends
+tokenize with it, and guided decoding lifts grammars against it; without
+it both use the byte-level tokenizer.
 
 At shutdown it logs one line, ``worker launch counters: {json}``: each
 kernel wrapper's launches and plain calls, and the scheduler's step and
@@ -34,8 +37,7 @@ refuses them (ROADMAP Queue 1, by item):
   ``--incident-dir``, ``--incident-keep``, ``--profile-on-incident``,
   ``--no-continuous-profiling``, ``--profile-window-s``,
   ``--profile-interval-s``, ``--profile-dir``, ``--slo-ttft-ms``,
-  ``--slo-tpot-ms``, ``--stall-after-s``, ``--health-port``;
-- 3 and 12: ``--checkpoint``, ``--draft-checkpoint``, ``--tokenizer``.
+  ``--slo-tpot-ms``, ``--stall-after-s``, ``--health-port``.
 """
 
 from __future__ import annotations
@@ -154,13 +156,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--role", choices=["aggregated"], default="aggregated")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs the plain path)")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights and of sampling")
+    p.add_argument("--checkpoint", default=None,
+                   help="weights: a safetensors directory or a GGUF file (default: seeded random weights)")
+    p.add_argument("--tokenizer", default=None,
+                   help="a tokenizer.json or its directory, named on the model card (default: byte-level)")
     p.add_argument("--num-blocks", type=int, default=512)
     p.add_argument("--max-running", type=int, default=16)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--kv-cache-dtype", choices=["auto", "int8"], default="auto")
     p.add_argument("--weight-dtype", choices=["auto", "int8"], default="auto")
-    p.add_argument("--draft-model", default=None,
-                   help="draft model preset for speculative decoding (seeded random weights)")
+    p.add_argument("--draft-model", default=None, help="draft model preset for speculative decoding")
+    p.add_argument("--draft-checkpoint", default=None,
+                   help="the draft's weights (default: seeded random weights)")
     p.add_argument("--spec-gamma", type=int, default=4, help="speculative tokens proposed per round")
     p.add_argument("--warmup-ctx", type=int, default=0,
                    help="capture the step graphs for contexts up to this many tokens before serving "
@@ -169,16 +176,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_engine(args: argparse.Namespace) -> TorchEngine:
-    tokenizer = load_tokenizer()
+    tokenizer = load_tokenizer(args.tokenizer)
     engine = TorchEngine.build(
         EngineArgs(
             model=args.model,
             dtype=args.dtype,
             seed=args.seed,
             device=args.device,
+            checkpoint_path=args.checkpoint,
             eos_token_ids=tokenizer.eos_token_ids,
             scheduler=SchedulerConfig(num_blocks=args.num_blocks, max_running=args.max_running),
             draft_model=args.draft_model,
+            draft_checkpoint_path=args.draft_checkpoint,
             spec_gamma=args.spec_gamma,
             kv_cache_dtype=args.kv_cache_dtype,
             weight_dtype=args.weight_dtype,
@@ -186,17 +195,23 @@ def build_engine(args: argparse.Namespace) -> TorchEngine:
         )
     )
     # Guided decoding lifts grammars against the tokenizer the frontend
-    # detokenizes with (the card names none: the byte tokenizer).
+    # detokenizes with: the one the card names.
     engine.attach_guided_tokenizer(tokenizer)
     return engine
+
+
+def build_card(args: argparse.Namespace, engine: TorchEngine) -> ModelDeploymentCard:
+    """The model card the worker publishes: its name, the tokenizer the
+    frontends load (``--tokenizer``) and the engine's KV block size."""
+    return ModelDeploymentCard(name=args.served_model_name or args.model, model_type="chat",
+                               tokenizer_path=args.tokenizer, kv_cache_block_size=engine.scheduler.mc.block_size)
 
 
 async def amain(args: argparse.Namespace) -> None:
     engine = build_engine(args)
     drt = await DistributedRuntime.from_settings()
     drt.runtime.install_signal_handlers()
-    card = ModelDeploymentCard(name=args.served_model_name or args.model, model_type="chat",
-                               kv_cache_block_size=engine.scheduler.mc.block_size)
+    card = build_card(args, engine)
     worker = await serve_engine(drt, engine, card, namespace=args.namespace,
                                 component=args.component or "backend", endpoint=args.endpoint)
     logger.info("worker ready: role=%s model=%s instance=%x", args.role, card.name, worker.instance_id)

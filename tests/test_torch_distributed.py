@@ -23,10 +23,17 @@ publish, TCP call-home response frames) and never takes ``local_engines``:
 6. the CLIs: ``python -m dynamo_tpu_torch.control_plane`` / ``.worker
    --device cpu`` / ``.frontend`` as processes answer one request and exit
    cleanly on SIGTERM; the worker defaults to ``--device cuda`` and raises
-   without CUDA; JAX flags whose feature is not ported are refused.
+   without CUDA; JAX flags whose feature is not ported are refused;
+7. a port worker built by the CLI's ``build_engine`` / ``build_card`` from
+   ``--checkpoint`` and ``--tokenizer`` files (tiny's widths, 1,024 ids, a
+   Llama-3-layout tokenizer) behind the port's frontend and behind the JAX
+   frontend, each loading the card's ``tokenizer_path`` (and rendering its
+   ``chat_template`` when the card carries one), gives the text of a JAX
+   worker built from the same files behind the JAX frontend.
 """
 
 import asyncio
+import dataclasses
 import http.client
 import json
 import os
@@ -593,7 +600,7 @@ def test_worker_defaults_to_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize("cli,flags", [
     ("worker", ["--mocker"]), ("worker", ["--role", "decode"]), ("worker", ["--tp", "2"]),
-    ("worker", ["--health-port", "0"]), ("worker", ["--checkpoint", "x"]), ("worker", ["--kvbm-host-blocks", "8"]),
+    ("worker", ["--health-port", "0"]), ("worker", ["--incident-dir", "x"]), ("worker", ["--kvbm-host-blocks", "8"]),
     ("frontend", ["--grpc-port", "1"]), ("frontend", ["--tls-cert-path", "x"]), ("frontend", ["--trace-file", "x"]),
 ])
 def test_unported_jax_flags_are_refused(cli, flags):
@@ -602,3 +609,103 @@ def test_unported_jax_flags_are_refused(cli, flags):
     parser = (pworker if cli == "worker" else pfrontend).build_parser()
     with pytest.raises(SystemExit):
         parser.parse_args(flags)
+
+
+# ---------------------------------------------------------------------------
+# 7. A worker serving model files
+# ---------------------------------------------------------------------------
+
+FILE_MODEL = "tiny-files"
+FILE_BODIES = [
+    ("/v1/chat/completions", {"messages": [{"role": "system", "content": "You are terse."},
+                                           {"role": "user", "content": "Which worker holds the prefix?"}],
+                              "max_tokens": 12}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "Stream it, please."}], "max_tokens": 10,
+                              "stream": True}),
+    ("/v1/completions", {"prompt": "The router hashes each block of", "max_tokens": 9}),
+]
+for _, _body in FILE_BODIES:
+    _body.update(model=FILE_MODEL, temperature=0.0)
+
+
+@pytest.fixture(scope="module")
+def model_files(tmp_path_factory):
+    """tiny's seeded JAX weights with 1,024 ids as HF safetensors, and a
+    Llama-3-layout tokenizer of that size. → (checkpoint, tokenizer dir)."""
+    import chip_smoke
+
+    root = tmp_path_factory.mktemp("files")
+    tcfg = get_config("tiny").replace(vocab_size=1024)
+    jp = jllama.init_params(jax_config("tiny").replace(vocab_size=1024), jax.random.PRNGKey(6), dtype=jnp.float32)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu", dtype=torch.float32)
+    chip_smoke.write_hf_checkpoint(str(root / "ckpt"), tp, tcfg)
+    chip_smoke.write_tokenizer(str(root / "tok"), chip_smoke.llama3_tokenizer_spec(size=768, n_special=256))
+    return str(root / "ckpt"), str(root / "tok")
+
+
+async def _files_stack(front: str, worker: str, files, template):
+    """One worker of ``worker``'s package serving the files, behind
+    ``front``'s frontend: FILE_BODIES' answers and the card it published."""
+    from dynamo_tpu.llm.tokenizer import HFTokenizer as JaxHFTokenizer
+
+    ckpt, tok_dir = files
+    server = ptcp.ControlPlaneServer(host="127.0.0.1", port=0)
+    await server.start()
+    address = f"127.0.0.1:{server.port}"
+    try:
+        if worker == "port":
+            args = pworker.build_parser().parse_args([
+                "--model", FILE_MODEL, "--checkpoint", ckpt, "--tokenizer", tok_dir, "--device", "cpu",
+                "--dtype", "float32", "--num-blocks", "64"])
+            drt, engine = await port_drt(address), pworker.build_engine(args)
+            card = dataclasses.replace(pworker.build_card(args, engine), chat_template=template)
+            handle = await pworker.serve_engine(drt, engine, card)
+        else:
+            tok = JaxHFTokenizer(tok_dir)
+            drt = await jax_drt(address)
+            engine = TpuEngine.build(JaxEngineArgs(
+                model="tiny", model_config=jax_config("tiny").replace(vocab_size=1024), dtype="float32",
+                checkpoint_path=ckpt, tokenizer=tok, eos_token_ids=tok.eos_token_ids, continuous_profiling=False,
+                scheduler=jsched.SchedulerConfig(num_blocks=64, max_running=16)))
+            card = JaxCard(name=FILE_MODEL, model_type="chat", tokenizer_path=tok_dir, chat_template=template)
+            ep = drt.namespace("dynamo").component("backend").endpoint("generate")
+            handle = await jentry.register_llm(drt, ep, engine, card, stats_handler=engine.stats_handler)
+        front_drt = await (port_drt if front == "port" else jax_drt)(address)
+        entry = pentry if front == "port" else jentry
+        service = await entry.start_frontend(front_drt, entry.FrontendConfig(host="127.0.0.1", port=0,
+                                                                            router_mode="round-robin"))
+        await wait_for(lambda: service.port and _get(service.port, "/v1/models")[1]["data"], 30)
+        answers = []
+        for path, body in FILE_BODIES:
+            status, raw = await asyncio.to_thread(_post, service.port, path, body)
+            assert status == 200, raw
+            answers.append(answer(path, body, raw))
+        if front == "port":
+            await pentry.stop_frontend(service)
+        else:
+            await service.watcher.stop()
+            await service.stop()
+        await front_drt.shutdown()
+        if worker == "port":
+            await handle.stop(drain_timeout_s=5)
+        await drt.shutdown()
+        await engine.stop()
+        return answers, card
+    finally:
+        await server.close()
+
+
+@pytest.mark.parametrize("template", [None, "llama3"])
+def test_worker_serves_model_files_like_jax(model_files, monkeypatch, template):
+    import chip_smoke
+    from dynamo_tpu_torch.engine import config as pconfig
+
+    monkeypatch.setitem(pconfig.PRESETS, FILE_MODEL, get_config("tiny").replace(name=FILE_MODEL, vocab_size=1024))
+    source = chip_smoke.LLAMA3_CHAT_TEMPLATE if template else None
+    want, _ = asyncio.run(_files_stack("jax", "jax", model_files, source))
+    for front in ("port", "jax"):
+        got, card = asyncio.run(_files_stack(front, "port", model_files, source))
+        assert card.tokenizer_path == model_files[1] and card.chat_template == source
+        for (path, body), g, w in zip(FILE_BODIES, got, want):
+            assert g[:2] == w[:2], (front, path, body.get("stream"))
+            assert g[1] == "stop" or g[2]["completion_tokens"] == body["max_tokens"]

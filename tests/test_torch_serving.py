@@ -24,10 +24,19 @@
    answer twice; ``logprobs`` and ``frequency_penalty`` are served (the
    extras against JAX: test_torch_extras_serving.py) and malformed seeds
    refused.
+   From files: ``run.build_service`` with ``--checkpoint`` and
+   ``--tokenizer`` (a safetensors checkpoint and a Llama-3-layout
+   ``tokenizer.json`` that ``chip_smoke``'s writers make, with tiny's
+   widths and 1,024 ids) streams the text of the JAX
+   ``build_local_pipeline(HFTokenizer, TpuEngine.build(checkpoint_path=))``
+   for chat and completion requests, on the default template and, through
+   a second model whose card carries the Llama-3.x template, on that one.
 3. Isolation: every module of ``dynamo_tpu_torch`` imports with ``jax``,
-   ``msgpack``, ``aiohttp`` and ``prometheus_client`` blocked (the card's
-   machine has none of them) and loads nothing of the JAX package, and no
-   port file or ``chip_smoke.py`` names any of them in an import.
+   ``msgpack``, ``aiohttp``, ``prometheus_client``, ``safetensors``,
+   ``tokenizers``, ``jinja2``, ``transformers``, ``ml_dtypes``, ``regex``,
+   ``gguf`` and ``sentencepiece`` blocked (the card's machine has none of
+   them) and loads nothing of the JAX package, and no port file or
+   ``chip_smoke.py`` names any of them in an import.
 """
 
 import asyncio
@@ -65,7 +74,8 @@ from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
 from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.http.service import HttpService
-from dynamo_tpu_torch.llm.preprocessor import DEFAULT_CHAT_TEMPLATE, render_default_chat_template
+from dynamo_tpu_torch.llm.preprocessor import DEFAULT_CHAT_TEMPLATE
+from dynamo_tpu_torch.llm.preprocessor import PromptFormatter as TorchPromptFormatter
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -547,10 +557,10 @@ def test_stop_string_jail_matches_jax():
 def test_chat_template_matches_jax_formatter():
     messages = [{"role": "system", "content": "sys\nline"}, {"role": "user", "content": "héllo {{ x }}"},
                 {"role": "assistant", "content": ""}, {"role": "user"}]
-    assert DEFAULT_CHAT_TEMPLATE == JAX_DEFAULT_CHAT_TEMPLATE  # the template the plain renderer follows
+    assert DEFAULT_CHAT_TEMPLATE == JAX_DEFAULT_CHAT_TEMPLATE
     want = PromptFormatter().render(messages, add_generation_prompt=True)
-    assert render_default_chat_template(messages, add_generation_prompt=True) == want
-    assert render_default_chat_template(messages[:1], False) == PromptFormatter().render(messages[:1], False)
+    assert TorchPromptFormatter().render(messages, add_generation_prompt=True) == want
+    assert TorchPromptFormatter().render(messages[:1], False) == PromptFormatter().render(messages[:1], False)
 
 
 def test_build_service_carries_a_model_config():
@@ -576,6 +586,108 @@ def test_build_service_carries_a_model_config():
     assert not engine.scheduler._use_fused_window
 
 
+FILE_BODIES = [
+    ("/v1/chat/completions", {"messages": [{"role": "system", "content": "You are terse."},
+                                           {"role": "user", "content": "Which port serves the model?"}],
+                              "max_tokens": 12}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "Stream the answer, please."}],
+                              "max_tokens": 10, "stream": True}),
+    ("/v1/completions", {"prompt": "The scheduler admits a wave of requests", "max_tokens": 9}),
+    ("/v1/completions", {"prompt": "Kernels launch once", "max_tokens": 7, "stream": True}),
+]
+FILE_MODELS = ("tiny", "tiny-chat")  # the run's default template; the card's Llama-3.x template
+
+
+@pytest.fixture(scope="module")
+def model_files(tmp_path_factory, weights):
+    """tiny's JAX weights (its vocabulary widened to 1,024 ids) as HF
+    safetensors, and a Llama-3-layout tokenizer of 768 BPE and 256 special
+    tokens. → (checkpoint dir, tokenizer dir, port config, JAX config)."""
+    import chip_smoke
+
+    root = tmp_path_factory.mktemp("files")
+    tcfg, jcfg = TCFG.replace(vocab_size=1024), JCFG.replace(vocab_size=1024)
+    jp = jllama.init_params(jcfg, jax.random.PRNGKey(4), dtype=jnp.float32)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu", dtype=torch.float32)
+    chip_smoke.write_hf_checkpoint(str(root / "ckpt"), tp, tcfg)
+    chip_smoke.write_tokenizer(str(root / "tok"), chip_smoke.llama3_tokenizer_spec(size=768, n_special=256))
+    return str(root / "ckpt"), str(root / "tok"), tcfg, jcfg
+
+
+def _bodies(model):
+    return [(path, {**body, "model": model, "temperature": 0.0}) for path, body in FILE_BODIES]
+
+
+async def _jax_file_texts(ckpt, tok_dir, jcfg):
+    import chip_smoke
+    from dynamo_tpu.llm.model_card import ModelDeploymentCard as JaxCard
+    from dynamo_tpu.llm.tokenizer import HFTokenizer as JaxHFTokenizer
+
+    tok = JaxHFTokenizer(tok_dir)
+    engine = TpuEngine.build(
+        JaxEngineArgs(model="tiny", model_config=jcfg, dtype="float32", checkpoint_path=ckpt, continuous_profiling=False,
+                      eos_token_ids=tok.eos_token_ids,
+                      scheduler=jsched.SchedulerConfig(num_blocks=64, num_scheduler_steps=1, **BUCKETS)))
+    pipelines = {"tiny": jax_pipeline(tok, engine),
+                 "tiny-chat": jax_pipeline(tok, engine, JaxCard(name="tiny-chat",
+                                                                chat_template=chip_smoke.LLAMA3_CHAT_TEMPLATE))}
+    texts = []
+    try:
+        for model in FILE_MODELS:
+            for _, body in _bodies(model):
+                parts, finish = [], None
+                async for item in pipelines[model].generate(dict(body), JaxContext()):
+                    data = getattr(item, "data", None)
+                    if data:
+                        parts.append(data.get("text") or "")
+                        finish = data.get("finish_reason") or finish
+                texts.append(("".join(parts), finish))
+    finally:
+        await engine.stop()
+    return texts
+
+
+async def _port_file_answers(ckpt, tok_dir, tcfg):
+    import chip_smoke
+    from dynamo_tpu_torch import run
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    args = run.parse_args(["in=http", "out=tiny", "--device", "cpu", "--dtype", "float32", "--num-blocks", "64",
+                           "--http-host", "127.0.0.1", "--http-port", "0", "--checkpoint", ckpt, "--tokenizer",
+                           tok_dir])
+    service, engine = run.build_service(args, model_config=tcfg,
+                                        scheduler_config=tsched.SchedulerConfig(num_scheduler_steps=1, **BUCKETS))
+    tok = engine.scheduler.guided.tokenizer
+    card = ModelDeploymentCard(name="tiny-chat", chat_template=chip_smoke.LLAMA3_CHAT_TEMPLATE)
+    service.manager.add_model("chat", "tiny-chat", build_local_pipeline(tok, engine, card))
+    await service.start()
+    try:
+        answers = [await asyncio.to_thread(_post, service.port, path, body)
+                   for model in FILE_MODELS for path, body in _bodies(model)]
+    finally:
+        await service.stop()
+        await engine.stop()
+    return answers, tok, engine.scheduler._eos
+
+
+def test_build_service_serves_model_files_like_jax(model_files):
+    ckpt, tok_dir, tcfg, jcfg = model_files
+    want = asyncio.run(_jax_file_texts(ckpt, tok_dir, jcfg))
+    answers, tok, eos = asyncio.run(_port_file_answers(ckpt, tok_dir, tcfg))
+    assert type(tok).__name__ == "HFTokenizer" and tok.vocab_size == 1024 and list(eos) == [777]
+    bodies = [pb for model in FILE_MODELS for pb in _bodies(model)]
+    for (path, body), (status, raw), (text, finish) in zip(bodies, answers, want):
+        assert status == 200, raw
+        got_text, got_finish, usage = _text_of(path, body, raw)
+        assert (got_text, got_finish) == (text, finish), (body["model"], path)
+        assert usage["completion_tokens"] == body["max_tokens"] or got_finish == "stop"
+    # The card's template reached the prompt: its header tokens are in the
+    # rendered prompt (more prompt tokens than the default template's).
+    chat_default, chat_card = answers[0], answers[len(FILE_BODIES)]
+    assert _text_of(*bodies[len(FILE_BODIES)], chat_card[1])[2]["prompt_tokens"] > \
+        _text_of(*bodies[0], chat_default[1])[2]["prompt_tokens"]
+
+
 def test_entry_points_default_to_cuda_and_refuse_without_it():
     from dynamo_tpu_torch import run
 
@@ -589,6 +701,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
 # ---------------------------------------------------------------------------
 # 3. The port stands alone
 # ---------------------------------------------------------------------------
+
+
+# The wheels the card's machine lacks, blocked while every port module imports.
+BLOCKED = ("jax", "msgpack", "aiohttp", "prometheus_client", "safetensors", "tokenizers", "jinja2", "transformers",
+           "ml_dtypes", "regex", "gguf", "sentencepiece")
 
 
 def _port_modules():
@@ -606,14 +723,15 @@ def test_port_imports_without_jax_or_the_jax_package():
     code = (
         "import sys, importlib\n"
         # jax, and the wheels the card's machine lacks (the JAX package's
-        # wire, metrics and HTTP server use them).
-        "for name in ('jax', 'msgpack', 'aiohttp', 'prometheus_client'):\n"
+        # wire, metrics, HTTP server, checkpoints, tokenizers and templates
+        # use them).
+        f"for name in {BLOCKED!r}:\n"
         "    sys.modules[name] = None\n"
         f"mods = {_port_modules()!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(n for n in sys.modules if n == 'dynamo_tpu' or n.startswith('dynamo_tpu.'))\n"
-        "bad += sorted(n for n in sys.modules if (n == 'jax' or n.startswith('jax.')) and sys.modules[n] is not None)\n"
+        f"bad += sorted(n for n in sys.modules if n.split('.')[0] in {BLOCKED!r} and sys.modules[n] is not None)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -625,7 +743,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert int(res.stdout.strip()) == len(_port_modules()) > 15
 
 
-_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|dynamo_tpu|msgpack|aiohttp|prometheus_client)(?:[.\s,]|$)",
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|dynamo_tpu|msgpack|aiohttp|prometheus_client|safetensors"
+                        r"|tokenizers|jinja2|transformers|ml_dtypes|regex|gguf|sentencepiece)(?:[.\s,]|$)",
                         re.MULTILINE)
 
 
@@ -637,4 +756,7 @@ def test_no_port_file_names_jax_or_the_jax_package():
     assert _FORBIDDEN.search("from dynamo_tpu.engine import x") and _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("import msgpack") and _FORBIDDEN.search("from aiohttp import web")
     assert _FORBIDDEN.search("import prometheus_client")
+    assert all(_FORBIDDEN.search(f"import {name}") for name in BLOCKED)
+    assert _FORBIDDEN.search("from safetensors import safe_open") and _FORBIDDEN.search("from tokenizers import Tokenizer")
     assert not _FORBIDDEN.search("from dynamo_tpu_torch.engine import x")
+    assert not _FORBIDDEN.search("import regexp") and not _FORBIDDEN.search("from dynamo_tpu_torch.llm import gguf")

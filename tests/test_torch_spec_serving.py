@@ -17,7 +17,7 @@
    ``spec_decode`` stats and step counter; greedy output equals the
    non-spec scheduler's.
 3. The port's spec greedy output equals its non-spec greedy output.
-4. Refusals: mismatched drafts, γ < 1 and a draft checkpoint; where the
+4. Refusals: mismatched drafts, γ < 1 and a missing draft checkpoint; where the
    fused spec gate refuses (one step an iteration, the per-piece path, γ
    past the kernel's 8) the draft attaches and speculates per round.
 5. ``TorchEngine`` with ``draft_model`` serves a request through the HTTP
@@ -224,8 +224,9 @@ def test_attach_draft_refusals(models):
         sched().attach_draft(TCFG.replace(vocab_size=512), tt)
     with pytest.raises(ValueError, match="gamma"):
         sched().attach_draft(TCFG, tt, gamma=0)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        EngineArgs(model="tiny", draft_model="tiny", draft_checkpoint_path="/nonexistent")
+    with pytest.raises(FileNotFoundError):
+        TorchEngine.build(EngineArgs(model="tiny", draft_model="tiny", draft_checkpoint_path="/nonexistent",
+                                     device="cpu", dtype="float32"))
     # Where the fused spec window cannot run (one step an iteration, the
     # per-piece path, γ past the kernel's 8), the draft attaches and
     # speculates one round an iteration.
