@@ -81,8 +81,16 @@ Every phase prints JSON lines; any failure raises and
 exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result.
 
-``--phases`` runs a subset of kernel,model,breakdown,serve,checkpoint,distributed (env
-and build always run) for iteration; the full run is the default. ``grammar``,
+Then ``kvbm`` serves long prompts through an engine whose G1 is too small
+to keep them, with host (G2) and disk (G3) tiers: evicted blocks offload,
+repeats onboard them, bit-equal, and answer as a G1 that kept them does;
+and ``disagg`` runs a ``--role prefill`` and a ``--role decode`` worker
+(the KV handed over on the card through CUDA IPC) behind the frontend,
+their answers held against an aggregated engine in process, and the host
+wire's bytes against a device pull's.
+
+``--phases`` runs a subset of kernel,model,breakdown,serve,checkpoint,distributed,
+kvbm,disagg (env and build always run) for iteration; the full run is the default. ``grammar``,
 outside the default, times a ``json_object`` grammar's token FSM over the
 checkpoint phase's 128,256-id vocabulary (minutes of host time).
 """
@@ -4078,13 +4086,13 @@ def _burst_summary(answers: list, wall: float) -> dict:
 
 
 class _Children:
-    """The phase's processes, each writing its output to a log file under
-    ``build/chip_smoke/distributed`` (git-ignored). ``stop`` sends SIGTERM
+    """A phase's processes, each writing its output to a log file under
+    ``build/chip_smoke/<phase>`` (git-ignored). ``stop`` sends SIGTERM
     and waits; ``kill`` (in a ``finally``) ends whatever still runs."""
 
-    def __init__(self, root, env):
+    def __init__(self, root, env, phase: str = "distributed"):
         self.root, self.env, self.procs = root, env, {}
-        self.logs = root / "build" / "chip_smoke" / "distributed"
+        self.logs = root / "build" / "chip_smoke" / phase
         self.logs.mkdir(parents=True, exist_ok=True)
 
     def start(self, name: str, module: str, *args: str) -> None:
@@ -5226,7 +5234,516 @@ def phase_grammar(card: str) -> dict:
     return res
 
 
-def kernels_line(timed: dict, served: dict, dist: dict, ckpt: dict) -> list:
+# ---------------------------------------------------------------------------
+# kvbm: the KV block manager's tiers on the card
+# ---------------------------------------------------------------------------
+
+KVBM_G1_BLOCKS = 256  # 255 usable: the traffic's 6 × 66 cached blocks evict
+KVBM_HOST_BLOCKS = 80  # G2 spills to G3
+KVBM_DISK_BLOCKS = 1024
+KVBM_PROMPT = 1000
+KVBM_WARMUP_CTX = 1280  # every step graph of 1,064-token contexts
+
+
+def kvbm_traffic(vocab_size: int) -> list:
+    """Six distinct prompts of ``KVBM_PROMPT`` seeded token ids, then
+    repeats of the second (onboarded from G2), of the first (from G3) and
+    of the second again (a G1 hit: its blocks were onboarded)."""
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(1, min(vocab_size, 100000), size=KVBM_PROMPT).tolist() for _ in range(6)]
+    return prompts + [prompts[1], prompts[0], prompts[1]]
+
+
+def block_digest(k: torch.Tensor, v: torch.Tensor) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in (k, v):
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+async def engine_answer(engine, tokens: list, max_tokens: int = 64) -> dict:
+    """One greedy request straight to ``TorchEngine.generate`` → its ids,
+    TTFT, latency and cached tokens."""
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    req = {"token_ids": tokens, "sampling_options": {"temperature": 0.0},
+           "stop_conditions": {"max_tokens": max_tokens, "ignore_eos": True}}
+    t0 = time.perf_counter()
+    ids, first, cached = [], None, None
+    async for frame in engine.generate(req, Context()):
+        if first is None and frame["token_ids"]:
+            first = time.perf_counter() - t0
+            cached = frame.get("cached_tokens")
+        ids += frame["token_ids"]
+    return {"ids": ids, "ttft_s": first, "latency_s": time.perf_counter() - t0, "cached_tokens": cached}
+
+
+class KvbmProbe:
+    """Wraps one engine's KVBM: each block's bytes at its first offload
+    (a digest), each drain's device → host copy (blocks, seconds), each
+    onboard (its hashes, G1 blocks and tiers, the tiers' read seconds and
+    the upload's), so the onboarded blocks can be read back from G1."""
+
+    def __init__(self, kvbm):
+        self.evicted, self.drains, self.onboards = {}, [], []
+        put, to_host, onboard, upload = kvbm._cascade_put, kvbm._to_host, kvbm.onboard, kvbm._upload
+
+        def traced_put(h, k, v):
+            self.evicted.setdefault(h, block_digest(k, v))
+            return put(h, k, v)
+
+        def traced_to_host(rows):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            host = to_host(rows)
+            self.drains.append({"blocks": len(rows) // 2, "bytes": host.numel() * host.element_size(),
+                                "seconds": time.perf_counter() - t})
+            return host
+
+        def traced_upload(entries, block_ids):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            upload(entries, block_ids)
+            torch.cuda.synchronize()
+            self._up = (time.perf_counter() - t, sum(k.numel() * k.element_size() * 2 for k, _ in entries))
+
+        def traced_onboard(match, hashes):
+            n_g1, tiers = len(match.g1_blocks), [t.name for _, t in match.onboardable]
+            self._up = (0.0, 0)
+            t = time.perf_counter()
+            blocks = onboard(match, hashes)
+            seconds = time.perf_counter() - t
+            new = blocks[n_g1:]
+            if new:
+                self.onboards.append({"pairs": list(zip(hashes[n_g1:n_g1 + len(new)], new)),
+                                      "tiers": {n: tiers[:len(new)].count(n) for n in set(tiers[:len(new)])},
+                                      "seconds": seconds, "upload_s": self._up[0], "bytes": self._up[1]})
+            return blocks
+
+        kvbm._cascade_put, kvbm._to_host, kvbm.onboard, kvbm._upload = (traced_put, traced_to_host, traced_onboard,
+                                                                         traced_upload)
+
+    def check_onboarded(self, cache, since: int) -> tuple:
+        """(blocks read back, the ones whose bytes differ from the bytes
+        gathered when their hash was evicted) of the onboards from
+        ``since`` on."""
+        from dynamo_tpu_torch.llm.block_manager.transfer import gather_blocks
+
+        n, bad = 0, []
+        for ob in self.onboards[since:]:
+            for h, bid in ob["pairs"]:
+                n += 1
+                if block_digest(*gather_blocks(cache, bid)) != self.evicted.get(h):
+                    bad.append(f"{h & 0xFFFFFFFFFFFFFFFF:016x}")
+        return n, bad
+
+
+def phase_kvbm(card: str, dev) -> dict:
+    """KVBM on the card, in process. One ``TorchEngine`` of the preset
+    (seeded bf16 weights, ``--warmup-ctx 1280``) with a G1 of
+    ``KVBM_G1_BLOCKS`` blocks, ``KVBM_HOST_BLOCKS`` host blocks (G2) and a
+    G3 directory under ``build/chip_smoke``, sent ``kvbm_traffic`` one
+    request at a time (greedy, 64 tokens): the six prompts evict each
+    other's blocks, which offload to G2 and spill to G3; the repeats
+    onboard them, and the last is a G1 hit. Gates: blocks onboarded from
+    G2 and from G3 and
+    ``prefix_onboard_total > 0``; every onboarded block's bytes, read back
+    from G1, those gathered when it was evicted; the repeats' ids those of
+    the same traffic on an engine whose G1 (2048 blocks) keeps every
+    block; ragged launches = 16 × forward steps (+ non-fused window
+    steps), each fused window launched once, no plain call; no graph
+    capture after the warmup. Reports the drains' device → host GB/s, the
+    onboards' ms a block and upload GB/s, and the TTFT of each repeat (with
+    the tiers it onboarded from) beside the cold prefills'."""
+    import os
+
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
+    from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+    from dynamo_tpu_torch.engine.weights import init_params
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    g3 = os.path.join(root, "build", "chip_smoke", "kvbm_g3")
+    shutil.rmtree(g3, ignore_errors=True)
+    cfg = get_config(PRESET)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+    traffic = kvbm_traffic(cfg.vocab_size)
+
+    async def serve(num_blocks: int, tiers: bool):
+        args = EngineArgs(model=PRESET, device=str(dev), scheduler=SchedulerConfig(num_blocks=num_blocks),
+                          warmup_ctx=KVBM_WARMUP_CTX if tiers else 0,
+                          kvbm_host_blocks=KVBM_HOST_BLOCKS if tiers else 0, kvbm_disk_dir=g3 if tiers else None,
+                          kvbm_disk_blocks=KVBM_DISK_BLOCKS if tiers else 0)
+        t0 = time.perf_counter()
+        engine = TorchEngine.build(args, params=params)
+        build_s = time.perf_counter() - t0
+        sched = engine.scheduler
+        probe = KvbmProbe(engine.kvbm) if tiers else None
+        answers, checks = [], []
+        try:
+            steps0 = sched_steps(sched)
+            reset_counts()  # counts from zero, just before the main path runs
+            for i, tokens in enumerate(traffic):
+                m0 = dict(vars(engine.kvbm.metrics)) if tiers else None
+                n0 = len(probe.onboards) if tiers else 0
+                ans = await engine_answer(engine, tokens)
+                if tiers:
+                    ans["kvbm"] = {k: v - m0[k] for k, v in vars(engine.kvbm.metrics).items() if v != m0[k]}
+                    ans["onboarded_blocks"], bad = probe.check_onboarded(sched.cache, n0)
+                    if bad:
+                        checks.append(f"request {i}: onboarded blocks {bad[:4]} differ from their evicted bytes")
+                answers.append(ans)
+            counts = read_counts()
+            steps = {k: v - steps0[k] for k, v in sched_steps(sched).items()}
+            out = {"build_s": build_s, "answers": answers, "counts": counts, "steps": steps, "checks": checks,
+                   "warmup": sched.warmup_stats, "captures_after_warmup": sched.graph_captures_after_warmup,
+                   "stats": engine.stats_handler()}
+            if tiers:
+                out["metrics"] = dict(vars(engine.kvbm.metrics))
+                out["probe"] = probe
+                out["g3_files"] = len(os.listdir(g3))
+        finally:
+            await engine.stop()
+        return out
+
+    t0 = time.perf_counter()
+    run = asyncio.run(serve(KVBM_G1_BLOCKS, True))
+    ref = asyncio.run(serve(2048, False))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = cfg.num_layers
+    probe, m = run.pop("probe"), run["metrics"]
+    launches, expected, plain = serve_launches(run["counts"], run["steps"], L)
+    checks = list(run["checks"])
+    if not (m["onboards_g2"] > 0 and m["onboards_g3"] > 0 and run["stats"]["prefix_onboard_total"] > 0):
+        checks.append(f"onboards by tier {m}, prefix_onboard_total {run['stats']['prefix_onboard_total']}")
+    repeats = range(6, len(traffic))
+    differ = [i for i in repeats if run["answers"][i]["ids"] != ref["answers"][i]["ids"]]
+    if differ:
+        checks.append(f"repeats {differ} gave other ids than on the G1 that kept the blocks")
+    if launches != expected or plain or not run["steps"]["fused_windows_total"]:
+        checks.append(f"launches {launches} != {expected}, {plain} plain calls, or no fused window")
+    if run["captures_after_warmup"]:
+        checks.append(f"{run['captures_after_warmup']} graph captures after the warmup")
+    drained = sum(d["bytes"] for d in probe.drains)
+    drain_s = sum(d["seconds"] for d in probe.drains)
+    up_bytes = sum(o["bytes"] for o in probe.onboards)
+    up_s = sum(o["upload_s"] for o in probe.onboards)
+    n_onboarded = sum(len(o["pairs"]) for o in probe.onboards)
+    pick = lambda a: {k: a[k] for k in ("ttft_s", "latency_s", "cached_tokens")}  # noqa: E731
+    res = {
+        "card": card, "preset": PRESET, "g1_blocks": KVBM_G1_BLOCKS, "host_blocks": KVBM_HOST_BLOCKS,
+        "disk_blocks": KVBM_DISK_BLOCKS, "prompt_tokens": KVBM_PROMPT, "phase_s": time.perf_counter() - t0,
+        "metrics": m, "prefix_onboard_total": run["stats"]["prefix_onboard_total"], "g3_files": run["g3_files"],
+        "offload": {"drains": len(probe.drains), "blocks": sum(d["blocks"] for d in probe.drains),
+                    "bytes": drained, "seconds": drain_s, "gb_per_s": drained / drain_s / 1e9 if drain_s else None},
+        "onboard": {"onboards": [{k: o[k] for k in ("tiers", "seconds", "upload_s", "bytes")} | {
+                        "blocks": len(o["pairs"]), "ms_per_block": o["seconds"] * 1e3 / len(o["pairs"])}
+                    for o in probe.onboards],
+                    "blocks": n_onboarded, "upload_gb_per_s": up_bytes / up_s / 1e9 if up_s else None,
+                    "ms_per_block": sum(o["seconds"] for o in probe.onboards) * 1e3 / n_onboarded
+                    if n_onboarded else None},
+        "cold": [pick(a) for a in run["answers"][:6]], "cold_ttft_p50_s": statistics.median(
+            a["ttft_s"] for a in run["answers"][:6]),
+        "repeats": [{**pick(run["answers"][i]), "kvbm": run["answers"][i]["kvbm"],
+                     "onboarded_blocks": run["answers"][i]["onboarded_blocks"]} for i in repeats],
+        "reference_repeats": [pick(ref["answers"][i]) for i in repeats],
+        "ref_cold_ttft_p50_s": statistics.median(a["ttft_s"] for a in ref["answers"][:6]),
+        "repeat_ids_equal_g1": [run["answers"][i]["ids"] == ref["answers"][i]["ids"] for i in repeats],
+        "steps": run["steps"], "launches": launches, "expected_launches": expected, "plain_calls": plain,
+        "warmup": run["warmup"], "captures_after_warmup": run["captures_after_warmup"],
+        "build_s": {"kvbm": run["build_s"], "reference": ref["build_s"]},
+    }
+    emit("kvbm", **res)
+    if checks:
+        raise AssertionError("; ".join(checks))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# disagg: a prefill worker and a decode worker on one card
+# ---------------------------------------------------------------------------
+
+DISAGG_LOCAL_MAX = 512  # the decode worker's --max-local-prefill-length
+DISAGG_WARMUP_CTX = 2048  # both workers: no capture (and no capture's eager launches) on the traffic
+DISAGG_OWN_PULL_TOKENS = 1500
+
+
+def disagg_traffic() -> list:
+    """Four chat requests of about 1500 tokens (prefilled remotely) and four
+    of 32–200 (prefilled locally), interleaved; greedy, 64 tokens,
+    streamed."""
+    rng = np.random.default_rng(29)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    text = lambda n: "".join(rng.choice(letters, size=n))  # noqa: E731
+    out = []
+    for i, n in enumerate((1450, 32, 1480, 90, 1500, 150, 1470, 200)):
+        out.append({"model": PRESET, "max_tokens": 64, "temperature": 0.0, "stream": True,
+                    "messages": [{"role": "user", "content": f"{i}. " + text(n)}]})
+    return out
+
+
+async def _disagg_sequential(port: int, bodies: list) -> list:
+    return [_answer_of(r) for b in bodies for r in await _send(port, [b])]
+
+
+async def _disagg_burst(port: int, bodies: list) -> tuple:
+    t0 = time.perf_counter()
+    answers = [_answer_of(r) for r in await _send(port, bodies)]
+    return answers, time.perf_counter() - t0
+
+
+async def own_pulls(drt, dev, vocab_size: int) -> dict:
+    """From this process, over the port's runtime: a seeded prompt of
+    ``DISAGG_OWN_PULL_TOKENS`` ids prefilled on the prefill worker three
+    times (``do_remote_decode``); the first export pulled in device mode
+    (cold), the second in host mode (``pull_kv_blocks``, the JAX wire) and
+    the third in device mode again. The second and third ran the same
+    steps (both prefix-cache hits of the first), so their KV must be
+    bit-equal across the two modes. → the pulls' seconds and bytes and
+    the check."""
+    from dynamo_tpu_torch.llm.disagg import pull_kv_blocks, pull_kv_blocks_device
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.push_router import PushRouter
+
+    client = await drt.namespace("dynamo").component("prefill").endpoint("generate").client()
+    await client.wait_for_instances(1, timeout=60)
+    router = PushRouter(client)
+    tokens = np.random.default_rng(37).integers(1, min(vocab_size, 100000), size=DISAGG_OWN_PULL_TOKENS).tolist()
+    pulls = []
+    for i, mode in enumerate(("device", "host", "device")):
+        rid = f"chip-smoke-pull-{i}"
+        req = {"token_ids": tokens, "sampling_options": {"temperature": 0.0},
+               "stop_conditions": {"max_tokens": 1, "ignore_eos": True},
+               "disagg_params": {"do_remote_decode": True}}
+        iid = router.select()
+        async for _ in router.generate(req, Context(id=rid), instance_id=iid):
+            pass
+        inst = client.instances[iid]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if mode == "device":
+            k, v = await pull_kv_blocks_device(drt, inst, rid, dev)
+        else:
+            blocks = await pull_kv_blocks(drt, inst, rid)
+            k, v = (torch.stack([b[j] for b in blocks], dim=1) for j in (0, 1))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        nbytes = (k.numel() + v.numel()) * k.element_size()
+        pulls.append({"mode": mode, "seconds": s, "bytes": nbytes, "gb_per_s": nbytes / s / 1e9, "blocks": k.shape[1],
+                      "k": k.cpu(), "v": v.cpu()})
+    await router.close()
+    await client.close()
+    a, b = pulls[1], pulls[2]
+    equal = (a["k"].view(torch.uint8).numpy().tobytes() == b["k"].view(torch.uint8).numpy().tobytes()
+             and a["v"].view(torch.uint8).numpy().tobytes() == b["v"].view(torch.uint8).numpy().tobytes())
+    return {"pulls": [{k: p[k] for k in ("mode", "seconds", "bytes", "gb_per_s", "blocks")} for p in pulls],
+            "host_bytes_equal_device": equal}
+
+
+def phase_disagg(card: str, dev) -> dict:
+    """Disaggregated serving as an operator runs it, on one card: ``python
+    -m dynamo_tpu_torch.control_plane``, one ``worker --role prefill``, one
+    ``worker --role decode --kv-transfer device --max-local-prefill-length
+    512`` (both ``--warmup-ctx 2048``) and the KV-routing ``frontend``. ``disagg_traffic``
+    goes through the frontend one request at a time, then as one burst of
+    8: each time the four long prompts are prefilled on the prefill worker
+    and their KV pulled through CUDA IPC, the four short ones prefilled on
+    the decode worker. Gates: each pass moves the decode worker's
+    ``remote_prefills`` and ``local_prefills`` by 4 (stats scrapes) and
+    ``degrade_disagg_to_colocated_total`` never; every answer a 200 with
+    64 tokens or ``stop``; the one-at-a-time answers' text equal to an
+    in-process aggregated engine's (``run.build_service``, the same seed)
+    sent the same one at a time; the host wire once (``own_pulls``: the
+    bytes of a host pull equal a device pull's of the same prompt); at
+    SIGTERM the prefill worker's exports all taken, none expired, its
+    ragged launches 16 × its forward steps; the decode worker's ragged
+    launches 16 × (forward + non-fused window steps), each fused window
+    launched once; no plain call on either. Reports the burst's tok/s and
+    TTFT p50 beside the in-process engine's burst of the same requests,
+    and the pulls' ms and GB/s."""
+    import os
+    import socket
+    from pathlib import Path
+
+    from dynamo_tpu_torch import run
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.runtime.config import Config, ControlPlaneConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.runtime import Runtime
+
+    root = Path(__file__).resolve().parent
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        cp_port = s.getsockname()[1]
+    env = dict(os.environ, DYN_CONTROL_PLANE="tcp", DYN_CONTROL_PLANE_ADDRESS=f"127.0.0.1:{cp_port}", DYN_LOG="INFO",
+               PYTHONPATH=str(root))
+    bodies = disagg_traffic()
+    long_ = [i for i in range(len(bodies)) if i % 2 == 0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    kids = _Children(root, env, "disagg")
+    t0 = time.perf_counter()
+    try:
+        kids.start("control_plane", "dynamo_tpu_torch.control_plane", "--host", "127.0.0.1", "--port", str(cp_port))
+        kids.wait_for("control_plane", "control plane ready", 60)
+        kids.start("prefill", "dynamo_tpu_torch.worker", "--model", PRESET, "--role", "prefill", "--warmup-ctx",
+                   str(DISAGG_WARMUP_CTX))
+        kids.start("decode", "dynamo_tpu_torch.worker", "--model", PRESET, "--role", "decode", "--kv-transfer",
+                   "device", "--max-local-prefill-length", str(DISAGG_LOCAL_MAX), "--warmup-ctx",
+                   str(DISAGG_WARMUP_CTX))
+        kids.start("frontend", "dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1", "--http-port", "0",
+                   "--router-mode", "kv")
+        port = int(kids.wait_for("frontend", "frontend ready on", 120).split(" (")[0].rsplit(":", 1)[1])
+        for name in ("prefill", "decode"):
+            kids.wait_for(name, "worker ready", 300)
+        up_s = time.perf_counter() - t0
+
+        async def drive():
+            deadline = time.monotonic() + 60
+            while True:
+                kids.alive()
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+                conn.request("GET", "/v1/models")
+                models = [m["id"] for m in json.loads(conn.getresponse().read())["data"]]
+                conn.close()
+                if PRESET in models:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{PRESET} never appeared in /v1/models: {models}")
+                await asyncio.sleep(0.2)
+            plane = ControlPlaneConfig(backend="tcp", address=f"127.0.0.1:{cp_port}")
+            drt = await DistributedRuntime.from_settings(Runtime(Config(control_plane=plane)))
+            try:
+                client = await drt.namespace("dynamo").component("decode").endpoint("generate").client()
+                await client.wait_for_instances(1, timeout=60)
+
+                async def disagg_stats():
+                    (st,) = (await client.scrape_stats()).values()
+                    return st
+
+                passes = {}
+                for name in ("sequential", "burst"):
+                    before = await disagg_stats()
+                    t = time.perf_counter()
+                    if name == "sequential":
+                        answers = await _disagg_sequential(port, bodies)
+                        wall = time.perf_counter() - t
+                    else:
+                        answers, wall = await _disagg_burst(port, bodies)
+                    after = await disagg_stats()
+                    passes[name] = {"answers": answers, "wall": wall,
+                                    "moved": {k: after[k] - before[k] for k in (
+                                        "remote_prefills", "local_prefills", "degrade_disagg_to_colocated_total",
+                                        "degrade_colocated_to_disagg_total", "split_prefills_total")}}
+                pulls = await own_pulls(drt, dev, get_config(PRESET).vocab_size)
+                await client.close()
+            finally:
+                await drt.shutdown()
+            return passes, pulls
+
+        passes, pulls = asyncio.run(drive())
+        kids.alive()
+        codes = {name: kids.stop(name) for name in ("frontend", "decode", "prefill", "control_plane")}
+    finally:
+        kids.kill()
+    if any(codes.values()):
+        raise AssertionError(f"a process exited with an error: {codes}")
+    runs = {}
+    for name in ("prefill", "decode"):
+        (line,) = [ln for ln in kids.text(name).splitlines() if DIST_COUNTERS_MARK in ln]
+        runs[name] = json.loads(line.split(DIST_COUNTERS_MARK, 1)[1])
+    phase_workers_s = time.perf_counter() - t0
+
+    # In process: one aggregated engine, the same seed, sent the same
+    # requests one at a time (the reference) and as one burst (the timing).
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        args = run.parse_args(["in=http", f"out={PRESET}", "--http-host", "127.0.0.1", "--http-port", "0",
+                               "--warmup-ctx", str(DISAGG_WARMUP_CTX)])
+
+        async def in_process():
+            service, engine = run.build_service(args)
+            await service.start()
+            try:
+                seq = await _disagg_sequential(service.port, bodies)
+                engine.scheduler.allocator.clear_cached()
+                burst, wall = await _disagg_burst(service.port, bodies)
+            finally:
+                await service.stop()
+                await engine.stop()
+            return seq, burst, wall
+
+        ref_seq, ref_burst, ref_wall = asyncio.run(in_process())
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+
+    L = get_config(PRESET).num_layers
+    checks, workers = [], {}
+    for name, r in runs.items():
+        steps, k = r["steps"], r["kernels"]
+        launches = {n: c["launches"] for n, c in k.items()}
+        want = {n: 0 for n in launches}
+        want["ragged_paged_attention"] = L * (steps["forward_steps_total"] + steps["window_steps_total"]
+                                              + steps["draft_prefill_steps_total"])
+        want["fused_decode_window"] = steps["fused_windows_total"]
+        want["fused_decode_window_sampled"] = steps["fused_sampled_windows_total"]
+        want["fused_decode_window_guided"] = steps["fused_guided_windows_total"]
+        plain = sum(c["plain_calls"] for c in k.values())
+        workers[name] = {"steps": steps, "launches": launches, "expected_launches": want, "plain_calls": plain,
+                         "disagg": r.get("disagg")}
+        if launches != want or plain:
+            checks.append(f"{name}: launches {launches} != {want}, or {plain} plain calls")
+    pre, dec = runs["prefill"]["steps"], runs["decode"]["steps"]
+    if not dec["fused_windows_total"]:
+        checks.append("the decode worker ran no fused window")
+    if pre["fused_windows_total"] or pre["window_steps_total"]:
+        checks.append(f"the prefill worker decoded: {pre}")
+    if not (pre["exports_total"] == pre["exports_taken_total"] == 2 * len(long_) + 3) or pre["exports_expired_total"]:
+        checks.append(f"exports {pre['exports_total']} parked, {pre['exports_taken_total']} taken, "
+                      f"{pre['exports_expired_total']} expired")
+    for name, p in passes.items():
+        mv = p["moved"]
+        if (mv["remote_prefills"], mv["local_prefills"], mv["degrade_disagg_to_colocated_total"]) != (4, 4, 0):
+            checks.append(f"{name}: the decode worker's counters moved {mv}")
+    texts_equal = [a["text"] == b["text"] for a, b in zip(passes["sequential"]["answers"], ref_seq)]
+    if not all(texts_equal):
+        differ = [{"request": i, "disagg": passes["sequential"]["answers"][i]["text"][:80],
+                   "in_process": ref_seq[i]["text"][:80]} for i, ok in enumerate(texts_equal) if not ok]
+        checks.append(f"one-at-a-time answers differ from the in-process engine's: {differ}")
+    if not pulls["host_bytes_equal_device"]:
+        checks.append("a host pull's bytes differ from a device pull's of the same prompt")
+    burst_texts_equal = sum(a["text"] == b["text"] for a, b in zip(passes["burst"]["answers"], ref_burst))
+    seq_ttft = lambda ans, idx: [ans[i]["ttft_s"] for i in idx]  # noqa: E731
+    short = [i for i in range(len(bodies)) if i % 2]
+    res = {
+        "card": card, "preset": PRESET, "max_local_prefill_length": DISAGG_LOCAL_MAX,
+        "warmup_ctx": DISAGG_WARMUP_CTX, "processes_up_s": up_s, "workers_s": phase_workers_s,
+        "phase_s": time.perf_counter() - t0,
+        "burst": _burst_summary(passes["burst"]["answers"], passes["burst"]["wall"]),
+        "in_process_burst": _burst_summary(ref_burst, ref_wall),
+        "sequential": {"wall_s": passes["sequential"]["wall"],
+                       "ttft_long_s": seq_ttft(passes["sequential"]["answers"], long_),
+                       "ttft_short_s": seq_ttft(passes["sequential"]["answers"], short),
+                       "in_process_ttft_long_s": seq_ttft(ref_seq, long_),
+                       "in_process_ttft_short_s": seq_ttft(ref_seq, short)},
+        "moved": {name: p["moved"] for name, p in passes.items()},
+        "texts_equal_in_process": texts_equal, "burst_texts_equal_in_process": burst_texts_equal,
+        "own_pulls": pulls, "workers": workers,
+    }
+    emit("disagg", **res)
+    if checks:
+        raise AssertionError("; ".join(checks))
+    return res
+
+
+def kernels_line(timed: dict, served: dict, dist: dict, ckpt: dict, kvbm: dict, disagg: dict) -> list:
     """The ``kernels`` entries: every kernel's route, source, the TPU kernel
     it replaces, its launches on the main path, its checked error and its
     timed, plain, bound and library times. The fused window's sampled and
@@ -5334,6 +5851,12 @@ def kernels_line(timed: dict, served: dict, dist: dict, ckpt: dict) -> list:
             entry["launches_distributed"] = sum(w["launches"][name] for w in dist["workers"].values())
             entry["launches_distributed_expected"] = sum(w["expected_launches"][name]
                                                          for w in dist["workers"].values())
+            # The kvbm phase: the tiered engine's run; disagg: both workers'.
+            entry["launches_kvbm"] = kvbm["launches"][name]
+            entry["launches_kvbm_expected"] = kvbm["expected_launches"][name]
+            entry["launches_disagg"] = {w: r["launches"][name] for w, r in disagg["workers"].items()}
+            entry["launches_disagg_expected"] = {w: r["expected_launches"][name]
+                                                 for w, r in disagg["workers"].items()}
         if name == "ragged_paged_attention_int8":
             # library_ms: the gathered codes dequantized to dense K/V, then SDPA.
             entry["sdpa_alone_ms"] = t["sdpa_alone_ms"]
@@ -5464,9 +5987,12 @@ def parent_runs(parent: str) -> dict:
     return out
 
 
+FULL_RUN = ("env", "build", "kernel", "model", "breakdown", "serve", "checkpoint", "distributed", "kvbm", "disagg")
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="env,build,kernel,model,breakdown,serve,checkpoint,distributed")
+    p.add_argument("--phases", default=",".join(FULL_RUN))
     p.add_argument("--parent", default=None,
                    help="another tree of the port (the parent commit's): its greedy windows and its "
                         "PARENT_SERVE_PASSES timed beside this one's, each tree with the kernels built from its "
@@ -5539,12 +6065,14 @@ def main() -> int:
     if "grammar" in phases:
         timed_phase("grammar", lambda: phase_grammar(card))
     dist = timed_phase("distributed", lambda: phase_distributed(card)) if "distributed" in phases else None
+    kvbm = timed_phase("kvbm", lambda: phase_kvbm(card, dev)) if "kvbm" in phases else None
+    disagg = timed_phase("disagg", lambda: phase_disagg(card, dev)) if "disagg" in phases else None
     if args.parent:
         emit("parent", **timed_phase("parent", lambda: parent_runs(args.parent)))
     emit("seconds", **seconds, total=sum(seconds.values()))
-    if phases != {"env", "build", "kernel", "model", "breakdown", "serve", "checkpoint", "distributed"}:
+    if phases != set(FULL_RUN):
         return 0  # a partial run reports no result
-    kernels = kernels_line(timed, served, dist, ckpt)
+    kernels = kernels_line(timed, served, dist, ckpt, kvbm, disagg)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

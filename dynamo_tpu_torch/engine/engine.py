@@ -3,11 +3,18 @@
 The counterpart of the JAX package's ``TpuEngine``, with the part of its
 surface the port serves: ``build``, ``start``, ``stop``, ``generate``,
 ``abort``, ``metrics``, ``stats``, ``stats_handler``,
-``set_kv_event_sink`` and ``attach_guided_tokenizer``.
+``set_kv_event_sink``, ``attach_guided_tokenizer``, and for
+disaggregation ``take_export`` / ``take_export_device``. With
+``kvbm_host_blocks > 0`` it owns a KVBM (``llm/block_manager``): G1
+evictions offload to host memory, then disk, then the object store, and
+prefix hits onboard back.
 
 Request wire shape (PreprocessedRequest):
 ``{"token_ids": [...], "sampling_options": {...}, "stop_conditions": {...}}``,
-plus ``"guided_decoding"`` (llm/guided's spec) for a structured output.
+plus ``"guided_decoding"`` (llm/guided's spec) for a structured output,
+``"disagg_params": {"do_remote_decode": true}`` on a prefill worker (the
+request's blocks wait for the decode worker's pull) and ``"_prefilled"``
+on a decode worker (the pulled KV, ``Scheduler._inject_prefilled``).
 ``sampling_options`` takes the JAX package's keys: temperature, top_k,
 top_p, seed, logprobs, top_logprobs, frequency_penalty, presence_penalty
 and logit_bias (a ``LogitBiasProcessor`` on the request's row).
@@ -92,6 +99,11 @@ class EngineArgs:
     # Capture the step graphs for contexts up to this many tokens before
     # taking traffic (Scheduler.warmup; 0 = capture each on first use).
     warmup_ctx: int = 0
+    # KVBM tiers (0 / None = off): host blocks (G2), and a disk directory
+    # with its block count (G3).
+    kvbm_host_blocks: int = 0
+    kvbm_disk_dir: Optional[str] = None
+    kvbm_disk_blocks: int = 0
 
 
 def _attach_logprobs(frame: dict, logprobs: list, top_logprobs: list) -> None:
@@ -115,6 +127,7 @@ class TorchEngine:
         self._loop_task: Optional[asyncio.Task] = None
         self._closed = False
         self._kv_event_sink = kv_event_sink
+        self.kvbm = None  # llm/block_manager.KvBlockManager, when built with tiers
         self._step_thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="engine-step")
         self._compile_thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="grammar-compile")
 
@@ -171,6 +184,13 @@ class TorchEngine:
         if args.warmup_ctx > 0:
             n = engine.scheduler.warmup(args.warmup_ctx)
             logger.info("captured %d step graphs (ctx %d)", n, args.warmup_ctx)
+        if args.kvbm_host_blocks > 0:
+            from dynamo_tpu_torch.llm.block_manager import KvBlockManager
+
+            engine.kvbm = KvBlockManager(engine.scheduler.cache, engine.scheduler.allocator,
+                                         host_blocks=args.kvbm_host_blocks, disk_dir=args.kvbm_disk_dir,
+                                         disk_blocks=args.kvbm_disk_blocks)
+            engine.scheduler.attach_kvbm(engine.kvbm)
         return engine
 
     def set_kv_event_sink(self, sink: Optional[Callable[[KvEvent], None]]) -> None:
@@ -194,6 +214,10 @@ class TorchEngine:
         if self._loop_task is not None:
             await self._loop_task
             self._loop_task = None
+        if self.kvbm is not None:
+            # Queued offload snapshots reach the host and disk tiers: a G3
+            # directory outlives the process.
+            await asyncio.get_running_loop().run_in_executor(self._step_thread, self.kvbm.flush_pending)
         self._step_thread.shutdown(wait=False)
         self._compile_thread.shutdown(wait=False, cancel_futures=True)
         self.scheduler.close()
@@ -201,13 +225,24 @@ class TorchEngine:
     async def _loop(self) -> None:
         try:
             while not self._closed:
+                n = self.scheduler.expire_exports()
+                if n:
+                    logger.warning("reclaimed %d unpulled KV exports past their TTL", n)
                 if not (self._staged_adds or self._staged_aborts or self.scheduler.has_work()):
                     self._wake.clear()
-                    await self._wake.wait()
+                    if self.scheduler._pending_exports:
+                        # Exports await their pull: wake to expire them even
+                        # when nothing else comes.
+                        try:
+                            await asyncio.wait_for(self._wake.wait(), timeout=1.0)
+                        except asyncio.TimeoutError:
+                            pass
+                    else:
+                        await self._wake.wait()
                     continue
-                for rid, tokens, sampling, stop, guided, queue in self._staged_adds:
+                for rid, tokens, sampling, stop, guided, extras, queue in self._staged_adds:
                     try:
-                        seq = self.scheduler.add_request(rid, tokens, sampling, stop, guided=guided)
+                        seq = self.scheduler.add_request(rid, tokens, sampling, stop, guided=guided, **extras)
                         seq.out_queue = queue
                     except ValueError as e:
                         queue.put_nowait(StepOutput(token_id=-1, finished=True, finish_reason=f"error:{e}"))
@@ -260,7 +295,12 @@ class TorchEngine:
                     self._compile_thread, self.scheduler.guided.prepare, guided)
             except ValueError as e:
                 raise RuntimeError(str(e)) from e
-        self._staged_adds.append((rid, list(request["token_ids"]), sampling, stop, guided, queue))
+        disagg = request.get("disagg_params") or {}
+        # A prefill worker keeps the blocks for the decode worker's pull; a
+        # decode worker starts from the KV it pulled.
+        extras = {"keep_blocks_on_finish": bool(disagg.get("do_remote_decode")),
+                  "prefilled": request.get("_prefilled")}
+        self._staged_adds.append((rid, list(request["token_ids"]), sampling, stop, guided, extras, queue))
         self._wake.set()
 
         finished = False
@@ -330,6 +370,20 @@ class TorchEngine:
         self._staged_aborts.append(request_id)
         self._wake.set()
 
+    # --- disaggregation -----------------------------------------------------
+    async def take_export(self, request_id: str):
+        """A finished prefill-role request's KV as host block pairs, its
+        blocks released: ``(blocks, hashes, prompt_len)`` or None. Runs on
+        the step thread, between steps."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self._step_thread, self.scheduler.take_export, request_id)
+
+    async def take_export_device(self, request_id: str):
+        """The same as stacked device tensors, with no host round trip:
+        ``((k_stack, v_stack), hashes, prompt_len)`` or None."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self._step_thread, self.scheduler.take_export_device, request_id)
+
     # --- introspection ------------------------------------------------------
     def metrics(self) -> ForwardPassMetrics:
         return self.scheduler.metrics()
@@ -343,11 +397,11 @@ class TorchEngine:
     def stats_handler(self) -> dict:
         """The worker's stats scrape: the keys of the JAX engine's
         ``stats_handler`` that this scheduler computes, with their names and
-        meanings, and no other. Not here yet: the prefix onboard count and
-        the elastic capacity dial (KVBM and ``set_capacity_dial``, ROADMAP
-        Queue 1 items 15 and 7), the queue and prefill wait sums and the
-        first-token count, the flight recorder, profiler, SLO, watchdog,
-        digest, tenant-ledger, fault and incident keys (item 18)."""
+        meanings, and no other. Not here yet: the elastic capacity dial
+        (``set_capacity_dial``, ROADMAP Queue 1 item 7), the queue and
+        prefill wait sums and the first-token count, the flight recorder,
+        profiler, SLO, watchdog, digest, tenant-ledger, fault and incident
+        keys (item 18)."""
         m = self.scheduler.metrics()
         stats = {
             "kv_usage": m.kv_usage,
@@ -366,6 +420,7 @@ class TorchEngine:
             "prefix_hit_blocks_total": m.prefix_hit_blocks_total,
             "prefix_miss_blocks_total": m.prefix_miss_blocks_total,
             "prefix_evicted_blocks_total": m.prefix_evicted_blocks_total,
+            "prefix_onboard_total": m.prefix_onboard_total,
         }
         stats.update(self.scheduler.kv_gauges())
         if self.scheduler.guided is not None:

@@ -233,6 +233,11 @@ class Sequence:
     d_n: int = 0
     # Guided decoding: the request's token-FSM cursor (llm/guided).
     guided: Optional[GuidedState] = None
+    # Disaggregation: a prefill-role request holds its blocks at finish
+    # until the decode worker pulls them (take_export); a decode-role one
+    # starts from KV another worker prefilled (_inject_prefilled).
+    keep_blocks_on_finish: bool = False
+    prefilled: Optional[dict] = None
     # A first token's logprob and alternatives, computed where it is drawn
     # (_sample_one) and handed out when it is appended.
     _pending_logprob: Optional[float] = None
@@ -276,6 +281,9 @@ class SchedulerConfig:
     # step behind, beside the device. Composition changes flush back to
     # the sync path.
     enable_overlap_decode: bool = True
+    # A prefill-role export nobody pulls within this many seconds is
+    # reclaimed (expire_exports), so a dead decode worker pins no blocks.
+    export_ttl_s: float = 120.0
 
 
 @dataclass
@@ -298,6 +306,8 @@ class ForwardPassMetrics:
     prefix_evicted_blocks_total: int = 0
     overlap_steps_total: int = 0
     overlap_flushes_total: int = 0
+    # Prefix blocks onboarded from a KVBM tier (G2/G3/G4) back into G1.
+    prefix_onboard_total: int = 0
     # SpecDecodeStats.to_dict() with a draft attached, else None.
     spec_decode: Optional[dict] = None
 
@@ -434,6 +444,16 @@ class Scheduler:
         self._tables_cache: Optional[tuple] = None
         self.overlap_steps_total = 0
         self.overlap_flushes_total = 0
+        # KVBM (attach_kvbm) and disaggregation: prefill-role exports
+        # awaiting their pull, with their deadlines; the exports parked,
+        # taken by a pull and reclaimed past their TTL.
+        self.kvbm = None
+        self.prefix_onboard_total = 0
+        self._pending_exports: Dict[str, Sequence] = {}
+        self._export_deadline: Dict[str, float] = {}
+        self.exports_total = 0
+        self.exports_taken_total = 0
+        self.exports_expired_total = 0
 
     # --- public API (called from event loop) --------------------------------
     def add_request(
@@ -444,9 +464,14 @@ class Scheduler:
         stop: StopConditions,
         *,
         guided=None,
+        keep_blocks_on_finish: bool = False,
+        prefilled: Optional[dict] = None,
     ) -> Sequence:
         """``guided``: a grammar spec (llm/guided), or the cursor
-        ``self.guided.prepare`` made of one off the step thread."""
+        ``self.guided.prepare`` made of one off the step thread.
+        ``keep_blocks_on_finish``: a prefill-role request, whose blocks wait
+        for ``take_export`` at finish. ``prefilled``: a decode-role request's
+        pulled KV (``_inject_prefilled``)."""
         if not token_ids:
             raise ValueError("empty prompt")
         if guided is not None and self.guided is None:
@@ -462,6 +487,8 @@ class Scheduler:
             sampling=sampling,
             stop=stop,
             eos_token_ids=self._eos,
+            keep_blocks_on_finish=keep_blocks_on_finish,
+            prefilled=prefilled,
         )
         if guided is not None:
             seq.guided = self.guided.open(guided)  # ValueError on a bad spec or a full device
@@ -500,6 +527,7 @@ class Scheduler:
             prefix_evicted_blocks_total=a.evicted_blocks_total,
             overlap_steps_total=self.overlap_steps_total,
             overlap_flushes_total=self.overlap_flushes_total,
+            prefix_onboard_total=self.prefix_onboard_total,
             spec_decode=self.spec_stats.to_dict() if self.spec_stats else None,
         )
 
@@ -788,7 +816,7 @@ class Scheduler:
         if not (self.sc.enable_mixed_batching and self.draft_params is None and self.running and self.waiting):
             return None
         head = self.waiting[0]
-        if head.aborted:
+        if head.aborted or head.prefilled is not None:
             return None
         if head.state == SeqState.WAITING and len(self.running) >= self.sc.max_running:
             return None
@@ -945,7 +973,8 @@ class Scheduler:
         logprobs, no processors, no per-request key). Penalties do not
         matter: a first token has no history."""
         s = seq.sampling
-        return (seq.state == SeqState.WAITING and seq.resume_tokens is None and seq.guided is None
+        return (seq.state == SeqState.WAITING and seq.prefilled is None and seq.resume_tokens is None
+                and seq.guided is None
                 and not s.logprobs and not s.top_logprobs and not s.logits_processors
                 and not (s.seed is not None and s.temperature > 0))
 
@@ -1026,7 +1055,7 @@ class Scheduler:
         try:
             if self.sc.enable_prefix_caching:
                 seq.block_hashes = extend_block_hashes([], pf_tokens, bs)
-                matched = self.allocator.match_prefix(seq.block_hashes)
+                matched = self._match_prefix_tiers(seq)
                 # At least one token must prefill so logits exist. A FULL
                 # cover keeps every matched block and recomputes only the
                 # last token, whose KV write lands in the final matched
@@ -1071,6 +1100,11 @@ class Scheduler:
         fully computed (sequence moved to running). Preempted sequences
         resume here: ``resume_tokens`` recompute their KV, then decode
         continues — no sampling at the end of a resume."""
+        # Inject only at first admission: a preempted decode-role sequence
+        # (resume_tokens set) recomputes; re-injecting would repeat its first
+        # token and leave its generated tokens' KV out.
+        if seq.state == SeqState.WAITING and seq.prefilled is not None and seq.resume_tokens is None:
+            return self._inject_prefilled(seq, outputs)
         resuming = seq.resume_tokens is not None
         pf_tokens = seq.resume_tokens if resuming else seq.prompt
         if seq.state == SeqState.WAITING:
@@ -1259,11 +1293,12 @@ class Scheduler:
         """Rows that need the host between steps cannot ride the pipeline:
         guided (the FSM advances before the next mask), logprobs and
         processors and penalties (the logits change or are read between
-        steps) and seeded sampled rows (per-row keys), as in the JAX
+        steps), seeded sampled rows (per-row keys) and prefill-role rows
+        (their blocks wait for an export at finish), as in the JAX
         package."""
         s = seq.sampling
         return not (seq.aborted or seq.guided is not None or _has_extras(s)
-                    or (s.seed is not None and s.temperature > 0))
+                    or (s.seed is not None and s.temperature > 0) or seq.keep_blocks_on_finish)
 
     def _overlap_start_ok(self, batch: List[Sequence]) -> bool:
         return (
@@ -1698,6 +1733,120 @@ class Scheduler:
             pres[i] = seq.sampling.presence_penalty
         return apply_penalties(logits, *map(self._dev, (hist, hist_len, freq, pres)))
 
+    # --- KVBM and disaggregation --------------------------------------------
+    def attach_kvbm(self, kvbm) -> None:
+        """Enable tiered offload and onboarding (``llm/block_manager``)."""
+        self.kvbm = kvbm
+
+    def _match_prefix_tiers(self, seq: Sequence) -> List[int]:
+        """The G1 prefix match, extended by onboarding from G2/G3/G4 when a
+        KVBM is attached. Onboarded blocks count as hits (reuse, not
+        recompute): the allocator's G1 walk counted them as misses, so the
+        counters move here; ``prefix_onboard_total`` counts the blocks that
+        came back into G1 from a deeper tier."""
+        if self.kvbm is None:
+            return self.allocator.match_prefix(seq.block_hashes)
+        match = self.kvbm.match_prefix(seq.block_hashes)
+        blocks = self.kvbm.onboard(match, seq.block_hashes)
+        onboarded = len(blocks) - len(match.g1_blocks)
+        if onboarded > 0:
+            self.prefix_onboard_total += onboarded
+            self.allocator.hit_blocks_total += onboarded
+            self.allocator.miss_blocks_total -= onboarded
+        return blocks
+
+    def _inject_prefilled(self, seq: Sequence, outputs: List[tuple]) -> bool:
+        """Decode-role admission: the prompt's KV came from a prefill worker.
+        Scatter it into fresh blocks (``prefilled["blocks"]``: host block
+        pairs off the wire; ``prefilled["device_blocks"]``: stacked device
+        tensors, handed over in process or pulled through CUDA IPC) and
+        enter decode with the prefill leg's first token, with no prefill
+        compute. With ``prefill_len`` short of the prompt (a token-boundary
+        split) the KV covers that many tokens and the request resumes
+        chunked prefill there: it samples its own first token at the
+        prompt's end and the leg's is dropped."""
+        from dynamo_tpu_torch.llm.block_manager.transfer import scatter_blocks_device
+
+        bs = self.mc.block_size
+        data = seq.prefilled
+        n_pref = min(int(data.get("prefill_len") or len(seq.prompt)), len(seq.prompt))
+        full = n_pref >= len(seq.prompt)
+        n_blocks = (len(seq.prompt) + 1 + bs - 1) // bs
+        seq.block_ids = self.allocator.allocate(n_blocks)  # OutOfBlocksError: retried next step
+        if "device_blocks" in data:
+            k_stack, v_stack = data["device_blocks"]
+        else:
+            # One stacked upload for all the host blocks.
+            blocks = data["blocks"]
+            k_stack = torch.stack([k for k, _ in blocks], dim=1)
+            v_stack = torch.stack([v for _, v in blocks], dim=1) if blocks[0][1].numel() else None
+        scatter_blocks_device(self.cache, seq.block_ids[: k_stack.shape[1]], k_stack, v_stack)
+        seq.num_computed = n_pref
+        if seq.admitted_ts is None:
+            seq.admitted_ts = time.monotonic()
+        # A draft has no KV of a remotely prefilled prompt: compute its own
+        # before the row speculates.
+        self._draft_catchup(seq, seq.prompt, seq.num_computed)
+        if self.sc.enable_prefix_caching:
+            seq.block_hashes = extend_block_hashes([], seq.prompt, bs)
+            self._register_full_blocks(seq)
+        seq.prefilled = None  # consumed: a later preemption resumes by recompute
+        if not full:
+            seq.state = SeqState.PREFILL
+            return False
+        seq.state = SeqState.RUNNING
+        self.running.append(seq)
+        self._append_token(seq, int(data["first_token"]), outputs)
+        return True
+
+    def take_export(self, request_id: str):
+        """A finished prefill-role request's blocks, as host pairs (one
+        device → host copy), its blocks released. → ``(blocks, hashes,
+        prompt_len)`` or None."""
+        from dynamo_tpu_torch.llm.block_manager.transfer import gather_blocks_host
+
+        seq = self._pending_exports.pop(request_id, None)
+        self._export_deadline.pop(request_id, None)
+        if seq is None:
+            return None
+        data = gather_blocks_host(self.cache, seq.block_ids)
+        self.allocator.release(seq.block_ids)
+        seq.block_ids = []
+        self.exports_taken_total += 1
+        return data, seq.block_hashes, len(seq.prompt)
+
+    def take_export_device(self, request_id: str):
+        """A finished prefill-role request's blocks stacked into fresh device
+        tensors (one gather, no host round trip), its blocks released. The
+        stack does not alias the cache, so it can await a pull while the
+        blocks are reused. → ``((k_stack [L, n, BS, KVH, HD], v_stack or
+        None), hashes, prompt_len)`` or None."""
+        from dynamo_tpu_torch.llm.block_manager.transfer import gather_blocks_device
+
+        seq = self._pending_exports.pop(request_id, None)
+        self._export_deadline.pop(request_id, None)
+        if seq is None:
+            return None
+        k_stack, v_stack = gather_blocks_device(self.cache, seq.block_ids)
+        self.allocator.release(seq.block_ids)
+        seq.block_ids = []
+        self.exports_taken_total += 1
+        return (k_stack, v_stack), seq.block_hashes, len(seq.prompt)
+
+    def expire_exports(self, now: Optional[float] = None) -> int:
+        """Reclaim the exports nobody pulled within ``export_ttl_s``.
+        Returns how many."""
+        now = time.monotonic() if now is None else now
+        expired = [rid for rid, dl in self._export_deadline.items() if dl < now]
+        for rid in expired:
+            seq = self._pending_exports.pop(rid, None)
+            self._export_deadline.pop(rid, None)
+            if seq is not None:
+                self.allocator.release(seq.block_ids)
+                seq.block_ids = []
+        self.exports_expired_total += len(expired)
+        return len(expired)
+
     def _copy_block(self, src: int, dst: int) -> None:
         """Block duplication across all layers (the copy-on-write copy); an
         int8 cache copies its codes and its scales."""
@@ -1905,8 +2054,15 @@ class Scheduler:
             seq.block_hashes = extend_block_hashes(seq.block_hashes, seq.all_ids, bs)
             n_full = len(seq.all_ids) // bs
             self.allocator.register_hashes(seq.block_ids[:n_full], seq.block_hashes[:n_full])
-        self.allocator.release(seq.block_ids)
-        seq.block_ids = []
+        if seq.keep_blocks_on_finish and reason not in ("cancelled", "timeout"):
+            # Prefill role: the blocks stay held until the decode worker
+            # pulls them (take_export), so no eviction touches them.
+            self._pending_exports[seq.request_id] = seq
+            self._export_deadline[seq.request_id] = time.monotonic() + self.sc.export_ttl_s
+            self.exports_total += 1
+        else:
+            self.allocator.release(seq.block_ids)
+            seq.block_ids = []
         self._close_guided(seq)
         if emit:
             outputs.append((seq, StepOutput(token_id=-1, finished=True, finish_reason=reason)))

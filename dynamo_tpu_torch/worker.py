@@ -2,8 +2,18 @@
 
     python -m dynamo_tpu_torch.worker --model llama-3.2-1b --checkpoint DIR --tokenizer DIR
 
-The counterpart of ``python -m dynamo_tpu.worker`` in its ``aggregated``
-role, with the JAX CLI's flag names for what is ported. The worker builds
+The counterpart of ``python -m dynamo_tpu.worker``, with the JAX CLI's
+flag names for what is ported. ``--role`` is ``aggregated`` (the default),
+``prefill`` or ``decode`` (disaggregated serving, ``llm/disagg.py``): a
+prefill worker serves ``{namespace}/prefill/{endpoint}`` for the decode
+workers and exports its requests' KV (``--kv-transfer`` is the decode
+worker's choice: ``device``, through CUDA IPC, or ``host``, over TCP); it
+does not register the model. A decode worker registers it, prefills
+prompts longer than ``--max-local-prefill-length`` on the prefill pool and
+decodes from the pulled KV. The component defaults to ``backend`` for an
+aggregated worker, else to the role. ``--kvbm-host-blocks`` (with
+``--kvbm-disk-dir`` / ``--kvbm-disk-blocks`` and ``--kvbm-remote``) gives
+the engine KVBM tiers (``llm/block_manager``). The worker builds
 the engine on the card (``--device cuda``, the default, raises without
 CUDA), serves it on ``{namespace}/{component}/{endpoint}`` (``dynamo/
 backend/generate``), registers the model for the frontends' discovery,
@@ -19,17 +29,15 @@ tokenize with it, and guided decoding lifts grammars against it; without
 it both use the byte-level tokenizer.
 
 At shutdown it logs one line, ``worker launch counters: {json}``: each
-kernel wrapper's launches and plain calls, and the scheduler's step and
-request counters, all counted from the moment it registered.
+kernel wrapper's launches and plain calls, the scheduler's step, request,
+onboard and export counters, all counted from the moment it registered,
+and on a decode worker its disaggregation counters (``"disagg"``).
 
 JAX flags whose feature is not ported are not declared, so argparse
 refuses them (ROADMAP Queue 1, by item):
 - 20: ``--mocker``, ``--speedup-ratio``, ``--fault-scenario``, and
   ``--block-size`` (it sizes the mocker's blocks; the card here takes the
   model's block size);
-- 15: ``--role decode|prefill``, ``--kvbm-host-blocks``, ``--kvbm-disk-dir``,
-  ``--kvbm-disk-blocks``, ``--kvbm-remote``, ``--max-local-prefill-length``,
-  ``--kv-transfer``;
 - 16: ``--role encode``, ``--vision-model``, ``--vision-seed``;
 - 17: ``--tp``, ``--dp``, ``--ep``, ``--pp``, ``--num-processes``,
   ``--process-id``, ``--coordinator``, ``--multihost-group``;
@@ -49,6 +57,7 @@ from typing import Optional
 
 from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+from dynamo_tpu_torch.llm.disagg import DisaggDecodeHandler, DisaggRouter, DisaggRouterConf, KvExportService
 from dynamo_tpu_torch.llm.entrypoint import register_llm
 from dynamo_tpu_torch.llm.kv_router import KvEventPublisher, WorkerMetricsPublisher
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
@@ -62,7 +71,13 @@ logger = get_logger(__name__)
 STEP_COUNTERS = ("request_total", "forward_steps_total", "prefill_steps_total", "decode_steps_total",
                  "mixed_steps_total", "wave_steps_total", "window_steps_total", "multi_windows_total",
                  "fused_windows_total", "fused_sampled_windows_total", "fused_guided_windows_total",
-                 "draft_prefill_steps_total", "spec_fused_windows_total", "spec_rounds_total")
+                 "draft_prefill_steps_total", "spec_fused_windows_total", "spec_rounds_total",
+                 "prefix_onboard_total", "exports_total", "exports_taken_total", "exports_expired_total")
+
+
+# A decode worker's disaggregation counters (its stats_handler's keys).
+DISAGG_COUNTERS = ("remote_prefills", "local_prefills", "degrade_disagg_to_colocated_total",
+                   "degrade_colocated_to_disagg_total", "split_prefills_total")
 
 
 def _kernel_counters() -> dict:
@@ -97,16 +112,21 @@ def counters_since(engine: TorchEngine, base: dict) -> dict:
 
 
 class Worker:
-    """A served engine: its endpoint handle and its KV-event and metrics
-    publishers. ``stop`` deregisters, drains within ``drain_timeout_s``
-    (streams still open then are severed, and their callers migrate) and
-    stops the publishers; the engine is the caller's."""
+    """A served engine: its endpoint handle, its KV-event and metrics
+    publishers, and by role its KV export service (prefill) or its disagg
+    handler and router (decode). ``stop`` deregisters, drains within
+    ``drain_timeout_s`` (streams still open then are severed, and their
+    callers migrate) and stops the rest; the engine is the caller's."""
 
-    def __init__(self, drt: DistributedRuntime, handle, publishers: list, base: dict):
+    def __init__(self, drt: DistributedRuntime, handle, publishers: list, base: dict, *, kvx=None,
+                 handler=None, disagg_router=None):
         self.drt = drt
         self.handle = handle
         self.publishers = publishers
         self.base = base  # launch_counters(engine) just before it registered
+        self.kvx = kvx
+        self.handler = handler
+        self.disagg_router = disagg_router
 
     @property
     def instance_id(self) -> int:
@@ -116,6 +136,10 @@ class Worker:
         await self.handle.stop(drain=True, timeout_s=drain_timeout_s)
         for pub in self.publishers:
             await pub.stop()
+        if self.kvx is not None:
+            await self.kvx.stop()
+        if self.disagg_router is not None:
+            await self.disagg_router.stop()
 
 
 async def serve_engine(
@@ -126,15 +150,38 @@ async def serve_engine(
     namespace: str = "dynamo",
     component: str = "backend",
     endpoint: str = "generate",
+    role: str = "aggregated",
+    kv_transfer: str = "device",
+    max_local_prefill_length: int = 0,
 ) -> Worker:
-    """Serve ``engine`` on ``drt`` as one aggregated worker of ``card``'s
-    model: register it, and publish its KV events and load metrics."""
+    """Serve ``engine`` on ``drt`` as one worker of ``card``'s model in
+    ``role``: an aggregated or decode worker registers the model (a decode
+    worker behind a ``DisaggDecodeHandler`` over the ``prefill`` component
+    of ``namespace``); a prefill worker serves its endpoint and its KV
+    exports. Every role publishes its KV events and load metrics."""
+    if role not in ("aggregated", "prefill", "decode"):
+        raise ValueError(f"unknown role {role!r}")
     if card.kv_cache_block_size != engine.scheduler.mc.block_size:
         raise ValueError(f"the card's KV block size {card.kv_cache_block_size} is not the engine's "
                          f"{engine.scheduler.mc.block_size}: the router would hash other blocks")
     ep = drt.namespace(namespace).component(component).endpoint(endpoint)
     base = launch_counters(engine)
-    handle, _ = await register_llm(drt, ep, engine, card, stats_handler=engine.stats_handler)
+    handler = disagg_router = kvx = None
+    if role == "decode":
+        prefill_client = await drt.namespace(namespace).component("prefill").endpoint(endpoint).client()
+        disagg_router = DisaggRouter(drt, card.name,
+                                     conf=DisaggRouterConf(max_local_prefill_length=max_local_prefill_length))
+        await disagg_router.start()
+        handler = DisaggDecodeHandler(drt, engine, prefill_client, disagg_router, kv_transfer=kv_transfer,
+                                      block_size=engine.scheduler.mc.block_size)
+    if role == "prefill":
+        # The prefill pool is internal: no model entry for the frontends.
+        handle = await ep.serve_endpoint(engine.generate, stats_handler=engine.stats_handler)
+        kvx = KvExportService(drt, engine, handle.instance)
+        await kvx.start()
+    else:
+        served = handler or engine
+        handle, _ = await register_llm(drt, ep, served, card, stats_handler=served.stats_handler)
     worker_id = handle.instance.instance_id
     kv_pub = KvEventPublisher(drt, namespace, component, worker_id)
     kv_pub.start()
@@ -143,7 +190,7 @@ async def serve_engine(
     engine.set_kv_event_sink(lambda ev: kv_pub.publish_threadsafe(loop, ev))
     m_pub = WorkerMetricsPublisher(drt, namespace, component, worker_id, engine.metrics)
     m_pub.start()
-    return Worker(drt, handle, [kv_pub, m_pub], base)
+    return Worker(drt, handle, [kv_pub, m_pub], base, kvx=kvx, handler=handler, disagg_router=disagg_router)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -151,9 +198,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="tiny", help="model preset name")
     p.add_argument("--served-model-name", default=None)
     p.add_argument("--namespace", default="dynamo")
-    p.add_argument("--component", default=None, help="defaults to 'backend'")
+    p.add_argument("--component", default=None, help="defaults to 'backend' (aggregated), else the role")
     p.add_argument("--endpoint", default="generate")
-    p.add_argument("--role", choices=["aggregated"], default="aggregated")
+    p.add_argument("--role", choices=["aggregated", "decode", "prefill"], default="aggregated")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs the plain path)")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights and of sampling")
     p.add_argument("--checkpoint", default=None,
@@ -172,6 +219,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-ctx", type=int, default=0,
                    help="capture the step graphs for contexts up to this many tokens before serving "
                         "(0 = capture each on first use)")
+    p.add_argument("--kvbm-host-blocks", type=int, default=0, help="KVBM host tier (G2) in blocks (0 = off)")
+    p.add_argument("--kvbm-disk-dir", default=None, help="KVBM disk tier (G3) directory")
+    p.add_argument("--kvbm-disk-blocks", type=int, default=0, help="KVBM disk tier (G3) in blocks")
+    p.add_argument("--kvbm-remote", action="store_true",
+                   help="enable the G4 remote KV tier on the control-plane object store")
+    p.add_argument("--max-local-prefill-length", type=int, default=0,
+                   help="decode role: prompts up to this many tokens prefill locally")
+    p.add_argument("--kv-transfer", choices=["device", "host"], default="device",
+                   help="decode role: pull the KV on the card (CUDA IPC) or as host bytes over TCP")
     return p
 
 
@@ -192,6 +248,9 @@ def build_engine(args: argparse.Namespace) -> TorchEngine:
             kv_cache_dtype=args.kv_cache_dtype,
             weight_dtype=args.weight_dtype,
             warmup_ctx=args.warmup_ctx,
+            kvbm_host_blocks=args.kvbm_host_blocks,
+            kvbm_disk_dir=args.kvbm_disk_dir,
+            kvbm_disk_blocks=args.kvbm_disk_blocks,
         )
     )
     # Guided decoding lifts grammars against the tokenizer the frontend
@@ -211,17 +270,27 @@ async def amain(args: argparse.Namespace) -> None:
     engine = build_engine(args)
     drt = await DistributedRuntime.from_settings()
     drt.runtime.install_signal_handlers()
+    if args.kvbm_remote and engine.kvbm is not None:
+        from dynamo_tpu_torch.llm.block_manager.storage import RemotePool
+
+        engine.kvbm.attach_remote(RemotePool(drt, asyncio.get_running_loop()))
     card = build_card(args, engine)
-    worker = await serve_engine(drt, engine, card, namespace=args.namespace,
-                                component=args.component or "backend", endpoint=args.endpoint)
+    component = args.component or ("backend" if args.role == "aggregated" else args.role)
+    worker = await serve_engine(drt, engine, card, namespace=args.namespace, component=component,
+                                endpoint=args.endpoint, role=args.role, kv_transfer=args.kv_transfer,
+                                max_local_prefill_length=args.max_local_prefill_length)
     logger.info("worker ready: role=%s model=%s instance=%x", args.role, card.name, worker.instance_id)
     try:
         await drt.runtime.cancellation.cancelled()
     finally:
+        disagg = worker.handler.stats_handler() if worker.handler is not None else None
         await worker.stop()
         await drt.shutdown()
         await engine.stop()
-        logger.info("worker launch counters: %s", json.dumps(counters_since(engine, worker.base)))
+        counters = counters_since(engine, worker.base)
+        if disagg is not None:
+            counters["disagg"] = {k: disagg[k] for k in DISAGG_COUNTERS}
+        logger.info("worker launch counters: %s", json.dumps(counters))
 
 
 def main() -> None:

@@ -1215,3 +1215,48 @@ def test_no_capture_after_warmup_and_a_failed_capture_raises(cuda):
         g.graph(("bad",), [("a", (4,), np.int32)], lambda inp: (x + inp["a"].sum().item(),))
     assert ("bad",) not in g and g.captures_total == 0
 
+
+
+# The device KV plane (llm/block_manager/device_transfer.py): a stack offered
+# by one process through CUDA IPC, pulled by another, released on the ack.
+IPC_PRODUCER = """
+import base64, sys, torch
+from dynamo_tpu_torch.llm.block_manager.device_transfer import get_plane
+from dynamo_tpu_torch.runtime import msgpack_codec
+k = torch.arange(65536, dtype=torch.float32, device="cuda").reshape(4, 64, 256)
+v = (k * -0.5).to(torch.bfloat16)
+meta = get_plane().offer("req-x", [k, v])
+print(base64.b64encode(msgpack_codec.packb(meta)).decode(), flush=True)
+sys.stdin.readline()
+get_plane().release_offer("req-x")
+print("RELEASED", get_plane().offers, flush=True)
+"""
+
+
+def test_cuda_ipc_pull_across_processes(cuda):
+    import base64
+    import os
+    import subprocess
+    import sys
+
+    from dynamo_tpu_torch.llm.block_manager.device_transfer import get_plane
+    from dynamo_tpu_torch.runtime import msgpack_codec
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    prod = subprocess.Popen([sys.executable, "-c", IPC_PRODUCER], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            text=True, env=env, cwd=repo)
+    try:
+        meta = msgpack_codec.unpackb(base64.b64decode(prod.stdout.readline()))
+        assert "cuda" in meta["tensors"][0]
+        k, v = get_plane().pull(meta, cuda)
+        want = torch.arange(65536, dtype=torch.float32, device=cuda).reshape(4, 64, 256)
+        assert torch.equal(k, want) and torch.equal(v, (want * -0.5).to(torch.bfloat16))
+        prod.stdin.write("ack\n")
+        prod.stdin.flush()
+        assert prod.stdout.readline().split() == ["RELEASED", "0"]
+        assert prod.wait(timeout=60) == 0
+    finally:
+        if prod.poll() is None:
+            prod.kill()
+            prod.wait()

@@ -599,8 +599,8 @@ def test_worker_defaults_to_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("cli,flags", [
-    ("worker", ["--mocker"]), ("worker", ["--role", "decode"]), ("worker", ["--tp", "2"]),
-    ("worker", ["--health-port", "0"]), ("worker", ["--incident-dir", "x"]), ("worker", ["--kvbm-host-blocks", "8"]),
+    ("worker", ["--mocker"]), ("worker", ["--role", "encode"]), ("worker", ["--tp", "2"]),
+    ("worker", ["--health-port", "0"]), ("worker", ["--incident-dir", "x"]), ("worker", ["--vision-model", "x"]),
     ("frontend", ["--grpc-port", "1"]), ("frontend", ["--tls-cert-path", "x"]), ("frontend", ["--trace-file", "x"]),
 ])
 def test_unported_jax_flags_are_refused(cli, flags):
@@ -609,6 +609,18 @@ def test_unported_jax_flags_are_refused(cli, flags):
     parser = (pworker if cli == "worker" else pfrontend).build_parser()
     with pytest.raises(SystemExit):
         parser.parse_args(flags)
+
+
+def test_disagg_and_kvbm_flags_parse():
+    """The worker's roles and KVBM tiers, with the JAX CLI's names and
+    defaults (``--kv-transfer device``)."""
+    args = pworker.build_parser().parse_args(
+        ["--role", "decode", "--kv-transfer", "host", "--max-local-prefill-length", "512", "--kvbm-host-blocks",
+         "8", "--kvbm-disk-dir", "d", "--kvbm-disk-blocks", "16", "--kvbm-remote"])
+    assert (args.role, args.kv_transfer, args.max_local_prefill_length) == ("decode", "host", 512)
+    assert (args.kvbm_host_blocks, args.kvbm_disk_dir, args.kvbm_disk_blocks, args.kvbm_remote) == (8, "d", 16, True)
+    args = pworker.build_parser().parse_args(["--role", "prefill"])
+    assert (args.role, args.kv_transfer, args.kvbm_host_blocks, args.kvbm_remote) == ("prefill", "device", 0, False)
 
 
 # ---------------------------------------------------------------------------
