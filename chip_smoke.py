@@ -89,8 +89,16 @@ and ``disagg`` runs a ``--role prefill`` and a ``--role decode`` worker
 their answers held against an aggregated engine in process, and the host
 wire's bytes against a device pull's.
 
-``--phases`` runs a subset of kernel,model,breakdown,serve,checkpoint,distributed,
-kvbm,disagg (env and build always run) for iteration; the full run is the default. ``grammar``,
+Then ``families`` serves the MoE and MLA model families through ``run``
+(``phase_families``): mixtral-8x7b at full width cut to 8 layers, its
+ragged kernel launches exact and one MoE layer's ragged dispatch held
+against the dense one; DeepSeek-V2-Lite whole, MLA over the paged latent
+cache with 64-expert MoE layers, a prefix hit, decode against prefill and
+the int8 latent cache against f32. It runs first, on the card, while nvcc
+still builds the kernels it does not use.
+
+``--phases`` runs a subset of families,kernel,model,breakdown,serve,checkpoint,
+distributed,kvbm,disagg (env and build always run) for iteration; the full run is the default. ``grammar``,
 outside the default, times a ``json_object`` grammar's token FSM over the
 checkpoint phase's 128,256-id vocabulary (minutes of host time).
 """
@@ -5743,7 +5751,358 @@ def phase_disagg(card: str, dev) -> dict:
     return res
 
 
-def kernels_line(timed: dict, served: dict, dist: dict, ckpt: dict, kvbm: dict, disagg: dict) -> list:
+# ---------------------------------------------------------------------------
+# families: the MoE and MLA model families served through run
+# ---------------------------------------------------------------------------
+
+FAMILY_MOE = "mixtral-8x7b"
+FAMILY_MOE_LAYERS = 8  # of 32: the 8 layers' ~11.9 B parameters are ~24 GB in bf16
+FAMILY_MLA = "deepseek-v2-lite"  # whole: 27 layers, ~15.7 B parameters, ~31.4 GB in bf16
+FAMILY_CHECK_LAYERS = 2  # the float32 checks' depth
+FAMILY_PROMPT_CHARS = (120, 400, 60, 900, 200, 30, 600, 300)  # the burst's 8 prompts
+MOE_BF16_TOL = dict(rtol=0.1, atol=0.05)  # ragged vs dense in bf16: JAX tests/test_moe.py:113-119
+MLA_DECODE_TOL = 2e-4  # decode vs prefill logits in f32: JAX tests/test_mla.py:32-66
+
+
+def family_bodies(model: str, seed: int) -> list:
+    """The families' burst: 8 streamed greedy chat requests of 64 tokens."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    return [{"model": model, "messages": [{"role": "user", "content": "".join(rng.choice(letters, size=n))}],
+             "stream": True, "temperature": 0.0, "max_tokens": 64} for n in FAMILY_PROMPT_CHARS]
+
+
+def family_serve(card: str, preset: str, cfg, params, dev) -> dict:
+    """``cfg`` (of ``preset``) on ``params`` through ``run.build_service``
+    (bf16, the scheduler's defaults: 32-step windows): one short request to
+    warm the process (this phase runs first: cuBLAS, the kernels' first
+    loads), then the 8-request burst and its first prompt again (a
+    prefix-cache hit), every kernel's counts zeroed just before the burst
+    and read just after, with the MLA attention calls and the scheduler's
+    steps."""
+    from dynamo_tpu_torch import run
+    from dynamo_tpu_torch.engine.models import mla
+
+    args = run.parse_args(["in=http", f"out={preset}", "--http-host", "127.0.0.1", "--http-port", "0",
+                           "--device", str(dev)])
+    bodies = family_bodies(preset, 21)
+
+    async def serve():
+        t0 = time.perf_counter()
+        service, engine = run.build_service(args, model_config=cfg, params=params)
+        build_s = time.perf_counter() - t0
+        sched = engine.scheduler
+        await service.start()
+        try:
+            warm = {**bodies[0], "messages": [{"role": "user", "content": "warm up"}], "max_tokens": 4}
+            warm_s = (await asyncio.to_thread(_request, service.port, "/v1/chat/completions", warm))[3]
+            steps0 = sched_steps(sched)
+            reset_counts()  # counts from zero, just before the main path runs
+            attends0 = mla.ATTEND_CALLS
+            t1 = time.perf_counter()
+            results = await _send(service.port, bodies)
+            wall = time.perf_counter() - t1
+            repeat = await asyncio.to_thread(_request, service.port, "/v1/chat/completions", bodies[0])
+            counts = read_counts()
+            attends = mla.ATTEND_CALLS - attends0
+            steps = {k: v - steps0[k] for k, v in sched_steps(sched).items()}
+            stats = engine.stats()
+        finally:
+            await service.stop()
+            await engine.stop()
+        return (results, wall, repeat, counts, attends, steps, stats, build_s, sched.config_snapshot()["model"],
+                warm_s)
+
+    results, wall, repeat, counts, attends, steps, stats, build_s, model, warm_s = asyncio.run(serve())
+    answers = [_answer_of(r) for r in results]
+    again = _answer_of(repeat)
+    launches, expected, plain = serve_launches(counts, steps, cfg.num_layers)
+    if cfg.architecture == "mla":
+        expected = dict.fromkeys(expected, 0)  # MLA attends in PyTorch ops: no kernel on its path
+    return {"preset": preset, "layers": cfg.num_layers, "model": model, "build_s": build_s, "warmup_request_s": warm_s,
+            **_burst_summary(answers, wall), "ttfts_s": [a["ttft_s"] for a in answers],
+            "repeat": {k: again[k] for k in ("cached_tokens", "ttft_s", "latency_s")},
+            "repeat_text_equal": again["text"] == answers[0]["text"],
+            "steps": steps, "launches": launches, "expected_launches": expected, "plain_calls": plain,
+            "mla_attend_calls": attends, "stats": {k: stats[k] for k in (
+                "architecture", "num_experts", "moe_dispatch", "moe_dropped_total", "moe_assignments_total",
+                "cached_tokens_total", "graph_captures_total")}}
+
+
+def moe_layer_case(cfg, params, T: int, dev, seed: int) -> dict:
+    """One MoE layer (layer 0's router and experts) on T bf16 rows: the
+    ragged dispatch timed, held against the dense dispatch of the same
+    weights (JAX's bf16 bound), and its bound: the experts the rows chose
+    read once, the rows in and out, over the memory rate; the routed
+    products over the bf16 peak."""
+    from dynamo_tpu_torch.engine.models import llama
+
+    lp = {k: params["layers"][k][0] for k in ("router", "w_gate", "w_up", "w_down")}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((T, cfg.hidden_size), generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
+    ragged = cfg.replace(moe_dispatch="ragged")
+    out = llama._moe_ragged(x, lp, ragged)
+    ref = llama._moe_dense(x, lp, ragged)
+    err = (out.float() - ref.float()).abs()
+    within = bool((err <= MOE_BF16_TOL["atol"] + MOE_BF16_TOL["rtol"] * ref.float().abs()).all())
+    _, ids = llama._route(x, lp, cfg.num_experts_per_tok)
+    chosen = int(torch.unique(ids).numel())
+    D, F_, E, K = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts, cfg.num_experts_per_tok
+    nbytes = 2 * (chosen * 3 * D * F_ + D * E + 2 * T * D)
+    flops = 2 * T * K * 3 * D * F_ + 2 * T * D * E
+    ms = cuda_ms(lambda: llama._mlp(x, lp, ragged), iters=10, warmup=2)
+    dense_ms = cuda_ms(lambda: llama._moe_dense(x, lp, ragged), iters=5, warmup=1)
+    return {"rows": T, "experts_chosen": chosen, "max_abs_err_vs_dense": err.max().item(), "within_bf16_bound": within,
+            "finite": bool(torch.isfinite(out).all()), "ms": ms, "dense_ms": dense_ms,
+            **bound(nbytes, flops, torch.bfloat16)}
+
+
+def mla_attend_case(cfg, params, *, rows: int, ctx: int, chunk: int, dev, seed: int) -> dict:
+    """One MLA attention call at DeepSeek-V2-Lite's widths, bf16: the
+    latent gather through the block tables and ``_attend_latent`` (scores
+    against the latent, softmax, weighted latent sum, ``w_uv``), ``rows``
+    queries of ``chunk`` positions each over ``ctx`` cached tokens. Bound:
+    the latent pages, queries, ``w_uv`` and the output moved once over the
+    memory rate; the scores', sum's and decompression's products over the
+    bf16 peak."""
+    from dynamo_tpu_torch.engine.kv_cache import KvCacheArrays
+    from dynamo_tpu_torch.engine.models import llama, mla
+
+    R, H, r, V = mla.latent_width(cfg), cfg.num_heads, cfg.kv_lora_rank, cfg.v_head_dim
+    bs = cfg.block_size
+    W = -(-ctx // bs)
+    one = cfg.replace(num_layers=1)
+    cache = KvCacheArrays.create(one, rows * W + 1, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache.k.copy_(torch.randn(cache.k.shape, generator=g, device=dev).to(torch.bfloat16))
+    tables = torch.arange(1, rows * W + 1, device=dev).view(rows, W)
+    lp = {k: params["layers"][k][0] for k in ("w_uv",)}
+    q_eff = torch.randn((rows, chunk, H, r), generator=g, device=dev).to(torch.bfloat16)
+    q_rope = torch.randn((rows, chunk, H, cfg.qk_rope_head_dim), generator=g, device=dev).to(torch.bfloat16)
+    fresh = torch.randn((rows, chunk, R), generator=g, device=dev).to(torch.bfloat16)
+    iq = torch.arange(chunk, device=dev)
+    mask = torch.cat([torch.ones((chunk, ctx), dtype=torch.bool, device=dev), iq[None, :] <= iq[:, None]], 1)
+    flat = cache.k.reshape(W * rows + 1, bs, 1, R)
+
+    def call():
+        lat = llama._gather_kv(flat, tables, torch.bfloat16).reshape(rows, W * bs, R)[:, :ctx]
+        return mla._attend_latent(q_eff, q_rope, torch.cat([lat, fresh], 1), mask.expand(rows, -1, -1), lp, cfg)
+
+    out = call()
+    S = ctx + chunk
+    nbytes = 2 * (rows * ctx * R + q_eff.numel() + q_rope.numel() + fresh.numel() + lp["w_uv"].numel()
+                  + out.numel())
+    flops = 2 * rows * chunk * H * S * (R + r) + 2 * rows * chunk * H * r * V
+    return {"rows": rows, "chunk": chunk, "ctx": ctx, "finite": bool(torch.isfinite(out).all()),
+            "ms": cuda_ms(call, iters=10, warmup=2), **bound(nbytes, flops, torch.bfloat16)}
+
+
+def moe_dispatch_checks(card: str, dev) -> dict:
+    """mixtral-8x7b at 2 layers in float32: a held burst's greedy ids under
+    ``moe_dispatch="ragged"`` equal those under ``"dense"``; under
+    ``"capacity"`` the engine counts its routed assignments (> 0) and
+    reports the drops."""
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
+    from dynamo_tpu_torch.engine.weights import init_params
+
+    cfg = get_config(FAMILY_MOE).replace(num_layers=FAMILY_CHECK_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(3), device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(22)
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)] for n in (40, 17, 90, 33, 64, 8, 120, 25)]
+
+    async def burst(dispatch: str):
+        engine = TorchEngine.build(EngineArgs(model=FAMILY_MOE, model_config=cfg, dtype="float32", device=str(dev),
+                                              moe_dispatch=dispatch), params=params)
+        try:
+            answers = await asyncio.gather(*[engine_answer(engine, p, max_tokens=24) for p in prompts])
+            return [a["ids"] for a in answers], engine.stats()
+        finally:
+            await engine.stop()
+
+    out = {}
+    for dispatch in ("ragged", "dense", "capacity"):
+        ids, stats = asyncio.run(burst(dispatch))
+        out[dispatch] = {"ids": ids, "moe_dispatch": stats["moe_dispatch"],
+                         "moe_dropped_total": stats["moe_dropped_total"],
+                         "moe_assignments_total": stats["moe_assignments_total"]}
+    del params
+    return {"preset": FAMILY_MOE, "layers": cfg.num_layers, "dtype": "float32",
+            "ragged_ids_equal_dense": out["ragged"]["ids"] == out["dense"]["ids"],
+            "capacity_ids_equal_ragged": out["capacity"]["ids"] == out["ragged"]["ids"],
+            **{d: {k: v for k, v in o.items() if k != "ids"} for d, o in out.items()}}
+
+
+def mla_checks(dev) -> dict:
+    """deepseek-v2-lite at 2 layers in float32, on the card: decode's logits
+    equal a prefill's of the same positions (JAX ``tests/test_mla.py:32``);
+    then 8 rows prefilled into an f32 latent cache and an int8 one and 16
+    teacher-forced decode steps on each: the int8 cache's greedy ids equal
+    the f32 ones wherever the f32 top-2 gap exceeds ``STEP0_GAP_NOISES``
+    times the row's int8 noise (its logits' largest distance from f32)."""
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.kv_cache import KvCacheArrays
+    from dynamo_tpu_torch.engine.models import mla
+    from dynamo_tpu_torch.engine.weights import init_params
+
+    cfg = get_config(FAMILY_MLA).replace(num_layers=FAMILY_CHECK_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(4), device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(23)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    # 1. decode vs prefill.
+    prompt = rng.integers(0, cfg.vocab_size, 41).astype(np.int32)
+    table = t(np.arange(1, 5, dtype=np.int32))
+    c1 = KvCacheArrays.create(cfg, 8, dtype=torch.float32, device=dev)
+    padded = np.zeros(64, np.int32)
+    padded[:40] = prompt[:40]
+    mla.prefill(params, cfg, c1.k, c1.v, t(padded), 40, 0, table)
+    ld = mla.decode(params, cfg, c1.k, c1.v, t(prompt[40:41]), t(np.array([40], np.int32)), table[None],
+                    t(np.array([True])))[0][0]
+    c2 = KvCacheArrays.create(cfg, 8, dtype=torch.float32, device=dev)
+    padded[:41] = prompt
+    lf = mla.prefill(params, cfg, c2.k, c2.v, t(padded), 41, 0, table)[0]
+    decode_err = (ld - lf).abs().max().item()
+    decode_ok = bool(torch.allclose(ld, lf, rtol=MLA_DECODE_TOL, atol=MLA_DECODE_TOL))
+    # 2. int8 latent cache vs f32.
+    B, P, steps = 8, 100, 16
+    W = -(-(P + steps) // cfg.block_size)
+    tables = t(np.arange(1, 1 + B * W, dtype=np.int32).reshape(B, W))
+    seqs = rng.integers(0, cfg.vocab_size, (B, P + steps)).astype(np.int32)
+    logits = {}
+    for kv in ("auto", "int8"):
+        c = cfg.replace(kv_cache_dtype=kv)
+        cache = KvCacheArrays.create(c, 1 + B * W, dtype=torch.float32, device=dev)
+        for b in range(B):
+            pad = np.zeros(128, np.int32)
+            pad[:P] = seqs[b, :P]
+            mla.prefill(params, c, cache.k, cache.v, t(pad), P, 0, tables[b])
+        rows = []
+        for s in range(steps):
+            rows.append(mla.decode(params, c, cache.k, cache.v, t(seqs[:, P + s]),
+                                   t(np.full(B, P + s, np.int32)), tables, t(np.ones(B, bool)))[0])
+        logits[kv] = torch.stack(rows)  # [steps, B, V]
+    ref, q = logits["auto"], logits["int8"]
+    noise = (q - ref).abs().amax(dim=-1)
+    top = ref.topk(2, dim=-1)
+    held = (top.values[..., 0] - top.values[..., 1]) > STEP0_GAP_NOISES * noise
+    same = bool(torch.equal(q.argmax(-1)[held], top.indices[..., 0][held]))
+    del params
+    return {"preset": FAMILY_MLA, "layers": cfg.num_layers, "dtype": "float32",
+            "decode_vs_prefill_max_abs_err": decode_err, "decode_vs_prefill_tol": MLA_DECODE_TOL,
+            "decode_matches_prefill": decode_ok,
+            "int8": {"rows": held.numel(), "rows_held": int(held.sum()), "ids_equal_where_held": same,
+                     "max_noise": noise.max().item(), "gap_noises": STEP0_GAP_NOISES,
+                     "finite": bool(torch.isfinite(q).all())}}
+
+
+def phase_families(card: str, dev) -> dict:
+    """The MoE and MLA families on the card.
+
+    1. ``mixtral-8x7b`` at full width (hidden 4096, 8 experts of FFN 14336,
+       32 query and 8 KV heads), cut to ``FAMILY_MOE_LAYERS`` of its 32
+       layers, bf16 through ``run``: a burst of 8 streamed requests of 64
+       tokens and a repeat of the first. Ragged kernel launches must equal
+       layers × (forward steps + window steps) exactly, with no other
+       kernel (no fused window: its kernel is dense) and no plain call.
+       One layer's ragged MoE output is held against the dense dispatch of
+       the same weights at a decode batch and a prefill chunk (JAX's bf16
+       bound) and timed beside its bound. At 2 layers in float32 the same
+       held burst's greedy ids under ragged and dense dispatch are equal,
+       and capacity dispatch counts its assignments.
+    2. ``deepseek-v2-lite`` whole (27 layers, MLA with a 512 + 64 latent,
+       64 experts, top 6), bf16 through ``run``: the burst and the repeat,
+       which must hit the prefix cache (``cached_tokens > 0``); no kernel
+       launches (MLA attends in PyTorch ops) and the MLA attention is
+       called once a layer for every forward and window step. At 2 layers
+       in float32: decode's logits equal a prefill's, and the int8 latent
+       cache's greedy ids equal the f32 cache's where the gap holds. One
+       MLA attention call is timed at a decode batch and a prefill chunk
+       beside its bound.
+    Prints each model's TTFT p50, decode tokens/s, the timed MoE layers and
+    MLA calls, the cache's bytes a token, and the card's name and power
+    limit. Any failed check raises."""
+    from dynamo_tpu_torch.engine.config import get_config
+    from dynamo_tpu_torch.engine.models import mla
+    from dynamo_tpu_torch.engine.weights import init_params
+
+    t0 = time.perf_counter()
+    checks = []
+    # 1. MoE.
+    moe_cfg = get_config(FAMILY_MOE).replace(num_layers=FAMILY_MOE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(moe_cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+    moe = family_serve(card, FAMILY_MOE, moe_cfg, params, dev)
+    moe["weights_gb"] = tree_bytes(params) / 1e9
+    moe["kv_bytes_per_token"] = moe_cfg.num_layers * 2 * moe_cfg.kv_size * 2
+    moe["moe_layer"] = {"decode": moe_layer_case(moe_cfg, params, 8, dev, 31),
+                        "prefill_chunk": moe_layer_case(moe_cfg, params, 512, dev, 32)}
+    moe["moe_layer_calls"] = moe_cfg.num_layers * (moe["steps"]["forward"] + moe["steps"]["window_steps_total"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe["dispatch_f32"] = moe_dispatch_checks(card, dev)
+    emit("families", card=card, **moe)
+    if (moe["launches"] != moe["expected_launches"] or moe["plain_calls"]
+            or not moe["launches"]["ragged_paged_attention"] or moe["steps"]["fused_windows_total"]):
+        checks.append(f"{FAMILY_MOE}: launches {moe['launches']} != {moe['expected_launches']}, "
+                      f"{moe['plain_calls']} plain calls or {moe['steps']['fused_windows_total']} fused windows")
+    for name, case in moe["moe_layer"].items():
+        if not (case["within_bf16_bound"] and case["finite"]):
+            checks.append(f"{FAMILY_MOE}: the {name} MoE layer's ragged output strays from dense: {case}")
+    d = moe["dispatch_f32"]
+    if not d["ragged_ids_equal_dense"]:
+        checks.append(f"{FAMILY_MOE}: f32 greedy ids differ between ragged and dense dispatch")
+    if not (d["capacity"]["moe_assignments_total"] > 0 and d["capacity"]["moe_dispatch"] == "capacity"):
+        checks.append(f"{FAMILY_MOE}: capacity dispatch counted no assignments: {d['capacity']}")
+    # 2. MLA + MoE.
+    mla_cfg = get_config(FAMILY_MLA)
+    params = init_params(mla_cfg, torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+    lite = family_serve(card, FAMILY_MLA, mla_cfg, params, dev)
+    lite["weights_gb"] = tree_bytes(params) / 1e9
+    lite["latent_bytes_per_token"] = mla_cfg.num_layers * mla.latent_width(mla_cfg) * 2
+    lite["moe_layer"] = {"decode": moe_layer_case(mla_cfg, params, 8, dev, 33),
+                         "prefill_chunk": moe_layer_case(mla_cfg, params, 512, dev, 34)}
+    lite["mla_attend"] = {"decode": mla_attend_case(mla_cfg, params, rows=8, ctx=1024, chunk=1, dev=dev, seed=35),
+                          "prefill_chunk": mla_attend_case(mla_cfg, params, rows=1, ctx=0, chunk=512, dev=dev,
+                                                           seed=36)}
+    lite["moe_layer_calls"] = lite["mla_attend_calls_expected"] = mla_cfg.num_layers * (
+        lite["steps"]["forward"] + lite["steps"]["window_steps_total"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lite["f32_checks"] = mla_checks(dev)
+    emit("families", card=card, **lite)
+    if lite["launches"] != lite["expected_launches"] or lite["plain_calls"]:
+        checks.append(f"{FAMILY_MLA}: kernel launches {lite['launches']} or plain calls {lite['plain_calls']}")
+    if lite["mla_attend_calls"] != lite["mla_attend_calls_expected"] or not lite["mla_attend_calls"]:
+        checks.append(f"{FAMILY_MLA}: {lite['mla_attend_calls']} MLA attention calls, "
+                      f"expected {lite['mla_attend_calls_expected']}")
+    if not (lite["repeat"]["cached_tokens"] or 0) > 0:
+        checks.append(f"{FAMILY_MLA}: the repeated prompt hit no prefix cache: {lite['repeat']}")
+    for name, case in lite["moe_layer"].items():
+        if not (case["within_bf16_bound"] and case["finite"]):
+            checks.append(f"{FAMILY_MLA}: the {name} MoE layer's ragged output strays from dense: {case}")
+    if not all(c["finite"] for c in lite["mla_attend"].values()):
+        checks.append(f"{FAMILY_MLA}: an MLA attention call gave non-finite values")
+    f = lite["f32_checks"]
+    if not (f["decode_matches_prefill"] and f["int8"]["ids_equal_where_held"] and f["int8"]["finite"]):
+        checks.append(f"{FAMILY_MLA}: f32 checks failed: {f}")
+    res = {"card": card, "phase_s": time.perf_counter() - t0,
+           "summary": {m: {"ttft_p50_s": r["ttft_p50_s"], "decode_tok_per_s": r["decode_tok_per_s"],
+                           "moe_layer_ms": {k: c["ms"] for k, c in r["moe_layer"].items()}}
+                       for m, r in ((FAMILY_MOE, moe), (FAMILY_MLA, lite))},
+           FAMILY_MOE: moe, FAMILY_MLA: lite}
+    res["summary"][FAMILY_MLA]["mla_attend_ms"] = {k: c["ms"] for k, c in lite["mla_attend"].items()}
+    res["summary"][FAMILY_MLA]["latent_bytes_per_token"] = lite["latent_bytes_per_token"]
+    res["summary"][FAMILY_MOE]["kv_bytes_per_token"] = moe["kv_bytes_per_token"]
+    emit("families_summary", card=card, phase_s=res["phase_s"], **res["summary"])
+    if checks:
+        raise AssertionError("; ".join(checks))
+    return res
+
+
+def kernels_line(timed: dict, served: dict, dist: dict, ckpt: dict, kvbm: dict, disagg: dict, fam: dict) -> list:
     """The ``kernels`` entries: every kernel's route, source, the TPU kernel
     it replaces, its launches on the main path, its checked error and its
     timed, plain, bound and library times. The fused window's sampled and
@@ -5857,6 +6216,12 @@ def kernels_line(timed: dict, served: dict, dist: dict, ckpt: dict, kvbm: dict, 
             entry["launches_disagg"] = {w: r["launches"][name] for w, r in disagg["workers"].items()}
             entry["launches_disagg_expected"] = {w: r["expected_launches"][name]
                                                  for w, r in disagg["workers"].items()}
+        if name == "ragged_paged_attention":
+            # The families phase: the MoE model's burst (the MLA model's
+            # attention is PyTorch ops and launches no kernel).
+            entry["launches_families"] = {m: fam[m]["launches"][name] for m in (FAMILY_MOE, FAMILY_MLA)}
+            entry["launches_families_expected"] = {m: fam[m]["expected_launches"][name]
+                                                   for m in (FAMILY_MOE, FAMILY_MLA)}
         if name == "ragged_paged_attention_int8":
             # library_ms: the gathered codes dequantized to dense K/V, then SDPA.
             entry["sdpa_alone_ms"] = t["sdpa_alone_ms"]
@@ -5987,7 +6352,10 @@ def parent_runs(parent: str) -> dict:
     return out
 
 
-FULL_RUN = ("env", "build", "kernel", "model", "breakdown", "serve", "checkpoint", "distributed", "kvbm", "disagg")
+FULL_RUN = ("env", "build", "families", "kernel", "model", "breakdown", "serve", "checkpoint", "distributed", "kvbm",
+            "disagg")
+# The kernels the families phase runs (it runs while the others build).
+FAMILIES_KERNELS = ("ragged_paged_attention",)
 
 
 def main() -> int:
@@ -6027,9 +6395,40 @@ def main() -> int:
 
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    built = _build.build()
+    # One nvcc a source, all started together; the families phase needs only
+    # FAMILIES_KERNELS, so it runs on the card while the rest (the fused
+    # kernels take minutes) still build on the host.
+    later = [n for n in _build.sources() if n not in FAMILIES_KERNELS]
+    built_later: dict = {}
+
+    def build_later():
+        try:
+            built_later.update(_build.build(later))
+        except BaseException as e:  # re-raised on the main thread below
+            built_later["error"] = e
+
+    nvcc_thread = threading.Thread(target=build_later, name="nvcc")
+    nvcc_thread.start()
+    built = _build.build(FAMILIES_KERNELS)
+    first_kernels_s = time.perf_counter() - t0
+    seconds = {}
+
+    def timed_phase(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t1
+        return out
+
+    try:
+        fam = timed_phase("families", lambda: phase_families(card, dev)) if "families" in phases else None
+    finally:
+        nvcc_thread.join()
+    if "error" in built_later:
+        raise built_later["error"]
+    built.update(built_later)
     sass = {n: tensor_core_ops(r["path"]) for n, r in built.items()}
-    emit("build", seconds=time.perf_counter() - t0,
+    emit("build", seconds=time.perf_counter() - t0, families_kernels_seconds=first_kernels_s,
+         overlapped_phases=["families"] if fam is not None else [],
          libraries={n: {"seconds": r["seconds"], "ptxas": [ln for ln in r["log"].splitlines() if "ptxas" in ln],
                         "sass": sass[n]}
                     for n, r in built.items()})
@@ -6044,14 +6443,10 @@ def main() -> int:
             raise AssertionError(f"{name}: no HGMMA in the built library ({sass[name]})")
 
     # Wall seconds of each phase, printed at the end (a run may have a time
-    # limit; the build's seconds vary with nvcc's).
-    seconds = {"build": time.perf_counter() - t0}
-
-    def timed_phase(name, fn):
-        t1 = time.perf_counter()
-        out = fn()
-        seconds[name] = time.perf_counter() - t1
-        return out
+    # limit; the build's seconds vary with nvcc's, and hold the families
+    # phase's, which ran beside it: the total is the wall since the build
+    # began).
+    seconds["build"] = time.perf_counter() - t0
 
     timed = timed_phase("kernel", lambda: phase_kernel(dev)) if "kernel" in phases else None
     if "model" in phases:
@@ -6069,10 +6464,10 @@ def main() -> int:
     disagg = timed_phase("disagg", lambda: phase_disagg(card, dev)) if "disagg" in phases else None
     if args.parent:
         emit("parent", **timed_phase("parent", lambda: parent_runs(args.parent)))
-    emit("seconds", **seconds, total=sum(seconds.values()))
+    emit("seconds", **seconds, total=time.perf_counter() - t0)
     if phases != set(FULL_RUN):
         return 0  # a partial run reports no result
-    kernels = kernels_line(timed, served, dist, ckpt, kvbm, disagg)
+    kernels = kernels_line(timed, served, dist, ckpt, kvbm, disagg, fam)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

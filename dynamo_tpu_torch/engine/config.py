@@ -3,9 +3,12 @@
 The engine-side architecture record: the same fields and presets as the
 JAX package's, so one preset name means one set of widths in both.
 ``kv_cache_dtype="int8"`` and ``weight_dtype="int8"`` are served (int8
-codes with f32 scales, engine/kv_cache.py and engine/quant.py); the
-families this port does not implement yet (MoE, MLA) raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+codes with f32 scales, engine/kv_cache.py and engine/quant.py). Three
+families are served: dense llama, llama with expert layers
+(``num_experts > 0``, models/llama.py's MoE feed-forward) and DeepSeek-style
+multi-head latent attention (``architecture="mla"``, models/mla.py), whose
+feed-forward may have experts too. int8 weights are llama-dense only, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -34,10 +37,24 @@ class ModelConfig:
     # MoE (0 experts = dense).
     num_experts: int = 0
     num_experts_per_tok: int = 0
+    # MoE dispatch (models/llama._mlp):
+    # - "dense":    every expert computes every token (exact, tiny models).
+    # - "ragged":   each expert's feed-forward over only the rows routed to
+    #               it, the rows sorted by expert (exact, no token drops).
+    # - "capacity": GShard-style one-hot dispatch/combine into C slots per
+    #               expert; assignments past an expert's capacity drop to the
+    #               residual and are counted (moe_dropped_total).
+    # - "auto":     "ragged"; resolve_moe_dispatch makes it "capacity" when
+    #               experts are split over ep > 1 ranks.
     moe_dispatch: str = "auto"
+    # Per-expert slot budget for "capacity" dispatch, as a multiple of the
+    # balanced load T*K/E.
     moe_capacity_factor: float = 2.0
-    # Architecture family: "llama" (GQA) or "mla".
+    # Architecture family: "llama" (GQA) or "mla" (DeepSeek-style multi-head
+    # latent attention over a paged latent cache, models/mla.py).
     architecture: str = "llama"
+    # MLA dims (ignored for llama): per-head nope/rope query dims, value dim,
+    # and the shared latent rank. Cache row = kv_lora_rank + qk_rope_head_dim.
     kv_lora_rank: int = 0
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
@@ -89,14 +106,15 @@ class ModelConfig:
             raise ValueError(f"kv_cache_dtype must be auto|int8, got {self.kv_cache_dtype!r}")
         if self.weight_dtype not in ("auto", "int8"):
             raise ValueError(f"weight_dtype must be auto|int8, got {self.weight_dtype!r}")
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "MoE (num_experts > 0) is not ported yet (ROADMAP Queue 1 item 16: other model families)"
+        if self.weight_dtype == "int8" and self.architecture != "llama":
+            raise ValueError(
+                "weight_dtype='int8' is llama-family only (MLA layer loops "
+                "do not dequantize yet)"
             )
-        if self.architecture != "llama":
-            raise NotImplementedError(
-                f"architecture={self.architecture!r} is not ported yet "
-                "(ROADMAP Queue 1 item 16: other model families)"
+        if self.weight_dtype == "int8" and self.num_experts > 0:
+            raise ValueError(
+                "weight_dtype='int8' does not cover MoE expert stacks "
+                "(ragged/capacity dispatch would re-dequantize per expert)"
             )
 
     @property
@@ -111,8 +129,7 @@ class ModelConfig:
         return dataclasses.replace(self, **kwargs)
 
 
-# Dense llama-family presets, at the published widths (the JAX package's
-# MoE and MLA presets wait for their model families to be ported).
+# The JAX package's presets, every field equal, at the published widths.
 PRESETS = {
     # Tiny config for unit tests: fast on a single CPU core.
     "tiny": ModelConfig(
@@ -127,6 +144,111 @@ PRESETS = {
         max_seq_len=256,
         block_size=16,
         rope_theta=10000.0,
+    ),
+    # Tiny MoE config for EP tests.
+    "tiny-moe": ModelConfig(
+        name="tiny-moe",
+        vocab_size=256,
+        hidden_size=64,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        intermediate_size=64,
+        max_seq_len=256,
+        block_size=16,
+        rope_theta=10000.0,
+        num_experts=4,
+        num_experts_per_tok=2,
+    ),
+    "mixtral-8x7b": ModelConfig(
+        name="mixtral-8x7b",
+        vocab_size=32000,
+        hidden_size=4096,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        intermediate_size=14336,
+        rope_theta=1000000.0,
+        max_seq_len=32768,
+        num_experts=8,
+        num_experts_per_tok=2,
+    ),
+    # Wide-EP MoE decode target (ref recipe: recipes/gpt-oss-120b) —
+    # architecture approximated from public specs.
+    "gpt-oss-120b": ModelConfig(
+        name="gpt-oss-120b",
+        vocab_size=201088,
+        hidden_size=2880,
+        num_layers=36,
+        num_heads=64,
+        num_kv_heads=8,
+        head_dim=64,
+        intermediate_size=2880,
+        max_seq_len=131072,
+        num_experts=128,
+        num_experts_per_tok=4,
+    ),
+    # Tiny MLA config (DeepSeek-style latent attention) for unit tests.
+    "tiny-mla": ModelConfig(
+        name="tiny-mla",
+        vocab_size=256,
+        hidden_size=64,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=1,
+        head_dim=16,
+        intermediate_size=128,
+        max_seq_len=256,
+        block_size=16,
+        rope_theta=10000.0,
+        architecture="mla",
+        kv_lora_rank=32,
+        qk_nope_head_dim=16,
+        qk_rope_head_dim=8,
+        v_head_dim=16,
+    ),
+    # DeepSeek-V2-Lite (public specs): MLA + 64-expert MoE.
+    "deepseek-v2-lite": ModelConfig(
+        name="deepseek-v2-lite",
+        vocab_size=102400,
+        hidden_size=2048,
+        num_layers=27,
+        num_heads=16,
+        num_kv_heads=1,
+        head_dim=128,
+        intermediate_size=1408,
+        max_seq_len=32768,
+        rope_theta=10000.0,
+        architecture="mla",
+        kv_lora_rank=512,
+        qk_nope_head_dim=128,
+        qk_rope_head_dim=64,
+        v_head_dim=128,
+        num_experts=64,
+        num_experts_per_tok=6,
+    ),
+    # DeepSeek-V3 / R1 (public specs): the wide-EP MLA decode target
+    # (ref recipe: components/backends/sglang slurm_jobs DeepSeek-R1).
+    "deepseek-v3": ModelConfig(
+        name="deepseek-v3",
+        vocab_size=129280,
+        hidden_size=7168,
+        num_layers=61,
+        num_heads=128,
+        num_kv_heads=1,
+        head_dim=128,
+        intermediate_size=2048,
+        max_seq_len=131072,
+        rope_theta=10000.0,
+        architecture="mla",
+        kv_lora_rank=512,
+        qk_nope_head_dim=128,
+        qk_rope_head_dim=64,
+        v_head_dim=128,
+        num_experts=256,
+        num_experts_per_tok=8,
     ),
     "qwen2.5-7b": ModelConfig(
         name="qwen2.5-7b",
@@ -205,3 +327,15 @@ def get_config(name: str) -> ModelConfig:
     if name in PRESETS:
         return PRESETS[name]
     raise KeyError(f"unknown model preset: {name} (have {sorted(PRESETS)})")
+
+
+def resolve_moe_dispatch(config: ModelConfig, ep: int) -> ModelConfig:
+    """Resolve "auto" MoE dispatch against the actual expert-parallel degree.
+
+    The scheduler resolves it at ``ep == 1`` (the port runs no expert
+    parallelism yet): "ragged", the exact grouped dispatch. Wide-EP meshes
+    would need "capacity". Direct model calls keep the "auto" → "ragged"
+    default in ``models/llama._mlp``."""
+    if config.num_experts and config.moe_dispatch == "auto":
+        return config.replace(moe_dispatch="capacity" if ep > 1 else "ragged")
+    return config

@@ -96,6 +96,9 @@ class EngineArgs:
     kv_cache_dtype: str = "auto"
     # Weight storage dtype override ("auto" | "int8") — config.py weight_dtype.
     weight_dtype: str = "auto"
+    # MoE dispatch override ("auto" | "dense" | "ragged" | "capacity") —
+    # config.py moe_dispatch; "auto" keeps the config's.
+    moe_dispatch: str = "auto"
     # Capture the step graphs for contexts up to this many tokens before
     # taking traffic (Scheduler.warmup; 0 = capture each on first use).
     warmup_ctx: int = 0
@@ -146,6 +149,8 @@ class TorchEngine:
             mc = mc.replace(kv_cache_dtype=args.kv_cache_dtype)
         if args.weight_dtype != "auto":
             mc = mc.replace(weight_dtype=args.weight_dtype)
+        if args.moe_dispatch != "auto":
+            mc = mc.replace(moe_dispatch=args.moe_dispatch)
         if args.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {args.dtype!r}")
         dtype = _DTYPES[args.dtype]
@@ -389,10 +394,15 @@ class TorchEngine:
         return self.scheduler.metrics()
 
     def stats(self) -> dict:
-        """``stats_handler``'s keys and the step graphs' counters."""
+        """``stats_handler``'s keys, the step graphs' counters, the served
+        family and the capacity-MoE counters (the JAX package reports the
+        last two in its config snapshot and its ForwardPassMetrics)."""
         sched = self.scheduler
         return {**self.stats_handler(), "graph_captures_total": sched.graph_captures_total,
-                "graph_captures_after_warmup": sched.graph_captures_after_warmup}
+                "graph_captures_after_warmup": sched.graph_captures_after_warmup,
+                "architecture": sched.mc.architecture, "num_experts": sched.mc.num_experts,
+                "moe_dispatch": sched.mc.moe_dispatch, "moe_dropped_total": sched.moe_dropped_total,
+                "moe_assignments_total": sched.moe_assignments_total}
 
     def stats_handler(self) -> dict:
         """The worker's stats scrape: the keys of the JAX engine's

@@ -103,6 +103,20 @@ class KvCacheArrays:
         dtype: torch.dtype = torch.bfloat16,
         device: str = "cuda",
     ) -> "KvCacheArrays":
+        """The block pool of ``config``'s family. MLA stores one shared
+        latent row a token (``kv_lora_rank + qk_rope_head_dim`` values) in
+        ``k``, shape ``[L, N, BS, 1, R]``; ``v`` is a ``[L, 1, 1, 1, 1]``
+        placeholder (values decompress from the latent, models/mla.py), and
+        an int8 latent keeps one scale a token, as in the JAX package."""
+        if config.architecture == "mla":
+            width = config.kv_lora_rank + config.qk_rope_head_dim
+            shape = (config.num_layers, num_blocks, config.block_size, 1, width)
+            if config.kv_cache_dtype == "int8":
+                k = QuantKv(torch.zeros(shape, dtype=torch.int8, device=device),
+                            torch.zeros((*shape[:-1], 1), dtype=torch.float32, device=device))
+            else:
+                k = torch.zeros(shape, dtype=dtype, device=device)
+            return cls(k=k, v=torch.zeros((config.num_layers, 1, 1, 1, 1), dtype=dtype, device=device))
         shape = (config.num_layers, num_blocks, config.block_size, config.num_kv_heads, config.head_dim)
 
         def mk():

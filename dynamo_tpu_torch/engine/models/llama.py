@@ -27,16 +27,25 @@ the ragged kernel, or dequantized where the per-piece paths gather pages
 int8 layer weights (``quant.QuantW``) are dequantized one layer at a time
 at the top of the layer loop.
 
+Expert layers (``num_experts > 0``), as in the JAX package: ``_mlp``
+routes each row to its top-k experts and dispatches by ``moe_dispatch``
+("ragged", the default: each chosen expert's SwiGLU over only its rows;
+"dense"; "capacity", with drop counts under ``moe_stats``). Every forward
+passes its live rows to the layer loop as ``valid``, so padding never
+takes an expert's capacity. The JAX package's dispatch is XLA (no Pallas
+kernel), so here it is torch ops; the attention of an MoE step is still
+the ragged kernel's.
+
 Parameters keep the JAX layout (engine/weights.py): stacked ``[L, in, out]``
-weights applied as ``x @ w``.
+weights applied as ``x @ w`` (experts ``[L, E, in, out]``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
-
 import logging
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,9 +98,138 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return rotate(x, *rope_angles(positions, x.shape[-1], theta))
 
 
-def _mlp(x: torch.Tensor, lp: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Dense SwiGLU feed-forward of one layer's weights."""
-    return (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+def _route(x: torch.Tensor, lp: Dict[str, torch.Tensor], K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing: (weights [T, K] f32, the softmax over the chosen
+    experts' router logits; expert ids [T, K])."""
+    router_logits = (x @ lp["router"]).float()  # [T, E]
+    top_vals, top_idx = torch.topk(router_logits, K, dim=-1)
+    return torch.softmax(top_vals, dim=-1), top_idx
+
+
+def _moe_dense(x: torch.Tensor, lp: Dict[str, torch.Tensor], config: ModelConfig) -> torch.Tensor:
+    """Every expert computes every token; the router weights combine. Exact,
+    at E/K times the ragged dispatch's products: the tiny-model and
+    reference form."""
+    T = x.shape[0]
+    E, K = config.num_experts, config.num_experts_per_tok
+    weights, top_idx = _route(x, lp, K)
+    combine = torch.zeros((T, E), dtype=x.dtype, device=x.device)
+    combine.scatter_(1, top_idx, weights.to(x.dtype))
+    g = torch.einsum("td,edf->tef", x, lp["w_gate"])
+    u = torch.einsum("td,edf->tef", x, lp["w_up"])
+    out = torch.einsum("tef,efd->ted", F.silu(g) * u, lp["w_down"])
+    return torch.einsum("ted,te->td", out, combine)
+
+
+def _moe_ragged(
+    x: torch.Tensor, lp: Dict[str, torch.Tensor], config: ModelConfig, valid: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Sparse dispatch, the JAX package's ``lax.ragged_dot`` form: the T·K
+    (token, expert) assignments sorted by expert (stable, so token order
+    within an expert), each expert's SwiGLU over only its own contiguous
+    rows, and the outputs, weighted, added back to their tokens. Exact (no
+    token drops); the products scale with K, not E, and read only the
+    experts some row chose.
+
+    The group sizes depend on the data: they are read on the host once a
+    call (one sync a layer), and the loop launches an expert's three
+    products only where its group is not empty. ``valid`` masks dead rows
+    (inactive decode lanes, bucket padding): their assignments are sorted
+    past the last expert and never computed. The JAX version folds them
+    into expert 0 with weight 0, which adds the same zeros."""
+    T = x.shape[0]
+    E, K = config.num_experts, config.num_experts_per_tok
+    weights, top_idx = _route(x, lp, K)
+    flat_e = top_idx.reshape(-1)  # [T*K]
+    if valid is not None:
+        flat_e = torch.where(valid.bool().repeat_interleave(K), flat_e, E)
+    order = torch.argsort(flat_e, stable=True)
+    sizes = torch.bincount(flat_e, minlength=E + 1)[:E].tolist()  # the one host read
+    order = order[: sum(sizes)]
+    tok = order // K  # source token of each sorted row
+    xs = x.index_select(0, tok)
+    y = torch.empty_like(xs)
+    start = 0
+    for e, n in enumerate(sizes):
+        if n:
+            xe = xs[start:start + n]
+            torch.matmul(F.silu(xe @ lp["w_gate"][e]) * (xe @ lp["w_up"][e]), lp["w_down"][e],
+                         out=y[start:start + n])
+            start += n
+    w_sorted = weights.reshape(-1)[order].to(x.dtype)
+    return torch.zeros_like(x).index_add_(0, tok, y * w_sorted[:, None])
+
+
+def _moe_capacity(
+    x: torch.Tensor, lp: Dict[str, torch.Tensor], config: ModelConfig, valid: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style capacity-factor dispatch: each expert owns C slots
+    (C = T·K/E · capacity_factor, at most T); dispatch and combine are
+    one-hot ``[E, C, T]`` products. Earlier tokens win slots; a token
+    overflowing every chosen expert's capacity keeps only its residual.
+    ``valid`` masks dead rows so they take no slot and are dispatched
+    nowhere. Returns ``(out, dropped)``, dropped the live assignments that
+    lost the slot race (0-d int32). Sync-free: every shape is static."""
+    T = x.shape[0]
+    E, K = config.num_experts, config.num_experts_per_tok
+    C = max(1, min(T, math.ceil(T * K * config.moe_capacity_factor / E)))
+    weights, top_idx = _route(x, lp, K)
+    flat_e = top_idx.reshape(-1)  # [T*K]
+    tok = torch.arange(T * K, device=x.device) // K
+    onehot = F.one_hot(flat_e, E).to(torch.int32)  # [T*K, E]
+    live = torch.ones_like(flat_e, dtype=torch.bool) if valid is None else valid.bool().repeat_interleave(K)
+    onehot = onehot * live.to(torch.int32)[:, None]
+    # Slot of each assignment within its expert's queue (token-major priority).
+    slot = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat_e[:, None])[:, 0]
+    keep = (slot < C) & live
+    dropped = (live & ~keep).sum().to(torch.int32)
+    idx = (flat_e, slot.clamp(0, C - 1), tok)
+    # (expert, slot) pairs are unique among kept rows, so accumulating is a
+    # set; dropped rows add 0.
+    disp = torch.zeros((E, C, T), dtype=x.dtype, device=x.device).index_put_(idx, keep.to(x.dtype), accumulate=True)
+    comb = torch.zeros((E, C, T), dtype=torch.float32, device=x.device).index_put_(
+        idx, torch.where(keep, weights.reshape(-1), 0.0), accumulate=True)
+    xe = torch.einsum("ect,td->ecd", disp, x)  # tokens gathered into their slots
+    g = torch.einsum("ecd,edf->ecf", xe, lp["w_gate"])
+    u = torch.einsum("ecd,edf->ecf", xe, lp["w_up"])
+    ye = torch.einsum("ecf,efd->ecd", F.silu(g) * u, lp["w_down"])
+    return torch.einsum("ecd,ect->td", ye.float(), comb).to(x.dtype), dropped
+
+
+def _mlp(
+    x: torch.Tensor,
+    lp: Dict[str, torch.Tensor],
+    config: Optional[ModelConfig] = None,
+    valid: Optional[torch.Tensor] = None,
+    stats: bool = False,
+):
+    """Feed-forward block: dense SwiGLU, or MoE when ``config.num_experts``
+    > 0, dispatched by ``config.moe_dispatch`` ("auto" is "ragged").
+    ``valid`` marks live rows (decode ``active`` lanes, a chunk's valid
+    tokens): sparse dispatch leaves dead rows out, so they cannot take an
+    expert's capacity. With ``stats=True`` returns ``(out, dropped)``, the
+    live assignments capacity dropped (0 for the exact modes)."""
+    if config is None or config.num_experts == 0:
+        out = (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+    elif config.moe_dispatch == "dense":
+        out = _moe_dense(x, lp, config)
+    elif config.moe_dispatch == "capacity":
+        out, dropped = _moe_capacity(x, lp, config, valid)
+        return (out, dropped) if stats else out
+    else:
+        out = _moe_ragged(x, lp, config, valid)
+    return (out, torch.zeros((), dtype=torch.int32, device=x.device)) if stats else out
+
+
+def _moe_aux(c: ModelConfig, drops: list, live: torch.Tensor, passes: int = 1) -> dict:
+    """A forward's capacity-MoE counters, as the JAX package returns them
+    with ``moe_stats=True``: the assignments dropped over every layer (and
+    step) and the live assignments routed, live rows × K × layers × steps
+    (0-d int32 device tensors)."""
+    dropped = (torch.stack(drops).sum().to(torch.int32) if drops
+               else torch.zeros((), dtype=torch.int32, device=live.device))
+    n = live.bool().sum().to(torch.int32) * (max(c.num_experts_per_tok, 1) * c.num_layers * passes)
+    return {"moe_dropped": dropped, "moe_assignments": n}
 
 
 def _layer_weights(layers: Dict, l: int, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -155,10 +293,13 @@ def _layers(
     h: torch.Tensor,  # [T, D] embedded rows of the step
     positions: torch.Tensor,  # [T]
     attend: Attend,
+    valid: Optional[torch.Tensor] = None,  # [T] bool: live rows (MoE dispatch skips the rest)
+    drops: Optional[List[torch.Tensor]] = None,  # capacity MoE: each layer's drop count is appended
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The layer stack. Returns (h, k_rows, v_rows) with the fresh K/V rows
     stacked ``[L, T, KVH, HD]`` in the compute dtype for the caller's single
-    cache write."""
+    cache write. Each forward passes its live rows as ``valid``, as the JAX
+    package's do, so a dead row never takes an expert's capacity slot."""
     L, N, bs = c.num_layers, k_cache.shape[1], c.block_size
     T = h.shape[0]
     H, KVH, HD = c.num_heads, c.num_kv_heads, c.head_dim
@@ -178,7 +319,12 @@ def _layers(
         attn = attend(l, q, k, v, k_flat, v_flat).to(h.dtype)
         h = h + attn.reshape(T, c.q_size) @ lp["wo"]
         x = rms_norm(h, lp["mlp_norm"], c.rms_norm_eps)
-        h = h + _mlp(x, lp)
+        if drops is None:
+            h = h + _mlp(x, lp, c, valid)
+        else:
+            mlp_out, dropped = _mlp(x, lp, c, valid, stats=True)
+            h = h + mlp_out
+            drops.append(dropped)
         k_rows[l] = k
         v_rows[l] = v
     return h, k_rows, v_rows
@@ -330,16 +476,23 @@ def _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs) -> None:
     back; here ``index_put_`` updates the same storage. An int8 cache
     quantizes the rows on the way in and writes codes and scales (JAX's
     ``_scatter_kv``)."""
-    L, T = k_rows.shape[0], k_rows.shape[1]
-    layer_idx = torch.arange(L, device=k_rows.device)[:, None].expand(L, T)
+    _write_rows(k_cache, k_rows, tgt_blocks, tgt_offs)
+    _write_rows(v_cache, v_rows, tgt_blocks, tgt_offs)
+
+
+def _write_rows(cache, rows: torch.Tensor, tgt_blocks: torch.Tensor, tgt_offs: torch.Tensor) -> None:
+    """``_write_kv`` for one cache tensor: rows ``[L, T, heads, dim]``
+    written in place at ``tgt_blocks``/``tgt_offs`` ``[T]`` of every layer
+    (MLA's latent cache has only this one)."""
+    L, T = rows.shape[0], rows.shape[1]
+    layer_idx = torch.arange(L, device=rows.device)[:, None].expand(L, T)
     idx = (layer_idx, tgt_blocks.long()[None, :].expand(L, T), tgt_offs.long()[None, :].expand(L, T))
-    for cache, rows in ((k_cache, k_rows), (v_cache, v_rows)):
-        if isinstance(cache, QuantKv):
-            qr = quantize_kv_rows(rows)
-            cache.q.index_put_(idx, qr.q)
-            cache.scale.index_put_(idx, qr.scale)
-        else:
-            cache.index_put_(idx, rows)
+    if isinstance(cache, QuantKv):
+        qr = quantize_kv_rows(rows)
+        cache.q.index_put_(idx, qr.q)
+        cache.scale.index_put_(idx, qr.scale)
+    else:
+        cache.index_put_(idx, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +526,8 @@ def prefill(
     use_flash: bool = False,  # per-piece paths: the flash kernel for the chunk piece
     has_prefix: bool = True,  # False ⇒ cache_len == 0: flash skips the prefix piece
     all_logits: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    moe_stats: bool = False,  # also return {"moe_dropped", "moe_assignments"} (capacity MoE)
+) -> Tuple[torch.Tensor, ...]:
     """One prefill (or prefill chunk): one ragged row of T queries, query i
     attending the ``cache_len`` cached tokens and fresh keys ``[0, i+1)``.
     Returns (last_logits [V] f32, or with ``all_logits`` every row's [T,
@@ -407,11 +561,11 @@ def prefill(
                                     use_flash, has_prefix)
 
     tgt_blocks, tgt_offs = ragged_scatter_targets(block_table, positions, valid_q, c.block_size)
-    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend)
+    drops = [] if moe_stats else None
+    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend, valid_q, drops)
     _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs)
-    if all_logits:
-        return _logits(params, c, h), k_cache, v_cache
-    return _logits(params, c, _row(h, valid_len - 1))[0], k_cache, v_cache
+    out = (_logits(params, c, h) if all_logits else _logits(params, c, _row(h, valid_len - 1))[0], k_cache, v_cache)
+    return out + (_moe_aux(c, drops, valid_q),) if moe_stats else out
 
 
 # ---------------------------------------------------------------------------
@@ -442,7 +596,8 @@ def decode(
     positions: torch.Tensor,  # [B] position of each token (its write slot)
     block_tables: torch.Tensor,  # [B, max_blocks]
     active: torch.Tensor,  # [B] bool — padded batch slots are False
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    moe_stats: bool = False,  # also return {"moe_dropped", "moe_assignments"} (capacity MoE)
+) -> Tuple[torch.Tensor, ...]:
     """One decode step for a batch: B length-1 rows, row b attending its
     cached prefix and its own fresh key (one megakernel launch per layer,
     or the two-piece merge of the per-piece paths). Returns (logits [B, V]
@@ -468,8 +623,11 @@ def decode(
         def attend(l, q, k, v, k_flat, v_flat):
             return _decode_rows_attention(c, impl, q, k, v, k_flat, v_flat, tables + l * N, prefix)
 
-    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend)
+    drops = [] if moe_stats else None
+    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend, active, drops)
     _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs)
+    if moe_stats:
+        return _logits(params, c, h), k_cache, v_cache, _moe_aux(c, drops, active)
     return _logits(params, c, h), k_cache, v_cache
 
 
@@ -489,6 +647,7 @@ def decode_sample(
     top_ks: torch.Tensor,  # [B] i32 (0 = off)
     top_ps: torch.Tensor,  # [B] f32 (1 = off)
     rng_key,  # [2] threefry key, numpy or a device tensor
+    moe_stats: bool = False,  # also return {"moe_dropped", "moe_assignments"} (capacity MoE)
 ) -> Tuple[torch.Tensor, ...]:
     """One decode step and its draw for the overlapped pipeline, all on the
     device: ``decode``, then ``sample_batch_device``, then the next step's
@@ -497,9 +656,11 @@ def decode_sample(
     scheduler hands ``next_tpa`` straight back to launch step N+1 before it
     reads step N's tokens (the JAX ``decode_sample``)."""
     positions = tpa[1].to(torch.int32)
-    logits, _, _ = decode(params, config, k_cache, v_cache, tpa[0], positions, block_tables, tpa[2].bool())
-    sampled = sample_batch_device(logits, temps, top_ks, top_ps, rng_key)
-    return sampled, torch.stack([sampled, positions + 1, tpa[2].to(torch.int32)]), k_cache, v_cache
+    res = decode(params, config, k_cache, v_cache, tpa[0], positions, block_tables, tpa[2].bool(),
+                 moe_stats=moe_stats)
+    sampled = sample_batch_device(res[0], temps, top_ks, top_ps, rng_key)
+    out = (sampled, torch.stack([sampled, positions + 1, tpa[2].to(torch.int32)]), k_cache, v_cache)
+    return out + (res[3],) if moe_stats else out
 
 
 @dataclass
@@ -558,9 +719,15 @@ def decode_multi(
     step splits ``rng_key`` and draws with the subkey, as the JAX version
     does (``prng.split_many`` makes the subkeys at once); with ``uniforms``
     it picks through ``sample_from_uniforms(..., uniforms[i])`` instead,
-    the fused window's sampled contract. ``moe_stats`` is not ported yet."""
-    if moe_stats:
-        raise NotImplementedError("decode_multi: moe_stats is not ported yet (ROADMAP Queue 1 item 16)")
+    the fused window's sampled contract. With ``moe_stats`` (not with
+    ``return_logits``, as in the JAX version) it also returns the window's
+    capacity-MoE counters."""
+    if moe_stats and return_logits:
+        raise NotImplementedError(
+            "decode_multi: moe_stats and return_logits cannot be combined yet "
+            "(the return tuples would be ambiguous to existing unpackers)"
+        )
+    drops = [] if moe_stats else None
     dev = tokens.device
     carry = WindowCarry.create(params, config, num_steps, tokens.shape[0], dev, return_logits=return_logits)
     keys = None if rng_key is None else torch.from_numpy(prng.split_many(rng_key, num_steps).view(np.int32)).to(dev)
@@ -570,7 +737,9 @@ def decode_multi(
     step = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(num_steps):
         decode_multi_step(params, config, k_cache, v_cache, tokens, positions, block_tables, active, *samp, keys,
-                          step, carry, uniforms=uniforms)
+                          step, carry, uniforms=uniforms, drops=drops)
+    if moe_stats:
+        return carry.out, k_cache, v_cache, _moe_aux(config, drops, active, passes=num_steps)
     if return_logits:
         return carry.out, carry.logits, k_cache, v_cache
     return carry.out, k_cache, v_cache
@@ -592,6 +761,7 @@ def decode_multi_step(
     step: torch.Tensor,  # 0-d int32: this step's index in the window, advanced in place
     carry: WindowCarry,
     uniforms: Optional[torch.Tensor] = None,  # [w, B] f32 — inverse-CDF draws instead of keys
+    drops: Optional[List[torch.Tensor]] = None,  # capacity MoE: each layer's drop count is appended
 ) -> None:
     """Step ``step`` of a decode window, all on the device: step 0 feeds
     ``tokens``, a later step the carry's tokens. Window-local KV, as in the
@@ -633,7 +803,8 @@ def decode_multi_step(
             window = (k_win[l].transpose(0, 1), v_win[l].transpose(0, 1), live)
             return _decode_rows_attention(c, impl, q, k, v, k_flat, v_flat, tables + l * N, prefix, window)
 
-    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, _embed(params, cur), positions + step, attend)
+    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, _embed(params, cur), positions + step, attend,
+                                active, drops)
     idx = step.reshape(1).long()
     k_win.index_copy_(1, idx, k_rows[:, None])
     v_win.index_copy_(1, idx, v_rows[:, None])
@@ -799,9 +970,8 @@ def chunk_decode(
     paths attention is the JAX function's own: the whole table gathered
     into a dense prefix and the chunk, two online-softmax pieces merged.
     All inputs stay on the device, so a CUDA graph replays it for any
-    values."""
-    if moe_stats:
-        raise NotImplementedError("chunk_decode: moe_stats is not ported yet (ROADMAP Queue 1 item 16)")
+    values. With ``moe_stats`` it also returns the pass's capacity-MoE
+    counters."""
     c = config
     bs, H, KVH, HD = c.block_size, c.num_heads, c.num_kv_heads, c.head_dim
     B, S = tokens.shape
@@ -851,17 +1021,19 @@ def chunk_decode(
 
     slots = torch.where(live, positions, torch.zeros_like(positions))
     tgt_blocks = torch.where(live, torch.gather(block_tables.long(), 1, (slots // bs).long()), 0)
+    drops = [] if moe_stats else None
     h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, _embed(params, tokens.reshape(T)),
-                                positions.reshape(T), attend)
+                                positions.reshape(T), attend, live.reshape(T), drops)
     _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks.reshape(T), (slots % bs).reshape(T))
     if last_logits:
         last = (valid - 1).clamp(min=0).long()
-        h_last = h.view(B, S, -1)[torch.arange(B, device=dev), last]
-        return _logits(params, c, h_last), k_cache, v_cache
-    logits = _logits(params, c, h).view(B, S, -1)
-    if all_logits:
-        return logits, k_cache, v_cache
-    return logits.argmax(dim=-1).to(torch.int32), k_cache, v_cache
+        out = _logits(params, c, h.view(B, S, -1)[torch.arange(B, device=dev), last])
+    else:
+        logits = _logits(params, c, h).view(B, S, -1)
+        out = logits if all_logits else logits.argmax(dim=-1).to(torch.int32)
+    if moe_stats:
+        return out, k_cache, v_cache, _moe_aux(c, drops, live)
+    return out, k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -884,7 +1056,8 @@ def mixed_step(
     d_active: torch.Tensor,  # [B] bool — padded decode lanes are False
     use_flash: bool = False,  # per-piece paths: the flash kernel for the chunk piece
     has_prefix: bool = True,  # False ⇒ p_cache_len == 0: flash skips the prefix piece
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    moe_stats: bool = False,  # also return {"moe_dropped", "moe_assignments"} (capacity MoE)
+) -> Tuple[torch.Tensor, ...]:
     """One mixed step: a prefill chunk row plus the decode batch in one
     ragged batch. The token axis is ``[chunk (S) ; decode rows (B)]``;
     chunk query i sees fresh keys ``[0, i+1)``, decode row d sees only its
@@ -939,7 +1112,9 @@ def mixed_step(
                                             d_prefix)
             return torch.cat([attn_p, attn_d.to(attn_p.dtype)])
 
-    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions_all, attend)
+    valid_all = torch.cat([p_valid_q, d_active.bool()])
+    drops = [] if moe_stats else None
+    h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions_all, attend, valid_all, drops)
 
     p_blocks, p_offs = ragged_scatter_targets(p_table, p_positions, p_valid_q, bs)
     d_blocks, d_offs = decode_targets(d_positions, d_tables, d_active.bool(), bs)
@@ -949,4 +1124,6 @@ def mixed_step(
     )
     # Logits only at each sequence's last row: [1+B, D], never [S+B, V].
     h_rows = torch.cat([_row(h, p_valid - 1), h[S:]], dim=0)
+    if moe_stats:
+        return _logits(params, c, h_rows), k_cache, v_cache, _moe_aux(c, drops, valid_all)
     return _logits(params, c, h_rows), k_cache, v_cache

@@ -83,6 +83,21 @@ The core loop of the JAX package's ``Scheduler``:
   traffic); on the CPU the same code runs eagerly. The per-piece paths,
   guided draws and the fused windows (one launch each already) stay
   eager.
+- **Model families** (``models.get_module``): the dense llama family, llama
+  with expert layers and MLA. Each path runs where the model has its
+  function, as in the JAX package: MLA (``models/mla.py``: ``prefill``,
+  ``decode``, ``decode_multi``) has no waves, mixed steps, overlapped
+  decode, fused window or speculation, and attends through its own
+  gather, never the ragged kernel; an MoE llama runs every llama path but
+  the fused windows (whose kernels are dense), each forward's attention
+  through the ragged kernel and its experts through ``llama._mlp``'s
+  dispatch (``moe_dispatch``, "auto" resolved to "ragged"). Under
+  "capacity" every forward also returns its drop counters, which the
+  metrics drain in one read (``moe_dropped_total``,
+  ``moe_assignments_total``). Neither family's steps are captured as CUDA
+  graphs (``StepGraphs`` is off for them): the ragged dispatch reads its
+  group sizes on the host each layer, which a capture cannot replay, and
+  MLA runs on the gather path, which is never graphed.
 - **Keys**: the JAX package's threefry discipline (``engine/prng.py``):
   a step counter folded into ``PRNGKey(rng_seed)`` wherever the JAX
   scheduler folds it, and seeded requests keyed by their own seed and
@@ -100,6 +115,7 @@ from __future__ import annotations
 import asyncio
 import enum
 import logging
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -109,10 +125,10 @@ import torch
 
 from dynamo_tpu_torch.engine.attention import decode as paged_decode
 from dynamo_tpu_torch.engine.attention import megakernel
-from dynamo_tpu_torch.engine.config import ModelConfig
+from dynamo_tpu_torch.engine.config import ModelConfig, resolve_moe_dispatch
 from dynamo_tpu_torch.engine.graphs import HostReads, StepGraphs
 from dynamo_tpu_torch.engine.kv_cache import BlockAllocator, KvCacheArrays, KvEvent, OutOfBlocksError, QuantKv
-from dynamo_tpu_torch.engine.models import llama
+from dynamo_tpu_torch.engine.models import get_module, llama
 from dynamo_tpu_torch.engine import prng
 from dynamo_tpu_torch.engine.sampling import (
     SamplingParams, apply_penalties, apply_token_masks, compute_logprobs, compute_topk_logprobs,
@@ -310,6 +326,10 @@ class ForwardPassMetrics:
     prefix_onboard_total: int = 0
     # SpecDecodeStats.to_dict() with a draft attached, else None.
     spec_decode: Optional[dict] = None
+    # Capacity-dispatch MoE pressure: (token, expert) assignments dropped by
+    # the experts' capacity, and all routed live assignments (capacity only).
+    moe_dropped_total: int = 0
+    moe_assignments_total: int = 0
 
     def to_wire(self) -> dict:
         return self.__dict__.copy()
@@ -334,7 +354,11 @@ class Scheduler:
         eos_token_ids: Optional[List[int]] = None,
         rng_seed: int = 0,
     ):
+        # The port runs no expert parallelism (ROADMAP item 17): ep = 1.
+        model_config = resolve_moe_dispatch(model_config, 1)
         self.mc = model_config
+        # The served family's forwards (models/llama.py or models/mla.py).
+        self.model = get_module(model_config)
         self.sc = scheduler_config or SchedulerConfig()
         self.device = torch.device(device)
         self.dtype = dtype
@@ -365,10 +389,23 @@ class Scheduler:
         self.mixed_steps_total = 0
         self.mixed_prefill_tokens_total = 0
         self.mixed_decode_tokens_total = 0
-        # Wave admission: several short waiting prompts prefilled in ONE
-        # chunk_decode pass (llama-family models); a wave is also a forward
-        # and a prefill step.
-        self._supports_chunk_admit = model_config.architecture == "llama"
+        # What the family's module has, as the JAX scheduler checks it: wave
+        # admission (several short waiting prompts prefilled in ONE
+        # chunk_decode pass; a wave is also a forward and a prefill step),
+        # mixed steps and the overlapped pipeline (every family has
+        # decode_multi's windows).
+        self._supports_chunk_admit = hasattr(self.model, "chunk_decode")
+        self._supports_mixed = hasattr(self.model, "mixed_step")
+        self._supports_overlap = hasattr(self.model, "decode_sample")
+        # Capacity-dispatch MoE returns its drop counters from every forward;
+        # they stay on the device until the metrics drain them in one read.
+        self._moe_stats = (model_config.architecture == "llama" and model_config.num_experts > 0
+                           and model_config.moe_dispatch == "capacity")
+        self._stats_kw = {"moe_stats": True} if self._moe_stats else {}
+        self._pending_aux: List[tuple] = []
+        self._aux_lock = threading.Lock()
+        self._moe_dropped_total = 0
+        self._moe_assignments_total = 0
         self.wave_steps_total = 0
         # Decode windows: fused (one kernel launch each; those with a sampled
         # row and those with a guided row also counted apart), non-fused
@@ -405,8 +442,12 @@ class Scheduler:
         self.sc.prefill_buckets = [b for b in self.sc.prefill_buckets if b <= model_config.max_seq_len] or [
             model_config.max_seq_len
         ]
-        llama.warn_attention_impl_degrade(model_config, self.cache.k)
-        self._attn_impl = llama.resolve_attention_impl(model_config, self.cache.k)
+        # MLA attends through its own gather (models/mla.py): no ragged
+        # kernel, no flash prefill, as in the JAX package.
+        self._attn_impl = "gather"
+        if model_config.architecture == "llama":
+            llama.warn_attention_impl_degrade(model_config, self.cache.k)
+            self._attn_impl = llama.resolve_attention_impl(model_config, self.cache.k)
         # Prefill chunk attention on the per-piece paths: the flash kernel
         # ("auto" ⇒ on a CUDA device only) or one masked softmax.
         self._use_flash_prefill = model_config.architecture == "llama" and (
@@ -416,11 +457,14 @@ class Scheduler:
         # Window rungs: a batch needing few more tokens runs a short window.
         steps = self.sc.num_scheduler_steps
         self._window_rungs = sorted({w for w in (8, 16, steps) if w <= steps})
-        # The fused window: multi-step on, the megakernel path, and the
-        # kernel's own gate (dense llama, bf16/f32, head dim, batch ≤ 32,
-        # a cooperative grid covering the card).
+        # The fused window: multi-step on, the megakernel path, a dense
+        # llama (the kernel has no experts; MoE windows run decode_multi,
+        # whose attention is still the ragged kernel), and the kernel's own
+        # gate (bf16/f32, head dim, batch ≤ 32, a cooperative grid covering
+        # the card).
         self._use_fused_window = (
             steps > 1
+            and model_config.num_experts == 0
             and self._attn_impl == "megakernel"
             and megakernel.fused_window_fits(
                 model_config, batch=self.sc.decode_buckets[-1], dtype=params["embed"].dtype,
@@ -429,8 +473,12 @@ class Scheduler:
         )
         # The megakernel path's steps as CUDA graphs (eager on the CPU). The
         # split kernels' arrival counters are sized for the largest step
-        # first: a graph keeps the address it captured.
-        self._graphs = StepGraphs(self.device) if self._attn_impl == "megakernel" else None
+        # first: a graph keeps the address it captured. Refused for MoE: the
+        # ragged dispatch reads its group sizes on the host every layer (a
+        # sync no capture can hold), and no replay of the capacity or dense
+        # dispatch is shown bit-equal to its eager step yet.
+        self._graphs = (StepGraphs(self.device)
+                        if self._attn_impl == "megakernel" and model_config.num_experts == 0 else None)
         if self.device.type == "cuda":
             rows = self.sc.decode_buckets[-1]
             megakernel.reserve_counters(self.device, (1 + rows) * model_config.num_kv_heads)
@@ -529,7 +577,47 @@ class Scheduler:
             overlap_flushes_total=self.overlap_flushes_total,
             prefix_onboard_total=self.prefix_onboard_total,
             spec_decode=self.spec_stats.to_dict() if self.spec_stats else None,
+            moe_dropped_total=self.moe_dropped_total,
+            moe_assignments_total=self.moe_assignments_total,
         )
+
+    @property
+    def moe_dropped_total(self) -> int:
+        """Capacity-MoE drop counter, drained on read (the forwards stage
+        their device counters; reading each would sync every step)."""
+        self._drain_aux()
+        return self._moe_dropped_total
+
+    @property
+    def moe_assignments_total(self) -> int:
+        self._drain_aux()
+        return self._moe_assignments_total
+
+    def _fwd(self, name: str, *args, **kw):
+        """The served model's forward ``name``. Under capacity MoE it also
+        asks for the forward's counters and stages them, and returns the
+        rest of the result (the JAX scheduler's ``_consume_aux``)."""
+        res = getattr(self.model, name)(*args, **kw, **self._stats_kw)
+        if not self._moe_stats:
+            return res
+        *main, aux = res
+        with self._aux_lock:
+            self._pending_aux.append((aux["moe_dropped"], aux["moe_assignments"]))
+            full = len(self._pending_aux) >= 256
+        if full:
+            self._drain_aux()
+        return tuple(main)
+
+    def _drain_aux(self) -> None:
+        """Fold the staged MoE counters into the totals: one device read for
+        all of them."""
+        with self._aux_lock:
+            pend, self._pending_aux = self._pending_aux, []
+            if not pend:
+                return
+            d, a = torch.stack([torch.stack([d, a]) for d, a in pend]).sum(dim=0).tolist()
+            self._moe_dropped_total += int(d)
+            self._moe_assignments_total += int(a)
 
     def kv_gauges(self) -> dict:
         """Block-pool utilization for the stats scrape, the JAX scheduler's
@@ -625,6 +713,7 @@ class Scheduler:
         # fused window already), as in the JAX package.
         self._use_fused_spec = (
             self._use_fused_window
+            and draft_config.num_experts == 0
             and "int8" not in (draft_config.kv_cache_dtype, draft_config.weight_dtype)
             and draft_params["embed"].dtype == dtype
             and megakernel.fused_spec_fits(
@@ -813,7 +902,8 @@ class Scheduler:
         """Head-of-queue sequence eligible to ride a mixed step, or None.
         Only the head is considered (FIFO); a full decode set keeps a
         not-yet-admitted head out."""
-        if not (self.sc.enable_mixed_batching and self.draft_params is None and self.running and self.waiting):
+        if not (self.sc.enable_mixed_batching and self._supports_mixed and self.draft_params is None
+                and self.running and self.waiting):
             return None
         head = self.waiting[0]
         if head.aborted or head.prefilled is not None:
@@ -885,8 +975,8 @@ class Scheduler:
         else:
             tpa, _ = self._decode_host(batch, d_bucket, width)
             tpa_d = self._dev(tpa)
-            logits, _, _ = llama.mixed_step(
-                self.params, self.mc, self.cache.k, self.cache.v,
+            logits, _, _ = self._fwd(
+                "mixed_step", self.params, self.mc, self.cache.k, self.cache.v,
                 self._dev(p_tok), len(chunk_tokens), seq.num_computed, self._dev(p_table),
                 tpa_d[0], tpa_d[1], self._decode_tables(batch, d_bucket, width),
                 tpa_d[2].bool(), use_flash=self._use_flash_prefill, has_prefix=seq.num_computed > 0,
@@ -1032,8 +1122,8 @@ class Scheduler:
         if self._graphs is not None:
             logits = self._graphs.wave(self.params, self.mc, self.cache, tokens, pos0, valid, tables)
         else:
-            logits, _, _ = llama.chunk_decode(self.params, self.mc, self.cache.k, self.cache.v,
-                                              *map(self._dev, (tokens, pos0, valid, tables)), last_logits=True)
+            logits, _, _ = self._fwd("chunk_decode", self.params, self.mc, self.cache.k, self.cache.v,
+                                     *map(self._dev, (tokens, pos0, valid, tables)), last_logits=True)
         sampled = self._draw(logits, admitted, b_bucket, self._next_key())[0]  # the wave's one host sync
         self.wave_steps_total += 1
         self.forward_steps_total += 1
@@ -1165,17 +1255,19 @@ class Scheduler:
     def _prefill(self, seq: Sequence, model: str, padded: np.ndarray, valid: int, start: int) -> torch.Tensor:
         """One prefill chunk of ``seq`` through the target (or the draft)
         model → its last row's logits ``[V]``: a graph replay on the
-        megakernel path, else ``llama.prefill``."""
+        megakernel path, else the family's ``prefill`` (the draft is a
+        llama)."""
         params, cfg, cache = ((self.params, self.mc, self.cache) if model == "target"
                               else (self.draft_params, self.draft_cfg, self.draft_cache))
         table = self._prefill_table(seq)
         if self._graphs is not None:
             return self._graphs.prefill(model, params, cfg, cache, padded, valid, start, table)[0]
-        logits, _, _ = llama.prefill(
-            params, cfg, cache.k, cache.v, self._dev(padded), valid, start, self._dev(table),
-            use_flash=self._use_flash_prefill and model == "target", has_prefix=start > 0,
-        )
-        return logits
+        args = (params, cfg, cache.k, cache.v, self._dev(padded), valid, start, self._dev(table))
+        if model == "draft":
+            return llama.prefill(*args, has_prefix=start > 0)[0]
+        if self.mc.architecture == "llama":
+            return self._fwd("prefill", *args, use_flash=self._use_flash_prefill, has_prefix=start > 0)[0]
+        return self._fwd("prefill", *args)[0]
 
     def _decode_host(self, batch: List[Sequence], bucket: int, width: int) -> tuple:
         """``(tpa [3, bucket], tables [bucket, width])`` int32 numpy of a
@@ -1273,8 +1365,8 @@ class Scheduler:
             logits = self._graphs.decode(self.params, self.mc, self.cache, tpa, tables)
         else:
             tpa_d = self._dev(tpa)
-            logits, _, _ = llama.decode(self.params, self.mc, self.cache.k, self.cache.v, tpa_d[0], tpa_d[1],
-                                        self._decode_tables(batch, bucket, width), tpa_d[2].bool())
+            logits, _, _ = self._fwd("decode", self.params, self.mc, self.cache.k, self.cache.v, tpa_d[0], tpa_d[1],
+                                     self._decode_tables(batch, bucket, width), tpa_d[2].bool())
         self.forward_steps_total += 1
         self.decode_steps_total += 1
         self._finish_decode_rows(batch, bucket, logits, outputs)
@@ -1303,6 +1395,7 @@ class Scheduler:
     def _overlap_start_ok(self, batch: List[Sequence]) -> bool:
         return (
             self.sc.enable_overlap_decode
+            and self._supports_overlap
             and self.draft_params is None
             and not self.waiting
             and all(self._overlap_row_ok(s) for s in batch)
@@ -1343,8 +1436,8 @@ class Scheduler:
                 tpa = self._dev(tpa)
             if "samp_d" not in pipe:
                 pipe["samp_d"] = tuple(self._dev(x) for x in (pipe["temps"], pipe["tks"], pipe["tps"]))
-            sampled, next_tpa, _, _ = llama.decode_sample(
-                self.params, self.mc, self.cache.k, self.cache.v, tpa,
+            sampled, next_tpa, _, _ = self._fwd(
+                "decode_sample", self.params, self.mc, self.cache.k, self.cache.v, tpa,
                 self._decode_tables(pipe["batch"], pipe["bucket"], pipe["width"]), *pipe["samp_d"], key)
         pipe["sampled"] = self._reads.read_async(sampled)
         pipe["next_tpa"] = next_tpa
@@ -1428,7 +1521,7 @@ class Scheduler:
     def _kv_zero(self, block: int, offset: int) -> None:
         """Zero one KV slot in every layer: a rolled-back write (an int8
         cache's codes and scales)."""
-        for c in (self.cache.k, self.cache.v):
+        for c in self._kv_pools():
             for t in ((c.q, c.scale) if isinstance(c, QuantKv) else (c,)):
                 t[:, block, offset] = 0
 
@@ -1494,7 +1587,7 @@ class Scheduler:
                                                  top_ps, None if key is None else prng.split_many(key, steps), steps)
             else:
                 args = (self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket))
-                toks, _, _ = llama.decode_multi(*args, temps, top_ks, top_ps, key, steps)
+                toks, _, _ = self._fwd("decode_multi", *args, temps, top_ks, top_ps, key, steps)
             self.multi_windows_total += 1
             self.window_steps_total += steps
         sampled = toks.cpu().numpy()  # the one host sync per window
@@ -1649,8 +1742,8 @@ class Scheduler:
         if g is not None:
             t_logits = g.spec_target(self.params, self.mc, self.cache, t_toks, t_pos0, t_valid, tables, gamma)
         else:
-            t_logits, _, _ = llama.chunk_decode(self.params, self.mc, self.cache.k, self.cache.v,
-                                                *map(self._dev, (t_toks, t_pos0, t_valid)), tables_d, all_logits=True)
+            t_logits, _, _ = self._fwd("chunk_decode", self.params, self.mc, self.cache.k, self.cache.v,
+                                       *map(self._dev, (t_toks, t_pos0, t_valid)), tables_d, all_logits=True)
         accepted, next_tok = spec_verify(draft_logits, t_logits, proposals, *samp_d, self._next_key())
         accepted_h, next_h = accepted.cpu().numpy(), next_tok.cpu().numpy()  # the second
         st = self.spec_stats
@@ -1850,9 +1943,15 @@ class Scheduler:
     def _copy_block(self, src: int, dst: int) -> None:
         """Block duplication across all layers (the copy-on-write copy); an
         int8 cache copies its codes and its scales."""
-        for c in (self.cache.k, self.cache.v):
+        for c in self._kv_pools():
             for t in ((c.q, c.scale) if isinstance(c, QuantKv) else (c,)):
                 t[:, dst] = t[:, src]
+
+    def _kv_pools(self) -> tuple:
+        """The cache tensors that hold blocks: k and v, or MLA's latent k
+        alone (its v is a ``[L, 1, 1, 1, 1]`` placeholder, which no block
+        index reaches)."""
+        return (self.cache.k,) if self.mc.architecture == "mla" else (self.cache.k, self.cache.v)
 
     def _ensure_block_capacity(self, seq: Sequence) -> None:
         """Grow the block table if the *next* token would overflow it. On

@@ -30,27 +30,44 @@ from dynamo_tpu_torch.engine.safetensors_reader import SafetensorsFile
 
 Params = Dict[str, object]
 
-_LAYER_KEYS = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-
 
 def param_shapes(c: ModelConfig) -> dict:
-    """Expected shape of every parameter (the JAX ``init_params`` layout)."""
+    """Expected shape of every parameter, the JAX ``init_params`` layout of
+    the config's family: llama's attention (``models/llama.py``) or MLA's
+    (``wq`` over every head's nope and rope dims, the latent down-projection
+    ``w_dkv`` and its norm, the shared rope key ``w_kr``, the per-head
+    absorbed ``w_uk`` and ``w_uv``: ``models/mla.py``), then a dense SwiGLU
+    or, with ``num_experts > 0``, a ``router`` ``[L, D, E]`` and stacked
+    experts ``[L, E, D, F]`` / ``[L, E, F, D]``."""
     L, D, I = c.num_layers, c.hidden_size, c.intermediate_size
-    shapes = {
-        "embed": (c.vocab_size, D),
-        "final_norm": (D,),
-        "layers": {
+    if c.architecture == "mla":
+        H = c.num_heads
+        layers = {
+            "attn_norm": (L, D),
+            "mlp_norm": (L, D),
+            "kv_norm": (L, c.kv_lora_rank),
+            "wq": (L, D, H * (c.qk_nope_head_dim + c.qk_rope_head_dim)),
+            "w_dkv": (L, D, c.kv_lora_rank),
+            "w_kr": (L, D, c.qk_rope_head_dim),
+            "w_uk": (L, H, c.qk_nope_head_dim, c.kv_lora_rank),
+            "w_uv": (L, H, c.kv_lora_rank, c.v_head_dim),
+            "wo": (L, H * c.v_head_dim, D),
+        }
+    else:
+        layers = {
             "attn_norm": (L, D),
             "mlp_norm": (L, D),
             "wq": (L, D, c.q_size),
             "wk": (L, D, c.kv_size),
             "wv": (L, D, c.kv_size),
             "wo": (L, c.q_size, D),
-            "w_gate": (L, D, I),
-            "w_up": (L, D, I),
-            "w_down": (L, I, D),
-        },
-    }
+        }
+    if c.num_experts == 0:
+        layers.update(w_gate=(L, D, I), w_up=(L, D, I), w_down=(L, I, D))
+    else:
+        E = c.num_experts
+        layers.update(router=(L, D, E), w_gate=(L, E, D, I), w_up=(L, E, D, I), w_down=(L, E, I, D))
+    shapes = {"embed": (c.vocab_size, D), "final_norm": (D,), "layers": layers}
     if not c.tie_word_embeddings:
         shapes["lm_head"] = (D, c.vocab_size)
     return shapes
@@ -90,7 +107,7 @@ def params_from_numpy(
             raise ValueError(f"missing parameter: {name}")
         if name == "layers":
             layers = tree["layers"]
-            extra = set(layers) - set(_LAYER_KEYS)
+            extra = set(layers) - set(shape)
             if extra:
                 raise ValueError(f"unexpected layer parameters: {sorted(extra)}")
             out["layers"] = {k: conv(f"layers.{k}", layers[k], s) for k, s in shape.items()}
@@ -113,6 +130,14 @@ def init_params(
 
     def dense(shape, scale=None):
         scale = scale if scale is not None else shape[-2] ** -0.5
+        if len(shape) == 4:
+            # Stacked experts (and MLA's per-head projections): drawn one
+            # layer at a time, so the f32 draw never holds a whole stack
+            # (DeepSeek-V2-Lite's w_gate is 20 GB in f32).
+            out = torch.empty(shape, device=device, dtype=dtype)
+            for l in range(shape[0]):
+                out[l] = torch.randn(shape[1:], generator=generator, device=device, dtype=torch.float32) * scale
+            return out
         x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return (x * scale).to(dtype)
 
@@ -284,12 +309,23 @@ def _stream(get: Callable[[str], torch.Tensor], release: Callable[[str], None], 
         return out
 
     params: Params = {"embed": single("embed"), "final_norm": single("final_norm"),
-                      "layers": {k: stack(k) for k in _LAYER_KEYS}}
+                      "layers": {k: stack(k) for k in shapes["layers"]}}
     # The head only where the embeddings are not tied and the file has one
     # (without it the model multiplies by embed.T, as the JAX package's).
     if not config.tie_word_embeddings and has(names["lm_head"]):
         params["lm_head"] = single("lm_head", transpose=True)
     return params
+
+
+def _check_family(config: ModelConfig) -> None:
+    """The readers know the dense llama family's tensor names only, as the
+    JAX package's loader does: an MoE or MLA config is refused before any
+    file is read."""
+    if config.num_experts > 0 or config.architecture != "llama":
+        raise NotImplementedError(
+            f"{config.name}: no checkpoint reader for MoE or MLA tensor names exists "
+            "(num_experts > 0 or architecture != 'llama'); serve it on seeded random weights"
+        )
 
 
 def load_checkpoint(path: str, config: ModelConfig, dtype: torch.dtype = torch.bfloat16,
@@ -300,7 +336,9 @@ def load_checkpoint(path: str, config: ModelConfig, dtype: torch.dtype = torch.b
     itself when it is a ``.gguf`` file), else ``FileNotFoundError``. Under
     ``config.weight_dtype == "int8"`` the layer matmul weights of a
     safetensors checkpoint are quantized as they are loaded, from the
-    file's own precision, with the JAX loader's codes and scales."""
+    file's own precision, with the JAX loader's codes and scales. A config
+    of the MoE or MLA family raises ``NotImplementedError``."""
+    _check_family(config)
     if os.path.isfile(path) and path.endswith(".gguf"):
         return load_gguf_checkpoint(path, config, dtype=dtype, device=device)
     files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
@@ -329,9 +367,11 @@ def load_gguf_checkpoint(path: str, config: ModelConfig, dtype: torch.dtype = to
     """A GGUF llama-family checkpoint → the port's params on ``device``:
     each tensor dequantized to f32 on the host (``llm/gguf.read_tensor``),
     one at a time, then cast on the device. int8 weights are quantized by
-    the engine afterwards, from the cast params, as the JAX package does."""
+    the engine afterwards, from the cast params, as the JAX package does.
+    A config of the MoE or MLA family raises ``NotImplementedError``."""
     from dynamo_tpu_torch.llm.gguf import parse_gguf, read_tensor
 
+    _check_family(config)
     meta = parse_gguf(path)
     infos = {t.name: t for t in meta.tensors}
     with open(path, "rb") as f:

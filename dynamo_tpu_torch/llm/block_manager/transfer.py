@@ -70,7 +70,7 @@ def gather_blocks_async(cache: KvCacheArrays, block_id: int) -> Tuple[torch.Tens
     (``KvBlockManager.flush_pending``)."""
     ids = _ids([block_id], _device_of(cache))
     if isinstance(cache.k, QuantKv):
-        return _dequant(cache.k, ids)[:, 0], _dequant(cache.v, ids)[:, 0]
+        return _dequant(cache.k, ids)[:, 0], _dequant(cache.v, ids)[:, 0] if _has_v(cache) else None
     if not _has_v(cache):
         return cache.k.index_select(1, ids)[:, 0], None
     return cache.k.index_select(1, ids)[:, 0], cache.v.index_select(1, ids)[:, 0]
@@ -95,7 +95,7 @@ def gather_blocks_host(cache: KvCacheArrays, block_ids) -> List[Tuple[torch.Tens
     copy."""
     ids = _ids(block_ids, _device_of(cache))
     if isinstance(cache.k, QuantKv):
-        k, v = _dequant(cache.k, ids), _dequant(cache.v, ids)
+        k, v = _dequant(cache.k, ids), _dequant(cache.v, ids) if _has_v(cache) else None
     else:
         k = cache.k.index_select(1, ids)
         v = cache.v.index_select(1, ids) if _has_v(cache) else None
@@ -114,7 +114,9 @@ def gather_blocks_device(cache: KvCacheArrays, block_ids) -> Tuple[torch.Tensor,
     blocks may be released at once while the stack awaits a pull."""
     ids = _ids(block_ids, _device_of(cache))
     if isinstance(cache.k, QuantKv):
-        return _dequant(cache.k, ids).to(torch.bfloat16), _dequant(cache.v, ids).to(torch.bfloat16)
+        # An int8 MLA cache's v is a plain placeholder: no blocks to take.
+        v = _dequant(cache.v, ids).to(torch.bfloat16) if _has_v(cache) else None
+        return _dequant(cache.k, ids).to(torch.bfloat16), v
     k = cache.k.index_select(1, ids)
     v = cache.v.index_select(1, ids) if _has_v(cache) else None
     return k, v
@@ -139,7 +141,7 @@ def copy_blocks_between(src: KvCacheArrays, src_ids: Sequence[int], dst: KvCache
     s = _ids(src_ids, _device_of(src))
     d = _ids(dst_ids, _device_of(dst))
     if isinstance(src.k, QuantKv) and isinstance(dst.k, QuantKv):
-        for a, b in ((src.k, dst.k), (src.v, dst.v)):
+        for a, b in ((src.k, dst.k), (src.v, dst.v))[: 2 if _has_v(src) else 1]:
             b.q.index_copy_(1, d, a.q.index_select(1, s).to(b.q.device))
             b.scale.index_copy_(1, d, a.scale.index_select(1, s).to(b.scale.device))
         return

@@ -10,7 +10,8 @@ workers and exports its requests' KV (``--kv-transfer`` is the decode
 worker's choice: ``device``, through CUDA IPC, or ``host``, over TCP); it
 does not register the model. A decode worker registers it, prefills
 prompts longer than ``--max-local-prefill-length`` on the prefill pool and
-decodes from the pulled KV. The component defaults to ``backend`` for an
+decodes from the pulled KV; both refuse an MLA model (``check_role``).
+The component defaults to ``backend`` for an
 aggregated worker, else to the role. ``--kvbm-host-blocks`` (with
 ``--kvbm-disk-dir`` / ``--kvbm-disk-blocks`` and ``--kvbm-remote``) gives
 the engine KVBM tiers (``llm/block_manager``). The worker builds
@@ -55,6 +56,7 @@ import asyncio
 import json
 from typing import Optional
 
+from dynamo_tpu_torch.engine.config import get_config
 from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
 from dynamo_tpu_torch.llm.disagg import DisaggDecodeHandler, DisaggRouter, DisaggRouterConf, KvExportService
@@ -142,6 +144,17 @@ class Worker:
             await self.disagg_router.stop()
 
 
+def check_role(role: str, config) -> None:
+    """A prefill or decode worker hands KV over in the JAX package's host
+    frames, whose reader splits a frame's body into equal k and v halves:
+    an MLA block (its latent k and an empty v) does not round-trip there
+    (ROADMAP Queue 3), so those roles refuse an MLA model until a wire for
+    it exists in the reference."""
+    if role in ("prefill", "decode") and config.architecture == "mla":
+        raise ValueError(f"--role {role} does not serve MLA models ({config.name}): the KV hand-over's host "
+                         "frames carry k and v halves, and an MLA block has no v")
+
+
 async def serve_engine(
     drt: DistributedRuntime,
     engine: TorchEngine,
@@ -161,6 +174,7 @@ async def serve_engine(
     exports. Every role publishes its KV events and load metrics."""
     if role not in ("aggregated", "prefill", "decode"):
         raise ValueError(f"unknown role {role!r}")
+    check_role(role, engine.scheduler.mc)
     if card.kv_cache_block_size != engine.scheduler.mc.block_size:
         raise ValueError(f"the card's KV block size {card.kv_cache_block_size} is not the engine's "
                          f"{engine.scheduler.mc.block_size}: the router would hash other blocks")
@@ -267,6 +281,7 @@ def build_card(args: argparse.Namespace, engine: TorchEngine) -> ModelDeployment
 
 
 async def amain(args: argparse.Namespace) -> None:
+    check_role(args.role, get_config(args.model))  # before any weights load
     engine = build_engine(args)
     drt = await DistributedRuntime.from_settings()
     drt.runtime.install_signal_handlers()

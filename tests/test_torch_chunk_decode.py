@@ -198,10 +198,21 @@ def test_chunk_decode_matches_jax_bf16(weights, impl):
 
 
 def test_chunk_decode_refuses_moe_stats(weights):
+    """Since the MoE family was ported ``moe_stats`` is served, not refused:
+    a dense model's pass returns the JAX aux (no drops; the live rows ×
+    max(K, 1) × layers as assignments), beside the same argmax."""
     pair = Pair(weights, "megakernel")
-    z = torch.zeros((2, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tllama.chunk_decode(pair.tp, pair.tcfg, pair.tk, pair.tv, z, z[:, 0], z[:, 0], z, moe_stats=True)
+    toks = np.array([[5, 6, 7, 0], [9, 0, 0, 0]], np.int32)
+    pos0, valid = np.array([0, 0], np.int32), np.array([3, 1], np.int32)
+    tables = np.array([[1, 0, 0, 0], [2, 0, 0, 0]], np.int32)
+    arrs = (toks, pos0, valid, tables)
+    jt, _, _, jaux = jllama.chunk_decode(pair.jp, pair.jcfg, pair.jk, pair.jv, *map(jnp.asarray, arrs), moe_stats=True)
+    tt, _, _, taux = tllama.chunk_decode(pair.tp, pair.tcfg, pair.tk, pair.tv, *map(torch.from_numpy, arrs),
+                                         moe_stats=True)
+    assert {k: int(v) for k, v in taux.items()} == {k: int(v) for k, v in jaux.items()} == {
+        "moe_dropped": 0, "moe_assignments": 4 * TCFG.num_layers}
+    live = np.arange(4)[None, :] < valid[:, None]
+    np.testing.assert_array_equal(tt.numpy()[live], np.asarray(jt)[live])
 
 
 @pytest.mark.parametrize("impl", IMPLS + ("paged",))
@@ -230,6 +241,6 @@ def test_decode_multi_returns_jax_logits(weights, impl):
     np.testing.assert_array_equal(tt.numpy()[:, :3], np.asarray(jt)[:, :3])
     np.testing.assert_allclose(tl.numpy()[:, :3], np.asarray(jl)[:, :3], **LOGIT_TOL)
     pair.check_cache()
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="cannot be combined"):  # as JAX's
         tllama.decode_multi(pair.tp, pair.tcfg, pair.tk, pair.tv, *map(torch.from_numpy, (toks, pos, tables, active)),
-                            *samp, None, 2, moe_stats=True)
+                            *samp, None, 2, moe_stats=True, return_logits=True)

@@ -147,8 +147,8 @@ def test_unported_options_raise():
     tk, tv = _port_cache(k, v)
     with pytest.raises(ValueError, match="guided"):  # the guided epilogue needs its pools
         tllama.decode_multi_fused(tp, tcfg, tk, tv, *_port_args(w), num_steps=2, guided=True)
-    with pytest.raises(NotImplementedError, match="moe_stats"):
-        tllama.decode_multi(tp, tcfg, tk, tv, *_port_args(w), *GREEDY, None, 2, moe_stats=True)
+    with pytest.raises(NotImplementedError, match="moe_stats"):  # JAX refuses the pair too
+        tllama.decode_multi(tp, tcfg, tk, tv, *_port_args(w), *GREEDY, None, 2, moe_stats=True, return_logits=True)
     with pytest.raises(ValueError, match="temps"):
         tmk.fused_decode_window(*_window_weights(tp), tk, tv, *_port_args(w), uniforms=torch.zeros(2, len(ROWS)),
                                 **_window_kw(tcfg, 2))
