@@ -69,7 +69,16 @@ epilogue; then runs the distributed main path as an operator does
 the KV router as separate processes, two families of long shared prefixes
 sent through the frontend, each repeat served from the prefix cache of
 the worker that holds it, each worker's kernel launches read from its
-shutdown line, and the probes' text held against the in-process path.
+log, and the probes' text held against the in-process path; then, on the
+same deployment, ``python -m dynamo_tpu_torch.run`` in its ``in=batch``
+and ``in=text`` modes against ``out=dyn://dynamo.backend.generate``, three
+KV router configurations in this process (4 indexer shards, two routers
+gossiping their pending prefills, approximate mode without KV events),
+the capacity dial's ``set_dial`` op with a burst after each setting, the
+port's host library (``csrc/native.cc``: hashing and the radix tree)
+against its pure-Python path, and last a worker SIGKILLed mid-stream
+behind a frontend with ``migration_limit=1``, each held against its
+in-process reference.
 Before that, ``checkpoint`` serves the model from files it writes (HF
 safetensors shards, a q8_0 GGUF, a Llama-3-layout ``tokenizer.json`` with
 a chat template) through ``--checkpoint``/``--tokenizer``: the loaded
@@ -95,7 +104,9 @@ ragged kernel launches exact and one MoE layer's ragged dispatch held
 against the dense one; DeepSeek-V2-Lite whole, MLA over the paged latent
 cache with 64-expert MoE layers, a prefix hit, decode against prefill and
 the int8 latent cache against f32. It runs first, on the card, while nvcc
-still builds the kernels it does not use.
+still builds the kernels it does not use; ``distributed``, ``kvbm`` and
+``disagg`` (the ragged kernel and the fused window) run next, while nvcc
+still builds the fused spec window.
 
 ``--phases`` runs a subset of families,kernel,model,breakdown,serve,checkpoint,
 distributed,kvbm,disagg (env and build always run) for iteration; the full run is the default. ``grammar``,
@@ -3380,12 +3391,12 @@ def phase_breakdown(dev):
 # ---------------------------------------------------------------------------
 
 
-def _request(port: int, path: str, body: dict, on_first=None):
+def _request(port: int, path: str, body: dict, on_first=None, timeout: float = 600):
     """POST one request; returns (status, parsed body or SSE chunk list,
     seconds to the first content chunk or None, total seconds). A streamed
     request calls ``on_first()`` when its first content chunk arrives."""
     t0 = time.perf_counter()
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
     resp = conn.getresponse()
     if not body.get("stream"):
@@ -4133,12 +4144,584 @@ class _Children:
         log.close()
         return code
 
+    def kill_one(self, name: str) -> None:
+        """SIGKILL one process, which then leaves the ones ``alive`` checks
+        (its log stays readable)."""
+        proc, log = self.procs.pop(name)
+        proc.kill()
+        proc.wait()
+        log.close()
+
+    def snapshot(self, name: str, mark: str, timeout_s: float = 60) -> None:
+        """SIGUSR1 to a worker, then until its log holds one more ``mark``
+        line (the worker logs its launch counters and serves on)."""
+        n = self.text(name).count(mark)
+        self.procs[name][0].send_signal(signal.SIGUSR1)
+        deadline = time.monotonic() + timeout_s
+        while self.text(name).count(mark) <= n:
+            self.alive()
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{name}: no {mark!r} line {timeout_s} s after SIGUSR1")
+            time.sleep(0.05)
+
     def kill(self) -> None:
         for proc, log in self.procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             log.close()
+
+
+# ---------------------------------------------------------------------------
+# distributed, the rest of the engine's and router's surface: run's text and
+# batch modes against dyn://, the router's options, the capacity dial, the
+# host library against pure Python, and a worker killed mid-stream
+# ---------------------------------------------------------------------------
+
+DIST_RUN_TOKENS = 32  # the run modes' and the dial bursts' max_tokens
+DIST_MIGRATE_TOKENS = 64
+# Characters of: the batch prompts, the text line, each prefill-counter and
+# dial burst prompt, the killed pair's system prompt and each user message.
+DIST_CHARS = {"run": 160, "text": 60, "count": 1500, "dial": 300, "system": 993, "user": 48}
+DIST_HASH_RUNS = {"native": 400, "python": 40}
+DIST_SHARDS = 4
+# The migration frontend's overlap weight (``--kv-overlap-score-weight``):
+# at 4 a request whose prefix a busy worker holds goes there, so the pair to
+# be killed shares one worker.
+DIST_MIGRATE_OVERLAP_WEIGHT = 4.0
+
+
+def dist_surface_traffic() -> dict:
+    """Seeded prompts of this part, each new to both workers' caches (their
+    first blocks differ from every earlier prompt's)."""
+    rng = np.random.default_rng(29)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    text = lambda n: "".join(rng.choice(letters, size=n))  # noqa: E731
+    c = DIST_CHARS
+    return {
+        "run_prompts": [f"Run {i}. " + text(c["run"]) for i in range(4)],
+        "text_line": "Delta. " + text(c["text"]),
+        "count_prompts": [f"Echo {i}. " + text(c["count"]) for i in range(4)],
+        "dial_prompts": [[f"Fox {j}.{i}. " + text(c["dial"]) for i in range(4)] for j in range(2)],
+        "system": "Charlie. " + text(c["system"]),
+        "users": [text(c["user"]) for _ in range(4)],
+    }
+
+
+def dial_applied(f: float, budget: int, chunk: int, slots: int, block: int) -> dict:
+    """The capacity dial's applied values for a worker configured with this
+    mixed budget, chunk, slot cap and block size: the JAX scheduler's rule
+    (``dynamo_tpu/engine/scheduler.py`` ``set_capacity_dial``), which the
+    CPU tests hold the port's scheduler against."""
+    f = min(1.0, max(0.0, float(f)))
+    b = max(block, min(int(round(2.0 * f * budget)), chunk))
+    s = max(1, min(slots, int(round(2.0 * (1.0 - f) * slots))))
+    return {"prefill_fraction": f, "mixed_prefill_budget": b, "decode_slots": s}
+
+
+class PushRecorder:
+    """Wraps a router's ``push.generate``: per dispatch, its context id,
+    worker, request, token ids, ``cached_tokens`` and first-frame time."""
+
+    def __init__(self, router):
+        self.attempts: list = []
+        orig = router.push.generate
+
+        async def generate(request, context=None, *, instance_id=None):
+            rec = {"ctx": context.id if context is not None else None, "worker": instance_id,
+                   "request": json.loads(json.dumps(request)), "tokens": [], "cached": None, "first_t": None}
+            self.attempts.append(rec)
+            async for item in orig(request, context, instance_id=instance_id):
+                data = item.data if hasattr(item, "data") else item
+                if isinstance(data, dict):
+                    if data.get("token_ids"):
+                        rec["first_t"] = rec["first_t"] or time.perf_counter()
+                        rec["tokens"] += list(data["token_ids"])
+                    if data.get("cached_tokens") is not None and rec["cached"] is None:
+                        rec["cached"] = int(data["cached_tokens"])
+                yield item
+
+        router.push.generate = generate
+
+
+async def _drain_pipeline(pipeline, body: dict) -> str:
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    parts = []
+    async for item in pipeline.generate(body, Context()):
+        data = item.data if hasattr(item, "data") else item
+        if isinstance(data, dict) and data.get("text"):
+            parts.append(data["text"])
+    return "".join(parts)
+
+
+async def surface_run_modes(root, env, surface: dict) -> dict:
+    """``python -m dynamo_tpu_torch.run in=batch:<file> out=dyn://...`` with
+    the 4 batch prompts, then ``in=text`` with one line on stdin, as
+    processes against the phase's workers (greedy, ``DIST_RUN_TOKENS``)."""
+    out_dir = root / "build" / "chip_smoke" / "distributed"
+    src, dst = out_dir / "prompts.jsonl", out_dir / "results.jsonl"
+    src.write_text("".join(json.dumps({"prompt": p}) + "\n" for p in surface["run_prompts"]))
+    common = ["--model-name", PRESET, "--max-tokens", str(DIST_RUN_TOKENS), "--temperature", "0", "--timeout", "60"]
+
+    def run(args, stdin=None):
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "dynamo_tpu_torch.run", args[0], "out=dyn://dynamo.backend.generate", *args[1:],
+               *common]
+        res = subprocess.run(cmd, cwd=str(root), env=env,
+                             input=stdin, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"run {args[0]} exited with {res.returncode}: {res.stderr[-3000:]}")
+        return res.stdout, time.perf_counter() - t0
+
+    _, batch_s = await asyncio.to_thread(run, [f"in=batch:{src}", "--output", str(dst)])
+    batch = [json.loads(line) for line in dst.read_text().splitlines()]
+    out, text_s = await asyncio.to_thread(run, ["in=text"], surface["text_line"] + "\n")
+    banner = f"interactive chat with {PRESET}; ctrl-d to exit\n> "
+    if not out.startswith(banner) or not out.endswith("\n> "):
+        raise AssertionError(f"in=text printed {out[:200]!r}")
+    return {"batch": batch, "text": out[len(banner):-len("\n> ")], "batch_s": batch_s, "text_s": text_s}
+
+
+async def surface_routers(client, families: list, holders: list, surface: dict) -> dict:
+    """Three router configurations over the phase's workers, in this
+    process: ``num_indexer_shards`` shards and two ``track_prefill_counters``
+    routers (exact KV events), then ``use_kv_events=False``. Each serves
+    both families' probe and repeat; a prefill-counter burst goes through
+    the two counting routers at once."""
+    from dynamo_tpu_torch.llm.entrypoint import build_routed_pipeline
+    from dynamo_tpu_torch.llm.kv_router import KvPushRouter, KvRouterConfig
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor, PromptFormatter
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.llm.tokens import compute_block_hashes
+
+    tok = ByteTokenizer()
+    pre = OpenAIPreprocessor(tok, PromptFormatter(None))
+    bs = get_block_size()
+    card = ModelDeploymentCard(name=PRESET)
+    checks, res = [], {}
+
+    async def serve(router, rec, body):
+        """One request through ``router``: (worker, cached_tokens)."""
+        n = len(rec.attempts)
+        await _drain_pipeline(build_routed_pipeline(tok, router, card), body)
+        # The router frees the request's load when its stream's generator
+        # closes, in a task the loop runs next (as between a client's
+        # requests); the next request is scheduled after it.
+        await asyncio.sleep(0.05)
+        (att,) = rec.attempts[n:]
+        return att["worker"], att["cached"] or 0
+
+    async def families_through(name, router, rec, holder_of):
+        out = []
+        for f, fam in enumerate(families):
+            probe = await serve(router, rec, fam["probe"])
+            repeat = await serve(router, rec, fam["repeat"])
+            want = holder_of(f, probe[0])
+            out.append({"probe_worker": f"{probe[0]:x}", "repeat_worker": f"{repeat[0]:x}",
+                        "repeat_cached_tokens": repeat[1], "holder": f"{want:x}"})
+            if repeat[0] != want or repeat[1] <= 0:
+                checks.append(f"{name}: family {f}'s repeat went to {repeat[0]:x} with cached_tokens {repeat[1]}, "
+                              f"not to {want:x} with a prefix hit")
+        return out
+
+    t0 = time.perf_counter()
+    sharded = await KvPushRouter.create(client, KvRouterConfig(block_size=bs, num_indexer_shards=DIST_SHARDS))
+    counting = [await KvPushRouter.create(client, KvRouterConfig(block_size=bs, track_prefill_counters=True))
+                for _ in range(2)]
+    try:
+        events = await _settled(lambda: [r.indexer.events_applied for r in (sharded, *counting)])
+        sharded.indexer.flush()
+        prompts = [pre.preprocess(fam[k])[0].token_ids for fam in families for k in ("probe", "repeat")]
+        prompts += [pre.preprocess(b)[0].token_ids for fam in families for b in fam["burst"]]
+        scores = [(sharded.indexer.find_matches(compute_block_hashes(p, bs)).scores,
+                   counting[0].indexer.find_matches(compute_block_hashes(p, bs)).scores) for p in prompts]
+        res["sharded_vs_plain"] = {"events": events, "prompts": len(prompts),
+                                   "scores_equal": all(a == b for a, b in scores),
+                                   "plain_scores": [{f"{w:x}": s for w, s in b.items()} for _, b in scores[:4]]}
+        if not res["sharded_vs_plain"]["scores_equal"] or not any(b for _, b in scores):
+            checks.append(f"the sharded router's overlap scores differ from the plain indexer's: {scores}")
+        recs = {"sharded": PushRecorder(sharded), "count_a": PushRecorder(counting[0]),
+                "count_b": PushRecorder(counting[1])}
+        holder = lambda f, _probe: holders[f]  # noqa: E731 (exact events: the worker that holds the family)
+        res["sharded"] = await families_through("sharded", sharded, recs["sharded"], holder)
+        res["counting"] = [await families_through(f"count_{i}", r, recs[f"count_{'ab'[i]}"], holder)
+                           for i, r in enumerate(counting)]
+        # A burst of fresh prompts, half through each counting router, all
+        # at once: while they wait for their first tokens, each router's
+        # counters must hold the other's pending prefill tokens.
+        bodies = [{"model": PRESET, "prompt": p, "max_tokens": 8, "temperature": 0.0}
+                  for p in surface["count_prompts"]]
+        seen = [0, 0]
+        ids = client.instance_ids()
+        tasks = [asyncio.ensure_future(_drain_pipeline(build_routed_pipeline(tok, counting[i // 2], card), b))
+                 for i, b in enumerate(bodies)]
+        while not all(t.done() for t in tasks):
+            for i, r in enumerate(counting):
+                seen[i] = max(seen[i], sum(r.prefill_counters.pending_tokens(w) for w in ids))
+            await asyncio.sleep(0.001)
+        await asyncio.gather(*tasks)
+        await asyncio.sleep(0.2)
+        after = [sum(r.prefill_counters.pending_tokens(w) for w in ids) for r in counting]
+        res["prefill_counters"] = {"max_pending_seen": seen, "after": after,
+                                   "burst_tokens": [len(pre.preprocess(b)[0].token_ids) for b in bodies]}
+        if not all(seen) or any(after):
+            checks.append(f"the counting routers did not see each other's pending prefills: seen {seen}, "
+                          f"left after the burst {after}")
+    finally:
+        for r in (sharded, *counting):
+            await r.close()
+    approx = await KvPushRouter.create(client, KvRouterConfig(block_size=bs, use_kv_events=False))
+    try:
+        if approx.subscriber is not None:
+            checks.append("the approximate router subscribed to the KV events")
+        rec = PushRecorder(approx)
+        res["approx"] = await families_through("approx", approx, rec, lambda _f, probe: probe)
+    finally:
+        await approx.close()
+    res["seconds"] = time.perf_counter() - t0
+    return res, checks
+
+
+async def _settled(counts) -> int:
+    """Until the indexers' ``counts()`` of applied KV events are all equal,
+    non-zero and unchanged 0.2 s apart (no traffic runs meanwhile)."""
+    last = None
+    for _ in range(300):
+        now = counts()
+        if len(set(now)) == 1 and now == last and now[0]:
+            return now[0]
+        last = now
+        await asyncio.sleep(0.2)
+    raise AssertionError(f"the indexers never caught up with the KV events: {last}")
+
+
+def get_block_size() -> int:
+    from dynamo_tpu_torch.engine.config import get_config
+
+    return get_config(PRESET).block_size
+
+
+def _raw_request(text: str, max_tokens: int) -> dict:
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    return {"token_ids": ByteTokenizer().encode(text), "sampling_options": {"temperature": 0.0},
+            "stop_conditions": {"max_tokens": max_tokens, "ignore_eos": True}}
+
+
+async def surface_dial(drt, client, wid: int, surface: dict) -> tuple:
+    """``set_dial`` to one worker at 0.9, then 0.5, each followed by a burst
+    of 4 fresh requests sent to that worker: the reply and the scraped
+    ``elastic_*`` keys against ``dial_applied`` for the worker's
+    configuration, and the first-token counters' rise against the burst."""
+    from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
+    from dynamo_tpu_torch.runtime import msgpack_codec
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.push_router import PushRouter, RouterMode
+
+    inst = client.instances[wid]
+    push = PushRouter(client, RouterMode.DIRECT)
+    checks, steps = [], []
+    # The worker's configured split, which the dial's 0.5 leaves as it is.
+    base = (await client.scrape_stats())[wid]
+    keys = ("elastic_prefill_fraction", "elastic_prefill_budget", "elastic_decode_slots", "elastic_dial_changes_total")
+    if (base["elastic_prefill_fraction"], base["elastic_dial_changes_total"]) != (0.5, 0):
+        checks.append(f"before the dial: {[base[k] for k in keys]}")
+    chunk = SchedulerConfig().max_prefill_chunk  # the worker CLI's
+
+    async def one(req):
+        t0, first, n = time.perf_counter(), None, 0
+        async for item in push.generate(req, Context(), instance_id=wid):
+            if item.data and item.data.get("token_ids"):
+                first = first or time.perf_counter() - t0
+                n += len(item.data["token_ids"])
+        return first, n
+
+    for j, f in enumerate((0.9, 0.5)):
+        msg = await drt.bus.request(inst.control_subject, msgpack_codec.packb({"op": "set_dial", "prefill_fraction": f}),
+                                    timeout=30)
+        reply = msgpack_codec.unpackb(msg.data)
+        want = dial_applied(f, base["elastic_prefill_budget"] or chunk, chunk, base["elastic_decode_slots"],
+                            get_block_size())
+        before = (await client.scrape_stats())[wid]
+        t0 = time.perf_counter()
+        done = await asyncio.wait_for(
+            asyncio.gather(*(one(_raw_request(p, DIST_RUN_TOKENS)) for p in surface["dial_prompts"][j])), 180)
+        wall = time.perf_counter() - t0
+        after = (await client.scrape_stats())[wid]
+        rise = {k: after[k] - before[k] for k in ("first_tokens_total", "queue_wait_seconds_total",
+                                                  "prefill_wait_seconds_total")}
+        ttfts = [d[0] for d in done]
+        step = {"fraction": f, "reply": reply, "want": want, "stats": {k: before[k] for k in keys},
+                "burst_tokens": [d[1] for d in done], "burst_wall_s": wall, "ttft_s": ttfts, "rise": rise}
+        steps.append(step)
+        if reply != want:
+            checks.append(f"set_dial {f}: replied {reply}, the rule gives {want}")
+        if [before[k] for k in keys[:3]] != [want["prefill_fraction"], want["mixed_prefill_budget"],
+                                             want["decode_slots"]] or before[keys[3]] != j + 1:
+            checks.append(f"set_dial {f}: the stats read {[before[k] for k in keys]}")
+        waits = rise["queue_wait_seconds_total"] + rise["prefill_wait_seconds_total"]
+        if (any(d[1] != DIST_RUN_TOKENS for d in done) or rise["first_tokens_total"] != len(done)
+                or rise["prefill_wait_seconds_total"] <= 0 or rise["queue_wait_seconds_total"] < 0
+                or waits > sum(ttfts)):
+            checks.append(f"set_dial {f}: the burst gave {[d[1] for d in done]} tokens; the counters rose by "
+                          f"{rise} against TTFTs summing to {sum(ttfts)} s")
+    return steps, checks
+
+
+async def surface_native(drt, families: list, surface: dict) -> tuple:
+    """The host library against the pure-Python path (``DYN_NATIVE=0``) on
+    this machine's host: block hashes of the phase's prompts, the median
+    time to hash one family request both ways, and a native and a
+    pure-Python tree fed the phase's whole KV-event stream."""
+    import os
+
+    from dynamo_tpu_torch import native
+    from dynamo_tpu_torch.llm.kv_router.indexer import KvIndexer, NativeRadixTree, RadixTree
+    from dynamo_tpu_torch.llm.kv_router.publisher import kv_events_stream_name
+    from dynamo_tpu_torch.llm.kv_router.subscriber import KvRouterSubscriber
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor, PromptFormatter
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.llm.tokens import compute_block_hashes
+
+    bs = get_block_size()
+    pre = OpenAIPreprocessor(ByteTokenizer(), PromptFormatter(None))
+    prompts = [pre.preprocess(fam[k])[0].token_ids for fam in families for k in ("probe", "repeat")]
+    prompts += [pre.preprocess({"prompt": p})[0].token_ids for p in surface["count_prompts"]]
+    lib = native.get_native()
+
+    def pure(fn, *args):
+        old = os.environ.get("DYN_NATIVE")
+        os.environ["DYN_NATIVE"] = "0"
+        try:
+            return fn(*args)
+        finally:
+            if old is None:
+                del os.environ["DYN_NATIVE"]
+            else:
+                os.environ["DYN_NATIVE"] = old
+
+    def median_us(fn, runs):
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter_ns()
+            fn()
+            times.append((time.perf_counter_ns() - t0) / 1e3)
+        return statistics.median(times)
+
+    checks = []
+    hashes_equal = all(compute_block_hashes(p, bs) == pure(compute_block_hashes, p, bs) for p in prompts)
+    one = prompts[1]  # a family's repeat: its system prompt, user message and template
+    timing = {"tokens": len(one), "blocks": len(one) // bs,
+              "native_us": median_us(lambda: compute_block_hashes(one, bs), DIST_HASH_RUNS["native"]),
+              "python_us": pure(median_us, lambda: compute_block_hashes(one, bs), DIST_HASH_RUNS["python"])}
+    trees = {"native": KvIndexer(bs), "python": KvIndexer(bs)}
+    trees["python"].tree = RadixTree()
+    if not isinstance(trees["native"].tree, NativeRadixTree):
+        checks.append("the KV indexer does not sit on the native tree")
+    subs = [KvRouterSubscriber(drt, idx, kv_events_stream_name("dynamo", "backend")) for idx in trees.values()]
+    for s in subs:
+        await s.start()
+    try:
+        await _settled(lambda: [idx.events_applied for idx in trees.values()])
+        t0 = time.perf_counter()
+        scores = [(trees["native"].find_matches(compute_block_hashes(p, bs)).scores,
+                   trees["python"].find_matches(compute_block_hashes(p, bs)).scores) for p in prompts]
+        dumps = (trees["native"].dump(), trees["python"].dump())
+        compare_s = time.perf_counter() - t0
+    finally:
+        for s in subs:
+            await s.stop()
+    res = {"library": lib.path.rsplit("/", 1)[-1], "hashes_equal": hashes_equal, "hash_request": timing,
+           "events": trees["native"].events_applied, "nodes": trees["native"].size(),
+           "scores_equal": all(a == b for a, b in scores), "dump_bytes_equal": dumps[0] == dumps[1],
+           "dump_bytes": len(dumps[0]), "compare_s": compare_s}
+    if not (hashes_equal and res["scores_equal"] and res["dump_bytes_equal"] and res["nodes"]):
+        checks.append(f"the host library disagrees with the pure-Python path: {res}")
+    return res, checks
+
+
+async def surface_migration(plane, kids, name_of: dict, families: list, surface: dict) -> tuple:
+    """A frontend with ``migration_limit=1`` (``start_frontend``, as
+    ``python -m dynamo_tpu_torch.frontend --migration-limit 1`` runs it; in
+    this process, so the replays' requests and token ids can be read), then
+    4 streaming chat requests of ``DIST_MIGRATE_TOKENS`` tokens (ignoring
+    EOS): 2 of the first family, to their end, then 2 behind a system
+    prompt neither worker has seen, the second once the first's first token
+    is back (at ``DIST_MIGRATE_OVERLAP_WEIGHT`` it joins the first on its
+    worker); once both have their first tokens, the worker that holds them
+    is SIGKILLed. Every stream must end
+    with all its tokens, each killed one replayed once on the other worker
+    (which is idle by then) from its prompt and the tokens streamed before
+    the kill, with the remaining ``max_tokens``."""
+    from dynamo_tpu_torch.llm.entrypoint import FrontendConfig, start_frontend, stop_frontend
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor, PromptFormatter
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime.config import Config
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.runtime import Runtime
+
+    def chat(system, user):
+        return {"model": PRESET, "max_tokens": DIST_MIGRATE_TOKENS, "temperature": 0.0, "stream": True,
+                "nvext": {"ignore_eos": True},
+                "messages": [{"role": "system", "content": system}, {"role": "user", "content": user}]}
+
+    first_system = families[0]["probe"]["messages"][0]["content"]
+    pair1 = [chat(first_system, u) for u in surface["users"][:2]]
+    pair2 = [chat(surface["system"], u) for u in surface["users"][2:]]
+    pre = OpenAIPreprocessor(ByteTokenizer(), PromptFormatter(None))
+    pair2_ids = [pre.preprocess(b)[0].token_ids for b in pair2]
+    drt = await DistributedRuntime.from_settings(Runtime(Config(control_plane=plane)))
+    service = await start_frontend(drt, FrontendConfig(host="127.0.0.1", port=0, router_mode="kv", migration_limit=1,
+                                                       kv_overlap_score_weight=DIST_MIGRATE_OVERLAP_WEIGHT))
+    checks = []
+    try:
+        for _ in range(600):
+            if PRESET in service.routers:
+                break
+            await asyncio.sleep(0.1)
+        rec = PushRecorder(service.routers[PRESET])
+        t0 = time.perf_counter()
+        done1 = [_answer_of(r) for r in await _send(service.port, pair1)]
+        tasks = []
+        for i, b in enumerate(pair2):
+            # A stream that hangs fails the phase in minutes, not at the
+            # script's limit (the request threads end with their timeout).
+            tasks.append(asyncio.ensure_future(asyncio.to_thread(_request, service.port, "/v1/chat/completions", b,
+                                                                 None, 120)))
+            while len(rec.attempts) < 3 + i or not rec.attempts[2 + i]["first_t"]:
+                if tasks[-1].done():
+                    raise AssertionError("a stream of the pair to be killed ended before its first token")
+                await asyncio.sleep(0.001)
+        while not all(a["first_t"] for a in rec.attempts[2:4]):
+            if any(t.done() for t in tasks):
+                raise AssertionError("a stream of the pair to be killed ended before both had their first tokens")
+            await asyncio.sleep(0.001)
+        victims = {a["worker"] for a in rec.attempts[2:4]}
+        victim = rec.attempts[2]["worker"]
+        held = [dict(a) for a in rec.attempts[2:4] if a["worker"] == victim]
+        streamed = [len(a["tokens"]) for a in held]
+        kids.kill_one(name_of[victim])
+        t_kill = time.perf_counter()
+        done2 = [_answer_of(r) for r in await asyncio.wait_for(asyncio.gather(*tasks), 150)]
+        wall = time.perf_counter() - t0
+        replays = rec.attempts[4:]
+        survivor = [w for w in name_of if w != victim][0]
+        migrated = []
+        for first in rec.attempts[2:4]:
+            if first["worker"] != victim or len(first["tokens"]) == DIST_MIGRATE_TOKENS:
+                continue  # not on the killed worker, or done before the kill
+            # The replay may first go to the killed worker, while its lease is
+            # being revoked: the KV router then schedules it again (the push
+            # router's InstanceGone), and the last dispatch is the replay.
+            tries = [a for a in replays if a["ctx"] == first["ctx"]]
+            again = tries[-1]
+            k = len(first["tokens"])
+            migrated.append({
+                "tokens_before_kill": k, "request": again["request"], "replay_tokens": again["tokens"],
+                "text": done2[pair2_ids.index(first["request"]["token_ids"])]["text"],
+                "first_attempt_tokens": first["tokens"], "replay_worker": f"{again['worker']:x}",
+                "kill_to_first_replayed_token_ms": (again["first_t"] - t_kill) * 1e3 if again["first_t"] else None,
+                "replay_cached_tokens": again["cached"],
+                "dispatches_to_the_killed_worker": [f"{a['worker']:x}" for a in tries[:-1]]})
+            req = again["request"]
+            if (again["worker"] != survivor or not 0 < k < DIST_MIGRATE_TOKENS
+                    or any(a["worker"] != victim or a["tokens"] for a in tries[:-1])
+                    or req["token_ids"] != first["request"]["token_ids"] + first["tokens"]
+                    or req["stop_conditions"]["max_tokens"] != DIST_MIGRATE_TOKENS - k
+                    or k + len(again["tokens"]) != DIST_MIGRATE_TOKENS):
+                checks.append(f"a killed stream was not replayed as its prompt and its {k} streamed tokens on "
+                              f"{survivor:x}: {migrated[-1]['replay_worker']}, {len(again['tokens'])} tokens")
+        answers = done1 + done2
+        if any(a["completion_tokens"] != DIST_MIGRATE_TOKENS or a["finish_reason"] != "length" for a in answers):
+            checks.append(f"a stream did not end with {DIST_MIGRATE_TOKENS} tokens: "
+                          f"{[(a['completion_tokens'], a['finish_reason']) for a in answers]}")
+        if len({a["ctx"] for a in replays}) != len(migrated) or not migrated:
+            checks.append(f"{len(replays)} replays for {len(migrated)} killed streams")
+        lat = [a["latency_s"] for a in answers]
+        res = {"victim": f"{victim:x}", "victim_name": name_of[victim], "survivor": f"{survivor:x}",
+               "pair_workers": sorted(f"{w:x}" for w in victims), "streamed_before_kill": streamed,
+               "migrated": migrated, "wall_s": wall,
+               "latency_s": {"completed_pair": lat[:2], "killed_pair": lat[2:]},
+               "migration_added_ms": [m["kill_to_first_replayed_token_ms"] for m in migrated]}
+    finally:
+        try:  # a stream still open holds the server's close
+            await asyncio.wait_for(stop_frontend(service), 30)
+        except asyncio.TimeoutError:
+            print("surface_migration: the frontend did not stop within 30 s", file=sys.stderr)
+        await drt.shutdown()
+    return res, checks
+
+
+async def surface_references(port: int, engine, surface: dict, surf: dict) -> dict:
+    """The in-process references of this part, on the phase's in-process
+    engine (the workers' seed, warmup and bf16 reductions), each with the
+    prefix cache emptied first: every batch prompt and the text line alone,
+    held against ``run``'s outputs, and the killed streams' replays. The
+    two replays reached the idle survivor within a millisecond of each
+    other, so it admitted them together or one during the other's first
+    step, in either order; each such admission is replayed (bf16 products
+    round by the step's shape), and the survivor's tokens must be those of
+    one of them, the stream's text that of its tokens before the kill and
+    the reference's. ``checks`` lists what failed."""
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    sched = engine.scheduler
+    checks = []
+
+    async def http(path, body):
+        sched.allocator.clear_cached()
+        status, data, _, _ = await asyncio.to_thread(_request, port, path, body)
+        if status != 200:
+            raise AssertionError(f"HTTP {status}: {data}")
+        return _answer_text(data, False, "chat" in path)
+
+    batch = [await http("/v1/completions", {"model": PRESET, "prompt": p, "max_tokens": DIST_RUN_TOKENS,
+                                            "temperature": 0.0}) for p in surface["run_prompts"]]
+    text = await http("/v1/chat/completions", {"model": PRESET, "max_tokens": DIST_RUN_TOKENS, "temperature": 0.0,
+                                                "messages": [{"role": "user", "content": surface["text_line"]}]})
+    run = surf["run"]
+    batch_equal = [rec["output"] == want and rec["prompt"] == p
+                   for rec, want, p in zip(run["batch"], batch, surface["run_prompts"])]
+    if len(run["batch"]) != len(batch) or not all(batch_equal) or run["text"] != text:
+        checks.append(f"run's outputs differ from the in-process engine's: batch {batch_equal}, text "
+                      f"{run['text'][:60]!r} vs {text[:60]!r}")
+
+    async def one(req):
+        toks = []
+        async for frame in engine.generate(req, Context()):
+            toks += frame["token_ids"]
+        return toks
+
+    async def admitted():
+        while not any(s.admitted_ts is not None for s in list(sched.by_id.values())):
+            await asyncio.sleep(0.0002)
+
+    migrated = surf["migration"]["migrated"]
+    reqs = [m["request"] for m in migrated]
+    refs = {}
+    sched.allocator.clear_cached()
+    refs["together"] = list(await asyncio.gather(*(one(r) for r in reqs)))
+    if len(reqs) == 2:
+        for name, order in (("first_then_second", (0, 1)), ("second_then_first", (1, 0))):
+            sched.allocator.clear_cached()
+            first = asyncio.ensure_future(one(reqs[order[0]]))
+            await admitted()
+            second = asyncio.ensure_future(one(reqs[order[1]]))
+            got = await asyncio.gather(first, second)
+            refs[name] = [got[order.index(i)] for i in range(2)]
+    matching = [name for name, toks in refs.items() if all(t == m["replay_tokens"] for t, m in zip(toks, migrated))]
+    tok = ByteTokenizer()
+    texts_equal = [m["text"] == tok.decode(m["first_attempt_tokens"] + m["replay_tokens"]) for m in migrated]
+    if not matching or not all(texts_equal):
+        first_diff = {name: [next((i for i, (a, b) in enumerate(zip(t, m["replay_tokens"])) if a != b), None)
+                             for t, m in zip(toks, migrated)] for name, toks in refs.items()}
+        checks.append(f"the killed streams' replays differ from every in-process reference (first differing "
+                      f"token per stream: {first_diff}), or their text from their tokens' ({texts_equal})")
+    return {"run_batch_equal": batch_equal, "run_text_equal": run["text"] == text,
+            "migration_reference": matching, "migration_texts_equal": texts_equal, "checks": checks}
 
 
 def phase_distributed(card: str) -> dict:
@@ -4173,7 +4756,22 @@ def phase_distributed(card: str) -> dict:
     other, as they share no block): each of the 12 answers' text must
     equal the reference's, and each worker's steps and windows are printed
     beside the reference's for its family. A worker that dies fails the
-    phase; every child is killed in a ``finally``."""
+    phase; every child is killed in a ``finally``.
+
+    Then the rest of the engine's and router's surface on the same
+    processes (the ``surface_*`` functions): ``run``'s batch and text modes
+    through ``out=dyn://`` (each text the in-process engine's for its
+    prompt alone); three routers over the workers, each repeat on the
+    worker holding its family with a prefix hit, the sharded router's
+    scores the plain indexer's, each counting router seeing the other's
+    pending prefills; ``set_dial`` 0.9, then 0.5, to ``worker_0`` (reply
+    and ``elastic_*`` keys against ``dial_applied``, a burst after each,
+    the first-token counters' rise within the burst's TTFTs); the host
+    library's hashes and tree against pure Python, with the median time to
+    hash a family's request both ways; each worker's launch counters by
+    SIGUSR1 (the gates above); and a worker killed mid-stream
+    (``surface_migration``), the survivor's counters gated again at its
+    shutdown."""
     import os
     import socket
     from pathlib import Path
@@ -4191,6 +4789,7 @@ def phase_distributed(card: str) -> dict:
     env = dict(os.environ, DYN_CONTROL_PLANE="tcp", DYN_CONTROL_PLANE_ADDRESS=f"127.0.0.1:{cp_port}", DYN_LOG="INFO",
                PYTHONPATH=str(root))
     families = dist_traffic()
+    surface = dist_surface_traffic()
     gc.collect()
     torch.cuda.empty_cache()
     kids = _Children(root, env)
@@ -4242,22 +4841,44 @@ def phase_distributed(card: str) -> dict:
                                              f"prefix: cached_tokens {ans['cached_tokens']}, rose {rose}")
                     repeats[-1]["worker"] = served[0]
                 stats = await client.scrape_stats()
+                # The rest of the surface, on the same deployment: run's modes,
+                # the router's options, the dial and the host library; then
+                # each worker's launch counters so far, and a worker killed.
+                t1 = time.perf_counter()
+                surf = {"run": await surface_run_modes(root, env, surface)}
+                surf["routers"], checks = await surface_routers(client, families, [r["worker"] for r in repeats],
+                                                                surface)
+                surf["dial"], more = await surface_dial(drt, client, instance_of["worker_0"], surface)
+                checks += more
+                surf["native"], more = await surface_native(drt, families, surface)
+                checks += more
+                for name in workers:
+                    kids.snapshot(name, DIST_COUNTERS_MARK)
+                name_of_id = {i: name for name, i in instance_of.items()}
+                surf["migration"], more = await surface_migration(plane, kids, name_of_id, families, surface)
+                checks += more
+                surf["seconds"] = time.perf_counter() - t1
                 await client.close()
             finally:
                 await drt.shutdown()
-            return models, probes, burst, wall, timing, repeats, stats
+            return models, probes, burst, wall, timing, repeats, stats, surf, checks
 
-        models, probes, burst, wall, timing, repeats, stats = asyncio.run(drive())
+        models, probes, burst, wall, timing, repeats, stats, surf, surf_checks = asyncio.run(drive())
         kids.alive()
-        codes = {name: kids.stop(name) for name in (*workers, "frontend", "control_plane")}
+        codes = {name: kids.stop(name) for name in (*workers, "frontend", "control_plane") if name in kids.procs}
     finally:
         kids.kill()
     if any(codes.values()):
         raise AssertionError(f"a process exited with an error: {codes}")
-    worker_runs = {}
+    # Each worker's counters as SIGUSR1 logged them before the kill (the
+    # whole deployment's traffic but the killed pair's), and the survivor's
+    # at its shutdown.
+    worker_runs, survivor_final = {}, None
     for name in workers:
-        (line,) = [ln for ln in kids.text(name).splitlines() if DIST_COUNTERS_MARK in ln]
-        worker_runs[name] = json.loads(line.split(DIST_COUNTERS_MARK, 1)[1])
+        lines = [ln for ln in kids.text(name).splitlines() if DIST_COUNTERS_MARK in ln]
+        worker_runs[name] = json.loads(lines[0].split(DIST_COUNTERS_MARK, 1)[1])
+        if name != surf["migration"]["victim_name"]:
+            survivor_final = (name, json.loads(lines[-1].split(DIST_COUNTERS_MARK, 1)[1]))
     phase_s = time.perf_counter() - t0
 
     # In-process, with the workers' bf16 GEMM reductions (PyTorch's
@@ -4289,18 +4910,20 @@ def phase_distributed(card: str) -> dict:
                     ref.append([_answer_of(r) for r in (probe, *fburst, rep)])
                     ref_steps.append({k: getattr(sched, k) - before[k] for k in step_keys})
                     ref_timing.append(seen)
+                surface_refs = await surface_references(service.port, engine, surface, surf)
             finally:
                 await service.stop()
                 await engine.stop()
-            return lprobes, lburst, lwall, lrepeats, ref, ref_steps, ref_timing
+            return lprobes, lburst, lwall, lrepeats, ref, ref_steps, ref_timing, surface_refs
 
-        lprobes, lburst, lwall, lrepeats, ref, ref_steps, ref_timing = asyncio.run(in_process())
+        lprobes, lburst, lwall, lrepeats, ref, ref_steps, ref_timing, surface_refs = asyncio.run(in_process())
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
 
     L = get_config(PRESET).num_layers
-    checks, per_worker = [], {}
-    for name, runs in worker_runs.items():
+    checks, per_worker = list(surf_checks), {}
+
+    def launch_check(name, runs, label):
         steps, k = runs["steps"], runs["kernels"]
         launches = {n: c["launches"] for n, c in k.items()}
         want = {n: 0 for n in launches}
@@ -4310,12 +4933,18 @@ def phase_distributed(card: str) -> dict:
         want["fused_decode_window_sampled"] = steps["fused_sampled_windows_total"]
         want["fused_decode_window_guided"] = steps["fused_guided_windows_total"]
         plain = sum(c["plain_calls"] for c in k.values())
-        per_worker[name] = {"instance": f"{instance_of[name]:x}", "steps": steps, "launches": launches,
-                            "expected_launches": want, "plain_calls": plain}
         if not steps["request_total"]:
-            checks.append(f"{name} served no request")
+            checks.append(f"{label} served no request")
         if launches != want or not steps["fused_windows_total"] or plain:
-            checks.append(f"{name}: launches {launches} != {want}, or no fused window, or {plain} plain calls")
+            checks.append(f"{label}: launches {launches} != {want}, or no fused window, or {plain} plain calls")
+        return {"instance": f"{instance_of[name]:x}", "steps": steps, "launches": launches,
+                "expected_launches": want, "plain_calls": plain}
+
+    for name, runs in worker_runs.items():
+        per_worker[name] = launch_check(name, runs, name)
+    survivor = {"name": survivor_final[0],
+                **launch_check(survivor_final[0], survivor_final[1], survivor_final[0] + " at shutdown")}
+    checks += surface_refs.pop("checks")
     if repeats[0]["worker"] == repeats[1]["worker"]:
         checks.append("both families' repeats landed on one worker")
     # Every answer against the reference's for its family, in its order:
@@ -4352,8 +4981,9 @@ def phase_distributed(card: str) -> dict:
         "texts_equal_reference": texts_equal, "family_steps": family_steps,
         "follow_up_first_token_ms": {"frontend": timing, "reference": ref_timing},
         "in_process_together_texts_equal_reference": together_equal,
-        "hop_ms_per_token": hop, "workers": per_worker,
+        "hop_ms_per_token": hop, "workers": per_worker, "survivor_at_shutdown": survivor,
         "stats_keys": sorted(next(iter(stats.values()))),
+        "surface": {**surf, "references": surface_refs},
     }
     emit("distributed", **res)
     if checks:
@@ -6356,6 +6986,11 @@ FULL_RUN = ("env", "build", "families", "kernel", "model", "breakdown", "serve",
             "disagg")
 # The kernels the families phase runs (it runs while the others build).
 FAMILIES_KERNELS = ("ragged_paged_attention",)
+# The slowest build, and the phases that need none of it (the deployments'
+# workers run the ragged kernel and the fused window): they run on the card
+# while it still builds on the host.
+LAST_KERNELS = ("fused_spec_window",)
+DEPLOYMENT_PHASES = ("distributed", "kvbm", "disagg")
 
 
 def main() -> int:
@@ -6395,20 +7030,29 @@ def main() -> int:
 
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    # One nvcc a source, all started together; the families phase needs only
-    # FAMILIES_KERNELS, so it runs on the card while the rest (the fused
-    # kernels take minutes) still build on the host.
-    later = [n for n in _build.sources() if n not in FAMILIES_KERNELS]
-    built_later: dict = {}
+    # One nvcc a source, all started together, in three groups: the families
+    # phase needs only FAMILIES_KERNELS and the DEPLOYMENT_PHASES all but
+    # LAST_KERNELS, so each runs on the card while the rest still builds on
+    # the host (the fused kernels take minutes).
+    groups = {"middle": [n for n in _build.sources() if n not in FAMILIES_KERNELS + LAST_KERNELS],
+              "last": list(LAST_KERNELS)}
+    results: dict = {g: {} for g in groups}
+    done_at: dict = {}
 
-    def build_later():
+    def build_group(group):
         try:
-            built_later.update(_build.build(later))
+            results[group].update(_build.build(groups[group]))
         except BaseException as e:  # re-raised on the main thread below
-            built_later["error"] = e
+            results[group]["error"] = e
+        done_at[group] = time.perf_counter()
 
-    nvcc_thread = threading.Thread(target=build_later, name="nvcc")
-    nvcc_thread.start()
+    threads = [threading.Thread(target=build_group, args=(g,), name=f"nvcc-{g}") for g in groups]
+    for th in threads:
+        th.start()
+    # The host library (csrc/native.cc: block hashing, the router's radix
+    # tree), with the host compiler while nvcc runs; every engine and router
+    # of the later phases loads it.
+    host = _build.build_host("native")
     built = _build.build(FAMILIES_KERNELS)
     first_kernels_s = time.perf_counter() - t0
     seconds = {}
@@ -6419,16 +7063,30 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t1
         return out
 
+    dist = kvbm = disagg = None
     try:
         fam = timed_phase("families", lambda: phase_families(card, dev)) if "families" in phases else None
+        threads[0].join()
+        if "error" in results["middle"]:
+            raise results["middle"]["error"]
+        if "distributed" in phases:
+            dist = timed_phase("distributed", lambda: phase_distributed(card))
+        kvbm = timed_phase("kvbm", lambda: phase_kvbm(card, dev)) if "kvbm" in phases else None
+        disagg = timed_phase("disagg", lambda: phase_disagg(card, dev)) if "disagg" in phases else None
     finally:
-        nvcc_thread.join()
-    if "error" in built_later:
-        raise built_later["error"]
-    built.update(built_later)
+        for th in threads:
+            th.join()
+    for group in groups:
+        if "error" in results[group]:
+            raise results[group]["error"]
+        built.update(results[group])
+    build_s = max(done_at.values()) - t0
     sass = {n: tensor_core_ops(r["path"]) for n, r in built.items()}
-    emit("build", seconds=time.perf_counter() - t0, families_kernels_seconds=first_kernels_s,
-         overlapped_phases=["families"] if fam is not None else [],
+    overlapped = [n for n, r in (("families", fam), ("distributed", dist), ("kvbm", kvbm), ("disagg", disagg))
+                  if r is not None]
+    emit("build", seconds=build_s, families_kernels_seconds=first_kernels_s,
+         middle_kernels_seconds=done_at["middle"] - t0, overlapped_phases=overlapped,
+         host_library_seconds=host["seconds"],
          libraries={n: {"seconds": r["seconds"], "ptxas": [ln for ln in r["log"].splitlines() if "ptxas" in ln],
                         "sass": sass[n]}
                     for n, r in built.items()})
@@ -6443,10 +7101,9 @@ def main() -> int:
             raise AssertionError(f"{name}: no HGMMA in the built library ({sass[name]})")
 
     # Wall seconds of each phase, printed at the end (a run may have a time
-    # limit; the build's seconds vary with nvcc's, and hold the families
-    # phase's, which ran beside it: the total is the wall since the build
-    # began).
-    seconds["build"] = time.perf_counter() - t0
+    # limit; the build's seconds vary with nvcc's, and hold the phases that
+    # ran beside it: the total is the wall since the build began).
+    seconds["build"] = build_s
 
     timed = timed_phase("kernel", lambda: phase_kernel(dev)) if "kernel" in phases else None
     if "model" in phases:
@@ -6459,9 +7116,6 @@ def main() -> int:
     ckpt = timed_phase("checkpoint", lambda: phase_checkpoint(card, dev)) if "checkpoint" in phases else None
     if "grammar" in phases:
         timed_phase("grammar", lambda: phase_grammar(card))
-    dist = timed_phase("distributed", lambda: phase_distributed(card)) if "distributed" in phases else None
-    kvbm = timed_phase("kvbm", lambda: phase_kvbm(card, dev)) if "kvbm" in phases else None
-    disagg = timed_phase("disagg", lambda: phase_disagg(card, dev)) if "disagg" in phases else None
     if args.parent:
         emit("parent", **timed_phase("parent", lambda: parent_runs(args.parent)))
     emit("seconds", **seconds, total=time.perf_counter() - t0)

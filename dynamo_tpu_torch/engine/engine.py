@@ -2,7 +2,9 @@
 
 The counterpart of the JAX package's ``TpuEngine``, with the part of its
 surface the port serves: ``build``, ``start``, ``stop``, ``generate``,
-``abort``, ``metrics``, ``stats``, ``stats_handler``,
+``abort``, ``metrics``, ``stats``, ``stats_handler``, ``debug_state``,
+``set_capacity_dial`` (the elastic prefill:decode split, reachable over
+the wire as the worker's ``set_dial`` control op),
 ``set_kv_event_sink``, ``attach_guided_tokenizer``, and for
 disaggregation ``take_export`` / ``take_export_device``. With
 ``kvbm_host_blocks > 0`` it owns a KVBM (``llm/block_manager``): G1
@@ -389,6 +391,14 @@ class TorchEngine:
         return await asyncio.get_running_loop().run_in_executor(
             self._step_thread, self.scheduler.take_export_device, request_id)
 
+    # --- elastic capacity dial ---------------------------------------------
+    def set_capacity_dial(self, prefill_fraction: float) -> dict:
+        """Re-split this worker's budget between prefill and decode, live
+        (``Scheduler.set_capacity_dial``; thread-safe). Reachable remotely
+        through the ``set_dial`` op on the worker's control subject.
+        Returns the applied values."""
+        return self.scheduler.set_capacity_dial(prefill_fraction)
+
     # --- introspection ------------------------------------------------------
     def metrics(self) -> ForwardPassMetrics:
         return self.scheduler.metrics()
@@ -406,12 +416,9 @@ class TorchEngine:
 
     def stats_handler(self) -> dict:
         """The worker's stats scrape: the keys of the JAX engine's
-        ``stats_handler`` that this scheduler computes, with their names and
-        meanings, and no other. Not here yet: the elastic capacity dial
-        (``set_capacity_dial``, ROADMAP Queue 1 item 7), the queue and
-        prefill wait sums and the first-token count, the flight recorder,
-        profiler, SLO, watchdog, digest, tenant-ledger, fault and incident
-        keys (item 18)."""
+        ``stats_handler``, with their names and meanings, and no other. Not
+        here yet: the flight recorder, profiler, SLO, watchdog, digest,
+        tenant-ledger, fault and incident keys (ROADMAP Queue 1 item 18)."""
         m = self.scheduler.metrics()
         stats = {
             "kv_usage": m.kv_usage,
@@ -431,11 +438,28 @@ class TorchEngine:
             "prefix_miss_blocks_total": m.prefix_miss_blocks_total,
             "prefix_evicted_blocks_total": m.prefix_evicted_blocks_total,
             "prefix_onboard_total": m.prefix_onboard_total,
+            # First-token latency decomposition: queue (arrival →
+            # admission) and prefill (admission → first token) sums.
+            "queue_wait_seconds_total": round(self.scheduler.queue_wait_s_total, 6),
+            "prefill_wait_seconds_total": round(self.scheduler.prefill_wait_s_total, 6),
+            "first_tokens_total": self.scheduler.first_tokens_total,
+            # Elastic capacity dial: the live prefill:decode split.
+            "elastic_prefill_fraction": m.elastic_prefill_fraction,
+            "elastic_prefill_budget": m.elastic_prefill_budget,
+            "elastic_decode_slots": m.elastic_decode_slots,
+            "elastic_dial_changes_total": m.elastic_dial_changes_total,
         }
         stats.update(self.scheduler.kv_gauges())
         if self.scheduler.guided is not None:
             stats.update(self.scheduler.guided.stats())
         return stats
+
+    def debug_state(self) -> dict:
+        """Live engine introspection: the scheduler's ``debug_state``. The
+        JAX engine adds its stall watchdog's and incident detector's state
+        (``watchdog``, ``incidents``), which come with ROADMAP Queue 1
+        item 18."""
+        return self.scheduler.debug_state()
 
     def attach_guided_tokenizer(self, tokenizer) -> None:
         """Enable guided decoding: grammars lift to token FSMs against

@@ -138,6 +138,7 @@ from dynamo_tpu_torch.engine.sampling import (
 from dynamo_tpu_torch.engine.spec_decode import SpecDecodeStats, spec_verify
 from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder, GuidedState
 from dynamo_tpu_torch.llm.tokens import extend_block_hashes
+from dynamo_tpu_torch.native import get_native
 from dynamo_tpu_torch.logits_processing import apply_chain
 
 logger = logging.getLogger(__name__)
@@ -237,6 +238,7 @@ class Sequence:
     out_queue: "asyncio.Queue[Optional[StepOutput]]" = field(default_factory=asyncio.Queue)
     arrival_ts: float = field(default_factory=time.monotonic)
     admitted_ts: Optional[float] = None
+    first_token_ts: Optional[float] = None
     aborted: bool = False
     abort_reason: str = "cancelled"
     deadline_ts: Optional[float] = None
@@ -330,6 +332,14 @@ class ForwardPassMetrics:
     # the experts' capacity, and all routed live assignments (capacity only).
     moe_dropped_total: int = 0
     moe_assignments_total: int = 0
+    # Elastic capacity dial (set_capacity_dial): the live prefill:decode
+    # split. fraction 0.5 = the configured budget/slots; the budget/slots
+    # gauges carry the APPLIED values so the router's cost model sees the
+    # dial, not just its setting.
+    elastic_prefill_fraction: float = 0.5
+    elastic_prefill_budget: int = 0
+    elastic_decode_slots: int = 0
+    elastic_dial_changes_total: int = 0
 
     def to_wire(self) -> dict:
         return self.__dict__.copy()
@@ -362,6 +372,10 @@ class Scheduler:
         self.sc = scheduler_config or SchedulerConfig()
         self.device = torch.device(device)
         self.dtype = dtype
+        # Block hashes come from the host library: built (or found) here, so
+        # a first request never waits for the compiler and a failed build
+        # stops the engine before it serves.
+        get_native()
         self.allocator = BlockAllocator(self.sc.num_blocks, on_event=on_kv_event)
         # Reserve block 0 as the scratch sink for padded scatter positions.
         self.allocator._free.remove(0)
@@ -406,6 +420,21 @@ class Scheduler:
         self._aux_lock = threading.Lock()
         self._moe_dropped_total = 0
         self._moe_assignments_total = 0
+        # Elastic capacity dial (set_capacity_dial): the bases are the
+        # CONFIGURED split — the dial scales mixed_prefill_budget and the
+        # admission slot cap around them, fraction 0.5 = identity. Written
+        # from the event loop (the set_dial control op) while the step
+        # thread reads the live sc knobs, so the grouped update rides
+        # _aux_lock.
+        self._base_mixed_prefill_budget = self.sc.mixed_prefill_budget or self.sc.max_prefill_chunk
+        self._base_max_running = self.sc.max_running
+        self._elastic_fraction = 0.5  # guarded-by: _aux_lock
+        self.elastic_dial_changes_total = 0  # guarded-by: _aux_lock
+        # First-token latency decomposition: queue (arrival → admission)
+        # and prefill (admission → first token) sums over first tokens.
+        self.queue_wait_s_total = 0.0
+        self.prefill_wait_s_total = 0.0
+        self.first_tokens_total = 0
         self.wave_steps_total = 0
         # Decode windows: fused (one kernel launch each; those with a sampled
         # row and those with a guided row also counted apart), non-fused
@@ -579,6 +608,10 @@ class Scheduler:
             spec_decode=self.spec_stats.to_dict() if self.spec_stats else None,
             moe_dropped_total=self.moe_dropped_total,
             moe_assignments_total=self.moe_assignments_total,
+            elastic_prefill_fraction=self._elastic_fraction,
+            elastic_prefill_budget=self.sc.mixed_prefill_budget or 0,
+            elastic_decode_slots=self.sc.max_running,
+            elastic_dial_changes_total=self.elastic_dial_changes_total,
         )
 
     @property
@@ -640,6 +673,42 @@ class Scheduler:
             "kv_cached_blocks": a.num_cached,
             "kv_fragmentation": round(1.0 - used / allocated, 6) if allocated else 0.0,
             "prefix_hit_rate": round(hits / (hits + misses), 6) if (hits + misses) else 0.0,
+        }
+
+    def debug_state(self) -> dict:
+        """Live introspection: every sequence with its age and progress, and
+        the block pool (the JAX scheduler's keys; its latency digests, SLO
+        account and flight recorder, ``digests``, ``slo`` and ``flight``,
+        come with ROADMAP Queue 1 item 18). Read from the event loop while
+        the step thread mutates: last-write-wins races are fine for a
+        debug dump."""
+        now = time.monotonic()
+
+        def seq_info(s: Sequence) -> dict:
+            return {
+                "request_id": s.request_id,
+                "state": s.state.value,
+                "age_s": round(now - s.arrival_ts, 3),
+                "prompt_tokens": len(s.prompt),
+                "output_tokens": len(s.output_ids),
+                "computed": s.num_computed,
+                "cached_tokens": s.cached_tokens,
+                "blocks": len(s.block_ids),
+                "preemptions": s.preemptions,
+            }
+
+        a = self.allocator
+        return {
+            "running": [seq_info(s) for s in list(self.running)],
+            "waiting": [seq_info(s) for s in list(self.waiting)],
+            "block_pool": {
+                "total": a.num_blocks,
+                "free": len(a._free),
+                "cached": a.num_cached,
+                "active": a.num_active,
+                "usage": round(a.usage(), 6),
+                "kv_fragmentation": self.kv_gauges()["kv_fragmentation"],
+            },
         }
 
     def config_snapshot(self) -> dict:
@@ -745,16 +814,49 @@ class Scheduler:
         if self._graphs is not None:
             self._graphs.close()
 
+    # --- elastic capacity dial ----------------------------------------------
+    def set_capacity_dial(self, prefill_fraction: float) -> dict:
+        """Live prefill:decode capacity split, the JAX scheduler's rule.
+        ``prefill_fraction`` ∈ [0, 1] (clamped):
+
+        - 0.5 — the configured identity (mixed_prefill_budget / max_running
+          exactly as constructed);
+        - → 1.0 — prefill-heavy: the mixed-step chunk budget scales up to
+          2× (clamped to max_prefill_chunk) while decode admission slots
+          shrink toward 1;
+        - → 0.0 — decode-heavy: admission slots stay at the configured cap
+          while the chunk budget shrinks toward one block.
+
+        Slots never exceed the configured max_running (the KV cache, the
+        decode buckets and the split counters are sized for it), and rows
+        admitted past a shrunken cap drain naturally. Thread-safe: the
+        grouped update rides _aux_lock, so a stats scrape never reads a
+        half-applied dial. Returns the applied values."""
+        f = min(1.0, max(0.0, float(prefill_fraction)))
+        raw = int(round(2.0 * f * self._base_mixed_prefill_budget))
+        budget = max(self.mc.block_size, min(raw, self.sc.max_prefill_chunk))
+        slots = int(round(2.0 * (1.0 - f) * self._base_max_running))
+        slots = max(1, min(self._base_max_running, slots))
+        with self._aux_lock:
+            self._elastic_fraction = f
+            self.sc.mixed_prefill_budget = budget
+            self.sc.max_running = slots
+            self.elastic_dial_changes_total += 1
+        logger.info("capacity dial: prefill_fraction=%.3f → mixed_prefill_budget=%d decode_slots=%d",
+                    f, budget, slots)
+        return {"prefill_fraction": f, "mixed_prefill_budget": budget, "decode_slots": slots}
+
     def _mixed_warm_buckets(self) -> List[int]:
-        """Prefill-chunk buckets a mixed step can ride: from the bucket of
-        one block to the bucket of the mixed budget (the JAX package's rule,
-        whose capacity dial may double the budget; the port has no dial)."""
+        """Prefill-chunk buckets a mixed step can ride across the capacity
+        dial's whole range: budgets span [block_size, min(2 · base,
+        max_prefill_chunk)] and chunks bucket up (next_bucket), so warmup
+        covers every bucket between those bounds — a dial change never
+        captures a graph mid-traffic."""
         eligible = [b for b in self.sc.prefill_buckets if b <= self.sc.max_prefill_chunk]
         if not eligible:
             eligible = [self.sc.prefill_buckets[0]]
         lo = next_bucket(max(self.mc.block_size, 1), eligible)
-        budget = min(self.sc.mixed_prefill_budget or self.sc.max_prefill_chunk, self.sc.max_prefill_chunk)
-        hi = next_bucket(budget, eligible)
+        hi = next_bucket(min(2 * self._base_mixed_prefill_budget, self.sc.max_prefill_chunk), eligible)
         return [b for b in eligible if lo <= b <= hi] or [eligible[0]]
 
     def warmup(self, ctx_tokens: int = 2048) -> int:
@@ -2099,8 +2201,13 @@ class Scheduler:
         queue_s = None
         cached = None
         if len(seq.output_ids) == 1:
+            if seq.first_token_ts is None:
+                seq.first_token_ts = time.monotonic()
             if seq.admitted_ts is not None:
                 queue_s = max(0.0, seq.admitted_ts - seq.arrival_ts)
+                self.queue_wait_s_total += queue_s
+                self.prefill_wait_s_total += max(0.0, seq.first_token_ts - seq.admitted_ts)
+            self.first_tokens_total += 1
             cached = seq.cached_tokens
         reason = self._check_stop(seq, token)
         if reason is not None:

@@ -107,10 +107,10 @@ async def register_llm(
     stats_handler=None,
 ) -> tuple:
     """Worker side: serve the engine on the endpoint and publish the model
-    entry so frontends discover it. → (ServeHandle, ModelEntry)."""
-    handle = await endpoint.serve_endpoint(
-        engine.generate if hasattr(engine, "generate") else engine, stats_handler=stats_handler
-    )
+    entry so frontends discover it. → (ServeHandle, ModelEntry). The engine
+    itself is served (the JAX package serves its bound ``generate``), so the
+    worker's control ops reach it: ``set_dial`` finds its capacity dial."""
+    handle = await endpoint.serve_endpoint(engine, stats_handler=stats_handler)
     entry = ModelEntry(
         name=card.name,
         namespace=endpoint.namespace,
@@ -164,7 +164,6 @@ async def start_frontend(drt: DistributedRuntime, config: FrontendConfig) -> Htt
         ep = drt.namespace(entry.namespace).component(entry.component).endpoint(entry.endpoint)
         client = await ep.client()
         retry = RetryPolicy(max_retries=config.retry_max, backoff_base_s=config.retry_backoff_base_s)
-        breaker = CircuitBreaker(threshold=config.breaker_threshold, cooldown_s=config.breaker_cooldown_s)
         if config.router_mode == "kv":
             router = await KvPushRouter.create(
                 client,
@@ -176,11 +175,17 @@ async def start_frontend(drt: DistributedRuntime, config: FrontendConfig) -> Htt
                 ),
             )
             router.push.retry = retry
-            router.push.breaker = breaker
+            router.push.breaker = CircuitBreaker(
+                threshold=config.breaker_threshold, cooldown_s=config.breaker_cooldown_s,
+                on_transition=router.push._on_circuit_transition,
+            )
         else:
             mode = RouterMode.RANDOM if config.router_mode == "random" else RouterMode.ROUND_ROBIN
-            router = PushRouter(client, mode, monitor=WorkerMonitor(config.busy_threshold), retry=retry,
-                                breaker=breaker)
+            router = PushRouter(client, mode, monitor=WorkerMonitor(config.busy_threshold), retry=retry)
+            router.breaker = CircuitBreaker(
+                threshold=config.breaker_threshold, cooldown_s=config.breaker_cooldown_s,
+                on_transition=router._on_circuit_transition,
+            )
             if config.busy_threshold is not None:
                 router.follow_load(kv_metrics_subject(entry.namespace, entry.component))
         # A model that left and came back gets a new router; the old one's

@@ -2,9 +2,10 @@
 
 A copy of the JAX package's ``llm/kv_router/approx.py``: the blocks of a
 routed request are assumed to live on the chosen worker for a TTL, indexed
-in the same radix tree. The KV router keeps one (``pending_index``,
-``PENDING_OVERLAP_TTL_S``) over decisions whose KV events have not come
-yet; the JAX router's mode that makes one its main index is not ported.
+in the same radix tree. With ``KvRouterConfig(use_kv_events=False)`` the
+KV router's main index is one (``approx_ttl_s``) and it subscribes to no
+events; in exact mode it keeps one over decisions whose KV events have not
+come yet (``pending_index``, ``pending_overlap_ttl_s``).
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Radix tree over chained block hashes: which workers hold which prefixes.
 
-A copy of the JAX package's ``llm/kv_router/indexer.py`` on its pure-Python
-path (the JAX package's C++ tree, ``dynamo_tpu/native.py``, is not ported):
-``RadixTree``, ``KvIndexer`` (a single-threaded event applier),
-``OverlapScores`` and snapshot dump/load.
+A copy of the JAX package's ``llm/kv_router/indexer.py``: ``RadixTree``
+(pure Python, the plain version), ``NativeRadixTree`` (the same interface
+over the port's host library, ``native.py``), ``KvIndexer`` (a
+single-threaded event applier over whichever ``make_radix_tree`` gives:
+the native tree unless ``DYN_NATIVE=0``), ``OverlapScores`` and snapshot
+dump/load.
 
 Block hashes chain (each block's hash seeds from its parent's,
 ``llm/tokens.py``), so a block hash identifies its whole prefix: the tree
@@ -20,6 +22,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set
 
 from dynamo_tpu_torch.llm.tokens import compute_block_hashes
+from dynamo_tpu_torch.native import available, get_native
 
 WorkerId = int
 BlockHash = int
@@ -155,13 +158,59 @@ class RadixTree:
         return _load_into(cls(), raw)
 
 
+class NativeRadixTree:
+    """Same interface as :class:`RadixTree`, on the port's host library
+    (``csrc/native.cc``)."""
+
+    def __init__(self, _impl=None):
+        self._impl = _impl if _impl is not None else get_native().RadixTree()
+
+    def find_matches(self, block_hashes: Sequence[BlockHash], early_exit: bool = False) -> OverlapScores:
+        return OverlapScores(scores=self._impl.find_matches(block_hashes, early_exit=early_exit))
+
+    def size(self) -> int:
+        return self._impl.size()
+
+    def workers(self) -> List[WorkerId]:
+        return self._impl.workers()
+
+    def apply_stored(
+        self, worker: WorkerId, block_hashes: Sequence[BlockHash], parent_hash: Optional[BlockHash]
+    ) -> None:
+        self._impl.apply_stored(worker, block_hashes, parent_hash)
+
+    def apply_removed(self, worker: WorkerId, block_hashes: Sequence[BlockHash]) -> None:
+        self._impl.apply_removed(worker, block_hashes)
+
+    def remove_worker(self, worker: WorkerId) -> None:
+        self._impl.remove_worker(worker)
+
+    def dump(self) -> bytes:
+        out = [{"h": h, "p": p, "w": ws} for h, p, ws in self._impl.dump_records()]
+        return json.dumps(out).encode()
+
+    @classmethod
+    def load(cls, raw: bytes) -> "NativeRadixTree":
+        return _load_into(cls(), raw)
+
+
 def _load_into(tree, raw: bytes):
-    """Restore snapshot records (BFS order: parents before children): the
-    one place that owns the {"h","p","w"} record schema."""
+    """Restore snapshot records (BFS order: parents before children) into
+    either tree: the one place that owns the {"h","p","w"} record schema."""
     for rec in json.loads(raw):
         for w in rec["w"]:
             tree.apply_stored(w, [rec["h"]], rec["p"])
     return tree
+
+
+def make_radix_tree():
+    """The native tree, or the pure-Python one when ``DYN_NATIVE=0``."""
+    return NativeRadixTree() if available() else RadixTree()
+
+
+def load_radix(raw: bytes):
+    """Restore a snapshot into the tree ``make_radix_tree`` picks."""
+    return _load_into(make_radix_tree(), raw)
 
 
 class KvIndexer:
@@ -170,7 +219,7 @@ class KvIndexer:
     irrelevant (per-worker state is independent)."""
 
     def __init__(self, block_size: int = 16):
-        self.tree = RadixTree()
+        self.tree = make_radix_tree()
         self.block_size = block_size
         self.events_applied = 0
 
@@ -198,7 +247,7 @@ class KvIndexer:
         return self.tree.dump()
 
     def load_snapshot(self, raw: bytes) -> None:
-        self.tree = RadixTree.load(raw)
+        self.tree = load_radix(raw)
 
     def size(self) -> int:
         return self.tree.size()

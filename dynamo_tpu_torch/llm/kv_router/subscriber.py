@@ -2,12 +2,11 @@
 and purge for bounded replay.
 
 A copy of the JAX package's ``llm/kv_router/subscriber.py``: on start,
-restore the radix snapshot from the object store (``radix-bucket``), then
-consume the durable stream; past ``SNAPSHOT_THRESHOLD`` events (the JAX
-router's default), upload a fresh snapshot under the store lock
-(``locks/router-snapshot``) and purge the stream so replicas resync
-cheaply. The JAX router's ``reset_states`` and snapshot-threshold knobs
-are not ported (ROADMAP Queue 1 item 7).
+restore the radix snapshot from the object store (``radix-bucket``), or,
+with ``reset_states``, delete it and purge the stream instead; then
+consume the durable stream; past ``snapshot_threshold`` events, upload a
+fresh snapshot under the store lock (``locks/router-snapshot``) and purge
+the stream so replicas resync cheaply.
 """
 
 from __future__ import annotations
@@ -24,27 +23,41 @@ logger = get_logger(__name__)
 
 RADIX_STATE_BUCKET = "radix-bucket"
 ROUTER_SNAPSHOT_LOCK = "locks/router-snapshot"
-SNAPSHOT_THRESHOLD = 1_000_000
 
 
 class KvRouterSubscriber:
-    def __init__(self, drt, indexer: KvIndexer, stream_name: str):
+    def __init__(
+        self,
+        drt,
+        indexer: KvIndexer,
+        stream_name: str,
+        *,
+        snapshot_threshold: int = 1_000_000,
+        reset_states: bool = False,
+    ):
         self.drt = drt
         self.indexer = indexer
         self.stream_name = stream_name
+        self.snapshot_threshold = snapshot_threshold
+        self.reset_states = reset_states
         self._task: Optional[asyncio.Task] = None
         self._events_since_snapshot = 0
         self._consumed_seq = 0
 
     async def start(self) -> None:
         bucket = await self.drt.bus.object_store(RADIX_STATE_BUCKET)
-        snap = await bucket.get(self.stream_name)
-        if snap is not None:
-            try:
-                self.indexer.load_snapshot(snap)
-                logger.info("restored radix snapshot: %d nodes", self.indexer.size())
-            except Exception:
-                logger.exception("radix snapshot restore failed; starting empty")
+        if self.reset_states:
+            await bucket.delete(self.stream_name)
+            stream = await self.drt.bus.stream(self.stream_name)
+            await stream.purge()
+        else:
+            snap = await bucket.get(self.stream_name)
+            if snap is not None:
+                try:
+                    self.indexer.load_snapshot(snap)
+                    logger.info("restored radix snapshot: %d nodes", self.indexer.size())
+                except Exception:
+                    logger.exception("radix snapshot restore failed; starting empty")
         self._task = asyncio.get_running_loop().create_task(self._consume())
 
     async def _consume(self) -> None:
@@ -58,7 +71,7 @@ class KvRouterSubscriber:
                     logger.warning("malformed kv event on %s", self.stream_name)
                 self._consumed_seq = msg.seq
                 self._events_since_snapshot += 1
-                if self._events_since_snapshot >= SNAPSHOT_THRESHOLD:
+                if self._events_since_snapshot >= self.snapshot_threshold:
                     await self._snapshot(stream)
         except asyncio.CancelledError:
             pass
@@ -71,6 +84,8 @@ class KvRouterSubscriber:
         except KeyExists:
             return  # another replica is snapshotting
         try:
+            # Quiesce the sharded indexer's appliers so the snapshot holds
+            # everything up to _consumed_seq before the stream is purged.
             self.indexer.flush()
             bucket = await self.drt.bus.object_store(RADIX_STATE_BUCKET)
             await bucket.put(self.stream_name, self.indexer.dump())

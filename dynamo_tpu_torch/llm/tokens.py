@@ -8,12 +8,19 @@ package's (``xxhash.xxh3_64_intdigest``). The ``xxhash`` wheel is not
 assumed to be installed, so ``xxh3_64`` is written out here in pure
 Python for every input of at most 240 bytes (60 tokens) — the short and
 mid-size paths of XXH3, which cover a block of up to 60 tokens.
+
+``compute_block_hashes`` and ``extend_block_hashes`` run on the port's host
+library (``native.py``, ``csrc/native.cc``: the same XXH3, in C++), built
+at first use; with ``DYN_NATIVE=0`` they run the pure-Python ``xxh3_64``
+below, which stays as the plain version.
 """
 
 from __future__ import annotations
 
 import struct
 from typing import List, Sequence
+
+from dynamo_tpu_torch.native import get_native
 
 # Seed for the first block in a sequence (no parent); the JAX package's.
 ROOT_SEED = 0x6462_6C6B  # "dblk"
@@ -161,6 +168,11 @@ def extend_block_hashes(
     n_full = len(tokens) // block_size
     hashes = list(prev_hashes)
     seed = hashes[-1] if hashes else ROOT_SEED
+    native = get_native()
+    if native is not None:
+        if n_full > len(hashes):
+            hashes += native.hash_token_blocks(tokens[len(hashes) * block_size:n_full * block_size], block_size, seed)
+        return hashes
     for i in range(len(hashes), n_full):
         h = hash_tokens(tokens[i * block_size : (i + 1) * block_size], seed)
         hashes.append(h)

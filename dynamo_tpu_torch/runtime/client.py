@@ -57,6 +57,11 @@ class Client:
             self._changed.set()
             self._changed = asyncio.Event()
 
+    def change_event(self) -> asyncio.Event:
+        """The event the next change of the instance set sets (taken before
+        a check of ``instances``, it also wakes for a change right after)."""
+        return self._changed
+
     def instance_ids(self) -> List[int]:
         return sorted(self.instances)
 

@@ -6,12 +6,13 @@ and subjects, so either package's routers reach either package's workers:
   bound to the worker's lease (lease lapse ⇒ key vanishes ⇒ routers prune);
 - request subject ``rq.{ns}.{comp}.{ep}.{lease_id:x}``, one per instance:
   the push router publishes requests here with TCP call-home info;
-- control subject ``ctl.{ns}.{comp}.{ep}.{lease_id:x}``: cancel and kill;
+- control subject ``ctl.{ns}.{comp}.{ep}.{lease_id:x}``: cancel, kill and
+  the capacity dial's ``set_dial`` (applied, and answered with the applied
+  values when the message has a reply subject);
 - stats subject   ``stats.{ns}.{comp}.{ep}.{lease_id:x}``: request/reply
   stats scrape.
 Left out: the fault-injection hooks (``stats.reply``, ``worker.frame``,
-ROADMAP Queue 1 item 20), the worker's tracing span (item 18) and the
-capacity dial's ``set_dial`` op (item 7).
+ROADMAP Queue 1 item 20) and the worker's tracing span (item 18).
 """
 
 from __future__ import annotations
@@ -347,10 +348,21 @@ class _PushEndpoint:
                 continue
             op = payload.get("op")
             if op == "set_dial":
-                # The elastic capacity dial is not ported (ROADMAP Queue 1
-                # item 7): no reply, as the JAX worker gives none when its
-                # engine has no dial.
-                logger.warning("set_dial received but engine exposes no capacity dial")
+                # Elastic capacity dial: re-split this worker's prefill vs
+                # decode budget live (engine.set_capacity_dial → scheduler).
+                # Ack over reply_to when the caller wants the applied values.
+                dial = getattr(self.engine, "set_capacity_dial", None)
+                if dial is None:
+                    logger.warning("set_dial received but engine exposes no capacity dial")
+                    continue
+                try:
+                    applied = dial(float(payload.get("prefill_fraction", 0.5)))
+                    logger.info("set_dial applied on %s: %s", self.instance.endpoint, applied)
+                except Exception as e:
+                    logger.exception("set_dial failed")
+                    applied = {"error": str(e)}
+                if msg.reply_to:
+                    await self.drt.bus.publish(msg.reply_to, msgpack.packb(applied))
                 continue
             if op in ("cancel", "kill"):
                 ctx = self.in_flight.get(payload.get("request_id", ""))

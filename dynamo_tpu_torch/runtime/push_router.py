@@ -13,8 +13,15 @@ its response frames come back over TCP. The failure lifecycle:
   success closes the circuit, failure re-opens it.
 - **Prompt cancellation**: a watcher task publishes the cancel op the
   moment the request's context stops.
+- **Re-dispatch**: a request published to an instance that leaves
+  discovery before its worker calls home was taken by nobody (the worker
+  died, and a migrating replay may pick it while its lease is still being
+  revoked). ``InstanceGone`` ends the wait, and the request goes to
+  another instance; it is no migration, as nothing was streamed. The JAX
+  router waits for such a call home without end.
 Left out: the routing-decision evidence for incident bundles and the
-``circuit_open`` gauges (ROADMAP Queue 1 item 18).
+``circuit_open`` gauges (ROADMAP Queue 1 item 18): the breaker's
+``on_transition`` hook counts transitions instead.
 """
 
 from __future__ import annotations
@@ -41,6 +48,12 @@ class RouterMode(enum.Enum):
     RANDOM = "random"
     DIRECT = "direct"
     KV = "kv"
+
+
+class InstanceGone(StreamDisconnect):
+    """The chosen instance left discovery before its worker took the request
+    (no frame came back): nothing was streamed, so the request may be sent
+    to another instance as it is."""
 
 
 class NoInstancesError(Exception):
@@ -117,10 +130,12 @@ class CircuitBreaker:
     All state behind one lock: ``record_*`` fire from the routing path on
     the event loop while ``snapshot()`` may be read from other threads."""
 
-    def __init__(self, threshold: int = 3, cooldown_s: float = 5.0, clock=time.monotonic):
+    def __init__(self, threshold: int = 3, cooldown_s: float = 5.0,
+                 clock=time.monotonic, on_transition=None):
         self.threshold = max(int(threshold), 1)
         self.cooldown_s = cooldown_s
         self._clock = clock
+        self._on_transition = on_transition  # (instance_id, state) -> None
         self._lock = threading.Lock()
         # {instance_id: {"state", "failures", "opened_at", "probing"}}
         self._w: Dict[int, dict] = {}  # guarded-by: _lock
@@ -130,6 +145,12 @@ class CircuitBreaker:
         return self._w.setdefault(
             wid, {"state": CLOSED, "failures": 0, "opened_at": 0.0, "probing": False}
         )
+
+    def _set_state(self, wid: int, e: dict, state: str) -> None:
+        if e["state"] != state:
+            e["state"] = state
+            if self._on_transition is not None:
+                self._on_transition(wid, state)
 
     def record_failure(self, wid: int) -> None:
         with self._lock:
@@ -143,7 +164,7 @@ class CircuitBreaker:
                         "circuit OPEN for worker %x (%d consecutive failures)",
                         wid, e["failures"],
                     )
-                e["state"] = OPEN
+                self._set_state(wid, e, OPEN)
                 e["opened_at"] = self._clock()
 
     def record_success(self, wid: int) -> None:
@@ -153,7 +174,7 @@ class CircuitBreaker:
                 logger.info("circuit CLOSED for worker %x", wid)
             e["failures"] = 0
             e["probing"] = False
-            e["state"] = CLOSED
+            self._set_state(wid, e, CLOSED)
 
     def blocked_instances(self) -> Set[int]:
         """Workers selection must skip right now. OPEN workers whose
@@ -165,7 +186,7 @@ class CircuitBreaker:
             for wid, e in self._w.items():
                 if e["state"] == OPEN:
                     if now - e["opened_at"] >= self.cooldown_s:
-                        e["state"] = HALF_OPEN
+                        self._set_state(wid, e, HALF_OPEN)
                     else:
                         out.add(wid)
                         continue
@@ -180,6 +201,10 @@ class CircuitBreaker:
             e = self._w.get(wid)
             if e is not None and e["state"] == HALF_OPEN:
                 e["probing"] = True
+
+    def forget(self, wid: int) -> None:
+        with self._lock:
+            self._w.pop(wid, None)
 
     def state_of(self, wid: int) -> str:
         with self._lock:
@@ -214,10 +239,19 @@ class PushRouter:
         self.mode = mode
         self.monitor = monitor or WorkerMonitor()
         self.retry = retry if retry is not None else RetryPolicy()
-        self.breaker = breaker if breaker is not None else CircuitBreaker()
+        self.breaker = breaker if breaker is not None else CircuitBreaker(
+            on_transition=self._on_circuit_transition
+        )
+        # Circuit transitions by the state entered (the JAX router feeds a
+        # circuit_open gauge per worker from the same hook; the port's
+        # metrics registry comes with ROADMAP Queue 1 item 18).
+        self.circuit_transitions_total: Dict[str, int] = {}
         self.retries_total = 0
         self._rr = 0
         self._load_task: Optional[asyncio.Task] = None
+
+    def _on_circuit_transition(self, wid: int, state: str) -> None:
+        self.circuit_transitions_total[state] = self.circuit_transitions_total.get(state, 0) + 1
 
     def follow_load(self, subject: str) -> None:
         """Feed the busy monitor from the workers' load gossip on
@@ -298,7 +332,20 @@ class PushRouter:
         the Migration operator upstream turns into a replay on another worker.
         """
         ctx = context or Context()
-        chosen = await self._select_with_retry(instance_id)
+        while True:
+            chosen = await self._select_with_retry(instance_id)
+            try:
+                async for item in self._push(request, ctx, chosen):
+                    yield item
+                return
+            except InstanceGone:
+                if instance_id is not None:
+                    raise  # pinned by the caller (the KV router re-schedules)
+                logger.warning("instance %x left before taking request %s; sending it elsewhere", chosen, ctx.id)
+
+    async def _push(self, request: Any, ctx: Context, chosen: int) -> AsyncIterator[Annotated]:
+        """One dispatch to ``chosen``: its response frames, or
+        ``InstanceGone`` before any if it leaves before calling home."""
         instance = self.client.instances[chosen]
         self.breaker.note_dispatch(chosen)
 
@@ -342,7 +389,7 @@ class PushRouter:
 
         watcher = asyncio.get_running_loop().create_task(cancel_on_stop())
         try:
-            async for frame in pending.frames():
+            async for frame in self._called_home(pending.frames(), chosen):
                 if ctx.is_stopped():
                     await publish_cancel()
                 if frame.kind == "prologue":
@@ -362,6 +409,36 @@ class PushRouter:
         finally:
             watcher.cancel()
             self.drt.tcp_server_handle().unregister(conn_info.stream_id)
+
+    async def _called_home(self, frames: AsyncIterator, chosen: int) -> AsyncIterator:
+        """``frames``, once the worker has called home (its first frame).
+        Until then, ``chosen`` leaving discovery raises ``InstanceGone``."""
+        frames = frames.__aiter__()
+        first = asyncio.ensure_future(frames.__anext__())
+        try:
+            while True:
+                await asyncio.sleep(0)  # a frame already queued completes ``first`` here
+                if first.done():
+                    break
+                # Taken before the check, so a departure between the check
+                # and the wait still ends the wait.
+                changed = self.client.change_event()
+                if chosen not in self.client.instances:  # also gone before the wait began
+                    self.breaker.forget(chosen)
+                    raise InstanceGone(f"instance {chosen:x} left before taking the request")
+                waiter = asyncio.ensure_future(changed.wait())
+                try:
+                    await asyncio.wait({first, waiter}, return_when=asyncio.FIRST_COMPLETED)
+                finally:
+                    waiter.cancel()
+        finally:
+            first.cancel()
+        try:
+            yield first.result()
+        except StopAsyncIteration:
+            return
+        async for frame in frames:
+            yield frame
 
     async def _generate_local(self, engine, request, ctx) -> AsyncIterator[Annotated]:
         try:

@@ -32,7 +32,8 @@ it both use the byte-level tokenizer.
 At shutdown it logs one line, ``worker launch counters: {json}``: each
 kernel wrapper's launches and plain calls, the scheduler's step, request,
 onboard and export counters, all counted from the moment it registered,
-and on a decode worker its disaggregation counters (``"disagg"``).
+and on a decode worker its disaggregation counters (``"disagg"``). SIGUSR1
+logs the same line (less the disaggregation counters) and serves on.
 
 JAX flags whose feature is not ported are not declared, so argparse
 refuses them (ROADMAP Queue 1, by item):
@@ -54,6 +55,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import signal
 from typing import Optional
 
 from dynamo_tpu_torch.engine.config import get_config
@@ -295,6 +297,8 @@ async def amain(args: argparse.Namespace) -> None:
                                 endpoint=args.endpoint, role=args.role, kv_transfer=args.kv_transfer,
                                 max_local_prefill_length=args.max_local_prefill_length)
     logger.info("worker ready: role=%s model=%s instance=%x", args.role, card.name, worker.instance_id)
+    asyncio.get_running_loop().add_signal_handler(
+        signal.SIGUSR1, lambda: logger.info("worker launch counters: %s", json.dumps(counters_since(engine, worker.base))))
     try:
         await drt.runtime.cancellation.cancelled()
     finally:

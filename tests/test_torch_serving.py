@@ -705,7 +705,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
 
 # The wheels the card's machine lacks, blocked while every port module imports.
 BLOCKED = ("jax", "msgpack", "aiohttp", "prometheus_client", "safetensors", "tokenizers", "jinja2", "transformers",
-           "ml_dtypes", "regex", "gguf", "sentencepiece")
+           "ml_dtypes", "regex", "gguf", "sentencepiece", "xxhash")
+# Modules the guard must reach by name (the rglob below finds every one).
+NAMED = ("dynamo_tpu_torch.native", "dynamo_tpu_torch.llm.c_api", "dynamo_tpu_torch.runtime.decorators",
+         "dynamo_tpu_torch.llm.kv_router.sharded", "dynamo_tpu_torch.llm.kv_router.prefill_counter",
+         "dynamo_tpu_torch.run", "dynamo_tpu_torch.worker", "dynamo_tpu_torch.frontend")
 
 
 def _port_modules():
@@ -741,10 +745,11 @@ def test_port_imports_without_jax_or_the_jax_package():
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) == len(_port_modules()) > 15
+    assert set(NAMED) <= set(_port_modules())
 
 
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|dynamo_tpu|msgpack|aiohttp|prometheus_client|safetensors"
-                        r"|tokenizers|jinja2|transformers|ml_dtypes|regex|gguf|sentencepiece)(?:[.\s,]|$)",
+                        r"|tokenizers|jinja2|transformers|ml_dtypes|regex|gguf|sentencepiece|xxhash)(?:[.\s,]|$)",
                         re.MULTILINE)
 
 
