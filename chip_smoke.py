@@ -76,9 +76,15 @@ KV router configurations in this process (4 indexer shards, two routers
 gossiping their pending prefills, approximate mode without KV events),
 the capacity dial's ``set_dial`` op with a burst after each setting, the
 port's host library (``csrc/native.cc``: hashing and the radix tree)
-against its pure-Python path, and last a worker SIGKILLed mid-stream
-behind a frontend with ``migration_limit=1``, each held against its
-in-process reference.
+against its pure-Python path, image prompts through an encode worker
+(``--role encode --vision-model vit-l-14``) behind the frontend's
+``--encode-component`` (a photo, two images in one message, a grey and a
+palette PNG, written with zlib; their texts against an in-process
+replay), ``/v1/responses`` against chat and five requests on one
+kept-alive connection, the vision tower's bf16 error on the card, and
+``/v1/embeddings`` against the f32 embed, and last a worker SIGKILLed
+mid-stream behind a frontend with ``migration_limit=1``, each held
+against its in-process reference.
 Before that, ``checkpoint`` serves the model from files it writes (HF
 safetensors shards, a q8_0 GGUF, a Llama-3-layout ``tokenizer.json`` with
 a chat template) through ``--checkpoint``/``--tokenizer``: the loaded
@@ -4724,6 +4730,353 @@ async def surface_references(port: int, engine, surface: dict, surf: dict) -> di
             "migration_reference": matching, "migration_texts_equal": texts_equal, "checks": checks}
 
 
+# ---------------------------------------------------------------------------
+# distributed, image prompts and the rest of the HTTP surface: an encode
+# worker (the vit-l-14 tower) behind the frontend's --encode-component, image
+# chat requests held against an in-process replay, /v1/responses and
+# keep-alive through the frontend, the tower against its f32 encode, and
+# /v1/embeddings on the in-process reference service
+# ---------------------------------------------------------------------------
+
+DIST_VISION = "vit-l-14"  # 224x224 images in 14x14 patches: 256 feature rows of 2048 an image
+DIST_VISION_SEED = 11
+DIST_MM_TOKENS = 64
+VIT_REL_TOL = 2e-2  # the bf16 tower's relative Frobenius error against its f32 encode
+EMBED_LENGTHS = (5, 100, 500, 2000)  # one input per bucket of 32, 128, 512 and 2048
+EMBED_NORM_TOL = 1e-3
+EMBED_COS_MIN = 0.995  # each served vector against the plain f32 embed on the card
+
+
+def write_png(pixels: np.ndarray, color_type: int, palette: Optional[np.ndarray] = None) -> bytes:
+    """An 8-bit PNG of ``pixels`` ([H, W, 3] RGB for colour type 2, [H, W]
+    grey or palette indices for 0 and 3), its rows filtered in turn with
+    None, Sub, Up, Average and Paeth, compressed with the standard
+    library's zlib: the card's machine has no PIL."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    h, w = pixels.shape[:2]
+    bpp = 3 if color_type == 2 else 1
+    rows = pixels.reshape(h, w * bpp).astype(np.int32)
+    out = bytearray()
+    prev = np.zeros(w * bpp, np.int32)
+    for r in range(h):
+        row, kind = rows[r], r % 5
+        a = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        est = a + prev - c
+        pa, pb, pc = np.abs(est - a), np.abs(est - prev), np.abs(est - c)
+        pred = [np.zeros_like(row), a, prev, (a + prev) >> 1,
+                np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, prev, c))][kind]
+        out.append(kind)
+        out += ((row - pred) & 255).astype(np.uint8).tobytes()
+        prev = row
+    png = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+    if palette is not None:
+        png += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    return png + chunk(b"IDAT", zlib.compress(bytes(out), 6)) + chunk(b"IEND", b"")
+
+
+def png_url(raw: bytes) -> str:
+    import base64
+
+    return "data:image/png;base64," + base64.b64encode(raw).decode()
+
+
+def mm_traffic() -> dict:
+    """The part's seeded requests: a 640x480 photo-like PNG with a short
+    question, two images in one message (512 feature rows), a grey and a
+    palette PNG, a repeat of the first, and three text-only chats among
+    them (each opening with its own first block); greedy, 64 tokens,
+    streamed. Plus the responses/chat messages and the keep-alive bodies."""
+    rng = np.random.default_rng(31)
+
+    def photo(h, w, phase):
+        y, x = np.mgrid[0:h, 0:w]
+        base = np.stack([128 + 100 * np.sin(x / (13.0 + c) + phase) * np.cos(y / (17.0 - c) - phase)
+                         for c in range(3)], -1)
+        return np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
+
+    grey = photo(256, 256, 1.0).mean(axis=2).astype(np.uint8)
+    palette = rng.integers(0, 256, (16, 3))
+    indexed = (photo(120, 160, 2.0)[..., 0] // 16).astype(np.uint8)
+    urls = {"png": png_url(write_png(photo(480, 640, 0.3), 2)),
+            "square": png_url(write_png(photo(224, 224, 0.7), 2)),
+            "wide": png_url(write_png(photo(200, 300, 1.3), 2)),
+            "grey": png_url(write_png(grey, 0)),
+            "palette": png_url(write_png(indexed, 3, palette))}
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    text = lambda n: "".join(rng.choice(letters, size=n))  # noqa: E731
+
+    def chat(images, question):
+        content = [{"type": "image_url", "image_url": {"url": urls[i]}} for i in images]
+        content.append({"type": "text", "text": question})
+        return {"model": PRESET, "max_tokens": DIST_MM_TOKENS, "temperature": 0.0, "stream": True,
+                "messages": [{"role": "user", "content": content}]}
+
+    def text_chat(i):
+        return {"model": PRESET, "max_tokens": DIST_MM_TOKENS, "temperature": 0.0, "stream": True,
+                "messages": [{"role": "user", "content": f"Kilo {i}. " + text(120)}]}
+
+    order = [("png", chat(["png"], "What is in this picture?")), ("text_0", text_chat(0)),
+             ("two", chat(["square", "wide"], "Compare the two images.")), ("text_1", text_chat(1)),
+             ("grey", chat(["grey"], "Describe the grey image.")),
+             ("palette", chat(["palette"], "Which colours are there?")), ("text_2", text_chat(2)),
+             ("png_repeat", chat(["png"], "What is in this picture?"))]
+    return {"order": order, "images_sent": 5, "photo_url": urls["png"],
+            "responses_messages": [{"role": "user", "content": "Lima. " + text(200)}],
+            "keep_alive": [{"model": PRESET, "max_tokens": 8, "temperature": 0.0,
+                            "messages": [{"role": "user", "content": f"Mike {i}. " + text(40)}]} for i in range(5)]}
+
+
+def _responses_text(status, data, stream: bool) -> str:
+    if status != 200:
+        raise AssertionError(f"/v1/responses HTTP {status}: {data}")
+    if not stream:
+        return data["output"][0]["content"][0]["text"]
+    done = [e for e in data if e.get("type") == "response.completed"]
+    deltas = "".join(e["delta"] for e in data if e.get("type") == "response.output_text.delta")
+    text = done[0]["response"]["output"][0]["content"][0]["text"]
+    if deltas != text:
+        raise AssertionError("the streamed response's deltas differ from its completed text")
+    return text
+
+
+def _keep_alive(port: int, bodies: list) -> list:
+    """The bodies one after another on one connection: (status, the
+    server's Connection header, the socket's identity) each."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    seen = []
+    try:
+        for body in bodies:
+            conn.request("POST", "/v1/chat/completions", json.dumps(body), {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            resp.read()
+            seen.append((resp.status, resp.getheader("Connection"), id(conn.sock)))
+    finally:
+        conn.close()
+    return seen
+
+
+def vit_check(dev) -> dict:
+    """The vit-l-14 tower on the card: bf16 (the encode worker's weights:
+    the same seed, cast from the same f32 draws) against the plain f32
+    encode of 4 images, and its ms an image at batch 1 and 4."""
+    from dynamo_tpu_torch.engine.models import vision
+
+    cfg = vision.PRESETS[DIST_VISION]
+    f32 = vision.init_params(cfg, torch.Generator(device=dev).manual_seed(DIST_VISION_SEED), device=dev,
+                             dtype=torch.float32)
+    bf16 = {k: ({n: t.to(torch.bfloat16) for n, t in v.items()} if isinstance(v, dict) else v.to(torch.bfloat16))
+            for k, v in f32.items()}
+    imgs = torch.rand((4, cfg.image_size, cfg.image_size, 3), generator=torch.Generator(device=dev).manual_seed(5),
+                      device=dev)
+    plain = vision.encode(f32, cfg, imgs)
+    got = vision.encode(bf16, cfg, imgs)
+    rel = float(torch.linalg.vector_norm(got - plain) / torch.linalg.vector_norm(plain))
+    ms1 = cuda_ms(lambda: vision.encode(bf16, cfg, imgs[:1]), iters=10)
+    ms4 = cuda_ms(lambda: vision.encode(bf16, cfg, imgs), iters=10) / 4
+    out = {"rel_frobenius": rel, "tol": VIT_REL_TOL, "ms_per_image_batch1": ms1, "ms_per_image_batch4": ms4,
+           "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape)}
+    del f32, bf16, plain, got
+    torch.cuda.empty_cache()
+    return out
+
+
+async def surface_multimodal(port: int, drt, traffic: dict, dev) -> tuple:
+    """Image prompts, one at a time, through a frontend in this process
+    (``start_frontend(encode_component="encode")`` over the same workers,
+    its KV router's dispatches recorded, so each answer's token ids are
+    known: the byte tokenizer's text folds invalid bytes into one
+    replacement character) and the first of them again through the
+    frontend process (``--encode-component encode``), whose text must be
+    the same: every answer a 200 with 64 tokens or ``stop``, each one
+    dispatch, the repeat of an image request with ``cached_tokens`` 0
+    (image sequences neither match nor register prefix blocks), the
+    encode worker's ``request_total`` up by the image requests sent; then
+    ``/v1/responses`` unary and streamed through the frontend process,
+    their texts that of a chat request on the same messages with the same
+    cache state (each after the first chat's prefix is cached); five
+    requests on one kept-alive connection; the tower on the card; the
+    host's decode and resize of the 640x480 PNG. The answers' ids are held
+    against the in-process replay later (``multimodal_references``)."""
+    from dynamo_tpu_torch.llm.entrypoint import FrontendConfig, start_frontend, stop_frontend
+    from dynamo_tpu_torch.llm.image_decode import decode_image_data_url
+
+    checks = []
+    t0 = time.perf_counter()
+    enc = await drt.namespace("dynamo").component("encode").endpoint("generate").client()
+    await enc.wait_for_instances(1, timeout=60)
+    before = sum(s.get("request_total", 0) for s in (await enc.scrape_stats()).values())
+    answers, ids = {}, {}
+    service = await start_frontend(drt, FrontendConfig(host="127.0.0.1", port=0, router_mode="kv",
+                                                       encode_component="encode"))
+    try:
+        for _ in range(600):
+            if PRESET in service.routers:
+                break
+            await asyncio.sleep(0.1)
+        rec = PushRecorder(service.routers[PRESET])
+        for name, body in traffic["order"]:
+            n0 = len(rec.attempts)
+            (res,) = await _send(service.port, [body])
+            answers[name] = _answer_of(res)
+            ids[name] = [a["tokens"] for a in rec.attempts[n0:]]
+    finally:
+        await stop_frontend(service)
+    (res,) = await _send(port, [traffic["order"][0][1]])
+    via_process = _answer_of(res)
+    rose = sum(s.get("request_total", 0) for s in (await enc.scrape_stats()).values()) - before
+    await enc.close()
+    if rose != traffic["images_sent"] + 1:
+        checks.append(f"the encode worker's request_total rose by {rose}, not {traffic['images_sent'] + 1}")
+    if answers["png_repeat"]["cached_tokens"] != 0 or via_process["cached_tokens"] != 0:
+        checks.append(f"an image request's repeat reported cached_tokens {answers['png_repeat']['cached_tokens']}, "
+                      f"{via_process['cached_tokens']}")
+    if any(len(d) != 1 or len(d[0]) != a["completion_tokens"] for d, a in zip(ids.values(), answers.values())):
+        checks.append(f"an answer took other than one dispatch of its tokens: {[len(d) for d in ids.values()]}")
+    if via_process["text"] != answers["png"]["text"]:
+        checks.append("the frontend process's answer to the first image request differs from this process's")
+    msgs = traffic["responses_messages"]
+    chat = {"model": PRESET, "messages": msgs, "max_tokens": 32, "temperature": 0.0}
+    resp = {"model": PRESET, "input": msgs, "max_output_tokens": 32, "temperature": 0.0}
+    first = await asyncio.to_thread(_request, port, "/v1/chat/completions", chat)
+    unary = _responses_text(*(await asyncio.to_thread(_request, port, "/v1/responses", resp))[:2], False)
+    streamed = _responses_text(*(await asyncio.to_thread(_request, port, "/v1/responses",
+                                                         {**resp, "stream": True}))[:2], True)
+    again = await asyncio.to_thread(_request, port, "/v1/chat/completions", chat)
+    chat_text = _answer_text(again[1], False, True)
+    if not unary == streamed == chat_text:
+        checks.append(f"/v1/responses' text differs from chat's: {unary[:40]!r}, {streamed[:40]!r}, "
+                      f"{chat_text[:40]!r}")
+    kept = await asyncio.to_thread(_keep_alive, port, traffic["keep_alive"])
+    if [s for s, _, _ in kept] != [200] * 5 or {c for _, c, _ in kept} != {"keep-alive"} or len(
+            {sock for _, _, sock in kept}) != 1:
+        checks.append(f"keep-alive: {kept}")
+    tower = await asyncio.to_thread(vit_check, dev)
+    if not tower["finite"] or tower["rel_frobenius"] > VIT_REL_TOL:
+        checks.append(f"the bf16 tower's error {tower['rel_frobenius']:.4g} > {VIT_REL_TOL} (or not finite)")
+    decode_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        decode_image_data_url(traffic["photo_url"], 224)
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+    images = [a for n, a in answers.items() if not n.startswith("text")]
+    texts = [a for n, a in answers.items() if n.startswith("text")]
+    res = {"answers": {n: {k: a[k] for k in ("completion_tokens", "finish_reason", "cached_tokens", "ttft_s",
+                                             "latency_s")} for n, a in answers.items()},
+           "token_ids": {n: d[0] for n, d in ids.items()},
+           "process_frontend_text_equal": via_process["text"] == answers["png"]["text"],
+           "ttft_p50_s": {"image": statistics.median(a["ttft_s"] for a in images),
+                          "text_only": statistics.median(a["ttft_s"] for a in texts)},
+           "encode_request_total_rose": rose, "responses_equal_chat": unary == streamed == chat_text,
+           "first_chat_equal": _answer_text(first[1], False, True) == chat_text,
+           "keep_alive": [[s, c] for s, c, _ in kept], "tower": tower,
+           "host_decode_resize_640x480_ms": statistics.median(decode_ms), "seconds": time.perf_counter() - t0}
+    return res, checks
+
+
+async def multimodal_references(engine, traffic: dict, surf: dict) -> dict:
+    """The image and text-only requests again, one at a time, through an
+    in-process pipeline over the phase's in-process engine with a
+    ``LocalVisionEncoder`` of the encode worker's preset, seed and dtype
+    (bf16 on the card, the same reductions): each answer's token ids, as
+    the engine emits them, must be those the frontend's dispatch
+    carried."""
+    from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
+    from dynamo_tpu_torch.llm.multimodal import LocalVisionEncoder
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    class Tap:
+        """The engine, its emitted token ids kept."""
+
+        def __init__(self):
+            self.tokens = []
+
+        async def generate(self, request, context):
+            async for frame in engine.generate(request, context):
+                self.tokens += frame.get("token_ids") or []
+                yield frame
+
+    t0 = time.perf_counter()
+    tap = Tap()
+    # The encode worker's --dtype is the LM workers'.
+    pipeline = build_local_pipeline(ByteTokenizer(), tap, encoder=LocalVisionEncoder(
+        preset=DIST_VISION, seed=DIST_VISION_SEED, device=str(engine.scheduler.device),
+        dtype=engine.scheduler.params["embed"].dtype))
+    got = surf["multimodal"]["token_ids"]
+    equal = {}
+    for name, body in traffic["order"]:
+        engine.scheduler.allocator.clear_cached()
+        tap.tokens = []
+        async for _ in pipeline.generate(dict(body), Context()):
+            pass
+        equal[name] = tap.tokens == got[name]
+    checks = [] if all(equal.values()) else [f"image or text answers' ids differ from the in-process replay: {equal}"]
+    return {"token_ids_equal": equal, "seconds": time.perf_counter() - t0, "checks": checks}
+
+
+async def embeddings_check(port: int, engine) -> dict:
+    """``/v1/embeddings`` on the in-process reference service: inputs of
+    ``EMBED_LENGTHS`` token ids, a list of strings and a list of id lists;
+    every vector of norm 1 within ``EMBED_NORM_TOL``, each one's cosine
+    with the plain f32 ``llama.embed`` on the card at least
+    ``EMBED_COS_MIN``, an input's vector alone bit-equal to it inside a
+    list; and the engine's ms for one input of each bucket."""
+    from dynamo_tpu_torch.engine.embeddings import EmbeddingEngine
+    from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    sched = engine.scheduler
+    rng = np.random.default_rng(37)
+    ids = {n: rng.integers(1, 255, size=n).tolist() for n in EMBED_LENGTHS}
+    strings = ["Embed me, please.", "A second, somewhat longer sentence to embed on the card."]
+    bodies = [{"model": PRESET, "input": ids[n]} for n in EMBED_LENGTHS]
+    bodies += [{"model": PRESET, "input": strings}, {"model": PRESET, "input": [ids[5], ids[100]]}]
+    served = []
+    for body in bodies:
+        status, data, _, _ = await asyncio.to_thread(_request, port, "/v1/embeddings", body)
+        if status != 200:
+            raise AssertionError(f"/v1/embeddings HTTP {status}: {data}")
+        served.append([d["embedding"] for d in data["data"]])
+    inputs = [ids[n] for n in EMBED_LENGTHS] + [ByteTokenizer().encode(s) for s in strings] + [ids[5], ids[100]]
+    vectors = [v for group in served for v in group]
+    f32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict) else v.float())
+           for k, v in sched.params.items()}
+    embedder = EmbeddingEngine(sched.mc, sched.params)
+    cos, norms = [], []
+    for toks, vec in zip(inputs, vectors):
+        bucket = next(b for b in embedder.buckets if b >= len(toks))
+        padded = torch.zeros(bucket, dtype=torch.int32)
+        padded[: len(toks)] = torch.tensor(toks, dtype=torch.int32)
+        plain = llama.embed(f32, sched.mc, padded.to(sched.device), len(toks))
+        v = torch.tensor(vec, device=sched.device)
+        norms.append(float(torch.linalg.vector_norm(v)))
+        cos.append(float(torch.dot(v, plain) / (torch.linalg.vector_norm(v) * torch.linalg.vector_norm(plain))))
+    del f32
+    torch.cuda.empty_cache()
+    same_bits = served[0][0] == served[-1][0] and served[1][0] == served[-1][1]
+    ms = {}
+    for n in EMBED_LENGTHS:
+        embedder.embed_one(ids[n])
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            embedder.embed_one(ids[n])  # its .tolist() waits for the card
+            times.append((time.perf_counter() - t1) * 1e3)
+        ms[f"{n}_tokens_bucket_{next(b for b in embedder.buckets if b >= n)}"] = statistics.median(times)
+    checks = []
+    if any(abs(x - 1.0) > EMBED_NORM_TOL for x in norms) or min(cos) < EMBED_COS_MIN or not same_bits:
+        checks.append(f"embeddings: norms {norms}, cosines {cos}, alone vs in a list bit-equal {same_bits}")
+    return {"norms": norms, "cosine_vs_f32": cos, "alone_equals_listed": same_bits, "ms_per_bucket": ms,
+            "dims": len(vectors[0]), "seconds": time.perf_counter() - t0, "checks": checks}
+
+
 def phase_distributed(card: str) -> dict:
     """The port's deployment as an operator runs it: ``python -m
     dynamo_tpu_torch.control_plane``, two ``python -m
@@ -4768,10 +5121,19 @@ def phase_distributed(card: str) -> dict:
     and ``elastic_*`` keys against ``dial_applied``, a burst after each,
     the first-token counters' rise within the burst's TTFTs); the host
     library's hashes and tree against pure Python, with the median time to
-    hash a family's request both ways; each worker's launch counters by
-    SIGUSR1 (the gates above); and a worker killed mid-stream
-    (``surface_migration``), the survivor's counters gated again at its
-    shutdown."""
+    hash a family's request both ways; image prompts (``surface_multimodal``:
+    an encode worker, ``--role encode --vision-model vit-l-14``, started
+    beside the LM workers, behind the frontend's ``--encode-component
+    encode``; four image requests and a repeat, three text-only requests
+    among them, ``/v1/responses`` unary and streamed against chat, five
+    requests on one kept-alive connection, the tower's bf16 error on the
+    card, the host's PNG decode); each worker's launch counters by SIGUSR1
+    (the gates above, and no step graph captured after its warmup); and a
+    worker killed mid-stream (``surface_migration``), the survivor's
+    counters gated again at its shutdown. In process, the image and
+    text-only answers are replayed through a ``LocalVisionEncoder`` of the
+    encode worker's seed (``multimodal_references``) and ``/v1/embeddings``
+    is held against the plain f32 embed (``embeddings_check``)."""
     import os
     import socket
     from pathlib import Path
@@ -4790,6 +5152,7 @@ def phase_distributed(card: str) -> dict:
                PYTHONPATH=str(root))
     families = dist_traffic()
     surface = dist_surface_traffic()
+    mm = mm_traffic()
     gc.collect()
     torch.cuda.empty_cache()
     kids = _Children(root, env)
@@ -4800,10 +5163,13 @@ def phase_distributed(card: str) -> dict:
         workers = ("worker_0", "worker_1")
         for name in workers:
             kids.start(name, "dynamo_tpu_torch.worker", "--model", PRESET, "--warmup-ctx", str(DIST_WARMUP_CTX))
+        kids.start("encoder", "dynamo_tpu_torch.worker", "--role", "encode", "--vision-model", DIST_VISION,
+                   "--vision-seed", str(DIST_VISION_SEED))
         kids.start("frontend", "dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1", "--http-port", "0",
-                   "--router-mode", "kv")
+                   "--router-mode", "kv", "--encode-component", "encode")
         port = int(kids.wait_for("frontend", "frontend ready on", 120).split(" (")[0].rsplit(":", 1)[1])
         ready = {name: kids.wait_for(name, "worker ready", 300) for name in workers}
+        kids.wait_for("encoder", "encode worker ready", 300)
         up_s = time.perf_counter() - t0
         instance_of = {name: int(line.rsplit("instance=", 1)[1], 16) for name, line in ready.items()}
 
@@ -4852,6 +5218,8 @@ def phase_distributed(card: str) -> dict:
                 checks += more
                 surf["native"], more = await surface_native(drt, families, surface)
                 checks += more
+                surf["multimodal"], more = await surface_multimodal(port, drt, mm, torch.device("cuda", 0))
+                checks += more
                 for name in workers:
                     kids.snapshot(name, DIST_COUNTERS_MARK)
                 name_of_id = {i: name for name, i in instance_of.items()}
@@ -4865,7 +5233,8 @@ def phase_distributed(card: str) -> dict:
 
         models, probes, burst, wall, timing, repeats, stats, surf, surf_checks = asyncio.run(drive())
         kids.alive()
-        codes = {name: kids.stop(name) for name in (*workers, "frontend", "control_plane") if name in kids.procs}
+        codes = {name: kids.stop(name) for name in (*workers, "encoder", "frontend", "control_plane")
+                 if name in kids.procs}
     finally:
         kids.kill()
     if any(codes.values()):
@@ -4911,6 +5280,8 @@ def phase_distributed(card: str) -> dict:
                     ref_steps.append({k: getattr(sched, k) - before[k] for k in step_keys})
                     ref_timing.append(seen)
                 surface_refs = await surface_references(service.port, engine, surface, surf)
+                surface_refs["multimodal"] = await multimodal_references(engine, mm, surf)
+                surface_refs["embeddings"] = await embeddings_check(service.port, engine)
             finally:
                 await service.stop()
                 await engine.stop()
@@ -4938,13 +5309,17 @@ def phase_distributed(card: str) -> dict:
         if launches != want or not steps["fused_windows_total"] or plain:
             checks.append(f"{label}: launches {launches} != {want}, or no fused window, or {plain} plain calls")
         return {"instance": f"{instance_of[name]:x}", "steps": steps, "launches": launches,
-                "expected_launches": want, "plain_calls": plain}
+                "expected_launches": want, "plain_calls": plain,
+                "captures_after_warmup": runs["captures_after_warmup"]}
 
     for name, runs in worker_runs.items():
         per_worker[name] = launch_check(name, runs, name)
+        if runs["captures_after_warmup"] != 0:
+            checks.append(f"{name} captured {runs['captures_after_warmup']} step graphs after its warmup")
     survivor = {"name": survivor_final[0],
                 **launch_check(survivor_final[0], survivor_final[1], survivor_final[0] + " at shutdown")}
     checks += surface_refs.pop("checks")
+    checks += surface_refs["multimodal"].pop("checks") + surface_refs["embeddings"].pop("checks")
     if repeats[0]["worker"] == repeats[1]["worker"]:
         checks.append("both families' repeats landed on one worker")
     # Every answer against the reference's for its family, in its order:
@@ -4984,6 +5359,10 @@ def phase_distributed(card: str) -> dict:
         "hop_ms_per_token": hop, "workers": per_worker, "survivor_at_shutdown": survivor,
         "stats_keys": sorted(next(iter(stats.values()))),
         "surface": {**surf, "references": surface_refs},
+        # The image prompts' and embeddings' part: its frontend traffic plus
+        # its in-process replays and checks.
+        "multimodal_seconds": (surf["multimodal"]["seconds"] + surface_refs["multimodal"]["seconds"]
+                               + surface_refs["embeddings"]["seconds"]),
     }
     emit("distributed", **res)
     if checks:
@@ -7071,6 +7450,7 @@ def main() -> int:
             raise results["middle"]["error"]
         if "distributed" in phases:
             dist = timed_phase("distributed", lambda: phase_distributed(card))
+            seconds["distributed_multimodal"] = dist["multimodal_seconds"]
         kvbm = timed_phase("kvbm", lambda: phase_kvbm(card, dev)) if "kvbm" in phases else None
         disagg = timed_phase("disagg", lambda: phase_disagg(card, dev)) if "disagg" in phases else None
     finally:

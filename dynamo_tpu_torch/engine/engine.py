@@ -16,7 +16,9 @@ Request wire shape (PreprocessedRequest):
 plus ``"guided_decoding"`` (llm/guided's spec) for a structured output,
 ``"disagg_params": {"do_remote_decode": true}`` on a prefill worker (the
 request's blocks wait for the decode worker's pull) and ``"_prefilled"``
-on a decode worker (the pulled KV, ``Scheduler._inject_prefilled``).
+on a decode worker (the pulled KV, ``Scheduler._inject_prefilled``), and
+``"multimodal"`` for an image prompt (its feature rows, injected at the
+prompt's first positions, ``Scheduler.add_request(mm_features=)``).
 ``sampling_options`` takes the JAX package's keys: temperature, top_k,
 top_p, seed, logprobs, top_logprobs, frequency_penalty, presence_penalty
 and logit_bias (a ``LogitBiasProcessor`` on the request's row).
@@ -307,6 +309,13 @@ class TorchEngine:
         # decode worker starts from the KV it pulled.
         extras = {"keep_blocks_on_finish": bool(disagg.get("do_remote_decode")),
                   "prefilled": request.get("_prefilled")}
+        mm = request.get("multimodal")
+        if mm is not None:
+            # Image features (llm/multimodal.py): an array in process, else
+            # their wire form.
+            from dynamo_tpu_torch.llm.multimodal import features_from_wire
+
+            extras["mm_features"] = mm if hasattr(mm, "shape") else features_from_wire(mm)
         self._staged_adds.append((rid, list(request["token_ids"]), sampling, stop, guided, extras, queue))
         self._wake.set()
 

@@ -527,9 +527,14 @@ def prefill(
     has_prefix: bool = True,  # False ⇒ cache_len == 0: flash skips the prefix piece
     all_logits: bool = False,
     moe_stats: bool = False,  # also return {"moe_dropped", "moe_assignments"} (capacity MoE)
+    mm_feats: Optional[torch.Tensor] = None,  # [F, D] image feature rows (llm/multimodal.py)
+    mm_len=None,  # valid feature rows (an int or a 0-d tensor)
 ) -> Tuple[torch.Tensor, ...]:
     """One prefill (or prefill chunk): one ragged row of T queries, query i
     attending the ``cache_len`` cached tokens and fresh keys ``[0, i+1)``.
+    With ``mm_feats``, the valid rows at positions ``< mm_len`` take the
+    feature row at their position (cast to the activation dtype) in place
+    of their token's embedding, before the layers, on every route.
     Returns (last_logits [V] f32, or with ``all_logits`` every row's [T,
     V], k_cache, v_cache); the caches are updated in place. On the
     megakernel path ``valid_len`` and ``cache_len`` stay on the device, so
@@ -560,12 +565,60 @@ def prefill(
             return _chunk_attention(c, q, k, v, k_flat, v_flat, table + l * N, valid_len, cache_len,
                                     use_flash, has_prefix)
 
+    if mm_feats is not None:
+        # Early fusion: the image's rows occupy the prompt's first positions.
+        inject = (positions < mm_len) & valid_q
+        rows = mm_feats[positions.long().clamp(0, mm_feats.shape[0] - 1)]
+        h = torch.where(inject[:, None], rows.to(h.dtype), h)
     tgt_blocks, tgt_offs = ragged_scatter_targets(block_table, positions, valid_q, c.block_size)
     drops = [] if moe_stats else None
     h, k_rows, v_rows = _layers(params, c, k_cache, v_cache, h, positions, attend, valid_q, drops)
     _write_kv(k_cache, v_cache, k_rows, v_rows, tgt_blocks, tgt_offs)
     out = (_logits(params, c, h) if all_logits else _logits(params, c, _row(h, valid_len - 1))[0], k_cache, v_cache)
     return out + (_moe_aux(c, drops, valid_q),) if moe_stats else out
+
+
+def _attend_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                   c: ModelConfig) -> torch.Tensor:
+    """The JAX package's ``_attend``: q [T, H, hd], k/v [S, KVH, hd], mask
+    [T, S] → [T, H, hd], grouped-query, scores in f32, the probabilities
+    cast back to the activation dtype before PV."""
+    T, KVH, HD = q.shape[0], c.num_kv_heads, c.head_dim
+    qg = q.reshape(T, KVH, c.num_heads // KVH, HD)
+    scores = torch.einsum("tkgd,skd->ktgs", qg, k).float() * HD**-0.5
+    scores = scores.masked_fill(~mask[None, :, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("ktgs,skd->tkgd", probs, v).reshape(T, c.num_heads, HD)
+
+
+@torch.no_grad()
+def embed(params: Params, config: ModelConfig, tokens: torch.Tensor, valid_len: int) -> torch.Tensor:
+    """Sequence embedding (``/v1/embeddings``): a full causal forward over
+    ``tokens [T]`` (bucket-padded) with no KV cache, the final-normed
+    hidden states in f32 mean-pooled over the ``valid_len`` live rows, and
+    L2-normalized (JAX's floor of 1e-9) → ``[hidden_size]`` f32. The JAX
+    package's ``embed`` is XLA, so its attention here is torch ops."""
+    c = config
+    T = tokens.shape[0]
+    dev = tokens.device
+    h = _embed(params, tokens)
+    positions = torch.arange(T, dtype=torch.int32, device=dev)
+    valid = positions < valid_len
+    mask = (positions[None, :] <= positions[:, None]) & valid[None, :]
+    rope = rope_angles(positions, c.head_dim, c.rope_theta)
+    for l in range(c.num_layers):
+        lp = _layer_weights(params["layers"], l, h.dtype)
+        x = rms_norm(h, lp["attn_norm"], c.rms_norm_eps)
+        q = rotate((x @ lp["wq"]).view(T, c.num_heads, c.head_dim), *rope)
+        k = rotate((x @ lp["wk"]).view(T, c.num_kv_heads, c.head_dim), *rope)
+        v = (x @ lp["wv"]).view(T, c.num_kv_heads, c.head_dim)
+        h = h + _attend_causal(q, k, v, mask, c).reshape(T, c.q_size) @ lp["wo"]
+        x = rms_norm(h, lp["mlp_norm"], c.rms_norm_eps)
+        h = h + _mlp(x, lp, c, valid)
+    h = rms_norm(h, params["final_norm"], c.rms_norm_eps).float()
+    w = valid.float()[:, None]
+    pooled = (h * w).sum(dim=0) / w.sum().clamp_min(1.0)
+    return pooled / torch.linalg.vector_norm(pooled).clamp_min(1e-9)
 
 
 # ---------------------------------------------------------------------------

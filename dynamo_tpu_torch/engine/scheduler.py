@@ -256,6 +256,12 @@ class Sequence:
     # starts from KV another worker prefilled (_inject_prefilled).
     keep_blocks_on_finish: bool = False
     prefilled: Optional[dict] = None
+    # Image prompts: feature rows ``[F, D]`` injected at positions [0, F) on
+    # every prefill chunk (the prompt's first F ids are placeholders). Such
+    # a sequence neither matches nor registers prefix blocks (placeholder
+    # ids do not identify the image), rides no wave, mixed step or
+    # speculation, and prefills eagerly (the step graphs take no features).
+    mm_features: Optional[np.ndarray] = None
     # A first token's logprob and alternatives, computed where it is drawn
     # (_sample_one) and handed out when it is appended.
     _pending_logprob: Optional[float] = None
@@ -543,12 +549,15 @@ class Scheduler:
         guided=None,
         keep_blocks_on_finish: bool = False,
         prefilled: Optional[dict] = None,
+        mm_features: Optional[np.ndarray] = None,
     ) -> Sequence:
         """``guided``: a grammar spec (llm/guided), or the cursor
         ``self.guided.prepare`` made of one off the step thread.
         ``keep_blocks_on_finish``: a prefill-role request, whose blocks wait
         for ``take_export`` at finish. ``prefilled``: a decode-role request's
-        pulled KV (``_inject_prefilled``)."""
+        pulled KV (``_inject_prefilled``). ``mm_features``: an image
+        prompt's feature rows ``[F, hidden]`` (llm/multimodal.py), at most
+        one per prompt token."""
         if not token_ids:
             raise ValueError("empty prompt")
         if guided is not None and self.guided is None:
@@ -558,6 +567,12 @@ class Scheduler:
             )
         if len(token_ids) >= self.mc.max_seq_len:
             raise ValueError(f"prompt length {len(token_ids)} >= max_seq_len {self.mc.max_seq_len}")
+        if mm_features is not None:
+            if self.mc.architecture != "llama":
+                raise ValueError("multimodal features require the llama prefill path")
+            if mm_features.shape[0] > len(token_ids):
+                raise ValueError("more multimodal feature rows than prompt tokens")
+            mm_features = np.array(mm_features, dtype=np.float32)  # the sequence's own copy
         seq = Sequence(
             request_id=request_id,
             prompt=list(token_ids),
@@ -566,6 +581,7 @@ class Scheduler:
             eos_token_ids=self._eos,
             keep_blocks_on_finish=keep_blocks_on_finish,
             prefilled=prefilled,
+            mm_features=mm_features,
         )
         if guided is not None:
             seq.guided = self.guided.open(guided)  # ValueError on a bad spec or a full device
@@ -1003,12 +1019,13 @@ class Scheduler:
     def _mixed_candidate(self) -> Optional[Sequence]:
         """Head-of-queue sequence eligible to ride a mixed step, or None.
         Only the head is considered (FIFO); a full decode set keeps a
-        not-yet-admitted head out."""
+        not-yet-admitted head out, and a remotely prefilled or image head
+        takes the phase-separated path."""
         if not (self.sc.enable_mixed_batching and self._supports_mixed and self.draft_params is None
                 and self.running and self.waiting):
             return None
         head = self.waiting[0]
-        if head.aborted or head.prefilled is not None:
+        if head.aborted or head.prefilled is not None or head.mm_features is not None:
             return None
         if head.state == SeqState.WAITING and len(self.running) >= self.sc.max_running:
             return None
@@ -1162,11 +1179,12 @@ class Scheduler:
     def _wave_eligible(self, seq: Sequence) -> bool:
         """Rows a wave can admit: new requests (no preemption resume) whose
         first token the wave's one draw can take (no grammar mask, no
-        logprobs, no processors, no per-request key). Penalties do not
-        matter: a first token has no history."""
+        logprobs, no processors, no per-request key) and that carry no
+        image features. Penalties do not matter: a first token has no
+        history."""
         s = seq.sampling
         return (seq.state == SeqState.WAITING and seq.prefilled is None and seq.resume_tokens is None
-                and seq.guided is None
+                and seq.mm_features is None and seq.guided is None
                 and not s.logprobs and not s.top_logprobs and not s.logits_processors
                 and not (s.seed is not None and s.temperature > 0))
 
@@ -1245,7 +1263,7 @@ class Scheduler:
         OutOfBlocksError propagates."""
         bs = self.mc.block_size
         try:
-            if self.sc.enable_prefix_caching:
+            if self.sc.enable_prefix_caching and seq.mm_features is None:
                 seq.block_hashes = extend_block_hashes([], pf_tokens, bs)
                 matched = self._match_prefix_tiers(seq)
                 # At least one token must prefill so logits exist. A FULL
@@ -1333,8 +1351,9 @@ class Scheduler:
         """Draft KV for positions ``seq.d_n .. upto-1`` of ``tokens``, in
         prefill chunks: it mirrors each prompt chunk (the draft computes the
         whole prompt, whatever the target's prefix-cache hit) and absorbs the
-        lag left by non-spec decode steps."""
-        if self.draft_params is None:
+        lag left by non-spec decode steps. An image sequence never
+        speculates (the draft has no vision path), so it has no draft KV."""
+        if self.draft_params is None or seq.mm_features is not None:
             return
         while seq.d_n < upto:
             start = seq.d_n
@@ -1358,10 +1377,17 @@ class Scheduler:
         """One prefill chunk of ``seq`` through the target (or the draft)
         model → its last row's logits ``[V]``: a graph replay on the
         megakernel path, else the family's ``prefill`` (the draft is a
-        llama)."""
+        llama); an image sequence's chunk carries its features, eagerly."""
         params, cfg, cache = ((self.params, self.mc, self.cache) if model == "target"
                               else (self.draft_params, self.draft_cfg, self.draft_cache))
         table = self._prefill_table(seq)
+        if seq.mm_features is not None:
+            # Image rows at positions [0, F), on every chunk: eagerly, as the
+            # graphs take no per-request features.
+            feats = torch.from_numpy(seq.mm_features).to(self.device)
+            return self._fwd("prefill", params, cfg, cache.k, cache.v, self._dev(padded), valid, start,
+                             self._dev(table), use_flash=self._use_flash_prefill, has_prefix=start > 0,
+                             mm_feats=feats, mm_len=feats.shape[0])[0]
         if self._graphs is not None:
             return self._graphs.prefill(model, params, cfg, cache, padded, valid, start, table)[0]
         args = (params, cfg, cache.k, cache.v, self._dev(padded), valid, start, self._dev(table))
@@ -1412,12 +1438,13 @@ class Scheduler:
         bucket = next_bucket(n, self.sc.decode_buckets)
         # With a draft attached the batch speculates, unless a row carries
         # extras (processors, logprobs, penalties), is guided (the draft's
-        # proposals ignore the FSM mask) or seeded and sampled (a spec round
-        # keys its draws per batch, not per request): the fused spec window
+        # proposals ignore the FSM mask), carries image features (no vision
+        # path in the draft) or is seeded and sampled (a spec round keys its
+        # draws per batch, not per request): the fused spec window
         # first, then one per-round spec round; where the blocks cannot be
         # reserved, the non-spec path below.
         if self.draft_params is not None and not any(
-            _has_extras(s.sampling) or s.guided is not None
+            _has_extras(s.sampling) or s.guided is not None or s.mm_features is not None
             or (s.sampling.seed is not None and s.sampling.temperature > 0) for s in batch
         ):
             if self._use_fused_spec and self._decode_spec_fused(batch, bucket, outputs):
@@ -2254,8 +2281,9 @@ class Scheduler:
             self.running.remove(seq)
         seq.state = SeqState.FINISHED
         # Extend hashes over generated tokens so completed output blocks are
-        # reusable too (multi-turn: the next prompt includes them).
-        if self.sc.enable_prefix_caching and reason != "cancelled":
+        # reusable too (multi-turn: the next prompt includes them). Image
+        # sequences never register: placeholder ids do not hash the image.
+        if self.sc.enable_prefix_caching and reason != "cancelled" and seq.mm_features is None:
             bs = self.mc.block_size
             seq.block_hashes = extend_block_hashes(seq.block_hashes, seq.all_ids, bs)
             n_full = len(seq.all_ids) // bs

@@ -13,12 +13,15 @@ workers' KV events, with ``--kv-overlap-score-weight`` and
 gossiped KV usage reaches it, in every mode (the JAX frontend's flag does
 nothing: nothing feeds its monitor); ``--migration-limit`` replays a dropped stream
 on another worker; ``--retry-*`` and ``--breaker-*`` set the router's
-failure lifecycle.
+failure lifecycle. ``--encode-component`` sends image parts to that
+component's encode workers (round robin; without it an image request is a
+400); ``--tls-cert-path`` / ``--tls-key-path`` serve HTTPS (both or
+neither); ``--request-timeout-ms`` is the default deadline of a request
+that sends no ``timeout`` (a 504 when it expires).
 
 JAX flags whose feature is not ported are not declared, so argparse
-refuses them (ROADMAP Queue 1, by item): ``--grpc-port``,
-``--tls-cert-path``, ``--tls-key-path`` and ``--request-timeout-ms`` (19);
-``--encode-component`` (16); ``--trace-file``, ``--trace-sample``,
+refuses them (ROADMAP Queue 1, by item): ``--grpc-port`` (19);
+``--trace-file``, ``--trace-sample``,
 ``--trace-ring``, ``--trace-tail``, ``--slo-ttft-ms`` and ``--slo-tpot-ms``
 (18); ``--fault-scenario`` (20). ``--kv-cache-block-size`` is not declared
 either: the JAX frontend parses it and reads the block size from each
@@ -55,6 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="consecutive stream failures that trip a worker's circuit OPEN")
     p.add_argument("--breaker-cooldown-s", type=float, default=5.0,
                    help="seconds a tripped circuit stays OPEN before one half-open probe")
+    p.add_argument("--tls-cert-path", default=None, help="PEM cert: serve HTTPS")
+    p.add_argument("--tls-key-path", default=None, help="PEM private key")
+    p.add_argument("--encode-component", default=None,
+                   help="route image content parts to this encode-worker component")
+    p.add_argument("--request-timeout-ms", type=float, default=None,
+                   help="default end-to-end request deadline (a client 'timeout' overrides it)")
     return p
 
 
@@ -72,6 +81,10 @@ def frontend_config(args: argparse.Namespace) -> FrontendConfig:
         retry_backoff_base_s=args.retry_backoff_ms / 1000.0,
         breaker_threshold=args.breaker_threshold,
         breaker_cooldown_s=args.breaker_cooldown_s,
+        tls_cert=args.tls_cert_path,
+        tls_key=args.tls_key_path,
+        encode_component=args.encode_component,
+        request_timeout_ms=args.request_timeout_ms,
     )
 
 

@@ -9,7 +9,9 @@ ends, jailed text dropped) or diverges (jailed text released). With
 tool-call jail (llm/parsers) withholds text that may open a tool call and
 turns it into OpenAI ``tool_calls`` on the final frame (finish reason
 ``tool_calls``), and a reasoning parser splits ``reasoning`` deltas off
-the text. Logprobs pass through on each frame.
+the text. Logprobs pass through on each frame. A request that still
+carries image parts (``_mm_image_urls``: no encode stage ran) is refused
+with a ``RequestError``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import AsyncIterator, List, Optional, Sequence
 from dynamo_tpu_torch.llm.parsers import StreamingToolCallJail, get_reasoning_parser, get_tool_parser
 from dynamo_tpu_torch.llm.parsers.tool_calling import ToolCallConfig
 from dynamo_tpu_torch.llm.protocols.common import LLMEngineOutput
+from dynamo_tpu_torch.llm.protocols.openai import RequestError
 from dynamo_tpu_torch.llm.tokenizer import DecodeStream, Tokenizer
 from dynamo_tpu_torch.runtime.engine import Annotated, Context
 from dynamo_tpu_torch.runtime.pipeline import Operator
@@ -65,6 +68,14 @@ class Backend(Operator):
 
     def __init__(self, tokenizer: Tokenizer):
         self.tokenizer = tokenizer
+
+    async def transform_request(self, request, context: Context):
+        # An EncodeOperator upstream consumes the images: a pipeline without
+        # one refuses an image request rather than answer its text alone.
+        if isinstance(request, dict) and request.get("_mm_image_urls"):
+            raise RequestError("request carries image content but no encode path is "
+                               "configured (frontend --encode-component / pipeline encoder)")
+        return request
 
     def transform_response(self, stream: AsyncIterator, request: dict, context: Context) -> AsyncIterator:
         stop_conditions = request.get("stop_conditions") or {}

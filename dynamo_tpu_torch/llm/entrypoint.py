@@ -6,10 +6,13 @@ The counterpart of the JAX package's ``llm/entrypoint.py``:
 frontend's side, with an ``availability_probe`` for the HTTP layer),
 ``register_llm`` (a worker serves its engine on an endpoint and publishes
 its model under a key bound to its lease) and ``start_frontend`` (the
-OpenAI service over a ``ModelManager`` that discovery fills). Not ported
-yet: the multimodal encode operator and the embeddings pipeline (ROADMAP
-Queue 1 item 16), TLS and gRPC (item 19), the frontend's request-timeout
-default (item 19), SLO targets and the metrics registry (item 18).
+OpenAI service over a ``ModelManager`` that discovery fills, with TLS and
+a default request deadline). ``encoder=`` / ``encode_client=`` put the
+image stage (``llm/multimodal.EncodeOperator``) into either pipeline, and
+``FrontendConfig.encode_component`` points the frontend's at an encode
+worker pool; ``build_embeddings_pipeline`` serves ``/v1/embeddings``. Not
+ported yet: gRPC (ROADMAP Queue 1 item 19), SLO targets and the metrics
+registry (item 18).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from dynamo_tpu_torch.runtime.component import Endpoint
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.engine import Annotated, AsyncEngine, Context
 from dynamo_tpu_torch.runtime.logging import get_logger
-from dynamo_tpu_torch.runtime.pipeline import link
+from dynamo_tpu_torch.runtime.pipeline import Operator, link
 from dynamo_tpu_torch.runtime.push_router import CircuitBreaker, PushRouter, RetryPolicy, RouterMode, WorkerMonitor
 
 logger = get_logger(__name__)
@@ -46,11 +49,22 @@ class RouterEngine:
         return self.router.generate(request, context)
 
 
+def _encode_op(encoder, encode_client):
+    if encoder is None and encode_client is None:
+        return None
+    from dynamo_tpu_torch.llm.multimodal import EncodeOperator
+
+    return EncodeOperator(encoder=encoder, client=encode_client)
+
+
 def build_local_pipeline(tokenizer: Tokenizer, engine: AsyncEngine, card: Optional[ModelDeploymentCard] = None, *,
                          tool_call_parser: Optional[str] = None,
-                         reasoning_parser: Optional[str] = None) -> AsyncEngine:
-    """Aggregated in-process pipeline: OpenAI body → token ids → engine →
-    detokenized text frames. Chat prompts render the card's chat template
+                         reasoning_parser: Optional[str] = None, encoder=None,
+                         encode_client=None) -> AsyncEngine:
+    """Aggregated in-process pipeline: OpenAI body → token ids → [image
+    features] → engine → detokenized text frames. ``encoder`` (a
+    ``LocalVisionEncoder``) or ``encode_client`` (a router to an encode
+    worker) enables image prompts. Chat prompts render the card's chat template
     (the default one without a card or template, as in the JAX package,
     whatever the tokenizer's config carries). Guided decoding needs the
     served tokenizer on the engine's side (token-FSM lifting): it is
@@ -65,7 +79,8 @@ def build_local_pipeline(tokenizer: Tokenizer, engine: AsyncEngine, card: Option
         tool_call_parser=tool_call_parser or (card.tool_call_parser if card else None),
         reasoning_parser=reasoning_parser or (card.reasoning_parser if card else None),
     )
-    return link([pre, Backend(tokenizer)], engine)
+    enc = _encode_op(encoder, encode_client)
+    return link([pre] + ([enc] if enc else []) + [Backend(tokenizer)], engine)
 
 
 def build_routed_pipeline(
@@ -75,17 +90,21 @@ def build_routed_pipeline(
     *,
     migration_limit: int = 0,
     on_migrate=None,
+    encoder=None,
+    encode_client=None,
 ) -> AsyncEngine:
-    """Frontend-side routed pipeline: preprocessor → backend → migration →
-    router. Chat prompts render the card's chat template (the default one
-    without), and the card's output parsers are armed."""
+    """Frontend-side routed pipeline: preprocessor → [image features] →
+    backend → migration → router. Chat prompts render the card's chat
+    template (the default one without), and the card's output parsers are
+    armed."""
     pre = OpenAIPreprocessor(
         tokenizer,
         PromptFormatter(card.chat_template if card else None),
         tool_call_parser=card.tool_call_parser if card else None,
         reasoning_parser=card.reasoning_parser if card else None,
     )
-    ops = [pre, Backend(tokenizer)]
+    enc = _encode_op(encoder, encode_client)
+    ops = [pre] + ([enc] if enc else []) + [Backend(tokenizer)]
     limit = migration_limit if migration_limit else (card.migration_limit if card else 0)
     if limit > 0:
         ops.append(Migration(limit, on_migrate=on_migrate))
@@ -151,6 +170,15 @@ class FrontendConfig:
     retry_backoff_base_s: float = 0.05
     breaker_threshold: int = 3
     breaker_cooldown_s: float = 5.0
+    # TLS termination: both PEM paths or neither.
+    tls_cert: Optional[str] = None
+    tls_key: Optional[str] = None
+    # Image prompts go to the encode worker pool at this component (round
+    # robin); None refuses them with a 400.
+    encode_component: Optional[str] = None
+    # Default end-to-end request deadline; a client ``timeout`` (seconds)
+    # overrides it per request. None = no deadline.
+    request_timeout_ms: Optional[float] = None
 
 
 async def start_frontend(drt: DistributedRuntime, config: FrontendConfig) -> HttpService:
@@ -196,13 +224,23 @@ async def start_frontend(drt: DistributedRuntime, config: FrontendConfig) -> Htt
         routers[entry.name] = router
         # A real vocabulary takes seconds to read: off the event loop.
         tokenizer = await asyncio.to_thread(load_tokenizer, entry.card.tokenizer_path)
-        return build_routed_pipeline(tokenizer, router, entry.card, migration_limit=config.migration_limit)
+        encode_client = None
+        if config.encode_component:
+            enc_ep = drt.namespace(entry.namespace).component(config.encode_component).endpoint(entry.endpoint)
+            encode_client = PushRouter(await enc_ep.client(), RouterMode.ROUND_ROBIN)
+            encoders[entry.name] = encode_client
+        return build_routed_pipeline(tokenizer, router, entry.card, migration_limit=config.migration_limit,
+                                     encode_client=encode_client)
 
+    encoders = {}
+    # Built first: a half-given TLS pair is refused before anything starts.
+    service = HttpService(manager, host=config.host, port=config.port, tls_cert=config.tls_cert,
+                          tls_key=config.tls_key, request_timeout_ms=config.request_timeout_ms)
     watcher = ModelWatcher(drt, manager, engine_factory)
     await watcher.start()
-    service = HttpService(manager, host=config.host, port=config.port)
     service.watcher = watcher
     service.routers = routers
+    service.encoders = encoders
     await service.start()
     return service
 
@@ -214,3 +252,31 @@ async def stop_frontend(service: HttpService) -> None:
     await service.stop()
     for router in service.routers.values():
         await router.close()
+    for router in service.encoders.values():
+        await router.close()
+        await router.client.close()
+
+
+class EmbeddingsPreprocessor(Operator):
+    """Tokenizes ``/v1/embeddings`` input (a string, strings, token ids or
+    lists of them) into ``batch_token_ids`` for the ``EmbeddingEngine``."""
+
+    def __init__(self, tokenizer: Tokenizer):
+        self.tokenizer = tokenizer
+
+    async def transform_request(self, request: dict, context: Context) -> dict:
+        inp = request.get("input")
+        if isinstance(inp, str):
+            batches = [self.tokenizer.encode(inp)]
+        elif inp and isinstance(inp[0], int):
+            batches = [list(inp)]
+        elif inp and isinstance(inp[0], list):
+            batches = [list(x) for x in inp]
+        else:
+            batches = [self.tokenizer.encode(s) for s in (inp or [])]
+        return {"batch_token_ids": batches, "model": request.get("model", "")}
+
+
+def build_embeddings_pipeline(tokenizer: Tokenizer, engine: AsyncEngine) -> AsyncEngine:
+    """Embeddings pipeline: tokenize → ``EmbeddingEngine``."""
+    return link([EmbeddingsPreprocessor(tokenizer)], engine)

@@ -1,12 +1,23 @@
 """OpenAI-compatible HTTP frontend on the standard library.
 
 Routes ``POST /v1/chat/completions`` and ``POST /v1/completions`` (JSON, or
-SSE with ``"stream": true`` ending in ``data: [DONE]``), ``GET /v1/models``
-and ``GET /health``, with the same response bodies as the JAX package's
-aiohttp service. aiohttp is not assumed to be installed, so this is a small
-HTTP/1.1 server on ``asyncio.start_server``: one request per connection
-(every response says ``Connection: close``), bodies sized by
-``Content-Length``. A request with ``n > 1`` runs its choices as
+SSE with ``"stream": true`` ending in ``data: [DONE]``), ``POST
+/v1/embeddings`` (models registered as ``embeddings``), ``POST
+/v1/responses`` (mapped onto the chat pipeline; unary, or the Responses
+API's semantic SSE events), ``GET /v1/models`` and ``GET /health``, with
+the same response bodies as the JAX package's aiohttp service. aiohttp is
+not assumed to be installed, so this is a small HTTP/1.1 server on
+``asyncio.start_server``, over TLS when given a certificate and key (the
+standard library's ``ssl``): a connection serves requests until the
+client closes it, sends ``Connection: close`` (or speaks HTTP/1.0 without
+``keep-alive``) or idles ``KEEPALIVE_TIMEOUT_S``; an SSE stream ends its
+connection. Bodies are sized by ``Content-Length``. ``request_timeout_ms``
+is the default deadline of a chat or completion that sends no
+``timeout``: it rides to the scheduler as ``stop_conditions.deadline_ms``,
+and an expired request is a 504 with its partial usage. A
+``RequestError`` raised inside the pipeline (an image request with no
+encode path, an image the reader refuses) is a 400. A request with
+``n > 1`` runs its choices as
 separate generations (a seeded request's choice i with ``seed + i``), all
 sent to the engine at once so they share its batches; a stream
 interleaves their chunks by ``index``. Logprobs, tool calls and reasoning
@@ -16,8 +27,8 @@ removes models as workers come and go; a fixed dict of pipelines (the
 in-process ``run``) is served as chat models. A routed model with no live
 worker is a retryable 503; a stream whose migration budget ran out is a
 502 with the partial token count; a ``traceparent`` header rides on to the
-workers. Metrics, TLS, gRPC, embeddings and responses are not ported yet
-(ROADMAP Queue 1 items 18 and 19).
+workers. Metrics and gRPC are not ported yet (ROADMAP Queue 1 items 18
+and 19).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import asyncio
 import hashlib
 import json
 import logging
+import ssl
 import time
 from typing import AsyncIterator, Dict, Optional, Tuple
 
@@ -44,6 +56,7 @@ TENANT_HEADER = "x-dynamo-tenant"
 
 MAX_BODY_BYTES = 64 << 20
 MAX_HEADER_BYTES = 64 << 10
+KEEPALIVE_TIMEOUT_S = 75.0  # an idle kept-alive connection closes after this (aiohttp's default)
 
 _REASONS = {
     200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
@@ -74,44 +87,93 @@ def _migration_exhausted_body(ctx: Context, n_tokens: int) -> dict:
     return body
 
 
+class _Conn:
+    """One client connection: its writer, and whether it stays open after
+    the response being written (``keep_alive``) or waits for the next
+    request (``idle``)."""
+
+    def __init__(self, writer: asyncio.StreamWriter):
+        self.writer = writer
+        self.keep_alive = False
+        self.idle = True
+
+    def write(self, data: bytes) -> None:
+        self.writer.write(data)
+
+    async def drain(self) -> None:
+        await self.writer.drain()
+
+
 class HttpService:
     """Serves the pipelines of ``manager`` (AsyncEngines taking OpenAI
     request bodies, by model type and name) on ``host:port``; port 0 binds
-    a free port, readable from ``self.port`` after ``start``."""
+    a free port, readable from ``self.port`` after ``start``. ``tls_cert``
+    and ``tls_key`` (PEM paths, both or neither) serve HTTPS;
+    ``request_timeout_ms`` is the default deadline of a chat or completion
+    request that sends no ``timeout``."""
 
-    def __init__(self, manager: ModelManager, *, host: str = "0.0.0.0", port: int = 8000):
+    def __init__(self, manager: ModelManager, *, host: str = "0.0.0.0", port: int = 8000,
+                 tls_cert: Optional[str] = None, tls_key: Optional[str] = None,
+                 request_timeout_ms: Optional[float] = None):
         self.manager = manager
         self.host = host
         self.port = port
+        self.request_timeout_ms = request_timeout_ms
+        if bool(tls_cert) != bool(tls_key):
+            raise ValueError("TLS needs both tls_cert and tls_key")
+        self._ssl = None
+        if tls_cert:
+            self._ssl = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            self._ssl.load_cert_chain(tls_cert, tls_key)
         self._server: Optional[asyncio.AbstractServer] = None
+        self._conns: set = set()
+        self._closing = False
 
     async def start(self) -> None:
-        self._server = await asyncio.start_server(self._handle, self.host, self.port)
+        self._closing = False
+        self._server = await asyncio.start_server(self._handle, self.host, self.port, ssl=self._ssl)
         self.port = self._server.sockets[0].getsockname()[1]
-        logger.info("OpenAI HTTP frontend on %s:%d", self.host, self.port)
+        logger.info("OpenAI HTTP%s frontend on %s:%d", "S" if self._ssl else "", self.host, self.port)
 
     async def stop(self) -> None:
+        """Stop listening, close the idle kept-alive connections and wait
+        for the responses still being written."""
         if self._server is not None:
+            self._closing = True
             self._server.close()
+            for conn in list(self._conns):
+                if conn.idle:
+                    conn.writer.close()
             await self._server.wait_closed()
             self._server = None
 
     # --- connection ---------------------------------------------------------
     async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+        conn = _Conn(writer)
+        self._conns.add(conn)
         try:
-            try:
-                method, path, headers, body = await _read_request(reader)
-            except HttpError as e:
-                await _respond_json(writer, e.status, oai.error_body(str(e), code=e.status))
-                return
-            except (asyncio.IncompleteReadError, ConnectionError):
-                return
-            await self._route(method, path, headers, body, writer)
+            while not self._closing:
+                try:
+                    method, path, version, headers, body = await asyncio.wait_for(_read_request(reader),
+                                                                                  KEEPALIVE_TIMEOUT_S)
+                except HttpError as e:
+                    conn.keep_alive = False
+                    await _respond_json(conn, e.status, oai.error_body(str(e), code=e.status))
+                    return
+                except (asyncio.IncompleteReadError, ConnectionError, asyncio.TimeoutError):
+                    return
+                conn.idle = False
+                conn.keep_alive = _keeps_alive(version, headers)
+                await self._route(method, path, headers, body, conn)
+                conn.idle = True
+                if not conn.keep_alive:
+                    return
         except ConnectionError:
             pass  # the client went away; a stream has already cancelled its request
         except Exception:
             logger.exception("HTTP handler failed")
         finally:
+            self._conns.discard(conn)
             writer.close()
 
     async def _route(self, method: str, path: str, headers: Dict[str, str], body: bytes, writer) -> None:
@@ -119,6 +181,8 @@ class HttpService:
         routes = {
             "/v1/chat/completions": ("POST", "chat"),
             "/v1/completions": ("POST", "completions"),
+            "/v1/embeddings": ("POST", "embeddings"),
+            "/v1/responses": ("POST", "responses"),
             "/v1/models": ("GET", "models"),
             "/health": ("GET", "health"),
         }
@@ -136,8 +200,198 @@ class HttpService:
             data = [{"id": n, "object": "model", "created": now, "owned_by": "dynamo-tpu"}
                     for n in self.manager.list_models()]
             await _respond_json(writer, 200, {"object": "list", "data": data})
+        elif kind == "embeddings":
+            await self._serve_embeddings(body, writer)
+        elif kind == "responses":
+            await self._serve_responses(headers, body, writer)
         else:
             await self._serve(kind, headers, body, writer)
+
+    # --- embeddings ---------------------------------------------------------
+    async def _serve_embeddings(self, raw: bytes, writer) -> None:
+        """``/v1/embeddings``: routed to the model registered as
+        ``embeddings`` under the body's name."""
+        try:
+            body = oai.validate_embedding_request(json.loads(raw))
+        except (json.JSONDecodeError, UnicodeDecodeError, oai.RequestError) as e:
+            await _respond_json(writer, 400, oai.error_body(str(e)))
+            return
+        model = body["model"]
+        engine = self.manager.get("embeddings", model)
+        if engine is None:
+            await _respond_json(writer, 404, oai.error_body(f"no embeddings model {model!r}", "model_not_found", 404))
+            return
+        vectors, prompt_tokens = [], 0
+        try:
+            async for item in engine.generate(body, Context()):
+                if isinstance(item, Annotated) and item.is_annotation():
+                    continue
+                wire = item.data if isinstance(item, Annotated) else item
+                if isinstance(wire, dict) and "embeddings" in wire:
+                    vectors = wire["embeddings"]
+                    prompt_tokens = int(wire.get("prompt_tokens") or 0)
+        except Exception as e:
+            logger.exception("embeddings request for %s failed", model)
+            await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
+            return
+        usage = oai.usage_dict(prompt_tokens=prompt_tokens, completion_tokens=0)
+        await _respond_json(writer, 200, oai.embedding_response(oai.make_id("embd"), model, vectors, usage))
+
+    # --- responses ----------------------------------------------------------
+    async def _serve_responses(self, headers: Dict[str, str], raw: bytes, writer) -> None:
+        """``/v1/responses``: its input items become chat messages (its
+        tools, tool choice and text format the chat fields), served by the
+        model's chat pipeline; unary, or streamed as the Responses API's
+        events."""
+        try:
+            body = oai.validate_responses_request(json.loads(raw))
+        except (json.JSONDecodeError, UnicodeDecodeError, oai.RequestError) as e:
+            await _respond_json(writer, 400, oai.error_body(str(e)))
+            return
+        model = body["model"]
+        engine = self.manager.get("chat", model)
+        if engine is None:
+            await _respond_json(writer, 404, oai.error_body(f"model {model!r} not found", "model_not_found", 404))
+            return
+        rid = oai.make_id("resp")
+        try:
+            chat_body = {"model": model, "messages": oai.responses_input_to_messages(body), "stream": False}
+            for key in ("temperature", "top_p", "max_output_tokens"):
+                if body.get(key) is not None:
+                    chat_body["max_tokens" if key == "max_output_tokens" else key] = body[key]
+            if body.get("tools"):
+                chat_body["tools"] = oai.responses_tools_to_chat(body["tools"])
+            if body.get("tool_choice") is not None:
+                chat_body["tool_choice"] = oai.responses_tool_choice_to_chat(body["tool_choice"])
+            rf = oai.responses_text_format_to_response_format(body)
+            if rf is not None:
+                chat_body["response_format"] = rf
+            # The chat side's checks (response_format, tools, tool_choice),
+            # so a Responses client gets the same 400s.
+            oai.validate_chat_request(chat_body)
+        except oai.RequestError as e:
+            await _respond_json(writer, 400, oai.error_body(str(e)))
+            return
+        ctx = Context(traceparent=TraceParent.from_headers(headers))
+        if body.get("stream"):
+            await self._responses_stream(engine, chat_body, ctx, rid, model, writer)
+            return
+        text_parts, n_tokens, prompt_tokens, cached_tokens, tool_calls = [], 0, 0, None, None
+        try:
+            async for item in engine.generate(chat_body, ctx):
+                if isinstance(item, Annotated) and item.is_annotation():
+                    if item.event == "_metrics":
+                        prompt_tokens = int(item.comment or 0)
+                    elif item.event == "_cached":
+                        cached_tokens = int(item.comment or 0)
+                    continue
+                out = as_engine_output(item)
+                if out is None:
+                    continue
+                if out.text:
+                    text_parts.append(out.text)
+                if out.tool_calls:
+                    tool_calls = out.tool_calls
+                n_tokens += len(out.token_ids)
+        except oai.RequestError as e:
+            await _respond_json(writer, 400, oai.error_body(str(e)))
+            return
+        except NoInstancesError:
+            await _respond_json(writer, 503, _no_workers_body(), {"Retry-After": "1"})
+            return
+        except Exception as e:
+            logger.exception("responses request %s failed", ctx.id)
+            await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
+            return
+        usage = oai.usage_dict(prompt_tokens=prompt_tokens, completion_tokens=n_tokens, cached_tokens=cached_tokens)
+        await _respond_json(writer, 200, oai.responses_response(rid, model, "".join(text_parts), usage,
+                                                                 tool_calls=tool_calls))
+
+    async def _responses_stream(self, engine, chat_body: dict, ctx: Context, rid: str, model: str, writer) -> None:
+        """The Responses API's semantic SSE stream, as the JAX service sends
+        it: response.created → response.in_progress → (output_item.added →
+        content_part.added, at the first text) → output_text.delta* →
+        output_text.done → content_part.done → output_item.done → (each
+        function call's items) → response.completed; a failure is an
+        ``error`` event."""
+        _start_sse(writer)
+        seq = [0]
+
+        async def emit(etype: str, payload: dict) -> None:
+            payload = {"type": etype, "sequence_number": seq[0], **payload}
+            seq[0] += 1
+            await _sse_event_raw(writer, etype, payload)
+
+        msg_id = f"msg-{rid}"
+        started = [False]
+
+        async def ensure_message_started() -> None:
+            # The message item opens at the first text: a tool-call-only
+            # answer has no empty message item, as in the unary shape.
+            if started[0]:
+                return
+            started[0] = True
+            await emit("response.output_item.added",
+                       {"output_index": 0, "item": {"type": "message", "id": msg_id, "role": "assistant",
+                                                    "status": "in_progress", "content": []}})
+            await emit("response.content_part.added",
+                       {"item_id": msg_id, "output_index": 0, "content_index": 0,
+                        "part": {"type": "output_text", "text": "", "annotations": []}})
+
+        text_parts, n_tokens, prompt_tokens, cached_tokens, tool_calls = [], 0, 0, None, None
+        try:
+            envelope = oai.responses_envelope(rid, model, [], status="in_progress")
+            await emit("response.created", {"response": envelope})
+            await emit("response.in_progress", {"response": envelope})
+            async for item in engine.generate(chat_body, ctx):
+                if isinstance(item, Annotated) and item.is_annotation():
+                    if item.event == "_metrics":
+                        prompt_tokens = int(item.comment or 0)
+                    elif item.event == "_cached":
+                        cached_tokens = int(item.comment or 0)
+                    continue
+                out = as_engine_output(item)
+                if out is None:
+                    continue
+                n_tokens += len(out.token_ids)
+                if out.text:
+                    await ensure_message_started()
+                    text_parts.append(out.text)
+                    await emit("response.output_text.delta",
+                               {"item_id": msg_id, "output_index": 0, "content_index": 0, "delta": out.text})
+                if out.tool_calls:
+                    tool_calls = out.tool_calls
+            text = "".join(text_parts)
+            output = []
+            if started[0] or not tool_calls:
+                await ensure_message_started()
+                await emit("response.output_text.done",
+                           {"item_id": msg_id, "output_index": 0, "content_index": 0, "text": text})
+                await emit("response.content_part.done",
+                           {"item_id": msg_id, "output_index": 0, "content_index": 0,
+                            "part": {"type": "output_text", "text": text, "annotations": []}})
+                output.append(oai.responses_message_item(rid, text))
+                await emit("response.output_item.done", {"output_index": 0, "item": output[0]})
+            for i, call in enumerate(tool_calls or []):
+                idx = len(output)
+                fc = oai.responses_function_call_item(rid, i, call)
+                output.append(fc)
+                await emit("response.output_item.added",
+                           {"output_index": idx, "item": {**fc, "arguments": "", "status": "in_progress"}})
+                await emit("response.function_call_arguments.delta",
+                           {"item_id": fc["id"], "output_index": idx, "delta": fc["arguments"]})
+                await emit("response.function_call_arguments.done",
+                           {"item_id": fc["id"], "output_index": idx, "arguments": fc["arguments"]})
+                await emit("response.output_item.done", {"output_index": idx, "item": fc})
+            usage = oai.usage_dict(prompt_tokens=prompt_tokens, completion_tokens=n_tokens,
+                                   cached_tokens=cached_tokens)
+            await emit("response.completed", {"response": oai.responses_envelope(rid, model, output, usage)})
+        except (ConnectionError, asyncio.CancelledError):
+            ctx.stop_generating()
+            raise
+        except Exception as e:
+            logger.exception("responses stream %s failed", ctx.id)
+            await emit("error", {"message": str(e)})
 
     # --- completions --------------------------------------------------------
     async def _serve(self, kind: str, headers: Dict[str, str], raw: bytes, writer) -> None:
@@ -152,6 +406,10 @@ class HttpService:
         except oai.RequestError as e:
             await _respond_json(writer, 400, oai.error_body(str(e)))
             return
+        if body.get("timeout") is None and self.request_timeout_ms:
+            # The frontend's default deadline, carried as the client's would
+            # be (the preprocessor puts it on the wire).
+            body["timeout"] = self.request_timeout_ms / 1000.0
         model = body["model"]
         engine = self.manager.get(kind, model) or self.manager.get("chat" if kind == "completions" else "completions",
                                                                     model)
@@ -307,7 +565,7 @@ class HttpService:
             logger.exception("stream %s failed", ctx.id)
             await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
             return
-        writer.write(_SSE_HEAD)
+        _start_sse(writer)
         n_tokens = 0
         prompt_tokens = 0
         cached_tokens = None
@@ -379,7 +637,7 @@ class HttpService:
             if isinstance(head[2], oai.RequestError):
                 await _respond_json(writer, 400, oai.error_body(str(head[2])))
                 return
-            writer.write(_SSE_HEAD)
+            _start_sse(writer)
             if kind == "chat":
                 for i in range(len(bodies)):
                     await _sse(writer, oai.chat_chunk(rid, model, {"role": "assistant", "content": ""}, index=i))
@@ -418,6 +676,21 @@ _SSE_HEAD = (b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
              b"Cache-Control: no-cache\r\nConnection: close\r\n\r\n")
 
 
+def _start_sse(conn: _Conn) -> None:
+    """An SSE response's head; the stream ends its connection."""
+    conn.keep_alive = False
+    conn.write(_SSE_HEAD)
+
+
+def _keeps_alive(version: str, headers: Dict[str, str]) -> bool:
+    """HTTP/1.1 keeps a connection open unless the client says ``close``;
+    HTTP/1.0 only when it asks for ``keep-alive``."""
+    tokens = {t.strip().lower() for t in headers.get("connection", "").split(",")}
+    if version == "HTTP/1.0":
+        return "keep-alive" in tokens
+    return "close" not in tokens
+
+
 async def _sse_deltas(writer, rid: str, model: str, kind: str, out, index: int) -> None:
     """The content chunks of one engine frame of choice ``index``: its
     reasoning delta (chat), its text with its tokens' logprobs (tokens whose
@@ -448,7 +721,7 @@ async def _chain(head: list, rest: AsyncIterator):
         yield item
 
 
-async def _read_request(reader: asyncio.StreamReader) -> Tuple[str, str, Dict[str, str], bytes]:
+async def _read_request(reader: asyncio.StreamReader) -> Tuple[str, str, str, Dict[str, str], bytes]:
     try:
         head = await reader.readuntil(b"\r\n\r\n")
     except asyncio.LimitOverrunError:
@@ -459,7 +732,7 @@ async def _read_request(reader: asyncio.StreamReader) -> Tuple[str, str, Dict[st
     parts = lines[0].split(" ")
     if len(parts) != 3 or not parts[2].startswith("HTTP/1."):
         raise HttpError(400, "malformed request line")
-    method, path = parts[0], parts[1]
+    method, path, version = parts
     headers: Dict[str, str] = {}
     for line in lines[1:]:
         if not line:
@@ -477,20 +750,19 @@ async def _read_request(reader: asyncio.StreamReader) -> Tuple[str, str, Dict[st
     if length < 0 or length > MAX_BODY_BYTES:
         raise HttpError(413, "request body too large")
     body = await reader.readexactly(length) if length else b""
-    return method, path, headers, body
+    return method, path, version, headers, body
 
 
-async def _respond_json(writer: asyncio.StreamWriter, status: int, obj: dict,
-                        headers: Optional[Dict[str, str]] = None) -> None:
+async def _respond_json(conn: _Conn, status: int, obj: dict, headers: Optional[Dict[str, str]] = None) -> None:
     payload = json.dumps(obj, ensure_ascii=False).encode()
     extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
-    writer.write(
+    conn.write(
         f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}\r\n"
         f"Content-Type: application/json; charset=utf-8\r\nContent-Length: {len(payload)}\r\n"
-        f"{extra}Connection: close\r\n\r\n".encode()
+        f"{extra}Connection: {'keep-alive' if conn.keep_alive else 'close'}\r\n\r\n".encode()
         + payload
     )
-    await writer.drain()
+    await conn.drain()
 
 
 async def _sse(writer: asyncio.StreamWriter, obj: dict) -> None:
@@ -499,8 +771,11 @@ async def _sse(writer: asyncio.StreamWriter, obj: dict) -> None:
 
 
 async def _sse_event(writer: asyncio.StreamWriter, event: str, comment: Optional[str]) -> None:
-    payload = json.dumps({"event": event, "comment": comment}, ensure_ascii=False).encode()
-    writer.write(b"event: " + event.encode() + b"\ndata: " + payload + b"\n\n")
+    await _sse_event_raw(writer, event, {"event": event, "comment": comment})
+
+
+async def _sse_event_raw(writer: asyncio.StreamWriter, event: str, obj: dict) -> None:
+    writer.write(b"event: " + event.encode() + b"\ndata: " + json.dumps(obj, ensure_ascii=False).encode() + b"\n\n")
     await writer.drain()
 
 

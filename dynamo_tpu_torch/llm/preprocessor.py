@@ -7,6 +7,11 @@ template (a model card's, else ``DEFAULT_CHAT_TEMPLATE``) through the
 port's own Jinja interpreter (``llm/chat_template.py``), byte-equal to the
 JAX package's jinja2 rendering.
 
+A chat message's content may be a list of parts: ``text`` parts are
+joined for the template, and ``image_url`` parts ride on as
+``_mm_image_urls`` for the ``EncodeOperator`` (the Backend refuses a
+request that still carries them).
+
 Output parsing: a request that declares ``tools`` arms the tool-call
 parser named at construction, and a forced ``tool_choice`` (whose grammar
 emits bare ``{"name": .., "arguments": {..}}`` JSON) the ``"default"``
@@ -20,6 +25,7 @@ from typing import Any, AsyncIterator, List, Optional, Tuple
 
 from dynamo_tpu_torch.llm.chat_template import Template
 from dynamo_tpu_torch.llm.guided.grammar import build_guided_spec
+from dynamo_tpu_torch.llm.multimodal import extract_images
 from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
 from dynamo_tpu_torch.llm.protocols.openai import sampling_from_request, stop_conditions_from_request
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
@@ -113,8 +119,14 @@ class OpenAIPreprocessor(Operator):
 
     # --- core ---------------------------------------------------------------
     def preprocess(self, body: dict) -> Tuple[PreprocessedRequest, Optional[str]]:
+        image_urls: List[str] = []
         if "messages" in body:
-            prompt = self.formatter.render(body["messages"], add_generation_prompt=True)
+            messages = body["messages"]
+            if any(isinstance(m.get("content"), list) for m in messages):
+                # Image parts go to the encode path (llm/multimodal.py); the
+                # template renders the text parts, joined.
+                messages, image_urls = extract_images(messages)
+            prompt = self.formatter.render(messages, add_generation_prompt=True)
             token_ids = self.tokenizer.encode(prompt)
         else:
             raw = body.get("prompt", "")
@@ -140,6 +152,7 @@ class OpenAIPreprocessor(Operator):
             annotations=list(nvext.get("annotations") or []),
             model=body.get("model", ""),
             tenant=body.get("_tenant") or body.get("user") or "anon",
+            image_urls=image_urls,
             # response_format / nvext guided_* → a grammar spec; a malformed
             # or unsupported constraint raises RequestError here (a 400),
             # so the engine only sees compilable patterns.

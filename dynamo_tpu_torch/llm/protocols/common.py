@@ -3,8 +3,8 @@
 ``PreprocessedRequest`` (the tokenized, template-rendered form the engine
 consumes) and ``LLMEngineOutput`` (per-step engine emission). Kept as plain
 dicts on the wire; these dataclasses are the typed construction layer. The
-JAX package's wire keys, minus the fields of features this port does not
-have yet (disaggregation, multimodal, routing overrides).
+JAX package's wire keys, minus routing overrides and the disaggregation
+parameters (the decode worker sets those on the wire itself).
 """
 
 from __future__ import annotations
@@ -29,6 +29,9 @@ class PreprocessedRequest:
     # Guided decoding: the normalized grammar spec (llm/guided) the
     # preprocessor builds from response_format / nvext guided_*.
     guided_decoding: Optional[Dict[str, Any]] = None
+    # Image prompts: data URLs of the chat's image parts; the
+    # EncodeOperator (llm/multimodal.py) turns them into features.
+    image_urls: List[str] = field(default_factory=list)
 
     def to_wire(self) -> dict:
         d = {
@@ -39,6 +42,8 @@ class PreprocessedRequest:
             "model": self.model,
             "tenant": self.tenant,
         }
+        if self.image_urls:
+            d["_mm_image_urls"] = self.image_urls
         if self.guided_decoding:
             d["guided_decoding"] = self.guided_decoding
         return d

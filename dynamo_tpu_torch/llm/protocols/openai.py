@@ -7,8 +7,10 @@ the same response and chunk shapes, the per-request extras among them
 ``MAX_N``, ``tools`` / ``tool_choice``, structured outputs through
 ``response_format`` and ``nvext.guided_*``). Beyond the JAX checks the
 port validates ``top_k``, bounds ``seed`` to the scheduler's 32-bit key
-rows and takes message content as a string (content parts wait for the
-multimodal path).
+rows and takes message content as a string or a list of parts. Also
+``/v1/embeddings`` (``validate_embedding_request``, ``embedding_response``)
+and ``/v1/responses`` (its request mapped onto a chat body, and its
+envelopes and output items), from the same file of the JAX package.
 """
 
 from __future__ import annotations
@@ -197,10 +199,11 @@ def validate_chat_request(body: dict) -> dict:
     for m in messages:
         _require(isinstance(m, dict) and "role" in m, "each message needs a role")
         _require(m["role"] in ("system", "user", "assistant", "tool", "developer"), f"invalid role {m['role']!r}")
-        # None: an assistant message that only calls tools.
+        # None: an assistant message that only calls tools; a list: content
+        # parts (text and image_url, llm/multimodal.py).
         _require(
-            m.get("content") is None or isinstance(m["content"], str),
-            "message content must be a string (content parts are not supported by the port yet)",
+            m.get("content") is None or isinstance(m["content"], (str, list)),
+            "message content must be a string or an array of content parts",
         )
     _validate_common(body)
     lp = body.get("logprobs")
@@ -462,3 +465,172 @@ def usage_dict(
 
 def error_body(message: str, err_type: str = "invalid_request_error", code: int = 400) -> dict:
     return {"error": {"message": message, "type": err_type, "code": code}}
+
+
+# --- embeddings ----------------------------------------------------------
+
+
+def validate_embedding_request(body: dict) -> dict:
+    _require(isinstance(body, dict), "body must be a JSON object")
+    _require(bool(body.get("model")), "missing required field: model")
+    inp = body.get("input")
+    ok = isinstance(inp, str) or (
+        isinstance(inp, list)
+        and len(inp) > 0
+        and (
+            all(isinstance(x, str) for x in inp)
+            or all(isinstance(x, int) for x in inp)
+            or all(isinstance(x, list) and all(isinstance(t, int) for t in x) for x in inp)
+        )
+    )
+    _require(ok, "input must be a string, array of strings, or array(s) of token ids")
+    return body
+
+
+def embedding_response(rid: str, model: str, vectors: list, usage: dict) -> dict:
+    return {
+        "id": rid,
+        "object": "list",
+        "model": model,
+        "data": [
+            {"object": "embedding", "index": i, "embedding": v} for i, v in enumerate(vectors)
+        ],
+        "usage": usage,
+    }
+
+
+# --- responses API ------------------------------------------------------
+
+
+def validate_responses_request(body: dict) -> dict:
+    _require(isinstance(body, dict), "body must be a JSON object")
+    _require(bool(body.get("model")), "missing required field: model")
+    inp = body.get("input")
+    _require(
+        isinstance(inp, str) or (isinstance(inp, list) and len(inp) > 0),
+        "input must be a string or a non-empty array",
+    )
+    return body
+
+
+def responses_input_to_messages(body: dict) -> list:
+    """Convert Responses-API input (+ optional instructions) to chat
+    messages. Raises RequestError on malformed input items."""
+    messages = []
+    if body.get("instructions"):
+        messages.append({"role": "system", "content": body["instructions"]})
+    inp = body.get("input")
+    if isinstance(inp, str):
+        messages.append({"role": "user", "content": inp})
+        return messages
+    for item in inp:
+        if isinstance(item, str):
+            messages.append({"role": "user", "content": item})
+            continue
+        _require(isinstance(item, dict), "input items must be strings or objects")
+        role = item.get("role", "user")
+        content = item.get("content", "")
+        if isinstance(content, list):  # content parts → concatenated text
+            content = "".join(
+                p.get("text", "") for p in content
+                if isinstance(p, dict) and p.get("type") in ("input_text", "output_text", "text")
+            )
+        messages.append({"role": role, "content": content})
+    return messages
+
+
+def responses_text_format_to_response_format(body: dict) -> Optional[dict]:
+    """Responses-API structured outputs → chat ``response_format``. The
+    Responses API nests the format flat under ``text.format``
+    (``{type: 'json_schema', name, schema}``); chat nests it under
+    ``response_format.json_schema``. A chat-shaped ``response_format`` on
+    the body passes through unchanged."""
+    txt = body.get("text")
+    fmt = txt.get("format") if isinstance(txt, dict) else None
+    if isinstance(fmt, dict) and fmt.get("type"):
+        if fmt["type"] == "json_schema":
+            return {
+                "type": "json_schema",
+                "json_schema": {k: fmt[k] for k in ("name", "schema", "strict") if k in fmt},
+            }
+        return {"type": fmt["type"]}
+    rf = body.get("response_format")
+    return rf if isinstance(rf, dict) else None
+
+
+def responses_tool_choice_to_chat(tc):
+    """Responses-API flat named tool_choice (``{type:'function', name}``) →
+    chat shape; strings and chat-shaped dicts pass through."""
+    if isinstance(tc, dict) and tc.get("type") == "function" and "function" not in tc and tc.get("name"):
+        return {"type": "function", "function": {"name": tc["name"]}}
+    return tc
+
+
+def responses_tools_to_chat(tools: Optional[list]) -> list:
+    """Responses-API tool definitions (flat ``{type:'function', name, ...}``)
+    → chat-completions shape (``{type, function:{...}}``). Chat-shaped items
+    pass through unchanged."""
+    out = []
+    for t in tools or []:
+        if not isinstance(t, dict):
+            continue
+        if isinstance(t.get("function"), dict):
+            out.append(t)
+        elif t.get("type") == "function" and t.get("name"):
+            fn = {k: t[k] for k in ("name", "description", "parameters", "strict") if k in t}
+            out.append({"type": "function", "function": fn})
+    return out
+
+
+def responses_message_item(rid: str, text: str, status: str = "completed") -> dict:
+    return {
+        "type": "message",
+        "id": f"msg-{rid}",
+        "role": "assistant",
+        "status": status,
+        "content": [{"type": "output_text", "text": text, "annotations": []}],
+    }
+
+
+def responses_function_call_item(rid: str, idx: int, call: dict) -> dict:
+    """Chat tool_call dict → Responses function_call output item."""
+    fn = call.get("function") or {}
+    return {
+        "type": "function_call",
+        "id": f"fc-{rid}-{idx}",
+        "call_id": call.get("id") or f"call-{rid}-{idx}",
+        "name": fn.get("name", ""),
+        "arguments": fn.get("arguments", ""),
+        "status": "completed",
+    }
+
+
+def responses_envelope(
+    rid: str, model: str, output: list, usage: Optional[dict] = None, status: str = "completed"
+) -> dict:
+    usage = usage or {}
+    return {
+        "id": rid,
+        "object": "response",
+        "created_at": int(time.time()),
+        "model": model,
+        "status": status,
+        "output": output,
+        "usage": {
+            "input_tokens": usage.get("prompt_tokens", 0),
+            "output_tokens": usage.get("completion_tokens", 0),
+            "total_tokens": usage.get("total_tokens", 0),
+        },
+    }
+
+
+def responses_response(
+    rid: str, model: str, text: str, usage: dict, status: str = "completed",
+    tool_calls: Optional[list] = None,
+) -> dict:
+    output = []
+    if text or not tool_calls:
+        output.append(responses_message_item(rid, text, status))
+    for i, call in enumerate(tool_calls or []):
+        output.append(responses_function_call_item(rid, i, call))
+    return responses_envelope(rid, model, output, usage, status)

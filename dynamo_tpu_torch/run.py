@@ -1,6 +1,8 @@
 """Single-command launcher: ``python -m dynamo_tpu_torch.run in=X out=Y``.
 
-- ``in=http`` serves the OpenAI HTTP surface until SIGINT or SIGTERM;
+- ``in=http`` serves the OpenAI HTTP surface until SIGINT or SIGTERM
+  (chat, completions and ``/v1/responses``, and ``/v1/embeddings`` over
+  the same weights for a llama-family ``out=<preset>``);
   ``in=text`` chats on stdin (one user message a line, the answer streamed
   to stdout; end with ctrl-d); ``in=batch:<prompts.jsonl>`` sends each
   record's ``prompt`` (or ``text``) as a completion of its ``max_tokens``
@@ -44,7 +46,8 @@ from typing import List, Optional, Tuple
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
 from dynamo_tpu_torch.engine.scheduler import SchedulerConfig
-from dynamo_tpu_torch.llm.entrypoint import RouterEngine, build_local_pipeline
+from dynamo_tpu_torch.engine.embeddings import EmbeddingEngine
+from dynamo_tpu_torch.llm.entrypoint import RouterEngine, build_embeddings_pipeline, build_local_pipeline
 from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.http.service import HttpService
 from dynamo_tpu_torch.llm.tokenizer import load_tokenizer
@@ -139,6 +142,11 @@ def build_service(
     )
     manager = ModelManager()
     manager.add_model("chat", model_name(args), build_local_pipeline(tokenizer, engine))
+    sched = engine.scheduler
+    if sched.mc.architecture == "llama":
+        # /v1/embeddings over the same weights (llama.embed; MLA has none).
+        manager.add_model("embeddings", model_name(args),
+                          build_embeddings_pipeline(tokenizer, EmbeddingEngine(sched.mc, sched.params)))
     return HttpService(manager, host=args.http_host, port=args.http_port), engine
 
 

@@ -11,6 +11,12 @@ worker's choice: ``device``, through CUDA IPC, or ``host``, over TCP); it
 does not register the model. A decode worker registers it, prefills
 prompts longer than ``--max-local-prefill-length`` on the prefill pool and
 decodes from the pulled KV; both refuse an MLA model (``check_role``).
+An ``encode`` worker serves the ViT of ``--vision-model`` (``tiny-vit``
+by default, or ``vit-l-14``) on seeded random weights (``--vision-seed``)
+on ``{namespace}/encode/{endpoint}`` for the frontends'
+``--encode-component``: image URLs in, features out
+(``llm/multimodal.EncodeWorkerHandler``); it registers no model and
+builds no LM engine, and its stats scrape answers ``request_total``.
 The component defaults to ``backend`` for an
 aggregated worker, else to the role. ``--kvbm-host-blocks`` (with
 ``--kvbm-disk-dir`` / ``--kvbm-disk-blocks`` and ``--kvbm-remote``) gives
@@ -32,6 +38,7 @@ it both use the byte-level tokenizer.
 At shutdown it logs one line, ``worker launch counters: {json}``: each
 kernel wrapper's launches and plain calls, the scheduler's step, request,
 onboard and export counters, all counted from the moment it registered,
+the step graphs captured since its warmup,
 and on a decode worker its disaggregation counters (``"disagg"``). SIGUSR1
 logs the same line (less the disaggregation counters) and serves on.
 
@@ -40,7 +47,6 @@ refuses them (ROADMAP Queue 1, by item):
 - 20: ``--mocker``, ``--speedup-ratio``, ``--fault-scenario``, and
   ``--block-size`` (it sizes the mocker's blocks; the card here takes the
   model's block size);
-- 16: ``--role encode``, ``--vision-model``, ``--vision-seed``;
 - 17: ``--tp``, ``--dp``, ``--ep``, ``--pp``, ``--num-processes``,
   ``--process-id``, ``--coordinator``, ``--multihost-group``;
 - 18: ``--trace-file``, ``--trace-sample``, ``--trace-ring``, ``--trace-tail``,
@@ -57,6 +63,8 @@ import asyncio
 import json
 import signal
 from typing import Optional
+
+import torch
 
 from dynamo_tpu_torch.engine.config import get_config
 from dynamo_tpu_torch.engine.engine import EngineArgs, TorchEngine
@@ -100,19 +108,22 @@ def _kernel_counters() -> dict:
 
 
 def launch_counters(engine: TorchEngine) -> dict:
-    """The kernel wrappers' launch and plain-call counts and the scheduler's
-    step and request counters, as they stand."""
+    """The kernel wrappers' launch and plain-call counts, the scheduler's
+    step and request counters, and the step graphs captured since warmup
+    (None without one), as they stand."""
     sched = engine.scheduler
     return {"kernels": {name: {"launches": getattr(mod, launches), "plain_calls": getattr(mod, plain)}
                         for name, (mod, launches, plain) in _kernel_counters().items()},
-            "steps": {k: getattr(sched, k) for k in STEP_COUNTERS}}
+            "steps": {k: getattr(sched, k) for k in STEP_COUNTERS},
+            "captures_after_warmup": sched.graph_captures_after_warmup}
 
 
 def counters_since(engine: TorchEngine, base: dict) -> dict:
     now = launch_counters(engine)
     return {"kernels": {name: {k: v - base["kernels"][name][k] for k, v in c.items()}
                         for name, c in now["kernels"].items()},
-            "steps": {k: v - base["steps"][k] for k, v in now["steps"].items()}}
+            "steps": {k: v - base["steps"][k] for k, v in now["steps"].items()},
+            "captures_after_warmup": now["captures_after_warmup"]}
 
 
 class Worker:
@@ -216,7 +227,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--namespace", default="dynamo")
     p.add_argument("--component", default=None, help="defaults to 'backend' (aggregated), else the role")
     p.add_argument("--endpoint", default="generate")
-    p.add_argument("--role", choices=["aggregated", "decode", "prefill"], default="aggregated")
+    p.add_argument("--role", choices=["aggregated", "decode", "prefill", "encode"], default="aggregated")
+    p.add_argument("--vision-model", default="tiny-vit",
+                   help="encode role: the ViT preset (tiny-vit, vit-l-14) whose features the LM's prefill takes")
+    p.add_argument("--vision-seed", type=int, default=0, help="encode role: seed of the ViT's random weights")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs the plain path)")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights and of sampling")
     p.add_argument("--checkpoint", default=None,
@@ -282,7 +296,30 @@ def build_card(args: argparse.Namespace, engine: TorchEngine) -> ModelDeployment
                                tokenizer_path=args.tokenizer, kv_cache_block_size=engine.scheduler.mc.block_size)
 
 
+async def serve_encoder(args: argparse.Namespace) -> None:
+    """``--role encode``: the ViT behind ``{namespace}/encode/{endpoint}``
+    until SIGINT or SIGTERM; no model registration, no LM engine."""
+    from dynamo_tpu_torch.llm.multimodal import EncodeWorkerHandler, LocalVisionEncoder
+
+    handler = EncodeWorkerHandler(LocalVisionEncoder(preset=args.vision_model, seed=args.vision_seed,
+                                                     device=args.device, dtype=getattr(torch, args.dtype)))
+    drt = await DistributedRuntime.from_settings()
+    drt.runtime.install_signal_handlers()
+    ep = drt.namespace(args.namespace).component(args.component or "encode").endpoint(args.endpoint)
+    handle = await ep.serve_endpoint(handler.generate, stats_handler=handler.stats_handler)
+    logger.info("encode worker ready: vision=%s instance=%x", args.vision_model, handle.instance.instance_id)
+    try:
+        await drt.runtime.cancellation.cancelled()
+    finally:
+        await handle.stop(drain=True)
+        await drt.shutdown()
+        logger.info("encode worker counters: %s", json.dumps(handler.stats_handler()))
+
+
 async def amain(args: argparse.Namespace) -> None:
+    if args.role == "encode":
+        await serve_encoder(args)
+        return
     check_role(args.role, get_config(args.model))  # before any weights load
     engine = build_engine(args)
     drt = await DistributedRuntime.from_settings()

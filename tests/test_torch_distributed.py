@@ -603,9 +603,9 @@ def test_worker_defaults_to_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("cli,flags", [
-    ("worker", ["--mocker"]), ("worker", ["--role", "encode"]), ("worker", ["--tp", "2"]),
-    ("worker", ["--health-port", "0"]), ("worker", ["--incident-dir", "x"]), ("worker", ["--vision-model", "x"]),
-    ("frontend", ["--grpc-port", "1"]), ("frontend", ["--tls-cert-path", "x"]), ("frontend", ["--trace-file", "x"]),
+    ("worker", ["--mocker"]), ("worker", ["--dp", "2"]), ("worker", ["--tp", "2"]),
+    ("worker", ["--health-port", "0"]), ("worker", ["--incident-dir", "x"]), ("worker", ["--speedup-ratio", "2"]),
+    ("frontend", ["--grpc-port", "1"]), ("frontend", ["--slo-ttft-ms", "1"]), ("frontend", ["--trace-file", "x"]),
 ])
 def test_unported_jax_flags_are_refused(cli, flags):
     from dynamo_tpu_torch import frontend as pfrontend

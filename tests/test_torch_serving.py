@@ -34,9 +34,10 @@
 3. Isolation: every module of ``dynamo_tpu_torch`` imports with ``jax``,
    ``msgpack``, ``aiohttp``, ``prometheus_client``, ``safetensors``,
    ``tokenizers``, ``jinja2``, ``transformers``, ``ml_dtypes``, ``regex``,
-   ``gguf`` and ``sentencepiece`` blocked (the card's machine has none of
-   them) and loads nothing of the JAX package, and no port file or
-   ``chip_smoke.py`` names any of them in an import.
+   ``gguf``, ``sentencepiece``, ``xxhash``, ``PIL``, ``grpc`` and
+   ``google.protobuf`` blocked (the card's machine has none of them) and
+   loads nothing of the JAX package, and no port file or ``chip_smoke.py``
+   names any of them in an import.
 """
 
 import asyncio
@@ -705,11 +706,13 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
 
 # The wheels the card's machine lacks, blocked while every port module imports.
 BLOCKED = ("jax", "msgpack", "aiohttp", "prometheus_client", "safetensors", "tokenizers", "jinja2", "transformers",
-           "ml_dtypes", "regex", "gguf", "sentencepiece", "xxhash")
+           "ml_dtypes", "regex", "gguf", "sentencepiece", "xxhash", "PIL", "grpc", "google.protobuf")
 # Modules the guard must reach by name (the rglob below finds every one).
 NAMED = ("dynamo_tpu_torch.native", "dynamo_tpu_torch.llm.c_api", "dynamo_tpu_torch.runtime.decorators",
          "dynamo_tpu_torch.llm.kv_router.sharded", "dynamo_tpu_torch.llm.kv_router.prefill_counter",
-         "dynamo_tpu_torch.run", "dynamo_tpu_torch.worker", "dynamo_tpu_torch.frontend")
+         "dynamo_tpu_torch.run", "dynamo_tpu_torch.worker", "dynamo_tpu_torch.frontend",
+         "dynamo_tpu_torch.llm.image_decode", "dynamo_tpu_torch.llm.multimodal",
+         "dynamo_tpu_torch.engine.models.vision", "dynamo_tpu_torch.engine.embeddings")
 
 
 def _port_modules():
@@ -749,7 +752,8 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|dynamo_tpu|msgpack|aiohttp|prometheus_client|safetensors"
-                        r"|tokenizers|jinja2|transformers|ml_dtypes|regex|gguf|sentencepiece|xxhash)(?:[.\s,]|$)",
+                        r"|tokenizers|jinja2|transformers|ml_dtypes|regex|gguf|sentencepiece|xxhash|PIL|grpc"
+                        r"|google\.protobuf)(?:[.\s,]|$)",
                         re.MULTILINE)
 
 
