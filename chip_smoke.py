@@ -3397,13 +3397,13 @@ def phase_breakdown(dev):
 # ---------------------------------------------------------------------------
 
 
-def _request(port: int, path: str, body: dict, on_first=None, timeout: float = 600):
+def _request(port: int, path: str, body: dict, on_first=None, timeout: float = 600, headers: Optional[dict] = None):
     """POST one request; returns (status, parsed body or SSE chunk list,
     seconds to the first content chunk or None, total seconds). A streamed
     request calls ``on_first()`` when its first content chunk arrives."""
     t0 = time.perf_counter()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
-    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     if not body.get("stream"):
         data = json.loads(resp.read())
@@ -4025,6 +4025,201 @@ def phase_serve(card: str, path: str):
 DIST_WARMUP_CTX = 2048  # the serve passes' warmup: every step graph of the traffic captured first
 DIST_PER_FAMILY = 4
 DIST_COUNTERS_MARK = "worker launch counters: "
+# The observability plane on the deployment: every request traced, SLO
+# targets that the traffic meets on TTFT and misses on TPOT (so both verdict
+# families show), and one traced one-token probe (no TPOT: goodput).
+DIST_SLO_TTFT_MS = 1000.0
+DIST_SLO_TPOT_MS = 0.1
+DIST_TRACE_ID = "5eed" * 8
+DIST_TRACEPARENT = f"00-{DIST_TRACE_ID}-{'7ace' * 4}-01"
+# The frontend families the deployment's traffic makes (item 18's; the
+# migration and no-instance counters appear at their first event, as in the
+# JAX service: the in-process migration frontend holds migrations_total).
+FRONTEND_FAMILIES = (
+    "requests_total", "inflight_requests", "time_to_first_token_seconds", "inter_token_latency_seconds",
+    "request_duration_seconds", "queue_time_seconds", "output_tokens_total", "input_tokens_total",
+    "input_cached_tokens_total", "request_timeouts_total", "slo_attained_total", "slo_violated_total",
+    "goodput_requests_total", "goodput_tokens_total", "goodput_requests_per_s", "goodput_tokens_per_s",
+    "ttft_seconds", "ttft_seconds_quantile", "tpot_seconds", "tpot_seconds_quantile", "request_seconds",
+    "request_seconds_quantile",
+)
+PLANE_PHASES = ("prefill", "decode", "mixed", "wave")
+
+
+def _http_get(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    return resp.status, body
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def frontend_metrics_check(port: int, n200: int) -> tuple:
+    """``/metrics`` of the frontend process: 200, it parses, every family of
+    ``FRONTEND_FAMILIES`` is there, and ``requests_total`` summed over
+    ``status="200"`` is the ``n200`` answers this script got through it. →
+    (summary, checks)."""
+    from dynamo_tpu_torch.runtime.metrics import parse_text
+
+    status, body = _http_get(port, "/metrics")
+    fams = parse_text(body.decode()) if status == 200 else {}
+    missing = [f for f in FRONTEND_FAMILIES if "dynamo_frontend_" + f not in fams]
+    by_status = {}
+    for n, lab, v in fams.get("dynamo_frontend_requests_total", {"samples": []})["samples"]:
+        if n.endswith("_total"):
+            by_status[lab["status"]] = by_status.get(lab["status"], 0) + v
+    quant = {lab["quantile"]: v for n, lab, v in fams.get("dynamo_frontend_ttft_seconds_quantile", {"samples": []})
+             ["samples"]}
+    checks = []
+    if status != 200 or missing:
+        checks.append(f"frontend /metrics: status {status}, missing families {missing}")
+    if by_status.get("200") != n200:
+        checks.append(f"frontend requests_total by status {by_status}, but {n200} answers were 200")
+    return {"families": len(fams), "requests_total": by_status, "ttft_quantiles_s": quant}, checks
+
+
+def worker_health_check(port: int, ttft_wire: dict) -> tuple:
+    """A worker's health port: ``/health`` 200 and ready, ``/live`` 200,
+    ``/metrics`` 200 with the engine's TTFT digest as the
+    ``dynamo_component_ttft_seconds`` histogram, its count that of the
+    scrape's digest (``ttft_wire``), and ``/debug/state`` with the plane's
+    keys. → (summary, checks)."""
+    from dynamo_tpu_torch.runtime.metrics import parse_text
+    from dynamo_tpu_torch.runtime.telemetry import LatencyDigest
+
+    ttft_count = LatencyDigest.from_wire(ttft_wire).count
+    out, checks = {}, []
+    for path in ("/health", "/live", "/metrics", "/debug/state"):
+        status, body = _http_get(port, path)
+        out[path] = status
+        if status != 200:
+            checks.append(f"health port {port}: {path} answered {status}")
+        elif path == "/health" and json.loads(body)["status"] != "ready":
+            checks.append(f"health port {port}: /health not ready: {body[:300]!r}")
+        elif path == "/metrics":
+            fam = parse_text(body.decode()).get("dynamo_component_ttft_seconds")
+            count = next((v for n, _, v in fam["samples"] if n.endswith("_count")), None) if fam else None
+            out["ttft_histogram_count"] = count
+            if count != ttft_count:
+                checks.append(f"health port {port}: /metrics ttft histogram count {count}, the scrape's {ttft_count}")
+        elif path == "/debug/state":
+            keys = set(json.loads(body))
+            out["debug_state_keys"] = sorted(keys)
+            if not {"digests", "slo", "flight", "watchdog"} <= keys:
+                checks.append(f"health port {port}: /debug/state keys {sorted(keys)}")
+    return out, checks
+
+
+def plane_check(name: str, stats: dict, runs: dict, L: int) -> tuple:
+    """A worker's stats scrape against its kernel counters line, taken at
+    the same moment: no graph captured after warmup, the scrape's fused
+    windows the fused kernel's launches, one a window, as the
+    ``fused_window_pallas_launches`` gauge reads too, and the
+    ragged kernel's launches L × the forwards the recorder's steps imply
+    (``PERF.md``: Σ phase steps − fused windows − decode_multi windows +
+    their steps + overlapped pipelines' flushes); the decode roofline
+    fractions in (0, 1.05]. → (summary, checks)."""
+    from dynamo_tpu_torch.runtime.telemetry import LatencyDigest
+
+    k, steps = runs["kernels"], runs["steps"]
+    recorded = {ph: stats.get(f"step_{ph}_steps_total", 0) for ph in PLANE_PHASES}
+    forwards = (sum(recorded.values()) - stats.get("fused_windows_total", 0) - steps["multi_windows_total"]
+                + steps["window_steps_total"] + stats["overlap_flushes_total"])
+    checks = []
+    if stats["compiles_after_warmup_total"] != 0:
+        checks.append(f"{name}: compiles_after_warmup_total {stats['compiles_after_warmup_total']}")
+    if stats.get("fused_windows_total") != k["fused_decode_window"]["launches"]:
+        checks.append(f"{name}: fused_windows_total {stats.get('fused_windows_total')} != "
+                      f"{k['fused_decode_window']['launches']} fused window launches")
+    # The gauge is the fused kernel's own launches in the last window: it
+    # must be the wrapper's launches a window over the run, and that is 1.
+    windows = stats.get("fused_windows_total", 0)
+    per_window = k["fused_decode_window"]["launches"] / windows if windows else None
+    if not (stats.get("fused_window_pallas_launches") == per_window == 1):
+        checks.append(f"{name}: fused_window_pallas_launches {stats.get('fused_window_pallas_launches')}, "
+                      f"fused kernel launches a window {per_window}")
+    if k["ragged_paged_attention"]["launches"] != L * forwards:
+        checks.append(f"{name}: ragged launches {k['ragged_paged_attention']['launches']} != {L} × {forwards} "
+                      f"(recorded steps {recorded})")
+    if not (0 < stats.get("mfu_decode", 0) <= 1.05 and 0 < stats.get("hbm_frac_decode", 0) <= 1.05):
+        checks.append(f"{name}: mfu_decode {stats.get('mfu_decode')}, hbm_frac_decode {stats.get('hbm_frac_decode')}")
+    steps_q = {}
+    for ph in PLANE_PHASES:
+        wire = (stats.get("digests") or {}).get(f"{ph}_step")
+        if wire:
+            d = LatencyDigest.from_wire(wire["total"])
+            steps_q[ph] = {"count": d.count, "p50_ms": d.quantile(0.5) * 1e3, "p99_ms": d.quantile(0.99) * 1e3}
+    ttft = LatencyDigest.from_wire(stats["digests"]["ttft"]["total"])
+    return {"roofline": {k2: v for k2, v in stats.items() if k2.startswith(("mfu_", "hbm_frac_"))},
+            "recorded_steps": recorded, "forwards": forwards,
+            "ragged_launches": k["ragged_paged_attention"]["launches"], "step_quantiles": steps_q,
+            "ttft_digest_s": {"p50": ttft.quantile(0.5), "p99": ttft.quantile(0.99), "count": ttft.count},
+            "slo": {k2: stats.get(k2) for k2 in ("slo_ttft_attained_total", "slo_tpot_violated_total",
+                                                  "goodput_requests_total")}}, checks
+
+
+def trace_check(records: dict) -> tuple:
+    """The traced probe in the flushed files: the frontend's and one
+    worker's hold its trace id; the frontend has http_request and route,
+    the worker worker_handle, parented by the frontend's span, and the
+    scheduler's queued, admitted, first_token and finish; the port's
+    chrome_trace converts them. → (summary, checks)."""
+    from dynamo_tpu_torch.runtime.tracing import chrome_trace
+
+    mine = {name: [r for r in recs if r.get("trace_id") == DIST_TRACE_ID] for name, recs in records.items()}
+    front = mine.get("frontend", [])
+    served = [n for n, recs in mine.items() if any(r["name"] == "worker_handle" for r in recs)]
+    checks = []
+    if not {"http_request", "route"} <= {r["name"] for r in front} or len(served) != 1:
+        checks.append(f"trace: frontend records {sorted(r['name'] for r in front)}, workers with a span {served}")
+        return {}, checks
+    worker = mine[served[0]]
+    names = {r["name"] for r in worker}
+    http = next(r for r in front if r["name"] == "http_request")
+    span = next(r for r in worker if r["name"] == "worker_handle")
+    if not {"queued", "admitted", "first_token", "finish"} <= names or span["parent_id"] != http["span_id"]:
+        checks.append(f"trace: worker records {sorted(names)}, worker span parent {span['parent_id']} "
+                      f"(http span {http['span_id']})")
+    ct = chrome_trace(front + worker)
+    if not {"X", "i"} <= {e["ph"] for e in ct["traceEvents"]}:
+        checks.append("trace: chrome_trace lost its spans or events")
+    return {"serving_worker": served[0], "frontend_records": sorted(r["name"] for r in front),
+            "worker_records": sorted(names), "chrome_events": len(ct["traceEvents"])}, checks
+
+
+def trace_overhead_us(path, n: int = 20000) -> dict:
+    """Host µs of one span begin/end and of one scheduler ``_trace_event``,
+    with a tracer on (a file, every trace sampled) and off."""
+    from types import SimpleNamespace
+
+    from dynamo_tpu_torch.engine.scheduler import Scheduler
+    from dynamo_tpu_torch.runtime.tracing import Tracer
+
+    out = {}
+    for mode, tracer, trace in (("on", Tracer(path=str(path), sample=1.0, service="bench", ring_size=256),
+                                 (DIST_TRACE_ID, "7ace" * 4)),
+                                ("off", Tracer(path=None, sample=0.0), None)):
+        fake = SimpleNamespace(tracer=tracer)
+        seq = SimpleNamespace(trace=trace, request_id="r")
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tracer.span("probe", DIST_TRACE_ID, parent_id="7ace" * 4, service="bench").end()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            Scheduler._trace_event(fake, seq, "first_token", ttft_s=0.1, cached_tokens=0)
+        t2 = time.perf_counter()
+        tracer.flush()
+        out[mode] = {"span_us": (t1 - t0) / n * 1e6, "trace_event_us": (t2 - t1) / n * 1e6}
+    return out
 
 
 def dist_traffic() -> list:
@@ -4651,6 +4846,13 @@ async def surface_migration(plane, kids, name_of: dict, families: list, surface:
                "migrated": migrated, "wall_s": wall,
                "latency_s": {"completed_pair": lat[:2], "killed_pair": lat[2:]},
                "migration_added_ms": [m["kill_to_first_replayed_token_ms"] for m in migrated]}
+        # The frontend's /metrics counts each replay (migrations_total).
+        from dynamo_tpu_torch.runtime.metrics import parse_text
+
+        fam = parse_text(service.metrics.render().decode()).get("dynamo_frontend_migrations_total")
+        res["metrics_migrations_total"] = sum(v for n, _, v in fam["samples"] if n.endswith("_total")) if fam else 0
+        if res["metrics_migrations_total"] != len(migrated):
+            checks.append(f"migrations_total {res['metrics_migrations_total']} != {len(migrated)} migrated streams")
     finally:
         try:  # a stream still open holds the server's close
             await asyncio.wait_for(stop_frontend(service), 30)
@@ -5156,17 +5358,28 @@ def phase_distributed(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     kids = _Children(root, env)
+    workers = ("worker_0", "worker_1")
+    # The observability plane: every LM process traces to its own file and
+    # judges the SLO targets; each worker serves a health port.
+    trace_paths = {name: kids.logs / f"{name}.trace.jsonl" for name in (*workers, "frontend")}
+    for path in trace_paths.values():
+        path.unlink(missing_ok=True)
+    health_ports = {name: _free_port() for name in workers}
+    plane_flags = ("--trace-sample", "1.0", "--slo-ttft-ms", str(DIST_SLO_TTFT_MS), "--slo-tpot-ms",
+                   str(DIST_SLO_TPOT_MS))
     t0 = time.perf_counter()
     try:
         kids.start("control_plane", "dynamo_tpu_torch.control_plane", "--host", "127.0.0.1", "--port", str(cp_port))
         kids.wait_for("control_plane", "control plane ready", 60)
-        workers = ("worker_0", "worker_1")
         for name in workers:
-            kids.start(name, "dynamo_tpu_torch.worker", "--model", PRESET, "--warmup-ctx", str(DIST_WARMUP_CTX))
+            kids.start(name, "dynamo_tpu_torch.worker", "--model", PRESET, "--warmup-ctx", str(DIST_WARMUP_CTX),
+                       "--trace-file", str(trace_paths[name]), "--health-port", str(health_ports[name]),
+                       *plane_flags)
         kids.start("encoder", "dynamo_tpu_torch.worker", "--role", "encode", "--vision-model", DIST_VISION,
                    "--vision-seed", str(DIST_VISION_SEED))
         kids.start("frontend", "dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1", "--http-port", "0",
-                   "--router-mode", "kv", "--encode-component", "encode")
+                   "--router-mode", "kv", "--encode-component", "encode", "--trace-file",
+                   str(trace_paths["frontend"]), *plane_flags)
         port = int(kids.wait_for("frontend", "frontend ready on", 120).split(" (")[0].rsplit(":", 1)[1])
         ready = {name: kids.wait_for(name, "worker ready", 300) for name in workers}
         kids.wait_for("encoder", "encode worker ready", 300)
@@ -5206,6 +5419,19 @@ def phase_distributed(card: str) -> dict:
                         raise AssertionError(f"a repeat did not hit the prefix cache of the worker holding its "
                                              f"prefix: cached_tokens {ans['cached_tokens']}, rose {rose}")
                     repeats[-1]["worker"] = served[0]
+                # The plane through the frontend: a traced one-token probe,
+                # a request past its deadline (a 504), then /metrics.
+                probe = {"model": PRESET, "max_tokens": 1, "temperature": 0.0, "stream": True,
+                         "messages": [{"role": "user", "content": "trace probe"}]}
+                traced = await asyncio.to_thread(_request, port, "/v1/chat/completions", probe, None, 600,
+                                                 {"traceparent": DIST_TRACEPARENT})
+                late = {"model": PRESET, "max_tokens": 64, "temperature": 0.0, "timeout": 0.001,
+                        "messages": [{"role": "user", "content": "too late"}]}
+                late_status = (await asyncio.to_thread(_request, port, "/v1/chat/completions", late))[0]
+                n200 = len(probes) + len(burst) + len(repeats) + (traced[0] == 200)
+                fm, plane_checks = await asyncio.to_thread(frontend_metrics_check, port, n200)
+                if traced[0] != 200 or late_status != 504:
+                    plane_checks.append(f"the traced probe answered {traced[0]}, the late request {late_status}")
                 stats = await client.scrape_stats()
                 # The rest of the surface, on the same deployment: run's modes,
                 # the router's options, the dial and the host library; then
@@ -5220,6 +5446,14 @@ def phase_distributed(card: str) -> dict:
                 checks += more
                 surf["multimodal"], more = await surface_multimodal(port, drt, mm, torch.device("cuda", 0))
                 checks += more
+                # Each worker's stats scrape and health port beside its
+                # counters line: no traffic runs between them.
+                plane_stats = await client.scrape_stats()
+                health = {}
+                for name in workers:
+                    ttft = plane_stats[instance_of[name]]["digests"]["ttft"]["total"]
+                    health[name], more = await asyncio.to_thread(worker_health_check, health_ports[name], ttft)
+                    plane_checks += more
                 for name in workers:
                     kids.snapshot(name, DIST_COUNTERS_MARK)
                 name_of_id = {i: name for name, i in instance_of.items()}
@@ -5229,9 +5463,11 @@ def phase_distributed(card: str) -> dict:
                 await client.close()
             finally:
                 await drt.shutdown()
-            return models, probes, burst, wall, timing, repeats, stats, surf, checks
+            return (models, probes, burst, wall, timing, repeats, stats, surf, checks,
+                    (fm, plane_checks, plane_stats, health))
 
-        models, probes, burst, wall, timing, repeats, stats, surf, surf_checks = asyncio.run(drive())
+        (models, probes, burst, wall, timing, repeats, stats, surf, surf_checks,
+         (front_metrics, plane_checks, plane_stats, health)) = asyncio.run(drive())
         kids.alive()
         codes = {name: kids.stop(name) for name in (*workers, "encoder", "frontend", "control_plane")
                  if name in kids.procs}
@@ -5292,7 +5528,24 @@ def phase_distributed(card: str) -> dict:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
 
     L = get_config(PRESET).num_layers
-    checks, per_worker = list(surf_checks), {}
+    checks, per_worker = list(surf_checks) + plane_checks, {}
+    # The plane: each worker's scrape against its counters line, the traced
+    # probe in the flushed files, and the tracer's host cost.
+    from dynamo_tpu_torch.runtime.tracing import read_trace_file
+
+    obs = {"frontend_metrics": front_metrics, "health": health, "workers": {}}
+    for name in workers:
+        obs["workers"][name], more = plane_check(name, plane_stats[instance_of[name]], worker_runs[name], L)
+        checks += more
+    records = {name: read_trace_file(str(p)) if p.exists() else [] for name, p in trace_paths.items()}
+    obs["trace"], more = trace_check(records)
+    checks += more
+    obs["trace_files"] = {name: {"records": len(records[name]),
+                                 "bytes": trace_paths[name].stat().st_size if trace_paths[name].exists() else 0}
+                          for name in trace_paths}
+    client_ttft = [a["ttft_s"] for a in [*probes, *burst, *repeats]]
+    obs["client_ttft_s"] = {"p50": float(np.percentile(client_ttft, 50)), "p99": float(np.percentile(client_ttft, 99))}
+    obs["trace_overhead_us"] = trace_overhead_us(kids.logs / "overhead.trace.jsonl")
 
     def launch_check(name, runs, label):
         steps, k = runs["steps"], runs["kernels"]
@@ -5356,7 +5609,7 @@ def phase_distributed(card: str) -> dict:
         "texts_equal_reference": texts_equal, "family_steps": family_steps,
         "follow_up_first_token_ms": {"frontend": timing, "reference": ref_timing},
         "in_process_together_texts_equal_reference": together_equal,
-        "hop_ms_per_token": hop, "workers": per_worker, "survivor_at_shutdown": survivor,
+        "hop_ms_per_token": hop, "workers": per_worker, "survivor_at_shutdown": survivor, "plane": obs,
         "stats_keys": sorted(next(iter(stats.values()))),
         "surface": {**surf, "references": surface_refs},
         # The image prompts' and embeddings' part: its frontend traffic plus
@@ -7417,10 +7670,22 @@ def main() -> int:
               "last": list(LAST_KERNELS)}
     results: dict = {g: {} for g in groups}
     done_at: dict = {}
+    # Each library's tensor-core instruction counts, read from its machine
+    # code on a thread of its own while the card runs the phases.
+    sass: dict = {}
+    sass_threads: list = []
+
+    def read_sass(libs: dict) -> None:
+        def read():
+            sass.update({n: tensor_core_ops(r["path"]) for n, r in libs.items()})
+
+        sass_threads.append(threading.Thread(target=read, name="sass"))
+        sass_threads[-1].start()
 
     def build_group(group):
         try:
             results[group].update(_build.build(groups[group]))
+            read_sass(dict(results[group]))
         except BaseException as e:  # re-raised on the main thread below
             results[group]["error"] = e
         done_at[group] = time.perf_counter()
@@ -7434,6 +7699,7 @@ def main() -> int:
     host = _build.build_host("native")
     built = _build.build(FAMILIES_KERNELS)
     first_kernels_s = time.perf_counter() - t0
+    read_sass(dict(built))
     seconds = {}
 
     def timed_phase(name, fn):
@@ -7461,7 +7727,10 @@ def main() -> int:
             raise results[group]["error"]
         built.update(results[group])
     build_s = max(done_at.values()) - t0
-    sass = {n: tensor_core_ops(r["path"]) for n, r in built.items()}
+    for th in sass_threads:
+        th.join()
+    if set(built) - set(sass):
+        raise RuntimeError(f"cuobjdump read no machine code of {sorted(set(built) - set(sass))}")
     overlapped = [n for n, r in (("families", fam), ("distributed", dist), ("kvbm", kvbm), ("disagg", disagg))
                   if r is not None]
     emit("build", seconds=build_s, families_kernels_seconds=first_kernels_s,

@@ -6,7 +6,14 @@ surface the port serves: ``build``, ``start``, ``stop``, ``generate``,
 ``set_capacity_dial`` (the elastic prefill:decode split, reachable over
 the wire as the worker's ``set_dial`` control op),
 ``set_kv_event_sink``, ``attach_guided_tokenizer``, and for
-disaggregation ``take_export`` / ``take_export_device``. With
+disaggregation ``take_export`` / ``take_export_device``. Its stall
+watchdog (``watchdog``, ``runtime/telemetry.StallWatchdog``) marks the
+engine stalled when work is queued and no step has completed for
+``SchedulerConfig.stall_after_s``; the stats scrape and ``/health``
+evaluate it. A request whose trace records (the process tracer's
+sampling decision on its context's ``traceparent``) hands the scheduler its
+``(trace_id, parent span)``, so the scheduler's lifecycle events join the
+caller's trace. With
 ``kvbm_host_blocks > 0`` it owns a KVBM (``llm/block_manager``): G1
 evictions offload to host memory, then disk, then the object store, and
 prefix hits onboard back.
@@ -59,6 +66,8 @@ from dynamo_tpu_torch.engine.scheduler import (
 from dynamo_tpu_torch.engine.weights import init_params, load_checkpoint
 from dynamo_tpu_torch.logits_processing import LogitBiasProcessor
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.runtime.telemetry import StallWatchdog
+from dynamo_tpu_torch.runtime.tracing import get_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -137,6 +146,10 @@ class TorchEngine:
         self.kvbm = None  # llm/block_manager.KvBlockManager, when built with tiers
         self._step_thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="engine-step")
         self._compile_thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="grammar-compile")
+        # Stall watchdog: evaluated lazily on every stats scrape and health
+        # probe, no thread of its own.
+        self.watchdog = StallWatchdog(probe=lambda: (scheduler.has_work(), scheduler.flight.last_step_ts),
+                                      stall_after_s=scheduler.sc.stall_after_s)
 
     # --- construction -------------------------------------------------------
     @classmethod
@@ -193,6 +206,9 @@ class TorchEngine:
         if args.warmup_ctx > 0:
             n = engine.scheduler.warmup(args.warmup_ctx)
             logger.info("captured %d step graphs (ctx %d)", n, args.warmup_ctx)
+        # Traffic may start: graphs captured from here on are the compile
+        # tracker's compiles after warmup.
+        engine.scheduler.flight.mark_warmup_done(warmed=args.warmup_ctx > 0)
         if args.kvbm_host_blocks > 0:
             from dynamo_tpu_torch.llm.block_manager import KvBlockManager
 
@@ -316,6 +332,13 @@ class TorchEngine:
             from dynamo_tpu_torch.llm.multimodal import features_from_wire
 
             extras["mm_features"] = mm if hasattr(mm, "shape") else features_from_wire(mm)
+        # A trace that records (head-sampled, or every trace in tail mode,
+        # whose records stay in the ring until promoted) hands the scheduler
+        # its (trace_id, parent span).
+        tracer = get_tracer()
+        tp = context.traceparent
+        if tracer.enabled and tp is not None and tracer.record_allowed(tp.trace_id):
+            extras["trace"] = (tp.trace_id, tp.parent_id)
         self._staged_adds.append((rid, list(request["token_ids"]), sampling, stop, guided, extras, queue))
         self._wake.set()
 
@@ -425,9 +448,11 @@ class TorchEngine:
 
     def stats_handler(self) -> dict:
         """The worker's stats scrape: the keys of the JAX engine's
-        ``stats_handler``, with their names and meanings, and no other. Not
-        here yet: the flight recorder, profiler, SLO, watchdog, digest,
-        tenant-ledger, fault and incident keys (ROADMAP Queue 1 item 18)."""
+        ``stats_handler``, with their names and meanings, and no other: the
+        flight recorder's, SLO and goodput, the watchdog's and the digests
+        (``digests``) among them. Not here yet: the profiler, tenant-ledger,
+        fault and incident keys (ROADMAP Queue 1 items 18, second part, and
+        20)."""
         m = self.scheduler.metrics()
         stats = {
             "kv_usage": m.kv_usage,
@@ -458,17 +483,31 @@ class TorchEngine:
             "elastic_decode_slots": m.elastic_decode_slots,
             "elastic_dial_changes_total": m.elastic_dial_changes_total,
         }
+        # The flight recorder: per-phase step, token, FLOP and byte counters,
+        # mfu_* / hbm_frac_* over the card's peaks, the host gap, the fused
+        # windows and the graph captures after warmup.
+        self.scheduler.flight.check_compiles()
+        stats.update(self.scheduler.flight.to_stats())
+        stats.update(self.scheduler.window_stats())
         stats.update(self.scheduler.kv_gauges())
+        stats.update(self.scheduler.slo.to_stats())
+        stats.update(self.watchdog.to_stats())
+        # Mergeable latency digests: an aggregator merges them across workers
+        # into fleet quantiles (averaging per-worker p99s does not compose).
+        stats["digests"] = self.scheduler.telemetry.to_wire()
         if self.scheduler.guided is not None:
             stats.update(self.scheduler.guided.stats())
         return stats
 
     def debug_state(self) -> dict:
-        """Live engine introspection: the scheduler's ``debug_state``. The
-        JAX engine adds its stall watchdog's and incident detector's state
-        (``watchdog``, ``incidents``), which come with ROADMAP Queue 1
-        item 18."""
-        return self.scheduler.debug_state()
+        """Live engine introspection for the health server's /debug/state:
+        the scheduler's ``debug_state`` and the watchdog's state. The JAX
+        engine also adds its incident detector's (``incidents``), which
+        comes with ROADMAP Queue 1 item 18's second part."""
+        state = self.scheduler.debug_state()
+        state["watchdog"] = self.watchdog.to_stats()
+        state["watchdog"]["stall_after_s"] = self.watchdog.stall_after_s
+        return state
 
     def attach_guided_tokenizer(self, tokenizer) -> None:
         """Enable guided decoding: grammars lift to token FSMs against

@@ -98,6 +98,17 @@ The core loop of the JAX package's ``Scheduler``:
   graphs (``StepGraphs`` is off for them): the ragged dispatch reads its
   group sizes on the host each layer, which a capture cannot replay, and
   MLA runs on the gather path, which is never graphed.
+- **Observability** (the JAX scheduler's hooks, at the same points of the
+  step loop): ``telemetry`` (ttft, tpot, itl, queue_wait and per-phase
+  step digests), ``slo`` (the SLO judge of ``slo_ttft_ms`` /
+  ``slo_tpot_ms`` over finished requests), ``flight`` (per-phase step
+  histograms, the roofline account over the card's peaks, the decode host
+  gap, the fused windows and the graph-capture tracker) and, for a request
+  whose ``trace`` is set, its lifecycle events on the process tracer
+  (``queued``, ``admitted``, ``prefill_chunk``, ``mixed_ride``,
+  ``first_token``, ``preempted``, ``resume``, ``deadline_evict``,
+  ``disagg_inject``, ``guided_mask``, ``finish``). Step times are host wall
+  time (``StepTimer``); no sync is added for them.
 - **Keys**: the JAX package's threefry discipline (``engine/prng.py``):
   a step counter folded into ``PRNGKey(rng_seed)`` wherever the JAX
   scheduler folds it, and seeded requests keyed by their own seed and
@@ -126,6 +137,7 @@ import torch
 from dynamo_tpu_torch.engine.attention import decode as paged_decode
 from dynamo_tpu_torch.engine.attention import megakernel
 from dynamo_tpu_torch.engine.config import ModelConfig, resolve_moe_dispatch
+from dynamo_tpu_torch.engine.flight_recorder import FlightRecorder, StepCostModel, StepTimer, window_stats
 from dynamo_tpu_torch.engine.graphs import HostReads, StepGraphs
 from dynamo_tpu_torch.engine.kv_cache import BlockAllocator, KvCacheArrays, KvEvent, OutOfBlocksError, QuantKv
 from dynamo_tpu_torch.engine.models import get_module, llama
@@ -140,6 +152,8 @@ from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder, GuidedState
 from dynamo_tpu_torch.llm.tokens import extend_block_hashes
 from dynamo_tpu_torch.native import get_native
 from dynamo_tpu_torch.logits_processing import apply_chain
+from dynamo_tpu_torch.runtime.telemetry import SloConfig, SloJudge, Telemetry
+from dynamo_tpu_torch.runtime.tracing import get_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -148,6 +162,19 @@ def _has_extras(s: SamplingParams) -> bool:
     """A row whose logits the host edits or reads between tokens: logits
     processors, logprobs, top_logprobs or penalties."""
     return bool(s.logits_processors or s.logprobs or s.top_logprobs or s.has_penalties)
+
+
+def _tensors(tree):
+    """The tensors of a parameter or cache tree (dicts, lists, tuples and
+    named tuples such as ``QuantW`` / ``QuantKv``), depth first."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 def next_bucket(n: int, buckets: List[int]) -> int:
@@ -262,6 +289,8 @@ class Sequence:
     # ids do not identify the image), rides no wave, mixed step or
     # speculation, and prefills eagerly (the step graphs take no features).
     mm_features: Optional[np.ndarray] = None
+    # (trace_id, parent span id) when the request's trace records, else None.
+    trace: Optional[tuple] = None
     # A first token's logprob and alternatives, computed where it is drawn
     # (_sample_one) and handed out when it is appended.
     _pending_logprob: Optional[float] = None
@@ -308,6 +337,11 @@ class SchedulerConfig:
     # A prefill-role export nobody pulls within this many seconds is
     # reclaimed (expire_exports), so a dead decode worker pins no blocks.
     export_ttl_s: float = 120.0
+    # SLO targets of the engine-side judge (None: the phase is not judged)
+    # and the stall watchdog's threshold.
+    slo_ttft_ms: Optional[float] = None
+    slo_tpot_ms: Optional[float] = None
+    stall_after_s: float = 120.0
 
 
 @dataclass
@@ -445,9 +479,12 @@ class Scheduler:
         # Decode windows: fused (one kernel launch each; those with a sampled
         # row and those with a guided row also counted apart), non-fused
         # (decode_multi), and the forward steps inside non-fused windows.
-        # Windows are not in forward_steps_total.
+        # Windows are not in forward_steps_total. The fused kernel's launches
+        # in the last fused window: the scrape's
+        # ``fused_window_pallas_launches`` (None before the first).
         self.fused_windows_total = 0
         self.fused_sampled_windows_total = 0
+        self.fused_window_pallas_launches: Optional[int] = None
         self.fused_guided_windows_total = 0
         self.multi_windows_total = 0
         self.window_steps_total = 0
@@ -537,6 +574,22 @@ class Scheduler:
         self.exports_total = 0
         self.exports_taken_total = 0
         self.exports_expired_total = 0
+        # Observability: latency digests and the SLO judge, the flight
+        # recorder (its compile tracker counts graph captures) with the
+        # roofline model of the real parameter and cache byte widths, and
+        # the process tracer. The ragged and paged kernels read each KV page
+        # once; the gather reads, copies and re-reads the prefix.
+        self.telemetry = Telemetry()
+        self.slo = SloJudge(SloConfig(ttft_ms=self.sc.slo_ttft_ms, tpot_ms=self.sc.slo_tpot_ms))
+        self.flight = FlightRecorder(telemetry=self.telemetry, compile_probe=lambda: self.graph_captures_total)
+        self.tracer = get_tracer()
+        p_leaves = list(_tensors(params))
+        kv_bytes = sum(t.numel() * t.element_size() for t in _tensors((self.cache.k, self.cache.v)))
+        self.flight.set_cost_model(StepCostModel(
+            sum(t.numel() for t in p_leaves), sum(t.numel() * t.element_size() for t in p_leaves),
+            kv_bytes / max(self.sc.num_blocks * model_config.block_size, 1),
+            kv_read_factor=1.0 if self._attn_impl in ("paged", "megakernel") else 3.0, device=self.device))
+        self._last_decode_dispatch_t: Optional[float] = None
 
     # --- public API (called from event loop) --------------------------------
     def add_request(
@@ -550,6 +603,7 @@ class Scheduler:
         keep_blocks_on_finish: bool = False,
         prefilled: Optional[dict] = None,
         mm_features: Optional[np.ndarray] = None,
+        trace: Optional[tuple] = None,
     ) -> Sequence:
         """``guided``: a grammar spec (llm/guided), or the cursor
         ``self.guided.prepare`` made of one off the step thread.
@@ -557,7 +611,8 @@ class Scheduler:
         for ``take_export`` at finish. ``prefilled``: a decode-role request's
         pulled KV (``_inject_prefilled``). ``mm_features``: an image
         prompt's feature rows ``[F, hidden]`` (llm/multimodal.py), at most
-        one per prompt token."""
+        one per prompt token. ``trace``: ``(trace_id, parent span id)`` of a
+        request whose trace records (``TorchEngine.generate`` sets it)."""
         if not token_ids:
             raise ValueError("empty prompt")
         if guided is not None and self.guided is None:
@@ -582,6 +637,7 @@ class Scheduler:
             keep_blocks_on_finish=keep_blocks_on_finish,
             prefilled=prefilled,
             mm_features=mm_features,
+            trace=trace,
         )
         if guided is not None:
             seq.guided = self.guided.open(guided)  # ValueError on a bad spec or a full device
@@ -591,6 +647,10 @@ class Scheduler:
         self.waiting.append(seq)
         self.by_id[request_id] = seq
         self.request_total += 1
+        self._trace_event(seq, "queued", prompt_tokens=len(token_ids))
+        if seq.guided is not None:
+            self._trace_event(seq, "guided_mask", states=seq.guided.fsm.num_states,
+                              compile_s=round(seq.guided.fsm.compile_s, 6), cached=seq.guided.from_cache)
         return seq
 
     def abort(self, request_id: str) -> None:
@@ -692,12 +752,11 @@ class Scheduler:
         }
 
     def debug_state(self) -> dict:
-        """Live introspection: every sequence with its age and progress, and
-        the block pool (the JAX scheduler's keys; its latency digests, SLO
-        account and flight recorder, ``digests``, ``slo`` and ``flight``,
-        come with ROADMAP Queue 1 item 18). Read from the event loop while
-        the step thread mutates: last-write-wins races are fine for a
-        debug dump."""
+        """Live introspection (the JAX scheduler's keys): every sequence with
+        its age and progress, the block pool, the latency digests, the SLO
+        account and the flight recorder. Read from the event loop while the
+        step thread mutates: last-write-wins races are fine for a debug
+        dump."""
         now = time.monotonic()
 
         def seq_info(s: Sequence) -> dict:
@@ -725,6 +784,9 @@ class Scheduler:
                 "usage": round(a.usage(), 6),
                 "kv_fragmentation": self.kv_gauges()["kv_fragmentation"],
             },
+            "digests": self.telemetry.summary(),
+            "slo": self.slo.to_stats(),
+            "flight": self.flight.debug_state(now),
         }
 
     def config_snapshot(self) -> dict:
@@ -809,6 +871,21 @@ class Scheduler:
         # Each round nets 1..γ+1 tokens, so the fused window's worst-case
         # span stays that of a plain fused window.
         self._spec_rounds = max(1, self.sc.num_scheduler_steps // (gamma + 1)) if self._use_fused_spec else 0
+
+    def window_stats(self) -> dict:
+        """The fused windows' keys of the stats scrape, laid out as the JAX
+        flight recorder lays them out."""
+        return window_stats(self.fused_windows_total, self.fused_sampled_windows_total,
+                            self.fused_window_pallas_launches, self.spec_fused_windows_total,
+                            self.spec_fused_accepted_tokens_total)
+
+    def _window_launches(self) -> int:
+        """The fused decode window wrapper's count that proves a launch: on
+        the card its kernel's launches alone (a window the plain version ran
+        reads 0), on the CPU its plain calls, the CPU's route."""
+        if self.device.type == "cuda":
+            return megakernel.WINDOW_KERNEL_LAUNCHES
+        return megakernel.WINDOW_REF_CALLS
 
     # --- CUDA graphs --------------------------------------------------------
     @property
@@ -1081,34 +1158,43 @@ class Scheduler:
         batch = self.running[:n]
         d_bucket = next_bucket(n, self.sc.decode_buckets)
         width = self._width_bucket(max(len(s.block_ids) for s in batch))
-        if self._graphs is not None:
-            # One width for the chunk's table and the decode tables: the
-            # graph keys on (S, B, W).
-            width = max(width, len(p_table))
-            tpa, tables = self._decode_host(batch, d_bucket, width)
-            chunk_logits, d_logits = self._graphs.mixed(
-                self.params, self.mc, self.cache, p_tok, len(chunk_tokens), seq.num_computed,
-                np.pad(p_table, (0, width - len(p_table))), tpa, tables,
-            )
-            chunk_logits = chunk_logits[0]
-        else:
-            tpa, _ = self._decode_host(batch, d_bucket, width)
-            tpa_d = self._dev(tpa)
-            logits, _, _ = self._fwd(
-                "mixed_step", self.params, self.mc, self.cache.k, self.cache.v,
-                self._dev(p_tok), len(chunk_tokens), seq.num_computed, self._dev(p_table),
-                tpa_d[0], tpa_d[1], self._decode_tables(batch, d_bucket, width),
-                tpa_d[2].bool(), use_flash=self._use_flash_prefill, has_prefix=seq.num_computed > 0,
-            )
-            chunk_logits, d_logits = logits[0], logits[1:]
-        self.forward_steps_total += 1
-        self.mixed_steps_total += 1
-        self.mixed_prefill_tokens_total += len(chunk_tokens)
-        self.mixed_decode_tokens_total += n
+        self._break_decode_gap()
+        with StepTimer() as timer:
+            if self._graphs is not None:
+                # One width for the chunk's table and the decode tables: the
+                # graph keys on (S, B, W).
+                width = max(width, len(p_table))
+                tpa, tables = self._decode_host(batch, d_bucket, width)
+                chunk_logits, d_logits = self._graphs.mixed(
+                    self.params, self.mc, self.cache, p_tok, len(chunk_tokens), seq.num_computed,
+                    np.pad(p_table, (0, width - len(p_table))), tpa, tables,
+                )
+                chunk_logits = chunk_logits[0]
+            else:
+                tpa, _ = self._decode_host(batch, d_bucket, width)
+                tpa_d = self._dev(tpa)
+                logits, _, _ = self._fwd(
+                    "mixed_step", self.params, self.mc, self.cache.k, self.cache.v,
+                    self._dev(p_tok), len(chunk_tokens), seq.num_computed, self._dev(p_table),
+                    tpa_d[0], tpa_d[1], self._decode_tables(batch, d_bucket, width),
+                    tpa_d[2].bool(), use_flash=self._use_flash_prefill, has_prefix=seq.num_computed > 0,
+                )
+                chunk_logits, d_logits = logits[0], logits[1:]
+            self.forward_steps_total += 1
+            self.mixed_steps_total += 1
+            self.mixed_prefill_tokens_total += len(chunk_tokens)
+            self.mixed_decode_tokens_total += n
 
-        # Decode rows first (output-order parity with the phase-separated
-        # decode-then-admit iteration), then the chunk's progress.
-        self._finish_decode_rows(batch, d_bucket, d_logits, outputs)
+            # Decode rows first (output-order parity with the phase-separated
+            # decode-then-admit iteration), then the chunk's progress.
+            self._finish_decode_rows(batch, d_bucket, d_logits, outputs)
+        # The mixed step's roofline splits: the chunk's FLOPs/bytes go to the
+        # prefill bucket and the decode rows' to decode.
+        self.flight.record_mixed_step(timer.dur, len(chunk_tokens), n, kv_read_prefill=seq.num_computed,
+                                      kv_read_decode=sum(s.total_len for s in batch))
+        self.telemetry.observe("itl", timer.dur)
+        self._trace_event(seq, "mixed_ride", chunk_tokens=len(chunk_tokens), decode_rows=n,
+                          dur_s=round(timer.dur, 6))
         seq.num_computed += len(chunk_tokens)
         self._register_full_blocks(seq)  # chunk's completed blocks go live
         if seq.num_computed < len(pf_tokens):
@@ -1152,6 +1238,8 @@ class Scheduler:
                 seq.aborted = True
                 seq.abort_reason = "timeout"
                 self.timeouts_total += 1
+                self._trace_event(seq, "deadline_evict", overrun_ms=round((now - seq.deadline_ts) * 1000.0, 3),
+                                  output_tokens=len(seq.output_ids))
 
     def _admit(self, outputs: List[tuple]) -> None:
         """Admit waiting sequences: a wave when several short prompts wait
@@ -1239,22 +1327,25 @@ class Scheduler:
             pos0[i] = seq.num_computed
             valid[i] = len(chunk)
             tables[i, : len(seq.block_ids)] = seq.block_ids
-        if self._graphs is not None:
-            logits = self._graphs.wave(self.params, self.mc, self.cache, tokens, pos0, valid, tables)
-        else:
-            logits, _, _ = self._fwd("chunk_decode", self.params, self.mc, self.cache.k, self.cache.v,
-                                     *map(self._dev, (tokens, pos0, valid, tables)), last_logits=True)
-        sampled = self._draw(logits, admitted, b_bucket, self._next_key())[0]  # the wave's one host sync
-        self.wave_steps_total += 1
-        self.forward_steps_total += 1
-        self.prefill_steps_total += 1
-        for i, seq in enumerate(admitted):
-            self.waiting.remove(seq)
-            seq.num_computed = len(seq.prompt)
-            seq.state = SeqState.RUNNING
-            self.running.append(seq)
-            self._register_full_blocks(seq)
-            self._append_token(seq, int(sampled[i]), outputs)
+        self._break_decode_gap()
+        with StepTimer() as timer:
+            if self._graphs is not None:
+                logits = self._graphs.wave(self.params, self.mc, self.cache, tokens, pos0, valid, tables)
+            else:
+                logits, _, _ = self._fwd("chunk_decode", self.params, self.mc, self.cache.k, self.cache.v,
+                                         *map(self._dev, (tokens, pos0, valid, tables)), last_logits=True)
+            sampled = self._draw(logits, admitted, b_bucket, self._next_key())[0]  # the wave's one host sync
+            self.wave_steps_total += 1
+            self.forward_steps_total += 1
+            self.prefill_steps_total += 1
+            for i, seq in enumerate(admitted):
+                self.waiting.remove(seq)
+                seq.num_computed = len(seq.prompt)
+                seq.state = SeqState.RUNNING
+                self.running.append(seq)
+                self._register_full_blocks(seq)
+                self._append_token(seq, int(sampled[i]), outputs)
+        self.flight.record_step("wave", timer.dur, int(valid.sum()) + len(admitted), kv_read_tokens=int(pos0.sum()))
         return True
 
     def _first_touch(self, seq: Sequence, pf_tokens: List[int], total_tokens: int) -> None:
@@ -1304,6 +1395,8 @@ class Scheduler:
         seq.state = SeqState.PREFILL
         if seq.admitted_ts is None:
             seq.admitted_ts = time.monotonic()
+            self._trace_event(seq, "admitted", queue_s=round(seq.admitted_ts - seq.arrival_ts, 6),
+                              cached_blocks=seq.num_cached_blocks)
 
     def _prefill_one(self, seq: Sequence, outputs: List[tuple]) -> bool:
         """Run one prefill chunk for ``seq``. Returns True when the prompt is
@@ -1328,9 +1421,14 @@ class Scheduler:
         tokens = pf_tokens[seq.num_computed : seq.num_computed + chunk]
         padded = np.zeros((bucket,), dtype=np.int32)
         padded[: len(tokens)] = tokens
-        logits = self._prefill(seq, "target", padded, len(tokens), seq.num_computed)
+        self._break_decode_gap()
+        with StepTimer() as timer:
+            logits = self._prefill(seq, "target", padded, len(tokens), seq.num_computed)
         self.forward_steps_total += 1
         self.prefill_steps_total += 1
+        self.flight.record_step("prefill", timer.dur, len(tokens), kv_read_tokens=seq.num_computed)
+        self._trace_event(seq, "prefill_chunk", tokens=len(tokens), bucket=bucket,
+                          computed=seq.num_computed + len(tokens), dur_s=round(timer.dur, 6), resume=resuming)
         seq.num_computed += len(tokens)
         self._register_full_blocks(seq)  # chunk's completed blocks go live
         self._draft_catchup(seq, pf_tokens, seq.num_computed)
@@ -1342,6 +1440,7 @@ class Scheduler:
         self._register_full_blocks(seq)
         if resuming:
             seq.resume_tokens = None
+            self._trace_event(seq, "resume", total_len=seq.total_len)
             return True
         token = self._sample_one(seq, logits)
         self._append_token(seq, token, outputs)
@@ -1490,15 +1589,20 @@ class Scheduler:
         if self._overlap_start_ok(batch) and self._overlap_start(batch, bucket, width):
             return outputs
         tpa, tables = self._decode_host(batch, bucket, width)
-        if self._graphs is not None:
-            logits = self._graphs.decode(self.params, self.mc, self.cache, tpa, tables)
-        else:
-            tpa_d = self._dev(tpa)
-            logits, _, _ = self._fwd("decode", self.params, self.mc, self.cache.k, self.cache.v, tpa_d[0], tpa_d[1],
-                                     self._decode_tables(batch, bucket, width), tpa_d[2].bool())
-        self.forward_steps_total += 1
-        self.decode_steps_total += 1
-        self._finish_decode_rows(batch, bucket, logits, outputs)
+        with StepTimer() as timer:
+            self._record_host_gap()
+            if self._graphs is not None:
+                logits = self._graphs.decode(self.params, self.mc, self.cache, tpa, tables)
+            else:
+                tpa_d = self._dev(tpa)
+                logits, _, _ = self._fwd("decode", self.params, self.mc, self.cache.k, self.cache.v, tpa_d[0],
+                                         tpa_d[1], self._decode_tables(batch, bucket, width), tpa_d[2].bool())
+            self._note_decode_dispatch()
+            self.forward_steps_total += 1
+            self.decode_steps_total += 1
+            self._finish_decode_rows(batch, bucket, logits, outputs)
+        self.flight.record_step("decode", timer.dur, len(outputs), kv_read_tokens=sum(s.total_len for s in batch))
+        self.telemetry.observe("itl", timer.dur)
         return outputs
 
     def _decode_inputs(self, batch: List[Sequence], bucket: int) -> tuple:
@@ -1557,6 +1661,7 @@ class Scheduler:
         key = self._next_key()
         if pipe["greedy"]:
             key = None  # an all-greedy batch draws nothing
+        self._record_host_gap()
         if self._graphs is not None:
             sampled, next_tpa = self._graphs.decode_sample(
                 self.params, self.mc, self.cache, tpa, pipe["tables"], pipe["temps"], pipe["tks"], pipe["tps"], key)
@@ -1568,6 +1673,7 @@ class Scheduler:
             sampled, next_tpa, _, _ = self._fwd(
                 "decode_sample", self.params, self.mc, self.cache.k, self.cache.v, tpa,
                 self._decode_tables(pipe["batch"], pipe["bucket"], pipe["width"]), *pipe["samp_d"], key)
+        self._note_decode_dispatch()
         pipe["sampled"] = self._reads.read_async(sampled)
         pipe["next_tpa"] = next_tpa
         self.overlap_steps_total += 1
@@ -1599,14 +1705,18 @@ class Scheduler:
         # The N+1 launch writes each row's last appended token's KV at the
         # row's total_len before this retire: take the targets first.
         rollback = self._rollback_targets(pipe["batch"])
-        self._dispatch_overlap(pipe, pipe["next_tpa"])
-        pipe["positions"] = [p + 1 for p in pipe["positions"]]
-        sampled_h = prev.wait()  # the step's one wait
-        finished = False
-        for i, seq in enumerate(pipe["batch"]):
-            self._append_token(seq, int(sampled_h[i]), outputs)
-            if seq.state != SeqState.RUNNING:
-                finished = True
+        with StepTimer() as timer:
+            self._dispatch_overlap(pipe, pipe["next_tpa"])
+            pipe["positions"] = [p + 1 for p in pipe["positions"]]
+            sampled_h = prev.wait()  # the step's one wait
+            finished = False
+            for i, seq in enumerate(pipe["batch"]):
+                self._append_token(seq, int(sampled_h[i]), outputs)
+                if seq.state != SeqState.RUNNING:
+                    finished = True
+        self.flight.record_step("decode", timer.dur, len(pipe["batch"]),
+                                kv_read_tokens=sum(s.total_len for s in pipe["batch"]))
+        self.telemetry.observe("itl", timer.dur)
         if finished:
             self._overlap_flush(outputs, rollback=rollback)
 
@@ -1685,46 +1795,62 @@ class Scheduler:
         any_guided = any(s.guided is not None for s in batch)
         fused_ok = (self._use_fused_window and not any(_has_extras(s.sampling) for s in batch)
                     and (not any_guided or self._fused_guided_ok()))
-        if fused_ok:
-            args = (self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket))
-            samp = {}
-            # A guided window takes the sampled epilogue, as in the JAX
-            # package, so it draws its uniforms off the step counter even
-            # when every row is greedy and the keys stay the JAX package's.
-            if any_guided or any(s.sampling.temperature > 0 for s in batch):
-                # One [steps, bucket] uniforms upload per window.
-                uniforms = make_window_uniforms(self._next_key(), *self._seed_rows(batch, bucket), steps,
-                                                device=self.device)
-                samp = dict(temps=temps, top_ks=top_ks, top_ps=top_ps, uniforms=uniforms, sampled=True)
-                self.fused_sampled_windows_total += 1
-            if any_guided:
-                # The rows' FSM rows at the window's start; the kernel advances them.
-                pool = self.guided.pool
-                samp.update(guided_rows=self._guided_rows(batch, bucket), mask_pool=pool.device(),
-                            next_pool=pool.next_device(), guided=True)
-                self.fused_guided_windows_total += 1
-            toks, _, _ = llama.decode_multi_fused(*args, num_steps=steps, **samp)
-            self.fused_windows_total += 1
-        else:
-            key = self._next_key()
-            if not (temps > 0).any():
-                key = None  # an all-greedy window draws nothing
-            if self._graphs is not None:
-                width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
-                tpa, tables = self._decode_host(batch, bucket, width)
-                toks = self._graphs.decode_multi(self.params, self.mc, self.cache, tpa, tables, temps, top_ks,
-                                                 top_ps, None if key is None else prng.split_many(key, steps), steps)
-            else:
+        n0 = len(outputs)
+        with StepTimer() as timer:
+            self._record_host_gap()
+            if fused_ok:
                 args = (self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket))
-                toks, _, _ = self._fwd("decode_multi", *args, temps, top_ks, top_ps, key, steps)
-            self.multi_windows_total += 1
-            self.window_steps_total += steps
-        sampled = toks.cpu().numpy()  # the one host sync per window
-        for i, seq in enumerate(batch):
-            for s in range(steps):
-                if seq.state != SeqState.RUNNING:
-                    break  # stopped inside the window: later tokens are trimmed
-                self._append_token(seq, int(sampled[s, i]), outputs)
+                samp = {}
+                # A guided window takes the sampled epilogue, as in the JAX
+                # package, so it draws its uniforms off the step counter even
+                # when every row is greedy and the keys stay the JAX package's.
+                if any_guided or any(s.sampling.temperature > 0 for s in batch):
+                    # One [steps, bucket] uniforms upload per window.
+                    uniforms = make_window_uniforms(self._next_key(), *self._seed_rows(batch, bucket), steps,
+                                                    device=self.device)
+                    samp = dict(temps=temps, top_ks=top_ks, top_ps=top_ps, uniforms=uniforms, sampled=True)
+                if any_guided:
+                    # The rows' FSM rows at the window's start; the kernel advances them.
+                    pool = self.guided.pool
+                    samp.update(guided_rows=self._guided_rows(batch, bucket), mask_pool=pool.device(),
+                                next_pool=pool.next_device(), guided=True)
+                    self.fused_guided_windows_total += 1
+                launches0 = self._window_launches()
+                toks, _, _ = llama.decode_multi_fused(*args, num_steps=steps, **samp)
+                self._note_decode_dispatch()
+                self.fused_window_pallas_launches = self._window_launches() - launches0
+            else:
+                key = self._next_key()
+                if not (temps > 0).any():
+                    key = None  # an all-greedy window draws nothing
+                if self._graphs is not None:
+                    width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
+                    tpa, tables = self._decode_host(batch, bucket, width)
+                    toks = self._graphs.decode_multi(self.params, self.mc, self.cache, tpa, tables, temps, top_ks,
+                                                     top_ps, None if key is None else prng.split_many(key, steps), steps)
+                else:
+                    args = (self.params, self.mc, self.cache.k, self.cache.v, *self._decode_inputs(batch, bucket))
+                    toks, _, _ = self._fwd("decode_multi", *args, temps, top_ks, top_ps, key, steps)
+                self._note_decode_dispatch()
+                self.multi_windows_total += 1
+                self.window_steps_total += steps
+            sampled = toks.cpu().numpy()  # the one host sync per window
+            for i, seq in enumerate(batch):
+                for s in range(steps):
+                    if seq.state != SeqState.RUNNING:
+                        break  # stopped inside the window: later tokens are trimmed
+                    self._append_token(seq, int(sampled[s, i]), outputs)
+        if fused_ok:
+            self.fused_windows_total += 1
+            if samp:
+                self.fused_sampled_windows_total += 1
+        # Every step of a window reads the weights and each row's prefix from
+        # HBM: decode_multi's forwards, and the fused kernel too, whose
+        # products stream the weight boxes step after step (the JAX package
+        # charges its fused window one pass, held in VMEM).
+        self.flight.record_step("decode", timer.dur, len(outputs) - n0,
+                                kv_read_tokens=steps * sum(s.total_len for s in batch), param_passes=float(steps))
+        self.telemetry.observe("itl", timer.dur / max(steps, 1))
         return True
 
     def _decode_spec_fused(self, batch: List[Sequence], bucket: int, outputs: List[tuple]) -> bool:
@@ -1751,8 +1877,10 @@ class Scheduler:
                 # The kernel's catch-up re-feeds only the token at pos-1, so
                 # the draft cache must cover pos-2 already.
                 self._draft_catchup(seq, seq.all_ids, seq.total_len - 1)
-        n0 = len(outputs)
         width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
+        self._break_decode_gap()
+        n0 = len(outputs)
+        t_round = time.perf_counter()
         tables = np.zeros((bucket, width), dtype=np.int32)
         tpa = np.zeros((4, bucket), dtype=np.int32)  # tokens, xprev, positions, active
         for i, seq in enumerate(batch):
@@ -1785,8 +1913,13 @@ class Scheduler:
                 # The draft holds the catch-up row and the first min(k, γ-1)
                 # proposal feeds of this round.
                 seq.d_n = old_total + min(k, gamma - 1)
+        dur_round = time.perf_counter() - t_round
         self.spec_fused_windows_total += 1
         self.spec_fused_accepted_tokens_total += len(outputs) - n0
+        # Both models' weights stream once for the whole window.
+        self.flight.record_step("spec", dur_round, len(outputs) - n0,
+                                kv_read_tokens=2 * R * sum(s.total_len for s in batch), param_passes=1.0)
+        self.telemetry.observe("itl", dur_round / max(len(outputs) - n0, 1))
         return True
 
     def _decode_spec(self, batch: List[Sequence], bucket: int, outputs: List[tuple]) -> bool:
@@ -1818,6 +1951,9 @@ class Scheduler:
                 self._draft_catchup(seq, seq.all_ids, seq.total_len - 1)
         B = bucket
         width = self._width_bucket(max(len(seq.block_ids) for seq in batch))
+        self._break_decode_gap()
+        n0 = len(outputs)
+        t_round = time.perf_counter()
         tables = np.zeros((B, width), dtype=np.int32)
         d_toks = np.zeros((B, S), dtype=np.int32)
         d_pos0 = np.zeros((B,), dtype=np.int32)
@@ -1891,6 +2027,8 @@ class Scheduler:
             # The draft holds the catch-up through old_total-1 and the
             # proposal feeds at old_total.., the first min(k, γ-1) confirmed.
             seq.d_n = old_total + min(k, gamma - 1)
+        self.flight.record_step("spec", time.perf_counter() - t_round, len(outputs) - n0,
+                                kv_read_tokens=2 * sum(s.total_len for s in batch))
         return True
 
     def _finish_decode_rows(
@@ -2015,9 +2153,12 @@ class Scheduler:
         seq.prefilled = None  # consumed: a later preemption resumes by recompute
         if not full:
             seq.state = SeqState.PREFILL
+            self._trace_event(seq, "disagg_inject", blocks=len(seq.block_ids), device_native="device_blocks" in data,
+                              partial=True, prefill_len=n_pref)
             return False
         seq.state = SeqState.RUNNING
         self.running.append(seq)
+        self._trace_event(seq, "disagg_inject", blocks=len(seq.block_ids), device_native="device_blocks" in data)
         self._append_token(seq, int(data["first_token"]), outputs)
         return True
 
@@ -2121,8 +2262,33 @@ class Scheduler:
         victim.preemptions += 1
         self.preempt_total += 1
         self.waiting.insert(0, victim)
+        self._trace_event(victim, "preempted", total_len=victim.total_len, for_request=needy.request_id)
         logger.info("preempted %s (len %d) to free blocks", victim.request_id, victim.total_len)
         return True
+
+    def _record_host_gap(self) -> None:
+        """Called right before a decode-family dispatch: the time since the
+        previous one returned is the gap the card waited on the host."""
+        if self._last_decode_dispatch_t is not None:
+            self.flight.record_host_gap(time.perf_counter() - self._last_decode_dispatch_t)
+
+    def _note_decode_dispatch(self) -> None:
+        """Called right after a decode-family dispatch returns (launched, the
+        host free again)."""
+        self._last_decode_dispatch_t = time.perf_counter()
+
+    def _break_decode_gap(self) -> None:
+        """A non-decode dispatch: the next decode's gap is not a host gap."""
+        self._last_decode_dispatch_t = None
+
+    def _trace_event(self, seq: Sequence, name: str, **attrs) -> None:
+        """A lifecycle event on the request's trace; ``seq.trace`` is set
+        only for a trace that records, so an untraced request pays one
+        check."""
+        if seq.trace is None:
+            return
+        self.tracer.event(name, seq.trace[0], parent_id=seq.trace[1], service="scheduler",
+                          request_id=seq.request_id, **attrs)
 
     def _next_key(self) -> np.ndarray:
         """The next sampling call's key: the step counter, advanced, folded
@@ -2233,9 +2399,13 @@ class Scheduler:
             if seq.admitted_ts is not None:
                 queue_s = max(0.0, seq.admitted_ts - seq.arrival_ts)
                 self.queue_wait_s_total += queue_s
+                self.telemetry.observe("queue_wait", queue_s)
                 self.prefill_wait_s_total += max(0.0, seq.first_token_ts - seq.admitted_ts)
             self.first_tokens_total += 1
             cached = seq.cached_tokens
+            self.telemetry.observe("ttft", max(0.0, seq.first_token_ts - seq.arrival_ts))
+            self._trace_event(seq, "first_token", ttft_s=round(time.monotonic() - seq.arrival_ts, 6),
+                              cached_tokens=seq.cached_tokens)
         reason = self._check_stop(seq, token)
         if reason is not None:
             # Token that triggered 'stop' is still emitted (backend strips).
@@ -2280,6 +2450,19 @@ class Scheduler:
         if seq in self.running:
             self.running.remove(seq)
         seq.state = SeqState.FINISHED
+        # Request-level telemetry and the SLO verdict. Cancelled and failed
+        # requests are not judged: the client left, and counting them as
+        # violations would let an abort storm fake an SLO breach.
+        if seq.first_token_ts is not None and reason in ("stop", "length"):
+            ttft_s = max(0.0, seq.first_token_ts - seq.arrival_ts)
+            n_out = len(seq.output_ids)
+            tpot_s = None
+            if n_out > 1:
+                tpot_s = max(0.0, time.monotonic() - seq.first_token_ts) / (n_out - 1)
+                self.telemetry.observe("tpot", tpot_s)
+            self.slo.judge(ttft_s, tpot_s, n_out)
+        self._trace_event(seq, "finish", reason=reason, output_tokens=len(seq.output_ids),
+                          preemptions=seq.preemptions)
         # Extend hashes over generated tokens so completed output blocks are
         # reusable too (multi-turn: the next prompt includes them). Image
         # sequences never register: placeholder ids do not hash the image.

@@ -17,13 +17,16 @@ failure lifecycle. ``--encode-component`` sends image parts to that
 component's encode workers (round robin; without it an image request is a
 400); ``--tls-cert-path`` / ``--tls-key-path`` serve HTTPS (both or
 neither); ``--request-timeout-ms`` is the default deadline of a request
-that sends no ``timeout`` (a 504 when it expires).
+that sends no ``timeout`` (a 504 when it expires). ``--trace-file`` /
+``--trace-sample`` / ``--trace-ring`` / ``--trace-tail`` (or the
+``DYN_TRACE_*`` environment) configure the process tracer, service
+``frontend`` (off without them); ``--slo-ttft-ms`` / ``--slo-tpot-ms`` set
+the SLO targets each request is judged against (``/metrics``' slo and
+goodput families).
 
 JAX flags whose feature is not ported are not declared, so argparse
 refuses them (ROADMAP Queue 1, by item): ``--grpc-port`` (19);
-``--trace-file``, ``--trace-sample``,
-``--trace-ring``, ``--trace-tail``, ``--slo-ttft-ms`` and ``--slo-tpot-ms``
-(18); ``--fault-scenario`` (20). ``--kv-cache-block-size`` is not declared
+``--fault-scenario`` (20). ``--kv-cache-block-size`` is not declared
 either: the JAX frontend parses it and reads the block size from each
 model's card, as this one does.
 """
@@ -36,6 +39,7 @@ import asyncio
 from dynamo_tpu_torch.llm.entrypoint import FrontendConfig, start_frontend, stop_frontend
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger, init_logging
+from dynamo_tpu_torch.runtime.tracing import add_trace_args, get_tracer, setup_tracing
 
 logger = get_logger(__name__)
 
@@ -64,6 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="route image content parts to this encode-worker component")
     p.add_argument("--request-timeout-ms", type=float, default=None,
                    help="default end-to-end request deadline (a client 'timeout' overrides it)")
+    add_trace_args(p)
+    p.add_argument("--slo-ttft-ms", type=float, default=None,
+                   help="TTFT SLO target in ms (enables SLO/goodput accounting)")
+    p.add_argument("--slo-tpot-ms", type=float, default=None, help="per-output-token latency SLO target in ms")
     return p
 
 
@@ -85,6 +93,8 @@ def frontend_config(args: argparse.Namespace) -> FrontendConfig:
         tls_key=args.tls_key_path,
         encode_component=args.encode_component,
         request_timeout_ms=args.request_timeout_ms,
+        slo_ttft_ms=args.slo_ttft_ms,
+        slo_tpot_ms=args.slo_tpot_ms,
     )
 
 
@@ -99,12 +109,15 @@ async def amain(args: argparse.Namespace) -> None:
         await drt.runtime.cancellation.cancelled()
     finally:
         await stop_frontend(service)
+        get_tracer().flush()
         await drt.shutdown()
 
 
 def main() -> None:
     init_logging()
-    asyncio.run(amain(build_parser().parse_args()))
+    args = build_parser().parse_args()
+    setup_tracing(args, "frontend")
+    asyncio.run(amain(args))
 
 
 if __name__ == "__main__":

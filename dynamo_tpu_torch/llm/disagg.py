@@ -25,8 +25,9 @@ Conditional disaggregation: prompts no longer than
 ``max_local_prefill_length`` prefill locally (``DisaggRouterConf``,
 watched in the store). A failed remote prefill or pull degrades to a local
 prefill and counts ``degrade_disagg_to_colocated_total``; nothing turns a
-device pull into a host copy. The JAX handler also traces its mode
-transitions and hops; the port has no tracer yet (ROADMAP Queue 1 item 18).
+device pull into a host copy. Each flip of the degradation ladder is a
+``mode_transition`` event on the request's trace and each remote prefill a
+``disagg_hop`` event, as in the JAX handler.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from dynamo_tpu_torch.runtime.component import Instance
 from dynamo_tpu_torch.runtime.engine import Annotated, Context
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.push_router import NoInstancesError, PushRouter, RouterMode
+from dynamo_tpu_torch.runtime.tracing import get_tracer
 from dynamo_tpu_torch.runtime.transports.tcp import ConnectionInfo, TcpCallHome
 from dynamo_tpu_torch.runtime.work_queue import WorkQueue
 
@@ -497,6 +499,14 @@ class DisaggDecodeHandler:
             raise RuntimeError(f"queued prefill failed: {reply['error']}")
         return reply["first_token"], Instance(**reply["instance"])
 
+    def _mode_transition(self, context: Context, direction: str, reason: str, **kw) -> None:
+        """A step of the degradation ladder, on the request's trace (the
+        paired degrade_*_total counters count it)."""
+        tp = context.traceparent
+        if tp is not None:
+            get_tracer().event("mode_transition", tp.trace_id, parent_id=tp.parent_id, service="worker",
+                               request_id=context.id, direction=direction, reason=reason, **kw)
+
     async def generate(self, request: Any, context: Context) -> AsyncIterator[dict]:
         tokens = list(request.get("token_ids") or [])
         can_remote = await self.can_prefill_remote()
@@ -507,9 +517,11 @@ class DisaggDecodeHandler:
         if remote and load.get("prefill_saturated"):
             remote = False
             self.degrade_disagg_to_colocated_total += 1
+            self._mode_transition(context, "disagg_to_colocated", "prefill_pool_saturated", prompt_tokens=len(tokens))
         elif not remote and can_remote and load.get("local_saturated"):
             remote = True
             self.degrade_colocated_to_disagg_total += 1
+            self._mode_transition(context, "colocated_to_disagg", "local_saturated", prompt_tokens=len(tokens))
         if remote:
             # Token-boundary split: the pool prefills the first split_at
             # tokens (the request's own, else the probe's headroom rounded
@@ -538,6 +550,11 @@ class DisaggDecodeHandler:
                                           "ignore_eos": True}
         prefill_req["disagg_params"] = {"do_remote_decode": True}
         prefill_ctx = context.child()  # the same request id crosses the wire
+        tp = context.traceparent
+        if tp is not None:
+            get_tracer().event("disagg_hop", tp.trace_id, parent_id=tp.parent_id, service="worker",
+                               request_id=context.id, prompt_tokens=len(tokens), strategy=self.strategy,
+                               kv_transfer=self.kv_transfer, split_at=split_at)
         try:
             if self.strategy == "prefill_first":
                 first_token, instance = await self._prefill_via_queue(prefill_req, prefill_ctx)
@@ -557,6 +574,8 @@ class DisaggDecodeHandler:
                 self._backoff_until = time.monotonic() + self.queue_backoff_s
             logger.warning("remote prefill failed (%s); running locally", e)
             self.degrade_disagg_to_colocated_total += 1
+            self._mode_transition(context, "disagg_to_colocated", f"remote_prefill_failed:{e}",
+                                  prompt_tokens=len(tokens))
             self.local_prefills += 1
             async for item in self.engine.generate(request, context):
                 yield item

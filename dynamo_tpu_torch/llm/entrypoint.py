@@ -10,9 +10,11 @@ OpenAI service over a ``ModelManager`` that discovery fills, with TLS and
 a default request deadline). ``encoder=`` / ``encode_client=`` put the
 image stage (``llm/multimodal.EncodeOperator``) into either pipeline, and
 ``FrontendConfig.encode_component`` points the frontend's at an encode
-worker pool; ``build_embeddings_pipeline`` serves ``/v1/embeddings``. Not
-ported yet: gRPC (ROADMAP Queue 1 item 19), SLO targets and the metrics
-registry (item 18).
+worker pool; ``build_embeddings_pipeline`` serves ``/v1/embeddings``. The
+frontend's HTTP service and its routers share one metrics registry (the
+``circuit_open{worker}`` gauges and ``migrations_total`` land on the same
+``/metrics``), and it judges requests against ``FrontendConfig``'s SLO
+targets. Not ported yet: gRPC (ROADMAP Queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ from dynamo_tpu_torch.runtime.component import Endpoint
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.engine import Annotated, AsyncEngine, Context
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.metrics import FRONTEND_PREFIX, MetricsRegistry
 from dynamo_tpu_torch.runtime.pipeline import Operator, link
 from dynamo_tpu_torch.runtime.push_router import CircuitBreaker, PushRouter, RetryPolicy, RouterMode, WorkerMonitor
+from dynamo_tpu_torch.runtime.telemetry import SloConfig
 
 logger = get_logger(__name__)
 
@@ -179,6 +183,10 @@ class FrontendConfig:
     # Default end-to-end request deadline; a client ``timeout`` (seconds)
     # overrides it per request. None = no deadline.
     request_timeout_ms: Optional[float] = None
+    # SLO targets of the frontend's e2e judgments and goodput account
+    # (None: the phase is not judged).
+    slo_ttft_ms: Optional[float] = None
+    slo_tpot_ms: Optional[float] = None
 
 
 async def start_frontend(drt: DistributedRuntime, config: FrontendConfig) -> HttpService:
@@ -187,6 +195,7 @@ async def start_frontend(drt: DistributedRuntime, config: FrontendConfig) -> Htt
     ``watcher`` and ``routers`` (model name → router) stop with it."""
     manager = ModelManager()
     routers = {}
+    metrics = MetricsRegistry(prefix=FRONTEND_PREFIX)
 
     async def engine_factory(entry: ModelEntry) -> AsyncEngine:
         ep = drt.namespace(entry.namespace).component(entry.component).endpoint(entry.endpoint)
@@ -201,6 +210,7 @@ async def start_frontend(drt: DistributedRuntime, config: FrontendConfig) -> Htt
                     block_size=entry.card.kv_cache_block_size,
                     busy_threshold=config.busy_threshold,
                 ),
+                metrics=metrics,
             )
             router.push.retry = retry
             router.push.breaker = CircuitBreaker(
@@ -209,7 +219,8 @@ async def start_frontend(drt: DistributedRuntime, config: FrontendConfig) -> Htt
             )
         else:
             mode = RouterMode.RANDOM if config.router_mode == "random" else RouterMode.ROUND_ROBIN
-            router = PushRouter(client, mode, monitor=WorkerMonitor(config.busy_threshold), retry=retry)
+            router = PushRouter(client, mode, monitor=WorkerMonitor(config.busy_threshold), retry=retry,
+                                metrics=metrics)
             router.breaker = CircuitBreaker(
                 threshold=config.breaker_threshold, cooldown_s=config.breaker_cooldown_s,
                 on_transition=router._on_circuit_transition,
@@ -229,13 +240,16 @@ async def start_frontend(drt: DistributedRuntime, config: FrontendConfig) -> Htt
             enc_ep = drt.namespace(entry.namespace).component(config.encode_component).endpoint(entry.endpoint)
             encode_client = PushRouter(await enc_ep.client(), RouterMode.ROUND_ROBIN)
             encoders[entry.name] = encode_client
-        return build_routed_pipeline(tokenizer, router, entry.card, migration_limit=config.migration_limit,
-                                     encode_client=encode_client)
+        model = entry.card.name
+        return build_routed_pipeline(
+            tokenizer, router, entry.card, migration_limit=config.migration_limit, encode_client=encode_client,
+            on_migrate=lambda: service.note_migration(model))
 
     encoders = {}
     # Built first: a half-given TLS pair is refused before anything starts.
-    service = HttpService(manager, host=config.host, port=config.port, tls_cert=config.tls_cert,
-                          tls_key=config.tls_key, request_timeout_ms=config.request_timeout_ms)
+    service = HttpService(manager, host=config.host, port=config.port, metrics=metrics, tls_cert=config.tls_cert,
+                          tls_key=config.tls_key, slo=SloConfig(ttft_ms=config.slo_ttft_ms, tpot_ms=config.slo_tpot_ms),
+                          request_timeout_ms=config.request_timeout_ms)
     watcher = ModelWatcher(drt, manager, engine_factory)
     await watcher.start()
     service.watcher = watcher

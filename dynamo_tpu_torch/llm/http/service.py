@@ -11,7 +11,11 @@ not assumed to be installed, so this is a small HTTP/1.1 server on
 standard library's ``ssl``): a connection serves requests until the
 client closes it, sends ``Connection: close`` (or speaks HTTP/1.0 without
 ``keep-alive``) or idles ``KEEPALIVE_TIMEOUT_S``; an SSE stream ends its
-connection. Bodies are sized by ``Content-Length``. ``request_timeout_ms``
+connection. A body is sized by ``Content-Length`` or sent chunked
+(``Transfer-Encoding: chunked``: hex sizes, extensions ignored, trailers
+read and dropped), up to ``MAX_BODY_BYTES`` (413 past it, 400 for a
+malformed chunk); a request with ``Expect: 100-continue`` gets its
+``100 Continue`` before its body is read. ``request_timeout_ms``
 is the default deadline of a chat or completion that sends no
 ``timeout``: it rides to the scheduler as ``stop_conditions.deadline_ms``,
 and an expired request is a 504 with its partial usage. A
@@ -26,9 +30,17 @@ content are rendered as the JAX service renders them. The service serves a
 removes models as workers come and go; a fixed dict of pipelines (the
 in-process ``run``) is served as chat models. A routed model with no live
 worker is a retryable 503; a stream whose migration budget ran out is a
-502 with the partial token count; a ``traceparent`` header rides on to the
-workers. Metrics and gRPC are not ported yet (ROADMAP Queue 1 items 18
-and 19).
+502 with the partial token count. A chat or completion opens the
+``http_request`` span on the process tracer (continuing a ``traceparent``
+header) and its context carries it on to the workers; its responses echo
+the trace id (``x-dynamo-trace-id``); with tail tracing, a request that
+missed its SLO is promoted. ``GET /metrics`` renders the frontend families
+of the JAX service (``dynamo_frontend_*``: requests by status, in-flight,
+TTFT, ITL, duration, queue time, tokens, timeouts, migrations,
+no-instances, SLO and goodput counters) and its own latency digests
+(``FRONTEND_DIGEST_FAMILIES``) from ``metrics``, a ``MetricsRegistry``
+that the routers of ``start_frontend`` share. gRPC is not ported yet
+(ROADMAP Queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -46,21 +58,42 @@ from dynamo_tpu_torch.llm.protocols import openai as oai
 from dynamo_tpu_torch.llm.protocols.common import as_engine_output
 from dynamo_tpu_torch.runtime.engine import Annotated, AsyncEngine, Context, StreamDisconnect
 from dynamo_tpu_torch.runtime.logging import TraceParent
+from dynamo_tpu_torch.runtime.metrics import (
+    DURATION_BUCKETS,
+    FRONTEND_PREFIX,
+    ITL_BUCKETS,
+    TTFT_BUCKETS,
+    MetricsRegistry,
+)
 from dynamo_tpu_torch.runtime.push_router import NoInstancesError
+from dynamo_tpu_torch.runtime.telemetry import DigestCollector, SloConfig, SloJudge, Telemetry
+from dynamo_tpu_torch.runtime.tracing import NULL_SPAN, get_tracer
 
 logger = logging.getLogger(__name__)
 
 # Capacity attribution: the OpenAI ``user`` field, then this header, then a
 # hash of the API key — "anon" only when the request carries nothing.
 TENANT_HEADER = "x-dynamo-tenant"
+# The request's trace id, echoed on its responses (SSE too), so a client's
+# report maps to the JSONL trace even when the request was not sampled.
+TRACE_ID_HEADER = "x-dynamo-trace-id"
+
+# The frontend's own end-to-end digests (DigestCollector over its
+# Telemetry): each stream renders as "<name>_seconds" (a cumulative
+# histogram) and "<name>_seconds_quantile" (rolling p50/p90/p99 gauges).
+FRONTEND_DIGEST_FAMILIES = (
+    "ttft_seconds", "ttft_seconds_quantile",
+    "tpot_seconds", "tpot_seconds_quantile",
+    "request_seconds", "request_seconds_quantile",
+)
 
 MAX_BODY_BYTES = 64 << 20
 MAX_HEADER_BYTES = 64 << 10
 KEEPALIVE_TIMEOUT_S = 75.0  # an idle kept-alive connection closes after this (aiohttp's default)
 
 _REASONS = {
-    200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-    411: "Length Required", 413: "Payload Too Large", 500: "Internal Server Error",
+    100: "Continue", 200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
+    413: "Payload Too Large", 500: "Internal Server Error",
     502: "Bad Gateway", 503: "Service Unavailable", 504: "Gateway Timeout",
 }
 
@@ -110,10 +143,13 @@ class HttpService:
     a free port, readable from ``self.port`` after ``start``. ``tls_cert``
     and ``tls_key`` (PEM paths, both or neither) serve HTTPS;
     ``request_timeout_ms`` is the default deadline of a chat or completion
-    request that sends no ``timeout``."""
+    request that sends no ``timeout``; ``metrics`` the registry ``/metrics``
+    renders (a fresh ``dynamo_frontend_`` one by default); ``slo`` the
+    targets each finished request is judged against."""
 
     def __init__(self, manager: ModelManager, *, host: str = "0.0.0.0", port: int = 8000,
-                 tls_cert: Optional[str] = None, tls_key: Optional[str] = None,
+                 metrics: Optional[MetricsRegistry] = None, tls_cert: Optional[str] = None,
+                 tls_key: Optional[str] = None, slo: Optional[SloConfig] = None,
                  request_timeout_ms: Optional[float] = None):
         self.manager = manager
         self.host = host
@@ -128,6 +164,99 @@ class HttpService:
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: set = set()
         self._closing = False
+        self.metrics = metrics or MetricsRegistry(prefix=FRONTEND_PREFIX)
+        m = self.metrics
+        self._m_requests = lambda model, status: m.counter("requests_total", "HTTP requests", model=model,
+                                                           status=status)
+        self._m_inflight = lambda model: m.gauge("inflight_requests", "in-flight requests", model=model)
+        self._m_ttft = lambda model: m.histogram("time_to_first_token_seconds", "TTFT", buckets=TTFT_BUCKETS,
+                                                 model=model)
+        self._m_itl = lambda model: m.histogram("inter_token_latency_seconds", "ITL", buckets=ITL_BUCKETS,
+                                                model=model)
+        self._m_duration = lambda model: m.histogram("request_duration_seconds", "request duration",
+                                                     buckets=DURATION_BUCKETS, model=model)
+        # Engine-admission queue time: the saturation signal.
+        self._m_queue = lambda model: m.histogram("queue_time_seconds", "request queue time before engine admission",
+                                                  buckets=TTFT_BUCKETS, model=model)
+        self._m_output_tokens = lambda model: m.counter("output_tokens_total", "output tokens", model=model)
+        # Failure lifecycle: deadline expiries (504s and timeout finishes),
+        # exhausted migrations (502s) and no-instance rejections (503s).
+        self._m_timeouts = lambda model: m.counter("request_timeouts_total", "requests that exceeded their deadline",
+                                                   model=model)
+        self._m_migrations = lambda model: m.counter("migrations_total", "stream drops replayed on another worker",
+                                                     model=model)
+        self._m_migration_exhausted = lambda model: m.counter(
+            "migration_exhausted_total", "requests whose migration budget ran out (502)", model=model)
+        self._m_no_instances = lambda model: m.counter(
+            "no_instances_total", "requests rejected because no workers were live (503)", model=model)
+        self._m_input_tokens = lambda model: m.counter("input_tokens_total", "input (prompt) tokens", model=model)
+        self._m_cached_tokens = lambda model: m.counter(
+            "input_cached_tokens_total", "prompt tokens served from the prefix cache", model=model)
+        # The frontend's own e2e digests (ttft, tpot, request) and its SLO
+        # verdicts against --slo-ttft-ms / --slo-tpot-ms: goodput is the
+        # SLO-attained requests and tokens.
+        self.slo = slo or SloConfig()
+        self.telemetry = Telemetry()
+        self._slo_judge = SloJudge(self.slo)
+        self._digest_collector = DigestCollector(FRONTEND_PREFIX, registry=m.registry, telemetry=self.telemetry)
+        self._m_slo = lambda model, phase, verdict: m.counter(
+            "slo_attained_total" if verdict == "attained" else "slo_violated_total",
+            "request phases meeting/missing the SLO target", model=model, phase=phase)
+        self._m_goodput_requests = lambda model: m.counter(
+            "goodput_requests_total", "requests that attained every configured SLO", model=model)
+        self._m_goodput_tokens = lambda model: m.counter(
+            "goodput_tokens_total", "output tokens of SLO-attained requests", model=model)
+        self._m_goodput_req_s = m.gauge("goodput_requests_per_s", "SLO-attained requests/s over the rolling window")
+        self._m_goodput_tok_s = m.gauge("goodput_tokens_per_s",
+                                        "SLO-attained output tokens/s over the rolling window")
+
+    def note_migration(self, model: str) -> None:
+        """One stream drop of ``model`` replayed on another worker: the
+        routed pipeline's migration hook (``migrations_total``)."""
+        self._m_migrations(model).inc()
+
+    def _record_request_telemetry(self, model: str, start: float, first_at: Optional[float],
+                                  last_at: Optional[float], n_tokens: int, ctx: Optional[Context] = None) -> None:
+        """A finished request's e2e telemetry: digests, the SLO verdict and
+        goodput. A request that produced no token is a failure, not a
+        latency violation, and is not judged."""
+        if first_at is None:
+            return
+        now = time.monotonic()
+        ttft_s = max(0.0, first_at - start)
+        self.telemetry.observe("ttft", ttft_s)
+        self.telemetry.observe("request", max(0.0, now - start))
+        tpot_s = None
+        if n_tokens > 1 and last_at is not None and last_at > first_at:
+            tpot_s = (last_at - first_at) / (n_tokens - 1)
+            self.telemetry.observe("tpot", tpot_s)
+        if not self.slo.enabled:
+            return
+        good = self._slo_judge.judge(ttft_s, tpot_s, n_tokens)
+        if not good and ctx is not None and get_tracer().tail:
+            # Tail keep: the violating request's span set is promoted from
+            # the ring once its root span has ended (in _serve's finally).
+            ctx.metadata["_slo_promote"] = True
+        if self.slo.ttft_ms is not None:
+            self._m_slo(model, "ttft", "attained" if ttft_s * 1000.0 <= self.slo.ttft_ms else "violated").inc()
+        if self.slo.tpot_ms is not None and tpot_s is not None:
+            self._m_slo(model, "tpot", "attained" if tpot_s * 1000.0 <= self.slo.tpot_ms else "violated").inc()
+        if good:
+            self._m_goodput_requests(model).inc()
+            self._m_goodput_tokens(model).inc(n_tokens)
+        req_s, tok_s = self._slo_judge.goodput_rates()
+        self._m_goodput_req_s.set(req_s)
+        self._m_goodput_tok_s.set(tok_s)
+
+    def _count_annotation(self, model: str, item: Annotated) -> None:
+        """A pipeline annotation's metric: prompt tokens, queue time or
+        prefix-cache reuse."""
+        if item.event == "_metrics":
+            self._m_input_tokens(model).inc(int(item.comment or 0))
+        elif item.event == "_queue":
+            self._m_queue(model).observe(float(item.comment or 0))
+        elif item.event == "_cached":
+            self._m_cached_tokens(model).inc(int(item.comment or 0))
 
     async def start(self) -> None:
         self._closing = False
@@ -154,7 +283,7 @@ class HttpService:
         try:
             while not self._closing:
                 try:
-                    method, path, version, headers, body = await asyncio.wait_for(_read_request(reader),
+                    method, path, version, headers, body = await asyncio.wait_for(_read_request(reader, writer),
                                                                                   KEEPALIVE_TIMEOUT_S)
                 except HttpError as e:
                     conn.keep_alive = False
@@ -185,6 +314,7 @@ class HttpService:
             "/v1/responses": ("POST", "responses"),
             "/v1/models": ("GET", "models"),
             "/health": ("GET", "health"),
+            "/metrics": ("GET", "metrics"),
         }
         if path not in routes:
             await _respond_json(writer, 404, oai.error_body(f"no route {path}", "not_found", 404))
@@ -195,6 +325,8 @@ class HttpService:
             return
         if kind == "health":
             await _respond_json(writer, 200, {"status": "healthy", "models": self.manager.list_models()})
+        elif kind == "metrics":
+            await _respond(writer, 200, self.metrics.render(), "text/plain; charset=utf-8")
         elif kind == "models":
             now = int(time.time())
             data = [{"id": n, "object": "model", "created": now, "owned_by": "dynamo-tpu"}
@@ -219,9 +351,12 @@ class HttpService:
         model = body["model"]
         engine = self.manager.get("embeddings", model)
         if engine is None:
+            self._m_requests(model, "404").inc()
             await _respond_json(writer, 404, oai.error_body(f"no embeddings model {model!r}", "model_not_found", 404))
             return
         vectors, prompt_tokens = [], 0
+        start = time.monotonic()
+        self._m_inflight(model).inc()
         try:
             async for item in engine.generate(body, Context()):
                 if isinstance(item, Annotated) and item.is_annotation():
@@ -230,10 +365,18 @@ class HttpService:
                 if isinstance(wire, dict) and "embeddings" in wire:
                     vectors = wire["embeddings"]
                     prompt_tokens = int(wire.get("prompt_tokens") or 0)
+            self._m_input_tokens(model).inc(prompt_tokens)
         except Exception as e:
             logger.exception("embeddings request for %s failed", model)
-            await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
+            status, err = (400, oai.error_body(str(e))) if isinstance(e, oai.RequestError) else (
+                500, oai.error_body(str(e), "internal_error", 500))
+            self._m_requests(model, str(status)).inc()
+            await _respond_json(writer, status, err)
             return
+        finally:
+            self._m_inflight(model).dec()
+            self._m_duration(model).observe(time.monotonic() - start)
+        self._m_requests(model, "200").inc()
         usage = oai.usage_dict(prompt_tokens=prompt_tokens, completion_tokens=0)
         await _respond_json(writer, 200, oai.embedding_response(oai.make_id("embd"), model, vectors, usage))
 
@@ -251,6 +394,7 @@ class HttpService:
         model = body["model"]
         engine = self.manager.get("chat", model)
         if engine is None:
+            self._m_requests(model, "404").inc()
             await _respond_json(writer, 404, oai.error_body(f"model {model!r} not found", "model_not_found", 404))
             return
         rid = oai.make_id("resp")
@@ -270,6 +414,7 @@ class HttpService:
             # so a Responses client gets the same 400s.
             oai.validate_chat_request(chat_body)
         except oai.RequestError as e:
+            self._m_requests(model, "400").inc()
             await _respond_json(writer, 400, oai.error_body(str(e)))
             return
         ctx = Context(traceparent=TraceParent.from_headers(headers))
@@ -277,9 +422,12 @@ class HttpService:
             await self._responses_stream(engine, chat_body, ctx, rid, model, writer)
             return
         text_parts, n_tokens, prompt_tokens, cached_tokens, tool_calls = [], 0, 0, None, None
+        start = time.monotonic()
+        self._m_inflight(model).inc()
         try:
             async for item in engine.generate(chat_body, ctx):
                 if isinstance(item, Annotated) and item.is_annotation():
+                    self._count_annotation(model, item)
                     if item.event == "_metrics":
                         prompt_tokens = int(item.comment or 0)
                     elif item.event == "_cached":
@@ -293,16 +441,24 @@ class HttpService:
                 if out.tool_calls:
                     tool_calls = out.tool_calls
                 n_tokens += len(out.token_ids)
+            self._m_output_tokens(model).inc(n_tokens)
         except oai.RequestError as e:
+            self._m_requests(model, "400").inc()
             await _respond_json(writer, 400, oai.error_body(str(e)))
             return
         except NoInstancesError:
+            self._m_requests(model, "503").inc()
             await _respond_json(writer, 503, _no_workers_body(), {"Retry-After": "1"})
             return
         except Exception as e:
             logger.exception("responses request %s failed", ctx.id)
+            self._m_requests(model, "500").inc()
             await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
             return
+        finally:
+            self._m_inflight(model).dec()
+            self._m_duration(model).observe(time.monotonic() - start)
+        self._m_requests(model, "200").inc()
         usage = oai.usage_dict(prompt_tokens=prompt_tokens, completion_tokens=n_tokens, cached_tokens=cached_tokens)
         await _respond_json(writer, 200, oai.responses_response(rid, model, "".join(text_parts), usage,
                                                                  tool_calls=tool_calls))
@@ -339,12 +495,15 @@ class HttpService:
                         "part": {"type": "output_text", "text": "", "annotations": []}})
 
         text_parts, n_tokens, prompt_tokens, cached_tokens, tool_calls = [], 0, 0, None, None
+        start, status = time.monotonic(), "200"
+        self._m_inflight(model).inc()
         try:
             envelope = oai.responses_envelope(rid, model, [], status="in_progress")
             await emit("response.created", {"response": envelope})
             await emit("response.in_progress", {"response": envelope})
             async for item in engine.generate(chat_body, ctx):
                 if isinstance(item, Annotated) and item.is_annotation():
+                    self._count_annotation(model, item)
                     if item.event == "_metrics":
                         prompt_tokens = int(item.comment or 0)
                     elif item.event == "_cached":
@@ -388,13 +547,21 @@ class HttpService:
             await emit("response.completed", {"response": oai.responses_envelope(rid, model, output, usage)})
         except (ConnectionError, asyncio.CancelledError):
             ctx.stop_generating()
+            status = "499"
             raise
         except Exception as e:
             logger.exception("responses stream %s failed", ctx.id)
+            status = "500"
             await emit("error", {"message": str(e)})
+        finally:
+            self._m_inflight(model).dec()
+            self._m_duration(model).observe(time.monotonic() - start)
+            self._m_requests(model, status).inc()
+            self._m_output_tokens(model).inc(n_tokens)
 
     # --- completions --------------------------------------------------------
     async def _serve(self, kind: str, headers: Dict[str, str], raw: bytes, writer) -> None:
+        model = "unknown"
         try:
             body = json.loads(raw)
         except (json.JSONDecodeError, UnicodeDecodeError):
@@ -402,18 +569,20 @@ class HttpService:
             return
         try:
             body = oai.validate_chat_request(body) if kind == "chat" else oai.validate_completion_request(body)
+            model = body["model"]
             body["_tenant"] = _resolve_tenant(body, headers)
         except oai.RequestError as e:
+            self._m_requests(model, "400").inc()
             await _respond_json(writer, 400, oai.error_body(str(e)))
             return
         if body.get("timeout") is None and self.request_timeout_ms:
             # The frontend's default deadline, carried as the client's would
             # be (the preprocessor puts it on the wire).
             body["timeout"] = self.request_timeout_ms / 1000.0
-        model = body["model"]
         engine = self.manager.get(kind, model) or self.manager.get("chat" if kind == "completions" else "completions",
                                                                     model)
         if engine is None:
+            self._m_requests(model, "404").inc()
             await _respond_json(writer, 404, oai.error_body(f"model {model!r} not found", "model_not_found", 404))
             return
         # Pre-flight availability (a routed pipeline counts its router's
@@ -422,14 +591,36 @@ class HttpService:
         if probe is not None and probe() == 0:
             await asyncio.sleep(0.05)  # one watch delivery: absorb races
             if probe() == 0:
+                self._m_no_instances(model).inc()
+                self._m_requests(model, "503").inc()
                 await _respond_json(writer, 503, _no_workers_body(), {"Retry-After": "1"})
                 return
         rid = oai.make_id("chatcmpl" if kind == "chat" else "cmpl")
+        stream = bool(body.get("stream"))
         ctx = Context(traceparent=TraceParent.from_headers(headers))
-        if body.get("stream"):
-            await self._serve_stream(engine, body, ctx, rid, kind, model, writer)
-        else:
-            await self._serve_unary(engine, body, ctx, rid, kind, model, writer)
+        # The request's root (or continuation) span: when it records, the
+        # context is re-rooted under it, so every downstream hop parents
+        # here and reaches the same sampling decision.
+        span = get_tracer().span_from("http_request", ctx.traceparent, service="frontend", model=model, kind=kind,
+                                      stream=stream, tenant=body["_tenant"])
+        if span is not NULL_SPAN:
+            ctx.traceparent = span.child_traceparent()
+        start = time.monotonic()
+        self._m_inflight(model).inc()
+        try:
+            if stream:
+                await self._serve_stream(engine, body, ctx, rid, kind, model, writer, start)
+            else:
+                await self._serve_unary(engine, body, ctx, rid, kind, model, writer, start)
+        finally:
+            self._m_inflight(model).dec()
+            self._m_duration(model).observe(time.monotonic() - start)
+            span.end()
+            if ctx.metadata.pop("_slo_promote", False):
+                promoted = get_tracer().promote(ctx.traceparent.trace_id)
+                if promoted:
+                    logger.info("slo violation: promoted %d buffered trace records for %s", promoted,
+                                ctx.traceparent.trace_id)
 
     @staticmethod
     def _choice_bodies(body: dict) -> list:
@@ -448,11 +639,13 @@ class HttpService:
             out.append(b)
         return out
 
-    async def _serve_unary(self, engine, body, ctx, rid, kind, model, writer) -> None:
+    async def _serve_unary(self, engine, body, ctx, rid, kind, model, writer, start: float) -> None:
         bodies = self._choice_bodies(body)
         prompt_tokens = [0]
         cached_tokens = [None]
         emitted = [0] * len(bodies)  # tokens each choice streamed so far
+        first_at, last_at = [None], [None]
+        trace = _trace_headers(ctx)
 
         async def run_choice(i: int, b: dict, c: Context) -> dict:
             text_parts, reasoning_parts = [], []
@@ -463,6 +656,8 @@ class HttpService:
             top_logprobs: list = []
             async for item in engine.generate(b, c):
                 if isinstance(item, Annotated) and item.is_annotation():
+                    if i == 0:
+                        self._count_annotation(model, item)
                     if item.event == "_metrics" and i == 0:
                         prompt_tokens[0] = int(item.comment or 0)
                     elif item.event == "_cached" and i == 0:
@@ -471,7 +666,12 @@ class HttpService:
                 out = as_engine_output(item)
                 if out is None:
                     continue
+                if out.token_ids:
+                    last_at[0] = time.monotonic()
                 if out.text:
+                    if first_at[0] is None:
+                        first_at[0] = time.monotonic()
+                        self._m_ttft(model).observe(first_at[0] - start)
                     text_parts.append(out.text)
                 if out.reasoning:
                     reasoning_parts.append(out.reasoning)
@@ -504,26 +704,37 @@ class HttpService:
                 t.cancel()
             await asyncio.gather(*tasks, return_exceptions=True)
             if isinstance(e, oai.RequestError):
-                await _respond_json(writer, 400, oai.error_body(str(e)))
+                self._m_requests(model, "400").inc()
+                await _respond_json(writer, 400, oai.error_body(str(e)), trace)
                 return
             if isinstance(e, NoInstancesError):
-                await _respond_json(writer, 503, _no_workers_body(), {"Retry-After": "1"})
+                self._m_no_instances(model).inc()
+                self._m_requests(model, "503").inc()
+                await _respond_json(writer, 503, _no_workers_body(), {"Retry-After": "1", **trace})
                 return
             if isinstance(e, StreamDisconnect):
+                self._m_migration_exhausted(model).inc()
+                self._m_requests(model, "502").inc()
                 err = _migration_exhausted_body(ctx, sum(emitted))
                 err["usage"] = oai.usage_dict(prompt_tokens[0], sum(emitted))
-                await _respond_json(writer, 502, err)
+                await _respond_json(writer, 502, err, trace)
                 return
             logger.exception("request %s failed", ctx.id)
-            await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
+            self._m_requests(model, "500").inc()
+            await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500), trace)
             return
-        usage = oai.usage_dict(prompt_tokens[0], sum(r["n_tokens"] for r in results), cached_tokens[0],
-                               tenant=body.get("_tenant"))
+        total_tokens = sum(r["n_tokens"] for r in results)
+        usage = oai.usage_dict(prompt_tokens[0], total_tokens, cached_tokens[0], tenant=body.get("_tenant"))
         if any(r["finish_reason"] == "timeout" for r in results):
+            self._m_timeouts(model).inc()
+            self._m_requests(model, "504").inc()
             err = oai.error_body("request deadline exceeded", "timeout_error", 504)
             err["usage"] = usage
-            await _respond_json(writer, 504, err)
+            await _respond_json(writer, 504, err, trace)
             return
+        self._m_requests(model, "200").inc()
+        self._m_output_tokens(model).inc(total_tokens)
+        self._record_request_telemetry(model, start, first_at[0], last_at[0], results[0]["n_tokens"], ctx=ctx)
         if kind == "chat":
             choices = [
                 oai.chat_choice(r["index"], r["text"], r["finish_reason"], r["tool_calls"], r["reasoning"],
@@ -541,12 +752,13 @@ class HttpService:
                 for r in results
             ]
             resp = oai.completion_response_multi(rid, model, choices, usage)
-        await _respond_json(writer, 200, resp)
+        await _respond_json(writer, 200, resp, trace)
 
-    async def _serve_stream(self, engine, body, ctx, rid, kind, model, writer) -> None:
+    async def _serve_stream(self, engine, body, ctx, rid, kind, model, writer, start: float) -> None:
         if int(body.get("n") or 1) > 1:
             await self._serve_stream_multi(engine, body, ctx, rid, kind, model, writer)
             return
+        trace = _trace_headers(ctx)
         # The pipeline's request stages (the preprocessor's grammar build
         # among them) run before its first item: a rejection there is still
         # a 400, sent before the stream's 200.
@@ -556,25 +768,32 @@ class HttpService:
         except StopAsyncIteration:
             first = []
         except oai.RequestError as e:
-            await _respond_json(writer, 400, oai.error_body(str(e)))
+            self._m_requests(model, "400").inc()
+            await _respond_json(writer, 400, oai.error_body(str(e)), trace)
             return
         except NoInstancesError:
-            await _respond_json(writer, 503, _no_workers_body(), {"Retry-After": "1"})
+            self._m_no_instances(model).inc()
+            self._m_requests(model, "503").inc()
+            await _respond_json(writer, 503, _no_workers_body(), {"Retry-After": "1", **trace})
             return
         except Exception as e:
             logger.exception("stream %s failed", ctx.id)
-            await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500))
+            self._m_requests(model, "500").inc()
+            await _respond_json(writer, 500, oai.error_body(str(e), "internal_error", 500), trace)
             return
-        _start_sse(writer)
+        _start_sse(writer, trace)
         n_tokens = 0
         prompt_tokens = 0
         cached_tokens = None
+        first_at = prev_tok_at = None
+        status = "200"
         try:
             if kind == "chat":
                 await _sse(writer, oai.chat_chunk(rid, model, {"role": "assistant", "content": ""}))
             async for item in _chain(first, stream):
                 if isinstance(item, Annotated) and item.is_annotation():
                     if item.event.startswith("_"):
+                        self._count_annotation(model, item)
                         if item.event == "_metrics":
                             prompt_tokens = int(item.comment or 0)
                         elif item.event == "_cached":
@@ -585,9 +804,22 @@ class HttpService:
                 out = as_engine_output(item)
                 if out is None:
                     continue
+                if out.text or out.token_ids:
+                    now = time.monotonic()
+                    if first_at is None:
+                        self._m_ttft(model).observe(now - start)
+                        first_at = now
+                    elif prev_tok_at is not None:
+                        self._m_itl(model).observe(now - prev_tok_at)
+                    prev_tok_at = now
                 n_tokens += len(out.token_ids)
                 await _sse_deltas(writer, rid, model, kind, out, 0)
                 if out.finish_reason:
+                    if out.finish_reason == "timeout":
+                        # An engine-side deadline eviction: the 504 lives in
+                        # the finish reason and the status counter.
+                        status = "504"
+                        self._m_timeouts(model).inc()
                     # The final chunk carries the usage block.
                     usage = oai.usage_dict(prompt_tokens, n_tokens, cached_tokens, tenant=body.get("_tenant"))
                     if kind == "chat":
@@ -599,14 +831,25 @@ class HttpService:
         except (ConnectionError, asyncio.CancelledError):
             # Client went away: cancel into the pipeline.
             ctx.stop_generating()
+            status = "499"
             raise
         except NoInstancesError:
+            status = "503"
+            self._m_no_instances(model).inc()
             await _sse(writer, _no_workers_body())
         except StreamDisconnect:
+            status = "502"
+            self._m_migration_exhausted(model).inc()
             await _sse(writer, _migration_exhausted_body(ctx, n_tokens))
         except Exception as e:
             logger.exception("stream %s failed", ctx.id)
+            status = "500"
             await _sse(writer, oai.error_body(str(e), "internal_error", 500))
+        finally:
+            self._m_requests(model, status).inc()
+            self._m_output_tokens(model).inc(n_tokens)
+            if status == "200":
+                self._record_request_telemetry(model, start, first_at, prev_tok_at, n_tokens, ctx=ctx)
         writer.write(b"data: [DONE]\n\n")
         await writer.drain()
 
@@ -618,10 +861,15 @@ class HttpService:
         bodies = self._choice_bodies(body)
         ctxs = [ctx] + [ctx.child(id=f"{ctx.id}-c{i}") for i in range(1, len(bodies))]
         queue: "asyncio.Queue" = asyncio.Queue()
+        n_tokens, status = 0, "200"
 
         async def pump(i: int, b: dict, c: Context):
             try:
                 async for item in engine.generate(b, c):
+                    if isinstance(item, Annotated) and item.is_annotation():
+                        if i == 0:
+                            self._count_annotation(model, item)
+                        continue
                     out = as_engine_output(item)
                     if out is not None:
                         await queue.put((i, out, None))
@@ -635,9 +883,10 @@ class HttpService:
         head = await queue.get()
         try:
             if isinstance(head[2], oai.RequestError):
-                await _respond_json(writer, 400, oai.error_body(str(head[2])))
+                status = "400"
+                await _respond_json(writer, 400, oai.error_body(str(head[2])), _trace_headers(ctx))
                 return
-            _start_sse(writer)
+            _start_sse(writer, _trace_headers(ctx))
             if kind == "chat":
                 for i in range(len(bodies)):
                     await _sse(writer, oai.chat_chunk(rid, model, {"role": "assistant", "content": ""}, index=i))
@@ -649,6 +898,7 @@ class HttpService:
                 if out is None:
                     live -= 1
                 else:
+                    n_tokens += len(out.token_ids)
                     await _sse_deltas(writer, rid, model, kind, out, i)
                     if out.finish_reason:
                         chunk = (oai.chat_chunk(rid, model, {}, finish_reason=out.finish_reason, index=i)
@@ -659,27 +909,29 @@ class HttpService:
                     break
                 item = await queue.get()
         except (ConnectionError, asyncio.CancelledError):
+            status = "499"
             raise
         except Exception as e:
             logger.exception("stream %s failed", ctx.id)
+            status = "500"
             await _sse(writer, oai.error_body(str(e), "internal_error", 500))
         finally:
             ctx.stop_generating()  # and its children: stop what still runs
             for t in tasks:
                 t.cancel()
             await asyncio.gather(*tasks, return_exceptions=True)
+            self._m_requests(model, status).inc()
+            self._m_output_tokens(model).inc(n_tokens)
         writer.write(b"data: [DONE]\n\n")
         await writer.drain()
 
 
-_SSE_HEAD = (b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
-             b"Cache-Control: no-cache\r\nConnection: close\r\n\r\n")
-
-
-def _start_sse(conn: _Conn) -> None:
+def _start_sse(conn: _Conn, headers: Optional[Dict[str, str]] = None) -> None:
     """An SSE response's head; the stream ends its connection."""
     conn.keep_alive = False
-    conn.write(_SSE_HEAD)
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+    conn.write(f"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\nCache-Control: no-cache\r\n{extra}"
+               "Connection: close\r\n\r\n".encode())
 
 
 def _keeps_alive(version: str, headers: Dict[str, str]) -> bool:
@@ -721,7 +973,12 @@ async def _chain(head: list, rest: AsyncIterator):
         yield item
 
 
-async def _read_request(reader: asyncio.StreamReader) -> Tuple[str, str, str, Dict[str, str], bytes]:
+async def _read_request(reader: asyncio.StreamReader, writer: asyncio.StreamWriter
+                        ) -> Tuple[str, str, str, Dict[str, str], bytes]:
+    """One request off the connection: its head, then its body (sized by
+    ``Content-Length``, or chunked). A client that sent ``Expect:
+    100-continue`` with a body gets ``100 Continue`` first, unless its
+    ``Content-Length`` is over the limit (413 at once)."""
     try:
         head = await reader.readuntil(b"\r\n\r\n")
     except asyncio.LimitOverrunError:
@@ -741,28 +998,80 @@ async def _read_request(reader: asyncio.StreamReader) -> Tuple[str, str, str, Di
         if not sep:
             raise HttpError(400, "malformed header line")
         headers[name.strip().lower()] = value.strip()
-    if "chunked" in headers.get("transfer-encoding", "").lower():
-        raise HttpError(411, "chunked request bodies are not supported; send Content-Length")
-    try:
-        length = int(headers.get("content-length", "0"))
-    except ValueError:
-        raise HttpError(400, "invalid Content-Length")
-    if length < 0 or length > MAX_BODY_BYTES:
-        raise HttpError(413, "request body too large")
+    chunked = "chunked" in headers.get("transfer-encoding", "").lower()
+    length = 0
+    if not chunked:
+        try:
+            length = int(headers.get("content-length", "0"))
+        except ValueError:
+            raise HttpError(400, "invalid Content-Length")
+        if length < 0 or length > MAX_BODY_BYTES:
+            raise HttpError(413, "request body too large")
+    if (chunked or length) and version == "HTTP/1.1" and headers.get("expect", "").lower() == "100-continue":
+        writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
+        await writer.drain()
+    if chunked:
+        return method, path, version, headers, await _read_chunked(reader)
     body = await reader.readexactly(length) if length else b""
     return method, path, version, headers, body
 
 
+_HEX = frozenset("0123456789abcdefABCDEF")
+
+
+async def _read_line(reader: asyncio.StreamReader) -> bytes:
+    try:
+        return await reader.readuntil(b"\r\n")
+    except asyncio.LimitOverrunError:
+        raise HttpError(400, "malformed chunked body: line too long")
+
+
+async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
+    """A chunked body: ``size[;extension]CRLF data CRLF`` chunks to a zero
+    size, then trailer lines to an empty one (read and dropped)."""
+    body = bytearray()
+    while True:
+        size_s = (await _read_line(reader))[:-2].split(b";", 1)[0].strip().decode("latin-1")
+        if not size_s or not set(size_s) <= _HEX:
+            raise HttpError(400, "malformed chunked body: bad chunk size")
+        size = int(size_s, 16)
+        if size == 0:
+            break
+        if len(body) + size > MAX_BODY_BYTES:
+            raise HttpError(413, "request body too large")
+        body += await reader.readexactly(size)
+        if await reader.readexactly(2) != b"\r\n":
+            raise HttpError(400, "malformed chunked body: chunk data not followed by CRLF")
+    trailers = 0
+    while True:
+        line = await _read_line(reader)
+        if line == b"\r\n":
+            return bytes(body)
+        trailers += len(line)
+        if trailers > MAX_HEADER_BYTES:
+            raise HttpError(413, "request trailers too large")
+
+
 async def _respond_json(conn: _Conn, status: int, obj: dict, headers: Optional[Dict[str, str]] = None) -> None:
-    payload = json.dumps(obj, ensure_ascii=False).encode()
+    await _respond(conn, status, json.dumps(obj, ensure_ascii=False).encode(), "application/json; charset=utf-8",
+                   headers)
+
+
+async def _respond(conn: _Conn, status: int, payload: bytes, content_type: str,
+                   headers: Optional[Dict[str, str]] = None) -> None:
     extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
     conn.write(
         f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}\r\n"
-        f"Content-Type: application/json; charset=utf-8\r\nContent-Length: {len(payload)}\r\n"
+        f"Content-Type: {content_type}\r\nContent-Length: {len(payload)}\r\n"
         f"{extra}Connection: {'keep-alive' if conn.keep_alive else 'close'}\r\n\r\n".encode()
         + payload
     )
     await conn.drain()
+
+
+def _trace_headers(ctx: Context) -> Dict[str, str]:
+    tp = ctx.traceparent
+    return {TRACE_ID_HEADER: tp.trace_id} if tp is not None else {}
 
 
 async def _sse(writer: asyncio.StreamWriter, obj: dict) -> None:

@@ -153,7 +153,9 @@ def _unfilter(x: np.ndarray, kinds: np.ndarray, bpp: int) -> np.ndarray:
     """Undo PNG's per-row filters. Rows of None/Sub/Up are undone a row at
     a time in numpy; Average and Paeth depend on the byte to the left, so
     an image that uses them is undone along anti-diagonals of pixels (a
-    pixel needs only its left, upper and upper-left neighbours)."""
+    pixel needs only its left, upper and upper-left neighbours), in bands
+    of rows (``_band_rows``), so time and memory grow linearly with the
+    height."""
     h, rb = x.shape
     if not np.isin(kinds, (3, 4)).any():
         out = np.empty_like(x)
@@ -167,21 +169,49 @@ def _unfilter(x: np.ndarray, kinds: np.ndarray, bpp: int) -> np.ndarray:
             out[r] = row
             prev = out[r]
         return out
-    # Skewed layout: diagonal d = r + j is row d of ``st`` (offset by 2, so
-    # diagonals -2 and -1 are zeros), image row r its column r + 1 (column 0
-    # is the zero row above the image). Pixel (r, j)'s left neighbour is then
-    # st[d+1, r+1], its upper one st[d+1, r] and its upper-left st[d, r]:
-    # whole diagonals are contiguous slices.
     w = rb // bpp
-    n_diag = h + w - 1
-    rr, jj = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    xt = np.zeros((n_diag, h, bpp), np.int16)
-    xt[rr + jj, rr] = x.reshape(h, w, bpp)
-    live = np.zeros((n_diag, h, 1), bool)
+    x = x.reshape(h, w, bpp)
+    out = np.empty((h, w, bpp), np.uint8)
+    above = np.zeros((w, bpp), np.int16)  # the zero row above the image
+    step = _band_rows(h, w)
+    for r0 in range(0, h, step):
+        band = _unfilter_band(x[r0:r0 + step], kinds[r0:r0 + step], above)
+        out[r0:r0 + step] = band
+        above = band[-1]
+    return out.reshape(h, rb)
+
+
+def _band_rows(h: int, w: int) -> int:
+    """Rows per band: a band of k rows loops over its k + w - 1 diagonals
+    and holds ``[k + w + 1, k + 1, bpp]`` skewed arrays, so k doubles from
+    16 while those stay within about 4× the image's own size (a wide image
+    is one band; a tall narrow one, bands of a few dozen rows)."""
+    k = 16
+    while k < h and (2 * k) * (2 * k + w) <= 4 * h * w:
+        k *= 2
+    return min(k, h)
+
+
+def _unfilter_band(x: np.ndarray, kinds: np.ndarray, above: np.ndarray) -> np.ndarray:
+    """One band of ``x`` (``[k, w, bpp]`` filtered bytes, the band's filter
+    types), below the reconstructed row ``above`` (``[w, bpp]``) →
+    ``[k, w, bpp]`` int16 reconstructed bytes."""
+    k, w, bpp = x.shape
+    # Skewed layout: diagonal d = r + j is row d + 2 of ``st`` (diagonals -2
+    # and -1 come first), band row r its column r + 1, and column 0 the row
+    # above the band (its pixel j on diagonal j - 1). Pixel (r, j)'s left
+    # neighbour is then st[d+1, r+1], its upper one st[d+1, r] and its
+    # upper-left st[d, r]: whole diagonals are contiguous slices.
+    n_diag = k + w - 1
+    rr, jj = np.meshgrid(np.arange(k), np.arange(w), indexing="ij")
+    xt = np.zeros((n_diag, k, bpp), np.int16)
+    xt[rr + jj, rr] = x
+    live = np.zeros((n_diag, k, 1), bool)
     live[rr + jj, rr] = True
-    st = np.zeros((n_diag + 2, h + 1, bpp), np.int16)
-    k = kinds.astype(np.int16)[:, None]
-    sub, up, avg, paeth = k == 1, k == 2, k == 3, k == 4
+    st = np.zeros((n_diag + 2, k + 1, bpp), np.int16)
+    st[1:w + 1, 0] = above
+    t = kinds.astype(np.int16)[:, None]
+    sub, up, avg, paeth = t == 1, t == 2, t == 3, t == 4
     any_paeth = bool(paeth.any())
     for d in range(n_diag):
         a, b, c = st[d + 1, 1:], st[d + 1, :-1], st[d, :-1]
@@ -191,7 +221,7 @@ def _unfilter(x: np.ndarray, kinds: np.ndarray, bpp: int) -> np.ndarray:
             pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
             pred = np.where(paeth, np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c)), pred)
         st[d + 2, 1:] = np.where(live[d], (xt[d] + pred) & 255, 0)
-    return st[rr + jj + 2, rr + 1].astype(np.uint8).reshape(h, rb)
+    return st[rr + jj + 2, rr + 1]
 
 
 # ---------------------------------------------------------------------------

@@ -99,10 +99,13 @@ class KvRouterConfig:
 class KvPushRouter:
     """AsyncEngine-shaped KV router."""
 
-    def __init__(self, client: Client, config: KvRouterConfig):
+    def __init__(self, client: Client, config: KvRouterConfig, *, metrics=None):
         self.client = client
         self.config = config
-        self.push = PushRouter(client, RouterMode.DIRECT, monitor=WorkerMonitor(config.busy_threshold))
+        # metrics: a runtime.metrics.MetricsRegistry for the push router's
+        # circuit_open{worker} gauges.
+        self.push = PushRouter(client, RouterMode.DIRECT, monitor=WorkerMonitor(config.busy_threshold),
+                               metrics=metrics)
         self.sequences = ActiveSequencesMultiWorker(block_size=config.block_size)
         self.scheduler = KvScheduler(
             self.sequences,
@@ -139,9 +142,10 @@ class KvPushRouter:
         self.elastic_fraction_by_worker: dict = {}
 
     @classmethod
-    async def create(cls, client: Client, config: Optional[KvRouterConfig] = None) -> "KvPushRouter":
+    async def create(cls, client: Client, config: Optional[KvRouterConfig] = None, *,
+                     metrics=None) -> "KvPushRouter":
         config = config or KvRouterConfig()
-        router = cls(client, config)
+        router = cls(client, config, metrics=metrics)
         ep = client.endpoint
         if config.use_kv_events:
             router.subscriber = KvRouterSubscriber(

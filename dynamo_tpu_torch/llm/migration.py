@@ -1,9 +1,9 @@
 """Migration operator: replay an in-flight request on another worker when
 its response stream drops.
 
-A copy of the JAX package's ``llm/migration.py`` without its tracing event
-(ROADMAP Queue 1 item 18): on ``StreamDisconnect`` the tokens already
-emitted are appended to the prompt and the request is pushed again (the
+A copy of the JAX package's ``llm/migration.py``: on ``StreamDisconnect``
+(a ``migration`` event on the request's trace) the tokens already emitted
+are appended to the prompt and the request is pushed again (the
 router picks a live instance), up to ``migration_limit`` times. The log
 line "recreating stream" is kept verbatim. Replay accounting stays honest:
 
@@ -25,6 +25,7 @@ from typing import Any, AsyncIterator, Callable, Optional
 from dynamo_tpu_torch.runtime.engine import Annotated, AsyncEngine, Context, StreamDisconnect
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.pipeline import Operator
+from dynamo_tpu_torch.runtime.tracing import get_tracer
 from dynamo_tpu_torch.runtime.push_router import NoInstancesError
 
 logger = get_logger(__name__)
@@ -87,6 +88,11 @@ class _MigrationEngine:
                 attempts_left -= 1
                 if self.on_migrate is not None:
                     self.on_migrate()
+                tp = context.traceparent
+                if tp is not None:
+                    get_tracer().event("migration", tp.trace_id, parent_id=tp.parent_id, service="frontend",
+                                       request_id=context.id, tokens_emitted=emitted_tokens,
+                                       attempts_left=attempts_left)
                 logger.warning(
                     "recreating stream for request %s (%d migrations left, %d tokens emitted)",
                     context.id,

@@ -11,8 +11,10 @@ and subjects, so either package's routers reach either package's workers:
   values when the message has a reply subject);
 - stats subject   ``stats.{ns}.{comp}.{ep}.{lease_id:x}``: request/reply
   stats scrape.
-Left out: the fault-injection hooks (``stats.reply``, ``worker.frame``,
-ROADMAP Queue 1 item 20) and the worker's tracing span (item 18).
+A served request opens the ``worker_handle`` span on the caller's trace
+(its ``traceparent``), and the engine's events parent under it. Left out:
+the fault-injection hooks (``stats.reply``, ``worker.frame``, ROADMAP Queue
+1 item 20).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Any, AsyncIterator, Callable, Dict, Optional, TYPE_CHECKING
 from dynamo_tpu_torch.runtime import msgpack_codec as msgpack
 from dynamo_tpu_torch.runtime.engine import Annotated, AsyncEngine, Context
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.tracing import NULL_SPAN, get_tracer
 from dynamo_tpu_torch.runtime.transports.tcp import ConnectionInfo, TcpCallHome
 
 if TYPE_CHECKING:
@@ -398,9 +401,15 @@ class _PushEndpoint:
         ctx = Context.from_wire(payload.get("ctx", {}))
         conn = payload.get("conn")
         request = payload.get("request")
-        # The caller's traceparent rides on unchanged (no worker span: ROADMAP
-        # Queue 1 item 18).
         self.in_flight[ctx.id] = ctx
+        # The worker's hop span continues the caller's trace, and the
+        # context is re-rooted under it so the engine's events parent here.
+        span = get_tracer().span_from(
+            "worker_handle", ctx.traceparent, service="worker", endpoint=self.instance.endpoint,
+            instance=f"{self.instance.instance_id:x}", request_id=ctx.id,
+        )
+        if span is not NULL_SPAN:
+            ctx.traceparent = span.child_traceparent()
         tracker = self.drt.runtime.shutdown_tracker
         if self.graceful_shutdown:
             tracker.enter()
@@ -435,6 +444,7 @@ class _PushEndpoint:
         except ConnectionError:
             logger.warning("call-home connection failed for request %s", ctx.id)
         finally:
+            span.end()
             if call_home is not None:
                 await call_home.close()
             self.in_flight.pop(ctx.id, None)

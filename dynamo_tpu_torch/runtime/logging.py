@@ -3,9 +3,10 @@
 A copy of the JAX package's ``runtime/logging.py`` as far as the wire needs
 it: ``init_logging`` / ``get_logger``, and ``TraceParent``'s parse, format
 and child span. A request's context carries the caller's ``traceparent`` to
-the worker unchanged, so a frontend of either package can follow it.
-Tracing spans and the JSONL log format are not ported yet (ROADMAP Queue 1
-item 18).
+the worker, so a frontend of either package can follow it; the spans
+themselves are ``runtime/tracing.py``'s. The JSONL log format
+(``DYN_LOGGING_JSONL``) is not ported yet (ROADMAP Queue 1 item 18, second
+part).
 """
 
 from __future__ import annotations

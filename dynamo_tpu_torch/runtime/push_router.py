@@ -19,9 +19,11 @@ its response frames come back over TCP. The failure lifecycle:
   revoked). ``InstanceGone`` ends the wait, and the request goes to
   another instance; it is no migration, as nothing was streamed. The JAX
   router waits for such a call home without end.
-Left out: the routing-decision evidence for incident bundles and the
-``circuit_open`` gauges (ROADMAP Queue 1 item 18): the breaker's
-``on_transition`` hook counts transitions instead.
+The breaker's ``on_transition`` hook sets the ``circuit_open{worker}``
+gauge (1 open, 0.5 half-open, 0 closed) on the router's ``metrics``
+registry, and every dispatch is a ``route`` event on the request's trace.
+Left out: the routing-decision evidence for incident bundles (ROADMAP
+Queue 1 item 18, second part).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from dynamo_tpu_torch.runtime import msgpack_codec as msgpack
 from dynamo_tpu_torch.runtime.client import Client
 from dynamo_tpu_torch.runtime.engine import Annotated, Context, StreamDisconnect
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.tracing import get_tracer
 
 logger = get_logger(__name__)
 
@@ -233,25 +236,26 @@ class PushRouter:
         monitor: Optional[WorkerMonitor] = None,
         retry: Optional[RetryPolicy] = None,
         breaker: Optional[CircuitBreaker] = None,
+        metrics=None,  # a runtime.metrics.MetricsRegistry: circuit_open{worker}
     ):
         self.client = client
         self.drt = client.drt
         self.mode = mode
         self.monitor = monitor or WorkerMonitor()
+        self._metrics = metrics
         self.retry = retry if retry is not None else RetryPolicy()
         self.breaker = breaker if breaker is not None else CircuitBreaker(
             on_transition=self._on_circuit_transition
         )
-        # Circuit transitions by the state entered (the JAX router feeds a
-        # circuit_open gauge per worker from the same hook; the port's
-        # metrics registry comes with ROADMAP Queue 1 item 18).
-        self.circuit_transitions_total: Dict[str, int] = {}
         self.retries_total = 0
         self._rr = 0
         self._load_task: Optional[asyncio.Task] = None
 
     def _on_circuit_transition(self, wid: int, state: str) -> None:
-        self.circuit_transitions_total[state] = self.circuit_transitions_total.get(state, 0) + 1
+        if self._metrics is not None:
+            self._metrics.gauge(
+                "circuit_open", "per-worker circuit state (1=open, 0.5=half-open)", worker=f"{wid:x}",
+            ).set(1.0 if state == OPEN else (0.5 if state == HALF_OPEN else 0.0))
 
     def follow_load(self, subject: str) -> None:
         """Feed the busy monitor from the workers' load gossip on
@@ -334,6 +338,10 @@ class PushRouter:
         ctx = context or Context()
         while True:
             chosen = await self._select_with_retry(instance_id)
+            tp = ctx.traceparent
+            if tp is not None:
+                get_tracer().event("route", tp.trace_id, parent_id=tp.parent_id, service="frontend",
+                                   instance=f"{chosen:x}", endpoint=self.client.endpoint.path, mode=self.mode.value)
             try:
                 async for item in self._push(request, ctx, chosen):
                     yield item

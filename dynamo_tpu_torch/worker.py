@@ -35,6 +35,25 @@ from ``--draft-checkpoint``), else seeded random at the preset's widths
 tokenize with it, and guided decoding lifts grammars against it; without
 it both use the byte-level tokenizer.
 
+Observability, as the JAX worker wires it: ``--trace-file`` /
+``--trace-sample`` / ``--trace-ring`` / ``--trace-tail`` (or
+``DYN_TRACE_FILE`` / ``DYN_TRACE_SAMPLE`` / ``DYN_TRACE_RING`` /
+``DYN_TRACE_TAIL``) configure the process tracer, service
+``worker-{role}``; given none of them, tracing stays off. The tracer is
+flushed at drain and at shutdown. ``--slo-ttft-ms`` / ``--slo-tpot-ms``
+set the engine's SLO judge, ``--stall-after-s`` its stall watchdog.
+``--health-port`` (0 picks a free port), or ``DYN_SYSTEM_ENABLED`` with
+``DYN_SYSTEM_PORT`` / ``DYN_SYSTEM_HOST``, serves
+``runtime/health.SystemStatusServer`` from before the worker registers (it
+logs ``health server on host:port``): ``/health`` (``DYN_SYSTEM_STARTING_
+HEALTH_STATUS`` until the endpoint is served, then ready; with
+``DYN_SYSTEM_USE_ENDPOINT_HEALTH_STATUS`` the served endpoint's health;
+notready while the watchdog reads a stall; with the watchdog's keys and
+``compiles_after_warmup_total``), ``/live``, ``/metrics`` (the engine's
+latency digests as ``dynamo_component_<stream>_seconds`` histograms and
+quantile gauges), ``/debug/state`` (``TorchEngine.debug_state``),
+``/debug/stacks`` and ``POST /drain``.
+
 At shutdown it logs one line, ``worker launch counters: {json}``: each
 kernel wrapper's launches and plain calls, the scheduler's step, request,
 onboard and export counters, all counted from the moment it registered,
@@ -49,11 +68,9 @@ refuses them (ROADMAP Queue 1, by item):
   model's block size);
 - 17: ``--tp``, ``--dp``, ``--ep``, ``--pp``, ``--num-processes``,
   ``--process-id``, ``--coordinator``, ``--multihost-group``;
-- 18: ``--trace-file``, ``--trace-sample``, ``--trace-ring``, ``--trace-tail``,
-  ``--incident-dir``, ``--incident-keep``, ``--profile-on-incident``,
-  ``--no-continuous-profiling``, ``--profile-window-s``,
-  ``--profile-interval-s``, ``--profile-dir``, ``--slo-ttft-ms``,
-  ``--slo-tpot-ms``, ``--stall-after-s``, ``--health-port``.
+- 18 (its second part): ``--incident-dir``, ``--incident-keep``,
+  ``--profile-on-incident``, ``--no-continuous-profiling``,
+  ``--profile-window-s``, ``--profile-interval-s``, ``--profile-dir``.
 """
 
 from __future__ import annotations
@@ -74,8 +91,13 @@ from dynamo_tpu_torch.llm.entrypoint import register_llm
 from dynamo_tpu_torch.llm.kv_router import KvEventPublisher, WorkerMetricsPublisher
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.tokenizer import load_tokenizer
+from dynamo_tpu_torch.runtime.config import Config, SystemConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.health import HEALTHY, SystemHealth, SystemStatusServer
 from dynamo_tpu_torch.runtime.logging import get_logger, init_logging
+from dynamo_tpu_torch.runtime.metrics import COMPONENT_PREFIX, MetricsRegistry
+from dynamo_tpu_torch.runtime.telemetry import DigestCollector
+from dynamo_tpu_torch.runtime.tracing import add_trace_args, get_tracer, setup_tracing
 
 logger = get_logger(__name__)
 
@@ -258,6 +280,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode role: prompts up to this many tokens prefill locally")
     p.add_argument("--kv-transfer", choices=["device", "host"], default="device",
                    help="decode role: pull the KV on the card (CUDA IPC) or as host bytes over TCP")
+    add_trace_args(p)
+    p.add_argument("--slo-ttft-ms", type=float, default=None,
+                   help="TTFT SLO target in ms (enables the slo_*/goodput counters)")
+    p.add_argument("--slo-tpot-ms", type=float, default=None, help="per-output-token latency SLO target in ms")
+    p.add_argument("--stall-after-s", type=float, default=120.0,
+                   help="watchdog: step loop idle this long with work queued => engine_stalled")
+    p.add_argument("--health-port", type=int, default=None,
+                   help="serve /health, /live, /metrics and /debug/state on this port (0 = a free one)")
     return p
 
 
@@ -271,7 +301,9 @@ def build_engine(args: argparse.Namespace) -> TorchEngine:
             device=args.device,
             checkpoint_path=args.checkpoint,
             eos_token_ids=tokenizer.eos_token_ids,
-            scheduler=SchedulerConfig(num_blocks=args.num_blocks, max_running=args.max_running),
+            scheduler=SchedulerConfig(num_blocks=args.num_blocks, max_running=args.max_running,
+                                      slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms,
+                                      stall_after_s=args.stall_after_s),
             draft_model=args.draft_model,
             draft_checkpoint_path=args.draft_checkpoint,
             spec_gamma=args.spec_gamma,
@@ -316,6 +348,54 @@ async def serve_encoder(args: argparse.Namespace) -> None:
         logger.info("encode worker counters: %s", json.dumps(handler.stats_handler()))
 
 
+def system_config(args: argparse.Namespace) -> SystemConfig:
+    """The status server's settings: ``DYN_SYSTEM_*``, where
+    ``--health-port`` turns the server on at its port."""
+    cfg = Config.from_env().system
+    if args.health_port is not None:
+        cfg.enabled, cfg.port = True, args.health_port
+    return cfg
+
+
+async def start_health_server(cfg: SystemConfig, engine: TorchEngine) -> SystemStatusServer:
+    """The system status server at ``cfg.host:cfg.port``, started before the
+    worker registers: until ``mark_served`` its readiness is
+    ``cfg.starting_health_status`` (or, with
+    ``cfg.use_endpoint_health_status``, that of the served endpoints: none
+    yet). Readiness also follows the stall watchdog (the compile tracker's
+    count rides along), ``/debug/state`` is the engine's, and ``/metrics``
+    renders the engine's latency digests as the ``dynamo_component_*``
+    histogram and quantile families."""
+    health = SystemHealth(starting_status=cfg.starting_health_status,
+                          use_endpoint_health=cfg.use_endpoint_health_status)
+    health.attach_engine(lambda: {**engine.watchdog.to_stats(),
+                                  "compiles_after_warmup_total": engine.scheduler.flight.compiles_after_warmup_total})
+    metrics = MetricsRegistry(prefix=COMPONENT_PREFIX)
+    DigestCollector(COMPONENT_PREFIX, registry=metrics.registry, telemetry=engine.scheduler.telemetry)
+    server = SystemStatusServer(health, metrics=metrics, config=cfg, state_probe=engine.debug_state)
+    await server.start()
+    logger.info("health server on %s:%d", cfg.host, server.port)
+    return server
+
+
+def mark_served(server: SystemStatusServer, drt: DistributedRuntime, worker: Worker, endpoint_path: str) -> None:
+    """The worker serves ``endpoint_path``: the process and the endpoint
+    read ready, and ``POST /drain`` now removes the endpoint, deregisters,
+    drains, flushes the tracer and ends the process as SIGTERM does."""
+    health = server.health
+    health.set_endpoint_health(endpoint_path, HEALTHY)
+    health.set_system_ready()
+
+    async def drain_and_exit() -> None:
+        logger.warning("drain requested for instance %x", worker.instance_id)
+        health.remove_endpoint(endpoint_path)
+        await worker.handle.stop(drain=True)
+        get_tracer().flush()
+        drt.runtime.trigger_shutdown()
+
+    server.drain_cb = drain_and_exit
+
+
 async def amain(args: argparse.Namespace) -> None:
     if args.role == "encode":
         await serve_encoder(args)
@@ -330,9 +410,13 @@ async def amain(args: argparse.Namespace) -> None:
         engine.kvbm.attach_remote(RemotePool(drt, asyncio.get_running_loop()))
     card = build_card(args, engine)
     component = args.component or ("backend" if args.role == "aggregated" else args.role)
+    sys_cfg = system_config(args)
+    status_server = await start_health_server(sys_cfg, engine) if sys_cfg.enabled else None
     worker = await serve_engine(drt, engine, card, namespace=args.namespace, component=component,
                                 endpoint=args.endpoint, role=args.role, kv_transfer=args.kv_transfer,
                                 max_local_prefill_length=args.max_local_prefill_length)
+    if status_server is not None:
+        mark_served(status_server, drt, worker, f"{args.namespace}/{component}/{args.endpoint}")
     logger.info("worker ready: role=%s model=%s instance=%x", args.role, card.name, worker.instance_id)
     asyncio.get_running_loop().add_signal_handler(
         signal.SIGUSR1, lambda: logger.info("worker launch counters: %s", json.dumps(counters_since(engine, worker.base))))
@@ -340,7 +424,10 @@ async def amain(args: argparse.Namespace) -> None:
         await drt.runtime.cancellation.cancelled()
     finally:
         disagg = worker.handler.stats_handler() if worker.handler is not None else None
+        if status_server is not None:
+            await status_server.stop()
         await worker.stop()
+        get_tracer().flush()
         await drt.shutdown()
         await engine.stop()
         counters = counters_since(engine, worker.base)
@@ -351,7 +438,9 @@ async def amain(args: argparse.Namespace) -> None:
 
 def main() -> None:
     init_logging()
-    asyncio.run(amain(build_parser().parse_args()))
+    args = build_parser().parse_args()
+    setup_tracing(args, f"worker-{args.role}")
+    asyncio.run(amain(args))
 
 
 if __name__ == "__main__":

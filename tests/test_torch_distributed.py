@@ -13,17 +13,21 @@ publish, TCP call-home response frames) and never takes ``local_engines``:
    JAX router indexes its KV events, and the JAX client scrapes its stats:
    the wire, the KV events and the stats keys are the same;
 3. with ``migration_limit=1``, stopping the worker that holds a stream
-   half-way still gives the client the whole answer; with no migration
-   budget the unary answer is a 502 with the tokens it had streamed;
+   half-way still gives the client the whole answer, and the frontend's
+   ``migrations_total`` counts the replay; with no migration budget the
+   unary answer is a 502 with the tokens it had streamed;
 4. ``--busy-threshold`` skips a worker whose gossiped KV usage reaches
    it, in every router mode;
 5. ``TorchEngine.stats_handler``'s keys are a subset of the JAX
    ``stats_handler``'s on the same request trace, and every count-valued
-   key is equal;
+   key is equal but the compile trackers' (XLA compiles against graph
+   captures), every gauge too but host times and what derives from them,
+   and the digests hold the same streams with the same sample counts;
 6. the CLIs: ``python -m dynamo_tpu_torch.control_plane`` / ``.worker
    --device cpu`` / ``.frontend`` as processes answer one request and exit
    cleanly on SIGTERM; the worker defaults to ``--device cuda`` and raises
-   without CUDA; JAX flags whose feature is not ported are refused;
+   without CUDA; JAX flags whose feature is not ported are refused, and
+   the ported observability flags parse to the JAX CLIs' defaults;
 7. a port worker built by the CLI's ``build_engine`` / ``build_card`` from
    ``--checkpoint`` and ``--tokenizer`` files (tiny's widths, 1,024 ids, a
    Llama-3-layout tokenizer) behind the port's frontend and behind the JAX
@@ -72,6 +76,7 @@ from dynamo_tpu_torch.llm import entrypoint as pentry
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.runtime.metrics import parse_text
 from dynamo_tpu_torch.runtime.runtime import Runtime
 from dynamo_tpu_torch.runtime.transports import tcp_control as ptcp
 
@@ -405,12 +410,16 @@ async def _migrating(weights):
         before = [e.scheduler.request_total for e in stack.engines]
         migrated = await run(stop_after=2)
         served = [e.scheduler.request_total - b for e, b in zip(stack.engines, before)]
-        return whole, migrated, served, stack.workers.index(migrated[2])
+        fam = parse_text(stack.service.metrics.render().decode())["dynamo_frontend_migrations_total"]
+        counted = {labels["model"]: v for name, labels, v in fam["samples"] if name.endswith("_total")}
+        return whole, migrated, served, stack.workers.index(migrated[2]), counted
 
 
 def test_migration_completes_a_severed_stream(weights, caplog):
-    whole, migrated, served, stopped = asyncio.run(_migrating(weights))
+    whole, migrated, served, stopped, counted = asyncio.run(_migrating(weights))
     assert migrated[:2] == whole[:2] and whole[1] == "length" and len(whole[0]) > 0
+    # The frontend's /metrics counts the one replay.
+    assert counted == {MODEL: 1.0}
     # The stopped worker took the request, the other the replay.
     assert served[stopped] == 1 and served[1 - stopped] == 1
     assert any("recreating stream" in r.getMessage() for r in caplog.records)
@@ -497,15 +506,28 @@ def test_stats_handler_keys_and_counts_match_jax(weights):
     j_tokens, ref = asyncio.run(_stats(jax_engine(jp, num_scheduler_steps=1), JaxContext))
     assert p_tokens == j_tokens
     assert set(port) <= set(ref), set(port) - set(ref)
-    counts = {k for k, v in port.items() if isinstance(v, int)}
-    assert counts >= {"cached_tokens_total", "prefix_hit_blocks_total", "mixed_steps_total", "kv_total_blocks"}
+    # The compile trackers count different things (XLA compiles in JAX, step
+    # graph captures in the port, none on the CPU): both present, not equal.
+    compiles = {"compiles_total", "compiles_after_warmup_total"}
+    counts = {k for k, v in port.items() if isinstance(v, int)} - compiles
+    assert counts >= {"cached_tokens_total", "prefix_hit_blocks_total", "mixed_steps_total", "kv_total_blocks",
+                      "step_prefill_steps_total", "step_decode_tokens_total", "decode_host_gap_events_total"}
     assert {k: port[k] for k in counts} == {k: ref[k] for k in counts}
-    assert port["cached_tokens_total"] > 0
-    # The first-token wait sums are host seconds (JAX's hold its compiles):
-    # each package's own, not the other's.
-    waits = {"queue_wait_seconds_total", "prefill_wait_seconds_total"}
-    assert all(port[k] >= 0 and ref[k] >= 0 for k in waits) and port["prefill_wait_seconds_total"] > 0
-    for k in set(port) - counts - waits:  # the gauges: usage, fragmentation, hit rate, dial fraction
+    assert port["cached_tokens_total"] > 0 and port["compiles_after_warmup_total"] == 0
+    # Host seconds, and the rates and fractions over them, are each
+    # package's own (JAX's hold its compiles), not the other's.
+    timed = {k for k in port if k.endswith("_seconds_total") or k.startswith(("mfu_", "hbm_frac_"))
+             or k in ("last_step_age_s", "goodput_req_per_s", "goodput_tok_per_s")}
+    assert all(port[k] >= 0 and ref[k] >= 0 for k in timed) and port["prefill_wait_seconds_total"] > 0
+    # The digests: the same streams, each with the same number of samples.
+    assert {n: d["total"]["count"] for n, d in port.pop("digests").items()} == {
+        n: d["total"]["count"] for n, d in ref["digests"].items()}
+    # Bytes follow the attention path's KV-read factor: the port's "auto" is
+    # the ragged kernel (each page read once), JAX's on the CPU the gather
+    # (read, copied and read again), so the port's are at most JAX's.
+    moved = {k for k in port if k.endswith("_bytes_total")}
+    assert moved and all(0 < port[k] <= ref[k] for k in moved)
+    for k in set(port) - counts - compiles - timed - moved:  # gauges: usage, fragmentation, hit rate, dial, FLOPs
         assert port[k] == pytest.approx(ref[k]), k
 
 
@@ -604,8 +626,8 @@ def test_worker_defaults_to_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize("cli,flags", [
     ("worker", ["--mocker"]), ("worker", ["--dp", "2"]), ("worker", ["--tp", "2"]),
-    ("worker", ["--health-port", "0"]), ("worker", ["--incident-dir", "x"]), ("worker", ["--speedup-ratio", "2"]),
-    ("frontend", ["--grpc-port", "1"]), ("frontend", ["--slo-ttft-ms", "1"]), ("frontend", ["--trace-file", "x"]),
+    ("worker", ["--profile-dir", "x"]), ("worker", ["--incident-dir", "x"]), ("worker", ["--speedup-ratio", "2"]),
+    ("frontend", ["--grpc-port", "1"]), ("frontend", ["--fault-scenario", "x"]), ("worker", ["--pp", "2"]),
 ])
 def test_unported_jax_flags_are_refused(cli, flags):
     from dynamo_tpu_torch import frontend as pfrontend
@@ -613,6 +635,40 @@ def test_unported_jax_flags_are_refused(cli, flags):
     parser = (pworker if cli == "worker" else pfrontend).build_parser()
     with pytest.raises(SystemExit):
         parser.parse_args(flags)
+
+
+OBSERVABILITY_FLAGS = {
+    "worker": ["trace_file", "trace_sample", "trace_ring", "trace_tail", "slo_ttft_ms", "slo_tpot_ms",
+               "stall_after_s", "health_port"],
+    "frontend": ["trace_file", "trace_sample", "trace_ring", "trace_tail", "slo_ttft_ms", "slo_tpot_ms"],
+}
+
+
+@pytest.mark.parametrize("cli", sorted(OBSERVABILITY_FLAGS))
+def test_observability_flags_parse_to_jax_defaults_and_values(cli):
+    """The tracer, SLO, watchdog and health flags parse to the JAX CLI's
+    defaults, and to its values when given."""
+    from dynamo_tpu import frontend as jfrontend
+    from dynamo_tpu import worker as jworker
+    from dynamo_tpu_torch import frontend as pfrontend
+
+    port, ref = (pworker, jworker) if cli == "worker" else (pfrontend, jfrontend)
+    keys = OBSERVABILITY_FLAGS[cli]
+    given = ["--trace-file", "t.jsonl", "--trace-sample", "0.25", "--trace-ring", "64", "--trace-tail",
+             "--slo-ttft-ms", "300", "--slo-tpot-ms", "40"]
+    if cli == "worker":
+        given += ["--stall-after-s", "9", "--health-port", "0"]
+    for argv in ([], given):
+        a, b = vars(port.build_parser().parse_args(argv)), vars(ref.build_parser().parse_args(argv))
+        assert {k: a[k] for k in keys} == {k: b[k] for k in keys}, argv
+    args = port.build_parser().parse_args(given)
+    if cli == "worker":
+        sc = SchedulerConfig(slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms,
+                             stall_after_s=args.stall_after_s)
+        assert (sc.slo_ttft_ms, sc.slo_tpot_ms, sc.stall_after_s) == (300.0, 40.0, 9.0)
+    else:
+        cfg = pfrontend.frontend_config(args)
+        assert (cfg.slo_ttft_ms, cfg.slo_tpot_ms) == (300.0, 40.0)
 
 
 def test_disagg_and_kvbm_flags_parse():

@@ -12,6 +12,16 @@
   and the refusal of only one of the two paths (service and frontend).
 - ``request_timeout_ms``: a request with no ``timeout`` gets JAX's 504 body
   and the scheduler evicts its row (nothing left running).
+- Request bodies: with ``Expect: 100-continue`` the interim line comes
+  within a curl-like client's 1 s wait (under 0.3 s) and the answer is
+  JAX's; an over-limit ``Content-Length`` is a 413 with no interim line. A
+  chunked body (sizes in hex, an extension, a trailer) answers what JAX
+  answers; over the limit it is a 413, a malformed chunk a 400, and a
+  kept-alive connection serves the next request after it.
+- ``GET /metrics`` after the same traffic on both: the same families,
+  types and label sets, equal counters and equal latency-histogram and
+  digest sample counts (ITL and TPOT aside: they follow how tokens batch
+  into frames), SLO verdicts included; the trace id is echoed.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import json
 import socket
 import ssl
 import subprocess
+import time
 
 import jax
 import jax.numpy as jnp
@@ -287,3 +298,226 @@ async def test_request_timeout_gives_jax_504(weights):
         assert status == 200 and got["usage"]["completion_tokens"] == 4
         sched = pair.engine.scheduler
         assert not sched.running and not sched.waiting and sched.allocator.num_active == 0
+
+
+# ---------------------------------------------------------------------------
+# Request bodies: Expect: 100-continue and chunked transfer coding
+# ---------------------------------------------------------------------------
+
+CHAT = {"model": MODEL, "messages": [{"role": "user", "content": "continue me"}], "max_tokens": 5, "temperature": 0.0}
+
+
+def _head(path: str, extra: bytes) -> bytes:
+    return b"POST " + path.encode() + b" HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\n" + extra + b"\r\n"
+
+
+def _split_response(raw: bytes):
+    head, _, body = raw.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    headers = {k.strip().lower(): v.strip() for k, _, v in (ln.partition(":") for ln in lines[1:])}
+    return int(lines[0].split()[1]), headers, body
+
+
+def _curl_like(port: int, head: bytes, body: bytes, wait_s: float = 1.0):
+    """A client that sends the head, waits up to ``wait_s`` for an interim
+    ``100 Continue`` (curl's default for large bodies), then sends the body
+    and reads to EOF (the head says ``Connection: close``) → (seconds to the
+    interim line or None, status, headers, body)."""
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
+        s.sendall(head)
+        t0 = time.perf_counter()
+        s.settimeout(wait_s)
+        buf, interim = b"", None
+        try:
+            while b"\r\n\r\n" not in buf:
+                data = s.recv(4096)
+                if not data:
+                    break
+                buf += data
+        except socket.timeout:
+            pass
+        if buf.startswith(b"HTTP/1.1 100"):
+            interim = time.perf_counter() - t0
+            buf = buf.split(b"\r\n\r\n", 1)[1]
+        s.settimeout(120)
+        if not buf:  # no final answer yet: the body goes
+            s.sendall(body)
+        while True:
+            data = s.recv(65536)
+            if not data:
+                break
+            buf += data
+    return (interim, *_split_response(buf))
+
+
+def _answer(body: bytes) -> dict:
+    data = json.loads(body)
+    return {k: v for k, v in data.items() if k not in ("id", "created")}
+
+
+async def test_expect_100_continue_answers_within_the_wait(weights):
+    """The interim line comes at once (the JAX service's aiohttp sends it
+    too), and the answer equals the JAX service's; a body over the limit is
+    a 413 with no interim line."""
+    from dynamo_tpu_torch.llm.http import service as svc
+
+    body = json.dumps(CHAT).encode()
+    head = _head("/v1/chat/completions", b"Connection: close\r\nExpect: 100-continue\r\nContent-Length: "
+                 + str(len(body)).encode() + b"\r\n")
+    async with _Pair(weights) as pair:
+        got = await asyncio.to_thread(_curl_like, pair.service.port, head, body)
+        want = await asyncio.to_thread(_curl_like, pair.jservice.port, head, body)
+        big = _head("/v1/chat/completions", b"Connection: close\r\nExpect: 100-continue\r\nContent-Length: "
+                    + str(svc.MAX_BODY_BYTES + 1).encode() + b"\r\n")
+        over = await asyncio.to_thread(_curl_like, pair.service.port, big, b"")
+    assert got[0] is not None and got[0] < 0.3, got[0]
+    assert want[0] is not None
+    assert got[1] == want[1] == 200 and _answer(got[3]) == _answer(want[3])
+    assert over[0] is None and over[1] == 413
+
+
+def _chunked(body: bytes, sizes=(7, 1, 30)) -> bytes:
+    """``body`` in chunks of ``sizes`` (the rest in the last), one with a
+    chunk extension, then the last chunk and a trailer."""
+    out, i = b"", 0
+    for n, ext in zip(list(sizes) + [len(body)], (b"", b";name=value", b"", b"")):
+        part = body[i:i + n]
+        if not part:
+            break
+        out += f"{len(part):x}".encode() + ext + b"\r\n" + part + b"\r\n"
+        i += len(part)
+    return out + b"0\r\nX-Checksum: none\r\n\r\n"
+
+
+async def test_chunked_bodies(weights, monkeypatch):
+    """A chunked chat request answers what the JAX service answers; a
+    chunked body over the limit is a 413; a bad chunk size, or chunk data not
+    followed by CRLF, a 400; and a kept-alive connection serves a second
+    request after a chunked one."""
+    from dynamo_tpu_torch.llm.http import service as svc
+
+    body = json.dumps(CHAT).encode()
+    head = _head("/v1/chat/completions", b"Connection: close\r\nTransfer-Encoding: chunked\r\n")
+    async with _Pair(weights) as pair:
+        got = await asyncio.to_thread(_curl_like, pair.service.port, head, _chunked(body))
+        want = await asyncio.to_thread(_curl_like, pair.jservice.port, head, _chunked(body))
+        bad = [await asyncio.to_thread(_curl_like, pair.service.port, head, raw)
+               for raw in (b"zz\r\n{}\r\n0\r\n\r\n", b"0x2\r\n{}\r\n0\r\n\r\n", b"2\r\n{}XX0\r\n\r\n")]
+
+        def keep_alive(port):
+            plain = json.dumps({**CHAT, "max_tokens": 2}).encode()
+            with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
+                f = s.makefile("rb")
+                s.sendall(_head("/v1/chat/completions", b"Transfer-Encoding: chunked\r\n") + _chunked(body))
+                first = _read_response(f)
+                s.sendall(_head("/v1/chat/completions", b"Content-Length: " + str(len(plain)).encode() + b"\r\n")
+                          + plain)
+                return first, _read_response(f)
+
+        kept = await asyncio.to_thread(keep_alive, pair.service.port)
+        monkeypatch.setattr(svc, "MAX_BODY_BYTES", 16)
+        over = await asyncio.to_thread(_curl_like, pair.service.port, head, _chunked(body))
+    assert got[1] == want[1] == 200 and _answer(got[3]) == _answer(want[3])
+    assert [b[1] for b in bad] == [400, 400, 400] and all(b"chunked" in b[3] for b in bad)
+    assert [r[0] for r in kept] == [200, 200] and kept[0][1]["connection"] == "keep-alive"
+    assert over[1] == 413
+
+
+# ---------------------------------------------------------------------------
+# /metrics against the JAX service's
+# ---------------------------------------------------------------------------
+
+
+def _get_text(port: int, path: str, headers=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path, headers=headers or {})
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    return resp.status, resp.getheader("Content-Type", ""), raw.decode()
+
+
+def _status(port: int, path: str, body: dict) -> int:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    resp.read()
+    conn.close()
+    return resp.status
+
+
+def _traced_post(port: int, body: dict, traceparent: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                 {"Content-Type": "application/json", "traceparent": traceparent})
+    resp = conn.getresponse()
+    resp.read()
+    conn.close()
+    return resp.status, resp.getheader("x-dynamo-trace-id")
+
+
+METRIC_TRAFFIC = [
+    ("/v1/chat/completions", {**CHAT, "max_tokens": 6}),
+    ("/v1/chat/completions", {**CHAT, "max_tokens": 6, "stream": True}),
+    ("/v1/completions", {"model": MODEL, "prompt": "count the", "max_tokens": 5, "temperature": 0.0,
+                         "stream": True}),
+    ("/v1/completions", {"model": MODEL, "prompt": "count the", "max_tokens": 4, "temperature": 0.0}),
+    ("/v1/chat/completions", {"model": "nope", "messages": [{"role": "user", "content": "x"}]}),
+    ("/v1/chat/completions", {"model": MODEL, "messages": []}),
+    ("/v1/responses", {"model": MODEL, "input": "say hi", "max_output_tokens": 4}),
+    ("/v1/chat/completions", {**CHAT, "max_tokens": 1}),  # no TPOT to miss: goodput
+]
+
+
+async def test_metrics_families_and_counters_match_jax(weights):
+    """After the same requests (unary and streamed chat and completions, a
+    404, a 400, a Responses call, a one-token chat) both services' ``/metrics`` hold the same
+    families with the same types and label sets; every counter is equal,
+    and so is each latency histogram's and digest's sample count (but ITL's,
+    which follows how tokens batch into frames). SLO targets (TTFT met,
+    TPOT missed on purpose) give the same verdict counters."""
+    from dynamo_tpu.runtime import telemetry as jtel
+    from dynamo_tpu_torch.llm.http.service import FRONTEND_DIGEST_FAMILIES
+    from dynamo_tpu_torch.runtime import telemetry as ptel
+    from dynamo_tpu_torch.runtime.metrics import parse_text
+
+    async with _Pair(weights) as pair:
+        for service, tel in ((pair.service, ptel), (pair.jservice, jtel)):
+            service.slo = tel.SloConfig(ttft_ms=60000.0, tpot_ms=1e-6)
+            service._slo_judge = tel.SloJudge(service.slo)
+        for path, body in METRIC_TRAFFIC:
+            status, jstatus = [await asyncio.to_thread(_status, s.port, path, body)
+                               for s in (pair.service, pair.jservice)]
+            assert status == jstatus, (path, body)
+        tp = f"00-{'ef' * 16}-{'12' * 8}-01"
+        echo = [await asyncio.to_thread(_traced_post, s.port, CHAT, tp) for s in (pair.service, pair.jservice)]
+        got = await asyncio.to_thread(_get_text, pair.service.port, "/metrics")
+        want = await asyncio.to_thread(_get_text, pair.jservice.port, "/metrics")
+    assert echo[0] == echo[1] == (200, "ef" * 16)
+    assert got[0] == want[0] == 200 and got[1].startswith("text/plain") and want[1].startswith("text/plain")
+    g, w = parse_text(got[2]), parse_text(want[2])
+    assert {k: v["type"] for k, v in g.items()} == {k: v["type"] for k, v in w.items()}
+    for family in ("requests_total", "inflight_requests", "time_to_first_token_seconds",
+                   "inter_token_latency_seconds", "request_duration_seconds", "queue_time_seconds",
+                   "output_tokens_total", "input_tokens_total", "slo_attained_total", "slo_violated_total",
+                   "goodput_requests_total", "goodput_tokens_total", "goodput_requests_per_s",
+                   "goodput_tokens_per_s", *FRONTEND_DIGEST_FAMILIES):
+        assert "dynamo_frontend_" + family in g, family
+
+    def series(fams, name, suffix=""):
+        return {tuple(sorted((k, v) for k, v in lab.items() if k != "le")): val
+                for n, lab, val in fams[name]["samples"] if n == name.removesuffix("_total") + suffix}
+
+    for name, fam in w.items():
+        labels = lambda fams: sorted({tuple(sorted(lab)) for _, lab, _ in fams[name]["samples"]})  # noqa: E731
+        assert labels(g) == labels(w), name
+        if fam["type"] == "counter":
+            assert series(g, name, "_total") == series(w, name, "_total"), name
+        elif fam["type"] == "histogram" and "inter_token" not in name and "tpot" not in name:
+            assert series(g, name, "_count") == series(w, name, "_count"), name
+    assert series(g, "dynamo_frontend_requests_total", "_total") == {
+        (("model", MODEL), ("status", "200")): 7.0, (("model", "nope"), ("status", "404")): 1.0,
+        (("model", "unknown"), ("status", "400")): 1.0}
+    assert series(g, "dynamo_frontend_inflight_requests") == {(("model", MODEL),): 0.0}
+    assert series(g, "dynamo_frontend_slo_violated_total", "_total") == {(("model", MODEL), ("phase", "tpot")): 5.0}
+    assert series(g, "dynamo_frontend_goodput_requests_total", "_total") == {(("model", MODEL),): 1.0}

@@ -7,8 +7,10 @@ JPEGs from PIL's libjpeg-turbo writer at 4:4:4, 4:2:2 and 4:2:0, grey, odd
 and non-square sizes and restart markers. A PNG's data URL must decode
 bit-equal to the JAX package's ``decode_image_data_url``; a JPEG's aims at
 bit equality and may differ by at most 1/255 (the largest difference seen
-is written in ROADMAP Queue 3). Refused formats raise a ``ValueError``
-naming them.
+is written in ROADMAP Queue 3). Average and Paeth rows of wide, tall and
+narrow PNGs are bit-equal to PIL's, and a tall one's decode allocates
+linearly in its height. Refused formats raise a ``ValueError`` naming
+them.
 """
 
 from __future__ import annotations
@@ -100,8 +102,9 @@ def _pack(samples: np.ndarray, depth: int) -> np.ndarray:
 
 
 def _write_png(samples: np.ndarray, depth: int, ctype: int, *, interlace: bool, seed: int,
-               palette: np.ndarray = None) -> bytes:
-    """A PNG of ``samples`` [h, w, ch] with a random filter type per row."""
+               palette: np.ndarray = None, kind: int = None) -> bytes:
+    """A PNG of ``samples`` [h, w, ch] with a random filter type per row, or
+    filter ``kind`` on every row."""
     rng = np.random.default_rng(seed)
     h, w, ch = samples.shape
     bpp = max(1, depth * ch // 8)
@@ -114,9 +117,9 @@ def _write_png(samples: np.ndarray, depth: int, ctype: int, *, interlace: bool, 
         rows = _pack(sub.reshape(sub.shape[0], -1), depth)
         prev = np.zeros(rows.shape[1], np.uint8)
         for row in rows:
-            kind = int(rng.integers(0, 5))
-            data.append(kind)
-            data += _filter_row(row, prev, kind, bpp).tobytes()
+            k = int(rng.integers(0, 5)) if kind is None else kind
+            data.append(k)
+            data += _filter_row(row, prev, k, bpp).tobytes()
             prev = row
     out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace)))
     if palette is not None:
@@ -141,6 +144,34 @@ def test_written_png_bit_equal(ctype, depth, interlace):
     raw = _write_png(samples, depth, ctype, interlace=interlace, seed=depth, palette=palette)
     np.testing.assert_array_equal(dec.decode_image(raw), _pil_rgb(raw))
     np.testing.assert_array_equal(dec.decode_image_data_url(_url(raw), 32), jax_decode(_url(raw), 32))
+
+
+# Average and Paeth rows are undone along anti-diagonals, in bands of rows:
+# wide, tall and narrow images against PIL, bit for bit.
+@pytest.mark.parametrize("kind", [3, 4, None], ids=["average", "paeth", "random"])
+@pytest.mark.parametrize("w,h", [(8000, 1), (1, 8000), (4000, 3), (300, 200)])
+def test_average_and_paeth_rows_bit_equal_at_any_shape(w, h, kind):
+    samples = np.random.default_rng(w * 7 + h).integers(0, 256, (h, w, 3)).astype(np.uint8)
+    raw = _write_png(samples, 8, 2, interlace=False, seed=w + h, kind=kind)
+    np.testing.assert_array_equal(dec.decode_image(raw), _pil_rgb(raw))
+
+
+def test_unfilter_memory_is_linear_in_height():
+    """A 1-wide, 8000-tall Paeth PNG (28 KB): the decode's peak allocation
+    stays under 50× its pixel bytes (one wavefront over every row held
+    [h + w − 1, h, bpp] int16 arrays, 0.38 GB each here)."""
+    import tracemalloc
+
+    samples = np.random.default_rng(3).integers(0, 256, (8000, 1, 3)).astype(np.uint8)
+    raw = _write_png(samples, 8, 2, interlace=False, seed=0, kind=4)
+    tracemalloc.start()
+    try:
+        got = dec.decode_image(raw)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    np.testing.assert_array_equal(got, samples)
+    assert peak < 50 * samples.nbytes, peak
 
 
 JPEG_MAX_DIFF = 1  # in 8-bit steps, i.e. 1/255 after the division

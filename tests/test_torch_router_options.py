@@ -15,7 +15,7 @@ cases, on seeded inputs:
 - the subscriber's ``snapshot_threshold`` uploads a snapshot a new router
   restores (and the JAX tree reads), and ``reset_states`` drops it;
 - the circuit breaker's ``on_transition`` sequence equals JAX's, and the
-  push router counts it;
+  push router's ``circuit_open{worker}`` gauge follows it;
 - a request whose instance leaves discovery before calling home is sent to
   another instance, by the push router and by the KV router.
 """
@@ -52,6 +52,7 @@ from dynamo_tpu_torch.runtime import push_router as p_push
 from dynamo_tpu_torch.runtime.component import Instance
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.runtime.metrics import FRONTEND_PREFIX, MetricsRegistry
 
 BS = 16
 
@@ -385,17 +386,25 @@ def test_breaker_transitions_match_jax():
 
 
 async def _router_counts(params):
+    """The router's circuit_open{worker} gauge after each transition."""
     async with Fleet(params, n=1) as fleet:
-        router = p_push.PushRouter(fleet.client)
+        metrics = MetricsRegistry(prefix=FRONTEND_PREFIX)
+        router = p_push.PushRouter(fleet.client, metrics=metrics)
         wid = fleet.client.instance_ids()[0]
+        gauge = lambda: metrics.gauge("circuit_open", worker=f"{wid:x}").value  # noqa: E731
+        seen = []
         for _ in range(3):
             router.breaker.record_failure(wid)
+        seen.append(gauge())
         router.breaker.record_success(wid)
-        return dict(router.circuit_transitions_total)
+        seen.append(gauge())
+        return seen, metrics.render().decode()
 
 
 def test_push_router_counts_circuit_transitions(params):
-    assert asyncio.run(_router_counts(params)) == {"open": 1, "closed": 1}
+    seen, text = asyncio.run(_router_counts(params))
+    assert seen == [1.0, 0.0]
+    assert "# TYPE dynamo_frontend_circuit_open gauge" in text
 
 
 async def _ghost(params, kv: bool, when: str):
