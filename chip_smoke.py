@@ -3026,9 +3026,12 @@ def device_busy_ms(fn, runs: int = 3) -> tuple:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from dynamo_tpu_torch.runtime.profiling import profiler_lock
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # One profiler session a process: an engine's sampler waits its turn.
+    with profiler_lock(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
@@ -4044,6 +4047,27 @@ FRONTEND_FAMILIES = (
     "request_seconds_quantile",
 )
 PLANE_PHASES = ("prefill", "decode", "mixed", "wave")
+# The black box on the deployment: each LM worker writes incident bundles
+# and its captures under the phase's log directory and samples the card
+# every 5 s for 0.1 s (2 % duty, the sampler's cap); the bursts bill two
+# tenants by family; a metrics aggregator scrapes the workers every 0.5 s.
+DIST_TENANTS = ("smoke-a", "smoke-b")
+DIST_PROFILE_INTERVAL_S = 5.0
+DIST_PROFILE_WINDOW_S = 0.1
+DIST_ON_DEMAND_S = 0.5
+DIST_HOST_SAMPLE_S = 0.2
+DIST_AGG_INTERVAL_S = 0.5
+# A steady stream on both workers after the repeats, long enough for each
+# sampler to open a window on traffic (one a 5 s interval, past an incident
+# capture of 2 s).
+DIST_STEADY_S = DIST_PROFILE_INTERVAL_S + 3.0
+# The aggregator's scrape waits this long for a worker that does not answer
+# (runtime/client.Client.scrape_stats): a SIGKILLed worker drops out of the
+# scrape after it.
+DIST_SCRAPE_TIMEOUT_S = 2.0
+# The serving path's kernels as the profiler names them.
+RAGGED_SYMBOL = "ragged_bf16_kernel"
+FUSED_SYMBOL = "fused_window_kernel"
 
 
 def _http_get(port: int, path: str):
@@ -4061,6 +4085,306 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def _http_post(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", path)
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    try:
+        return resp.status, json.loads(body)
+    except ValueError:
+        return resp.status, {"raw": body[:300].decode("latin-1")}
+
+
+def _tenant_headers(fam: dict) -> dict:
+    return {"x-dynamo-tenant": fam["tenant"]} if fam.get("tenant") else {}
+
+
+def _decode_steps(state: dict) -> list:
+    """A worker's recent decode steps from its ``/debug/state``: (start
+    age s, end age s, duration s) before the state was read."""
+    return [(st["age_s"] + st["dur_s"], st["age_s"], st["dur_s"]) for st in state["flight"]["recent_steps"]
+            if st["phase"] == "decode"]
+
+
+def _window_ages(state: dict) -> list:
+    """The device profiler's recent windows as (start age s, end age s,
+    window) before the state was read."""
+    prof = state["incidents"]["profiler"]
+    return [(prof["now"] - w["start"], prof["now"] - w["end"], w) for w in prof["windows"]]
+
+
+async def steady_load(port: int, families: list, seconds: float) -> list:
+    """Each family's burst requests again, one at a time per family (with
+    its tenant), for ``seconds``: the samplers' windows fall on traffic.
+    → the answers."""
+    deadline = time.monotonic() + seconds
+
+    async def one_family(fam):
+        out, i = [], 0
+        while time.monotonic() < deadline:
+            (res,) = await _send(port, [fam["burst"][i % len(fam["burst"])]], [_tenant_headers(fam)])
+            out.append(_answer_of(res))
+            i += 1
+        return out
+
+    return [a for answers in await asyncio.gather(*(one_family(f) for f in families)) for a in answers]
+
+
+async def on_demand_captures(port: int) -> dict:
+    """A worker's ``POST /debug/profile`` while the bursts run: the device
+    window and the host sampler at once (a continuous window holding the
+    profiler answers 409: the device capture is asked again)."""
+    await asyncio.sleep(0.15)  # the bursts' first requests are in
+    host = asyncio.ensure_future(asyncio.to_thread(_http_post, port,
+                                                   f"/debug/profile?kind=host&seconds={DIST_HOST_SAMPLE_S}"))
+    busy, deadline = 0, time.monotonic() + 3.0
+    while True:
+        device = await asyncio.to_thread(_http_post, port, f"/debug/profile?seconds={DIST_ON_DEMAND_S}")
+        if device[0] != 409 or time.monotonic() > deadline:
+            break
+        busy += 1
+        await asyncio.sleep(0.02)
+    return {"device": device, "host": await host, "busy_answers": busy}
+
+
+def capture_check(capture: dict, state: dict) -> tuple:
+    """``worker_0``'s on-demand captures during its burst: the device one
+    answered 200 ``ok`` and its trace parses with the port's
+    ``load_trace_dir``: one device lane, the ragged kernel launched, the
+    fused window kernel launched where a decode window started inside the
+    capture, busy time within the kernels' span; the host one answered 200
+    with a frame of the step loop. Its decode steps (the flight recorder's
+    ring) inside and outside the profiler's windows. → (summary, checks)."""
+    from dynamo_tpu_torch.runtime.profiling import load_trace_dir
+
+    (status, body), (hstatus, hbody) = capture["device"], capture["host"]
+    checks, out = [], {"status": status, "busy_answers": capture["busy_answers"],
+                       "capture": {k: body.get(k) for k in ("status", "seconds", "window_s")}}
+    summary = load_trace_dir(body["path"]) if status == 200 and body.get("status") == "ok" else None
+    if summary is None:
+        checks.append(f"on-demand capture: {status} {body}")
+    else:
+        windows = [w for _, _, w in _window_ages(state) if w["path"] == body["path"]]
+        held = 0
+        if windows:
+            (start, end, _), = [a for a in _window_ages(state) if a[2]["path"] == body["path"]]
+            held = sum(1 for s0, _, _ in _decode_steps(state) if end <= s0 <= start)
+        ragged, fused = summary.launch_count(RAGGED_SYMBOL), summary.launch_count(FUSED_SYMBOL)
+        out.update(device_lane_found=summary.device_lane_found, device_lanes=summary.device_lanes,
+                   kernel_events=summary.kernel_events, device_time_us=summary.device_time_us,
+                   wall_us=summary.wall_us, ragged_launches=ragged, fused_window_launches=fused,
+                   decode_windows_started_inside=held, top_kernels=summary.top(5), truncated=summary.truncated)
+        if not (summary.device_lane_found and summary.device_lanes == 1):
+            checks.append(f"on-demand capture: device lanes {summary.device_lanes}, found {summary.device_lane_found}")
+        if ragged <= 0 or (held and fused < 1):
+            checks.append(f"on-demand capture: {ragged} ragged launches, {fused} fused window launches with "
+                          f"{held} decode windows started inside it")
+        if summary.device_time_us > summary.wall_us * 1.0 + 1e-6:
+            checks.append(f"on-demand capture: device time {summary.device_time_us} us > wall {summary.wall_us} us")
+    frames = [f["frame"] for f in hbody.get("top", [])]
+    out["host"] = {"status": hstatus, "samples": hbody.get("samples"), "scheduler_share": hbody.get("scheduler_share"),
+                   "top_frames": frames[:5]}
+    if hstatus != 200 or not any("dynamo_tpu_torch/engine/" in f for f in frames):
+        checks.append(f"host profile: {hstatus}, no frame of the step loop in {frames[:8]}")
+    # Decode steps that overlapped a profiler window against the others.
+    wins = _window_ages(state)
+    inside, outside = [], []
+    for s0, e0, dur in _decode_steps(state):
+        (inside if any(e0 <= st and s0 >= en for st, en, _ in wins) else outside).append(dur * 1e3)
+    out["decode_step_ms"] = {"in_a_capture_p50": statistics.median(inside) if inside else None,
+                             "n_in": len(inside), "outside_p50": statistics.median(outside) if outside else None,
+                             "n_out": len(outside)}
+    return out, checks
+
+
+def black_box_check(name: str, stats: dict, runs: dict, state: dict, log_text: str) -> tuple:
+    """A worker's black box at its scrape before the kill: the cost model
+    calibrated (its FLOPs a token beside the analytical count, from the
+    worker's log), at least one measured window, each continuous window
+    that held fused windows with one fused kernel launch each, the
+    measured fractions of the windows with kernels within (0, 1.05], no
+    graph captured after warmup and no such incident, every request
+    finished billed once. → (summary, checks)."""
+    import re
+
+    checks = []
+    cal = re.search(r"cost model calibrated by FlopCounterMode: (\S+) flops/token \(analytical (\S+)\)", log_text)
+    windows = [w for _, _, w in _window_ages(state) if w["label"] == "continuous"]
+    measured = [w for w in windows if w.get("kernel_events")]
+    fused = [w for w in windows if w.get("fused_windows")]
+    prof = state["incidents"]["profiler"]
+    out = {"cost_model_calibrated": stats.get("cost_model_calibrated"),
+           "flops_per_token": {"calibrated": float(cal.group(1)) if cal else None,
+                               "analytical": float(cal.group(2)) if cal else None},
+           "measured_windows_total": stats.get("measured_windows_total", 0),
+           "last_window": {k: stats.get(k) for k in ("measured_mfu", "measured_hbm_frac", "measured_device_frac",
+                                                     "measured_modeled_mfu_ratio", "measured_top_kernel_share",
+                                                     "measured_launches_per_fused_window")},
+           "modeled": {k: stats.get(k) for k in ("mfu_decode", "hbm_frac_decode", "mfu_prefill", "hbm_frac_prefill")},
+           "windows_with_kernels": [{**{k: w.get(k) for k in ("fused_windows", "fused_kernel_launches",
+                                                              "kernel_events", "device_time_s", "measured_mfu",
+                                                              "measured_hbm_frac", "measured_device_frac",
+                                                              "measured_modeled_mfu_ratio", "aligned")},
+                                     "open_s": w["end"] - w["start"]} for w in measured],
+           "fused_windows_in_windows": [(w["fused_windows"], w.get("fused_kernel_launches")) for w in fused],
+           "duty_cycle": {"configured": stats.get("device_profile_duty_cycle"),
+                          "effective": (sum(w["end"] - w["start"] for w in windows)
+                                        / max(prof["now"] - windows[0]["start"], 1e-9)) if windows else None},
+           "first_start_s": prof["first_start_s"], "captures_total": prof["captures_total"],
+           "profiler_capture_conflicts_total": stats.get("profiler_capture_conflicts_total"),
+           "device_profile": {k: stats.get(k) for k in ("device_profile_windows_total",
+                                                        "device_profile_skipped_busy_total",
+                                                        "device_profile_errors_total")},
+           "tenant_bills_total": stats.get("tenant_bills_total"), "requests": runs["steps"]["request_total"],
+           "incidents_total": stats.get("incidents_total"),
+           "incident_bundles": [(b["reason"], b["status"]) for b in state["incidents"]["bundles"]]}
+    if stats.get("cost_model_calibrated") != 1.0 or cal is None:
+        checks.append(f"{name}: cost_model_calibrated {stats.get('cost_model_calibrated')}, log line {bool(cal)}")
+    if not stats.get("measured_windows_total") or not measured:
+        checks.append(f"{name}: {stats.get('measured_windows_total')} measured windows, {len(measured)} with kernels")
+    bad = [(w["fused_windows"], w.get("fused_kernel_launches")) for w in fused
+           if w.get("fused_kernel_launches") != w["fused_windows"]]
+    if bad:
+        checks.append(f"{name}: launches_per_fused_window not 1 in windows (fused windows, launches) {bad}")
+    fracs = [(w.get("measured_hbm_frac", 0), w.get("measured_device_frac", 0)) for w in measured]
+    if not fracs or not all(0 < h <= 1.05 and 0 < d <= 1.05 for h, d in fracs):
+        checks.append(f"{name}: measured (hbm_frac, device_frac) of the windows with kernels {fracs}")
+    if stats.get("compiles_after_warmup_total") != 0 or stats.get("incidents_post_warmup_compile_total") != 0:
+        checks.append(f"{name}: compiles_after_warmup_total {stats.get('compiles_after_warmup_total')}, "
+                      f"incidents_post_warmup_compile_total {stats.get('incidents_post_warmup_compile_total')}")
+    if stats.get("tenant_bills_total") != runs["steps"]["request_total"]:
+        checks.append(f"{name}: tenant_bills_total {stats.get('tenant_bills_total')} != "
+                      f"{runs['steps']['request_total']} requests")
+    return out, checks
+
+
+def tenant_check(base: dict, after: dict, families: list, answers: list, holders: list) -> tuple:
+    """The plane's traffic billed by tenant: each family's requests (probe,
+    burst, repeat) carry its tenant, and each family's worker (the one
+    holding its prefix) bills its tokens: per tenant, the billed output
+    tokens risen over both workers (all on the holder) equal the
+    completion tokens the clients counted, and per tenant the TTFT
+    verdicts of the ledger count its requests. → (summary, checks)."""
+    checks, out = [], {}
+    rose = {w: after[w]["tenant_billed_output_tokens_total"] - base[w]["tenant_billed_output_tokens_total"]
+            for w in after}
+
+    def judged(stats, tenant):
+        slo = (stats.get("tenant_ledger") or {}).get("slo", {}).get(tenant, {})
+        return sum(slo.get(kind, {}).get("ttft", 0) for kind in ("attained", "violated"))
+
+    for f, fam in enumerate(families):
+        tokens = sum(a["completion_tokens"] for a in answers[f])
+        billed = rose[holders[f]]
+        requests = sum(judged(after[w], fam["tenant"]) - judged(base[w], fam["tenant"]) for w in after)
+        out[fam["tenant"]] = {"client_tokens": tokens, "billed_tokens": billed, "worker": f"{holders[f]:x}",
+                              "requests": len(answers[f]), "ledger_requests": requests}
+        if billed != tokens or requests != len(answers[f]):
+            checks.append(f"tenant {fam['tenant']}: billed {billed} tokens and {requests} requests, the clients "
+                          f"counted {tokens} and {len(answers[f])}")
+    if sum(rose.values()) != sum(sum(a["completion_tokens"] for a in ans) for ans in answers):
+        checks.append(f"billed output tokens rose {rose} over both workers, the clients counted "
+                      f"{[sum(a['completion_tokens'] for a in ans) for ans in answers]}")
+    return out, checks
+
+
+def aggregator_check(port: int, plane_stats: dict) -> tuple:
+    """The aggregator's ``/metrics`` after the traffic: it parses, carries
+    both tenants' fleet families and the fleet TTFT digest whose count is
+    the workers' summed (polled for up to 10 scrape intervals: the
+    aggregator scrapes on its own clock), and no worker lost yet. →
+    (summary, checks)."""
+    from dynamo_tpu_torch.runtime.metrics import parse_text
+    from dynamo_tpu_torch.runtime.telemetry import LatencyDigest
+
+    want = sum(LatencyDigest.from_wire(s["digests"]["ttft"]["total"]).count for s in plane_stats.values())
+    deadline = time.monotonic() + 10 * DIST_AGG_INTERVAL_S
+    while True:
+        status, body = _http_get(port, "/metrics")
+        fams = parse_text(body.decode()) if status == 200 else {}
+        fleet = fams.get("dynamo_component_fleet_ttft_seconds", {"samples": []})["samples"]
+        count = next((v for n, _, v in fleet if n.endswith("_count")), None)
+        if count == want or time.monotonic() > deadline:
+            break
+        time.sleep(DIST_AGG_INTERVAL_S / 2)
+    tenants = {}
+    for fam in ("dynamo_component_tenant_device_seconds_total", "dynamo_component_tenant_queue_seconds_total"):
+        for n, lab, v in fams.get(fam, {"samples": []})["samples"]:
+            if n.endswith("_total"):
+                tenants.setdefault(lab.get("tenant"), {})[fam.split("tenant_")[1]] = v
+    lost = next((v for n, _, v in fams.get("dynamo_component_fleet_incidents_worker_lost_total", {"samples": []})
+                 ["samples"] if n.endswith("_total")), None)
+    checks = []
+    if status != 200 or count != want or not set(DIST_TENANTS) <= set(tenants) or lost != 0:
+        checks.append(f"aggregator /metrics: {status}, fleet TTFT count {count} (workers {want}), tenants "
+                      f"{sorted(t for t in tenants if t)}, worker_lost {lost}")
+    return {"status": status, "families": len(fams), "fleet_ttft_count": count, "workers_ttft_count": want,
+            "tenants": tenants}, checks
+
+
+def worker_lost_check(port: int, bundle_dir, killed_at: float, victim: str, survivor: str) -> tuple:
+    """After the worker's SIGKILL: the aggregator's fleet ``worker_lost``
+    counter reads 1 within 3 scrape intervals past the scrape timeout, and
+    its incident directory holds one bundle that parses and names the lost
+    instance. → (summary, checks)."""
+    from pathlib import Path
+
+    from dynamo_tpu_torch.runtime.metrics import parse_text
+
+    deadline = killed_at + 3 * DIST_AGG_INTERVAL_S + DIST_SCRAPE_TIMEOUT_S
+    lost = None
+    while True:
+        fams = parse_text(_http_get(port, "/metrics")[1].decode())
+        lost = next((v for n, _, v in fams.get("dynamo_component_fleet_incidents_worker_lost_total",
+                                                 {"samples": []})["samples"] if n.endswith("_total")), None)
+        if lost or time.time() > deadline + 10:
+            break
+        time.sleep(0.1)
+    bundles = sorted(Path(bundle_dir).glob("incident_*.json"))
+    bundle = json.loads(bundles[0].read_text()) if len(bundles) == 1 else {}
+    state = bundle.get("debug_state") or {}
+    latency = bundle["ts"] - killed_at if bundle else None
+    checks = []
+    if lost != 1 or len(bundles) != 1 or bundle.get("reason") != "worker_lost":
+        checks.append(f"aggregator: worker_lost {lost}, bundles {[b.name for b in bundles]}")
+    elif state.get("lost_instances") != [victim] or set(state.get("last_scrape", {})) != {survivor}:
+        checks.append(f"aggregator: the worker_lost bundle names {state.get('lost_instances')} (lost) and "
+                      f"{sorted(state.get('last_scrape', {}))} (scraped), the killed worker is {victim}")
+    elif latency > deadline - killed_at:
+        checks.append(f"aggregator: worker_lost captured {latency:.3f} s after the kill, over "
+                      f"{deadline - killed_at:.1f} s")
+    return {"worker_lost_total": lost, "bundles": [b.name for b in bundles], "kill_to_bundle_s": latency,
+            "lost_instances": state.get("lost_instances"), "detail": bundle.get("detail")}, checks
+
+
+def capture_cost_probe(port: int, engine) -> dict:
+    """In process, on an engine no window has opened on: one request at a
+    time (a prompt of its own), the decode windows' ms before the first
+    capture; a 0.2 s capture on the idle engine (its start's cost); the
+    same requests after the last. Its prefix blocks are cleared after."""
+    body = {"model": PRESET, "max_tokens": 64, "temperature": 0.0, "stream": True,
+            "messages": [{"role": "system", "content": "Charlie. " + "capture probe " * 4},
+                         {"role": "user", "content": "how much does a capture cost?"}]}
+    flight = engine.scheduler.flight
+
+    def decode_ms(n: int) -> list:
+        t0 = time.monotonic()
+        for _ in range(n):
+            _request(port, "/v1/chat/completions", body)
+        return [d * 1e3 for ts, ph, d, _ in list(flight.recent_steps) if ts >= t0 and ph == "decode"]
+
+    before = decode_ms(4)
+    res = engine.profiler.capture(0.2, label="probe")
+    after = decode_ms(4)
+    engine.scheduler.allocator.clear_cached()
+    return {"decode_window_ms_p50": {"before_first_capture": statistics.median(before) if before else None,
+                                     "after_last_capture": statistics.median(after) if after else None},
+            "windows": [len(before), len(after)], "capture": res.get("status"),
+            "start_s": engine.profiler.status()["first_start_s"]}
 
 
 def frontend_metrics_check(port: int, n200: int) -> tuple:
@@ -4198,7 +4522,8 @@ def trace_check(records: dict) -> tuple:
 
 def trace_overhead_us(path, n: int = 20000) -> dict:
     """Host µs of one span begin/end and of one scheduler ``_trace_event``,
-    with a tracer on (a file, every trace sampled) and off."""
+    with a tracer on (a file, every trace sampled), ring-only (no file: the
+    CLIs' default, the incident bundles' trace evidence) and off."""
     from types import SimpleNamespace
 
     from dynamo_tpu_torch.engine.scheduler import Scheduler
@@ -4206,6 +4531,8 @@ def trace_overhead_us(path, n: int = 20000) -> dict:
 
     out = {}
     for mode, tracer, trace in (("on", Tracer(path=str(path), sample=1.0, service="bench", ring_size=256),
+                                 (DIST_TRACE_ID, "7ace" * 4)),
+                                ("ring", Tracer(path=None, sample=1.0, service="bench", ring_size=256),
                                  (DIST_TRACE_ID, "7ace" * 4)),
                                 ("off", Tracer(path=None, sample=0.0), None)):
         fake = SimpleNamespace(tracer=tracer)
@@ -4227,7 +4554,8 @@ def dist_traffic() -> list:
     1000 tokens (distinct from the first byte, so the families share no
     block): per family a probe, a burst of ``DIST_PER_FAMILY`` requests
     with their own user messages, and a repeat of the burst's first
-    request. Greedy, 64 tokens, streamed."""
+    request. Greedy, 64 tokens, streamed. Each family bills its own tenant
+    (``DIST_TENANTS``, sent as ``x-dynamo-tenant``)."""
     rng = np.random.default_rng(23)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
     text = lambda n: "".join(rng.choice(letters, size=n))  # noqa: E731
@@ -4240,7 +4568,8 @@ def dist_traffic() -> list:
     families = []
     for f in range(2):
         burst = [chat(f, text(48)) for _ in range(DIST_PER_FAMILY)]
-        families.append({"probe": chat(f, text(40)), "burst": burst, "repeat": dict(burst[0])})
+        families.append({"probe": chat(f, text(40)), "burst": burst, "repeat": dict(burst[0]),
+                         "tenant": DIST_TENANTS[f]})
     return families
 
 
@@ -4253,8 +4582,11 @@ def _answer_of(result) -> dict:
             "cached_tokens": cached, "ttft_s": first, "latency_s": total}
 
 
-async def _send(port: int, bodies: list) -> list:
-    return await asyncio.gather(*[asyncio.to_thread(_request, port, "/v1/chat/completions", b) for b in bodies])
+async def _send(port: int, bodies: list, headers: Optional[list] = None) -> list:
+    """``bodies`` at once (``headers``: each one's extra headers)."""
+    headers = headers or [None] * len(bodies)
+    return await asyncio.gather(*[asyncio.to_thread(_request, port, "/v1/chat/completions", b, None, 600, h)
+                                  for b, h in zip(bodies, headers)])
 
 
 async def _first_token(first: threading.Event, task) -> None:
@@ -4263,20 +4595,20 @@ async def _first_token(first: threading.Event, task) -> None:
         await asyncio.sleep(0.001)
 
 
-async def _family_burst(port: int, bodies: list) -> tuple:
+async def _family_burst(port: int, bodies: list, headers: Optional[dict] = None) -> tuple:
     """A family's burst: its first request, then, once that one's first
     token is back, the others at once. They mostly reach the engine while
     the first one's decode window runs, and the engine then admits them in
     one wave at its end, on either path: the same steps of the same rows,
     so the same bf16 roundings and the same greedy text. (Sent all at once,
     the first would start alone or not by a race, and bf16 products round
-    by the step's shape.) → (results, each other request's ms from the
-    first one's first token to its own)."""
+    by the step's shape.) ``headers`` go with each request. → (results,
+    each other request's ms from the first one's first token to its own)."""
     firsts = [threading.Event() for _ in bodies]
 
     def send(i: int):
         return asyncio.ensure_future(asyncio.to_thread(_request, port, "/v1/chat/completions", bodies[i],
-                                                       firsts[i].set))
+                                                       firsts[i].set, 600, headers))
 
     tasks = [send(0)]
     await _first_token(firsts[0], tasks[0])
@@ -4290,10 +4622,11 @@ async def _family_burst(port: int, bodies: list) -> tuple:
 
 
 async def _bursts(port: int, families: list) -> tuple:
-    """Every family's burst at once (8 requests, 4 a family) → (answers in
-    family order, wall s, each family's follow-ups' first-token ms)."""
+    """Every family's burst at once (8 requests, 4 a family, each with its
+    family's tenant) → (answers in family order, wall s, each family's
+    follow-ups' first-token ms)."""
     t0 = time.perf_counter()
-    done = await asyncio.gather(*[_family_burst(port, fam["burst"]) for fam in families])
+    done = await asyncio.gather(*[_family_burst(port, fam["burst"], _tenant_headers(fam)) for fam in families])
     answers = [_answer_of(r) for results, _ in done for r in results]
     return answers, time.perf_counter() - t0, [seen for _, seen in done]
 
@@ -4803,6 +5136,7 @@ async def surface_migration(plane, kids, name_of: dict, families: list, surface:
         victim = rec.attempts[2]["worker"]
         held = [dict(a) for a in rec.attempts[2:4] if a["worker"] == victim]
         streamed = [len(a["tokens"]) for a in held]
+        killed_at = time.time()  # kill_one waits for the process to end after its SIGKILL
         kids.kill_one(name_of[victim])
         t_kill = time.perf_counter()
         done2 = [_answer_of(r) for r in await asyncio.wait_for(asyncio.gather(*tasks), 150)]
@@ -4843,7 +5177,7 @@ async def surface_migration(plane, kids, name_of: dict, families: list, surface:
         lat = [a["latency_s"] for a in answers]
         res = {"victim": f"{victim:x}", "victim_name": name_of[victim], "survivor": f"{survivor:x}",
                "pair_workers": sorted(f"{w:x}" for w in victims), "streamed_before_kill": streamed,
-               "migrated": migrated, "wall_s": wall,
+               "migrated": migrated, "wall_s": wall, "killed_at": killed_at,
                "latency_s": {"completed_pair": lat[:2], "killed_pair": lat[2:]},
                "migration_added_ms": [m["kill_to_first_replayed_token_ms"] for m in migrated]}
         # The frontend's /metrics counts each replay (migrations_total).
@@ -5367,6 +5701,13 @@ def phase_distributed(card: str) -> dict:
     health_ports = {name: _free_port() for name in workers}
     plane_flags = ("--trace-sample", "1.0", "--slo-ttft-ms", str(DIST_SLO_TTFT_MS), "--slo-tpot-ms",
                    str(DIST_SLO_TPOT_MS))
+    # The black box: each worker's incident bundles and captures, and the
+    # aggregator's fleet bundles, under the phase's log directory.
+    incident_dirs = {name: kids.logs / "incidents" / name for name in (*workers, "aggregator")}
+    profile_dirs = {name: kids.logs / "profiles" / name for name in workers}
+    for d in (*incident_dirs.values(), *profile_dirs.values()):
+        shutil.rmtree(d, ignore_errors=True)
+    agg_port = _free_port()
     t0 = time.perf_counter()
     try:
         kids.start("control_plane", "dynamo_tpu_torch.control_plane", "--host", "127.0.0.1", "--port", str(cp_port))
@@ -5374,7 +5715,9 @@ def phase_distributed(card: str) -> dict:
         for name in workers:
             kids.start(name, "dynamo_tpu_torch.worker", "--model", PRESET, "--warmup-ctx", str(DIST_WARMUP_CTX),
                        "--trace-file", str(trace_paths[name]), "--health-port", str(health_ports[name]),
-                       *plane_flags)
+                       *plane_flags, "--incident-dir", str(incident_dirs[name]), "--profile-on-incident",
+                       "--profile-dir", str(profile_dirs[name]), "--profile-interval-s", str(DIST_PROFILE_INTERVAL_S),
+                       "--profile-window-s", str(DIST_PROFILE_WINDOW_S))
         kids.start("encoder", "dynamo_tpu_torch.worker", "--role", "encode", "--vision-model", DIST_VISION,
                    "--vision-seed", str(DIST_VISION_SEED))
         kids.start("frontend", "dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1", "--http-port", "0",
@@ -5382,6 +5725,10 @@ def phase_distributed(card: str) -> dict:
                    str(trace_paths["frontend"]), *plane_flags)
         port = int(kids.wait_for("frontend", "frontend ready on", 120).split(" (")[0].rsplit(":", 1)[1])
         ready = {name: kids.wait_for(name, "worker ready", 300) for name in workers}
+        kids.start("aggregator", "dynamo_tpu_torch.metrics_aggregator", "--endpoint", "dynamo/backend/generate",
+                   "--port", str(agg_port), "--interval", str(DIST_AGG_INTERVAL_S), "--incident-dir",
+                   str(incident_dirs["aggregator"]))
+        kids.wait_for("aggregator", "metrics aggregator serving", 60)
         kids.wait_for("encoder", "encode worker ready", 300)
         up_s = time.perf_counter() - t0
         instance_of = {name: int(line.rsplit("instance=", 1)[1], 16) for name, line in ready.items()}
@@ -5404,12 +5751,20 @@ def phase_distributed(card: str) -> dict:
             try:
                 client = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
                 await client.wait_for_instances(2, timeout=60)
-                probes = [_answer_of(r) for r in await _send(port, [fam["probe"] for fam in families])]
+                base = await client.scrape_stats()
+                probes = [_answer_of(r) for r in await _send(port, [fam["probe"] for fam in families],
+                                                            [_tenant_headers(fam) for fam in families])]
+                # worker_0's on-demand device and host captures while the
+                # bursts run.
+                capture_task = asyncio.ensure_future(on_demand_captures(health_ports["worker_0"]))
                 burst, wall, timing = await _bursts(port, families)
+                capture = await capture_task
+                state0 = json.loads((await asyncio.to_thread(_http_get, health_ports["worker_0"], "/debug/state"))[1])
+                bb_capture, bb_checks = capture_check(capture, state0)
                 repeats = []
                 for fam in families:
                     before = await client.scrape_stats()
-                    (ans,) = [_answer_of(r) for r in await _send(port, [fam["repeat"]])]
+                    (ans,) = [_answer_of(r) for r in await _send(port, [fam["repeat"]], [_tenant_headers(fam)])]
                     after = await client.scrape_stats()
                     rose = {wid: after[wid]["cached_tokens_total"] - before[wid]["cached_tokens_total"]
                             for wid in after}
@@ -5419,6 +5774,12 @@ def phase_distributed(card: str) -> dict:
                         raise AssertionError(f"a repeat did not hit the prefix cache of the worker holding its "
                                              f"prefix: cached_tokens {ans['cached_tokens']}, rose {rose}")
                     repeats[-1]["worker"] = served[0]
+                n = DIST_PER_FAMILY
+                bb_tenants, more = tenant_check(base, after, families,
+                                                [[probes[f], *burst[f * n:(f + 1) * n], repeats[f]] for f in range(2)],
+                                                [r["worker"] for r in repeats])
+                bb_checks += more
+                steady = await steady_load(port, families, DIST_STEADY_S)
                 # The plane through the frontend: a traced one-token probe,
                 # a request past its deadline (a 504), then /metrics.
                 probe = {"model": PRESET, "max_tokens": 1, "temperature": 0.0, "stream": True,
@@ -5428,7 +5789,7 @@ def phase_distributed(card: str) -> dict:
                 late = {"model": PRESET, "max_tokens": 64, "temperature": 0.0, "timeout": 0.001,
                         "messages": [{"role": "user", "content": "too late"}]}
                 late_status = (await asyncio.to_thread(_request, port, "/v1/chat/completions", late))[0]
-                n200 = len(probes) + len(burst) + len(repeats) + (traced[0] == 200)
+                n200 = len(probes) + len(burst) + len(repeats) + len(steady) + (traced[0] == 200)
                 fm, plane_checks = await asyncio.to_thread(frontend_metrics_check, port, n200)
                 if traced[0] != 200 or late_status != 504:
                     plane_checks.append(f"the traced probe answered {traced[0]}, the late request {late_status}")
@@ -5454,22 +5815,32 @@ def phase_distributed(card: str) -> dict:
                     ttft = plane_stats[instance_of[name]]["digests"]["ttft"]["total"]
                     health[name], more = await asyncio.to_thread(worker_health_check, health_ports[name], ttft)
                     plane_checks += more
+                bb_states = {name: json.loads((await asyncio.to_thread(_http_get, health_ports[name],
+                                                                       "/debug/state"))[1]) for name in workers}
+                bb_agg, more = await asyncio.to_thread(aggregator_check, agg_port, plane_stats)
+                bb_checks += more
                 for name in workers:
                     kids.snapshot(name, DIST_COUNTERS_MARK)
                 name_of_id = {i: name for name, i in instance_of.items()}
                 surf["migration"], more = await surface_migration(plane, kids, name_of_id, families, surface)
                 checks += more
+                mig = surf["migration"]
+                bb_lost, more = await asyncio.to_thread(worker_lost_check, agg_port, incident_dirs["aggregator"],
+                                                        mig["killed_at"], mig["victim"], mig["survivor"])
+                bb_checks += more
                 surf["seconds"] = time.perf_counter() - t1
                 await client.close()
             finally:
                 await drt.shutdown()
-            return (models, probes, burst, wall, timing, repeats, stats, surf, checks,
-                    (fm, plane_checks, plane_stats, health))
+            black_box = {"capture": bb_capture, "tenants": bb_tenants, "aggregator": bb_agg, "worker_lost": bb_lost,
+                         "states": bb_states, "steady_requests": len(steady)}
+            return (models, probes, burst, wall, timing, repeats, stats, surf, checks + bb_checks,
+                    (fm, plane_checks, plane_stats, health), black_box)
 
         (models, probes, burst, wall, timing, repeats, stats, surf, surf_checks,
-         (front_metrics, plane_checks, plane_stats, health)) = asyncio.run(drive())
+         (front_metrics, plane_checks, plane_stats, health), black_box) = asyncio.run(drive())
         kids.alive()
-        codes = {name: kids.stop(name) for name in (*workers, "encoder", "frontend", "control_plane")
+        codes = {name: kids.stop(name) for name in (*workers, "encoder", "frontend", "aggregator", "control_plane")
                  if name in kids.procs}
     finally:
         kids.kill()
@@ -5502,6 +5873,9 @@ def phase_distributed(card: str) -> dict:
             sched = engine.scheduler
             ref, ref_steps, ref_timing = [], [], []
             try:
+                # What a capture costs the step loop, before any traffic of
+                # the families (its blocks are cleared after).
+                cost = await asyncio.to_thread(capture_cost_probe, service.port, engine)
                 lprobes = [_answer_of(r) for r in await _send(service.port, [fam["probe"] for fam in families])]
                 lburst, lwall, _ = await _bursts(service.port, families)
                 lrepeats = [_answer_of(r) for fam in families for r in await _send(service.port, [fam["repeat"]])]
@@ -5521,9 +5895,10 @@ def phase_distributed(card: str) -> dict:
             finally:
                 await service.stop()
                 await engine.stop()
-            return lprobes, lburst, lwall, lrepeats, ref, ref_steps, ref_timing, surface_refs
+            return lprobes, lburst, lwall, lrepeats, ref, ref_steps, ref_timing, surface_refs, cost
 
-        lprobes, lburst, lwall, lrepeats, ref, ref_steps, ref_timing, surface_refs = asyncio.run(in_process())
+        (lprobes, lburst, lwall, lrepeats, ref, ref_steps, ref_timing, surface_refs,
+         capture_cost) = asyncio.run(in_process())
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
 
@@ -5546,6 +5921,19 @@ def phase_distributed(card: str) -> dict:
     client_ttft = [a["ttft_s"] for a in [*probes, *burst, *repeats]]
     obs["client_ttft_s"] = {"p50": float(np.percentile(client_ttft, 50)), "p99": float(np.percentile(client_ttft, 99))}
     obs["trace_overhead_us"] = trace_overhead_us(kids.logs / "overhead.trace.jsonl")
+    # The black box per worker: its scrape before the kill against its
+    # counters line, its profiler's windows and its log's calibration line.
+    states = black_box.pop("states")
+    black_box["workers"] = {}
+    for name in workers:
+        black_box["workers"][name], more = black_box_check(name, plane_stats[instance_of[name]], worker_runs[name],
+                                                           states[name], kids.text(name))
+        checks += more
+    black_box["capture_cost"] = capture_cost
+    # The black box's readings on a line of their own (the phase's line is
+    # long), and in the phase's log directory.
+    emit("distributed_black_box", **black_box)
+    (kids.logs / "black_box.json").write_text(json.dumps(black_box, default=str))
 
     def launch_check(name, runs, label):
         steps, k = runs["steps"], runs["kernels"]
@@ -5610,6 +5998,7 @@ def phase_distributed(card: str) -> dict:
         "follow_up_first_token_ms": {"frontend": timing, "reference": ref_timing},
         "in_process_together_texts_equal_reference": together_equal,
         "hop_ms_per_token": hop, "workers": per_worker, "survivor_at_shutdown": survivor, "plane": obs,
+        "black_box": black_box,
         "stats_keys": sorted(next(iter(stats.values()))),
         "surface": {**surf, "references": surface_refs},
         # The image prompts' and embeddings' part: its frontend traffic plus

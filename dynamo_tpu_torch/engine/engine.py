@@ -5,18 +5,26 @@ surface the port serves: ``build``, ``start``, ``stop``, ``generate``,
 ``abort``, ``metrics``, ``stats``, ``stats_handler``, ``debug_state``,
 ``set_capacity_dial`` (the elastic prefill:decode split, reachable over
 the wire as the worker's ``set_dial`` control op),
-``set_kv_event_sink``, ``attach_guided_tokenizer``, and for
-disaggregation ``take_export`` / ``take_export_device``. Its stall
-watchdog (``watchdog``, ``runtime/telemetry.StallWatchdog``) marks the
-engine stalled when work is queued and no step has completed for
-``SchedulerConfig.stall_after_s``; the stats scrape and ``/health``
-evaluate it. A request whose trace records (the process tracer's
-sampling decision on its context's ``traceparent``) hands the scheduler its
+``set_kv_event_sink``, ``attach_guided_tokenizer``, and for disaggregation
+``take_export`` / ``take_export_device``. Its stall watchdog (``watchdog``,
+``runtime/telemetry.StallWatchdog``) marks the engine stalled when work is
+queued and no step has completed for ``SchedulerConfig.stall_after_s``; the
+stats scrape and ``/health`` evaluate it. The black box: an
+``IncidentPlane`` (``incidents``) checks every stats scrape and writes a
+bundle (``EngineArgs.incident_dir``, or ``DYN_INCIDENT_DIR``) when a signal
+fires, with the engine's state, the flight recorder's ring, the
+configuration and the tenant ledger's snapshot; one ``DeviceProfiler``
+(``profiler``) serves every capture path (``/debug/profile``, incident
+captures, the continuous sampler); the continuous sampler
+(``continuous_profiler``, armed by ``EngineArgs.continuous_profiling``
+after warmup) feeds the flight recorder's measured windows. A request's
+``tenant`` (resolved by the frontend) goes to the scheduler's tenant
+ledger. A request whose trace records (the process tracer's sampling
+decision on its context's ``traceparent``) hands the scheduler its
 ``(trace_id, parent span)``, so the scheduler's lifecycle events join the
-caller's trace. With
-``kvbm_host_blocks > 0`` it owns a KVBM (``llm/block_manager``): G1
-evictions offload to host memory, then disk, then the object store, and
-prefix hits onboard back.
+caller's trace. With ``kvbm_host_blocks > 0`` it owns a KVBM
+(``llm/block_manager``): G1 evictions offload to host memory, then disk,
+then the object store, and prefix hits onboard back.
 
 Request wire shape (PreprocessedRequest):
 ``{"token_ids": [...], "sampling_options": {...}, "stop_conditions": {...}}``,
@@ -46,6 +54,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Callable, List, Optional
@@ -66,6 +75,10 @@ from dynamo_tpu_torch.engine.scheduler import (
 from dynamo_tpu_torch.engine.weights import init_params, load_checkpoint
 from dynamo_tpu_torch.logits_processing import LogitBiasProcessor
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.runtime.incidents import (
+    INCIDENT_DIR_ENV, IncidentConfig, IncidentPlane, register_evidence_probe,
+)
+from dynamo_tpu_torch.runtime.profiling import ContinuousProfileConfig, ContinuousProfiler, DeviceProfiler
 from dynamo_tpu_torch.runtime.telemetry import StallWatchdog
 from dynamo_tpu_torch.runtime.tracing import get_tracer
 
@@ -120,6 +133,20 @@ class EngineArgs:
     kvbm_host_blocks: int = 0
     kvbm_disk_dir: Optional[str] = None
     kvbm_disk_blocks: int = 0
+    # Incident plane (runtime/incidents.py): bundles go here (None: the
+    # DYN_INCIDENT_DIR environment, else detect and count only), at most
+    # incident_keep of them; profile_on_incident adds a short device capture.
+    incident_dir: Optional[str] = None
+    incident_keep: int = 16
+    profile_on_incident: bool = False
+    # The continuous device-truth sampler (runtime/profiling.py): a
+    # profile_window_s capture every profile_interval_s (duty-cycle
+    # clamped), armed after warmup. profile_dir is every capture's root
+    # (None: DYN_PROFILE_DIR).
+    continuous_profiling: bool = True
+    profile_window_s: float = 0.25
+    profile_interval_s: float = 30.0
+    profile_dir: Optional[str] = None
 
 
 def _attach_logprobs(frame: dict, logprobs: list, top_logprobs: list) -> None:
@@ -150,6 +177,19 @@ class TorchEngine:
         # probe, no thread of its own.
         self.watchdog = StallWatchdog(probe=lambda: (scheduler.has_work(), scheduler.flight.last_step_ts),
                                       stall_after_s=scheduler.sc.stall_after_s)
+        # One DeviceProfiler per engine: the serialisation point of every
+        # capture path; its windows hold whole scheduler iterations and never
+        # overlap a step-graph capture.
+        self.profiler = DeviceProfiler(device=scheduler.device, guard=scheduler.capture_lock,
+                                       step_lock=scheduler.step_lock)
+        # The incident plane rides every stats scrape; build() points it at
+        # its bundle directory. The tenant ledger's snapshot rides every
+        # bundle (process-global: a later engine replaces the probe).
+        self.incidents = IncidentPlane(IncidentConfig(), state_probe=self.debug_state,
+                                       flight_probe=scheduler.flight.ring_snapshot,
+                                       config_probe=scheduler.config_snapshot, profiler=self.profiler)
+        register_evidence_probe("tenant_ledger", scheduler.ledger.snapshot)
+        self.continuous_profiler: Optional[ContinuousProfiler] = None
 
     # --- construction -------------------------------------------------------
     @classmethod
@@ -209,6 +249,23 @@ class TorchEngine:
         # Traffic may start: graphs captured from here on are the compile
         # tracker's compiles after warmup.
         engine.scheduler.flight.mark_warmup_done(warmed=args.warmup_ctx > 0)
+        incident_dir = args.incident_dir or os.environ.get(INCIDENT_DIR_ENV) or None
+        if args.profile_dir:
+            engine.profiler.out_dir = args.profile_dir
+        elif args.profile_on_incident and incident_dir:
+            engine.profiler.out_dir = os.path.join(incident_dir, "profiles")
+        engine.incidents = IncidentPlane(
+            IncidentConfig(dir=incident_dir, keep=args.incident_keep, profile_on_incident=args.profile_on_incident),
+            state_probe=engine.debug_state, flight_probe=engine.scheduler.flight.ring_snapshot,
+            config_probe=engine.scheduler.config_snapshot, profiler=engine.profiler)
+        if args.continuous_profiling:
+            # Armed after warmup, so no window meets the warmup's captures.
+            flight = engine.scheduler.flight
+            engine.continuous_profiler = ContinuousProfiler(
+                engine.profiler, ContinuousProfileConfig(window_s=args.profile_window_s,
+                                                         interval_s=args.profile_interval_s),
+                cost_probe=flight.roofline_totals, sink=flight.record_measured_window)
+            engine.continuous_profiler.start()
         if args.kvbm_host_blocks > 0:
             from dynamo_tpu_torch.llm.block_manager import KvBlockManager
 
@@ -236,6 +293,8 @@ class TorchEngine:
     async def stop(self) -> None:
         self._closed = True
         self._wake.set()
+        if self.continuous_profiler is not None:
+            await asyncio.get_running_loop().run_in_executor(None, self.continuous_profiler.stop)
         if self._loop_task is not None:
             await self._loop_task
             self._loop_task = None
@@ -324,7 +383,9 @@ class TorchEngine:
         # A prefill worker keeps the blocks for the decode worker's pull; a
         # decode worker starts from the KV it pulled.
         extras = {"keep_blocks_on_finish": bool(disagg.get("do_remote_decode")),
-                  "prefilled": request.get("_prefilled")}
+                  "prefilled": request.get("_prefilled"),
+                  # The capacity ledger's tenant, resolved by the frontend.
+                  "tenant": request.get("tenant") or "anon"}
         mm = request.get("multimodal")
         if mm is not None:
             # Image features (llm/multimodal.py): an array in process, else
@@ -449,10 +510,11 @@ class TorchEngine:
     def stats_handler(self) -> dict:
         """The worker's stats scrape: the keys of the JAX engine's
         ``stats_handler``, with their names and meanings, and no other: the
-        flight recorder's, SLO and goodput, the watchdog's and the digests
-        (``digests``) among them. Not here yet: the profiler, tenant-ledger,
-        fault and incident keys (ROADMAP Queue 1 items 18, second part, and
-        20)."""
+        flight recorder's (measured windows included), the continuous
+        sampler's, SLO and goodput, the watchdog's, the digests
+        (``digests``), the tenant ledger's (``tenant_ledger`` the wire the
+        aggregator merges) and the incident plane's, which checks this very
+        scrape. Not here yet: the fault keys (ROADMAP Queue 1 item 20)."""
         m = self.scheduler.metrics()
         stats = {
             "kv_usage": m.kv_usage,
@@ -489,24 +551,35 @@ class TorchEngine:
         self.scheduler.flight.check_compiles()
         stats.update(self.scheduler.flight.to_stats())
         stats.update(self.scheduler.window_stats())
+        if self.continuous_profiler is not None:
+            stats.update(self.continuous_profiler.to_stats())
         stats.update(self.scheduler.kv_gauges())
         stats.update(self.scheduler.slo.to_stats())
         stats.update(self.watchdog.to_stats())
         # Mergeable latency digests: an aggregator merges them across workers
         # into fleet quantiles (averaging per-worker p99s does not compose).
         stats["digests"] = self.scheduler.telemetry.to_wire()
+        # The tenant ledger: flat billed totals, and the sketch wire the
+        # aggregator merges into fleet per-tenant families.
+        stats.update(self.scheduler.ledger.to_stats())
+        stats["tenant_ledger"] = self.scheduler.ledger.to_wire()
         if self.scheduler.guided is not None:
             stats.update(self.scheduler.guided.stats())
+        # The incident plane checks this snapshot (the scrape is its poll)
+        # and may write a bundle; its counters ride the same scrape.
+        self.incidents.observe(stats)
+        stats.update(self.incidents.to_stats())
         return stats
 
     def debug_state(self) -> dict:
         """Live engine introspection for the health server's /debug/state:
-        the scheduler's ``debug_state`` and the watchdog's state. The JAX
-        engine also adds its incident detector's (``incidents``), which
-        comes with ROADMAP Queue 1 item 18's second part."""
+        the scheduler's ``debug_state``, the watchdog's state and the
+        incident plane's (``incidents``: retained bundles, the detector's
+        evidence, the profiler's status)."""
         state = self.scheduler.debug_state()
         state["watchdog"] = self.watchdog.to_stats()
         state["watchdog"]["stall_after_s"] = self.watchdog.stall_after_s
+        state["incidents"] = self.incidents.debug_info()
         return state
 
     def attach_guided_tokenizer(self, tokenizer) -> None:

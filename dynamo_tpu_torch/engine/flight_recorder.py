@@ -21,6 +21,13 @@ host-side account of every dispatch of the scheduler's step loop:
 The scheduler owns its window counters; ``window_stats`` lays them out as
 the JAX recorder's scrape keys.
 
+Measured device truth: ``runtime/profiling.ContinuousProfiler`` windows land
+in ``record_measured_window`` (``roofline_totals`` is its cost probe), which
+gives the modelled gauges their ``measured_*`` siblings; the scheduler
+calibrates the cost model's FLOPs a token (``StepCostModel.calibrate``)
+from ``torch.utils.flop_counter.FlopCounterMode`` over one eager decode
+forward. ``ring_snapshot`` is the incident bundle's view.
+
 Times are host wall time at the points where the JAX scheduler takes them
 (``StepTimer``): no device sync is added for a timer, so a step that
 returns before the card finishes is charged its host time, and the device
@@ -138,13 +145,18 @@ class StepCostModel:
     prefix into a packed tensor and attends over the copy (3.0); the ragged
     and paged kernels read each page once (1.0). ``peak_flops`` /
     ``peak_bw`` default to ``detect_peaks()``; None for a card with no row,
-    when the scrape leaves its ``mfu_*`` / ``hbm_frac_*`` out. The count is
-    never calibrated: the JAX package calibrates it from XLA's cost
-    analysis, which the port's profiling plane (ROADMAP item 18, second
-    part) replaces."""
+    when the scrape leaves its ``mfu_*`` / ``hbm_frac_*`` out.
+    ``calibrate`` replaces the hand count of FLOPs a token with a measured
+    one (the scheduler's ``torch_flop_counter`` count of a decode forward,
+    where the JAX package takes XLA's cost analysis)."""
 
     __slots__ = ("param_count", "param_bytes", "kv_bytes_per_token", "kv_read_factor", "peak_flops", "peak_bw",
-                 "flops_per_token")
+                 "flops_per_token", "calibrated", "calibration_source")
+
+    # A measured count must land within this band of the 2·params hand
+    # count to be trusted: far outside it the probe measured something else,
+    # and adopting it would skew every mfu_* gauge.
+    CALIBRATION_BAND = (0.2, 5.0)
 
     def __init__(self, param_count: int, param_bytes: int, kv_bytes_per_token: float,
                  peak_flops: Optional[float] = None, peak_bw: Optional[float] = None,
@@ -158,6 +170,23 @@ class StepCostModel:
         self.peak_flops = peak_flops
         self.peak_bw = peak_bw
         self.flops_per_token = 2.0 * self.param_count
+        self.calibrated = False
+        self.calibration_source = "analytical"
+
+    def calibrate(self, flops_per_token: float, source: str = "torch_flop_counter") -> bool:
+        """Adopt a measured FLOPs-a-token count; rejected outside
+        ``CALIBRATION_BAND`` around the analytical count. Returns whether
+        it was adopted."""
+        hand = 2.0 * self.param_count
+        lo, hi = self.CALIBRATION_BAND
+        if not (flops_per_token > 0 and lo * hand <= flops_per_token <= hi * hand):
+            logger.warning("rejecting %s calibration %.3g flops/token (analytical %.3g, accepted band "
+                           "[%.1fx, %.1fx])", source, flops_per_token, hand, lo, hi)
+            return False
+        self.flops_per_token = float(flops_per_token)
+        self.calibrated = True
+        self.calibration_source = source
+        return True
 
     @property
     def has_peaks(self) -> bool:
@@ -216,11 +245,14 @@ class _PhaseRoofline:
 
 
 class FlightRecorder:
-    """Owned by one Scheduler; mutated on the step thread only.
+    """Owned by one Scheduler; mutated on the step thread only (the measured
+    windows from the profiler's thread, into fields of their own).
     ``compile_probe`` returns the step graphs captured so far (the
-    scheduler's ``graph_captures_total``)."""
+    scheduler's ``graph_captures_total``), ``window_probe`` the fused
+    windows dispatched (the scheduler's ``fused_windows_dispatched``)."""
 
-    def __init__(self, telemetry=None, compile_probe: Optional[Callable[[], int]] = None) -> None:
+    def __init__(self, telemetry=None, compile_probe: Optional[Callable[[], int]] = None,
+                 window_probe: Optional[Callable[[], int]] = None) -> None:
         self._hists: Dict[str, _PhaseHist] = {p: _PhaseHist() for p in PHASES}
         # Optional runtime.telemetry.Telemetry: record_step feeds per-phase
         # ``{phase}_step`` digests so step-duration percentiles merge
@@ -243,6 +275,73 @@ class FlightRecorder:
         self._warmed = False
         self.last_step_phase: Optional[str] = None
         self.last_step_s = 0.0
+        self._window_probe = window_probe
+        # Measured device truth (ContinuousProfiler windows), written from
+        # the profiler's thread: single-writer fields the scrape reads.
+        self.measured_windows_total = 0
+        self.measured_device_seconds_total = 0.0
+        self.measured_wall_seconds_total = 0.0
+        self._measured_last: Optional[dict] = None
+
+    # --- measured device truth ----------------------------------------------
+    def roofline_totals(self) -> Tuple[float, float, float, int]:
+        """Cumulative (flops, bytes, modelled step seconds, fused windows)
+        over every phase: the ContinuousProfiler's cost probe. Their deltas
+        across a window attribute its measured device time to the modelled
+        work of the same span."""
+        f = b = s = 0.0
+        for r in list(self._roofline.values()):
+            f += r.flops_total
+            b += r.bytes_total
+            s += r.secs_total
+        return f, b, s, int(self._window_probe()) if self._window_probe is not None else 0
+
+    def record_measured_window(self, record: dict) -> dict:
+        """Fold one profile window's measured truth into the recorder
+        (``record``: the ContinuousProfiler's window: wall_s,
+        device_time_s, flops, bytes, step_seconds, top_kernels,
+        top_kernel_share, launches_per_fused_window). Derived gauges:
+
+        - ``measured_mfu`` / ``measured_hbm_frac``: modelled work over the
+          MEASURED device-busy time over the peaks (0 without peaks);
+        - ``measured_device_frac``: device-busy time over the window;
+        - ``measured_modeled_mfu_ratio``: modelled step seconds over
+          measured device seconds in the same span.
+
+        Returns the window's derived gauges (``measured_snapshot``).
+        """
+        device_s = max(float(record.get("device_time_s", 0.0)), 0.0)
+        flops = max(float(record.get("flops", 0.0)), 0.0)
+        bytes_moved = max(float(record.get("bytes", 0.0)), 0.0)
+        step_s = max(float(record.get("step_seconds", 0.0)), 0.0)
+        self.measured_windows_total += 1
+        self.measured_device_seconds_total += device_s
+        self.measured_wall_seconds_total += float(record.get("wall_s", 0.0))
+        mfu = hbm = 0.0
+        cm = self.cost_model
+        if cm is not None and cm.has_peaks and device_s > 0:
+            mfu = flops / device_s / cm.peak_flops
+            hbm = bytes_moved / device_s / cm.peak_bw
+        ratio = (step_s / device_s) if device_s > 0 else 0.0
+        self._measured_last = {
+            "measured_mfu": round(mfu, 6),
+            "measured_hbm_frac": round(hbm, 6),
+            "measured_device_frac": (round(device_s / float(record["wall_s"]), 6) if record.get("wall_s") else 0.0),
+            "measured_modeled_mfu_ratio": round(ratio, 6),
+            "measured_top_kernel_share": round(float(record.get("top_kernel_share", 0.0)), 6),
+            "measured_launches_per_fused_window": (
+                round(float(record["launches_per_fused_window"]), 6)
+                if record.get("launches_per_fused_window") is not None else 0.0
+            ),
+            "top_kernels": record.get("top_kernels", []),
+        }
+        return dict(self._measured_last)
+
+    def measured_snapshot(self) -> Optional[dict]:
+        """The last measured window's derived gauges and kernel top-N; None
+        before the first window."""
+        last = self._measured_last
+        return dict(last) if last else None
 
     # --- step accounting ----------------------------------------------------
     def set_cost_model(self, model: StepCostModel) -> None:
@@ -368,7 +467,15 @@ class FlightRecorder:
                     mfu, hbm = r.live(cm.peak_flops, cm.peak_bw)
                     out[f"mfu_{phase}"] = round(mfu, 6)
                     out[f"hbm_frac_{phase}"] = round(hbm, 6)
-            out["cost_model_calibrated"] = 0.0  # analytical (StepCostModel)
+            out["cost_model_calibrated"] = 1.0 if cm.calibrated else 0.0
+        if self.measured_windows_total:
+            out["measured_windows_total"] = self.measured_windows_total
+            out["measured_device_seconds_total"] = round(self.measured_device_seconds_total, 6)
+            out["measured_wall_seconds_total"] = round(self.measured_wall_seconds_total, 6)
+            last = self._measured_last or {}
+            for key in ("measured_mfu", "measured_hbm_frac", "measured_device_frac", "measured_modeled_mfu_ratio",
+                        "measured_top_kernel_share", "measured_launches_per_fused_window"):
+                out[key] = last.get(key, 0.0)
         return out
 
     def histogram(self, phase: str) -> Tuple[Tuple[float, ...], List[int]]:
@@ -394,6 +501,29 @@ class FlightRecorder:
             ],
             "utilization": {ph: {"mfu": round(m, 6), "hbm_frac": round(h, 6)}
                             for ph, (m, h) in self.utilization().items()},
+        }
+
+    def ring_snapshot(self) -> dict:
+        """The incident bundle's view: the recent-step ring verbatim plus
+        the host-gap and compile evidence (the JAX recorder's keys), what
+        ``tools/autopsy.py`` reads of the seconds before a trigger."""
+        now = time.monotonic()
+        return {
+            "recent_steps": [
+                {"age_s": round(now - ts, 3), "phase": ph, "dur_s": d, "tokens": t}
+                for ts, ph, d, t in list(self.recent_steps)
+            ],
+            "last_step_phase": self.last_step_phase,
+            "last_step_age_s": round(now - self.last_step_ts, 3) if self.last_step_ts is not None else None,
+            "host_gap": {
+                "events": self._gap.total,
+                "sum_s": round(self._gap.sum_s, 6),
+                "p50_s": round(self._gap.percentile(0.5), 6),
+                "p99_s": round(self._gap.percentile(0.99), 6),
+            },
+            "compiles_total": self.compiles_total,
+            "compiles_after_warmup_total": self.compiles_after_warmup_total,
+            "post_warmup_keys": [],
         }
 
 

@@ -54,6 +54,7 @@ and the step functions run eagerly on them, which is what the tests run.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -184,6 +185,9 @@ class StepGraphs:
         self.captures_total = 0
         self.capture_s_total = 0.0
         self.replays_total = 0
+        # Held while a graph captures: a profiler window
+        # (runtime/profiling.DeviceProfiler's guard) never overlaps one.
+        self.capture_lock = threading.Lock()
 
     def close(self) -> None:
         """Destroy every graph, its buffers and the pool's memory now (after
@@ -230,38 +234,42 @@ class StepGraphs:
             return g
         g = _Graph(fields, self.device, body)
         if self.on_card:
-            t0 = time.perf_counter()
-            cur = torch.cuda.current_stream(self.device)
-            s = self._stream
-            s.wait_stream(cur)
-            with torch.cuda.stream(s):
-                kind = key[:2] if key[0] == "prefill" else key[:1]
-                if kind not in self._warm_kinds:
-                    body(g.inputs)
-                    self._warm_kinds.add(kind)
-                before = _counts()
-                graph = torch.cuda.CUDAGraph()
-                graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-                try:
-                    outputs = body(g.inputs)
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except Exception:  # noqa: BLE001 — the body's error is the one to raise
-                        pass
-                    raise
-                graph.capture_end()
-                after = _counts()
-            cur.wait_stream(s)
-            # The capture launched nothing: each replay credits what it recorded.
-            g.launches = [a - b for a, b in zip(after, before)]
-            for (mod, name), b in zip(_COUNTERS, before):
-                setattr(mod, name, b)
-            g.graph, g.outputs = graph, tuple(outputs)
-            self.captures_total += 1
-            self.capture_s_total += time.perf_counter() - t0
+            with self.capture_lock:
+                self._capture(key, g, body)
         self._graphs[key] = g
         return g
+
+    def _capture(self, key: tuple, g: _Graph, body: Callable[[Dict[str, torch.Tensor]], tuple]) -> None:
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(self.device)
+        s = self._stream
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            kind = key[:2] if key[0] == "prefill" else key[:1]
+            if kind not in self._warm_kinds:
+                body(g.inputs)
+                self._warm_kinds.add(kind)
+            before = _counts()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                outputs = body(g.inputs)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except Exception:  # noqa: BLE001 — the body's error is the one to raise
+                    pass
+                raise
+            graph.capture_end()
+            after = _counts()
+        cur.wait_stream(s)
+        # The capture launched nothing: each replay credits what it recorded.
+        g.launches = [a - b for a, b in zip(after, before)]
+        for (mod, name), b in zip(_COUNTERS, before):
+            setattr(mod, name, b)
+        g.graph, g.outputs = graph, tuple(outputs)
+        self.captures_total += 1
+        self.capture_s_total += time.perf_counter() - t0
 
     def stage(self, g: _Graph, values: Dict[str, object], device_inputs: Optional[Dict[str, torch.Tensor]] = None
               ) -> None:

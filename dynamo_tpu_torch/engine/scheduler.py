@@ -109,6 +109,15 @@ The core loop of the JAX package's ``Scheduler``:
   ``first_token``, ``preempted``, ``resume``, ``deadline_evict``,
   ``disagg_inject``, ``guided_mask``, ``finish``). Step times are host wall
   time (``StepTimer``); no sync is added for them.
+- **Tenant ledger** (``ledger``, ``runtime/ledger.TenantLedger``): each
+  recorded step's time is split over its rows by their marginal roofline
+  weight (``_bill_step``; scaled to device seconds by the continuous
+  profiler's measured/modelled ratio once a window landed), KV
+  block-seconds accrue from a row's first block hold, and every request's
+  bill (its ``tenant``, ``add_request(tenant=)``) is emitted once, at finish
+  or abort (``_emit_bill``). ``warmup`` first calibrates the cost model's
+  FLOPs a token from ``FlopCounterMode`` over one eager decode forward
+  (``_calibrate_cost_model``).
 - **Keys**: the JAX package's threefry discipline (``engine/prng.py``):
   a step counter folded into ``PRNGKey(rng_seed)`` wherever the JAX
   scheduler folds it, and seeded requests keyed by their own seed and
@@ -148,6 +157,7 @@ from dynamo_tpu_torch.engine.sampling import (
     pack_param_rows, sample_batch_device, sample_batch_logprobs, sample_batch_top_logprobs,
 )
 from dynamo_tpu_torch.engine.spec_decode import SpecDecodeStats, spec_verify
+from dynamo_tpu_torch.runtime.ledger import RequestBill, TenantLedger
 from dynamo_tpu_torch.llm.guided.processor import GuidedDecoder, GuidedState
 from dynamo_tpu_torch.llm.tokens import extend_block_hashes
 from dynamo_tpu_torch.native import get_native
@@ -291,6 +301,17 @@ class Sequence:
     mm_features: Optional[np.ndarray] = None
     # (trace_id, parent span id) when the request's trace records, else None.
     trace: Optional[tuple] = None
+    # Capacity ledger (runtime/ledger.py): the tenant this request bills to
+    # and its running bill. Device seconds accrue per step (_bill_step); KV
+    # block-seconds accrue from ``kv_ts``, the clock starting at the first
+    # block hold (shared prefix blocks included: every holder pays).
+    tenant: str = "anon"
+    bill_prefill_s: float = 0.0
+    bill_decode_s: float = 0.0
+    bill_flops: float = 0.0
+    bill_kv_block_s: float = 0.0
+    kv_ts: Optional[float] = None
+    billed: bool = False
     # A first token's logprob and alternatives, computed where it is drawn
     # (_sample_one) and handed out when it is appended.
     _pending_logprob: Optional[float] = None
@@ -342,6 +363,9 @@ class SchedulerConfig:
     slo_ttft_ms: Optional[float] = None
     slo_tpot_ms: Optional[float] = None
     stall_after_s: float = 120.0
+    # Tenant ledger: SpaceSaving sketch size (bounds its memory whatever
+    # the number of tenants).
+    ledger_top_k: int = 16
 
 
 @dataclass
@@ -481,8 +505,11 @@ class Scheduler:
         # (decode_multi), and the forward steps inside non-fused windows.
         # Windows are not in forward_steps_total. The fused kernel's launches
         # in the last fused window: the scrape's
-        # ``fused_window_pallas_launches`` (None before the first).
+        # ``fused_window_pallas_launches`` (None before the first). Fused
+        # windows dispatched (counted as each launches, where the total counts
+        # each once its tokens are back): the device profiler's window count.
         self.fused_windows_total = 0
+        self.fused_windows_dispatched = 0
         self.fused_sampled_windows_total = 0
         self.fused_window_pallas_launches: Optional[int] = None
         self.fused_guided_windows_total = 0
@@ -557,6 +584,12 @@ class Scheduler:
             paged_decode.reserve_counters(self.device, rows * model_config.num_kv_heads)
         self._warm_captures: Optional[int] = None
         self.warmup_stats: Optional[dict] = None
+        # Held while a step graph captures, and for a whole iteration
+        # (``step``): the device profiler holds the first through its window,
+        # so none overlaps a capture, and takes the second to open and close
+        # the window between iterations, so the window holds whole steps.
+        self.capture_lock = self._graphs.capture_lock if self._graphs is not None else threading.Lock()
+        self.step_lock = threading.Lock()
         # The overlapped pipeline: the in-flight step (_pipe), the counters
         # under the JAX package's keys, and the last decode tables upload.
         self._pipe: Optional[dict] = None
@@ -581,7 +614,10 @@ class Scheduler:
         # once; the gather reads, copies and re-reads the prefix.
         self.telemetry = Telemetry()
         self.slo = SloJudge(SloConfig(ttft_ms=self.sc.slo_ttft_ms, tpot_ms=self.sc.slo_tpot_ms))
-        self.flight = FlightRecorder(telemetry=self.telemetry, compile_probe=lambda: self.graph_captures_total)
+        self.ledger = TenantLedger(top_k=self.sc.ledger_top_k,
+                                   slo=SloConfig(ttft_ms=self.sc.slo_ttft_ms, tpot_ms=self.sc.slo_tpot_ms))
+        self.flight = FlightRecorder(telemetry=self.telemetry, compile_probe=lambda: self.graph_captures_total,
+                                     window_probe=lambda: self.fused_windows_dispatched)
         self.tracer = get_tracer()
         p_leaves = list(_tensors(params))
         kv_bytes = sum(t.numel() * t.element_size() for t in _tensors((self.cache.k, self.cache.v)))
@@ -604,6 +640,7 @@ class Scheduler:
         prefilled: Optional[dict] = None,
         mm_features: Optional[np.ndarray] = None,
         trace: Optional[tuple] = None,
+        tenant: str = "anon",
     ) -> Sequence:
         """``guided``: a grammar spec (llm/guided), or the cursor
         ``self.guided.prepare`` made of one off the step thread.
@@ -612,7 +649,8 @@ class Scheduler:
         pulled KV (``_inject_prefilled``). ``mm_features``: an image
         prompt's feature rows ``[F, hidden]`` (llm/multimodal.py), at most
         one per prompt token. ``trace``: ``(trace_id, parent span id)`` of a
-        request whose trace records (``TorchEngine.generate`` sets it)."""
+        request whose trace records (``TorchEngine.generate`` sets it).
+        ``tenant``: whom the request's capacity bill goes to."""
         if not token_ids:
             raise ValueError("empty prompt")
         if guided is not None and self.guided is None:
@@ -638,6 +676,7 @@ class Scheduler:
             prefilled=prefilled,
             mm_features=mm_features,
             trace=trace,
+            tenant=tenant or "anon",
         )
         if guided is not None:
             seq.guided = self.guided.open(guided)  # ValueError on a bad spec or a full device
@@ -952,6 +991,33 @@ class Scheduler:
         hi = next_bucket(min(2 * self._base_mixed_prefill_budget, self.sc.max_prefill_chunk), eligible)
         return [b for b in eligible if lo <= b <= hi] or [eligible[0]]
 
+    def _calibrate_cost_model(self, bucket: int, width: int) -> None:
+        """Replace the cost model's hand count of FLOPs a token (2 ·
+        params) with ``torch.utils.flop_counter.FlopCounterMode``'s count of
+        the matrix products (``aten.mm`` / ``aten.addmm``: 2·M·N·K each) in
+        one eager decode forward of ``bucket`` inactive rows, whose writes
+        land in the scratch block 0. Like XLA's cost analysis in the JAX
+        package, the count sees the products and not the attention kernel
+        (a ctypes launch on the card). The forward is no recorded step and
+        captures no graph. Failures keep the analytical count."""
+        cm = self.flight.cost_model
+        if cm is None:
+            return
+        from torch.utils.flop_counter import FlopCounterMode
+
+        try:
+            z = torch.zeros((bucket,), dtype=torch.int32, device=self.device)
+            tables = torch.zeros((bucket, width), dtype=torch.int32, device=self.device)
+            with torch.no_grad(), FlopCounterMode(display=False) as counter:
+                self.model.decode(self.params, self.mc, self.cache.k, self.cache.v, z, z, tables, z.bool())
+            products = (torch.ops.aten.mm, torch.ops.aten.addmm)
+            flops = sum(n for op, n in counter.get_flop_counts().get("Global", {}).items() if op in products)
+            if flops > 0 and cm.calibrate(flops / max(bucket, 1), source="torch_flop_counter"):
+                logger.info("cost model calibrated by FlopCounterMode: %.4g flops/token (analytical %.4g)",
+                            cm.flops_per_token, 2.0 * cm.param_count)
+        except Exception as e:  # noqa: BLE001 — calibration is best-effort
+            logger.debug("FlopCounterMode calibration unavailable: %s", e)
+
     def warmup(self, ctx_tokens: int = 2048) -> int:
         """Capture the serving-hot graphs before traffic, so a request never
         waits for a capture: the key space the JAX package's warmup
@@ -969,7 +1035,9 @@ class Scheduler:
         scratch block 0 and the cache is untouched. Returns the number of
         graphs captured; 0 on the per-piece paths, which run eagerly.
         ``warmup_stats`` keeps its wall seconds, the graphs and the bytes
-        the card's allocator reserved meanwhile (the graphs' pool)."""
+        the card's allocator reserved meanwhile (the graphs' pool). It
+        first calibrates the cost model (``_calibrate_cost_model``)."""
+        self._calibrate_cost_model(self.sc.decode_buckets[0], self._width_bucket(1))
         g = self._graphs
         if g is None:
             self._warm_captures = 0
@@ -1074,7 +1142,14 @@ class Scheduler:
         instead launches step N+1 from step N's on-device tokens and retires
         step N while the device runs, unless a composition change (waiting
         work, an abort, block growth, a finish) flushes it back to this
-        sync path."""
+        sync path.
+
+        The iteration holds ``step_lock``: the device profiler opens and
+        closes its windows between iterations."""
+        with self.step_lock:
+            return self._step()
+
+    def _step(self) -> List[tuple]:
         outputs: List[tuple] = []
         # The deadline sweep runs before the overlap path too: an expired row
         # marks itself aborted, which flushes the pipeline below.
@@ -1192,6 +1267,8 @@ class Scheduler:
         # prefill bucket and the decode rows' to decode.
         self.flight.record_mixed_step(timer.dur, len(chunk_tokens), n, kv_read_prefill=seq.num_computed,
                                       kv_read_decode=sum(s.total_len for s in batch))
+        self._bill_step(timer.dur, [(seq, "prefill", len(chunk_tokens), seq.num_computed)]
+                        + [(s, "decode", 1, s.total_len) for s in batch])
         self.telemetry.observe("itl", timer.dur)
         self._trace_event(seq, "mixed_ride", chunk_tokens=len(chunk_tokens), decode_rows=n,
                           dur_s=round(timer.dur, 6))
@@ -1220,6 +1297,10 @@ class Scheduler:
             if seq.aborted:
                 self.waiting.remove(seq)
                 seq.state = SeqState.FINISHED
+                # A request never admitted still bills its queue time (and any
+                # mid-prefill KV hold): a timeout storm in the queue is what
+                # tenant attribution must see.
+                self._emit_bill(seq, seq.abort_reason)
                 # Mid-prefill cancellations already hold blocks — release them.
                 self.allocator.release(seq.block_ids)
                 seq.block_ids = []
@@ -1346,6 +1427,8 @@ class Scheduler:
                 self._register_full_blocks(seq)
                 self._append_token(seq, int(sampled[i]), outputs)
         self.flight.record_step("wave", timer.dur, int(valid.sum()) + len(admitted), kv_read_tokens=int(pos0.sum()))
+        self._bill_step(timer.dur,
+                        [(seq, "prefill", int(valid[i]) + 1, int(pos0[i])) for i, seq in enumerate(admitted)])
         return True
 
     def _first_touch(self, seq: Sequence, pf_tokens: List[int], total_tokens: int) -> None:
@@ -1391,7 +1474,11 @@ class Scheduler:
             seq.num_cached_blocks = 0
             seq.num_computed = 0
             seq.cached_tokens = 0
+            seq.kv_ts = None
             raise
+        # The block-seconds clock starts at the first hold, shared prefix
+        # blocks included (the request pins their count).
+        self._accrue_kv(seq)
         seq.state = SeqState.PREFILL
         if seq.admitted_ts is None:
             seq.admitted_ts = time.monotonic()
@@ -1427,6 +1514,7 @@ class Scheduler:
         self.forward_steps_total += 1
         self.prefill_steps_total += 1
         self.flight.record_step("prefill", timer.dur, len(tokens), kv_read_tokens=seq.num_computed)
+        self._bill_step(timer.dur, [(seq, "prefill", len(tokens), seq.num_computed)])
         self._trace_event(seq, "prefill_chunk", tokens=len(tokens), bucket=bucket,
                           computed=seq.num_computed + len(tokens), dur_s=round(timer.dur, 6), resume=resuming)
         seq.num_computed += len(tokens)
@@ -1602,6 +1690,7 @@ class Scheduler:
             self.decode_steps_total += 1
             self._finish_decode_rows(batch, bucket, logits, outputs)
         self.flight.record_step("decode", timer.dur, len(outputs), kv_read_tokens=sum(s.total_len for s in batch))
+        self._bill_step(timer.dur, [(s, "decode", 1, s.total_len) for s in batch])
         self.telemetry.observe("itl", timer.dur)
         return outputs
 
@@ -1716,6 +1805,7 @@ class Scheduler:
                     finished = True
         self.flight.record_step("decode", timer.dur, len(pipe["batch"]),
                                 kv_read_tokens=sum(s.total_len for s in pipe["batch"]))
+        self._bill_step(timer.dur, [(s, "decode", 1, s.total_len) for s in pipe["batch"]])
         self.telemetry.observe("itl", timer.dur)
         if finished:
             self._overlap_flush(outputs, rollback=rollback)
@@ -1816,6 +1906,7 @@ class Scheduler:
                                 next_pool=pool.next_device(), guided=True)
                     self.fused_guided_windows_total += 1
                 launches0 = self._window_launches()
+                self.fused_windows_dispatched += 1
                 toks, _, _ = llama.decode_multi_fused(*args, num_steps=steps, **samp)
                 self._note_decode_dispatch()
                 self.fused_window_pallas_launches = self._window_launches() - launches0
@@ -1850,6 +1941,7 @@ class Scheduler:
         # charges its fused window one pass, held in VMEM).
         self.flight.record_step("decode", timer.dur, len(outputs) - n0,
                                 kv_read_tokens=steps * sum(s.total_len for s in batch), param_passes=float(steps))
+        self._bill_step(timer.dur, [(s, "decode", steps, steps * s.total_len) for s in batch])
         self.telemetry.observe("itl", timer.dur / max(steps, 1))
         return True
 
@@ -1919,6 +2011,7 @@ class Scheduler:
         # Both models' weights stream once for the whole window.
         self.flight.record_step("spec", dur_round, len(outputs) - n0,
                                 kv_read_tokens=2 * R * sum(s.total_len for s in batch), param_passes=1.0)
+        self._bill_step(dur_round, [(s, "decode", span, 2 * R * s.total_len) for s in batch])
         self.telemetry.observe("itl", dur_round / max(len(outputs) - n0, 1))
         return True
 
@@ -2027,8 +2120,10 @@ class Scheduler:
             # The draft holds the catch-up through old_total-1 and the
             # proposal feeds at old_total.., the first min(k, γ-1) confirmed.
             seq.d_n = old_total + min(k, gamma - 1)
-        self.flight.record_step("spec", time.perf_counter() - t_round, len(outputs) - n0,
+        dur_round = time.perf_counter() - t_round
+        self.flight.record_step("spec", dur_round, len(outputs) - n0,
                                 kv_read_tokens=2 * sum(s.total_len for s in batch))
+        self._bill_step(dur_round, [(s, "decode", S, 2 * s.total_len) for s in batch])
         return True
 
     def _finish_decode_rows(
@@ -2133,6 +2228,7 @@ class Scheduler:
         full = n_pref >= len(seq.prompt)
         n_blocks = (len(seq.prompt) + 1 + bs - 1) // bs
         seq.block_ids = self.allocator.allocate(n_blocks)  # OutOfBlocksError: retried next step
+        self._accrue_kv(seq)  # the decode leg's block-seconds clock starts at injection
         if "device_blocks" in data:
             k_stack, v_stack = data["device_blocks"]
         else:
@@ -2249,6 +2345,9 @@ class Scheduler:
             return False
         victim = max(candidates, key=lambda s: s.arrival_ts)
         self.running.remove(victim)
+        # The victim holds no block while it waits: its KV clock stops here.
+        self._accrue_kv(victim)
+        victim.kv_ts = None
         self.allocator.release(victim.block_ids)
         victim.block_ids = []
         victim.block_hashes = []
@@ -2453,14 +2552,17 @@ class Scheduler:
         # Request-level telemetry and the SLO verdict. Cancelled and failed
         # requests are not judged: the client left, and counting them as
         # violations would let an abort storm fake an SLO breach.
+        ttft_s = tpot_s = None
         if seq.first_token_ts is not None and reason in ("stop", "length"):
             ttft_s = max(0.0, seq.first_token_ts - seq.arrival_ts)
             n_out = len(seq.output_ids)
-            tpot_s = None
             if n_out > 1:
                 tpot_s = max(0.0, time.monotonic() - seq.first_token_ts) / (n_out - 1)
                 self.telemetry.observe("tpot", tpot_s)
             self.slo.judge(ttft_s, tpot_s, n_out)
+        # The request's capacity bill, while it still holds its blocks (the
+        # KV accrual closes at the true release point).
+        self._emit_bill(seq, reason, ttft_s=ttft_s, tpot_s=tpot_s)
         self._trace_event(seq, "finish", reason=reason, output_tokens=len(seq.output_ids),
                           preemptions=seq.preemptions)
         # Extend hashes over generated tokens so completed output blocks are
@@ -2484,6 +2586,89 @@ class Scheduler:
         if emit:
             outputs.append((seq, StepOutput(token_id=-1, finished=True, finish_reason=reason)))
         self.by_id.pop(seq.request_id, None)
+
+    # --- tenant capacity billing (runtime/ledger.py) ------------------------
+    def _measured_mult(self) -> float:
+        """Wall → device-seconds multiplier from the continuous profiler:
+        ``measured_modeled_mfu_ratio`` is step seconds over device seconds,
+        so device seconds a wall second is its inverse, clamped to [0.25,
+        4] so one noisy window cannot distort bills; 1.0 until a measured
+        window lands."""
+        snap = self.flight.measured_snapshot()
+        if not snap:
+            return 1.0
+        r = float(snap.get("measured_modeled_mfu_ratio") or 0.0)
+        if r <= 0.0:
+            return 1.0
+        return min(4.0, max(0.25, 1.0 / r))
+
+    def _bill_step(self, dur_s: float, rows: List[tuple]) -> None:
+        """Charge one step's time to its rows' bills. ``rows``: ``[(seq,
+        phase, tokens, kv_read_tokens)]``. Each row's share is its marginal
+        roofline weight (its FLOPs and its KV traffic; the parameter read
+        is the batch's, so it is left out), normalised so the shares sum to
+        ``dur_s`` (per-step conservation), then scaled to device seconds by
+        ``_measured_mult``. Also the per-step KV block-seconds accrual."""
+        if dur_s <= 0.0 or not rows:
+            return
+        cm = self.flight.cost_model
+        weights: List[float] = []
+        flops_rows: List[float] = []
+        for _seq, _phase, tokens, kv_read in rows:
+            if cm is not None and cm.has_peaks:
+                fl = cm.flops_per_token * tokens
+                by = (kv_read * cm.kv_read_factor + tokens) * cm.kv_bytes_per_token
+                w = max(fl / cm.peak_flops, by / cm.peak_bw)
+            else:
+                fl = cm.flops_per_token * tokens if cm is not None else 0.0
+                w = float(max(tokens, 1))
+            weights.append(max(w, 1e-12))
+            flops_rows.append(fl)
+        scale = dur_s * self._measured_mult() / sum(weights)
+        now = time.monotonic()
+        for (seq, phase, _tokens, _kv), w, fl in zip(rows, weights, flops_rows):
+            if phase == "prefill":
+                seq.bill_prefill_s += w * scale
+            else:
+                seq.bill_decode_s += w * scale
+            seq.bill_flops += fl
+            self._accrue_kv(seq, now)
+
+    def _accrue_kv(self, seq: Sequence, now: Optional[float] = None) -> None:
+        """Charge the blocks held since the last accrual point (a billed
+        step, a preemption, the finish); a block-count change mid-interval
+        is charged at the new count for at most one step."""
+        if now is None:
+            now = time.monotonic()
+        if seq.kv_ts is not None:
+            seq.bill_kv_block_s += len(seq.block_ids) * (now - seq.kv_ts)
+        seq.kv_ts = now if seq.block_ids else None
+
+    def _emit_bill(self, seq: Sequence, reason: str, ttft_s: Optional[float] = None,
+                   tpot_s: Optional[float] = None) -> None:
+        """The request's ``RequestBill`` into the ledger: the one choke
+        point (finish, deadline eviction, abort reap), guarded so a request
+        never bills twice on one worker (a migrated or disaggregated
+        request's other leg bills on its own worker). Runs while the
+        sequence still holds its blocks."""
+        if seq.billed:
+            return
+        seq.billed = True
+        self._accrue_kv(seq)
+        queue_end = seq.admitted_ts if seq.admitted_ts is not None else time.monotonic()
+        self.ledger.record(RequestBill(
+            tenant=seq.tenant,
+            request_id=seq.request_id,
+            queue_s=max(0.0, queue_end - seq.arrival_ts),
+            prefill_device_s=seq.bill_prefill_s,
+            decode_device_s=seq.bill_decode_s,
+            flops=seq.bill_flops,
+            output_tokens=len(seq.output_ids),
+            kv_block_s=seq.bill_kv_block_s,
+            finish_reason=reason,
+            ttft_s=ttft_s,
+            tpot_s=tpot_s,
+        ))
 
     def _close_guided(self, seq: Sequence) -> None:
         """A finished request's grammar rows lose their user (the pool may

@@ -20,9 +20,10 @@ neither); ``--request-timeout-ms`` is the default deadline of a request
 that sends no ``timeout`` (a 504 when it expires). ``--trace-file`` /
 ``--trace-sample`` / ``--trace-ring`` / ``--trace-tail`` (or the
 ``DYN_TRACE_*`` environment) configure the process tracer, service
-``frontend`` (off without them); ``--slo-ttft-ms`` / ``--slo-tpot-ms`` set
-the SLO targets each request is judged against (``/metrics``' slo and
-goodput families).
+``frontend``; without them it keeps its ring of the last 256 records, which
+incident bundles carry, and exports nothing. ``--slo-ttft-ms`` /
+``--slo-tpot-ms`` set the SLO targets each request is judged against
+(``/metrics``' slo and goodput families).
 
 JAX flags whose feature is not ported are not declared, so argparse
 refuses them (ROADMAP Queue 1, by item): ``--grpc-port`` (19);

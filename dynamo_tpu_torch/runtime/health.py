@@ -1,12 +1,16 @@
 """System status server: ``/health``, ``/live``, ``/metrics``, ``/debug/state``,
-``/debug/stacks`` and ``/drain``.
+``/debug/stacks``, ``/debug/profile`` and ``/drain``.
 
 The JAX package's ``runtime/health.py`` (``SystemHealth``, and
 ``SystemStatusServer`` with its routes, statuses and JSON bodies) on
 ``asyncio.start_server``: the card's machine has no aiohttp. A connection
-serves one request. ``POST /debug/profile`` answers 501: on-demand device
-profiles come with the profiling plane (ROADMAP Queue 1 item 18, second
-part). Configured by ``runtime/config.SystemConfig`` (``DYN_SYSTEM_*``).
+serves one request. ``POST /debug/profile?seconds=N[&kind=device|host]``
+runs one window on a thread, so the other routes keep answering: ``device``
+(the default) a ``runtime/profiling.DeviceProfiler`` capture (200 with its
+path, 409 while another capture runs, 500 when the capture failed, 404 with
+no profiler attached), ``host`` the stdlib stack sampler's report; seconds
+outside (0, 60] are a 400. Configured by ``runtime/config.SystemConfig``
+(``DYN_SYSTEM_*``).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import json
 import sys
 import threading
 import traceback
+import urllib.parse
 from typing import Callable, Dict, Optional, Tuple
 
 from dynamo_tpu_torch.runtime.config import SystemConfig
@@ -28,7 +33,7 @@ HEALTHY = "ready"
 UNHEALTHY = "notready"
 
 _REASONS = {200: "OK", 202: "Accepted", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-            413: "Payload Too Large", 500: "Internal Server Error", 501: "Not Implemented",
+            409: "Conflict", 413: "Payload Too Large", 500: "Internal Server Error",
             503: "Service Unavailable"}
 _MAX_HEAD = 64 << 10
 
@@ -92,7 +97,8 @@ class SystemStatusServer:
     """The routes on ``config.host:config.port`` (port 0 binds a free one,
     readable from ``self.port`` after ``start``). ``state_probe`` feeds
     ``/debug/state`` (e.g. ``TorchEngine.debug_state``); ``drain_cb`` is
-    ``POST /drain``'s coroutine (the worker's drain lifecycle)."""
+    ``POST /drain``'s coroutine (the worker's drain lifecycle); ``profiler``
+    serves ``POST /debug/profile`` (the engine's ``DeviceProfiler``)."""
 
     def __init__(
         self,
@@ -101,8 +107,10 @@ class SystemStatusServer:
         config: Optional[SystemConfig] = None,
         state_probe: Optional[Callable[[], dict]] = None,
         drain_cb: Optional[Callable[[], "asyncio.Future"]] = None,
+        profiler=None,  # runtime.profiling.DeviceProfiler
     ):
         self.health = health
+        self.profiler = profiler
         self.metrics = metrics
         self.config = config or SystemConfig()
         self.drain_cb = drain_cb
@@ -144,6 +152,7 @@ class SystemStatusServer:
                 await _respond(writer, 400, b"", "text/plain")
                 return
             method, target, _ = parts
+            query = urllib.parse.parse_qs(target.partition("?")[2])
             length = 0
             for line in lines[1:]:
                 name, _, value = line.partition(":")
@@ -160,7 +169,7 @@ class SystemStatusServer:
             if method != want:
                 await _respond(writer, 405, b"405: Method Not Allowed", "text/plain")
                 return
-            status, body, ctype = await handler()
+            status, body, ctype = await (handler(query) if path == "/debug/profile" else handler())
             await _respond(writer, status, body, ctype)
         except (asyncio.IncompleteReadError, asyncio.LimitOverrunError, ConnectionError, ValueError):
             pass
@@ -191,9 +200,27 @@ class SystemStatusServer:
             state = {"error": f"{type(e).__name__}: {e}"}
         return 200, json.dumps(state, default=str).encode(), "application/json"
 
-    async def _debug_profile(self) -> Tuple[int, bytes, str]:
-        return 501, _json({"error": "on-demand device profiles are not ported yet: they come with the "
-                                    "profiling plane (ROADMAP Queue 1 item 18, second part)"}), "application/json"
+    async def _debug_profile(self, query: Dict[str, list]) -> Tuple[int, bytes, str]:
+        """One profile window against the live process, on a thread so the
+        loop keeps serving the health probes: ``kind=device`` (the default)
+        a device capture, answering its artifact's path; ``kind=host`` the
+        stack sampler's frame report (host time by scheduler code path)."""
+        try:
+            seconds = float(query.get("seconds", ["2"])[0])
+        except ValueError:
+            return 400, _json({"error": "seconds must be a number"}), "application/json"
+        if not 0 < seconds <= 60:
+            return 400, _json({"error": "seconds must be in (0, 60]"}), "application/json"
+        if query.get("kind", ["device"])[0] == "host":
+            from dynamo_tpu_torch.runtime.profiling import HostStackSampler
+
+            report = await asyncio.to_thread(HostStackSampler().sample_for, seconds)
+            return 200, _json({"kind": "host", **report}), "application/json"
+        if self.profiler is None:
+            return 404, _json({"error": "no device profiler attached"}), "application/json"
+        result = await asyncio.to_thread(self.profiler.capture, seconds, "http")
+        status = 200 if result.get("status") == "ok" else 409 if result.get("status") == "busy" else 500
+        return status, _json({"kind": "device", **result}), "application/json"
 
     async def _drain(self) -> Tuple[int, bytes, str]:
         """``POST /drain``: begin the worker's drain (deregister, stop

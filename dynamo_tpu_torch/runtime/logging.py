@@ -4,17 +4,22 @@ A copy of the JAX package's ``runtime/logging.py`` as far as the wire needs
 it: ``init_logging`` / ``get_logger``, and ``TraceParent``'s parse, format
 and child span. A request's context carries the caller's ``traceparent`` to
 the worker, so a frontend of either package can follow it; the spans
-themselves are ``runtime/tracing.py``'s. The JSONL log format
-(``DYN_LOGGING_JSONL``) is not ported yet (ROADMAP Queue 1 item 18, second
-part).
+themselves are ``runtime/tracing.py``'s. ``DYN_LOGGING_JSONL=1`` (or
+``init_logging(jsonl=True)``) writes one JSON object a line
+(``JsonlFormatter``: ``ts``, ``level``, ``target``, ``message`` and, where a
+record carries them, ``trace_id``, ``span_id``, ``request_id``,
+``component``, ``endpoint`` and ``exception``), the JAX package's keys; the
+default stays plain text.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import secrets
 import sys
+import time
 from dataclasses import dataclass
 from typing import Mapping, Optional
 
@@ -77,18 +82,43 @@ class TraceParent:
         return f"{self.version:02x}-{self.trace_id}-{self.parent_id}-{self.flags:02x}"
 
 
+class JsonlFormatter(logging.Formatter):
+    """One JSON object a line, with the JAX package's keys."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        entry = {
+            "ts": round(time.time(), 6),
+            "level": record.levelname,
+            "target": record.name,
+            "message": record.getMessage(),
+        }
+        for k in ("trace_id", "span_id", "request_id", "component", "endpoint"):
+            v = getattr(record, k, None)
+            if v is not None:
+                entry[k] = v
+        if record.exc_info:
+            entry["exception"] = self.formatException(record.exc_info)
+        return json.dumps(entry, ensure_ascii=False)
+
+
 _INITIALIZED = False
 
 
-def init_logging(level: Optional[str] = None) -> None:
-    """Initialise process logging once; ``DYN_LOG`` sets the level."""
+def init_logging(level: Optional[str] = None, jsonl: Optional[bool] = None) -> None:
+    """Initialise process logging once: ``DYN_LOG`` sets the level,
+    ``DYN_LOGGING_JSONL`` (``1`` / ``true``) the JSONL format."""
     global _INITIALIZED
     if _INITIALIZED:
         return
     _INITIALIZED = True
     level = level or os.environ.get("DYN_LOG", "INFO")
+    jsonl = jsonl if jsonl is not None else os.environ.get("DYN_LOGGING_JSONL", "").lower() in ("1", "true")
     handler = logging.StreamHandler(sys.stderr)
-    handler.setFormatter(logging.Formatter("%(asctime)s %(levelname).1s %(name)s %(message)s", datefmt="%H:%M:%S"))
+    if jsonl:
+        handler.setFormatter(JsonlFormatter())
+    else:
+        handler.setFormatter(logging.Formatter("%(asctime)s %(levelname).1s %(name)s %(message)s",
+                                               datefmt="%H:%M:%S"))
     root = logging.getLogger()
     root.handlers[:] = [handler]
     try:

@@ -22,13 +22,16 @@ its response frames come back over TCP. The failure lifecycle:
 The breaker's ``on_transition`` hook sets the ``circuit_open{worker}``
 gauge (1 open, 0.5 half-open, 0 closed) on the router's ``metrics``
 registry, and every dispatch is a ``route`` event on the request's trace.
-Left out: the routing-decision evidence for incident bundles (ROADMAP
-Queue 1 item 18, second part).
+The last 64 routing decisions (``decisions``) and the breaker's state are
+the ``router:<endpoint>`` evidence probe of ``runtime/incidents.py``, which
+every incident bundle of the process carries ("what was sent where just
+before a worker was lost").
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import enum
 import json
 import random
@@ -40,6 +43,7 @@ from typing import Any, AsyncIterator, Dict, Optional, Set
 from dynamo_tpu_torch.runtime import msgpack_codec as msgpack
 from dynamo_tpu_torch.runtime.client import Client
 from dynamo_tpu_torch.runtime.engine import Annotated, Context, StreamDisconnect
+from dynamo_tpu_torch.runtime.incidents import register_evidence_probe
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.tracing import get_tracer
 
@@ -250,12 +254,27 @@ class PushRouter:
         self.retries_total = 0
         self._rr = 0
         self._load_task: Optional[asyncio.Task] = None
+        # The routing-decision black box an incident bundle carries.
+        self.decisions: collections.deque = collections.deque(maxlen=64)
+        register_evidence_probe(f"router:{client.endpoint.path}", self.routing_evidence)
 
     def _on_circuit_transition(self, wid: int, state: str) -> None:
         if self._metrics is not None:
             self._metrics.gauge(
                 "circuit_open", "per-worker circuit state (1=open, 0.5=half-open)", worker=f"{wid:x}",
             ).set(1.0 if state == OPEN else (0.5 if state == HALF_OPEN else 0.0))
+
+    def routing_evidence(self) -> dict:
+        """Recent routing decisions and the breaker's state (incident
+        bundles)."""
+        return {
+            "mode": self.mode.value,
+            "endpoint": self.client.endpoint.path,
+            "live_instances": [f"{i:x}" for i in self.client.instance_ids()],
+            "recent_decisions": list(self.decisions),
+            "breaker": self.breaker.snapshot(),
+            "retries_total": self.retries_total,
+        }
 
     def follow_load(self, subject: str) -> None:
         """Feed the busy monitor from the workers' load gossip on
@@ -338,6 +357,8 @@ class PushRouter:
         ctx = context or Context()
         while True:
             chosen = await self._select_with_retry(instance_id)
+            self.decisions.append({"ts": round(time.monotonic(), 3), "request_id": ctx.id,
+                                   "instance": f"{chosen:x}", "mode": self.mode.value})
             tp = ctx.traceparent
             if tp is not None:
                 get_tracer().event("route", tp.trace_id, parent_id=tp.parent_id, service="frontend",

@@ -352,12 +352,10 @@ def add_trace_args(p) -> None:
 
 
 def setup_tracing(args, service: str) -> None:
-    """Configure the process tracer from the trace flags or the DYN_TRACE_*
-    environment; with neither, tracing stays off."""
-    envs = (TRACE_FILE_ENV, TRACE_SAMPLE_ENV, TRACE_RING_ENV, TRACE_TAIL_ENV)
-    if (args.trace_file is None and args.trace_sample is None and args.trace_ring is None and not args.trace_tail
-            and not any(os.environ.get(k) for k in envs)):
-        return
+    """Configure the process tracer from the trace flags, else the
+    DYN_TRACE_* environment, as the JAX CLIs do: with neither, the tracer
+    records into its ring of ``DEFAULT_RING_SIZE`` records (the incident
+    bundles' trace evidence) and exports nothing."""
     configure_tracing(path=args.trace_file, sample=args.trace_sample, service=service, ring_size=args.trace_ring,
                       tail=args.trace_tail or None)
 

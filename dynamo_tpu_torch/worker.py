@@ -39,8 +39,9 @@ Observability, as the JAX worker wires it: ``--trace-file`` /
 ``--trace-sample`` / ``--trace-ring`` / ``--trace-tail`` (or
 ``DYN_TRACE_FILE`` / ``DYN_TRACE_SAMPLE`` / ``DYN_TRACE_RING`` /
 ``DYN_TRACE_TAIL``) configure the process tracer, service
-``worker-{role}``; given none of them, tracing stays off. The tracer is
-flushed at drain and at shutdown. ``--slo-ttft-ms`` / ``--slo-tpot-ms``
+``worker-{role}``; given none of them, it keeps its ring of the last 256
+records (the incident bundles' trace evidence) and exports nothing. The
+tracer is flushed at drain and at shutdown. ``--slo-ttft-ms`` / ``--slo-tpot-ms``
 set the engine's SLO judge, ``--stall-after-s`` its stall watchdog.
 ``--health-port`` (0 picks a free port), or ``DYN_SYSTEM_ENABLED`` with
 ``DYN_SYSTEM_PORT`` / ``DYN_SYSTEM_HOST``, serves
@@ -52,7 +53,16 @@ notready while the watchdog reads a stall; with the watchdog's keys and
 ``compiles_after_warmup_total``), ``/live``, ``/metrics`` (the engine's
 latency digests as ``dynamo_component_<stream>_seconds`` histograms and
 quantile gauges), ``/debug/state`` (``TorchEngine.debug_state``),
-``/debug/stacks`` and ``POST /drain``.
+``/debug/stacks``, ``POST /debug/profile`` (the engine's
+``DeviceProfiler``; ``kind=host`` the stack sampler) and ``POST /drain``.
+
+The black box, as the JAX worker wires it: ``--incident-dir`` (or
+``DYN_INCIDENT_DIR``) receives the incident bundles (``tools/autopsy.py``
+reads them), at most ``--incident-keep``; ``--profile-on-incident`` adds a
+short device capture to each; the continuous device-truth sampler opens a
+``--profile-window-s`` window every ``--profile-interval-s`` (off with
+``--no-continuous-profiling``); ``--profile-dir`` (or ``DYN_PROFILE_DIR``)
+is every capture's root.
 
 At shutdown it logs one line, ``worker launch counters: {json}``: each
 kernel wrapper's launches and plain calls, the scheduler's step, request,
@@ -67,10 +77,7 @@ refuses them (ROADMAP Queue 1, by item):
   ``--block-size`` (it sizes the mocker's blocks; the card here takes the
   model's block size);
 - 17: ``--tp``, ``--dp``, ``--ep``, ``--pp``, ``--num-processes``,
-  ``--process-id``, ``--coordinator``, ``--multihost-group``;
-- 18 (its second part): ``--incident-dir``, ``--incident-keep``,
-  ``--profile-on-incident``, ``--no-continuous-profiling``,
-  ``--profile-window-s``, ``--profile-interval-s``, ``--profile-dir``.
+  ``--process-id``, ``--coordinator``, ``--multihost-group``.
 """
 
 from __future__ import annotations
@@ -288,6 +295,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="watchdog: step loop idle this long with work queued => engine_stalled")
     p.add_argument("--health-port", type=int, default=None,
                    help="serve /health, /live, /metrics and /debug/state on this port (0 = a free one)")
+    p.add_argument("--incident-dir", default=None,
+                   help="write anomaly-triggered incident bundles here "
+                        "(default DYN_INCIDENT_DIR; unset = detect + count only)")
+    p.add_argument("--incident-keep", type=int, default=16, help="LRU retention cap on incident bundle files")
+    p.add_argument("--profile-on-incident", action="store_true",
+                   help="attach a short device capture (torch.profiler) to each incident bundle")
+    p.add_argument("--no-continuous-profiling", action="store_true",
+                   help="disarm the background device-truth sampler")
+    p.add_argument("--profile-window-s", type=float, default=0.25,
+                   help="continuous sampler capture window (seconds)")
+    p.add_argument("--profile-interval-s", type=float, default=30.0,
+                   help="seconds between continuous capture windows (duty-cycle-clamped)")
+    p.add_argument("--profile-dir", default=None,
+                   help="artifact root for all device captures (default DYN_PROFILE_DIR)")
     return p
 
 
@@ -313,6 +334,13 @@ def build_engine(args: argparse.Namespace) -> TorchEngine:
             kvbm_host_blocks=args.kvbm_host_blocks,
             kvbm_disk_dir=args.kvbm_disk_dir,
             kvbm_disk_blocks=args.kvbm_disk_blocks,
+            incident_dir=args.incident_dir,
+            incident_keep=args.incident_keep,
+            profile_on_incident=args.profile_on_incident,
+            continuous_profiling=not args.no_continuous_profiling,
+            profile_window_s=args.profile_window_s,
+            profile_interval_s=args.profile_interval_s,
+            profile_dir=args.profile_dir,
         )
     )
     # Guided decoding lifts grammars against the tokenizer the frontend
@@ -365,14 +393,17 @@ async def start_health_server(cfg: SystemConfig, engine: TorchEngine) -> SystemS
     yet). Readiness also follows the stall watchdog (the compile tracker's
     count rides along), ``/debug/state`` is the engine's, and ``/metrics``
     renders the engine's latency digests as the ``dynamo_component_*``
-    histogram and quantile families."""
+    histogram and quantile families; ``POST /debug/profile`` captures
+    through the engine's ``DeviceProfiler``, the one its incident plane and
+    continuous sampler share."""
     health = SystemHealth(starting_status=cfg.starting_health_status,
                           use_endpoint_health=cfg.use_endpoint_health_status)
     health.attach_engine(lambda: {**engine.watchdog.to_stats(),
                                   "compiles_after_warmup_total": engine.scheduler.flight.compiles_after_warmup_total})
     metrics = MetricsRegistry(prefix=COMPONENT_PREFIX)
     DigestCollector(COMPONENT_PREFIX, registry=metrics.registry, telemetry=engine.scheduler.telemetry)
-    server = SystemStatusServer(health, metrics=metrics, config=cfg, state_probe=engine.debug_state)
+    server = SystemStatusServer(health, metrics=metrics, config=cfg, state_probe=engine.debug_state,
+                                profiler=engine.profiler)
     await server.start()
     logger.info("health server on %s:%d", cfg.host, server.port)
     return server

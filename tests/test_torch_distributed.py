@@ -110,7 +110,7 @@ def weights():
 
 def port_engine(tp, **sched) -> TorchEngine:
     return TorchEngine.build(
-        EngineArgs(model="tiny", dtype="float32", device="cpu", eos_token_ids=[0],
+        EngineArgs(model="tiny", dtype="float32", device="cpu", eos_token_ids=[0], continuous_profiling=False,
                    scheduler=SchedulerConfig(num_blocks=64, **BUCKETS, **sched)),
         params=tp)
 
@@ -522,6 +522,12 @@ def test_stats_handler_keys_and_counts_match_jax(weights):
     # The digests: the same streams, each with the same number of samples.
     assert {n: d["total"]["count"] for n, d in port.pop("digests").items()} == {
         n: d["total"]["count"] for n, d in ref["digests"].items()}
+    # The tenant ledger's wire: the same bills, tokens and tenants (its
+    # seconds are each package's host time).
+    p_led, j_led = port.pop("tenant_ledger"), ref["tenant_ledger"]
+    assert (p_led["bills"], p_led["totals"]["output_tokens"]) == (j_led["bills"], j_led["totals"]["output_tokens"])
+    assert [r[0] for r in p_led["sketches"]["device_seconds"]["items"]] == ["anon"] == [
+        r[0] for r in j_led["sketches"]["device_seconds"]["items"]]
     # Bytes follow the attention path's KV-read factor: the port's "auto" is
     # the ragged kernel (each page read once), JAX's on the CPU the gather
     # (read, copied and read again), so the port's are at most JAX's.
@@ -626,7 +632,7 @@ def test_worker_defaults_to_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize("cli,flags", [
     ("worker", ["--mocker"]), ("worker", ["--dp", "2"]), ("worker", ["--tp", "2"]),
-    ("worker", ["--profile-dir", "x"]), ("worker", ["--incident-dir", "x"]), ("worker", ["--speedup-ratio", "2"]),
+    ("worker", ["--ep", "2"]), ("worker", ["--block-size", "16"]), ("worker", ["--speedup-ratio", "2"]),
     ("frontend", ["--grpc-port", "1"]), ("frontend", ["--fault-scenario", "x"]), ("worker", ["--pp", "2"]),
 ])
 def test_unported_jax_flags_are_refused(cli, flags):
@@ -639,15 +645,16 @@ def test_unported_jax_flags_are_refused(cli, flags):
 
 OBSERVABILITY_FLAGS = {
     "worker": ["trace_file", "trace_sample", "trace_ring", "trace_tail", "slo_ttft_ms", "slo_tpot_ms",
-               "stall_after_s", "health_port"],
+               "stall_after_s", "health_port", "incident_dir", "incident_keep", "profile_on_incident",
+               "no_continuous_profiling", "profile_window_s", "profile_interval_s", "profile_dir"],
     "frontend": ["trace_file", "trace_sample", "trace_ring", "trace_tail", "slo_ttft_ms", "slo_tpot_ms"],
 }
 
 
 @pytest.mark.parametrize("cli", sorted(OBSERVABILITY_FLAGS))
 def test_observability_flags_parse_to_jax_defaults_and_values(cli):
-    """The tracer, SLO, watchdog and health flags parse to the JAX CLI's
-    defaults, and to its values when given."""
+    """The tracer, SLO, watchdog, health, incident and profiling flags parse
+    to the JAX CLI's defaults, and to its values when given."""
     from dynamo_tpu import frontend as jfrontend
     from dynamo_tpu import worker as jworker
     from dynamo_tpu_torch import frontend as pfrontend
@@ -657,7 +664,9 @@ def test_observability_flags_parse_to_jax_defaults_and_values(cli):
     given = ["--trace-file", "t.jsonl", "--trace-sample", "0.25", "--trace-ring", "64", "--trace-tail",
              "--slo-ttft-ms", "300", "--slo-tpot-ms", "40"]
     if cli == "worker":
-        given += ["--stall-after-s", "9", "--health-port", "0"]
+        given += ["--stall-after-s", "9", "--health-port", "0", "--incident-dir", "inc", "--incident-keep", "4",
+                  "--profile-on-incident", "--no-continuous-profiling", "--profile-window-s", "0.1",
+                  "--profile-interval-s", "5", "--profile-dir", "prof"]
     for argv in ([], given):
         a, b = vars(port.build_parser().parse_args(argv)), vars(ref.build_parser().parse_args(argv))
         assert {k: a[k] for k in keys} == {k: b[k] for k in keys}, argv

@@ -10,8 +10,8 @@ loop with the same probes:
   under a patched clock behind ``attach_engine``) and comes back when the
   step loop moves, and a probe that raises reads as stalled;
 - ``POST /drain`` answers 202 once, flips readiness, and runs its hook once;
-- ``POST /debug/profile`` answers 501 and names ROADMAP item 18's second
-  part;
+- ``POST /debug/profile`` with no profiler attached answers JAX's 404 (the
+  attached profiler's answers are ``test_torch_profiling.py``'s);
 - ``SystemConfig`` reads the ``DYN_SYSTEM_*`` variables as JAX's does, and
   the worker's status server follows them (``DYN_SYSTEM_ENABLED`` or
   ``--health-port``, the host, the starting status, endpoint readiness),
@@ -117,7 +117,8 @@ def test_routes_match_jax(with_probes):
             else:
                 out.append(("POST", "/drain", *[await asyncio.to_thread(_call, s.port, "POST", "/drain")
                                                 for s, _ in servers]))
-            profile = await asyncio.to_thread(_call, servers[0][0].port, "POST", "/debug/profile?seconds=1")
+            profile = [await asyncio.to_thread(_call, s.port, "POST", "/debug/profile?seconds=1")
+                       for s, _ in servers]
         finally:
             for s, _ in servers:
                 await s.stop()
@@ -140,7 +141,7 @@ def test_routes_match_jax(with_probes):
         assert sorted(drains) == ["dynamo_tpu.runtime.health", "dynamo_tpu_torch.runtime.health"]
     else:
         assert statuses["/debug/state"] == 404 and statuses["/drain"] == 404
-    assert profile[0] == 501 and "second part" in profile[2]["error"]
+    assert profile[0][0] == profile[1][0] == 404 and profile[0][2] == profile[1][2]
 
 
 def test_metrics_route_renders_the_registry():

@@ -504,7 +504,8 @@ class _RacingInstances(dict):
 async def _race():
     import types
 
-    client = types.SimpleNamespace(drt=None, _changed=asyncio.Event())
+    # The router names its incident evidence probe by the client's endpoint.
+    client = types.SimpleNamespace(drt=None, _changed=asyncio.Event(), endpoint=types.SimpleNamespace(path="ns/c/e"))
     client.change_event = lambda: client._changed
     client.instances = _RacingInstances(client, 7)
     router = p_push.PushRouter(client)

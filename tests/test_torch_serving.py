@@ -715,7 +715,9 @@ NAMED = ("dynamo_tpu_torch.native", "dynamo_tpu_torch.llm.c_api", "dynamo_tpu_to
          "dynamo_tpu_torch.llm.image_decode", "dynamo_tpu_torch.llm.multimodal",
          "dynamo_tpu_torch.engine.models.vision", "dynamo_tpu_torch.engine.embeddings",
          "dynamo_tpu_torch.runtime.tracing", "dynamo_tpu_torch.runtime.metrics", "dynamo_tpu_torch.runtime.telemetry",
-         "dynamo_tpu_torch.runtime.health", "dynamo_tpu_torch.engine.flight_recorder")
+         "dynamo_tpu_torch.runtime.health", "dynamo_tpu_torch.engine.flight_recorder",
+         "dynamo_tpu_torch.runtime.incidents", "dynamo_tpu_torch.runtime.profiling", "dynamo_tpu_torch.runtime.ledger",
+         "dynamo_tpu_torch.llm.perf", "dynamo_tpu_torch.metrics_aggregator")
 
 
 def _port_modules():
